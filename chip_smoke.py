@@ -1,0 +1,548 @@
+"""Chip smoke test of the PyTorch port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
+
+1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
+2. builds the port's CUDA kernels from paddle_tpu_torch/csrc with nvcc
+   (sm_90a), one nvcc per source, all started together;
+3. holds each kernel against its plain PyTorch version on the card at
+   the main path's shapes — paged attention over float32, bfloat16 and
+   int8 pools with ragged lengths and NaN past each length; causal flash
+   attention with a key-padding bias at T = 32, 64, 128 — and times the
+   kernel, the plain version and, for flash, one library call
+   (scaled_dot_product_attention, never used by the port);
+4. serves a stream of 64 ragged requests through DecodeEngine at the
+   repository's decode-serving configuration (DecoderLM vocab 8192,
+   4 layers, 8 heads, d_model 512; 16 slots, 384 pages of 16 tokens,
+   bfloat16 KV, prefill buckets 32/64/128, decode chunk 16), with the
+   kernel launch counts set to 0 just before and read just after;
+   then times one decode step's host and device time alone (4b);
+5. runs a short float32-KV stream on the card and the same requests
+   through the port on the CPU from the same weights, and compares the
+   prefill logits and one decode step's logits;
+6. prints one `kernels` JSON line, the card line, and as its last line
+   {"ok": true, "device": {...}}.
+
+Any failed check raises, so the script exits non-zero and prints no
+result line; without CUDA it exits 1 at once.  Details go to
+chip_smoke_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s
+# outside the tensor cores — both kernels compute in float32 on the CUDA
+# cores.  A card below its 700 W limit runs slower than these.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# the configuration of the reference's decode-serving bench
+# (paddle_tpu bench.py:1250-1257), at full width and depth
+ARCH = dict(vocab_size=8192, n_layer=4, n_head=8, d_model=512,
+            d_inner=1024, seed=0)
+SERVE = dict(num_slots=16, page_size=16, max_len=512, num_pages=384,
+             prefill_buckets=(32, 64, 128), decode_chunk=16)
+N_REQUESTS = 64
+
+TOL_KERNEL = 2e-5     # f32 on both sides, other summation order
+TOL_LOGITS = 1e-3     # f32 end to end, TF32 off, logits of size ~1-10
+
+OUT_DIR = "chip_smoke_out"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=100, warmup=10) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_close(name, got, want, tol):
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got - want).abs()
+    abs_err = float(err.max())
+    rel_err = float((err / want.abs().clamp_min(1e-6)).max())
+    ok = abs_err <= tol + tol * float(want.abs().max())
+    log(f"  {name}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
+        f"(tol {tol:g} abs + {tol:g} rel) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: outside the tolerance "
+                             f"(max abs err {abs_err:.3e})")
+    return abs_err
+
+
+# -- phase 3: kernels against their plain versions ------------------------
+
+def paged_case(kv_dtype, dev, seed=0):
+    """One decode step of the main path: 16 slots, 8 heads of 64, pools of
+    384 pages of 16 rows, 32 pages per slot, ragged lengths as the stream
+    has them (prompt 8-128 plus up to 96 generated), NaN past each
+    length inside the slot's last page."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pk
+
+    g = torch.Generator().manual_seed(seed)
+    s, h, d = SERVE["num_slots"], ARCH["n_head"], ARCH["d_model"] // \
+        ARCH["n_head"]
+    p, page = SERVE["num_pages"], SERVE["page_size"]
+    maxp = SERVE["max_len"] // page
+    hd = h * d
+    lens = torch.randint(8, 128 + 96 + 1, (s,), generator=g,
+                         dtype=torch.int32)
+    pt = torch.zeros(s, maxp, dtype=torch.int32)
+    perm = torch.randperm(p, generator=g)
+    used = [-(-int(n) // page) for n in lens]
+    off = 0
+    for i in range(s):
+        pt[i, :used[i]] = perm[off:off + used[i]]
+        off += used[i]
+    q = torch.randn(s, hd, generator=g)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        kc = torch.randint(-127, 128, (p, page, hd), generator=g,
+                           dtype=torch.int8)
+        vc = torch.randint(-127, 128, (p, page, hd), generator=g,
+                           dtype=torch.int8)
+        ks = (torch.rand(p, page, 1, generator=g) * 0.02).to(dev)
+        vs = (torch.rand(p, page, 1, generator=g) * 0.02).to(dev)
+    else:
+        kc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
+        vc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
+        for i in range(s):
+            for t in range(int(lens[i]), used[i] * page):
+                kc[pt[i, t // page], t % page] = 1e3
+                vc[pt[i, t // page], t % page] = float("nan")
+    args = [x.to(dev) for x in (q, kc, vc, pt, lens)]
+    return pk, args, h, ks, vs
+
+
+def phase_kernels(dev):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    rows = {}
+    log("phase 3: kernels vs plain versions on the card")
+    errs = []
+    for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        pk, (q, kc, vc, pt, lens), h, ks, vs = paged_case(kv_dtype, dev)
+
+        def kern():
+            return pk.paged_attention(q, kc, vc, pt, lens, n_head=h,
+                                      k_scales=ks, v_scales=vs)
+
+        def plain():
+            return pk.paged_attention_plain(q, kc, vc, pt, lens, h,
+                                            k_scales=ks, v_scales=vs)
+
+        got = kern()
+        torch.cuda.synchronize()
+        errs.append(check_close(f"paged_attention {kv_dtype}", got,
+                                plain(), TOL_KERNEL))
+        if kv_dtype == torch.bfloat16:          # the main path's pools
+            k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+            nbytes, flops = pk.bound_bytes_and_flops(q, kc, pt, lens, h)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            rows["paged_attention"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops=flops,
+                shape=f"S=16 P=384 page=16 maxp=32 H*D=512 bf16, "
+                      f"sum(lengths)={int(lens.sum())}")
+            log(f"  paged_attention bf16: kernel_ms {k_ms:.5f} "
+                f"plain_ms {p_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
+    rows.setdefault("paged_attention", {})["max_abs_err"] = max(errs)
+
+    errs = []
+    n, h, d = SERVE["num_slots"], ARCH["n_head"], ARCH["d_model"] // \
+        ARCH["n_head"]
+    for t in SERVE["prefill_buckets"]:
+        g = torch.Generator().manual_seed(t)
+        q, k, v = (torch.randn(n, t, h * d, generator=g).to(dev)
+                   for _ in range(3))
+        seq = torch.randint(0, t + 1, (n,), generator=g)
+        seq[0] = 0                              # a slot not joining
+        bias = ((torch.arange(t)[None, :] < seq[:, None]).float() * 1e9
+                - 1e9).reshape(n, 1, 1, t).to(dev)
+        scale = d ** -0.5
+
+        def kern():
+            return fk.flash_attention_fwd(q, k, v, bias, scale, True,
+                                          layout="nthd", n_head=h)
+
+        def plain():
+            return fk.flash_attention_fwd_plain(q, k, v, bias, scale, True,
+                                                layout="nthd", n_head=h)
+
+        o, lse = kern()
+        torch.cuda.synchronize()
+        wo, wl = plain()
+        errs.append(check_close(f"flash_attention_fwd T={t} out", o, wo,
+                                TOL_KERNEL))
+        check_close(f"flash_attention_fwd T={t} lse", lse, wl, TOL_KERNEL)
+        if t == max(SERVE["prefill_buckets"]):
+            causal = torch.full((t, t), float("-inf"), device=dev).triu(1)
+            mask = bias + causal                   # (N, 1, T, T)
+            q4, k4, v4 = (x.view(n, t, h, d).transpose(1, 2)
+                          for x in (q, k, v))
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, scale=scale)
+
+            k_ms, p_ms, l_ms = cuda_ms(kern), cuda_ms(plain), \
+                cuda_ms(library)
+            nbytes, flops = fk.bound_bytes_and_flops(q, k, bias, True,
+                                                     "nthd", h)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            rows["flash_attention_fwd"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops=flops,
+                shape=f"N=16 T={t} H=8 D=64 f32 nthd causal+key bias")
+            log(f"  flash_attention_fwd T={t}: kernel_ms {k_ms:.5f} "
+                f"plain_ms {p_ms:.5f} library_ms {l_ms:.5f} "
+                f"bound_ms {b_ms:.5f} ({b_by})")
+    rows["flash_attention_fwd"]["max_abs_err"] = max(errs)
+    return rows
+
+
+# -- phase 4: the serving stream ------------------------------------------
+
+def phase_stream(dev):
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+
+    log("phase 4: DecodeEngine stream on the card")
+    lm = DecoderLM(kv_dtype="bfloat16", prefill_pallas=True, **ARCH)
+    cfg = DecodeConfig(kv_dtype="bfloat16", **SERVE)
+    t0 = time.perf_counter()
+    eng = DecodeEngine(lm, cfg, place=CUDAPlace(0)).start()
+    log(f"  start (startup program + warmup): "
+        f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, ARCH["vocab_size"], size=int(n))
+               for n in rng.randint(8, 129, size=N_REQUESTS)]
+    budgets = [int(b) for b in rng.randint(48, 97, size=N_REQUESTS)]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=b)
+            for p, b in zip(prompts, budgets)]
+    outs = [f.result(600) for f in futs]
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    assert eng.drain(60)
+    snap = eng.stats.snapshot()
+    eng.close()
+    bad = [(i, len(o), b) for i, (o, b) in enumerate(zip(outs, budgets))
+           if len(o) != b]
+    assert not bad, f"requests without their full budget: {bad[:5]}"
+    assert snap["executor_failures"] == 0, snap
+    assert snap["post_warmup_compiles"] == 0, snap
+    la, pl = counts["launches"], counts["plain"]
+    # one launch per layer for each step run and each prefill run
+    layers = ARCH["n_layer"]
+    assert la["paged_attention"] == layers * snap["decode_iterations"], \
+        (la, snap["decode_iterations"])
+    assert la["flash_attention_fwd"] == layers * snap["prefills"], \
+        (la, snap["prefills"])
+    assert min(la.values()) > 0 and max(pl.values()) == 0, counts
+    tokens = snap["tokens_generated"]
+    res = {"requests": N_REQUESTS, "tokens": tokens,
+           "budget_tokens": sum(budgets), "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_ms": snap["ttft_ms"], "tpot_ms": snap["tpot_ms"],
+           "decode_iterations": snap["decode_iterations"],
+           "decode_dispatches": snap["decode_dispatches"],
+           "prefills": snap["prefills"],
+           "preemptions": snap["preemptions"],
+           "slot_occupancy": snap["slot_occupancy"],
+           "kv_page_utilization": snap["kv_page_utilization"],
+           "post_warmup_compiles": snap["post_warmup_compiles"],
+           "warmup": snap["warmup"], "launches": la, "plain_calls": pl}
+    log(f"  {N_REQUESTS} requests, {tokens} tokens in {wall:.3f} s: "
+        f"{tokens / wall:.1f} tokens/s")
+    log(f"  TTFT p50 {snap['ttft_ms']['p50_ms']} ms p99 "
+        f"{snap['ttft_ms']['p99_ms']} ms; TPOT p50 "
+        f"{snap['tpot_ms']['p50_ms']} ms p99 {snap['tpot_ms']['p99_ms']} ms")
+    log(f"  decode iterations {snap['decode_iterations']}, prefills "
+        f"{snap['prefills']}, preemptions {snap['preemptions']}, "
+        f"post_warmup_compiles {snap['post_warmup_compiles']}")
+    log(f"  launches {la}, plain calls {pl}")
+    return res
+
+
+# -- phase 4b: where one decode step's time goes -------------------------
+
+def phase_step_profile(dev, steps=20):
+    """The step program alone, run as the engine runs it (16 active
+    slots at ragged lengths, next tokens read back after every run), on
+    this thread: host ms per step without the profiler, then one
+    torch.profiler window for the device's busy time and the costliest
+    kernels and host ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.core.executor import interpret_program
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM
+
+    log("phase 4b: one decode step, host vs device")
+    lm = DecoderLM(kv_dtype="bfloat16", prefill_pallas=True, **ARCH)
+    scope = lm.init_params(place=CUDAPlace(0))
+    s, page = SERVE["num_slots"], SERVE["page_size"]
+    maxp = SERVE["max_len"] // page
+    rng = np.random.RandomState(3)
+    lens = rng.randint(8, 128 + 96 - steps, size=s).astype(np.int32)
+    n_pg = -(-(int(lens.max()) + steps + 1) // page)   # disjoint pages
+    pt = np.zeros((s, maxp), np.int32)
+    pt[:, :n_pg] = np.arange(s * n_pg).reshape(s, n_pg)
+    env = {n: v for n, v in scope.vars.items()
+           if isinstance(v, torch.Tensor)}
+    env.update(lm.fresh_pools(SERVE["num_pages"], page, dev))
+    env["page_table"] = torch.as_tensor(pt).to(dev)
+    step = lm.step
+    fetch = (step["next_token"], *step["cache_outs"])
+    tok = rng.randint(1, ARCH["vocab_size"], size=s).astype(np.int32)
+
+    def run_steps(n):
+        nonlocal tok
+        for i in range(n):
+            pos = lens + i
+            feed = torch.as_tensor(np.stack(
+                [tok, pos, pos + 1, np.ones_like(pos)])).to(dev)
+            out = interpret_program(
+                step["main"], dict(env, tokens=feed[0], write_pos=feed[1],
+                                   lengths=feed[2], active=feed[3]),
+                None, fetch_names=fetch, device=dev)
+            tok = out[step["next_token"]].to(torch.int32).cpu().numpy()
+
+    run_steps(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(steps)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps(steps)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / steps
+    avg = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only: the host ops that launched them carry the
+    # same time again in their own rows
+    kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3 / steps
+    host = sorted((e for e in avg if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    res = {"step_ms": step_ms, "profiled_step_ms": prof_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           "kernel_launches_per_step": sum(e.count for e in kern) / steps,
+           "top_kernels": [(e.key, e.count // steps,
+                            dev_us(e) / steps) for e in kern[:8]],
+           "top_host_ops": [(e.key, e.count // steps,
+                             e.self_cpu_time_total / steps)
+                            for e in host[:8]]}
+    log(f"  step {step_ms:.3f} ms (profiled {prof_ms:.3f} ms); device "
+        f"busy {busy_ms:.4f} ms/step, idle share "
+        f"{res['device_idle_share']:.3f}; "
+        f"{res['kernel_launches_per_step']:.0f} kernels/step")
+    for name, n, us in res["top_kernels"]:
+        log(f"    device {us:9.2f} us/step  x{n:<3d} {name[:70]}")
+    for name, n, us in res["top_host_ops"]:
+        log(f"    host   {us:9.2f} us/step  x{n:<3d} {name[:70]}")
+    return res
+
+
+# -- phase 5: the card against the CPU ------------------------------------
+
+def phase_card_vs_cpu(dev):
+    from paddle_tpu_torch import CPUPlace, CUDAPlace
+    from paddle_tpu_torch.convert import params_from_arrays
+    from paddle_tpu_torch.core.executor import interpret_program
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM
+    from paddle_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+
+    log("phase 5: float32-KV stream, card vs CPU, same weights")
+    lm = DecoderLM(kv_dtype="float32", prefill_pallas=True, **ARCH)
+    scope = lm.init_params(place=CUDAPlace(0))
+    arrays = {n: v.cpu().numpy() for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor)}
+    s, page = SERVE["num_slots"], SERVE["page_size"]
+    maxp = SERVE["max_len"] // page
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, ARCH["vocab_size"], size=n)
+               for n in (9, 31, 64, 100)]
+    # one prefill (bucket 128) of the four prompts, then one step
+    bucket = 128
+    n_pg = bucket // page + 1
+    tokens = np.zeros((s, bucket), np.int32)
+    seq_len = np.zeros((s,), np.int32)
+    pt = np.zeros((s, maxp), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+        seq_len[i] = len(p)
+        pt[i, :n_pg] = i * maxp + np.arange(n_pg)
+    envs = {}
+    for device in ("cpu", dev):
+        env = params_from_arrays(arrays, device, program=lm.step["main"])
+        env.update(lm.fresh_pools(s * maxp, page, device))
+        feeds = dict(tokens=tokens, seq_len=seq_len, page_table=pt,
+                     last_idx=np.maximum(seq_len - 1, 0)[:, None])
+        env.update({n: torch.as_tensor(a).to(device)
+                    for n, a in feeds.items()})
+        envs[device] = env
+
+    def run(device, built, **feeds):
+        """One program run on `device`; the pools carry over."""
+        env = envs[device]
+        env.update({n: torch.as_tensor(a).to(device)
+                    for n, a in feeds.items()})
+        env = interpret_program(
+            built["main"], env, None,
+            fetch_names=(built["logits"], *built["cache_outs"]),
+            device=torch.device(device))
+        for n, o in zip(lm.cache_feed_names(), built["cache_outs"]):
+            env[n] = env[o]
+        envs[device] = env
+        return env[built["logits"]][:len(prompts)].float().cpu()
+
+    logits = {d: [run(d, lm.prefill(bucket))] for d in ("cpu", dev)}
+    # both devices decode the same next token: the CPU's first token
+    nxt = np.zeros((s,), np.int32)
+    nxt[:len(prompts)] = logits["cpu"][0].argmax(-1).numpy()
+    for d in ("cpu", dev):
+        logits[d].append(run(d, lm.step, tokens=nxt, write_pos=seq_len,
+                             lengths=seq_len + 1,
+                             active=(seq_len > 0).astype(np.int32)))
+    errs = [check_close(f"{name} logits (card vs CPU)", c, h, TOL_LOGITS)
+            for name, c, h in zip(("prefill", "decode step"),
+                                  logits[dev], logits["cpu"])]
+    # the same four requests through both engines, from the same weights
+    cfg = DecodeConfig(kv_dtype="float32", **SERVE)
+    streams = []
+    for place, device in ((CUDAPlace(0), dev), (CPUPlace(), "cpu")):
+        eng = DecodeEngine(lm, cfg, place=place,
+                           params=params_from_arrays(arrays, device))
+        eng.start()
+        futs = [eng.submit(p, max_new_tokens=48) for p in prompts]
+        streams.append([f.result(600).tolist() for f in futs])
+        eng.close()
+    same = sum(a == b for x, y in zip(*streams) for a, b in zip(x, y))
+    total = sum(len(x) for x in streams[0])
+    log(f"  engine tokens equal card vs CPU: {same}/{total}")
+    return {"prefill_logits_max_abs_err": errs[0],
+            "step_logits_max_abs_err": errs[1],
+            "stream_tokens_equal": same, "stream_tokens": total}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"phase 1: card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"  TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}; torch "
+        f"{torch.__version__} CUDA {torch.version.cuda}")
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"phase 2: built {sorted(built)} in "
+        f"{time.perf_counter() - t0:.2f} s (per source: "
+        f"{ {k: round(v, 2) for k, v in built.items()} })")
+    for name in _build.KERNEL_SOURCES:
+        # ptxas -v: registers and shared memory of each instantiation
+        used = sorted({ln.split(":", 1)[1].strip() for ln in
+                       _build.build_log(name).splitlines()
+                       if "Used" in ln and "registers" in ln})
+        log(f"  {name}: {used}")
+
+    rows = phase_kernels(dev)
+    stream = phase_stream(dev)
+    profile = phase_step_profile(dev)
+    parity = phase_card_vs_cpu(dev)
+
+    replaces = {
+        "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:163",
+        "flash_attention_fwd":
+            "paddle_tpu/ops/pallas/flash_attention.py:276",
+    }
+    kern = []
+    for name in ("paged_attention", "flash_attention_fwd"):
+        r = rows[name]
+        kern.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/csrc/{name}.cu",
+                     "replaces": replaces[name],
+                     "launches": stream["launches"][name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "kernels": rows, "stream": stream,
+                   "step_profile": profile, "card_vs_cpu": parity,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1,
+                  default=str)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kern}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,277 @@
+"""Executor: interpret a Program op by op on torch tensors.
+
+The port of paddle_tpu/core/executor.py, forward only (reference:
+paddle/fluid/framework/executor.cc — Run:299, the op-by-op hot loop at
+:448-455).  Where the reference traces the whole program once into one
+`jax.jit` computation, the port runs each op's torch implementation
+eagerly on the executor's device — the reference C++ executor's own
+model.  Training programs (a `backward_marker` split) are not ported
+yet: ROADMAP queue A item 2.
+
+Places follow Paddle's idiom: `CUDAPlace(0)` runs on `cuda:0`,
+`CPUPlace()` on the CPU.  `Executor()` without a place means
+`CUDAPlace(0)` and raises when CUDA is not available — the CPU runs only
+when the caller asks for it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .program import Program, Variable
+from .registry import OpContext, get_op_impl
+
+# Scope key of the executor's RNG state (the reference's jax PRNG key;
+# here the count of runs that drew from it).
+RNG_STATE_VAR = "__rng_key__"
+
+
+class Scope:
+    """Name → value store for persistable state (reference: scope.h:48).
+
+    Parent-chain lookup is kept for API parity; values are torch tensors
+    on the executor's device.
+    """
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self.parent = parent
+        self.vars: Dict[str, Any] = {}
+        self.kids: List["Scope"] = []
+
+    def new_scope(self) -> "Scope":
+        kid = Scope(self)
+        self.kids.append(kid)
+        return kid
+
+    def var(self, name: str):
+        """Find-or-create (reference scope.h:56 Var)."""
+        if name not in self.vars:
+            self.vars[name] = None
+        return self.vars[name]
+
+    def find_var(self, name: str):
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s.vars:
+                return s.vars[name]
+            s = s.parent
+        return None
+
+    def set_var(self, name: str, value):
+        self.vars[name] = value
+
+    def has_var(self, name: str) -> bool:
+        return self.find_var(name) is not None
+
+    def local_var_names(self) -> List[str]:
+        return list(self.vars)
+
+    def drop_kids(self):
+        self.kids = []
+
+
+_global_scope = Scope()
+
+
+def global_scope() -> Scope:
+    return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    global _global_scope
+    old = _global_scope
+    _global_scope = scope
+    try:
+        yield
+    finally:
+        _global_scope = old
+
+
+def place_device(place) -> torch.device:
+    """The torch device of a Paddle place.  None means CUDAPlace(0),
+    which needs CUDA: without it this raises instead of falling back to
+    the CPU."""
+    from .. import CPUPlace, CUDAPlace
+
+    if place is None:
+        place = CUDAPlace(0)
+    if isinstance(place, CPUPlace):
+        return torch.device("cpu")
+    if isinstance(place, CUDAPlace):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{place!r} requested (the default place) but CUDA is not "
+                f"available; pass CPUPlace() to run on the CPU")
+        return torch.device("cuda", place.device_id)
+    raise TypeError(f"unknown place {place!r}; use CPUPlace() or "
+                    f"CUDAPlace(id)")
+
+
+# ---------------------------------------------------------------------------
+# Program interpretation
+# ---------------------------------------------------------------------------
+
+def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
+            program=None, device=None):
+    """Run a straight-line op list over `env` (name → tensor), in order
+    — the executor hot loop (executor.cc:448).  `seed` is the run's RNG
+    seed material (see OpContext.rng), None when no op may draw."""
+    for i, op in enumerate(ops):
+        _run_one_op(op, env, seed, start_index + i, program=program,
+                    device=device)
+    return env
+
+
+def _run_one_op(op, env, seed, op_index, program=None, device=None):
+    desc = op.desc
+    try:
+        impl = get_op_impl(desc.type)
+        ins = {slot: [env[n] for n in names]
+               for slot, names in desc.inputs.items()}
+        ctx = OpContext(seed, op_index=op_index, program=program,
+                        device=device)
+        outs = impl(ctx, ins, desc.attrs)
+    except Exception as exc:
+        _reraise_with_op_context(exc, desc, op_index)
+    for slot, names in desc.outputs.items():
+        values = outs.get(slot, [])
+        if len(values) != len(names):
+            raise RuntimeError(
+                f"op {desc.type}: output slot {slot!r} produced "
+                f"{len(values)} values for {len(names)} names")
+        for name, val in zip(names, values):
+            env[name] = val
+    return env
+
+
+def _reraise_with_op_context(exc: Exception, desc, op_index: int):
+    """Attach op type/index/io context to a failure — the reference's
+    PADDLE_ENFORCE discipline (platform/enforce.h) so a failing op inside
+    a 500-op program is locatable.  The original traceback is preserved
+    via exception chaining."""
+    detail = (
+        f"error while running op[{op_index}] {desc.type!r} "
+        f"(inputs={desc.inputs}, outputs={desc.outputs}, "
+        f"attrs={ {k: v for k, v in desc.attrs.items() if not str(k).startswith('_')} })"
+    )
+    try:
+        new_exc = type(exc)(f"{detail}\n  caused by: {exc}")
+    except Exception:  # noqa: BLE001 — exception types with odd ctors
+        new_exc = RuntimeError(f"{detail}\n  caused by: {exc!r}")
+    raise new_exc from exc
+
+
+def prune_ops(program: Program, fetch_names):
+    """Dead-op elimination: keep ops contributing to fetches or writing
+    persistable state (reference analog: framework/prune.cc)."""
+    ops = program.global_block().ops
+    block = program.global_block()
+
+    def is_persistable(name: str) -> bool:
+        return block.has_var(name) and block.var(name).persistable
+
+    needed = set(fetch_names)
+    keep = [False] * len(ops)
+    for i in range(len(ops) - 1, -1, -1):
+        desc = ops[i].desc
+        outs = desc.output_names()
+        if any(n in needed for n in outs) or any(
+                is_persistable(n) for n in outs):
+            keep[i] = True
+            needed.update(desc.input_names())
+    return [op for i, op in enumerate(ops) if keep[i]]
+
+
+def _pruned(program: Program, fetch_names):
+    """prune_ops memoized per (program version, fetches): the decode
+    engine interprets the same program for every step."""
+    key = (program._version, tuple(fetch_names))
+    cache = program.__dict__.setdefault("_pruned_ops", {})
+    ops = cache.get(key)
+    if ops is None:
+        ops = cache[key] = prune_ops(program, fetch_names)
+    return ops
+
+
+def interpret_program(program: Program, env: Dict[str, Any], seed,
+                      fetch_names=(), device=None):
+    """Run the program's forward ops over env (pruned to what the fetches
+    and persistable state need).  Programs with a backward section are
+    not ported yet."""
+    if program._backward_info is not None:
+        raise NotImplementedError(
+            "training programs (backward + optimizer ops) are not ported "
+            "yet: ROADMAP queue A item 2 (executor autodiff split)")
+    if len(program.blocks) > 1:
+        raise NotImplementedError(
+            "control-flow sub-blocks are not ported yet: ROADMAP queue A "
+            "item 6 (ops/control_flow.py)")
+    return run_ops(_pruned(program, fetch_names), env, seed,
+                   program=program, device=device)
+
+
+class Executor:
+    """Run programs on one device (reference: python/paddle/fluid/
+    executor.py:445 Executor.run and paddle/fluid/framework/executor.cc).
+
+    place: CUDAPlace(id) or CPUPlace(); None means CUDAPlace(0) and
+    raises when CUDA is not available.
+    """
+
+    def __init__(self, place=None):
+        self.place = place
+        self.device = place_device(place)
+
+    def run(self, program: Optional[Program] = None,
+            feed: Optional[Dict[str, Any]] = None,
+            fetch_list: Optional[Sequence[Any]] = None,
+            scope: Optional[Scope] = None,
+            return_numpy: bool = True):
+        from .program import default_main_program
+
+        program = program or default_main_program()
+        scope = scope or global_scope()
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        block = program.global_block()
+        run = scope.find_var(RNG_STATE_VAR) or 0
+        scope.set_var(RNG_STATE_VAR, run + 1)
+        env: Dict[str, Any] = {}
+        for v in block.vars.values():
+            if v.persistable and scope.find_var(v.name) is not None:
+                env[v.name] = scope.find_var(v.name)
+        for name, value in (feed or {}).items():
+            env[name] = self._to_tensor(value, block, name)
+        interpret_program(program, env, (program.random_seed, run),
+                          fetch_names=fetch_names, device=self.device)
+        for v in block.vars.values():
+            if v.persistable and v.name in env:
+                scope.set_var(v.name, env[v.name])
+        missing = [n for n in fetch_names if n not in env]
+        if missing:
+            raise KeyError(f"fetch target(s) {missing} were not computed "
+                           f"by the program")
+        fetches = [env[n] for n in fetch_names]
+        if return_numpy:
+            fetches = [f.detach().cpu().numpy() for f in fetches]
+        return fetches
+
+    def close(self):
+        """Nothing to release: the port keeps no compiled executables."""
+
+    def _to_tensor(self, value, block, name):
+        if isinstance(value, torch.Tensor):
+            return value.to(self.device)
+        arr = np.asarray(value)
+        if block.has_var(name):
+            from ..ops.common import to_torch_dtype
+
+            return torch.as_tensor(arr).to(
+                device=self.device,
+                dtype=to_torch_dtype(block.var(name).dtype))
+        return torch.as_tensor(arr, device=self.device)

@@ -1,0 +1,645 @@
+"""Program / Block / Variable: the user-facing graph-building API.
+
+A copy of paddle_tpu/core/program.py (reference:
+python/paddle/fluid/framework.py — Program:1510, Block:992, Operator:551,
+Variable:231, Parameter:2104, program_guard, name_scope:106).
+
+Layer functions append OpDescs to the default main Program and parameter
+initialization ops to the default startup Program, exactly like Fluid's two
+implicit global programs.  The builder is the reference's, byte for byte in
+what it records, so `Program.to_dict()` of a model built here equals the
+one paddle_tpu builds.  The port's Executor (core/executor.py) interprets
+the finished program op by op on torch tensors.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import itertools
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import unique_name
+from .desc import OpDesc, PROGRAM_FORMAT_VERSION, VarDesc, normalize_dtype
+
+GRAD_SUFFIX = "@GRAD"  # reference: paddle/fluid/framework/operator.h:64
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
+
+class Variable:
+    """Symbolic handle to a program variable.
+
+    Mirrors fluid.framework.Variable (framework.py:231): carries name,
+    shape (-1 = dynamic batch dim), dtype; arithmetic operators are
+    overloaded to append elementwise ops (reference:
+    python/paddle/fluid/layers/math_op_patch.py).
+    """
+
+    def __init__(self, block: "Block", desc: VarDesc):
+        self.block = block
+        self.desc = desc
+
+    # --- desc accessors -------------------------------------------------
+    @property
+    def name(self) -> str:
+        return self.desc.name
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.desc.shape)
+
+    @property
+    def dtype(self) -> str:
+        return self.desc.dtype
+
+    @property
+    def persistable(self) -> bool:
+        return self.desc.persistable
+
+    @persistable.setter
+    def persistable(self, v: bool):
+        self.desc.persistable = v
+
+    @property
+    def stop_gradient(self) -> bool:
+        return self.desc.stop_gradient
+
+    @stop_gradient.setter
+    def stop_gradient(self, v: bool):
+        self.desc.stop_gradient = v
+
+    @property
+    def lod_level(self) -> int:
+        return self.desc.lod_level
+
+    def __repr__(self):
+        return (
+            f"Variable(name={self.name!r}, shape={self.shape}, "
+            f"dtype={self.dtype}, persistable={self.persistable})"
+        )
+
+    # --- math op patching ----------------------------------------------
+    def _elementwise(self, other, op_type: str, reverse: bool = False):
+        from .. import layers  # lazy: layers depends on program
+
+        if isinstance(other, (int, float, np.floating, np.integer)):
+            if op_type == "elementwise_add":
+                return layers.scale(self, scale=1.0, bias=float(other))
+            if op_type == "elementwise_sub":
+                if reverse:
+                    return layers.scale(self, scale=-1.0, bias=float(other))
+                return layers.scale(self, scale=1.0, bias=-float(other))
+            if op_type == "elementwise_mul":
+                return layers.scale(self, scale=float(other), bias=0.0)
+            other = layers.fill_constant(
+                shape=[1], dtype=self.dtype, value=float(other)
+            )
+        x, y = (other, self) if reverse else (self, other)
+        return layers.elementwise_op(op_type, x, y)
+
+    def __add__(self, other):
+        return self._elementwise(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._elementwise(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._elementwise(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._elementwise(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._elementwise(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._elementwise(other, "elementwise_div", reverse=True)
+
+    def __pow__(self, other):
+        return self._elementwise(other, "elementwise_pow")
+
+    def __neg__(self):
+        from .. import layers
+
+        return layers.scale(self, scale=-1.0)
+
+    def _compare(self, other, op_type):
+        from .. import layers
+
+        if isinstance(other, (int, float, np.floating, np.integer)):
+            other = layers.fill_constant(
+                shape=[1], dtype=self.dtype, value=float(other)
+            )
+        return layers.elementwise_op(op_type, self, other, out_dtype="bool")
+
+    def __lt__(self, other):
+        return self._compare(other, "less_than")
+
+    def __le__(self, other):
+        return self._compare(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._compare(other, "greater_than")
+
+    def __ge__(self, other):
+        return self._compare(other, "greater_equal")
+
+    def astype(self, dtype):
+        from .. import layers
+
+        return layers.cast(self, dtype)
+
+
+class Parameter(Variable):
+    """Trainable persistable variable (fluid framework.py:2104).
+
+    Carries optimizer-adjacent metadata: regularizer, gradient clip attr,
+    learning-rate multiplier, trainable flag.
+    """
+
+    def __init__(self, block, desc, regularizer=None, gradient_clip_attr=None,
+                 learning_rate: float = 1.0, trainable: bool = True):
+        super().__init__(block, desc)
+        desc.persistable = True
+        desc.is_parameter = True
+        desc.trainable = trainable
+        self.regularizer = regularizer
+        self.gradient_clip_attr = gradient_clip_attr
+        self.learning_rate = learning_rate
+
+    @property
+    def trainable(self) -> bool:
+        return self.desc.trainable
+
+    @trainable.setter
+    def trainable(self, v: bool):
+        self.desc.trainable = v
+
+
+class Operator:
+    """Thin python view over an OpDesc (fluid framework.py:551)."""
+
+    def __init__(self, block: "Block", desc: OpDesc):
+        self.block = block
+        self.desc = desc
+
+    @property
+    def type(self) -> str:
+        return self.desc.type
+
+    def input(self, slot: str) -> List[str]:
+        return self.desc.inputs.get(slot, [])
+
+    def output(self, slot: str) -> List[str]:
+        return self.desc.outputs.get(slot, [])
+
+    @property
+    def attrs(self) -> Dict[str, Any]:
+        return self.desc.attrs
+
+    def __repr__(self):
+        ins = {k: v for k, v in self.desc.inputs.items()}
+        outs = {k: v for k, v in self.desc.outputs.items()}
+        return f"{self.type}(inputs={ins}, outputs={outs}, attrs={self.desc.attrs})"
+
+
+class Block:
+    """A straight-line list of ops plus a var table.
+
+    The reference uses nested blocks for control flow (while/cond sub-blocks,
+    framework.py:992); here control-flow *layers* (layers/control_flow.py)
+    build sub-blocks the same way, and the control-flow op impls
+    (ops/control_flow.py) lower them to lax.while_loop/scan/cond at trace
+    time.  Name lookup chases the parent chain like fluid's _var_recursive.
+    """
+
+    def __init__(self, program: "Program", idx: int = 0, parent_idx: int = -1):
+        self.program = program
+        self.idx = idx
+        self.parent_idx = parent_idx
+        self.vars: Dict[str, Variable] = {}
+        self.ops: List[Operator] = []
+
+    @property
+    def parent(self) -> Optional["Block"]:
+        if self.parent_idx < 0:
+            return None
+        return self.program.blocks[self.parent_idx]
+
+    # --- vars -----------------------------------------------------------
+    def create_var(self, name: Optional[str] = None, shape=(), dtype="float32",
+                   persistable: bool = False, stop_gradient: bool = False,
+                   is_data: bool = False, lod_level: int = 0) -> Variable:
+        if name is None:
+            name = unique_name.generate("_generated_var")
+        desc = VarDesc(
+            name=name,
+            shape=tuple(int(s) for s in shape),
+            dtype=normalize_dtype(dtype),
+            persistable=persistable,
+            stop_gradient=stop_gradient,
+            is_data=is_data,
+            lod_level=lod_level,
+        )
+        var = Variable(self, desc)
+        self.vars[name] = var
+        self.program._bump()
+        return var
+
+    def create_parameter(self, name, shape, dtype, **kwargs) -> Parameter:
+        desc = VarDesc(
+            name=name,
+            shape=tuple(int(s) for s in shape),
+            dtype=normalize_dtype(dtype),
+            persistable=True,
+        )
+        param = Parameter(self, desc, **kwargs)
+        self.vars[name] = param
+        self.program._bump()
+        return param
+
+    def var(self, name: str) -> Variable:
+        """Recursive lookup through the parent chain (fluid
+        framework.py Block._var_recursive)."""
+        b: Optional[Block] = self
+        while b is not None:
+            v = b.vars.get(name)
+            if v is not None:
+                return v
+            b = b.parent
+        raise KeyError(f"variable {name!r} not found in block {self.idx}")
+
+    def var_local(self, name: str) -> Optional[Variable]:
+        return self.vars.get(name)
+
+    def has_var(self, name: str) -> bool:
+        b: Optional[Block] = self
+        while b is not None:
+            if name in b.vars:
+                return True
+            b = b.parent
+        return False
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
+    # --- ops ------------------------------------------------------------
+    def append_op(self, type: str, inputs: Dict[str, Any] | None = None,
+                  outputs: Dict[str, Any] | None = None,
+                  attrs: Dict[str, Any] | None = None) -> Operator:
+        desc = OpDesc(
+            type=type,
+            inputs=_slot_names(inputs),
+            outputs=_slot_names(outputs),
+            attrs=dict(attrs or {}),
+        )
+        # ops built inside a fluid.recompute_scope() carry the scope's
+        # tag (rematerialization in paddle_tpu's backward; the port's
+        # forward-only executor ignores it)
+        tag = getattr(self.program, "_recompute_tag", None)
+        if tag is not None and "__recompute__" not in desc.attrs:
+            desc.attrs["__recompute__"] = tag
+        # ops built inside fluid.pipeline_scope()/pipeline_segment()
+        # carry (group, segment) tags (the GPipe schedule in
+        # paddle_tpu; inert in the port, which has no mesh yet)
+        if getattr(self.program, "_pp_seg_active", False):
+            desc.attrs["__pp_group__"] = self.program._pp_group_tag
+            desc.attrs["__pp_seg__"] = self.program._pp_seg_counter
+        op = Operator(self, desc)
+        self.ops.append(op)
+        self.program._bump()
+        from .shape_inference import infer_op_shapes
+
+        infer_op_shapes(desc, self)
+        return op
+
+    def prepend_op(self, type: str, inputs=None, outputs=None, attrs=None) -> Operator:
+        desc = OpDesc(
+            type=type,
+            inputs=_slot_names(inputs),
+            outputs=_slot_names(outputs),
+            attrs=dict(attrs or {}),
+        )
+        op = Operator(self, desc)
+        self.ops.insert(0, op)
+        # keep the forward/backward boundary aligned (prepending shifts
+        # every op index by one)
+        if self.idx == 0 and self.program._backward_info is not None:
+            self.program._backward_info["index"] += 1
+        self.program._bump()
+        return op
+
+
+def _slot_names(slots: Dict[str, Any] | None) -> Dict[str, List[str]]:
+    """Normalize {slot: Variable | name | list-of-those} to {slot: [names]}."""
+    out: Dict[str, List[str]] = {}
+    for slot, v in (slots or {}).items():
+        if v is None:
+            continue
+        if not isinstance(v, (list, tuple)):
+            v = [v]
+        names = []
+        for item in v:
+            if isinstance(item, Variable):
+                names.append(item.name)
+            elif isinstance(item, str):
+                names.append(item)
+            else:
+                raise TypeError(f"bad value for slot {slot!r}: {item!r}")
+        out[slot] = names
+    return out
+
+
+class Program:
+    """A complete computation description (fluid framework.py:1510).
+
+    Two implicit globals exist, matching Fluid: the default *main* program
+    (the training/inference graph) and the default *startup* program
+    (parameter/state initialization, run once by Executor.run(startup)).
+    """
+
+    _uid_counter = itertools.count()
+
+    def __init__(self):
+        self.blocks: List[Block] = [Block(self, 0)]
+        # Stack of block indices the builder is appending into; control-flow
+        # layers push sub-blocks (fluid framework.py Program._create_block /
+        # _rollback).
+        self._block_stack: List[int] = [0]
+        self.random_seed: int = 0
+        # Monotonic edit counter; the Executor uses (uid, version) as its
+        # compile-cache key, so any mutation invalidates cached executables.
+        # The uid is process-unique (unlike id(), which can be reused after
+        # garbage collection and alias a stale cache entry).
+        self._version = 0
+        self._uid = next(Program._uid_counter)
+        # bf16 mixed-precision policy (paddle_tpu/amp.py); None = full f32.
+        self._amp_lists = None
+        # Set by append_backward: index boundary and grad bookkeeping.
+        self._backward_info: Optional[Dict[str, Any]] = None
+
+    def _bump(self):
+        self._version += 1
+
+    def global_block(self) -> Block:
+        return self.blocks[0]
+
+    def current_block(self) -> Block:
+        return self.blocks[self._block_stack[-1]]
+
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """Create a sub-block of the current block and make it current
+        (fluid framework.py Program._create_block)."""
+        parent = self._block_stack[-1] if parent_idx is None else parent_idx
+        blk = Block(self, len(self.blocks), parent)
+        self.blocks.append(blk)
+        self._block_stack.append(blk.idx)
+        self._bump()
+        return blk
+
+    def _rollback(self):
+        """Pop back to the parent block (fluid Program._rollback)."""
+        if len(self._block_stack) <= 1:
+            raise RuntimeError("cannot roll back from the global block")
+        self._block_stack.pop()
+
+    def all_parameters(self) -> List[Parameter]:
+        return self.global_block().all_parameters()
+
+    def list_vars(self) -> Iterable[Variable]:
+        return list(self.global_block().vars.values())
+
+    # --- clone / prune -------------------------------------------------
+    def clone(self, for_test: bool = False) -> "Program":
+        """Deep-copy the program.  With for_test=True, switch ops to
+        inference behavior (dropout off, batch_norm uses global stats) and
+        drop everything after the backward marker — mirroring
+        fluid.Program.clone(for_test=True)."""
+        p = Program()
+        p.random_seed = self.random_seed
+        for src_blk in self.blocks:
+            if src_blk.idx == 0:
+                blk = p.global_block()
+            else:
+                blk = Block(p, src_blk.idx, src_blk.parent_idx)
+                p.blocks.append(blk)
+            for name, var in src_blk.vars.items():
+                desc = copy.deepcopy(var.desc)
+                if isinstance(var, Parameter):
+                    nv = Parameter(blk, desc, regularizer=var.regularizer,
+                                   gradient_clip_attr=var.gradient_clip_attr,
+                                   learning_rate=var.learning_rate)
+                else:
+                    nv = Variable(blk, desc)
+                blk.vars[name] = nv
+            ops = src_blk.ops
+            if (for_test and src_blk.idx == 0
+                    and self._backward_info is not None):
+                ops = ops[: self._backward_info["index"]]
+            for op in ops:
+                desc = copy.deepcopy(op.desc)
+                if for_test and "is_test" in _TEST_MODE_OPS.get(desc.type, ()):
+                    desc.attrs["is_test"] = True
+                blk.ops.append(Operator(blk, desc))
+        if not for_test:
+            p._backward_info = copy.deepcopy(self._backward_info)
+        p._amp_lists = copy.deepcopy(self._amp_lists)
+        return p
+
+    # --- serialization --------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        d = {
+            "version": PROGRAM_FORMAT_VERSION,
+            "random_seed": self.random_seed,
+            "vars": [v.desc.to_dict() for v in self.global_block().vars.values()],
+            "params": [v.name for v in self.all_parameters()],
+            "ops": [op.desc.to_dict() for op in self.global_block().ops],
+            "backward_info": self._backward_info,
+            "amp": (None if self._amp_lists is None else {
+                "white": sorted(self._amp_lists.white_list),
+                "black": sorted(self._amp_lists.black_list),
+            }),
+        }
+        # Sub-blocks (control flow); block 0 stays in the legacy top-level
+        # keys so version-1 programs load unchanged.
+        if len(self.blocks) > 1:
+            d["sub_blocks"] = [
+                {
+                    "idx": b.idx,
+                    "parent_idx": b.parent_idx,
+                    "vars": [v.desc.to_dict() for v in b.vars.values()],
+                    "ops": [op.desc.to_dict() for op in b.ops],
+                }
+                for b in self.blocks[1:]
+            ]
+        return d
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Program":
+        p = Program()
+        p.random_seed = d.get("random_seed", 0)
+        blk = p.global_block()
+        params = set(d.get("params", []))
+        for vd in d["vars"]:
+            desc = VarDesc.from_dict(vd)
+            if desc.name in params or desc.is_parameter:
+                blk.vars[desc.name] = Parameter(blk, desc)
+            else:
+                blk.vars[desc.name] = Variable(blk, desc)
+        for od in d["ops"]:
+            blk.ops.append(Operator(blk, OpDesc.from_dict(od)))
+        for bd in d.get("sub_blocks", []):
+            sub = Block(p, bd["idx"], bd["parent_idx"])
+            p.blocks.append(sub)
+            for vd in bd["vars"]:
+                sub.vars[vd["name"]] = Variable(sub, VarDesc.from_dict(vd))
+            for od in bd["ops"]:
+                sub.ops.append(Operator(sub, OpDesc.from_dict(od)))
+        p._backward_info = d.get("backward_info")
+        if d.get("amp") is not None:
+            raise NotImplementedError(
+                "bf16 mixed-precision programs are not ported yet "
+                "(ROADMAP queue A item 2: the amp.py policy)")
+        return p
+
+    def __str__(self):
+        lines = [f"Program(version={self._version})"]
+        for v in self.global_block().vars.values():
+            tag = "param" if isinstance(v, Parameter) else (
+                "data" if v.desc.is_data else "var")
+            lines.append(
+                f"  {tag} {v.name}: shape={v.shape} dtype={v.dtype}"
+                f"{' persistable' if v.persistable else ''}")
+        for i, op in enumerate(self.global_block().ops):
+            lines.append(f"  op[{i}] {op!r}")
+        return "\n".join(lines)
+
+
+# Ops that honor an is_test attribute when cloned for inference.
+_TEST_MODE_OPS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+    # QAT moving-average scale op freezes (reads, not updates) its scale
+    # state in test mode (paddle_tpu/quantize.py)
+    "fake_quantize_dequantize_moving_average_abs_max": ("is_test",),
+}
+
+
+# ---------------------------------------------------------------------------
+# Default-program machinery (fluid framework.py default_main_program etc.)
+# ---------------------------------------------------------------------------
+
+_main_program = Program()
+_startup_program = Program()
+
+
+def default_main_program() -> Program:
+    return _main_program
+
+
+def default_startup_program() -> Program:
+    return _startup_program
+
+
+@contextlib.contextmanager
+def program_guard(main_program: Program, startup_program: Optional[Program] = None):
+    global _main_program, _startup_program
+    old_main, old_startup = _main_program, _startup_program
+    _main_program = main_program
+    if startup_program is not None:
+        _startup_program = startup_program
+    try:
+        yield
+    finally:
+        _main_program = old_main
+        _startup_program = old_startup
+
+
+_recompute_counter = [0]
+
+
+@contextlib.contextmanager
+def recompute_scope(main_program: Optional[Program] = None):
+    """Mark the ops built inside this scope for rematerialization (the
+    tag paddle_tpu's backward reads; recorded here so programs serialize
+    identically).
+
+        with fluid.recompute_scope():
+            x = encoder_layer(x, ...)
+    """
+    program = main_program or default_main_program()
+    _recompute_counter[0] += 1
+    prev = getattr(program, "_recompute_tag", None)
+    program._recompute_tag = _recompute_counter[0]
+    try:
+        yield
+    finally:
+        program._recompute_tag = prev
+
+
+_pipeline_counter = [0]
+
+
+@contextlib.contextmanager
+def pipeline_scope(main_program: Optional[Program] = None):
+    """Mark a pipelined region (paddle_tpu's GPipe tags; recorded here so
+    programs serialize identically, inert in the port's executor).
+
+        with fluid.pipeline_scope():
+            for _ in range(n_layer):
+                with fluid.pipeline_segment():
+                    x = encoder_layer(x, ...)
+
+    The engine requires: segments structurally identical (same op
+    sequence/attrs/shapes, layer-private parameters), a shape-preserved
+    carry (each segment's input activation produced by the previous
+    segment), and all other segment inputs invariant across segments.
+    """
+    program = main_program or default_main_program()
+    _pipeline_counter[0] += 1
+    prev = (getattr(program, "_pp_group_tag", None),
+            getattr(program, "_pp_seg_counter", None))
+    program._pp_group_tag = _pipeline_counter[0]
+    program._pp_seg_counter = -1
+    try:
+        yield
+    finally:
+        program._pp_group_tag, program._pp_seg_counter = prev
+
+
+@contextlib.contextmanager
+def pipeline_segment(main_program: Optional[Program] = None):
+    """One repeatable layer inside a `pipeline_scope()` (see above)."""
+    program = main_program or default_main_program()
+    if getattr(program, "_pp_group_tag", None) is None:
+        raise RuntimeError(
+            "pipeline_segment() must be used inside a pipeline_scope()")
+    program._pp_seg_counter += 1
+    prev = getattr(program, "_pp_seg_active", False)
+    if prev:
+        raise RuntimeError("pipeline_segment() cannot nest")
+    program._pp_seg_active = True
+    try:
+        yield
+    finally:
+        program._pp_seg_active = False
+
+
+@contextlib.contextmanager
+def name_scope(prefix: str):
+    """Name scoping (fluid framework.py:106): generated var/param names are
+    prefixed with the scope path while the context is active."""
+    unique_name._scope_stack.append(prefix)
+    try:
+        yield
+    finally:
+        unique_name._scope_stack.pop()

@@ -1,0 +1,160 @@
+"""Initializers: emit init ops into the startup program.
+
+reference: python/paddle/fluid/initializer.py — Constant, Uniform, Normal,
+TruncatedNormal, Xavier, MSRA, Bilinear, NumpyArrayInitializer.  Matching
+the reference design, an initializer __call__ appends a fill op for the
+variable to the (startup) block; Executor.run(startup_program) materializes
+the parameters.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+class Initializer:
+    def __call__(self, var, block):
+        raise NotImplementedError
+
+
+class Constant(Initializer):
+    def __init__(self, value: float = 0.0):
+        self.value = value
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="fill_constant", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "value": float(self.value)})
+
+
+ConstantInitializer = Constant
+
+
+class Uniform(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0, seed: int = 0):
+        self.low, self.high, self.seed = low, high, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="uniform_random", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "min": self.low, "max": self.high, "seed": self.seed})
+
+
+UniformInitializer = Uniform
+
+
+class Normal(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.mean, self.std, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="gaussian_random", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self.mean, "std": self.std, "seed": self.seed})
+
+
+NormalInitializer = Normal
+
+
+class TruncatedNormal(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.mean, self.std, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="truncated_gaussian_random", outputs={"Out": [var]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self.mean, "std": self.std, "seed": self.seed})
+
+
+TruncatedNormalInitializer = TruncatedNormal
+
+
+def _fan_in_out(var):
+    shape = var.shape
+    if len(shape) < 2:
+        return 1, 1
+    receptive = int(np.prod(shape[2:])) if len(shape) > 2 else 1
+    fan_in = shape[1] * receptive if len(shape) > 2 else shape[0]
+    fan_out = shape[0] * receptive if len(shape) > 2 else shape[1]
+    return fan_in, fan_out
+
+
+class Xavier(Initializer):
+    """Glorot init (reference initializer.py XavierInitializer)."""
+
+    def __init__(self, uniform: bool = True, fan_in=None, fan_out=None,
+                 seed: int = 0):
+        self.uniform, self.fan_in, self.fan_out, self.seed = (
+            uniform, fan_in, fan_out, seed)
+
+    def __call__(self, var, block):
+        fi, fo = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            return Uniform(-limit, limit, self.seed)(var, block)
+        std = math.sqrt(2.0 / (fi + fo))
+        return Normal(0.0, std, self.seed)(var, block)
+
+
+XavierInitializer = Xavier
+
+
+class MSRA(Initializer):
+    """He init (reference initializer.py MSRAInitializer)."""
+
+    def __init__(self, uniform: bool = True, fan_in=None, seed: int = 0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            return Uniform(-limit, limit, self.seed)(var, block)
+        std = math.sqrt(2.0 / fi)
+        return Normal(0.0, std, self.seed)(var, block)
+
+
+MSRAInitializer = MSRA
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value: np.ndarray):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="assign_value", outputs={"Out": [var]},
+            attrs={"shape": list(self.value.shape), "dtype": var.dtype,
+                   "values": self.value.reshape(-1).tolist()})
+
+
+class Bilinear(Initializer):
+    """Bilinear upsample kernel init for conv_transpose
+    (reference initializer.py BilinearInitializer)."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError("Bilinear initializer expects 4-D weights")
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        weight = np.zeros(shape, dtype=np.float32)
+        size = shape[3]
+        for i in range(int(np.prod(shape))):
+            x = i % size
+            y = (i // size) % size
+            w = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+            weight.reshape(-1)[i] = w
+        return NumpyArrayInitializer(weight)(var, block)
+
+
+BilinearInitializer = Bilinear

@@ -1,0 +1,268 @@
+"""Composite neural-net layers: the subset of paddle_tpu/layers/nn.py
+that the ported slice builds (reference: python/paddle/fluid/layers/
+nn.py).  Each function is the reference's, unchanged: it creates output
+vars + parameters via LayerHelper and appends OpDescs to the default main
+program; shapes/dtypes are inferred by running the op on "meta" tensors
+(core/shape_inference.py).  The rest of the reference's layers are still
+to be ported (ROADMAP queue A item 6).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..initializer import Constant, Xavier
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully-connected layer (reference layers/nn.py fc) — mul + sum +
+    bias + activation."""
+    helper = LayerHelper("fc", name=name, act=act, bias_attr=bias_attr,
+                         input=input)
+    inputs = input if isinstance(input, list) else [input]
+    dtype = inputs[0].dtype
+
+    mul_results = []
+    for inp in inputs:
+        in_shape = inp.shape
+        param_shape = [
+            int(np.prod([abs(d) for d in in_shape[num_flatten_dims:]])),
+            size,
+        ]
+        w = helper.create_parameter(param_attr, shape=param_shape,
+                                    dtype=dtype)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul", inputs={"X": [inp], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims,
+                   "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    result = helper.append_activation(pre_act)
+    if num_flatten_dims >= 2 and not isinstance(input, list):
+        # sequence-preserving projection: keep the seq_len companion
+        from .sequence import _propagate_seq_len
+
+        _propagate_seq_len(input, result)
+    return result
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """reference layers/nn.py embedding → lookup_table op.  is_sparse /
+    is_distributed are recorded for parity (the table is dense)."""
+    helper = LayerHelper("embedding", name=None)
+    w = helper.create_parameter(param_attr, shape=size, dtype=dtype,
+                                default_initializer=Xavier())
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="lookup_table", inputs={"Ids": [input], "W": [w]},
+        outputs={"Out": [out]},
+        attrs={"padding_idx": -1 if padding_idx is None else padding_idx,
+               "is_sparse": bool(is_sparse)})
+    from .sequence import _propagate_seq_len
+
+    _propagate_seq_len(input, out)
+    return out
+
+
+def elementwise_op(op_type, x, y, axis=-1, act=None, name=None,
+                   out_dtype=None):
+    helper = LayerHelper(op_type, name=name, act=act)
+    out = helper.create_variable_for_type_inference(out_dtype or x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_add", x, y, axis, act, name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", name=name, act=act)
+    dtype = input.dtype
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(param_attr, shape=norm_shape, dtype=dtype,
+                                    default_initializer=Constant(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=norm_shape,
+            dtype=dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    y = helper.create_variable_for_type_inference(dtype)
+    m = helper.create_variable_for_type_inference(dtype)
+    v = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [m], "Variance": [v]},
+                     attrs={"begin_norm_axis": begin_norm_axis,
+                            "epsilon": epsilon})
+    return helper.append_activation(y)
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def batched_gather(input, index, name=None):
+    """Per-row gather: input (N, A, ...) gathered at index (N, S) →
+    (N, S, ...) (used by rpn_target_assign; see ops/basic.py)."""
+    helper = LayerHelper("batched_gather", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="batched_gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def flash_attention(q, k, v, bias=None, scale=None, causal=False,
+                    use_pallas=None, sequence_parallel=False,
+                    layout="nhtd", n_head=None, name=None):
+    """Fused multi-head attention over (N, H, T, D) tensors (see
+    ops/attention.py).  layout="nthd" + n_head takes the head-major
+    head-grouped (N, T, H*D) contract instead — what the attn_qkv
+    projection emits directly, so nothing transposes at the kernel
+    boundary.  use_pallas and sequence_parallel are recorded as the
+    reference records them; the port routes by device
+    (ops/kernels/flash_attention.py)."""
+    helper = LayerHelper("flash_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    ins = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        ins["Bias"] = [bias]
+    attrs = {"causal": causal, "use_pallas": use_pallas,
+             "sequence_parallel": sequence_parallel,
+             "layout": layout}
+    if n_head is not None:
+        attrs["n_head"] = int(n_head)
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op(type="flash_attention", inputs=ins,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def paged_attention(q, k_cache, v_cache, page_table, lengths, n_head,
+                    scale=None, use_pallas=None, k_scale=None,
+                    v_scale=None, name=None):
+    """Decode-step ragged paged attention (ops/paged_kv.py): one query
+    token per slot (Q (S, H*D) head-grouped) attends over that slot's
+    K/V pages of the shared (P, page, H*D) pools, addressed through the
+    (S, max_pages) page table and masked to `lengths`.  use_pallas is
+    recorded as the reference records it; the port routes by device
+    (ops/kernels/paged_attention.py).  k_scale/v_scale: (P, page, 1)
+    sidecar pools for int8 caches."""
+    helper = LayerHelper("paged_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    ins = {"Q": [q], "KCache": [k_cache], "VCache": [v_cache],
+           "PageTable": [page_table], "Lengths": [lengths]}
+    if k_scale is not None:
+        ins["KScale"] = [k_scale]
+        ins["VScale"] = [v_scale]
+    attrs = {"n_head": int(n_head), "use_pallas": use_pallas}
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op(type="paged_attention", inputs=ins,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def _paged_write(op_type, k, v, k_cache, v_cache, page_table, extra_ins,
+                 k_scale, v_scale, name):
+    helper = LayerHelper(op_type, name=name)
+    kc_out = helper.create_variable_for_type_inference(k_cache.dtype)
+    vc_out = helper.create_variable_for_type_inference(v_cache.dtype)
+    ins = {"K": [k], "V": [v], "KCache": [k_cache], "VCache": [v_cache],
+           "PageTable": [page_table]}
+    ins.update(extra_ins)
+    outs = {"KCacheOut": [kc_out], "VCacheOut": [vc_out]}
+    if k_scale is not None:
+        ins["KScale"] = [k_scale]
+        ins["VScale"] = [v_scale]
+        ks_out = helper.create_variable_for_type_inference(k_scale.dtype)
+        vs_out = helper.create_variable_for_type_inference(v_scale.dtype)
+        outs["KScaleOut"] = [ks_out]
+        outs["VScaleOut"] = [vs_out]
+    helper.append_op(type=op_type, inputs=ins, outputs=outs)
+    if k_scale is not None:
+        return kc_out, vc_out, ks_out, vs_out
+    return kc_out, vc_out
+
+
+def paged_kv_write(k, v, k_cache, v_cache, page_table, write_pos,
+                   active=None, k_scale=None, v_scale=None, name=None):
+    """Commit ONE token's K/V per slot into the paged pools at
+    `write_pos` (the decode-step write; ops/paged_kv.py).  Functional:
+    returns the updated pools (+ scale sidecars for int8 caches);
+    inactive slots (active 0) write nothing."""
+    extra = {"WritePos": [write_pos]}
+    if active is not None:
+        extra["Active"] = [active]
+    return _paged_write("paged_kv_write", k, v, k_cache, v_cache,
+                        page_table, extra, k_scale, v_scale, name)
+
+
+def paged_kv_prefill_write(k, v, k_cache, v_cache, page_table, seq_len,
+                           k_scale=None, v_scale=None, name=None):
+    """Commit a whole prompt's K/V (S, T, H*D) into the paged pools
+    (the prefill-on-join write; ops/paged_kv.py).  Positions past
+    seq_len[s] — all of them for a non-joining slot with seq_len 0 —
+    are dropped."""
+    return _paged_write("paged_kv_prefill_write", k, v, k_cache,
+                        v_cache, page_table, {"SeqLen": [seq_len]},
+                        k_scale, v_scale, name)
+
+
+def add_position_encoding_at(x, position, alpha=1.0, beta=1.0,
+                             name=None):
+    """X (S, D) + sinusoidal encoding at one position per row — the
+    decode-step twin of add_position_encoding (same formula), so a
+    decoded token sees exactly the encoding its position would have had
+    inside a prefill."""
+    helper = LayerHelper("add_position_encoding_at", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="add_position_encoding_at",
+                     inputs={"X": [x], "Position": [position]},
+                     outputs={"Out": [out]},
+                     attrs={"alpha": float(alpha), "beta": float(beta)})
+    return out

@@ -1,0 +1,36 @@
+"""Tensor layer functions: the subset of paddle_tpu/layers/tensor.py
+the ported slice builds (reference: python/paddle/fluid/layers/tensor.py).
+"""
+
+from __future__ import annotations
+
+from ..core.desc import normalize_dtype
+from ..layer_helper import LayerHelper
+
+
+def fill_constant(shape, dtype, value, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant", outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": normalize_dtype(dtype),
+               "value": float(value)})
+    return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = normalize_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"out_dtype": dtype})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out

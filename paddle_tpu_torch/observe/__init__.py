@@ -1,0 +1,5 @@
+"""Observability: structured run events and runtime accounting (the
+jax-free part of paddle_tpu/observe that the serving slice uses)."""
+
+from .events import RunEventLog  # noqa: F401
+from .monitoring import LatencyHistogram, runtime_stats  # noqa: F401

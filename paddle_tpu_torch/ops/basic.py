@@ -1,0 +1,182 @@
+"""Basic math / tensor ops: the subset of paddle_tpu/ops/basic.py the
+ported slice runs, as torch functions with the reference's op names,
+slots and attrs (reference files: paddle/fluid/operators/mul_op.cc,
+elementwise/*, fill_constant_op.cc, ...).
+
+Ops that create a tensor from nothing (fill/random) put it on the run's
+device (`ctx.device`); every other op stays on its inputs' device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.registry import register_op
+from .common import broadcast_y, first, out, to_torch_dtype
+
+
+# --------------------------------------------------------------------------
+# Fill / init / random
+# --------------------------------------------------------------------------
+
+@register_op("fill_constant")
+def fill_constant(ctx, ins, attrs):
+    shape = tuple(attrs["shape"])
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    return out(Out=torch.full(shape, attrs.get("value", 0.0), dtype=dtype,
+                              device=ctx.device))
+
+
+@register_op("assign")
+def assign(ctx, ins, attrs):
+    return out(Out=first(ins, "X"))
+
+
+@register_op("gaussian_random")
+def gaussian_random(ctx, ins, attrs):
+    shape = tuple(attrs["shape"])
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    x = torch.randn(shape, generator=ctx.rng(), dtype=torch.float32,
+                    device=ctx.device)
+    x = x * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return out(Out=x.to(dtype))
+
+
+@register_op("uniform_random")
+def uniform_random(ctx, ins, attrs):
+    shape = tuple(attrs["shape"])
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    x = torch.rand(shape, generator=ctx.rng(), dtype=torch.float32,
+                   device=ctx.device)
+    return out(Out=(x * (hi - lo) + lo).to(dtype))
+
+
+# --------------------------------------------------------------------------
+# Matmul
+# --------------------------------------------------------------------------
+
+@register_op("mul")
+def mul(ctx, ins, attrs):
+    """Flattening matmul (reference: operators/mul_op.cc) — x flattened to 2D
+    at x_num_col_dims, y at y_num_col_dims.  A plain torch.matmul: the
+    projections, FFN and lm_head are dense GEMMs that the reference also
+    left to its compiler, outside any hand-written kernel."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    xnc = attrs.get("x_num_col_dims", 1)
+    ync = attrs.get("y_num_col_dims", 1)
+    xs, ys = tuple(x.shape), tuple(y.shape)
+    x2 = x.reshape(math.prod(xs[:xnc]), math.prod(xs[xnc:]))
+    y2 = y.reshape(math.prod(ys[:ync]), math.prod(ys[ync:]))
+    return out(Out=torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:]))
+
+
+# --------------------------------------------------------------------------
+# Elementwise family (with fluid broadcast-axis semantics)
+# --------------------------------------------------------------------------
+
+def _register_elementwise(name, fn, out_dtype=None):
+    @register_op(name)
+    def impl(ctx, ins, attrs, _fn=fn, _dt=out_dtype):
+        x, y = first(ins, "X"), first(ins, "Y")
+        y = broadcast_y(x, y, attrs.get("axis", -1))
+        o = _fn(x, y)
+        if _dt is not None:
+            o = o.to(_dt)
+        return out(Out=o)
+
+
+_register_elementwise("elementwise_add", torch.add)
+_register_elementwise("elementwise_sub", torch.sub)
+_register_elementwise("elementwise_mul", torch.mul)
+_register_elementwise("elementwise_div", torch.div)
+_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_pow", torch.pow)
+_register_elementwise("less_than", torch.lt, torch.bool)
+_register_elementwise("less_equal", torch.le, torch.bool)
+_register_elementwise("greater_than", torch.gt, torch.bool)
+_register_elementwise("greater_equal", torch.ge, torch.bool)
+_register_elementwise("equal", torch.eq, torch.bool)
+_register_elementwise("not_equal", torch.ne, torch.bool)
+
+
+# --------------------------------------------------------------------------
+# Scale / cast / sum
+# --------------------------------------------------------------------------
+
+@register_op("scale")
+def scale(ctx, ins, attrs):
+    x = first(ins, "X")
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        o = x * s + b
+    else:
+        o = (x + b) * s
+    return out(Out=o.to(x.dtype))
+
+
+@register_op("cast")
+def cast(ctx, ins, attrs):
+    return out(Out=first(ins, "X").to(to_torch_dtype(attrs["out_dtype"])))
+
+
+@register_op("sum")
+def sum_op(ctx, ins, attrs):
+    """Sum a list of tensors (reference: operators/sum_op.cc)."""
+    xs = ins["X"]
+    o = xs[0]
+    for x in xs[1:]:
+        o = o + x
+    return out(Out=o)
+
+
+# --------------------------------------------------------------------------
+# Shape manipulation
+# --------------------------------------------------------------------------
+
+def _xshape(x):
+    # the reference's XShape output: an empty (0, *x.shape) tensor
+    return torch.zeros((0,) + tuple(x.shape), dtype=x.dtype,
+                       device=x.device)
+
+
+@register_op("squeeze")
+def squeeze(ctx, ins, attrs):
+    x = first(ins, "X")
+    axes = attrs.get("axes", [])
+    if axes:
+        o = x.squeeze(tuple(a if a >= 0 else a + x.dim() for a in axes))
+    else:
+        o = x.squeeze()
+    return {"Out": [o], "XShape": [_xshape(x)]}
+
+
+@register_op("unsqueeze")
+def unsqueeze(ctx, ins, attrs):
+    x = first(ins, "X")
+    o = x
+    for a in sorted(attrs["axes"]):
+        o = o.unsqueeze(a)
+    return {"Out": [o], "XShape": [_xshape(x)]}
+
+
+@register_op("batched_gather")
+def batched_gather(ctx, ins, attrs):
+    """Per-row gather (batch_dims=1): X (N, A, ...) + Index (N, S) →
+    (N, S, ...)."""
+    x, index = first(ins, "X"), first(ins, "Index")
+    idx = index.to(torch.int64)
+    idx = idx.reshape(tuple(idx.shape) + (1,) * (x.dim() - 2))
+    idx = idx.expand(tuple(index.shape) + tuple(x.shape[2:]))
+    return out(Out=torch.gather(x, 1, idx))
+
+
+@register_op("arg_max")
+def arg_max(ctx, ins, attrs):
+    x = first(ins, "X")
+    return out(Out=torch.argmax(x, dim=attrs.get("axis", -1))
+               .to(torch.int32))

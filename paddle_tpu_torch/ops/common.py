@@ -1,0 +1,71 @@
+"""Shared helpers for op implementations."""
+
+from __future__ import annotations
+
+import torch
+
+_TORCH_DTYPES = {
+    "float32": torch.float32,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "int8": torch.int8,
+    "uint8": torch.uint8,
+    "int16": torch.int16,
+    "int32": torch.int32,
+    "bool": torch.bool,
+}
+_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+_DTYPE_NAMES[torch.int64] = "int64"
+_DTYPE_NAMES[torch.float64] = "float64"
+
+# The reference runs with jax's 64-bit types disabled, so a declared
+# int64/float64 is 32 bits wide at run time there.  The port keeps the
+# same widths: values, and the dtypes shape inference writes into the
+# VarDescs, then match paddle_tpu's (Program.to_dict is identical).
+_RUNTIME_NAME = {"int64": "int32", "uint64": "uint32",
+                 "float64": "float32"}
+
+
+def first(ins, slot):
+    return ins[slot][0]
+
+
+def opt_in(ins, slot):
+    vals = ins.get(slot)
+    return vals[0] if vals else None
+
+
+def out(**slots):
+    return {slot: [v] for slot, v in slots.items()}
+
+
+def to_torch_dtype(name) -> torch.dtype:
+    """API dtype name → runtime torch dtype (64-bit names narrowed as in
+    the reference, see above)."""
+    name = str(name)
+    name = _RUNTIME_NAME.get(name, name)
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}")
+    return _TORCH_DTYPES[name]
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """torch dtype → the canonical name VarDescs carry."""
+    return _DTYPE_NAMES[dtype]
+
+
+def broadcast_y(x, y, axis: int = -1):
+    """Fluid elementwise broadcast: align y's dims to x starting at `axis`
+    (reference: paddle/fluid/operators/elementwise/elementwise_op_function.h
+    — the trailing-alignment rule with explicit axis).  When y outranks x
+    (e.g. scalar-constant X from `1.0 / var`), fall back to torch
+    broadcasting, which handles the shape-(1,) constant case."""
+    if x.dim() >= y.dim():
+        if x.dim() == y.dim():
+            return y
+        if axis == -1:
+            axis = x.dim() - y.dim()
+        new_shape = ([1] * axis + list(y.shape)
+                     + [1] * (x.dim() - axis - y.dim()))
+        return y.reshape(new_shape)
+    return y

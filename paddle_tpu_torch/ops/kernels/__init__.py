@@ -1,0 +1,33 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+The port's counterpart of paddle_tpu/ops/pallas/: every Pallas TPU
+kernel becomes a kernel written for the H100 (`sm_90a`), with a plain
+PyTorch version of the same function beside it.  The tensors' device
+routes a call — a CUDA tensor always goes to the kernel, a CPU tensor to
+the plain version, and a "meta" tensor (shape inference) gets the
+kernel's output allocation without any computation.  A kernel never
+falls back to its plain version.
+
+`launch_counts` counts kernel launches (incremented by each wrapper right
+after its launch, nowhere else) and `plain_calls` counts plain-version
+runs, so a caller can show which path a run took.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+KERNELS = ("paged_attention", "flash_attention_fwd")
+
+launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
+plain_calls: Dict[str, int] = {k: 0 for k in KERNELS}
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        launch_counts[k] = 0
+        plain_calls[k] = 0
+
+
+def counts() -> Dict[str, Dict[str, int]]:
+    return {"launches": dict(launch_counts), "plain": dict(plain_calls)}

@@ -1,0 +1,201 @@
+"""Ragged paged attention for decode: CUDA kernel + plain PyTorch version.
+
+Replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py
+`ragged_paged_attention` (kernel body `_paged_attn_kernel`): one query
+token per slot, (S, H*D) head-grouped, attends over that slot's K/V
+pages of the shared (P, page, H*D) pools, addressed through the
+(S, max_pages) page table and masked to the slot's length; optional
+int8 pools carry per-row f32 scales (P, page, 1).
+
+Kernel: csrc/paged_attention.cu — one block per (slot, head), four warps
+striding over the slot's tokens, online softmax in registers, page
+indices read from the page table inside the loop.  What bounds it on the
+card: memory (each K/V row below a slot's length is read once, 4 flops
+per element); the kernel reads only those rows, so rows past a length
+(NaN from an evicted slot) and page-table entries past the used range
+are never touched.  Splitting a long slot across blocks (flash-decoding)
+is left for a later PR.
+
+Plain version: `paged_attention_plain`, the torch port of the
+reference's dense-gather twin `_xla_paged_attention` — it gathers every
+slot's pages, masks to the length (zeroing invalid V rows so 0 * NaN
+never poisons the sum) and runs a dense softmax.  Same function, same
+arguments; it is the CPU path and the card's reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import launch_counts, plain_calls
+from . import _build
+
+NEG_INF = -1e30
+_NAME = "paged_attention"
+_KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_HEAD_DIMS = (32, 64, 128)
+
+
+def _gather_pool(pool, page_table):
+    """(P, page, C) gathered through (S, maxp) -> (S, maxp*page, C)."""
+    g = pool[page_table.to(torch.int64)]          # (S, maxp, page, C)
+    s, maxp, page, c = g.shape
+    return g.reshape(s, maxp * page, c)
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, n_head,
+                          scale=None, k_scales=None, v_scales=None):
+    """Plain PyTorch paged attention (see module docstring)."""
+    s, hd = q.shape
+    d = hd // n_head
+    if scale is None:
+        scale = d ** -0.5
+    k = _gather_pool(k_pages, page_table).to(torch.float32)
+    v = _gather_pool(v_pages, page_table).to(torch.float32)
+    if k_scales is not None:
+        k = k * _gather_pool(k_scales, page_table).to(torch.float32)
+    if v_scales is not None:
+        v = v * _gather_pool(v_scales, page_table).to(torch.float32)
+    t_cap = k.shape[1]
+    valid = (torch.arange(t_cap, device=q.device)[None, :]
+             < lengths.to(torch.int64)[:, None])            # (S, T_cap)
+    # zero invalid v rows: 0 * NaN would poison the sum even at weight 0
+    v = torch.where(valid[:, :, None], v, torch.zeros((), device=q.device))
+    q4 = q.to(torch.float32).reshape(s, n_head, d)
+    k4 = k.reshape(s, t_cap, n_head, d)
+    v4 = v.reshape(s, t_cap, n_head, d)
+    logits = torch.einsum("shd,sthd->sht", q4, k4) * scale
+    logits = torch.where(valid[:, None, :], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("sht,sthd->shd", w, v4)
+    return o.reshape(s, hd).to(q.dtype)
+
+
+def _check(q, k_pages, v_pages, page_table, lengths, n_head, k_scales,
+           v_scales):
+    if q.dim() != 2 or k_pages.dim() != 3:
+        raise ValueError(f"paged_attention: q must be (S, H*D) and the "
+                         f"pools (P, page, H*D); got {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}")
+    s, hd = q.shape
+    if tuple(v_pages.shape) != tuple(k_pages.shape) \
+            or k_pages.shape[2] != hd:
+        raise ValueError(f"paged_attention: pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} do not match q minor dim "
+                         f"{hd}")
+    if hd % n_head:
+        raise ValueError(f"paged_attention: minor dim {hd} not divisible "
+                         f"by n_head {n_head}")
+    if page_table.dim() != 2 or page_table.shape[0] != s \
+            or tuple(lengths.shape) != (s,):
+        raise ValueError(f"paged_attention: page_table "
+                         f"{tuple(page_table.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match {s} slots")
+    if (k_pages.dtype == torch.int8) != (k_scales is not None) \
+            or (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_attention: int8 pools need both scale "
+                         "sidecars, and float pools must not carry them")
+    tensors = [q, k_pages, v_pages, page_table, lengths]
+    tensors += [t for t in (k_scales, v_scales) if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("paged_attention: operands on different devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths, *, n_head,
+                    scale=None, k_scales=None, v_scales=None):
+    """Decode-step attention over paged KV; routes by the operands'
+    device (CUDA: the kernel; CPU: the plain version).  Returns (S, H*D)
+    in q's dtype."""
+    _check(q, k_pages, v_pages, page_table, lengths, n_head, k_scales,
+           v_scales)
+    if scale is None:
+        scale = (q.shape[1] // n_head) ** -0.5
+    kind = q.device.type
+    if kind == "meta":
+        return torch.empty_like(q)
+    if kind == "cpu":
+        plain_calls[_NAME] += 1
+        return paged_attention_plain(q, k_pages, v_pages, page_table,
+                                     lengths, n_head, scale, k_scales,
+                                     v_scales)
+    if kind != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return _launch(q, k_pages, v_pages, page_table, lengths, n_head,
+                   float(scale), k_scales, v_scales)
+
+
+def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
+            k_scales, v_scales):
+    s, hd = q.shape
+    d = hd // n_head
+    if q.dtype != torch.float32:
+        raise TypeError(f"paged_attention kernel: q must be float32, got "
+                        f"{q.dtype}")
+    if k_pages.dtype not in _KV_TYPES or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"paged_attention kernel: pools must be one of "
+                        f"{list(_KV_TYPES)}, got {k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel: head dim {d} not in "
+                         f"{_HEAD_DIMS}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("paged_attention kernel: page_table and lengths "
+                        "must be int32")
+    ops = [q, k_pages, v_pages, page_table, lengths]
+    if k_scales is not None:
+        if k_scales.dtype != torch.float32 \
+                or tuple(k_scales.shape) != tuple(k_pages.shape[:2]) + (1,) \
+                or tuple(v_scales.shape) != tuple(k_scales.shape) \
+                or v_scales.dtype != torch.float32:
+            raise ValueError("paged_attention kernel: scale sidecars must "
+                             "be float32 (P, page, 1)")
+        ops += [k_scales, v_scales]
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("paged_attention kernel: operands must be "
+                         "contiguous")
+    out = torch.empty_like(q)
+    lib = _bind()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.paged_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if k_scales is None else k_scales.data_ptr(),
+        None if v_scales is None else v_scales.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        s, n_head, d, k_pages.shape[1], page_table.shape[1], scale,
+        _KV_TYPES[k_pages.dtype], q.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launch_counts[_NAME] += 1
+    return out
+
+
+def _bind() -> ctypes.CDLL:
+    lib = _build.load(_NAME)
+    fn = lib.paged_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, i, i, p]
+        fn.restype = i
+    return lib
+
+
+def bound_bytes_and_flops(q, k_pages, page_table, lengths, n_head,
+                          scaled: bool = False):
+    """(bytes, flops) the function needs on these inputs: q and out once,
+    each K/V row below a slot's length once (plus its scale for int8),
+    the slot's page-table row and length; 2 flops per element for q.k and
+    2 for p.v.  Data-dependent: counts the rows these lengths need."""
+    s, hd = q.shape
+    cap = page_table.shape[1] * k_pages.shape[1]
+    rows = int(torch.clamp(lengths.to(torch.int64), 0, cap).sum())
+    kv_el = k_pages.element_size()
+    nbytes = (2 * s * hd * q.element_size()
+              + 2 * rows * hd * kv_el
+              + (2 * rows * 4 if scaled else 0)
+              + page_table.numel() * 4 + s * 4)
+    return nbytes, 4 * rows * hd

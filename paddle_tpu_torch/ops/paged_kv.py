@@ -1,0 +1,160 @@
+"""Paged KV-cache ops: the port of the decode-step half of
+paddle_tpu/ops/paged_kv.py.
+
+- `paged_kv_write`: commit ONE token's K/V per slot at its current
+  length (the decode-step write).
+- `paged_kv_prefill_write`: commit a whole prompt's K/V (the
+  prefill-on-join write), positions 0..seq_len-1 per slot.
+- `paged_attention`: one query token per slot attends over its pages,
+  masked to its true length — the hand-written Hopper kernel on a CUDA
+  tensor, its plain PyTorch version on a CPU one
+  (ops/kernels/paged_attention.py).
+- `add_position_encoding_at`: the sinusoid at one position per row.
+
+Layouts are the reference's head-major ones: K/V rows (S, H*D) and pools
+(P, page, H*D), so a page write is a plain row scatter.  Optional int8
+pools carry one f32 scale per row in (P, page, 1) sidecars; the writes
+quantize (symmetric, absmax/127).
+
+Two differences from the reference, both in how, not what:
+
+- The pools are updated IN PLACE and the same tensors are returned as
+  the outputs.  The JAX engine got the same effect from buffer donation;
+  the port's engine never reads a pool's old contents after a write.
+- The reference drops writes with `.at[...].set(mode="drop")` on an
+  out-of-bounds index.  Torch has no drop mode, so the rows to drop
+  (inactive slots, positions past seq_len, logical pages past the table)
+  are masked out explicitly before the scatter.
+
+Speculative verify (`speculative_accept`) and the disagg import
+(`paged_kv_import`) are not ported yet (ROADMAP queue A item 4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register_op
+from .common import first, opt_in, out
+from .kernels.paged_attention import paged_attention as _paged_attention
+from .sequence import sinusoid
+
+_INT8_MAX = 127.0
+
+
+def _quantize_rows(x):
+    """Per-row symmetric int8: x (..., HD) -> (codes int8, scale f32
+    (..., 1)); zero rows quantize to scale 1 (all-zero codes)."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / _INT8_MAX,
+                        torch.ones((), dtype=torch.float32,
+                                   device=x.device))
+    codes = torch.clamp(torch.round(xf / scale), -_INT8_MAX, _INT8_MAX)
+    return codes.to(torch.int8), scale
+
+
+def _write(ins, k, v, phys, off, keep):
+    """Scatter rows k/v (R, HD) into the pools at [phys, off] for the
+    rows where `keep` holds, in place; returns the op's outputs."""
+    kc, vc = first(ins, "KCache"), first(ins, "VCache")
+    ks, vs = opt_in(ins, "KScale"), opt_in(ins, "VScale")
+    int8 = kc.dtype == torch.int8
+    if int8 and (ks is None or vs is None):
+        raise ValueError("int8 KV cache needs KScale/VScale sidecar pools")
+    if kc.device.type != "meta":
+        # the rows to drop never reach the scatter (the reference's
+        # mode="drop"); one nonzero (a device sync) selects the kept rows
+        idx = torch.nonzero(keep).squeeze(1)
+        phys, off, k, v = (t.index_select(0, idx) for t in (phys, off, k, v))
+        if int8:
+            k, k_sc = _quantize_rows(k)
+            v, v_sc = _quantize_rows(v)
+            ks[phys, off] = k_sc
+            vs[phys, off] = v_sc
+        kc[phys, off] = k.to(kc.dtype)
+        vc[phys, off] = v.to(vc.dtype)
+    res = out(KCacheOut=kc, VCacheOut=vc)
+    if int8:
+        res.update(out(KScaleOut=ks, VScaleOut=vs))
+    return res
+
+
+@register_op("paged_kv_write")
+def paged_kv_write(ctx, ins, attrs):
+    """One decode step's K/V commit.
+
+    K/V (S, HD); KCache/VCache (P, page, HD); PageTable (S, max_pages)
+    int32; WritePos (S,) int32 (the position being committed = current
+    length); optional Active (S,) — 0/false rows write nothing.  With
+    int8 caches, KScale/VScale (P, page, 1) f32 sidecars are required
+    inputs and updated alongside.
+    Outputs: KCacheOut/VCacheOut (+KScaleOut/VScaleOut for int8)."""
+    k, v = first(ins, "K"), first(ins, "V")
+    pt = first(ins, "PageTable").to(torch.int64)
+    wp = first(ins, "WritePos").to(torch.int64)
+    active = opt_in(ins, "Active")
+    page = first(ins, "KCache").shape[1]
+    page_idx = wp // page
+    off = wp % page
+    phys = torch.gather(
+        pt, 1, torch.clamp(page_idx, 0, pt.shape[1] - 1)[:, None])[:, 0]
+    keep = page_idx < pt.shape[1]
+    if active is not None:
+        keep = keep & (active.to(torch.int32) != 0)
+    return _write(ins, k, v, phys, off, keep)
+
+
+@register_op("paged_kv_prefill_write")
+def paged_kv_prefill_write(ctx, ins, attrs):
+    """A whole prompt's K/V commit (prefill-on-join).
+
+    K/V (S, T, HD); caches/table as in paged_kv_write; SeqLen (S,)
+    int32 — positions t >= SeqLen[s] (padding, and every position of a
+    non-joining slot, whose SeqLen is 0) are dropped."""
+    k, v = first(ins, "K"), first(ins, "V")
+    pt = first(ins, "PageTable").to(torch.int64)
+    seq_len = first(ins, "SeqLen").to(torch.int64)
+    page = first(ins, "KCache").shape[1]
+    s, t, hd = k.shape
+    pos = torch.arange(t, device=k.device)[None, :]            # (1, T)
+    page_idx = (pos // page).expand(s, t)
+    off = (pos % page).expand(s, t)
+    phys = torch.gather(pt, 1, torch.clamp(page_idx, 0, pt.shape[1] - 1))
+    keep = (pos < seq_len[:, None]) & (page_idx < pt.shape[1])
+    return _write(ins, k.reshape(s * t, hd), v.reshape(s * t, hd),
+                  phys.reshape(-1), off.reshape(-1), keep.reshape(-1))
+
+
+@register_op("paged_attention")
+def paged_attention(ctx, ins, attrs):
+    """Decode-step ragged paged attention (see module docstring).
+
+    Q (S, H*D) head-grouped; KCache/VCache (P, page, H*D); PageTable
+    (S, max_pages) int32; Lengths (S,) int32; KScale/VScale for int8
+    pools.  attrs: n_head (required), scale (default d^-0.5).  The
+    use_pallas attr is kept for serialization parity and does not
+    route."""
+    q = first(ins, "Q")
+    n_head = int(attrs.get("n_head") or 0)
+    if not n_head:
+        raise ValueError("paged_attention needs the n_head attr "
+                         "(operands are head-grouped (S, H*D))")
+    return out(Out=_paged_attention(
+        q, first(ins, "KCache"), first(ins, "VCache"),
+        first(ins, "PageTable").to(torch.int32),
+        first(ins, "Lengths").to(torch.int32), n_head=n_head,
+        scale=attrs.get("scale"), k_scales=opt_in(ins, "KScale"),
+        v_scales=opt_in(ins, "VScale")))
+
+
+@register_op("add_position_encoding_at")
+def add_position_encoding_at(ctx, ins, attrs):
+    """X (S, D) + sinusoid(Position[s]) — the single-token decode twin
+    of add_position_encoding (same formula, per-row position instead of
+    0..T-1)."""
+    x = first(ins, "X")
+    alpha = attrs.get("alpha", 1.0)
+    beta = attrs.get("beta", 1.0)
+    pe = sinusoid(first(ins, "Position"), x.shape[-1])
+    return out(Out=(alpha * x + beta * pe).to(x.dtype))

@@ -33,3 +33,11 @@ jax.config.update("jax_default_matmul_precision", "highest")
 from paddle_tpu.observe import events as _observe_events  # noqa: E402
 
 _observe_events.set_strict_kinds(True)
+
+
+def pytest_configure(config):
+    # tests of the PyTorch port's CUDA kernels: they run only on a
+    # machine with an NVIDIA GPU and skip elsewhere (decided inside the
+    # test, never at import)
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels)")

@@ -1,0 +1,143 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here is marked `cuda` and skips without an NVIDIA GPU;
+the file imports neither jax nor paddle_tpu, so on the GPU machine it
+runs without the JAX package (the repo's conftest imports jax, hence
+`--noconftest`):
+
+    python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
+
+Tolerances: 2e-5 (abs and rel) for float32 operands — both sides compute
+in float32 and differ in summation order; the same for bfloat16/int8
+pools, which both sides dequantize to the same float32 values.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from paddle_tpu_torch import CPUPlace, CUDAPlace
+from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import flash_attention as fk
+from paddle_tpu_torch.ops.kernels import paged_attention as pk
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode (their plain versions are tested on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _paged(kv_dtype, dev, s=5, h=4, d=64, p=40, page=16, maxp=6, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    hd = h * d
+    q = torch.randn(s, hd, generator=g)
+    lens = torch.randint(1, page * maxp + 1, (s,), generator=g,
+                         dtype=torch.int32)
+    lens[0] = 0                                   # an empty slot
+    pt = torch.zeros(s, maxp, dtype=torch.int32)
+    perm = torch.randperm(p, generator=g)
+    for i in range(s):
+        used = -(-int(lens[i]) // page)
+        pt[i, :used] = perm[i * maxp:i * maxp + used]
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        kc = torch.randint(-127, 128, (p, page, hd), generator=g,
+                           dtype=torch.int8)
+        vc = torch.randint(-127, 128, (p, page, hd), generator=g,
+                           dtype=torch.int8)
+        ks = torch.rand(p, page, 1, generator=g) * 0.02
+        vs = torch.rand(p, page, 1, generator=g) * 0.02
+    else:
+        kc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
+        vc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
+        for i in range(s):                      # poison past each length
+            for t in range(int(lens[i]), -(-int(lens[i]) // page) * page):
+                kc[pt[i, t // page], t % page] = 1e3
+                vc[pt[i, t // page], t % page] = float("nan")
+    to = (lambda x: None if x is None else x.to(dev))
+    return [to(x) for x in (q, kc, vc, pt, lens)], h, to(ks), to(vs)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.int8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_kernel_matches_plain(dev, kv_dtype, d):
+    (q, kc, vc, pt, lens), h, ks, vs = _paged(kv_dtype, dev, d=d)
+    before = kernels.launch_counts["paged_attention"]
+    got = pk.paged_attention(q, kc, vc, pt, lens, n_head=h, k_scales=ks,
+                             v_scales=vs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["paged_attention"] == before + 1
+    want = pk.paged_attention_plain(q, kc, vc, pt, lens, h, k_scales=ks,
+                                    v_scales=vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("layout", ["nthd", "nhtd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [17, 64, 130])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_kernel_matches_plain(dev, layout, causal, t, d):
+    n, h = 3, 4
+    g = torch.Generator().manual_seed(t * d)
+    shape = (n, t, h * d) if layout == "nthd" else (n, h, t, d)
+    q, k, v = (torch.randn(*shape, generator=g).to(dev) for _ in range(3))
+    seq = torch.tensor([t, 0, max(1, t // 3)])        # row 1: all padding
+    bias = ((torch.arange(t)[None, :] < seq[:, None]).float() * 1e9
+            - 1e9).reshape(n, 1, 1, t).to(dev)
+    before = kernels.launch_counts["flash_attention_fwd"]
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout=layout, n_head=h)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention_fwd"] == before + 1
+    wo, wl = fk.flash_attention_fwd_plain(q, k, v, bias, None, causal,
+                                          layout=layout, n_head=h)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(o, wo, **TOL)
+    torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-3)
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    (q, kc, vc, pt, lens), h, _, _ = _paged(torch.float32, dev)
+    with pytest.raises(TypeError):
+        pk.paged_attention(q, kc, vc, pt.to(torch.int64), lens, n_head=h)
+    qf = torch.zeros(2, 8, 64, device=dev)
+    with pytest.raises(NotImplementedError):
+        fk.flash_attention_fwd(qf, qf, qf, torch.zeros(1, 1, 8, 8,
+                                                       device=dev),
+                               None, True, layout="nthd", n_head=1)
+
+
+def test_engine_on_cuda_matches_engine_on_cpu(dev):
+    """A short float32-KV stream: the same tokens from the card (through
+    both kernels) as from the CPU (plain versions)."""
+    from paddle_tpu_torch.convert import params_from_arrays
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM, make_prompts
+    from paddle_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+
+    lm = DecoderLM(vocab_size=64, n_layer=2, n_head=2, d_model=64,
+                   d_inner=128, kv_dtype="float32", seed=3)
+    scope = lm.init_params(place=CPUPlace())
+    arrays = {n: v.numpy() for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor)}
+    cfg = dict(num_slots=2, page_size=4, max_len=40, num_pages=20,
+               prefill_buckets=(8, 16), decode_chunk=4,
+               kv_dtype="float32")
+    prompts = make_prompts(4, 64, min_len=3, max_len=14, seed=1)
+    outs = []
+    for place, device in ((CPUPlace(), "cpu"), (CUDAPlace(0), dev)):
+        eng = DecodeEngine(lm, DecodeConfig(**cfg), place=place,
+                           params=params_from_arrays(arrays, device))
+        eng.start()
+        outs.append([eng.submit(p, max_new_tokens=6).result(120).tolist()
+                     for p in prompts])
+        eng.close()
+    assert outs[0] == outs[1]

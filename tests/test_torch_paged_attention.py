@@ -1,0 +1,159 @@
+"""Ragged paged attention: the PyTorch port's plain version against the
+JAX package's dense-gather twin (`_xla_paged_attention`) and its Pallas
+kernel (`ragged_paged_attention`, interpret mode on the CPU — the JAX
+tests' own way), on the same numpy inputs.
+
+Cases: float32, bfloat16 and int8 pools (int8 with per-row scale
+sidecars), ragged lengths, page-table entries past a slot's used range
+left 0 (as the engine keeps them), and rows at or past each length
+poisoned with NaN / huge values, as an evicted slot would leave them.
+
+Tolerance 1e-5 (abs and rel): both sides dequantize the same stored
+values to float32 and differ only in summation order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops.paged_kv import _xla_paged_attention
+from paddle_tpu.ops.pallas.paged_attention import ragged_paged_attention
+from paddle_tpu_torch.ops.kernels import paged_attention as tk
+
+from torch_op_test import round_bf16, run_torch_op, to_torch
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _case(seed, kv_dtype, s=4, h=2, dh=16, p=12, page=4, maxp=3,
+          poison=True):
+    """Numpy inputs of one decode step over a paged pool."""
+    rng = np.random.RandomState(seed)
+    hd = h * dh
+    q = rng.randn(s, hd).astype(np.float32)
+    lens = rng.randint(1, page * maxp + 1, s).astype(np.int32)
+    lens[0] = 1                                  # a fresh slot
+    pt = np.zeros((s, maxp), np.int32)
+    perm = rng.permutation(p)
+    for i in range(s):                           # disjoint pages, 0 past
+        used = -(-int(lens[i]) // page)          # the used range
+        pt[i, :used] = perm[i * maxp:i * maxp + used]
+    if kv_dtype == "int8":
+        kc = rng.randint(-127, 128, (p, page, hd)).astype(np.int8)
+        vc = rng.randint(-127, 128, (p, page, hd)).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, (p, page, 1)).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, (p, page, 1)).astype(np.float32)
+    else:
+        kc = rng.randn(p, page, hd).astype(np.float32)
+        vc = rng.randn(p, page, hd).astype(np.float32)
+        if kv_dtype == "bfloat16":
+            kc, vc = round_bf16(kc), round_bf16(vc)
+        ks = vs = None
+    if poison and kv_dtype != "int8":
+        for i in range(s):
+            for t in range(int(lens[i]), maxp * page):
+                pg = pt[i, t // page]
+                if t // page < -(-int(lens[i]) // page):
+                    kc[pg, t % page] = 1e3
+                    vc[pg, t % page] = np.nan
+    return q, kc, vc, pt, lens, h, ks, vs
+
+
+def _jax_pool(x, kv_dtype):
+    return jnp.asarray(x, jnp.bfloat16 if kv_dtype == "bfloat16" else None)
+
+
+def _torch_pool(x, kv_dtype):
+    return to_torch(x, torch.bfloat16 if kv_dtype == "bfloat16" else None)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_matches_jax_twin_and_pallas(kv_dtype, seed):
+    q, kc, vc, pt, lens, h, ks, vs = _case(seed, kv_dtype)
+    jks = None if ks is None else jnp.asarray(ks)
+    jvs = None if vs is None else jnp.asarray(vs)
+    twin = np.asarray(_xla_paged_attention(
+        jnp.asarray(q), _jax_pool(kc, kv_dtype), _jax_pool(vc, kv_dtype),
+        jnp.asarray(pt), jnp.asarray(lens), h, (q.shape[1] // h) ** -0.5,
+        ks=jks, vs=jvs))
+    pallas = np.asarray(ragged_paged_attention(
+        jnp.asarray(q), _jax_pool(kc, kv_dtype), _jax_pool(vc, kv_dtype),
+        jnp.asarray(pt), jnp.asarray(lens), n_head=h, k_scales=jks,
+        v_scales=jvs))
+    got = tk.paged_attention_plain(
+        to_torch(q), _torch_pool(kc, kv_dtype), _torch_pool(vc, kv_dtype),
+        to_torch(pt), to_torch(lens), h,
+        k_scales=None if ks is None else to_torch(ks),
+        v_scales=None if vs is None else to_torch(vs)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, twin, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_poisoned_rows_do_not_change_the_output():
+    """Rows at/after each length hold NaN (V) and 1e3 (K): the output
+    equals the unpoisoned one bit for bit."""
+    clean = _case(3, "float32", poison=False)
+    dirty = _case(3, "float32", poison=True)
+    outs = []
+    for q, kc, vc, pt, lens, h, _, _ in (clean, dirty):
+        outs.append(tk.paged_attention_plain(
+            to_torch(q), to_torch(kc), to_torch(vc), to_torch(pt),
+            to_torch(lens), h).numpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_op_matches_jax_op(kv_dtype):
+    """The registered `paged_attention` op, port vs reference (CPU)."""
+    from op_test import run_op
+
+    q, kc, vc, pt, lens, h, ks, vs = _case(5, kv_dtype)
+    ins = {"Q": q, "KCache": kc, "VCache": vc, "PageTable": pt,
+           "Lengths": lens}
+    if ks is not None:
+        ins.update(KScale=ks, VScale=vs)
+    want = run_op("paged_attention", ins, {"n_head": h})
+    got = run_torch_op("paged_attention", ins,
+                       {"n_head": h, "use_pallas": True})
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_cpu_routes_to_plain_and_counts():
+    """A CPU tensor takes the plain version and never the kernel."""
+    from paddle_tpu_torch.ops import kernels
+
+    q, kc, vc, pt, lens, h, _, _ = _case(6, "float32")
+    before = dict(kernels.launch_counts), dict(kernels.plain_calls)
+    tk.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
+                       to_torch(pt), to_torch(lens), n_head=h)
+    assert kernels.launch_counts == before[0]
+    assert kernels.plain_calls["paged_attention"] == \
+        before[1]["paged_attention"] + 1
+
+
+def test_wrapper_rejects_mismatched_scales():
+    q, kc, vc, pt, lens, h, _, _ = _case(7, "float32")
+    with pytest.raises(ValueError, match="scale"):
+        tk.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
+                           to_torch(pt), to_torch(lens), n_head=h,
+                           k_scales=torch.ones(kc.shape[:2] + (1,)),
+                           v_scales=torch.ones(kc.shape[:2] + (1,)))
+
+
+def test_bound_counts_only_the_rows_the_lengths_need():
+    q, kc, vc, pt, lens, h, _, _ = _case(8, "float32")
+    nbytes, flops = tk.bound_bytes_and_flops(
+        to_torch(q), to_torch(kc), to_torch(pt), to_torch(lens), h)
+    rows = int(lens.sum())
+    hd = q.shape[1]
+    assert flops == 4 * rows * hd
+    assert nbytes == (2 * q.size * 4 + 2 * rows * hd * 4
+                      + pt.size * 4 + lens.size * 4)
