@@ -6,13 +6,20 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
 
 1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
 2. builds the port's CUDA kernels from paddle_tpu_torch/csrc with nvcc
-   (sm_90a), one nvcc per source, all started together;
+   (sm_90a), one nvcc per source, all started together, and prints each
+   kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes — paged attention over float32, bfloat16 and
+   the main paths' shapes — paged attention over float32, bfloat16 and
    int8 pools with ragged lengths and NaN past each length; causal flash
    attention with a key-padding bias at T = 32, 64, 128 — and times the
    kernel, the plain version and, for flash, one library call
    (scaled_dot_product_attention, never used by the port);
+   3b. does the same for the flash-attention backward kernels (dK/dV and
+   dQ) against the plain backward: the training shape N=64, H=8, T=256,
+   D=64 (nhtd transposed views, key-padding bias, causal and not),
+   T=100 causal, an nthd case, and a case with the bias gradient and an
+   lse cotangent; the library call is autograd through
+   scaled_dot_product_attention;
 4. serves a stream of 64 ragged requests through DecodeEngine at the
    repository's decode-serving configuration (DecoderLM vocab 8192,
    4 layers, 8 heads, d_model 512; 16 slots, 384 pages of 16 tokens,
@@ -22,7 +29,18 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
 5. runs a short float32-KV stream on the card and the same requests
    through the port on the CPU from the same weights, and compares the
    prefill logits and one decode step's logits;
-6. prints one `kernels` JSON line, the card line, and as its last line
+6. trains the repository's Transformer benchmark configuration (bench.py
+   bench_transformer: vocab 32000, 6+6 layers, 8 heads, d_model 512,
+   d_inner 2048, T=256, batch 64, dropout 0.1, flash attention, float32)
+   through build_model / Executor.run on the card: one warmup step, then
+   timed steps with the launch counts zeroed just before them (12 flash
+   forward, 12 dK/dV and 12 dQ launches per step, no plain call, no
+   composed attention), and one profiled window (6b);
+7. trains the same configuration at dropout 0 on a cut batch (2 x 64
+   tokens) for 3 Adam steps on the card and on the CPU from the same
+   weights, and compares the losses, the step-1 gradients and the final
+   parameters;
+8. prints one `kernels` JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -57,6 +75,24 @@ N_REQUESTS = 64
 
 TOL_KERNEL = 2e-5     # f32 on both sides, other summation order
 TOL_LOGITS = 1e-3     # f32 end to end, TF32 off, logits of size ~1-10
+# f32 both sides, sums over up to T=256 (q, k) pairs in another order
+TOL_BWD = 2e-5
+
+# the Transformer of the reference's training bench (bench.py:698-736,
+# run at bench.py:2229-2236), float32 (--no-amp), full width and depth
+TRAIN_ARCH = dict(src_vocab_size=32000, trg_vocab_size=32000,
+                  max_length=256, n_layer=6, n_head=8, d_model=512,
+                  d_inner_hid=2048, dropout=0.1, use_flash=True)
+TRAIN_BATCH = 64
+TRAIN_STEPS = 10
+# phase 7: the card against the CPU, batch and sequence cut to 2 x 64
+PARITY_BATCH, PARITY_T, PARITY_STEPS = 2, 64, 3
+TOL_LOSS = 1e-4       # f32, 6+6 layers and a 32000-way logsumexp
+# per parameter, |g_card - g_cpu|_2 / |g_cpu|_2: ReLU units whose input
+# lies within float32 noise of 0 switch on or off between two summation
+# orders (the JAX package and the port, both on the CPU, differ by up to
+# 5e-4 here, and by 4e-3 of max |g| elementwise)
+TOL_GRAD = 2e-3
 
 OUT_DIR = "chip_smoke_out"
 
@@ -92,6 +128,26 @@ def bound_ms(nbytes, flops):
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def ptxas_summary(build_log):
+    """[(function, "Used N registers, ...; spills")] from `nvcc -Xptxas
+    -v` output, kernel template names demangled to name<D>."""
+    import re
+
+    out, fn, spill = [], None, ""
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"([A-Za-z_]+_kernel)(?:ILi(\d+)E)?",
+                          m.group(1))
+            fn = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2)
+                  else (k.group(1) if k else m.group(1)))
+        elif "spill stores" in ln:
+            spill = ln.split(":", 1)[-1].strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append((fn, f"{ln.split(':', 1)[1].strip()}; {spill}"))
+    return out
 
 
 def check_close(name, got, want, tol):
@@ -241,6 +297,160 @@ def phase_kernels(dev):
     return rows
 
 
+# -- phase 3b: the flash backward kernels against the plain backward -----
+
+def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
+             dlse=False):
+    """Operands of one backward call as the training path makes them:
+    nhtd q/k/v/dO are transposed views of (N, T, H, D) tensors (the
+    model's reshape + transpose), with the key-padding bias of ragged
+    lengths; O and lse come from the forward kernel."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    g = torch.Generator().manual_seed(seed)
+    shape = (n, t, h * d) if layout == "nthd" else (n, t, h, d)
+    q, k, v, do = (torch.randn(*shape, generator=g).to(dev)
+                   for _ in range(4))
+    if layout == "nhtd":
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    seq = torch.randint(1, t + 1, (n,), generator=g)
+    seq[0] = t
+    bias = ((torch.arange(t)[None, :] < seq[:, None]).float() * 1e9
+            - 1e9).reshape(n, 1, 1, t).to(dev)
+    if dbias:                                # a bias with a gradient
+        bias = bias + torch.randn(n, 1, 1, t, generator=g).to(dev) * 0.1
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout=layout, n_head=h)
+    dl = torch.randn(lse.shape, generator=g).to(dev) if dlse else None
+    return dict(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, dlse=dl,
+                causal=causal, layout=layout, n_head=h, need_dbias=dbias)
+
+
+def phase_bwd_kernels(dev):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    log("phase 3b: flash backward kernels vs the plain backward")
+    n, h, t, d = TRAIN_BATCH, TRAIN_ARCH["n_head"], \
+        TRAIN_ARCH["max_length"], TRAIN_ARCH["d_model"] // \
+        TRAIN_ARCH["n_head"]
+    cases = [("train causal", (n, h, t, d, "nhtd", True)),
+             ("train", (n, h, t, d, "nhtd", False)),
+             ("T=100 causal", (8, h, 100, d, "nhtd", True)),
+             ("nthd T=128 causal", (8, h, 128, d, "nthd", True)),
+             ("dbias+dlse T=100", (4, h, 100, d, "nhtd", False))]
+    errs, timed = {"dkv": [], "dq": []}, {}
+    for i, (name, (cn, ch, ct, cd, layout, causal)) in enumerate(cases):
+        extra = dict(dbias=True, dlse=True) if "dbias" in name else {}
+        c = bwd_case(dev, cn, ch, ct, cd, layout, causal, seed=10 + i,
+                     **extra)
+        args = (c["q"], c["k"], c["v"], c["bias"], c["o"], c["lse"],
+                c["do"], c["dlse"], None, causal, layout, ch)
+
+        def kern():
+            return fk.flash_attention_bwd(*args,
+                                          need_dbias=c["need_dbias"])
+
+        def plain():
+            return fk.flash_attention_bwd_plain(*args)
+
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        for gname, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            if b is None or (a is None and not c["need_dbias"]):
+                continue
+            errs["dq" if gname == "dq" else "dkv"].append(
+                check_close(f"flash bwd {name} {gname}", a, b, TOL_BWD))
+        if not name.startswith("train"):
+            continue
+        per = profiled_kernel_ms(kern, ("flash_bwd_dkv_kernel",
+                                        "flash_bwd_dq_kernel"))
+        ms = {"dkv": per["flash_bwd_dkv_kernel"],
+              "dq": per["flash_bwd_dq_kernel"],
+              "both": cuda_ms(kern, iters=20, warmup=3)}
+        ms["plain"] = cuda_ms(plain, iters=10, warmup=2)
+        ms["library"] = cuda_ms(_sdpa_backward(c, d), iters=10, warmup=2)
+        bounds = fk.bound_bytes_and_flops_bwd(c["q"], c["k"], c["bias"],
+                                              causal, layout, ch)
+        timed[name] = dict(ms=ms, bounds=bounds)
+        log(f"  {name}: dkv_ms {ms['dkv']:.5f} dq_ms {ms['dq']:.5f} "
+            f"(wrapper, both kernels: {ms['both']:.5f}) plain_ms "
+            f"{ms['plain']:.5f} library_ms {ms['library']:.5f}")
+    rows = {}
+    for kname, full in (("dkv", "flash_attention_bwd_dkv"),
+                        ("dq", "flash_attention_bwd_dq")):
+        # the main path's mix: 6 causal and 6 non-causal launches a step
+        per = []
+        for name, r in timed.items():
+            b_ms, b_by = bound_ms(*r["bounds"][kname])
+            per.append(dict(ms=r["ms"][kname], plain_ms=r["ms"]["plain"],
+                            library_ms=r["ms"]["library"], bound_ms=b_ms,
+                            bound_by=b_by, bytes=r["bounds"][kname][0],
+                            flops=r["bounds"][kname][1], case=name))
+        mean = {key: sum(p[key] for p in per) / len(per)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        mean["bound_by"] = per[0]["bound_by"]
+        mean["max_abs_err"] = max(errs[kname])
+        mean["cases"] = per
+        mean["shape"] = ("N=64 H=8 T=256 D=64 f32 nhtd (transposed views) "
+                         "+ key bias; mean of the causal and non-causal "
+                         "case, the training step's 6 + 6 mix")
+        rows[full] = mean
+        log(f"  {full}: ms {mean['ms']:.5f} bound_ms "
+            f"{mean['bound_ms']:.5f} ({mean['bound_by']}) plain_ms "
+            f"{mean['plain_ms']:.5f} library_ms {mean['library_ms']:.5f}")
+    return rows
+
+
+def profiled_kernel_ms(fn, names, iters=20, warmup=3):
+    """{name: mean device ms per launch} of the CUDA kernels whose name
+    contains each of `names`, over `iters` calls of fn() under
+    torch.profiler (one wrapper call launches both backward kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key]
+        total = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in evs)
+        count = sum(e.count for e in evs)
+        if count != iters:
+            raise AssertionError(f"{name}: {count} launches profiled, "
+                                 f"want {iters}")
+        out[name] = total / count / 1e3
+    return out
+
+
+def _sdpa_backward(c, d):
+    """The library yardstick: autograd through scaled_dot_product_attention
+    with the key bias and the causal mask as one float attn_mask, the
+    backward alone timed (dQ, dK and dV in one call)."""
+    q, k, v = (c[x].detach().requires_grad_() for x in ("q", "k", "v"))
+    mask = c["bias"]
+    t = q.shape[2]
+    if c["causal"]:
+        mask = mask + torch.full((t, t), float("-inf"),
+                                 device=q.device).triu(1)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=d ** -0.5)
+    do = c["do"]
+
+    def run():
+        return torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+
+    return run
+
+
 # -- phase 4: the serving stream ------------------------------------------
 
 def phase_stream(dev):
@@ -282,7 +492,9 @@ def phase_stream(dev):
         (la, snap["decode_iterations"])
     assert la["flash_attention_fwd"] == layers * snap["prefills"], \
         (la, snap["prefills"])
-    assert min(la.values()) > 0 and max(pl.values()) == 0, counts
+    assert la["paged_attention"] > 0 and la["flash_attention_fwd"] > 0 \
+        and max(pl.values()) == 0 and max(counts["composed"].values()) \
+        == 0, counts
     tokens = snap["tokens_generated"]
     res = {"requests": N_REQUESTS, "tokens": tokens,
            "budget_tokens": sum(budgets), "wall_s": wall,
@@ -479,6 +691,206 @@ def phase_card_vs_cpu(dev):
             "stream_tokens_equal": same, "stream_tokens": total}
 
 
+# -- phase 6: training the Transformer at full width ----------------------
+
+def build_training(**overrides):
+    """(main, startup, model) of the bench Transformer, float32."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = transformer.build_model(**dict(TRAIN_ARCH, **overrides))
+    return main, startup, model
+
+
+def _flash_ops(program):
+    return sum(op.type == "flash_attention"
+               for op in program.global_block().ops)
+
+
+def phase_train(dev, card):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels
+
+    log("phase 6: Transformer training on the card (bench config, f32)")
+    main, startup, model = build_training()
+    n_flash = _flash_ops(main)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    t_len = TRAIN_ARCH["max_length"]
+    vocab = TRAIN_ARCH["trg_vocab_size"]
+    feed = transformer.make_fake_batch(TRAIN_BATCH, t_len,
+                                       TRAIN_ARCH["src_vocab_size"], vocab)
+    feed = {n: torch.as_tensor(a).to(dev) for n, a in feed.items()}
+    loss = model["loss"]
+    first = float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0][0])
+    torch.cuda.synchronize()
+    log(f"  startup + warmup step {time.perf_counter() - t0:.3f} s, "
+        f"loss {first:.6f} (ln {vocab} = {np.log(vocab):.6f}); "
+        f"{n_flash} flash_attention ops")
+    # label-smoothed CE of near-uniform logits at random init
+    if not abs(first - np.log(vocab)) < 0.5:
+        raise AssertionError(f"step-1 loss {first} is not near "
+                             f"ln {vocab}")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0] for _ in range(TRAIN_STEPS)]
+    losses = [float(x.reshape(())) for x in losses]   # syncs
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    la, pl, co = counts["launches"], counts["plain"], counts["composed"]
+    want = {"flash_attention_fwd": n_flash * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": n_flash * TRAIN_STEPS,
+            "flash_attention_bwd_dq": n_flash * TRAIN_STEPS,
+            "paged_attention": 0}
+    if la != want or max(pl.values()) or max(co.values()):
+        raise AssertionError(f"training launches {counts}, want {want} "
+                             f"and no plain or composed call")
+    leaked = [n for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor)
+              and (v.requires_grad or v.grad_fn is not None)]
+    if leaked:
+        raise AssertionError(f"scope holds autograd state: {leaked[:4]}")
+    tokens = TRAIN_BATCH * t_len * TRAIN_STEPS
+    res = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "max_length": t_len,
+           "flash_ops": n_flash, "wall_s": wall,
+           "steps_per_s": TRAIN_STEPS / wall, "tokens_per_s": tokens / wall,
+           "step_ms": wall * 1e3 / TRAIN_STEPS, "first_loss": first,
+           "losses": losses, "launches": la, "plain_calls": pl,
+           "composed_calls": co,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s: "
+        f"{res['steps_per_s']:.4f} steps/s, {res['tokens_per_s']:.1f} "
+        f"tokens/s ({res['step_ms']:.2f} ms/step) on {card}; losses "
+        f"{losses[0]:.6f} .. {losses[-1]:.6f}")
+    log(f"  launches {la}, plain calls {pl}, composed {co}")
+    res["profile"] = _profile_train_step(exe, main, feed, loss, scope)
+    return res
+
+
+def _profile_train_step(exe, main, feed, loss, scope, steps=2):
+    """6b: host ms against device-busy ms of training steps, and the
+    costliest device kernels (torch.profiler, as phase 4b)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / steps
+    avg = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3 / steps
+    res = {"profiled_step_ms": prof_ms, "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           "kernel_launches_per_step": sum(e.count for e in kern) / steps,
+           "top_kernels": [(e.key, e.count // steps, dev_us(e) / steps)
+                           for e in kern[:12]]}
+    log(f"phase 6b: profiled step {prof_ms:.3f} ms; device busy "
+        f"{busy_ms:.3f} ms/step, idle share "
+        f"{res['device_idle_share']:.3f}; "
+        f"{res['kernel_launches_per_step']:.0f} kernels/step")
+    for name, n, us in res["top_kernels"]:
+        log(f"    device {us:11.2f} us/step  x{n:<4d} {name[:70]}")
+    return res
+
+
+# -- phase 7: training, the card against the CPU --------------------------
+
+def phase_train_parity(dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+    from paddle_tpu_torch.models import transformer
+
+    log(f"phase 7: training card vs CPU ({PARITY_BATCH} x {PARITY_T} "
+        f"tokens, dropout 0, {PARITY_STEPS} Adam steps)")
+    main, startup, model = build_training(dropout=0.0,
+                                          max_length=PARITY_T)
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+              if isinstance(v, torch.Tensor)}
+    feed = transformer.make_fake_batch(PARITY_BATCH, PARITY_T,
+                                       TRAIN_ARCH["src_vocab_size"],
+                                       TRAIN_ARCH["trg_vocab_size"], seed=3)
+    feed["src_len"] = np.array([PARITY_T, 41], np.int32)   # ragged, >= 1
+    feed["trg_len"] = np.array([17, PARITY_T], np.int32)
+    params = [p.name for p in main.all_parameters()]
+    fetch = [model["loss"].name] + [f"{p}@GRAD" for p in params]
+    runs = {}
+    for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
+        scope = pt.Scope()
+        for n, t in params_from_arrays(arrays, device, program=main).items():
+            scope.set_var(n, t)
+        exe = pt.Executor(place)
+        losses, grads = [], None
+        for step in range(PARITY_STEPS):
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            losses.append(float(out[0][0]))
+            if step == 0:
+                grads = out[1:]
+        runs[str(device)] = dict(
+            losses=losses, grads=grads,
+            params={n: scope.find_var(n).cpu().numpy() for n in params})
+    card, cpu = runs[str(dev)], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(card["losses"],
+                                              cpu["losses"]))
+    log(f"  losses card {card['losses']} cpu {cpu['losses']}: max abs "
+        f"err {loss_err:.3e} (tol {TOL_LOSS:g})")
+    if not loss_err <= TOL_LOSS:
+        raise AssertionError(f"losses differ by {loss_err}")
+    rel = {n: (float(np.linalg.norm(a - b) / max(np.linalg.norm(b),
+                                                  1e-30)),
+               float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+           for n, a, b in zip(params, card["grads"], cpu["grads"])}
+    worst = max(rel, key=lambda n: rel[n][0])
+    grad_err = rel[worst][0]
+    log(f"  step-1 gradients over {len(params)} parameters: worst "
+        f"|dg|_2/|g|_2 {grad_err:.3e} ({worst}; tol {TOL_GRAD:g}), worst "
+        f"max|dg|/max|g| {max(r[1] for r in rel.values()):.3e}")
+    if not grad_err <= TOL_GRAD:
+        raise AssertionError(f"step-1 gradients of {worst} differ by "
+                             f"{grad_err}")
+    # Adam with epsilon 1e-9 turns a gradient near 0 into a step of about
+    # +-lr whose sign is noise: the bound is a few lr per step
+    lrs = [_noam_lr(t) for t in range(1, PARITY_STEPS + 1)]
+    bound = 4 * sum(lrs) + 1e-6
+    p_err = max(float(np.abs(card["params"][n] - cpu["params"][n]).max())
+                for n in params)
+    log(f"  parameters after {PARITY_STEPS} steps: max abs err "
+        f"{p_err:.3e} (bound 4 * sum(lr) + 1e-6 = {bound:.3e})")
+    if not p_err <= bound:
+        raise AssertionError(f"parameters differ by {p_err} > {bound}")
+    return {"losses_card": card["losses"], "losses_cpu": cpu["losses"],
+            "loss_max_abs_err": loss_err, "grad_max_rel_l2_err": grad_err,
+            "grad_max_rel_err": max(r[1] for r in rel.values()),
+            "param_max_abs_err": p_err, "param_bound": bound}
+
+
+def _noam_lr(step, d_model=512, warmup=4000, scale=2.0):
+    """build_model's learning rate at `step` (noam_decay x 2.0)."""
+    return scale * d_model ** -0.5 * min(step ** -0.5,
+                                         step * warmup ** -1.5)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -501,38 +913,52 @@ def main() -> int:
     log(f"phase 2: built {sorted(built)} in "
         f"{time.perf_counter() - t0:.2f} s (per source: "
         f"{ {k: round(v, 2) for k, v in built.items()} })")
+    ptxas = {}
     for name in _build.KERNEL_SOURCES:
-        # ptxas -v: registers and shared memory of each instantiation
-        used = sorted({ln.split(":", 1)[1].strip() for ln in
-                       _build.build_log(name).splitlines()
-                       if "Used" in ln and "registers" in ln})
-        log(f"  {name}: {used}")
+        # ptxas -v: registers, spills and shared memory per instantiation
+        ptxas[name] = ptxas_summary(_build.build_log(name))
+        for fn, used in ptxas[name]:
+            log(f"  {name}: {fn}: {used}")
 
     rows = phase_kernels(dev)
+    rows.update(phase_bwd_kernels(dev))
     stream = phase_stream(dev)
     profile = phase_step_profile(dev)
     parity = phase_card_vs_cpu(dev)
+    train = phase_train(dev, card)
+    train_parity = phase_train_parity(dev)
 
+    fa = "paddle_tpu/ops/pallas/flash_attention.py"
     replaces = {
         "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:163",
-        "flash_attention_fwd":
-            "paddle_tpu/ops/pallas/flash_attention.py:276",
+        "flash_attention_fwd": f"{fa}:276",
+        "flash_attention_bwd_dkv": f"{fa}:402",
+        "flash_attention_bwd_dq": f"{fa}:458",
     }
+    sources = {"flash_attention_bwd_dkv": "flash_attention_bwd",
+               "flash_attention_bwd_dq": "flash_attention_bwd"}
+    # each path's launches, its counts zeroed just before it: the
+    # forward kernel runs on both the serving and the training path
+    launches = {k: stream["launches"][k] + train["launches"][k]
+                for k in replaces}
     kern = []
-    for name in ("paged_attention", "flash_attention_fwd"):
+    for name in replaces:
         r = rows[name]
         kern.append({"name": name, "route": "cuda",
-                     "source": f"paddle_tpu_torch/csrc/{name}.cu",
+                     "source": f"paddle_tpu_torch/csrc/"
+                               f"{sources.get(name, name)}.cu",
                      "replaces": replaces[name],
-                     "launches": stream["launches"][name],
+                     "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": rows, "stream": stream,
-                   "step_profile": profile, "card_vs_cpu": parity,
+        json.dump({"card": card, "ptxas": ptxas, "kernels": rows,
+                   "stream": stream, "step_profile": profile,
+                   "card_vs_cpu": parity, "train": train,
+                   "train_card_vs_cpu": train_parity,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")

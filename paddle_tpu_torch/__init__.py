@@ -3,7 +3,8 @@ NVIDIA H100.
 
 Public API mirrors `paddle.fluid` as paddle_tpu does (reference:
 python/paddle/fluid/__init__.py): Program/Block/Variable graph building,
-layers and Executor.  The runtime is PyTorch: the Executor interprets a
+layers, optimizers (`optimizer.minimize` = `append_backward` + update
+ops) and Executor.  The runtime is PyTorch: the Executor interprets a
 Program op by op on torch tensors, and every TPU kernel of the reference
 package (Pallas) is a kernel written by hand for Hopper (`ops/kernels/`,
 sources in `csrc/`).  This package imports torch and numpy only — never
@@ -53,10 +54,14 @@ def is_compiled_with_cuda() -> bool:
     return torch.backends.cuda.is_built()
 
 
+from . import clip  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
 from . import layers  # noqa: E402,F401
 from . import ops as _ops  # noqa: E402,F401  (registers all op impls)
+from . import optimizer  # noqa: E402,F401
+from . import regularizer  # noqa: E402,F401
 from .core import unique_name  # noqa: E402,F401
+from .core.backward import append_backward, gradients  # noqa: E402,F401
 from .core.executor import (Executor, Scope, global_scope,  # noqa: E402,F401
                             scope_guard)
 from .core.program import (Block, Operator, Parameter,  # noqa: E402,F401

@@ -1,12 +1,23 @@
 """Executor: interpret a Program op by op on torch tensors.
 
-The port of paddle_tpu/core/executor.py, forward only (reference:
+The port of paddle_tpu/core/executor.py (reference:
 paddle/fluid/framework/executor.cc — Run:299, the op-by-op hot loop at
 :448-455).  Where the reference traces the whole program once into one
 `jax.jit` computation, the port runs each op's torch implementation
 eagerly on the executor's device — the reference C++ executor's own
-model.  Training programs (a `backward_marker` split) are not ported
-yet: ROADMAP queue A item 2.
+model.
+
+Training programs (`append_backward`'s `backward_marker` split) run the
+reference's dense branch (paddle_tpu/core/executor.py:396-459,
+547-549, 577-582): the ops before the marker run with every trainable
+parameter as a fresh autograd leaf, `torch.autograd.grad` of the
+squeezed loss gives the gradients, `<param>@GRAD` and `<loss>@GRAD = 1`
+are written into the env, and the ops after the marker (optimizer
+updates) run under `torch.no_grad()`.  Nothing of the autograd graph
+outlives the step.  What the reference does beyond that — SparseGrad
+lookups, gradient accumulation, explicit gradient sync, the update
+guard, telemetry and numerics, recompute and pipeline scopes, bf16 AMP —
+raises NotImplementedError naming its ROADMAP item.
 
 Places follow Paddle's idiom: `CUDAPlace(0)` runs on `cuda:0`,
 `CPUPlace()` on the CPU.  `Executor()` without a place means
@@ -22,7 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .program import Program, Variable
+from .program import Program, Variable, grad_var_name
 from .registry import OpContext, get_op_impl
 
 # Scope key of the executor's RNG state (the reference's jax PRNG key;
@@ -120,7 +131,9 @@ def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
             program=None, device=None):
     """Run a straight-line op list over `env` (name → tensor), in order
     — the executor hot loop (executor.cc:448).  `seed` is the run's RNG
-    seed material (see OpContext.rng), None when no op may draw."""
+    seed material (see OpContext.rng), None when no op may draw.
+    `device` None means CUDAPlace(0) (`place_device`)."""
+    device = _run_device(device)
     for i, op in enumerate(ops):
         _run_one_op(op, env, seed, start_index + i, program=program,
                     device=device)
@@ -198,21 +211,89 @@ def _pruned(program: Program, fetch_names):
     return ops
 
 
+def _run_device(device) -> torch.device:
+    """The device ops run on: `device`, or CUDAPlace(0) when None."""
+    return place_device(None) if device is None else torch.device(device)
+
+
 def interpret_program(program: Program, env: Dict[str, Any], seed,
                       fetch_names=(), device=None):
-    """Run the program's forward ops over env (pruned to what the fetches
-    and persistable state need).  Programs with a backward section are
-    not ported yet."""
-    if program._backward_info is not None:
-        raise NotImplementedError(
-            "training programs (backward + optimizer ops) are not ported "
-            "yet: ROADMAP queue A item 2 (executor autodiff split)")
+    """Run the program over env: a forward program pruned to what the
+    fetches and persistable state need; a training program whole
+    (forward, gradients, update ops; training programs are never pruned,
+    as in the reference).  `device` None means CUDAPlace(0)."""
+    device = _run_device(device)
     if len(program.blocks) > 1:
         raise NotImplementedError(
             "control-flow sub-blocks are not ported yet: ROADMAP queue A "
             "item 6 (ops/control_flow.py)")
-    return run_ops(_pruned(program, fetch_names), env, seed,
-                   program=program, device=device)
+    if program._backward_info is None:
+        return run_ops(_pruned(program, fetch_names), env, seed,
+                       program=program, device=device)
+    return _train_step(program, env, seed, device)
+
+
+def _check_trainable(program: Program, fwd_ops, trainable):
+    """Raise for what the reference's training step does beyond the
+    dense autodiff split (each names its ROADMAP item)."""
+    for attr, what in (("_amp_lists", "bf16 mixed precision (amp.py)"),
+                       ("_grad_sync", "explicit gradient sync"),
+                       ("_update_guard", "the in-step update guard"),
+                       ("_telemetry_enabled", "in-step telemetry"),
+                       ("_numerics_enabled", "numerics observability")):
+        if getattr(program, attr, None):
+            raise NotImplementedError(
+                f"training with {what} is not ported yet: ROADMAP queue A "
+                f"item 2 (executor: {what})")
+    for op in fwd_ops:
+        attrs = op.desc.attrs
+        if "__recompute__" in attrs or "__pp_group__" in attrs:
+            raise NotImplementedError(
+                "recompute and pipeline scopes in a training program are "
+                "not ported yet: ROADMAP queue A item 2 (executor: "
+                "recompute and pipeline scopes)")
+        if (op.type == "lookup_table" and attrs.get("is_sparse", False)
+                and op.desc.inputs["W"][0] in trainable):
+            raise NotImplementedError(
+                "is_sparse lookups of a trainable table (SparseGrad "
+                "gradients and lazy row updates) are not ported yet: "
+                "ROADMAP queue A item 2 (executor: SparseGrad lookups)")
+
+
+def _train_step(program: Program, env: Dict[str, Any], seed, device):
+    """The dense training step (see the module docstring)."""
+    info = program._backward_info
+    ops = program.global_block().ops
+    k = info["index"]
+    fwd_ops, rest_ops = ops[:k], ops[k:]
+    params = [p for p in info["params"] if p in env]
+    _check_trainable(program, fwd_ops, set(params))
+    loss_name = info["loss"]
+    # fresh leaves: the scope's own tensors never join the graph
+    leaves = [env[p].detach().requires_grad_() for p in params]
+    with torch.enable_grad():
+        fenv = dict(env)
+        fenv.update(zip(params, leaves))
+        run_ops(fwd_ops, fenv, seed, program=program, device=device)
+        loss = fenv[loss_name]
+        if loss.dim() > 0:
+            loss = loss.squeeze()
+        if loss.dim() > 0:
+            raise ValueError(f"loss {loss_name!r} must have one element, "
+                             f"got shape {tuple(fenv[loss_name].shape)}")
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # nothing of the graph leaves the step: every value is detached
+    env = {n: (v.detach() if isinstance(v, torch.Tensor) else v)
+           for n, v in fenv.items()}
+    loss = loss.detach()
+    env[grad_var_name(loss_name)] = loss * 0 + 1.0
+    for p, leaf, g in zip(params, leaves, grads):
+        env[grad_var_name(p)] = torch.zeros_like(leaf) if g is None else g
+    # rest_ops[0] is the backward_marker itself
+    with torch.no_grad():
+        run_ops(rest_ops[1:], env, seed, start_index=k + 1,
+                program=program, device=device)
+    return env
 
 
 class Executor:
@@ -231,8 +312,15 @@ class Executor:
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence[Any]] = None,
             scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy: bool = True,
+            accumulation_steps: int = 1):
         from .program import default_main_program
+
+        if accumulation_steps != 1:
+            raise NotImplementedError(
+                "gradient accumulation (accumulation_steps > 1) is not "
+                "ported yet: ROADMAP queue A item 2 (executor: gradient "
+                "accumulation)")
 
         program = program or default_main_program()
         scope = scope or global_scope()
@@ -247,8 +335,8 @@ class Executor:
                 env[v.name] = scope.find_var(v.name)
         for name, value in (feed or {}).items():
             env[name] = self._to_tensor(value, block, name)
-        interpret_program(program, env, (program.random_seed, run),
-                          fetch_names=fetch_names, device=self.device)
+        env = interpret_program(program, env, (program.random_seed, run),
+                                fetch_names=fetch_names, device=self.device)
         for v in block.vars.values():
             if v.persistable and v.name in env:
                 scope.set_var(v.name, env[v.name])

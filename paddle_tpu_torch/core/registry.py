@@ -65,6 +65,10 @@ class OpContext:
     streams differ from jax's threefry bits by construction, so parity
     tests carry parameters across (convert.py) instead of re-drawing
     them.
+
+    `device` None means CUDAPlace(0) and raises when CUDA is not
+    available (`executor.place_device`); the CPU runs only when asked
+    for.
     """
 
     def __init__(self, seed=None, op_index: int = 0, is_test: bool = False,
@@ -73,8 +77,13 @@ class OpContext:
         self.op_index = op_index
         self.is_test = is_test
         self.program = program
-        self.device = torch.device("cpu") if device is None \
-            else torch.device(device)
+        if device is None:
+            # no implicit CPU: None is CUDAPlace(0), as for the Executor
+            from .executor import place_device
+
+            self.device = place_device(None)
+        else:
+            self.device = torch.device(device)
 
     def rng(self) -> Optional[torch.Generator]:
         """A generator unique to this op within the run, on the run's

@@ -1,11 +1,20 @@
-"""fluid.layers-equivalent namespace: the layers the ported slice builds
+"""fluid.layers-equivalent namespace: the layers the ported slices build
 (reference: python/paddle/fluid/layers/__init__.py)."""
 
 from .io import data  # noqa: F401
+from .learning_rate_scheduler import (cosine_decay,  # noqa: F401
+                                      exponential_decay,
+                                      inverse_time_decay, linear_lr_warmup,
+                                      natural_exp_decay, noam_decay,
+                                      piecewise_decay, polynomial_decay)
 from .nn import (add_position_encoding_at, batched_gather,  # noqa: F401
-                 elementwise_add, elementwise_op, embedding, fc,
-                 flash_attention, layer_norm, paged_attention,
-                 paged_kv_prefill_write, paged_kv_write, scale, squeeze,
-                 unsqueeze)
+                 clip, clip_by_norm, dropout, elementwise_add,
+                 elementwise_div, elementwise_max, elementwise_mul,
+                 elementwise_op, embedding, fc, flash_attention,
+                 label_smooth, layer_norm, matmul, one_hot,
+                 paged_attention, paged_kv_prefill_write, paged_kv_write,
+                 reduce_sum, reshape, scale, softmax,
+                 softmax_with_cross_entropy, squeeze, transpose, unsqueeze)
+from .ops import sqrt  # noqa: F401
 from .sequence import add_position_encoding, sequence_mask  # noqa: F401
-from .tensor import argmax, cast, fill_constant  # noqa: F401
+from .tensor import argmax, cast, fill_constant, sums  # noqa: F401

@@ -1,5 +1,5 @@
 """Tensor layer functions: the subset of paddle_tpu/layers/tensor.py
-the ported slice builds (reference: python/paddle/fluid/layers/tensor.py).
+the ported slices build (reference: python/paddle/fluid/layers/tensor.py).
 """
 
 from __future__ import annotations
@@ -16,6 +16,15 @@ def fill_constant(shape, dtype, value, out=None, name=None):
         type="fill_constant", outputs={"Out": [out]},
         attrs={"shape": list(shape), "dtype": normalize_dtype(dtype),
                "value": float(value)})
+    return out
+
+
+def sums(input, out=None):
+    """Sum a list of same-shape vars (the `sum` op)."""
+    helper = LayerHelper("sums")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
     return out
 
 

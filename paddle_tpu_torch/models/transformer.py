@@ -1,0 +1,311 @@
+"""Transformer NMT (encoder-decoder): the port of
+paddle_tpu/models/transformer.py, the repository's training headline
+model.
+
+The same builder, so `Program.to_dict()` of a build equals the
+reference's: pre/post-process wrappers around multi-head attention and
+FFN, masks as additive biases built in-graph from sequence lengths, and
+`build_model`'s AdamOptimizer(noam_decay).minimize(loss).  Ported:
+`use_flash=True` (the flash_attention op: key-padding bias, causal
+decoder self-attention, autograd through the forward and backward
+kernels on CUDA) with `head_major` False or True; without head_major
+the decoder's cross attention is composed from matmul and softmax, as
+in the reference.  Not ported yet, each raising NotImplementedError with
+its ROADMAP item: `use_flash=False` (its causal bias needs the `range`
+and `less_equal` layers) and `fused_qkv` (the `slice` layer), both
+queue A item 3; `use_fused_ce`
+(the vocab-CE kernels: queue B rows 5-7), `use_amp` (queue A item 2:
+bf16 policy and bf16 flash kernels), `moe_experts` (queue A item 6:
+ops/moe.py), `recompute` and `pipeline` (queue A item 2: executor
+scopes).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import layers, optimizer
+from ..initializer import Normal
+from ..param_attr import ParamAttr
+
+
+def _unported(what, item):
+    raise NotImplementedError(
+        f"transformer {what} is not ported yet: ROADMAP {item}")
+
+
+def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
+                         d_model, n_head, dropout_rate=0.0,
+                         use_flash=False, fused_qkv=False,
+                         flash_pallas=None, causal=False,
+                         head_major=False):
+    if fused_qkv:
+        _unported("fused_qkv", "queue A item 3 (the slice layer)")
+    if keys is None:  # self-attention
+        keys, values = queries, queries
+    # layer names drive the Megatron row/col sharding rules of the
+    # reference: attn_qkv_* column-parallel, attn_out_* row-parallel
+    q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2,
+                  bias_attr=False, name="attn_qkv")
+    k = layers.fc(keys, size=d_key * n_head, num_flatten_dims=2,
+                  bias_attr=False, name="attn_qkv")
+    v = layers.fc(values, size=d_value * n_head, num_flatten_dims=2,
+                  bias_attr=False, name="attn_qkv")
+    if head_major:
+        # the projections' (N, T, H*d) head-grouped outputs feed the
+        # flash op's layout="nthd" directly; no transpose anywhere.
+        # Like the flash path below, no dropout on the attention weights
+        # (the flash op's contract).
+        ctx = layers.flash_attention(q, k, v, attn_bias,
+                                     scale=d_key ** -0.5, causal=causal,
+                                     use_pallas=flash_pallas,
+                                     layout="nthd", n_head=n_head)
+        return layers.fc(ctx, size=d_model, num_flatten_dims=2,
+                         bias_attr=False, name="attn_out")
+
+    def split_heads(x, d):
+        # (N, T, H*d) -> (N, H, T, d)
+        rr = layers.reshape(x, shape=[0, 0, n_head, d])
+        return layers.transpose(rr, perm=[0, 2, 1, 3])
+
+    q = split_heads(q, d_key)
+    k = split_heads(k, d_key)
+    v = split_heads(v, d_value)
+    if use_flash:
+        # causal=True (decoder self-attention) masks in the op with a
+        # key-padding-only bias, the form the kernels take natively
+        ctx = layers.flash_attention(q, k, v, attn_bias,
+                                     scale=d_key ** -0.5, causal=causal,
+                                     use_pallas=flash_pallas)
+    else:
+        # composed attention (the decoder's cross attention): matmul,
+        # bias, softmax, dropout on the weights, matmul
+        product = layers.matmul(q, k, transpose_y=True,
+                                alpha=d_key ** -0.5)
+        if attn_bias is not None:
+            product = layers.elementwise_add(product, attn_bias)
+        weights = layers.softmax(product)
+        if dropout_rate:
+            weights = layers.dropout(
+                weights, dropout_prob=dropout_rate,
+                dropout_implementation="upscale_in_train")
+        ctx = layers.matmul(weights, v)
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[0, 0, n_head * d_value])
+    return layers.fc(ctx, size=d_model, num_flatten_dims=2,
+                     bias_attr=False, name="attn_out")
+
+
+def positionwise_feed_forward(x, d_inner, d_model, act="relu"):
+    hidden = layers.fc(x, size=d_inner, num_flatten_dims=2, act=act,
+                       name="ffn_in")
+    return layers.fc(hidden, size=d_model, num_flatten_dims=2,
+                     name="ffn_out")
+
+
+def pre_post_process(prev_out, out, process_cmd, dropout_rate=0.0):
+    """'a' residual-add, 'n' layer-norm, 'd' dropout (reference
+    pre_process_layer/post_process_layer convention)."""
+    for cmd in process_cmd:
+        if cmd == "a":
+            out = layers.elementwise_add(out, prev_out) \
+                if prev_out is not None else out
+        elif cmd == "n":
+            out = layers.layer_norm(out, begin_norm_axis=len(out.shape) - 1)
+        elif cmd == "d":
+            if dropout_rate:
+                out = layers.dropout(
+                    out, dropout_prob=dropout_rate,
+                    dropout_implementation="upscale_in_train")
+    return out
+
+
+def encoder_layer(x, attn_bias, n_head, d_key, d_value, d_model, d_inner,
+                  dropout, use_flash=False, fused_qkv=False,
+                  flash_pallas=None, head_major=False):
+    attn = multi_head_attention(
+        pre_post_process(None, x, "n"), None, None, attn_bias, d_key,
+        d_value, d_model, n_head, dropout, use_flash=use_flash,
+        fused_qkv=fused_qkv, flash_pallas=flash_pallas,
+        head_major=head_major)
+    attn = pre_post_process(x, attn, "ad", dropout)
+    ff = positionwise_feed_forward(pre_post_process(None, attn, "n"),
+                                   d_inner, d_model)
+    return pre_post_process(attn, ff, "ad", dropout)
+
+
+def decoder_layer(x, enc_out, self_bias, cross_bias, n_head, d_key, d_value,
+                  d_model, d_inner, dropout, use_flash=False,
+                  fused_qkv=False, flash_pallas=None, self_causal=False,
+                  flash_cross=False, head_major=False):
+    self_attn = multi_head_attention(
+        pre_post_process(None, x, "n"), None, None, self_bias, d_key,
+        d_value, d_model, n_head, dropout, use_flash=use_flash,
+        fused_qkv=fused_qkv, flash_pallas=flash_pallas,
+        causal=self_causal, head_major=head_major)
+    self_attn = pre_post_process(x, self_attn, "ad", dropout)
+    q = pre_post_process(None, self_attn, "n")
+    # cross attention goes through the flash op with flash_cross or
+    # head_major; otherwise it is composed from matmul and softmax
+    cross = multi_head_attention(q, enc_out, enc_out, cross_bias, d_key,
+                                 d_value, d_model, n_head, dropout,
+                                 use_flash=flash_cross or head_major,
+                                 flash_pallas=(flash_pallas
+                                               if flash_cross else None),
+                                 head_major=head_major)
+    cross = pre_post_process(self_attn, cross, "ad", dropout)
+    ff = positionwise_feed_forward(pre_post_process(None, cross, "n"),
+                                   d_inner, d_model)
+    return pre_post_process(cross, ff, "ad", dropout)
+
+
+def _word_embedding(ids, vocab_size, d_model, name):
+    emb = layers.embedding(
+        ids, size=[vocab_size, d_model],
+        param_attr=ParamAttr(name=name,
+                             initializer=Normal(0.0, d_model ** -0.5)))
+    return layers.scale(emb, scale=d_model ** 0.5)
+
+
+def _prepare_input(ids, vocab_size, d_model, max_len, dropout, name):
+    emb = _word_embedding(ids, vocab_size, d_model, name)
+    emb = layers.add_position_encoding(emb)
+    if dropout:
+        emb = layers.dropout(emb, dropout_prob=dropout,
+                             dropout_implementation="upscale_in_train")
+    return emb
+
+
+def _padding_bias(seq_len, max_len):
+    """(N,) lengths -> additive attention bias (N, 1, 1, T): 0 valid,
+    -1e9 padded."""
+    m = layers.sequence_mask(seq_len, maxlen=max_len, dtype="float32")
+    bias = layers.scale(m, scale=1e9, bias=-1e9)
+    return layers.unsqueeze(layers.unsqueeze(bias, axes=[1]), axes=[1])
+
+
+def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
+                n_layer=6, n_head=8, d_key=64, d_value=64, d_model=512,
+                d_inner_hid=2048, dropout=0.1, label_smooth_eps=0.1,
+                use_flash=False, use_fused_ce=False, fused_qkv=False,
+                moe_experts=0, moe_aux_weight=0.01, flash_pallas=None,
+                recompute=False, pipeline=False, flash_cross=False,
+                head_major=False):
+    """Build the full training graph; returns (avg_cost, logits, feeds).
+    Only the ported options are accepted (module docstring)."""
+    if head_major and not use_flash:
+        raise ValueError(
+            "head_major=True requires use_flash=True: the composed "
+            "matmul+softmax attention path would reintroduce the "
+            "boundary transposes the head-major layout deletes")
+    if not use_flash:
+        _unported("use_flash=False",
+                  "queue A item 3 (composed attention: range, less_equal)")
+    if use_fused_ce:
+        _unported("use_fused_ce", "queue B rows 5-7 (vocab-CE kernels)")
+    if moe_experts:
+        _unported("moe_experts", "queue A item 6 (ops/moe.py)")
+    if recompute:
+        _unported("recompute",
+                  "queue A item 2 (executor: recompute and pipeline scopes)")
+    if pipeline:
+        _unported("pipeline",
+                  "queue A item 2 (executor: recompute and pipeline scopes)")
+    if fused_qkv:
+        _unported("fused_qkv", "queue A item 3 (the slice layer)")
+
+    src_word = layers.data(name="src_word", shape=[max_length],
+                           dtype="int64")
+    trg_word = layers.data(name="trg_word", shape=[max_length],
+                           dtype="int64")
+    lbl_word = layers.data(name="lbl_word", shape=[max_length],
+                           dtype="int64")
+    src_len = layers.data(name="src_len", shape=[], dtype="int32")
+    trg_len = layers.data(name="trg_len", shape=[], dtype="int32")
+
+    src_bias = _padding_bias(src_len, max_length)
+    # flash path: decoder self-attention takes the key-padding bias and
+    # the op's causal flag
+    self_bias = _padding_bias(trg_len, max_length)
+
+    x = _prepare_input(src_word, src_vocab_size, d_model, max_length,
+                       dropout, "src_word_emb")
+    for _ in range(n_layer):
+        x = encoder_layer(x, src_bias, n_head, d_key, d_value, d_model,
+                          d_inner_hid, dropout, use_flash=use_flash,
+                          flash_pallas=flash_pallas, head_major=head_major)
+    enc_out = pre_post_process(None, x, "n")
+
+    y = _prepare_input(trg_word, trg_vocab_size, d_model, max_length,
+                       dropout, "trg_word_emb")
+    for _ in range(n_layer):
+        y = decoder_layer(y, enc_out, self_bias, src_bias, n_head, d_key,
+                          d_value, d_model, d_inner_hid, dropout,
+                          use_flash=use_flash, flash_pallas=flash_pallas,
+                          self_causal=True, flash_cross=flash_cross,
+                          head_major=head_major)
+    dec_out = pre_post_process(None, y, "n")
+
+    logits = layers.fc(dec_out, size=trg_vocab_size, num_flatten_dims=2,
+                       bias_attr=False)
+    if label_smooth_eps:
+        label = layers.label_smooth(
+            layers.one_hot(lbl_word, depth=trg_vocab_size),
+            epsilon=label_smooth_eps)
+        cost = layers.softmax_with_cross_entropy(logits, label,
+                                                 soft_label=True)
+    else:
+        lbl3 = layers.unsqueeze(lbl_word, axes=[2])
+        cost = layers.softmax_with_cross_entropy(logits, lbl3)
+
+    # mask padded target positions out of the loss
+    tmask = layers.sequence_mask(trg_len, maxlen=max_length,
+                                 dtype="float32")
+    cost = layers.elementwise_mul(layers.squeeze(cost, axes=[2]), tmask)
+    sum_cost = layers.reduce_sum(cost)
+    token_num = layers.reduce_sum(tmask)
+    avg_cost = layers.elementwise_div(sum_cost, token_num)
+    feeds = ["src_word", "trg_word", "lbl_word", "src_len", "trg_len"]
+    return avg_cost, logits, feeds
+
+
+def build_model(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
+                n_layer=6, n_head=8, d_model=512, d_inner_hid=2048,
+                dropout=0.1, learning_rate=2.0, warmup_steps=4000,
+                with_optimizer=True, label_smooth_eps=0.1, use_flash=False,
+                use_amp=False, use_fused_ce=False, fused_qkv=False,
+                moe_experts=0, flash_pallas=None, recompute=False,
+                pipeline=False, flash_cross=False, head_major=False):
+    if use_amp:
+        _unported("use_amp",
+                  "queue A item 2 (bf16 policy, amp.py) and queue B "
+                  "(bf16 flash kernels)")
+    avg_cost, logits, feeds = transformer(
+        src_vocab_size, trg_vocab_size, max_length, n_layer, n_head,
+        d_model // n_head, d_model // n_head, d_model, d_inner_hid,
+        dropout, label_smooth_eps, use_flash=use_flash,
+        use_fused_ce=use_fused_ce, fused_qkv=fused_qkv,
+        moe_experts=moe_experts, flash_pallas=flash_pallas,
+        recompute=recompute, pipeline=pipeline,
+        flash_cross=flash_cross, head_major=head_major)
+    if with_optimizer:
+        lr = layers.noam_decay(d_model, warmup_steps)
+        lr = layers.elementwise_mul(
+            lr, layers.fill_constant([1], "float32", learning_rate))
+        opt = optimizer.AdamOptimizer(learning_rate=lr, beta1=0.9,
+                                      beta2=0.997, epsilon=1e-9)
+        opt.minimize(avg_cost)
+    return {"loss": avg_cost, "logits": logits, "feeds": feeds}
+
+
+def make_fake_batch(batch_size, max_length=64, src_vocab=10000,
+                    trg_vocab=10000, seed=0):
+    """Synthetic NMT batch for benchmarking (reference --use_fake_data)."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(1, src_vocab, (batch_size, max_length)).astype(np.int64)
+    trg = rng.randint(1, trg_vocab, (batch_size, max_length)).astype(np.int64)
+    lbl = rng.randint(1, trg_vocab, (batch_size, max_length)).astype(np.int64)
+    src_len = np.full((batch_size,), max_length, np.int32)
+    trg_len = np.full((batch_size,), max_length, np.int32)
+    return {"src_word": src, "trg_word": trg, "lbl_word": lbl,
+            "src_len": src_len, "trg_len": trg_len}

@@ -3,24 +3,63 @@
 
 Q/K/V arrive (N, H, T, D) — or, with layout="nthd" + the n_head attr,
 head-grouped (N, T, H*D), what the attn_qkv projection emits — plus an
-optional additive Bias.  The operands' device picks the implementation
-(ops/kernels/flash_attention.py): a CUDA tensor always runs the
-hand-written Hopper kernel, a CPU tensor the plain PyTorch version.  The
-`use_pallas` attr is kept so programs serialize as the reference's do;
-it does not route.
+optional additive Bias.  Two routes, chosen by the bias's shape alone,
+as the reference's `_kernel_bias_ok` chooses (paddle_tpu/ops/
+attention.py:151-172):
 
-The kernel takes a key-padding bias broadcastable to (N, 1, 1, Tk).  The
-reference sends richer biases to its XLA composition instead
-(paddle_tpu/ops/attention.py:163-172); on CUDA this slice raises for
-them (ROADMAP queue A item 3), while the CPU plain version takes any
-broadcastable bias.
+- no bias, or a key-padding bias broadcastable to (N, 1, 1, Tk):
+  `FlashAttentionFn` (ops/kernels/flash_attention.py) — on a CUDA tensor
+  the hand-written Hopper kernels, forward and backward (autograd reaches
+  the dK/dV and dQ kernels through it); on a CPU tensor their plain
+  versions;
+- any other bias (per-head, (Tq, Tk)): `composed_attention` below, the
+  port of the reference's XLA compositions `_xla_attention` /
+  `_xla_attention_nthd` as ordinary torch ops (differentiable through
+  torch autograd, causal keys filled with the reference's -1e9).  It is
+  counted in `kernels.composed_calls`, not as a kernel or plain call.
+
+The `use_pallas` attr is kept so programs serialize as the reference's
+do; it does not route.
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..core.registry import register_op
 from .common import first, opt_in, out
-from .kernels.flash_attention import flash_attention_fwd
+from .kernels import composed_calls
+from .kernels import flash_attention as fk
+
+CAUSAL_FILL = -1e9      # the reference's XLA compositions' causal fill
+
+
+def composed_attention(q, k, v, bias, scale, causal, layout="nhtd",
+                       n_head=None):
+    """softmax(scale * Q K^T + bias [causal-filled]) V as torch ops, for
+    either layout — the reference's `_xla_attention` (nhtd) and
+    `_xla_attention_nthd`.  Softmax in float32, output in q's dtype."""
+    n, h, t_q, t_k, d = fk.dims(q, k, layout, n_head)
+    if layout == "nthd":
+        q4 = q.reshape(n, t_q, h, d).transpose(1, 2)
+        k4 = k.reshape(n, t_k, h, d).transpose(1, 2)
+        v4 = v.reshape(n, t_k, h, d).transpose(1, 2)
+    else:
+        q4, k4, v4 = q, k, v
+    logits = torch.matmul(q4, k4.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias
+    if causal:
+        mask = torch.ones((t_q, t_k), dtype=torch.bool,
+                          device=q.device).tril()
+        logits = torch.where(mask, logits,
+                             torch.full((), CAUSAL_FILL, dtype=logits.dtype,
+                                        device=q.device))
+    weights = torch.softmax(logits.to(torch.float32), dim=-1)
+    o = torch.matmul(weights.to(q.dtype), v4)
+    if layout == "nthd":
+        o = o.transpose(1, 2).reshape(n, t_q, h * d)
+    return o
 
 
 @register_op("flash_attention")
@@ -39,7 +78,19 @@ def flash_attention(ctx, ins, attrs):
     # sequence parallelism needs a mesh with an sp axis, which the port
     # does not have yet: like the reference without one, fall through
     # to the local kernel
-    o, _lse = flash_attention_fwd(q, k, v, bias, attrs.get("scale"),
-                                  bool(attrs.get("causal", False)),
-                                  layout=layout, n_head=n_head)
+    n, h, _, t_k, d = fk.dims(q, k, layout, n_head)
+    scale = attrs.get("scale")
+    if scale is None:
+        scale = d ** -0.5
+    causal = bool(attrs.get("causal", False))
+    if q.device.type == "meta":
+        o, _lse = fk.flash_attention_fwd(q, k, v, bias, scale, causal,
+                                         layout=layout, n_head=n_head)
+        return out(Out=o)
+    if bias is not None and not fk.key_bias_ok(bias, n, t_k):
+        composed_calls["flash_attention"] += 1
+        return out(Out=composed_attention(q, k, v, bias, scale, causal,
+                                          layout, n_head))
+    o, _lse = fk.flash_attention(q, k, v, bias, scale, causal, layout,
+                                 n_head)
     return out(Out=o)

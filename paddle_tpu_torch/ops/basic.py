@@ -73,6 +73,22 @@ def mul(ctx, ins, attrs):
     return out(Out=torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:]))
 
 
+@register_op("matmul")
+def matmul(ctx, ins, attrs):
+    """Batched matmul with optional transposes of the last two dims and
+    an output scale (reference: operators/matmul_op.cc)."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    o = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        o = o * alpha
+    return out(Out=o)
+
+
 # --------------------------------------------------------------------------
 # Elementwise family (with fluid broadcast-axis semantics)
 # --------------------------------------------------------------------------
@@ -104,6 +120,29 @@ _register_elementwise("not_equal", torch.ne, torch.bool)
 
 
 # --------------------------------------------------------------------------
+# Reductions
+# --------------------------------------------------------------------------
+
+def _register_reduce(name, fn):
+    @register_op(name)
+    def impl(ctx, ins, attrs, _fn=fn):
+        x = first(ins, "X")
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False):
+            dims = tuple(range(x.dim()))
+        else:
+            dims = tuple(a if a >= 0 else a + x.dim()
+                         for a in attrs.get("dim", [0]))
+        o = _fn(x, dim=dims, keepdim=keep) if dims else x
+        if o.dim() == 0:
+            o = o.reshape((1,))
+        return out(Out=o)
+
+
+_register_reduce("reduce_sum", torch.sum)
+
+
+# --------------------------------------------------------------------------
 # Scale / cast / sum
 # --------------------------------------------------------------------------
 
@@ -124,6 +163,29 @@ def cast(ctx, ins, attrs):
     return out(Out=first(ins, "X").to(to_torch_dtype(attrs["out_dtype"])))
 
 
+@register_op("clip")
+def clip(ctx, ins, attrs):
+    return out(Out=torch.clamp(first(ins, "X"), attrs["min"], attrs["max"]))
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(ctx, ins, attrs):
+    x = first(ins, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    factor = torch.where(norm > max_norm,
+                         max_norm / torch.clamp(norm, min=1e-12),
+                         torch.ones((), dtype=x.dtype, device=x.device))
+    return out(Out=x * factor)
+
+
+@register_op("increment")
+def increment(ctx, ins, attrs):
+    x = first(ins, "X")
+    return out(Out=x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                                    device=x.device))
+
+
 @register_op("sum")
 def sum_op(ctx, ins, attrs):
     """Sum a list of tensors (reference: operators/sum_op.cc)."""
@@ -142,6 +204,36 @@ def _xshape(x):
     # the reference's XShape output: an empty (0, *x.shape) tensor
     return torch.zeros((0,) + tuple(x.shape), dtype=x.dtype,
                        device=x.device)
+
+
+@register_op("reshape")
+def reshape(ctx, ins, attrs):
+    """fluid reshape: 0 copies the input's dim, -1 is inferred."""
+    x = first(ins, "X")
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(attrs["shape"])]
+    return {"Out": [x.reshape(tuple(shape))], "XShape": [_xshape(x)]}
+
+
+@register_op("transpose")
+def transpose(ctx, ins, attrs):
+    """A permuted view (the reference's jnp.transpose): no copy; the
+    flash kernels read such views through their strides."""
+    x = first(ins, "X")
+    return {"Out": [x.permute(tuple(attrs["axis"]))],
+            "XShape": [_xshape(x)]}
+
+
+@register_op("one_hot")
+def one_hot(ctx, ins, attrs):
+    """Float32 one-hot of int ids; a trailing 1-dim is dropped first, as
+    in the reference (jax.nn.one_hot: an id outside [0, depth) gives an
+    all-zero row)."""
+    x = first(ins, "X")
+    ids = x.reshape(x.shape[:-1]) if x.shape[-1] == 1 else x
+    depth = int(attrs["depth"])
+    classes = torch.arange(depth, device=x.device, dtype=ids.dtype)
+    return out(Out=(ids.unsqueeze(-1) == classes).to(torch.float32))
 
 
 @register_op("squeeze")

@@ -10,24 +10,34 @@ falls back to its plain version.
 
 `launch_counts` counts kernel launches (incremented by each wrapper right
 after its launch, nowhere else) and `plain_calls` counts plain-version
-runs, so a caller can show which path a run took.
+runs, so a caller can show which path a run took.  `composed_calls`
+counts the torch compositions that stand where the reference runs an XLA
+composition instead of its kernel (the flash_attention op with a bias
+that is not a key-padding bias, ops/attention.py); they are neither a
+kernel launch nor a plain-version call.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("paged_attention", "flash_attention_fwd")
+KERNELS = ("paged_attention", "flash_attention_fwd",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+COMPOSED = ("flash_attention",)
 
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 plain_calls: Dict[str, int] = {k: 0 for k in KERNELS}
+composed_calls: Dict[str, int] = {k: 0 for k in COMPOSED}
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         launch_counts[k] = 0
         plain_calls[k] = 0
+    for k in COMPOSED:
+        composed_calls[k] = 0
 
 
 def counts() -> Dict[str, Dict[str, int]]:
-    return {"launches": dict(launch_counts), "plain": dict(plain_calls)}
+    return {"launches": dict(launch_counts), "plain": dict(plain_calls),
+            "composed": dict(composed_calls)}

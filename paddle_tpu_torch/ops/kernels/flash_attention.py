@@ -1,32 +1,41 @@
-"""Flash-attention forward: CUDA kernel + plain PyTorch version.
+"""Flash attention: CUDA kernels + plain PyTorch versions, forward and
+backward.
 
-Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py
-`_flash_fwd` (kernel body `_fwd_kernel`; public entry
-`pallas_flash_attention`): O = softmax(scale * Q K^T + key_bias
+Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
+the forward `_flash_fwd` (kernel body `_fwd_kernel`; public entry
+`pallas_flash_attention`), O = softmax(scale * Q K^T + key_bias
 [+ causal mask with q/k offsets]) V and the per-row logsumexp, never
-materialising the score matrix in device memory.  Both of the
-reference's layouts: "nthd" (N, T, H*D) head-grouped and "nhtd"
-(N, H, T, D).  The kernel takes a key-padding bias broadcastable to
-(N, 1, 1, Tk), one row per batch element, never repeated per head.
+materialising the score matrix in device memory; and its custom-VJP
+backward `_flash_bwd`, whose two kernels `_bwd_dkv_kernel` (dK, dV and
+the key-bias gradient) and `_bwd_dq_kernel` (dQ) recompute the
+probabilities from the saved logsumexp.  Both of the reference's
+layouts: "nthd" (N, T, H*D) head-grouped and "nhtd" (N, H, T, D).  The
+kernels take a key-padding bias broadcastable to (N, 1, 1, Tk), one row
+per batch element, never repeated per head.
 
-Kernel: csrc/flash_attention_fwd.cu — one block per (64-row q tile,
-batch*head), one thread per query row holding its q row and output
-accumulator in registers, 64-row K/V tiles in shared memory, K tiles
-above the causal diagonal skipped.  The nthd layout is read in place
-through strides, so nothing is transposed or copied at the boundary.
-What bounds it on the card: by the roofline, bytes — at the prefill
-shape T=128 (N=16, H=8, D=64, f32) q/k/v/o are ~17 MB, ~5 us on an
-H100, against ~0.27 GFLOP of visible pairs, ~4 us at the f32 peak.  The
-kernel itself is held far above that by each thread's serial f32 FMA
-loop on the CUDA cores (PERF.md); the tensor-core (wgmma) version is a
-later PR's work.
+Kernels: csrc/flash_attention_fwd.cu (one block per (64-row q tile,
+batch*head), one thread per query row) and csrc/flash_attention_bwd.cu
+(dK/dV: one block per (64-key tile, batch*head), one thread per key row;
+dQ: one thread per query row, as the forward).  Every operand is read in
+place through its batch, head and row strides, so a transposed view
+(the nhtd operands of the Transformer come straight from a
+transpose(perm=[0, 2, 1, 3])) and the cotangent autograd hands the
+backward are not copied; only a tensor whose last dimension is not
+contiguous is.  What bounds them on the card: bytes for the forward at
+the prefill shape, operations for the backward at the training shape;
+both are held far above their bounds by each thread's serial f32 FMA
+loop on the CUDA cores (PERF.md).  The tensor-core (wgmma) versions are
+later work.
 
-Plain version: `flash_attention_fwd_plain`, the same function as a dense
-torch composition (the scores are materialised, masked with the kernel's
-NEG_INF = -1e30 and normalised with l clamped at 1e-30).  It is the CPU
-path, where it also takes any broadcastable bias as the reference's XLA
-composition does, and the card's reference for the kernel.  The backward kernels
-(`_flash_bwd`) are not ported yet (ROADMAP queue B).
+Plain versions: `flash_attention_fwd_plain` and `flash_attention_bwd_plain`,
+the same functions as dense torch compositions (the scores are
+materialised, masked with the kernels' NEG_INF = -1e30, the forward's
+normaliser clamped at 1e-30; the backward writes the gradient formulas
+out without autograd).  They are the CPU path, where they also take any
+broadcastable bias, and the card's reference for the kernels.
+
+`FlashAttentionFn` is the autograd Function of the flash_attention op:
+its forward is `flash_attention_fwd`, its backward `flash_attention_bwd`.
 """
 
 from __future__ import annotations
@@ -40,10 +49,13 @@ from . import _build
 
 NEG_INF = -1e30
 _NAME = "flash_attention_fwd"
+_BWD_SOURCE = "flash_attention_bwd"
+_DKV = "flash_attention_bwd_dkv"
+_DQ = "flash_attention_bwd_dq"
 _HEAD_DIMS = (32, 64)
 
 
-def _dims(q, k, layout, n_head):
+def dims(q, k, layout, n_head):
     """(n, h, t_q, t_k, d) of either layout."""
     if layout == "nthd":
         if not n_head:
@@ -60,56 +72,85 @@ def _dims(q, k, layout, n_head):
     raise ValueError(f"flash_attention: unknown layout {layout!r}")
 
 
+def key_bias_ok(bias, n, t_k) -> bool:
+    """True for a bias the kernels take: broadcastable to (N, 1, 1, Tk)
+    (the reference's `_kernel_bias_ok`, paddle_tpu/ops/attention.py:151)."""
+    target = (n, 1, 1, t_k)
+    return bias.dim() <= 4 and all(
+        bd == 1 or bd == td
+        for bd, td in zip(reversed(bias.shape), reversed(target)))
+
+
 def key_bias(bias, n, t_k):
     """A bias broadcastable to (N, 1, 1, Tk) as a contiguous (N, Tk) f32
     tensor, or None.  Any other bias (per-head, (Tq, Tk)) is not what the
-    kernel takes: the reference sends those to its XLA composition
-    (paddle_tpu/ops/attention.py:163-172), which this port has not
-    decided to keep on the card yet (ROADMAP queue A item 3)."""
+    kernels take: the flash_attention op sends those to the composed
+    route (ops/attention.py), as the reference sends them to its XLA
+    composition."""
     if bias is None:
         return None
-    target = (n, 1, 1, t_k)
-    if bias.dim() > 4 or any(bd != 1 and bd != td for bd, td in
-                             zip(reversed(bias.shape), reversed(target))):
+    if not key_bias_ok(bias, n, t_k):
         raise NotImplementedError(
-            f"flash_attention on CUDA takes a key-padding bias "
-            f"broadcastable to {target}; got {tuple(bias.shape)} "
-            f"(richer biases: ROADMAP queue A item 3)")
-    return bias.to(torch.float32).broadcast_to(target).reshape(n, t_k) \
-        .contiguous()
+            f"the flash-attention kernels take a key-padding bias "
+            f"broadcastable to {(n, 1, 1, t_k)}; got {tuple(bias.shape)} "
+            f"(the flash_attention op routes such biases to the composed "
+            f"attention of ops/attention.py)")
+    return bias.to(torch.float32).broadcast_to((n, 1, 1, t_k)) \
+        .reshape(n, t_k).contiguous()
+
+
+def _heads(x, layout, n, h, t, d):
+    """x as an (N, H, T, D) view (nthd: a reshape + transpose, no copy)."""
+    if layout == "nthd":
+        return x.reshape(n, t, h, d).transpose(1, 2)
+    return x
+
+
+def _causal_mask(t_q, t_k, q_offset, k_offset, device):
+    qp = torch.arange(t_q, device=device)[:, None] + q_offset
+    kp = torch.arange(t_k, device=device)[None, :] + k_offset
+    return qp >= kp
 
 
 def flash_attention_fwd_plain(q, k, v, bias=None, scale=None, causal=False,
                               layout="nhtd", n_head=None, q_offset=0,
                               k_offset=0):
-    """Plain PyTorch version of the kernel: returns (O, lse) with O in
-    q's layout and dtype and lse (N*H, Tq) f32."""
-    n, h, t_q, t_k, d = _dims(q, k, layout, n_head)
+    """Plain PyTorch version of the forward kernel: returns (O, lse) with
+    O in q's layout and dtype and lse (N*H, Tq) f32 (f64 for f64 q)."""
+    n, h, t_q, t_k, d = dims(q, k, layout, n_head)
     if scale is None:
         scale = d ** -0.5
-    if layout == "nthd":
-        q4 = q.reshape(n, t_q, h, d).transpose(1, 2)
-        k4 = k.reshape(n, t_k, h, d).transpose(1, 2)
-        v4 = v.reshape(n, t_k, h, d).transpose(1, 2)
-    else:
-        q4, k4, v4 = q, k, v
-    s = torch.matmul(q4.to(torch.float32),
-                     k4.to(torch.float32).transpose(-1, -2)) * scale
+    q4, k4, v4 = (_heads(x, layout, n, h, t, d)
+                  for x, t in ((q, t_q), (k, t_k), (v, t_k)))
+    acc = _acc_dtype(q)
+    s = torch.matmul(q4.to(acc), k4.to(acc).transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.to(torch.float32)      # broadcast to (N, H, Tq, Tk)
+        s = s + bias.to(acc)                # broadcast to (N, H, Tq, Tk)
     if causal:
-        qp = torch.arange(t_q, device=q.device)[:, None] + q_offset
-        kp = torch.arange(t_k, device=q.device)[None, :] + k_offset
-        s = torch.where(qp >= kp, s, torch.full((), NEG_INF,
-                                                device=q.device))
+        s = torch.where(_causal_mask(t_q, t_k, q_offset, k_offset,
+                                     q.device),
+                        s, torch.full((), NEG_INF, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p, v4.to(torch.float32)) / l          # (N, H, Tq, D)
+    o = torch.matmul(p, v4.to(acc)) / l                    # (N, H, Tq, D)
     lse = (m + torch.log(l)).reshape(n * h, t_q)
     if layout == "nthd":
         o = o.transpose(1, 2).reshape(n, t_q, h * d)
     return o.to(q.dtype), lse
+
+
+def _acc_dtype(x):
+    """float32 for float32 and narrower operands (the kernels' type),
+    float64 for float64 ones (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _check_devices(*tensors):
+    ts = [t for t in tensors if t is not None]
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("flash_attention: operands on different devices: "
+                         f"{sorted({str(t.device) for t in ts})}")
 
 
 def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
@@ -117,14 +158,11 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
                         k_offset=0):
     """Flash-attention forward; routes by the operands' device (CUDA: the
     kernel; CPU: the plain version).  Returns (O, lse)."""
-    n, h, t_q, t_k, d = _dims(q, k, layout, n_head)
+    n, h, t_q, t_k, d = dims(q, k, layout, n_head)
     if tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} differ")
-    tensors = [t for t in (q, k, v, bias) if t is not None]
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("flash_attention: operands on different devices: "
-                         f"{sorted({str(t.device) for t in tensors})}")
+    _check_devices(q, k, v, bias)
     if scale is None:
         scale = d ** -0.5
     kind = q.device.type
@@ -139,37 +177,28 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
                                          k_offset)
     if kind != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, key_bias(bias, n, t_k), float(scale),
-                   bool(causal), layout, n, h, t_q, t_k, d,
-                   int(q_offset), int(k_offset))
-
-
-def _launch(q, k, v, bias, scale, causal, layout, n, h, t_q, t_k, d,
-            q_off, k_off):
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError(f"flash_attention kernel: q/k/v must be float32, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{_HEAD_DIMS}")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention kernel: q/k/v must be "
-                         "contiguous")
-    if layout == "nthd":
-        q_strides = (t_q * h * d, d, h * d)          # batch, head, row
-        kv_strides = (t_k * h * d, d, h * d)
-    else:
-        q_strides = (h * t_q * d, t_q * d, d)
-        kv_strides = (h * t_k * d, t_k * d, d)
+    _check_kernel_operands(q, k, v, d)
+    q, k, v = (_unit_minor(x) for x in (q, k, v))
     o = torch.empty_like(q)
+    view = {name: _heads(x, layout, n, h, t, d) for name, x, t in
+            (("q", q, t_q), ("k", k, t_k), ("v", v, t_k), ("o", o, t_q))}
+    if view["k"].stride() != view["v"].stride():
+        k, v = k.contiguous(), v.contiguous()
+        view["k"], view["v"] = (_heads(x, layout, n, h, t_k, d)
+                                for x in (k, v))
+    if view["o"].stride() != view["q"].stride():
+        q = q.contiguous()
+        o = torch.empty_like(q)
+        view["q"], view["o"] = (_heads(x, layout, n, h, t_q, d)
+                                for x in (q, o))
     lse = torch.empty((n * h, t_q), dtype=torch.float32, device=q.device)
-    lib = _bind()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _bind_fwd()
     rc = lib.flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), n, h, d, t_q, t_k, *q_strides, *kv_strides, scale,
-        int(causal), q_off, k_off, q.device.index or 0, stream)
+        _ptr(key_bias(bias, n, t_k)), o.data_ptr(), lse.data_ptr(), n, h,
+        d, t_q, t_k, *view["q"].stride()[:3], *view["k"].stride()[:3],
+        float(scale), int(bool(causal)), int(q_offset), int(k_offset),
+        q.device.index or 0, _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -177,7 +206,177 @@ def _launch(q, k, v, bias, scale, causal, layout, n, h, t_q, t_k, d,
     return o, lse
 
 
-def _bind() -> ctypes.CDLL:
+def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, dlse=None,
+                              scale=None, causal=False, layout="nhtd",
+                              n_head=None, q_offset=0, k_offset=0):
+    """Plain PyTorch version of the backward kernels, written out densely
+    without autograd: returns (dq, dk, dv, dbias), dq/dk/dv in the
+    operands' layout and dbias summed to the bias's shape (None without a
+    bias)."""
+    n, h, t_q, t_k, d = dims(q, k, layout, n_head)
+    if scale is None:
+        scale = d ** -0.5
+    acc = _acc_dtype(q)
+    q4, o4, do4 = (_heads(x, layout, n, h, t_q, d).to(acc)
+                   for x in (q, o, do))
+    k4, v4 = (_heads(x, layout, n, h, t_k, d).to(acc) for x in (k, v))
+    s = torch.matmul(q4, k4.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.to(acc)
+    p = torch.exp(s - lse.reshape(n, h, t_q, 1))
+    if causal:
+        p = torch.where(_causal_mask(t_q, t_k, q_offset, k_offset,
+                                     q.device),
+                        p, torch.zeros((), device=q.device))
+    dv = torch.matmul(p.transpose(-1, -2), do4)
+    dp = torch.matmul(do4, v4.transpose(-1, -2))
+    delta = (do4 * o4).sum(dim=-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse.reshape(n, h, t_q, 1).to(acc)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k4) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q4) * scale
+    dbias = None if bias is None else _sum_to(ds, bias.shape).to(bias.dtype)
+
+    def back(x, t, like):
+        if layout == "nthd":
+            x = x.transpose(1, 2).reshape(n, t, h * d)
+        return x.to(like.dtype)
+
+    return back(dq, t_q, q), back(dk, t_k, k), back(dv, t_k, v), dbias
+
+
+def _sum_to(x, shape):
+    """x summed over the dims that `shape` broadcasts (right-aligned)."""
+    lead = x.dim() - len(shape)
+    x = x.sum(dim=tuple(range(lead))) if lead else x
+    axes = tuple(i for i, s in enumerate(shape) if s == 1 and x.shape[i] != 1)
+    return x.sum(dim=axes, keepdim=True) if axes else x
+
+
+def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
+                        causal=False, layout="nhtd", n_head=None, q_offset=0,
+                        k_offset=0, need_dbias=True):
+    """Flash-attention backward; routes by the operands' device (CUDA: the
+    dK/dV and dQ kernels; CPU: the plain version).  Returns (dq, dk, dv,
+    dbias); dbias is None without a bias or when `need_dbias` is False."""
+    n, h, t_q, t_k, d = dims(q, k, layout, n_head)
+    _check_devices(q, k, v, bias, o, lse, do, dlse)
+    if scale is None:
+        scale = d ** -0.5
+    kind = q.device.type
+    if kind == "cpu":
+        plain_calls[_DKV] += 1
+        plain_calls[_DQ] += 1
+        dq, dk, dv, db = flash_attention_bwd_plain(
+            q, k, v, bias, o, lse, do, dlse, scale, causal, layout, n_head,
+            q_offset, k_offset)
+        return dq, dk, dv, (db if need_dbias else None)
+    if kind != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_kernel_operands(q, k, v, d)
+    if any(t.dtype != torch.float32 for t in (o, do)):
+        raise TypeError("flash_attention backward kernels: o and do must "
+                        "be float32")
+    q, k, v, o, do = (_unit_minor(x) for x in (q, k, v, o, do))
+    lse = lse.to(torch.float32).contiguous()
+    dlse = None if dlse is None else dlse.to(torch.float32).contiguous()
+    kb = key_bias(bias, n, t_k)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    strides = (ctypes.c_int64 * 24)(*[
+        s for x, t in ((q, t_q), (k, t_k), (v, t_k), (o, t_q), (do, t_q),
+                       (dq, t_q), (dk, t_k), (dv, t_k))
+        for s in _heads(x, layout, n, h, t, d).stride()[:3]])
+    db = None
+    if need_dbias and bias is not None:
+        db = torch.empty((n * h, t_k), dtype=torch.float32,
+                         device=q.device)
+    lib = _bind_bwd()
+    common = (n, h, d, t_q, t_k, strides, float(scale), int(bool(causal)),
+              int(q_offset), int(k_offset), q.device.index or 0, _stream(q))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           do.data_ptr(), lse.data_ptr(), _ptr(dlse), _ptr(kb))
+    rc = lib.flash_attention_bwd_dkv_launch(
+        *ins, dk.data_ptr(), dv.data_ptr(), _ptr(db), *common)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention dK/dV kernel launch failed: "
+                           f"CUDA error {rc}")
+    launch_counts[_DKV] += 1
+    rc = lib.flash_attention_bwd_dq_launch(*ins, dq.data_ptr(), *common)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA "
+                           f"error {rc}")
+    launch_counts[_DQ] += 1
+    dbias = None
+    if db is not None:
+        dbias = _sum_to(db.reshape(n, h, 1, t_k), bias.shape) \
+            .to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention: (q, k, v, bias) -> (O, lse).
+
+    Forward: `flash_attention_fwd`, saving q, k, v, bias, O and lse.
+    Backward: `flash_attention_bwd` (the dK/dV and dQ kernels on CUDA),
+    with the lse cotangent folded in when lse was used.  The bias gets a
+    gradient only when it requires one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, causal, layout, n_head,
+                q_offset, k_offset):
+        o, lse = flash_attention_fwd(q, k, v, bias, scale, causal, layout,
+                                     n_head, q_offset, k_offset)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.cfg = (scale, causal, layout, n_head, q_offset, k_offset)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv, dbias = flash_attention_bwd(
+            q, k, v, bias, o, lse, do, dlse, *ctx.cfg,
+            need_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, bias=None, scale=None, causal=False,
+                    layout="nhtd", n_head=None, q_offset=0, k_offset=0):
+    """(O, lse) through `FlashAttentionFn`, the scale resolved first."""
+    d = dims(q, k, layout, n_head)[4]
+    return FlashAttentionFn.apply(q, k, v, bias,
+                                  d ** -0.5 if scale is None else scale,
+                                  bool(causal), layout, n_head,
+                                  int(q_offset), int(k_offset))
+
+
+def _check_kernel_operands(q, k, v, d):
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError(f"flash_attention kernel: q/k/v must be float32, "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {d} not in "
+                         f"{_HEAD_DIMS}")
+
+
+def _unit_minor(x):
+    """x itself when its last dimension is contiguous (the kernels read
+    any batch/head/row strides), else a contiguous copy."""
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bind_fwd() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     fn = lib.flash_attention_fwd_launch
     if fn.argtypes is None:
@@ -188,16 +387,56 @@ def _bind() -> ctypes.CDLL:
     return lib
 
 
+def _bind_bwd() -> ctypes.CDLL:
+    lib = _build.load(_BWD_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    tail = [i] * 5 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+                      i, i, i, i, p]
+    for fn, n_ptr in ((lib.flash_attention_bwd_dkv_launch, 11),
+                      (lib.flash_attention_bwd_dq_launch, 9)):
+        if fn.argtypes is None:
+            fn.argtypes = [p] * n_ptr + tail
+            fn.restype = i
+    return lib
+
+
+def _visible_pairs(t_q, t_k, causal, q_offset=0, k_offset=0):
+    """(q, k) pairs the mask leaves visible in one (batch, head)."""
+    if not causal:
+        return t_q * t_k
+    return sum(min(t_k, max(0, q_offset + i - k_offset + 1))
+               for i in range(t_q))
+
+
 def bound_bytes_and_flops(q, k, bias, causal, layout, n_head):
     """(bytes, flops) the forward needs on these inputs: q, k, v, the
     bias rows and O, lse once; 4*D flops per (q, k) pair that the mask
     leaves visible (q.k and p.v) — data-dependent under causal."""
-    n, h, t_q, t_k, d = _dims(q, k, layout, n_head)
+    n, h, t_q, t_k, d = dims(q, k, layout, n_head)
     el = q.element_size()
     nbytes = (2 * n * h * t_q * d * el + 2 * n * h * t_k * d * el
               + n * h * t_q * 4 + (n * t_k * 4 if bias is not None else 0))
-    if causal:
-        pairs = sum(min(t_k, i + 1) for i in range(t_q))
-    else:
-        pairs = t_q * t_k
-    return nbytes, 4 * d * n * h * pairs
+    return nbytes, 4 * d * n * h * _visible_pairs(t_q, t_k, causal)
+
+
+def bound_bytes_and_flops_bwd(q, k, bias, causal, layout, n_head,
+                              dlse=False, dbias=False, q_offset=0,
+                              k_offset=0):
+    """{"dkv": (bytes, flops), "dq": (bytes, flops)}: what each backward
+    kernel's function needs on these inputs, each input read once and
+    each output written once.  dK/dV reads q, k, v, O, dO, lse (+ dlse,
+    the bias rows) and writes dK, dV (+ the per-head bias gradient); it
+    does 8*D flops per visible pair (q.k, p*dO, dO.v, ds*q) plus 2*D per
+    query row for delta.  dQ reads the same inputs and writes dQ, with
+    6*D flops per visible pair (q.k, dO.v, ds*k) plus delta."""
+    n, h, t_q, t_k, d = dims(q, k, layout, n_head)
+    el = q.element_size()
+    qrow, krow = n * h * t_q * d * el, n * h * t_k * d * el
+    stats = n * h * t_q * 4 * (2 if dlse else 1)
+    brow = n * t_k * 4 if bias is not None else 0
+    ins = 3 * qrow + 2 * krow + stats + brow
+    pairs = n * h * _visible_pairs(t_q, t_k, causal, q_offset, k_offset)
+    delta = 2 * d * n * h * t_q
+    return {"dkv": (ins + 2 * krow + (n * h * t_k * 4 if dbias else 0),
+                    8 * d * pairs + delta),
+            "dq": (ins + qrow, 6 * d * pairs + delta)}

@@ -159,7 +159,8 @@ def test_bf16_kv_prefill_and_step_logits():
         out_j = jax_interpret(jb["main"], dict(jenv), None,
                               fetch_names=(name, *jb["cache_outs"]))
         out_t = interpret_program(tb["main"], dict(tenv), None,
-                                  fetch_names=(name, *tb["cache_outs"]))
+                                  fetch_names=(name, *tb["cache_outs"]),
+                                  device="cpu")
         want.append(np.asarray(out_j[name]))
         got.append(out_t[name].numpy())
         # carry the pools, and feed both the same next token

@@ -112,11 +112,12 @@ def test_op_matches_jax_op_with_a_general_bias():
 
 def test_key_bias_contract_of_the_kernel():
     """The kernel's bias form: (N, 1, 1, Tk)-broadcastable biases become
-    one (N, Tk) row per batch element; anything else is refused."""
+    one (N, Tk) row per batch element; anything else is refused by the
+    kernels (the op sends it to the composed route instead)."""
     b = torch.arange(6, dtype=torch.float32).reshape(1, 1, 1, 6)
     kb = tk.key_bias(b, 3, 6)
     assert tuple(kb.shape) == (3, 6) and kb.is_contiguous()
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    with pytest.raises(NotImplementedError, match="composed attention"):
         tk.key_bias(torch.zeros(3, 2, 1, 6), 3, 6)    # per-head bias
 
 

@@ -105,6 +105,69 @@ def test_flash_kernel_matches_plain(dev, layout, causal, t, d):
     torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-3)
 
 
+def _bwd_case(dev, layout, t, d, n=3, h=4, seed=0, transposed=False):
+    """q, k, v, key bias, O, lse and a cotangent dO on the card; with
+    `transposed`, nhtd operands are transposed views of (N, T, H, D)
+    tensors, as the Transformer's reshape + transpose produces them."""
+    g = torch.Generator().manual_seed(seed)
+    if layout == "nthd":
+        shape = (n, t, h * d)
+    else:
+        shape = (n, t, h, d) if transposed else (n, h, t, d)
+    q, k, v, do = (torch.randn(*shape, generator=g).to(dev)
+                   for _ in range(4))
+    if transposed:
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    seq = torch.tensor([t, max(1, t // 3), 1])
+    bias = ((torch.arange(t)[None, :] < seq[:, None]).float() * 1e9
+            - 1e9).reshape(n, 1, 1, t).to(dev)
+    return q, k, v, do, bias, h
+
+
+@pytest.mark.parametrize("layout,transposed", [("nthd", False),
+                                               ("nhtd", False),
+                                               ("nhtd", True)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [40, 100, 130])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_bwd_kernels_match_plain(dev, layout, transposed, causal, t,
+                                       d):
+    q, k, v, do, bias, h = _bwd_case(dev, layout, t, d, seed=t + d,
+                                     transposed=transposed)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout=layout, n_head=h)
+    dlse = torch.randn(lse.shape, generator=torch.Generator()
+                       .manual_seed(t)).to(dev)
+    before = dict(kernels.launch_counts)
+    got = fk.flash_attention_bwd(q, k, v, bias, o, lse, do, dlse, None,
+                                 causal, layout, h)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention_bwd_dkv"] == \
+        before["flash_attention_bwd_dkv"] + 1
+    assert kernels.launch_counts["flash_attention_bwd_dq"] == \
+        before["flash_attention_bwd_dq"] + 1
+    want = fk.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, dlse,
+                                        None, causal, layout, h)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_autograd_on_card_matches_cpu(dev):
+    """FlashAttentionFn end to end: the card's kernels against the CPU's
+    plain versions, from the same inputs and cotangent."""
+    q, k, v, do, bias, h = _bwd_case(dev, "nhtd", 70, 64, transposed=True)
+    grads = []
+    for device in (dev, "cpu"):
+        xs = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
+        o, _ = fk.flash_attention(*xs, bias.to(device), None, True,
+                                  "nhtd", h)
+        grads.append(torch.autograd.grad(o, xs, do.to(device)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     (q, kc, vc, pt, lens), h, _, _ = _paged(torch.float32, dev)
     with pytest.raises(TypeError):

@@ -175,7 +175,8 @@ def test_paged_kv_write_updates_the_pool_in_place():
     ins = _pool_case("float32")
     tins = {s: [torch.as_tensor(np.array(a))] for s, a in ins.items()}
     tins["WritePos"] = [torch.tensor([0, 1, 2, 3], dtype=torch.int32)]
-    outs = get_op_impl("paged_kv_write")(OpContext((0, 0), 0), tins, {})
+    outs = get_op_impl("paged_kv_write")(OpContext((0, 0), 0, device="cpu"),
+                                          tins, {})
     assert outs["KCacheOut"][0] is tins["KCache"][0]
     np.testing.assert_array_equal(tins["KCache"][0][1, 0].numpy(),
                                   ins["K"][0])

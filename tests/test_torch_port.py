@@ -4,7 +4,7 @@
   of its modules with both blocked in sys.modules.
 - Places: without an explicit place the entry points mean CUDAPlace(0)
   and raise when CUDA is absent, instead of running on the CPU.
-- The CUDA sources of both ported kernels are in the package, each with
+- The CUDA sources of the ported kernels are in the package, each with
   the C entry point its wrapper binds.
 - Not-ported options raise NotImplementedError naming the ROADMAP item.
 """
@@ -83,6 +83,8 @@ def test_default_place_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("name,entry", [
     ("paged_attention", "paged_attention_launch"),
     ("flash_attention_fwd", "flash_attention_fwd_launch"),
+    ("flash_attention_bwd", "flash_attention_bwd_dkv_launch"),
+    ("flash_attention_bwd", "flash_attention_bwd_dq_launch"),
 ])
 def test_kernel_sources_exist(name, entry):
     src = PKG / "csrc" / f"{name}.cu"

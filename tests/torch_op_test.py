@@ -44,6 +44,6 @@ def run_torch_op(op_type, ins_np, attrs=None, out_slot="Out",
     for slot, v in ins_np.items():
         vs = v if isinstance(v, (list, tuple)) else [v]
         ins[slot] = [to_torch(a, dtypes.get(slot)) for a in vs]
-    ctx = OpContext((0, 0), 0)
+    ctx = OpContext((0, 0), 0, device="cpu")
     outs = impl(ctx, ins, dict(attrs or {}))
     return to_numpy(outs[out_slot][0])
