@@ -19,7 +19,16 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    D=64 (nhtd transposed views, key-padding bias, causal and not),
    T=100 causal, an nthd case, and a case with the bias gradient and an
    lse cotangent; the library call is autograd through
-   scaled_dot_product_attention;
+   scaled_dot_product_attention; it also times the flash forward alone
+   at the training shapes of phases 6 and 6d;
+   3c. holds the vocab-CE forward, dh and dW kernels against their
+   plain versions at the training shape (N = 16384 tokens, D = 512,
+   V = 32000, eps 0.1, some labels out of range and clamped, a quarter
+   of the cotangent zero), at a ragged shape (N = 1000, V = 1003) and
+   with eps = 0, checks that the library's label-smoothed
+   `F.cross_entropy` is the same loss, and times kernel, plain version
+   and library (matmul + cross_entropy, forward, then its autograd
+   backward);
 4. serves a stream of 64 ragged requests through DecodeEngine at the
    repository's decode-serving configuration (DecoderLM vocab 8192,
    4 layers, 8 heads, d_model 512; 16 slots, 384 pages of 16 tokens,
@@ -36,10 +45,15 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    timed steps with the launch counts zeroed just before them (12 flash
    forward, 12 dK/dV and 12 dQ launches per step, no plain call, no
    composed attention), and one profiled window (6b);
-7. trains the same configuration at dropout 0 on a cut batch (2 x 64
-   tokens) for 3 Adam steps on the card and on the CPU from the same
-   weights, and compares the losses, the step-1 gradients and the final
-   parameters;
+   6c. the same with `use_fused_ce=True` (1 vocab-CE forward, dh and dW
+   launch per step besides the flash launches), profiled as 6b;
+   6d. the reference's long-context stack (bench.py longctx_8k: T =
+   8192, batch 2, `flash_cross=True`, `use_fused_ce=True`): 18 launches
+   of each flash kernel and 1 of each vocab-CE kernel per step;
+7. trains the phase-6 configuration, unfused and fused, at dropout 0 on
+   a cut batch (2 x 64 tokens) for 3 Adam steps on the card and on the
+   CPU from the same weights, and compares the losses, the step-1
+   gradients and the final parameters;
 8. prints one `kernels` JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -85,6 +99,15 @@ TRAIN_ARCH = dict(src_vocab_size=32000, trg_vocab_size=32000,
                   d_inner_hid=2048, dropout=0.1, use_flash=True)
 TRAIN_BATCH = 64
 TRAIN_STEPS = 10
+# phase 6d: the reference's longctx_8k entry (bench.py:2315-2335; the
+# widths and depth of TRAIN_ARCH, flash_cross as bench.py:722 sets it
+# above 1024 tokens), float32, 16384 tokens a step as phase 6
+LONGCTX = dict(max_length=8192, flash_cross=True, use_fused_ce=True)
+LONGCTX_BATCH, LONGCTX_STEPS = 2, 3
+# phase 3c: each vocab-CE output within TOL_VOCAB of its max |plain|
+# (plus TOL_VOCAB): sums over D = 512, V = 32000 or N = 16384 terms in
+# another order
+TOL_VOCAB = 2e-5
 # phase 7: the card against the CPU, batch and sequence cut to 2 x 64
 PARITY_BATCH, PARITY_T, PARITY_STEPS = 2, 64, 3
 TOL_LOSS = 1e-4       # f32, 6+6 layers and a 32000-way logsumexp
@@ -451,6 +474,152 @@ def _sdpa_backward(c, d):
     return run
 
 
+def flash_fwd_at_training_shapes(dev):
+    """The flash forward alone at the training steps' shapes: phase 6's
+    N=64, T=256 and phase 6d's N=2, T=8192 (H=8, D=64, nhtd transposed
+    views + key-padding bias, causal and not, the mean of the two as
+    each step runs both), with its bound."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    h, d = TRAIN_ARCH["n_head"], TRAIN_ARCH["d_model"] // TRAIN_ARCH["n_head"]
+    out = {}
+    for n, t in ((TRAIN_BATCH, TRAIN_ARCH["max_length"]),
+                 (LONGCTX_BATCH, LONGCTX["max_length"])):
+        per = []
+        for causal in (True, False):
+            c = bwd_case(dev, n, h, t, d, "nhtd", causal, seed=30 + t)
+
+            def kern():
+                return fk.flash_attention_fwd(c["q"], c["k"], c["v"],
+                                              c["bias"], None, causal,
+                                              layout="nhtd", n_head=h)
+
+            b_ms, b_by = bound_ms(*fk.bound_bytes_and_flops(
+                c["q"], c["k"], c["bias"], causal, "nhtd", h))
+            per.append(dict(causal=causal, bound_ms=b_ms, bound_by=b_by,
+                            ms=cuda_ms(kern, iters=20 if t <= 256 else 3,
+                                       warmup=2)))
+        row = {key: sum(p[key] for p in per) / 2 for key in ("ms",
+                                                             "bound_ms")}
+        row["cases"] = per
+        out[f"N={n} T={t}"] = row
+        log(f"  flash_attention_fwd alone at N={n} T={t} H=8 D=64 nhtd: "
+            f"ms {row['ms']:.5f} (causal {per[0]['ms']:.5f}, not "
+            f"{per[1]['ms']:.5f}) bound_ms {row['bound_ms']:.5f} "
+            f"({per[0]['bound_by']})")
+    return out
+
+
+# -- phase 3c: the vocab-CE kernels against their plain versions ---------
+
+def vocab_case(dev, n, d, v, seed, n_bad=0):
+    """h (N, D) and W (D, V) giving logits of order 1, labels from numpy
+    with `n_bad` out of range (-3 and V + 5, clamped as fused_vocab_ce
+    clamps them) and a cotangent with a quarter of it zero."""
+    rng = np.random.RandomState(seed)
+    h = torch.as_tensor(rng.randn(n, d).astype(np.float32)).to(dev)
+    w = torch.as_tensor((rng.randn(d, v) * 0.05).astype(np.float32)).to(dev)
+    raw = rng.randint(0, v, size=n).astype(np.int64)
+    raw[:n_bad:2], raw[1:n_bad:2] = -3, v + 5
+    g = rng.randn(n).astype(np.float32)
+    g[rng.rand(n) < 0.25] = 0.0
+    lbl = torch.as_tensor(np.clip(raw, 0, v - 1).astype(np.int32)).to(dev)
+    return h, w, torch.as_tensor(raw).to(dev), lbl, \
+        torch.as_tensor(g).to(dev)
+
+
+def phase_vocab_kernels(dev):
+    from paddle_tpu_torch.ops.kernels import vocab_ce as vk
+
+    log("phase 3c: vocab-CE kernels vs plain versions on the card")
+    n, d, v = TRAIN_BATCH * TRAIN_ARCH["max_length"], \
+        TRAIN_ARCH["d_model"], TRAIN_ARCH["trg_vocab_size"]
+    cases = [("train eps=0.1", (n, d, v, 0.1, 16)),
+             ("ragged N=1000 V=1003 eps=0.1", (1000, d, 1003, 0.1, 4)),
+             ("eps=0 N=4096", (4096, d, v, 0.0, 0))]
+    errs = {"fwd": [], "dh": [], "dw": []}
+    rows = {}
+    for i, (name, (cn, cd, cv, eps, bad)) in enumerate(cases):
+        h, w, raw, lbl, g = vocab_case(dev, cn, cd, cv, seed=i, n_bad=bad)
+        got = vk.vocab_ce_fwd(h, w, lbl)
+        torch.cuda.synchronize()
+        want = vk.vocab_ce_fwd_plain(h, w, lbl)
+        for oname, a, b in zip(("lse", "z_label", "z_sum"), got, want):
+            errs["fwd"].append(check_close(f"vocab_ce fwd {name} {oname}",
+                                           a, b, TOL_VOCAB))
+        dh, dw = vk.vocab_ce_bwd(h, w, lbl, got[0], g, eps)
+        torch.cuda.synchronize()
+        wdh, wdw = vk.vocab_ce_bwd_plain(h, w, lbl, got[0], g, eps)
+        errs["dh"].append(check_close(f"vocab_ce dh {name}", dh, wdh,
+                                      TOL_VOCAB))
+        errs["dw"].append(check_close(f"vocab_ce dW {name}", dw, wdw,
+                                      TOL_VOCAB))
+        del wdh, wdw, want
+        if i:
+            continue
+        # the library's label-smoothed CE is the same loss (through the
+        # clamp of fused_vocab_ce on the raw labels)
+        loss = vk.fused_vocab_ce(h, w, raw, eps)
+        ce = torch.nn.functional.cross_entropy(
+            torch.matmul(h, w), lbl.long(), label_smoothing=eps,
+            reduction="none")
+        check_close("fused_vocab_ce loss vs F.cross_entropy", loss, ce,
+                    TOL_VOCAB)
+        rows = _time_vocab(vk, h, w, lbl, g, eps)
+    for k, full in (("fwd", "vocab_ce_fwd"), ("dh", "vocab_ce_dh"),
+                    ("dw", "vocab_ce_dw")):
+        rows[full]["max_abs_err"] = max(errs[k])
+    return rows
+
+
+def _time_vocab(vk, h, w, lbl, g, eps):
+    """Kernel, plain and library times at the training shape."""
+    (n, d), v = h.shape, w.shape[1]
+    lse = vk.vocab_ce_fwd(h, w, lbl)[0]
+    ms = {"fwd": cuda_ms(lambda: vk.vocab_ce_fwd(h, w, lbl), iters=5,
+                         warmup=1)}
+    ms.update(profiled_kernel_ms(
+        lambda: vk.vocab_ce_bwd(h, w, lbl, lse, g, eps),
+        ("vocab_ce_dh_kernel", "vocab_ce_dw_kernel"), iters=5, warmup=1))
+    plain_fwd = cuda_ms(lambda: vk.vocab_ce_fwd_plain(h, w, lbl), iters=3,
+                        warmup=1)
+    plain_bwd = cuda_ms(lambda: vk.vocab_ce_bwd_plain(h, w, lbl, lse, g,
+                                                      eps),
+                        iters=3, warmup=1)
+    hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
+
+    def lib_fwd():
+        return torch.nn.functional.cross_entropy(
+            torch.matmul(hh, ww), lbl.long(), label_smoothing=eps,
+            reduction="none")
+
+    lib_fwd_ms = cuda_ms(lambda: lib_fwd().detach(), iters=3, warmup=1)
+    loss = lib_fwd()
+
+    def lib_bwd():
+        return torch.autograd.grad(loss, (hh, ww), g, retain_graph=True)
+
+    lib_bwd_ms = cuda_ms(lib_bwd, iters=3, warmup=1)
+    del loss
+    bounds = vk.bound_bytes_and_flops(n, d, v)
+    rows = {}
+    for k, full, k_ms, p_ms, l_ms in (
+            ("fwd", "vocab_ce_fwd", ms["fwd"], plain_fwd, lib_fwd_ms),
+            ("dh", "vocab_ce_dh", ms["vocab_ce_dh_kernel"], plain_bwd,
+             lib_bwd_ms),
+            ("dw", "vocab_ce_dw", ms["vocab_ce_dw_kernel"], plain_bwd,
+             lib_bwd_ms)):
+        b_ms, b_by = bound_ms(*bounds[k])
+        rows[full] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                          bound_ms=b_ms, bound_by=b_by, bytes=bounds[k][0],
+                          flops=bounds[k][1],
+                          shape=f"N={n} D={d} V={v} f32 eps={eps}")
+        log(f"  {full}: kernel_ms {k_ms:.5f} bound_ms {b_ms:.5f} ({b_by}) "
+            f"plain_ms {p_ms:.5f} library_ms {l_ms:.5f}")
+    log("  (plain and library backward times are dh and dW together)")
+    return rows
+
+
 # -- phase 4: the serving stream ------------------------------------------
 
 def phase_stream(dev):
@@ -709,22 +878,39 @@ def _flash_ops(program):
                for op in program.global_block().ops)
 
 
-def phase_train(dev, card):
+def _vocab_ops(program):
+    return sum(op.type == "fused_vocab_softmax_ce"
+               for op in program.global_block().ops)
+
+
+def phase_train(dev, card, label="phase 6", overrides=None,
+                batch=TRAIN_BATCH, steps=TRAIN_STEPS, profile="phase 6b"):
+    """Train the bench Transformer (with `overrides`) on the card: one
+    warmup step, then `steps` timed steps with the launch counts zeroed
+    just before them; each flash op launches the flash forward, dK/dV
+    and dQ kernels once a step, each fused-CE op the vocab-CE forward,
+    dh and dW kernels once, and nothing takes a plain or composed
+    path.  `profile` labels one profiled window after them (None: no
+    window)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import kernels
 
-    log("phase 6: Transformer training on the card (bench config, f32)")
-    main, startup, model = build_training()
-    n_flash = _flash_ops(main)
+    overrides = overrides or {}
+    arch = dict(TRAIN_ARCH, **overrides)
+    log(f"{label}: Transformer training on the card (batch {batch} x "
+        f"{arch['max_length']}, {overrides or 'bench config'}, f32)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    main, startup, model = build_training(**overrides)
+    n_flash, n_vocab = _flash_ops(main), _vocab_ops(main)
     scope = pt.Scope()
     exe = pt.Executor(pt.CUDAPlace(0))
     t0 = time.perf_counter()
     exe.run(startup, scope=scope)
-    t_len = TRAIN_ARCH["max_length"]
-    vocab = TRAIN_ARCH["trg_vocab_size"]
-    feed = transformer.make_fake_batch(TRAIN_BATCH, t_len,
-                                       TRAIN_ARCH["src_vocab_size"], vocab)
+    t_len = arch["max_length"]
+    vocab = arch["trg_vocab_size"]
+    feed = transformer.make_fake_batch(batch, t_len, arch["src_vocab_size"],
+                                       vocab)
     feed = {n: torch.as_tensor(a).to(dev) for n, a in feed.items()}
     loss = model["loss"]
     first = float(exe.run(main, feed=feed, fetch_list=[loss],
@@ -732,7 +918,7 @@ def phase_train(dev, card):
     torch.cuda.synchronize()
     log(f"  startup + warmup step {time.perf_counter() - t0:.3f} s, "
         f"loss {first:.6f} (ln {vocab} = {np.log(vocab):.6f}); "
-        f"{n_flash} flash_attention ops")
+        f"{n_flash} flash_attention ops, {n_vocab} fused CE ops")
     # label-smoothed CE of near-uniform logits at random init
     if not abs(first - np.log(vocab)) < 0.5:
         raise AssertionError(f"step-1 loss {first} is not near "
@@ -740,16 +926,19 @@ def phase_train(dev, card):
     kernels.reset_counts()
     t0 = time.perf_counter()
     losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                      return_numpy=False)[0] for _ in range(TRAIN_STEPS)]
+                      return_numpy=False)[0] for _ in range(steps)]
     losses = [float(x.reshape(())) for x in losses]   # syncs
     wall = time.perf_counter() - t0
     counts = kernels.counts()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
     la, pl, co = counts["launches"], counts["plain"], counts["composed"]
-    want = {"flash_attention_fwd": n_flash * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": n_flash * TRAIN_STEPS,
-            "flash_attention_bwd_dq": n_flash * TRAIN_STEPS,
+    want = {"flash_attention_fwd": n_flash * steps,
+            "flash_attention_bwd_dkv": n_flash * steps,
+            "flash_attention_bwd_dq": n_flash * steps,
+            "vocab_ce_fwd": n_vocab * steps,
+            "vocab_ce_dh": n_vocab * steps,
+            "vocab_ce_dw": n_vocab * steps,
             "paged_attention": 0}
     if la != want or max(pl.values()) or max(co.values()):
         raise AssertionError(f"training launches {counts}, want {want} "
@@ -759,24 +948,29 @@ def phase_train(dev, card):
               and (v.requires_grad or v.grad_fn is not None)]
     if leaked:
         raise AssertionError(f"scope holds autograd state: {leaked[:4]}")
-    tokens = TRAIN_BATCH * t_len * TRAIN_STEPS
-    res = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "max_length": t_len,
-           "flash_ops": n_flash, "wall_s": wall,
-           "steps_per_s": TRAIN_STEPS / wall, "tokens_per_s": tokens / wall,
-           "step_ms": wall * 1e3 / TRAIN_STEPS, "first_loss": first,
+    tokens = batch * t_len * steps
+    res = {"steps": steps, "batch": batch, "max_length": t_len,
+           "overrides": overrides, "flash_ops": n_flash,
+           "vocab_ce_ops": n_vocab, "wall_s": wall,
+           "steps_per_s": steps / wall, "tokens_per_s": tokens / wall,
+           "step_ms": wall * 1e3 / steps, "first_loss": first,
            "losses": losses, "launches": la, "plain_calls": pl,
            "composed_calls": co,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
-    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s: "
+    log(f"  {steps} steps in {wall:.3f} s: "
         f"{res['steps_per_s']:.4f} steps/s, {res['tokens_per_s']:.1f} "
         f"tokens/s ({res['step_ms']:.2f} ms/step) on {card}; losses "
-        f"{losses[0]:.6f} .. {losses[-1]:.6f}")
+        f"{losses[0]:.6f} .. {losses[-1]:.6f}; peak device memory "
+        f"{res['peak_mem_bytes'] / 1e9:.3f} GB")
     log(f"  launches {la}, plain calls {pl}, composed {co}")
-    res["profile"] = _profile_train_step(exe, main, feed, loss, scope)
+    if profile:
+        res["profile"] = _profile_train_step(exe, main, feed, loss, scope,
+                                             label=profile)
     return res
 
 
-def _profile_train_step(exe, main, feed, loss, scope, steps=2):
+def _profile_train_step(exe, main, feed, loss, scope, steps=2,
+                        label="phase 6b"):
     """6b: host ms against device-busy ms of training steps, and the
     costliest device kernels (torch.profiler, as phase 4b)."""
     from torch.autograd import DeviceType
@@ -804,7 +998,7 @@ def _profile_train_step(exe, main, feed, loss, scope, steps=2):
            "kernel_launches_per_step": sum(e.count for e in kern) / steps,
            "top_kernels": [(e.key, e.count // steps, dev_us(e) / steps)
                            for e in kern[:12]]}
-    log(f"phase 6b: profiled step {prof_ms:.3f} ms; device busy "
+    log(f"{label}: profiled step {prof_ms:.3f} ms; device busy "
         f"{busy_ms:.3f} ms/step, idle share "
         f"{res['device_idle_share']:.3f}; "
         f"{res['kernel_launches_per_step']:.0f} kernels/step")
@@ -815,15 +1009,17 @@ def _profile_train_step(exe, main, feed, loss, scope, steps=2):
 
 # -- phase 7: training, the card against the CPU --------------------------
 
-def phase_train_parity(dev):
+def phase_train_parity(dev, use_fused_ce=False):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.convert import params_from_arrays
     from paddle_tpu_torch.models import transformer
 
     log(f"phase 7: training card vs CPU ({PARITY_BATCH} x {PARITY_T} "
-        f"tokens, dropout 0, {PARITY_STEPS} Adam steps)")
+        f"tokens, dropout 0, {PARITY_STEPS} Adam steps, use_fused_ce="
+        f"{use_fused_ce})")
     main, startup, model = build_training(dropout=0.0,
-                                          max_length=PARITY_T)
+                                          max_length=PARITY_T,
+                                          use_fused_ce=use_fused_ce)
     init = pt.Scope()
     pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
     arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
@@ -920,27 +1116,47 @@ def main() -> int:
         for fn, used in ptxas[name]:
             log(f"  {name}: {fn}: {used}")
 
+    from paddle_tpu_torch.ops.kernels import vocab_ce as vk
+
+    log(f"  vocab_ce: dynamic shared memory {vk.SMEM_BYTES} bytes a "
+        f"block (one block per SM)")
+
     rows = phase_kernels(dev)
     rows.update(phase_bwd_kernels(dev))
+    flash_train_shapes = flash_fwd_at_training_shapes(dev)
+    rows.update(phase_vocab_kernels(dev))
     stream = phase_stream(dev)
     profile = phase_step_profile(dev)
     parity = phase_card_vs_cpu(dev)
     train = phase_train(dev, card)
+    train_fused = phase_train(dev, card, "phase 6c",
+                              dict(use_fused_ce=True),
+                              profile="phase 6c, profiled")
+    train_longctx = phase_train(dev, card, "phase 6d", LONGCTX,
+                                batch=LONGCTX_BATCH, steps=LONGCTX_STEPS,
+                                profile=None)
     train_parity = phase_train_parity(dev)
+    train_parity_fused = phase_train_parity(dev, use_fused_ce=True)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
+    vc = "paddle_tpu/ops/pallas/vocab_ce.py"
     replaces = {
         "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:163",
         "flash_attention_fwd": f"{fa}:276",
         "flash_attention_bwd_dkv": f"{fa}:402",
         "flash_attention_bwd_dq": f"{fa}:458",
+        "vocab_ce_fwd": f"{vc}:146",
+        "vocab_ce_dh": f"{vc}:204",
+        "vocab_ce_dw": f"{vc}:235",
     }
     sources = {"flash_attention_bwd_dkv": "flash_attention_bwd",
-               "flash_attention_bwd_dq": "flash_attention_bwd"}
-    # each path's launches, its counts zeroed just before it: the
-    # forward kernel runs on both the serving and the training path
-    launches = {k: stream["launches"][k] + train["launches"][k]
-                for k in replaces}
+               "flash_attention_bwd_dq": "flash_attention_bwd",
+               "vocab_ce_fwd": "vocab_ce", "vocab_ce_dh": "vocab_ce",
+               "vocab_ce_dw": "vocab_ce"}
+    # each path's launches, its counts zeroed just before it: the flash
+    # forward runs on the serving and all three training paths
+    paths = (stream, train, train_fused, train_longctx)
+    launches = {k: sum(p["launches"][k] for p in paths) for k in replaces}
     kern = []
     for name in replaces:
         r = rows[name]
@@ -956,9 +1172,13 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "kernels": rows,
+                   "flash_fwd_training_shapes": flash_train_shapes,
                    "stream": stream, "step_profile": profile,
                    "card_vs_cpu": parity, "train": train,
+                   "train_fused_ce": train_fused,
+                   "train_longctx": train_longctx,
                    "train_card_vs_cpu": train_parity,
+                   "train_fused_ce_card_vs_cpu": train_parity_fused,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")

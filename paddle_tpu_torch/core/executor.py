@@ -9,8 +9,10 @@ model.
 
 Training programs (`append_backward`'s `backward_marker` split) run the
 reference's dense branch (paddle_tpu/core/executor.py:396-459,
-547-549, 577-582): the ops before the marker run with every trainable
-parameter as a fresh autograd leaf, `torch.autograd.grad` of the
+547-549, 577-582): the ops before the marker that the loss, the
+fetches, the update ops or persistable state need (XLA's dead-code
+elimination in the reference) run with every trainable parameter as a
+fresh autograd leaf, `torch.autograd.grad` of the
 squeezed loss gives the gradients, `<param>@GRAD` and `<loss>@GRAD = 1`
 are written into the env, and the ops after the marker (optimizer
 updates) run under `torch.no_grad()`.  Nothing of the autograd graph
@@ -179,25 +181,30 @@ def _reraise_with_op_context(exc: Exception, desc, op_index: int):
     raise new_exc from exc
 
 
-def prune_ops(program: Program, fetch_names):
-    """Dead-op elimination: keep ops contributing to fetches or writing
-    persistable state (reference analog: framework/prune.cc)."""
-    ops = program.global_block().ops
-    block = program.global_block()
-
+def _live_indices(block, ops, needed):
+    """Indices of the ops in `ops` that contribute to the names in
+    `needed` or write persistable state, in program order."""
     def is_persistable(name: str) -> bool:
         return block.has_var(name) and block.var(name).persistable
 
-    needed = set(fetch_names)
-    keep = [False] * len(ops)
+    needed = set(needed)
+    keep = []
     for i in range(len(ops) - 1, -1, -1):
         desc = ops[i].desc
         outs = desc.output_names()
         if any(n in needed for n in outs) or any(
                 is_persistable(n) for n in outs):
-            keep[i] = True
+            keep.append(i)
             needed.update(desc.input_names())
-    return [op for i, op in enumerate(ops) if keep[i]]
+    return keep[::-1]
+
+
+def prune_ops(program: Program, fetch_names):
+    """Dead-op elimination: keep ops contributing to fetches or writing
+    persistable state (reference analog: framework/prune.cc)."""
+    block = program.global_block()
+    return [block.ops[i] for i in _live_indices(block, block.ops,
+                                                fetch_names)]
 
 
 def _pruned(program: Program, fetch_names):
@@ -230,7 +237,7 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
     if program._backward_info is None:
         return run_ops(_pruned(program, fetch_names), env, seed,
                        program=program, device=device)
-    return _train_step(program, env, seed, device)
+    return _train_step(program, env, seed, device, fetch_names)
 
 
 def _check_trainable(program: Program, fwd_ops, trainable):
@@ -260,8 +267,30 @@ def _check_trainable(program: Program, fwd_ops, trainable):
                 "ROADMAP queue A item 2 (executor: SparseGrad lookups)")
 
 
-def _train_step(program: Program, env: Dict[str, Any], seed, device):
-    """The dense training step (see the module docstring)."""
+def _live_forward(program: Program, fetch_names):
+    """Indices of the forward ops (before the backward marker) that the
+    loss, the fetches, the update ops or a persistable write need — the
+    dead-code elimination the reference gets from XLA under `jit`;
+    memoized per (program version, fetches)."""
+    key = (program._version, tuple(fetch_names))
+    cache = program.__dict__.setdefault("_live_forward", {})
+    live = cache.get(key)
+    if live is None:
+        info = program._backward_info
+        block = program.global_block()
+        k = info["index"]
+        needed = {info["loss"], *fetch_names}
+        for op in block.ops[k:]:
+            needed.update(op.desc.input_names())
+        live = cache[key] = _live_indices(block, block.ops[:k], needed)
+    return live
+
+
+def _train_step(program: Program, env: Dict[str, Any], seed, device,
+                fetch_names=()):
+    """The dense training step (see the module docstring).  The forward
+    runs only the ops `_live_forward` keeps, each under its program
+    index, so pruning never shifts an op's random stream."""
     info = program._backward_info
     ops = program.global_block().ops
     k = info["index"]
@@ -274,7 +303,9 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device):
     with torch.enable_grad():
         fenv = dict(env)
         fenv.update(zip(params, leaves))
-        run_ops(fwd_ops, fenv, seed, program=program, device=device)
+        for i in _live_forward(program, fetch_names):
+            _run_one_op(fwd_ops[i], fenv, seed, i, program=program,
+                        device=device)
         loss = fenv[loss_name]
         if loss.dim() > 0:
             loss = loss.squeeze()

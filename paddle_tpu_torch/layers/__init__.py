@@ -11,8 +11,8 @@ from .nn import (add_position_encoding_at, batched_gather,  # noqa: F401
                  clip, clip_by_norm, dropout, elementwise_add,
                  elementwise_div, elementwise_max, elementwise_mul,
                  elementwise_op, embedding, fc, flash_attention,
-                 label_smooth, layer_norm, matmul, one_hot,
-                 paged_attention, paged_kv_prefill_write, paged_kv_write,
+                 fused_vocab_softmax_ce, label_smooth, layer_norm, matmul,
+                 one_hot, paged_attention, paged_kv_prefill_write, paged_kv_write,
                  reduce_sum, reshape, scale, softmax,
                  softmax_with_cross_entropy, squeeze, transpose, unsqueeze)
 from .ops import sqrt  # noqa: F401

@@ -320,6 +320,29 @@ def flash_attention(q, k, v, bias=None, scale=None, causal=False,
     return out
 
 
+def fused_vocab_softmax_ce(hidden, weight, label, epsilon=0.0,
+                           use_pallas=False, block_t=None, block_v=None,
+                           name=None):
+    """Per-token label-smoothed CE of `hidden @ weight` computed without
+    materialising the (tokens, vocab) logits (ops/kernels/vocab_ce.py).
+    hidden (..., D), weight (D, V) parameter, label int ids with
+    hidden's leading shape.  use_pallas, block_t and block_v are recorded
+    as the reference records them; the port routes by device."""
+    helper = LayerHelper("fused_vocab_softmax_ce", name=name)
+    loss = helper.create_variable_for_type_inference("float32")
+    attrs = {"epsilon": float(epsilon), "use_pallas": bool(use_pallas)}
+    if block_t is not None:
+        attrs["block_t"] = int(block_t)
+    if block_v is not None:
+        attrs["block_v"] = int(block_v)
+    helper.append_op(
+        type="fused_vocab_softmax_ce",
+        inputs={"Hidden": [hidden], "W": [weight], "Label": [label]},
+        outputs={"Loss": [loss]},
+        attrs=attrs)
+    return loss
+
+
 def paged_attention(q, k_cache, v_cache, page_table, lengths, n_head,
                     scale=None, use_pallas=None, k_scale=None,
                     v_scale=None, name=None):

@@ -10,11 +10,13 @@ FFN, masks as additive biases built in-graph from sequence lengths, and
 decoder self-attention, autograd through the forward and backward
 kernels on CUDA) with `head_major` False or True; without head_major
 the decoder's cross attention is composed from matmul and softmax, as
-in the reference.  Not ported yet, each raising NotImplementedError with
-its ROADMAP item: `use_flash=False` (its causal bias needs the `range`
-and `less_equal` layers) and `fused_qkv` (the `slice` layer), both
-queue A item 3; `use_fused_ce`
-(the vocab-CE kernels: queue B rows 5-7), `use_amp` (queue A item 2:
+in the reference (`flash_cross=True` sends it through the flash op
+too); and `use_fused_ce=True`, the final projection and the
+label-smoothed CE in the fused_vocab_softmax_ce op (the vocab-CE
+forward, dh and dW kernels on CUDA).  Not ported yet, each raising
+NotImplementedError with its ROADMAP item: `use_flash=False` (its
+causal bias needs the `range` and `less_equal` layers) and `fused_qkv`
+(the `slice` layer), both queue A item 3; `use_amp` (queue A item 2:
 bf16 policy and bf16 flash kernels), `moe_experts` (queue A item 6:
 ops/moe.py), `recompute` and `pipeline` (queue A item 2: executor
 scopes).
@@ -201,8 +203,6 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
     if not use_flash:
         _unported("use_flash=False",
                   "queue A item 3 (composed attention: range, less_equal)")
-    if use_fused_ce:
-        _unported("use_fused_ce", "queue B rows 5-7 (vocab-CE kernels)")
     if moe_experts:
         _unported("moe_experts", "queue A item 6 (ops/moe.py)")
     if recompute:
@@ -245,6 +245,27 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
                           self_causal=True, flash_cross=flash_cross,
                           head_major=head_major)
     dec_out = pre_post_process(None, y, "n")
+    feeds = ["src_word", "trg_word", "lbl_word", "src_len", "trg_len"]
+
+    if use_fused_ce:
+        # the fused projection + CE owns the projection weight; the
+        # logits var is still built from the same weight for the API
+        # (the training step prunes it unless it is fetched)
+        from ..layer_helper import LayerHelper
+
+        helper = LayerHelper("vocab_proj")
+        proj_w = helper.create_parameter(
+            None, shape=[d_model, trg_vocab_size], dtype="float32")
+        cost_tok = layers.fused_vocab_softmax_ce(
+            dec_out, proj_w, lbl_word, epsilon=label_smooth_eps,
+            use_pallas=True)
+        logits = layers.matmul(dec_out, proj_w)
+        tmask = layers.sequence_mask(trg_len, maxlen=max_length,
+                                     dtype="float32")
+        cost = layers.elementwise_mul(cost_tok, tmask)
+        avg_cost = layers.elementwise_div(layers.reduce_sum(cost),
+                                          layers.reduce_sum(tmask))
+        return avg_cost, logits, feeds
 
     logits = layers.fc(dec_out, size=trg_vocab_size, num_flatten_dims=2,
                        bias_attr=False)
@@ -265,7 +286,6 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
     sum_cost = layers.reduce_sum(cost)
     token_num = layers.reduce_sum(tmask)
     avg_cost = layers.elementwise_div(sum_cost, token_num)
-    feeds = ["src_word", "trg_word", "lbl_word", "src_len", "trg_len"]
     return avg_cost, logits, feeds
 
 

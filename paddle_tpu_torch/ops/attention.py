@@ -1,5 +1,5 @@
-"""Fused attention op: the port of paddle_tpu/ops/attention.py
-`flash_attention`.
+"""Fused attention ops: the port of paddle_tpu/ops/attention.py
+`flash_attention` and `fused_vocab_softmax_ce`.
 
 Q/K/V arrive (N, H, T, D) — or, with layout="nthd" + the n_head attr,
 head-grouped (N, T, H*D), what the attn_qkv projection emits — plus an
@@ -20,6 +20,13 @@ attention.py:151-172):
 
 The `use_pallas` attr is kept so programs serialize as the reference's
 do; it does not route.
+
+`fused_vocab_softmax_ce` (the final vocabulary projection and the
+label-smoothed softmax CE in one op) always goes through `VocabCEFn`
+(ops/kernels/vocab_ce.py): on a CUDA tensor the forward, dh and dW
+kernels, on a CPU tensor their plain versions.  Its `use_pallas`,
+`block_t` and `block_v` attrs are kept for serialization and do not
+route either.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..core.registry import register_op
 from .common import first, opt_in, out
 from .kernels import composed_calls
 from .kernels import flash_attention as fk
+from .kernels import vocab_ce as vk
 
 CAUSAL_FILL = -1e9      # the reference's XLA compositions' causal fill
 
@@ -94,3 +102,12 @@ def flash_attention(ctx, ins, attrs):
     o, _lse = fk.flash_attention(q, k, v, bias, scale, causal, layout,
                                  n_head)
     return out(Out=o)
+
+
+@register_op("fused_vocab_softmax_ce")
+def fused_vocab_softmax_ce(ctx, ins, attrs):
+    """Loss (...) = per-token label-smoothed CE of Hidden (..., D) @ W
+    (D, V) against Label (...), the logits never materialised."""
+    return out(Loss=vk.fused_vocab_ce(first(ins, "Hidden"), first(ins, "W"),
+                                      first(ins, "Label"),
+                                      float(attrs.get("epsilon", 0.0))))

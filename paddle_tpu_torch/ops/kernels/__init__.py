@@ -22,7 +22,8 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("paged_attention", "flash_attention_fwd",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw")
 COMPOSED = ("flash_attention",)
 
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -8,7 +8,9 @@ runs without the JAX package (the repo's conftest imports jax, hence
 
 Tolerances: 2e-5 (abs and rel) for float32 operands — both sides compute
 in float32 and differ in summation order; the same for bfloat16/int8
-pools, which both sides dequantize to the same float32 values.
+pools, which both sides dequantize to the same float32 values.  The
+vocab-CE kernels are held to 2e-5 of each output's max |reference|
+(absolute): their sums run over D, V or N terms in another order.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from paddle_tpu_torch import CPUPlace, CUDAPlace
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as fk
 from paddle_tpu_torch.ops.kernels import paged_attention as pk
+from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -204,3 +207,60 @@ def test_engine_on_cuda_matches_engine_on_cpu(dev):
                      for p in prompts])
         eng.close()
     assert outs[0] == outs[1]
+
+
+def _vocab_case(dev, n, d, v, seed):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(n, d, generator=g).to(dev)
+    w = (torch.randn(d, v, generator=g) * 0.05).to(dev)
+    lbl = torch.randint(0, v, (n,), generator=g, dtype=torch.int32).to(dev)
+    cot = torch.randn(n, generator=g)
+    cot[::4] = 0.0                               # masked tokens
+    return h, w, lbl, cot.to(dev)
+
+
+def _close_to_max(a, b, name, tol=2e-5):
+    assert torch.isfinite(a).all(), name
+    err = float((a - b).abs().max())
+    assert err <= tol * max(float(b.abs().max()), 1.0), (name, err)
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+@pytest.mark.parametrize("n,d,v", [(1000, 512, 1003), (70, 64, 130),
+                                   (5, 24, 7)])
+def test_vocab_ce_kernels_match_plain(dev, n, d, v, eps):
+    h, w, lbl, cot = _vocab_case(dev, n, d, v, seed=n + v)
+    before = dict(kernels.launch_counts)
+    got = vk.vocab_ce_fwd(h, w, lbl)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("lse", "z_label", "z_sum"), got,
+                          vk.vocab_ce_fwd_plain(h, w, lbl)):
+        _close_to_max(a, b, name)
+    dh, dw = vk.vocab_ce_bwd(h, w, lbl, got[0], cot, eps)
+    torch.cuda.synchronize()
+    want = vk.vocab_ce_bwd_plain(h, w, lbl, got[0], cot, eps)
+    _close_to_max(dh, want[0], "dh")
+    _close_to_max(dw, want[1], "dw")
+    for k in ("vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw"):
+        assert kernels.launch_counts[k] == before[k] + 1, k
+    # no atomics: a second run gives the same bits
+    again = vk.vocab_ce_bwd(h, w, lbl, got[0], cot, eps)
+    assert torch.equal(again[0], dh) and torch.equal(again[1], dw)
+
+
+def test_vocab_ce_autograd_on_card_matches_cpu(dev):
+    """VocabCEFn forward + backward: the card's kernels against the CPU's
+    plain versions, with out-of-range labels clamped on both."""
+    h, w, lbl, cot = _vocab_case(dev, 300, 128, 517, seed=9)
+    lbl = lbl.long()
+    lbl[:2] = torch.tensor([-3, 517])
+    out = []
+    for device in (dev, "cpu"):
+        hh, ww = (x.detach().to(device).requires_grad_() for x in (h, w))
+        loss = vk.fused_vocab_ce(hh, ww, lbl.to(device), 0.1)
+        out.append((loss, *torch.autograd.grad(loss, (hh, ww),
+                                               cot.to(device))))
+    for name, a, b in zip(("loss", "dh", "dw"), *out):
+        _close_to_max(a.detach().cpu(), b.detach(), name)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        vk.fused_vocab_ce(h.to(torch.bfloat16), w.to(torch.bfloat16), lbl)
