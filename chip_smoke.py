@@ -29,6 +29,14 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    `F.cross_entropy` is the same loss, and times kernel, plain version
    and library (matmul + cross_entropy, forward, then its autograd
    backward);
+   3d. holds the LSTM recurrence kernels (forward and backward) against
+   their plain versions at the stacked-LSTM training shape (T = N = 128,
+   H = 512, the bench's ragged lengths, non-zero h0/c0, forward and
+   reversed) and at a small ragged shape (N = 5, T = 7, H = 24, lengths
+   0 and 1), checks that two backward runs give the same bits, and times
+   kernel, plain version and, as the library yardstick, `torch.nn.LSTM`
+   (cuDNN; it also contains the x-projection, so it is set against fc +
+   kernel);
 4. serves a stream of 64 ragged requests through DecodeEngine at the
    repository's decode-serving configuration (DecoderLM vocab 8192,
    4 layers, 8 heads, d_model 512; 16 slots, 384 pages of 16 tokens,
@@ -50,10 +58,17 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    6d. the reference's long-context stack (bench.py longctx_8k: T =
    8192, batch 2, `flash_cross=True`, `use_fused_ce=True`): 18 launches
    of each flash kernel and 1 of each vocab-CE kernel per step;
+   6e. the repository's stacked dynamic LSTM benchmark (bench.py
+   bench_lstm: vocab 5147, emb 512, hidden 512, 3 layers, max_len 128,
+   batch 128, ragged lengths, Adam, float32, nothing cut): 3 LSTM forward
+   and 3 backward launches per step, no plain or composed call, and one
+   profiled window;
 7. trains the phase-6 configuration, unfused and fused, at dropout 0 on
    a cut batch (2 x 64 tokens) for 3 Adam steps on the card and on the
    CPU from the same weights, and compares the losses, the step-1
    gradients and the final parameters;
+   7c. the same for the stacked LSTM at full width on a cut batch
+   (8 x 32 tokens);
 8. prints one `kernels` JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -116,6 +131,19 @@ TOL_LOSS = 1e-4       # f32, 6+6 layers and a 32000-way logsumexp
 # orders (the JAX package and the port, both on the CPU, differ by up to
 # 5e-4 here, and by 4e-3 of max |g| elementwise)
 TOL_GRAD = 2e-3
+
+# phases 3d, 6e, 7c: the stacked dynamic LSTM of the reference's bench
+# (bench.py:848-907 as bench.py:2242 runs it), float32 as the bench runs
+# it, nothing cut
+LSTM_ARCH = dict(vocab_size=5147, emb_dim=512, hidden_dim=512,
+                 stacked_num=3, class_num=2, max_len=128,
+                 learning_rate=1e-3, pallas_rnn=True, rnn_unroll=1)
+LSTM_BATCH, LSTM_STEPS = 128, 10
+# each LSTM output within TOL_LSTM of its max |plain| (plus TOL_LSTM):
+# float32 on both sides; the recurrence compounds the differences of
+# another summation order and libm over up to 128 steps
+TOL_LSTM = 1e-4
+LSTM_PARITY_BATCH, LSTM_PARITY_T = 8, 32
 
 OUT_DIR = "chip_smoke_out"
 
@@ -620,6 +648,103 @@ def _time_vocab(vk, h, w, lbl, g, eps):
     return rows
 
 
+# -- phase 3d: the LSTM recurrence kernels against their plain versions ---
+
+def lstm_case(dev, t, n, h, seed, lengths=None):
+    """Time-major operands of one recurrence call: xs of the size the
+    x-projection gives, W at the initializer's scale, non-zero h0/c0, the
+    bench's ragged lengths (uniform in T/2..T) unless given, and
+    cotangents for hs and cs."""
+    rng = np.random.RandomState(seed)
+
+    def f(*shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale)
+                               .astype(np.float32)).to(dev)
+
+    xs, w = f(t, n, 4 * h, scale=0.5), f(h, 4 * h, scale=h ** -0.5)
+    h0, c0 = f(n, h, scale=0.3), f(n, h, scale=0.3)
+    if lengths is None:
+        lengths = rng.randint(t // 2, t + 1, (n,))
+    sl = torch.as_tensor(np.asarray(lengths, np.int32)).to(dev)
+    return (xs, w, h0, c0, sl), (f(t, n, h), f(t, n, h))
+
+
+def phase_lstm_kernels(dev):
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+
+    log("phase 3d: LSTM recurrence kernels vs plain versions on the card")
+    t, n, h = LSTM_ARCH["max_len"], LSTM_BATCH, LSTM_ARCH["hidden_dim"]
+    cases = [("train", (t, n, h, None), False),
+             ("train reversed", (t, n, h, None), True),
+             ("ragged N=5 T=7 H=24", (7, 5, 24, [7, 0, 1, 4, 6]), False),
+             ("ragged reversed", (7, 5, 24, [7, 0, 1, 4, 6]), True)]
+    errs = {"fwd": [], "bwd": []}
+    timed = None
+    for i, (name, (ct, cn, ch, lens), rev) in enumerate(cases):
+        ops, cots = lstm_case(dev, ct, cn, ch, seed=40 + i, lengths=lens)
+        hs, cs = lk.lstm_fwd(*ops, rev)
+        torch.cuda.synchronize()
+        for oname, a, b in zip(("hs", "cs"), (hs, cs),
+                               lk.lstm_fwd_plain(*ops, rev)):
+            errs["fwd"].append(check_close(f"lstm fwd {name} {oname}", a, b,
+                                           TOL_LSTM))
+        got = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
+        torch.cuda.synchronize()
+        want = lk.lstm_bwd_plain(*ops, hs, cs, *cots, rev)
+        for oname, a, b in zip(("dxs", "dW", "dh0", "dc0"), got, want):
+            errs["bwd"].append(check_close(f"lstm bwd {name} {oname}", a, b,
+                                           TOL_LSTM))
+        again = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError(f"lstm bwd {name}: two runs differ")
+        if i == 0:
+            timed = (ops, cots, hs, cs)
+    log("  two backward runs bit-equal in every case")
+    ops, cots, hs, cs = timed
+    ms = {"fwd": cuda_ms(lambda: lk.lstm_fwd(*ops, False), iters=10,
+                         warmup=2),
+          "bwd": cuda_ms(lambda: lk.lstm_bwd(*ops, hs, cs, *cots, False),
+                         iters=10, warmup=2),
+          "fwd_plain": cuda_ms(lambda: lk.lstm_fwd_plain(*ops, False),
+                               iters=3, warmup=1),
+          "bwd_plain": cuda_ms(lambda: lk.lstm_bwd_plain(*ops, hs, cs, *cots,
+                                                         False),
+                               iters=3, warmup=1)}
+    lib = _cudnn_lstm_ms(dev, t, n, h)
+    bounds = lk.bound_bytes_and_flops(t, n, h)
+    rows = {}
+    for k, full in (("fwd", "lstm_fwd"), ("bwd", "lstm_bwd")):
+        b_ms, b_by = bound_ms(*bounds[k])
+        rows[full] = dict(
+            ms=ms[k], plain_ms=ms[f"{k}_plain"], library_ms=lib[k],
+            bound_ms=b_ms, bound_by=b_by, bytes=bounds[k][0],
+            flops=bounds[k][1], max_abs_err=max(errs[k]),
+            shape=f"T={t} N={n} H={h} f32, lengths {t // 2}..{t}, "
+                  f"h0/c0 non-zero")
+        log(f"  {full}: kernel_ms {ms[k]:.5f} bound_ms {b_ms:.5f} ({b_by}) "
+            f"plain_ms {ms[f'{k}_plain']:.5f} library_ms {lib[k]:.5f}")
+    log("  (library: torch.nn.LSTM, cuDNN, one layer over (128, 128, 512) "
+        "at full lengths; it also contains the x-projection, so it is set "
+        "against fc + kernel)")
+    return rows
+
+
+def _cudnn_lstm_ms(dev, t, n, h):
+    """The library yardstick: one torch.nn.LSTM layer (cuDNN), forward
+    and its autograd backward, timed here and used nowhere in the port."""
+    g = torch.Generator().manual_seed(0)
+    lstm = torch.nn.LSTM(h, h).to(dev)
+    x = torch.randn(t, n, h, generator=g).to(dev).requires_grad_()
+    dout = torch.randn(t, n, h, generator=g).to(dev)
+    fwd = cuda_ms(lambda: lstm(x)[0], iters=10, warmup=2)
+    out = lstm(x)[0]
+    leaves = (x, *lstm.parameters())
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, dout,
+                                              retain_graph=True),
+                  iters=10, warmup=2)
+    return {"fwd": fwd, "bwd": bwd}
+
+
 # -- phase 4: the serving stream ------------------------------------------
 
 def phase_stream(dev):
@@ -939,7 +1064,7 @@ def phase_train(dev, card, label="phase 6", overrides=None,
             "vocab_ce_fwd": n_vocab * steps,
             "vocab_ce_dh": n_vocab * steps,
             "vocab_ce_dw": n_vocab * steps,
-            "paged_attention": 0}
+            "paged_attention": 0, "lstm_fwd": 0, "lstm_bwd": 0}
     if la != want or max(pl.values()) or max(co.values()):
         raise AssertionError(f"training launches {counts}, want {want} "
                              f"and no plain or composed call")
@@ -1007,11 +1132,100 @@ def _profile_train_step(exe, main, feed, loss, scope, steps=2,
     return res
 
 
+# -- phase 6e: training the stacked dynamic LSTM, nothing cut -------------
+
+def build_lstm(**overrides):
+    """(main, startup, model) of the bench's stacked dynamic LSTM."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = stacked_dynamic_lstm.build_model(
+            **dict(LSTM_ARCH, **overrides))
+    return main, startup, model
+
+
+def phase_train_lstm(dev, card, batch=LSTM_BATCH, steps=LSTM_STEPS):
+    """Train the stacked LSTM at the bench's size on the card: one warmup
+    step, then `steps` timed steps with the launch counts zeroed just
+    before them; each dynamic_lstm op launches the forward and the
+    backward kernel once a step and nothing takes a plain or composed
+    path.  One profiled window follows."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+    from paddle_tpu_torch.ops import kernels
+
+    t_len = LSTM_ARCH["max_len"]
+    log(f"phase 6e: stacked dynamic LSTM training on the card (batch "
+        f"{batch} x {t_len}, hidden {LSTM_ARCH['hidden_dim']}, "
+        f"{LSTM_ARCH['stacked_num']} layers, f32, the bench config)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    main, startup, model = build_lstm()
+    n_lstm = sum(op.type == "dynamic_lstm"
+                 for op in main.global_block().ops)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    feed = stacked_dynamic_lstm.make_fake_batch(batch, t_len,
+                                                LSTM_ARCH["vocab_size"])
+    lens = feed["words.seq_len"]
+    feed = {n: torch.as_tensor(a).to(dev) for n, a in feed.items()}
+    fetch = [model["loss"], model["accuracy"]]
+    first, first_acc = (float(x[0]) for x in exe.run(
+        main, feed=feed, fetch_list=fetch, scope=scope))
+    torch.cuda.synchronize()
+    log(f"  startup + warmup step {time.perf_counter() - t0:.3f} s, loss "
+        f"{first:.6f} (ln 2 = {np.log(2):.6f}), accuracy {first_acc:.4f}; "
+        f"{n_lstm} dynamic_lstm ops; lengths {lens.min()}..{lens.max()}")
+    if not abs(first - np.log(2)) < 0.1:
+        raise AssertionError(f"step-1 loss {first} is not near ln 2")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    outs = [exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False) for _ in range(steps)]
+    losses = [float(o[0].reshape(())) for o in outs]      # syncs
+    wall = time.perf_counter() - t0
+    accs = [float(o[1].reshape(())) for o in outs]
+    counts = kernels.counts()
+    if not all(np.isfinite(losses)) or not losses[-1] < first:
+        raise AssertionError(f"losses {first} then {losses}: not finite "
+                             f"or not lower after {steps} steps")
+    la, pl, co = counts["launches"], counts["plain"], counts["composed"]
+    want = dict.fromkeys(la, 0)
+    want.update(lstm_fwd=n_lstm * steps, lstm_bwd=n_lstm * steps)
+    if n_lstm != 3 or la != want or max(pl.values()) or max(co.values()):
+        raise AssertionError(f"training launches {counts}, want {want} "
+                             f"and no plain or composed call")
+    leaked = [n for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor)
+              and (v.requires_grad or v.grad_fn is not None)]
+    if leaked:
+        raise AssertionError(f"scope holds autograd state: {leaked[:4]}")
+    res = {"steps": steps, "batch": batch, "max_len": t_len,
+           "lstm_ops": n_lstm, "wall_s": wall, "step_ms": wall * 1e3 / steps,
+           "tokens_per_s": batch * t_len * steps / wall,
+           "examples_per_s": batch * steps / wall, "first_loss": first,
+           "first_accuracy": first_acc, "losses": losses,
+           "accuracies": accs, "launches": la, "plain_calls": pl,
+           "composed_calls": co,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"  {steps} steps in {wall:.3f} s: {res['step_ms']:.2f} ms/step, "
+        f"{res['tokens_per_s']:.1f} tokens/s, "
+        f"{res['examples_per_s']:.1f} examples/s on {card}; losses "
+        f"{losses[0]:.6f} .. {losses[-1]:.6f}, accuracy {accs[0]:.4f} .. "
+        f"{accs[-1]:.4f}; peak device memory "
+        f"{res['peak_mem_bytes'] / 1e9:.3f} GB")
+    log(f"  launches {la}, plain calls {pl}, composed {co}")
+    res["profile"] = _profile_train_step(exe, main, feed, model["loss"],
+                                         scope, label="phase 6e, profiled")
+    return res
+
+
 # -- phase 7: training, the card against the CPU --------------------------
 
 def phase_train_parity(dev, use_fused_ce=False):
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch.convert import params_from_arrays
     from paddle_tpu_torch.models import transformer
 
     log(f"phase 7: training card vs CPU ({PARITY_BATCH} x {PARITY_T} "
@@ -1020,17 +1234,46 @@ def phase_train_parity(dev, use_fused_ce=False):
     main, startup, model = build_training(dropout=0.0,
                                           max_length=PARITY_T,
                                           use_fused_ce=use_fused_ce)
-    init = pt.Scope()
-    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
-    arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
-              if isinstance(v, torch.Tensor)}
     feed = transformer.make_fake_batch(PARITY_BATCH, PARITY_T,
                                        TRAIN_ARCH["src_vocab_size"],
                                        TRAIN_ARCH["trg_vocab_size"], seed=3)
     feed["src_len"] = np.array([PARITY_T, 41], np.int32)   # ragged, >= 1
     feed["trg_len"] = np.array([17, PARITY_T], np.int32)
+    lr_sum = sum(_noam_lr(t) for t in range(1, PARITY_STEPS + 1))
+    return _card_vs_cpu_training(dev, main, startup, model["loss"].name,
+                                 feed, lr_sum)
+
+
+def phase_lstm_parity(dev):
+    """7c: the stacked LSTM at full width on a batch the CPU takes."""
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+
+    log(f"phase 7c: stacked LSTM training card vs CPU "
+        f"({LSTM_PARITY_BATCH} x {LSTM_PARITY_T} tokens, {PARITY_STEPS} "
+        f"Adam steps)")
+    main, startup, model = build_lstm(max_len=LSTM_PARITY_T)
+    feed = stacked_dynamic_lstm.make_fake_batch(
+        LSTM_PARITY_BATCH, LSTM_PARITY_T, LSTM_ARCH["vocab_size"], seed=3)
+    feed["words.seq_len"][:2] = (LSTM_PARITY_T, 1)
+    return _card_vs_cpu_training(
+        dev, main, startup, model["loss"].name, feed,
+        LSTM_ARCH["learning_rate"] * PARITY_STEPS)
+
+
+def _card_vs_cpu_training(dev, main, startup, loss_name, feed, lr_sum):
+    """PARITY_STEPS Adam steps of `main` on the card and on the CPU from
+    the same weights (drawn on the card by `startup`): the losses, the
+    step-1 gradients and the final parameters within TOL_LOSS, TOL_GRAD
+    and 4 * lr_sum."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+              if isinstance(v, torch.Tensor)}
     params = [p.name for p in main.all_parameters()]
-    fetch = [model["loss"].name] + [f"{p}@GRAD" for p in params]
+    fetch = [loss_name] + [f"{p}@GRAD" for p in params]
     runs = {}
     for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
         scope = pt.Scope()
@@ -1065,10 +1308,9 @@ def phase_train_parity(dev, use_fused_ce=False):
     if not grad_err <= TOL_GRAD:
         raise AssertionError(f"step-1 gradients of {worst} differ by "
                              f"{grad_err}")
-    # Adam with epsilon 1e-9 turns a gradient near 0 into a step of about
-    # +-lr whose sign is noise: the bound is a few lr per step
-    lrs = [_noam_lr(t) for t in range(1, PARITY_STEPS + 1)]
-    bound = 4 * sum(lrs) + 1e-6
+    # Adam turns a gradient near 0 into a step of about +-lr whose sign
+    # is noise: the bound is a few lr per step
+    bound = 4 * lr_sum + 1e-6
     p_err = max(float(np.abs(card["params"][n] - cpu["params"][n]).max())
                 for n in params)
     log(f"  parameters after {PARITY_STEPS} steps: max abs err "
@@ -1125,6 +1367,7 @@ def main() -> int:
     rows.update(phase_bwd_kernels(dev))
     flash_train_shapes = flash_fwd_at_training_shapes(dev)
     rows.update(phase_vocab_kernels(dev))
+    rows.update(phase_lstm_kernels(dev))
     stream = phase_stream(dev)
     profile = phase_step_profile(dev)
     parity = phase_card_vs_cpu(dev)
@@ -1135,8 +1378,10 @@ def main() -> int:
     train_longctx = phase_train(dev, card, "phase 6d", LONGCTX,
                                 batch=LONGCTX_BATCH, steps=LONGCTX_STEPS,
                                 profile=None)
+    train_lstm = phase_train_lstm(dev, card)
     train_parity = phase_train_parity(dev)
     train_parity_fused = phase_train_parity(dev, use_fused_ce=True)
+    lstm_parity = phase_lstm_parity(dev)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -1148,14 +1393,18 @@ def main() -> int:
         "vocab_ce_fwd": f"{vc}:146",
         "vocab_ce_dh": f"{vc}:204",
         "vocab_ce_dw": f"{vc}:235",
+        "lstm_fwd": "paddle_tpu/ops/pallas/recurrence.py:216",
+        "lstm_bwd": "paddle_tpu/ops/pallas/recurrence.py:247",
     }
     sources = {"flash_attention_bwd_dkv": "flash_attention_bwd",
                "flash_attention_bwd_dq": "flash_attention_bwd",
                "vocab_ce_fwd": "vocab_ce", "vocab_ce_dh": "vocab_ce",
-               "vocab_ce_dw": "vocab_ce"}
+               "vocab_ce_dw": "vocab_ce", "lstm_fwd": "lstm",
+               "lstm_bwd": "lstm"}
     # each path's launches, its counts zeroed just before it: the flash
-    # forward runs on the serving and all three training paths
-    paths = (stream, train, train_fused, train_longctx)
+    # forward runs on the serving and the three Transformer training
+    # paths, the LSTM kernels on the stacked-LSTM path
+    paths = (stream, train, train_fused, train_longctx, train_lstm)
     launches = {k: sum(p["launches"][k] for p in paths) for k in replaces}
     kern = []
     for name in replaces:
@@ -1177,6 +1426,8 @@ def main() -> int:
                    "card_vs_cpu": parity, "train": train,
                    "train_fused_ce": train_fused,
                    "train_longctx": train_longctx,
+                   "train_lstm": train_lstm,
+                   "train_lstm_card_vs_cpu": lstm_parity,
                    "train_card_vs_cpu": train_parity,
                    "train_fused_ce_card_vs_cpu": train_parity_fused,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,

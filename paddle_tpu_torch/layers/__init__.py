@@ -7,14 +7,19 @@ from .learning_rate_scheduler import (cosine_decay,  # noqa: F401
                                       inverse_time_decay, linear_lr_warmup,
                                       natural_exp_decay, noam_decay,
                                       piecewise_decay, polynomial_decay)
+from .metric_op import accuracy  # noqa: F401
 from .nn import (add_position_encoding_at, batched_gather,  # noqa: F401
-                 clip, clip_by_norm, dropout, elementwise_add,
+                 clip, clip_by_norm, cross_entropy, dropout, elementwise_add,
                  elementwise_div, elementwise_max, elementwise_mul,
                  elementwise_op, embedding, fc, flash_attention,
-                 fused_vocab_softmax_ce, label_smooth, layer_norm, matmul,
+                 fused_vocab_softmax_ce, label_smooth, layer_norm, matmul, mean,
                  one_hot, paged_attention, paged_kv_prefill_write, paged_kv_write,
                  reduce_sum, reshape, scale, softmax,
-                 softmax_with_cross_entropy, squeeze, transpose, unsqueeze)
-from .ops import sqrt  # noqa: F401
-from .sequence import add_position_encoding, sequence_mask  # noqa: F401
-from .tensor import argmax, cast, fill_constant, sums  # noqa: F401
+                 softmax_with_cross_entropy, squeeze, topk, transpose,
+                 unsqueeze)
+from .ops import sigmoid, sqrt, tanh  # noqa: F401
+from .sequence import (add_position_encoding, dynamic_gru,  # noqa: F401
+                       dynamic_lstm, dynamic_lstmp, gru_unit, lstm_unit,
+                       sequence_first_step, sequence_last_step,
+                       sequence_mask, sequence_pool)
+from .tensor import argmax, cast, concat, fill_constant, sums  # noqa: F401

@@ -1,12 +1,12 @@
 """Generated single-input layer wrappers (reference: paddle_tpu/layers/
 ops.py, fluid's layer_function_generator): one layer per unary op.  Only
-`sqrt` (gradient clipping by global norm, clip.py) is ported so far."""
+the unary ops the ported slices run are here so far."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["sqrt"]
+_UNARY_OPS = ["sigmoid", "tanh", "sqrt"]
 
 
 def _make_unary(op_type: str):

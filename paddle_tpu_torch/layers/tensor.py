@@ -19,6 +19,14 @@ def fill_constant(shape, dtype, value, out=None, name=None):
     return out
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def sums(input, out=None):
     """Sum a list of same-shape vars (the `sum` op)."""
     helper = LayerHelper("sums")

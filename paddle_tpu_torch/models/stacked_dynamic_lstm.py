@@ -1,0 +1,72 @@
+"""Stacked LSTM sentiment model: the port of
+paddle_tpu/models/stacked_dynamic_lstm.py (reference:
+benchmark/fluid/models/stacked_dynamic_lstm.py) — embedding → stacked
+dynamic_lstm layers → max pool over time → fc softmax.  The program it
+builds serializes equal to the reference's.
+
+Every dynamic_lstm here has no peepholes and the default activations, so
+its recurrence runs through the fused kernels (ops/kernels/lstm.py) on a
+CUDA device and their plain versions on the CPU; `pallas_rnn` and
+`rnn_unroll` are recorded in the ops' attrs as the reference records
+them.  `use_amp` is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import layers, optimizer
+from ..layers.sequence import _propagate_seq_len
+
+
+def build_model(vocab_size=5147, emb_dim=512, hidden_dim=512,
+                stacked_num=3, class_num=2, max_len=128,
+                learning_rate=1e-3, with_optimizer=True,
+                use_amp=False, pallas_rnn=False, rnn_unroll=1):
+    if use_amp:
+        raise NotImplementedError(
+            "build_model(use_amp=...) is not ported yet: ROADMAP queue A "
+            "item 2 (executor: amp)")
+    data = layers.data(name="words", shape=[max_len], dtype="int64",
+                       lod_level=1, append_batch_size=True)
+    label = layers.data(name="label", shape=[1], dtype="int64")
+
+    emb = layers.embedding(input=data, size=[vocab_size, emb_dim])
+    # wire the sequence-length companion through the embedding output
+    _propagate_seq_len(data, emb)
+
+    sentence = layers.fc(emb, size=hidden_dim * 4, act="tanh",
+                         num_flatten_dims=2)
+    _propagate_seq_len(data, sentence)
+    lstm_out, _cell = layers.dynamic_lstm(sentence, size=hidden_dim * 4,
+                                          use_peepholes=False,
+                                          use_pallas=pallas_rnn,
+                                          unroll=rnn_unroll)
+    inputs = lstm_out
+    for _ in range(stacked_num - 1):
+        fc_in = layers.fc(inputs, size=hidden_dim * 4, num_flatten_dims=2)
+        _propagate_seq_len(inputs, fc_in)
+        inputs, _c = layers.dynamic_lstm(fc_in, size=hidden_dim * 4,
+                                         use_peepholes=False,
+                                         use_pallas=pallas_rnn,
+                                         unroll=rnn_unroll)
+
+    last = layers.sequence_pool(inputs, pool_type="max")
+    logit = layers.fc(last, size=class_num, act="softmax")
+    cost = layers.cross_entropy(input=logit, label=label)
+    avg_cost = layers.mean(x=cost)
+    acc = layers.accuracy(input=logit, label=label)
+    if with_optimizer:
+        optimizer.AdamOptimizer(learning_rate=learning_rate).minimize(
+            avg_cost)
+    return {"loss": avg_cost, "accuracy": acc,
+            "feeds": ["words", "words.seq_len", "label"]}
+
+
+def make_fake_batch(batch_size, max_len=128, vocab_size=5147, seed=0):
+    rng = np.random.RandomState(seed)
+    words = rng.randint(0, vocab_size, (batch_size, max_len)).astype(np.int64)
+    lens = rng.randint(max_len // 2, max_len + 1,
+                       (batch_size,)).astype(np.int32)
+    label = rng.randint(0, 2, (batch_size, 1)).astype(np.int64)
+    return {"words": words, "words.seq_len": lens, "label": label}

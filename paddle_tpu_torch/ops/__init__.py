@@ -11,6 +11,7 @@ from . import basic  # noqa: F401
 from . import nn  # noqa: F401
 from . import optim  # noqa: F401
 from . import paged_kv  # noqa: F401
+from . import rnn  # noqa: F401
 from . import sequence  # noqa: F401
 from . import sparse  # noqa: F401
 from ..layers import learning_rate_scheduler  # noqa: F401  (lr_schedule)

@@ -123,6 +123,11 @@ _register_elementwise("not_equal", torch.ne, torch.bool)
 # Reductions
 # --------------------------------------------------------------------------
 
+@register_op("mean")
+def mean(ctx, ins, attrs):
+    return out(Out=torch.mean(first(ins, "X")).reshape((1,)))
+
+
 def _register_reduce(name, fn):
     @register_op(name)
     def impl(ctx, ins, attrs, _fn=fn):
@@ -224,6 +229,11 @@ def transpose(ctx, ins, attrs):
             "XShape": [_xshape(x)]}
 
 
+@register_op("concat")
+def concat(ctx, ins, attrs):
+    return out(Out=torch.cat(ins["X"], dim=attrs.get("axis", 0)))
+
+
 @register_op("one_hot")
 def one_hot(ctx, ins, attrs):
     """Float32 one-hot of int ids; a trailing 1-dim is dropped first, as
@@ -265,6 +275,12 @@ def batched_gather(ctx, ins, attrs):
     idx = idx.reshape(tuple(idx.shape) + (1,) * (x.dim() - 2))
     idx = idx.expand(tuple(index.shape) + tuple(x.shape[2:]))
     return out(Out=torch.gather(x, 1, idx))
+
+
+@register_op("top_k")
+def top_k(ctx, ins, attrs):
+    vals, idx = torch.topk(first(ins, "X"), attrs["k"], dim=-1)
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
 
 
 @register_op("arg_max")

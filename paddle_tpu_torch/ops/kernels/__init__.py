@@ -13,8 +13,9 @@ after its launch, nowhere else) and `plain_calls` counts plain-version
 runs, so a caller can show which path a run took.  `composed_calls`
 counts the torch compositions that stand where the reference runs an XLA
 composition instead of its kernel (the flash_attention op with a bias
-that is not a key-padding bias, ops/attention.py); they are neither a
-kernel launch nor a plain-version call.
+that is not a key-padding bias, ops/attention.py; dynamic_lstm with
+peepholes or other activations, ops/rnn.py); they are neither a kernel
+launch nor a plain-version call.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from typing import Dict
 
 KERNELS = ("paged_attention", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw")
-COMPOSED = ("flash_attention",)
+           "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw",
+           "lstm_fwd", "lstm_bwd")
+COMPOSED = ("flash_attention", "dynamic_lstm")
 
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 plain_calls: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -16,6 +16,16 @@ def relu(ctx, ins, attrs):
     return out(Out=torch.relu(first(ins, "X")))
 
 
+@register_op("tanh")
+def tanh(ctx, ins, attrs):
+    return out(Out=torch.tanh(first(ins, "X")))
+
+
+@register_op("sigmoid")
+def sigmoid(ctx, ins, attrs):
+    return out(Out=torch.sigmoid(first(ins, "X")))
+
+
 @register_op("sqrt")
 def sqrt(ctx, ins, attrs):
     return out(Out=torch.sqrt(first(ins, "X")))
@@ -56,6 +66,43 @@ def dropout(ctx, ins, attrs):
         y = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
                                              device=x.device))
     return {"Out": [y.to(x.dtype)], "Mask": [keep.to(x.dtype)]}
+
+
+@register_op("cross_entropy")
+def cross_entropy(ctx, ins, attrs):
+    """reference: operators/cross_entropy_op.cc.  X is probabilities
+    (floored at 1e-12 before the log); ignore_index zeroes the loss for
+    matching hard labels."""
+    x, label = first(ins, "X"), first(ins, "Label")
+    eps = 1e-12
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(x.clamp(min=eps))).sum(dim=-1,
+                                                          keepdim=True)
+    else:
+        lbl = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+            else label
+        valid = lbl != attrs.get("ignore_index", -100)
+        safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+        picked = torch.gather(x, -1, safe.unsqueeze(-1).to(torch.int64))
+        loss = -torch.log(picked.clamp(min=eps))
+        loss = torch.where(valid.unsqueeze(-1), loss,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    return out(Y=loss)
+
+
+@register_op("accuracy")
+def accuracy(ctx, ins, attrs):
+    """reference: operators/metrics/accuracy_op.cc.  A row is correct
+    when its label is among its top-k Indices."""
+    indices, label = first(ins, "Indices"), first(ins, "Label")
+    correct = (indices == label.reshape(-1, 1)).any(dim=1)
+    total = indices.shape[0]
+    num_correct = correct.sum().to(torch.int32)
+    acc = num_correct.to(torch.float32) / float(total)
+    return {"Accuracy": [acc.reshape(1)],
+            "Correct": [num_correct.reshape(1)],
+            "Total": [torch.full((1,), total, dtype=torch.int32,
+                                 device=indices.device)]}
 
 
 @register_op("softmax_with_cross_entropy")

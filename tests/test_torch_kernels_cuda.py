@@ -10,7 +10,9 @@ Tolerances: 2e-5 (abs and rel) for float32 operands — both sides compute
 in float32 and differ in summation order; the same for bfloat16/int8
 pools, which both sides dequantize to the same float32 values.  The
 vocab-CE kernels are held to 2e-5 of each output's max |reference|
-(absolute): their sums run over D, V or N terms in another order.
+(absolute): their sums run over D, V or N terms in another order.  The
+LSTM kernels are held to 1e-4 of each output's max |reference|: their
+recurrence compounds float32 differences over T steps.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from paddle_tpu_torch import CPUPlace, CUDAPlace
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as fk
+from paddle_tpu_torch.ops.kernels import lstm as lk
 from paddle_tpu_torch.ops.kernels import paged_attention as pk
 from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 
@@ -264,3 +267,75 @@ def test_vocab_ce_autograd_on_card_matches_cpu(dev):
         _close_to_max(a.detach().cpu(), b.detach(), name)
     with pytest.raises(NotImplementedError, match="bf16"):
         vk.fused_vocab_ce(h.to(torch.bfloat16), w.to(torch.bfloat16), lbl)
+
+
+def _lstm_case(dev, t, n, h, seed):
+    g = torch.Generator().manual_seed(seed)
+    xs = (torch.randn(t, n, 4 * h, generator=g) * 0.5).to(dev)
+    w = (torch.randn(h, 4 * h, generator=g) * h ** -0.5).to(dev)
+    h0 = (torch.randn(n, h, generator=g) * 0.3).to(dev)
+    c0 = (torch.randn(n, h, generator=g) * 0.3).to(dev)
+    sl = torch.randint(max(t // 2, 1), t + 1, (n,), generator=g,
+                       dtype=torch.int32)
+    sl[0], sl[-1] = 0, 1                         # an empty and a 1-step row
+    dhs = torch.randn(t, n, h, generator=g).to(dev)
+    dcs = torch.randn(t, n, h, generator=g).to(dev)
+    return (xs, w, h0, c0, sl.to(dev)), (dhs, dcs)
+
+
+@pytest.mark.parametrize("rev", [False, True])
+@pytest.mark.parametrize("t,n,h", [(7, 5, 24), (3, 130, 8), (33, 64, 132),
+                                   (16, 128, 512)])
+def test_lstm_kernels_match_plain(dev, t, n, h, rev):
+    ops, cots = _lstm_case(dev, t, n, h, seed=t + n + h)
+    before = dict(kernels.launch_counts)
+    hs, cs = lk.lstm_fwd(*ops, rev)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("hs", "cs"), (hs, cs),
+                          lk.lstm_fwd_plain(*ops, rev)):
+        _close_to_max(a, b, name, tol=1e-4)
+    got = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
+    torch.cuda.synchronize()
+    want = lk.lstm_bwd_plain(*ops, hs, cs, *cots, rev)
+    for name, a, b in zip(("dxs", "dw", "dh0", "dc0"), got, want):
+        _close_to_max(a, b, name, tol=1e-4)
+    for k in ("lstm_fwd", "lstm_bwd"):
+        assert kernels.launch_counts[k] == before[k] + 1, k
+    # no atomics: a second run gives the same bits
+    again = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_fused_lstm_autograd_on_card_matches_cpu(dev):
+    """fused_lstm forward + backward through LSTMFn: the card's kernels
+    against the CPU's plain versions, batch-major and reversed."""
+    (xs, w, h0, c0, sl), (dhs, dcs) = _lstm_case(dev, 12, 9, 40, seed=2)
+    out = []
+    for device in (dev, "cpu"):
+        leaves = [x.detach().transpose(0, 1).to(device).requires_grad_()
+                  if x is xs else x.detach().to(device).requires_grad_()
+                  for x in (xs, w, h0, c0)]
+        hid, cell, last_h, last_c = lk.fused_lstm(
+            *leaves, sl.to(device), is_reverse=True)
+        loss = (hid * dhs.transpose(0, 1).to(device)).sum() + \
+            (cell * dcs.transpose(0, 1).to(device)).sum() + \
+            last_h.sum() + 0.5 * last_c.sum()
+        out.append((hid, cell, last_h, last_c,
+                    *torch.autograd.grad(loss, leaves)))
+    names = ("hidden", "cell", "last_h", "last_c", "dx", "dw", "dh0", "dc0")
+    for name, a, b in zip(names, *out):
+        _close_to_max(a.detach().cpu(), b.detach(), name, tol=1e-4)
+
+
+def test_lstm_kernels_refuse_what_they_do_not_take(dev):
+    (xs, w, h0, c0, sl), _ = _lstm_case(dev, 4, 3, 8, seed=1)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        lk.lstm_fwd(xs.bfloat16(), w.bfloat16(), h0.bfloat16(),
+                    c0.bfloat16(), sl)
+    wide = 516
+    with pytest.raises(ValueError, match="at most 512"):
+        lk.lstm_fwd(torch.zeros(2, 3, 4 * wide, device=dev),
+                    torch.zeros(wide, 4 * wide, device=dev),
+                    torch.zeros(3, wide, device=dev),
+                    torch.zeros(3, wide, device=dev),
+                    torch.zeros(3, dtype=torch.int32, device=dev))

@@ -85,6 +85,8 @@ def test_default_place_raises_without_cuda(monkeypatch):
     ("flash_attention_fwd", "flash_attention_fwd_launch"),
     ("flash_attention_bwd", "flash_attention_bwd_dkv_launch"),
     ("flash_attention_bwd", "flash_attention_bwd_dq_launch"),
+    ("lstm", "lstm_fwd_launch"),
+    ("lstm", "lstm_bwd_launch"),
 ])
 def test_kernel_sources_exist(name, entry):
     src = PKG / "csrc" / f"{name}.cu"
