@@ -24,11 +24,14 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    3c. holds the vocab-CE forward, dh and dW kernels against their
    plain versions at the training shape (N = 16384 tokens, D = 512,
    V = 32000, eps 0.1, some labels out of range and clamped, a quarter
-   of the cotangent zero), at a ragged shape (N = 1000, V = 1003) and
-   with eps = 0, checks that the library's label-smoothed
-   `F.cross_entropy` is the same loss, and times kernel, plain version
-   and library (matmul + cross_entropy, forward, then its autograd
-   backward);
+   of the cotangent zero), at a ragged shape (N = 1000, V = 1003), with
+   eps = 0, and at two ragged depths (D = 100 and D = 61, N = 999,
+   V = 1001: 16-byte and 4-byte copies), checks that two backward runs
+   at the training shape give the same bits and that the library's
+   label-smoothed `F.cross_entropy` is the same loss, and times kernel,
+   plain version and library (matmul + cross_entropy, forward, then its
+   autograd backward) beside the float32 and the 3xTF32 tensor-core
+   bounds;
    3d. holds the LSTM recurrence kernels (forward and backward) against
    their plain versions at the stacked-LSTM training shape (T = N = 128,
    H = 512, the bench's ragged lengths, non-zero h0/c0, forward and
@@ -37,6 +40,11 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    kernel, plain version and, as the library yardstick, `torch.nn.LSTM`
    (cuDNN; it also contains the x-projection, so it is set against fc +
    kernel);
+   3e. runs, for each kernel, its op on a shape the kernel refuses (flash
+   head dim 128, vocab-CE D = 768, LSTM H = 514, paged head dim 96) with
+   use_pallas=False: one composed call counted, no kernel launch, and the
+   result within tolerance of the same op on the CPU from the same
+   inputs; with use_pallas=True the op must raise;
 4. serves a stream of 64 ragged requests through DecodeEngine at the
    repository's decode-serving configuration (DecoderLM vocab 8192,
    4 layers, 8 heads, d_model 512; 16 slots, 384 pages of 16 tokens,
@@ -190,9 +198,12 @@ def ptxas_summary(build_log):
     for ln in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"([A-Za-z_]+_kernel)(?:ILi(\d+)E)?",
+            k = re.search(r"([A-Za-z_]+_kernel)(?:IL([ib])(\d+)E)?",
                           m.group(1))
-            fn = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2)
+            arg = k and k.group(3) and (
+                k.group(3) if k.group(2) == "i"
+                else ("true" if k.group(3) == "1" else "false"))
+            fn = (f"{k.group(1)}<{arg}>" if arg
                   else (k.group(1) if k else m.group(1)))
         elif "spill stores" in ln:
             spill = ln.split(":", 1)[-1].strip()
@@ -557,14 +568,20 @@ def vocab_case(dev, n, d, v, seed, n_bad=0):
 
 
 def phase_vocab_kernels(dev):
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 
     log("phase 3c: vocab-CE kernels vs plain versions on the card")
+    for fn, used in ptxas_summary(_build.build_log("vocab_ce")):
+        if fn.startswith(("vocab_ce_dh_kernel", "vocab_ce_dw_kernel")):
+            log(f"  ptxas {fn}: {used}")
     n, d, v = TRAIN_BATCH * TRAIN_ARCH["max_length"], \
         TRAIN_ARCH["d_model"], TRAIN_ARCH["trg_vocab_size"]
     cases = [("train eps=0.1", (n, d, v, 0.1, 16)),
              ("ragged N=1000 V=1003 eps=0.1", (1000, d, 1003, 0.1, 4)),
-             ("eps=0 N=4096", (4096, d, v, 0.0, 0))]
+             ("eps=0 N=4096", (4096, d, v, 0.0, 0)),
+             ("ragged D=100 N=999 V=1001", (999, 100, 1001, 0.1, 6)),
+             ("ragged D=61 N=999 V=1001", (999, 61, 1001, 0.1, 6))]
     errs = {"fwd": [], "dh": [], "dw": []}
     rows = {}
     for i, (name, (cn, cd, cv, eps, bad)) in enumerate(cases):
@@ -585,6 +602,13 @@ def phase_vocab_kernels(dev):
         del wdh, wdw, want
         if i:
             continue
+        # one block owns its rows or columns over the whole sum, no atomics
+        again = vk.vocab_ce_bwd(h, w, lbl, got[0], g, eps)
+        if not (torch.equal(again[0], dh) and torch.equal(again[1], dw)):
+            raise AssertionError("vocab_ce bwd: two runs at the training "
+                                 "shape differ")
+        log("  two backward runs at the training shape bit-equal")
+        del again
         # the library's label-smoothed CE is the same loss (through the
         # clamp of fused_vocab_ce on the raw labels)
         loss = vk.fused_vocab_ce(h, w, raw, eps)
@@ -630,6 +654,7 @@ def _time_vocab(vk, h, w, lbl, g, eps):
     lib_bwd_ms = cuda_ms(lib_bwd, iters=3, warmup=1)
     del loss
     bounds = vk.bound_bytes_and_flops(n, d, v)
+    tc_bound = vk.tensor_core_bound_ms(n, d, v)
     rows = {}
     for k, full, k_ms, p_ms, l_ms in (
             ("fwd", "vocab_ce_fwd", ms["fwd"], plain_fwd, lib_fwd_ms),
@@ -639,11 +664,17 @@ def _time_vocab(vk, h, w, lbl, g, eps):
              lib_bwd_ms)):
         b_ms, b_by = bound_ms(*bounds[k])
         rows[full] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                          bound_ms=b_ms, bound_by=b_by, bytes=bounds[k][0],
-                          flops=bounds[k][1],
+                          bound_ms=b_ms, bound_by=b_by, f32_bound_ms=b_ms,
+                          bytes=bounds[k][0], flops=bounds[k][1],
                           shape=f"N={n} D={d} V={v} f32 eps={eps}")
-        log(f"  {full}: kernel_ms {k_ms:.5f} bound_ms {b_ms:.5f} ({b_by}) "
-            f"plain_ms {p_ms:.5f} library_ms {l_ms:.5f}")
+        extra = ""
+        if k in tc_bound:
+            # dh and dW run 3xTF32 on the tensor cores: their least time
+            # is 3 * 4NDV TF32 operations at the TF32 peak
+            rows[full]["bound_ms"] = tc_bound[k]
+            extra = f" tensor_core_3xtf32_bound_ms {tc_bound[k]:.5f}"
+        log(f"  {full}: kernel_ms {k_ms:.5f} f32_bound_ms {b_ms:.5f} "
+            f"({b_by}){extra} plain_ms {p_ms:.5f} library_ms {l_ms:.5f}")
     log("  (plain and library backward times are dh and dW together)")
     return rows
 
@@ -743,6 +774,95 @@ def _cudnn_lstm_ms(dev, t, n, h):
                                               retain_graph=True),
                   iters=10, warmup=2)
     return {"fwd": fwd, "bwd": bwd}
+
+
+# -- phase 3e: shapes the kernels refuse, through the composed routes -----
+
+def refused_cases():
+    """{name: (op, inputs as numpy, attrs, output slots, tolerance)}: one
+    op per kernel at a shape its kernel does not take, at the widths of
+    the main paths (8 heads, T = 256, V = 32000, 128-step sequences)."""
+    rng = np.random.RandomState(60)
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    v, n_tok = TRAIN_ARCH["trg_vocab_size"], 1024
+    lbl = rng.randint(0, v, n_tok).astype(np.int64)
+    lbl[:2] = [v + 3, -v - 2]                 # NaN loss on both routes
+    page, pages, slots, d_paged = 16, 64, 8, 96
+    lens = rng.randint(1, 8 * page, slots).astype(np.int32)
+    pt = rng.permutation(pages)[:slots * 8].reshape(slots, 8) \
+        .astype(np.int32)
+    h_lstm = 514
+    return {
+        "flash D=128": ("flash_attention",
+                        {"Q": f(2, 8, 256, 128), "K": f(2, 8, 256, 128),
+                         "V": f(2, 8, 256, 128)},
+                        {"causal": True}, ("Out",), TOL_KERNEL),
+        "vocab-CE D=768": ("fused_vocab_softmax_ce",
+                           {"Hidden": f(n_tok, 768), "W": f(768, v,
+                                                            scale=0.03),
+                            "Label": lbl},
+                           {"epsilon": 0.1}, ("Loss",), TOL_VOCAB),
+        "LSTM H=514": ("dynamic_lstm",
+                       {"Input": f(16, 128, 4 * h_lstm, scale=0.5),
+                        "Weight": f(h_lstm, 4 * h_lstm,
+                                    scale=h_lstm ** -0.5),
+                        "Bias": f(1, 4 * h_lstm, scale=0.1),
+                        "SeqLen": rng.randint(64, 129, 16).astype(np.int32)},
+                       {}, ("Hidden", "Cell"), TOL_LSTM),
+        "paged D=96": ("paged_attention",
+                       {"Q": f(slots, 8 * d_paged),
+                        "KCache": f(pages, page, 8 * d_paged),
+                        "VCache": f(pages, page, 8 * d_paged),
+                        "PageTable": pt, "Lengths": lens},
+                       {"n_head": 8}, ("Out",), TOL_KERNEL),
+    }
+
+
+def run_op(op, ins_np, attrs, device):
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    ins = {s: [torch.as_tensor(a).to(device)] for s, a in ins_np.items()}
+    return get_op_impl(op)(OpContext((0, 0), 0, device=device), ins,
+                           dict(attrs))
+
+
+def phase_refused_shapes(dev):
+    from paddle_tpu_torch.ops import kernels
+
+    log("phase 3e: shapes the kernels refuse, use_pallas=False: composed "
+        "routes on the card against the op on the CPU")
+    out = {}
+    for name, (op, ins, attrs, slots, tol) in refused_cases().items():
+        kernels.reset_counts()
+        got = run_op(op, ins, dict(attrs, use_pallas=False), dev)
+        torch.cuda.synchronize()
+        c = kernels.counts()
+        if c["composed"][op] != 1 or sum(c["composed"].values()) != 1 \
+                or any(c["launches"].values()) or any(c["plain"].values()):
+            raise AssertionError(f"{name}: counts {c}, want one composed "
+                                 f"{op} call and nothing else")
+        want = run_op(op, ins, dict(attrs, use_pallas=False), "cpu")
+        errs = []
+        for slot in slots:
+            a, b = got[slot][0].detach().cpu(), want[slot][0].detach()
+            nan = torch.isnan(b)
+            if not torch.equal(torch.isnan(a), nan):
+                raise AssertionError(f"{name} {slot}: NaN where the CPU "
+                                     f"has none, or the reverse")
+            errs.append(check_close(f"{name} {slot} (card vs CPU, "
+                                    f"{int(nan.sum())} NaN rows equal)",
+                                    a[~nan], b[~nan], tol))
+        try:
+            run_op(op, ins, dict(attrs, use_pallas=True), dev)
+        except (ValueError, TypeError, NotImplementedError) as e:
+            log(f"  {name} use_pallas=True raises: {e}")
+        else:
+            raise AssertionError(f"{name}: use_pallas=True did not raise")
+        out[name] = {"op": op, "counts": c, "max_abs_err": max(errs)}
+    return out
 
 
 # -- phase 4: the serving stream ------------------------------------------
@@ -1357,6 +1477,9 @@ def main() -> int:
         ptxas[name] = ptxas_summary(_build.build_log(name))
         for fn, used in ptxas[name]:
             log(f"  {name}: {fn}: {used}")
+    if not any(fn.startswith(("vocab_ce_dh_kernel<", "vocab_ce_dw_kernel<"))
+               for fn, _ in ptxas["vocab_ce"]):
+        raise AssertionError("no ptxas line for the vocab-CE dh/dW kernels")
 
     from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 
@@ -1368,6 +1491,7 @@ def main() -> int:
     flash_train_shapes = flash_fwd_at_training_shapes(dev)
     rows.update(phase_vocab_kernels(dev))
     rows.update(phase_lstm_kernels(dev))
+    refused = phase_refused_shapes(dev)
     stream = phase_stream(dev)
     profile = phase_step_profile(dev)
     parity = phase_card_vs_cpu(dev)
@@ -1422,6 +1546,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "kernels": rows,
                    "flash_fwd_training_shapes": flash_train_shapes,
+                   "refused_shapes": refused,
                    "stream": stream, "step_profile": profile,
                    "card_vs_cpu": parity, "train": train,
                    "train_fused_ce": train_fused,

@@ -18,15 +18,23 @@ attention.py:151-172):
   torch autograd, causal keys filled with the reference's -1e9).  It is
   counted in `kernels.composed_calls`, not as a kernel or plain call.
 
-The `use_pallas` attr is kept so programs serialize as the reference's
-do; it does not route.
+On the card, with `use_pallas` false, operands the kernels do not take
+(a head dim outside {32, 64}, a dtype other than float32:
+`fk.kernel_takes`) also go to `composed_attention`, counted the same
+way; with `use_pallas` true they reach the kernels, which raise.  Where
+both routes are open `use_pallas` does not route.
 
 `fused_vocab_softmax_ce` (the final vocabulary projection and the
-label-smoothed softmax CE in one op) always goes through `VocabCEFn`
+label-smoothed softmax CE in one op) goes through `VocabCEFn`
 (ops/kernels/vocab_ce.py): on a CUDA tensor the forward, dh and dW
-kernels, on a CPU tensor their plain versions.  Its `use_pallas`,
-`block_t` and `block_v` attrs are kept for serialization and do not
-route either.
+kernels, on a CPU tensor their plain versions.  `use_pallas` picks the
+reference route's label semantics: true clamps labels into [0, V) as the
+Pallas kernel does; false wraps -1 to V-1 and gives a NaN loss outside
+[-V, V), as the reference's composition does.  On the card, with
+`use_pallas` false, what the kernels do not take (D > 512, a dtype
+other than float32) goes to `vk.composed_vocab_ce`, counted in
+`kernels.composed_calls`.  `block_t` and `block_v` are kept for
+serialization and do not route.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from ..core.registry import register_op
 from .common import first, opt_in, out
+from . import kernels
 from .kernels import composed_calls
 from .kernels import flash_attention as fk
 from .kernels import vocab_ce as vk
@@ -95,7 +104,9 @@ def flash_attention(ctx, ins, attrs):
         o, _lse = fk.flash_attention_fwd(q, k, v, bias, scale, causal,
                                          layout=layout, n_head=n_head)
         return out(Out=o)
-    if bias is not None and not fk.key_bias_ok(bias, n, t_k):
+    if (bias is not None and not fk.key_bias_ok(bias, n, t_k)) or (
+            not attrs.get("use_pallas") and kernels.on_card(q)
+            and not fk.kernel_takes(q, k, v, d)):
         composed_calls["flash_attention"] += 1
         return out(Out=composed_attention(q, k, v, bias, scale, causal,
                                           layout, n_head))
@@ -108,6 +119,13 @@ def flash_attention(ctx, ins, attrs):
 def fused_vocab_softmax_ce(ctx, ins, attrs):
     """Loss (...) = per-token label-smoothed CE of Hidden (..., D) @ W
     (D, V) against Label (...), the logits never materialised."""
-    return out(Loss=vk.fused_vocab_ce(first(ins, "Hidden"), first(ins, "W"),
-                                      first(ins, "Label"),
-                                      float(attrs.get("epsilon", 0.0))))
+    hidden, w, label = first(ins, "Hidden"), first(ins, "W"), \
+        first(ins, "Label")
+    eps = float(attrs.get("epsilon", 0.0))
+    if attrs.get("use_pallas", False):
+        return out(Loss=vk.fused_vocab_ce(hidden, w, label, eps))
+    if kernels.on_card(hidden) and not vk.kernel_takes(hidden, w):
+        composed_calls["fused_vocab_softmax_ce"] += 1
+        return out(Loss=vk.composed_vocab_ce(hidden, w, label, eps))
+    return out(Loss=vk.fused_vocab_ce(hidden, w, label, eps,
+                                      fill_labels=True))

@@ -14,7 +14,8 @@ import math
 import torch
 
 from ..core.registry import register_op
-from .common import broadcast_y, first, out, to_torch_dtype
+from .common import (broadcast_y, fill_index, first, nan_where, out,
+                     to_torch_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -269,18 +270,24 @@ def unsqueeze(ctx, ins, attrs):
 @register_op("batched_gather")
 def batched_gather(ctx, ins, attrs):
     """Per-row gather (batch_dims=1): X (N, A, ...) + Index (N, S) →
-    (N, S, ...)."""
+    (N, S, ...).  An index outside [0, A) after one wrap of negatives
+    reads NaN, as the reference's take_along_axis does."""
     x, index = first(ins, "X"), first(ins, "Index")
-    idx = index.to(torch.int64)
+    idx, bad = fill_index(index, x.shape[1])
     idx = idx.reshape(tuple(idx.shape) + (1,) * (x.dim() - 2))
     idx = idx.expand(tuple(index.shape) + tuple(x.shape[2:]))
-    return out(Out=torch.gather(x, 1, idx))
+    return out(Out=nan_where(bad, torch.gather(x, 1, idx)))
 
 
 @register_op("top_k")
 def top_k(ctx, ins, attrs):
-    vals, idx = torch.topk(first(ins, "X"), attrs["k"], dim=-1)
-    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
+    """The k largest along the last axis; among equal values the lower
+    index comes first, as lax.top_k orders them (a stable descending
+    sort, then a slice)."""
+    vals, idx = torch.sort(first(ins, "X"), dim=-1, descending=True,
+                           stable=True)
+    k = attrs["k"]
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int32)]}
 
 
 @register_op("arg_max")

@@ -69,3 +69,23 @@ def broadcast_y(x, y, axis: int = -1):
                      + [1] * (x.dim() - axis - y.dim()))
         return y.reshape(new_shape)
     return y
+
+
+def fill_index(ids, size):
+    """jnp's gather semantics for integer ids into an axis of `size`
+    (mode "fill"): a negative id wraps once (-1 is size-1), and an id
+    still outside [0, size) selects nothing.  Returns (idx, bad): int64
+    ids clamped into range, safe for any gather and for a CUDA index op
+    (which would assert, killing the context, on an out-of-range id), and
+    the bool mask where the gathered value must read NaN."""
+    idx = ids.to(torch.int64)
+    idx = torch.where(idx < 0, idx + size, idx)
+    bad = (idx < 0) | (idx >= size)
+    return idx.clamp(0, max(size - 1, 0)), bad
+
+
+def nan_where(bad, x):
+    """x with NaN where `bad` (broadcast over x's trailing dims)."""
+    bad = bad.reshape(tuple(bad.shape) + (1,) * (x.dim() - bad.dim()))
+    return torch.where(bad, torch.full((), float("nan"), dtype=x.dtype,
+                                       device=x.device), x)

@@ -16,6 +16,15 @@ composition instead of its kernel (the flash_attention op with a bias
 that is not a key-padding bias, ops/attention.py; dynamic_lstm with
 peepholes or other activations, ops/rnn.py); they are neither a kernel
 launch nor a plain-version call.
+
+The same compositions take, on the card, what a kernel does not (a head
+dim, a width or a dtype outside its limits) when the op's `use_pallas`
+is false, as the reference's own route for such an op is its
+composition.  Each kernel module decides that with one pure predicate,
+`kernel_takes`, beside the check that its wrapper keeps; with
+`use_pallas` true the op goes to the wrapper, which raises.  On the CPU
+the plain versions take every shape, so `on_card` keeps that route to
+the card.
 """
 
 from __future__ import annotations
@@ -26,11 +35,18 @@ KERNELS = ("paged_attention", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw",
            "lstm_fwd", "lstm_bwd")
-COMPOSED = ("flash_attention", "dynamic_lstm")
+COMPOSED = ("flash_attention", "dynamic_lstm", "fused_vocab_softmax_ce",
+            "paged_attention")
 
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 plain_calls: Dict[str, int] = {k: 0 for k in KERNELS}
 composed_calls: Dict[str, int] = {k: 0 for k in COMPOSED}
+
+
+def on_card(t) -> bool:
+    """Does tensor t lie where the kernels' limits decide an op's route
+    (a CUDA device)?"""
+    return t.device.type == "cuda"
 
 
 def reset_counts() -> None:

@@ -353,13 +353,23 @@ def flash_attention(q, k, v, bias=None, scale=None, causal=False,
                                   int(q_offset), int(k_offset))
 
 
+def kernel_takes(q, k, v, d) -> bool:
+    """Do the kernels take these operands: float32 q/k/v, head dim in
+    {32, 64}?  The op's route on the card (ops/attention.py);
+    `_check_kernel_operands` raises on the same limits."""
+    return all(t.dtype == torch.float32 for t in (q, k, v)) \
+        and d in _HEAD_DIMS
+
+
 def _check_kernel_operands(q, k, v, d):
     if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError(f"flash_attention kernel: q/k/v must be float32, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"flash_attention kernel: q/k/v must be float32 "
+                        f"(ROADMAP B.3), got {q.dtype}/{k.dtype}/{v.dtype}; "
+                        f"use_pallas=False takes the composed route")
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{_HEAD_DIMS}")
+                         f"{_HEAD_DIMS} (ROADMAP B.2); use_pallas=False "
+                         f"takes the composed route")
 
 
 def _unit_minor(x):

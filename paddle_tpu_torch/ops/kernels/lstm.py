@@ -133,6 +133,15 @@ def _check(xs, w, h0, c0, sl, *seqs):
     return xs.device.type
 
 
+def kernel_takes(x, w, h0, c0) -> bool:
+    """Do the kernels take these operands: float32, H = x.shape[-1] / 4 a
+    multiple of 4 and at most 512?  dynamic_lstm's route on the card
+    (ops/rnn.py); `_check_kernel` raises on the same limits."""
+    h = x.shape[-1] // 4
+    return all(t.dtype == torch.float32 for t in (x, w, h0, c0)) \
+        and h % UNITS_PER_BLOCK == 0 and h <= MAX_H
+
+
 def _check_kernel(xs, w, h0, c0, sl, *seqs):
     """Raise for what the kernels do not take (no quiet fallback)."""
     floats = (xs, w, h0, c0, *seqs)
@@ -140,10 +149,11 @@ def _check_kernel(xs, w, h0, c0, sl, *seqs):
         raise NotImplementedError(
             "the LSTM kernels take float32 only; bf16 operands wait on "
             "bf16 kernels and the AMP policy: ROADMAP queue A item 2 and "
-            "queue B (bf16 kernels)")
+            "queue B (bf16 kernels, B.3); use_pallas=False takes the "
+            "composed route")
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"lstm kernels: float32 operands, got "
-                        f"{[str(t.dtype) for t in floats]}")
+        raise TypeError(f"lstm kernels: float32 operands (ROADMAP B.3), "
+                        f"got {[str(t.dtype) for t in floats]}")
     if sl.dtype != torch.int32:
         raise TypeError(f"lstm kernels: int32 lengths, got {sl.dtype}")
     t_len, n, g4 = xs.shape
@@ -153,7 +163,8 @@ def _check_kernel(xs, w, h0, c0, sl, *seqs):
                          f"be at least 1")
     if h % UNITS_PER_BLOCK or h > MAX_H:
         raise ValueError(f"lstm kernels: H = {h} must be a multiple of "
-                         f"{UNITS_PER_BLOCK} and at most {MAX_H}")
+                         f"{UNITS_PER_BLOCK} and at most {MAX_H} (ROADMAP "
+                         f"B.2); use_pallas=False takes the composed route")
 
 
 def _aligned(t):

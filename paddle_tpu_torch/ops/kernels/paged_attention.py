@@ -128,20 +128,31 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, n_head,
                    float(scale), k_scales, v_scales)
 
 
+def kernel_takes(q, k_pages, v_pages, n_head) -> bool:
+    """Does the kernel take these operands: float32 q, float32, bf16 or
+    int8 pools, head dim in {32, 64, 128}?  The paged_attention op's
+    route on the card (ops/paged_kv.py); `_launch` raises on the same
+    limits."""
+    return (q.dtype == torch.float32 and k_pages.dtype in _KV_TYPES
+            and v_pages.dtype == k_pages.dtype
+            and q.shape[1] // n_head in _HEAD_DIMS)
+
+
 def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
             k_scales, v_scales):
     s, hd = q.shape
     d = hd // n_head
     if q.dtype != torch.float32:
-        raise TypeError(f"paged_attention kernel: q must be float32, got "
-                        f"{q.dtype}")
+        raise TypeError(f"paged_attention kernel: q must be float32 "
+                        f"(ROADMAP B.3), got {q.dtype}")
     if k_pages.dtype not in _KV_TYPES or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_attention kernel: pools must be one of "
                         f"{list(_KV_TYPES)}, got {k_pages.dtype}/"
                         f"{v_pages.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"paged_attention kernel: head dim {d} not in "
-                         f"{_HEAD_DIMS}")
+                         f"{_HEAD_DIMS} (ROADMAP B.2); use_pallas=False "
+                         f"takes the composed route")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_attention kernel: page_table and lengths "
                         "must be int32")

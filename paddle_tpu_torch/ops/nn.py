@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
-from .common import first, opt_in, out
+from .common import fill_index, first, nan_where, opt_in, out
 
 
 @register_op("relu")
@@ -72,7 +72,8 @@ def dropout(ctx, ins, attrs):
 def cross_entropy(ctx, ins, attrs):
     """reference: operators/cross_entropy_op.cc.  X is probabilities
     (floored at 1e-12 before the log); ignore_index zeroes the loss for
-    matching hard labels."""
+    matching hard labels.  Any other label outside [0, C) after one wrap
+    of negatives gives NaN, as the reference's gather does."""
     x, label = first(ins, "X"), first(ins, "Label")
     eps = 1e-12
     if attrs.get("soft_label", False):
@@ -82,8 +83,9 @@ def cross_entropy(ctx, ins, attrs):
         lbl = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
             else label
         valid = lbl != attrs.get("ignore_index", -100)
-        safe = torch.where(valid, lbl, torch.zeros_like(lbl))
-        picked = torch.gather(x, -1, safe.unsqueeze(-1).to(torch.int64))
+        idx, bad = fill_index(torch.where(valid, lbl, torch.zeros_like(lbl)),
+                              x.shape[-1])
+        picked = nan_where(bad, torch.gather(x, -1, idx.unsqueeze(-1)))
         loss = -torch.log(picked.clamp(min=eps))
         loss = torch.where(valid.unsqueeze(-1), loss,
                            torch.zeros((), dtype=x.dtype, device=x.device))
@@ -110,7 +112,9 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
     """Soft labels: -sum(label * log_softmax).  Hard labels (int ids,
     trailing 1-dim optional): -log_softmax at the id, 0 where the id is
     ignore_index; label_smooth_eps folds smoothing into the hard-label
-    form, (1-eps)*CE + eps*(lse - mean logits)."""
+    form, (1-eps)*CE + eps*(lse - mean logits).  A hard label outside
+    [0, C) after one wrap of negatives, and not ignore_index, gives NaN,
+    as the reference's gather does."""
     logits, label = first(ins, "Logits"), first(ins, "Label")
     lse = torch.logsumexp(logits, dim=-1, keepdim=True)
     log_sm = logits - lse
@@ -126,8 +130,10 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
         lbl = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
             else label
         valid = (lbl != attrs.get("ignore_index", -100)).unsqueeze(-1)
-        safe = torch.where(valid.squeeze(-1), lbl, torch.zeros_like(lbl))
-        picked = torch.gather(log_sm, -1, safe.unsqueeze(-1).to(torch.int64))
+        idx, bad = fill_index(
+            torch.where(valid.squeeze(-1), lbl, torch.zeros_like(lbl)),
+            logits.shape[-1])
+        picked = nan_where(bad, torch.gather(log_sm, -1, idx.unsqueeze(-1)))
         zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
         loss = -torch.where(valid, picked, zero)
         if eps:

@@ -36,7 +36,9 @@ import torch
 
 from ..core.registry import register_op
 from .common import first, opt_in, out
-from .kernels.paged_attention import paged_attention as _paged_attention
+from . import kernels
+from .kernels import composed_calls
+from .kernels import paged_attention as pk
 from .sequence import sinusoid
 
 _INT8_MAX = 127.0
@@ -132,20 +134,29 @@ def paged_attention(ctx, ins, attrs):
 
     Q (S, H*D) head-grouped; KCache/VCache (P, page, H*D); PageTable
     (S, max_pages) int32; Lengths (S,) int32; KScale/VScale for int8
-    pools.  attrs: n_head (required), scale (default d^-0.5).  The
-    use_pallas attr is kept for serialization parity and does not
-    route."""
+    pools.  attrs: n_head (required), scale (default d^-0.5).  On the
+    card, with use_pallas false, operands the kernel does not take (a
+    head dim outside {32, 64, 128}: `pk.kernel_takes`) go to the port of
+    the reference's dense-gather composition (`pk.paged_attention_plain`),
+    counted in `kernels.composed_calls`; with use_pallas true they reach
+    the kernel, which raises.  Otherwise use_pallas does not route."""
     q = first(ins, "Q")
     n_head = int(attrs.get("n_head") or 0)
     if not n_head:
         raise ValueError("paged_attention needs the n_head attr "
                          "(operands are head-grouped (S, H*D))")
-    return out(Out=_paged_attention(
-        q, first(ins, "KCache"), first(ins, "VCache"),
-        first(ins, "PageTable").to(torch.int32),
-        first(ins, "Lengths").to(torch.int32), n_head=n_head,
-        scale=attrs.get("scale"), k_scales=opt_in(ins, "KScale"),
-        v_scales=opt_in(ins, "VScale")))
+    kc, vc = first(ins, "KCache"), first(ins, "VCache")
+    args = (q, kc, vc, first(ins, "PageTable").to(torch.int32),
+            first(ins, "Lengths").to(torch.int32))
+    scales = dict(k_scales=opt_in(ins, "KScale"),
+                  v_scales=opt_in(ins, "VScale"))
+    if not attrs.get("use_pallas") and kernels.on_card(q) \
+            and not pk.kernel_takes(q, kc, vc, n_head):
+        composed_calls["paged_attention"] += 1
+        return out(Out=pk.paged_attention_plain(
+            *args, n_head, attrs.get("scale"), **scales))
+    return out(Out=pk.paged_attention(*args, n_head=n_head,
+                                      scale=attrs.get("scale"), **scales))
 
 
 @register_op("add_position_encoding_at")

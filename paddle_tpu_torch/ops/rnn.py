@@ -14,7 +14,10 @@ h = (1-u)*h_prev + u*c.
 - peepholes or non-default activations with `use_pallas=False`: the
   composed route on every device, the reference's scan step as a Python
   loop over T of torch ops (differentiable through torch autograd),
-  counted in `kernels.composed_calls["dynamic_lstm"]`;
+  counted in `kernels.composed_calls["dynamic_lstm"]`; on the card the
+  same route takes, with `use_pallas=False`, what the kernels do not
+  (H > 512 or not a multiple of 4, a dtype other than float32:
+  `lk.kernel_takes`);
 - everything else: `fused_lstm` (ops/kernels/lstm.py) — on a CUDA tensor
   the hand-written recurrence kernels, forward and backward, on a CPU
   tensor their plain versions.  With `use_pallas=True`, peepholes and
@@ -33,6 +36,7 @@ import torch
 
 from ..core.registry import register_op
 from .common import first, opt_in
+from . import kernels
 from .kernels import composed_calls
 from .kernels import lstm as lk
 from .sequence import _reject_nested
@@ -121,7 +125,9 @@ def dynamic_lstm(ctx, ins, attrs):
     c_prev = c0 if c0 is not None else _zeros(n, h_dim, x)
 
     plain_config = not use_peepholes and acts == ("sigmoid", "tanh", "tanh")
-    if use_pallas or plain_config:
+    kernel_ok = not kernels.on_card(x) or lk.kernel_takes(x, w, h_prev,
+                                                         c_prev)
+    if use_pallas or (plain_config and kernel_ok):
         # fused_lstm itself rejects peepholes / other activations loudly;
         # x already carries the bias
         hs_b, cs_b, h_last, c_last = lk.fused_lstm(

@@ -230,7 +230,8 @@ def _close_to_max(a, b, name, tol=2e-5):
 
 @pytest.mark.parametrize("eps", [0.0, 0.1])
 @pytest.mark.parametrize("n,d,v", [(1000, 512, 1003), (70, 64, 130),
-                                   (5, 24, 7)])
+                                   (5, 24, 7), (999, 100, 1001),
+                                   (999, 61, 1001)])
 def test_vocab_ce_kernels_match_plain(dev, n, d, v, eps):
     h, w, lbl, cot = _vocab_case(dev, n, d, v, seed=n + v)
     before = dict(kernels.launch_counts)
@@ -267,6 +268,26 @@ def test_vocab_ce_autograd_on_card_matches_cpu(dev):
         _close_to_max(a.detach().cpu(), b.detach(), name)
     with pytest.raises(NotImplementedError, match="bf16"):
         vk.fused_vocab_ce(h.to(torch.bfloat16), w.to(torch.bfloat16), lbl)
+
+
+def test_vocab_ce_filled_labels_on_card_match_cpu(dev):
+    """The op's use_pallas=False labels: -1 wraps, out-of-range rows give
+    a NaN loss and select no logit in the kernels, on card and CPU."""
+    h, w, lbl, cot = _vocab_case(dev, 200, 100, 301, seed=4)
+    lbl = lbl.long()
+    lbl[:3] = torch.tensor([-1, 301, -302])
+    out = []
+    for device in (dev, "cpu"):
+        hh, ww = (x.detach().to(device).requires_grad_() for x in (h, w))
+        loss = vk.fused_vocab_ce(hh, ww, lbl.to(device), 0.1,
+                                 fill_labels=True)
+        out.append((loss, *torch.autograd.grad(loss, (hh, ww),
+                                               cot.to(device))))
+    card, cpu = out
+    assert torch.isnan(card[0][1:3]).all() and torch.isfinite(card[0][0])
+    _close_to_max(card[0].detach().cpu()[3:], cpu[0].detach()[3:], "loss")
+    for name, a, b in zip(("dh", "dw"), card[1:], cpu[1:]):
+        _close_to_max(a.detach().cpu(), b.detach(), name)
 
 
 def _lstm_case(dev, t, n, h, seed):

@@ -210,3 +210,90 @@ def test_op_matches_the_reference_op(attrs):
                        out_slot="Loss")
     assert got.shape == (6,)
     np.testing.assert_allclose(got, np.asarray(want), **LOSS_TOL)
+
+
+# -- why the dh and dW kernels split 3xTF32 (csrc/vocab_ce.cu) ------------
+
+TOL_VOCAB = 2e-5    # chip_smoke.py phase 3c: the kernels against plain
+
+
+def _tf32(x):
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero (cvt.rna.tf32.f32), with integer ops on the bits."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xffffe000)) \
+        .view(np.float32)
+
+
+def _tf32_truncated(x):
+    """What the tensor core reads of an unrounded float32 operand."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (b & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _tc_matmul(a, b, passes):
+    """a @ b as the kernels' mma.sync products: 1 pass of TF32 operands,
+    or 3xTF32 (a_small b_big + a_big b_small + a_big b_big).  The
+    products of TF32 values are exact in float64; the sums are taken in
+    float64 and rounded once, so only the operands' rounding is shown."""
+    f = np.float64
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return (ab.astype(f) @ bb.astype(f)).astype(np.float32)
+    a_s, b_s = _tf32_truncated(a - ab), _tf32_truncated(b - bb)
+    return (a_s.astype(f) @ bb.astype(f) + ab.astype(f) @ b_s.astype(f)
+            + ab.astype(f) @ bb.astype(f)).astype(np.float32)
+
+
+def _within(got, want, tol=TOL_VOCAB):
+    """chip_smoke.check_close's test: tol absolute plus tol of max|want|."""
+    return float(np.abs(got - want).max()) <= tol + tol * float(
+        np.abs(want).max())
+
+
+@pytest.mark.parametrize("passes,meets", [(1, False), (3, True)])
+def test_error_budget_of_the_tensor_core_backward(passes, meets):
+    """The kernels' backward with every product emulated as TF32 tensor-
+    core passes (the z recompute, dh = dz W^T and dW = h^T dz), against
+    the float32 plain version, on phase 3c's kind of inputs: one TF32
+    pass misses TOL_VOCAB for both dh and dW, 3xTF32 meets it."""
+    n, d, v, eps = 64, 128, 300, 0.1
+    rng = np.random.RandomState(0)
+    h = rng.randn(n, d).astype(np.float32)
+    w = (rng.randn(d, v) * 0.05).astype(np.float32)
+    lbl = rng.randint(0, v, n).astype(np.int32)
+    g = rng.randn(n).astype(np.float32)
+    g[rng.rand(n) < 0.25] = 0.0
+    th, tw, tl, tg = (torch.as_tensor(x) for x in (h, w, lbl, g))
+    lse = vk.vocab_ce_fwd_plain(th, tw, tl)[0]
+    want = [x.numpy() for x in vk.vocab_ce_bwd_plain(th, tw, tl, lse, tg,
+                                                     eps)]
+    z = _tc_matmul(h, w, passes)
+    p = np.exp(z - lse.numpy()[:, None])
+    p[np.arange(n), lbl] -= 1.0 - eps
+    dz = ((p - eps / v) * g[:, None]).astype(np.float32)
+    got = (_tc_matmul(dz, w.T, passes), _tc_matmul(h.T, dz, passes))
+    for name, a, b in zip(("dh", "dw"), got, want):
+        assert _within(a, b) == meets, (name, float(np.abs(a - b).max()))
+
+
+def test_tensor_core_bound_is_three_tf32_passes():
+    b = vk.tensor_core_bound_ms(16384, 512, 32000)
+    assert b["dh"] == b["dw"] == pytest.approx(6.507, abs=1e-3)
+
+
+def test_plain_versions_select_no_logit_for_a_label_out_of_range():
+    """The label the op's composition route hands the kernels for a bad
+    label (-1): no z_label (NEG, as the kernels' kNeg) and no one-hot."""
+    h, w, lbl = _inputs(5, 8, 12, seed=3)
+    th, tw = torch.as_tensor(h), torch.as_tensor(w)
+    tl = torch.as_tensor(lbl).to(torch.int32)
+    tl[1] = -1
+    lse, zl, _ = vk.vocab_ce_fwd_plain(th, tw, tl)
+    assert float(zl[1]) == float(torch.tensor(vk.NEG))    # float32 NEG
+    assert torch.isfinite(zl[[0, 2, 3, 4]]).all()
+    g = torch.ones(5)
+    dh, dw = vk.vocab_ce_bwd_plain(th, tw, tl, lse, g, 0.1)
+    p = torch.softmax(th @ tw, -1) - 0.1 / 12
+    np.testing.assert_allclose(dh[1].numpy(), (p[1] @ tw.t()).numpy(),
+                               **GRAD_TOL)
