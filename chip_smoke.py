@@ -15,12 +15,21 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    kernel, the plain version and, for flash, one library call
    (scaled_dot_product_attention, never used by the port);
    3b. does the same for the flash-attention backward kernels (dK/dV and
-   dQ) against the plain backward: the training shape N=64, H=8, T=256,
-   D=64 (nhtd transposed views, key-padding bias, causal and not),
-   T=100 causal, an nthd case, and a case with the bias gradient and an
-   lse cotangent; the library call is autograd through
-   scaled_dot_product_attention; it also times the flash forward alone
-   at the training shapes of phases 6 and 6d;
+   dQ, 3xTF32 on the tensor cores) against the plain backward: the
+   training shape N=64, H=8, T=256, D=64 (nhtd transposed views,
+   key-padding bias, causal and not), T=100 causal, an nthd case, a case
+   with the bias gradient and an lse cotangent, two causal cases with
+   nonzero q/k offsets at T=130 (one where no query sees any key), and
+   a case whose operands start one float into their storage (rows not
+   16-byte aligned: the wrapper copies them); checks that two backward
+   runs at the training shape give the same bits; prints both kernels'
+   ptxas registers and spills; and times them beside their 3xTF32 and
+   float32 bounds; the library call is autograd through
+   scaled_dot_product_attention; at phase 6d's shape (N=2, T=8192,
+   causal and not) it holds the backward pair against the plain
+   backward and times it beside the library's backward; and it times
+   the flash forward alone at the training shapes of phases 6 and 6d
+   beside scaled_dot_product_attention;
    3c. holds the vocab-CE forward, dh and dW kernels against their
    plain versions at the training shape (N = 16384 tokens, D = 512,
    V = 32000, eps 0.1, some labels out of range and clamped, a quarter
@@ -65,7 +74,8 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    launch per step besides the flash launches), profiled as 6b;
    6d. the reference's long-context stack (bench.py longctx_8k: T =
    8192, batch 2, `flash_cross=True`, `use_fused_ce=True`): 18 launches
-   of each flash kernel and 1 of each vocab-CE kernel per step;
+   of each flash kernel and 1 of each vocab-CE kernel per step, and one
+   profiled window;
    6e. the repository's stacked dynamic LSTM benchmark (bench.py
    bench_lstm: vocab 5147, emb 512, hidden 512, 3 layers, max_len 128,
    batch 128, ragged lengths, Adam, float32, nothing cut): 3 LSTM forward
@@ -95,12 +105,6 @@ import time
 
 import numpy as np
 import torch
-
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s
-# outside the tensor cores — both kernels compute in float32 on the CUDA
-# cores.  A card below its 700 W limit runs slower than these.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
 
 # the configuration of the reference's decode-serving bench
 # (paddle_tpu bench.py:1250-1257), at full width and depth
@@ -183,6 +187,12 @@ def cuda_ms(fn, iters=100, warmup=10) -> float:
 
 
 def bound_ms(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time of a kernel that
+    computes on the CUDA cores, at the H100's HBM3 rate and float32 peak
+    outside the tensor cores (the tensor-core kernels' modules give their
+    3xTF32 bounds)."""
+    from paddle_tpu_torch.ops.kernels import F32_FLOP_PER_S, HBM_BYTES_PER_S
+
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -191,19 +201,20 @@ def bound_ms(nbytes, flops):
 
 def ptxas_summary(build_log):
     """[(function, "Used N registers, ...; spills")] from `nvcc -Xptxas
-    -v` output, kernel template names demangled to name<D>."""
+    -v` output, kernel template names demangled to name<D> or
+    name<D, VEC> (integer and bool template arguments)."""
     import re
 
     out, fn, spill = [], None, ""
     for ln in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"([A-Za-z_]+_kernel)(?:IL([ib])(\d+)E)?",
-                          m.group(1))
-            arg = k and k.group(3) and (
-                k.group(3) if k.group(2) == "i"
-                else ("true" if k.group(3) == "1" else "false"))
-            fn = (f"{k.group(1)}<{arg}>" if arg
+            k = re.search(r"([A-Za-z_]+_kernel)((?:L[ib]\d+E)*)",
+                          m.group(1).replace("_kernelIL", "_kernelL"))
+            args = [] if not k else [
+                val if kind == "i" else ("true" if val == "1" else "false")
+                for kind, val in re.findall(r"L([ib])(\d+)E", k.group(2))]
+            fn = (f"{k.group(1)}<{', '.join(args)}>" if args
                   else (k.group(1) if k else m.group(1)))
         elif "spill stores" in ln:
             spill = ln.split(":", 1)[-1].strip()
@@ -219,9 +230,11 @@ def check_close(name, got, want, tol):
     err = (got - want).abs()
     abs_err = float(err.max())
     rel_err = float((err / want.abs().clamp_min(1e-6)).max())
-    ok = abs_err <= tol + tol * float(want.abs().max())
-    log(f"  {name}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
-        f"(tol {tol:g} abs + {tol:g} rel) {'ok' if ok else 'FAIL'}")
+    top = float(want.abs().max())
+    ok = abs_err <= tol + tol * top
+    log(f"  {name}: max_abs_err {abs_err:.3e} ({abs_err / max(top, 1e-30):.2e}"
+        f" of max|want| {top:.3e}) max_rel_err {rel_err:.3e} (tol {tol:g} "
+        f"abs + {tol:g} rel) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: outside the tolerance "
                              f"(max abs err {abs_err:.3e})")
@@ -362,17 +375,21 @@ def phase_kernels(dev):
 # -- phase 3b: the flash backward kernels against the plain backward -----
 
 def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
-             dlse=False):
+             dlse=False, q_offset=0, k_offset=0, misaligned=False):
     """Operands of one backward call as the training path makes them:
     nhtd q/k/v/dO are transposed views of (N, T, H, D) tensors (the
     model's reshape + transpose), with the key-padding bias of ragged
-    lengths; O and lse come from the forward kernel."""
+    lengths; O and lse come from the forward kernel.  With `misaligned`,
+    q/k/v/dO start one float into their storage."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
 
     g = torch.Generator().manual_seed(seed)
     shape = (n, t, h * d) if layout == "nthd" else (n, t, h, d)
     q, k, v, do = (torch.randn(*shape, generator=g).to(dev)
                    for _ in range(4))
+    if misaligned:
+        q, k, v, do = (torch.empty(x.numel() + 1, device=dev)[1:]
+                       .view(shape).copy_(x) for x in (q, k, v, do))
     if layout == "nhtd":
         q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
     seq = torch.randint(1, t + 1, (n,), generator=g)
@@ -382,38 +399,58 @@ def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
     if dbias:                                # a bias with a gradient
         bias = bias + torch.randn(n, 1, 1, t, generator=g).to(dev) * 0.1
     o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
-                                    layout=layout, n_head=h)
+                                    layout=layout, n_head=h,
+                                    q_offset=q_offset, k_offset=k_offset)
     dl = torch.randn(lse.shape, generator=g).to(dev) if dlse else None
     return dict(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, dlse=dl,
-                causal=causal, layout=layout, n_head=h, need_dbias=dbias)
+                causal=causal, layout=layout, n_head=h, need_dbias=dbias,
+                args=(q, k, v, bias, o, lse, do, dl, None, causal, layout,
+                      h, q_offset, k_offset))
+
+
+_BWD_KERNELS = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
 def phase_bwd_kernels(dev):
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
 
     log("phase 3b: flash backward kernels vs the plain backward")
+    ptx = [(fn, used) for fn, used in
+           ptxas_summary(_build.build_log("flash_attention_bwd"))
+           if fn.startswith(_BWD_KERNELS)]
+    for fn, used in ptx:
+        log(f"  ptxas {fn}: {used}")
+    if not all(any(fn.startswith(k + "<") for fn, _ in ptx)
+               for k in _BWD_KERNELS):
+        raise AssertionError("no ptxas line for the flash backward kernels")
     n, h, t, d = TRAIN_BATCH, TRAIN_ARCH["n_head"], \
         TRAIN_ARCH["max_length"], TRAIN_ARCH["d_model"] // \
         TRAIN_ARCH["n_head"]
-    cases = [("train causal", (n, h, t, d, "nhtd", True)),
-             ("train", (n, h, t, d, "nhtd", False)),
-             ("T=100 causal", (8, h, 100, d, "nhtd", True)),
-             ("nthd T=128 causal", (8, h, 128, d, "nthd", True)),
-             ("dbias+dlse T=100", (4, h, 100, d, "nhtd", False))]
+    cases = [("train causal", (n, h, t, d, "nhtd", True), {}),
+             ("train", (n, h, t, d, "nhtd", False), {}),
+             ("T=100 causal", (8, h, 100, d, "nhtd", True), {}),
+             ("nthd T=128 causal", (8, h, 128, d, "nthd", True), {}),
+             ("dbias+dlse T=100", (4, h, 100, d, "nhtd", False),
+              dict(dbias=True, dlse=True)),
+             ("offsets 37/5 T=130 causal", (8, h, 130, d, "nhtd", True),
+              dict(q_offset=37, k_offset=5)),
+             ("offsets 0/200 T=130 causal (no key visible)",
+              (8, h, 130, d, "nhtd", True), dict(q_offset=0, k_offset=200)),
+             ("misaligned T=100 causal", (8, h, 100, d, "nhtd", True),
+              dict(misaligned=True))]
     errs, timed = {"dkv": [], "dq": []}, {}
-    for i, (name, (cn, ch, ct, cd, layout, causal)) in enumerate(cases):
-        extra = dict(dbias=True, dlse=True) if "dbias" in name else {}
+    for i, (name, (cn, ch, ct, cd, layout, causal), extra) in \
+            enumerate(cases):
         c = bwd_case(dev, cn, ch, ct, cd, layout, causal, seed=10 + i,
                      **extra)
-        args = (c["q"], c["k"], c["v"], c["bias"], c["o"], c["lse"],
-                c["do"], c["dlse"], None, causal, layout, ch)
 
         def kern():
-            return fk.flash_attention_bwd(*args,
+            return fk.flash_attention_bwd(*c["args"],
                                           need_dbias=c["need_dbias"])
 
         def plain():
-            return fk.flash_attention_bwd_plain(*args)
+            return fk.flash_attention_bwd_plain(*c["args"])
 
         got = kern()
         torch.cuda.synchronize()
@@ -423,10 +460,19 @@ def phase_bwd_kernels(dev):
                 continue
             errs["dq" if gname == "dq" else "dkv"].append(
                 check_close(f"flash bwd {name} {gname}", a, b, TOL_BWD))
+        del want
+        if i == 0:
+            # each block owns its rows over the whole sum, no atomics
+            again = kern()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None):
+                raise AssertionError("flash bwd: two runs at the training "
+                                     "shape differ")
+            log("  two backward runs at the training shape bit-equal")
+            del again
         if not name.startswith("train"):
             continue
-        per = profiled_kernel_ms(kern, ("flash_bwd_dkv_kernel",
-                                        "flash_bwd_dq_kernel"))
+        per = profiled_kernel_ms(kern, _BWD_KERNELS)
         ms = {"dkv": per["flash_bwd_dkv_kernel"],
               "dq": per["flash_bwd_dq_kernel"],
               "both": cuda_ms(kern, iters=20, warmup=3)}
@@ -434,7 +480,9 @@ def phase_bwd_kernels(dev):
         ms["library"] = cuda_ms(_sdpa_backward(c, d), iters=10, warmup=2)
         bounds = fk.bound_bytes_and_flops_bwd(c["q"], c["k"], c["bias"],
                                               causal, layout, ch)
-        timed[name] = dict(ms=ms, bounds=bounds)
+        tc = fk.tensor_core_bound_ms_bwd(c["q"], c["k"], c["bias"], causal,
+                                         layout, ch)
+        timed[name] = dict(ms=ms, bounds=bounds, tc=tc)
         log(f"  {name}: dkv_ms {ms['dkv']:.5f} dq_ms {ms['dq']:.5f} "
             f"(wrapper, both kernels: {ms['both']:.5f}) plain_ms "
             f"{ms['plain']:.5f} library_ms {ms['library']:.5f}")
@@ -444,40 +492,103 @@ def phase_bwd_kernels(dev):
         # the main path's mix: 6 causal and 6 non-causal launches a step
         per = []
         for name, r in timed.items():
-            b_ms, b_by = bound_ms(*r["bounds"][kname])
+            f32_ms, f32_by = bound_ms(*r["bounds"][kname])
+            tc_ms, tc_by = r["tc"][kname]
             per.append(dict(ms=r["ms"][kname], plain_ms=r["ms"]["plain"],
-                            library_ms=r["ms"]["library"], bound_ms=b_ms,
-                            bound_by=b_by, bytes=r["bounds"][kname][0],
+                            library_ms=r["ms"]["library"],
+                            bound_ms=tc_ms, bound_by=tc_by,
+                            f32_bound_ms=f32_ms, f32_bound_by=f32_by,
+                            bytes=r["bounds"][kname][0],
                             flops=r["bounds"][kname][1], case=name))
         mean = {key: sum(p[key] for p in per) / len(per)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        mean["bound_by"] = per[0]["bound_by"]
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "f32_bound_ms")}
+        # the mix's bound is operations when the non-causal case's is
+        mean["bound_by"] = per[-1]["bound_by"]
         mean["max_abs_err"] = max(errs[kname])
         mean["cases"] = per
         mean["shape"] = ("N=64 H=8 T=256 D=64 f32 nhtd (transposed views) "
                          "+ key bias; mean of the causal and non-causal "
                          "case, the training step's 6 + 6 mix")
         rows[full] = mean
-        log(f"  {full}: ms {mean['ms']:.5f} bound_ms "
-            f"{mean['bound_ms']:.5f} ({mean['bound_by']}) plain_ms "
-            f"{mean['plain_ms']:.5f} library_ms {mean['library_ms']:.5f}")
+        log(f"  {full}: ms {mean['ms']:.5f} bound_ms (3xTF32) "
+            f"{mean['bound_ms']:.5f} (causal {per[0]['bound_by']}, not "
+            f"{per[-1]['bound_by']}) f32_bound_ms "
+            f"{mean['f32_bound_ms']:.5f} plain_ms {mean['plain_ms']:.5f} "
+            f"library_ms {mean['library_ms']:.5f}")
     return rows
+
+
+def flash_bwd_at_longctx_shape(dev):
+    """The backward pair alone at phase 6d's shape (N=2, H=8, T=8192,
+    D=64, nhtd transposed views + key-padding bias), causal and not:
+    held against the plain backward (TOL_BWD; 128 q and k tiles a
+    block's sum runs over), and timed beside the library's backward and
+    the 3xTF32 bounds.  The plain version's score-sized tensors take
+    ~20 GB at this shape."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    h, d = TRAIN_ARCH["n_head"], TRAIN_ARCH["d_model"] // TRAIN_ARCH["n_head"]
+    n, t = LONGCTX_BATCH, LONGCTX["max_length"]
+    out = {}
+    for causal in (True, False):
+        tag = "causal" if causal else "not causal"
+        c = bwd_case(dev, n, h, t, d, "nhtd", causal, seed=40)
+
+        def kern():
+            return fk.flash_attention_bwd(*c["args"], need_dbias=False)
+
+        got = kern()
+        torch.cuda.synchronize()
+        want = fk.flash_attention_bwd_plain(*c["args"])
+        err = {}
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            err[gname] = check_close(f"flash bwd T={t} {tag} {gname}", a, b,
+                                     TOL_BWD)
+        del got, want
+        torch.cuda.empty_cache()
+        per = profiled_kernel_ms(kern, _BWD_KERNELS, iters=3, warmup=1)
+        lib = cuda_ms(_sdpa_backward(c, d), iters=3, warmup=1)
+        tc = fk.tensor_core_bound_ms_bwd(c["q"], c["k"], c["bias"], causal,
+                                         "nhtd", h)
+        row = {"dkv_ms": per["flash_bwd_dkv_kernel"],
+               "dq_ms": per["flash_bwd_dq_kernel"], "library_ms": lib,
+               "dkv_bound_ms": tc["dkv"][0], "dq_bound_ms": tc["dq"][0],
+               "dkv_max_abs_err": max(err["dk"], err["dv"]),
+               "dq_max_abs_err": err["dq"]}
+        out[tag] = row
+        log(f"  flash bwd alone at N={n} T={t} H=8 D=64 nhtd {tag}: dkv_ms "
+            f"{row['dkv_ms']:.5f} dq_ms {row['dq_ms']:.5f} (pair "
+            f"{row['dkv_ms'] + row['dq_ms']:.5f}) library_ms {lib:.5f}; "
+            f"3xTF32 bounds {tc['dkv'][0]:.5f} / {tc['dq'][0]:.5f}")
+        del c
+        torch.cuda.empty_cache()
+    return out
 
 
 def profiled_kernel_ms(fn, names, iters=20, warmup=3):
     """{name: mean device ms per launch} of the CUDA kernels whose name
     contains each of `names`, over `iters` calls of fn() under
-    torch.profiler (one wrapper call launches both backward kernels)."""
+    torch.profiler (one wrapper call launches both backward kernels).
+    The profiler traces one call in a warm-up step it discards before
+    the measured step: a kernel launched as tracing starts can go
+    unrecorded, and every launch of the measured step must be seen."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     out = {}
     for name in names:
         evs = [e for e in prof.key_averages()
@@ -517,7 +628,9 @@ def flash_fwd_at_training_shapes(dev):
     """The flash forward alone at the training steps' shapes: phase 6's
     N=64, T=256 and phase 6d's N=2, T=8192 (H=8, D=64, nhtd transposed
     views + key-padding bias, causal and not, the mean of the two as
-    each step runs both), with its bound."""
+    each step runs both), with its bound and scaled_dot_product_attention
+    on the same inputs (the key bias and causal mask as one float
+    attn_mask) beside it."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
 
     h, d = TRAIN_ARCH["n_head"], TRAIN_ARCH["d_model"] // TRAIN_ARCH["n_head"]
@@ -533,19 +646,33 @@ def flash_fwd_at_training_shapes(dev):
                                               c["bias"], None, causal,
                                               layout="nhtd", n_head=h)
 
+            mask = c["bias"]
+            if causal:
+                mask = mask + torch.full((t, t), float("-inf"),
+                                         device=dev).triu(1)
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    c["q"], c["k"], c["v"], attn_mask=mask, scale=d ** -0.5)
+
+            iters = 20 if t <= 256 else 3
             b_ms, b_by = bound_ms(*fk.bound_bytes_and_flops(
                 c["q"], c["k"], c["bias"], causal, "nhtd", h))
             per.append(dict(causal=causal, bound_ms=b_ms, bound_by=b_by,
-                            ms=cuda_ms(kern, iters=20 if t <= 256 else 3,
-                                       warmup=2)))
-        row = {key: sum(p[key] for p in per) / 2 for key in ("ms",
-                                                             "bound_ms")}
+                            ms=cuda_ms(kern, iters=iters, warmup=2),
+                            library_ms=cuda_ms(library, iters=iters,
+                                               warmup=2)))
+            del c, mask
+        row = {key: sum(p[key] for p in per) / 2
+               for key in ("ms", "bound_ms", "library_ms")}
         row["cases"] = per
         out[f"N={n} T={t}"] = row
         log(f"  flash_attention_fwd alone at N={n} T={t} H=8 D=64 nhtd: "
             f"ms {row['ms']:.5f} (causal {per[0]['ms']:.5f}, not "
             f"{per[1]['ms']:.5f}) bound_ms {row['bound_ms']:.5f} "
-            f"({per[0]['bound_by']})")
+            f"({per[0]['bound_by']}) library_ms {row['library_ms']:.5f} "
+            f"(causal {per[0]['library_ms']:.5f}, not "
+            f"{per[1]['library_ms']:.5f})")
     return out
 
 
@@ -1242,7 +1369,7 @@ def _profile_train_step(exe, main, feed, loss, scope, steps=2,
            "device_idle_share": 1.0 - busy_ms / prof_ms,
            "kernel_launches_per_step": sum(e.count for e in kern) / steps,
            "top_kernels": [(e.key, e.count // steps, dev_us(e) / steps)
-                           for e in kern[:12]]}
+                           for e in kern[:16]]}
     log(f"{label}: profiled step {prof_ms:.3f} ms; device busy "
         f"{busy_ms:.3f} ms/step, idle share "
         f"{res['device_idle_share']:.3f}; "
@@ -1489,6 +1616,12 @@ def main() -> int:
     rows = phase_kernels(dev)
     rows.update(phase_bwd_kernels(dev))
     flash_train_shapes = flash_fwd_at_training_shapes(dev)
+    flash_bwd_longctx = flash_bwd_at_longctx_shape(dev)
+    for name, key in (("flash_attention_bwd_dkv", "dkv_max_abs_err"),
+                      ("flash_attention_bwd_dq", "dq_max_abs_err")):
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]]
+            + [r[key] for r in flash_bwd_longctx.values()])
     rows.update(phase_vocab_kernels(dev))
     rows.update(phase_lstm_kernels(dev))
     refused = phase_refused_shapes(dev)
@@ -1501,7 +1634,7 @@ def main() -> int:
                               profile="phase 6c, profiled")
     train_longctx = phase_train(dev, card, "phase 6d", LONGCTX,
                                 batch=LONGCTX_BATCH, steps=LONGCTX_STEPS,
-                                profile=None)
+                                profile="phase 6d, profiled")
     train_lstm = phase_train_lstm(dev, card)
     train_parity = phase_train_parity(dev)
     train_parity_fused = phase_train_parity(dev, use_fused_ce=True)
@@ -1546,6 +1679,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "kernels": rows,
                    "flash_fwd_training_shapes": flash_train_shapes,
+                   "flash_bwd_longctx_shape": flash_bwd_longctx,
                    "refused_shapes": refused,
                    "stream": stream, "step_profile": profile,
                    "card_vs_cpu": parity, "train": train,

@@ -38,6 +38,13 @@ KERNELS = ("paged_attention", "flash_attention_fwd",
 COMPOSED = ("flash_attention", "dynamic_lstm", "fused_vocab_softmax_ce",
             "paged_attention")
 
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bytes/s, the dense
+# TF32 tensor-core rate and the float32 rate outside the tensor cores,
+# for the kernels' bounds.  A card below its 700 W limit runs slower.
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOP_PER_S = 495e12
+F32_FLOP_PER_S = 67e12
+
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 plain_calls: Dict[str, int] = {k: 0 for k in KERNELS}
 composed_calls: Dict[str, int] = {k: 0 for k in COMPOSED}

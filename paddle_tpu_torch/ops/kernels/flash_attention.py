@@ -14,18 +14,22 @@ kernels take a key-padding bias broadcastable to (N, 1, 1, Tk), one row
 per batch element, never repeated per head.
 
 Kernels: csrc/flash_attention_fwd.cu (one block per (64-row q tile,
-batch*head), one thread per query row) and csrc/flash_attention_bwd.cu
-(dK/dV: one block per (64-key tile, batch*head), one thread per key row;
-dQ: one thread per query row, as the forward).  Every operand is read in
-place through its batch, head and row strides, so a transposed view
-(the nhtd operands of the Transformer come straight from a
-transpose(perm=[0, 2, 1, 3])) and the cotangent autograd hands the
-backward are not copied; only a tensor whose last dimension is not
-contiguous is.  What bounds them on the card: bytes for the forward at
-the prefill shape, operations for the backward at the training shape;
-both are held far above their bounds by each thread's serial f32 FMA
-loop on the CUDA cores (PERF.md).  The tensor-core (wgmma) versions are
-later work.
+batch*head), one thread per query row, float32 on the CUDA cores) and
+csrc/flash_attention_bwd.cu (dK/dV: one block per (128-key tile,
+batch*head), 8 warps of 16 keys; dQ: one block per (64-query tile,
+batch*head), 4 warps of 16 queries), whose products run on the tensor
+cores as 3xTF32 `mma.sync` (float32-accurate: every operand split into
+a TF32 big and small part).  Every operand is read in place through its
+batch, head and row strides, so a transposed view (the nhtd operands of
+the Transformer come straight from a transpose(perm=[0, 2, 1, 3])) and
+the cotangent autograd hands the backward are not copied; only a tensor
+whose last dimension is not contiguous is, and, for the backward's
+16-byte copies, one whose data pointer or batch/head/row strides are
+not multiples of 4 floats (`_aligned_rows`).  What bounds them on the
+card: bytes for the forward at the prefill shape, operations for the
+backward at the training shape (`tensor_core_bound_ms_bwd`: 3 TF32
+operations per product flop at the TF32 peak); the forward is held far
+above its bound by each thread's serial f32 FMA loop (PERF.md).
 
 Plain versions: `flash_attention_fwd_plain` and `flash_attention_bwd_plain`,
 the same functions as dense torch compositions (the scores are
@@ -44,7 +48,7 @@ import ctypes
 
 import torch
 
-from . import launch_counts, plain_calls
+from . import HBM_BYTES_PER_S, TF32_FLOP_PER_S, launch_counts, plain_calls
 from . import _build
 
 NEG_INF = -1e30
@@ -278,7 +282,8 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
     if any(t.dtype != torch.float32 for t in (o, do)):
         raise TypeError("flash_attention backward kernels: o and do must "
                         "be float32")
-    q, k, v, o, do = (_unit_minor(x) for x in (q, k, v, o, do))
+    q, o, do = (_aligned_rows(x, layout, n, h, t_q, d) for x in (q, o, do))
+    k, v = (_aligned_rows(x, layout, n, h, t_k, d) for x in (k, v))
     lse = lse.to(torch.float32).contiguous()
     dlse = None if dlse is None else dlse.to(torch.float32).contiguous()
     kb = key_bias(bias, n, t_k)
@@ -378,6 +383,19 @@ def _unit_minor(x):
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _aligned_rows(x, layout, n, h, t, d):
+    """x itself when the backward kernels' 16-byte copies read it in
+    place (last dimension contiguous, data pointer and batch, head and
+    row strides multiples of 4 floats), else a contiguous copy in fresh,
+    aligned memory (`contiguous()` would return a contiguous tensor
+    with a misaligned start as it is)."""
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+            s % 4 == 0 for s in _heads(x, layout, n, h, t, d).stride()[:3]):
+        return x
+    return torch.empty_like(x, memory_format=torch.contiguous_format) \
+        .copy_(x)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -450,3 +468,25 @@ def bound_bytes_and_flops_bwd(q, k, bias, causal, layout, n_head,
     return {"dkv": (ins + 2 * krow + (n * h * t_k * 4 if dbias else 0),
                     8 * d * pairs + delta),
             "dq": (ins + qrow, 6 * d * pairs + delta)}
+
+
+def tensor_core_bound_ms_bwd(q, k, bias, causal, layout, n_head,
+                             q_offset=0, k_offset=0):
+    """{"dkv": (ms, by), "dq": (ms, by)}: each backward kernel's least
+    time on the H100, the larger of its bytes (`bound_bytes_and_flops_bwd`)
+    at 3.35 TB/s and its matrix products as 3xTF32 tensor-core work: 3
+    TF32 operations for each of the 8*D (dK/dV) or 6*D (dQ) product flops
+    of a visible pair, at 495 TFLOP/s; `by` names the larger, "bytes" or
+    "operations".  delta's 2*D flops a row run on the CUDA cores beside
+    them and are left out."""
+    n, h, t_q, t_k, d = dims(q, k, layout, n_head)
+    pairs = n * h * _visible_pairs(t_q, t_k, causal, q_offset, k_offset)
+    b = bound_bytes_and_flops_bwd(q, k, bias, causal, layout, n_head,
+                                  q_offset=q_offset, k_offset=k_offset)
+    out = {}
+    for name, per_pair in (("dkv", 8), ("dq", 6)):
+        bytes_ms = b[name][0] / HBM_BYTES_PER_S * 1e3
+        ops_ms = 3 * per_pair * d * pairs / TF32_FLOP_PER_S * 1e3
+        out[name] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                     else (ops_ms, "operations"))
+    return out

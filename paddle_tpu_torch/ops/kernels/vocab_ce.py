@@ -38,7 +38,7 @@ import ctypes
 import torch
 
 from ..common import fill_index, nan_where
-from . import _build, launch_counts, plain_calls
+from . import TF32_FLOP_PER_S, _build, launch_counts, plain_calls
 
 # Hopper tiles of csrc/vocab_ce.cu: 64 tokens or vocabulary columns per
 # block, 64-wide z tiles; D is held whole (at most 512)
@@ -52,8 +52,6 @@ MAX_D = 512
 # stats
 SMEM_BYTES = {"fwd": (64 * 513 + 16 * 68 + 4 * 16 * 64) * 4,
               "bwd": (64 * 512 + 3 * 64 * 36 + 2 * 64 * 68 + 3 * 64) * 4}
-# the H100 SXM's dense TF32 tensor-core peak (NVIDIA's data sheet)
-TF32_FLOP_PER_S = 495e12
 NEG = -1e30     # csrc/vocab_ce.cu kNeg, the reference's NEG
 _SOURCE = "vocab_ce"
 _FWD, _DH, _DW = "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw"

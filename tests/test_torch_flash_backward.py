@@ -35,6 +35,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as tk
 
 from op_test import run_op
 from torch_op_test import run_torch_op, to_torch
+from torch_tf32 import tc_matmul, tc_matmul_tiled
 
 torch.set_num_threads(2)
 
@@ -158,6 +159,100 @@ def test_backward_kernel_bounds():
     assert b["dkv"] == (ins + 2 * row + n * h * t * 4,
                         8 * d * pairs + 2 * d * n * h * t)
     assert b["dq"] == (ins + row, 6 * d * pairs + 2 * d * n * h * t)
+
+
+def test_backward_tensor_core_bounds():
+    """The 3xTF32 bound of each backward kernel at the training shape:
+    bytes at 3.35 TB/s against 3 TF32 operations for each of 8*D (dK/dV)
+    or 6*D (dQ) product flops a visible pair at 495 TFLOP/s, each with
+    the limit that sets it."""
+    n, h, t, d = 64, 8, 256, 64
+    q = torch.empty(n, h, t, d, device="meta")
+    bias = torch.empty(n, 1, 1, t, device="meta")
+    for causal, pairs in ((True, t * (t + 1) // 2), (False, t * t)):
+        got = tk.tensor_core_bound_ms_bwd(q, q, bias, causal, "nhtd", None)
+        nbytes = tk.bound_bytes_and_flops_bwd(q, q, bias, causal, "nhtd",
+                                              None)
+        for name, per_pair in (("dkv", 8), ("dq", 6)):
+            ops_ms = 3 * per_pair * d * n * h * pairs / 495e12 * 1e3
+            bytes_ms = nbytes[name][0] / 3.35e12 * 1e3
+            assert got[name][0] == pytest.approx(max(bytes_ms, ops_ms))
+            assert got[name][1] == ("bytes" if bytes_ms >= ops_ms
+                                    else "operations")
+    got = tk.tensor_core_bound_ms_bwd(q, q, bias, False, "nhtd", None)
+    assert {k: ms for k, (ms, _) in got.items()} == \
+        pytest.approx({"dkv": 0.104120, "dq": 0.078090}, abs=1e-6)
+    assert {k: by for k, (_, by) in got.items()} == \
+        {"dkv": "operations", "dq": "operations"}
+    got = tk.tensor_core_bound_ms_bwd(q, q, bias, True, "nhtd", None)
+    assert {k: ms for k, (ms, _) in got.items()} == \
+        pytest.approx({"dkv": 0.070290, "dq": 0.060274}, abs=1e-6)
+    assert {k: by for k, (_, by) in got.items()} == \
+        {"dkv": "bytes", "dq": "bytes"}
+
+
+# -- why the backward kernels split 3xTF32 (csrc/flash_attention_bwd.cu) ---
+
+TOL_BWD = 2e-5      # chip_smoke.py phase 3b: the kernels against plain
+
+
+def _tc_backward(q, k, v, do, o, lse, bias, causal, scale, passes):
+    """One head's backward with every product as the kernels compute it:
+    s and dp over the depth D in one tensor-core tile, dV, dK and dQ over
+    64-deep tiles of queries or keys added in float32; p, ds and delta in
+    float32 as the kernels form them."""
+    t_q, t_k = q.shape[0], k.shape[0]
+    s = tc_matmul(q, k.T, passes) * np.float32(scale) + bias[None, :]
+    p = np.exp(s - lse[:, None])
+    if causal:
+        p = np.where(np.arange(t_q)[:, None] >= np.arange(t_k)[None, :],
+                     p, np.float32(0))
+    dp = tc_matmul(do, v.T, passes)
+    delta = (do * o).sum(axis=1, dtype=np.float32)
+    ds = (p * (dp - delta[:, None])).astype(np.float32)
+    p = p.astype(np.float32)
+    return (tc_matmul_tiled(ds, k, passes) * np.float32(scale),
+            tc_matmul_tiled(ds.T, q, passes) * np.float32(scale),
+            tc_matmul_tiled(p.T, do, passes))
+
+
+@pytest.mark.parametrize("passes,meets", [(1, False), (3, True)])
+@pytest.mark.parametrize("layout", ["nhtd", "nthd"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_error_budget_of_the_tensor_core_backward(causal, layout, passes,
+                                                  meets):
+    """The backward with every product emulated as TF32 tensor-core
+    passes, against the float64 plain backward, on phase 3b's kind of
+    inputs (unit normal q, k, v, dO, a key-padding bias of ragged
+    lengths, T = 256, D = 64): one TF32 pass misses TOL_BWD for each of
+    dq, dk and dv, 3xTF32 meets it."""
+    n, h, t, d = 2, 2, 256, 64
+    rng = np.random.RandomState(1 + causal)
+    shape = (n, t, h * d) if layout == "nthd" else (n, h, t, d)
+    q, k, v, do = (torch.as_tensor(rng.randn(*shape)) for _ in range(4))
+    lens = np.array([t, 150])
+    bias = torch.as_tensor(((np.arange(t)[None, :] < lens[:, None]) * 1e9
+                            - 1e9).reshape(n, 1, 1, t))
+    scale = d ** -0.5
+    o, lse = tk.flash_attention_fwd_plain(q, k, v, bias, scale, causal,
+                                          layout, h)
+    want = tk.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, None,
+                                        scale, causal, layout, h)[:3]
+    f32 = np.float32
+    heads = [tk._heads(x, layout, n, h, t, d).numpy().astype(f32)
+             for x in (q, k, v, do, o)]
+    lse4 = lse.reshape(n, h, t).numpy().astype(f32)
+    got = np.zeros((3, n, h, t, d), f32)
+    for i in range(n):
+        for j in range(h):
+            got[:, i, j] = _tc_backward(
+                *(x[i, j] for x in heads), lse4[i, j],
+                bias[i, 0, 0].numpy().astype(f32), causal, scale, passes)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = tk._heads(b, layout, n, h, t, d).numpy()
+        err = float(np.abs(a - b).max())
+        assert (err <= TOL_BWD + TOL_BWD * float(np.abs(b).max())) == \
+            meets, (name, err)
 
 
 # -- the composed route (biases the kernels do not take) ------------------

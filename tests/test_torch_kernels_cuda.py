@@ -111,10 +111,13 @@ def test_flash_kernel_matches_plain(dev, layout, causal, t, d):
     torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-3)
 
 
-def _bwd_case(dev, layout, t, d, n=3, h=4, seed=0, transposed=False):
+def _bwd_case(dev, layout, t, d, n=3, h=4, seed=0, transposed=False,
+              misaligned=False):
     """q, k, v, key bias, O, lse and a cotangent dO on the card; with
     `transposed`, nhtd operands are transposed views of (N, T, H, D)
-    tensors, as the Transformer's reshape + transpose produces them."""
+    tensors, as the Transformer's reshape + transpose produces them; with
+    `misaligned`, q, k, v and dO start one float into their storage, so
+    no row of theirs is 16-byte aligned."""
     g = torch.Generator().manual_seed(seed)
     if layout == "nthd":
         shape = (n, t, h * d)
@@ -122,6 +125,9 @@ def _bwd_case(dev, layout, t, d, n=3, h=4, seed=0, transposed=False):
         shape = (n, t, h, d) if transposed else (n, h, t, d)
     q, k, v, do = (torch.randn(*shape, generator=g).to(dev)
                    for _ in range(4))
+    if misaligned:
+        q, k, v, do = (torch.empty(x.numel() + 1, device=dev)[1:]
+                       .view(shape).copy_(x) for x in (q, k, v, do))
     if transposed:
         q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
     seq = torch.tensor([t, max(1, t // 3), 1])
@@ -158,6 +164,78 @@ def test_flash_bwd_kernels_match_plain(dev, layout, transposed, causal, t,
         assert torch.isfinite(a).all(), name
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("q_offset,k_offset", [(37, 5), (0, 40),
+                                                (60, 0), (0, 200)])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_bwd_kernels_with_offsets_match_plain(dev, q_offset,
+                                                    k_offset, d):
+    """Causal with nonzero q/k offsets (a continuation, keys ahead of the
+    queries, queries ahead of the keys, and keys so far ahead that no
+    query sees any: every dK/dV block skips all its q tiles and writes
+    zeros) at T = 130, not a multiple of the kernels' tiles: the mask the
+    tensor-core kernels form per fragment.
+    With an lse cotangent, as the other backward cases: without one, the
+    batch row whose only unpadded key takes all the weight has
+    dbias = sum(dp - delta) = 0 up to rounding, a sum of noise."""
+    q, k, v, do, bias, h = _bwd_case(dev, "nhtd", 130, d, seed=q_offset + d,
+                                     transposed=True)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, True,
+                                    layout="nhtd", n_head=h,
+                                    q_offset=q_offset, k_offset=k_offset)
+    dlse = torch.randn(lse.shape, generator=torch.Generator()
+                       .manual_seed(d)).to(dev)
+    args = (q, k, v, bias, o, lse, do, dlse, None, True, "nhtd", h,
+            q_offset, k_offset)
+    got = fk.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    want = fk.flash_attention_bwd_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("layout,transposed", [("nthd", False),
+                                               ("nhtd", True)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_take_misaligned_operands(dev, layout,
+                                                    transposed, causal):
+    """Operands one float into their storage: the kernels' 16-byte
+    copies need 16-byte-aligned rows, so the wrapper hands them aligned
+    copies; the result still matches the plain backward, in the
+    operands' own layout and strides."""
+    q, k, v, do, bias, h = _bwd_case(dev, layout, 100, 64, seed=7,
+                                     transposed=transposed, misaligned=True)
+    assert all(x.data_ptr() % 16 != 0 for x in (q, k, v, do))
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout=layout, n_head=h)
+    args = (q, k, v, bias, o, lse, do, None, None, causal, layout, h)
+    before = dict(kernels.launch_counts)
+    got = fk.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention_bwd_dkv"] == \
+        before["flash_attention_bwd_dkv"] + 1
+    want = fk.flash_attention_bwd_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_give_the_same_bits_twice(dev, causal):
+    """Each block owns its dK/dV or dQ rows over the whole sum (no
+    atomics), so two runs on the same inputs agree bit for bit."""
+    q, k, v, do, bias, h = _bwd_case(dev, "nhtd", 256, 64, n=3, h=8,
+                                     seed=5, transposed=True)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout="nhtd", n_head=h)
+    args = (q, k, v, bias, o, lse, do, None, None, causal, "nhtd", h)
+    first = fk.flash_attention_bwd(*args)
+    again = fk.flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_flash_autograd_on_card_matches_cpu(dev):

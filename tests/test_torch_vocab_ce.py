@@ -26,6 +26,7 @@ from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 
 from op_test import run_op
 from torch_op_test import run_torch_op
+from torch_tf32 import tc_matmul
 
 torch.set_num_threads(2)
 
@@ -217,34 +218,6 @@ def test_op_matches_the_reference_op(attrs):
 TOL_VOCAB = 2e-5    # chip_smoke.py phase 3c: the kernels against plain
 
 
-def _tf32(x):
-    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties
-    away from zero (cvt.rna.tf32.f32), with integer ops on the bits."""
-    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((b + np.uint32(0x1000)) & np.uint32(0xffffe000)) \
-        .view(np.float32)
-
-
-def _tf32_truncated(x):
-    """What the tensor core reads of an unrounded float32 operand."""
-    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return (b & np.uint32(0xffffe000)).view(np.float32)
-
-
-def _tc_matmul(a, b, passes):
-    """a @ b as the kernels' mma.sync products: 1 pass of TF32 operands,
-    or 3xTF32 (a_small b_big + a_big b_small + a_big b_big).  The
-    products of TF32 values are exact in float64; the sums are taken in
-    float64 and rounded once, so only the operands' rounding is shown."""
-    f = np.float64
-    ab, bb = _tf32(a), _tf32(b)
-    if passes == 1:
-        return (ab.astype(f) @ bb.astype(f)).astype(np.float32)
-    a_s, b_s = _tf32_truncated(a - ab), _tf32_truncated(b - bb)
-    return (a_s.astype(f) @ bb.astype(f) + ab.astype(f) @ b_s.astype(f)
-            + ab.astype(f) @ bb.astype(f)).astype(np.float32)
-
-
 def _within(got, want, tol=TOL_VOCAB):
     """chip_smoke.check_close's test: tol absolute plus tol of max|want|."""
     return float(np.abs(got - want).max()) <= tol + tol * float(
@@ -268,11 +241,11 @@ def test_error_budget_of_the_tensor_core_backward(passes, meets):
     lse = vk.vocab_ce_fwd_plain(th, tw, tl)[0]
     want = [x.numpy() for x in vk.vocab_ce_bwd_plain(th, tw, tl, lse, tg,
                                                      eps)]
-    z = _tc_matmul(h, w, passes)
+    z = tc_matmul(h, w, passes)
     p = np.exp(z - lse.numpy()[:, None])
     p[np.arange(n), lbl] -= 1.0 - eps
     dz = ((p - eps / v) * g[:, None]).astype(np.float32)
-    got = (_tc_matmul(dz, w.T, passes), _tc_matmul(h.T, dz, passes))
+    got = (tc_matmul(dz, w.T, passes), tc_matmul(h.T, dz, passes))
     for name, a, b in zip(("dh", "dw"), got, want):
         assert _within(a, b) == meets, (name, float(np.abs(a - b).max()))
 
