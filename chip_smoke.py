@@ -13,23 +13,36 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    int8 pools with ragged lengths and NaN past each length; causal flash
    attention with a key-padding bias at T = 32, 64, 128 — and times the
    kernel, the plain version and, for flash, one library call
-   (scaled_dot_product_attention, never used by the port);
+   (scaled_dot_product_attention, never used by the port) beside the
+   3xTF32 and float32 bounds (flash by the profiler's device time as
+   well: back to back, a call this small reads the host); holds the flash forward kernel (O and
+   lse; 3xTF32 on the tensor cores) against the plain forward at D = 32,
+   64 and 128, in both layouts, causal and not, with a key bias and
+   without, at T = 100, with causal offsets 37/5 at T = 130, and with
+   operands one float into their storage (the wrapper copies them), and
+   checks that two forward runs at the training shape give the same
+   bits;
    3b. does the same for the flash-attention backward kernels (dK/dV and
    dQ, 3xTF32 on the tensor cores) against the plain backward: the
    training shape N=64, H=8, T=256, D=64 (nhtd transposed views,
    key-padding bias, causal and not), T=100 causal, an nthd case, a case
    with the bias gradient and an lse cotangent, two causal cases with
-   nonzero q/k offsets at T=130 (one where no query sees any key), and
-   a case whose operands start one float into their storage (rows not
-   16-byte aligned: the wrapper copies them); checks that two backward
-   runs at the training shape give the same bits; prints both kernels'
-   ptxas registers and spills; and times them beside their 3xTF32 and
-   float32 bounds; the library call is autograd through
-   scaled_dot_product_attention; at phase 6d's shape (N=2, T=8192,
-   causal and not) it holds the backward pair against the plain
-   backward and times it beside the library's backward; and it times
-   the flash forward alone at the training shapes of phases 6 and 6d
-   beside scaled_dot_product_attention;
+   nonzero q/k offsets at T=130 (one where no query sees any key), a
+   case whose operands start one float into their storage (rows not
+   16-byte aligned: the wrapper copies them), and D = 128 and D = 32
+   cases (causal, offsets, nthd with the bias gradient); checks that
+   two backward runs at the training shape give the same bits; prints
+   both kernels' ptxas registers and spills; and times them beside
+   their 3xTF32 and float32 bounds; the library call is autograd
+   through scaled_dot_product_attention; at phase 6d's shape (N=2,
+   T=8192, causal and not) it holds the backward pair against the plain
+   backward and times it beside the library's backward; it times the
+   flash forward alone at the training shapes of phases 6 and 6d beside
+   its bounds and scaled_dot_product_attention; and at head dim 128
+   (N=16, H=8, T=512: d_model 1024, 8 heads), causal and not, it holds
+   the forward and the backward pair against the plain versions and
+   times both beside their bounds and the library's forward and
+   backward;
    3c. holds the vocab-CE forward, dh and dW kernels against their
    plain versions at the training shape (N = 16384 tokens, D = 512,
    V = 32000, eps 0.1, some labels out of range and clamped, a quarter
@@ -50,7 +63,7 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    (cuDNN; it also contains the x-projection, so it is set against fc +
    kernel);
    3e. runs, for each kernel, its op on a shape the kernel refuses (flash
-   head dim 128, vocab-CE D = 768, LSTM H = 514, paged head dim 96) with
+   head dim 96, vocab-CE D = 768, LSTM H = 514, paged head dim 96) with
    use_pallas=False: one composed call counted, no kernel launch, and the
    result within tolerance of the same op on the CPU from the same
    inputs; with use_pallas=True the op must raise;
@@ -356,33 +369,98 @@ def phase_kernels(dev):
                 return torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=mask, scale=scale)
 
+            # back to back, a call this small reads the host's time: the
+            # kernel and the library call are timed by their device time
             k_ms, p_ms, l_ms = cuda_ms(kern), cuda_ms(plain), \
                 cuda_ms(library)
+            kd_ms = profiled_kernel_ms(kern, ("flash_fwd_kernel",),
+                                       iters=100)["flash_fwd_kernel"]
+            ld_ms = profiled_call_ms(library, iters=100)
             nbytes, flops = fk.bound_bytes_and_flops(q, k, bias, True,
                                                      "nthd", h)
-            b_ms, b_by = bound_ms(nbytes, flops)
+            f32_ms, f32_by = bound_ms(nbytes, flops)
+            b_ms, b_by = fk.tensor_core_bound_ms(q, k, bias, True, "nthd", h)
             rows["flash_attention_fwd"] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops=flops,
+                ms=kd_ms, plain_ms=p_ms, library_ms=ld_ms, bound_ms=b_ms,
+                bound_by=b_by, f32_bound_ms=f32_ms, f32_bound_by=f32_by,
+                wrapper_ms=k_ms, library_call_ms=l_ms, bytes=nbytes,
+                flops=flops,
                 shape=f"N=16 T={t} H=8 D=64 f32 nthd causal+key bias")
-            log(f"  flash_attention_fwd T={t}: kernel_ms {k_ms:.5f} "
-                f"plain_ms {p_ms:.5f} library_ms {l_ms:.5f} "
-                f"bound_ms {b_ms:.5f} ({b_by})")
+            log(f"  flash_attention_fwd T={t}: kernel device ms {kd_ms:.5f} "
+                f"(wrapper back to back {k_ms:.5f}) plain_ms {p_ms:.5f} "
+                f"library device ms {ld_ms:.5f} (back to back {l_ms:.5f}) "
+                f"bound_ms (3xTF32) {b_ms:.5f} ({b_by}) f32_bound_ms "
+                f"{f32_ms:.5f} ({f32_by})")
+    errs += phase_flash_fwd_cases(dev)
     rows["flash_attention_fwd"]["max_abs_err"] = max(errs)
     return rows
 
 
-# -- phase 3b: the flash backward kernels against the plain backward -----
-
-def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
-             dlse=False, q_offset=0, k_offset=0, misaligned=False):
-    """Operands of one backward call as the training path makes them:
-    nhtd q/k/v/dO are transposed views of (N, T, H, D) tensors (the
-    model's reshape + transpose), with the key-padding bias of ragged
-    lengths; O and lse come from the forward kernel.  With `misaligned`,
-    q/k/v/dO start one float into their storage."""
+def phase_flash_fwd_cases(dev):
+    """The forward kernel (O and lse) against the plain forward beyond the
+    serving shapes: D = 32, 64 and 128, both layouts, causal and not,
+    with a key bias and without, at T = 100 (ragged tiles); causal
+    offsets 37/5 at T = 130; operands one float into their storage (the
+    wrapper copies them); and two runs at the training shape, which must
+    give the same bits.  Returns the max abs errors of O."""
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
 
+    for fn, used in ptxas_summary(_build.build_log("flash_attention_fwd")):
+        log(f"  ptxas {fn}: {used}")
+    h = TRAIN_ARCH["n_head"]
+    cases = []
+    for d in (32, 64, 128):
+        for layout in ("nthd", "nhtd"):
+            for causal in (True, False):
+                for with_bias in (True, False):
+                    cases.append((f"D={d} {layout} T=100"
+                                  f"{' causal' if causal else ''}"
+                                  f"{' +bias' if with_bias else ''}",
+                                  (4, h, 100, d, layout, causal),
+                                  dict(bias=with_bias)))
+    for d in (64, 128):
+        cases += [(f"D={d} offsets 37/5 T=130 causal",
+                   (4, h, 130, d, "nhtd", True),
+                   dict(q_offset=37, k_offset=5)),
+                  (f"D={d} misaligned T=100 causal",
+                   (4, h, 100, d, "nhtd", True), dict(misaligned=True))]
+    errs = []
+    for i, (name, (n, ch, t, d, layout, causal), extra) in enumerate(cases):
+        q, k, v, _, bias, _ = flash_operands(
+            dev, n, ch, t, d, layout, seed=50 + i,
+            misaligned=extra.get("misaligned", False))
+        if not extra.get("bias", True):
+            bias = None
+        args = (q, k, v, bias, None, causal, layout, ch,
+                extra.get("q_offset", 0), extra.get("k_offset", 0))
+        o, lse = fk.flash_attention_fwd(*args)
+        torch.cuda.synchronize()
+        wo, wl = fk.flash_attention_fwd_plain(*args)
+        errs.append(check_close(f"flash_attention_fwd {name} out", o, wo,
+                                TOL_KERNEL))
+        check_close(f"flash_attention_fwd {name} lse", lse, wl, TOL_KERNEL)
+    n, t, d = TRAIN_BATCH, TRAIN_ARCH["max_length"], \
+        TRAIN_ARCH["d_model"] // h
+    q, k, v, _, bias, _ = flash_operands(dev, n, h, t, d, "nhtd", seed=49)
+    first = fk.flash_attention_fwd(q, k, v, bias, None, True, "nhtd", h)
+    again = fk.flash_attention_fwd(q, k, v, bias, None, True, "nhtd", h)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("flash fwd: two runs at the training shape "
+                             "differ")
+    log("  two forward runs at the training shape bit-equal")
+    return errs
+
+
+# -- phase 3b: the flash backward kernels against the plain backward -----
+
+def flash_operands(dev, n, h, t, d, layout, seed, dbias=False,
+                   misaligned=False):
+    """q, k, v, dO as the training path makes them: nhtd operands are
+    transposed views of (N, T, H, D) tensors (the model's reshape +
+    transpose), with the key-padding bias of ragged lengths (row 0 full
+    length).  With `misaligned`, q/k/v/dO start one float into their
+    storage.  Returns them, the bias and the generator, for more draws."""
     g = torch.Generator().manual_seed(seed)
     shape = (n, t, h * d) if layout == "nthd" else (n, t, h, d)
     q, k, v, do = (torch.randn(*shape, generator=g).to(dev)
@@ -398,6 +476,17 @@ def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
             - 1e9).reshape(n, 1, 1, t).to(dev)
     if dbias:                                # a bias with a gradient
         bias = bias + torch.randn(n, 1, 1, t, generator=g).to(dev) * 0.1
+    return q, k, v, do, bias, g
+
+
+def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
+             dlse=False, q_offset=0, k_offset=0, misaligned=False):
+    """Operands of one backward call as the training path makes them
+    (`flash_operands`); O and lse come from the forward kernel."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    q, k, v, do, bias, g = flash_operands(dev, n, h, t, d, layout, seed,
+                                          dbias, misaligned)
     o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
                                     layout=layout, n_head=h,
                                     q_offset=q_offset, k_offset=k_offset)
@@ -438,7 +527,14 @@ def phase_bwd_kernels(dev):
              ("offsets 0/200 T=130 causal (no key visible)",
               (8, h, 130, d, "nhtd", True), dict(q_offset=0, k_offset=200)),
              ("misaligned T=100 causal", (8, h, 100, d, "nhtd", True),
-              dict(misaligned=True))]
+              dict(misaligned=True)),
+             ("D=128 T=100 causal", (8, h, 100, 128, "nhtd", True), {}),
+             ("D=128 nthd dbias+dlse T=100", (4, h, 100, 128, "nthd", False),
+              dict(dbias=True, dlse=True)),
+             ("D=128 offsets 37/5 T=130 causal",
+              (8, h, 130, 128, "nhtd", True),
+              dict(q_offset=37, k_offset=5)),
+             ("D=32 T=100 causal", (8, h, 100, 32, "nhtd", True), {})]
     errs, timed = {"dkv": [], "dq": []}, {}
     for i, (name, (cn, ch, ct, cd, layout, causal), extra) in \
             enumerate(cases):
@@ -566,13 +662,11 @@ def flash_bwd_at_longctx_shape(dev):
     return out
 
 
-def profiled_kernel_ms(fn, names, iters=20, warmup=3):
-    """{name: mean device ms per launch} of the CUDA kernels whose name
-    contains each of `names`, over `iters` calls of fn() under
-    torch.profiler (one wrapper call launches both backward kernels).
-    The profiler traces one call in a warm-up step it discards before
-    the measured step: a kernel launched as tracing starts can go
-    unrecorded, and every launch of the measured step must be seen."""
+def _profiled_device_events(fn, iters, warmup):
+    """The CUDA kernel events of `iters` calls of fn() under torch.profiler.
+    The profiler traces one call in a warm-up step it discards before the
+    measured step: a kernel launched as tracing starts can go unrecorded,
+    and every launch of the measured step must be seen."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -589,33 +683,57 @@ def profiled_kernel_ms(fn, names, iters=20, warmup=3):
             fn()
         torch.cuda.synchronize()
         prof.step()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _device_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profiled_kernel_ms(fn, names, iters=20, warmup=3):
+    """{name: mean device ms per launch} of the CUDA kernels whose name
+    contains each of `names`, over `iters` calls of fn() under
+    torch.profiler (one wrapper call launches both backward kernels)."""
+    events = _profiled_device_events(fn, iters, warmup)
     out = {}
     for name in names:
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and name in e.key]
-        total = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-                    for e in evs)
+        evs = [e for e in events if name in e.key]
         count = sum(e.count for e in evs)
         if count != iters:
             raise AssertionError(f"{name}: {count} launches profiled, "
                                  f"want {iters}")
-        out[name] = total / count / 1e3
+        out[name] = sum(_device_us(e) for e in evs) / count / 1e3
     return out
+
+
+def profiled_call_ms(fn, iters=20, warmup=3):
+    """Mean device ms of all the kernels one call of fn() launches (a
+    library call's device time, without the host's)."""
+    events = _profiled_device_events(fn, iters, warmup)
+    if not events:
+        raise AssertionError("no CUDA kernel profiled")
+    return sum(_device_us(e) for e in events) / iters / 1e3
+
+
+def _sdpa_mask(c):
+    """The case's key bias and, when causal, the causal mask as one float
+    attn_mask for scaled_dot_product_attention."""
+    if not c["causal"]:
+        return c["bias"]
+    t = c["q"].shape[2]
+    return c["bias"] + torch.full((t, t), float("-inf"),
+                                  device=c["bias"].device).triu(1)
 
 
 def _sdpa_backward(c, d):
     """The library yardstick: autograd through scaled_dot_product_attention
-    with the key bias and the causal mask as one float attn_mask, the
-    backward alone timed (dQ, dK and dV in one call)."""
+    (`_sdpa_mask`), the backward alone timed (dQ, dK and dV in one
+    call)."""
     q, k, v = (c[x].detach().requires_grad_() for x in ("q", "k", "v"))
-    mask = c["bias"]
-    t = q.shape[2]
-    if c["causal"]:
-        mask = mask + torch.full((t, t), float("-inf"),
-                                 device=q.device).triu(1)
     o = torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=d ** -0.5)
+        q, k, v, attn_mask=_sdpa_mask(c), scale=d ** -0.5)
     do = c["do"]
 
     def run():
@@ -624,15 +742,53 @@ def _sdpa_backward(c, d):
     return run
 
 
+def _sdpa_forward(c, d):
+    """The library yardstick of the forward: scaled_dot_product_attention
+    on the same inputs (`_sdpa_mask`)."""
+    mask = _sdpa_mask(c)
+
+    def run():
+        return torch.nn.functional.scaled_dot_product_attention(
+            c["q"], c["k"], c["v"], attn_mask=mask, scale=d ** -0.5)
+
+    return run
+
+
+def flash_fwd_timed(c, d, iters):
+    """The forward kernel alone on a case's inputs, beside its 3xTF32 and
+    float32 bounds and the library call."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    def kern():
+        return fk.flash_attention_fwd(c["q"], c["k"], c["v"], c["bias"],
+                                      None, c["causal"], layout=c["layout"],
+                                      n_head=c["n_head"])
+
+    f32_ms, f32_by = bound_ms(*fk.bound_bytes_and_flops(
+        c["q"], c["k"], c["bias"], c["causal"], c["layout"], c["n_head"]))
+    tc_ms, tc_by = fk.tensor_core_bound_ms(c["q"], c["k"], c["bias"],
+                                           c["causal"], c["layout"],
+                                           c["n_head"])
+    return dict(causal=c["causal"], bound_ms=tc_ms, bound_by=tc_by,
+                f32_bound_ms=f32_ms, f32_bound_by=f32_by,
+                ms=cuda_ms(kern, iters=iters, warmup=2),
+                library_ms=cuda_ms(_sdpa_forward(c, d), iters=iters,
+                                   warmup=2))
+
+
+def _mean_row(per):
+    row = {key: sum(p[key] for p in per) / len(per)
+           for key in ("ms", "bound_ms", "f32_bound_ms", "library_ms")}
+    row["cases"] = per
+    return row
+
+
 def flash_fwd_at_training_shapes(dev):
     """The flash forward alone at the training steps' shapes: phase 6's
     N=64, T=256 and phase 6d's N=2, T=8192 (H=8, D=64, nhtd transposed
     views + key-padding bias, causal and not, the mean of the two as
-    each step runs both), with its bound and scaled_dot_product_attention
-    on the same inputs (the key bias and causal mask as one float
-    attn_mask) beside it."""
-    from paddle_tpu_torch.ops.kernels import flash_attention as fk
-
+    each step runs both), with its bounds and scaled_dot_product_attention
+    on the same inputs beside it."""
     h, d = TRAIN_ARCH["n_head"], TRAIN_ARCH["d_model"] // TRAIN_ARCH["n_head"]
     out = {}
     for n, t in ((TRAIN_BATCH, TRAIN_ARCH["max_length"]),
@@ -640,39 +796,78 @@ def flash_fwd_at_training_shapes(dev):
         per = []
         for causal in (True, False):
             c = bwd_case(dev, n, h, t, d, "nhtd", causal, seed=30 + t)
-
-            def kern():
-                return fk.flash_attention_fwd(c["q"], c["k"], c["v"],
-                                              c["bias"], None, causal,
-                                              layout="nhtd", n_head=h)
-
-            mask = c["bias"]
-            if causal:
-                mask = mask + torch.full((t, t), float("-inf"),
-                                         device=dev).triu(1)
-
-            def library():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    c["q"], c["k"], c["v"], attn_mask=mask, scale=d ** -0.5)
-
-            iters = 20 if t <= 256 else 3
-            b_ms, b_by = bound_ms(*fk.bound_bytes_and_flops(
-                c["q"], c["k"], c["bias"], causal, "nhtd", h))
-            per.append(dict(causal=causal, bound_ms=b_ms, bound_by=b_by,
-                            ms=cuda_ms(kern, iters=iters, warmup=2),
-                            library_ms=cuda_ms(library, iters=iters,
-                                               warmup=2)))
-            del c, mask
-        row = {key: sum(p[key] for p in per) / 2
-               for key in ("ms", "bound_ms", "library_ms")}
-        row["cases"] = per
-        out[f"N={n} T={t}"] = row
+            per.append(flash_fwd_timed(c, d, iters=20 if t <= 256 else 3))
+            del c
+        row = out[f"N={n} T={t}"] = _mean_row(per)
         log(f"  flash_attention_fwd alone at N={n} T={t} H=8 D=64 nhtd: "
             f"ms {row['ms']:.5f} (causal {per[0]['ms']:.5f}, not "
-            f"{per[1]['ms']:.5f}) bound_ms {row['bound_ms']:.5f} "
-            f"({per[0]['bound_by']}) library_ms {row['library_ms']:.5f} "
+            f"{per[1]['ms']:.5f}) bound_ms (3xTF32) {row['bound_ms']:.5f} "
+            f"({per[0]['bound_by']}, {per[1]['bound_by']}) f32_bound_ms "
+            f"{row['f32_bound_ms']:.5f} library_ms {row['library_ms']:.5f} "
             f"(causal {per[0]['library_ms']:.5f}, not "
             f"{per[1]['library_ms']:.5f})")
+    return out
+
+
+def flash_at_d128_shape(dev):
+    """Head dim 128 (d_model 1024, 8 heads) at N=16, T=512, nhtd
+    transposed views + key-padding bias, causal and not: the forward
+    (O, lse) held against the plain forward (TOL_KERNEL) and the backward
+    pair against the plain backward (TOL_BWD), each timed beside its
+    3xTF32 and float32 bounds and the library's forward or backward."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    n, h, t, d = 16, 8, 512, 128
+    out = {"fwd": [], "bwd": []}
+    for causal in (True, False):
+        tag = "causal" if causal else "not causal"
+        c = bwd_case(dev, n, h, t, d, "nhtd", causal, seed=45)
+        wo, wl = fk.flash_attention_fwd_plain(*c["args"][:4], None, causal,
+                                              "nhtd", h)
+        fwd = flash_fwd_timed(c, d, iters=20)
+        fwd["max_abs_err"] = check_close(f"flash fwd D=128 {tag} out",
+                                         c["o"], wo, TOL_KERNEL)
+        check_close(f"flash fwd D=128 {tag} lse", c["lse"], wl, TOL_KERNEL)
+        out["fwd"].append(fwd)
+        del wo, wl
+
+        def kern():
+            return fk.flash_attention_bwd(*c["args"], need_dbias=False)
+
+        got = kern()
+        torch.cuda.synchronize()
+        want = fk.flash_attention_bwd_plain(*c["args"])
+        err = {g: check_close(f"flash bwd D=128 {tag} {g}", a, b, TOL_BWD)
+               for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        del got, want
+        per = profiled_kernel_ms(kern, _BWD_KERNELS)
+        tc = fk.tensor_core_bound_ms_bwd(c["q"], c["k"], c["bias"], causal,
+                                         "nhtd", h)
+        bounds = fk.bound_bytes_and_flops_bwd(c["q"], c["k"], c["bias"],
+                                              causal, "nhtd", h)
+        out["bwd"].append({
+            "causal": causal, "dkv_ms": per["flash_bwd_dkv_kernel"],
+            "dq_ms": per["flash_bwd_dq_kernel"],
+            "library_ms": cuda_ms(_sdpa_backward(c, d), iters=10, warmup=2),
+            "dkv_bound_ms": tc["dkv"][0], "dkv_bound_by": tc["dkv"][1],
+            "dq_bound_ms": tc["dq"][0], "dq_bound_by": tc["dq"][1],
+            "dkv_f32_bound_ms": bound_ms(*bounds["dkv"])[0],
+            "dq_f32_bound_ms": bound_ms(*bounds["dq"])[0],
+            "dkv_max_abs_err": max(err["dk"], err["dv"]),
+            "dq_max_abs_err": err["dq"]})
+        b = out["bwd"][-1]
+        log(f"  flash D=128 N={n} T={t} H={h} nhtd {tag}: fwd ms "
+            f"{fwd['ms']:.5f} bound_ms (3xTF32) {fwd['bound_ms']:.5f} "
+            f"({fwd['bound_by']}) f32_bound_ms {fwd['f32_bound_ms']:.5f} "
+            f"library_ms {fwd['library_ms']:.5f}; bwd dkv_ms "
+            f"{b['dkv_ms']:.5f} dq_ms {b['dq_ms']:.5f} (pair "
+            f"{b['dkv_ms'] + b['dq_ms']:.5f}) 3xTF32 bounds "
+            f"{b['dkv_bound_ms']:.5f} / {b['dq_bound_ms']:.5f}, f32 bounds "
+            f"{b['dkv_f32_bound_ms']:.5f} / {b['dq_f32_bound_ms']:.5f}, "
+            f"library_ms {b['library_ms']:.5f}")
+        del c
+        torch.cuda.empty_cache()
+    out["fwd_mean"] = _mean_row(out["fwd"])
     return out
 
 
@@ -923,10 +1118,10 @@ def refused_cases():
         .astype(np.int32)
     h_lstm = 514
     return {
-        "flash D=128": ("flash_attention",
-                        {"Q": f(2, 8, 256, 128), "K": f(2, 8, 256, 128),
-                         "V": f(2, 8, 256, 128)},
-                        {"causal": True}, ("Out",), TOL_KERNEL),
+        "flash D=96": ("flash_attention",
+                       {"Q": f(2, 8, 256, 96), "K": f(2, 8, 256, 96),
+                        "V": f(2, 8, 256, 96)},
+                       {"causal": True}, ("Out",), TOL_KERNEL),
         "vocab-CE D=768": ("fused_vocab_softmax_ce",
                            {"Hidden": f(n_tok, 768), "W": f(768, v,
                                                             scale=0.03),
@@ -1119,15 +1314,11 @@ def phase_step_profile(dev, steps=20):
         prof_ms = (time.perf_counter() - t0) * 1e3 / steps
     avg = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # device-side events only: the host ops that launched them carry the
     # same time again in their own rows
     kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kern) / 1e3 / steps
+                  key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in kern) / 1e3 / steps
     host = sorted((e for e in avg if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     res = {"step_ms": step_ms, "profiled_step_ms": prof_ms,
@@ -1135,7 +1326,7 @@ def phase_step_profile(dev, steps=20):
            "device_idle_share": 1.0 - busy_ms / prof_ms,
            "kernel_launches_per_step": sum(e.count for e in kern) / steps,
            "top_kernels": [(e.key, e.count // steps,
-                            dev_us(e) / steps) for e in kern[:8]],
+                            _device_us(e) / steps) for e in kern[:8]],
            "top_host_ops": [(e.key, e.count // steps,
                              e.self_cpu_time_total / steps)
                             for e in host[:8]]}
@@ -1358,17 +1549,13 @@ def _profile_train_step(exe, main, feed, loss, scope, steps=2,
         prof_ms = (time.perf_counter() - t0) * 1e3 / steps
     avg = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kern) / 1e3 / steps
+                  key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in kern) / 1e3 / steps
     res = {"profiled_step_ms": prof_ms, "device_busy_ms_per_step": busy_ms,
            "device_idle_share": 1.0 - busy_ms / prof_ms,
            "kernel_launches_per_step": sum(e.count for e in kern) / steps,
-           "top_kernels": [(e.key, e.count // steps, dev_us(e) / steps)
+           "top_kernels": [(e.key, e.count // steps, _device_us(e) / steps)
                            for e in kern[:16]]}
     log(f"{label}: profiled step {prof_ms:.3f} ms; device busy "
         f"{busy_ms:.3f} ms/step, idle share "
@@ -1617,11 +1804,16 @@ def main() -> int:
     rows.update(phase_bwd_kernels(dev))
     flash_train_shapes = flash_fwd_at_training_shapes(dev)
     flash_bwd_longctx = flash_bwd_at_longctx_shape(dev)
+    flash_d128 = flash_at_d128_shape(dev)
     for name, key in (("flash_attention_bwd_dkv", "dkv_max_abs_err"),
                       ("flash_attention_bwd_dq", "dq_max_abs_err")):
         rows[name]["max_abs_err"] = max(
             [rows[name]["max_abs_err"]]
-            + [r[key] for r in flash_bwd_longctx.values()])
+            + [r[key] for r in flash_bwd_longctx.values()]
+            + [r[key] for r in flash_d128["bwd"]])
+    rows["flash_attention_fwd"]["max_abs_err"] = max(
+        [rows["flash_attention_fwd"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in flash_d128["fwd"]])
     rows.update(phase_vocab_kernels(dev))
     rows.update(phase_lstm_kernels(dev))
     refused = phase_refused_shapes(dev)
@@ -1680,6 +1872,7 @@ def main() -> int:
         json.dump({"card": card, "ptxas": ptxas, "kernels": rows,
                    "flash_fwd_training_shapes": flash_train_shapes,
                    "flash_bwd_longctx_shape": flash_bwd_longctx,
+                   "flash_d128_shape": flash_d128,
                    "refused_shapes": refused,
                    "stream": stream, "step_profile": profile,
                    "card_vs_cpu": parity, "train": train,

@@ -1,4 +1,4 @@
-// Flash-attention forward kernel for Hopper (sm_90a).
+// Flash-attention forward kernel for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py
 // _flash_fwd -> _fwd_kernel (public entry pallas_flash_attention):
@@ -9,53 +9,84 @@
 // Layouts.  The kernel takes batch/head/row strides, so both of the
 // reference's layouts run without a transpose: "nthd" (N, T, H*D)
 // head-grouped is read with row stride H*D and column offset h*D; "nhtd"
-// (N, H, T, D) with row stride D and head stride T*D.  The key-padding
-// bias is (N, Tk) — one row per batch element, read as row g / H and
-// never repeated per head.  O has q's layout; lse is (N*H, Tq) f32.
+// (N, H, T, D) with row stride D and head stride T*D; a transposed view
+// of either too.  The key-padding bias is (N, Tk) — one row per batch
+// element, read as row g / H and never repeated per head.  O has q's
+// strides; lse is (N*H, Tq) f32.
 //
-// Design.  One block per (64-row q tile, batch*head), 64 threads: thread
-// r owns query row r of the tile, holding its q row and its output
-// accumulator in registers.  The block walks the 64-row K/V tiles; each
-// tile is loaded once into shared memory (coalesced, rows past Tk
-// zeroed so undefined memory never reaches the accumulator), every
-// thread scores its row against the tile's 64 keys (the K reads are
-// shared-memory broadcasts), keeps the scores in a shared column-major
-// buffer, and updates its online softmax (m, l, acc) once per tile.
-// Under a causal mask, K tiles wholly above the diagonal are skipped.
-// Q and O go through shared memory so their global reads and writes are
-// coalesced.
+// What bounds it on the H100: at the training shape N=64, H=8, T=256,
+// D=64 (f32) its 134 MB take 0.040 ms at 3.35 TB/s, and its two products
+// (4*D flops a visible pair, 6.45 GFLOP for the mean of the causal and
+// the non-causal case) 0.096 ms at the float32 CUDA-core peak of 67
+// TFLOP/s or 0.039 ms as 3xTF32 work at 495 TFLOP/s; at N=2, T=8192 the
+// products decide (206 GFLOP: 1.25 ms as 3xTF32).  So both products, S = Q K^T over the depth
+// D and O += P V over each key tile, run on the tensor cores as 3xTF32
+// mma.sync (csrc/flash_mma.cuh: the split, the fragments, the swizzle).
 //
-// What bounds it: by the roofline, bytes.  At the prefill shape T=128
-// (N=16, H=8, D=64, f32) q, k, v and o are ~17 MB (~5 us at 3.35 TB/s)
-// against ~0.27 GFLOP of visible (q, k) pairs (~4 us at 67 TFLOP/s f32).
-// This simple design is held well above both by each thread's serial
-// f32 FMA loop on the CUDA cores; a tensor-core (wgmma) version with
-// several warps per q tile is the next step.
+// Design.  One block per (64-query tile, batch*head), 4 warps of 16
+// query rows, the block's Q tile resident in shared memory; the K and V
+// tiles (64 keys, 32 at D = 128) and their bias row stream through a
+// double-buffered cp.async ring, so the next tile lands while this one
+// computes.  Per tile, each warp forms its 16-row score tile (C
+// fragments), scales it, adds the bias, masks it, and updates the online
+// softmax per row: the row max over the 4 lanes that share a fragment
+// row (__shfl_xor_sync 1 and 2), alpha = exp(m_old - m_new) rescaling
+// the float32 O accumulator and each lane's partial row sum l, p =
+// exp(s - m_new) in place; p then enters P V as the A fragments it
+// already is (the k-permutation of flash_mma.cuh), into zeroed C
+// fragments added to O in float32.  l is summed over the 4 lanes once,
+// at the end.  Shared memory: 81 KB a block at D = 64, 96 KB at D = 128
+// (32-key tiles, so two blocks still fit an SM), 41 KB at D = 32.
 //
 // Numerics follow the TPU kernel: scores and softmax in f32, masked
-// scores set to NEG_INF = -1e30, the normaliser clamped at 1e-30, and
-// the causal test q_off + q_pos >= k_off + k_pos (offsets for ring
-// attention; 0 in prefill).  Rows whose keys all carry the -1e9 padding
-// bias (prefill rows of slots that are not joining) stay finite.
+// scores set to NEG_INF = -1e30, the normaliser clamped at 1e-30, lse =
+// m + log(l), and the causal test q_off + q_pos >= k_off + k_pos
+// (offsets for ring attention; 0 in prefill).  Rows past Tq or Tk are
+// zero-filled by the copies and keys past Tk masked.  Under a causal
+// mask, K tiles wholly above the diagonal are skipped, as the TPU kernel
+// skips its k-blocks; so a row that sees no key at all (only with k_off
+// > q_off) averages V over the tiles its block does not skip, as there.
+// Rows whose keys all carry the -1e9 padding bias (prefill rows of slots
+// that are not joining) stay finite.  Each block owns its output rows:
+// no atomics, and two runs give the same bits.  The 16-byte copies need
+// every row of q, k, v and o to start 16-byte aligned: the entry point
+// returns cudaErrorMisalignedAddress otherwise, and the wrapper
+// (ops/kernels/flash_attention.py) hands it a copy of any operand that
+// is not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
+using namespace flash;
+
+constexpr int kBlockQ = 64;         // queries a block
+constexpr int kWarps = 4;           // 16 queries a warp
+static_assert(16 * kWarps == kBlockQ, "a warp owns 16 rows");
 constexpr float kNegInf = -1e30f;
 
+// keys a streamed tile
 template <int D>
-constexpr size_t smem_bytes() {
-  // K tile + V tile + column-major score tile; the Q/O staging tile
-  // (kBlockQ x (D+1)) reuses the K/V area.
-  return sizeof(float) * (2 * kBlockK * D + kBlockK * kBlockQ);
+__host__ __device__ constexpr int fwd_keys() {
+  return D > 64 ? 32 : 64;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBlockQ)
+__host__ __device__ constexpr int fwd_stage_floats() {
+  return 2 * fwd_keys<D>() * D + fwd_keys<D>();     // K, V, bias row
+}
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  // Q (resident) + 2 x (K, V tiles, bias row)
+  return sizeof(float) * (kBlockQ * D + 2 * fwd_stage_floats<D>());
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kWarps, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const float* __restrict__ bias, float* __restrict__ o,
@@ -63,92 +94,124 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int64_t q_bs, int64_t q_hs, int64_t q_rs, int64_t kv_bs,
                  int64_t kv_hs, int64_t kv_rs, float scale, int causal,
                  int q_off, int k_off) {
-  static_assert(2 * kBlockK * D >= kBlockQ * (D + 1), "staging area");
-  extern __shared__ float smem[];
-  float* ks = smem;                 // kBlockK x D
-  float* vs = ks + kBlockK * D;     // kBlockK x D
-  float* ss = vs + kBlockK * D;     // scores, ss[j * kBlockQ + r]
-  float* stage = smem;              // kBlockQ x (D + 1), Q in / O out
+  constexpr int kKeys = fwd_keys<D>();
+  constexpr int kNt = kKeys / 8;                 // n-tiles of a score tile
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kStage = fwd_stage_floats<D>();
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // kBlockQ x D
+  float* ring = qs + kBlockQ * D;                // 2 stages
 
   const int g = blockIdx.y;
   const int n = g / n_head;
   const int h = g % n_head;
-  const int qb = blockIdx.x;
-  const int r = threadIdx.x;
-  const int q_pos = qb * kBlockQ + r;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = (tid >> 5) * 16;                // the warp's queries
 
-  const float* qg = q + n * q_bs + h * q_hs;
   const float* kg = k + n * kv_bs + h * kv_hs;
   const float* vg = v + n * kv_bs + h * kv_hs;
-  float* og = o + n * q_bs + h * q_hs;
-  const float* bg = bias != nullptr ? bias + (int64_t)n * t_k : nullptr;
+  const float* bg = bias != nullptr ? bias + static_cast<int64_t>(n) * t_k
+                                    : nullptr;
 
-  for (int idx = r; idx < kBlockQ * D; idx += kBlockQ) {
-    const int rr = idx / D, dd = idx % D;
-    const int qp = qb * kBlockQ + rr;
-    stage[rr * (D + 1) + dd] = qp < t_q ? qg[qp * q_rs + dd] : 0.f;
+  // causal: K tiles from n_kt on lie wholly above the diagonal
+  int n_kt = (t_k + kKeys - 1) / kKeys;
+  if (causal) {
+    const int x = q_off + q0 + kBlockQ - k_off;
+    n_kt = x <= 0 ? 0 : min(n_kt, (x + kKeys - 1) / kKeys);
   }
-  __syncthreads();
-  float qreg[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) qreg[d] = stage[r * (D + 1) + d];
-  __syncthreads();
+  auto issue_kv = [&](int kb, float* stage) {
+    const int kk0 = kb * kKeys;
+    stage_rows<D>(stage, kg, kv_rs, kk0, t_k, kKeys, kThreads);
+    stage_rows<D>(stage + kKeys * D, vg, kv_rs, kk0, t_k, kKeys, kThreads);
+    stage_row(stage + 2 * kKeys * D, bg, kk0, t_k, kKeys, 0, k);
+  };
 
-  float m = kNegInf, l = 0.f;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  stage_rows<D>(qs, q + n * q_bs + h * q_hs, q_rs, q0, t_q, kBlockQ,
+                kThreads);
+  if (n_kt > 0) issue_kv(0, ring);
+  cp_commit();
 
-  const int n_kb = (t_k + kBlockK - 1) / kBlockK;
-  for (int kb = 0; kb < n_kb; ++kb) {
-    // causal: this and every later K tile lies wholly above the diagonal
-    if (causal && q_off + (qb + 1) * kBlockQ <= k_off + kb * kBlockK) break;
-    for (int idx = r; idx < kBlockK * D; idx += kBlockQ) {
-      const int jj = idx / D, dd = idx % D;
-      const int kp = kb * kBlockK + jj;
-      const bool in = kp < t_k;
-      ks[idx] = in ? kg[kp * kv_rs + dd] : 0.f;
-      vs[idx] = in ? vg[kp * kv_rs + dd] : 0.f;
-    }
-    __syncthreads();
-    float tmax = kNegInf;
-    for (int j = 0; j < kBlockK; ++j) {
-      const int kp = kb * kBlockK + j;
-      float dot = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};   // rows gq and gq + 8 of the warp
+  float l_r[2] = {0.f, 0.f};           // this lane's part of the row sum
+  float acc[D / 8][4];
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot += qreg[d] * ks[j * D + d];
-      float sc = dot * scale;
-      const bool valid =
-          kp < t_k && (!causal || q_off + q_pos >= k_off + kp);
-      if (bg != nullptr && kp < t_k) sc += bg[kp];
-      sc = valid ? sc : kNegInf;
-      ss[j * kBlockQ + r] = sc;
-      tmax = fmaxf(tmax, sc);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+  for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = expf(ss[j * kBlockQ + r] - m_new);
-      l += p;
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+
+  for (int kb = 0; kb < n_kt; ++kb) {
+    cp_wait_all();
+    __syncthreads();        // tile kb is in; the other stage is free
+    if (kb + 1 < n_kt) issue_kv(kb + 1, ring + ((kb + 1) & 1) * kStage);
+    cp_commit();
+    const float* kts = ring + (kb & 1) * kStage;
+    const float* vts = kts + kKeys * D;
+    const float* bias_s = vts + kKeys * D;
+    const int kk0 = kb * kKeys;
+
+    float s[kNt][4];
+    tile_scores<D, kNt>(s, qs, m0, kts, gq, tq);      // S = Q K^T
+    float tmax[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] += p * vs[j * D + d];
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int qp = q0 + m0 + gq + 8 * (r >> 1);
+        const int kc = 8 * j + 2 * tq + (r & 1);
+        const int kp = kk0 + kc;
+        const bool valid =
+            kp < t_k && (!causal || q_off + qp >= k_off + kp);
+        s[j][r] = valid ? s[j][r] * scale + bias_s[kc] : kNegInf;
+        tmax[r >> 1] = fmaxf(tmax[r >> 1], s[j][r]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      const float m_new = fmaxf(m_r[i], tmax[i]);
+      alpha[i] = expf(m_r[i] - m_new);
+      m_r[i] = m_new;
+      l_r[i] *= alpha[i];
     }
-    m = m_new;
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[j][r] = expf(s[j][r] - m_r[r >> 1]);       // p
+        l_r[r >> 1] += s[j][r];
+      }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[nt][r] *= alpha[r >> 1];
+    tile_product<D, kNt, D>(acc, s, vts, 0, gq, tq);  // O += P V
   }
 
-  const float lc = fmaxf(l, 1e-30f);
+  float lse_r[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) stage[r * (D + 1) + d] = acc[d] / lc;
-  if (q_pos < t_q) lse[(int64_t)g * t_q + q_pos] = m + logf(lc);
-  __syncthreads();
-  for (int idx = r; idx < kBlockQ * D; idx += kBlockQ) {
-    const int rr = idx / D, dd = idx % D;
-    const int qp = qb * kBlockQ + rr;
-    if (qp < t_q) og[qp * q_rs + dd] = stage[rr * (D + 1) + dd];
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i] + __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lc = fmaxf(l, 1e-30f);
+    lse_r[i] = m_r[i] + logf(lc);
+    l_r[i] = lc;
+  }
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] /= l_r[r >> 1];
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(o + n * q_bs + h * q_hs, q_rs, acc, one, q0 + m0, 0, t_q,
+                gq, tq);
+  if (tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + m0 + gq + 8 * i;
+      if (row < t_q) lse[static_cast<int64_t>(g) * t_q + row] = lse_r[i];
+    }
   }
 }
 
@@ -159,13 +222,14 @@ int launch_d(const float* q, const float* k, const float* v,
              int64_t q_rs, int64_t kv_bs, int64_t kv_hs, int64_t kv_rs,
              float scale, int causal, int q_off, int k_off,
              cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  auto kernel = &flash_fwd_kernel<D>;
+  const size_t smem = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_q + kBlockQ - 1) / kBlockQ, n_batch * n_head);
-  flash_fwd_kernel<D><<<grid, kBlockQ, smem, stream>>>(
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(
       q, k, v, bias, o, lse, n_head, t_q, t_k, q_bs, q_hs, q_rs, kv_bs,
       kv_hs, kv_rs, scale, causal, q_off, k_off);
   return static_cast<int>(cudaGetLastError());
@@ -173,8 +237,10 @@ int launch_d(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// Strides are in elements.  bias may be NULL.  Returns the cudaError_t
-// of the launch (0 = success).
+// Strides are in elements; o has q's strides, v has k's.  bias may be
+// NULL.  Returns the cudaError_t of the launch (0 = success), or
+// cudaErrorMisalignedAddress when a row of q, k, v or o does not start
+// 16-byte aligned.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     void* lse, int n_batch, int n_head, int d, int t_q, int t_k,
@@ -184,6 +250,10 @@ extern "C" int flash_attention_fwd_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_batch == 0 || t_q == 0) return 0;
+  const void* const rows[4] = {q, k, v, o};
+  const int64_t strides[6] = {q_bs, q_hs, q_rs, kv_bs, kv_hs, kv_rs};
+  if (!rows_aligned(rows, 4, strides, 6))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -200,6 +270,10 @@ extern "C" int flash_attention_fwd_launch(
       return launch_d<64>(qf, kf, vf, bf, of, lf, n_batch, n_head, t_q, t_k,
                           q_bs, q_hs, q_rs, kv_bs, kv_hs, kv_rs, scale,
                           causal, q_off, k_off, st);
+    case 128:
+      return launch_d<128>(qf, kf, vf, bf, of, lf, n_batch, n_head, t_q,
+                           t_k, q_bs, q_hs, q_rs, kv_bs, kv_hs, kv_rs, scale,
+                           causal, q_off, k_off, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,8 +4,10 @@ Each `paddle_tpu_torch/csrc/<name>.cu` is one shared library with a plain
 C entry point, compiled by `nvcc` for Hopper (`sm_90a`) at first use and
 loaded with `ctypes` — no PyTorch headers, so a build takes seconds.
 Libraries go to `paddle_tpu_torch/_build/` (listed in .gitignore), named
-by a hash of the source and flags, so an edited source rebuilds and an
-unchanged one loads from disk.  Only sources in the package are built.
+by a hash of the source, the `csrc/` headers it includes (`#include
+"x.cuh"`, followed through the headers) and the flags, so an edited
+source or header rebuilds and an unchanged one loads from disk.  Only
+sources in the package are built.
 
 A build is counted as a compile in `observe.monitoring.runtime_stats`,
 so a kernel built after a serving engine's warmup shows up as
@@ -17,12 +19,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 from ...observe.monitoring import runtime_stats
 
@@ -47,9 +50,27 @@ def nvcc_path() -> str:
         "kernels build at first use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and the `csrc/` headers it includes with a quoted
+    `#include`, directly or through another header, in the order found."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo.extend(CSRC_DIR / inc
+                    for inc in _INCLUDE.findall(path.read_text()))
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

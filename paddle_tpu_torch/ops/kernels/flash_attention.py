@@ -13,23 +13,25 @@ layouts: "nthd" (N, T, H*D) head-grouped and "nhtd" (N, H, T, D).  The
 kernels take a key-padding bias broadcastable to (N, 1, 1, Tk), one row
 per batch element, never repeated per head.
 
-Kernels: csrc/flash_attention_fwd.cu (one block per (64-row q tile,
-batch*head), one thread per query row, float32 on the CUDA cores) and
-csrc/flash_attention_bwd.cu (dK/dV: one block per (128-key tile,
-batch*head), 8 warps of 16 keys; dQ: one block per (64-query tile,
-batch*head), 4 warps of 16 queries), whose products run on the tensor
-cores as 3xTF32 `mma.sync` (float32-accurate: every operand split into
-a TF32 big and small part).  Every operand is read in place through its
+Kernels: csrc/flash_attention_fwd.cu (one block per (64-query tile,
+batch*head), 4 warps of 16 queries, Q resident, K/V tiles streamed
+through a double-buffered cp.async ring, the online softmax per row in
+registers) and csrc/flash_attention_bwd.cu (dK/dV: one block per key
+tile, 8 warps; dQ: one block per (64-query tile, batch*head), 4 warps of
+16 queries), whose products all run on the tensor cores as 3xTF32
+`mma.sync` (float32-accurate: every operand split into a TF32 big and
+small part; the shared pieces are csrc/flash_mma.cuh).  Head dims 32, 64
+and 128 (`_HEAD_DIMS`).  Every operand is read in place through its
 batch, head and row strides, so a transposed view (the nhtd operands of
 the Transformer come straight from a transpose(perm=[0, 2, 1, 3])) and
 the cotangent autograd hands the backward are not copied; only a tensor
-whose last dimension is not contiguous is, and, for the backward's
-16-byte copies, one whose data pointer or batch/head/row strides are
-not multiples of 4 floats (`_aligned_rows`).  What bounds them on the
-card: bytes for the forward at the prefill shape, operations for the
-backward at the training shape (`tensor_core_bound_ms_bwd`: 3 TF32
-operations per product flop at the TF32 peak); the forward is held far
-above its bound by each thread's serial f32 FMA loop (PERF.md).
+the kernels' 16-byte copies cannot read in place is: one whose last
+dimension is not contiguous, or whose data pointer or batch/head/row
+strides are not multiples of 4 floats (`_aligned_rows`).  What bounds
+them on the card: the forward's bytes at the training shape and its
+3xTF32 operations at long T (`tensor_core_bound_ms`), the backward's
+operations (`tensor_core_bound_ms_bwd`); both count 3 TF32 operations
+per product flop at the TF32 peak (PERF.md).
 
 Plain versions: `flash_attention_fwd_plain` and `flash_attention_bwd_plain`,
 the same functions as dense torch compositions (the scores are
@@ -56,7 +58,7 @@ _NAME = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
 _DKV = "flash_attention_bwd_dkv"
 _DQ = "flash_attention_bwd_dq"
-_HEAD_DIMS = (32, 64)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def dims(q, k, layout, n_head):
@@ -182,19 +184,19 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
     if kind != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_kernel_operands(q, k, v, d)
-    q, k, v = (_unit_minor(x) for x in (q, k, v))
-    o = torch.empty_like(q)
+    q = _aligned_rows(q, layout, n, h, t_q, d)
+    k, v = (_aligned_rows(x, layout, n, h, t_k, d) for x in (k, v))
     view = {name: _heads(x, layout, n, h, t, d) for name, x, t in
-            (("q", q, t_q), ("k", k, t_k), ("v", v, t_k), ("o", o, t_q))}
+            (("q", q, t_q), ("k", k, t_k), ("v", v, t_k))}
     if view["k"].stride() != view["v"].stride():
-        k, v = k.contiguous(), v.contiguous()
+        k, v = (_fresh(x) for x in (k, v))
         view["k"], view["v"] = (_heads(x, layout, n, h, t_k, d)
                                 for x in (k, v))
-    if view["o"].stride() != view["q"].stride():
-        q = q.contiguous()
+    o = torch.empty_like(q)
+    if _heads(o, layout, n, h, t_q, d).stride() != view["q"].stride():
+        q = _fresh(q)
         o = torch.empty_like(q)
-        view["q"], view["o"] = (_heads(x, layout, n, h, t_q, d)
-                                for x in (q, o))
+        view["q"] = _heads(q, layout, n, h, t_q, d)
     lse = torch.empty((n * h, t_q), dtype=torch.float32, device=q.device)
     lib = _bind_fwd()
     rc = lib.flash_attention_fwd_launch(
@@ -360,7 +362,7 @@ def flash_attention(q, k, v, bias=None, scale=None, causal=False,
 
 def kernel_takes(q, k, v, d) -> bool:
     """Do the kernels take these operands: float32 q/k/v, head dim in
-    {32, 64}?  The op's route on the card (ops/attention.py);
+    {32, 64, 128}?  The op's route on the card (ops/attention.py);
     `_check_kernel_operands` raises on the same limits."""
     return all(t.dtype == torch.float32 for t in (q, k, v)) \
         and d in _HEAD_DIMS
@@ -377,21 +379,20 @@ def _check_kernel_operands(q, k, v, d):
                          f"takes the composed route")
 
 
-def _unit_minor(x):
-    """x itself when its last dimension is contiguous (the kernels read
-    any batch/head/row strides), else a contiguous copy."""
-    return x if x.stride(-1) == 1 else x.contiguous()
-
-
 def _aligned_rows(x, layout, n, h, t, d):
-    """x itself when the backward kernels' 16-byte copies read it in
-    place (last dimension contiguous, data pointer and batch, head and
-    row strides multiples of 4 floats), else a contiguous copy in fresh,
-    aligned memory (`contiguous()` would return a contiguous tensor
-    with a misaligned start as it is)."""
+    """x itself when the kernels' 16-byte copies read it in place (last
+    dimension contiguous, data pointer and batch, head and row strides
+    multiples of 4 floats), else a contiguous copy in fresh, aligned
+    memory."""
     if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
             s % 4 == 0 for s in _heads(x, layout, n, h, t, d).stride()[:3]):
         return x
+    return _fresh(x)
+
+
+def _fresh(x):
+    """A contiguous copy of x in fresh memory (`contiguous()` would return
+    a contiguous tensor with a misaligned start as it is)."""
     return torch.empty_like(x, memory_format=torch.contiguous_format) \
         .copy_(x)
 
@@ -436,7 +437,8 @@ def _visible_pairs(t_q, t_k, causal, q_offset=0, k_offset=0):
                for i in range(t_q))
 
 
-def bound_bytes_and_flops(q, k, bias, causal, layout, n_head):
+def bound_bytes_and_flops(q, k, bias, causal, layout, n_head, q_offset=0,
+                          k_offset=0):
     """(bytes, flops) the forward needs on these inputs: q, k, v, the
     bias rows and O, lse once; 4*D flops per (q, k) pair that the mask
     leaves visible (q.k and p.v) — data-dependent under causal."""
@@ -444,7 +446,24 @@ def bound_bytes_and_flops(q, k, bias, causal, layout, n_head):
     el = q.element_size()
     nbytes = (2 * n * h * t_q * d * el + 2 * n * h * t_k * d * el
               + n * h * t_q * 4 + (n * t_k * 4 if bias is not None else 0))
-    return nbytes, 4 * d * n * h * _visible_pairs(t_q, t_k, causal)
+    pairs = _visible_pairs(t_q, t_k, causal, q_offset, k_offset)
+    return nbytes, 4 * d * n * h * pairs
+
+
+def tensor_core_bound_ms(q, k, bias, causal, layout, n_head, q_offset=0,
+                         k_offset=0):
+    """(ms, by): the forward kernel's least time on the H100, the larger
+    of its bytes (`bound_bytes_and_flops`) at 3.35 TB/s and its two
+    matrix products as 3xTF32 tensor-core work, 3 TF32 operations for
+    each of the 4*D product flops of a visible pair at 495 TFLOP/s; `by`
+    names the larger, "bytes" or "operations".  The softmax's exp and
+    rescaling run on the CUDA cores beside them and are left out."""
+    nbytes, flops = bound_bytes_and_flops(q, k, bias, causal, layout,
+                                          n_head, q_offset, k_offset)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms \
+        else (ops_ms, "operations")
 
 
 def bound_bytes_and_flops_bwd(q, k, bias, causal, layout, n_head,

@@ -199,7 +199,8 @@ def test_kernel_predicates_on_shapes_and_dtypes():
 
     q = t(1, 2, 4, 64)
     assert fk.kernel_takes(q, q, q, 64) and fk.kernel_takes(q, q, q, 32)
-    assert not fk.kernel_takes(q, q, q, 128)
+    assert fk.kernel_takes(q, q, q, 128)
+    assert not fk.kernel_takes(q, q, q, 96)
     assert not fk.kernel_takes(q.double(), q.double(), q.double(), 64)
     assert not fk.kernel_takes(q.bfloat16(), q, q, 64)
 
@@ -228,9 +229,9 @@ def test_kernel_predicates_on_shapes_and_dtypes():
 
 
 def test_kernel_checks_name_the_roadmap_and_the_composed_route():
-    q = torch.zeros(1, 2, 4, 128)
+    q = torch.zeros(1, 2, 4, 96)
     with pytest.raises(ValueError, match="B.2.*use_pallas=False"):
-        fk._check_kernel_operands(q, q, q, 128)
+        fk._check_kernel_operands(q, q, q, 96)
     with pytest.raises(ValueError, match="B.2.*use_pallas=False"):
         vk._check_kernel(torch.zeros(4, 768), torch.zeros(768, 9),
                          torch.zeros(4, dtype=torch.int32))
@@ -276,8 +277,8 @@ def _flash_ins(d, seed=7):
 
 # each op with a shape its kernel refuses: (op, inputs, attrs, slots)
 REFUSED = {
-    "flash D=128": ("flash_attention", lambda: _flash_ins(128),
-                    {"causal": True}, ("Out",)),
+    "flash D=96": ("flash_attention", lambda: _flash_ins(96),
+                   {"causal": True}, ("Out",)),
     "vocab-CE D=768": ("fused_vocab_softmax_ce",
                        lambda: _vocab_ins(n=6, d=768, v=40, seed=8),
                        {"epsilon": 0.1}, ("Loss",)),

@@ -12,6 +12,10 @@ the kernels' constants.
 
 Tolerance 2e-5 (abs and rel): float32 throughout, summation order
 differs.
+
+Also: the forward kernel's error budget (csrc/flash_attention_fwd.cu
+emulated with tests/torch_tf32.py: one TF32 pass misses chip_smoke.py's
+TOL_KERNEL, 3xTF32 meets it) and its bounds.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as tk
 
 from op_test import run_op
 from torch_op_test import run_torch_op, to_torch
+from torch_tf32 import tc_matmul
 
 torch.set_num_threads(2)
 
@@ -58,8 +63,9 @@ def _plain(q, k, v, bias, causal, layout, h):
 @pytest.mark.parametrize("layout", ["nthd", "nhtd"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("with_bias", [True, False])
-def test_plain_matches_xla_twin(layout, causal, with_bias):
-    n, t, h, d = 3, 40, 2, 16
+@pytest.mark.parametrize("d", [16, 128])
+def test_plain_matches_xla_twin(layout, causal, with_bias, d):
+    n, t, h = 3, 40, 2
     q, k, v = _qkv(0, n, t, h, d, layout)
     bias = _key_bias([40, 17, 1], t) if with_bias else None
     jb = None if bias is None else jnp.asarray(bias)
@@ -76,10 +82,11 @@ def test_plain_matches_xla_twin(layout, causal, with_bias):
 
 @pytest.mark.parametrize("layout", ["nthd", "nhtd"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_matches_pallas_including_lse(layout, causal):
+@pytest.mark.parametrize("d", [16, 128])
+def test_plain_matches_pallas_including_lse(layout, causal, d):
     """T=40 against 16-row Pallas blocks (a ragged last block); one batch
     row has seq_len 0, so every key of it carries the -1e9 bias."""
-    n, t, h, d = 3, 40, 2, 16
+    n, t, h = 3, 40, 2
     q, k, v = _qkv(1, n, t, h, d, layout)
     bias = _key_bias([40, 0, 23], t)
     o, lse = pallas_flash_attention(
@@ -129,3 +136,95 @@ def test_bound_counts_the_visible_pairs():
         h)
     assert flops == 4 * d * n * h * (t * (t + 1) // 2)
     assert nbytes == 4 * (4 * n * t * h * d + n * h * t + n * t)
+
+
+def test_forward_tensor_core_bound():
+    """The forward's 3xTF32 bound at the training shape (N=64, H=8,
+    T=256, D=64): its bytes at 3.35 TB/s against 3 TF32 operations for
+    each of the 4*D product flops of a visible pair at 495 TFLOP/s."""
+    n, h, t, d = 64, 8, 256, 64
+    q = torch.empty(n, h, t, d, device="meta")
+    bias = torch.empty(n, 1, 1, t, device="meta")
+    nbytes = 4 * n * h * t * d * 4 + n * h * t * 4 + n * t * 4
+    for causal, pairs in ((True, t * (t + 1) // 2), (False, t * t)):
+        bytes_ms = nbytes / 3.35e12 * 1e3
+        ops_ms = 3 * 4 * d * n * h * pairs / 495e12 * 1e3
+        got = tk.tensor_core_bound_ms(q, q, bias, causal, "nhtd", None)
+        assert got == (pytest.approx(max(bytes_ms, ops_ms)),
+                       "bytes" if bytes_ms >= ops_ms else "operations")
+    assert tk.tensor_core_bound_ms(q, q, bias, True, "nhtd", None) == \
+        (pytest.approx(0.040241, abs=1e-6), "bytes")
+    assert tk.tensor_core_bound_ms(q, q, bias, False, "nhtd", None) == \
+        (pytest.approx(0.052060, abs=1e-6), "operations")
+    # with offsets only the pairs the mask leaves visible count: q_offset
+    # 0 and k_offset 1000 leave none
+    assert tk.tensor_core_bound_ms(q, q, bias, True, "nhtd", None, 0,
+                                   1000) == \
+        (pytest.approx(nbytes / 3.35e12 * 1e3), "bytes")
+
+
+# -- why the forward kernel splits 3xTF32 (csrc/flash_attention_fwd.cu) ---
+
+TOL_KERNEL = 2e-5   # chip_smoke.py phase 3: the kernel against plain
+
+
+def _tc_forward(q, k, v, bias, causal, scale, passes, keys):
+    """One head's forward as the kernel computes it: the online softmax
+    over `keys`-key tiles in float32, each tile's S = Q K^T over the
+    depth D in one tensor-core tile and its P V in its own accumulator,
+    added to the rescaled O in float32."""
+    f32 = np.float32
+    t_q, t_k = q.shape[0], k.shape[0]
+    m = np.full((t_q, 1), -1e30, f32)
+    l = np.zeros((t_q, 1), f32)
+    o = np.zeros((t_q, q.shape[1]), f32)
+    for k0 in range(0, t_k, keys):
+        kp = np.arange(k0, min(k0 + keys, t_k))
+        s = tc_matmul(q, k[kp].T, passes) * f32(scale) + bias[None, kp]
+        if causal:
+            s = np.where(np.arange(t_q)[:, None] >= kp[None, :], s,
+                         f32(-1e30))
+        m_new = np.maximum(m, s.max(axis=1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new).astype(f32)
+        l = l * alpha + p.sum(axis=1, keepdims=True, dtype=f32)
+        o = o * alpha + tc_matmul(p, v[kp], passes)
+        m = m_new
+    return o / np.maximum(l, f32(1e-30))
+
+
+@pytest.mark.parametrize("passes,meets", [(1, False), (3, True)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", ["nhtd", "nthd"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_error_budget_of_the_tensor_core_forward(causal, layout, d, passes,
+                                                 meets):
+    """The forward with both products emulated as TF32 tensor-core passes
+    over the kernel's key tiles (64 keys, 32 at D = 128), against the
+    float64 plain forward, on phase 3's kind of inputs (unit normal q,
+    k, v, a key-padding bias of ragged lengths, T = 256): one TF32 pass
+    misses TOL_KERNEL on O, 3xTF32 meets it."""
+    n, h, t = 2, 2, 256
+    rng = np.random.RandomState(3 + causal)
+    shape = (n, t, h * d) if layout == "nthd" else (n, h, t, d)
+    q, k, v = (torch.as_tensor(rng.randn(*shape)) for _ in range(3))
+    lens = np.array([t, 150])
+    bias = torch.as_tensor(((np.arange(t)[None, :] < lens[:, None]) * 1e9
+                            - 1e9).reshape(n, 1, 1, t))
+    scale = d ** -0.5
+    want, _ = tk.flash_attention_fwd_plain(q, k, v, bias, scale, causal,
+                                           layout, h)
+    want = tk._heads(want, layout, n, h, t, d).numpy()
+    f32 = np.float32
+    heads = [tk._heads(x, layout, n, h, t, d).numpy().astype(f32)
+             for x in (q, k, v)]
+    got = np.zeros((n, h, t, d), f32)
+    for i in range(n):
+        for j in range(h):
+            got[i, j] = _tc_forward(
+                *(x[i, j] for x in heads),
+                bias[i, 0, 0].numpy().astype(f32), causal, scale, passes,
+                keys=32 if d > 64 else 64)
+    err = float(np.abs(got - want).max())
+    assert (err <= TOL_KERNEL + TOL_KERNEL * float(np.abs(want).max())) \
+        == meets, err

@@ -74,11 +74,12 @@ def _lse_flat(lse, layout, n, h, t):
 @pytest.mark.parametrize("layout", ["nthd", "nhtd"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [40, 100])
-def test_plain_backward_matches_pallas_grad(layout, causal, t):
+@pytest.mark.parametrize("d", [16, 128])
+def test_plain_backward_matches_pallas_grad(layout, causal, t, d):
     """dq, dk, dv, dbias with an lse cotangent against jax.grad through
     the Pallas kernel's custom VJP (its _bwd_dkv_kernel/_bwd_dq_kernel
     in interpret mode)."""
-    n, h, d = 3, 2, 16
+    n, h = 3, 2
     q, k, v, do, bias, dlse = _case(t, n, t, h, d, layout, [t, 17, 1])
 
     def loss(q, k, v, b):
@@ -196,11 +197,11 @@ def test_backward_tensor_core_bounds():
 TOL_BWD = 2e-5      # chip_smoke.py phase 3b: the kernels against plain
 
 
-def _tc_backward(q, k, v, do, o, lse, bias, causal, scale, passes):
+def _tc_backward(q, k, v, do, o, lse, bias, causal, scale, passes, depth):
     """One head's backward with every product as the kernels compute it:
     s and dp over the depth D in one tensor-core tile, dV, dK and dQ over
-    64-deep tiles of queries or keys added in float32; p, ds and delta in
-    float32 as the kernels form them."""
+    `depth`-deep tiles of queries or keys added in float32; p, ds and
+    delta in float32 as the kernels form them."""
     t_q, t_k = q.shape[0], k.shape[0]
     s = tc_matmul(q, k.T, passes) * np.float32(scale) + bias[None, :]
     p = np.exp(s - lse[:, None])
@@ -211,22 +212,24 @@ def _tc_backward(q, k, v, do, o, lse, bias, causal, scale, passes):
     delta = (do * o).sum(axis=1, dtype=np.float32)
     ds = (p * (dp - delta[:, None])).astype(np.float32)
     p = p.astype(np.float32)
-    return (tc_matmul_tiled(ds, k, passes) * np.float32(scale),
-            tc_matmul_tiled(ds.T, q, passes) * np.float32(scale),
-            tc_matmul_tiled(p.T, do, passes))
+    return (tc_matmul_tiled(ds, k, passes, depth) * np.float32(scale),
+            tc_matmul_tiled(ds.T, q, passes, depth) * np.float32(scale),
+            tc_matmul_tiled(p.T, do, passes, depth))
 
 
 @pytest.mark.parametrize("passes,meets", [(1, False), (3, True)])
 @pytest.mark.parametrize("layout", ["nhtd", "nthd"])
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
 def test_error_budget_of_the_tensor_core_backward(causal, layout, passes,
-                                                  meets):
+                                                  meets, d):
     """The backward with every product emulated as TF32 tensor-core
     passes, against the float64 plain backward, on phase 3b's kind of
     inputs (unit normal q, k, v, dO, a key-padding bias of ragged
-    lengths, T = 256, D = 64): one TF32 pass misses TOL_BWD for each of
-    dq, dk and dv, 3xTF32 meets it."""
-    n, h, t, d = 2, 2, 256, 64
+    lengths, T = 256; the kernels' tiles of 64 queries or keys, 32 at
+    D = 128): one TF32 pass misses TOL_BWD for each of dq, dk and dv,
+    3xTF32 meets it."""
+    n, h, t = 2, 2, 256
     rng = np.random.RandomState(1 + causal)
     shape = (n, t, h * d) if layout == "nthd" else (n, h, t, d)
     q, k, v, do = (torch.as_tensor(rng.randn(*shape)) for _ in range(4))
@@ -247,7 +250,8 @@ def test_error_budget_of_the_tensor_core_backward(causal, layout, passes,
         for j in range(h):
             got[:, i, j] = _tc_backward(
                 *(x[i, j] for x in heads), lse4[i, j],
-                bias[i, 0, 0].numpy().astype(f32), causal, scale, passes)
+                bias[i, 0, 0].numpy().astype(f32), causal, scale, passes,
+                depth=32 if d > 64 else 64)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         b = tk._heads(b, layout, n, h, t, d).numpy()
         err = float(np.abs(a - b).max())

@@ -90,7 +90,7 @@ def test_paged_kernel_matches_plain(dev, kv_dtype, d):
 @pytest.mark.parametrize("layout", ["nthd", "nhtd"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [17, 64, 130])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_kernel_matches_plain(dev, layout, causal, t, d):
     n, h = 3, 4
     g = torch.Generator().manual_seed(t * d)
@@ -109,6 +109,56 @@ def test_flash_kernel_matches_plain(dev, layout, causal, t, d):
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     torch.testing.assert_close(o, wo, **TOL)
     torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("q_offset,k_offset", [(37, 5), (60, 0)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_kernel_with_offsets_matches_plain(dev, q_offset, k_offset,
+                                                 d):
+    """Causal with nonzero q/k offsets at T = 130 (ragged tiles), where
+    every query sees at least one key: the forward's per-fragment mask
+    and its causal tile skipping."""
+    q, k, v, _, bias, h = _bwd_case(dev, "nhtd", 130, d, seed=q_offset + d,
+                                    transposed=True)
+    args = (q, k, v, bias, None, True, "nhtd", h, q_offset, k_offset)
+    o, lse = fk.flash_attention_fwd(*args)
+    torch.cuda.synchronize()
+    wo, wl = fk.flash_attention_fwd_plain(*args)
+    torch.testing.assert_close(o, wo, **TOL)
+    torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("layout,transposed", [("nthd", False),
+                                               ("nhtd", True)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_takes_misaligned_operands(dev, layout, transposed,
+                                                d):
+    """q, k and v one float into their storage: the forward's 16-byte
+    copies need 16-byte-aligned rows, so the wrapper hands the kernel
+    aligned copies; O comes back in q's layout."""
+    q, k, v, _, bias, h = _bwd_case(dev, layout, 100, d, seed=8,
+                                    transposed=transposed, misaligned=True)
+    assert all(x.data_ptr() % 16 != 0 for x in (q, k, v))
+    args = (q, k, v, bias, None, True, layout, h)
+    before = kernels.launch_counts["flash_attention_fwd"]
+    o, lse = fk.flash_attention_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention_fwd"] == before + 1
+    wo, wl = fk.flash_attention_fwd_plain(*args)
+    assert o.shape == wo.shape
+    torch.testing.assert_close(o, wo, **TOL)
+    torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_gives_the_same_bits_twice(dev, d):
+    """Each block owns its output rows (no atomics), so two forward runs
+    on the same inputs agree bit for bit."""
+    q, k, v, _, bias, h = _bwd_case(dev, "nhtd", 256, d, h=8, seed=6,
+                                    transposed=True)
+    first = fk.flash_attention_fwd(q, k, v, bias, None, True, "nhtd", h)
+    again = fk.flash_attention_fwd(q, k, v, bias, None, True, "nhtd", h)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def _bwd_case(dev, layout, t, d, n=3, h=4, seed=0, transposed=False,
@@ -141,7 +191,7 @@ def _bwd_case(dev, layout, t, d, n=3, h=4, seed=0, transposed=False,
                                                ("nhtd", True)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [40, 100, 130])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_bwd_kernels_match_plain(dev, layout, transposed, causal, t,
                                        d):
     q, k, v, do, bias, h = _bwd_case(dev, layout, t, d, seed=t + d,
@@ -168,7 +218,7 @@ def test_flash_bwd_kernels_match_plain(dev, layout, transposed, causal, t,
 
 @pytest.mark.parametrize("q_offset,k_offset", [(37, 5), (0, 40),
                                                 (60, 0), (0, 200)])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_bwd_kernels_with_offsets_match_plain(dev, q_offset,
                                                     k_offset, d):
     """Causal with nonzero q/k offsets (a continuation, keys ahead of the
@@ -200,13 +250,14 @@ def test_flash_bwd_kernels_with_offsets_match_plain(dev, q_offset,
 @pytest.mark.parametrize("layout,transposed", [("nthd", False),
                                                ("nhtd", True)])
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
 def test_flash_bwd_kernels_take_misaligned_operands(dev, layout,
-                                                    transposed, causal):
+                                                    transposed, causal, d):
     """Operands one float into their storage: the kernels' 16-byte
     copies need 16-byte-aligned rows, so the wrapper hands them aligned
     copies; the result still matches the plain backward, in the
     operands' own layout and strides."""
-    q, k, v, do, bias, h = _bwd_case(dev, layout, 100, 64, seed=7,
+    q, k, v, do, bias, h = _bwd_case(dev, layout, 100, d, seed=7,
                                      transposed=transposed, misaligned=True)
     assert all(x.data_ptr() % 16 != 0 for x in (q, k, v, do))
     o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
@@ -225,10 +276,11 @@ def test_flash_bwd_kernels_take_misaligned_operands(dev, layout,
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_kernels_give_the_same_bits_twice(dev, causal):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_kernels_give_the_same_bits_twice(dev, causal, d):
     """Each block owns its dK/dV or dQ rows over the whole sum (no
     atomics), so two runs on the same inputs agree bit for bit."""
-    q, k, v, do, bias, h = _bwd_case(dev, "nhtd", 256, 64, n=3, h=8,
+    q, k, v, do, bias, h = _bwd_case(dev, "nhtd", 256, d, n=3, h=8,
                                      seed=5, transposed=True)
     o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
                                     layout="nhtd", n_head=h)
@@ -261,6 +313,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         fk.flash_attention_fwd(qf, qf, qf, torch.zeros(1, 1, 8, 8,
                                                        device=dev),
                                None, True, layout="nthd", n_head=1)
+    q96 = torch.zeros(2, 8, 96, device=dev)
+    with pytest.raises(ValueError, match="head dim 96"):
+        fk.flash_attention_fwd(q96, q96, q96, None, None, True,
+                               layout="nthd", n_head=1)
 
 
 def test_engine_on_cuda_matches_engine_on_cpu(dev):

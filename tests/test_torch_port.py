@@ -5,7 +5,8 @@
 - Places: without an explicit place the entry points mean CUDAPlace(0)
   and raise when CUDA is absent, instead of running on the CPU.
 - The CUDA sources of the ported kernels are in the package, each with
-  the C entry point its wrapper binds.
+  the C entry point its wrapper binds; a library's name hashes its
+  source and the csrc headers the source includes.
 - Not-ported options raise NotImplementedError naming the ROADMAP item.
 """
 
@@ -95,6 +96,25 @@ def test_kernel_sources_exist(name, entry):
     assert f'extern "C" int {entry}(' in text
     assert "paddle_tpu/ops/pallas/" in text     # names the TPU kernel
     assert _build.library_path(name).parent == _build.BUILD_DIR
+
+
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+    """Editing csrc/flash_mma.cuh renames the library of both flash
+    sources, which include it, and of no other source: an edited header
+    rebuilds, an unchanged source still loads from disk."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in (PKG / "csrc").iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    assert [p.name for p in _build.source_files("flash_attention_fwd")] == \
+        ["flash_attention_fwd.cu", "flash_mma.cuh"]
+    before = {n: _build.library_path(n) for n in _build.KERNEL_SOURCES}
+    with open(csrc / "flash_mma.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in _build.KERNEL_SOURCES}
+    changed = {n for n in _build.KERNEL_SOURCES if before[n] != after[n]}
+    assert changed == {"flash_attention_fwd", "flash_attention_bwd"}
 
 
 @pytest.mark.parametrize("kw,item", [
