@@ -1,22 +1,30 @@
 """In-turn comparison of two checkouts of the port on one NVIDIA GPU.
 
-    python3 chip_ab.py <tree A> <tree B>
+    python3 chip_ab.py <tree A> <tree B> [phase ...]
 
 Runs, for A, B, B and A in that order, each in its own process with that
 tree's own `chip_smoke.py` and `paddle_tpu_torch` (its kernels built from
-its own sources): the flash forward alone at the training shapes
-(`flash_fwd_at_training_shapes`), phase 6d (the long-context step, 6
-timed steps and a profiled window) and phase 6 (the unfused step, 10
-timed steps and a profiled window).  Comparing within one call, on one
-card, in turns, keeps the card, its power limit and its neighbours the
-same for both trees.  A tree is any directory holding a checkout, e.g.
-the parent commit unpacked with `git archive` into a directory that
+its own sources), the named phases of chip_smoke.py:
+
+    fwd     the flash forward alone at the training shapes
+            (`flash_fwd_at_training_shapes`)
+    stream  phase 4, the serving stream of 64 requests
+    6       the unfused Transformer step (10 timed steps, a profiled window)
+    6c      the fused-CE step (10 timed steps, a profiled window)
+    6d      the long-context step (6 timed steps, a profiled window)
+    6e      the stacked-LSTM step (10 timed steps, a profiled window)
+
+With no phase named it runs fwd, 6d and 6.  Comparing within one call,
+on one card, in turns, keeps the card, its power limit and its neighbours
+the same for both trees.  A tree is any directory holding a checkout,
+e.g. the parent commit unpacked with `git archive` into a directory that
 .gitignore lists.
 
-Prints one JSON line per run ({"tag", "tree", "card", "fwd_ms",
-"6d_step_ms", "6d_busy_ms", "6_step_ms", "6_busy_ms"}) and writes each
-run's full record to chip_smoke_out/ab_<tag>.json.  Exits non-zero when
-CUDA is absent or a run fails.
+Prints one JSON line per run ({"tag", "tree", "card", and per phase its
+step time, device-busy time a step and peak memory, the stream's
+tokens/s, or the forward's times}) and writes each run's full record to
+chip_smoke_out/ab_<tag>.json.  Exits non-zero when CUDA is absent or a
+run fails.
 """
 
 from __future__ import annotations
@@ -26,8 +34,38 @@ import os
 import subprocess
 import sys
 
+PHASES = ("fwd", "stream", "6", "6c", "6d", "6e")
+DEFAULT = ("fwd", "6d", "6")
 
-def run_one(tree: str, tag: str, out_dir: str) -> dict:
+
+def _run_phase(cs, name, dev, card):
+    if name == "fwd":
+        return cs.flash_fwd_at_training_shapes(dev)
+    if name == "stream":
+        return cs.phase_stream(dev)
+    if name == "6":
+        return cs.phase_train(dev, card, steps=10, profile="phase 6b")
+    if name == "6c":
+        return cs.phase_train(dev, card, "phase 6c", dict(use_fused_ce=True),
+                              steps=10, profile="phase 6c, profiled")
+    if name == "6d":
+        return cs.phase_train(dev, card, "phase 6d", cs.LONGCTX,
+                              batch=cs.LONGCTX_BATCH, steps=6,
+                              profile="phase 6d, profiled")
+    return cs.phase_train_lstm(dev, card)
+
+
+def _summary(name, rec):
+    if name == "fwd":
+        return {"fwd_ms": {k: r["ms"] for k, r in rec.items()}}
+    if name == "stream":
+        return {"stream_tokens_per_s": rec["tokens_per_s"]}
+    return {f"{name}_step_ms": rec["step_ms"],
+            f"{name}_busy_ms": rec["profile"]["device_busy_ms_per_step"],
+            f"{name}_peak_gb": rec["peak_mem_bytes"] / 1e9}
+
+
+def run_one(tree: str, tag: str, out_dir: str, phases) -> dict:
     """One tree's phases, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
     os.chdir(tree)
@@ -41,27 +79,23 @@ def run_one(tree: str, tag: str, out_dir: str) -> dict:
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     _build.build()
-    rec = {"tag": tag, "tree": tree, "card": card,
-           "fwd": cs.flash_fwd_at_training_shapes(dev),
-           "6d": cs.phase_train(dev, card, "phase 6d", cs.LONGCTX,
-                                batch=cs.LONGCTX_BATCH, steps=6,
-                                profile="phase 6d, profiled"),
-           "6": cs.phase_train(dev, card, steps=10, profile="phase 6b")}
+    rec = {"tag": tag, "tree": tree, "card": card}
+    out = {"tag": tag, "tree": tree, "card": card}
+    for name in phases:
+        rec[name] = _run_phase(cs, name, dev, card)
+        out.update(_summary(name, rec[name]))
     with open(os.path.join(out_dir, f"ab_{tag}.json"), "w") as f:
         json.dump(rec, f, indent=1, default=str)
-    return {"tag": tag, "tree": tree, "card": card,
-            "fwd_ms": {k: r["ms"] for k, r in rec["fwd"].items()},
-            "6d_step_ms": rec["6d"]["step_ms"],
-            "6d_busy_ms": rec["6d"]["profile"]["device_busy_ms_per_step"],
-            "6_step_ms": rec["6"]["step_ms"],
-            "6_busy_ms": rec["6"]["profile"]["device_busy_ms_per_step"]}
+    return out
 
 
 def main(argv) -> int:
-    if len(argv) == 4 and argv[0] == "--one":
-        print(json.dumps(run_one(*argv[1:])), flush=True)
+    if len(argv) == 5 and argv[0] == "--one":
+        print(json.dumps(run_one(*argv[1:4], argv[4].split(","))),
+              flush=True)
         return 0
-    if len(argv) != 2:
+    phases = tuple(argv[2:]) or DEFAULT
+    if len(argv) < 2 or any(p not in PHASES for p in phases):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -72,10 +106,11 @@ def main(argv) -> int:
         return 1
     out_dir = os.path.abspath("chip_smoke_out")
     os.makedirs(out_dir, exist_ok=True)
-    a, b = argv
+    a, b = argv[:2]
     for tree, tag in ((a, "A1"), (b, "B1"), (b, "B2"), (a, "A2")):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", tree, tag, out_dir],
+                               "--one", tree, tag, out_dir,
+                               ",".join(phases)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)

@@ -692,20 +692,33 @@ def _device_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def profiled_kernel_ms(fn, names, iters=20, warmup=3):
+def profiled_kernel_ms(fn, names, iters=20, warmup=3, attempts=3):
     """{name: mean device ms per launch} of the CUDA kernels whose name
     contains each of `names`, over `iters` calls of fn() under
-    torch.profiler (one wrapper call launches both backward kernels)."""
-    events = _profiled_device_events(fn, iters, warmup)
-    out = {}
-    for name in names:
-        evs = [e for e in events if name in e.key]
-        count = sum(e.count for e in evs)
-        if count != iters:
-            raise AssertionError(f"{name}: {count} launches profiled, "
-                                 f"want {iters}")
-        out[name] = sum(_device_us(e) for e in evs) / count / 1e3
-    return out
+    torch.profiler (one wrapper call launches both backward kernels).
+    The trace should see every launch of the measured step, but the
+    profiler has dropped records (1 of 5 dh launches in one run, 1-9 of
+    20 flash backward launches in another, on the same card): a trace
+    that missed some is taken again, up to `attempts` traces, and if none
+    saw them all, the mean is over the launches the fullest trace
+    recorded, which must be at least half of them."""
+    best = None
+    for attempt in range(attempts):
+        events = _profiled_device_events(fn, iters, warmup)
+        counts = {name: sum(e.count for e in events if name in e.key)
+                  for name in names}
+        if best is None or min(counts.values()) > min(best[1].values()):
+            best = (events, counts)
+        if all(c == iters for c in counts.values()):
+            break
+        log(f"  profiler trace {attempt + 1} saw {counts} launches, want "
+            f"{iters} each")
+    events, counts = best
+    if min(counts.values()) * 2 < iters:
+        raise AssertionError(f"launches profiled {counts}, want {iters} "
+                             f"each (at least half), in {attempts} traces")
+    return {name: sum(_device_us(e) for e in events if name in e.key)
+            / counts[name] / 1e3 for name in names}
 
 
 def profiled_call_ms(fn, iters=20, warmup=3):
@@ -895,8 +908,7 @@ def phase_vocab_kernels(dev):
 
     log("phase 3c: vocab-CE kernels vs plain versions on the card")
     for fn, used in ptxas_summary(_build.build_log("vocab_ce")):
-        if fn.startswith(("vocab_ce_dh_kernel", "vocab_ce_dw_kernel")):
-            log(f"  ptxas {fn}: {used}")
+        log(f"  ptxas {fn}: {used}")
     n, d, v = TRAIN_BATCH * TRAIN_ARCH["max_length"], \
         TRAIN_ARCH["d_model"], TRAIN_ARCH["trg_vocab_size"]
     cases = [("train eps=0.1", (n, d, v, 0.1, 16)),
@@ -922,6 +934,21 @@ def phase_vocab_kernels(dev):
         errs["dw"].append(check_close(f"vocab_ce dW {name}", dw, wdw,
                                       TOL_VOCAB))
         del wdh, wdw, want
+        # labels outside [0, V) select no logit: z_label is NEG there
+        n_tok, n_voc = lbl.shape[0], w.shape[1]
+        raw_lbl = torch.where(torch.arange(n_tok, device=dev) % 7 == 0,
+                              torch.where(lbl % 2 == 0, -1, n_voc + 7),
+                              lbl).to(torch.int32)
+        got_raw = vk.vocab_ce_fwd(h, w, raw_lbl)
+        want_raw = vk.vocab_ce_fwd_plain(h, w, raw_lbl)
+        bad = (raw_lbl < 0) | (raw_lbl >= n_voc)
+        if not torch.equal(got_raw[1][bad], want_raw[1][bad]):
+            raise AssertionError(f"vocab_ce fwd {name}: a label outside "
+                                 f"[0, V) selected a logit")
+        errs["fwd"].append(check_close(
+            f"vocab_ce fwd {name} z_label, labels outside [0, V) beside",
+            got_raw[1][~bad], want_raw[1][~bad], TOL_VOCAB))
+        del got_raw, want_raw
         if i:
             continue
         # one block owns its rows or columns over the whole sum, no atomics
@@ -929,7 +956,12 @@ def phase_vocab_kernels(dev):
         if not (torch.equal(again[0], dh) and torch.equal(again[1], dw)):
             raise AssertionError("vocab_ce bwd: two runs at the training "
                                  "shape differ")
-        log("  two backward runs at the training shape bit-equal")
+        again = vk.vocab_ce_fwd(h, w, lbl)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError("vocab_ce fwd: two runs at the training "
+                                 "shape differ")
+        log("  two forward and two backward runs at the training shape "
+            "bit-equal")
         del again
         # the library's label-smoothed CE is the same loss (through the
         # clamp of fused_vocab_ce on the raw labels)
@@ -991,8 +1023,9 @@ def _time_vocab(vk, h, w, lbl, g, eps):
                           shape=f"N={n} D={d} V={v} f32 eps={eps}")
         extra = ""
         if k in tc_bound:
-            # dh and dW run 3xTF32 on the tensor cores: their least time
-            # is 3 * 4NDV TF32 operations at the TF32 peak
+            # the three run 3xTF32 on the tensor cores: their least time
+            # is 3 * 2NDV (forward) or 3 * 4NDV TF32 operations at the
+            # TF32 peak
             rows[full]["bound_ms"] = tc_bound[k]
             extra = f" tensor_core_3xtf32_bound_ms {tc_bound[k]:.5f}"
         log(f"  {full}: kernel_ms {k_ms:.5f} f32_bound_ms {b_ms:.5f} "
@@ -1023,14 +1056,25 @@ def lstm_case(dev, t, n, h, seed, lengths=None):
 
 
 def phase_lstm_kernels(dev):
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import lstm as lk
 
     log("phase 3d: LSTM recurrence kernels vs plain versions on the card")
+    for fn, used in ptxas_summary(_build.build_log("lstm")):
+        log(f"  ptxas {fn}: {used}")
     t, n, h = LSTM_ARCH["max_len"], LSTM_BATCH, LSTM_ARCH["hidden_dim"]
     cases = [("train", (t, n, h, None), False),
              ("train reversed", (t, n, h, None), True),
              ("ragged N=5 T=7 H=24", (7, 5, 24, [7, 0, 1, 4, 6]), False),
-             ("ragged reversed", (7, 5, 24, [7, 0, 1, 4, 6]), True)]
+             ("ragged reversed", (7, 5, 24, [7, 0, 1, 4, 6]), True),
+             # several 64-row tiles over the backward's two row groups, the
+             # last one ragged
+             ("N=300 T=9 H=512", (9, 300, h, None), False),
+             ("N=300 T=9 H=512 reversed", (9, 300, h, None), True),
+             ("N=1 T=1 H=512", (1, 1, h, None), False),
+             ("H=4 N=3 T=6", (6, 3, 4, [6, 0, 3]), False),
+             ("all rows frozen", (7, 9, 40, [0] * 9), False),
+             ("all rows frozen reversed", (7, 9, 40, [0] * 9), True)]
     errs = {"fwd": [], "bwd": []}
     timed = None
     for i, (name, (ct, cn, ch, lens), rev) in enumerate(cases):
@@ -1065,21 +1109,71 @@ def phase_lstm_kernels(dev):
                                iters=3, warmup=1)}
     lib = _cudnn_lstm_ms(dev, t, n, h)
     bounds = lk.bound_bytes_and_flops(t, n, h)
+    tc_bound = lk.tensor_core_bound_ms(t, n, h)
     rows = {}
     for k, full in (("fwd", "lstm_fwd"), ("bwd", "lstm_bwd")):
         b_ms, b_by = bound_ms(*bounds[k])
         rows[full] = dict(
             ms=ms[k], plain_ms=ms[f"{k}_plain"], library_ms=lib[k],
-            bound_ms=b_ms, bound_by=b_by, bytes=bounds[k][0],
-            flops=bounds[k][1], max_abs_err=max(errs[k]),
+            bound_ms=b_ms, bound_by=b_by, f32_bound_ms=b_ms,
+            bytes=bounds[k][0], flops=bounds[k][1],
+            max_abs_err=max(errs[k]),
             shape=f"T={t} N={n} H={h} f32, lengths {t // 2}..{t}, "
                   f"h0/c0 non-zero")
-        log(f"  {full}: kernel_ms {ms[k]:.5f} bound_ms {b_ms:.5f} ({b_by}) "
-            f"plain_ms {ms[f'{k}_plain']:.5f} library_ms {lib[k]:.5f}")
+        extra = ""
+        if k in tc_bound:
+            # the backward runs 3xTF32 on the tensor cores: its least time
+            # is 3 * 6*T*N*H*4H TF32 operations at the TF32 peak
+            rows[full]["bound_ms"] = tc_bound[k]
+            extra = f" tensor_core_3xtf32_bound_ms {tc_bound[k]:.5f}"
+        log(f"  {full}: kernel_ms {ms[k]:.5f} f32_bound_ms {b_ms:.5f} "
+            f"({b_by}){extra} plain_ms {ms[f'{k}_plain']:.5f} "
+            f"library_ms {lib[k]:.5f}")
+    rows["lstm_bwd"]["l2"] = _l2_probe(dev, lk, n, h)
     log("  (library: torch.nn.LSTM, cuDNN, one layer over (128, 128, 512) "
         "at full lengths; it also contains the x-projection, so it is set "
         "against fc + kernel)")
     return rows
+
+
+def _l2_bytes_per_step(n, h):
+    """{design: bytes}: what the backward's blocks read and write through
+    L2 in one step at N rows and H units (the carries and xs aside).
+    The earlier CUDA-core design: H / 4 blocks each read h_{t-1} twice and
+    all of dg (N x 4H).  The tensor-core design: 2 row groups x H / 8
+    blocks each read their N / 2 rows of h_{t-1} once, write their
+    partial dh (N / 2 x H) and read the H / 8 partials of their own 8
+    units (N / 2 x 8 each)."""
+    el, u = 4, -(-h // 8)
+    old = (h // 4) * (2 * n * h + n * 4 * h) * el
+    rows = n / 2
+    new = 2 * u * (rows * h + rows * h + u * rows * 8) * el
+    return {"cuda_cores": old, "tensor_cores": int(new)}
+
+
+def _l2_probe(dev, lk, n, h):
+    """The card's L2 read rate as the backward's blocks see it: 128 blocks
+    each read all of one 1 MB buffer (ld.global.cg, eight 16-byte loads
+    in flight a thread), and one block alone; beside it the L2 bytes a
+    step of the old and new backward designs at N x H."""
+    buf = torch.ones(2 ** 18, device=dev)          # 1 MB
+    res = {}
+    for blocks in (128, 1):
+        ms = cuda_ms(lambda: lk.l2_read_probe(buf, blocks), iters=50,
+                     warmup=5)
+        res[f"{blocks}_blocks"] = dict(
+            us=ms * 1e3, gb_per_s=buf.numel() * 4 * blocks / ms / 1e6)
+    steps = _l2_bytes_per_step(n, h)
+    rate = res["128_blocks"]["gb_per_s"] * 1e9
+    res["bytes_per_step"] = steps
+    res["us_per_step_at_probe_rate"] = {k: v / rate * 1e6
+                                        for k, v in steps.items()}
+    log(f"  L2 probe: 128 blocks x 1 MB in {res['128_blocks']['us']:.2f} "
+        f"us ({res['128_blocks']['gb_per_s']:.1f} GB/s), one block "
+        f"{res['1_blocks']['gb_per_s']:.1f} GB/s; backward L2 bytes a step "
+        f"at N={n} H={h}: {steps} = "
+        f"{res['us_per_step_at_probe_rate']} us at the probe's rate")
+    return res
 
 
 def _cudnn_lstm_ms(dev, t, n, h):
@@ -1791,9 +1885,12 @@ def main() -> int:
         ptxas[name] = ptxas_summary(_build.build_log(name))
         for fn, used in ptxas[name]:
             log(f"  {name}: {fn}: {used}")
-    if not any(fn.startswith(("vocab_ce_dh_kernel<", "vocab_ce_dw_kernel<"))
-               for fn, _ in ptxas["vocab_ce"]):
-        raise AssertionError("no ptxas line for the vocab-CE dh/dW kernels")
+    for src, kern in (("vocab_ce", "vocab_ce_fwd_kernel<"),
+                      ("vocab_ce", "vocab_ce_dh_kernel<"),
+                      ("vocab_ce", "vocab_ce_dw_kernel<"),
+                      ("lstm", "lstm_bwd_kernel")):
+        if not any(fn.startswith(kern) for fn, _ in ptxas[src]):
+            raise AssertionError(f"no ptxas line for {kern.rstrip('<')}")
 
     from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 

@@ -34,29 +34,59 @@
 //    (streamed through shared memory in 64-deep chunks, the next chunk
 //    prefetched into registers) with its W slice; a thread owns 2 rows x
 //    the 4 gates of one unit, so the gate arithmetic is thread-local.
-//  - backward, phase 1: the same product recomputes the gates; the thread
-//    forms dg for its columns, writes them to dxs[t] (the exchange buffer
-//    of phase 2) and to shared memory, and the block adds h_{t-1}^T dg
-//    into its (H x 16) slice of dW, held in shared memory for the whole
-//    sequence and written once at the end.  Grid barrier.  Phase 2: the
-//    block reads all of dxs[t] (from L2) and forms dh_{t-1} for its own
-//    units with its 4 rows of W (a second resident slice).  Phase 1 of the
-//    next step needs only the block's own dh, so one barrier a step is
-//    enough.  The (dh, dc) carries live in the dh0 / dc0 outputs.
-//    No atomics anywhere: two runs give the same bits.
+//  - backward (the tensor cores, 3xTF32 mma.sync with the fragments,
+//    split and accumulation rule of csrc/flash_mma.cuh): the grid is 2
+//    row groups x ceil(H / 8) unit groups (128 blocks at H = 512); block
+//    (g, u) owns units 8u .. 8u+7, their 32 gate columns, and the 64-row
+//    tiles g, g + 2, .. of the batch.  Its (H x 32) slice of W stays in
+//    shared memory for all T steps.  Per step and tile the block stages
+//    its 64 rows of h_{t-1} once (cp.async, 128 KB at H = 512) and reads
+//    them both ways: as A of the gate recompute (8 rows x 4 depths) and as
+//    A of dW = h^T dg (4 rows x 8 depths); every such tile is XOR-swizzled
+//    (row bits 0, 1, 2 to column bits 3, 4, 2), so both reads hit 32
+//    distinct banks.  Phase 1: the gate recompute (64 x 32, K = H) runs on
+//    8 warps, 4 row tiles x 2 halves of the depth, each 64-deep K-slice
+//    in its own tensor-core accumulators (even and odd 8-deep steps
+//    apart) added to float32 registers; the halves swap the rows each
+//    keeps through shared memory, and lane (gq, tq) of a warp then holds
+//    the four gates of units tq and 4 + tq for one row (the column order
+//    16 (u >> 2) + 8 (q >> 1) + 2 (u & 3) + (q & 1) for gate q of unit u
+//    makes that so), forms their dg, writes dxs[t] and stores dg split
+//    into big / small planes.  dW (H x 32) += h^T dg: warp w owns rows
+//    w, w + 8, .. of H in 16-row tiles; each tile's product goes into
+//    fresh accumulators and is added to float32 registers that hold the
+//    row group's dW for the whole launch.  Then the block's partial dh,
+//    transposed (H x 64) = W_slice dg^T with K = 32, goes to a scratch
+//    laid out [destination unit group][source unit group][row][8 units]
+//    (two such buffers, by the parity of t, so that no block overwrites a
+//    partial another block has yet to read).  Grid barrier.  Phase 2:
+//    each block sums, for its rows, the ceil(H / 8) partials of its own 8
+//    units in a fixed order (a quarter of the sources a lane, then
+//    xor-shuffles), which is dh_{t-1}.  A step thus moves 48 MB through
+//    L2 at N = 128, H = 512 (each block: its 64 rows of h_{t-1}, 128 KB of
+//    partials out and 128 KB in), where the CUDA-core design (H / 4
+//    blocks each reading h_{t-1} twice and all of dg) moved 192 MB.  The
+//    next step's h rows are copied, and its elementwise operands loaded,
+//    while the partial product, the barrier and phase 2 run.  At the end
+//    the two row groups' dW meet in the scratch and are added in group
+//    order.  The (dh, dc) carries live in the dh0 / dc0 outputs.  No
+//    atomics anywhere: two runs give the same bits.
 // Ragged sizes: any N >= 1, T >= 1; H a multiple of 4, H <= 512.  Rows
 // past N and depths past H are zero in the staged tiles and are never
 // written.
 //
-// What bounds them on the H100 (float32 peak 67 TFLOP/s, 3.35 TB/s):
-// operations on paper (forward 2 T N H 4H, backward 6 T N H 4H with the
-// recompute); in fact the chain of T dependent barriers and the re-reads
-// of h_{t-1} and dg from L2 by every block (PERF.md has the times).
+// What bounds them on the H100 (float32 peak 67 TFLOP/s, TF32 tensor
+// cores 495 TFLOP/s, 3.35 TB/s): operations on paper (forward 2 T N H 4H,
+// backward 6 T N H 4H with the recompute, three TF32 passes each on the
+// tensor cores); in fact the chain of T dependent barriers and the
+// per-step traffic through L2 (PERF.md has the times).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -155,112 +185,6 @@ __device__ __forceinline__ void gate_product(float (&acc)[2][4],
   __syncthreads();
 }
 
-// dWs[k][u][g] += sum_n hprev[row0 + n][k] * dgs[n][u][g] over the tile's
-// 128 rows.  A thread owns 4 depths x the 4 gates of one unit over a
-// quarter of the rows; the four quarters add into dWs one after another,
-// so the sum has one order.  Ends with a block barrier.
-__device__ __forceinline__ void dw_product(const float* hprev, int H, int row0,
-                                           int N, const float* dgs, float* dWs,
-                                           float* stage) {
-  const int u = threadIdx.x & 3, kq = (threadIdx.x >> 2) & 15;
-  const int ngrp = threadIdx.x >> 6;
-  const int nchunks = (H + kChunk - 1) / kChunk;
-  Stage st;
-  stage_load(st, hprev, H, row0, N, 0, H);
-  for (int c = 0; c < nchunks; ++c) {
-    float* buf = stage + (c & 1) * kStageFloats;
-    stage_store(st, buf);
-    __syncthreads();
-    if (c + 1 < nchunks) stage_load(st, hprev, H, row0, N, (c + 1) * kChunk, H);
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-    const float* a = buf + ngrp * 32 * kPitch + kq * 4;
-    const float* d = dgs + ngrp * 32 * kCols + u * 4;
-#pragma unroll 8
-    for (int n = 0; n < 32; ++n) {
-      const float4 hv = *reinterpret_cast<const float4*>(a + n * kPitch);
-      const float4 dv = *reinterpret_cast<const float4*>(d + n * kCols);
-      const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc[kk][0] = fmaf(hk[kk], dv.x, acc[kk][0]);
-        acc[kk][1] = fmaf(hk[kk], dv.y, acc[kk][1]);
-        acc[kk][2] = fmaf(hk[kk], dv.z, acc[kk][2]);
-        acc[kk][3] = fmaf(hk[kk], dv.w, acc[kk][3]);
-      }
-    }
-    float* o = dWs + (c * kChunk + kq * 4) * kCols + u * 4;
-    for (int p = 0; p < 4; ++p) {
-      if (ngrp == p) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float4* q = reinterpret_cast<float4*>(o + kk * kCols);
-          float4 v = *q;
-          v.x += acc[kk][0];
-          v.y += acc[kk][1];
-          v.z += acc[kk][2];
-          v.w += acc[kk][3];
-          *q = v;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// acc[r][u] = sum_c dxt[row0 + rp + 64 r][c] * Wr[u][c] over all G = 4H
-// gate columns, for the thread's row pair rp = tid >> 2; the four lanes
-// tid & 3 of a row pair each take every fourth float4 of a chunk and are
-// summed by shuffles (all four end with the total).  Wr has gpad columns,
-// zero past G.  Ends with a block barrier.
-__device__ __forceinline__ void dh_product(float (&acc)[2][4], const float* dxt,
-                                           int G, int row0, int N,
-                                           const float* Wr, int gpad,
-                                           float* stage) {
-  const int kp = threadIdx.x & 3, rp = threadIdx.x >> 2;
-  const int nchunks = gpad / kChunk;
-  Stage st;
-  stage_load(st, dxt, G, row0, N, 0, G);
-  for (int c = 0; c < nchunks; ++c) {
-    float* buf = stage + (c & 1) * kStageFloats;
-    stage_store(st, buf);
-    __syncthreads();
-    if (c + 1 < nchunks) stage_load(st, dxt, G, row0, N, (c + 1) * kChunk, G);
-    const float* a0 = buf + rp * kPitch + kp * 4;
-    const float* a1 = buf + (rp + 64) * kPitch + kp * 4;
-    const float* wr = Wr + c * kChunk + kp * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 d0 = *reinterpret_cast<const float4*>(a0 + i * 16);
-      const float4 d1 = *reinterpret_cast<const float4*>(a1 + i * 16);
-#pragma unroll
-      for (int u = 0; u < kUnits; ++u) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(wr + u * gpad + i * 16);
-        acc[0][u] = fmaf(d0.x, wv.x, acc[0][u]);
-        acc[0][u] = fmaf(d0.y, wv.y, acc[0][u]);
-        acc[0][u] = fmaf(d0.z, wv.z, acc[0][u]);
-        acc[0][u] = fmaf(d0.w, wv.w, acc[0][u]);
-        acc[1][u] = fmaf(d1.x, wv.x, acc[1][u]);
-        acc[1][u] = fmaf(d1.y, wv.y, acc[1][u]);
-        acc[1][u] = fmaf(d1.z, wv.z, acc[1][u]);
-        acc[1][u] = fmaf(d1.w, wv.w, acc[1][u]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int u = 0; u < kUnits; ++u) {
-      acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], 1);
-      acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], 2);
-    }
-}
-
 // The block's slice of W as Ws[k][u][g] = W[k][g H + j0 + u], zero for
 // k >= H (hpad rows).
 __device__ __forceinline__ void load_w_slice(float* Ws, const float* w, int H,
@@ -341,6 +265,100 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- backward on the tensor cores ------------------------------------------
+
+constexpr int kBRows = 64;             // rows of a backward tile
+constexpr int kGroups = 2;             // row groups of the backward's grid
+constexpr int kBUnits = 8;             // hidden units a backward block owns
+constexpr int kBCols = 4 * kBUnits;    // their gate columns
+
+// A swizzled [rows][pitch] array, pitch a multiple of 32 (the h tile, the
+// W slice, the dg planes): column bits 3, 4 and 2 take row bits 0, 1 and
+// 2, so a fragment read of 8 rows x 4 columns and one of 4 rows x 8
+// columns both hit 32 distinct banks, and 4-float chunks stay whole.
+__device__ __forceinline__ int ath(int r, int c, int pitch) {
+  return r * pitch + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+// Column of gate q of unit u among the block's 32: lane t of a C
+// fragment pair holds columns 2t, 2t+1 of two n-tiles, which are the four
+// gates of one unit.
+__device__ __forceinline__ int gate_col(int q, int u) {
+  return 16 * (u >> 2) + 8 * (q >> 1) + 2 * (u & 3) + (q & 1);
+}
+
+// Issue the copies of rows [row0, row0 + 64) of hprev (N x H) into the
+// swizzled tile, zeros past N and H, as one cp.async group.
+__device__ __forceinline__ void issue_h_tile(float* tile, const float* hprev,
+                                             int row0, int N, int H,
+                                             int pitch) {
+  const int chunks = pitch / 4;
+  for (int c = threadIdx.x; c < kBRows * chunks; c += kThreads) {
+    const int r = c / chunks, k = (c % chunks) * 4;
+    const int row = row0 + r;
+    const bool ok = row < N && k < H;
+    flash::cp16(tile + ath(r, k, pitch),
+                ok ? hprev + static_cast<size_t>(row) * H + k : hprev, ok);
+  }
+  flash::cp_commit();
+}
+
+// x = big + small (flash::split) for the four registers of a fragment.
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) flash::split(x[i], big[i], small[i]);
+}
+
+// The 3xTF32 passes of one k-step over NT tiles, small terms first.
+template <int NT>
+__device__ __forceinline__ void mma3(float (&c)[NT][4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[NT][2],
+                                     const uint32_t (&bs)[NT][2]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) flash::mma_tf32(c[j], as, bb[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) flash::mma_tf32(c[j], ab, bs[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) flash::mma_tf32(c[j], ab, bb[j]);
+}
+
+// A lane's elementwise operands of a tile: one row, units tq and 4 + tq
+// of the block's 8; dc holds the carry already, dh gets it at the tile.
+struct StepIn {
+  float x[2][4], cp[2], dh[2], dc[2];
+  bool in[2], ok;
+};
+
+__device__ __forceinline__ void load_step_in(
+    StepIn& s, const float* xs, const float* hs, const float* cs,
+    const float* c0, const float* dhs, const float* dcs, const int* sl,
+    const float* dc0, int t, int T, int rev, int n, int N, int H, int j0,
+    int tq) {
+  const size_t nh = static_cast<size_t>(N) * H;
+  const float* cprev = t ? cs + (t - 1) * nh : c0;
+  const bool row_ok = n < N;
+  s.ok = row_ok && step_valid(t, T, rev, sl[n]);
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    const int j = j0 + 4 * v + tq;
+    s.in[v] = row_ok && j < H;
+    s.cp[v] = s.dh[v] = s.dc[v] = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s.x[v][q] = 0.f;
+    if (s.in[v]) {
+      const size_t e = static_cast<size_t>(n) * H + j;
+      const float* xr = xs + t * nh * 4 + static_cast<size_t>(n) * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s.x[v][q] = __ldg(xr + q * H);
+      s.cp[v] = __ldg(cprev + e);
+      s.dh[v] = __ldg(dhs + t * nh + e);
+      s.dc[v] = __ldg(dcs + t * nh + e) + (t == T - 1 ? 0.f : __ldcg(dc0 + e));
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
     lstm_bwd_kernel(const float* __restrict__ xs, const float* __restrict__ w,
                     const float* __restrict__ h0, const float* __restrict__ c0,
@@ -348,122 +366,393 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ cs,
                     const float* __restrict__ dhs,
                     const float* __restrict__ dcs, float* dxs, float* dw,
-                    float* dh0, float* dc0, int T, int N, int H, int rev) {
+                    float* dh0, float* dc0, float* scratch, int T, int N,
+                    int H, int rev) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
-  const int hpad = round_up(H, kChunk);
-  const int G = 4 * H;
-  const int gpad = round_up(G, kChunk);
-  float* Ws = smem;                       // [hpad][4 units][4 gates]
-  float* Wr = Ws + hpad * kCols;          // [4 units][gpad]
-  float* dWs = Wr + kUnits * gpad;        // as Ws
-  float* stage = dWs + hpad * kCols;      // 2 x [128][kPitch]
-  float* dgs = stage + 2 * kStageFloats;  // [128][4 units][4 gates]
-  const int j0 = blockIdx.x * kUnits;
-  load_w_slice(Ws, w, H, hpad, j0);
-  for (int idx = threadIdx.x; idx < kUnits * gpad; idx += kThreads) {
-    const int uu = idx / gpad, c = idx % gpad;
-    Wr[idx] = c < G ? w[static_cast<size_t>(j0 + uu) * G + c] : 0.f;
-  }
-  for (int idx = threadIdx.x; idx < hpad * kCols; idx += kThreads)
-    dWs[idx] = 0.f;
-  __syncthreads();
-  const int u = threadIdx.x & 3, rp = threadIdx.x >> 2;
-  const int j = j0 + u;
+  const int G = 4 * H, U = (H + kBUnits - 1) / kBUnits;
+  const int hp32 = round_up(H, 32);
+  const int grp = blockIdx.x / U, ub = blockIdx.x % U;   // row group, units
+  const int j0 = ub * kBUnits;
+  float* wsl = smem;                        // [hp32][32] W slice, float32
+  float* tile = wsl + hp32 * kBCols;        // [64][hp32] h rows
+  uint32_t* dgb = reinterpret_cast<uint32_t*>(tile + kBRows * hp32);
+  uint32_t* dgs = dgb + kBRows * kBCols;    // [64][32] dg, big / small
+  float* xg = reinterpret_cast<float*>(dgs + kBRows * kBCols);
+                                            // [4][2][4][2][32] gate halves
+  float* partial = scratch;                 // 2 x [U][U][N][8]
+  float* dw_part = scratch + 2 * static_cast<size_t>(U) * U * N * kBUnits;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
   const size_t nh = static_cast<size_t>(N) * H;
+  const int first_row = kBRows * grp, stride = kBRows * kGroups;
+  const bool has_rows = first_row < N;
+  if (has_rows)     // the first tile lands while the W slice loads
+    issue_h_tile(tile, T > 1 ? hs + (T - 2) * nh : h0, first_row, N, H,
+                 hp32);
+  for (int idx = tid; idx < hp32 * kBCols; idx += kThreads) {
+    const int k = idx >> 5, c = idx & 31;
+    const int uu = 4 * (c >> 4) + ((c & 7) >> 1);
+    const int q = 2 * ((c >> 3) & 1) + (c & 1);
+    wsl[ath(k, c, kBCols)] =
+        k < H && j0 + uu < H ? w[static_cast<size_t>(k) * G + q * H + j0 + uu]
+                             : 0.f;
+  }
+  // gates: warp (mt, kh) forms rows mt*16 .. +16 x all 32 columns over
+  // half kh of the depth; the halves meet in shared memory, and lane
+  // (gq, tq) then owns row er = mt*16 + gq + 8 kh, units tq and 4 + tq,
+  // whose 4 gates are columns 2tq, 2tq+1 of n-tiles 0, 1 and 2, 3
+  const int mt = warp & 3, kh = warp >> 2;
+  const int er = mt * 16 + gq + 8 * kh;
+  // dW (H x 32) of the block's row group for the whole launch: warp w
+  // owns hidden row tiles w, w + 8, w + 16, w + 24 and the 4 column tiles
+  float dwacc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dwacc[i][nt][r] = 0.f;
+  const int nks = hp32 / 8, half = (nks + 1) / 2;
+  const int ks_lo = kh * half, ks_hi = min(nks, ks_lo + half);
+  StepIn in;
+  if (has_rows)
+    load_step_in(in, xs, hs, cs, c0, dhs, dcs, sl, dc0, T - 1, T, rev,
+                 first_row + er, N, H, j0, tq);
   for (int t = T - 1; t >= 0; --t) {
     const float* hprev = t ? hs + (t - 1) * nh : h0;
-    const float* cprev = t ? cs + (t - 1) * nh : c0;
-    const float* xt = xs + t * nh * 4;
-    const float* dht = dhs + t * nh;
-    const float* dct = dcs + t * nh;
     float* dxt = dxs + t * nh * 4;
+    float* part_t = partial + static_cast<size_t>(t & 1) * U * U * N * kBUnits;
     const bool last = t == T - 1;     // the carries start at zero
-    // phase 1: gates again, dg for the block's columns, dW
-    for (int row0 = 0; row0 < N; row0 += kRows) {
-      float x[2][4], cp[2], dh_in[2], dc_in[2];
-      bool ok[2];
+    for (int row0 = first_row; row0 < N; row0 += stride) {
+      const int n = row0 + er;
+      // the dh carry, from this block's phase 2 of the previous step
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int n = row0 + rp + 64 * r;
-        cp[r] = dh_in[r] = dc_in[r] = 0.f;
-        ok[r] = false;
+      for (int v = 0; v < 2; ++v)
+        if (in.in[v] && !last)
+          in.dh[v] += __ldcg(dh0 + static_cast<size_t>(n) * H + j0 + 4 * v +
+                             tq);
+      flash::cp_wait_all();
+      __syncthreads();      // the tile is in; the last tile's reads are done
+      float acc[4][4];      // gates: rows mt*16 + gq (+8) x 4 n-tiles
 #pragma unroll
-        for (int g = 0; g < 4; ++g) x[r][g] = 0.f;
-        if (n < N) {
-          const size_t e = static_cast<size_t>(n) * H + j;
-          const float* xr = xt + static_cast<size_t>(n) * G + j;
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-          for (int g = 0; g < 4; ++g) x[r][g] = __ldg(xr + g * H);
-          cp[r] = __ldg(cprev + e);
-          dh_in[r] = __ldg(dht + e) + (last ? 0.f : __ldcg(dh0 + e));
-          dc_in[r] = __ldg(dct + e) + (last ? 0.f : __ldcg(dc0 + e));
-          ok[r] = step_valid(t, T, rev, sl[n]);
+        for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+      for (int s0 = ks_lo; s0 < ks_hi; s0 += 8) {     // 64-deep K-slices
+        float pe[4][4], po[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pe[nt][r] = po[nt][r] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (s0 + i >= ks_hi) break;
+          const int kk = (s0 + i) * 8, r0 = mt * 16 + gq;
+          float a[4];
+          a[0] = tile[ath(r0, kk + tq, hp32)];
+          a[1] = tile[ath(r0 + 8, kk + tq, hp32)];
+          a[2] = tile[ath(r0, kk + tq + 4, hp32)];
+          a[3] = tile[ath(r0 + 8, kk + tq + 4, hp32)];
+          uint32_t ab[4], as[4];
+          split4(a, ab, as);
+          uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            flash::split(wsl[ath(kk + tq, nt * 8 + gq, kBCols)], bb[nt][0],
+                         bs[nt][0]);
+            flash::split(wsl[ath(kk + tq + 4, nt * 8 + gq, kBCols)],
+                         bb[nt][1], bs[nt][1]);
+          }
+          if (i & 1)
+            mma3<4>(po, ab, as, bb, bs);
+          else
+            mma3<4>(pe, ab, as, bb, bs);
         }
-      }
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      gate_product(acc, hprev, H, row0, N, Ws, stage);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int n = row0 + rp + 64 * r;
-        float4 dg = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (n < N) {
-          const float ca = tanhf(x[r][0] + acc[r][0]);
-          const float ig = sigmoid_f(x[r][1] + acc[r][1]);
-          const float fg = sigmoid_f(x[r][2] + acc[r][2]);
-          const float og = sigmoid_f(x[r][3] + acc[r][3]);
-          const float c_new = fg * cp[r] + ig * ca;
-          const float tc = tanhf(c_new);
-          const float dh_tot = dh_in[r], dc_pass = dc_in[r];
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[nt][r] += pe[nt][r] + po[nt][r];
+      }
+      // the rows the other half keeps go to it through shared memory
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          xg[(((mt * 2 + 1 - kh) * 4 + nt) * 2 + e) * 32 + lane] =
+              kh ? acc[nt][e] : acc[nt][2 + e];
+      __syncthreads();
+      // dg for the lane's row and two units: dxs[t], the dc carry, the
+      // split dg tile
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        float dg[4] = {0.f, 0.f, 0.f, 0.f};
+        const int j = j0 + 4 * v + tq;
+        if (in.in[v]) {
+          float pre[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int nt = 2 * v + (q >> 1), e = q & 1;
+            pre[q] = in.x[v][q] +
+                     ((kh ? acc[nt][2 + e] : acc[nt][e]) +
+                      xg[(((mt * 2 + kh) * 4 + nt) * 2 + e) * 32 + lane]);
+          }
+          const float ca = tanhf(pre[0]);
+          const float ig = sigmoid_f(pre[1]);
+          const float fg = sigmoid_f(pre[2]);
+          const float og = sigmoid_f(pre[3]);
+          const float cp = in.cp[v], dh_tot = in.dh[v], dc_pass = in.dc[v];
+          const float tc = tanhf(fg * cp + ig * ca);
           const float dc_tot = dc_pass + dh_tot * og * (1.f - tc * tc);
           float dc_carry = dc_pass;
-          if (ok[r]) {
-            dg.x = (dc_tot * ig) * (1.f - ca * ca);
-            dg.y = (dc_tot * ca) * ig * (1.f - ig);
-            dg.z = (dc_tot * cp[r]) * fg * (1.f - fg);
-            dg.w = (dh_tot * tc) * og * (1.f - og);
+          if (in.ok) {
+            dg[0] = (dc_tot * ig) * (1.f - ca * ca);
+            dg[1] = (dc_tot * ca) * ig * (1.f - ig);
+            dg[2] = (dc_tot * cp) * fg * (1.f - fg);
+            dg[3] = (dh_tot * tc) * og * (1.f - og);
             dc_carry = dc_tot * fg;
           }
           __stcg(dc0 + static_cast<size_t>(n) * H + j, dc_carry);
           float* xo = dxt + static_cast<size_t>(n) * G + j;
-          __stcg(xo, dg.x);
-          __stcg(xo + H, dg.y);
-          __stcg(xo + 2 * H, dg.z);
-          __stcg(xo + 3 * H, dg.w);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) __stcg(xo + q * H, dg[q]);
         }
-        *reinterpret_cast<float4*>(dgs + (rp + 64 * r) * kCols + u * 4) = dg;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t big, small;
+          flash::split(dg[q], big, small);
+          const int at = ath(er, gate_col(q, 4 * v + tq), kBCols);
+          dgb[at] = big;
+          dgs[at] = small;
+        }
       }
       __syncthreads();
-      dw_product(hprev, H, row0, N, dgs, dWs, stage);
-    }
-    __threadfence();
-    grid.sync();
-    // phase 2: dh_{t-1} for the block's units from all of dxs[t]
-    for (int row0 = 0; row0 < N; row0 += kRows) {
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      dh_product(acc, dxt, G, row0, N, Wr, gpad, stage);
-      if ((threadIdx.x & 3) == 0) {
+      // dW (H x 32) += h^T dg over the tile's 64 rows, two row tiles of H
+      // at a time; each tile's sum is added to dwacc in float32
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int n = row0 + rp + 64 * r;
-          if (n >= N) continue;
-          const bool valid = step_valid(t, T, rev, sl[n]);
+      for (int ip = 0; ip < 4; ip += 2) {
+        if ((warp + 8 * ip) * 16 >= H) break;
+        float part[2][4][4];
 #pragma unroll
-          for (int uu = 0; uu < kUnits; ++uu) {
-            const size_t e = static_cast<size_t>(n) * H + j0 + uu;
-            float v = acc[r][uu];
-            if (!valid) v = __ldg(dht + e) + (last ? 0.f : __ldcg(dh0 + e));
-            __stcg(dh0 + e, v);
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) part[i][nt][r] = 0.f;
+#pragma unroll 2
+        for (int ks = 0; ks < kBRows / 8; ++ks) {
+          const int kr = ks * 8;
+          uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int a0 = ath(kr + tq, nt * 8 + gq, kBCols);
+            const int a1 = ath(kr + tq + 4, nt * 8 + gq, kBCols);
+            bb[nt][0] = dgb[a0];
+            bb[nt][1] = dgb[a1];
+            bs[nt][0] = dgs[a0];
+            bs[nt][1] = dgs[a1];
           }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int m0 = (warp + 8 * (ip + i)) * 16;
+            if (m0 >= H) break;
+            float a[4];
+            a[0] = tile[ath(kr + tq, m0 + gq, hp32)];
+            a[1] = tile[ath(kr + tq, m0 + gq + 8, hp32)];
+            a[2] = tile[ath(kr + tq + 4, m0 + gq, hp32)];
+            a[3] = tile[ath(kr + tq + 4, m0 + gq + 8, hp32)];
+            uint32_t ab[4], as[4];
+            split4(a, ab, as);
+            mma3<4>(part[i], ab, as, bb, bs);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              dwacc[ip + i][nt][r] += part[i][nt][r];
+      }
+      __syncthreads();      // the tile is free: copy the next one
+      if (row0 + stride < N)
+        issue_h_tile(tile, hprev, row0 + stride, N, H, hp32);
+      else if (t > 0)
+        issue_h_tile(tile, t > 1 ? hs + (t - 2) * nh : h0, first_row, N, H,
+                     hp32);
+      // the block's partial dh, transposed: (H x 64) = W_slice dg^T, K = 32;
+      // warp w owns hidden row tiles w + 8i and all 8 row tiles of the tile
+      for (int i = 0; i < 4; ++i) {
+        const int m0 = (warp + 8 * i) * 16;
+        if (m0 >= H) break;
+        uint32_t ab[4][4], as[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          float a[4];
+          a[0] = wsl[ath(m0 + gq, ks * 8 + tq, kBCols)];
+          a[1] = wsl[ath(m0 + gq + 8, ks * 8 + tq, kBCols)];
+          a[2] = wsl[ath(m0 + gq, ks * 8 + tq + 4, kBCols)];
+          a[3] = wsl[ath(m0 + gq + 8, ks * 8 + tq + 4, kBCols)];
+          split4(a, ab[ks], as[ks]);
+        }
+        // lane (gq, tq) holds hidden units m0 + gq (+8): destination
+        // blocks m0 / 8 (+1), unit gq
+        const int d_lo = m0 >> 3;
+#pragma unroll
+        for (int ng = 0; ng < 8; ng += 4) {
+          float p[4][4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) p[nt][r] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int r = (ng + nt) * 8 + gq;
+              const int a0 = ath(r, ks * 8 + tq, kBCols);
+              const int a1 = ath(r, ks * 8 + tq + 4, kBCols);
+              bb[nt][0] = dgb[a0];
+              bb[nt][1] = dgb[a1];
+              bs[nt][0] = dgs[a0];
+              bs[nt][1] = dgs[a1];
+            }
+            mma3<4>(p, ab[ks], as[ks], bb, bs);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int dest = d_lo + (r >> 1);
+              const int row = row0 + (ng + nt) * 8 + 2 * tq + (r & 1);
+              if (dest < U && row < N)
+                __stcg(part_t + ((static_cast<size_t>(dest) * U + ub) * N +
+                                 row) * kBUnits + gq,
+                       p[nt][r]);
+            }
+        }
+      }
+      if (row0 + stride < N)       // the next tile of this step
+        load_step_in(in, xs, hs, cs, c0, dhs, dcs, sl, dc0, t, T, rev,
+                     row0 + stride + er, N, H, j0, tq);
+    }
+    grid.sync();
+    if (t > 0 && has_rows)         // the next step's first tile
+      load_step_in(in, xs, hs, cs, c0, dhs, dcs, sl, dc0, t - 1, T, rev,
+                   first_row + er, N, H, j0, tq);
+    // phase 2: dh_{t-1} of the block's units for its rows, the sum of the
+    // U partials; lane q takes sources q, q + 4, .. then xor-shuffles
+    const float* mine = part_t + static_cast<size_t>(ub) * U * N * kBUnits;
+    const int pr = tid >> 2, pq = tid & 3;
+    for (int nb = first_row; nb < N; nb += stride) {
+      const int n = nb + pr;
+      float sum[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) sum[u] = 0.f;
+      if (n < N) {
+#pragma unroll 8
+        for (int src = pq; src < U; src += 4) {
+          const float4* p = reinterpret_cast<const float4*>(
+              mine + (static_cast<size_t>(src) * N + n) * kBUnits);
+          const float4 lo = __ldcg(p), hi = __ldcg(p + 1);
+          sum[0] += lo.x;
+          sum[1] += lo.y;
+          sum[2] += lo.z;
+          sum[3] += lo.w;
+          sum[4] += hi.x;
+          sum[5] += hi.y;
+          sum[6] += hi.z;
+          sum[7] += hi.w;
+        }
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1)
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], x);
+      float mine2[2] = {sum[0], sum[1]};     // units 2 pq, 2 pq + 1
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        if (pq == k) {
+          mine2[0] = sum[2 * k];
+          mine2[1] = sum[2 * k + 1];
+        }
+      if (n < N) {
+        const bool valid = step_valid(t, T, rev, sl[n]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + 2 * pq + e;
+          if (j >= H) continue;
+          const size_t at = static_cast<size_t>(n) * H + j;
+          float v = mine2[e];
+          if (!valid)
+            v = __ldg(dhs + t * nh + at) + (last ? 0.f : __ldcg(dh0 + at));
+          __stcg(dh0 + at, v);
         }
       }
     }
     __syncthreads();
   }
-  for (int idx = threadIdx.x; idx < H * kCols; idx += kThreads) {
-    const int k = idx >> 4, uu = (idx >> 2) & 3, g = idx & 3;
-    dw[static_cast<size_t>(k) * G + g * H + j0 + uu] = dWs[idx];
+  // dW: each row group's partial, then their sum in group order
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m0 = (warp + 8 * i) * 16;
+    if (m0 >= H) break;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = m0 + gq + 8 * (r >> 1), c = nt * 8 + 2 * tq + (r & 1);
+        if (k < H)
+          __stcg(dw_part + ((static_cast<size_t>(grp) * U + ub) * H + k) *
+                               kBCols + c,
+                 dwacc[i][nt][r]);
+      }
   }
+  grid.sync();
+  // block (g, u) sums the groups' partials for rows g, g + 2, .. of H
+  for (int idx = tid; idx < H * kBCols; idx += kThreads) {
+    const int k = idx >> 5, c = idx & 31;
+    if (k % kGroups != grp) continue;
+    const int uu = 4 * (c >> 4) + ((c & 7) >> 1);
+    const int q = 2 * ((c >> 3) & 1) + (c & 1);
+    if (j0 + uu >= H) continue;
+    float v = 0.f;
+    for (int g = 0; g < kGroups; ++g)
+      v += __ldcg(dw_part + ((static_cast<size_t>(g) * U + ub) * H + k) *
+                                kBCols + c);
+    dw[static_cast<size_t>(k) * G + q * H + j0 + uu] = v;
+  }
+}
+
+// ---- a probe of the L2 read rate (chip_smoke.py, phase 3d) -----------------
+
+// Every block reads all n4 float4 of buf through L2 (ld.global.cg) and
+// writes one sum per warp to out[block][warp], so `blocks` blocks read
+// blocks x n4 x 16 bytes: the pattern of the backward's per-step reads,
+// where every block reads data that all blocks read.
+__global__ void __launch_bounds__(512)
+    cache_read_probe_kernel(const float4* __restrict__ buf, int n4,
+                            float* out) {
+  const int nt = blockDim.x;
+  float s = 0.f;
+  int i = threadIdx.x;
+  for (; i + 7 * nt < n4; i += 8 * nt) {
+    float4 v[8];      // eight loads in flight a thread
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = __ldcg(buf + i + k * nt);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+  }
+  for (; i < n4; i += nt) {
+    const float4 v = __ldcg(buf + i);
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+#pragma unroll
+  for (int x = 16; x; x >>= 1) s += __shfl_xor_sync(0xffffffffu, s, x);
+  if ((threadIdx.x & 31) == 0)
+    out[blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5)] = s;
 }
 
 size_t fwd_smem(int H) {
@@ -471,11 +760,14 @@ size_t fwd_smem(int H) {
           2 * kStageFloats) * sizeof(float);
 }
 
+// The W slice, the h tile, the split dg tile and the gate halves.
 size_t bwd_smem(int H) {
-  return (2 * static_cast<size_t>(round_up(H, kChunk)) * kCols +
-          static_cast<size_t>(kUnits) * round_up(4 * H, kChunk) +
-          2 * kStageFloats + kRows * kCols) * sizeof(float);
+  return (static_cast<size_t>(round_up(H, 32)) * kBCols +
+          static_cast<size_t>(kBRows) * round_up(H, 32) +
+          2 * kBRows * kBCols + 2048) * sizeof(float);
 }
+
+int bwd_blocks(int H) { return kGroups * ((H + kBUnits - 1) / kBUnits); }
 
 int check_dims(int t, int n, int h) {
   if (t < 1 || n < 1 || h < kUnits || h % kUnits || h > kMaxH) return -1;
@@ -533,25 +825,49 @@ extern "C" int lstm_fwd_launch(const void* xs, const void* w, const void* h0,
 }
 
 // As the forward, plus hs, cs (the forward's outputs) and the cotangents
-// dhs, dcs (t, n, h); outputs dxs (t, n, 4h), dw (h, 4h), dh0, dc0 (n, h).
+// dhs, dcs (t, n, h); outputs dxs (t, n, 4h), dw (h, 4h), dh0, dc0 (n, h);
+// scratch, float32 and 16-byte aligned, for the blocks' partial dh (two
+// buffers, by the parity of the step, of U x U x n x 8, U = ceil(h / 8))
+// and the two row groups' partial dW (2 x U x h x 32).
 extern "C" int lstm_bwd_launch(const void* xs, const void* w, const void* h0,
                                const void* c0, const void* sl, const void* hs,
                                const void* cs, const void* dhs,
                                const void* dcs, void* dxs, void* dw, void* dh0,
-                               void* dc0, int t, int n, int h, int rev,
-                               int device, void* stream) {
+                               void* dc0, void* scratch, int t, int n, int h,
+                               int rev, int device, void* stream) {
   int rc = check_dims(t, n, h);
   if (rc) return rc;
-  const int blocks = h / kUnits;
+  const int blocks = bwd_blocks(h);
   const size_t smem = bwd_smem(h);
   rc = prepare(reinterpret_cast<const void*>(lstm_bwd_kernel), blocks, smem,
                device);
   if (rc) return rc;
-  void* args[] = {&xs, &w,   &h0, &c0,  &sl,  &hs, &cs, &dhs, &dcs,
-                  &dxs, &dw, &dh0, &dc0, &t,  &n,  &h,  &rev};
+  void* args[] = {&xs,  &w,  &h0,  &c0,  &sl,      &hs, &cs,
+                  &dhs, &dcs, &dxs, &dw, &dh0, &dc0, &scratch,
+                  &t,   &n,  &h,   &rev};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(lstm_bwd_kernel), dim3(blocks),
       dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The L2 probe: `blocks` blocks of 512 threads each read buf (n4 float4,
+// 16-byte aligned); out holds blocks x 16 floats.  Each block asks for
+// 120 KB of shared memory it does not use, so that no two share an SM,
+// as the backward's blocks do not.
+extern "C" int l2_read_probe_launch(const void* buf, int n4, int blocks,
+                                    void* out, int device, void* stream) {
+  if (n4 < 1 || blocks < 1) return -1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kOneASm = 120 * 1024;
+  err = cudaFuncSetAttribute(cache_read_probe_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kOneASm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cache_read_probe_kernel<<<blocks, 512, kOneASm,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(buf), n4, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,17 +23,26 @@
 // kernel has one resident 64-row tile of an operand in shared memory and
 // streams the other operand through K-slices.
 //
-// Forward (float32 on the CUDA cores): a block owns 64 tokens (resident:
-// their h rows, 64 x 512 at a pitch of 513 floats) and walks the
-// vocabulary in 64-column tiles (streamed: W, 16-deep slices prefetched
-// through registers), computing each 64 x 64 tile of z with a 4 x 4
-// micro-tile per thread and keeping per thread and token a running max,
-// sum of exponentials, sum of logits and the label logit (the Pallas
-// grid's sequential vocab axis becomes this loop).  The 16 partial states
-// of a token are merged through shared memory at the end; the TPU's
-// 8-sublane replication of the stats is a TPU layout device and is not
-// carried over.  64-token tiles give 256 blocks at N = 16384 (two waves
-// on 132 SMs), where 128-token tiles would leave 4 SMs idle in one wave.
+// Forward (the tensor cores, as the backward below): a block owns 64
+// tokens, whose h rows stay resident in shared memory for the whole
+// launch ([t][d], pitch 512, swizzled as the dW kernel's resident tile),
+// and streams W through the same 3-stage cp.async ring of 32-deep K-slices
+// in 128-column tiles ([k][col], pitch 136 = 8 mod 32), one continuous
+// stream of slices across the vocabulary so that no tile waits for its
+// first slice (the Pallas grid's sequential vocab axis becomes this loop).
+// W is read once per token tile, h once in all.  A tile of z (64 tokens x
+// 128 columns) is 64 m16n8 tiles, 8 a warp (32 tokens x 32 columns).  Each
+// z element is formed exactly as the dh kernel recomputes it: h is the A
+// operand and W the B operand, each 32-deep slice summed in one tensor-
+// core accumulator (the small-big, big-small, big-big passes per 8-deep
+// step) and added to z in float32 slice after slice, so the lse the
+// backward reads and the z it recomputes come from the same bits.  On the
+// C fragments each lane keeps, for its 4 token rows and its 8 columns of
+// every tile, a running max, sum of exponentials, sum of logits and the
+// label logit; at the end the 4 lanes of a quad merge by xor-shuffles and
+// the 4 column warps of a token through shared memory, in a fixed order,
+// so two runs give the same bits.  64-token tiles give 256 blocks at
+// N = 16384 (two waves on 132 SMs).
 //
 // Backward (dh and dW, one body): the tensor cores, through
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, made float32-
@@ -101,9 +110,10 @@
 // What bounds them on the H100 (3.35 TB/s): operations.  At N = 16384
 // tokens (bench, 64 x 256, and long context, 2 x 8192), D = 512,
 // V = 32000: forward 2NDV = 0.54 TFLOP, 8.0 ms at the float32 peak of
-// 67 TFLOP/s; dh and dW each 4NDV = 1.07 TFLOP with the recompute,
-// 16.0 ms in float32, or 3 x 4NDV TF32 operations = 6.51 ms at the
-// 495 TFLOP/s TF32 tensor-core peak, which only wgmma reaches; the bytes
+// 67 TFLOP/s, or 3 x 2NDV TF32 operations = 3.25 ms at the 495 TFLOP/s
+// TF32 tensor-core peak, which only wgmma reaches; dh and dW each
+// 4NDV = 1.07 TFLOP with the recompute, 16.0 ms in float32, or
+// 3 x 4NDV TF32 operations = 6.51 ms on the tensor cores; the bytes
 // (h 34 MB, W 66 MB) are under 0.1 ms.  wgmma with TMA, whose tf32
 // operands must be K-major in shared memory (W in the recompute and h in
 // dW are not), is the next step.
@@ -116,179 +126,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 64;          // rows of the resident tile, of z tiles
-constexpr int kBK = 16;            // depth of a streamed K-slice
-constexpr int kAP = kTile + 4;     // pitch of the forward's W slice
 constexpr int kMaxD = 512;         // D is held whole
-constexpr int kRP = kMaxD + 1;     // pitch of the resident tile
 constexpr float kNeg = -1e30f;     // the reference's NEG
 
-constexpr size_t kResFloats = static_cast<size_t>(kTile) * kRP;
-constexpr size_t kSliceFloats = static_cast<size_t>(kBK) * kAP;
-constexpr size_t kFwdSmem =
-    (kResFloats + kSliceFloats + 4 * 16 * kTile) * sizeof(float);
+// ---- shared by the three kernels ------------------------------------------
 
-// The forward's streamed operand, W[:, v0:v0+64]: element (k, m),
-// k < D, m < 64, at base[k * sk + m]; zero outside k < kmax, m < mmax.
-struct Streamed {
-  const float* base;
-  int64_t sk;
-  int kmax, mmax;
-};
-
-__device__ __forceinline__ void load_slice(const Streamed& a, int k0,
-                                           float (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int k = k0 + idx / kTile, m = idx % kTile;
-    r[i] = (k < a.kmax && m < a.mmax) ? a.base[k * a.sk + m] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_slice(float* as, const float (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    as[(idx / kTile) * kAP + idx % kTile] = r[i];
-  }
-}
-
-// res[r][c] (r < 64, c < 512) = base[r * sr + c], zero outside r < rmax,
-// c < cmax (the forward's h rows).  Threads walk c, so the global reads
-// are coalesced; at pitch 513 a warp's writes hit distinct banks.
-__device__ __forceinline__ void load_res(float* res, const float* base,
-                                         int64_t sr, int rmax, int cmax) {
-#pragma unroll 8
-  for (int idx = threadIdx.x; idx < kTile * kMaxD; idx += kThreads) {
-    const int r = idx / kMaxD, c = idx % kMaxD;
-    res[r * kRP + c] = (r < rmax && c < cmax) ? base[r * sr + c] : 0.f;
-  }
-}
-
-// z[i][j] = sum_{k < d} A(k, ty*4 + i) * res[tx + 16*j][k], with A
-// streamed through `as`.  Starts with a barrier, so whatever was written
-// into `res` or `as` before the call is visible, and reads of `as` from
-// before the call are finished.
-__device__ __forceinline__ void z_tile(const Streamed& a, float* as,
-                                       const float* res, int d,
-                                       float (&z)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) z[i][j] = 0.f;
-  float r[4];
-  load_slice(a, 0, r);
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    __syncthreads();
-    store_slice(as, r);
-    __syncthreads();
-    if (k0 + kBK < d) load_slice(a, k0 + kBK, r);   // in flight meanwhile
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(&as[kk * kAP + ty * 4]);
-      float b[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = res[(tx + 16 * j) * kRP + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        z[0][j] = fmaf(av.x, b[j], z[0][j]);
-        z[1][j] = fmaf(av.y, b[j], z[1][j]);
-        z[2][j] = fmaf(av.z, b[j], z[2][j]);
-        z[3][j] = fmaf(av.w, b[j], z[3][j]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-vocab_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                    const int* __restrict__ labels, float* __restrict__ lse,
-                    float* __restrict__ z_label, float* __restrict__ z_sum,
-                    int n, int d, int v) {
-  extern __shared__ float smem[];
-  float* res = smem;                       // the block's h rows
-  float* as = res + kResFloats;            // W slices
-  float* merge = as + kSliceFloats;        // [4][16 ty][64 tokens]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int t0 = blockIdx.x * kTile;
-  load_res(res, h + static_cast<int64_t>(t0) * d, d, n - t0, d);
-  // this thread's partial state for tokens t0 + tx + 16j over the
-  // vocabulary rows ty*4 .. ty*4+3 of every tile
-  int lbl[4];
-  float m[4], s[4], zs[4], zl[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int t = t0 + tx + 16 * j;
-    lbl[j] = t < n ? labels[t] : -1;
-    m[j] = kNeg;
-    s[j] = 0.f;
-    zs[j] = 0.f;
-    zl[j] = kNeg;
-  }
-  for (int v0 = 0; v0 < v; v0 += kTile) {
-    const Streamed a{w + v0, v, d, v - v0};
-    float z[4][4];
-    z_tile(a, as, res, d, z);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float mx = m[j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (v0 + ty * 4 + i < v) mx = fmaxf(mx, z[i][j]);
-      float sum = s[j] * expf(m[j] - mx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = v0 + ty * 4 + i;
-        if (col < v) {
-          sum += expf(z[i][j] - mx);
-          zs[j] += z[i][j];
-          if (col == lbl[j]) zl[j] = z[i][j];
-        }
-      }
-      m[j] = mx;
-      s[j] = sum;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = tx + 16 * j;
-    merge[(0 * 16 + ty) * kTile + c] = m[j];
-    merge[(1 * 16 + ty) * kTile + c] = s[j];
-    merge[(2 * 16 + ty) * kTile + c] = zs[j];
-    merge[(3 * 16 + ty) * kTile + c] = zl[j];
-  }
-  __syncthreads();
-  if (threadIdx.x < kTile && t0 + threadIdx.x < n) {
-    const int c = threadIdx.x;
-    float mx = kNeg;
-    for (int y = 0; y < 16; ++y) mx = fmaxf(mx, merge[y * kTile + c]);
-    float sum = 0.f, zsum = 0.f, zlab = kNeg;
-    for (int y = 0; y < 16; ++y) {
-      sum += merge[(16 + y) * kTile + c] * expf(merge[y * kTile + c] - mx);
-      zsum += merge[(32 + y) * kTile + c];
-      zlab = fmaxf(zlab, merge[(48 + y) * kTile + c]);
-    }
-    const int t = t0 + c;
-    lse[t] = mx + logf(sum);
-    z_label[t] = zlab;
-    z_sum[t] = zsum;
-  }
-}
-
-// ---- backward: dh and dW on the tensor cores (3xTF32 mma.sync) ----------
-
-constexpr int kBwdBK = 32;                 // depth of a streamed K-slice
+constexpr int kBK = 32;                 // depth of a streamed K-slice
 constexpr int kStages = 3;                 // cp.async ring of K-slices
-constexpr int kPitchHS = kBwdBK + 4;       // h slice as [row][k]: 36 = 4 mod 32
+constexpr int kPitchHS = kBK + 4;       // h slice as [row][k]: 36 = 4 mod 32
 constexpr int kPitchWS = kTile + 8;        // W slice as [k][col]: 72 = 8 mod 32
 constexpr int kStageFloats = kTile * kPitchHS;
-static_assert(kTile * kPitchHS == kBwdBK * kPitchWS, "one stage size");
+static_assert(kTile * kPitchHS == kBK * kPitchWS, "one stage size");
 constexpr int kDzPitch = kTile + 4;        // dz as [owner][inner]: 68 = 4 mod 32
-constexpr int kBwdResFloats = kTile * kMaxD;
+constexpr int kResFloats = kTile * kMaxD;
 constexpr size_t kBwdSmem =
-    (static_cast<size_t>(kBwdResFloats) + kStages * kStageFloats +
+    (static_cast<size_t>(kResFloats) + kStages * kStageFloats +
      2 * kTile * kDzPitch + 3 * kTile) * sizeof(float);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -413,6 +265,252 @@ __device__ __forceinline__ void issue_slice(const float* __restrict__ h,
   }
 }
 
+// ---- forward: lse, z_label, z_sum on the tensor cores (3xTF32) --------
+
+constexpr int kFwdCols = 128;              // vocabulary columns of a z tile
+constexpr int kPitchFS = kFwdCols + 8;     // W slice [k][col]: 136 = 8 mod 32
+constexpr int kFwdStageFloats = kBK * kPitchFS;
+constexpr size_t kFwdSmem =
+    (static_cast<size_t>(kResFloats) + kStages * kFwdStageFloats +
+     4 * 4 * kTile) * sizeof(float);
+
+// Issue the copies of K-slice kb..kb+31 of W[:, v0:v0+128] into `stage`
+// ([k][col]): 1024 four-float chunks, four a thread; zeros past d and v.
+template <bool VEC>
+__device__ __forceinline__ void issue_fwd_slice(const float* __restrict__ w,
+                                                int d, int v, int v0, int kb,
+                                                float* stage) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = threadIdx.x + q * kThreads;
+    const int k = c >> 5, cc = (c & 31) * 4;
+    const int col = v0 + cc;
+    float* dst = stage + k * kPitchFS + cc;
+    const float* src = w + static_cast<int64_t>(kb + k) * v + col;
+    if (VEC) {
+      const bool ok = kb + k < d && col < v;
+      cp16(dst, ok ? src : w, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = kb + k < d && col + e < v;
+        cp4(dst + e, ok ? src + e : w, ok);
+      }
+    }
+  }
+}
+
+// Fold z (one row, the lane's 8 columns of a tile; only `valid` ones) into
+// the running state: max m, sum of exponentials s, sum of logits zs and
+// the label logit zl.
+__device__ __forceinline__ void fold_row(const float (&z)[8],
+                                         const int (&col)[8], int v, int lbl,
+                                         float& m, float& s, float& zs,
+                                         float& zl) {
+  float mx = m;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (col[e] < v) mx = fmaxf(mx, z[e]);
+  float sum = s * expf(m - mx);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (col[e] < v) {
+      sum += expf(z[e] - mx);
+      zs += z[e];
+      if (col[e] == lbl) zl = z[e];
+    }
+  }
+  m = mx;
+  s = sum;
+}
+
+// (m, s, zs, zl) merged with another partial state of the same token.
+__device__ __forceinline__ void merge_state(float& m, float& s, float& zs,
+                                            float& zl, float m2, float s2,
+                                            float zs2, float zl2) {
+  const float mx = fmaxf(m, m2);
+  s = s * expf(m - mx) + s2 * expf(m2 - mx);
+  m = mx;
+  zs += zs2;
+  zl = fmaxf(zl, zl2);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+vocab_ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                    const int* __restrict__ labels, float* __restrict__ lse,
+                    float* __restrict__ z_label, float* __restrict__ z_sum,
+                    int n, int d, int v) {
+  extern __shared__ float smem[];
+  float* res = smem;                          // the block's h rows
+  float* ring = res + kResFloats;          // W K-slices
+  float* merge = ring + kStages * kFwdStageFloats;   // [4 stats][4 cw][64]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;    // fragment row / column
+  const int rw = warp & 1, cw = warp >> 1;    // 32 tokens x 32 columns
+  const int o0 = blockIdx.x * kTile;
+  const int ns = (d + kBK - 1) / kBK;
+  const int kd = ns * kBK;                 // staged depths, zero past d
+  // the resident h rows, in a group of their own ahead of the slices
+  for (int c = tid; c < kTile * (kd / 4); c += kThreads) {
+    const int r = c / (kd / 4), k = (c % (kd / 4)) * 4;
+    const int tok = o0 + r;
+    float* dst = res + res_at<false>(r, k);
+    const float* src = h + static_cast<int64_t>(tok) * d + k;
+    if (VEC) {
+      const bool ok = tok < n && k < d;
+      cp16(dst, ok ? src : h, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = tok < n && k + e < d;
+        cp4(dst + e, ok ? src + e : h, ok);
+      }
+    }
+  }
+  cp_commit();
+  const int n_slices = (v + kFwdCols - 1) / kFwdCols * ns;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_slices)
+      issue_fwd_slice<VEC>(w, d, v, (s / ns) * kFwdCols, (s % ns) * kBK,
+                           ring + s * kFwdStageFloats);
+    cp_commit();
+  }
+  // the lane's 4 token rows: (m, h2) -> rw*32 + m*16 + gq + 8*h2
+  int lbl[4];
+  float st_m[4], st_s[4], st_zs[4], st_zl[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = o0 + rw * 32 + (r >> 1) * 16 + gq + 8 * (r & 1);
+    lbl[r] = t < n ? labels[t] : -1;
+    st_m[r] = kNeg;
+    st_s[r] = 0.f;
+    st_zs[r] = 0.f;
+    st_zl[r] = kNeg;
+  }
+  float zf[2][4][4];
+  for (int s = 0; s < n_slices; ++s) {
+    cp_wait<kStages - 2>();
+    __syncthreads();    // slice s is in; slice s-1's stage is free
+    const int sn = s + kStages - 1;
+    if (sn < n_slices)
+      issue_fwd_slice<VEC>(w, d, v, (sn / ns) * kFwdCols, (sn % ns) * kBK,
+                           ring + (sn % kStages) * kFwdStageFloats);
+    cp_commit();
+    const int j = s % ns;
+    if (j == 0) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) zf[m][j2][r] = 0.f;
+    }
+    const float* st = ring + (s % kStages) * kFwdStageFloats;
+    const int kb = j * kBK;
+    float zp[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) zp[m][j2][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int orow = rw * 32 + m * 16 + gq;
+        split(res[res_at<false>(orow, kb + kk + tq)], ab[m][0], as[m][0]);
+        split(res[res_at<false>(orow + 8, kb + kk + tq)], ab[m][1],
+              as[m][1]);
+        split(res[res_at<false>(orow, kb + kk + tq + 4)], ab[m][2],
+              as[m][2]);
+        split(res[res_at<false>(orow + 8, kb + kk + tq + 4)], ab[m][3],
+              as[m][3]);
+      }
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        const int col = cw * 32 + j2 * 8 + gq;
+        split(st[(kk + tq) * kPitchFS + col], bb[j2][0], bs[j2][0]);
+        split(st[(kk + tq + 4) * kPitchFS + col], bb[j2][1], bs[j2][1]);
+      }
+      // 3xTF32 in the dh kernel's order, pass by pass over 8 tiles
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma_tf32(zp[m][j2], as[m], bb[j2]);
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma_tf32(zp[m][j2], ab[m], bs[j2]);
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma_tf32(zp[m][j2], ab[m], bb[j2]);
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) zf[m][j2][r] += zp[m][j2][r];
+    if (j != ns - 1) continue;
+    // the tile is whole: fold it into the lane's running states
+    const int v0 = (s / ns) * kFwdCols;
+    int col[8];
+#pragma unroll
+    for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        col[j2 * 2 + e] = v0 + cw * 32 + j2 * 8 + 2 * tq + e;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float z[8];
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          z[j2 * 2 + e] = zf[r >> 1][j2][2 * (r & 1) + e];
+      fold_row(z, col, v, lbl[r], st_m[r], st_s[r], st_zs[r], st_zl[r]);
+    }
+  }
+  // merge the 4 lanes of each quad (xor-shuffles: every lane ends with the
+  // same bits), then the 4 column warps of each token in order
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1)
+      merge_state(st_m[r], st_s[r], st_zs[r], st_zl[r],
+                  __shfl_xor_sync(0xffffffffu, st_m[r], x),
+                  __shfl_xor_sync(0xffffffffu, st_s[r], x),
+                  __shfl_xor_sync(0xffffffffu, st_zs[r], x),
+                  __shfl_xor_sync(0xffffffffu, st_zl[r], x));
+    if (tq == 0) {
+      const int row = rw * 32 + (r >> 1) * 16 + gq + 8 * (r & 1);
+      merge[(0 * 4 + cw) * kTile + row] = st_m[r];
+      merge[(1 * 4 + cw) * kTile + row] = st_s[r];
+      merge[(2 * 4 + cw) * kTile + row] = st_zs[r];
+      merge[(3 * 4 + cw) * kTile + row] = st_zl[r];
+    }
+  }
+  __syncthreads();
+  if (tid < kTile && o0 + tid < n) {
+    float m = merge[tid], s = merge[4 * kTile + tid];
+    float zs = merge[8 * kTile + tid], zl = merge[12 * kTile + tid];
+    for (int c = 1; c < 4; ++c)
+      merge_state(m, s, zs, zl, merge[c * kTile + tid],
+                  merge[(4 + c) * kTile + tid], merge[(8 + c) * kTile + tid],
+                  merge[(12 + c) * kTile + tid]);
+    const int t = o0 + tid;
+    lse[t] = m + logf(s);
+    z_label[t] = zl;
+    z_sum[t] = zs;
+  }
+}
+
 // The dh (DH = true) and dW (DH = false) kernels: see the design notes.
 template <bool DH, bool VEC>
 __device__ __forceinline__ void bwd_body(
@@ -422,7 +520,7 @@ __device__ __forceinline__ void bwd_body(
     int v, float eps) {
   extern __shared__ float smem[];
   float* res = smem;                          // resident inner tile
-  float* ring = res + kBwdResFloats;          // streamed K-slices
+  float* ring = res + kResFloats;          // streamed K-slices
   uint32_t* dzb = reinterpret_cast<uint32_t*>(ring + kStages * kStageFloats);
   uint32_t* dzs = dzb + kTile * kDzPitch;     // dz split, [owner][inner]
   float* sstat = reinterpret_cast<float*>(dzs + kTile * kDzPitch);
@@ -433,7 +531,7 @@ __device__ __forceinline__ void bwd_body(
   const int o0 = blockIdx.x * kTile;          // first owned token / column
   const float keep = 1.f - eps, spread = eps / v;
   // depths past the last slice are never staged: zero them once
-  for (int idx = tid; idx < kBwdResFloats; idx += kThreads) res[idx] = 0.f;
+  for (int idx = tid; idx < kResFloats; idx += kThreads) res[idx] = 0.f;
   __syncthreads();
   // dh: the stats of the owned tokens in this thread's z rows
   float o_lse[2] = {0.f, 0.f}, o_g[2] = {0.f, 0.f};
@@ -457,7 +555,7 @@ __device__ __forceinline__ void bwd_body(
     for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[m][nt][r] = 0.f;
-  const int ns = (d + kBwdBK - 1) / kBwdBK;
+  const int ns = (d + kBK - 1) / kBK;
   const int n_inner = DH ? v : n;
 
   for (int i0 = 0; i0 < n_inner; i0 += kTile) {
@@ -471,7 +569,7 @@ __device__ __forceinline__ void bwd_body(
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < ns)
-        issue_slice<DH, VEC>(h, w, n, d, v, o0, i0, s * kBwdBK, res,
+        issue_slice<DH, VEC>(h, w, n, d, v, o0, i0, s * kBK, res,
                              ring + s * kStageFloats);
       cp_commit();
     }
@@ -487,18 +585,18 @@ __device__ __forceinline__ void bwd_body(
       __syncthreads();    // slice j is in; slice j-1's stage is free
       const int jn = j + kStages - 1;
       if (jn < ns)
-        issue_slice<DH, VEC>(h, w, n, d, v, o0, i0, jn * kBwdBK, res,
+        issue_slice<DH, VEC>(h, w, n, d, v, o0, i0, jn * kBK, res,
                              ring + (jn % kStages) * kStageFloats);
       cp_commit();
       const float* st = ring + (j % kStages) * kStageFloats;
-      const int kb = j * kBwdBK;
+      const int kb = j * kBK;
       float zp[4][4];
 #pragma unroll
       for (int j2 = 0; j2 < 4; ++j2)
 #pragma unroll
         for (int r = 0; r < 4; ++r) zp[j2][r] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kBwdBK; kk += 8) {
+      for (int kk = 0; kk < kBK; kk += 8) {
         const int orow = mw * 16 + gq;
         uint32_t ab[4], as[4];
         split(st[slice_at<DH>(orow, kk + tq)], ab[0], as[0]);
@@ -652,14 +750,19 @@ using BwdKernel = void (*)(const float*, const float*, const int*,
                            const float*, const float*, float*, int, int, int,
                            float);
 
-// One backward launch: 16-byte copies where every row of h and W starts
-// 16-byte aligned, else 4-byte copies.
+// 16-byte copies where every row of h and W starts 16-byte aligned, else
+// 4-byte copies.
+bool vectorised(const void* h, const void* w, int d, int v) {
+  return d % 4 == 0 && v % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+// One backward launch.
 int bwd_launch(bool dh_kernel, const void* h, const void* w,
                const void* labels, const void* lse, const void* g, void* out,
                int n, int d, int v, float eps, void* stream) {
-  const bool vec = d % 4 == 0 && v % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool vec = vectorised(h, w, d, v);
   const BwdKernel k =
       dh_kernel
           ? (vec ? &vocab_ce_dh_kernel<true> : &vocab_ce_dh_kernel<false>)
@@ -696,12 +799,15 @@ extern "C" int vocab_ce_fwd_launch(const void* h, const void* w,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
-  err = cudaFuncSetAttribute(vocab_ce_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  using FwdKernel = void (*)(const float*, const float*, const int*, float*,
+                             float*, float*, int, int, int);
+  const FwdKernel k = vectorised(h, w, d, v) ? &vocab_ce_fwd_kernel<true>
+                                             : &vocab_ce_fwd_kernel<false>;
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kFwdSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  vocab_ce_fwd_kernel<<<(n + kTile - 1) / kTile, kThreads, kFwdSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  k<<<(n + kTile - 1) / kTile, kThreads, kFwdSmem,
+      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(h), static_cast<const float*>(w),
       static_cast<const int*>(labels), static_cast<float*>(lse),
       static_cast<float*>(z_label), static_cast<float*>(z_sum), n, d, v);

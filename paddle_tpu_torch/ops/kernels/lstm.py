@@ -19,7 +19,10 @@ from the saved hs, cs, so the (T, N, 4H) gates never reach device memory.
 The kernels (csrc/lstm.cu) are one persistent cooperative launch each,
 split over the SMs by hidden unit with a grid barrier per step; they take
 float32, any N >= 1 and T >= 1, and H a multiple of 4 up to 512.  The
-TPU kernel's time blocking (block_t, the padded tail) is a TPU device
+forward runs on the CUDA cores, the backward's three products on the
+tensor cores (mma.sync TF32, split 3xTF32 so they stay float32-accurate),
+with a scratch for the blocks' partial dh that the wrapper allocates.
+The TPU kernel's time blocking (block_t, the padded tail) is a TPU device
 and is not carried over.
 
 Plain versions: `lstm_fwd_plain` (a loop over T of torch.matmul and the
@@ -38,7 +41,7 @@ import ctypes
 
 import torch
 
-from . import _build, launch_counts, plain_calls
+from . import TF32_FLOP_PER_S, _build, launch_counts, plain_calls
 
 UNITS_PER_BLOCK = 4     # csrc/lstm.cu kUnits: H must be a multiple
 MAX_H = 512             # csrc/lstm.cu kMaxH
@@ -220,10 +223,12 @@ def lstm_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev=False):
     ops = [_aligned(t) for t in (xs, w, h0, c0, sl, hs, cs, dhs, dcs)]
     outs = [torch.empty_like(t) for t in ops[:4]]
     t_len, n, g4 = xs.shape
+    scratch = torch.empty(scratch_floats(n, g4 // 4), dtype=torch.float32,
+                          device=xs.device)
     rc = _bind().lstm_bwd_launch(
         *(t.data_ptr() for t in ops), *(t.data_ptr() for t in outs),
-        t_len, n, g4 // 4, int(bool(rev)), xs.device.index or 0,
-        _stream(xs))
+        scratch.data_ptr(), t_len, n, g4 // 4, int(bool(rev)),
+        xs.device.index or 0, _stream(xs))
     if rc != 0:
         _raise_launch("backward", rc)
     launch_counts[_BWD] += 1
@@ -304,14 +309,41 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def scratch_floats(n, h):
+    """Floats of the backward kernel's scratch (the layout of csrc/lstm.cu
+    lstm_bwd_launch): two buffers, by the parity of the step, of the
+    blocks' partial dh, [U destination][U source unit groups][N rows]
+    [8 units] with U = ceil(H / 8), and the two row groups' partial dW,
+    [2][U][H][32]; 40 MB at N = 128, H = 512."""
+    u = -(-h // 8)
+    return 2 * u * u * n * 8 + 2 * u * h * 32
+
+
 def _bind() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, n_ptr in ((lib.lstm_fwd_launch, 7), (lib.lstm_bwd_launch, 13)):
+    for fn, n_ptr in ((lib.lstm_fwd_launch, 7), (lib.lstm_bwd_launch, 14)):
         if fn.argtypes is None:
             fn.argtypes = [p] * n_ptr + [i] * 5 + [p]
             fn.restype = i
+    if lib.l2_read_probe_launch.argtypes is None:
+        lib.l2_read_probe_launch.argtypes = [p, i, i, p, i, p]
+        lib.l2_read_probe_launch.restype = i
     return lib
+
+
+def l2_read_probe(buf, blocks):
+    """Launch csrc/lstm.cu's L2 probe: `blocks` blocks each read all of
+    `buf` (a 16-byte aligned CUDA float32 tensor, a multiple of 4 long)
+    through L2.  Returns the (blocks, 16) per-warp sums.  A measurement
+    aid (chip_smoke.py, phase 3d), not a kernel of the port's path."""
+    out = torch.empty((blocks, 16), dtype=torch.float32, device=buf.device)
+    rc = _bind().l2_read_probe_launch(buf.data_ptr(), buf.numel() // 4,
+                                      blocks, out.data_ptr(),
+                                      buf.device.index or 0, _stream(buf))
+    if rc != 0:
+        raise RuntimeError(f"L2 probe launch failed: CUDA error {rc}")
+    return out
 
 
 def bound_bytes_and_flops(t, n, h, el=4):
@@ -325,3 +357,11 @@ def bound_bytes_and_flops(t, n, h, el=4):
     mac = t * n * h * 4 * h
     return {"fwd": (common + 2 * seq, 2 * mac),
             "bwd": (common + 4 * seq + xs + w + 2 * st, 6 * mac)}
+
+
+def tensor_core_bound_ms(t, n, h):
+    """{"bwd": ms}: the least time of the backward kernel's 3xTF32 products
+    on the tensor cores, 3 * 6*T*N*H*4H TF32 operations at the H100's
+    495 TFLOP/s (the forward runs on the CUDA cores: its bound is the
+    float32 one of `bound_bytes_and_flops`)."""
+    return {"bwd": 3 * 6 * t * n * h * 4 * h / TF32_FLOP_PER_S * 1e3}

@@ -14,9 +14,8 @@ selects no logit), with z = h W:
 The kernels (csrc/vocab_ce.cu) never write the (N, V) logits to device
 memory: each recomputes its tiles of z and reduces them in registers.
 They take float32 h and W with D <= 512; what bounds them on the card is
-operations (PERF.md).  The forward runs on the CUDA cores; dh and dW run
-on the tensor cores (mma.sync TF32, split 3xTF32 so they stay
-float32-accurate).
+operations (PERF.md).  All three run on the tensor cores (mma.sync TF32,
+split 3xTF32 so they stay float32-accurate).
 
 Plain versions: `vocab_ce_fwd_plain` and `vocab_ce_bwd_plain`, the same
 functions with the (N, V) logits materialised and the gradient formulas
@@ -41,16 +40,17 @@ from ..common import fill_index, nan_where
 from . import TF32_FLOP_PER_S, _build, launch_counts, plain_calls
 
 # Hopper tiles of csrc/vocab_ce.cu: 64 tokens or vocabulary columns per
-# block, 64-wide z tiles; D is held whole (at most 512)
+# block; z tiles 64 wide in the backward, 128 in the forward; D is held
+# whole (at most 512)
 DEFAULT_BLOCK_T = 64
 DEFAULT_BLOCK_V = 64
 MAX_D = 512
 # dynamic shared memory of a block (float32): the forward's resident
-# 64 x 513 tile, 16 x 68 K-slice and 4 x 16 x 64 merge buffer; the
-# backward's resident 64 x 512 tile, three 64 x 36 (= 32 x 72) K-slice
-# stages, the 64 x 68 dz tile split in two planes and 3 x 64 per-token
-# stats
-SMEM_BYTES = {"fwd": (64 * 513 + 16 * 68 + 4 * 16 * 64) * 4,
+# 64 x 512 tile, three 32 x 136 K-slice stages and 4 x 4 x 64 merge
+# buffer; the backward's resident 64 x 512 tile, three 64 x 36
+# (= 32 x 72) K-slice stages, the 64 x 68 dz tile split in two planes and
+# 3 x 64 per-token stats
+SMEM_BYTES = {"fwd": (64 * 512 + 3 * 32 * 136 + 4 * 4 * 64) * 4,
               "bwd": (64 * 512 + 3 * 64 * 36 + 2 * 64 * 68 + 3 * 64) * 4}
 NEG = -1e30     # csrc/vocab_ce.cu kNeg, the reference's NEG
 _SOURCE = "vocab_ce"
@@ -283,12 +283,13 @@ def _bind() -> ctypes.CDLL:
 
 
 def tensor_core_bound_ms(n, d, v):
-    """{"dh" | "dw": ms}: the least time of each backward kernel's 3xTF32
-    products on the tensor cores, 3 * 4*N*D*V TF32 operations at the
-    H100's 495 TFLOP/s (a bound that assumes the 3xTF32 split; the
-    float32 bound of `bound_bytes_and_flops` assumes the CUDA cores)."""
+    """{"fwd" | "dh" | "dw": ms}: the least time of each kernel's 3xTF32
+    products on the tensor cores, 3 * 2*N*D*V (forward) or 3 * 4*N*D*V
+    (each backward kernel) TF32 operations at the H100's 495 TFLOP/s (a
+    bound that assumes the 3xTF32 split; the float32 bound of
+    `bound_bytes_and_flops` assumes the CUDA cores)."""
     ms = 3 * 4 * n * d * v / TF32_FLOP_PER_S * 1e3
-    return {"dh": ms, "dw": ms}
+    return {"fwd": ms / 2, "dh": ms, "dw": ms}
 
 
 def bound_bytes_and_flops(n, d, v, el=4):

@@ -386,6 +386,26 @@ def test_vocab_ce_kernels_match_plain(dev, n, d, v, eps):
     assert torch.equal(again[0], dh) and torch.equal(again[1], dw)
 
 
+@pytest.mark.parametrize("n,d,v", [(1000, 512, 1003), (999, 61, 1001),
+                                   (999, 100, 1001)])
+def test_vocab_ce_fwd_labels_outside_the_vocabulary(dev, n, d, v):
+    """Labels outside [0, V) select no logit in the forward kernel: its
+    z_label is NEG there, as the plain version's; lse and z_sum do not
+    depend on the label; and two runs give the same bits."""
+    h, w, lbl, _ = _vocab_case(dev, n, d, v, seed=n + d)
+    lbl[::5], lbl[1::5] = -1, v + 7
+    got = vk.vocab_ce_fwd(h, w, lbl)
+    torch.cuda.synchronize()
+    want = vk.vocab_ce_fwd_plain(h, w, lbl)
+    bad = (lbl < 0) | (lbl >= v)
+    assert torch.equal(got[1][bad], want[1][bad])
+    _close_to_max(got[1][~bad], want[1][~bad], "z_label")
+    for name, a, b in zip(("lse", "z_sum"), got[::2], want[::2]):
+        _close_to_max(a, b, name)
+    again = vk.vocab_ce_fwd(h, w, lbl)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 def test_vocab_ce_autograd_on_card_matches_cpu(dev):
     """VocabCEFn forward + backward: the card's kernels against the CPU's
     plain versions, with out-of-range labels clamped on both."""
@@ -457,6 +477,35 @@ def test_lstm_kernels_match_plain(dev, t, n, h, rev):
     for k in ("lstm_fwd", "lstm_bwd"):
         assert kernels.launch_counts[k] == before[k] + 1, k
     # no atomics: a second run gives the same bits
+    again = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("t,n,h,lengths,rev", [
+    (5, 300, 512, None, False),      # 5 row tiles, the last ragged
+    (5, 300, 512, None, True),
+    (1, 1, 512, None, False),        # one row, one step
+    (6, 3, 4, None, False),          # H = 4: half a block of 8 units
+    (7, 9, 40, [0] * 9, False),      # every row frozen
+    (7, 9, 40, [0] * 9, True),
+], ids=["N300", "N300-rev", "N1-T1", "H4", "frozen", "frozen-rev"])
+def test_lstm_bwd_kernel_edge_cases(dev, t, n, h, lengths, rev):
+    """The backward kernel against its plain version where its tiling is
+    ragged or idle: several 64-row tiles over the two row groups, one
+    row, a block with units past H, and rows that never step (dg zero,
+    the carries passed through)."""
+    ops, cots = _lstm_case(dev, t, n, h, seed=t * n + h)
+    if lengths is not None:
+        ops = (*ops[:4], torch.tensor(lengths, dtype=torch.int32,
+                                      device=dev))
+    hs, cs = lk.lstm_fwd(*ops, rev)
+    got = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
+    torch.cuda.synchronize()
+    want = lk.lstm_bwd_plain(*ops, hs, cs, *cots, rev)
+    for name, a, b in zip(("dxs", "dw", "dh0", "dc0"), got, want):
+        _close_to_max(a, b, name, tol=1e-4)
+    if lengths is not None:
+        assert not got[0].any() and not got[1].any()
     again = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 

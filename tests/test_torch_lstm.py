@@ -21,6 +21,7 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import lstm as lk
 from torch_op_test import (ref_op_grads, run_ref_op_all, run_torch_op_all,
                            torch_op_grads)
+from torch_tf32 import tc_matmul_tiled
 
 N, T, H = 3, 10, 4      # T deliberately not a multiple of the TPU time block
 SLOTS = ("Hidden", "Cell", "LastH", "LastC")
@@ -267,3 +268,160 @@ def test_composed_route_matches_reference_scan(attrs):
     for slot in slots:
         np.testing.assert_allclose(g[slot], r[slot], **GRAD_TOL,
                                    err_msg=f"d{slot}")
+
+
+# -- why the backward kernel splits 3xTF32 (csrc/lstm.cu) ----------------
+
+TOL_LSTM = 1e-4     # chip_smoke.py phase 3d: the kernels against plain
+UNITS_PER_BWD_BLOCK = 8     # csrc/lstm.cu kBUnits
+
+
+def _within(got, want, tol=TOL_LSTM):
+    """chip_smoke.check_close's test: tol absolute plus tol of max|want|."""
+    return float(np.abs(got - want).max()) <= tol + tol * float(
+        np.abs(want).max())
+
+
+def _block_columns(b, h):
+    """The gate columns of backward block b's 8 units, in the kernel's
+    order (csrc/lstm.cu gate_col: column c holds gate 2((c >> 3) & 1) +
+    (c & 1) of unit 4(c >> 4) + ((c & 7) >> 1)); units past H dropped."""
+    cols = []
+    for c in range(4 * UNITS_PER_BWD_BLOCK):
+        q, u = 2 * ((c >> 3) & 1) + (c & 1), 4 * (c >> 4) + ((c & 7) >> 1)
+        if UNITS_PER_BWD_BLOCK * b + u < h:
+            cols.append(q * h + UNITS_PER_BWD_BLOCK * b + u)
+    return np.array(cols)
+
+
+def _partials_in_kernel_order(dg, w, matmul):
+    """dh = dg W^T as the kernel forms it: each block's partial
+    dg[:, cols_b] W[:, cols_b]^T, then, per row, lane q sums the
+    partials of blocks q, q + 4, .. in order and the four lanes meet as
+    (s0 + s1) + (s2 + s3), in float32."""
+    h = w.shape[0]
+    parts = [matmul(dg[:, c], w[:, c].T) for c in
+             (_block_columns(b, h) for b in range(-(-h // 8)))]
+    lanes = []
+    for q in range(4):
+        s = np.zeros((dg.shape[0], h), np.float32)
+        for p in parts[q::4]:
+            s = s + p
+        lanes.append(s)
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+@pytest.mark.parametrize("h", [24, 64, 132])
+def test_partial_dh_in_fixed_order_is_dg_wt(h):
+    """The fixed-order sum of the blocks' partial dh equals dg W^T: every
+    gate column lies in exactly one block, and the order of the float32
+    sum is fixed, so two evaluations give the same bits."""
+    r = np.random.RandomState(h)
+    dg = r.randn(9, 4 * h).astype(np.float32)
+    w = r.randn(h, 4 * h).astype(np.float32)
+    cols = np.concatenate([_block_columns(b, h) for b in range(-(-h // 8))])
+    assert sorted(cols) == list(range(4 * h))
+    f64 = (lambda a, b: (a.astype(np.float64) @ b.astype(np.float64))
+           .astype(np.float32))
+    got = _partials_in_kernel_order(dg, w, f64)
+    want = dg.astype(np.float64) @ w.T.astype(np.float64)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(got, _partials_in_kernel_order(dg, w, f64))
+
+
+def _kernel_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, passes):
+    """The backward kernel's arithmetic in numpy float32, each product
+    emulated as TF32 tensor-core passes with the kernel's accumulators:
+    the gate recompute over two halves of H in 64-deep slices, dW per
+    64-row tile added to one of two row groups' float32 sums, the partial
+    dh per block of 8 units summed in the kernel's order."""
+    t_len, n, g4 = xs.shape
+    h = g4 // 4
+    half = -(-(-(-h // 32) * 32 // 8) // 2) * 8       # depth of a half
+
+    def tc(a, b, depth=64):
+        return tc_matmul_tiled(a, b, passes, depth)
+
+    sig = (lambda v: np.float32(1) / (np.float32(1) + np.exp(-v)))
+    dh = np.zeros((n, h), np.float32)
+    dc = np.zeros((n, h), np.float32)
+    dw = np.zeros((2, h, g4), np.float32)
+    dxs = np.zeros_like(xs)
+    for t in range(t_len - 1, -1, -1):
+        hp = hs[t - 1] if t else h0
+        cp = cs[t - 1] if t else c0
+        pre = xs[t] + (tc(hp[:, :half], w[:half]) +
+                       tc(hp[:, half:], w[half:]))
+        ca, ig = np.tanh(pre[:, :h]), sig(pre[:, h:2 * h])
+        fg, og = sig(pre[:, 2 * h:3 * h]), sig(pre[:, 3 * h:])
+        tc_ = np.tanh(fg * cp + ig * ca)
+        dh_tot, dc_pass = dhs[t] + dh, dcs[t] + dc
+        dc_tot = dc_pass + dh_tot * og * (1 - tc_ * tc_)
+        dg = np.concatenate([(dc_tot * ig) * (1 - ca * ca),
+                             (dc_tot * ca) * ig * (1 - ig),
+                             (dc_tot * cp) * fg * (1 - fg),
+                             (dh_tot * tc_) * og * (1 - og)], axis=1)
+        ok = (t < sl)[:, None]
+        dg = np.where(ok, dg, np.float32(0))
+        dxs[t] = dg
+        for r0 in range(0, n, 64):
+            dw[(r0 // 64) % 2] += tc(hp[r0:r0 + 64].T, dg[r0:r0 + 64])
+        dh = np.where(ok, _partials_in_kernel_order(
+            dg, w, lambda a, b: tc(a, b, depth=32)), dh_tot)
+        dc = np.where(ok, dc_tot * fg, dc_pass)
+    return dxs, dw[0] + dw[1], dh, dc
+
+
+@pytest.mark.parametrize("passes,meets", [(1, False), (3, True)])
+def test_error_budget_of_the_tensor_core_backward(passes, meets):
+    """The backward kernel's three products (the gate recompute, dW and
+    the partial dh) emulated as TF32 tensor-core passes over a 40-step
+    recurrence, against the float64 plain backward on the same float32
+    inputs: 3xTF32 keeps dxs, dW, dh0 and dc0 within TOL_LSTM (at about
+    1/500 of it); one pass misses it for dW, whose sums run over all T
+    and N (about 2x), and uses a quarter to four fifths of it for the
+    others."""
+    t_len, n, h = 40, 70, 64
+    r = np.random.RandomState(5)
+
+    def f(*shape, scale):
+        return (r.randn(*shape) * scale).astype(np.float32)
+
+    xs, w = f(t_len, n, 4 * h, scale=0.5), f(h, 4 * h, scale=h ** -0.5)
+    h0, c0 = f(n, h, scale=0.3), f(n, h, scale=0.3)
+    sl = r.randint(t_len // 2, t_len + 1, n).astype(np.int32)
+    sl[0] = 0
+    dhs, dcs = f(t_len, n, h, scale=1.0), f(t_len, n, h, scale=1.0)
+    as64 = (lambda *a: [torch.as_tensor(x, dtype=torch.float64) for x in a])
+    hs, cs = lk.lstm_fwd_plain(*as64(xs, w, h0, c0), torch.as_tensor(sl))
+    hs, cs = hs.numpy().astype(np.float32), cs.numpy().astype(np.float32)
+    want = lk.lstm_bwd_plain(*as64(xs, w, h0, c0), torch.as_tensor(sl),
+                             *as64(hs, cs, dhs, dcs))
+    got = _kernel_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, passes)
+    within = {name: _within(a, b.numpy()) for name, a, b in
+              zip(("dxs", "dw", "dh0", "dc0"), got, want)}
+    if meets:
+        assert all(within.values()), within
+    else:
+        assert not within["dw"], within
+
+
+def test_tensor_core_bound_of_the_backward():
+    """3 TF32 passes of 6*T*N*H*4H operations at 495 TFLOP/s: 0.62 ms at
+    the main path's T = N = 128, H = 512, 2.5x under the float32 bound."""
+    tc = lk.tensor_core_bound_ms(128, 128, 512)["bwd"]
+    assert tc == pytest.approx(0.6247, abs=1e-4)
+    f32 = lk.bound_bytes_and_flops(128, 128, 512)["bwd"][1] / \
+        kernels.F32_FLOP_PER_S * 1e3
+    assert f32 / tc == pytest.approx(495 / 67 / 3)
+
+
+@pytest.mark.parametrize("n,h,mb", [(128, 512, 40.0), (300, 512, 83.0),
+                                    (5, 4, 2 * 1 * 5 * 8 * 4 / 2 ** 20
+                                     + 2 * 4 * 32 * 4 / 2 ** 20)])
+def test_backward_scratch_size(n, h, mb):
+    """The backward kernel's scratch: two parity buffers of partial dh,
+    [U][U][N][8] with U = ceil(H / 8), and the two row groups' partial dW,
+    [2][U][H][32], in float32."""
+    assert lk.scratch_floats(n, h) * 4 / 2 ** 20 == pytest.approx(mb,
+                                                                   rel=1e-3)

@@ -58,7 +58,7 @@ def test_imports_with_jax_and_paddle_tpu_blocked():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]))
+    list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]))
 def test_source_names_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax)", src, re.M), path
@@ -86,8 +86,10 @@ def test_default_place_raises_without_cuda(monkeypatch):
     ("flash_attention_fwd", "flash_attention_fwd_launch"),
     ("flash_attention_bwd", "flash_attention_bwd_dkv_launch"),
     ("flash_attention_bwd", "flash_attention_bwd_dq_launch"),
+    ("vocab_ce", "vocab_ce_fwd_launch"),
     ("lstm", "lstm_fwd_launch"),
     ("lstm", "lstm_bwd_launch"),
+    ("lstm", "l2_read_probe_launch"),
 ])
 def test_kernel_sources_exist(name, entry):
     src = PKG / "csrc" / f"{name}.cu"
@@ -98,10 +100,29 @@ def test_kernel_sources_exist(name, entry):
     assert _build.library_path(name).parent == _build.BUILD_DIR
 
 
+def test_chip_ab_takes_the_phases_to_run(monkeypatch, capsys):
+    """chip_ab.py: the phases after the two trees must be chip_smoke
+    phases it knows (else usage, exit 2), none means its default, and
+    without CUDA it stops before running anything (exit 1)."""
+    sys.path.insert(0, str(REPO))
+    import chip_ab
+
+    assert chip_ab.DEFAULT == ("fwd", "6d", "6")
+    assert set(chip_ab.DEFAULT) <= set(chip_ab.PHASES)
+    assert {"6c", "6e", "stream"} <= set(chip_ab.PHASES)
+    assert chip_ab.main(["a", "b", "6x"]) == 2
+    assert chip_ab.main(["a"]) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_ab.main(["a", "b", "6c", "6e"]) == 1
+    assert chip_ab.main(["a", "b"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
 def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     """Editing csrc/flash_mma.cuh renames the library of both flash
-    sources, which include it, and of no other source: an edited header
-    rebuilds, an unchanged source still loads from disk."""
+    sources and of the LSTM source, which include it, and of no other
+    source: an edited header rebuilds, an unchanged source still loads
+    from disk."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for src in (PKG / "csrc").iterdir():
@@ -114,7 +135,7 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     after = {n: _build.library_path(n) for n in _build.KERNEL_SOURCES}
     changed = {n for n in _build.KERNEL_SOURCES if before[n] != after[n]}
-    assert changed == {"flash_attention_fwd", "flash_attention_bwd"}
+    assert changed == {"flash_attention_fwd", "flash_attention_bwd", "lstm"}
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -26,7 +26,7 @@ from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 
 from op_test import run_op
 from torch_op_test import run_torch_op
-from torch_tf32 import tc_matmul
+from torch_tf32 import tc_matmul, tc_matmul_tiled
 
 torch.set_num_threads(2)
 
@@ -250,9 +250,52 @@ def test_error_budget_of_the_tensor_core_backward(passes, meets):
         assert _within(a, b) == meets, (name, float(np.abs(a - b).max()))
 
 
+def _fwd_stats(z, lbl):
+    """lse, z_label (NEG where the label is outside [0, V)) and z_sum of
+    logits z, as the forward kernel reduces them, in float64."""
+    z = z.astype(np.float64)
+    m = z.max(axis=1)
+    lse = m + np.log(np.exp(z - m[:, None]).sum(axis=1))
+    ok = (lbl >= 0) & (lbl < z.shape[1])
+    zl = np.where(ok, z[np.arange(len(lbl)), np.clip(lbl, 0, None)
+                        % z.shape[1]], np.float32(vk.NEG))
+    return lse, zl, z.sum(axis=1)
+
+
+@pytest.mark.parametrize("passes,meets", [
+    (1, {"lse": True, "z_label": False, "z_sum": False}),
+    (3, {"lse": True, "z_label": True, "z_sum": True})])
+def test_error_budget_of_the_tensor_core_forward(passes, meets):
+    """The forward kernel's z emulated as TF32 tensor-core passes over its
+    32-deep K-slices (each slice one accumulator, the slices added in
+    float32), reduced to lse, z_label and z_sum, against the float32
+    plain version at the main path's D = 512: 3xTF32 keeps all three
+    within TOL_VOCAB; one pass misses it for z_label and z_sum (about
+    10x), and only the lse, whose logsumexp averages the logits' errors,
+    stays inside."""
+    n, d, v = 64, 512, 700
+    rng = np.random.RandomState(1)
+    h = rng.randn(n, d).astype(np.float32)
+    w = (rng.randn(d, v) * 0.05).astype(np.float32)
+    lbl = rng.randint(0, v, n).astype(np.int32)
+    lbl[:2] = (-1, v + 3)                 # select no logit
+    want = vk.vocab_ce_fwd_plain(torch.as_tensor(h), torch.as_tensor(w),
+                                 torch.as_tensor(lbl))
+    got = _fwd_stats(tc_matmul_tiled(h, w, passes, depth=32), lbl)
+    for name, a, b in zip(("lse", "z_label", "z_sum"), got, want):
+        b = b.numpy().astype(np.float64)
+        if name == "z_label":           # the NEG rows match exactly
+            assert (a[:2] == b[:2]).all()
+            a, b = a[2:], b[2:]
+        assert _within(a, b) == meets[name], (name,
+                                              float(np.abs(a - b).max()))
+
+
 def test_tensor_core_bound_is_three_tf32_passes():
     b = vk.tensor_core_bound_ms(16384, 512, 32000)
     assert b["dh"] == b["dw"] == pytest.approx(6.507, abs=1e-3)
+    assert b["fwd"] == pytest.approx(3.254, abs=1e-3)
+    assert b["fwd"] * 2 == pytest.approx(b["dh"])
 
 
 def test_plain_versions_select_no_logit_for_a_label_out_of_range():
