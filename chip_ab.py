@@ -8,7 +8,14 @@ its own sources), the named phases of chip_smoke.py:
 
     fwd     the flash forward alone at the training shapes
             (`flash_fwd_at_training_shapes`)
+    kern    the device time (torch.profiler, every kernel one wrapper
+            call launches) of the paged kernel on bf16 pools at the
+            serving and the long-length decode shapes and of the LSTM
+            forward and backward at the stacked-LSTM training shape, on
+            the same inputs for both trees (this script's own
+            chip_smoke.py makes them; the kernels are the tree's)
     stream  phase 4, the serving stream of 64 requests
+    4b      phase 4b, one decode step's host and device-busy time
     6       the unfused Transformer step (10 timed steps, a profiled window)
     6c      the fused-CE step (10 timed steps, a profiled window)
     6d      the long-context step (6 timed steps, a profiled window)
@@ -34,15 +41,61 @@ import os
 import subprocess
 import sys
 
-PHASES = ("fwd", "stream", "6", "6c", "6d", "6e")
+PHASES = ("fwd", "kern", "stream", "4b", "6", "6c", "6d", "6e")
 DEFAULT = ("fwd", "6d", "6")
+
+
+def _cases():
+    """The chip_smoke.py beside this script, as a module of its own: its
+    case functions give both trees the same inputs, and the kernels they
+    reach are the tree's (paddle_tpu_torch is imported from sys.path)."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "chip_ab_cases", os.path.join(here, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_device_ms(dev) -> dict:
+    """{case: device ms of one wrapper call} for the paged kernel (bf16
+    pools, serving and long-length shapes) and the LSTM kernels (T = N =
+    128, H = 512)."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+
+    cs = _cases()
+    out = {}
+    for long in (False, True):
+        pk, (q, kc, vc, pt, lens), h, _, _ = cs.paged_case(
+            torch.bfloat16, dev, long=long)
+        out["paged_long" if long else "paged_serving"] = cs.profiled_call_ms(
+            lambda: pk.paged_attention(q, kc, vc, pt, lens, n_head=h),
+            iters=100)
+        del kc, vc
+    t, n, h = cs.LSTM_ARCH["max_len"], cs.LSTM_BATCH, \
+        cs.LSTM_ARCH["hidden_dim"]
+    ops, cots = cs.lstm_case(dev, t, n, h, seed=40)
+    hs, c_s = lk.lstm_fwd(*ops, False)
+    out["lstm_fwd"] = cs.profiled_call_ms(lambda: lk.lstm_fwd(*ops, False),
+                                          iters=10)
+    out["lstm_bwd"] = cs.profiled_call_ms(
+        lambda: lk.lstm_bwd(*ops, hs, c_s, *cots, False), iters=10)
+    return out
 
 
 def _run_phase(cs, name, dev, card):
     if name == "fwd":
         return cs.flash_fwd_at_training_shapes(dev)
+    if name == "kern":
+        return kernel_device_ms(dev)
     if name == "stream":
         return cs.phase_stream(dev)
+    if name == "4b":
+        return cs.phase_step_profile(dev)
     if name == "6":
         return cs.phase_train(dev, card, steps=10, profile="phase 6b")
     if name == "6c":
@@ -58,8 +111,13 @@ def _run_phase(cs, name, dev, card):
 def _summary(name, rec):
     if name == "fwd":
         return {"fwd_ms": {k: r["ms"] for k, r in rec.items()}}
+    if name == "kern":
+        return {"kern_device_ms": rec}
     if name == "stream":
         return {"stream_tokens_per_s": rec["tokens_per_s"]}
+    if name == "4b":
+        return {"4b_step_ms": rec["step_ms"],
+                "4b_busy_ms": rec["device_busy_ms_per_step"]}
     return {f"{name}_step_ms": rec["step_ms"],
             f"{name}_busy_ms": rec["profile"]["device_busy_ms_per_step"],
             f"{name}_peak_gb": rec["peak_mem_bytes"] / 1e9}

@@ -10,7 +10,10 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes — paged attention over float32, bfloat16 and
-   int8 pools with ragged lengths and NaN past each length; causal flash
+   int8 pools with ragged lengths and NaN past each length, at the
+   serving shape and at a long-length shape (max_len 4096, lengths
+   2048-4096, pools larger than the L2), twice with the same bits, timed
+   by the profiler's device time; causal flash
    attention with a key-padding bias at T = 32, 64, 128 — and times the
    kernel, the plain version and, for flash, one library call
    (scaled_dot_product_attention, never used by the port) beside the
@@ -58,8 +61,10 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    their plain versions at the stacked-LSTM training shape (T = N = 128,
    H = 512, the bench's ragged lengths, non-zero h0/c0, forward and
    reversed) and at a small ragged shape (N = 5, T = 7, H = 24, lengths
-   0 and 1), checks that two backward runs give the same bits, and times
-   kernel, plain version and, as the library yardstick, `torch.nn.LSTM`
+   0 and 1), checks that two forward and two backward runs give the
+   same bits, and times kernel (back to back and by device time) beside
+   its 3xTF32 and float32 bounds, plain version and, as the library
+   yardstick, `torch.nn.LSTM`
    (cuDNN; it also contains the x-projection, so it is set against fc +
    kernel);
    3e. runs, for each kernel, its op on a shape the kernel refuses (flash
@@ -214,19 +219,23 @@ def bound_ms(nbytes, flops):
 
 def ptxas_summary(build_log):
     """[(function, "Used N registers, ...; spills")] from `nvcc -Xptxas
-    -v` output, kernel template names demangled to name<D> or
-    name<D, VEC> (integer and bool template arguments)."""
+    -v` output, kernel template names demangled to name<D>,
+    name<D, VEC> or name<bf16, D> (integer, bool and pool-type template
+    arguments)."""
     import re
 
+    types = {"a": "int8", "t": "bf16", "f": "f32"}
     out, fn, spill = [], None, ""
     for ln in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"([A-Za-z_]+_kernel)((?:L[ib]\d+E)*)",
-                          m.group(1).replace("_kernelIL", "_kernelL"))
-            args = [] if not k else [
+            k = re.search(r"([A-Za-z_]+_kernel)(?:I([aft])?"
+                          r"((?:L[ib]\d+E)*)E)?", m.group(1))
+            args = [] if not k else [types.get(k.group(2))] + [
                 val if kind == "i" else ("true" if val == "1" else "false")
-                for kind, val in re.findall(r"L([ib])(\d+)E", k.group(2))]
+                for kind, val in re.findall(r"L([ib])(\d+)E",
+                                            k.group(3) or "")]
+            args = [a for a in args if a is not None]
             fn = (f"{k.group(1)}<{', '.join(args)}>" if args
                   else (k.group(1) if k else m.group(1)))
         elif "spill stores" in ln:
@@ -256,21 +265,35 @@ def check_close(name, got, want, tol):
 
 # -- phase 3: kernels against their plain versions ------------------------
 
-def paged_case(kv_dtype, dev, seed=0):
+# phase 3's long-length decode shape: the serving widths at max_len 4096,
+# lengths uniform in 2048..4096, a page for every slot's every position
+# (16 x 256 + 1 bf16 pages, ~67 MB a pool: the two exceed the L2)
+LONG_DECODE = dict(max_len=4096, min_len=2048)
+
+
+def paged_case(kv_dtype, dev, seed=0, long=False):
     """One decode step of the main path: 16 slots, 8 heads of 64, pools of
     384 pages of 16 rows, 32 pages per slot, ragged lengths as the stream
     has them (prompt 8-128 plus up to 96 generated), NaN past each
-    length inside the slot's last page."""
+    length inside the slot's last page.  With `long`, the long-length
+    shape (LONG_DECODE): 256 pages a slot, 16 x 256 + 1 pages."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pk
 
     g = torch.Generator().manual_seed(seed)
     s, h, d = SERVE["num_slots"], ARCH["n_head"], ARCH["d_model"] // \
         ARCH["n_head"]
-    p, page = SERVE["num_pages"], SERVE["page_size"]
-    maxp = SERVE["max_len"] // page
+    page = SERVE["page_size"]
+    if long:
+        maxp = LONG_DECODE["max_len"] // page
+        p = s * maxp + 1
+        lens = torch.randint(LONG_DECODE["min_len"],
+                             LONG_DECODE["max_len"] + 1, (s,), generator=g,
+                             dtype=torch.int32)
+    else:
+        p, maxp = SERVE["num_pages"], SERVE["max_len"] // page
+        lens = torch.randint(8, 128 + 96 + 1, (s,), generator=g,
+                             dtype=torch.int32)
     hd = h * d
-    lens = torch.randint(8, 128 + 96 + 1, (s,), generator=g,
-                         dtype=torch.int32)
     pt = torch.zeros(s, maxp, dtype=torch.int32)
     perm = torch.randperm(p, generator=g)
     used = [-(-int(n) // page) for n in lens]
@@ -303,34 +326,9 @@ def phase_kernels(dev):
 
     rows = {}
     log("phase 3: kernels vs plain versions on the card")
+    rows["paged_attention"] = phase_paged_cases(dev)
+
     errs = []
-    for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
-        pk, (q, kc, vc, pt, lens), h, ks, vs = paged_case(kv_dtype, dev)
-
-        def kern():
-            return pk.paged_attention(q, kc, vc, pt, lens, n_head=h,
-                                      k_scales=ks, v_scales=vs)
-
-        def plain():
-            return pk.paged_attention_plain(q, kc, vc, pt, lens, h,
-                                            k_scales=ks, v_scales=vs)
-
-        got = kern()
-        torch.cuda.synchronize()
-        errs.append(check_close(f"paged_attention {kv_dtype}", got,
-                                plain(), TOL_KERNEL))
-        if kv_dtype == torch.bfloat16:          # the main path's pools
-            k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
-            nbytes, flops = pk.bound_bytes_and_flops(q, kc, pt, lens, h)
-            b_ms, b_by = bound_ms(nbytes, flops)
-            rows["paged_attention"] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops=flops,
-                shape=f"S=16 P=384 page=16 maxp=32 H*D=512 bf16, "
-                      f"sum(lengths)={int(lens.sum())}")
-            log(f"  paged_attention bf16: kernel_ms {k_ms:.5f} "
-                f"plain_ms {p_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
-    rows.setdefault("paged_attention", {})["max_abs_err"] = max(errs)
 
     errs = []
     n, h, d = SERVE["num_slots"], ARCH["n_head"], ARCH["d_model"] // \
@@ -394,6 +392,67 @@ def phase_kernels(dev):
     errs += phase_flash_fwd_cases(dev)
     rows["flash_attention_fwd"]["max_abs_err"] = max(errs)
     return rows
+
+
+_PAGED_KERNELS = ("paged_split_kernel", "paged_merge_kernel")
+
+
+def phase_paged_cases(dev):
+    """The paged kernel against its plain version for each pool type at
+    the serving shape and the long-length shape, twice, bit-equal; the
+    bf16 pools (the main path's) timed by device time (one wrapper call
+    launches the split kernel and, with more than one split, the merge
+    kernel), beside the wrapper back to back, the plain version and the
+    bytes bound."""
+    row, errs = {}, []
+    for long in (False, True):
+        tag = "long" if long else "serving"
+        for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
+            pk, (q, kc, vc, pt, lens), h, ks, vs = paged_case(kv_dtype, dev,
+                                                              long=long)
+
+            def kern():
+                return pk.paged_attention(q, kc, vc, pt, lens, n_head=h,
+                                          k_scales=ks, v_scales=vs)
+
+            def plain():
+                return pk.paged_attention_plain(q, kc, vc, pt, lens, h,
+                                                k_scales=ks, v_scales=vs)
+
+            got = kern()
+            torch.cuda.synchronize()
+            errs.append(check_close(f"paged_attention {tag} {kv_dtype}",
+                                    got, plain(), TOL_KERNEL))
+            if not torch.equal(kern(), got):
+                raise AssertionError(f"paged_attention {tag} {kv_dtype}: "
+                                     f"two runs differ")
+            if kv_dtype != torch.bfloat16:      # the main path's pools
+                continue
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = pk.launch_plan(q, kc, pt, h, sms)
+            names = _PAGED_KERNELS[:1 + (plan["n_splits"] > 1)]
+            dev_ms = sum(profiled_kernel_ms(kern, names, iters=100).values())
+            k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+            nbytes, flops = pk.bound_bytes_and_flops(q, kc, pt, lens, h)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            rec = dict(ms=dev_ms, wrapper_ms=k_ms, plain_ms=p_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       bytes=nbytes, flops=flops, plan=plan,
+                       shape=f"S=16 P={kc.shape[0]} page=16 "
+                             f"maxp={pt.shape[1]} H*D=512 bf16, "
+                             f"sum(lengths)={int(lens.sum())}")
+            if long:
+                row["long"] = rec
+            else:
+                row.update(rec)
+            log(f"  paged_attention {tag} bf16: kernel device ms "
+                f"{dev_ms:.5f} (wrapper back to back {k_ms:.5f}) plain_ms "
+                f"{p_ms:.5f} bound_ms {b_ms:.5f} ({b_by}); "
+                f"{plan['n_splits']} splits of {plan['pages_per_split']} "
+                f"pages")
+    log("  two paged runs bit-equal in every case")
+    row["max_abs_err"] = max(errs)
+    return row
 
 
 def phase_flash_fwd_cases(dev):
@@ -1085,6 +1144,9 @@ def phase_lstm_kernels(dev):
                                lk.lstm_fwd_plain(*ops, rev)):
             errs["fwd"].append(check_close(f"lstm fwd {name} {oname}", a, b,
                                            TOL_LSTM))
+        if not all(torch.equal(a, b) for a, b in
+                   zip(lk.lstm_fwd(*ops, rev), (hs, cs))):
+            raise AssertionError(f"lstm fwd {name}: two runs differ")
         got = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
         torch.cuda.synchronize()
         want = lk.lstm_bwd_plain(*ops, hs, cs, *cots, rev)
@@ -1096,7 +1158,7 @@ def phase_lstm_kernels(dev):
             raise AssertionError(f"lstm bwd {name}: two runs differ")
         if i == 0:
             timed = (ops, cots, hs, cs)
-    log("  two backward runs bit-equal in every case")
+    log("  two forward and two backward runs bit-equal in every case")
     ops, cots, hs, cs = timed
     ms = {"fwd": cuda_ms(lambda: lk.lstm_fwd(*ops, False), iters=10,
                          warmup=2),
@@ -1107,6 +1169,10 @@ def phase_lstm_kernels(dev):
           "bwd_plain": cuda_ms(lambda: lk.lstm_bwd_plain(*ops, hs, cs, *cots,
                                                          False),
                                iters=3, warmup=1)}
+    calls = {"fwd": lambda: lk.lstm_fwd(*ops, False),
+             "bwd": lambda: lk.lstm_bwd(*ops, hs, cs, *cots, False)}
+    dev_ms = {k: profiled_kernel_ms(fn, (f"lstm_{k}_kernel",), iters=10)
+              [f"lstm_{k}_kernel"] for k, fn in calls.items()}
     lib = _cudnn_lstm_ms(dev, t, n, h)
     bounds = lk.bound_bytes_and_flops(t, n, h)
     tc_bound = lk.tensor_core_bound_ms(t, n, h)
@@ -1120,15 +1186,14 @@ def phase_lstm_kernels(dev):
             max_abs_err=max(errs[k]),
             shape=f"T={t} N={n} H={h} f32, lengths {t // 2}..{t}, "
                   f"h0/c0 non-zero")
-        extra = ""
-        if k in tc_bound:
-            # the backward runs 3xTF32 on the tensor cores: its least time
-            # is 3 * 6*T*N*H*4H TF32 operations at the TF32 peak
-            rows[full]["bound_ms"] = tc_bound[k]
-            extra = f" tensor_core_3xtf32_bound_ms {tc_bound[k]:.5f}"
-        log(f"  {full}: kernel_ms {ms[k]:.5f} f32_bound_ms {b_ms:.5f} "
-            f"({b_by}){extra} plain_ms {ms[f'{k}_plain']:.5f} "
+        # both kernels run 3xTF32 on the tensor cores: the least time is
+        # 3 TF32 operations a product flop at the TF32 peak
+        rows[full]["bound_ms"] = tc_bound[k]
+        log(f"  {full}: kernel_ms {ms[k]:.5f} (device {dev_ms[k]:.5f}) "
+            f"tensor_core_3xtf32_bound_ms {tc_bound[k]:.5f} f32_bound_ms "
+            f"{b_ms:.5f} ({b_by}) plain_ms {ms[f'{k}_plain']:.5f} "
             f"library_ms {lib[k]:.5f}")
+        rows[full]["device_ms"] = dev_ms[k]
     rows["lstm_bwd"]["l2"] = _l2_probe(dev, lk, n, h)
     log("  (library: torch.nn.LSTM, cuDNN, one layer over (128, 128, 512) "
         "at full lengths; it also contains the x-projection, so it is set "
@@ -1885,10 +1950,15 @@ def main() -> int:
         ptxas[name] = ptxas_summary(_build.build_log(name))
         for fn, used in ptxas[name]:
             log(f"  {name}: {fn}: {used}")
+    paged = [("paged_attention", f"paged_split_kernel<{kv}, {d}>")
+             for kv in ("f32", "bf16", "int8") for d in (32, 64, 128)]
+    paged += [("paged_attention", f"paged_merge_kernel<{d}>")
+              for d in (32, 64, 128)]
     for src, kern in (("vocab_ce", "vocab_ce_fwd_kernel<"),
                       ("vocab_ce", "vocab_ce_dh_kernel<"),
                       ("vocab_ce", "vocab_ce_dw_kernel<"),
-                      ("lstm", "lstm_bwd_kernel")):
+                      ("lstm", "lstm_fwd_kernel"),
+                      ("lstm", "lstm_bwd_kernel"), *paged):
         if not any(fn.startswith(kern) for fn, _ in ptxas[src]):
             raise AssertionError(f"no ptxas line for {kern.rstrip('<')}")
 

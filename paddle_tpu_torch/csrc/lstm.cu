@@ -21,65 +21,78 @@
 //
 // Design.  A TPU grid step owns a time block and whole (N, H) operands in
 // VMEM; here W (4 MB at H = 512) does not fit one SM, so the work is split
-// by hidden unit: block b owns units 4b .. 4b+3 and their 16 gate columns.
-// Its (H x 16) slice of W is loaded into shared memory once and stays for
-// all T steps.  Every step needs all of h_{t-1}: the blocks exchange it
-// through the output itself (hs[t] is written, a grid-wide barrier
-// follows, and the next step reads hs[t] from L2 with ld.global.cg, since
-// L1 is not coherent across SMs inside one kernel).  The barrier is
-// cooperative_groups' grid sync, so the grid must be co-resident: H / 4
-// blocks of 256 threads, one per SM; the entry points check that with the
-// occupancy API and return an error instead of hanging.
-//  - forward: per step and 128-row tile a block multiplies h_{t-1}
-//    (streamed through shared memory in 64-deep chunks, the next chunk
-//    prefetched into registers) with its W slice; a thread owns 2 rows x
-//    the 4 gates of one unit, so the gate arithmetic is thread-local.
-//  - backward (the tensor cores, 3xTF32 mma.sync with the fragments,
-//    split and accumulation rule of csrc/flash_mma.cuh): the grid is 2
-//    row groups x ceil(H / 8) unit groups (128 blocks at H = 512); block
-//    (g, u) owns units 8u .. 8u+7, their 32 gate columns, and the 64-row
-//    tiles g, g + 2, .. of the batch.  Its (H x 32) slice of W stays in
-//    shared memory for all T steps.  Per step and tile the block stages
-//    its 64 rows of h_{t-1} once (cp.async, 128 KB at H = 512) and reads
-//    them both ways: as A of the gate recompute (8 rows x 4 depths) and as
-//    A of dW = h^T dg (4 rows x 8 depths); every such tile is XOR-swizzled
-//    (row bits 0, 1, 2 to column bits 3, 4, 2), so both reads hit 32
-//    distinct banks.  Phase 1: the gate recompute (64 x 32, K = H) runs on
-//    8 warps, 4 row tiles x 2 halves of the depth, each 64-deep K-slice
-//    in its own tensor-core accumulators (even and odd 8-deep steps
-//    apart) added to float32 registers; the halves swap the rows each
-//    keeps through shared memory, and lane (gq, tq) of a warp then holds
-//    the four gates of units tq and 4 + tq for one row (the column order
-//    16 (u >> 2) + 8 (q >> 1) + 2 (u & 3) + (q & 1) for gate q of unit u
-//    makes that so), forms their dg, writes dxs[t] and stores dg split
-//    into big / small planes.  dW (H x 32) += h^T dg: warp w owns rows
-//    w, w + 8, .. of H in 16-row tiles; each tile's product goes into
-//    fresh accumulators and is added to float32 registers that hold the
-//    row group's dW for the whole launch.  Then the block's partial dh,
-//    transposed (H x 64) = W_slice dg^T with K = 32, goes to a scratch
-//    laid out [destination unit group][source unit group][row][8 units]
-//    (two such buffers, by the parity of t, so that no block overwrites a
-//    partial another block has yet to read).  Grid barrier.  Phase 2:
-//    each block sums, for its rows, the ceil(H / 8) partials of its own 8
-//    units in a fixed order (a quarter of the sources a lane, then
-//    xor-shuffles), which is dh_{t-1}.  A step thus moves 48 MB through
-//    L2 at N = 128, H = 512 (each block: its 64 rows of h_{t-1}, 128 KB of
-//    partials out and 128 KB in), where the CUDA-core design (H / 4
-//    blocks each reading h_{t-1} twice and all of dg) moved 192 MB.  The
-//    next step's h rows are copied, and its elementwise operands loaded,
-//    while the partial product, the barrier and phase 2 run.  At the end
-//    the two row groups' dW meet in the scratch and are added in group
-//    order.  The (dh, dc) carries live in the dh0 / dc0 outputs.  No
-//    atomics anywhere: two runs give the same bits.
+// by hidden unit, and every step needs all of h_{t-1}: the blocks exchange
+// it through the output itself (hs[t] is written, a grid-wide barrier
+// follows, and the next step reads hs[t] through L2, with cp.async.cg or
+// ld.global.cg, since L1 is not coherent across SMs inside one kernel).
+// The barrier is cooperative_groups' grid sync, which orders the grid's
+// memory itself (no per-thread fence before it), so the grid must be
+// co-resident; the entry points check that with the occupancy API and
+// return an error instead of hanging.
+//
+// Both kernels share one grid and one gate product, on the tensor cores
+// (3xTF32 mma.sync with the fragments, split and accumulation rule of
+// csrc/flash_mma.cuh): 2 row groups x ceil(H / 8) unit groups (128 blocks
+// of 256 threads at H = 512, one an SM); block (g, u) owns units 8u ..
+// 8u+7, their 32 gate columns, and the 64-row tiles g, g + 2, .. of the
+// batch.  Its (H x 32) slice of W stays in shared memory, float32, for
+// all T steps.  Per step and tile the block stages its 64 rows of h_{t-1}
+// once (cp.async into a tile XOR-swizzled by row bits 0, 1, 2 to column
+// bits 3, 4, 2, so that a fragment read of 8 rows x 4 columns and one of
+// 4 rows x 8 columns both hit 32 distinct banks).  The gate product
+// (64 x 32, K = H) runs on 8 warps, 4 row tiles x 2 halves of the depth;
+// each 64-deep K-slice goes into its own tensor-core accumulators (even
+// and odd 8-deep steps apart) and is added to float32 registers.  The
+// halves swap the rows each keeps through shared memory, and lane (gq,
+// tq) of a warp then holds the four gates of units tq and 4 + tq for one
+// row (gate_col's column order makes that so), so the cell update is
+// thread-local.  Units past H are zero in the W slice and never written.
+//  - forward: the tile is copied in one cp.async group per 64-deep slice
+//    of each half (4 groups at H = 512), and the warps start on a slice
+//    as soon as it has landed, so the product overlaps the rest of the
+//    copy.  A step moves 16 MB through L2 at N = 128, H = 512 (each block
+//    reads its 64 rows of h_{t-1}, 128 KB), half of what H / 4 blocks
+//    that each read all of h_{t-1} would.  A block's own operands of the
+//    next step (xs[t+1] of its rows and units, and the h_t, c_t it wrote
+//    itself, which frozen rows keep) are loaded before the grid barrier;
+//    hs[t] and cs[t] are written with st.global.cg.  W is split into its
+//    big and small TF32 parts as it is read, not once at launch: the two
+//    planes (128 KB at H = 512) and the 128 KB h tile do not fit the
+//    227 KB of shared memory together, and a ring of depth chunks small
+//    enough to fit beside the planes costs a block barrier per chunk.
+//    The forward's gate slices, splits and pass order are the backward's
+//    recompute's, so both see the same gate bits.
+//  - backward: after the gates (recomputed as above from the staged
+//    h_{t-1}), each lane forms its row's dg for two units, writes dxs[t]
+//    and stores dg split into big / small planes.  dW (H x 32) += h^T dg:
+//    warp w owns rows w, w + 8, .. of H in 16-row tiles, reading the
+//    staged h tile the other way (4 rows x 8 depths); each tile's product
+//    goes into fresh accumulators and is added to float32 registers that
+//    hold the row group's dW for the whole launch.  Then the block's
+//    partial dh, transposed (H x 64) = W_slice dg^T with K = 32, goes to
+//    a scratch laid out [destination unit group][source unit group][row]
+//    [8 units] (two such buffers, by the parity of t, so that no block
+//    overwrites a partial another block has yet to read).  Grid barrier.
+//    Phase 2: each block sums, for its rows, the ceil(H / 8) partials of
+//    its own 8 units in a fixed order (a quarter of the sources a lane,
+//    then xor-shuffles), which is dh_{t-1}.  A step thus moves 48 MB
+//    through L2 at N = 128, H = 512 (each block: its 64 rows of h_{t-1},
+//    128 KB of partials out and 128 KB in), where the CUDA-core design
+//    (H / 4 blocks each reading h_{t-1} twice and all of dg) moved 192 MB.
+//    The next step's h rows are copied, and its elementwise operands
+//    loaded, while the partial product, the barrier and phase 2 run.  At
+//    the end the two row groups' dW meet in the scratch and are added in
+//    group order.  The (dh, dc) carries live in the dh0 / dc0 outputs.
+// No atomics anywhere: two runs give the same bits.
 // Ragged sizes: any N >= 1, T >= 1; H a multiple of 4, H <= 512.  Rows
 // past N and depths past H are zero in the staged tiles and are never
 // written.
 //
-// What bounds them on the H100 (float32 peak 67 TFLOP/s, TF32 tensor
-// cores 495 TFLOP/s, 3.35 TB/s): operations on paper (forward 2 T N H 4H,
-// backward 6 T N H 4H with the recompute, three TF32 passes each on the
-// tensor cores); in fact the chain of T dependent barriers and the
-// per-step traffic through L2 (PERF.md has the times).
+// What bounds them on the H100 (TF32 tensor cores 495 TFLOP/s, float32
+// 67 TFLOP/s, 3.35 TB/s): operations on paper (forward 2 T N H 4H,
+// backward 6 T N H 4H with the recompute, three TF32 passes each);
+// in fact the chain of T dependent barriers and the per-step traffic
+// through L2 (PERF.md has the times).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,13 +106,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnits = 4;              // hidden units a block owns
-constexpr int kCols = 4 * kUnits;      // their gate columns
-constexpr int kRows = 128;             // rows of a tile
-constexpr int kChunk = 64;             // depth of a staged chunk
-constexpr int kPitch = kChunk + 4;     // pitch of a staged row
+constexpr int kHStep = 4;              // H must be a multiple of this
 constexpr int kMaxH = 512;
-constexpr int kStageFloats = kRows * kPitch;
+constexpr int kBRows = 64;             // rows of a tile
+constexpr int kGroups = 2;             // row groups of the grid
+constexpr int kBUnits = 8;             // hidden units a block owns
+constexpr int kBCols = 4 * kBUnits;    // their gate columns
+constexpr int kSlice = 8;              // 8-deep k-steps in a K-slice
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -109,168 +122,11 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// One 128 x 64 chunk of a row-major matrix (rows x ld) in registers:
-// element (row0 + r, col0 + c), zero past nrows / ncols.  Read from L2
-// (ld.global.cg): the matrix may have been written by other blocks of
-// this launch.  ld and col0 are multiples of 4 and the base is 16-byte
-// aligned, so every float4 is whole.
-struct Stage {
-  float4 v[8];
-};
-
-__device__ __forceinline__ void stage_load(Stage& s, const float* src, int ld,
-                                           int row0, int nrows, int col0,
-                                           int ncols) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = row0 + (idx >> 4);
-    const int c = col0 + ((idx & 15) << 2);
-    s.v[i] = (r < nrows && c < ncols)
-                 ? __ldcg(reinterpret_cast<const float4*>(
-                       src + static_cast<size_t>(r) * ld + c))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-__device__ __forceinline__ void stage_store(const Stage& s, float* buf) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    *reinterpret_cast<float4*>(buf + (idx >> 4) * kPitch +
-                               ((idx & 15) << 2)) = s.v[i];
-  }
-}
-
-// acc[r][g] += sum_k hprev[row0 + rp + 64 r][k] * Ws[k][u][g] for the
-// thread's unit u = tid & 3 and row pair rp = tid >> 2.  Ws has
-// round_up(H, 64) rows, zero past H.  Ends with a block barrier.
-__device__ __forceinline__ void gate_product(float (&acc)[2][4],
-                                             const float* hprev, int H,
-                                             int row0, int N, const float* Ws,
-                                             float* stage) {
-  const int u = threadIdx.x & 3, rp = threadIdx.x >> 2;
-  const int nchunks = (H + kChunk - 1) / kChunk;
-  Stage st;
-  stage_load(st, hprev, H, row0, N, 0, H);
-  for (int c = 0; c < nchunks; ++c) {
-    float* buf = stage + (c & 1) * kStageFloats;
-    stage_store(st, buf);
-    __syncthreads();
-    if (c + 1 < nchunks) stage_load(st, hprev, H, row0, N, (c + 1) * kChunk, H);
-    const float* a0 = buf + rp * kPitch;
-    const float* a1 = buf + (rp + 64) * kPitch;
-    const float* wc = Ws + c * kChunk * kCols + u * 4;
-#pragma unroll 4
-    for (int k = 0; k < kChunk; k += 4) {
-      const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
-      const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
-      const float xa[4] = {x0.x, x0.y, x0.z, x0.w};
-      const float xb[4] = {x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(wc + (k + kk) * kCols);
-        acc[0][0] = fmaf(xa[kk], wv.x, acc[0][0]);
-        acc[0][1] = fmaf(xa[kk], wv.y, acc[0][1]);
-        acc[0][2] = fmaf(xa[kk], wv.z, acc[0][2]);
-        acc[0][3] = fmaf(xa[kk], wv.w, acc[0][3]);
-        acc[1][0] = fmaf(xb[kk], wv.x, acc[1][0]);
-        acc[1][1] = fmaf(xb[kk], wv.y, acc[1][1]);
-        acc[1][2] = fmaf(xb[kk], wv.z, acc[1][2]);
-        acc[1][3] = fmaf(xb[kk], wv.w, acc[1][3]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The block's slice of W as Ws[k][u][g] = W[k][g H + j0 + u], zero for
-// k >= H (hpad rows).
-__device__ __forceinline__ void load_w_slice(float* Ws, const float* w, int H,
-                                             int hpad, int j0) {
-  for (int idx = threadIdx.x; idx < hpad * kCols; idx += kThreads) {
-    const int k = idx >> 4, u = (idx >> 2) & 3, g = idx & 3;
-    Ws[idx] = k < H ? w[static_cast<size_t>(k) * 4 * H + g * H + j0 + u] : 0.f;
-  }
-}
-
 __device__ __forceinline__ bool step_valid(int t, int T, int rev, int len) {
   return (rev ? T - 1 - t : t) < len;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    lstm_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ w,
-                    const float* __restrict__ h0, const float* __restrict__ c0,
-                    const int* __restrict__ sl, float* hs, float* cs, int T,
-                    int N, int H, int rev) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float smem[];
-  const int hpad = round_up(H, kChunk);
-  float* Ws = smem;
-  float* stage = Ws + hpad * kCols;
-  const int j0 = blockIdx.x * kUnits;
-  load_w_slice(Ws, w, H, hpad, j0);
-  __syncthreads();
-  const int u = threadIdx.x & 3, rp = threadIdx.x >> 2;
-  const int j = j0 + u;
-  const size_t nh = static_cast<size_t>(N) * H;
-  for (int t = 0; t < T; ++t) {
-    const float* hprev = t ? hs + (t - 1) * nh : h0;
-    const float* cprev = t ? cs + (t - 1) * nh : c0;
-    const float* xt = xs + t * nh * 4;
-    float* ht = hs + t * nh;
-    float* ct = cs + t * nh;
-    for (int row0 = 0; row0 < N; row0 += kRows) {
-      float x[2][4], hp[2], cp[2];
-      bool ok[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int n = row0 + rp + 64 * r;
-        hp[r] = cp[r] = 0.f;
-        ok[r] = false;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) x[r][g] = 0.f;
-        if (n < N) {
-          const float* xr = xt + static_cast<size_t>(n) * 4 * H + j;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) x[r][g] = __ldg(xr + g * H);
-          hp[r] = __ldcg(hprev + static_cast<size_t>(n) * H + j);
-          cp[r] = __ldcg(cprev + static_cast<size_t>(n) * H + j);
-          ok[r] = step_valid(t, T, rev, sl[n]);
-        }
-      }
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      gate_product(acc, hprev, H, row0, N, Ws, stage);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int n = row0 + rp + 64 * r;
-        if (n >= N) continue;
-        const float ca = tanhf(x[r][0] + acc[r][0]);
-        const float ig = sigmoid_f(x[r][1] + acc[r][1]);
-        const float fg = sigmoid_f(x[r][2] + acc[r][2]);
-        const float og = sigmoid_f(x[r][3] + acc[r][3]);
-        float c_new = fg * cp[r] + ig * ca;
-        float h_new = og * tanhf(c_new);
-        if (!ok[r]) {
-          c_new = cp[r];
-          h_new = hp[r];
-        }
-        __stcg(ht + static_cast<size_t>(n) * H + j, h_new);
-        __stcg(ct + static_cast<size_t>(n) * H + j, c_new);
-      }
-    }
-    __threadfence();
-    grid.sync();
-  }
-}
-
-// ---- backward on the tensor cores ------------------------------------------
-
-constexpr int kBRows = 64;             // rows of a backward tile
-constexpr int kGroups = 2;             // row groups of the backward's grid
-constexpr int kBUnits = 8;             // hidden units a backward block owns
-constexpr int kBCols = 4 * kBUnits;    // their gate columns
+// ---- shared by both kernels: the W slice, the h tile, the gate product --
 
 // A swizzled [rows][pitch] array, pitch a multiple of 32 (the h tile, the
 // W slice, the dg planes): column bits 3, 4 and 2 take row bits 0, 1 and
@@ -287,20 +143,36 @@ __device__ __forceinline__ int gate_col(int q, int u) {
   return 16 * (u >> 2) + 8 * (q >> 1) + 2 * (u & 3) + (q & 1);
 }
 
-// Issue the copies of rows [row0, row0 + 64) of hprev (N x H) into the
-// swizzled tile, zeros past N and H, as one cp.async group.
-__device__ __forceinline__ void issue_h_tile(float* tile, const float* hprev,
-                                             int row0, int N, int H,
-                                             int pitch) {
-  const int chunks = pitch / 4;
-  for (int c = threadIdx.x; c < kBRows * chunks; c += kThreads) {
-    const int r = c / chunks, k = (c % chunks) * 4;
-    const int row = row0 + r;
-    const bool ok = row < N && k < H;
-    flash::cp16(tile + ath(r, k, pitch),
-                ok ? hprev + static_cast<size_t>(row) * H + k : hprev, ok);
+// The block's (H x 32) slice of W, swizzled, columns in gate_col order,
+// zero for units past H and rows past H (up to round_up(H, 32)).
+__device__ __forceinline__ void load_w_slice(float* wsl, const float* w,
+                                             int H, int j0) {
+  const int hp32 = round_up(H, 32);
+  for (int idx = threadIdx.x; idx < hp32 * kBCols; idx += kThreads) {
+    const int k = idx >> 5, c = idx & 31;
+    const int uu = 4 * (c >> 4) + ((c & 7) >> 1);
+    const int q = 2 * ((c >> 3) & 1) + (c & 1);
+    wsl[ath(k, c, kBCols)] =
+        k < H && j0 + uu < H
+            ? w[static_cast<size_t>(k) * 4 * H + q * H + j0 + uu]
+            : 0.f;
   }
-  flash::cp_commit();
+}
+
+// Issue the copies of columns [c_lo, c_hi) (multiples of 4) of rows
+// [row0, row0 + 64) of hprev (N x H) into the swizzled tile, zeros past
+// N and H (no commit).  Four threads a row: thread i copies the 16-byte
+// chunks i % 4, i % 4 + 4, .. of row i / 4, so issuing takes no division.
+__device__ __forceinline__ void issue_h_cols(float* tile, const float* hprev,
+                                             int row0, int N, int H,
+                                             int pitch, int c_lo, int c_hi) {
+  static_assert(kThreads == 4 * kBRows, "four threads a row");
+  const int r = threadIdx.x >> 2, row = row0 + r;
+  const float* src = hprev + static_cast<size_t>(row < N ? row : 0) * H;
+  for (int k = c_lo + 4 * (threadIdx.x & 3); k < c_hi; k += 16) {
+    const bool ok = row < N && k < H;
+    flash::cp16(tile + ath(r, k, pitch), ok ? src + k : hprev, ok);
+  }
 }
 
 // x = big + small (flash::split) for the four registers of a fragment.
@@ -322,6 +194,253 @@ __device__ __forceinline__ void mma3(float (&c)[NT][4], const uint32_t (&ab)[4],
   for (int j = 0; j < NT; ++j) flash::mma_tf32(c[j], ab, bs[j]);
 #pragma unroll
   for (int j = 0; j < NT; ++j) flash::mma_tf32(c[j], ab, bb[j]);
+}
+
+// acc (rows mt*16 + gq (+8) x the 32 gate columns) += the staged h tile
+// times the W slice over k-steps [s_from, s_to): each K-slice of up to 8
+// k-steps (64 deep) from s_from in its own accumulators, even and odd
+// steps apart, added to acc in float32.
+__device__ __forceinline__ void gate_slices(float (&acc)[4][4],
+                                            const float* tile,
+                                            const float* wsl, int hp32,
+                                            int mt, int gq, int tq,
+                                            int s_from, int s_to) {
+  for (int s0 = s_from; s0 < s_to; s0 += kSlice) {
+    float pe[4][4], po[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pe[nt][r] = po[nt][r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSlice; ++i) {
+      if (s0 + i >= s_to) break;
+      const int kk = (s0 + i) * 8, r0 = mt * 16 + gq;
+      float a[4];
+      a[0] = tile[ath(r0, kk + tq, hp32)];
+      a[1] = tile[ath(r0 + 8, kk + tq, hp32)];
+      a[2] = tile[ath(r0, kk + tq + 4, hp32)];
+      a[3] = tile[ath(r0 + 8, kk + tq + 4, hp32)];
+      uint32_t ab[4], as[4];
+      split4(a, ab, as);
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        flash::split(wsl[ath(kk + tq, nt * 8 + gq, kBCols)], bb[nt][0],
+                     bs[nt][0]);
+        flash::split(wsl[ath(kk + tq + 4, nt * 8 + gq, kBCols)], bb[nt][1],
+                     bs[nt][1]);
+      }
+      if (i & 1)
+        mma3<4>(po, ab, as, bb, bs);
+      else
+        mma3<4>(pe, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[nt][r] += pe[nt][r] + po[nt][r];
+  }
+}
+
+// Warp (mt, kh) formed rows mt*16 + gq and + 8 over half kh of the
+// depth; it keeps row mt*16 + gq + 8 kh and hands the other row's sums to
+// the warp of the other half through xg ([4][2][4][2][32] floats).
+__device__ __forceinline__ void gates_out(const float (&acc)[4][4],
+                                          float* xg, int mt, int kh,
+                                          int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      xg[(((mt * 2 + 1 - kh) * 4 + nt) * 2 + e) * 32 + lane] =
+          kh ? acc[nt][e] : acc[nt][2 + e];
+}
+
+// After a block barrier: column 2 tq + e of n-tile nt of the kept row,
+// both halves of the depth summed.
+__device__ __forceinline__ float gate_sum(const float (&acc)[4][4],
+                                          const float* xg, int mt, int kh,
+                                          int nt, int e, int lane) {
+  return (kh ? acc[nt][2 + e] : acc[nt][e]) +
+         xg[(((mt * 2 + kh) * 4 + nt) * 2 + e) * 32 + lane];
+}
+
+// ---- forward ----------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most n (0 .. 3) of this thread's cp.async groups are
+// still in flight.
+__device__ __forceinline__ void cp_wait_pending(int n) {
+  if (n >= 3)
+    cp_wait<3>();
+  else if (n == 2)
+    cp_wait<2>();
+  else if (n == 1)
+    cp_wait<1>();
+  else
+    cp_wait<0>();
+}
+
+// Issue the copies of rows [row0, row0 + 64) of hprev into the tile as
+// n_copy cp.async groups: group g holds the g-th K-slice (k-steps 8g ..
+// 8g + 7) of each half of the depth, `half` k-steps a half.
+__device__ __forceinline__ void issue_h_slices(float* tile,
+                                               const float* hprev, int row0,
+                                               int N, int H, int pitch,
+                                               int half, int n_copy) {
+  const int nks = pitch / 8;
+  for (int g = 0; g < n_copy; ++g) {
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+      const int lo = kh * half + kSlice * g;
+      const int hi = min(min(lo + kSlice, (kh + 1) * half), nks);
+      if (lo < hi)
+        issue_h_cols(tile, hprev, row0, N, H, pitch, 8 * lo, 8 * hi);
+    }
+    flash::cp_commit();
+  }
+}
+
+// A lane's operands of a tile at step t: xs[t] of its row and two units,
+// and the row's h_{t-1}, c_{t-1} there (h0, c0, or what this same thread
+// wrote at step t-1), which a frozen row keeps.
+struct FwdIn {
+  float x[2][4], hp[2], cp[2];
+  bool in[2], ok;
+};
+
+__device__ __forceinline__ void load_fwd_in(FwdIn& s, const float* xs,
+                                            const float* hprev,
+                                            const float* cprev,
+                                            const int* sl, int t, int T,
+                                            int rev, int n, int N, int H,
+                                            int j0, int tq) {
+  const size_t nh = static_cast<size_t>(N) * H;
+  const bool row_ok = n < N;
+  s.ok = row_ok && step_valid(t, T, rev, sl[n]);
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    const int j = j0 + 4 * v + tq;
+    s.in[v] = row_ok && j < H;
+    s.hp[v] = s.cp[v] = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s.x[v][q] = 0.f;
+    if (s.in[v]) {
+      const size_t e = static_cast<size_t>(n) * H + j;
+      const float* xr = xs + t * nh * 4 + static_cast<size_t>(n) * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s.x[v][q] = __ldg(xr + q * H);
+      s.hp[v] = __ldcg(hprev + e);
+      s.cp[v] = __ldcg(cprev + e);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ w,
+                    const float* __restrict__ h0, const float* __restrict__ c0,
+                    const int* __restrict__ sl, float* hs, float* cs, int T,
+                    int N, int H, int rev) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int U = (H + kBUnits - 1) / kBUnits, hp32 = round_up(H, 32);
+  const int grp = blockIdx.x / U, ub = blockIdx.x % U;   // row group, units
+  const int j0 = ub * kBUnits;
+  float* wsl = smem;                        // [hp32][32] W slice, float32
+  float* tile = wsl + hp32 * kBCols;        // [64][hp32] h rows
+  float* xg = tile + kBRows * hp32;         // [4][2][4][2][32] gate halves
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // warp (mt, kh): rows mt*16 .. +16 over half kh of the depth; lane
+  // (gq, tq) then owns row er, units tq and 4 + tq
+  const int mt = warp & 3, kh = warp >> 2;
+  const int er = mt * 16 + gq + 8 * kh;
+  const int nks = hp32 / 8, half = (nks + 1) / 2;
+  const int ks_lo = kh * half, ks_hi = min(nks, ks_lo + half);
+  const int n_copy = (half + kSlice - 1) / kSlice;   // copy groups, <= 4
+  const size_t nh = static_cast<size_t>(N) * H;
+  const int first_row = kBRows * grp, stride = kBRows * kGroups;
+  const bool has_rows = first_row < N;
+  if (has_rows)     // the first tile lands while the W slice loads
+    issue_h_slices(tile, h0, first_row, N, H, hp32, half, n_copy);
+  load_w_slice(wsl, w, H, j0);
+  FwdIn in;
+  if (has_rows)
+    load_fwd_in(in, xs, h0, c0, sl, 0, T, rev, first_row + er, N, H, j0,
+                tq);
+  for (int t = 0; t < T; ++t) {
+    const float* hprev = t ? hs + (t - 1) * nh : h0;
+    const float* cprev = t ? cs + (t - 1) * nh : c0;
+    float* ht = hs + t * nh;
+    float* ct = cs + t * nh;
+    for (int row0 = first_row; row0 < N; row0 += stride) {
+      const int n = row0 + er;
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+      for (int g = 0; g < n_copy; ++g) {
+        cp_wait_pending(n_copy - 1 - g);
+        __syncthreads();    // K-slice g of both halves is in
+        const int s_from = ks_lo + kSlice * g;
+        gate_slices(acc, tile, wsl, hp32, mt, gq, tq, s_from,
+                    min(s_from + kSlice, ks_hi));
+      }
+      gates_out(acc, xg, mt, kh, lane);
+      __syncthreads();      // the halves are in xg; the tile is free
+      if (row0 + stride < N)
+        issue_h_slices(tile, hprev, row0 + stride, N, H, hp32, half, n_copy);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        if (!in.in[v]) continue;
+        float pre[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pre[q] = in.x[v][q] +
+                   gate_sum(acc, xg, mt, kh, 2 * v + (q >> 1), q & 1, lane);
+        const float ca = tanhf(pre[0]);
+        const float ig = sigmoid_f(pre[1]);
+        const float fg = sigmoid_f(pre[2]);
+        const float og = sigmoid_f(pre[3]);
+        float c_new = fg * in.cp[v] + ig * ca;
+        float h_new = og * tanhf(c_new);
+        if (!in.ok) {
+          c_new = in.cp[v];
+          h_new = in.hp[v];
+        }
+        const size_t e = static_cast<size_t>(n) * H + j0 + 4 * v + tq;
+        __stcg(ht + e, h_new);
+        __stcg(ct + e, c_new);
+      }
+      if (row0 + stride < N)       // the next tile of this step
+        load_fwd_in(in, xs, hprev, cprev, sl, t, T, rev, row0 + stride + er,
+                    N, H, j0, tq);
+    }
+    if (t + 1 < T) {
+      // the next step's own operands need no other block: load them first
+      if (has_rows)
+        load_fwd_in(in, xs, ht, ct, sl, t + 1, T, rev, first_row + er, N, H,
+                    j0, tq);
+      grid.sync();
+      if (has_rows)
+        issue_h_slices(tile, ht, first_row, N, H, hp32, half, n_copy);
+    }
+  }
+}
+
+// ---- backward ---------------------------------------------------------------
+
+// The whole tile [row0, row0 + 64) of hprev as one cp.async group.
+__device__ __forceinline__ void issue_h_tile(float* tile, const float* hprev,
+                                             int row0, int N, int H,
+                                             int pitch) {
+  issue_h_cols(tile, hprev, row0, N, H, pitch, 0, pitch);
+  flash::cp_commit();
 }
 
 // A lane's elementwise operands of a tile: one row, units tq and 4 + tq
@@ -390,14 +509,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (has_rows)     // the first tile lands while the W slice loads
     issue_h_tile(tile, T > 1 ? hs + (T - 2) * nh : h0, first_row, N, H,
                  hp32);
-  for (int idx = tid; idx < hp32 * kBCols; idx += kThreads) {
-    const int k = idx >> 5, c = idx & 31;
-    const int uu = 4 * (c >> 4) + ((c & 7) >> 1);
-    const int q = 2 * ((c >> 3) & 1) + (c & 1);
-    wsl[ath(k, c, kBCols)] =
-        k < H && j0 + uu < H ? w[static_cast<size_t>(k) * G + q * H + j0 + uu]
-                             : 0.f;
-  }
+  load_w_slice(wsl, w, H, j0);
   // gates: warp (mt, kh) forms rows mt*16 .. +16 x all 32 columns over
   // half kh of the depth; the halves meet in shared memory, and lane
   // (gq, tq) then owns row er = mt*16 + gq + 8 kh, units tq and 4 + tq,
@@ -439,48 +551,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
-      for (int s0 = ks_lo; s0 < ks_hi; s0 += 8) {     // 64-deep K-slices
-        float pe[4][4], po[4][4];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) pe[nt][r] = po[nt][r] = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (s0 + i >= ks_hi) break;
-          const int kk = (s0 + i) * 8, r0 = mt * 16 + gq;
-          float a[4];
-          a[0] = tile[ath(r0, kk + tq, hp32)];
-          a[1] = tile[ath(r0 + 8, kk + tq, hp32)];
-          a[2] = tile[ath(r0, kk + tq + 4, hp32)];
-          a[3] = tile[ath(r0 + 8, kk + tq + 4, hp32)];
-          uint32_t ab[4], as[4];
-          split4(a, ab, as);
-          uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            flash::split(wsl[ath(kk + tq, nt * 8 + gq, kBCols)], bb[nt][0],
-                         bs[nt][0]);
-            flash::split(wsl[ath(kk + tq + 4, nt * 8 + gq, kBCols)],
-                         bb[nt][1], bs[nt][1]);
-          }
-          if (i & 1)
-            mma3<4>(po, ab, as, bb, bs);
-          else
-            mma3<4>(pe, ab, as, bb, bs);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[nt][r] += pe[nt][r] + po[nt][r];
-      }
+      gate_slices(acc, tile, wsl, hp32, mt, gq, tq, ks_lo, ks_hi);
       // the rows the other half keeps go to it through shared memory
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          xg[(((mt * 2 + 1 - kh) * 4 + nt) * 2 + e) * 32 + lane] =
-              kh ? acc[nt][e] : acc[nt][2 + e];
+      gates_out(acc, xg, mt, kh, lane);
       __syncthreads();
       // dg for the lane's row and two units: dxs[t], the dc carry, the
       // split dg tile
@@ -493,9 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int nt = 2 * v + (q >> 1), e = q & 1;
-            pre[q] = in.x[v][q] +
-                     ((kh ? acc[nt][2 + e] : acc[nt][e]) +
-                      xg[(((mt * 2 + kh) * 4 + nt) * 2 + e) * 32 + lane]);
+            pre[q] = in.x[v][q] + gate_sum(acc, xg, mt, kh, nt, e, lane);
           }
           const float ca = tanhf(pre[0]);
           const float ig = sigmoid_f(pre[1]);
@@ -755,9 +826,11 @@ __global__ void __launch_bounds__(512)
     out[blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5)] = s;
 }
 
+// The W slice, the h tile and the gate halves.
 size_t fwd_smem(int H) {
-  return (static_cast<size_t>(round_up(H, kChunk)) * kCols +
-          2 * kStageFloats) * sizeof(float);
+  return (static_cast<size_t>(round_up(H, 32)) * kBCols +
+          static_cast<size_t>(kBRows) * round_up(H, 32) + 2048) *
+         sizeof(float);
 }
 
 // The W slice, the h tile, the split dg tile and the gate halves.
@@ -767,10 +840,11 @@ size_t bwd_smem(int H) {
           2 * kBRows * kBCols + 2048) * sizeof(float);
 }
 
-int bwd_blocks(int H) { return kGroups * ((H + kBUnits - 1) / kBUnits); }
+// Both kernels' grid: 2 row groups x ceil(H / 8) unit groups.
+int grid_blocks(int H) { return kGroups * ((H + kBUnits - 1) / kBUnits); }
 
 int check_dims(int t, int n, int h) {
-  if (t < 1 || n < 1 || h < kUnits || h % kUnits || h > kMaxH) return -1;
+  if (t < 1 || n < 1 || h < kHStep || h % kHStep || h > kMaxH) return -1;
   return 0;
 }
 
@@ -811,7 +885,7 @@ extern "C" int lstm_fwd_launch(const void* xs, const void* w, const void* h0,
                                int device, void* stream) {
   int rc = check_dims(t, n, h);
   if (rc) return rc;
-  const int blocks = h / kUnits;
+  const int blocks = grid_blocks(h);
   const size_t smem = fwd_smem(h);
   rc = prepare(reinterpret_cast<const void*>(lstm_fwd_kernel), blocks, smem,
                device);
@@ -837,7 +911,7 @@ extern "C" int lstm_bwd_launch(const void* xs, const void* w, const void* h0,
                                int rev, int device, void* stream) {
   int rc = check_dims(t, n, h);
   if (rc) return rc;
-  const int blocks = bwd_blocks(h);
+  const int blocks = grid_blocks(h);
   const size_t smem = bwd_smem(h);
   rc = prepare(reinterpret_cast<const void*>(lstm_bwd_kernel), blocks, smem,
                device);

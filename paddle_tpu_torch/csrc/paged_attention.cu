@@ -10,156 +10,292 @@
 // (P, page, 1) f32, the page table is (S, max_pages) int32 and lengths is
 // (S,) int32.
 //
-// Design.  One block per (slot, head), four warps.  Warp w takes the
-// slot's tokens w, w+4, w+8, ... below the slot's length; each lane holds
-// D/32 consecutive elements of the head's slice, so a K row is one
-// coalesced D-element read per warp and q.k is a register dot product
-// finished by a warp butterfly reduction.  Each warp keeps its own
-// online-softmax state (running max m, normaliser l, accumulator acc) in
-// registers; the four states merge through shared memory at the end.
-// The physical page of token t is read from the page table in the loop
-// (page_table[s, t / page]) — what the Pallas BlockSpec index map did on
-// the TPU.
-//
 // What bounds it: decode attention reads every K/V row of every slot
 // once and does 4 flops per element, far below the card's
-// operations-per-byte balance, so by the roofline it is memory-bound
-// (~1 us for one decode step of the serving configuration).  The design
-// reads each needed row exactly once and never touches rows at or past a
-// slot's length: they may hold NaN from an evicted slot, and page-table
-// entries past the used range are 0 and are never dereferenced.  Each
-// warp walks its tokens one after another, so at these sizes the chain
-// of dependent row loads, not bandwidth, sets the time; splitting a slot
-// over several blocks and keeping more loads in flight (flash-decoding)
-// is the next step.
+// operations-per-byte balance, so by the roofline it is memory-bound:
+// ~1 us for one decode step of the serving configuration, ~30 us for 16
+// slots of 2048-4096 tokens.  What kept the first design (one block per
+// (slot, head), each warp walking its tokens one at a time, D/32
+// elements a lane) far from that was latency: a chain of dependent
+// page-table, K and V loads per token with few bytes in flight.
+//
+// Design (flash-decoding).  A block of four warps handles one (slot,
+// head, split); a split is a fixed run of `pages_per_split` of the
+// slot's pages.  The wrapper picks the split size from shapes alone
+// (max_pages, S x H and the SM count), never from the lengths, so the
+// grid and the workspace do not depend on the data and no decode step
+// waits on a read of the lengths.
+//  - A split reads its page-table entries once, into shared memory.
+//  - Loads are 16 bytes a lane: a row of D elements is LPR = D / EPL
+//    lanes (EPL = 4 f32, 8 bf16 or 16 int8 elements a load), so one warp
+//    load covers 32 / LPR tokens (4 at D = 64 bf16), and each warp keeps
+//    kUnroll such loads of K and of V in flight before it uses any.
+//  - q.k is reduced over the LPR lanes of a row by xor-shuffles; each
+//    lane keeps the online-softmax state (running max m, normaliser l,
+//    its EPL accumulators) of the tokens in its row slot, in registers,
+//    rescaled once per group of kUnroll tokens.  The slots of a warp,
+//    then the four warps (through shared memory, in warp order), merge.
+//  - A split that starts at or past its slot's length writes the empty
+//    state (m = -1e30, l = 0) and exits.  With one split the block writes
+//    the output itself; with more, each split's (m, l, acc) goes to the
+//    workspace and a second kernel merges them in split order, reading
+//    the acc of the non-empty splits only.  No atomics: two runs give the
+//    same bits.
+//  - Rows at or past a slot's length are never read (they may hold NaN
+//    from an evicted slot), and page-table entries past the used range
+//    are never dereferenced.
 //
 // Numerics follow the TPU kernel: scores in f32, NEG_INF = -1e30 as the
 // running-max seed, the normaliser clamped at 1e-30, the output cast to
-// q's dtype (f32 here).  int8 rows are dequantised with their per-row
-// scale.
+// q's dtype (f32 here), lengths clamped to [0, max_pages * page].  int8
+// rows are dequantised with their per-row scale.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kUnroll = 4;           // warp loads of K (and V) in flight
+constexpr int kMaxSplitPages = 4096;
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
+// The EPL = 16 / sizeof(KV) elements of one 16-byte load, as float32.
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[4],
+                                       float) {
+  x[0] = __uint_as_float(r.x);
+  x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z);
+  x[3] = __uint_as_float(r.w);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// bfloat16 (the top half of a float32): element 2i in the low half-word
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8],
+                                       uint16_t) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[16],
+                                       int8_t) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[4 * i + b] = static_cast<float>(
+          static_cast<int8_t>(static_cast<uint8_t>(w[i] >> (8 * b))));
+}
+
+// KV is float, uint16_t (bfloat16 bits) or int8_t.
 template <typename KV, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_attention_kernel(const float* __restrict__ q,
+__global__ void __launch_bounds__(kThreads)
+    paged_split_kernel(const float* __restrict__ q,
                        const KV* __restrict__ k_pages,
                        const KV* __restrict__ v_pages,
                        const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales,
                        const int* __restrict__ page_table,
                        const int* __restrict__ lengths,
-                       float* __restrict__ out,
-                       int n_head, int page, int max_pages, float scale) {
-  constexpr int VPL = D / 32;  // values per lane
-  const int s = blockIdx.x / n_head;
-  const int h = blockIdx.x % n_head;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int hd = n_head * D;
-  const int col = h * D + lane * VPL;
-
-  int len = lengths[s];
-  const int cap = max_pages * page;
-  len = len < 0 ? 0 : (len > cap ? cap : len);
-
-  float qv[VPL];
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) qv[i] = q[(int64_t)s * hd + col + i];
-
-  float m = kNegInf, l = 0.f;
-  float acc[VPL];
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) acc[i] = 0.f;
-
-  const int* pt_row = page_table + (int64_t)s * max_pages;
-  for (int t = warp; t < len; t += kWarps) {
-    const int64_t row = (int64_t)pt_row[t / page] * page + (t % page);
-    const KV* krow = k_pages + row * hd + col;
-    const KV* vrow = v_pages + row * hd + col;
-    float dot = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) dot += qv[i] * to_f32(krow[i]);
-    dot = warp_sum(dot);
-    if (k_scales != nullptr) dot *= k_scales[row];
-    const float sc = dot * scale;
-    const float vs = v_scales != nullptr ? v_scales[row] : 1.f;
-    const float m_new = fmaxf(m, sc);
-    const float alpha = expf(m - m_new);
-    const float p = expf(sc - m_new);
-    l = l * alpha + p;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i)
-      acc[i] = acc[i] * alpha + p * (to_f32(vrow[i]) * vs);
-    m = m_new;
-  }
-
-  // merge the four warps' online-softmax states
+                       float* __restrict__ out, float* __restrict__ ws,
+                       int n_sh, int n_head, int page, int max_pages,
+                       int pps, int n_splits, float scale) {
+  constexpr int EPL = 16 / sizeof(KV);   // elements a lane loads at once
+  constexpr int LPR = D / EPL;           // lanes of a row
+  constexpr int TPW = 32 / LPR;          // tokens of one warp load
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row lanes");
+  extern __shared__ int sm_page[];       // the split's page-table entries
   __shared__ float sm_m[kWarps], sm_l[kWarps];
   __shared__ float sm_acc[kWarps][D];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) sm_acc[warp][lane * VPL + i] = acc[i];
-  __syncthreads();
-  if (warp == 0) {
-    float mm = sm_m[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w]);
-    float ll = 0.f;
-    float o[VPL];
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) o[i] = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w] - mm);
-      ll += sm_l[w] * f;
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) o[i] += sm_acc[w][lane * VPL + i] * f;
+  const int split = blockIdx.x % n_splits, sh = blockIdx.x / n_splits;
+  const int s = sh / n_head, h = sh % n_head;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = lane / LPR, sub = lane % LPR;
+  const int hd = n_head * D;
+  const int cap = max_pages * page;
+  int len = lengths[s];
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+  const int span = pps * page;
+  const int t0 = split * span;
+  const int t1 = min(t0 + span, len);
+  const size_t at = static_cast<size_t>(sh) * n_splits + split;
+  if (n_splits > 1 && t0 >= len) {       // nothing of this slot here
+    if (threadIdx.x == 0) {
+      ws[2 * at] = kNegInf;
+      ws[2 * at + 1] = 0.f;
     }
-    const float denom = fmaxf(ll, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < VPL; ++i)
-      out[(int64_t)s * hd + col + i] = o[i] / denom;
+    return;
   }
+  const int n_pg = t1 > t0 ? (t1 - t0 + page - 1) / page : 0;
+  const int* pt = page_table + static_cast<int64_t>(s) * max_pages +
+                  static_cast<int64_t>(split) * pps;
+  for (int i = threadIdx.x; i < n_pg; i += kThreads) sm_page[i] = pt[i];
+  const int col = h * D + sub * EPL;
+  float qv[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i)
+    qv[i] = q[static_cast<int64_t>(s) * hd + col + i];
+  __syncthreads();
+
+  float m = kNegInf, l = 0.f, acc[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
+  constexpr int kStep = kWarps * TPW * kUnroll;   // tokens an iteration
+  for (int base = t0; base < t1; base += kStep) {
+    uint4 kr[kUnroll], vr[kUnroll];
+    float ksc[kUnroll], vsc[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = base + (u * kWarps + warp) * TPW + slot;
+      ok[u] = t < t1;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      ksc[u] = vsc[u] = 1.f;
+      if (ok[u]) {
+        const int rel = t - t0;
+        const int64_t row =
+            static_cast<int64_t>(sm_page[rel / page]) * page + rel % page;
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(k_pages + row * hd + col));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(v_pages + row * hd + col));
+        if (k_scales != nullptr) {
+          ksc[u] = __ldg(k_scales + row);
+          vsc[u] = __ldg(v_scales + row);
+        }
+      }
+    }
+    float sc[kUnroll];
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float kx[EPL];
+      unpack(kr[u], kx, KV());
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) dot += qv[i] * kx[i];
+#pragma unroll
+      for (int o = 1; o < LPR; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
+      sc[u] = ok[u] ? (dot * ksc[u]) * scale : kNegInf;
+      mx = fmaxf(mx, sc[u]);
+    }
+    const float alpha = expf(m - mx);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (!ok[u]) continue;
+      const float p = expf(sc[u] - mx);
+      l += p;
+      float vx[EPL];
+      unpack(vr[u], vx, KV());
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) acc[i] += p * (vx[i] * vsc[u]);
+    }
+    m = mx;
+  }
+
+  // the row slots of the warp, then the four warps, in warp order
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+    const float mo = __shfl_xor_sync(kFull, m, o);
+    const float lo = __shfl_xor_sync(kFull, l, o);
+    const float mn = fmaxf(m, mo);
+    const float a = expf(m - mn), b = expf(mo - mn);
+    l = l * a + lo * b;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i)
+      acc[i] = acc[i] * a + __shfl_xor_sync(kFull, acc[i], o) * b;
+    m = mn;
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) sm_acc[warp][sub * EPL + i] = acc[i];
+    if (sub == 0) {
+      sm_m[warp] = m;
+      sm_l[warp] = l;
+    }
+  }
+  __syncthreads();
+  const int d = threadIdx.x;
+  if (d >= D) return;
+  float mm = sm_m[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w]);
+  float ll = 0.f, o = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float f = expf(sm_m[w] - mm);
+    ll += sm_l[w] * f;
+    o += sm_acc[w][d] * f;
+  }
+  if (n_splits == 1) {
+    out[static_cast<int64_t>(sh) * D + d] = o / fmaxf(ll, 1e-30f);
+    return;
+  }
+  ws[static_cast<size_t>(n_sh) * n_splits * 2 + at * D + d] = o;
+  if (d == 0) {
+    ws[2 * at] = mm;
+    ws[2 * at + 1] = ll;
+  }
+}
+
+// out of one (slot, head): its splits' states merged in split order; the
+// acc of a split is read only when its l > 0 (the split held tokens).
+template <int D>
+__global__ void __launch_bounds__(D)
+    paged_merge_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                       int n_sh, int n_splits) {
+  const int sh = blockIdx.x, d = threadIdx.x;
+  const float* ml = ws + static_cast<size_t>(sh) * n_splits * 2;
+  const float* acc = ws + static_cast<size_t>(n_sh) * n_splits * 2 +
+                     static_cast<size_t>(sh) * n_splits * D;
+  float mm = kNegInf;
+  for (int sp = 0; sp < n_splits; ++sp)
+    if (ml[2 * sp + 1] > 0.f) mm = fmaxf(mm, ml[2 * sp]);
+  float ll = 0.f, o = 0.f;
+  for (int sp = 0; sp < n_splits; ++sp) {
+    const float l = ml[2 * sp + 1];
+    if (l > 0.f) {
+      const float f = expf(ml[2 * sp] - mm);
+      ll += l * f;
+      o += acc[static_cast<size_t>(sp) * D + d] * f;
+    }
+  }
+  out[static_cast<int64_t>(sh) * D + d] = o / fmaxf(ll, 1e-30f);
 }
 
 template <typename KV>
 int launch_typed(const void* q, const void* k, const void* v, const void* ks,
                  const void* vs, const void* pt, const void* lengths,
-                 void* out, int n_slots, int n_head, int d, int page,
-                 int max_pages, float scale, cudaStream_t stream) {
-  const dim3 grid(n_slots * n_head), block(kWarps * 32);
+                 void* out, void* ws, int n_slots, int n_head, int d,
+                 int page, int max_pages, int pps, float scale,
+                 cudaStream_t stream) {
+  const int n_splits = max_pages > pps ? (max_pages + pps - 1) / pps : 1;
+  const int n_sh = n_slots * n_head;
+  if (n_splits > 1 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = static_cast<int64_t>(n_sh) * n_splits;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(pps) * sizeof(int);
 #define PAGED_LAUNCH(DD)                                                     \
-  paged_attention_kernel<KV, DD><<<grid, block, 0, stream>>>(                \
+  paged_split_kernel<KV, DD><<<static_cast<int>(blocks), kThreads, smem,    \
+                               stream>>>(                                   \
       static_cast<const float*>(q), static_cast<const KV*>(k),               \
       static_cast<const KV*>(v), static_cast<const float*>(ks),              \
       static_cast<const float*>(vs), static_cast<const int*>(pt),            \
-      static_cast<const int*>(lengths), static_cast<float*>(out), n_head,    \
-      page, max_pages, scale)
+      static_cast<const int*>(lengths), static_cast<float*>(out),            \
+      static_cast<float*>(ws), n_sh, n_head, page, max_pages, pps, n_splits, \
+      scale);                                                                \
+  if (n_splits > 1)                                                          \
+    paged_merge_kernel<DD><<<n_sh, DD, 0, stream>>>(                         \
+        static_cast<const float*>(ws), static_cast<float*>(out), n_sh,       \
+        n_splits)
   switch (d) {
     case 32: PAGED_LAUNCH(32); break;
     case 64: PAGED_LAUNCH(64); break;
@@ -172,32 +308,42 @@ int launch_typed(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// kv_type: 0 = float32, 1 = bfloat16, 2 = int8 (ks/vs required).
-// Returns the cudaError_t of the launch (0 = success).
+// kv_type: 0 = float32, 1 = bfloat16, 2 = int8 (ks/vs required).  The
+// pools must start 16-byte aligned.  pages_per_split in [1, 4096]; with
+// more than one split (max_pages > pages_per_split) `workspace` holds
+// S x H x n_splits x (2 + d) floats, n_splits = ceil(max_pages /
+// pages_per_split).  Returns the cudaError_t of the launches (0 =
+// success).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* page_table,
-    const void* lengths, void* out, int n_slots, int n_head, int d,
-    int page, int max_pages, float scale, int kv_type, int device,
-    void* stream) {
+    const void* lengths, void* out, void* workspace, int n_slots,
+    int n_head, int d, int page, int max_pages, int pages_per_split,
+    float scale, int kv_type, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_slots == 0) return 0;
+  if (pages_per_split < 1 || pages_per_split > kMaxSplitPages ||
+      reinterpret_cast<uintptr_t>(k_pages) % 16 ||
+      reinterpret_cast<uintptr_t>(v_pages) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kv_type) {
     case 0:
       return launch_typed<float>(q, k_pages, v_pages, nullptr, nullptr,
-                                 page_table, lengths, out, n_slots, n_head,
-                                 d, page, max_pages, scale, st);
+                                 page_table, lengths, out, workspace,
+                                 n_slots, n_head, d, page, max_pages,
+                                 pages_per_split, scale, st);
     case 1:
-      return launch_typed<__nv_bfloat16>(q, k_pages, v_pages, nullptr,
-                                         nullptr, page_table, lengths, out,
-                                         n_slots, n_head, d, page,
-                                         max_pages, scale, st);
+      return launch_typed<uint16_t>(q, k_pages, v_pages, nullptr, nullptr,
+                                    page_table, lengths, out, workspace,
+                                    n_slots, n_head, d, page, max_pages,
+                                    pages_per_split, scale, st);
     case 2:
       return launch_typed<int8_t>(q, k_pages, v_pages, k_scales, v_scales,
-                                  page_table, lengths, out, n_slots, n_head,
-                                  d, page, max_pages, scale, st);
+                                  page_table, lengths, out, workspace,
+                                  n_slots, n_head, d, page, max_pages,
+                                  pages_per_split, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,11 +17,12 @@ the time axis) when T-1-t < sl[n].  The backward recomputes the gates
 from the saved hs, cs, so the (T, N, 4H) gates never reach device memory.
 
 The kernels (csrc/lstm.cu) are one persistent cooperative launch each,
-split over the SMs by hidden unit with a grid barrier per step; they take
-float32, any N >= 1 and T >= 1, and H a multiple of 4 up to 512.  The
-forward runs on the CUDA cores, the backward's three products on the
-tensor cores (mma.sync TF32, split 3xTF32 so they stay float32-accurate),
-with a scratch for the blocks' partial dh that the wrapper allocates.
+split over the SMs by hidden unit and row group with a grid barrier per
+step; they take float32, any N >= 1 and T >= 1, and H a multiple of 4 up
+to 512.  Every product of both (the forward's gates, the backward's
+recompute, dW and dh) runs on the tensor cores (mma.sync TF32, split
+3xTF32 so they stay float32-accurate); the backward has a scratch for
+the blocks' partial dh that the wrapper allocates.
 The TPU kernel's time blocking (block_t, the padded tail) is a TPU device
 and is not carried over.
 
@@ -43,15 +44,15 @@ import torch
 
 from . import TF32_FLOP_PER_S, _build, launch_counts, plain_calls
 
-UNITS_PER_BLOCK = 4     # csrc/lstm.cu kUnits: H must be a multiple
+UNITS_PER_BLOCK = 4     # csrc/lstm.cu kHStep: H must be a multiple
 MAX_H = 512             # csrc/lstm.cu kMaxH
 _SOURCE = "lstm"
 _FWD, _BWD = "lstm_fwd", "lstm_bwd"
 _LAUNCH_ERRORS = {
     -1: "sizes outside what the kernel takes",
     -2: "the device does not support cooperative launches",
-    -3: "the grid of H / 4 blocks cannot be resident at once on this "
-        "device (the kernel's grid barrier needs that)"}
+    -3: "the grid of 2 x ceil(H / 8) blocks cannot be resident at once "
+        "on this device (the kernel's grid barrier needs that)"}
 
 
 def _valid(t, t_len, sl, rev):
@@ -360,8 +361,9 @@ def bound_bytes_and_flops(t, n, h, el=4):
 
 
 def tensor_core_bound_ms(t, n, h):
-    """{"bwd": ms}: the least time of the backward kernel's 3xTF32 products
-    on the tensor cores, 3 * 6*T*N*H*4H TF32 operations at the H100's
-    495 TFLOP/s (the forward runs on the CUDA cores: its bound is the
-    float32 one of `bound_bytes_and_flops`)."""
-    return {"bwd": 3 * 6 * t * n * h * 4 * h / TF32_FLOP_PER_S * 1e3}
+    """{"fwd" | "bwd": ms}: the least time of each kernel's 3xTF32
+    products on the tensor cores, 3 TF32 operations for each flop of
+    `bound_bytes_and_flops` (2*T*N*H*4H forward, 6*T*N*H*4H backward) at
+    the H100's 495 TFLOP/s."""
+    return {k: 3 * flops / TF32_FLOP_PER_S * 1e3 for k, (_, flops)
+            in bound_bytes_and_flops(t, n, h).items()}

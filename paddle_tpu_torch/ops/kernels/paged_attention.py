@@ -7,25 +7,32 @@ pages of the shared (P, page, H*D) pools, addressed through the
 (S, max_pages) page table and masked to the slot's length; optional
 int8 pools carry per-row f32 scales (P, page, 1).
 
-Kernel: csrc/paged_attention.cu — one block per (slot, head), four warps
-striding over the slot's tokens, online softmax in registers, page
-indices read from the page table inside the loop.  What bounds it on the
-card: memory (each K/V row below a slot's length is read once, 4 flops
-per element); the kernel reads only those rows, so rows past a length
-(NaN from an evicted slot) and page-table entries past the used range
-are never touched.  Splitting a long slot across blocks (flash-decoding)
-is left for a later PR.
+Kernel: csrc/paged_attention.cu — flash-decoding: one block per (slot,
+head, split), a split being a fixed run of `pages_per_split` of the
+slot's pages; 16-byte loads with several tokens in flight a warp, the
+online softmax in registers, each split's page-table entries read once.
+With more than one split each split's (m, l, acc) goes to a workspace
+(`torch.empty`, allocated here) that a second kernel merges in split
+order.  The split size is a function of shapes only (`pages_per_split`:
+max_pages, S x H and the SM count), never of the lengths, so a decode
+step reads nothing back from the card to launch it.  What bounds it on
+the card: memory (each K/V row below a slot's length is read once, 4
+flops per element); rows past a length (NaN from an evicted slot) and
+page-table entries past the used range are never touched.
 
 Plain version: `paged_attention_plain`, the torch port of the
 reference's dense-gather twin `_xla_paged_attention` — it gathers every
 slot's pages, masks to the length (zeroing invalid V rows so 0 * NaN
 never poisons the sum) and runs a dense softmax.  Same function, same
 arguments; it is the CPU path and the card's reference.
+`paged_attention_split_plain` is the same function blocked as the kernel
+blocks it (each split's state, merged in split order), for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,6 +41,11 @@ from . import _build
 
 NEG_INF = -1e30
 _NAME = "paged_attention"
+# the split size (csrc/paged_attention.cu): about this many blocks an SM,
+# splits of at least this many tokens, at most this many pages a split
+SPLIT_BLOCKS_PER_SM = 4
+MIN_SPLIT_TOKENS = 64
+MAX_SPLIT_PAGES = 1024
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (32, 64, 128)
 
@@ -45,13 +57,13 @@ def _gather_pool(pool, page_table):
     return g.reshape(s, maxp * page, c)
 
 
-def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, n_head,
-                          scale=None, k_scales=None, v_scales=None):
-    """Plain PyTorch paged attention (see module docstring)."""
+def _gathered(q, k_pages, v_pages, page_table, lengths, n_head, k_scales,
+              v_scales):
+    """q (S, H, D), every slot's K and V rows (S, T_cap, H, D), float32
+    and dequantised, V zero at and past each length, and the (S, T_cap)
+    mask of the rows below each length."""
     s, hd = q.shape
     d = hd // n_head
-    if scale is None:
-        scale = d ** -0.5
     k = _gather_pool(k_pages, page_table).to(torch.float32)
     v = _gather_pool(v_pages, page_table).to(torch.float32)
     if k_scales is not None:
@@ -63,15 +75,93 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, n_head,
              < lengths.to(torch.int64)[:, None])            # (S, T_cap)
     # zero invalid v rows: 0 * NaN would poison the sum even at weight 0
     v = torch.where(valid[:, :, None], v, torch.zeros((), device=q.device))
-    q4 = q.to(torch.float32).reshape(s, n_head, d)
-    k4 = k.reshape(s, t_cap, n_head, d)
-    v4 = v.reshape(s, t_cap, n_head, d)
+    return (q.to(torch.float32).reshape(s, n_head, d),
+            k.reshape(s, t_cap, n_head, d), v.reshape(s, t_cap, n_head, d),
+            valid)
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, n_head,
+                          scale=None, k_scales=None, v_scales=None):
+    """Plain PyTorch paged attention (see module docstring)."""
+    if scale is None:
+        scale = (q.shape[1] // n_head) ** -0.5
+    q4, k4, v4, valid = _gathered(q, k_pages, v_pages, page_table, lengths,
+                                  n_head, k_scales, v_scales)
     logits = torch.einsum("shd,sthd->sht", q4, k4) * scale
     logits = torch.where(valid[:, None, :], logits,
                          torch.full((), NEG_INF, device=q.device))
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("sht,sthd->shd", w, v4)
-    return o.reshape(s, hd).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def _split_state(q4, k, v, valid, scale):
+    """One split's online-softmax state over its tokens: (m, l, acc) with
+    m the max score (NEG_INF where the split holds no token), l the sum of
+    exp(score - m) and acc that sum's weights times v."""
+    neg = torch.full((), NEG_INF, device=q4.device)
+    logits = torch.einsum("shd,sthd->sht", q4, k) * scale
+    logits = torch.where(valid[:, None, :], logits, neg)
+    m = logits.amax(dim=-1) if logits.shape[-1] else \
+        neg.expand(logits.shape[:2])
+    p = torch.where(valid[:, None, :], torch.exp(logits - m[..., None]),
+                    torch.zeros((), device=q4.device))
+    return m, p.sum(dim=-1), torch.einsum("sht,sthd->shd", p, v)
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, page_table, lengths,
+                                n_head, scale=None, k_scales=None,
+                                v_scales=None, *, pages_per_split):
+    """`paged_attention_plain` blocked as the kernel blocks it: each run
+    of `pages_per_split` pages of a slot gives its (m, l, acc), a split
+    past the slot's length the empty state (NEG_INF, 0), and the splits
+    are merged in split order — the max over the non-empty splits, then
+    l and acc rescaled and summed, and acc / max(l, 1e-30)."""
+    if scale is None:
+        scale = (q.shape[1] // n_head) ** -0.5
+    q4, k, v, valid = _gathered(q, k_pages, v_pages, page_table, lengths,
+                                n_head, k_scales, v_scales)
+    span = pages_per_split * k_pages.shape[1]
+    states = [_split_state(q4, k[:, t0:t0 + span], v[:, t0:t0 + span],
+                           valid[:, t0:t0 + span], scale)
+              for t0 in range(0, max(k.shape[1], 1), max(span, 1))]
+    zero = torch.zeros((), device=q.device)
+    held = [l > 0 for _, l, _ in states]
+    mm = torch.stack([torch.where(h, m, torch.full((), NEG_INF,
+                                                   device=q.device))
+                      for (m, _, _), h in zip(states, held)]).amax(dim=0)
+    ll, o = torch.zeros_like(mm), torch.zeros_like(q4)
+    for (m, l, acc), h in zip(states, held):
+        f = torch.where(h, torch.exp(m - mm), zero)
+        ll = ll + l * f
+        o = o + torch.where(h[..., None], acc * f[..., None], zero)
+    o = o / torch.clamp(ll, min=1e-30)[..., None]
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def pages_per_split(max_pages, page, slots_heads, sms):
+    """Pages of a slot one block of the kernel walks: enough splits that
+    S x H x splits blocks give about SPLIT_BLOCKS_PER_SM blocks an SM,
+    each split at least MIN_SPLIT_TOKENS tokens and at most
+    MAX_SPLIT_PAGES pages, never more than max_pages.  A function of
+    shapes and the card alone: the lengths never enter."""
+    want = max(1, -(-SPLIT_BLOCKS_PER_SM * sms // max(slots_heads, 1)))
+    pps = max(-(-max_pages // want), -(-MIN_SPLIT_TOKENS // max(page, 1)))
+    return max(1, min(pps, max_pages, MAX_SPLIT_PAGES))
+
+
+def launch_plan(q, k_pages, page_table, n_head, sms):
+    """{"pages_per_split", "n_splits", "workspace_floats"} of a launch on
+    these operands' shapes and a card of `sms` SMs.  The workspace holds
+    each split's m, l and acc (D floats) when there is more than one
+    split.  Shapes only, so a decode step's grid never waits on data."""
+    s, hd = q.shape
+    page, maxp = k_pages.shape[1], page_table.shape[1]
+    pps = pages_per_split(maxp, page, s * n_head, sms)
+    n_splits = max(1, -(-maxp // pps))
+    ws = s * n_head * n_splits * (2 + hd // n_head) if n_splits > 1 else 0
+    return {"pages_per_split": pps, "n_splits": n_splits,
+            "workspace_floats": ws}
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, n_head, k_scales,
@@ -168,7 +258,14 @@ def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("paged_attention kernel: operands must be "
                          "contiguous")
+    # the kernel reads the pools 16 bytes at a time
+    k_pages, v_pages = (t if t.data_ptr() % 16 == 0 else t.clone()
+                        for t in (k_pages, v_pages))
+    plan = launch_plan(q, k_pages, page_table, n_head,
+                       _sm_count(q.device))
     out = torch.empty_like(q)
+    ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
+                     device=q.device) if plan["workspace_floats"] else None
     lib = _bind()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.paged_attention_launch(
@@ -176,8 +273,9 @@ def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
         None if k_scales is None else k_scales.data_ptr(),
         None if v_scales is None else v_scales.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        s, n_head, d, k_pages.shape[1], page_table.shape[1], scale,
-        _KV_TYPES[k_pages.dtype], q.device.index or 0, stream)
+        None if ws is None else ws.data_ptr(), s, n_head, d,
+        k_pages.shape[1], page_table.shape[1], plan["pages_per_split"],
+        scale, _KV_TYPES[k_pages.dtype], q.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -185,12 +283,22 @@ def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
     return out
 
 
+def _sm_count(device) -> int:
+    return _sm_count_of(device.index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    """The card's SM count, asked once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _bind() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, i, p]
         fn.restype = i
     return lib
 

@@ -40,13 +40,16 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _paged(kv_dtype, dev, s=5, h=4, d=64, p=40, page=16, maxp=6, seed=0):
+def _paged(kv_dtype, dev, s=5, h=4, d=64, p=40, page=16, maxp=6, seed=0,
+           lengths=None):
     g = torch.Generator().manual_seed(seed)
     hd = h * d
     q = torch.randn(s, hd, generator=g)
     lens = torch.randint(1, page * maxp + 1, (s,), generator=g,
                          dtype=torch.int32)
     lens[0] = 0                                   # an empty slot
+    if lengths is not None:
+        lens = torch.tensor(lengths, dtype=torch.int32)
     pt = torch.zeros(s, maxp, dtype=torch.int32)
     perm = torch.randperm(p, generator=g)
     for i in range(s):
@@ -60,6 +63,10 @@ def _paged(kv_dtype, dev, s=5, h=4, d=64, p=40, page=16, maxp=6, seed=0):
                            dtype=torch.int8)
         ks = torch.rand(p, page, 1, generator=g) * 0.02
         vs = torch.rand(p, page, 1, generator=g) * 0.02
+        for i in range(s):                      # poison past each length
+            for t in range(int(lens[i]), -(-int(lens[i]) // page) * page):
+                ks[pt[i, t // page], t % page] = float("nan")
+                vs[pt[i, t // page], t % page] = float("nan")
     else:
         kc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
         vc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
@@ -85,6 +92,37 @@ def test_paged_kernel_matches_plain(dev, kv_dtype, d):
                                     v_scales=vs)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL)
+    # no atomics: a second run gives the same bits
+    assert torch.equal(pk.paged_attention(q, kc, vc, pt, lens, n_head=h,
+                                          k_scales=ks, v_scales=vs), got)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.int8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_kernel_at_split_boundaries(dev, kv_dtype, d):
+    """Two splits of 4 pages a slot (64 tokens): lengths 0, exactly one
+    split, exactly one page (the second split wholly past the length),
+    one past a split, and the full 6 pages; NaN (V, int8 scales) and 1e3
+    (K) past each length.  Against the plain version, and the same bits
+    twice."""
+    (q, kc, vc, pt, lens), h, ks, vs = _paged(
+        kv_dtype, dev, d=d, lengths=[0, 64, 16, 65, 96])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = pk.launch_plan(q, kc, pt, h, sms)
+    assert plan["n_splits"] > 1, plan
+
+    def kern():
+        return pk.paged_attention(q, kc, vc, pt, lens, n_head=h,
+                                  k_scales=ks, v_scales=vs)
+
+    got = kern()
+    torch.cuda.synchronize()
+    want = pk.paged_attention_plain(q, kc, vc, pt, lens, h, k_scales=ks,
+                                    v_scales=vs)
+    assert torch.isfinite(got).all() and not got[0].any()
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(kern(), got)
 
 
 @pytest.mark.parametrize("layout", ["nthd", "nhtd"])
@@ -466,6 +504,8 @@ def test_lstm_kernels_match_plain(dev, t, n, h, rev):
     before = dict(kernels.launch_counts)
     hs, cs = lk.lstm_fwd(*ops, rev)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in
+               zip(lk.lstm_fwd(*ops, rev), (hs, cs)))
     for name, a, b in zip(("hs", "cs"), (hs, cs),
                           lk.lstm_fwd_plain(*ops, rev)):
         _close_to_max(a, b, name, tol=1e-4)
@@ -474,8 +514,8 @@ def test_lstm_kernels_match_plain(dev, t, n, h, rev):
     want = lk.lstm_bwd_plain(*ops, hs, cs, *cots, rev)
     for name, a, b in zip(("dxs", "dw", "dh0", "dc0"), got, want):
         _close_to_max(a, b, name, tol=1e-4)
-    for k in ("lstm_fwd", "lstm_bwd"):
-        assert kernels.launch_counts[k] == before[k] + 1, k
+    for k, n_runs in (("lstm_fwd", 2), ("lstm_bwd", 1)):
+        assert kernels.launch_counts[k] == before[k] + n_runs, k
     # no atomics: a second run gives the same bits
     again = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
@@ -493,12 +533,18 @@ def test_lstm_bwd_kernel_edge_cases(dev, t, n, h, lengths, rev):
     """The backward kernel against its plain version where its tiling is
     ragged or idle: several 64-row tiles over the two row groups, one
     row, a block with units past H, and rows that never step (dg zero,
-    the carries passed through)."""
+    the carries passed through).  The forward kernel, which shares the
+    tiling, against its plain version there, and the same bits twice."""
     ops, cots = _lstm_case(dev, t, n, h, seed=t * n + h)
     if lengths is not None:
         ops = (*ops[:4], torch.tensor(lengths, dtype=torch.int32,
                                       device=dev))
     hs, cs = lk.lstm_fwd(*ops, rev)
+    for name, a, b in zip(("hs", "cs"), (hs, cs),
+                          lk.lstm_fwd_plain(*ops, rev)):
+        _close_to_max(a, b, name, tol=1e-4)
+    assert all(torch.equal(a, b) for a, b in
+               zip(lk.lstm_fwd(*ops, rev), (hs, cs)))
     got = lk.lstm_bwd(*ops, hs, cs, *cots, rev)
     torch.cuda.synchronize()
     want = lk.lstm_bwd_plain(*ops, hs, cs, *cots, rev)

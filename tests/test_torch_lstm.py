@@ -270,7 +270,7 @@ def test_composed_route_matches_reference_scan(attrs):
                                    err_msg=f"d{slot}")
 
 
-# -- why the backward kernel splits 3xTF32 (csrc/lstm.cu) ----------------
+# -- why the kernels split 3xTF32 (csrc/lstm.cu) --------------------------
 
 TOL_LSTM = 1e-4     # chip_smoke.py phase 3d: the kernels against plain
 UNITS_PER_BWD_BLOCK = 8     # csrc/lstm.cu kBUnits
@@ -404,6 +404,76 @@ def test_error_budget_of_the_tensor_core_backward(passes, meets):
         assert all(within.values()), within
     else:
         assert not within["dw"], within
+
+
+def _kernel_fwd(xs, w, h0, c0, sl, rev, passes):
+    """The forward kernel's arithmetic in numpy float32: the gate product
+    emulated as TF32 tensor-core passes with the kernel's accumulators
+    (each half of the depth in 64-deep K-slices added in float32, then
+    the halves summed and added to xs[t]), the cell update thread-local,
+    frozen rows keeping (h, c)."""
+    t_len, n, g4 = xs.shape
+    h = g4 // 4
+    half = -(-(-(-h // 32) * 32 // 8) // 2) * 8       # depth of a half
+    sig = (lambda v: np.float32(1) / (np.float32(1) + np.exp(-v)))
+    hc, cc, hs, cs = h0, c0, [], []
+    for t in range(t_len):
+        pre = xs[t] + (tc_matmul_tiled(hc[:, :half], w[:half], passes) +
+                       tc_matmul_tiled(hc[:, half:], w[half:], passes))
+        ca, ig = np.tanh(pre[:, :h]), sig(pre[:, h:2 * h])
+        fg, og = sig(pre[:, 2 * h:3 * h]), sig(pre[:, 3 * h:])
+        c_new = fg * cc + ig * ca
+        h_new = og * np.tanh(c_new)
+        ok = ((t_len - 1 - t if rev else t) < sl)[:, None]
+        hc, cc = np.where(ok, h_new, hc), np.where(ok, c_new, cc)
+        hs.append(hc)
+        cs.append(cc)
+    return np.stack(hs), np.stack(cs)
+
+
+def _budget_used(got, want, tol=TOL_LSTM):
+    """|got - want| as a share of chip_smoke's allowance, tol absolute
+    plus tol of max |want|."""
+    return float(np.abs(got - want).max()) / (tol + tol * float(
+        np.abs(want).max()))
+
+
+@pytest.mark.parametrize("rev", [False, True])
+def test_error_budget_of_the_tensor_core_forward(rev):
+    """The forward kernel's gate product emulated as TF32 tensor-core
+    passes over a 40-step recurrence at H = 512 (ragged lengths, a row
+    that never steps and one that steps once), against the float64
+    plain forward on the same float32 inputs: 3xTF32 keeps hs and cs
+    within TOL_LSTM at under a hundredth of it (about 1/1500 found);
+    one pass used 53-99% of it here (cs the most), and the error grows
+    with T."""
+    t_len, n, h = 40, 24, 512
+    r = np.random.RandomState(11)
+
+    def f(*shape, scale):
+        return (r.randn(*shape) * scale).astype(np.float32)
+
+    xs, w = f(t_len, n, 4 * h, scale=0.5), f(h, 4 * h, scale=h ** -0.5)
+    h0, c0 = f(n, h, scale=0.3), f(n, h, scale=0.3)
+    sl = r.randint(t_len // 2, t_len + 1, n).astype(np.int32)
+    sl[:2] = 0, 1
+    want = [x.numpy() for x in lk.lstm_fwd_plain(
+        *(torch.as_tensor(x, dtype=torch.float64) for x in (xs, w, h0, c0)),
+        torch.as_tensor(sl), rev)]
+    three = [_budget_used(a, b) for a, b in
+             zip(_kernel_fwd(xs, w, h0, c0, sl, rev, 3), want)]
+    one = [_budget_used(a, b) for a, b in
+           zip(_kernel_fwd(xs, w, h0, c0, sl, rev, 1), want)]
+    assert max(three) < 0.01, three
+    assert one[1] > 0.25 and min(one) > 30 * max(three), (one, three)
+
+
+def test_tensor_core_bound_of_the_forward():
+    """3 TF32 passes of 2*T*N*H*4H operations at 495 TFLOP/s: 0.208 ms at
+    the main path's T = N = 128, H = 512, a third of the backward's."""
+    tc = lk.tensor_core_bound_ms(128, 128, 512)
+    assert tc["fwd"] == pytest.approx(0.2082, abs=1e-4)
+    assert tc["bwd"] / tc["fwd"] == pytest.approx(3.0)
 
 
 def test_tensor_core_bound_of_the_backward():

@@ -8,11 +8,20 @@ sidecars), ragged lengths, page-table entries past a slot's used range
 left 0 (as the engine keeps them), and rows at or past each length
 poisoned with NaN / huge values, as an evicted slot would leave them.
 
+The kernel's blocking (flash-decoding: each run of `pages_per_split`
+pages of a slot gives its own online-softmax state, and the states are
+merged in split order) is held against both reference functions through
+its plain twin `paged_attention_split_plain`, at split sizes of 1, 2 and
+all pages, with lengths 0, on a page or split boundary and wholly short
+of later splits; the split size comes from shapes only.
+
 Tolerance 1e-5 (abs and rel): both sides dequantize the same stored
 values to float32 and differ only in summation order.
 """
 
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import pytest
@@ -157,3 +166,114 @@ def test_bound_counts_only_the_rows_the_lengths_need():
     assert flops == 4 * rows * hd
     assert nbytes == (2 * q.size * 4 + 2 * rows * hd * 4
                       + pt.size * 4 + lens.size * 4)
+
+
+# -- the kernel's blocking: splits of a slot's pages, merged in order ------
+
+def _edge_case(kv_dtype, seed=9):
+    """Lengths 0, exactly one page, exactly two pages (a split boundary
+    for splits of 1 and 2 pages), one past a page, and the full capacity,
+    over 3 pages a slot; rows past each length hold NaN (V, int8 scales)
+    and 1e3 (K) inside the used pages."""
+    q, kc, vc, pt, _, h, ks, vs = _case(seed, kv_dtype, s=5, p=15,
+                                        poison=False)
+    page, maxp = kc.shape[1], pt.shape[1]
+    lens = np.array([0, page, 2 * page, page + 1, maxp * page], np.int32)
+    perm = np.random.RandomState(seed).permutation(kc.shape[0])
+    pt[:] = 0
+    for i, n in enumerate(lens):
+        used = -(-int(n) // page)
+        pt[i, :used] = perm[i * maxp:i * maxp + used]
+        for t in range(int(n), used * page):
+            pg = pt[i, t // page]
+            if kv_dtype == "int8":
+                ks[pg, t % page] = np.nan
+                vs[pg, t % page] = np.nan
+            else:
+                kc[pg, t % page] = 1e3
+                vc[pg, t % page] = np.nan
+    return q, kc, vc, pt, lens, h, ks, vs
+
+
+def _refs(q, kc, vc, pt, lens, h, ks, vs, kv_dtype):
+    jks = None if ks is None else jnp.asarray(ks)
+    jvs = None if vs is None else jnp.asarray(vs)
+    twin = np.asarray(_xla_paged_attention(
+        jnp.asarray(q), _jax_pool(kc, kv_dtype), _jax_pool(vc, kv_dtype),
+        jnp.asarray(pt), jnp.asarray(lens), h, (q.shape[1] // h) ** -0.5,
+        ks=jks, vs=jvs))
+    pallas = np.asarray(ragged_paged_attention(
+        jnp.asarray(q), _jax_pool(kc, kv_dtype), _jax_pool(vc, kv_dtype),
+        jnp.asarray(pt), jnp.asarray(lens), n_head=h, k_scales=jks,
+        v_scales=jvs))
+    return twin, pallas
+
+
+def _split(q, kc, vc, pt, lens, h, ks, vs, kv_dtype, pps):
+    return tk.paged_attention_split_plain(
+        to_torch(q), _torch_pool(kc, kv_dtype), _torch_pool(vc, kv_dtype),
+        to_torch(pt), to_torch(lens), h,
+        k_scales=None if ks is None else to_torch(ks),
+        v_scales=None if vs is None else to_torch(vs),
+        pages_per_split=pps).numpy()
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("pps", [1, 2, 3])
+@pytest.mark.parametrize("edges", [False, True], ids=["ragged", "edges"])
+def test_split_twin_matches_jax_twin_and_pallas(kv_dtype, pps, edges):
+    """The kernel's blocking in plain torch (each run of `pps` pages of a
+    slot gives its (m, l, acc), merged in split order) against the
+    reference's dense-gather twin and its Pallas kernel: split sizes of 1
+    page, 2 pages and all 3; ragged lengths, or lengths of 0, exactly on
+    a page or split boundary, splits wholly past the length, NaN past
+    it."""
+    case = _edge_case(kv_dtype) if edges else _case(2, kv_dtype)
+    twin, pallas = _refs(*case, kv_dtype)
+    got = _split(*case, kv_dtype, pps)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, twin, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+    if edges:                          # length 0: the output is zero
+        assert not got[0].any()
+
+
+def test_split_twin_ignores_poisoned_rows():
+    """NaN / 1e3 past each length changes no bit of the split twin."""
+    outs = [_split(*_case(3, "float32", poison=p), "float32", 2)
+            for p in (False, True)]
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("maxp,page,sh,sms,want", [
+    (32, 16, 128, 132, (7, 5)),       # the serving shape: 5 splits
+    (256, 16, 128, 132, (52, 5)),     # the long-length decode shape
+    (32, 16, 4096, 132, (32, 1)),     # many slots: one split a slot
+    (3, 4, 8, 132, (3, 1)),           # at least 64 tokens a split
+    (64, 1, 1, 132, (64, 1)),
+    (8192, 16, 1, 132, (16, 512)),    # one slot and head fills the SMs
+    (100000, 16, 4096, 132, (1024, 98)),  # at most MAX_SPLIT_PAGES
+    (0, 16, 4, 132, (1, 1)),          # no pages: one empty split
+])
+def test_pages_per_split_from_shapes(maxp, page, sh, sms, want):
+    pps = tk.pages_per_split(maxp, page, sh, sms)
+    n_splits = max(1, -(-maxp // pps))
+    assert (pps, n_splits) == want
+    assert 1 <= pps <= max(maxp, 1) and n_splits * pps >= maxp
+
+
+def test_launch_plan_reads_shapes_only():
+    """The grid and the workspace come from shapes and the SM count: the
+    plan of operands that hold no data (the meta device) is the plan of
+    real ones, whatever their lengths, so a launch never reads the
+    lengths back from the card."""
+    q, kc, _, pt, _, h, _, _ = _case(4, "float32", maxp=40, p=170)
+    real = tk.launch_plan(to_torch(q), to_torch(kc), to_torch(pt), h, 132)
+    meta = tk.launch_plan(*(torch.empty(x.shape, device="meta")
+                            for x in (q, kc, pt)), h, 132)
+    assert real == meta
+    assert real["n_splits"] > 1
+    d = q.shape[1] // h
+    assert real["workspace_floats"] == \
+        q.shape[0] * h * real["n_splits"] * (2 + d)
+    assert "lengths" not in inspect.signature(tk.launch_plan).parameters
