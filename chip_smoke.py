@@ -67,6 +67,14 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    yardstick, `torch.nn.LSTM`
    (cuDNN; it also contains the x-projection, so it is set against fc +
    kernel);
+   3f. holds the flash forward (O and lse) and the backward pair against
+   their plain versions at BERT-base's shape (N = 32, H = 12, T = 128,
+   D = 64, not causal, the key-padding bias of ragged lengths in 1..128
+   with a row of length 1, built as bert.py builds it), in both layouts
+   (nhtd transposed views and nthd), checks that two runs give the same
+   bits, and times the forward and the pair by device time beside their
+   3xTF32 and float32 bounds and scaled_dot_product_attention with the
+   same additive mask (forward, and its autograd backward);
    3e. runs, for each kernel, its op on a shape the kernel refuses (flash
    head dim 96, vocab-CE D = 768, LSTM H = 514, paged head dim 96) with
    use_pallas=False: one composed call counted, no kernel launch, and the
@@ -99,12 +107,23 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    batch 128, ragged lengths, Adam, float32, nothing cut): 3 LSTM forward
    and 3 backward launches per step, no plain or composed call, and one
    profiled window;
-7. trains the phase-6 configuration, unfused and fused, at dropout 0 on
-   a cut batch (2 x 64 tokens) for 3 Adam steps on the card and on the
-   CPU from the same weights, and compares the losses, the step-1
-   gradients and the final parameters;
+   6f. BERT-base pretraining, MLM + NSP, at the reference bench's widths
+   and batch (bench.py bench_bert: vocab 30522, 12 layers, 12 heads,
+   d_model 768, d_inner 3072, max_len 128, 20 masked positions, batch
+   32, dropout 0.1, flash attention, Adam under linear_lr_warmup over
+   polynomial_decay; float32, not the bench's bf16 AMP), its startup
+   program run on the card: 12 flash forward, 12 dK/dV and 12 dQ
+   launches per step, no plain or composed call, every loss finite, and
+   one profiled window;
+7. trains the phase-6 configuration, unfused, fused and with
+   `fused_qkv=True` (q, k and v slices of one projection reach the
+   flash kernels), at dropout 0 on a cut batch (2 x 64 tokens) for 3
+   Adam steps on the card and on the CPU from the same weights, and
+   compares the losses, the step-1 gradients and the final parameters;
    7c. the same for the stacked LSTM at full width on a cut batch
    (8 x 32 tokens);
+   7d. the same for BERT-base at full width on a cut batch (2 x 128
+   tokens, ragged lengths): the total, MLM and NSP losses;
 8. prints one `kernels` JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -174,6 +193,15 @@ LSTM_BATCH, LSTM_STEPS = 128, 10
 # another summation order and libm over up to 128 steps
 TOL_LSTM = 1e-4
 LSTM_PARITY_BATCH, LSTM_PARITY_T = 8, 32
+
+# phases 3f, 6f, 7d: BERT-base pretraining as the reference's bench runs
+# it (bench.py:790-801, batch 32 as bench.py:2238 runs it), flash
+# attention, float32: the bench's default is bf16 AMP, cut as phase 6's
+BERT_ARCH = dict(vocab_size=30522, max_len=128, n_layer=12, n_head=12,
+                 d_model=768, d_inner=3072, max_predictions=20,
+                 dropout=0.1, use_flash=True)
+BERT_BATCH, BERT_STEPS = 32, 10
+BERT_PARITY_BATCH = 2          # phase 7d: 2 x 128 tokens, full width
 
 OUT_DIR = "chip_smoke_out"
 
@@ -514,12 +542,14 @@ def phase_flash_fwd_cases(dev):
 # -- phase 3b: the flash backward kernels against the plain backward -----
 
 def flash_operands(dev, n, h, t, d, layout, seed, dbias=False,
-                   misaligned=False):
+                   misaligned=False, lengths=None):
     """q, k, v, dO as the training path makes them: nhtd operands are
     transposed views of (N, T, H, D) tensors (the model's reshape +
     transpose), with the key-padding bias of ragged lengths (row 0 full
-    length).  With `misaligned`, q/k/v/dO start one float into their
-    storage.  Returns them, the bias and the generator, for more draws."""
+    length), or of `lengths` when given: mask * 1e9 - 1e9, as the
+    models' sequence_mask + scale build it.  With `misaligned`,
+    q/k/v/dO start one float into their storage.  Returns them, the bias
+    and the generator, for more draws."""
     g = torch.Generator().manual_seed(seed)
     shape = (n, t, h * d) if layout == "nthd" else (n, t, h, d)
     q, k, v, do = (torch.randn(*shape, generator=g).to(dev)
@@ -529,8 +559,11 @@ def flash_operands(dev, n, h, t, d, layout, seed, dbias=False,
                        .view(shape).copy_(x) for x in (q, k, v, do))
     if layout == "nhtd":
         q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
-    seq = torch.randint(1, t + 1, (n,), generator=g)
-    seq[0] = t
+    if lengths is None:
+        seq = torch.randint(1, t + 1, (n,), generator=g)
+        seq[0] = t
+    else:
+        seq = torch.as_tensor(lengths)
     bias = ((torch.arange(t)[None, :] < seq[:, None]).float() * 1e9
             - 1e9).reshape(n, 1, 1, t).to(dev)
     if dbias:                                # a bias with a gradient
@@ -539,13 +572,14 @@ def flash_operands(dev, n, h, t, d, layout, seed, dbias=False,
 
 
 def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
-             dlse=False, q_offset=0, k_offset=0, misaligned=False):
+             dlse=False, q_offset=0, k_offset=0, misaligned=False,
+             lengths=None):
     """Operands of one backward call as the training path makes them
     (`flash_operands`); O and lse come from the forward kernel."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
 
     q, k, v, do, bias, g = flash_operands(dev, n, h, t, d, layout, seed,
-                                          dbias, misaligned)
+                                          dbias, misaligned, lengths)
     o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
                                     layout=layout, n_head=h,
                                     q_offset=q_offset, k_offset=k_offset)
@@ -940,6 +974,111 @@ def flash_at_d128_shape(dev):
         del c
         torch.cuda.empty_cache()
     out["fwd_mean"] = _mean_row(out["fwd"])
+    return out
+
+
+# -- phase 3f: the flash kernels at BERT-base's shape ---------------------
+
+def flash_at_bert_shape(dev):
+    """BERT-base's attention alone: N=32, H=12, T=128, D=64, not causal,
+    the key-padding bias of ragged lengths in 1..128 (row 0 of length 1)
+    as bert.py builds it, in both layouts (nhtd as transposed views, the
+    model's; nthd, head_major's).  The forward (O, lse) within
+    TOL_KERNEL of the plain forward and the backward pair within TOL_BWD
+    of the plain backward, two runs of each bit-equal; device times
+    (profiler) beside the 3xTF32 and float32 bounds and
+    scaled_dot_product_attention with the same additive mask, forward
+    and its autograd backward (the yardstick only), and the plain
+    versions' times (CUDA events)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    n, t, h = BERT_BATCH, BERT_ARCH["max_len"], BERT_ARCH["n_head"]
+    d = BERT_ARCH["d_model"] // h
+    lengths = torch.randint(1, t + 1, (n,),
+                            generator=torch.Generator().manual_seed(60))
+    lengths[0], lengths[1] = 1, t
+    out = {"lengths": lengths.tolist()}
+    for layout in ("nhtd", "nthd"):
+        c = bwd_case(dev, n, h, t, d, layout, False, seed=61,
+                     lengths=lengths)
+        q, k, v, bias = c["args"][:4]
+
+        def fwd():
+            return fk.flash_attention_fwd(q, k, v, bias, None, False,
+                                          layout=layout, n_head=h)
+
+        def bwd():
+            return fk.flash_attention_bwd(*c["args"], need_dbias=False)
+
+        wo, wl = fk.flash_attention_fwd_plain(q, k, v, bias, None, False,
+                                              layout, h)
+        err = {"out": check_close(f"flash fwd BERT {layout} out", c["o"],
+                                  wo, TOL_KERNEL),
+               "lse": check_close(f"flash fwd BERT {layout} lse",
+                                  c["lse"], wl, TOL_KERNEL)}
+        del wo, wl
+        got = bwd()
+        torch.cuda.synchronize()
+        want = fk.flash_attention_bwd_plain(*c["args"])
+        for g, a, b in zip(("dq", "dk", "dv"), got, want):
+            err[g] = check_close(f"flash bwd BERT {layout} {g}", a, b,
+                                 TOL_BWD)
+        del want
+        o2, l2 = fwd()
+        again = bwd()
+        if not (torch.equal(o2, c["o"]) and torch.equal(l2, c["lse"])
+                and all(torch.equal(a, b) for a, b in zip(got[:3],
+                                                          again[:3]))):
+            raise AssertionError(f"flash at BERT's shape ({layout}): two "
+                                 f"runs differ")
+        del got, again, o2, l2
+        # the library call on the same values as (N, H, T, D) tensors
+        four = dict(c)
+        if layout == "nthd":
+            for x in ("q", "k", "v", "do"):
+                four[x] = c[x].view(n, t, h, d).transpose(1, 2)
+        fwd_ms = profiled_kernel_ms(fwd, ("flash_fwd_kernel",))
+        per = profiled_kernel_ms(bwd, _BWD_KERNELS)
+        lib_fwd = profiled_call_ms(_sdpa_forward(four, d))
+        lib_bwd = profiled_call_ms(_sdpa_backward(four, d))
+        plain_fwd = cuda_ms(lambda: fk.flash_attention_fwd_plain(
+            q, k, v, bias, None, False, layout, h), iters=10, warmup=2)
+        plain_bwd = cuda_ms(lambda: fk.flash_attention_bwd_plain(
+            *c["args"]), iters=10, warmup=2)
+        tc = fk.tensor_core_bound_ms(q, k, bias, False, layout, h)
+        f32 = bound_ms(*fk.bound_bytes_and_flops(q, k, bias, False,
+                                                  layout, h))
+        tcb = fk.tensor_core_bound_ms_bwd(q, k, bias, False, layout, h)
+        bb = fk.bound_bytes_and_flops_bwd(q, k, bias, False, layout, h)
+        row = {"fwd_ms": fwd_ms["flash_fwd_kernel"],
+               "dkv_ms": per["flash_bwd_dkv_kernel"],
+               "dq_ms": per["flash_bwd_dq_kernel"],
+               "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd,
+               "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd,
+               "fwd_bound_ms": tc[0], "fwd_bound_by": tc[1],
+               "fwd_f32_bound_ms": f32[0], "fwd_f32_bound_by": f32[1],
+               "dkv_bound_ms": tcb["dkv"][0], "dkv_bound_by": tcb["dkv"][1],
+               "dq_bound_ms": tcb["dq"][0], "dq_bound_by": tcb["dq"][1],
+               "dkv_f32_bound_ms": bound_ms(*bb["dkv"])[0],
+               "dq_f32_bound_ms": bound_ms(*bb["dq"])[0],
+               "fwd_max_abs_err": max(err["out"], err["lse"]),
+               "dkv_max_abs_err": max(err["dk"], err["dv"]),
+               "dq_max_abs_err": err["dq"]}
+        out[layout] = row
+        log(f"  flash at BERT's shape N={n} H={h} T={t} D={d} {layout}, "
+            f"not causal, key bias: fwd device ms {row['fwd_ms']:.5f} "
+            f"(bounds 3xTF32 {tc[0]:.5f} {tc[1]}, f32 {f32[0]:.5f} "
+            f"{f32[1]}; plain {plain_fwd:.5f}, library {lib_fwd:.5f}); "
+            f"dkv {row['dkv_ms']:.5f} "
+            f"dq {row['dq_ms']:.5f} (pair "
+            f"{row['dkv_ms'] + row['dq_ms']:.5f}; 3xTF32 bounds "
+            f"{tcb['dkv'][0]:.5f} / {tcb['dq'][0]:.5f}, f32 "
+            f"{row['dkv_f32_bound_ms']:.5f} / {row['dq_f32_bound_ms']:.5f}; "
+            f"plain backward {plain_bwd:.5f}, library backward "
+            f"{lib_bwd:.5f})")
+        del c, four
+        torch.cuda.empty_cache()
+    log("  two runs at BERT's shape bit-equal, both layouts")
     return out
 
 
@@ -1607,16 +1746,10 @@ def _vocab_ops(program):
 
 def phase_train(dev, card, label="phase 6", overrides=None,
                 batch=TRAIN_BATCH, steps=TRAIN_STEPS, profile="phase 6b"):
-    """Train the bench Transformer (with `overrides`) on the card: one
-    warmup step, then `steps` timed steps with the launch counts zeroed
-    just before them; each flash op launches the flash forward, dK/dV
-    and dQ kernels once a step, each fused-CE op the vocab-CE forward,
-    dh and dW kernels once, and nothing takes a plain or composed
-    path.  `profile` labels one profiled window after them (None: no
-    window)."""
-    import paddle_tpu_torch as pt
+    """Train the bench Transformer (with `overrides`) on the card
+    (`_train_on_card`); `profile` labels one profiled window after the
+    timed steps (None: no window)."""
     from paddle_tpu_torch.models import transformer
-    from paddle_tpu_torch.ops import kernels
 
     overrides = overrides or {}
     arch = dict(TRAIN_ARCH, **overrides)
@@ -1624,27 +1757,44 @@ def phase_train(dev, card, label="phase 6", overrides=None,
         f"{arch['max_length']}, {overrides or 'bench config'}, f32)")
     torch.cuda.reset_peak_memory_stats(dev)
     main, startup, model = build_training(**overrides)
+    t_len = arch["max_length"]
+    vocab = arch["trg_vocab_size"]
+    feed = transformer.make_fake_batch(batch, t_len, arch["src_vocab_size"],
+                                       vocab)
+    # label-smoothed CE of near-uniform logits at random init
+    res = _train_on_card(dev, card, main, startup, model["loss"], feed,
+                         batch * t_len, steps, np.log(vocab), profile)
+    res.update(batch=batch, max_length=t_len, overrides=overrides)
+    return res
+
+
+def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
+                   steps, want_first, profile):
+    """Run `startup` and one warmup step on the card (its loss within 0.5
+    of `want_first`), then `steps` timed steps with the launch counts
+    zeroed just before them: each flash op launches the flash forward,
+    dK/dV and dQ kernels once a step, each fused-CE op the vocab-CE
+    forward, dh and dW kernels once, and nothing takes a plain or
+    composed path.  `profile` labels one profiled window after them
+    (None: no window)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+
     n_flash, n_vocab = _flash_ops(main), _vocab_ops(main)
     scope = pt.Scope()
     exe = pt.Executor(pt.CUDAPlace(0))
     t0 = time.perf_counter()
     exe.run(startup, scope=scope)
-    t_len = arch["max_length"]
-    vocab = arch["trg_vocab_size"]
-    feed = transformer.make_fake_batch(batch, t_len, arch["src_vocab_size"],
-                                       vocab)
     feed = {n: torch.as_tensor(a).to(dev) for n, a in feed.items()}
-    loss = model["loss"]
     first = float(exe.run(main, feed=feed, fetch_list=[loss],
                           scope=scope)[0][0])
     torch.cuda.synchronize()
     log(f"  startup + warmup step {time.perf_counter() - t0:.3f} s, "
-        f"loss {first:.6f} (ln {vocab} = {np.log(vocab):.6f}); "
+        f"loss {first:.6f} (expected near {want_first:.6f}); "
         f"{n_flash} flash_attention ops, {n_vocab} fused CE ops")
-    # label-smoothed CE of near-uniform logits at random init
-    if not abs(first - np.log(vocab)) < 0.5:
+    if not abs(first - want_first) < 0.5:
         raise AssertionError(f"step-1 loss {first} is not near "
-                             f"ln {vocab}")
+                             f"{want_first}")
     kernels.reset_counts()
     t0 = time.perf_counter()
     losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
@@ -1670,9 +1820,8 @@ def phase_train(dev, card, label="phase 6", overrides=None,
               and (v.requires_grad or v.grad_fn is not None)]
     if leaked:
         raise AssertionError(f"scope holds autograd state: {leaked[:4]}")
-    tokens = batch * t_len * steps
-    res = {"steps": steps, "batch": batch, "max_length": t_len,
-           "overrides": overrides, "flash_ops": n_flash,
+    tokens = tokens_per_step * steps
+    res = {"steps": steps, "flash_ops": n_flash,
            "vocab_ce_ops": n_vocab, "wall_s": wall,
            "steps_per_s": steps / wall, "tokens_per_s": tokens / wall,
            "step_ms": wall * 1e3 / steps, "first_loss": first,
@@ -1722,6 +1871,48 @@ def _profile_train_step(exe, main, feed, loss, scope, steps=2,
         f"{res['kernel_launches_per_step']:.0f} kernels/step")
     for name, n, us in res["top_kernels"]:
         log(f"    device {us:11.2f} us/step  x{n:<4d} {name[:70]}")
+    return res
+
+
+# -- phase 6f: training BERT-base -----------------------------------------
+
+def build_bert(**overrides):
+    """(main, startup, model) of the bench's BERT-base, float32."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = bert.build_model(**dict(BERT_ARCH, **overrides))
+    return main, startup, model
+
+
+def phase_train_bert(dev, card, batch=BERT_BATCH, steps=BERT_STEPS):
+    """Train BERT-base at the bench's widths and batch on the card
+    (`_train_on_card`: 12 launches of each flash kernel a step, no plain
+    or composed call), its startup program (truncated normal draws)
+    run there too, and one profiled window (as 6b)."""
+    from paddle_tpu_torch.models import bert
+
+    t_len, vocab = BERT_ARCH["max_len"], BERT_ARCH["vocab_size"]
+    log(f"phase 6f: BERT-base pretraining (MLM + NSP) on the card (batch "
+        f"{batch} x {t_len}, {BERT_ARCH['n_layer']} layers, "
+        f"{BERT_ARCH['n_head']} heads, d_model {BERT_ARCH['d_model']}, "
+        f"vocab {vocab}, flash attention, f32)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    main, startup, model = build_bert()
+    feed = bert.make_fake_batch(batch, t_len, vocab,
+                                BERT_ARCH["max_predictions"])
+    # MLM CE of near-uniform logits plus NSP CE of two near-equal ones
+    res = _train_on_card(dev, card, main, startup, model["loss"], feed,
+                         batch * t_len, steps, np.log(vocab) + np.log(2),
+                         "phase 6f, profiled")
+    res.update(batch=batch, max_length=t_len)
+    per_step = {k: v / steps for k, v in res["launches"].items()}
+    log(f"  kernel launches a step {per_step}")
+    if res["flash_ops"] != BERT_ARCH["n_layer"]:
+        raise AssertionError(f"{res['flash_ops']} flash ops, want one a "
+                             f"layer")
     return res
 
 
@@ -1818,23 +2009,45 @@ def phase_train_lstm(dev, card, batch=LSTM_BATCH, steps=LSTM_STEPS):
 
 # -- phase 7: training, the card against the CPU --------------------------
 
-def phase_train_parity(dev, use_fused_ce=False):
+def phase_train_parity(dev, **overrides):
+    """7: the phase-6 Transformer with `overrides` (use_fused_ce, or
+    fused_qkv: q, k and v slices of one projection reach the flash
+    kernels) on a batch the CPU takes."""
     from paddle_tpu_torch.models import transformer
 
     log(f"phase 7: training card vs CPU ({PARITY_BATCH} x {PARITY_T} "
-        f"tokens, dropout 0, {PARITY_STEPS} Adam steps, use_fused_ce="
-        f"{use_fused_ce})")
+        f"tokens, dropout 0, {PARITY_STEPS} Adam steps, "
+        f"{overrides or 'unfused'})")
     main, startup, model = build_training(dropout=0.0,
-                                          max_length=PARITY_T,
-                                          use_fused_ce=use_fused_ce)
+                                          max_length=PARITY_T, **overrides)
     feed = transformer.make_fake_batch(PARITY_BATCH, PARITY_T,
                                        TRAIN_ARCH["src_vocab_size"],
                                        TRAIN_ARCH["trg_vocab_size"], seed=3)
     feed["src_len"] = np.array([PARITY_T, 41], np.int32)   # ragged, >= 1
     feed["trg_len"] = np.array([17, PARITY_T], np.int32)
     lr_sum = sum(_noam_lr(t) for t in range(1, PARITY_STEPS + 1))
-    return _card_vs_cpu_training(dev, main, startup, model["loss"].name,
+    return _card_vs_cpu_training(dev, main, startup, [model["loss"].name],
                                  feed, lr_sum)
+
+
+def phase_bert_parity(dev):
+    """7d: BERT-base at full width on a batch the CPU takes (2 x 128,
+    ragged lengths, dropout 0): the total, MLM and NSP losses."""
+    from paddle_tpu_torch.models import bert
+
+    t_len = BERT_ARCH["max_len"]
+    log(f"phase 7d: BERT-base training card vs CPU ({BERT_PARITY_BATCH} x "
+        f"{t_len} tokens, dropout 0, {PARITY_STEPS} Adam steps)")
+    main, startup, model = build_bert(dropout=0.0)
+    feed = bert.make_fake_batch(BERT_PARITY_BATCH, t_len,
+                                BERT_ARCH["vocab_size"],
+                                BERT_ARCH["max_predictions"], seed=3)
+    feed["seq_len"] = np.array([t_len, 37], np.int32)
+    lr_sum = sum(_bert_lr(t) for t in range(1, PARITY_STEPS + 1))
+    return _card_vs_cpu_training(
+        dev, main, startup,
+        [model[k].name for k in ("loss", "mlm_loss", "nsp_loss")], feed,
+        lr_sum)
 
 
 def phase_lstm_parity(dev):
@@ -1849,15 +2062,15 @@ def phase_lstm_parity(dev):
         LSTM_PARITY_BATCH, LSTM_PARITY_T, LSTM_ARCH["vocab_size"], seed=3)
     feed["words.seq_len"][:2] = (LSTM_PARITY_T, 1)
     return _card_vs_cpu_training(
-        dev, main, startup, model["loss"].name, feed,
+        dev, main, startup, [model["loss"].name], feed,
         LSTM_ARCH["learning_rate"] * PARITY_STEPS)
 
 
-def _card_vs_cpu_training(dev, main, startup, loss_name, feed, lr_sum):
+def _card_vs_cpu_training(dev, main, startup, loss_names, feed, lr_sum):
     """PARITY_STEPS Adam steps of `main` on the card and on the CPU from
-    the same weights (drawn on the card by `startup`): the losses, the
-    step-1 gradients and the final parameters within TOL_LOSS, TOL_GRAD
-    and 4 * lr_sum."""
+    the same weights (drawn on the card by `startup`): the losses named
+    in `loss_names`, the step-1 gradients and the final parameters
+    within TOL_LOSS, TOL_GRAD and 4 * lr_sum."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.convert import params_from_arrays
 
@@ -1866,7 +2079,8 @@ def _card_vs_cpu_training(dev, main, startup, loss_name, feed, lr_sum):
     arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
               if isinstance(v, torch.Tensor)}
     params = [p.name for p in main.all_parameters()]
-    fetch = [loss_name] + [f"{p}@GRAD" for p in params]
+    n_loss = len(loss_names)
+    fetch = list(loss_names) + [f"{p}@GRAD" for p in params]
     runs = {}
     for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
         scope = pt.Scope()
@@ -1876,17 +2090,18 @@ def _card_vs_cpu_training(dev, main, startup, loss_name, feed, lr_sum):
         losses, grads = [], None
         for step in range(PARITY_STEPS):
             out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-            losses.append(float(out[0][0]))
+            losses.append([float(x.reshape(-1)[0]) for x in out[:n_loss]])
             if step == 0:
-                grads = out[1:]
+                grads = out[n_loss:]
         runs[str(device)] = dict(
             losses=losses, grads=grads,
             params={n: scope.find_var(n).cpu().numpy() for n in params})
     card, cpu = runs[str(dev)], runs["cpu"]
-    loss_err = max(abs(a - b) for a, b in zip(card["losses"],
-                                              cpu["losses"]))
-    log(f"  losses card {card['losses']} cpu {cpu['losses']}: max abs "
-        f"err {loss_err:.3e} (tol {TOL_LOSS:g})")
+    loss_err = max(abs(a - b) for x, y in zip(card["losses"],
+                                              cpu["losses"])
+                   for a, b in zip(x, y))
+    log(f"  losses ({', '.join(loss_names)}) card {card['losses']} cpu "
+        f"{cpu['losses']}: max abs err {loss_err:.3e} (tol {TOL_LOSS:g})")
     if not loss_err <= TOL_LOSS:
         raise AssertionError(f"losses differ by {loss_err}")
     rel = {n: (float(np.linalg.norm(a - b) / max(np.linalg.norm(b),
@@ -1920,6 +2135,12 @@ def _noam_lr(step, d_model=512, warmup=4000, scale=2.0):
     """build_model's learning rate at `step` (noam_decay x 2.0)."""
     return scale * d_model ** -0.5 * min(step ** -0.5,
                                          step * warmup ** -1.5)
+
+
+def _bert_lr(step, learning_rate=1e-4, warmup_steps=10000):
+    """BERT build_model's learning rate at `step` inside its warmup
+    (linear_lr_warmup from 0 over polynomial_decay)."""
+    return learning_rate * min(step / warmup_steps, 1.0)
 
 
 def main() -> int:
@@ -1967,37 +2188,58 @@ def main() -> int:
     log(f"  vocab_ce: dynamic shared memory {vk.SMEM_BYTES} bytes a "
         f"block (one block per SM)")
 
-    rows = phase_kernels(dev)
-    rows.update(phase_bwd_kernels(dev))
-    flash_train_shapes = flash_fwd_at_training_shapes(dev)
-    flash_bwd_longctx = flash_bwd_at_longctx_shape(dev)
-    flash_d128 = flash_at_d128_shape(dev)
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        """fn(*args, **kw), its wall time logged and kept (the script's
+        time budget, phase by phase)."""
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        log(f"  [{name}: {seconds[name]:.1f} s]")
+        return res
+
+    rows = timed("3", phase_kernels, dev)
+    rows.update(timed("3b", phase_bwd_kernels, dev))
+    flash_train_shapes = timed("3b fwd", flash_fwd_at_training_shapes, dev)
+    flash_bwd_longctx = timed("3b T=8192", flash_bwd_at_longctx_shape, dev)
+    flash_d128 = timed("3b D=128", flash_at_d128_shape, dev)
+    log("phase 3f: the flash kernels at BERT-base's shape")
+    flash_bert = timed("3f", flash_at_bert_shape, dev)
+    bert_rows = [flash_bert[layout] for layout in ("nhtd", "nthd")]
     for name, key in (("flash_attention_bwd_dkv", "dkv_max_abs_err"),
                       ("flash_attention_bwd_dq", "dq_max_abs_err")):
         rows[name]["max_abs_err"] = max(
             [rows[name]["max_abs_err"]]
             + [r[key] for r in flash_bwd_longctx.values()]
-            + [r[key] for r in flash_d128["bwd"]])
+            + [r[key] for r in flash_d128["bwd"]]
+            + [r[key] for r in bert_rows])
     rows["flash_attention_fwd"]["max_abs_err"] = max(
         [rows["flash_attention_fwd"]["max_abs_err"]]
-        + [r["max_abs_err"] for r in flash_d128["fwd"]])
-    rows.update(phase_vocab_kernels(dev))
-    rows.update(phase_lstm_kernels(dev))
-    refused = phase_refused_shapes(dev)
-    stream = phase_stream(dev)
-    profile = phase_step_profile(dev)
-    parity = phase_card_vs_cpu(dev)
-    train = phase_train(dev, card)
-    train_fused = phase_train(dev, card, "phase 6c",
-                              dict(use_fused_ce=True),
-                              profile="phase 6c, profiled")
-    train_longctx = phase_train(dev, card, "phase 6d", LONGCTX,
-                                batch=LONGCTX_BATCH, steps=LONGCTX_STEPS,
-                                profile="phase 6d, profiled")
-    train_lstm = phase_train_lstm(dev, card)
-    train_parity = phase_train_parity(dev)
-    train_parity_fused = phase_train_parity(dev, use_fused_ce=True)
-    lstm_parity = phase_lstm_parity(dev)
+        + [r["max_abs_err"] for r in flash_d128["fwd"]]
+        + [r["fwd_max_abs_err"] for r in bert_rows])
+    rows.update(timed("3c", phase_vocab_kernels, dev))
+    rows.update(timed("3d", phase_lstm_kernels, dev))
+    refused = timed("3e", phase_refused_shapes, dev)
+    stream = timed("4", phase_stream, dev)
+    profile = timed("4b", phase_step_profile, dev)
+    parity = timed("5", phase_card_vs_cpu, dev)
+    train = timed("6", phase_train, dev, card)
+    train_fused = timed("6c", phase_train, dev, card, "phase 6c",
+                        dict(use_fused_ce=True),
+                        profile="phase 6c, profiled")
+    train_longctx = timed("6d", phase_train, dev, card, "phase 6d", LONGCTX,
+                          batch=LONGCTX_BATCH, steps=LONGCTX_STEPS,
+                          profile="phase 6d, profiled")
+    train_lstm = timed("6e", phase_train_lstm, dev, card)
+    train_bert = timed("6f", phase_train_bert, dev, card)
+    train_parity = timed("7", phase_train_parity, dev)
+    train_parity_fused = timed("7 fused CE", phase_train_parity, dev,
+                               use_fused_ce=True)
+    train_parity_qkv = timed("7 fused_qkv", phase_train_parity, dev,
+                             fused_qkv=True)
+    lstm_parity = timed("7c", phase_lstm_parity, dev)
+    bert_parity = timed("7d", phase_bert_parity, dev)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -2018,9 +2260,10 @@ def main() -> int:
                "vocab_ce_dw": "vocab_ce", "lstm_fwd": "lstm",
                "lstm_bwd": "lstm"}
     # each path's launches, its counts zeroed just before it: the flash
-    # forward runs on the serving and the three Transformer training
-    # paths, the LSTM kernels on the stacked-LSTM path
-    paths = (stream, train, train_fused, train_longctx, train_lstm)
+    # forward runs on the serving path, the three Transformer training
+    # paths and BERT's, the LSTM kernels on the stacked-LSTM path
+    paths = (stream, train, train_fused, train_longctx, train_lstm,
+             train_bert)
     launches = {k: sum(p["launches"][k] for p in paths) for k in replaces}
     kern = []
     for name in replaces:
@@ -2040,15 +2283,20 @@ def main() -> int:
                    "flash_fwd_training_shapes": flash_train_shapes,
                    "flash_bwd_longctx_shape": flash_bwd_longctx,
                    "flash_d128_shape": flash_d128,
+                   "flash_bert_shape": flash_bert,
                    "refused_shapes": refused,
                    "stream": stream, "step_profile": profile,
                    "card_vs_cpu": parity, "train": train,
                    "train_fused_ce": train_fused,
                    "train_longctx": train_longctx,
                    "train_lstm": train_lstm,
+                   "train_bert": train_bert,
                    "train_lstm_card_vs_cpu": lstm_parity,
                    "train_card_vs_cpu": train_parity,
                    "train_fused_ce_card_vs_cpu": train_parity_fused,
+                   "train_fused_qkv_card_vs_cpu": train_parity_qkv,
+                   "train_bert_card_vs_cpu": bert_parity,
+                   "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")

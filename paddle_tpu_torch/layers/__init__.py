@@ -1,6 +1,7 @@
 """fluid.layers-equivalent namespace: the layers the ported slices build
 (reference: python/paddle/fluid/layers/__init__.py)."""
 
+from .control_flow import less_equal  # noqa: F401
 from .io import data  # noqa: F401
 from .learning_rate_scheduler import (cosine_decay,  # noqa: F401
                                       exponential_decay,
@@ -14,12 +15,13 @@ from .nn import (add_position_encoding_at, batched_gather,  # noqa: F401
                  elementwise_op, embedding, fc, flash_attention,
                  fused_vocab_softmax_ce, label_smooth, layer_norm, matmul, mean,
                  one_hot, paged_attention, paged_kv_prefill_write, paged_kv_write,
-                 reduce_sum, reshape, scale, softmax,
+                 reduce_mean, reduce_sum, reshape, scale, slice, softmax,
                  softmax_with_cross_entropy, squeeze, topk, transpose,
                  unsqueeze)
-from .ops import sigmoid, sqrt, tanh  # noqa: F401
+from .ops import gelu, sigmoid, sqrt, tanh  # noqa: F401
 from .sequence import (add_position_encoding, dynamic_gru,  # noqa: F401
                        dynamic_lstm, dynamic_lstmp, gru_unit, lstm_unit,
                        sequence_first_step, sequence_last_step,
                        sequence_mask, sequence_pool)
-from .tensor import argmax, cast, concat, fill_constant, sums  # noqa: F401
+from .tensor import (argmax, cast, concat, fill_constant,  # noqa: F401
+                     range, sums)

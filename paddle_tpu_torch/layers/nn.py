@@ -262,6 +262,10 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_sum", input, dim, keep_dim, name)
 
 
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper = LayerHelper("reshape", name=name, act=act)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -279,6 +283,16 @@ def transpose(x, perm, name=None):
     helper.append_op(type="transpose", inputs={"X": [x]},
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axis": list(perm)})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
     return out
 
 

@@ -45,6 +45,28 @@ def cast(x, dtype):
     return out
 
 
+def range(start, end, step, dtype, num=None):
+    """Static-length arange: `num` is given, or derived from Python
+    scalar bounds (the reference's rule; the op needs it)."""
+    helper = LayerHelper("range")
+    dtype = normalize_dtype(dtype)
+    pys = [start, end, step]
+    if num is None:
+        if all(isinstance(v, (int, float)) for v in pys):
+            num = max(0, int((end - start + (step - (1 if step > 0 else -1)))
+                             // step))
+        else:
+            raise ValueError("range with tensor bounds requires num=")
+    vals = [fill_constant([1], dtype, v) if isinstance(v, (int, float))
+            else v for v in pys]
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="range",
+                     inputs={"Start": [vals[0]], "End": [vals[1]],
+                             "Step": [vals[2]]},
+                     outputs={"Out": [out]}, attrs={"num": int(num)})
+    return out
+
+
 def argmax(x, axis=0):
     helper = LayerHelper("arg_max")
     out = helper.create_variable_for_type_inference("int64")

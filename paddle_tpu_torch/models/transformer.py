@@ -11,15 +11,16 @@ decoder self-attention, autograd through the forward and backward
 kernels on CUDA) with `head_major` False or True; without head_major
 the decoder's cross attention is composed from matmul and softmax, as
 in the reference (`flash_cross=True` sends it through the flash op
-too); and `use_fused_ce=True`, the final projection and the
-label-smoothed CE in the fused_vocab_softmax_ce op (the vocab-CE
-forward, dh and dW kernels on CUDA).  Not ported yet, each raising
-NotImplementedError with its ROADMAP item: `use_flash=False` (its
-causal bias needs the `range` and `less_equal` layers) and `fused_qkv`
-(the `slice` layer), both queue A item 3; `use_amp` (queue A item 2:
-bf16 policy and bf16 flash kernels), `moe_experts` (queue A item 6:
-ops/moe.py), `recompute` and `pipeline` (queue A item 2: executor
-scopes).
+too); `use_flash=False` (every attention composed from matmul and
+softmax, the decoder's causal bias built from `range` and
+`less_equal`); `fused_qkv=True` (one head-grouped projection sliced
+into q, k and v, either layout); and `use_fused_ce=True`, the final
+projection and the label-smoothed CE in the fused_vocab_softmax_ce op
+(the vocab-CE forward, dh and dW kernels on CUDA).  Not ported yet,
+each raising NotImplementedError with its ROADMAP item: `use_amp`
+(queue A item 2: bf16 policy and bf16 flash kernels), `moe_experts`
+(queue A item 6: ops/moe.py), `recompute` and `pipeline` (queue A item
+2: executor scopes).
 """
 
 from __future__ import annotations
@@ -41,18 +42,46 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                          use_flash=False, fused_qkv=False,
                          flash_pallas=None, causal=False,
                          head_major=False):
-    if fused_qkv:
-        _unported("fused_qkv", "queue A item 3 (the slice layer)")
-    if keys is None:  # self-attention
-        keys, values = queries, queries
-    # layer names drive the Megatron row/col sharding rules of the
-    # reference: attn_qkv_* column-parallel, attn_out_* row-parallel
-    q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2,
-                  bias_attr=False, name="attn_qkv")
-    k = layers.fc(keys, size=d_key * n_head, num_flatten_dims=2,
-                  bias_attr=False, name="attn_qkv")
-    v = layers.fc(values, size=d_value * n_head, num_flatten_dims=2,
-                  bias_attr=False, name="attn_qkv")
+    def split_heads(x, d):
+        # (N, T, H*d) -> (N, H, T, d)
+        rr = layers.reshape(x, shape=[0, 0, n_head, d])
+        return layers.transpose(rr, perm=[0, 2, 1, 3])
+
+    # fused_qkv (self-attention only): one (D, (2dk+dv)*H) projection
+    # whose output is head-grouped ([q_h|k_h|v_h] for each head h),
+    # viewed as (N, T, H, group) and sliced on its minor axis
+    if keys is None and fused_qkv:
+        group = 2 * d_key + d_value
+        qkv = layers.fc(queries, size=group * n_head, num_flatten_dims=2,
+                        bias_attr=False, name="attn_qkv")
+        r = layers.reshape(qkv, shape=[0, 0, n_head, group])
+        if not head_major:
+            r = layers.transpose(r, perm=[0, 2, 1, 3])   # (N, H, T, group)
+
+        def part(lo, hi, d):
+            x = layers.slice(r, axes=[3], starts=[lo], ends=[hi])
+            # head-major: merged back to (N, T, H*d), no transpose
+            return layers.reshape(x, shape=[0, 0, n_head * d]) \
+                if head_major else x
+
+        q = part(0, d_key, d_key)
+        k = part(d_key, 2 * d_key, d_key)
+        v = part(2 * d_key, group, d_value)
+    else:
+        if keys is None:  # self-attention
+            keys, values = queries, queries
+        # layer names drive the Megatron row/col sharding rules of the
+        # reference: attn_qkv_* column-parallel, attn_out_* row-parallel
+        q = layers.fc(queries, size=d_key * n_head, num_flatten_dims=2,
+                      bias_attr=False, name="attn_qkv")
+        k = layers.fc(keys, size=d_key * n_head, num_flatten_dims=2,
+                      bias_attr=False, name="attn_qkv")
+        v = layers.fc(values, size=d_value * n_head, num_flatten_dims=2,
+                      bias_attr=False, name="attn_qkv")
+        if not head_major:
+            q = split_heads(q, d_key)
+            k = split_heads(k, d_key)
+            v = split_heads(v, d_value)
     if head_major:
         # the projections' (N, T, H*d) head-grouped outputs feed the
         # flash op's layout="nthd" directly; no transpose anywhere.
@@ -64,15 +93,6 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                                      layout="nthd", n_head=n_head)
         return layers.fc(ctx, size=d_model, num_flatten_dims=2,
                          bias_attr=False, name="attn_out")
-
-    def split_heads(x, d):
-        # (N, T, H*d) -> (N, H, T, d)
-        rr = layers.reshape(x, shape=[0, 0, n_head, d])
-        return layers.transpose(rr, perm=[0, 2, 1, 3])
-
-    q = split_heads(q, d_key)
-    k = split_heads(k, d_key)
-    v = split_heads(v, d_value)
     if use_flash:
         # causal=True (decoder self-attention) masks in the op with a
         # key-padding-only bias, the form the kernels take natively
@@ -80,8 +100,9 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                                      scale=d_key ** -0.5, causal=causal,
                                      use_pallas=flash_pallas)
     else:
-        # composed attention (the decoder's cross attention): matmul,
-        # bias, softmax, dropout on the weights, matmul
+        # composed attention (use_flash=False, and the decoder's cross
+        # attention): matmul, bias, softmax, dropout on the weights,
+        # matmul
         product = layers.matmul(q, k, transpose_y=True,
                                 alpha=d_key ** -0.5)
         if attn_bias is not None:
@@ -186,6 +207,16 @@ def _padding_bias(seq_len, max_len):
     return layers.unsqueeze(layers.unsqueeze(bias, axes=[1]), axes=[1])
 
 
+def _causal_bias(max_len):
+    """(1, 1, T, T) additive bias: 0 where col <= row else -1e9."""
+    r = layers.range(0, max_len, 1, "float32")
+    row = layers.reshape(r, shape=[max_len, 1])
+    col = layers.reshape(r, shape=[1, max_len])
+    allowed = layers.cast(layers.less_equal(col, row), "float32")
+    bias = layers.scale(allowed, scale=1e9, bias=-1e9)
+    return layers.unsqueeze(layers.unsqueeze(bias, axes=[0]), axes=[0])
+
+
 def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
                 n_layer=6, n_head=8, d_key=64, d_value=64, d_model=512,
                 d_inner_hid=2048, dropout=0.1, label_smooth_eps=0.1,
@@ -200,9 +231,6 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
             "head_major=True requires use_flash=True: the composed "
             "matmul+softmax attention path would reintroduce the "
             "boundary transposes the head-major layout deletes")
-    if not use_flash:
-        _unported("use_flash=False",
-                  "queue A item 3 (composed attention: range, less_equal)")
     if moe_experts:
         _unported("moe_experts", "queue A item 6 (ops/moe.py)")
     if recompute:
@@ -211,8 +239,6 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
     if pipeline:
         _unported("pipeline",
                   "queue A item 2 (executor: recompute and pipeline scopes)")
-    if fused_qkv:
-        _unported("fused_qkv", "queue A item 3 (the slice layer)")
 
     src_word = layers.data(name="src_word", shape=[max_length],
                            dtype="int64")
@@ -224,16 +250,23 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
     trg_len = layers.data(name="trg_len", shape=[], dtype="int32")
 
     src_bias = _padding_bias(src_len, max_length)
-    # flash path: decoder self-attention takes the key-padding bias and
-    # the op's causal flag
     self_bias = _padding_bias(trg_len, max_length)
+    if use_flash:
+        # decoder self-attention takes the key-padding bias and the
+        # op's causal flag
+        self_causal = True
+    else:
+        self_bias = layers.elementwise_add(self_bias,
+                                           _causal_bias(max_length))
+        self_causal = False
 
     x = _prepare_input(src_word, src_vocab_size, d_model, max_length,
                        dropout, "src_word_emb")
     for _ in range(n_layer):
         x = encoder_layer(x, src_bias, n_head, d_key, d_value, d_model,
                           d_inner_hid, dropout, use_flash=use_flash,
-                          flash_pallas=flash_pallas, head_major=head_major)
+                          fused_qkv=fused_qkv, flash_pallas=flash_pallas,
+                          head_major=head_major)
     enc_out = pre_post_process(None, x, "n")
 
     y = _prepare_input(trg_word, trg_vocab_size, d_model, max_length,
@@ -241,8 +274,9 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
     for _ in range(n_layer):
         y = decoder_layer(y, enc_out, self_bias, src_bias, n_head, d_key,
                           d_value, d_model, d_inner_hid, dropout,
-                          use_flash=use_flash, flash_pallas=flash_pallas,
-                          self_causal=True, flash_cross=flash_cross,
+                          use_flash=use_flash, fused_qkv=fused_qkv,
+                          flash_pallas=flash_pallas,
+                          self_causal=self_causal, flash_cross=flash_cross,
                           head_major=head_major)
     dec_out = pre_post_process(None, y, "n")
     feeds = ["src_word", "trg_word", "lbl_word", "src_len", "trg_len"]

@@ -55,6 +55,25 @@ def uniform_random(ctx, ins, attrs):
     return out(Out=(x * (hi - lo) + lo).to(dtype))
 
 
+@register_op("truncated_gaussian_random")
+def truncated_gaussian_random(ctx, ins, attrs):
+    """A standard normal truncated to [-2, 2], then * std + mean: the
+    inverse-CDF form the reference's jax.random.truncated_normal takes
+    (u uniform in [erf(-2/sqrt2), erf(2/sqrt2)), sqrt2 * erfinv(u),
+    clamped inside the bounds), drawn from the op's own generator, so
+    the numbers differ from threefry's."""
+    shape = tuple(attrs["shape"])
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    lim = math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=ctx.rng(), dtype=torch.float32,
+                   device=ctx.device)
+    x = math.sqrt(2.0) * torch.erfinv(u * (2.0 * lim) - lim)
+    inside = 2.0 - 2.0 ** -23       # the float32 next to 2, toward 0
+    x = x.clamp(-inside, inside) * attrs.get("std", 1.0) \
+        + attrs.get("mean", 0.0)
+    return out(Out=x.to(dtype))
+
+
 # --------------------------------------------------------------------------
 # Matmul
 # --------------------------------------------------------------------------
@@ -146,6 +165,7 @@ def _register_reduce(name, fn):
 
 
 _register_reduce("reduce_sum", torch.sum)
+_register_reduce("reduce_mean", torch.mean)
 
 
 # --------------------------------------------------------------------------
@@ -235,6 +255,22 @@ def concat(ctx, ins, attrs):
     return out(Out=torch.cat(ins["X"], dim=attrs.get("axis", 0)))
 
 
+@register_op("slice")
+def slice_op(ctx, ins, attrs):
+    """Per axis, as the reference: a negative start or end gets the dim
+    added once (it may stay negative, and then counts from the end as
+    a Python slice does), one past the dim is cut to the dim; a view,
+    so the gradient routes back through autograd."""
+    x = first(ins, "Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = s + dim if s < 0 else min(s, dim)
+        e = e + dim if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return out(Out=x[tuple(idx)])
+
+
 @register_op("one_hot")
 def one_hot(ctx, ins, attrs):
     """Float32 one-hot of int ids; a trailing 1-dim is dropped first, as
@@ -288,6 +324,19 @@ def top_k(ctx, ins, attrs):
                            stable=True)
     k = attrs["k"]
     return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int32)]}
+
+
+@register_op("range")
+def range_op(ctx, ins, attrs):
+    """Start + Step * arange(num) in Start's dtype; `num` is a required
+    static attr, as in the reference (End only fixed it when built)."""
+    num = attrs.get("num")
+    if num is None:
+        raise ValueError("range op requires the static 'num' attr")
+    start = first(ins, "Start").reshape(())
+    step = first(ins, "Step").reshape(())
+    return out(Out=start + step * torch.arange(num, dtype=start.dtype,
+                                               device=start.device))
 
 
 @register_op("arg_max")

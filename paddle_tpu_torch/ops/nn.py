@@ -26,6 +26,15 @@ def sigmoid(ctx, ins, attrs):
     return out(Out=torch.sigmoid(first(ins, "X")))
 
 
+@register_op("gelu")
+def gelu(ctx, ins, attrs):
+    """The exact erf form, or the tanh form when `approximate` is true
+    (jax.nn.gelu's two forms)."""
+    approximate = "tanh" if attrs.get("approximate", False) else "none"
+    return out(Out=torch.nn.functional.gelu(first(ins, "X"),
+                                            approximate=approximate))
+
+
 @register_op("sqrt")
 def sqrt(ctx, ins, attrs):
     return out(Out=torch.sqrt(first(ins, "X")))

@@ -2,7 +2,8 @@
 package.
 
 - The tiny Transformer (2 layers, d_model 32, 2 heads, vocab 100, T=16,
-  batch 4, ragged lengths of at least 1, dropout 0, use_flash=True,
+  batch 4, ragged lengths of at least 1, dropout 0; use_flash=True with
+  head_major False and True, use_flash=False, and fused_qkv with
   head_major False and True) builds the same `Program.to_dict()` in both
   packages, backward_marker and adam ops included; from the reference's
   startup scope, carried across with `convert.params_from_arrays`, three
@@ -81,13 +82,34 @@ def _noam(step, d_model=32, warmup=100, scale=2.0):
 
 @pytest.mark.parametrize("head_major", [False, True])
 def test_transformer_trains_like_the_reference(head_major):
-    kw = dict(ARCH, head_major=head_major)
+    _trains_like_the_reference(dict(ARCH, head_major=head_major),
+                               n_flash=6 if head_major else 4)
+
+
+@pytest.mark.parametrize("kw,n_flash,n_slice", [
+    (dict(use_flash=False), 0, 0),
+    (dict(fused_qkv=True), 4, 12),
+    (dict(fused_qkv=True, head_major=True), 6, 12),
+])
+def test_transformer_options_train_like_the_reference(kw, n_flash,
+                                                      n_slice):
+    """use_flash=False (every attention composed, the decoder's causal
+    bias from range and less_equal) and fused_qkv in either layout (q,
+    k and v sliced from one projection: the flash op reads the slices,
+    and their gradients come back through slice)."""
+    tm = _trains_like_the_reference(dict(ARCH, **kw), n_flash)
+    types = [op.type for op in tm.global_block().ops]
+    assert types.count("slice") == n_slice
+    assert ("range" in types) == (not kw.get("use_flash", True))
+
+
+def _trains_like_the_reference(kw, n_flash):
     jm, js, jmod = _build(jf, jt.build_model, **kw)
     tm, ts, tmod = _build(tf, tt.build_model, **kw)
     assert _json(tm) == _json(jm) and _json(ts) == _json(js)
     types = [op.type for op in tm.global_block().ops]
     assert "backward_marker" in types and "adam" in types
-    assert types.count("flash_attention") == (6 if head_major else 4)
+    assert types.count("flash_attention") == n_flash
 
     jscope, arrays = _reference_scope(js)
     tscope = _port_scope(arrays, tm)
@@ -123,6 +145,7 @@ def test_transformer_trains_like_the_reference(head_major):
     assert not [n for n, t in tscope.vars.items()
                 if isinstance(t, torch.Tensor)
                 and (t.requires_grad or t.grad_fn is not None)]
+    return tm
 
 
 def test_convert_carries_the_whole_training_scope():
@@ -230,8 +253,6 @@ def test_default_device_is_the_card_or_raises(monkeypatch):
     (dict(moe_experts=2), "queue A item 6"),
     (dict(recompute=True), "queue A item 2"),
     (dict(pipeline=True), "queue A item 2"),
-    (dict(fused_qkv=True), "queue A item 3"),
-    (dict(use_flash=False), "queue A item 3"),
 ])
 def test_unported_transformer_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
