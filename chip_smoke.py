@@ -115,6 +115,18 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    program run on the card: 12 flash forward, 12 dK/dV and 12 dQ
    launches per step, no plain or composed call, every loss finite, and
    one profiled window;
+   6g. ResNet-50 at the reference bench's configuration (bench.py
+   bench_resnet50: flowers, depth 50, 1000 classes, batch 128, 3 x 224 x
+   224, NCHW, momentum 0.9 at 0.1; float32, not the bench's bf16 AMP, and
+   one frozen batch made from a seed): conv2d, pool2d and batch_norm
+   through torch (cuDNN convolutions), every kernel count 0, every loss
+   finite, images/s, peak memory and one profiled window;
+   6h. DeepFM at the bench's configuration (bench.py bench_deepfm: batch
+   4096, 26 id fields, 13 dense, vocab 1,000,001 x 16, DNN 400 x 3, Adam;
+   make_fake_batch): both is_sparse tables take the SparseGrad path, and
+   after the timed steps every row no batch touched keeps its bits in
+   both tables and their Adam moments; examples/s, peak memory and one
+   profiled window;
 7. trains the phase-6 configuration, unfused, fused and with
    `fused_qkv=True` (q, k and v slices of one projection reach the
    flash kernels), at dropout 0 on a cut batch (2 x 64 tokens) for 3
@@ -124,6 +136,11 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    (8 x 32 tokens);
    7d. the same for BERT-base at full width on a cut batch (2 x 128
    tokens, ragged lengths): the total, MLM and NSP losses;
+   7e. ResNet-50 at full width on 2 x 3 x 224 x 224 (momentum at 1e-5:
+   losses, step-1 gradients, each parameter's update and every batch
+   norm's moving statistics, at the tolerances of TOL_RESNET_*) and
+   DeepFM at full width on 64 examples (as phase 7, plus equal AUC
+   histograms and untouched table rows bit-equal on both devices);
 8. prints one `kernels` JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -202,6 +219,41 @@ BERT_ARCH = dict(vocab_size=30522, max_len=128, n_layer=12, n_head=12,
                  dropout=0.1, use_flash=True)
 BERT_BATCH, BERT_STEPS = 32, 10
 BERT_PARITY_BATCH = 2          # phase 7d: 2 x 128 tokens, full width
+
+# phases 6g, 7e: ResNet-50 as the reference's bench runs it (bench.py:471-
+# 520, run at bench.py:2218: flowers, depth 50, 1000 classes, momentum 0.9
+# at learning rate 0.1, batch 128, 3 x 224 x 224, NCHW), float32 (the
+# bench's default is bf16 AMP, cut as phase 6's) on one frozen device
+# batch made from a seed (the bench's data_mode="frozen": its synthetic
+# mode prepends `randint`, which the port lacks)
+RESNET_ARCH = dict(dataset="flowers", depth=50, class_dim=1000,
+                   learning_rate=0.1)
+RESNET_BATCH, RESNET_STEPS = 128, 5
+# phase 7e, ResNet-50 at full width on 2 x 3 x 224 x 224, card vs CPU.
+# At batch 2 its fifty-three batch norms make the gradients large and
+# the trajectory chaotic: at learning rate 1e-3 or 1e-4 the two devices'
+# step-2 losses part by 0.6% and 1.5% (H100, 700 W); so 1e-5.  The card
+# is not deterministic itself (cuDNN's backward convolutions): two card
+# runs' step-2 losses differ by 1.4e-6.  Each batch norm divides by the
+# reference's float32 E[x^2] - mean^2, which amplifies the difference of
+# two summation orders from layer to layer (on the CPU alone, two thread
+# counts give step-1 gradients 4e-3 apart at 2 x 64 x 64).  Measured at
+# 1e-5: losses 3.0e-4 relative, step-1 gradients 2.6e-2 relative L2
+# (a batch norm's scale), updates over three steps 1.5e-1 relative L2,
+# moving statistics 1.4e-3 of the largest; the tolerances are those
+# with a margin of 3 to 7.  A wrong update rule, sign or statistic
+# misses them by far (errors of order 1).
+RESNET_PARITY_BATCH, RESNET_PARITY_LR = 2, 1e-5
+TOL_RESNET_LOSS = 1e-3
+TOL_RESNET_GRAD = 1e-1
+TOL_RESNET_UPDATE = 5e-1
+TOL_RESNET_STATS = 1e-2
+# phases 6h, 7e: DeepFM as the reference's bench runs it (bench.py:910-
+# 960, run at bench.py:2246 with batch 4096): build_model's defaults (26
+# id fields, 13 dense, vocab 1,000,001, embedding 16, DNN 400 x 3, Adam
+# 1e-3), make_fake_batch; nothing cut
+DEEPFM_BATCH, DEEPFM_STEPS = 4096, 20
+DEEPFM_PARITY_BATCH = 64       # phase 7e: full width, 64 examples
 
 OUT_DIR = "chip_smoke_out"
 
@@ -2007,6 +2059,164 @@ def phase_train_lstm(dev, card, batch=LSTM_BATCH, steps=LSTM_STEPS):
     return res
 
 
+# -- phases 6g and 6h: ResNet-50 and DeepFM training -----------------------
+
+def build_resnet(**overrides):
+    """(main, startup, model) of the bench's ResNet-50, float32."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = resnet.build_model(**dict(RESNET_ARCH, **overrides))
+    return main, startup, model
+
+
+def build_deepfm():
+    """(main, startup, model) of the bench's DeepFM (build_model's
+    defaults)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import deepfm
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = deepfm.build_model()
+    return main, startup, model
+
+
+def resnet_batch(batch, seed=0):
+    """A frozen image batch: N(0, 1) pixels, labels in [0, 1000)."""
+    rng = np.random.RandomState(seed)
+    return {"data": rng.randn(batch, 3, 224, 224).astype(np.float32),
+            "label": rng.randint(0, RESNET_ARCH["class_dim"],
+                                 (batch, 1)).astype(np.int64)}
+
+
+def _timed_steps(dev, card, label, main, startup, loss, feed, steps,
+                 examples, unit):
+    """Startup and one warmup step on the card, then `steps` timed steps
+    with the kernel counts zeroed just before them (no kernel of the
+    port lies on these paths: every count must stay 0) and one profiled
+    window; every loss finite."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    feed = {n: torch.as_tensor(a).to(dev) for n, a in feed.items()}
+    first = float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0][0])
+    torch.cuda.synchronize()
+    log(f"  startup + warmup step {time.perf_counter() - t0:.3f} s, loss "
+        f"{first:.6f}")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0] for _ in range(steps)]
+    losses = [float(x.reshape(())) for x in losses]   # syncs
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    if not np.isfinite([first] + losses).all():
+        raise AssertionError(f"non-finite losses {first}, {losses}")
+    if any(max(c.values()) for c in counts.values()):
+        raise AssertionError(f"{label}: kernel counts {counts}, want 0")
+    res = {"steps": steps, "wall_s": wall, "step_ms": wall * 1e3 / steps,
+           f"{unit}_per_s": examples * steps / wall, "first_loss": first,
+           "losses": losses, "counts": counts,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"  {steps} steps in {wall:.3f} s: {res['step_ms']:.2f} ms/step, "
+        f"{res[unit + '_per_s']:.1f} {unit}/s on {card}; losses "
+        f"{losses[0]:.6f} .. {losses[-1]:.6f}; peak device memory "
+        f"{res['peak_mem_bytes'] / 1e9:.3f} GB; kernel counts all 0")
+    res["profile"] = _profile_train_step(exe, main, feed, loss, scope,
+                                         label=f"{label}, profiled")
+    return res, exe, scope, feed
+
+
+def phase_train_resnet(dev, card, batch=RESNET_BATCH, steps=RESNET_STEPS):
+    """6g: ResNet-50 at the bench's config on the card (conv2d, pool2d
+    and batch_norm on cuDNN and torch, momentum)."""
+    log(f"phase 6g: ResNet-50 training on the card (batch {batch} x 3 x "
+        f"224 x 224, NCHW, momentum 0.9, lr {RESNET_ARCH['learning_rate']},"
+        f" f32, frozen batch)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    main, startup, model = build_resnet()
+    types = [op.type for op in main.global_block().ops]
+    res, _, scope, _ = _timed_steps(dev, card, "phase 6g", main, startup,
+                                    model["loss"], resnet_batch(batch),
+                                    steps, batch, "images")
+    n_bn = types.count("batch_norm")
+    moved = [n for n in scope.vars if n.endswith(".mean")
+             and float(scope.find_var(n).abs().max()) > 0]
+    if (types.count("conv2d"), n_bn, types.count("momentum")) != \
+            (53, 53, 161) or len(moved) != n_bn:
+        raise AssertionError(f"{types.count('conv2d')} conv2d, {n_bn} "
+                             f"batch_norm, {types.count('momentum')} "
+                             f"momentum ops, {len(moved)} moving means "
+                             f"updated")
+    res.update(batch=batch, conv2d_ops=53, batch_norm_ops=n_bn)
+    return res
+
+
+def phase_train_deepfm(dev, card, batch=DEEPFM_BATCH, steps=DEEPFM_STEPS):
+    """6h: DeepFM at the bench's config on the card.  Both is_sparse
+    tables take the SparseGrad path (checked on one step's gradients),
+    and after the timed steps every row no batch touched keeps its bits
+    in both tables and in their Adam moments."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.executor import interpret_program
+    from paddle_tpu_torch.core.selected_rows import SparseGrad
+    from paddle_tpu_torch.models import deepfm
+
+    log(f"phase 6h: DeepFM training on the card (batch {batch}, 26 fields,"
+        f" vocab 1000001 x 16, DNN 400 x 3, Adam, f32)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    main, startup, model = build_deepfm()
+    batch_np = deepfm.make_fake_batch(batch)
+    res, exe, scope, feed = _timed_steps(dev, card, "phase 6h", main,
+                                         startup, model["loss"], batch_np,
+                                         steps, batch, "examples")
+    tables = ("fm_w1", "fm_emb")
+    state = {n: v for n, v in scope.vars.items()
+             if n.startswith(tables) and isinstance(v, torch.Tensor)
+             and v.shape[0] == 1000001}
+    if len(state) != 6:
+        raise AssertionError(f"table state {sorted(state)}")
+    env = {n: v for n, v in scope.vars.items()
+           if isinstance(v, torch.Tensor)}
+    env.update(feed)
+    env = interpret_program(main, env, (main.random_seed, 0),
+                            fetch_names=[model["loss"].name], device=dev)
+    for t in tables:
+        g = env[f"{t}@GRAD"]
+        if not isinstance(g, SparseGrad) or g.rows.shape[0] != batch * 26:
+            raise AssertionError(f"{t}@GRAD is {g!r}, not a SparseGrad of "
+                                 f"{batch * 26} rows")
+    # the starting values: a fresh scope's startup run draws the same
+    init = pt.Scope()
+    exe.run(startup, scope=init)
+    touched = torch.zeros(1000001, dtype=torch.bool, device=dev)
+    touched[torch.as_tensor(batch_np["sparse_ids"]).reshape(-1).to(dev)] = \
+        True
+    kept = {}
+    for n, v in state.items():
+        start = init.find_var(n)
+        kept[n] = bool(torch.equal(v[~touched], start[~touched]))
+        moved = not torch.equal(v[touched], start[touched])
+        if not (kept[n] and moved):
+            raise AssertionError(f"{n}: untouched rows kept their bits "
+                                 f"{kept[n]}, touched rows moved {moved}")
+    n_touched = int(touched.sum())
+    log(f"  sparse path: fm_w1@GRAD and fm_emb@GRAD are SparseGrads of "
+        f"{batch * 26} rows; {n_touched} rows touched, the other "
+        f"{1000001 - n_touched} kept their bits in both tables and their "
+        f"moments")
+    res.update(batch=batch, touched_rows=n_touched, untouched_kept=kept)
+    return res
+
+
 # -- phase 7: training, the card against the CPU --------------------------
 
 def phase_train_parity(dev, **overrides):
@@ -2066,11 +2276,12 @@ def phase_lstm_parity(dev):
         LSTM_ARCH["learning_rate"] * PARITY_STEPS)
 
 
-def _card_vs_cpu_training(dev, main, startup, loss_names, feed, lr_sum):
-    """PARITY_STEPS Adam steps of `main` on the card and on the CPU from
-    the same weights (drawn on the card by `startup`): the losses named
-    in `loss_names`, the step-1 gradients and the final parameters
-    within TOL_LOSS, TOL_GRAD and 4 * lr_sum."""
+def _card_and_cpu_runs(dev, main, startup, loss_names, feed, state=()):
+    """PARITY_STEPS steps of `main` on the card and on the CPU from the
+    same weights (drawn on the card by `startup`): (card, cpu, arrays,
+    params), each run a dict of the losses named in `loss_names` at
+    every step, the step-1 gradients, and the final parameters and
+    values of the names in `state`; `arrays` the starting values."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.convert import params_from_arrays
 
@@ -2095,8 +2306,24 @@ def _card_vs_cpu_training(dev, main, startup, loss_names, feed, lr_sum):
                 grads = out[n_loss:]
         runs[str(device)] = dict(
             losses=losses, grads=grads,
-            params={n: scope.find_var(n).cpu().numpy() for n in params})
-    card, cpu = runs[str(dev)], runs["cpu"]
+            params={n: scope.find_var(n).cpu().numpy()
+                    for n in [*params, *state]})
+    return runs[str(dev)], runs["cpu"], arrays, params
+
+
+def _card_vs_cpu_training(dev, main, startup, loss_names, feed, lr_sum):
+    """PARITY_STEPS Adam steps of `main` on the card and on the CPU from
+    the same weights (drawn on the card by `startup`), checked by
+    `_check_adam_runs`."""
+    card, cpu, _, params = _card_and_cpu_runs(dev, main, startup,
+                                              loss_names, feed)
+    return _check_adam_runs(card, cpu, loss_names, params, lr_sum)
+
+
+def _check_adam_runs(card, cpu, loss_names, params, lr_sum):
+    """The losses named in `loss_names`, the step-1 gradients and the
+    final parameters of two runs of Adam steps within TOL_LOSS, TOL_GRAD
+    and 4 * lr_sum."""
     loss_err = max(abs(a - b) for x, y in zip(card["losses"],
                                               cpu["losses"])
                    for a, b in zip(x, y))
@@ -2129,6 +2356,101 @@ def _card_vs_cpu_training(dev, main, startup, loss_names, feed, lr_sum):
             "loss_max_abs_err": loss_err, "grad_max_rel_l2_err": grad_err,
             "grad_max_rel_err": max(r[1] for r in rel.values()),
             "param_max_abs_err": p_err, "param_bound": bound}
+
+
+def phase_resnet_parity(dev):
+    """7e: ResNet-50 at full width on 2 x 3 x 224 x 224 (momentum at
+    RESNET_PARITY_LR) on the card and on the CPU from the same weights:
+    losses, step-1 gradients, each parameter's update over the steps and
+    every batch norm's moving mean and variance, at the TOL_RESNET_*
+    tolerances (see their comment)."""
+    log(f"phase 7e: ResNet-50 training card vs CPU ({RESNET_PARITY_BATCH} x"
+        f" 3 x 224 x 224, {PARITY_STEPS} momentum steps at lr "
+        f"{RESNET_PARITY_LR})")
+    main, startup, model = build_resnet(learning_rate=RESNET_PARITY_LR)
+    stats = [v.name for v in main.global_block().vars.values()
+             if v.name.endswith((".mean", ".var"))]
+    card, cpu, arrays, params = _card_and_cpu_runs(
+        dev, main, startup, [model["loss"].name],
+        resnet_batch(RESNET_PARITY_BATCH, seed=3), stats)
+    loss_err = max(abs(a[0] - b[0]) / abs(b[0])
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    floor = 1e-4 * max(np.linalg.norm(g) for g in cpu["grads"])
+    grad_rel = {n: float(np.linalg.norm(a - b) / (np.linalg.norm(b) + floor))
+                for n, a, b in zip(params, card["grads"], cpu["grads"])}
+    upd = {n: (card["params"][n] - arrays[n], cpu["params"][n] - arrays[n])
+           for n in params}
+    floor = 1e-4 * max(np.linalg.norm(b) for _, b in upd.values())
+    upd_rel = {n: float(np.linalg.norm(a - b) / (np.linalg.norm(b) + floor))
+               for n, (a, b) in upd.items()}
+    stats_err = {}
+    for suffix in (".mean", ".var"):
+        names = [n for n in stats if n.endswith(suffix)]
+        scale = max(np.abs(cpu["params"][n]).max() for n in names)
+        stats_err[suffix] = max(float(np.abs(card["params"][n]
+                                             - cpu["params"][n]).max())
+                                for n in names) / scale
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_u = max(upd_rel, key=upd_rel.get)
+    log(f"  losses card {card['losses']} cpu {cpu['losses']}: max rel err "
+        f"{loss_err:.3e} (tol {TOL_RESNET_LOSS:g})")
+    log(f"  step-1 gradients over {len(params)} parameters: worst rel L2 "
+        f"{grad_rel[worst_g]:.3e} ({worst_g}; tol {TOL_RESNET_GRAD:g}); "
+        f"updates over {PARITY_STEPS} steps: worst rel L2 "
+        f"{upd_rel[worst_u]:.3e} ({worst_u}; tol {TOL_RESNET_UPDATE:g})")
+    log(f"  moving statistics of {len(stats) // 2} batch norms: max err "
+        f"over the largest, mean {stats_err['.mean']:.3e}, variance "
+        f"{stats_err['.var']:.3e} (tol {TOL_RESNET_STATS:g})")
+    if not (loss_err <= TOL_RESNET_LOSS
+            and grad_rel[worst_g] <= TOL_RESNET_GRAD
+            and upd_rel[worst_u] <= TOL_RESNET_UPDATE
+            and max(stats_err.values()) <= TOL_RESNET_STATS):
+        raise AssertionError("ResNet-50 card and CPU differ beyond the "
+                             "tolerances")
+    return {"losses_card": card["losses"], "losses_cpu": cpu["losses"],
+            "loss_max_rel_err": loss_err,
+            "grad_max_rel_l2_err": grad_rel[worst_g],
+            "update_max_rel_l2_err": upd_rel[worst_u],
+            "moving_stats_max_err": stats_err}
+
+
+def phase_deepfm_parity(dev):
+    """7e: DeepFM at full width on 64 examples on the card and on the CPU
+    from the same weights: loss and AUC, step-1 gradients and final
+    parameters as phase 7 holds them (`_check_adam_runs`), the AUC
+    histograms equal (whole counts), and in both runs the rows no
+    example touched bit-equal to their start in both tables and their
+    moments."""
+    from paddle_tpu_torch.models import deepfm
+
+    log(f"phase 7e: DeepFM training card vs CPU ({DEEPFM_PARITY_BATCH} "
+        f"examples, full width, {PARITY_STEPS} Adam steps)")
+    main, startup, model = build_deepfm()
+    feed = deepfm.make_fake_batch(DEEPFM_PARITY_BATCH, seed=3)
+    state = [v.name for v in main.global_block().vars.values()
+             if v.persistable and v.name.startswith(("auc", "fm_w1",
+                                                      "fm_emb"))]
+    names = [model["loss"].name, model["auc"].name]
+    card, cpu, arrays, params = _card_and_cpu_runs(dev, main, startup,
+                                                   names, feed, state)
+    res = _check_adam_runs(card, cpu, names, params, 1e-3 * PARITY_STEPS)
+    untouched = np.setdiff1d(np.arange(1000001),
+                             np.unique(feed["sparse_ids"]))
+    kept = 0
+    for n in state:
+        a, b = card["params"][n], cpu["params"][n]
+        if n.startswith("auc"):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{n} differs between card and CPU")
+        elif a.shape[0] == 1000001:
+            for run in (a, b):
+                if not np.array_equal(run[untouched],
+                                      arrays[n][untouched]):
+                    raise AssertionError(f"{n}: untouched rows moved")
+            kept += 1
+    log(f"  AUC histograms equal; untouched rows bit-equal to their start "
+        f"in {kept} table tensors on both devices")
+    return dict(res, tables_kept=kept)
 
 
 def _noam_lr(step, d_model=512, warmup=4000, scale=2.0):
@@ -2240,6 +2562,10 @@ def main() -> int:
                              fused_qkv=True)
     lstm_parity = timed("7c", phase_lstm_parity, dev)
     bert_parity = timed("7d", phase_bert_parity, dev)
+    train_resnet = timed("6g", phase_train_resnet, dev, card)
+    train_deepfm = timed("6h", phase_train_deepfm, dev, card)
+    resnet_parity = timed("7e ResNet-50", phase_resnet_parity, dev)
+    deepfm_parity = timed("7e DeepFM", phase_deepfm_parity, dev)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -2296,6 +2622,10 @@ def main() -> int:
                    "train_fused_ce_card_vs_cpu": train_parity_fused,
                    "train_fused_qkv_card_vs_cpu": train_parity_qkv,
                    "train_bert_card_vs_cpu": bert_parity,
+                   "train_resnet": train_resnet,
+                   "train_deepfm": train_deepfm,
+                   "train_resnet_card_vs_cpu": resnet_parity,
+                   "train_deepfm_card_vs_cpu": deepfm_parity,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

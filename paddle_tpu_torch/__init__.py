@@ -57,6 +57,7 @@ def is_compiled_with_cuda() -> bool:
 from . import clip  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
 from . import layers  # noqa: E402,F401
+from . import nets  # noqa: E402,F401
 from . import ops as _ops  # noqa: E402,F401  (registers all op impls)
 from . import optimizer  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401

@@ -16,10 +16,15 @@ fresh autograd leaf, `torch.autograd.grad` of the
 squeezed loss gives the gradients, `<param>@GRAD` and `<loss>@GRAD = 1`
 are written into the env, and the ops after the marker (optimizer
 updates) run under `torch.no_grad()`.  Nothing of the autograd graph
-outlives the step.  What the reference does beyond that — SparseGrad
-lookups, gradient accumulation, explicit gradient sync, the update
-guard, telemetry and numerics, recompute and pipeline scopes, bf16 AMP —
-raises NotImplementedError naming its ROADMAP item.
+outlives the step.  An is_sparse lookup of a trainable table takes the
+reference's SparseGrad path (paddle_tpu/core/executor.py:621-689): the
+gradient is taken with respect to the gathered rows, so the table's is
+a `SparseGrad` of the touched rows, which the optimizer ops with a
+sparse branch update lazily and every other op sees densified.  What
+the reference does beyond that — gradient accumulation, explicit
+gradient sync, the update guard, telemetry and numerics, recompute and
+pipeline scopes, bf16 AMP — raises NotImplementedError naming its
+ROADMAP item.
 
 Places follow Paddle's idiom: `CUDAPlace(0)` runs on `cuda:0`,
 `CPUPlace()` on the CPU.  `Executor()` without a place means
@@ -37,10 +42,16 @@ import torch
 
 from .program import Program, Variable, grad_var_name
 from .registry import OpContext, get_op_impl
+from .selected_rows import SparseGrad, densify
 
 # Scope key of the executor's RNG state (the reference's jax PRNG key;
 # here the count of runs that drew from it).
 RNG_STATE_VAR = "__rng_key__"
+
+# Optimizer ops with a sparse (SelectedRows) branch; every other op sees
+# densified gradients (the reference's SPARSE_AWARE_OPS less adagrad,
+# which the port lacks).
+SPARSE_AWARE_OPS = {"sgd", "momentum", "adam"}
 
 
 class Scope:
@@ -142,14 +153,18 @@ def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
     return env
 
 
-def _run_one_op(op, env, seed, op_index, program=None, device=None):
+def _run_one_op(op, env, seed, op_index, program=None, device=None,
+                sparse_rows=None):
     desc = op.desc
     try:
         impl = get_op_impl(desc.type)
         ins = {slot: [env[n] for n in names]
                for slot, names in desc.inputs.items()}
+        if desc.type not in SPARSE_AWARE_OPS:
+            ins = {slot: [densify(v) for v in vals]
+                   for slot, vals in ins.items()}
         ctx = OpContext(seed, op_index=op_index, program=program,
-                        device=device)
+                        device=device, sparse_rows=sparse_rows)
         outs = impl(ctx, ins, desc.attrs)
     except Exception as exc:
         _reraise_with_op_context(exc, desc, op_index)
@@ -240,9 +255,9 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
     return _train_step(program, env, seed, device, fetch_names)
 
 
-def _check_trainable(program: Program, fwd_ops, trainable):
+def _check_trainable(program: Program, fwd_ops):
     """Raise for what the reference's training step does beyond the
-    dense autodiff split (each names its ROADMAP item)."""
+    autodiff split (each names its ROADMAP item)."""
     for attr, what in (("_amp_lists", "bf16 mixed precision (amp.py)"),
                        ("_grad_sync", "explicit gradient sync"),
                        ("_update_guard", "the in-step update guard"),
@@ -259,12 +274,6 @@ def _check_trainable(program: Program, fwd_ops, trainable):
                 "recompute and pipeline scopes in a training program are "
                 "not ported yet: ROADMAP queue A item 2 (executor: "
                 "recompute and pipeline scopes)")
-        if (op.type == "lookup_table" and attrs.get("is_sparse", False)
-                and op.desc.inputs["W"][0] in trainable):
-            raise NotImplementedError(
-                "is_sparse lookups of a trainable table (SparseGrad "
-                "gradients and lazy row updates) are not ported yet: "
-                "ROADMAP queue A item 2 (executor: SparseGrad lookups)")
 
 
 def _live_forward(program: Program, fetch_names):
@@ -286,40 +295,84 @@ def _live_forward(program: Program, fetch_names):
     return live
 
 
+def _find_sparse_lookups(fwd_ops, live, trainable, env):
+    """(op_index, table, ids_name, padding_idx) of every live lookup
+    eligible for the SparseGrad path, by the reference's rules
+    (paddle_tpu/core/executor.py:621-647): is_sparse, a trainable table,
+    ids already in the env (a feed or state; ids computed by earlier ops
+    fall back to dense), and a table that no other live forward op reads
+    (another reader, e.g. a weight-tied projection, needs the dense
+    gradient)."""
+    candidates, lookups_of = [], {}
+    for i in live:
+        d = fwd_ops[i].desc
+        if d.type == "lookup_table" and d.attrs.get("is_sparse"):
+            tbl, ids_n = d.inputs["W"][0], d.inputs["Ids"][0]
+            if tbl in trainable and ids_n in env:
+                candidates.append((i, tbl, ids_n,
+                                   d.attrs.get("padding_idx", -1)))
+                lookups_of.setdefault(tbl, set()).add(i)
+    shared = {tbl for i in live for tbl, own in lookups_of.items()
+              if i not in own and tbl in fwd_ops[i].desc.input_names()}
+    return [c for c in candidates if c[1] not in shared]
+
+
 def _train_step(program: Program, env: Dict[str, Any], seed, device,
                 fetch_names=()):
-    """The dense training step (see the module docstring).  The forward
-    runs only the ops `_live_forward` keeps, each under its program
-    index, so pruning never shifts an op's random stream."""
+    """The training step (see the module docstring).  The forward runs
+    only the ops `_live_forward` keeps, each under its program index, so
+    pruning never shifts an op's random stream.  The autograd leaves are
+    the dense parameters and, for each lookup on the SparseGrad path,
+    the rows it gathers; a table's gradient is then a SparseGrad of its
+    lookups' ids and row gradients."""
+    from ..ops.sparse import gather_rows
+
     info = program._backward_info
     ops = program.global_block().ops
     k = info["index"]
     fwd_ops, rest_ops = ops[:k], ops[k:]
     params = [p for p in info["params"] if p in env]
-    _check_trainable(program, fwd_ops, set(params))
+    _check_trainable(program, fwd_ops)
+    live = _live_forward(program, fetch_names)
+    lookups = _find_sparse_lookups(fwd_ops, live, set(params), env)
+    sparse_tables = {tbl for _, tbl, _, _ in lookups}
+    dense = [p for p in params if p not in sparse_tables]
     loss_name = info["loss"]
     # fresh leaves: the scope's own tensors never join the graph
-    leaves = [env[p].detach().requires_grad_() for p in params]
+    leaves = [env[p].detach().requires_grad_() for p in dense]
+    rows = {i: gather_rows(env[tbl], env[ids_n], pad).detach()
+            .requires_grad_() for i, tbl, ids_n, pad in lookups}
     with torch.enable_grad():
         fenv = dict(env)
-        fenv.update(zip(params, leaves))
-        for i in _live_forward(program, fetch_names):
+        fenv.update(zip(dense, leaves))
+        for i in live:
             _run_one_op(fwd_ops[i], fenv, seed, i, program=program,
-                        device=device)
+                        device=device, sparse_rows=rows)
         loss = fenv[loss_name]
         if loss.dim() > 0:
             loss = loss.squeeze()
         if loss.dim() > 0:
             raise ValueError(f"loss {loss_name!r} must have one element, "
                              f"got shape {tuple(fenv[loss_name].shape)}")
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss, leaves + list(rows.values()),
+                                    allow_unused=True)
     # nothing of the graph leaves the step: every value is detached
     env = {n: (v.detach() if isinstance(v, torch.Tensor) else v)
            for n, v in fenv.items()}
     loss = loss.detach()
     env[grad_var_name(loss_name)] = loss * 0 + 1.0
-    for p, leaf, g in zip(params, leaves, grads):
+    for p, leaf, g in zip(dense, leaves, grads):
         env[grad_var_name(p)] = torch.zeros_like(leaf) if g is None else g
+    per_table: Dict[str, list] = {}
+    for (i, tbl, ids_n, _), g in zip(lookups, grads[len(dense):]):
+        if g is None:
+            g = torch.zeros_like(rows[i])
+        per_table.setdefault(tbl, []).append(
+            (env[ids_n].reshape(-1), g.reshape(-1, env[tbl].shape[-1])))
+    for tbl, pairs in per_table.items():
+        env[grad_var_name(tbl)] = SparseGrad(
+            torch.cat([ids for ids, _ in pairs]),
+            torch.cat([g for _, g in pairs]), env[tbl].shape)
     # rest_ops[0] is the backward_marker itself
     with torch.no_grad():
         run_ops(rest_ops[1:], env, seed, start_index=k + 1,
@@ -375,7 +428,8 @@ class Executor:
         if missing:
             raise KeyError(f"fetch target(s) {missing} were not computed "
                            f"by the program")
-        fetches = [env[n] for n in fetch_names]
+        # a SparseGrad fetch is the dense gradient it stands for
+        fetches = [densify(env[n]) for n in fetch_names]
         if return_numpy:
             fetches = [f.detach().cpu().numpy() for f in fetches]
         return fetches

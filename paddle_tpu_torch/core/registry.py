@@ -69,14 +69,20 @@ class OpContext:
     `device` None means CUDAPlace(0) and raises when CUDA is not
     available (`executor.place_device`); the CPU runs only when asked
     for.
+
+    `sparse_rows` maps the op index of each is_sparse lookup on the
+    SparseGrad path to the rows the Executor gathered for it (the
+    autograd leaves the table's gradient is taken through); None
+    elsewhere.
     """
 
     def __init__(self, seed=None, op_index: int = 0, is_test: bool = False,
-                 program=None, device=None):
+                 program=None, device=None, sparse_rows=None):
         self._seed = seed
         self.op_index = op_index
         self.is_test = is_test
         self.program = program
+        self.sparse_rows = sparse_rows
         if device is None:
             # no implicit CPU: None is CUDAPlace(0), as for the Executor
             from .executor import place_device

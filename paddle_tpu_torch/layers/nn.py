@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..initializer import Constant, Xavier
+from ..initializer import Constant, Normal, Xavier
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
@@ -87,6 +87,10 @@ def elementwise_op(op_type, x, y, axis=-1, act=None, name=None,
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_sub", x, y, axis, act, name)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
@@ -193,6 +197,17 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
                      outputs={"Y": [out]},
                      attrs={"soft_label": soft_label,
                             "ignore_index": ignore_index})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index})
     return out
 
 
@@ -469,3 +484,97 @@ def add_position_encoding_at(x, position, alpha=1.0, beta=1.0,
                      outputs={"Out": [out]},
                      attrs={"alpha": float(alpha), "beta": float(beta)})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Conv / pool / norm
+# ---------------------------------------------------------------------------
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v, v]
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """reference layers/nn.py conv2d — NCHW, or NHWC with
+    data_format="NHWC" (filters stay OIHW); filters drawn from
+    Normal(0, sqrt(2 / fan_in))."""
+    helper = LayerHelper("conv2d", name=name, act=act, bias_attr=bias_attr)
+    dtype = input.dtype
+    groups = groups or 1
+    c_axis = 1 if data_format == "NCHW" else 3
+    num_channels = input.shape[c_axis]
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    fan_in = (num_channels // groups) * int(np.prod(filter_size))
+    std = (2.0 / fan_in) ** 0.5
+    w = helper.create_parameter(param_attr, shape=filter_shape, dtype=dtype,
+                                default_initializer=Normal(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "data_format": data_format})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=c_axis)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None,
+           data_format="NCHW"):
+    """reference layers/nn.py pool2d; `ceil_mode` is accepted and, as in
+    the reference, not passed to the op."""
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride), "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "exclusive": exclusive,
+               "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False):
+    """reference layers/nn.py batch_norm — Scale/Bias parameters and the
+    persistable moving Mean/Variance ({name}.mean / {name}.var, Constant
+    0 and 1), which the op's MeanOut/VarianceOut write back."""
+    helper = LayerHelper("batch_norm", name=name, act=act)
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    shape = [c]
+    scale_var = helper.create_parameter(
+        param_attr, shape=shape, dtype=dtype,
+        default_initializer=Constant(1.0))
+    bias_var = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=shape,
+        dtype=dtype, is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        moving_mean_name or f"{helper.name}.mean", shape, dtype,
+        initializer=Constant(0.0))
+    variance = helper.create_or_get_global_variable(
+        moving_variance_name or f"{helper.name}.var", shape, dtype,
+        initializer=Constant(1.0))
+    y = helper.create_variable_for_type_inference(dtype)
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale_var], "Bias": [bias_var],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [y], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y)

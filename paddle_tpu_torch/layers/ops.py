@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["sigmoid", "tanh", "sqrt", "gelu"]
+_UNARY_OPS = ["sigmoid", "tanh", "sqrt", "square", "gelu"]
 
 
 def _make_unary(op_type: str):

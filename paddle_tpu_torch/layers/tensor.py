@@ -19,6 +19,19 @@ def fill_constant(shape, dtype, value, out=None, name=None):
     return out
 
 
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]}, outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": normalize_dtype(dtype),
+               "value": float(value), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
+    return out
+
+
 def concat(input, axis=0, name=None):
     helper = LayerHelper("concat", name=name)
     out = helper.create_variable_for_type_inference(input[0].dtype)

@@ -1,0 +1,144 @@
+"""ResNet for cifar10 and ImageNet (ResNet-50): the port of
+paddle_tpu/models/resnet.py (reference: benchmark/fluid/models/
+resnet.py — resnet_cifar10, resnet_imagenet with basic or bottleneck
+blocks, depths 18-152).
+
+The same build functions, so `Program.to_dict()` of a build equals the
+reference's.  data_format="NHWC" runs the conv stack channels-last; the
+feed stays NCHW and is transposed once at the front of the graph.  The
+update is momentum 0.9.  `use_amp` (bf16) is not ported yet and raises
+NotImplementedError with its ROADMAP item (queue A item 2).
+"""
+
+from __future__ import annotations
+
+from .. import layers, optimizer
+
+
+def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
+                  is_train=True, data_format="NCHW"):
+    conv1 = layers.conv2d(input=input, filter_size=filter_size,
+                          num_filters=ch_out, stride=stride,
+                          padding=padding, act=None, bias_attr=False,
+                          data_format=data_format)
+    return layers.batch_norm(input=conv1, act=act, is_test=not is_train,
+                             data_layout=data_format)
+
+
+def shortcut(input, ch_out, stride, is_train=True, data_format="NCHW"):
+    ch_in = input.shape[1 if data_format == "NCHW" else 3]
+    if ch_in != ch_out:
+        return conv_bn_layer(input, ch_out, 1, stride, 0, None,
+                             is_train=is_train, data_format=data_format)
+    return input
+
+
+def basicblock(input, ch_out, stride, is_train=True, data_format="NCHW"):
+    short = shortcut(input, ch_out, stride, is_train=is_train,
+                     data_format=data_format)
+    conv1 = conv_bn_layer(input, ch_out, 3, stride, 1, is_train=is_train,
+                          data_format=data_format)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, act=None,
+                          is_train=is_train, data_format=data_format)
+    return layers.elementwise_add(x=short, y=conv2, act="relu")
+
+
+def bottleneck(input, ch_out, stride, is_train=True, data_format="NCHW"):
+    short = shortcut(input, ch_out * 4, stride, is_train=is_train,
+                     data_format=data_format)
+    conv1 = conv_bn_layer(input, ch_out, 1, stride, 0, is_train=is_train,
+                          data_format=data_format)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, is_train=is_train,
+                          data_format=data_format)
+    conv3 = conv_bn_layer(conv2, ch_out * 4, 1, 1, 0, act=None,
+                          is_train=is_train, data_format=data_format)
+    return layers.elementwise_add(x=short, y=conv3, act="relu")
+
+
+def layer_warp(block_func, input, ch_out, count, stride, is_train=True,
+               data_format="NCHW"):
+    res_out = block_func(input, ch_out, stride, is_train=is_train,
+                         data_format=data_format)
+    for _ in range(1, count):
+        res_out = block_func(res_out, ch_out, 1, is_train=is_train,
+                             data_format=data_format)
+    return res_out
+
+
+def resnet_imagenet(input, class_dim, depth=50, is_train=True,
+                    data_format="NCHW"):
+    cfg = {
+        18: ([2, 2, 2, 2], basicblock),
+        34: ([3, 4, 6, 3], basicblock),
+        50: ([3, 4, 6, 3], bottleneck),
+        101: ([3, 4, 23, 3], bottleneck),
+        152: ([3, 8, 36, 3], bottleneck),
+    }
+    stages, block_func = cfg[depth]
+    conv1 = conv_bn_layer(input, ch_out=64, filter_size=7, stride=2,
+                          padding=3, is_train=is_train,
+                          data_format=data_format)
+    pool1 = layers.pool2d(input=conv1, pool_type="max", pool_size=3,
+                          pool_stride=2, pool_padding=1,
+                          data_format=data_format)
+    res1 = layer_warp(block_func, pool1, 64, stages[0], 1, is_train,
+                      data_format)
+    res2 = layer_warp(block_func, res1, 128, stages[1], 2, is_train,
+                      data_format)
+    res3 = layer_warp(block_func, res2, 256, stages[2], 2, is_train,
+                      data_format)
+    res4 = layer_warp(block_func, res3, 512, stages[3], 2, is_train,
+                      data_format)
+    pool2 = layers.pool2d(input=res4, pool_type="avg", global_pooling=True,
+                          pool_size=7, data_format=data_format)
+    return layers.fc(input=pool2, size=class_dim, act="softmax")
+
+
+def resnet_cifar10(input, class_dim, depth=32, is_train=True,
+                   data_format="NCHW"):
+    if (depth - 2) % 6:
+        raise ValueError(f"resnet_cifar10 depth must be 6n + 2, got {depth}")
+    n = (depth - 2) // 6
+    conv1 = conv_bn_layer(input=input, ch_out=16, filter_size=3, stride=1,
+                          padding=1, is_train=is_train,
+                          data_format=data_format)
+    res1 = layer_warp(basicblock, conv1, 16, n, 1, is_train, data_format)
+    res2 = layer_warp(basicblock, res1, 32, n, 2, is_train, data_format)
+    res3 = layer_warp(basicblock, res2, 64, n, 2, is_train, data_format)
+    pool = layers.pool2d(input=res3, pool_size=8, pool_type="avg",
+                         global_pooling=True, data_format=data_format)
+    return layers.fc(input=pool, size=class_dim, act="softmax")
+
+
+def build_model(dataset="flowers", depth=50, class_dim=1000,
+                learning_rate=0.01, with_optimizer=True, is_train=True,
+                use_amp=False, data_format="NCHW"):
+    """reference benchmark/fluid/models/resnet.py get_model; cifar10
+    fixes class_dim 10 and depth 32, as the reference does."""
+    if use_amp:
+        raise NotImplementedError(
+            "resnet use_amp (bf16 mixed precision) is not ported yet: "
+            "ROADMAP queue A item 2")
+    if dataset == "cifar10":
+        dshape = [3, 32, 32]
+        model = resnet_cifar10
+        class_dim = 10
+        depth = 32
+    else:
+        dshape = [3, 224, 224]
+        model = resnet_imagenet
+    input = layers.data(name="data", shape=dshape, dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    if data_format == "NHWC":
+        input = layers.transpose(input, perm=[0, 2, 3, 1])
+    predict = model(input, class_dim, depth=depth, is_train=is_train,
+                    data_format=data_format)
+    cost = layers.cross_entropy(input=predict, label=label)
+    avg_cost = layers.mean(x=cost)
+    batch_acc = layers.accuracy(input=predict, label=label)
+    if with_optimizer:
+        opt = optimizer.MomentumOptimizer(learning_rate=learning_rate,
+                                          momentum=0.9)
+        opt.minimize(avg_cost)
+    return {"loss": avg_cost, "accuracy": batch_acc,
+            "feeds": ["data", "label"], "predict": predict}

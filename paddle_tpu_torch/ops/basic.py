@@ -30,6 +30,19 @@ def fill_constant(ctx, ins, attrs):
                               device=ctx.device))
 
 
+@register_op("fill_constant_batch_size_like")
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    """fill_constant whose dim `output_dim_idx` is Input's dim
+    `input_dim_idx` (the batch size, by default), on Input's device."""
+    x = first(ins, "Input")
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = x.shape[
+        attrs.get("input_dim_idx", 0)]
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    return out(Out=torch.full(tuple(shape), attrs.get("value", 0.0),
+                              dtype=dtype, device=x.device))
+
+
 @register_op("assign")
 def assign(ctx, ins, attrs):
     return out(Out=first(ins, "X"))

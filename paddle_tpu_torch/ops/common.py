@@ -89,3 +89,13 @@ def nan_where(bad, x):
     bad = bad.reshape(tuple(bad.shape) + (1,) * (x.dim() - bad.dim()))
     return torch.where(bad, torch.full((), float("nan"), dtype=x.dtype,
                                        device=x.device), x)
+
+
+def pair(value, n=2):
+    """An int-or-list spatial attr as a tuple of length n (a one-element
+    list repeats)."""
+    if isinstance(value, (list, tuple)):
+        if len(value) == 1:
+            return tuple(value) * n
+        return tuple(value)
+    return (value,) * n

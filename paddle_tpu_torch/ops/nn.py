@@ -1,14 +1,24 @@
 """Neural-net ops: the subset of paddle_tpu/ops/nn.py the ported slices
-run (reference: paddle/fluid/operators/activation_op.cc,
-layer_norm_op.cc, softmax_op.cc, dropout_op.cc,
-softmax_with_cross_entropy_op.cc, label_smooth_op.cc)."""
+run (reference: paddle/fluid/operators/activation_op.cc, conv_op.cc,
+pool_op.cc, batch_norm_op.cc, layer_norm_op.cc, softmax_op.cc,
+dropout_op.cc, softmax_with_cross_entropy_op.cc, label_smooth_op.cc,
+metrics/auc_op.cc).
+
+Convolution and pooling are the reference's XLA compositions
+(`lax.conv_general_dilated`, `lax.reduce_window`), not Pallas kernels:
+here they are torch's own ops (cuDNN on the card), which NHWC tensors
+reach as channels-last views of NCHW, so no layout copy is made.  Batch
+normalization is the reference's formula in torch ops."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
-from .common import fill_index, first, nan_where, opt_in, out
+from .common import fill_index, first, nan_where, opt_in, out, pair
 
 
 @register_op("relu")
@@ -33,6 +43,11 @@ def gelu(ctx, ins, attrs):
     approximate = "tanh" if attrs.get("approximate", False) else "none"
     return out(Out=torch.nn.functional.gelu(first(ins, "X"),
                                             approximate=approximate))
+
+
+@register_op("square")
+def square(ctx, ins, attrs):
+    return out(Out=torch.square(first(ins, "X")))
 
 
 @register_op("sqrt")
@@ -185,3 +200,209 @@ def layer_norm(ctx, ins, attrs):
         "Mean": [mean.squeeze(axes)],
         "Variance": [var.squeeze(axes)],
     }
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)), 0 where the label is
+    `ignore_index` (when that is >= 0)."""
+    x, label = first(ins, "X"), first(ins, "Label")
+    loss = torch.clamp(x, min=0.0) - x * label \
+        + torch.log1p(torch.exp(-torch.abs(x)))
+    ignore = attrs.get("ignore_index", -100)
+    if ignore >= 0:
+        loss = torch.where(label == ignore, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device),
+                           loss)
+    return out(Out=loss)
+
+
+# --------------------------------------------------------------------------
+# Convolution / pooling
+# --------------------------------------------------------------------------
+
+def _nchw(x, nhwc):
+    """x as NCHW: an NHWC tensor becomes its channels-last view."""
+    return x.permute(0, 3, 1, 2) if nhwc else x
+
+
+def _back(o, nhwc):
+    return o.permute(0, 2, 3, 1) if nhwc else o
+
+
+def _conv_pads(padding, sizes, kernel, strides, dilations):
+    """((lo, hi), ...) per spatial dim: a number (or list) pads both sides
+    alike; "VALID" not at all; "SAME" (and "SAME_LOWER") as XLA computes
+    it for the reference's lax.conv_general_dilated: out = ceil(n / s),
+    total = max((out - 1) * s + (k - 1) * d + 1 - n, 0), the odd one at
+    the high (low) side."""
+    if not isinstance(padding, str):
+        return [(int(p), int(p)) for p in pair(padding, len(sizes))]
+    mode = padding.upper()
+    if mode == "VALID":
+        return [(0, 0)] * len(sizes)
+    if mode not in ("SAME", "SAME_LOWER"):
+        raise ValueError(f"conv2d padding {padding!r}: use a number, a "
+                         f"list, 'SAME' or 'VALID'")
+    pads = []
+    for n, k, s, d in zip(sizes, kernel, strides, dilations):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        small, big = total // 2, total - total // 2
+        pads.append((small, big) if mode == "SAME" else (big, small))
+    return pads
+
+
+@register_op("conv2d")
+def conv2d(ctx, ins, attrs):
+    """reference: operators/conv_op.cc.  Input NCHW (or NHWC with
+    data_format="NHWC"), Filter OIHW in both, groups (depthwise: groups
+    == C_in), dilations; the output keeps x's dtype.  Asymmetric SAME
+    padding is padded explicitly, since torch pads both sides alike."""
+    x, w = first(ins, "Input"), first(ins, "Filter")
+    strides = pair(attrs.get("strides", 1))
+    dilations = pair(attrs.get("dilations", 1))
+    groups = attrs.get("groups", 1) or 1
+    fmt = attrs.get("data_format", "NCHW")
+    if fmt not in ("NCHW", "NHWC"):
+        raise ValueError(f"conv2d data_format must be NCHW or NHWC, "
+                         f"got {fmt!r}")
+    xc = _nchw(x, fmt == "NHWC")
+    pads = _conv_pads(attrs.get("paddings", 0), tuple(xc.shape[2:]),
+                      tuple(w.shape[2:]), strides, dilations)
+    if all(lo == hi for lo, hi in pads):
+        padding = tuple(lo for lo, _ in pads)
+    else:
+        (t, b), (le, r) = pads
+        xc = F.pad(xc, (le, r, t, b))
+        padding = 0
+    o = F.conv2d(xc, w, stride=strides, padding=padding,
+                 dilation=dilations, groups=groups)
+    return {"Output": [_back(o, fmt == "NHWC").to(x.dtype)]}
+
+
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(ctx, ins, attrs):
+    """conv2d with groups = x.shape[1], as the reference sets it."""
+    return conv2d(ctx, ins, dict(attrs, groups=first(ins, "Input").shape[1]))
+
+
+@register_op("pool2d")
+def pool2d(ctx, ins, attrs):
+    """reference: operators/pool_op.cc.  max pooling pads with -inf; avg
+    pooling divides by the window's count of unpadded values when
+    `exclusive` (the default) and by kh * kw otherwise; global pooling
+    ignores ksize; NHWC pools over axes (1, 2).  torch pads inside the
+    pooling op only up to half the window, so a wider padding is padded
+    explicitly."""
+    x = first(ins, "X")
+    ptype = attrs.get("pooling_type", "max")
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    if attrs.get("global_pooling", False):
+        sp = (1, 2) if nhwc else (2, 3)
+        o = (x.amax(dim=sp, keepdim=True) if ptype == "max"
+             else x.mean(dim=sp, keepdim=True))
+        return out(Out=o)
+    ksize = pair(attrs["ksize"])
+    strides = pair(attrs.get("strides", 1))
+    pads = pair(attrs.get("paddings", 0))
+    xc = _nchw(x, nhwc)
+    inside = all(2 * p <= k for p, k in zip(pads, ksize))
+    if ptype == "max":
+        if inside:
+            o = F.max_pool2d(xc, ksize, strides, padding=pads)
+        else:
+            o = F.max_pool2d(F.pad(xc, (pads[1], pads[1], pads[0], pads[0]),
+                                   value=-math.inf), ksize, strides)
+    elif inside:
+        o = F.avg_pool2d(xc, ksize, strides, padding=pads,
+                         count_include_pad=not attrs.get("exclusive", True))
+    else:
+        wide = (pads[1], pads[1], pads[0], pads[0])
+        o = F.avg_pool2d(F.pad(xc, wide), ksize, strides, divisor_override=1)
+        if attrs.get("exclusive", True):
+            ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=x.dtype,
+                              device=x.device)
+            o = o / F.avg_pool2d(F.pad(ones, wide), ksize, strides,
+                                 divisor_override=1)
+        else:
+            o = o / float(ksize[0] * ksize[1])
+    return out(Out=_back(o, nhwc).to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# Normalization
+# --------------------------------------------------------------------------
+
+@register_op("batch_norm")
+def batch_norm(ctx, ins, attrs):
+    """reference: operators/batch_norm_op.cc, with the reference's
+    formulae, in float32:
+
+    - training: the batch mean and the biased variance E[x^2] - mean^2
+      over every axis but the channel's normalize x; MeanOut =
+      momentum * Mean + (1 - momentum) * batch mean (the opposite of
+      torch's momentum), VarianceOut alike with the biased variance
+      (torch's running variance is unbiased), both without a gradient;
+      SavedMean / SavedVariance are the batch mean and variance;
+    - is_test or use_global_stats: normalize with Mean and Variance,
+      which pass through.
+
+    Y = (x - mean) * (rsqrt(var + eps) * Scale) + Bias, cast back to x's
+    dtype, differentiated by autograd.  torch's batch norm (cuDNN) is not
+    used: its variance is the two-pass one, which over a few values a
+    channel (a cut batch at 1 x 1 spatial) gives other values than the
+    reference's E[x^2] - mean^2."""
+    x = first(ins, "X")
+    scale, bias = first(ins, "Scale"), first(ins, "Bias")
+    mean_in, var_in = first(ins, "Mean"), first(ins, "Variance")
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    c_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(a for a in range(x.dim()) if a != c_axis)
+    cshape = [1] * x.dim()
+    cshape[c_axis] = x.shape[c_axis]
+    xf = x.to(torch.float32)
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        mean_b, var_b = mean_in, var_in
+        mean_out, var_out = mean_in, var_in
+    else:
+        mean_b = xf.mean(dim=axes)
+        var_b = torch.square(xf).mean(dim=axes) - torch.square(mean_b)
+        mean_out = (momentum * mean_in + (1 - momentum) * mean_b).detach()
+        var_out = (momentum * var_in + (1 - momentum) * var_b).detach()
+    inv = torch.rsqrt(var_b.to(torch.float32) + eps)
+    y = (xf - mean_b.reshape(cshape)) \
+        * (inv * scale.to(torch.float32)).reshape(cshape) \
+        + bias.to(torch.float32).reshape(cshape)
+    return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [mean_b],
+            "SavedVariance": [var_b]}
+
+
+# --------------------------------------------------------------------------
+# Metrics
+# --------------------------------------------------------------------------
+
+@register_op("auc")
+def auc(ctx, ins, attrs):
+    """Streaming ROC AUC (reference: operators/metrics/auc_op.cc): the
+    persistable StatPos / StatNeg histograms gain this batch's positives
+    and negatives at bucket floor(p * num_thresholds), clipped to
+    [0, num_thresholds], of the positive-class score p = Predict[:, 1];
+    the area is the trapezoid over the cumulative counts taken from the
+    highest bucket down.  The histogram adds whole counts, exact in any
+    order below 2^24 a bucket."""
+    predict, label = first(ins, "Predict"), first(ins, "Label")
+    stat_pos, stat_neg = first(ins, "StatPos"), first(ins, "StatNeg")
+    num_thresholds = attrs.get("num_thresholds", 4095)
+    bucket = torch.floor(predict[:, 1] * num_thresholds).to(torch.int64)
+    bucket = bucket.clamp(0, num_thresholds)
+    lbl = label.reshape(-1).to(torch.float32)
+    new_pos = stat_pos.index_add(0, bucket, lbl)
+    new_neg = stat_neg.index_add(0, bucket, 1.0 - lbl)
+    tp = torch.cumsum(new_pos.flip(0), 0)
+    fp = torch.cumsum(new_neg.flip(0), 0)
+    tpr = tp / torch.clamp(tp[-1], min=1.0)
+    fpr = fp / torch.clamp(fp[-1], min=1.0)
+    return {"AUC": [torch.trapezoid(tpr, fpr).reshape(1)],
+            "StatPosOut": [new_pos], "StatNegOut": [new_neg]}

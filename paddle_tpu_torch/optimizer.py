@@ -1,14 +1,16 @@
 """Optimizer classes: minimize = append_backward + update ops.
 
-The port of paddle_tpu/optimizer.py `Optimizer`, `SGDOptimizer` and
-`AdamOptimizer` (reference: python/paddle/fluid/optimizer.py —
-Optimizer.minimize (:295) = append_backward + _create_optimization_pass
-(:198)).  The builder is the reference's, so the update ops, accumulator
-vars and their startup initializers serialize identically; the update
-rules are the ops of ops/optim.py, run by the Executor after the
-backward marker.  The other optimizers (Momentum, LarsMomentum, Adagrad,
-Adamax, DecayedAdagrad, Adadelta, RMSProp, Ftrl), ModelAverage and EMA
-are not ported yet (ROADMAP queue A item 2).
+The port of paddle_tpu/optimizer.py `Optimizer`, `SGDOptimizer`,
+`MomentumOptimizer` and `AdamOptimizer` (reference:
+python/paddle/fluid/optimizer.py — Optimizer.minimize (:295) =
+append_backward + _create_optimization_pass (:198)).  The code that
+appends the ops is the reference's, so the update ops, accumulator vars
+and their startup initializers serialize identically; the update rules
+are the ops of ops/optim.py, run by the Executor after the backward
+marker.  The other
+optimizers (LarsMomentum, Adagrad, Adamax, DecayedAdagrad, Adadelta,
+RMSProp, Ftrl), ModelAverage and EMA are not ported yet (ROADMAP queue A
+item 2).
 """
 
 from __future__ import annotations
@@ -121,6 +123,28 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [param]})
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, param):
+        self._add_accumulator("velocity", param)
+
+    def _append_optimize_op(self, block, param, grad):
+        velocity = self._get_accumulator("velocity", param)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param], "Grad": [grad],
+                    "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, regularization=None, name=None,
@@ -151,3 +175,7 @@ class AdamOptimizer(Optimizer):
             attrs={"beta1": self._beta1, "beta2": self._beta2,
                    "epsilon": self._epsilon})
 
+
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adam = AdamOptimizer

@@ -19,6 +19,15 @@ both packages on the same numpy inputs.
 - The edge cases of the ops ported with BERT: `slice` starts and ends
   negative and out of range, `range`'s output dtype, `gelu`'s two forms,
   `reduce_mean` over dim lists, keep_dim and reduce_all.
+- The edge cases of the ops ported with the image family and DeepFM,
+  forward (every output slot) and gradients: conv2d with "SAME" (odd and
+  even totals) and "VALID" at stride 2, groups, dilation and NHWC;
+  depthwise SAME; max pooling with padding over all-negative input and
+  with padding wider than half the window; exclusive and inclusive avg
+  pooling with padding; global pooling; NHWC pooling; batch norm's
+  momentum convention and biased variance, NHWC, is_test and
+  use_global_stats; Nesterov momentum; sigmoid CE's ignore_index; AUC
+  on running histograms; fill_constant_batch_size_like's dim indices.
 """
 
 from __future__ import annotations
@@ -76,7 +85,10 @@ def test_every_port_op_is_swept_or_exempt():
     assert not set(EXEMPT) & set(S)
     assert set(EXEMPT) <= port
     assert {"gelu", "range", "slice", "truncated_gaussian_random",
-            "reduce_mean"} <= set(SWEPT)
+            "reduce_mean", "conv2d", "depthwise_conv2d", "pool2d",
+            "batch_norm", "momentum", "auc", "square",
+            "sigmoid_cross_entropy_with_logits",
+            "fill_constant_batch_size_like"} <= set(SWEPT)
 
 
 @pytest.mark.parametrize("op", DETERMINISTIC)
@@ -237,3 +249,123 @@ def test_reduce_mean_dims_match_the_reference(attrs):
                                 ["Out"])["X"],
                  ref_op_grads("reduce_mean", {"X": x}, attrs, ["X"],
                               ["Out"])["X"], "reduce_mean gradient")
+
+
+# -- edge cases of the ops ported with the image family and DeepFM --------
+
+_R = np.random.RandomState(11)
+_IMG = _R.randn(2, 3, 7, 7).astype(np.float32)
+_NEG = -np.abs(_R.randn(1, 2, 5, 5)).astype(np.float32) - 1.0
+_W = (_R.randn(4, 3, 3, 3) * 0.3).astype(np.float32)
+_WG = (_R.randn(6, 1, 3, 3) * 0.3).astype(np.float32)
+_BN = dict(X=(_R.randn(4, 3, 2, 2) * 2 + 3).astype(np.float32),
+           Scale=_R.rand(3).astype(np.float32) + 0.5,
+           Bias=_R.randn(3).astype(np.float32),
+           Mean=_R.randn(3).astype(np.float32),
+           Variance=_R.rand(3).astype(np.float32) + 0.5)
+_BN_NHWC = dict(_BN, X=np.ascontiguousarray(_BN["X"].transpose(0, 2, 3, 1)))
+_P, _G, _V = (_R.randn(3, 2).astype(np.float32) for _ in range(3))
+
+# (op, inputs, attrs, output slot, gradient slots)
+EDGES = {
+    "conv SAME stride 2": ("conv2d", {"Input": _IMG, "Filter": _W},
+                           {"strides": 2, "paddings": "SAME"}, "Output",
+                           ["Input", "Filter"]),
+    "conv SAME stride 2 even": ("conv2d", {"Input": _IMG[:, :, :6, :6],
+                                           "Filter": _W},
+                                {"strides": 2, "paddings": "SAME"},
+                                "Output", ["Input", "Filter"]),
+    "conv VALID stride 2": ("conv2d", {"Input": _IMG, "Filter": _W},
+                            {"strides": [2, 1], "paddings": "VALID"},
+                            "Output", ["Input", "Filter"]),
+    "conv groups 3": ("conv2d", {"Input": _IMG, "Filter": _WG},
+                      {"groups": 3, "paddings": 1}, "Output",
+                      ["Input", "Filter"]),
+    "conv dilation 2": ("conv2d", {"Input": _IMG, "Filter": _W},
+                        {"dilations": 2, "paddings": [2, 1]}, "Output",
+                        ["Input", "Filter"]),
+    "conv NHWC": ("conv2d", {"Input": np.ascontiguousarray(
+        _IMG.transpose(0, 2, 3, 1)), "Filter": _W},
+        {"strides": 2, "paddings": 1, "data_format": "NHWC"}, "Output",
+        ["Input", "Filter"]),
+    "depthwise SAME": ("depthwise_conv2d",
+                       {"Input": _IMG, "Filter": _WG[:3]},
+                       {"paddings": "SAME"}, "Output", ["Input", "Filter"]),
+    "max pool padded, all negative": ("pool2d", {"X": _NEG},
+                                      {"ksize": 3, "strides": 2,
+                                       "paddings": 1}, "Out", ["X"]),
+    # windows wholly in the padding: -inf (max) and 0 / 0 (exclusive avg)
+    "max pool padded wider than half": ("pool2d", {"X": _NEG},
+                                        {"ksize": 2, "strides": 1,
+                                         "paddings": 2}, "Out", ["X"]),
+    "avg pool exclusive padded": ("pool2d", {"X": _IMG},
+                                  {"ksize": 3, "strides": 2, "paddings": 1,
+                                   "pooling_type": "avg"}, "Out", ["X"]),
+    "avg pool inclusive padded": ("pool2d", {"X": _IMG},
+                                  {"ksize": 3, "strides": 2, "paddings": 1,
+                                   "pooling_type": "avg",
+                                   "exclusive": False}, "Out", ["X"]),
+    "avg pool exclusive wider than half": ("pool2d", {"X": _IMG},
+                                           {"ksize": 2, "strides": 2,
+                                            "paddings": 2,
+                                            "pooling_type": "avg"},
+                                           "Out", ["X"]),
+    "global max pool": ("pool2d", {"X": _IMG},
+                        {"ksize": 2, "global_pooling": True}, "Out", ["X"]),
+    "global avg pool NHWC": ("pool2d", {"X": _IMG},
+                             {"ksize": 5, "global_pooling": True,
+                              "pooling_type": "avg", "data_format": "NHWC"},
+                             "Out", ["X"]),
+    "max pool NHWC": ("pool2d", {"X": np.ascontiguousarray(
+        _IMG.transpose(0, 2, 3, 1))}, {"ksize": 3, "strides": 2,
+                                       "paddings": 1,
+                                       "data_format": "NHWC"}, "Out", ["X"]),
+    "batch norm momentum 0.7, biased variance": (
+        "batch_norm", _BN, {"momentum": 0.7, "epsilon": 1e-3}, "Y",
+        ["X", "Scale", "Bias"]),
+    "batch norm NHWC": ("batch_norm", _BN_NHWC,
+                        {"data_layout": "NHWC"}, "Y",
+                        ["X", "Scale", "Bias"]),
+    "batch norm is_test": ("batch_norm", _BN, {"is_test": True}, "Y",
+                           ["X", "Scale", "Bias"]),
+    "batch norm use_global_stats": ("batch_norm", _BN,
+                                    {"use_global_stats": True}, "Y",
+                                    ["X", "Scale", "Bias"]),
+    "momentum nesterov": ("momentum", {"Param": _P, "Grad": _G,
+                                       "Velocity": _V,
+                                       "LearningRate": np.array(
+                                           [0.1], np.float32)},
+                          {"mu": 0.9, "use_nesterov": True}, "ParamOut",
+                          []),
+    "sigmoid CE ignore_index": ("sigmoid_cross_entropy_with_logits",
+                                {"X": _P, "Label": np.array(
+                                    [[0, 1], [2, 1], [0, 2]], np.float32)},
+                                {"ignore_index": 2}, "Out", ["X"]),
+    "auc on running stats": ("auc", {
+        "Predict": np.stack([1 - _R.rand(9), _R.rand(9)], 1)
+        .astype(np.float32),
+        "Label": _R.randint(0, 2, (9, 1)).astype(np.int64),
+        "StatPos": _R.randint(0, 3, 33).astype(np.float32),
+        "StatNeg": _R.randint(0, 3, 33).astype(np.float32)},
+        {"num_thresholds": 32}, "AUC", []),
+    "fill_constant_batch_size_like dims": (
+        "fill_constant_batch_size_like", {"Input": _IMG},
+        {"shape": [4, -1, 2], "dtype": "int32", "value": 7,
+         "input_dim_idx": 2, "output_dim_idx": 1}, "Out", []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_vision_and_ctr_op_edge_cases_match_the_reference(case):
+    op, ins, attrs, out_slot, grad_slots = EDGES[case]
+    got = run_torch_op_all(op, ins, attrs)
+    want = run_ref_op_all(op, ins, attrs)
+    assert set(got) == set(want)
+    for slot in want:
+        _assert_same(got[slot], want[slot], f"{case}: {slot}")
+        assert _same_dtype(got[slot], want[slot]), f"{case}: {slot}"
+    for slot in grad_slots:
+        _assert_same(
+            torch_op_grads(op, ins, attrs, [slot], [out_slot])[slot],
+            ref_op_grads(op, ins, attrs, [slot], [out_slot])[slot],
+            f"{case}: d{out_slot}/d{slot}")

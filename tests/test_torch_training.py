@@ -267,7 +267,9 @@ def test_unported_executor_features_raise():
     with pytest.raises(NotImplementedError, match="queue A item 2"):
         exe.run(tm, feed=_batch(), fetch_list=[tmod["loss"]], scope=scope,
                 accumulation_steps=2)
-    # an is_sparse lookup of a trainable table (SparseGrad rows)
+    # an is_sparse lookup of a trainable table no longer raises: it takes
+    # the SparseGrad path (tests/test_torch_sparse.py), and SGD moves
+    # only the looked-up row
     main, startup = tf.Program(), tf.Program()
     with tf.program_guard(main, startup):
         ids = tf.layers.data("ids", shape=[3], dtype="int64")
@@ -275,6 +277,10 @@ def test_unported_executor_features_raise():
         loss = tf.layers.reduce_sum(emb)
         tf.optimizer.SGDOptimizer(0.1).minimize(loss)
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="SparseGrad"):
-        exe.run(main, feed={"ids": np.zeros((2, 3), np.int64)},
-                fetch_list=[loss], scope=scope)
+    table = main.global_block().all_parameters()[0].name
+    before = scope.find_var(table).numpy().copy()
+    exe.run(main, feed={"ids": np.zeros((2, 3), np.int64)},
+            fetch_list=[loss], scope=scope)
+    after = scope.find_var(table).numpy()
+    np.testing.assert_allclose(after[0], before[0] - 0.1 * 6, rtol=1e-6)
+    np.testing.assert_array_equal(after[1:], before[1:])
