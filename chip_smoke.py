@@ -4,7 +4,9 @@
 
 Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
 
-1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
+1. prints the card (nvidia-smi name and power limit), turns TF32 off
+   and bf16 GEMMs' reduced-precision reductions off (the reference's
+   bf16 products accumulate in float32 and round once);
 2. builds the port's CUDA kernels from paddle_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc per source, all started together, and prints each
    kernel's registers and spills;
@@ -75,6 +77,18 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    bits, and times the forward and the pair by device time beside their
    3xTF32 and float32 bounds and scaled_dot_product_attention with the
    same additive mask (forward, and its autograd backward);
+   3g. holds the flash kernels' bf16 paths (the forward with bf16
+   mma.sync, P rounded to bf16 before P V; the dK/dV and dQ kernels on
+   operands widened to float32 as they are staged) against the bf16
+   plain versions at phase 6i's shape (N = 64, H = 8, T = 256, D = 64,
+   nhtd transposed views, causal and not), BERT-base's (N = 32, H = 12,
+   T = 128, not causal), D = 128 (N = 16, H = 8, T = 512) and T = 8192
+   (N = 2, H = 8, causal), with a bf16 key bias as the AMP policy casts
+   it: O within TOL_BF16_O of max |O|, lse within TOL_KERNEL, each
+   gradient within TOL_BF16_GRAD relative; and times each kernel by
+   device time beside its bound at the bf16 peak, the plain versions
+   and scaled_dot_product_attention on the same bf16 operands, forward
+   and backward;
    3e. runs, for each kernel, its op on a shape the kernel refuses (flash
    head dim 96, vocab-CE D = 768, LSTM H = 514, paged head dim 96) with
    use_pallas=False: one composed call counted, no kernel launch, and the
@@ -91,8 +105,9 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    prefill logits and one decode step's logits;
 6. trains the repository's Transformer benchmark configuration (bench.py
    bench_transformer: vocab 32000, 6+6 layers, 8 heads, d_model 512,
-   d_inner 2048, T=256, batch 64, dropout 0.1, flash attention, float32)
-   through build_model / Executor.run on the card: one warmup step, then
+   d_inner 2048, T=256, batch 64, dropout 0.1, flash attention, float32;
+   the bench's bf16 AMP is phase 6i) through build_model / Executor.run
+   on the card: one warmup step, then
    timed steps with the launch counts zeroed just before them (12 flash
    forward, 12 dK/dV and 12 dQ launches per step, no plain call, no
    composed attention), and one profiled window (6b);
@@ -141,6 +156,20 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    norm's moving statistics, at the tolerances of TOL_RESNET_*) and
    DeepFM at full width on 64 examples (as phase 7, plus equal AUC
    histograms and untouched table rows bit-equal on both devices);
+   6i-6k. bf16 mixed precision (`use_amp=True`, the optimizer wrapped by
+   `amp.decorate`), as the reference's bench runs these three: the
+   Transformer of phase 6 (batch 64 x 256), BERT-base (batch 32 x 128)
+   and ResNet-50 (batch 128 x 224 x 224, frozen batch), each with its
+   step time, throughput, peak memory and a profiled window (device busy
+   and idle share, kernels a step); the Transformer and BERT launch the
+   bf16 flash kernels 12 times each a step (12 flash ops) and make no
+   plain, composed or float32 flash call;
+   7f. the AMP Transformer (2 x 64 tokens) and AMP BERT-base (2 x 128)
+   at full width, dropout 0, card against CPU from the same weights:
+   the step-1 loss within TOL_AMP_LOSS, each step-1 gradient within
+   TOL_AMP_GRAD relative L2, and all of them together within
+   TOL_AMP_SHARE of AMP's own distance from float32 (a float32 step of
+   the same program on the CPU);
 8. prints one `kernels` JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -255,6 +284,36 @@ TOL_RESNET_STATS = 1e-2
 DEEPFM_BATCH, DEEPFM_STEPS = 4096, 20
 DEEPFM_PARITY_BATCH = 64       # phase 7e: full width, 64 examples
 
+# phase 3g: the flash kernels' bf16 paths against their bf16 plain
+# versions.  O is stored bf16 by both and the kernel rounds p against
+# its running row max, the plain version against the final one: two bf16
+# ulps of max |O|.  The gradients: both compute in float32 from the same
+# bf16 values and round once to bf16, one ulp (2^-7 relative), plus
+# 2^-10 of the largest magnitude for sums near 0.
+TOL_BF16_O = 2 ** -6
+TOL_BF16_GRAD = 2 ** -7
+# phases 6i-6k: the same configurations as 6, 6f and 6g under bf16 AMP
+AMP = dict(use_amp=True)
+# phase 7f: AMP card against CPU at step 1.  Every bf16 rounding of a
+# float32 value the two devices sum in another order (cuBLAS or the
+# kernels against the CPU's) can land one bf16 ulp (2^-8 relative) apart,
+# and 6 + 6 (Transformer) or 12 (BERT) layers carry those flips on.  At
+# full width that puts any two implementations that round where the ops
+# say about as far apart as AMP is from float32: on the CPU, the JAX
+# package and the port part by 0.83 of AMP's own step-1 gradient
+# distance from float32 at the 7f Transformer (2 x 64 tokens; 0.13 at
+# the CPU tests' 2 layers of d_model 32), the card and the CPU by 0.81
+# (BERT-base at 2 x 128: 0.99; H100, 700 W); a layer norm's weight
+# gradient, a sum over the tokens with much cancellation, then differs
+# by 6.1% (BERT 6.5%) relative L2 between the devices (median 2.1%,
+# 2.3%).  So: the losses within 2e-3 (measured 1.3e-4, BERT 5.4e-4),
+# each parameter's gradient within 0.15 relative L2, and all of them
+# together within 1.5 of AMP's distance from float32 on the CPU (float32
+# end to end is held to 1e-4 and 2e-3 in phase 7).
+TOL_AMP_LOSS = 2e-3
+TOL_AMP_GRAD = 0.15
+TOL_AMP_SHARE = 1.5
+
 OUT_DIR = "chip_smoke_out"
 
 
@@ -300,24 +359,34 @@ def bound_ms(nbytes, flops):
 def ptxas_summary(build_log):
     """[(function, "Used N registers, ...; spills")] from `nvcc -Xptxas
     -v` output, kernel template names demangled to name<D>,
-    name<D, VEC> or name<bf16, D> (integer, bool and pool-type template
-    arguments)."""
+    name<D, VEC>, name<bf16, D> or name<D, bf16> (integer, bool and
+    pool-type or operand-type template arguments)."""
     import re
 
-    types = {"a": "int8", "t": "bf16", "f": "f32"}
+    types = {"a": "int8", "t": "bf16", "f": "f32", "13__nv_bfloat16": "bf16"}
     out, fn, spill = [], None, ""
     for ln in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"([A-Za-z_]+_kernel)(?:I([aft])?"
-                          r"((?:L[ib]\d+E)*)E)?", m.group(1))
-            args = [] if not k else [types.get(k.group(2))] + [
-                val if kind == "i" else ("true" if val == "1" else "false")
-                for kind, val in re.findall(r"L([ib])(\d+)E",
-                                            k.group(3) or "")]
-            args = [a for a in args if a is not None]
-            fn = (f"{k.group(1)}<{', '.join(args)}>" if args
-                  else (k.group(1) if k else m.group(1)))
+            fn = m.group(1)
+            # the kernel's length-prefixed name in the mangled one (it
+            # may hold digits: flash_fwd_bf16_kernel), then its template
+            # arguments
+            for part in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", fn):
+                name = part.group(2)[:int(part.group(1))]
+                if not name.endswith("_kernel"):
+                    continue
+                k = re.match(r"I([aft])?((?:L[ib]\d+E)*)(f|13__nv_bfloat16)?E",
+                             fn[part.start(2) + len(name):])
+                args = [] if not k else [types.get(k.group(1))] + [
+                    val if kind == "i" else ("true" if val == "1"
+                                             else "false")
+                    for kind, val in re.findall(r"L([ib])(\d+)E",
+                                                k.group(2))] + [
+                    types.get(k.group(3))]
+                args = [a for a in args if a is not None]
+                fn = f"{name}<{', '.join(args)}>" if args else name
+                break
         elif "spill stores" in ln:
             spill = ln.split(":", 1)[-1].strip()
         elif "Used" in ln and "registers" in ln:
@@ -655,8 +724,9 @@ def phase_bwd_kernels(dev):
            if fn.startswith(_BWD_KERNELS)]
     for fn, used in ptx:
         log(f"  ptxas {fn}: {used}")
-    if not all(any(fn.startswith(k + "<") for fn, _ in ptx)
-               for k in _BWD_KERNELS):
+    if not all(any(fn.startswith(f"{k}<") and fn.endswith(f", {t}>")
+                   for fn, _ in ptx)
+               for k in _BWD_KERNELS for t in ("f32", "bf16")):
         raise AssertionError("no ptxas line for the flash backward kernels")
     n, h, t, d = TRAIN_BATCH, TRAIN_ARCH["n_head"], \
         TRAIN_ARCH["max_length"], TRAIN_ARCH["d_model"] // \
@@ -866,23 +936,31 @@ def profiled_kernel_ms(fn, names, iters=20, warmup=3, attempts=3):
             / counts[name] / 1e3 for name in names}
 
 
-def profiled_call_ms(fn, iters=20, warmup=3):
+def profiled_call_ms(fn, iters=20, warmup=3, attempts=3):
     """Mean device ms of all the kernels one call of fn() launches (a
-    library call's device time, without the host's)."""
-    events = _profiled_device_events(fn, iters, warmup)
-    if not events:
-        raise AssertionError("no CUDA kernel profiled")
-    return sum(_device_us(e) for e in events) / iters / 1e3
+    library call's device time, without the host's).  A trace that saw
+    no kernel at all (as one of SDPA's bf16 forward at D = 128 did) is
+    taken again, up to `attempts` traces; if none saw one, the call is
+    timed by CUDA events instead (host time included), and the log says
+    so."""
+    for attempt in range(attempts):
+        events = _profiled_device_events(fn, iters, warmup)
+        if events:
+            return sum(_device_us(e) for e in events) / iters / 1e3
+        log(f"  profiler trace {attempt + 1} saw no CUDA kernel")
+    log("  no trace saw a kernel: timed by CUDA events instead")
+    return cuda_ms(fn, iters=iters, warmup=warmup)
 
 
 def _sdpa_mask(c):
     """The case's key bias and, when causal, the causal mask as one float
     attn_mask for scaled_dot_product_attention."""
     if not c["causal"]:
-        return c["bias"]
+        return c["bias"].to(c["q"].dtype)
     t = c["q"].shape[2]
-    return c["bias"] + torch.full((t, t), float("-inf"),
-                                  device=c["bias"].device).triu(1)
+    return (c["bias"] + torch.full((t, t), float("-inf"),
+                                   device=c["bias"].device).triu(1)
+            ).to(c["q"].dtype)
 
 
 def _sdpa_backward(c, d):
@@ -1132,6 +1210,171 @@ def flash_at_bert_shape(dev):
         torch.cuda.empty_cache()
     log("  two runs at BERT's shape bit-equal, both layouts")
     return out
+
+
+# -- phase 3g: the flash kernels' bf16 paths -----------------------------
+
+_BF16_FWD = ("flash_fwd_bf16_kernel",)
+
+
+def bf16_case(dev, n, h, t, d, layout, causal, seed, lengths=None):
+    """`bwd_case`'s operands (nhtd ones transposed views) in bf16 and the
+    key bias in bf16, as the AMP policy casts them; O and lse from the
+    forward kernel's bf16 path."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    q, k, v, do, bias, _ = flash_operands(dev, n, h, t, d, layout, seed,
+                                          lengths=lengths)
+    q, k, v, do, bias = (x.bfloat16() for x in (q, k, v, do, bias))
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout=layout, n_head=h)
+    return dict(q=q, k=k, v=v, bias=bias, o=o, lse=lse, do=do, dlse=None,
+                causal=causal, layout=layout, n_head=h,
+                args=(q, k, v, bias, o, lse, do, None, None, causal,
+                      layout, h))
+
+
+def _check_bf16_grad(name, got, want):
+    """One bf16 gradient within TOL_BF16_GRAD of the plain one, element by
+    element, plus 2^-10 of its largest magnitude; returns the max abs
+    error."""
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: non-finite gradient")
+    err = (got - want).abs()
+    top = float(want.abs().max())
+    over = err - (TOL_BF16_GRAD * want.abs() + 2 ** -10 * top)
+    worst = float(over.max())
+    log(f"  {name}: max_abs_err {float(err.max()):.3e} (max|want| "
+        f"{top:.3e}; tol {TOL_BF16_GRAD:g} rel + 2^-10 of max) "
+        f"{'ok' if worst <= 0 else 'FAIL'}")
+    if worst > 0:
+        raise AssertionError(f"{name}: outside the tolerance")
+    return float(err.max())
+
+
+def flash_bf16_cases(dev):
+    """3g (module docstring): each shape's forward and backward against
+    the bf16 plain versions, then device times beside the bounds at the
+    bf16 peak, the plain versions' times (not at T = 8192, where the
+    plain backward alone takes ~20 GB) and scaled_dot_product_attention
+    on the same bf16 operands.  Returns the rows of the three bf16
+    kernels (their times at phase 6i's shape, the mean of causal and not,
+    as each Transformer step runs both; the errors the largest of every
+    case) and every case."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    log("phase 3g: the flash kernels' bf16 paths vs their bf16 plain "
+        "versions")
+    h6, d6 = TRAIN_ARCH["n_head"], TRAIN_ARCH["d_model"] // \
+        TRAIN_ARCH["n_head"]
+    hb = BERT_ARCH["n_head"]
+    shapes = [("6i", TRAIN_BATCH, h6, TRAIN_ARCH["max_length"], d6,
+               "nhtd", True),
+              ("6i", TRAIN_BATCH, h6, TRAIN_ARCH["max_length"], d6,
+               "nhtd", False),
+              ("6j BERT", BERT_BATCH, hb, BERT_ARCH["max_len"],
+               BERT_ARCH["d_model"] // hb, "nhtd", False),
+              ("D=128", 16, 8, 512, 128, "nhtd", True),
+              ("T=8192", LONGCTX_BATCH, h6, 8192, d6, "nhtd", True)]
+    cases, errs = [], {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    for i, (tag, n, h, t, d, layout, causal) in enumerate(shapes):
+        name = (f"flash bf16 {tag} N={n} H={h} T={t} D={d} "
+                f"{'causal' if causal else 'not causal'}")
+        c = bf16_case(dev, n, h, t, d, layout, causal, seed=80 + i)
+        q, k, v, bias = c["args"][:4]
+        wo, wl = fk.flash_attention_fwd_plain(q, k, v, bias, None, causal,
+                                              layout, h)
+        o_err = float((c["o"].float() - wo.float()).abs().max())
+        o_top = float(wo.float().abs().max())
+        log(f"  {name} out: max_abs_err {o_err:.3e} ({o_err / o_top:.2e} "
+            f"of max|O| {o_top:.3e}; tol {TOL_BF16_O:g} of max) "
+            f"{'ok' if o_err <= TOL_BF16_O * o_top else 'FAIL'}")
+        if not o_err <= TOL_BF16_O * o_top:
+            raise AssertionError(f"{name}: O outside the tolerance")
+        check_close(f"{name} lse", c["lse"], wl, TOL_KERNEL)
+        del wo, wl
+
+        def fwd():
+            return fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                          layout=layout, n_head=h)
+
+        def bwd():
+            return fk.flash_attention_bwd(*c["args"], need_dbias=False)
+
+        before = dict(kernels.launch_counts)
+        got = bwd()
+        torch.cuda.synchronize()
+        after = kernels.launch_counts
+        for kname in ("flash_attention_bwd_dkv_bf16",
+                      "flash_attention_bwd_dq_bf16"):
+            if after[kname] != before[kname] + 1:
+                raise AssertionError(f"{name}: {kname} not launched")
+        want = fk.flash_attention_bwd_plain(*c["args"])
+        gerr = {g: _check_bf16_grad(f"{name} {g}", a, b)
+                for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        del got, want
+        errs["fwd"] = max(errs["fwd"], o_err)
+        errs["dkv"] = max(errs["dkv"], gerr["dk"], gerr["dv"])
+        errs["dq"] = max(errs["dq"], gerr["dq"])
+        iters = 3 if t > 1024 else 20
+        fwd_ms = profiled_kernel_ms(fwd, _BF16_FWD, iters=iters,
+                                    warmup=1)[_BF16_FWD[0]]
+        per = profiled_kernel_ms(bwd, _BWD_KERNELS, iters=iters, warmup=1)
+        lib_fwd = profiled_call_ms(_sdpa_forward(c, d), iters=iters,
+                                   warmup=1)
+        lib_bwd = profiled_call_ms(_sdpa_backward(c, d), iters=iters,
+                                   warmup=1)
+        plain_fwd = plain_bwd = None
+        if t <= 1024:
+            plain_fwd = cuda_ms(lambda: fk.flash_attention_fwd_plain(
+                q, k, v, bias, None, causal, layout, h), iters=5, warmup=1)
+            plain_bwd = cuda_ms(lambda: fk.flash_attention_bwd_plain(
+                *c["args"]), iters=5, warmup=1)
+        fb = fk.tensor_core_bound_ms(q, k, bias, causal, layout, h)
+        bb = fk.tensor_core_bound_ms_bwd(q, k, bias, causal, layout, h)
+        row = dict(shape=name, causal=causal, fwd_ms=fwd_ms,
+                   dkv_ms=per["flash_bwd_dkv_kernel"],
+                   dq_ms=per["flash_bwd_dq_kernel"],
+                   fwd_bound_ms=fb[0], fwd_bound_by=fb[1],
+                   dkv_bound_ms=bb["dkv"][0], dkv_bound_by=bb["dkv"][1],
+                   dq_bound_ms=bb["dq"][0], dq_bound_by=bb["dq"][1],
+                   plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+                   library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+                   fwd_max_abs_err=o_err, dkv_max_abs_err=max(
+                       gerr["dk"], gerr["dv"]), dq_max_abs_err=gerr["dq"])
+        cases.append(row)
+        log(f"  {name}: fwd device ms {fwd_ms:.5f} (bound at the bf16 "
+            f"peak {fb[0]:.5f} {fb[1]}; plain {plain_fwd}; SDPA bf16 "
+            f"{lib_fwd:.5f}); dkv {row['dkv_ms']:.5f} dq {row['dq_ms']:.5f}"
+            f" (bounds {bb['dkv'][0]:.5f} {bb['dkv'][1]} / "
+            f"{bb['dq'][0]:.5f} {bb['dq'][1]}; plain backward {plain_bwd};"
+            f" SDPA bf16 backward {lib_bwd:.5f})")
+        del c
+        torch.cuda.empty_cache()
+    main = [r for r in cases if r["shape"].startswith("flash bf16 6i")]
+
+    def mean(key):
+        return sum(r[key] for r in main) / len(main)
+
+    rows = {}
+    for kname, pre, plain_key, lib_key, err in (
+            ("flash_attention_fwd_bf16", "fwd", "plain_fwd_ms",
+             "library_fwd_ms", errs["fwd"]),
+            ("flash_attention_bwd_dkv_bf16", "dkv", "plain_bwd_ms",
+             "library_bwd_ms", errs["dkv"]),
+            ("flash_attention_bwd_dq_bf16", "dq", "plain_bwd_ms",
+             "library_bwd_ms", errs["dq"])):
+        rows[kname] = dict(
+            ms=mean(f"{pre}_ms"), plain_ms=mean(plain_key),
+            bound_ms=mean(f"{pre}_bound_ms"),
+            bound_by=main[0][f"{pre}_bound_by"],
+            library_ms=mean(lib_key), max_abs_err=err,
+            shape="N=64 H=8 T=256 D=64 bf16 nhtd key bias, mean of causal "
+                  "and not (the backward's plain and library times are "
+                  "the whole backward)")
+    return rows, cases
 
 
 # -- phase 3c: the vocab-CE kernels against their plain versions ---------
@@ -1806,7 +2049,8 @@ def phase_train(dev, card, label="phase 6", overrides=None,
     overrides = overrides or {}
     arch = dict(TRAIN_ARCH, **overrides)
     log(f"{label}: Transformer training on the card (batch {batch} x "
-        f"{arch['max_length']}, {overrides or 'bench config'}, f32)")
+        f"{arch['max_length']}, {overrides or 'bench config'}, "
+        f"{'bf16 AMP' if arch.get('use_amp') else 'f32'})")
     torch.cuda.reset_peak_memory_stats(dev)
     main, startup, model = build_training(**overrides)
     t_len = arch["max_length"]
@@ -1825,7 +2069,8 @@ def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
     """Run `startup` and one warmup step on the card (its loss within 0.5
     of `want_first`), then `steps` timed steps with the launch counts
     zeroed just before them: each flash op launches the flash forward,
-    dK/dV and dQ kernels once a step, each fused-CE op the vocab-CE
+    dK/dV and dQ kernels once a step (their bf16 paths under AMP, and
+    then no float32 flash launch), each fused-CE op the vocab-CE
     forward, dh and dW kernels once, and nothing takes a plain or
     composed path.  `profile` labels one profiled window after them
     (None: no window)."""
@@ -1857,13 +2102,15 @@ def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
     la, pl, co = counts["launches"], counts["plain"], counts["composed"]
-    want = {"flash_attention_fwd": n_flash * steps,
-            "flash_attention_bwd_dkv": n_flash * steps,
-            "flash_attention_bwd_dq": n_flash * steps,
-            "vocab_ce_fwd": n_vocab * steps,
-            "vocab_ce_dh": n_vocab * steps,
-            "vocab_ce_dw": n_vocab * steps,
-            "paged_attention": 0, "lstm_fwd": 0, "lstm_bwd": 0}
+    # under AMP the flash op gets bf16 operands: the kernels' bf16 paths
+    flash = "_bf16" if main._amp_lists is not None else ""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({f"flash_attention_fwd{flash}": n_flash * steps,
+                 f"flash_attention_bwd_dkv{flash}": n_flash * steps,
+                 f"flash_attention_bwd_dq{flash}": n_flash * steps,
+                 "vocab_ce_fwd": n_vocab * steps,
+                 "vocab_ce_dh": n_vocab * steps,
+                 "vocab_ce_dw": n_vocab * steps})
     if la != want or max(pl.values()) or max(co.values()):
         raise AssertionError(f"training launches {counts}, want {want} "
                              f"and no plain or composed call")
@@ -1939,27 +2186,31 @@ def build_bert(**overrides):
     return main, startup, model
 
 
-def phase_train_bert(dev, card, batch=BERT_BATCH, steps=BERT_STEPS):
+def phase_train_bert(dev, card, batch=BERT_BATCH, steps=BERT_STEPS,
+                     label="phase 6f", overrides=None):
     """Train BERT-base at the bench's widths and batch on the card
     (`_train_on_card`: 12 launches of each flash kernel a step, no plain
     or composed call), its startup program (truncated normal draws)
-    run there too, and one profiled window (as 6b)."""
+    run there too, and one profiled window (as 6b); `overrides`
+    (use_amp) go to build_model."""
     from paddle_tpu_torch.models import bert
 
+    overrides = overrides or {}
     t_len, vocab = BERT_ARCH["max_len"], BERT_ARCH["vocab_size"]
-    log(f"phase 6f: BERT-base pretraining (MLM + NSP) on the card (batch "
+    log(f"{label}: BERT-base pretraining (MLM + NSP) on the card (batch "
         f"{batch} x {t_len}, {BERT_ARCH['n_layer']} layers, "
         f"{BERT_ARCH['n_head']} heads, d_model {BERT_ARCH['d_model']}, "
-        f"vocab {vocab}, flash attention, f32)")
+        f"vocab {vocab}, flash attention, "
+        f"{'bf16 AMP' if overrides.get('use_amp') else 'f32'})")
     torch.cuda.reset_peak_memory_stats(dev)
-    main, startup, model = build_bert()
+    main, startup, model = build_bert(**overrides)
     feed = bert.make_fake_batch(batch, t_len, vocab,
                                 BERT_ARCH["max_predictions"])
     # MLM CE of near-uniform logits plus NSP CE of two near-equal ones
     res = _train_on_card(dev, card, main, startup, model["loss"], feed,
                          batch * t_len, steps, np.log(vocab) + np.log(2),
-                         "phase 6f, profiled")
-    res.update(batch=batch, max_length=t_len)
+                         f"{label}, profiled")
+    res.update(batch=batch, max_length=t_len, overrides=overrides)
     per_step = {k: v / steps for k, v in res["launches"].items()}
     log(f"  kernel launches a step {per_step}")
     if res["flash_ops"] != BERT_ARCH["n_layer"]:
@@ -2135,16 +2386,20 @@ def _timed_steps(dev, card, label, main, startup, loss, feed, steps,
     return res, exe, scope, feed
 
 
-def phase_train_resnet(dev, card, batch=RESNET_BATCH, steps=RESNET_STEPS):
+def phase_train_resnet(dev, card, batch=RESNET_BATCH, steps=RESNET_STEPS,
+                       label="phase 6g", overrides=None):
     """6g: ResNet-50 at the bench's config on the card (conv2d, pool2d
-    and batch_norm on cuDNN and torch, momentum)."""
-    log(f"phase 6g: ResNet-50 training on the card (batch {batch} x 3 x "
+    and batch_norm on cuDNN and torch, momentum); 6k with `overrides`
+    (use_amp)."""
+    overrides = overrides or {}
+    log(f"{label}: ResNet-50 training on the card (batch {batch} x 3 x "
         f"224 x 224, NCHW, momentum 0.9, lr {RESNET_ARCH['learning_rate']},"
-        f" f32, frozen batch)")
+        f" {'bf16 AMP' if overrides.get('use_amp') else 'f32'}, frozen "
+        f"batch)")
     torch.cuda.reset_peak_memory_stats(dev)
-    main, startup, model = build_resnet()
+    main, startup, model = build_resnet(**overrides)
     types = [op.type for op in main.global_block().ops]
-    res, _, scope, _ = _timed_steps(dev, card, "phase 6g", main, startup,
+    res, _, scope, _ = _timed_steps(dev, card, label, main, startup,
                                     model["loss"], resnet_batch(batch),
                                     steps, batch, "images")
     n_bn = types.count("batch_norm")
@@ -2156,7 +2411,8 @@ def phase_train_resnet(dev, card, batch=RESNET_BATCH, steps=RESNET_STEPS):
                              f"batch_norm, {types.count('momentum')} "
                              f"momentum ops, {len(moved)} moving means "
                              f"updated")
-    res.update(batch=batch, conv2d_ops=53, batch_norm_ops=n_bn)
+    res.update(batch=batch, conv2d_ops=53, batch_norm_ops=n_bn,
+               overrides=overrides)
     return res
 
 
@@ -2260,6 +2516,98 @@ def phase_bert_parity(dev):
         lr_sum)
 
 
+def phase_amp_parity(dev):
+    """7f: the AMP Transformer (2 x 64 tokens, ragged) and AMP BERT-base
+    (2 x 128, ragged) at full width, dropout 0: one step on the card
+    (bf16 flash kernels, bf16 cuBLAS GEMMs) and on the CPU (the plain
+    versions, the CPU's bf16 products) from the same weights, and one
+    step of the same program without AMP on the CPU.  The step-1 losses
+    within TOL_AMP_LOSS; each parameter's step-1 gradient within
+    TOL_AMP_GRAD relative L2, and all of them together within
+    TOL_AMP_SHARE of AMP's own distance from float32 on the CPU
+    (|g_card - g_cpu|_2 against |g_cpu - g_cpu,f32|_2)."""
+    from paddle_tpu_torch.models import bert, transformer
+
+    out = {}
+    log(f"phase 7f: AMP training card vs CPU (Transformer {PARITY_BATCH} "
+        f"x {PARITY_T}, BERT-base {BERT_PARITY_BATCH} x "
+        f"{BERT_ARCH['max_len']}, dropout 0, step 1)")
+    feed = transformer.make_fake_batch(PARITY_BATCH, PARITY_T,
+                                       TRAIN_ARCH["src_vocab_size"],
+                                       TRAIN_ARCH["trg_vocab_size"], seed=3)
+    feed["src_len"] = np.array([PARITY_T, 41], np.int32)
+    feed["trg_len"] = np.array([17, PARITY_T], np.int32)
+    cases = [("Transformer", lambda **kw: build_training(
+        dropout=0.0, max_length=PARITY_T, **kw), ("loss",), feed)]
+    t_len = BERT_ARCH["max_len"]
+    feed = bert.make_fake_batch(BERT_PARITY_BATCH, t_len,
+                                BERT_ARCH["vocab_size"],
+                                BERT_ARCH["max_predictions"], seed=3)
+    feed["seq_len"] = np.array([t_len, 37], np.int32)
+    cases.append(("BERT-base", lambda **kw: build_bert(dropout=0.0, **kw),
+                  ("loss", "mlm_loss", "nsp_loss"), feed))
+    for name, build, keys, feed in cases:
+        main, startup, model = build(**AMP)
+        losses = [model[k].name for k in keys]
+        card, cpu, arrays, params = _card_and_cpu_runs(
+            dev, main, startup, losses, feed, steps=1)
+        f32 = _cpu_step(build()[0], arrays, losses, params, feed)
+        loss_err = max(abs(a - b) for a, b in zip(card["losses"][0],
+                                                   cpu["losses"][0]))
+        dist = float(np.sqrt(sum(np.sum((a - b) ** 2) for a, b in
+                                 zip(card["grads"], cpu["grads"]))))
+        amp = float(np.sqrt(sum(np.sum((a - b) ** 2) for a, b in
+                                zip(cpu["grads"], f32["grads"]))))
+        rel = {n: float(np.linalg.norm(a - b)
+                        / max(np.linalg.norm(b), 1e-30))
+               for n, a, b in zip(params, card["grads"], cpu["grads"])}
+        worst = max(rel, key=rel.get)
+        log(f"  {name}: step-1 losses card {card['losses'][0]} cpu "
+            f"{cpu['losses'][0]} (float32 {f32['losses'][0]}): max abs "
+            f"err {loss_err:.3e} (tol {TOL_AMP_LOSS:g}); gradients of "
+            f"{len(params)} parameters: |card - cpu|_2 {dist:.4e} = "
+            f"{dist / amp:.3f} of AMP's |cpu - cpu f32|_2 {amp:.4e} (tol "
+            f"{TOL_AMP_SHARE:g}); per parameter worst |dg|_2/|g|_2 "
+            f"{rel[worst]:.3e} ({worst}; tol {TOL_AMP_GRAD:g}), median "
+            f"{float(np.median(list(rel.values()))):.3e}")
+        if not loss_err <= TOL_AMP_LOSS:
+            raise AssertionError(f"7f {name}: losses differ by {loss_err}")
+        if not rel[worst] <= TOL_AMP_GRAD:
+            raise AssertionError(f"7f {name}: step-1 gradients of {worst} "
+                                 f"differ by {rel[worst]}")
+        if not dist <= TOL_AMP_SHARE * amp:
+            raise AssertionError(f"7f {name}: step-1 gradients differ by "
+                                 f"{dist / amp:.3f} of AMP's distance "
+                                 f"from float32")
+        out[name] = {"losses_card": card["losses"][0],
+                     "losses_cpu": cpu["losses"][0],
+                     "losses_cpu_f32": f32["losses"][0],
+                     "loss_max_abs_err": loss_err,
+                     "grad_l2_card_cpu": dist, "grad_l2_amp_f32": amp,
+                     "grad_share_of_amp": dist / amp,
+                     "grad_max_rel_l2_err": rel[worst],
+                     "grad_median_rel_l2_err": float(
+                         np.median(list(rel.values())))}
+    return out
+
+
+def _cpu_step(main, arrays, loss_names, params, feed):
+    """One step of `main` on the CPU from `arrays`: its losses and the
+    gradients of `params`, as `_card_and_cpu_runs` returns them."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+
+    scope = pt.Scope()
+    for n, t in params_from_arrays(arrays, "cpu", program=main).items():
+        scope.set_var(n, t)
+    out = pt.Executor(pt.CPUPlace()).run(
+        main, feed=feed, scope=scope,
+        fetch_list=list(loss_names) + [f"{p}@GRAD" for p in params])
+    n = len(loss_names)
+    return {"losses": [[float(x.reshape(-1)[0]) for x in out[:n]]],
+            "grads": out[n:]}
+
+
 def phase_lstm_parity(dev):
     """7c: the stacked LSTM at full width on a batch the CPU takes."""
     from paddle_tpu_torch.models import stacked_dynamic_lstm
@@ -2276,8 +2624,9 @@ def phase_lstm_parity(dev):
         LSTM_ARCH["learning_rate"] * PARITY_STEPS)
 
 
-def _card_and_cpu_runs(dev, main, startup, loss_names, feed, state=()):
-    """PARITY_STEPS steps of `main` on the card and on the CPU from the
+def _card_and_cpu_runs(dev, main, startup, loss_names, feed, state=(),
+                       steps=PARITY_STEPS):
+    """`steps` steps of `main` on the card and on the CPU from the
     same weights (drawn on the card by `startup`): (card, cpu, arrays,
     params), each run a dict of the losses named in `loss_names` at
     every step, the step-1 gradients, and the final parameters and
@@ -2299,7 +2648,7 @@ def _card_and_cpu_runs(dev, main, startup, loss_names, feed, state=()):
             scope.set_var(n, t)
         exe = pt.Executor(place)
         losses, grads = [], None
-        for step in range(PARITY_STEPS):
+        for step in range(steps):
             out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
             losses.append([float(x.reshape(-1)[0]) for x in out[:n_loss]])
             if step == 0:
@@ -2476,9 +2825,14 @@ def main() -> int:
     log(f"phase 1: card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the reference's bf16 products accumulate in float32 and round once
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     log(f"  TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
-        f"cudnn {torch.backends.cudnn.allow_tf32}; torch "
-        f"{torch.__version__} CUDA {torch.version.cuda}")
+        f"cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-precision "
+        f"reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        f"; torch {torch.__version__} CUDA {torch.version.cuda}")
 
     from paddle_tpu_torch.ops.kernels import _build
 
@@ -2497,7 +2851,8 @@ def main() -> int:
              for kv in ("f32", "bf16", "int8") for d in (32, 64, 128)]
     paged += [("paged_attention", f"paged_merge_kernel<{d}>")
               for d in (32, 64, 128)]
-    for src, kern in (("vocab_ce", "vocab_ce_fwd_kernel<"),
+    for src, kern in (("flash_attention_fwd", "flash_fwd_bf16_kernel<"),
+                      ("vocab_ce", "vocab_ce_fwd_kernel<"),
                       ("vocab_ce", "vocab_ce_dh_kernel<"),
                       ("vocab_ce", "vocab_ce_dw_kernel<"),
                       ("lstm", "lstm_fwd_kernel"),
@@ -2540,6 +2895,8 @@ def main() -> int:
         [rows["flash_attention_fwd"]["max_abs_err"]]
         + [r["max_abs_err"] for r in flash_d128["fwd"]]
         + [r["fwd_max_abs_err"] for r in bert_rows])
+    bf16_rows, flash_bf16 = timed("3g", flash_bf16_cases, dev)
+    rows.update(bf16_rows)
     rows.update(timed("3c", phase_vocab_kernels, dev))
     rows.update(timed("3d", phase_lstm_kernels, dev))
     refused = timed("3e", phase_refused_shapes, dev)
@@ -2566,6 +2923,13 @@ def main() -> int:
     train_deepfm = timed("6h", phase_train_deepfm, dev, card)
     resnet_parity = timed("7e ResNet-50", phase_resnet_parity, dev)
     deepfm_parity = timed("7e DeepFM", phase_deepfm_parity, dev)
+    train_amp = timed("6i", phase_train, dev, card, "phase 6i", AMP,
+                      profile="phase 6i, profiled")
+    train_bert_amp = timed("6j", phase_train_bert, dev, card,
+                           label="phase 6j", overrides=AMP)
+    train_resnet_amp = timed("6k", phase_train_resnet, dev, card,
+                             label="phase 6k", overrides=AMP)
+    amp_parity = timed("7f", phase_amp_parity, dev)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -2574,6 +2938,9 @@ def main() -> int:
         "flash_attention_fwd": f"{fa}:276",
         "flash_attention_bwd_dkv": f"{fa}:402",
         "flash_attention_bwd_dq": f"{fa}:458",
+        "flash_attention_fwd_bf16": f"{fa}:276",
+        "flash_attention_bwd_dkv_bf16": f"{fa}:402",
+        "flash_attention_bwd_dq_bf16": f"{fa}:458",
         "vocab_ce_fwd": f"{vc}:146",
         "vocab_ce_dh": f"{vc}:204",
         "vocab_ce_dw": f"{vc}:235",
@@ -2582,14 +2949,18 @@ def main() -> int:
     }
     sources = {"flash_attention_bwd_dkv": "flash_attention_bwd",
                "flash_attention_bwd_dq": "flash_attention_bwd",
+               "flash_attention_fwd_bf16": "flash_attention_fwd",
+               "flash_attention_bwd_dkv_bf16": "flash_attention_bwd",
+               "flash_attention_bwd_dq_bf16": "flash_attention_bwd",
                "vocab_ce_fwd": "vocab_ce", "vocab_ce_dh": "vocab_ce",
                "vocab_ce_dw": "vocab_ce", "lstm_fwd": "lstm",
                "lstm_bwd": "lstm"}
     # each path's launches, its counts zeroed just before it: the flash
     # forward runs on the serving path, the three Transformer training
-    # paths and BERT's, the LSTM kernels on the stacked-LSTM path
+    # paths and BERT's, the LSTM kernels on the stacked-LSTM path, the
+    # flash kernels' bf16 paths on the AMP Transformer's and BERT's
     paths = (stream, train, train_fused, train_longctx, train_lstm,
-             train_bert)
+             train_bert, train_amp, train_bert_amp)
     launches = {k: sum(p["launches"][k] for p in paths) for k in replaces}
     kern = []
     for name in replaces:
@@ -2626,6 +2997,11 @@ def main() -> int:
                    "train_deepfm": train_deepfm,
                    "train_resnet_card_vs_cpu": resnet_parity,
                    "train_deepfm_card_vs_cpu": deepfm_parity,
+                   "flash_bf16": flash_bf16,
+                   "train_amp": train_amp,
+                   "train_bert_amp": train_bert_amp,
+                   "train_resnet_amp": train_resnet_amp,
+                   "train_amp_card_vs_cpu": amp_parity,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -54,6 +54,7 @@ def is_compiled_with_cuda() -> bool:
     return torch.backends.cuda.is_built()
 
 
+from . import amp  # noqa: E402,F401
 from . import clip  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
 from . import layers  # noqa: E402,F401

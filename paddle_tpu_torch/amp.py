@@ -1,0 +1,112 @@
+"""Automatic mixed precision (bf16) training: the port of
+paddle_tpu/amp.py.
+
+The same op-list policy, applied by the Executor at op dispatch
+(core/executor.py `_run_one_op`): white-list ops (the matrix-product
+families) consume bfloat16, black-list ops (softmax, losses,
+reductions) are forced to float32, and every other op runs in whichever
+dtype arrives.  Parameters stay float32 master copies: the cast is an
+ordinary `Tensor.to` on the op's inputs, so autograd casts each
+cotangent back and every parameter gradient reaches the update ops in
+float32.  bf16 has the dynamic range of float32, so no loss scaling is
+needed; `decorate(use_dynamic_loss_scaling=True)` raises until the
+in-step update guard it builds on is ported (ROADMAP queue A step 6/7,
+resilience/guard.py).
+
+Usage (fluid style)::
+
+    opt = fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9)
+    opt = fluid.amp.decorate(opt)      # returns wrapped optimizer
+    opt.minimize(avg_cost)             # marks the program as amp
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Set
+
+import torch
+
+# Ops whose FLOPs dominate and map onto the tensor cores: run in bf16.
+DEFAULT_WHITE: Set[str] = {
+    "mul", "matmul", "conv2d", "conv3d", "depthwise_conv2d",
+    "conv2d_transpose", "conv3d_transpose", "flash_attention",
+    "sequence_conv",
+}
+
+# Numerically sensitive ops: force f32 inputs.
+DEFAULT_BLACK: Set[str] = {
+    "softmax", "softmax_with_cross_entropy", "cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "mean", "reduce_mean",
+    "reduce_sum", "sum", "exp", "log", "cos_sim", "kldiv_loss",
+}
+
+
+class AutoMixedPrecisionLists:
+    """White/black op-type lists with user overrides."""
+
+    def __init__(self, custom_white_list=None, custom_black_list=None):
+        self.white_list = set(DEFAULT_WHITE) | set(custom_white_list or ())
+        self.black_list = set(DEFAULT_BLACK) | set(custom_black_list or ())
+        overlap = self.white_list & self.black_list
+        if overlap:
+            raise ValueError(
+                f"ops in both white and black amp lists: {sorted(overlap)}")
+
+
+class OptimizerWithMixedPrecision:
+    """Optimizer wrapper: marks the program as amp at minimize() time.
+    The wrapped optimizer is unchanged — master weights are the normal
+    float32 parameters, so every optimizer composes with amp."""
+
+    def __init__(self, optimizer,
+                 amp_lists: Optional[AutoMixedPrecisionLists]):
+        self._optimizer = optimizer
+        self._amp_lists = amp_lists or AutoMixedPrecisionLists()
+
+    def __getattr__(self, name):
+        return getattr(self._optimizer, name)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        program = loss.block.program
+        program._amp_lists = self._amp_lists
+        program._bump()
+        return self._optimizer.minimize(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+
+
+def decorate(optimizer, amp_lists: Optional[AutoMixedPrecisionLists] = None,
+             use_dynamic_loss_scaling: bool = False,
+             init_loss_scaling: float = 2.0 ** 15,
+             incr_every_n_steps: int = 1000,
+             decr_every_n_nan_or_inf: int = 1,
+             incr_ratio: float = 2.0, decr_ratio: float = 0.5):
+    """Wrap `optimizer` for bf16 mixed-precision training.  The
+    loss-scaling arguments are the reference's signature; dynamic loss
+    scaling needs the in-step update guard, which is not ported yet."""
+    if use_dynamic_loss_scaling:
+        raise NotImplementedError(
+            "amp.decorate(use_dynamic_loss_scaling=True) is not ported "
+            "yet: it needs the in-step update guard (resilience/guard.py, "
+            "ROADMAP queue A step 6/7)")
+    return OptimizerWithMixedPrecision(optimizer, amp_lists)
+
+
+def cast_ins_for_op(op_type: str, ins, amp_lists: AutoMixedPrecisionLists):
+    """Apply the dtype policy to one op's input slots (called from the
+    executor's op dispatch).  Only float32 (white) or bf16 (black)
+    tensors are cast; everything else passes as it is."""
+    if op_type in amp_lists.white_list:
+        src, dst = torch.float32, torch.bfloat16
+    elif op_type in amp_lists.black_list:
+        src, dst = torch.bfloat16, torch.float32
+    else:
+        return ins
+
+    def cast(v):
+        if isinstance(v, torch.Tensor) and v.dtype == src:
+            return v.to(dst)
+        return v
+
+    return {slot: [cast(v) for v in vals] for slot, vals in ins.items()}

@@ -23,8 +23,15 @@ a `SparseGrad` of the touched rows, which the optimizer ops with a
 sparse branch update lazily and every other op sees densified.  What
 the reference does beyond that — gradient accumulation, explicit
 gradient sync, the update guard, telemetry and numerics, recompute and
-pipeline scopes, bf16 AMP — raises NotImplementedError naming its
-ROADMAP item.
+pipeline scopes — raises NotImplementedError naming its ROADMAP item.
+
+A program marked by `amp.decorate(...).minimize` carries its bf16 op
+lists in `_amp_lists`; every op of every run (forward-only, the training
+forward and the update ops, as in the reference's executor.py:306-313)
+gets its inputs cast by `amp.cast_ins_for_op` after the densify and
+before the op's impl.  In the training forward the casts are autograd
+ops on the parameter leaves, so each cotangent is cast back and the
+parameter gradients reach the update ops in float32.
 
 Places follow Paddle's idiom: `CUDAPlace(0)` runs on `cuda:0`,
 `CPUPlace()` on the CPU.  `Executor()` without a place means
@@ -145,16 +152,19 @@ def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
     """Run a straight-line op list over `env` (name → tensor), in order
     — the executor hot loop (executor.cc:448).  `seed` is the run's RNG
     seed material (see OpContext.rng), None when no op may draw.
-    `device` None means CUDAPlace(0) (`place_device`)."""
+    `device` None means CUDAPlace(0) (`place_device`).  The program's
+    bf16 policy (`program._amp_lists`, amp.py), when it has one, casts
+    each op's inputs at dispatch."""
     device = _run_device(device)
+    amp_lists = getattr(program, "_amp_lists", None)
     for i, op in enumerate(ops):
         _run_one_op(op, env, seed, start_index + i, program=program,
-                    device=device)
+                    device=device, amp_lists=amp_lists)
     return env
 
 
 def _run_one_op(op, env, seed, op_index, program=None, device=None,
-                sparse_rows=None):
+                sparse_rows=None, amp_lists=None):
     desc = op.desc
     try:
         impl = get_op_impl(desc.type)
@@ -163,8 +173,13 @@ def _run_one_op(op, env, seed, op_index, program=None, device=None,
         if desc.type not in SPARSE_AWARE_OPS:
             ins = {slot: [densify(v) for v in vals]
                    for slot, vals in ins.items()}
+        if amp_lists is not None:
+            from ..amp import cast_ins_for_op
+
+            ins = cast_ins_for_op(desc.type, ins, amp_lists)
         ctx = OpContext(seed, op_index=op_index, program=program,
-                        device=device, sparse_rows=sparse_rows)
+                        device=device, amp_lists=amp_lists,
+                        sparse_rows=sparse_rows)
         outs = impl(ctx, ins, desc.attrs)
     except Exception as exc:
         _reraise_with_op_context(exc, desc, op_index)
@@ -258,8 +273,7 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
 def _check_trainable(program: Program, fwd_ops):
     """Raise for what the reference's training step does beyond the
     autodiff split (each names its ROADMAP item)."""
-    for attr, what in (("_amp_lists", "bf16 mixed precision (amp.py)"),
-                       ("_grad_sync", "explicit gradient sync"),
+    for attr, what in (("_grad_sync", "explicit gradient sync"),
                        ("_update_guard", "the in-step update guard"),
                        ("_telemetry_enabled", "in-step telemetry"),
                        ("_numerics_enabled", "numerics observability")):
@@ -345,9 +359,11 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
     with torch.enable_grad():
         fenv = dict(env)
         fenv.update(zip(dense, leaves))
+        amp_lists = getattr(program, "_amp_lists", None)
         for i in live:
             _run_one_op(fwd_ops[i], fenv, seed, i, program=program,
-                        device=device, sparse_rows=rows)
+                        device=device, sparse_rows=rows,
+                        amp_lists=amp_lists)
         loss = fenv[loss_name]
         if loss.dim() > 0:
             loss = loss.squeeze()
@@ -378,6 +394,13 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
         run_ops(rest_ops[1:], env, seed, start_index=k + 1,
                 program=program, device=device)
     return env
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
 
 
 class Executor:
@@ -431,7 +454,9 @@ class Executor:
         # a SparseGrad fetch is the dense gradient it stands for
         fetches = [densify(env[n]) for n in fetch_names]
         if return_numpy:
-            fetches = [f.detach().cpu().numpy() for f in fetches]
+            # numpy has no bf16: a bf16 fetch (an AMP program's
+            # intermediate) comes back widened, exactly, to float32
+            fetches = [_to_numpy(f) for f in fetches]
         return fetches
 
     def close(self):

@@ -505,10 +505,14 @@ class Program:
             for od in bd["ops"]:
                 sub.ops.append(Operator(sub, OpDesc.from_dict(od)))
         p._backward_info = d.get("backward_info")
-        if d.get("amp") is not None:
-            raise NotImplementedError(
-                "bf16 mixed-precision programs are not ported yet "
-                "(ROADMAP queue A item 2: the amp.py policy)")
+        amp = d.get("amp")
+        if amp is not None:
+            from ..amp import AutoMixedPrecisionLists
+
+            lists = AutoMixedPrecisionLists()
+            lists.white_list = set(amp["white"])
+            lists.black_list = set(amp["black"])
+            p._amp_lists = lists
         return p
 
     def __str__(self):

@@ -70,6 +70,9 @@ class OpContext:
     available (`executor.place_device`); the CPU runs only when asked
     for.
 
+    `amp_lists` is the program's bf16 policy (amp.py) when it has one,
+    else None, as in the reference's OpContext.
+
     `sparse_rows` maps the op index of each is_sparse lookup on the
     SparseGrad path to the rows the Executor gathered for it (the
     autograd leaves the table's gradient is taken through); None
@@ -77,11 +80,13 @@ class OpContext:
     """
 
     def __init__(self, seed=None, op_index: int = 0, is_test: bool = False,
-                 program=None, device=None, sparse_rows=None):
+                 program=None, device=None, sparse_rows=None,
+                 amp_lists=None):
         self._seed = seed
         self.op_index = op_index
         self.is_test = is_test
         self.program = program
+        self.amp_lists = amp_lists
         self.sparse_rows = sparse_rows
         if device is None:
             # no implicit CPU: None is CUDAPlace(0), as for the Executor

@@ -76,6 +76,24 @@
 // Masking matches the TPU kernel: a pair is visible when the key is
 // before Tk, the query before Tq, and, under causal, q_off + q_pos >=
 // k_off + k_pos.  p and ds are exactly 0 elsewhere.
+//
+// The bf16 paths (flash_attention_bwd_dkv_bf16_launch and
+// flash_attention_bwd_dq_bf16_launch, the kernels' template on T =
+// __nv_bfloat16): q, k, v, dO and the bf16 O the forward stored are read
+// 16 bytes (8 values) a thread and widened exactly to float32 as they are
+// staged (flash_mma.cuh: stage_rows), so the tiles, the products and
+// delta = rowsum(dO * O) are the float32 kernels', as the TPU kernels
+// widen every operand to float32; dK, dV and dQ are rounded to bf16 once
+// as they are stored.  A bf16 value is exact in TF32, so the 3xTF32 split
+// of a staged operand has a zero small part; only the computed operands
+// (p, ds) need it.  The bf16 staging is synchronous (a load, then the
+// store to shared memory), where the float32 path's cp.async lets the
+// next tile land during this one's products.  Rows must start 16-byte
+// aligned (strides multiples of 8 values).  Shared memory and tiles are
+// the float32 kernels'.  Their bound on the H100 is their product flops
+// at the 989 TFLOP/s bf16 peak (ops/kernels/flash_attention.py), which
+// these float32 tensor-core kernels cannot reach: making them bf16
+// mma.sync or wgmma kernels is later work (ROADMAP B.2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,15 +165,15 @@ constexpr size_t dq_smem_bytes() {
          (2 * kDqRows * D + 2 * dq_stage_floats<D>() + kDqRows);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(32 * kDkvWarps, 1)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ o,
-                     const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ o,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dlse,
-                     const float* __restrict__ bias, float* __restrict__ dk,
-                     float* __restrict__ dv, float* __restrict__ dbias,
+                     const float* __restrict__ bias, T* __restrict__ dk,
+                     T* __restrict__ dv, float* __restrict__ dbias,
                      int n_head, int t_q, int t_k, BwdStrides st, float scale,
                      int causal, int q_off, int k_off) {
   constexpr int kThreads = 32 * kDkvWarps;
@@ -181,9 +199,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int m0 = (warp / kSplit) * 16;           // the warp's keys
   const int c0 = (warp % kSplit) * kCols;        // and columns
 
-  const float* qg = q + n * st.q.b + h * st.q.h;
-  const float* og = o + n * st.o.b + h * st.o.h;
-  const float* dog = dout + n * st.dout.b + h * st.dout.h;
+  const T* qg = q + n * st.q.b + h * st.q.h;
+  const T* og = o + n * st.o.b + h * st.o.h;
+  const T* dog = dout + n * st.dout.b + h * st.dout.h;
   const float* lseg = lse + static_cast<int64_t>(g) * t_q;
   const float* dlseg =
       dlse != nullptr ? dlse + static_cast<int64_t>(g) * t_q : nullptr;
@@ -300,14 +318,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     k0 + m0, c0, t_k, gq, tq);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(32 * kDqWarps, 2)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dlse,
-                    const float* __restrict__ bias, float* __restrict__ dq,
+                    const float* __restrict__ bias, T* __restrict__ dq,
                     int n_head, int t_q, int t_k, BwdStrides st, float scale,
                     int causal, int q_off, int k_off) {
   constexpr int kThreads = 32 * kDqWarps;
@@ -329,8 +347,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = (tid >> 5) * 16;                // the warp's queries
 
-  const float* kg = k + n * st.k.b + h * st.k.h;
-  const float* vg = v + n * st.v.b + h * st.v.h;
+  const T* kg = k + n * st.k.b + h * st.k.h;
+  const T* vg = v + n * st.v.b + h * st.v.h;
   const float* bg = bias != nullptr ? bias + static_cast<int64_t>(n) * t_k
                                     : nullptr;
 
@@ -434,14 +452,14 @@ BwdStrides unpack(const int64_t* s) {
   return st;
 }
 
-template <int D>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* o, const float* dout, const float* lse,
-               const float* dlse, const float* bias, float* dk, float* dv,
-               float* dbias, int n_batch, int n_head, int t_q, int t_k,
-               const BwdStrides& st, float scale, int causal, int q_off,
-               int k_off, cudaStream_t stream) {
-  auto kernel = &flash_bwd_dkv_kernel<D>;
+template <int D, typename T>
+int launch_dkv(const T* q, const T* k, const T* v, const T* o,
+               const T* dout, const float* lse, const float* dlse,
+               const float* bias, T* dk, T* dv, float* dbias, int n_batch,
+               int n_head, int t_q, int t_k, const BwdStrides& st,
+               float scale, int causal, int q_off, int k_off,
+               cudaStream_t stream) {
+  auto kernel = &flash_bwd_dkv_kernel<D, T>;
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -455,14 +473,13 @@ int launch_dkv(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dq(const float* q, const float* k, const float* v,
-              const float* o, const float* dout, const float* lse,
-              const float* dlse, const float* bias, float* dq, int n_batch,
-              int n_head, int t_q, int t_k, const BwdStrides& st,
-              float scale, int causal, int q_off, int k_off,
-              cudaStream_t stream) {
-  auto kernel = &flash_bwd_dq_kernel<D>;
+template <int D, typename T>
+int launch_dq(const T* q, const T* k, const T* v, const T* o,
+              const T* dout, const float* lse, const float* dlse,
+              const float* bias, T* dq, int n_batch, int n_head, int t_q,
+              int t_k, const BwdStrides& st, float scale, int causal,
+              int q_off, int k_off, cudaStream_t stream) {
+  auto kernel = &flash_bwd_dq_kernel<D, T>;
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -479,18 +496,88 @@ int launch_dq(const float* q, const float* k, const float* v,
 // batch, head and row strides (the first 15 of the 24).
 bool operands_aligned(const void* q, const void* k, const void* v,
                       const void* o, const void* dout,
-                      const int64_t* strides) {
+                      const int64_t* strides, int elem) {
   const void* const rows[5] = {q, k, v, o, dout};
-  return rows_aligned(rows, 5, strides, 15);
+  return rows_aligned(rows, 5, strides, 15, elem);
+}
+
+#define BWD_INPUTS                                                         \
+  static_cast<const T*>(q), static_cast<const T*>(k),                      \
+      static_cast<const T*>(v), static_cast<const T*>(o),                  \
+      static_cast<const T*>(dout), static_cast<const float*>(lse),         \
+      static_cast<const float*>(dlse), static_cast<const float*>(bias)
+
+// T = float or __nv_bfloat16: the type of q, k, v, o, dO and the outputs
+template <typename T>
+int dkv_entry(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, const void* dlse,
+              const void* bias, void* dk, void* dv, void* dbias, int n_batch,
+              int n_head, int d, int t_q, int t_k, const int64_t* strides,
+              float scale, int causal, int q_off, int k_off, int device,
+              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_batch == 0 || t_k == 0) return 0;
+  const BwdStrides st = unpack(strides);
+  if (!operands_aligned(q, k, v, o, dout, strides, sizeof(T)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  float* dbf = static_cast<float*>(dbias);
+  switch (d) {
+    case 32:
+      return launch_dkv<32, T>(BWD_INPUTS, dkt, dvt, dbf, n_batch, n_head,
+                               t_q, t_k, st, scale, causal, q_off, k_off, s);
+    case 64:
+      return launch_dkv<64, T>(BWD_INPUTS, dkt, dvt, dbf, n_batch, n_head,
+                               t_q, t_k, st, scale, causal, q_off, k_off, s);
+    case 128:
+      return launch_dkv<128, T>(BWD_INPUTS, dkt, dvt, dbf, n_batch, n_head,
+                                t_q, t_k, st, scale, causal, q_off, k_off,
+                                s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dq_entry(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, const void* dlse,
+             const void* bias, void* dq, int n_batch, int n_head, int d,
+             int t_q, int t_k, const int64_t* strides, float scale,
+             int causal, int q_off, int k_off, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_batch == 0 || t_q == 0) return 0;
+  const BwdStrides st = unpack(strides);
+  if (!operands_aligned(q, k, v, o, dout, strides, sizeof(T)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* dqt = static_cast<T*>(dq);
+  switch (d) {
+    case 32:
+      return launch_dq<32, T>(BWD_INPUTS, dqt, n_batch, n_head, t_q, t_k,
+                              st, scale, causal, q_off, k_off, s);
+    case 64:
+      return launch_dq<64, T>(BWD_INPUTS, dqt, n_batch, n_head, t_q, t_k,
+                              st, scale, causal, q_off, k_off, s);
+    case 128:
+      return launch_dq<128, T>(BWD_INPUTS, dqt, n_batch, n_head, t_q, t_k,
+                               st, scale, causal, q_off, k_off, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-#define BWD_INPUTS                                                        \
-  static_cast<const float*>(q), static_cast<const float*>(k),             \
-      static_cast<const float*>(v), static_cast<const float*>(o),         \
-      static_cast<const float*>(dout), static_cast<const float*>(lse),    \
-      static_cast<const float*>(dlse), static_cast<const float*>(bias)
+#define DKV_ARGS                                                           \
+  q, k, v, o, dout, lse, dlse, bias, dk, dv, dbias, n_batch, n_head, d,    \
+      t_q, t_k, strides, scale, causal, q_off, k_off, device, stream
+#define DQ_ARGS                                                            \
+  q, k, v, o, dout, lse, dlse, bias, dq, n_batch, n_head, d, t_q, t_k,     \
+      strides, scale, causal, q_off, k_off, device, stream
 
 // dK, dV and (when dbias is not NULL) the per-(batch*head, key) bias
 // gradient.  strides: host array of 24 int64 (batch, head, row) for q, k,
@@ -503,29 +590,7 @@ extern "C" int flash_attention_bwd_dkv_launch(
     void* dk, void* dv, void* dbias, int n_batch, int n_head, int d,
     int t_q, int t_k, const int64_t* strides, float scale, int causal,
     int q_off, int k_off, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_batch == 0 || t_k == 0) return 0;
-  const BwdStrides st = unpack(strides);
-  if (!operands_aligned(q, k, v, o, dout, strides))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  float* dbf = static_cast<float*>(dbias);
-  switch (d) {
-    case 32:
-      return launch_dkv<32>(BWD_INPUTS, dkf, dvf, dbf, n_batch, n_head,
-                            t_q, t_k, st, scale, causal, q_off, k_off, s);
-    case 64:
-      return launch_dkv<64>(BWD_INPUTS, dkf, dvf, dbf, n_batch, n_head,
-                            t_q, t_k, st, scale, causal, q_off, k_off, s);
-    case 128:
-      return launch_dkv<128>(BWD_INPUTS, dkf, dvf, dbf, n_batch, n_head,
-                             t_q, t_k, st, scale, causal, q_off, k_off, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dkv_entry<float>(DKV_ARGS);
 }
 
 // dQ.  Same arguments as the dK/dV entry point, without the outputs it
@@ -536,25 +601,26 @@ extern "C" int flash_attention_bwd_dq_launch(
     void* dq, int n_batch, int n_head, int d, int t_q, int t_k,
     const int64_t* strides, float scale, int causal, int q_off, int k_off,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_batch == 0 || t_q == 0) return 0;
-  const BwdStrides st = unpack(strides);
-  if (!operands_aligned(q, k, v, o, dout, strides))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dqf = static_cast<float*>(dq);
-  switch (d) {
-    case 32:
-      return launch_dq<32>(BWD_INPUTS, dqf, n_batch, n_head, t_q, t_k,
-                           st, scale, causal, q_off, k_off, s);
-    case 64:
-      return launch_dq<64>(BWD_INPUTS, dqf, n_batch, n_head, t_q, t_k,
-                           st, scale, causal, q_off, k_off, s);
-    case 128:
-      return launch_dq<128>(BWD_INPUTS, dqf, n_batch, n_head, t_q, t_k,
-                            st, scale, causal, q_off, k_off, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dq_entry<float>(DQ_ARGS);
+}
+
+// The bf16 paths: q, k, v, o, dO, dK, dV and dQ bf16 (rows 16-byte
+// aligned: strides multiples of 8 values); lse, dlse, the bias and the
+// bias gradient float32.  Same arguments as the float32 entry points.
+extern "C" int flash_attention_bwd_dkv_bf16_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* dlse, const void* bias,
+    void* dk, void* dv, void* dbias, int n_batch, int n_head, int d,
+    int t_q, int t_k, const int64_t* strides, float scale, int causal,
+    int q_off, int k_off, int device, void* stream) {
+  return dkv_entry<__nv_bfloat16>(DKV_ARGS);
+}
+
+extern "C" int flash_attention_bwd_dq_bf16_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* dlse, const void* bias,
+    void* dq, int n_batch, int n_head, int d, int t_q, int t_k,
+    const int64_t* strides, float scale, int causal, int q_off, int k_off,
+    int device, void* stream) {
+  return dq_entry<__nv_bfloat16>(DQ_ARGS);
 }

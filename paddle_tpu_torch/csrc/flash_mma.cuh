@@ -36,9 +36,26 @@
 // bytes, so every row must start 16-byte aligned (rows_aligned); rows at
 // or past a limit are zero-filled, so undefined memory never meets an
 // accumulator.
+//
+// bf16 operands.  The backward kernels widen each bf16 operand to float32
+// as they stage it (stage_rows), so their tiles and products are the
+// float32 ones; a bf16 value is exact in TF32, so its split has a zero
+// small part.  The forward's bf16 path keeps bf16 tiles and multiplies on
+// the bf16 tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16
+// .f32 (mma_bf16), whose fragments hold two bf16 values a register, the
+// lower index in the low half (g = lane >> 2, t = lane & 3): A a0 (g,
+// 2t..2t+1), a1 (g+8, 2t..2t+1), a2 (g, 2t+8..2t+9), a3 (g+8,
+// 2t+8..2t+9); B b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g); C
+// as for the m16n8k8 product.  So the C fragments of two neighbouring
+// 8-column score tiles, rounded to bf16 in pairs (pack_bf16), are the A
+// fragment of a 16-deep product as they stand.  bf16 tiles are [row][D]
+// with 16-byte chunks (8 values) XOR-swizzled by the row (at16): a 32-bit
+// fragment load of 8 rows x 4 columns and an ldmatrix of 8 rows both hit
+// distinct banks at D >= 64.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,7 +72,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // 16 bytes (cp.async.cg, around L1), or zeros when !ok
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 16 : 0)
@@ -79,7 +96,11 @@ __device__ __forceinline__ void cp_wait_all() {
 }
 
 // Copy rows [row0, row0 + n_rows) of one head of a strided operand into a
-// swizzled [n_rows][D] tile; rows at or past `limit` become zeros.
+// swizzled float32 [n_rows][D] tile; rows at or past `limit` become
+// zeros.  A float32 source goes through cp.async; a bf16 source is read
+// 16 bytes (8 values) a thread with ordinary loads, widened exactly to
+// float32 and stored as two 16-byte chunks, so it has landed when the
+// function returns.
 template <int D>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int64_t row_stride, int row0,
@@ -94,6 +115,97 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
     const float* s = src + static_cast<int64_t>(row) * row_stride + col;
     cp16(d, ok ? s : src, ok);
   }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const __nv_bfloat16* src,
+                                           int64_t row_stride, int row0,
+                                           int limit, int n_rows,
+                                           int n_threads) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < n_rows * kChunks; c += n_threads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const int row = row0 + r;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < limit)
+      raw = __ldg(reinterpret_cast<const uint4*>(
+          src + static_cast<int64_t>(row) * row_stride + col));
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float f[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+    *reinterpret_cast<float4*>(dst + at<D>(r, col)) =
+        make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(dst + at<D>(r, col + 4)) =
+        make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// Element (r, c) of a swizzled bf16 [rows][D] tile: 16-byte chunks of 8
+// values, the chunk index XOR-ed with the row's low bits.
+template <int D>
+__device__ __forceinline__ int at16(int r, int c) {
+  constexpr int kMask = D / 8 < 8 ? D / 8 - 1 : 7;
+  return r * D + ((((c >> 3) ^ (r & kMask)) << 3) | (c & 7));
+}
+
+// Copy rows [row0, row0 + n_rows) of one head of a strided bf16 operand
+// into a swizzled bf16 [n_rows][D] tile through cp.async; rows at or
+// past `limit` become zeros.
+template <int D>
+__device__ __forceinline__ void stage_rows16(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* src,
+                                             int64_t row_stride, int row0,
+                                             int limit, int n_rows,
+                                             int n_threads) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < n_rows * kChunks; c += n_threads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const int row = row0 + r;
+    const bool ok = row < limit;
+    const __nv_bfloat16* s =
+        src + static_cast<int64_t>(row) * row_stride + col;
+    cp16(dst + at16<D>(r, col), ok ? s : src, ok);
+  }
+}
+
+// Two bf16 values of a tile as one fragment register (c even)
+template <int D>
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* tile,
+                                            int r, int c) {
+  return *reinterpret_cast<const uint32_t*>(tile + at16<D>(r, c));
+}
+
+// lo and hi rounded to nearest even bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i receives, in each lane (g, t),
+// rows 2t and 2t+1 of column g of matrix i (a B fragment half).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// c += a b over one m16n8k16 tile, bf16 operands, float32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Copy n floats src[i0 + i] (i0 + i < limit) into dst, zeros past `limit`
@@ -209,11 +321,16 @@ __device__ __forceinline__ void tile_product(float (&acc)[NC / 8][4],
   }
 }
 
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
 // Write a warp's 16 x NC accumulator rows, row i times mul[i >= 8], to
-// rows [row0, row0 + 16) and columns [c0, c0 + NC) of a strided output,
-// the rows before `limit`.
-template <int NC>
-__device__ __forceinline__ void store_rows(float* dst, int64_t row_stride,
+// rows [row0, row0 + 16) and columns [c0, c0 + NC) of a strided output
+// (float32, or bf16 rounded to nearest even), the rows before `limit`.
+template <int NC, typename T>
+__device__ __forceinline__ void store_rows(T* dst, int64_t row_stride,
                                            const float (&acc)[NC / 8][4],
                                            const float (&mul)[2], int row0,
                                            int c0, int limit, int gq,
@@ -224,20 +341,22 @@ __device__ __forceinline__ void store_rows(float* dst, int64_t row_stride,
     for (int r = 0; r < 4; ++r) {
       const int row = row0 + gq + 8 * (r >> 1);
       if (row < limit)
-        dst[static_cast<int64_t>(row) * row_stride + c0 + nt * 8 + 2 * tq +
-            (r & 1)] = acc[nt][r] * mul[r >> 1];
+        put(dst + static_cast<int64_t>(row) * row_stride + c0 + nt * 8 +
+                2 * tq + (r & 1),
+            acc[nt][r] * mul[r >> 1]);
     }
 }
 
 // The 16-byte copies need every row of an operand to start 16-byte
 // aligned: its data pointer and its batch, head and row strides (in
-// floats, so multiples of 4).
+// elements of `elem` bytes: multiples of 4 floats or 8 bf16 values).
 inline bool rows_aligned(const void* const* ptrs, int n_ptrs,
-                         const int64_t* strides, int n_strides) {
+                         const int64_t* strides, int n_strides,
+                         int elem = 4) {
   for (int i = 0; i < n_ptrs; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
   for (int i = 0; i < n_strides; ++i)
-    if (strides[i] % 4 != 0) return false;
+    if (strides[i] * elem % 16 != 0) return false;
   return true;
 }
 

@@ -11,16 +11,17 @@ position 0; `build_model` trains the sum of both losses with Adam under
 `linear_lr_warmup(polynomial_decay(...))`.  Attention goes through the
 flash_attention op with `use_flash=True` (`head_major` False or True:
 the flash kernels on CUDA) and is composed from matmul and softmax
-otherwise.  Not ported yet, each raising NotImplementedError with its
-ROADMAP item: `use_amp` (queue A item 2: the bf16 policy, with queue
-B.3's bf16 kernels) and `pipeline` (queue A item 2: executor scopes).
+otherwise.  `use_amp=True` wraps the optimizer with `amp.decorate`, as
+the reference does: the bf16 policy at op dispatch, and on CUDA the
+flash kernels' bf16 paths.  Not ported yet, raising NotImplementedError
+with its ROADMAP item: `pipeline` (queue A item 2: executor scopes).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .. import layers, optimizer
+from .. import amp, layers, optimizer
 from ..initializer import TruncatedNormal
 from ..param_attr import ParamAttr
 from .transformer import _unported, encoder_layer, pre_post_process
@@ -69,10 +70,6 @@ def build_model(vocab_size=30522, max_len=128, n_layer=12, n_head=12,
                 learning_rate=1e-4, warmup_steps=10000, dropout=0.1,
                 with_optimizer=True, use_flash=False, use_amp=False,
                 pipeline=False, head_major=False):
-    if use_amp:
-        _unported("use_amp",
-                  "queue A item 2 (bf16 policy, amp.py: the AMP slice) "
-                  "and queue B.3 (bf16 kernels)")
     src_ids = layers.data(name="src_ids", shape=[max_len], dtype="int64")
     sent_ids = layers.data(name="sent_ids", shape=[max_len], dtype="int64")
     seq_len = layers.data(name="seq_len", shape=[], dtype="int32")
@@ -120,7 +117,10 @@ def build_model(vocab_size=30522, max_len=128, n_layer=12, n_head=12,
         lr = layers.linear_lr_warmup(
             layers.polynomial_decay(learning_rate, 1000000, 0.0, 1.0),
             warmup_steps, 0.0, learning_rate)
-        optimizer.AdamOptimizer(learning_rate=lr).minimize(loss)
+        opt = optimizer.AdamOptimizer(learning_rate=lr)
+        if use_amp:
+            opt = amp.decorate(opt)
+        opt.minimize(loss)
     feeds = ["src_ids", "sent_ids", "seq_len", "mask_pos", "mask_label",
              "mask_weight", "nsp_label"]
     return {"loss": loss, "mlm_loss": mlm_loss, "nsp_loss": nsp_loss,

@@ -6,13 +6,15 @@ blocks, depths 18-152).
 The same build functions, so `Program.to_dict()` of a build equals the
 reference's.  data_format="NHWC" runs the conv stack channels-last; the
 feed stays NCHW and is transposed once at the front of the graph.  The
-update is momentum 0.9.  `use_amp` (bf16) is not ported yet and raises
-NotImplementedError with its ROADMAP item (queue A item 2).
+update is momentum 0.9.  `use_amp=True` wraps it with `amp.decorate`,
+as the reference does: conv2d and mul take bf16, and the activations
+between them (batch_norm's Y, relu, pool2d, the residual adds) stay
+bf16, while the statistics, the loss and the update are float32.
 """
 
 from __future__ import annotations
 
-from .. import layers, optimizer
+from .. import amp, layers, optimizer
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
@@ -115,10 +117,6 @@ def build_model(dataset="flowers", depth=50, class_dim=1000,
                 use_amp=False, data_format="NCHW"):
     """reference benchmark/fluid/models/resnet.py get_model; cifar10
     fixes class_dim 10 and depth 32, as the reference does."""
-    if use_amp:
-        raise NotImplementedError(
-            "resnet use_amp (bf16 mixed precision) is not ported yet: "
-            "ROADMAP queue A item 2")
     if dataset == "cifar10":
         dshape = [3, 32, 32]
         model = resnet_cifar10
@@ -139,6 +137,8 @@ def build_model(dataset="flowers", depth=50, class_dim=1000,
     if with_optimizer:
         opt = optimizer.MomentumOptimizer(learning_rate=learning_rate,
                                           momentum=0.9)
+        if use_amp:
+            opt = amp.decorate(opt)
         opt.minimize(avg_cost)
     return {"loss": avg_cost, "accuracy": batch_acc,
             "feeds": ["data", "label"], "predict": predict}

@@ -8,7 +8,10 @@ Every dynamic_lstm here has no peepholes and the default activations, so
 its recurrence runs through the fused kernels (ops/kernels/lstm.py) on a
 CUDA device and their plain versions on the CPU; `pallas_rnn` and
 `rnn_unroll` are recorded in the ops' attrs as the reference records
-them.  `use_amp` is not ported yet and raises.
+them.  `use_amp` is not ported yet and raises: the executor's bf16
+policy is (amp.py), but the recurrence kernels take float32 only
+(ROADMAP B.3 item 3), and the reference's bench runs this model without
+AMP.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ def build_model(vocab_size=5147, emb_dim=512, hidden_dim=512,
                 use_amp=False, pallas_rnn=False, rnn_unroll=1):
     if use_amp:
         raise NotImplementedError(
-            "build_model(use_amp=...) is not ported yet: ROADMAP queue A "
-            "item 2 (executor: amp)")
+            "build_model(use_amp=...) is not ported yet: the LSTM kernels "
+            "take float32 only, ROADMAP queue B.3 item 3 (their bf16 "
+            "path); the bench runs this model without AMP")
     data = layers.data(name="words", shape=[max_len], dtype="int64",
                        lod_level=1, append_batch_size=True)
     label = layers.data(name="label", shape=[1], dtype="int64")

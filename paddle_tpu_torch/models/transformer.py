@@ -16,9 +16,12 @@ softmax, the decoder's causal bias built from `range` and
 `less_equal`); `fused_qkv=True` (one head-grouped projection sliced
 into q, k and v, either layout); and `use_fused_ce=True`, the final
 projection and the label-smoothed CE in the fused_vocab_softmax_ce op
-(the vocab-CE forward, dh and dW kernels on CUDA).  Not ported yet,
-each raising NotImplementedError with its ROADMAP item: `use_amp`
-(queue A item 2: bf16 policy and bf16 flash kernels), `moe_experts`
+(the vocab-CE forward, dh and dW kernels on CUDA); and `use_amp=True`,
+the optimizer wrapped with `amp.decorate` as in the reference (the bf16
+policy at op dispatch; on CUDA the flash kernels' bf16 paths, while the
+fused CE's Hidden arrives float32 from layer_norm and keeps the vocab-CE
+kernels' float32 path).  Not ported yet, each raising
+NotImplementedError with its ROADMAP item: `moe_experts`
 (queue A item 6: ops/moe.py), `recompute` and `pipeline` (queue A item
 2: executor scopes).
 """
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import layers, optimizer
+from .. import amp, layers, optimizer
 from ..initializer import Normal
 from ..param_attr import ParamAttr
 
@@ -330,10 +333,6 @@ def build_model(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
                 use_amp=False, use_fused_ce=False, fused_qkv=False,
                 moe_experts=0, flash_pallas=None, recompute=False,
                 pipeline=False, flash_cross=False, head_major=False):
-    if use_amp:
-        _unported("use_amp",
-                  "queue A item 2 (bf16 policy, amp.py) and queue B "
-                  "(bf16 flash kernels)")
     avg_cost, logits, feeds = transformer(
         src_vocab_size, trg_vocab_size, max_length, n_layer, n_head,
         d_model // n_head, d_model // n_head, d_model, d_inner_hid,
@@ -348,6 +347,8 @@ def build_model(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
             lr, layers.fill_constant([1], "float32", learning_rate))
         opt = optimizer.AdamOptimizer(learning_rate=lr, beta1=0.9,
                                       beta2=0.997, epsilon=1e-9)
+        if use_amp:
+            opt = amp.decorate(opt)
         opt.minimize(avg_cost)
     return {"loss": avg_cost, "logits": logits, "feeds": feeds}
 

@@ -19,10 +19,15 @@ attention.py:151-172):
   counted in `kernels.composed_calls`, not as a kernel or plain call.
 
 On the card, with `use_pallas` false, operands the kernels do not take
-(a head dim outside {32, 64}, a dtype other than float32:
-`fk.kernel_takes`) also go to `composed_attention`, counted the same
-way; with `use_pallas` true they reach the kernels, which raise.  Where
-both routes are open `use_pallas` does not route.
+(a head dim outside {32, 64, 128}, a dtype other than float32 or bf16,
+or q, k and v of mixed dtypes: `fk.kernel_takes`) also go to
+`composed_attention`, counted the same way; with `use_pallas` true they
+reach the kernels, which raise.  Where both routes are open `use_pallas`
+does not route: bf16 operands (the AMP policy casts Q, K, V and the key
+bias of the flash op to bf16) go to the kernels' bf16 paths, whose
+semantics are the reference Pallas kernel's on bf16 (float32 scores and
+softmax, P rounded to bf16 before P V, O stored bf16), never to the
+composed route.
 
 `fused_vocab_softmax_ce` (the final vocabulary projection and the
 label-smoothed softmax CE in one op) goes through `VocabCEFn`
@@ -42,7 +47,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
-from .common import first, opt_in, out
+from .common import first, opt_in, out, weak_scalar
 from . import kernels
 from .kernels import composed_calls
 from .kernels import flash_attention as fk
@@ -55,7 +60,10 @@ def composed_attention(q, k, v, bias, scale, causal, layout="nhtd",
                        n_head=None):
     """softmax(scale * Q K^T + bias [causal-filled]) V as torch ops, for
     either layout — the reference's `_xla_attention` (nhtd) and
-    `_xla_attention_nthd`.  Softmax in float32, output in q's dtype."""
+    `_xla_attention_nthd`.  Softmax in float32, output in q's dtype; on
+    bf16 operands the logits are bf16, scaled by the scale rounded to
+    bf16 (as jnp applies a Python scale), and the weights are rounded
+    to bf16 before the second product, as in the reference."""
     n, h, t_q, t_k, d = fk.dims(q, k, layout, n_head)
     if layout == "nthd":
         q4 = q.reshape(n, t_q, h, d).transpose(1, 2)
@@ -63,7 +71,8 @@ def composed_attention(q, k, v, bias, scale, causal, layout="nhtd",
         v4 = v.reshape(n, t_k, h, d).transpose(1, 2)
     else:
         q4, k4, v4 = q, k, v
-    logits = torch.matmul(q4, k4.transpose(-1, -2)) * scale
+    logits = torch.matmul(q4, k4.transpose(-1, -2))
+    logits = logits * weak_scalar(scale, logits)
     if bias is not None:
         logits = logits + bias
     if causal:

@@ -15,7 +15,7 @@ import torch
 
 from ..core.registry import register_op
 from .common import (broadcast_y, fill_index, first, nan_where, out,
-                     to_torch_dtype)
+                     promote_pair, to_torch_dtype, weak_scalar)
 
 
 # --------------------------------------------------------------------------
@@ -118,7 +118,9 @@ def matmul(ctx, ins, attrs):
     o = torch.matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
-        o = o * alpha
+        # a bf16 product is scaled by alpha rounded to bf16 and rounded
+        # to bf16 again, as jnp scales it
+        o = o * weak_scalar(alpha, o)
     return out(Out=o)
 
 
@@ -131,7 +133,7 @@ def _register_elementwise(name, fn, out_dtype=None):
     def impl(ctx, ins, attrs, _fn=fn, _dt=out_dtype):
         x, y = first(ins, "X"), first(ins, "Y")
         y = broadcast_y(x, y, attrs.get("axis", -1))
-        o = _fn(x, y)
+        o = _fn(*promote_pair(x, y))
         if _dt is not None:
             o = o.to(_dt)
         return out(Out=o)
@@ -188,8 +190,8 @@ _register_reduce("reduce_mean", torch.mean)
 @register_op("scale")
 def scale(ctx, ins, attrs):
     x = first(ins, "X")
-    s = attrs.get("scale", 1.0)
-    b = attrs.get("bias", 0.0)
+    s = weak_scalar(attrs.get("scale", 1.0), x)
+    b = weak_scalar(attrs.get("bias", 0.0), x)
     if attrs.get("bias_after_scale", True):
         o = x * s + b
     else:

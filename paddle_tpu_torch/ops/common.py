@@ -54,6 +54,32 @@ def dtype_name(dtype: torch.dtype) -> str:
     return _DTYPE_NAMES[dtype]
 
 
+def weak_scalar(value, x):
+    """A Python number as jnp's weak typing applies it to tensor x: a
+    float beside a bf16 or float16 x is first rounded to x's dtype (jnp
+    converts the weak scalar to the array's type, then multiplies or
+    adds in that type), where torch would compute with the unrounded
+    number and round only the result.  Unchanged beside wider or
+    integer tensors."""
+    if isinstance(value, float) and x.dtype in (torch.bfloat16,
+                                                torch.float16):
+        return float(torch.tensor(value, dtype=x.dtype))
+    return value
+
+
+def promote_pair(x, y):
+    """x and y cast to their common dtype as jnp promotes two arrays.
+    torch gives a 0-dim tensor no say in the result type when the other
+    operand is a tensor of the same kind (a bf16 tensor times a float32
+    0-dim tensor stays bf16), while jnp promotes on a non-weak 0-d array
+    as on any other (float32)."""
+    if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) \
+            and x.dtype != y.dtype:
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return x.to(dt), y.to(dt)
+    return x, y
+
+
 def broadcast_y(x, y, axis: int = -1):
     """Fluid elementwise broadcast: align y's dims to x starting at `axis`
     (reference: paddle/fluid/operators/elementwise/elementwise_op_function.h

@@ -10,7 +10,9 @@ falls back to its plain version.
 
 `launch_counts` counts kernel launches (incremented by each wrapper right
 after its launch, nowhere else) and `plain_calls` counts plain-version
-runs, so a caller can show which path a run took.  `composed_calls`
+runs, so a caller can show which path a run took.  A kernel with a bf16
+path counts it under its own name (`flash_attention_fwd_bf16` beside
+`flash_attention_fwd`).  `composed_calls`
 counts the torch compositions that stand where the reference runs an XLA
 composition instead of its kernel (the flash_attention op with a bias
 that is not a key-padding bias, ops/attention.py; dynamic_lstm with
@@ -33,15 +35,19 @@ from typing import Dict
 
 KERNELS = ("paged_attention", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_fwd_bf16", "flash_attention_bwd_dkv_bf16",
+           "flash_attention_bwd_dq_bf16",
            "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw",
            "lstm_fwd", "lstm_bwd")
 COMPOSED = ("flash_attention", "dynamic_lstm", "fused_vocab_softmax_ce",
             "paged_attention")
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bytes/s, the dense
-# TF32 tensor-core rate and the float32 rate outside the tensor cores,
-# for the kernels' bounds.  A card below its 700 W limit runs slower.
+# bf16 and TF32 tensor-core rates and the float32 rate outside the tensor
+# cores, for the kernels' bounds.  A card below its 700 W limit runs
+# slower.
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
 

@@ -33,6 +33,16 @@ them on the card: the forward's bytes at the training shape and its
 operations (`tensor_core_bound_ms_bwd`); both count 3 TF32 operations
 per product flop at the TF32 peak (PERF.md).
 
+bf16 operands (q, k and v all bf16, as the AMP policy hands them to the
+flash op) take the kernels' bf16 paths, counted as
+`flash_attention_fwd_bf16`, `flash_attention_bwd_dkv_bf16` and
+`flash_attention_bwd_dq_bf16`: the reference kernel's bf16 semantics —
+float32 scores and softmax from exact bf16 products, P rounded to bf16
+before P V, O stored bf16 and lse float32; the backward widens q, k, v,
+dO and the stored bf16 O to float32 and stores bf16 gradients.  A bias
+of either dtype is widened exactly to float32 for the kernels.  Their
+bound counts 2-byte operands and the 989 TFLOP/s bf16 peak.
+
 Plain versions: `flash_attention_fwd_plain` and `flash_attention_bwd_plain`,
 the same functions as dense torch compositions (the scores are
 materialised, masked with the kernels' NEG_INF = -1e30, the forward's
@@ -50,7 +60,8 @@ import ctypes
 
 import torch
 
-from . import HBM_BYTES_PER_S, TF32_FLOP_PER_S, launch_counts, plain_calls
+from . import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, TF32_FLOP_PER_S,
+               launch_counts, plain_calls)
 from . import _build
 
 NEG_INF = -1e30
@@ -59,6 +70,15 @@ _BWD_SOURCE = "flash_attention_bwd"
 _DKV = "flash_attention_bwd_dkv"
 _DQ = "flash_attention_bwd_dq"
 _HEAD_DIMS = (32, 64, 128)
+# the operand dtypes the kernels take, and the suffix of their counts
+_KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def kernel_name(base, dtype):
+    """The count name of kernel `base` on operands of `dtype`:
+    "flash_attention_fwd" for float32, "flash_attention_fwd_bf16" for
+    bf16."""
+    return base + _KERNEL_DTYPES.get(dtype, "")
 
 
 def dims(q, k, layout, n_head):
@@ -122,7 +142,10 @@ def flash_attention_fwd_plain(q, k, v, bias=None, scale=None, causal=False,
                               layout="nhtd", n_head=None, q_offset=0,
                               k_offset=0):
     """Plain PyTorch version of the forward kernel: returns (O, lse) with
-    O in q's layout and dtype and lse (N*H, Tq) f32 (f64 for f64 q)."""
+    O in q's layout and dtype and lse (N*H, Tq) f32 (f64 for f64 q).
+    bf16 operands follow the reference kernel's bf16 semantics: the
+    scores, the softmax and O's sum in float32, P rounded to V's dtype
+    before P V (`p.astype(vv.dtype)`), O rounded to q's dtype."""
     n, h, t_q, t_k, d = dims(q, k, layout, n_head)
     if scale is None:
         scale = d ** -0.5
@@ -139,7 +162,7 @@ def flash_attention_fwd_plain(q, k, v, bias=None, scale=None, causal=False,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p, v4.to(acc)) / l                    # (N, H, Tq, D)
+    o = torch.matmul(p.to(v.dtype).to(acc), v4.to(acc)) / l   # (N,H,Tq,D)
     lse = (m + torch.log(l)).reshape(n * h, t_q)
     if layout == "nthd":
         o = o.transpose(1, 2).reshape(n, t_q, h * d)
@@ -177,13 +200,14 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
                 torch.empty((n * h, t_q), dtype=torch.float32,
                             device=q.device))
     if kind == "cpu":
-        plain_calls[_NAME] += 1
+        plain_calls[kernel_name(_NAME, q.dtype)] += 1
         return flash_attention_fwd_plain(q, k, v, bias, scale, causal,
                                          layout, n_head, q_offset,
                                          k_offset)
     if kind != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_kernel_operands(q, k, v, d)
+    name = kernel_name(_NAME, q.dtype)
     q = _aligned_rows(q, layout, n, h, t_q, d)
     k, v = (_aligned_rows(x, layout, n, h, t_k, d) for x in (k, v))
     view = {name: _heads(x, layout, n, h, t, d) for name, x, t in
@@ -198,8 +222,7 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
         o = torch.empty_like(q)
         view["q"] = _heads(q, layout, n, h, t_q, d)
     lse = torch.empty((n * h, t_q), dtype=torch.float32, device=q.device)
-    lib = _bind_fwd()
-    rc = lib.flash_attention_fwd_launch(
+    rc = getattr(_bind_fwd(), name + "_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         _ptr(key_bias(bias, n, t_k)), o.data_ptr(), lse.data_ptr(), n, h,
         d, t_q, t_k, *view["q"].stride()[:3], *view["k"].stride()[:3],
@@ -208,7 +231,7 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launch_counts[_NAME] += 1
+    launch_counts[name] += 1
     return o, lse
 
 
@@ -272,8 +295,8 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
         scale = d ** -0.5
     kind = q.device.type
     if kind == "cpu":
-        plain_calls[_DKV] += 1
-        plain_calls[_DQ] += 1
+        plain_calls[kernel_name(_DKV, q.dtype)] += 1
+        plain_calls[kernel_name(_DQ, q.dtype)] += 1
         dq, dk, dv, db = flash_attention_bwd_plain(
             q, k, v, bias, o, lse, do, dlse, scale, causal, layout, n_head,
             q_offset, k_offset)
@@ -281,9 +304,10 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
     if kind != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_kernel_operands(q, k, v, d)
-    if any(t.dtype != torch.float32 for t in (o, do)):
-        raise TypeError("flash_attention backward kernels: o and do must "
-                        "be float32")
+    if any(t.dtype != q.dtype for t in (o, do)):
+        raise TypeError(f"flash_attention backward kernels: o and do must "
+                        f"be {q.dtype} as q is, got {o.dtype}/{do.dtype}")
+    dkv_name, dq_name = (kernel_name(x, q.dtype) for x in (_DKV, _DQ))
     q, o, do = (_aligned_rows(x, layout, n, h, t_q, d) for x in (q, o, do))
     k, v = (_aligned_rows(x, layout, n, h, t_k, d) for x in (k, v))
     lse = lse.to(torch.float32).contiguous()
@@ -303,17 +327,17 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
               int(q_offset), int(k_offset), q.device.index or 0, _stream(q))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            do.data_ptr(), lse.data_ptr(), _ptr(dlse), _ptr(kb))
-    rc = lib.flash_attention_bwd_dkv_launch(
+    rc = getattr(lib, dkv_name + "_launch")(
         *ins, dk.data_ptr(), dv.data_ptr(), _ptr(db), *common)
     if rc != 0:
         raise RuntimeError(f"flash_attention dK/dV kernel launch failed: "
                            f"CUDA error {rc}")
-    launch_counts[_DKV] += 1
-    rc = lib.flash_attention_bwd_dq_launch(*ins, dq.data_ptr(), *common)
+    launch_counts[dkv_name] += 1
+    rc = getattr(lib, dq_name + "_launch")(*ins, dq.data_ptr(), *common)
     if rc != 0:
         raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA "
                            f"error {rc}")
-    launch_counts[_DQ] += 1
+    launch_counts[dq_name] += 1
     dbias = None
     if db is not None:
         dbias = _sum_to(db.reshape(n, h, 1, t_k), bias.shape) \
@@ -324,7 +348,9 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable flash attention: (q, k, v, bias) -> (O, lse).
 
-    Forward: `flash_attention_fwd`, saving q, k, v, bias, O and lse.
+    Forward: `flash_attention_fwd`, saving q, k, v, bias, O (in q's
+    dtype: the bf16 O the backward's delta reads on the bf16 path) and
+    the float32 lse; the gradients come back in the operands' dtypes.
     Backward: `flash_attention_bwd` (the dK/dV and dQ kernels on CUDA),
     with the lse cotangent folded in when lse was used.  The bias gets a
     gradient only when it requires one."""
@@ -361,18 +387,20 @@ def flash_attention(q, k, v, bias=None, scale=None, causal=False,
 
 
 def kernel_takes(q, k, v, d) -> bool:
-    """Do the kernels take these operands: float32 q/k/v, head dim in
-    {32, 64, 128}?  The op's route on the card (ops/attention.py);
-    `_check_kernel_operands` raises on the same limits."""
-    return all(t.dtype == torch.float32 for t in (q, k, v)) \
-        and d in _HEAD_DIMS
+    """Do the kernels take these operands: q/k/v all float32 or all
+    bf16, head dim in {32, 64, 128}?  The op's route on the card
+    (ops/attention.py); `_check_kernel_operands` raises on the same
+    limits."""
+    return q.dtype in _KERNEL_DTYPES and k.dtype == q.dtype \
+        and v.dtype == q.dtype and d in _HEAD_DIMS
 
 
 def _check_kernel_operands(q, k, v, d):
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError(f"flash_attention kernel: q/k/v must be float32 "
-                        f"(ROADMAP B.3), got {q.dtype}/{k.dtype}/{v.dtype}; "
-                        f"use_pallas=False takes the composed route")
+    if q.dtype not in _KERNEL_DTYPES or not (k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"flash_attention kernel: q/k/v must be all "
+                        f"float32 or all bf16, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; use_pallas=False takes the composed "
+                        f"route")
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in "
                          f"{_HEAD_DIMS} (ROADMAP B.2); use_pallas=False "
@@ -382,10 +410,12 @@ def _check_kernel_operands(q, k, v, d):
 def _aligned_rows(x, layout, n, h, t, d):
     """x itself when the kernels' 16-byte copies read it in place (last
     dimension contiguous, data pointer and batch, head and row strides
-    multiples of 4 floats), else a contiguous copy in fresh, aligned
-    memory."""
+    multiples of 16 bytes: 4 floats, 8 bf16 values), else a contiguous
+    copy in fresh, aligned memory."""
+    el = x.element_size()
     if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
-            s % 4 == 0 for s in _heads(x, layout, n, h, t, d).stride()[:3]):
+            s * el % 16 == 0
+            for s in _heads(x, layout, n, h, t, d).stride()[:3]):
         return x
     return _fresh(x)
 
@@ -407,12 +437,13 @@ def _stream(t):
 
 def _bind_fwd() -> ctypes.CDLL:
     lib = _build.load(_NAME)
-    fn = lib.flash_attention_fwd_launch
-    if fn.argtypes is None:
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([p] * 6 + [i] * 5 + [i64] * 6
-                       + [ctypes.c_float, i, i, i, i, p])
-        fn.restype = i
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for suffix in _KERNEL_DTYPES.values():
+        fn = getattr(lib, f"{_NAME}{suffix}_launch")
+        if fn.argtypes is None:
+            fn.argtypes = ([p] * 6 + [i] * 5 + [i64] * 6
+                           + [ctypes.c_float, i, i, i, i, p])
+            fn.restype = i
     return lib
 
 
@@ -421,11 +452,12 @@ def _bind_bwd() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     tail = [i] * 5 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
                       i, i, i, i, p]
-    for fn, n_ptr in ((lib.flash_attention_bwd_dkv_launch, 11),
-                      (lib.flash_attention_bwd_dq_launch, 9)):
-        if fn.argtypes is None:
-            fn.argtypes = [p] * n_ptr + tail
-            fn.restype = i
+    for suffix in _KERNEL_DTYPES.values():
+        for base, n_ptr in ((_DKV, 11), (_DQ, 9)):
+            fn = getattr(lib, f"{base}{suffix}_launch")
+            if fn.argtypes is None:
+                fn.argtypes = [p] * n_ptr + tail
+                fn.restype = i
     return lib
 
 
@@ -445,23 +477,34 @@ def bound_bytes_and_flops(q, k, bias, causal, layout, n_head, q_offset=0,
     n, h, t_q, t_k, d = dims(q, k, layout, n_head)
     el = q.element_size()
     nbytes = (2 * n * h * t_q * d * el + 2 * n * h * t_k * d * el
-              + n * h * t_q * 4 + (n * t_k * 4 if bias is not None else 0))
+              + n * h * t_q * 4
+              + (n * t_k * bias.element_size() if bias is not None else 0))
     pairs = _visible_pairs(t_q, t_k, causal, q_offset, k_offset)
     return nbytes, 4 * d * n * h * pairs
+
+
+def _product_seconds_per_flop(q):
+    """Tensor-core seconds for one product flop on q's dtype: float32
+    operands as 3xTF32 (3 TF32 operations at 495 TFLOP/s), bf16 ones at
+    the dense bf16 peak of 989 TFLOP/s."""
+    if q.dtype == torch.bfloat16:
+        return 1 / BF16_FLOP_PER_S
+    return 3 / TF32_FLOP_PER_S
 
 
 def tensor_core_bound_ms(q, k, bias, causal, layout, n_head, q_offset=0,
                          k_offset=0):
     """(ms, by): the forward kernel's least time on the H100, the larger
-    of its bytes (`bound_bytes_and_flops`) at 3.35 TB/s and its two
-    matrix products as 3xTF32 tensor-core work, 3 TF32 operations for
-    each of the 4*D product flops of a visible pair at 495 TFLOP/s; `by`
-    names the larger, "bytes" or "operations".  The softmax's exp and
-    rescaling run on the CUDA cores beside them and are left out."""
+    of its bytes (`bound_bytes_and_flops`) at 3.35 TB/s and the 4*D
+    product flops of each visible pair on the tensor cores — for float32
+    operands as 3xTF32 work, 3 TF32 operations a flop at 495 TFLOP/s, for
+    bf16 ones at 989 TFLOP/s; `by` names the larger, "bytes" or
+    "operations".  The softmax's exp and rescaling run on the CUDA cores
+    beside them and are left out."""
     nbytes, flops = bound_bytes_and_flops(q, k, bias, causal, layout,
                                           n_head, q_offset, k_offset)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    ops_ms = flops * _product_seconds_per_flop(q) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms \
         else (ops_ms, "operations")
 
@@ -480,7 +523,7 @@ def bound_bytes_and_flops_bwd(q, k, bias, causal, layout, n_head,
     el = q.element_size()
     qrow, krow = n * h * t_q * d * el, n * h * t_k * d * el
     stats = n * h * t_q * 4 * (2 if dlse else 1)
-    brow = n * t_k * 4 if bias is not None else 0
+    brow = n * t_k * bias.element_size() if bias is not None else 0
     ins = 3 * qrow + 2 * krow + stats + brow
     pairs = n * h * _visible_pairs(t_q, t_k, causal, q_offset, k_offset)
     delta = 2 * d * n * h * t_q
@@ -493,11 +536,11 @@ def tensor_core_bound_ms_bwd(q, k, bias, causal, layout, n_head,
                              q_offset=0, k_offset=0):
     """{"dkv": (ms, by), "dq": (ms, by)}: each backward kernel's least
     time on the H100, the larger of its bytes (`bound_bytes_and_flops_bwd`)
-    at 3.35 TB/s and its matrix products as 3xTF32 tensor-core work: 3
-    TF32 operations for each of the 8*D (dK/dV) or 6*D (dQ) product flops
-    of a visible pair, at 495 TFLOP/s; `by` names the larger, "bytes" or
-    "operations".  delta's 2*D flops a row run on the CUDA cores beside
-    them and are left out."""
+    at 3.35 TB/s and the 8*D (dK/dV) or 6*D (dQ) product flops of each
+    visible pair on the tensor cores (`_product_seconds_per_flop`: 3xTF32
+    for float32 operands, the bf16 peak for bf16 ones); `by` names the
+    larger, "bytes" or "operations".  delta's 2*D flops a row run on the
+    CUDA cores beside them and are left out."""
     n, h, t_q, t_k, d = dims(q, k, layout, n_head)
     pairs = n * h * _visible_pairs(t_q, t_k, causal, q_offset, k_offset)
     b = bound_bytes_and_flops_bwd(q, k, bias, causal, layout, n_head,
@@ -505,7 +548,7 @@ def tensor_core_bound_ms_bwd(q, k, bias, causal, layout, n_head,
     out = {}
     for name, per_pair in (("dkv", 8), ("dq", 6)):
         bytes_ms = b[name][0] / HBM_BYTES_PER_S * 1e3
-        ops_ms = 3 * per_pair * d * pairs / TF32_FLOP_PER_S * 1e3
+        ops_ms = per_pair * d * pairs * _product_seconds_per_flop(q) * 1e3
         out[name] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
                      else (ops_ms, "operations"))
     return out

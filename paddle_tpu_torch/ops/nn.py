@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_op
-from .common import fill_index, first, nan_where, opt_in, out, pair
+from .common import (fill_index, first, nan_where, opt_in, out, pair,
+                     weak_scalar)
 
 
 @register_op("relu")
@@ -39,10 +40,21 @@ def sigmoid(ctx, ins, attrs):
 @register_op("gelu")
 def gelu(ctx, ins, attrs):
     """The exact erf form, or the tanh form when `approximate` is true
-    (jax.nn.gelu's two forms)."""
-    approximate = "tanh" if attrs.get("approximate", False) else "none"
-    return out(Out=torch.nn.functional.gelu(first(ins, "X"),
-                                            approximate=approximate))
+    (jax.nn.gelu's two forms).  On bf16 the reference evaluates
+    jax.nn.gelu's formula op by op in bf16, rounding each step: so does
+    the port there."""
+    x = first(ins, "X")
+    approximate = attrs.get("approximate", False)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        if approximate:
+            c = weak_scalar(math.sqrt(2 / math.pi), x)
+            cdf = 0.5 * (1.0 + torch.tanh(
+                c * (x + weak_scalar(0.044715, x) * x ** 3)))
+            return out(Out=x * cdf)
+        return out(Out=0.5 * x * torch.erfc(
+            -x * weak_scalar(math.sqrt(0.5), x)))
+    return out(Out=F.gelu(x, approximate="tanh" if approximate
+                          else "none"))
 
 
 @register_op("square")
@@ -78,14 +90,14 @@ def dropout(ctx, ins, attrs):
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
     is_test = attrs.get("is_test", False)
     if is_test or p == 0.0:
-        y = x * (1.0 - p) if is_test and impl == "downgrade_in_infer" \
-            else x
+        y = x * weak_scalar(1.0 - p, x) \
+            if is_test and impl == "downgrade_in_infer" else x
         return {"Out": [y], "Mask": [torch.ones_like(x)]}
     keep = torch.rand(x.shape, generator=ctx.rng(), device=x.device) \
         >= p
     if impl == "upscale_in_train":
-        y = torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
-                                                          device=x.device))
+        y = torch.where(keep, x / weak_scalar(1.0 - p, x),
+                        torch.zeros((), dtype=x.dtype, device=x.device))
     else:
         y = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
                                              device=x.device))

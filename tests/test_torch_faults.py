@@ -203,6 +203,12 @@ def test_kernel_predicates_on_shapes_and_dtypes():
     assert not fk.kernel_takes(q, q, q, 96)
     assert not fk.kernel_takes(q.double(), q.double(), q.double(), 64)
     assert not fk.kernel_takes(q.bfloat16(), q, q, 64)
+    qb = q.bfloat16()
+    for d in (32, 64, 128):
+        assert fk.kernel_takes(qb, qb, qb, d), d
+    assert not fk.kernel_takes(qb, qb, qb, 96)
+    assert not fk.kernel_takes(qb, qb, q, 64)
+    assert not fk.kernel_takes(q.half(), q.half(), q.half(), 64)
 
     assert vk.kernel_takes(t(4, 512), t(512, 9))
     assert not vk.kernel_takes(t(4, 513), t(513, 9))

@@ -11,7 +11,9 @@ is not joining) are compared with the Pallas kernel only, which shares
 the kernels' constants.
 
 Tolerance 2e-5 (abs and rel): float32 throughout, summation order
-differs.
+differs.  bf16 operands: the plain version's bf16 semantics against the
+Pallas kernel on bf16 operands (tolerances in
+`test_bf16_plain_matches_pallas`).
 
 Also: the forward kernel's error budget (csrc/flash_attention_fwd.cu
 emulated with tests/torch_tf32.py: one TF32 pass misses chip_smoke.py's
@@ -100,6 +102,48 @@ def test_plain_matches_pallas_including_lse(layout, causal, d):
     if layout == "nthd":                      # (N, T, H) -> (N*H, T)
         lse = np.moveaxis(lse, 2, 1)
     np.testing.assert_allclose(got_lse, lse.reshape(n * h, t),
+                               rtol=1e-5, atol=1e-3)
+
+
+def _bf16(*arrays):
+    """float32 numpy arrays rounded to bf16, as (jax bf16, torch bf16)
+    pairs holding the same values."""
+    js = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+    return [(j, torch.from_numpy(np.array(j.astype(jnp.float32)))
+             .bfloat16()) for j in js]
+
+
+@pytest.mark.parametrize("layout", ["nthd", "nhtd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_plain_matches_pallas(layout, causal, d):
+    """The bf16 semantics the kernel's bf16 path implements, held
+    against the Pallas kernel in interpret mode on bf16 operands and a
+    ragged bf16 key bias (the AMP policy casts the bias too): float32
+    scores and softmax, P rounded to bf16 before P V, O returned bf16
+    and lse float32.  O within 2^-6 of max |O| (two bf16 ulps: Pallas
+    rounds p against its running row max over 16-key blocks, the plain
+    version against the final max, and both round O); lse as for
+    float32, since the scores' products are exact on both sides."""
+    n, t, h = 2, 40, 2
+    q, k, v = _qkv(5, n, t, h, d, layout)
+    (jq, tq), (jk, tk_), (jv, tv), (jb, tb) = _bf16(
+        q, k, v, _key_bias([40, 23], t))
+    o, lse = pallas_flash_attention(jq, jk, jv, jb, None, causal,
+                                    block_q=16, block_k=16, return_lse=True,
+                                    layout=layout, n_head=h)
+    assert o.dtype == jnp.bfloat16
+    got, got_lse = tk.flash_attention_fwd_plain(tq, tk_, tv, tb, None,
+                                                causal, layout=layout,
+                                                n_head=h)
+    assert got.dtype == torch.bfloat16 and got_lse.dtype == torch.float32
+    want = np.asarray(o.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2 ** -6 * np.abs(want).max(), err
+    lse = np.asarray(lse)
+    if layout == "nthd":
+        lse = np.moveaxis(lse, 2, 1)
+    np.testing.assert_allclose(got_lse.numpy(), lse.reshape(n * h, t),
                                rtol=1e-5, atol=1e-3)
 
 

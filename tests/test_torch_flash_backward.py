@@ -16,7 +16,9 @@ PyTorch port against the JAX package on the same numpy inputs.
   ((Tq, Tk) and per-head), forward and gradient, against the JAX op.
 
 Tolerance 2e-5 (abs and rel) forward, 1e-4 for gradients: float32 on
-both sides, sums over T in other orders.
+both sides, sums over T in other orders.  bf16 operands: the plain
+backward against the Pallas VJP from the same bf16 O, to one bf16 ulp
+(`test_bf16_plain_backward_matches_pallas_vjp`).
 """
 
 from __future__ import annotations
@@ -95,6 +97,48 @@ def test_plain_backward_matches_pallas_grad(layout, causal, t, d):
     got = _torch_bwd(q, k, v, do, bias, dlse, causal, layout, h)
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GTOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("layout", ["nthd", "nhtd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_plain_backward_matches_pallas_vjp(layout, causal, d):
+    """bf16 operands and a ragged bf16 key bias: the plain backward
+    against the Pallas kernel's custom VJP in interpret mode, both fed the
+    Pallas forward's own bf16 O and float32 lse, so the backward alone is
+    compared.  Both widen q, k, v, dO and the bf16 O to float32, compute
+    in float32 and round dQ, dK, dV and the bias gradient to bf16 once:
+    each within 2^-7 relative (one bf16 ulp), plus 2^-12 of the largest
+    magnitude for the sums near 0."""
+    n, h, t = 2, 2, 40
+    q, k, v, do, bias, dlse = _case(d + causal, n, t, h, d, layout,
+                                    [t, 17])
+    jq, jk, jv, jdo, jb = (jnp.asarray(x, jnp.bfloat16)
+                           for x in (q, k, v, do, bias))
+
+    def fwd(q, k, v, b):
+        o, lse = pallas_flash_attention(q, k, v, b, None, causal,
+                                        block_q=16, block_k=16,
+                                        return_lse=True, layout=layout,
+                                        n_head=h)
+        return o, _lse_flat(lse, layout, n, h, t)
+
+    (o, lse), vjp = jax.vjp(fwd, jq, jk, jv, jb)
+    want = vjp((jdo, jnp.asarray(dlse)))
+    assert all(w.dtype == jnp.bfloat16 for w in want)
+
+    def tb(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+
+    got = tk.flash_attention_bwd_plain(
+        tb(jq), tb(jk), tb(jv), tb(jb), tb(o), to_torch(np.array(lse)),
+        tb(jdo), to_torch(dlse), None, causal, layout, h)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=2 ** -7,
+                                   atol=2 ** -12 * np.abs(w).max(),
                                    err_msg=name)
 
 

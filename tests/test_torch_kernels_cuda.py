@@ -9,6 +9,9 @@ runs without the JAX package (the repo's conftest imports jax, hence
 Tolerances: 2e-5 (abs and rel) for float32 operands — both sides compute
 in float32 and differ in summation order; the same for bfloat16/int8
 pools, which both sides dequantize to the same float32 values.  The
+flash kernels' bf16 paths against their bf16 plain versions: O within
+2^-6 of max |O| (two bf16 ulps), the gradients within 2^-7 relative
+(one ulp; each test states why).  The
 vocab-CE kernels are held to 2e-5 of each output's max |reference|
 (absolute): their sums run over D, V or N terms in another order.  The
 LSTM kernels are held to 1e-4 of each output's max |reference|: their
@@ -342,6 +345,128 @@ def test_flash_autograd_on_card_matches_cpu(dev):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
+def _bf16_case(dev, layout, t, d, n=3, h=4, seed=0, misaligned=False):
+    """The operands of `_bwd_case` (nhtd ones transposed views) in bf16,
+    with the key bias in bf16 too, as the AMP policy hands it to the op;
+    with `misaligned`, q, k, v and dO start one value (2 bytes) into
+    their storage."""
+    q, k, v, do, bias, h = _bwd_case(dev, layout, t, d, n=n, h=h,
+                                     seed=seed,
+                                     transposed=layout == "nhtd")
+    q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+    if misaligned:
+        def shift(x):
+            base = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            return base[1:].view(x.shape).copy_(x)
+        q, k, v, do = (shift(x.contiguous()) for x in (q, k, v, do))
+    return q, k, v, do, bias.bfloat16(), h
+
+
+def _bf16_close(a, b, name, rtol):
+    """a within rtol of b (both widened to float32), element by element,
+    plus 2^-10 of b's largest magnitude for the elements near 0."""
+    a, b = a.float(), b.float()
+    torch.testing.assert_close(a, b, rtol=rtol,
+                               atol=2 ** -10 * float(b.abs().max()),
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("layout", ["nthd", "nhtd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [17, 130])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bf16_kernel_matches_plain(dev, layout, causal, t, d):
+    """The forward's bf16 path (bf16 mma.sync, P rounded to bf16 before P
+    V, O stored bf16) against the bf16 plain version: O within 2^-6 of
+    max |O| (two bf16 ulps: the kernel rounds p against its running row
+    max, the plain version against the final one, and both round O),
+    lse (float32 from exact bf16 products) as for float32 operands."""
+    q, k, v, _, bias, h = _bf16_case(dev, layout, t, d, seed=t + d)
+    before = kernels.launch_counts["flash_attention_fwd_bf16"]
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout=layout, n_head=h)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention_fwd_bf16"] == before + 1
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    wo, wl = fk.flash_attention_fwd_plain(q, k, v, bias, None, causal,
+                                          layout=layout, n_head=h)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    err = float((o.float() - wo.float()).abs().max())
+    assert err <= 2 ** -6 * float(wo.float().abs().max()), err
+    torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("layout", ["nthd", "nhtd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [40, 130])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bf16_bwd_kernels_match_plain(dev, layout, causal, t, d):
+    """The backward's bf16 paths (operands widened to float32 as they are
+    staged, float32 arithmetic, dQ, dK and dV stored bf16) against the
+    bf16 plain backward, from the kernel's own bf16 O: each gradient
+    within 2^-7 relative (one bf16 ulp: both compute in float32 and round
+    once), the bf16 bias gradient the same."""
+    q, k, v, do, bias, h = _bf16_case(dev, layout, t, d, seed=t * d)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
+                                    layout=layout, n_head=h)
+    dlse = torch.randn(lse.shape, generator=torch.Generator()
+                       .manual_seed(t)).to(dev)
+    before = dict(kernels.launch_counts)
+    got = fk.flash_attention_bwd(q, k, v, bias, o, lse, do, dlse, None,
+                                 causal, layout, h)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dkv_bf16",
+                 "flash_attention_bwd_dq_bf16"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    want = fk.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, dlse,
+                                        None, causal, layout, h)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        _bf16_close(a, b, name, 2 ** -7)
+
+
+@pytest.mark.parametrize("layout", ["nthd", "nhtd"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_kernels_take_misaligned_operands(dev, layout, d):
+    """bf16 operands one value into their storage: the wrapper hands the
+    kernels aligned copies, and forward and backward still match their
+    plain versions."""
+    q, k, v, do, bias, h = _bf16_case(dev, layout, 100, d, seed=3,
+                                      misaligned=True)
+    assert all(x.data_ptr() % 16 != 0 for x in (q, k, v, do))
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, True, layout, h)
+    wo, _ = fk.flash_attention_fwd_plain(q, k, v, bias, None, True,
+                                         layout, h)
+    assert float((o.float() - wo.float()).abs().max()) <= \
+        2 ** -6 * float(wo.float().abs().max())
+    got = fk.flash_attention_bwd(q, k, v, bias, o, lse, do, None, None,
+                                 True, layout, h)
+    torch.cuda.synchronize()
+    want = fk.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, None,
+                                        None, True, layout, h)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _bf16_close(a, b, name, 2 ** -7)
+
+
+def test_flash_bf16_autograd_on_card_matches_cpu(dev):
+    """FlashAttentionFn on bf16 operands: the card's bf16 kernels against
+    the CPU's bf16 plain versions, from the same inputs and cotangent;
+    gradients come back bf16.  The forward's O on the two devices may
+    differ by an ulp, and the backward's delta reads each side's own O,
+    so the gradients are held to 2^-5 relative."""
+    q, k, v, do, bias, h = _bf16_case(dev, "nhtd", 70, 64)
+    grads = []
+    for device in (dev, "cpu"):
+        xs = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
+        o, _ = fk.flash_attention(*xs, bias.to(device), None, True,
+                                  "nhtd", h)
+        grads.append(torch.autograd.grad(o, xs, do.to(device)))
+    for name, a, b in zip("qkv", *grads):
+        assert a.dtype == torch.bfloat16, name
+        _bf16_close(a.cpu(), b, "d" + name, 2 ** -5)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     (q, kc, vc, pt, lens), h, _, _ = _paged(torch.float32, dev)
     with pytest.raises(TypeError):
@@ -351,6 +476,9 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         fk.flash_attention_fwd(qf, qf, qf, torch.zeros(1, 1, 8, 8,
                                                        device=dev),
                                None, True, layout="nthd", n_head=1)
+    with pytest.raises(TypeError, match="all float32 or all bf16"):
+        fk.flash_attention_fwd(qf.bfloat16(), qf, qf, None, None, True,
+                               layout="nthd", n_head=1)
     q96 = torch.zeros(2, 8, 96, device=dev)
     with pytest.raises(ValueError, match="head dim 96"):
         fk.flash_attention_fwd(q96, q96, q96, None, None, True,

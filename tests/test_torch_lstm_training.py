@@ -95,7 +95,7 @@ def test_programs_serialize_equal(kw):
 
 
 def test_use_amp_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
+    with pytest.raises(NotImplementedError, match="B.3 item 3"):
         _build(tf, tl, use_amp=True)
 
 

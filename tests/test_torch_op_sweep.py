@@ -28,6 +28,13 @@ both packages on the same numpy inputs.
   momentum convention and biased variance, NHWC, is_test and
   use_global_stats; Nesterov momentum; sigmoid CE's ignore_index; AUC
   on running histograms; fill_constant_batch_size_like's dim indices.
+- bf16 operands as the AMP policy hands them to the ops of the three AMP
+  paths (`BF16_CASES`): the reference's output dtypes, bit for bit where
+  both packages round exact float32 values once, within one bf16 ulp
+  where the value rounded is a sum taken in another order.  Not
+  matched: avg pooling with a window on bf16, whose reference sums the
+  window in bf16 (`lax.reduce_window`), rounding each partial sum; the
+  AMP paths pool bf16 only by max and global average.
 """
 
 from __future__ import annotations
@@ -39,8 +46,8 @@ import torch
 from paddle_tpu.core import registry as ref_registry
 from paddle_tpu_torch.core.registry import registered_ops
 from test_op_sweep import RANDOM, S
-from torch_op_test import (ref_op_grads, run_ref_op_all, run_torch_op_all,
-                           torch_op_grads)
+from torch_op_test import (ref_op_grads, round_bf16, run_ref_op_all,
+                           run_torch_op_all, to_torch, torch_op_grads)
 
 torch.set_num_threads(2)
 
@@ -369,3 +376,135 @@ def test_vision_and_ctr_op_edge_cases_match_the_reference(case):
             torch_op_grads(op, ins, attrs, [slot], [out_slot])[slot],
             ref_op_grads(op, ins, attrs, [slot], [out_slot])[slot],
             f"{case}: d{out_slot}/d{slot}")
+
+
+# -- bf16 operands, as the AMP policy hands them to the ops ----------------
+
+def _bf16(a):
+    return round_bf16(np.asarray(a, np.float32))
+
+
+_A = _bf16(_R.randn(3, 4, 8))
+_B = _bf16(_R.randn(3, 8, 5))
+_INT_A = _bf16(_R.randint(-3, 4, (2, 4, 3)))        # exact products
+_INT_B = _bf16(_R.randint(-3, 4, (2, 3, 5)))
+_X = _bf16(_R.randn(2, 3, 8))
+_QKV = [_bf16(_R.randn(2, 2, 6, 8)) for _ in range(3)]
+_BF16_IMG = _bf16(_R.randn(2, 4, 6, 6))
+
+# (op, ins, attrs, the slots given as bf16, "exact" or "ulp"): "exact"
+# where both packages compute each bf16 output from exact float32 values
+# and round once, so the bits agree; "ulp" within one bf16 ulp where the
+# float32 value before the rounding is a sum taken in another order
+BF16_CASES = {
+    "mul": ("mul", {"X": _A[0], "Y": _B[0]}, {}, "XY", "ulp"),
+    "matmul alpha": ("matmul", {"X": _INT_A, "Y": _INT_B},
+                     {"alpha": 0.3}, "XY", "exact"),
+    "matmul transpose_Y": ("matmul", {"X": _A, "Y": _bf16(
+        _R.randn(3, 5, 8))}, {"transpose_Y": True, "alpha": 0.125},
+                           "XY", "ulp"),
+    "add bf16 + f32 bias promotes": ("elementwise_add", {
+        "X": _X, "Y": _R.randn(8).astype(np.float32)}, {}, "X", "exact"),
+    "add bf16 + bf16": ("elementwise_add", {"X": _X, "Y": _bf16(
+        _R.randn(2, 3, 8))}, {}, "XY", "exact"),
+    "mul f32 0-d * bf16 promotes": ("elementwise_mul", {
+        "X": np.array(0.3, np.float32), "Y": _X}, {}, "Y", "exact"),
+    "sub": ("elementwise_sub", {"X": _X, "Y": _bf16(_R.randn(8))},
+            {}, "XY", "exact"),
+    "div": ("elementwise_div", {"X": _X, "Y": _bf16(
+        _R.rand(2, 3, 8) + 0.5)}, {}, "XY", "exact"),
+    "max": ("elementwise_max", {"X": _X, "Y": _bf16(_R.randn(2, 3, 8))},
+            {}, "XY", "exact"),
+    "scale": ("scale", {"X": _X}, {"scale": 0.3, "bias": 0.1}, "X",
+              "exact"),
+    "scale bias first": ("scale", {"X": _X}, {"scale": 0.3, "bias": 0.1,
+                                              "bias_after_scale": False},
+                         "X", "exact"),
+    "reshape": ("reshape", {"X": _X}, {"shape": [0, 24]}, "X", "exact"),
+    "transpose": ("transpose", {"X": _X}, {"axis": [1, 0, 2]}, "X",
+                  "exact"),
+    "slice": ("slice", {"Input": _X}, {"axes": [2], "starts": [1],
+                                       "ends": [5]}, "Input", "exact"),
+    "layer_norm": ("layer_norm", {"X": _X, "Scale": _R.rand(8).astype(
+        np.float32), "Bias": _R.randn(8).astype(np.float32)},
+                   {"begin_norm_axis": 2}, "X", "ulp"),
+    "batch_norm": ("batch_norm", dict(
+        X=_BF16_IMG, Scale=_R.rand(4).astype(np.float32),
+        Bias=_R.randn(4).astype(np.float32),
+        Mean=np.zeros(4, np.float32), Variance=np.ones(4, np.float32)),
+        {}, "X", "ulp"),
+    "relu": ("relu", {"X": _X}, {}, "X", "exact"),
+    "gelu": ("gelu", {"X": _X}, {}, "X", "ulp"),
+    "gelu tanh": ("gelu", {"X": _X}, {"approximate": True}, "X", "ulp"),
+    "dropout is_test": ("dropout", {"X": _X}, {"dropout_prob": 0.3,
+                                               "is_test": True}, "X",
+                        "exact"),
+    "conv2d": ("conv2d", {"Input": _BF16_IMG, "Filter": _bf16(
+        _R.randn(3, 4, 3, 3))}, {"paddings": 1}, "InputFilter", "ulp"),
+    "global avg pool": ("pool2d", {"X": _BF16_IMG},
+                        {"ksize": 6, "global_pooling": True,
+                         "pooling_type": "avg"}, "X", "ulp"),
+    "max pool": ("pool2d", {"X": _BF16_IMG}, {"ksize": 3, "strides": 2,
+                                              "paddings": 1}, "X",
+                 "exact"),
+    "top_k": ("top_k", {"X": _X[0]}, {"k": 3}, "X", "exact"),
+    "composed attention": ("flash_attention", {
+        "Q": _QKV[0], "K": _QKV[1], "V": _QKV[2],
+        "Bias": _bf16(_R.randn(1, 1, 6, 6))},
+        {"scale": 0.3, "causal": True}, "QKVBias", "ulp"),
+}
+
+
+def _ref_bf16(op, ins, attrs, slots):
+    """The reference op on the same values, the named slots as bf16
+    arrays (run eagerly: each op rounds where its code does)."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.core.registry import OpContext as RefContext
+    from paddle_tpu.core.registry import get_op_impl as ref_impl
+
+    jins = {s: [jnp.asarray(v, jnp.bfloat16 if s in slots else None)]
+            for s, v in ins.items()}
+    outs = ref_impl(op)(RefContext(jax.random.PRNGKey(0), 0), jins,
+                        dict(attrs))
+    return {s: v[0] for s, v in outs.items()}
+
+
+_BF16_SLOTS = {"QKVBias": {"Q", "K", "V", "Bias"},
+               "InputFilter": {"Input", "Filter"}, "XY": {"X", "Y"}}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bf16_operands_give_the_references_dtypes_and_roundings(case):
+    """Each op on the three AMP paths returns the reference's output
+    dtype from bf16 operands (a bf16 and a float32 operand promote to
+    float32, also where the float32 one is 0-d, which torch alone would
+    not promote on) and rounds where the reference rounds: a Python
+    scale (matmul's alpha, scale's scale and bias, dropout's 1 - p, the
+    composed attention's scale) is rounded to bf16 before it multiplies
+    a bf16 tensor, as jnp applies a weak-typed scalar."""
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    op, ins, attrs, spec, kind = BF16_CASES[case]
+    slots = _BF16_SLOTS.get(spec, {spec})
+    tins = {s: [to_torch(v, torch.bfloat16 if s in slots else None)]
+            for s, v in ins.items()}
+    got = get_op_impl(op)(OpContext((0, 0), 0, device="cpu"), tins,
+                          dict(attrs))
+    want = _ref_bf16(op, ins, attrs, slots)
+    for slot, w in want.items():
+        if slot not in got:
+            continue
+        g = got[slot][0]
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype), \
+            f"{case}: {slot} {g.dtype} != {w.dtype}"
+        g = g.float().numpy() if g.is_floating_point() else g.numpy()
+        w = np.asarray(w, np.float32 if np.issubdtype(
+            np.asarray(w).dtype, np.floating) or str(w.dtype) == "bfloat16"
+            else None)
+        if kind == "exact" or not np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_array_equal(g, w, err_msg=f"{case}: {slot}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=2 ** -7,
+                                       atol=1e-6 * np.abs(w).max(),
+                                       err_msg=f"{case}: {slot}")

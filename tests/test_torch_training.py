@@ -249,7 +249,6 @@ def test_default_device_is_the_card_or_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(use_amp=True), "queue A item 2"),
     (dict(moe_experts=2), "queue A item 6"),
     (dict(recompute=True), "queue A item 2"),
     (dict(pipeline=True), "queue A item 2"),

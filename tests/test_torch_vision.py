@@ -19,7 +19,8 @@ against the JAX package.
   statistics, and its gradients at a looser tolerance (see
   `test_resnet50_first_step_matches_the_reference`).
 - NHWC against NCHW in the port, `clone(for_test=True)` running on the
-  stored statistics, and `use_amp=True` raising.
+  stored statistics, and `use_amp=True` building the reference's
+  program (its AMP steps are in tests/test_torch_amp.py).
 
 Tolerances, float32 on both sides: losses within 1e-5 relative (after
 an Adam step, plus 1e-4 absolute: see below); each
@@ -366,6 +367,11 @@ def test_clone_for_test_runs_on_stored_statistics():
                if n.endswith(".mean"))
 
 
-def test_resnet_use_amp_raises():
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        _build(tf, tres.build_model, use_amp=True)
+def test_resnet50_use_amp_builds_the_references_program():
+    """use_amp=True decorates the momentum optimizer as the reference
+    does: the same Program.to_dict(), its "amp" field included (the AMP
+    steps themselves: tests/test_torch_amp.py)."""
+    tm = _build(tf, tres.build_model, use_amp=True)[0]
+    jm = _build(jf, jres.build_model, use_amp=True)[0]
+    assert tm._amp_lists is not None and tm.to_dict()["amp"] is not None
+    assert _json(tm) == _json(jm)
