@@ -20,6 +20,12 @@ its own sources), the named phases of chip_smoke.py:
     6c      the fused-CE step (10 timed steps, a profiled window)
     6d      the long-context step (6 timed steps, a profiled window)
     6e      the stacked-LSTM step (10 timed steps, a profiled window)
+    bwd16   the flash backward pair's bf16 path at phase 3g's five shapes
+            (device ms of the dK/dV and the dQ kernel by the profiler;
+            the inputs from this script's chip_smoke.py, the forward's
+            O and lse from the tree's forward kernel)
+    6i      the AMP Transformer step (10 timed steps, a profiled window)
+    6j      the AMP BERT-base step (10 timed steps, a profiled window)
 
 With no phase named it runs fwd, 6d and 6.  Comparing within one call,
 on one card, in turns, keeps the card, its power limit and its neighbours
@@ -41,7 +47,8 @@ import os
 import subprocess
 import sys
 
-PHASES = ("fwd", "kern", "stream", "4b", "6", "6c", "6d", "6e")
+PHASES = ("fwd", "kern", "stream", "4b", "6", "6c", "6d", "6e", "bwd16",
+          "6i", "6j")
 DEFAULT = ("fwd", "6d", "6")
 
 
@@ -87,6 +94,37 @@ def kernel_device_ms(dev) -> dict:
     return out
 
 
+def bf16_backward_device_ms(cs, dev) -> dict:
+    """{shape: [dK/dV ms, dQ ms]}: the tree's bf16 backward kernels at
+    phase 3g's shapes, by the profiler's device time.  `cs` is the tree's
+    chip_smoke, whose kernel names are the tree's own."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    names = getattr(cs, "_BWD_BF16_KERNELS", cs._BWD_KERNELS)
+    here = _cases()
+    h, d = here.TRAIN_ARCH["n_head"], here.TRAIN_ARCH["d_model"] // \
+        here.TRAIN_ARCH["n_head"]
+    hb = here.BERT_ARCH["n_head"]
+    shapes = [("6i causal", here.TRAIN_BATCH, h, 256, d, True),
+              ("6i", here.TRAIN_BATCH, h, 256, d, False),
+              ("BERT", here.BERT_BATCH, hb, here.BERT_ARCH["max_len"],
+               here.BERT_ARCH["d_model"] // hb, False),
+              ("D=128 causal", 16, 8, 512, 128, True),
+              ("T=8192 causal", here.LONGCTX_BATCH, h, 8192, d, True)]
+    out = {}
+    for i, (tag, n, nh, t, hd, causal) in enumerate(shapes):
+        c = here.bf16_case(dev, n, nh, t, hd, "nhtd", causal, seed=80 + i)
+        per = cs.profiled_kernel_ms(
+            lambda: fk.flash_attention_bwd(*c["args"], need_dbias=False),
+            names, iters=3 if t > 1024 else 20, warmup=1)
+        out[tag] = [per[names[0]], per[names[1]]]
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
 def _run_phase(cs, name, dev, card):
     if name == "fwd":
         return cs.flash_fwd_at_training_shapes(dev)
@@ -105,6 +143,14 @@ def _run_phase(cs, name, dev, card):
         return cs.phase_train(dev, card, "phase 6d", cs.LONGCTX,
                               batch=cs.LONGCTX_BATCH, steps=6,
                               profile="phase 6d, profiled")
+    if name == "bwd16":
+        return bf16_backward_device_ms(cs, dev)
+    if name == "6i":
+        return cs.phase_train(dev, card, "phase 6i", cs.AMP, steps=10,
+                              profile="phase 6i, profiled")
+    if name == "6j":
+        return cs.phase_train_bert(dev, card, label="phase 6j",
+                                   overrides=cs.AMP)
     return cs.phase_train_lstm(dev, card)
 
 
@@ -118,6 +164,8 @@ def _summary(name, rec):
     if name == "4b":
         return {"4b_step_ms": rec["step_ms"],
                 "4b_busy_ms": rec["device_busy_ms_per_step"]}
+    if name == "bwd16":
+        return {"bwd16_ms": rec}
     return {f"{name}_step_ms": rec["step_ms"],
             f"{name}_busy_ms": rec["profile"]["device_busy_ms_per_step"],
             f"{name}_peak_gb": rec["peak_mem_bytes"] / 1e9}
@@ -134,6 +182,9 @@ def run_one(tree: str, tag: str, out_dir: str, phases) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # as chip_smoke.py sets it for the AMP phases' bf16 GEMMs
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     _build.build()

@@ -78,9 +78,12 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    3xTF32 and float32 bounds and scaled_dot_product_attention with the
    same additive mask (forward, and its autograd backward);
    3g. holds the flash kernels' bf16 paths (the forward with bf16
-   mma.sync, P rounded to bf16 before P V; the dK/dV and dQ kernels on
-   operands widened to float32 as they are staged) against the bf16
-   plain versions at phase 6i's shape (N = 64, H = 8, T = 256, D = 64,
+   mma.sync, P rounded to bf16 before P V; the bf16 dK/dV and dQ
+   kernels, flash_bwd_dkv_bf16_kernel and flash_bwd_dq_bf16_kernel:
+   bf16 tiles by cp.async, s and dp one bf16 mma.sync pass, p and ds
+   split hi + lo for two passes of dV, dK and dQ; their ptxas registers
+   and spills are logged in 3b beside the float32 kernels') against the
+   bf16 plain versions at phase 6i's shape (N = 64, H = 8, T = 256, D = 64,
    nhtd transposed views, causal and not), BERT-base's (N = 32, H = 12,
    T = 128, not causal), D = 128 (N = 16, H = 8, T = 512) and T = 8192
    (N = 2, H = 8, causal), with a bf16 key bias as the AMP policy casts
@@ -712,6 +715,8 @@ def bwd_case(dev, n, h, t, d, layout, causal, seed, dbias=False,
 
 
 _BWD_KERNELS = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+# the bf16 paths' kernels of their own (phase 3g)
+_BWD_BF16_KERNELS = ("flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 
 
 def phase_bwd_kernels(dev):
@@ -719,14 +724,16 @@ def phase_bwd_kernels(dev):
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
 
     log("phase 3b: flash backward kernels vs the plain backward")
+    # registers and spills of the float32 kernels and, beside them, the
+    # bf16 paths' kernels, each at D = 32, 64 and 128
     ptx = [(fn, used) for fn, used in
            ptxas_summary(_build.build_log("flash_attention_bwd"))
-           if fn.startswith(_BWD_KERNELS)]
+           if fn.startswith(_BWD_KERNELS + _BWD_BF16_KERNELS)]
     for fn, used in ptx:
         log(f"  ptxas {fn}: {used}")
-    if not all(any(fn.startswith(f"{k}<") and fn.endswith(f", {t}>")
-                   for fn, _ in ptx)
-               for k in _BWD_KERNELS for t in ("f32", "bf16")):
+    if not all(any(fn == f"{k}<{d}>" for fn, _ in ptx)
+               for k in _BWD_KERNELS + _BWD_BF16_KERNELS
+               for d in (32, 64, 128)):
         raise AssertionError("no ptxas line for the flash backward kernels")
     n, h, t, d = TRAIN_BATCH, TRAIN_ARCH["n_head"], \
         TRAIN_ARCH["max_length"], TRAIN_ARCH["d_model"] // \
@@ -1321,7 +1328,8 @@ def flash_bf16_cases(dev):
         iters = 3 if t > 1024 else 20
         fwd_ms = profiled_kernel_ms(fwd, _BF16_FWD, iters=iters,
                                     warmup=1)[_BF16_FWD[0]]
-        per = profiled_kernel_ms(bwd, _BWD_KERNELS, iters=iters, warmup=1)
+        per = profiled_kernel_ms(bwd, _BWD_BF16_KERNELS, iters=iters,
+                                 warmup=1)
         lib_fwd = profiled_call_ms(_sdpa_forward(c, d), iters=iters,
                                    warmup=1)
         lib_bwd = profiled_call_ms(_sdpa_backward(c, d), iters=iters,
@@ -1335,8 +1343,8 @@ def flash_bf16_cases(dev):
         fb = fk.tensor_core_bound_ms(q, k, bias, causal, layout, h)
         bb = fk.tensor_core_bound_ms_bwd(q, k, bias, causal, layout, h)
         row = dict(shape=name, causal=causal, fwd_ms=fwd_ms,
-                   dkv_ms=per["flash_bwd_dkv_kernel"],
-                   dq_ms=per["flash_bwd_dq_kernel"],
+                   dkv_ms=per["flash_bwd_dkv_bf16_kernel"],
+                   dq_ms=per["flash_bwd_dq_bf16_kernel"],
                    fwd_bound_ms=fb[0], fwd_bound_by=fb[1],
                    dkv_bound_ms=bb["dkv"][0], dkv_bound_by=bb["dkv"][1],
                    dq_bound_ms=bb["dq"][0], dq_bound_by=bb["dq"][1],

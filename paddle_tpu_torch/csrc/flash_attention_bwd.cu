@@ -78,25 +78,58 @@
 // k_off + k_pos.  p and ds are exactly 0 elsewhere.
 //
 // The bf16 paths (flash_attention_bwd_dkv_bf16_launch and
-// flash_attention_bwd_dq_bf16_launch, the kernels' template on T =
-// __nv_bfloat16): q, k, v, dO and the bf16 O the forward stored are read
-// 16 bytes (8 values) a thread and widened exactly to float32 as they are
-// staged (flash_mma.cuh: stage_rows), so the tiles, the products and
-// delta = rowsum(dO * O) are the float32 kernels', as the TPU kernels
-// widen every operand to float32; dK, dV and dQ are rounded to bf16 once
-// as they are stored.  A bf16 value is exact in TF32, so the 3xTF32 split
-// of a staged operand has a zero small part; only the computed operands
-// (p, ds) need it.  The bf16 staging is synchronous (a load, then the
-// store to shared memory), where the float32 path's cp.async lets the
-// next tile land during this one's products.  Rows must start 16-byte
-// aligned (strides multiples of 8 values).  Shared memory and tiles are
-// the float32 kernels'.  Their bound on the H100 is their product flops
-// at the 989 TFLOP/s bf16 peak (ops/kernels/flash_attention.py), which
-// these float32 tensor-core kernels cannot reach: making them bf16
-// mma.sync or wgmma kernels is later work (ROADMAP B.2).
+// flash_attention_bwd_dq_bf16_launch; the AMP policy hands the flash op
+// bf16 q, k, v and the forward stores a bf16 O): kernels of their own,
+// flash_bwd_dkv_bf16_kernel and flash_bwd_dq_bf16_kernel, on the bf16
+// tensor cores (mma.sync m16n8k16, csrc/flash_mma.cuh).  They compute
+// what the float32 kernels compute, in float32 from the bf16 values, as
+// the TPU kernels widen every operand, and round dK, dV and dQ to bf16
+// once as they are stored.
+//  - What bounds them on the H100: bytes.  At phase 6i's shape (N=64,
+//    H=8, T=256, D=64, bf16, the mean of causal and not) dK/dV moves 118
+//    MB and dQ 101 MB, 0.035 and 0.030 ms at 3.35 TB/s, against 0.013
+//    and 0.010 ms for their 8*D and 6*D product flops a visible pair at
+//    the 989 TFLOP/s bf16 peak (ops/kernels/flash_attention.py,
+//    tensor_core_bound_ms_bwd).
+//  - The products.  s (s^T) and dp (dp^T) multiply staged bf16 values:
+//    exact products, one pass each (tile_scores_bf16).  p and ds are
+//    float32; rounded once to bf16 before dV += p^T dO, dK += ds^T Q and
+//    dQ += ds K they miss chip_smoke.py's bf16 gradient gate (2^-7
+//    relative plus 2^-10 of max) in every case of
+//    tests/test_torch_flash_backward.py's emulation at T = 256; split
+//    into hi = bf16(x) and lo = bf16(x - hi), two passes
+//    (tile_product_bf16), they meet it.  So dK/dV issues 6
+//    bf16 passes a pair (12*D flops) and dQ 4 (8*D).  Each tile's
+//    product has its own accumulator, added to float32 registers.
+//  - Around the products.  A warp whose 16 rows see every pair of the
+//    streamed tile (neither ragged nor crossed by the causal diagonal)
+//    skips the mask's per-pair index tests, which cost as many issue
+//    slots as the exp; at T >= 256 most tiles are such.  p = exp(...) is
+//    exp2f of arguments scaled by log2(e) (prob), one FMA before the
+//    ex2.
+//  - Tiles, stages, occupancy.  bf16 tiles [row][D], 16-byte chunks
+//    swizzled (at16), filled by cp.async (stage_rows16), the streamed
+//    tiles through a double-buffered ring: the next lands while this one
+//    computes.  Fragments by ldmatrix (A of a warp's 16 rows, B of a
+//    score product) and ldmatrix.trans (B of a second product).  Both
+//    stream 64-row tiles (kBf16Rows), the depth of each second product's
+//    accumulators.  dK/dV: the float32 kernel's blocks (8 warps; 128
+//    keys at D <= 64, 64 keys with two warps a 16-key group at D = 128),
+//    K and V resident, Q, dO, O, lse and dlse streamed: 81 KB a block at
+//    D = 64, 129 KB at D = 128, 41 KB at D = 32.  Two D = 64 blocks
+//    would fit an SM's shared memory, but not its registers (a warp
+//    holds dK and dV, 64 floats, beside p and ds, 64): one block an SM
+//    (8 warps).  dQ: 64 queries a block, 4 warps, Q and dO resident, K,
+//    V and the bias row streamed: 49 KB at D = 64, three blocks an SM;
+//    97 KB at D = 128, two.  delta = rowsum(dO * O) - dlse is formed per
+//    q tile from the staged bf16 rows in float32 FMAs.
+//  Rows of q, k, v, O and dO must start 16-byte aligned (strides
+//  multiples of 8 values), as for the float32 kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -165,15 +198,35 @@ constexpr size_t dq_smem_bytes() {
          (2 * kDqRows * D + 2 * dq_stage_floats<D>() + kDqRows);
 }
 
-template <int D, typename T>
+// bf16 paths: rows of a streamed tile (q rows for dK/dV, keys for dQ),
+// the depth of each second product's accumulators
+constexpr int kBf16Rows = 64;
+
+template <int D>
+constexpr size_t dkv_bf16_smem_bytes() {
+  // K, V (resident) + 2 x (Q, dO, O tiles) in bf16; 2 x (lse, dlse rows)
+  // + delta row in float32
+  return 2 * (2 * dkv_keys<D>() * D + 2 * 3 * kBf16Rows * D) +
+         sizeof(float) * (2 * 2 * kBf16Rows + kBf16Rows);
+}
+
+template <int D>
+constexpr size_t dq_bf16_smem_bytes() {
+  // Q, dO (resident) + 2 x (K, V tiles) in bf16; 2 x bias row + delta row
+  // in float32
+  return 2 * (2 * kDqRows * D + 2 * 2 * kBf16Rows * D) +
+         sizeof(float) * (2 * kBf16Rows + kDqRows);
+}
+
+template <int D>
 __global__ void __launch_bounds__(32 * kDkvWarps, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ o,
-                     const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ o,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dlse,
-                     const float* __restrict__ bias, T* __restrict__ dk,
-                     T* __restrict__ dv, float* __restrict__ dbias,
+                     const float* __restrict__ bias, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ dbias,
                      int n_head, int t_q, int t_k, BwdStrides st, float scale,
                      int causal, int q_off, int k_off) {
   constexpr int kThreads = 32 * kDkvWarps;
@@ -199,9 +252,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int m0 = (warp / kSplit) * 16;           // the warp's keys
   const int c0 = (warp % kSplit) * kCols;        // and columns
 
-  const T* qg = q + n * st.q.b + h * st.q.h;
-  const T* og = o + n * st.o.b + h * st.o.h;
-  const T* dog = dout + n * st.dout.b + h * st.dout.h;
+  const float* qg = q + n * st.q.b + h * st.q.h;
+  const float* og = o + n * st.o.b + h * st.o.h;
+  const float* dog = dout + n * st.dout.b + h * st.dout.h;
   const float* lseg = lse + static_cast<int64_t>(g) * t_q;
   const float* dlseg =
       dlse != nullptr ? dlse + static_cast<int64_t>(g) * t_q : nullptr;
@@ -318,14 +371,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     k0 + m0, c0, t_k, gq, tq);
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(32 * kDqWarps, 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dlse,
-                    const float* __restrict__ bias, T* __restrict__ dq,
+                    const float* __restrict__ bias, float* __restrict__ dq,
                     int n_head, int t_q, int t_k, BwdStrides st, float scale,
                     int causal, int q_off, int k_off) {
   constexpr int kThreads = 32 * kDqWarps;
@@ -347,8 +400,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = (tid >> 5) * 16;                // the warp's queries
 
-  const T* kg = k + n * st.k.b + h * st.k.h;
-  const T* vg = v + n * st.v.b + h * st.v.h;
+  const float* kg = k + n * st.k.b + h * st.k.h;
+  const float* vg = v + n * st.v.b + h * st.v.h;
   const float* bg = bias != nullptr ? bias + static_cast<int64_t>(n) * t_k
                                     : nullptr;
 
@@ -443,6 +496,354 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 0, t_q, gq, tq);
 }
 
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// p = exp(s * scale + b - l) as exp2f(s * scale_log2 + (b - l) log2(e)),
+// scale_log2 = scale log2(e): one FMA and ex2 a probability
+__device__ __forceinline__ float prob(float s, float scale_log2,
+                                      float b_minus_l) {
+  return exp2f(fmaf(s, scale_log2, b_minus_l * kLog2e));
+}
+
+// The bf16 dK/dV kernel: the float32 kernel's blocks and steps on bf16
+// tiles, 64-row q tiles, the score products one bf16 pass, p^T and ds^T
+// split hi + lo for the two passes of dV += p^T dO and dK += ds^T Q.
+template <int D>
+__global__ void __launch_bounds__(32 * kDkvWarps, 1)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ o,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dlse,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          float* __restrict__ dbias, int n_head, int t_q,
+                          int t_k, BwdStrides st, float scale, int causal,
+                          int q_off, int k_off) {
+  constexpr int kThreads = 32 * kDkvWarps;
+  constexpr int kSplit = dkv_split<D>();
+  constexpr int kKeys = dkv_keys<D>();
+  constexpr int kRows = kBf16Rows;                // of a q tile
+  constexpr int kNq = kRows / 8;                  // n-tiles of a score tile
+  constexpr int kCols = D / kSplit;               // a warp's dK/dV columns
+  constexpr int kStage = 3 * kRows * D;           // Q, dO, O tiles
+  constexpr int kTpr = kThreads / kRows;          // delta: threads a row
+  static_assert(D / kTpr % 8 == 0, "delta: whole 16-byte chunks a thread");
+  extern __shared__ float4 smem4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem4);      // kKeys x D
+  bf16* vs = ks + kKeys * D;                      // kKeys x D
+  bf16* ring = vs + kKeys * D;                    // 2 stages
+  float* stats = reinterpret_cast<float*>(ring + 2 * kStage);  // 2 x 2 rows
+  float* delta_s = stats + 2 * 2 * kRows;         // kRows
+
+  const int g = blockIdx.y;
+  const int n = g / n_head;
+  const int h = g % n_head;
+  const int k0 = blockIdx.x * kKeys;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = (warp / kSplit) * 16;           // the warp's keys
+  const int c0 = (warp % kSplit) * kCols;        // and columns
+  const float scale_log2 = scale * kLog2e;
+
+  const bf16* qg = q + n * st.q.b + h * st.q.h;
+  const bf16* og = o + n * st.o.b + h * st.o.h;
+  const bf16* dog = dout + n * st.dout.b + h * st.dout.h;
+  const float* lseg = lse + static_cast<int64_t>(g) * t_q;
+  const float* dlseg =
+      dlse != nullptr ? dlse + static_cast<int64_t>(g) * t_q : nullptr;
+
+  // causal: q tiles before qb_first lie wholly above the diagonal
+  const int n_qt = (t_q + kRows - 1) / kRows;
+  int qb_first = 0;
+  if (causal) {
+    const int x = k_off + k0 - q_off;
+    qb_first = x <= 0 ? 0 : x / kRows;
+  }
+  auto issue_q = [&](int qb, int slot) {
+    const int q0 = qb * kRows;
+    bf16* stage = ring + slot * kStage;
+    float* rows = stats + slot * 2 * kRows;
+    stage_rows16<D>(stage, qg, st.q.r, q0, t_q, kRows, kThreads);
+    stage_rows16<D>(stage + kRows * D, dog, st.dout.r, q0, t_q, kRows,
+                    kThreads);
+    stage_rows16<D>(stage + 2 * kRows * D, og, st.o.r, q0, t_q, kRows,
+                    kThreads);
+    stage_row(rows, lseg, q0, t_q, kRows, 0, lse);
+    stage_row(rows + kRows, dlseg, q0, t_q, kRows, kRows, lse);
+  };
+
+  // no q tile visible: nothing is staged, and dK, dV, dbias stay zero
+  if (qb_first < n_qt) {
+    stage_rows16<D>(ks, k + n * st.k.b + h * st.k.h, st.k.r, k0, t_k, kKeys,
+                    kThreads);
+    stage_rows16<D>(vs, v + n * st.v.b + h * st.v.h, st.v.r, k0, t_k, kKeys,
+                    kThreads);
+    issue_q(qb_first, 0);
+  }
+  cp_commit();
+
+  float bias_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + m0 + gq + 8 * r;
+    bias_r[r] = (bias != nullptr && key < t_k)
+                    ? bias[static_cast<int64_t>(n) * t_k + key]
+                    : 0.f;
+  }
+  float dk_acc[kCols / 8][4], dv_acc[kCols / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kCols / 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dk_acc[nt][r] = dv_acc[nt][r] = 0.f;
+  float db[2] = {0.f, 0.f};
+
+  for (int qb = qb_first, i = 0; qb < n_qt; ++qb, ++i) {
+    cp_wait_all();
+    __syncthreads();        // tile qb is in; the other stage is free
+    if (qb + 1 < n_qt) issue_q(qb + 1, (i + 1) & 1);
+    cp_commit();
+    const bf16* qs = ring + (i & 1) * kStage;
+    const bf16* dos = qs + kRows * D;
+    const bf16* os = dos + kRows * D;
+    const float* lse_s = stats + (i & 1) * 2 * kRows;
+    const float* dlse_s = lse_s + kRows;
+    const int q0 = qb * kRows;
+    {  // delta of each query row: kTpr threads a row
+      const int row = tid / kTpr, part = tid % kTpr;
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / kTpr; c += 8) {
+        const int col = part * (D / kTpr) + c;
+        acc = dot8(dos + at16<D>(row, col), os + at16<D>(row, col), acc);
+      }
+#pragma unroll
+      for (int off = 1; off < kTpr; off <<= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (part == 0) delta_s[row] = acc - dlse_s[row];
+    }
+    __syncthreads();
+
+    float p[kNq][4], ds[kNq][4];
+    tile_scores_bf16<D, kNq>(p, ks, m0, qs, lane);     // s^T = K Q^T
+    // every pair of the warp's 16 keys and the tile's queries visible:
+    // no mask to form
+    const bool dense = k0 + m0 + 16 <= t_k && q0 + kRows <= t_q &&
+                       (!causal || q_off + q0 >= k_off + k0 + m0 + 15);
+    if (dense) {
+#pragma unroll
+      for (int j = 0; j < kNq; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int qc = 8 * j + 2 * tq + (r & 1);
+          p[j][r] = prob(p[j][r], scale_log2, bias_r[r >> 1] - lse_s[qc]);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNq; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int key = k0 + m0 + gq + 8 * (r >> 1);
+          const int qc = 8 * j + 2 * tq + (r & 1);
+          const int qp = q0 + qc;
+          const bool valid = key < t_k && qp < t_q &&
+                             (!causal || q_off + qp >= k_off + key);
+          p[j][r] = valid ? prob(p[j][r], scale_log2,
+                                 bias_r[r >> 1] - lse_s[qc])
+                          : 0.f;
+        }
+    }
+    tile_scores_bf16<D, kNq>(ds, vs, m0, dos, lane);   // dp^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < kNq; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        ds[j][r] = p[j][r] * (ds[j][r] - delta_s[8 * j + 2 * tq + (r & 1)]);
+        db[r >> 1] += ds[j][r];
+      }
+    uint32_t hi[kNq / 2][4], lo[kNq / 2][4];
+    split_bf16<kNq / 2>(p, hi, lo);
+    tile_product_bf16<D, kNq / 2, kCols, kCols>(dv_acc, hi, lo, dos, c0,
+                                             lane);    // dV += p^T dO
+    split_bf16<kNq / 2>(ds, hi, lo);
+    tile_product_bf16<D, kNq / 2, kCols, kCols>(dk_acc, hi, lo, qs, c0,
+                                             lane);    // dK += ds^T Q
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+    const int key = k0 + m0 + gq + 8 * r;
+    if (dbias != nullptr && c0 == 0 && tq == 0 && key < t_k)
+      dbias[static_cast<int64_t>(g) * t_k + key] = db[r];
+  }
+  store_rows<kCols>(dk + n * st.dk.b + h * st.dk.h, st.dk.r, dk_acc, scale,
+                    k0 + m0, c0, t_k, gq, tq);
+  store_rows<kCols>(dv + n * st.dv.b + h * st.dv.h, st.dv.r, dv_acc, 1.f,
+                    k0 + m0, c0, t_k, gq, tq);
+}
+
+// The bf16 dQ kernel: the float32 kernel's blocks and steps on bf16
+// tiles, 64-key K/V tiles at every D, the score products one bf16 pass,
+// ds split hi + lo for the two passes of dQ += ds K.  Three blocks an SM
+// at D <= 64 (at most 168 registers, no spill), two at D = 128, where
+// three would spill.
+template <int D>
+__global__ void __launch_bounds__(32 * kDqWarps, D > 64 ? 2 : 3)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dlse,
+                         const float* __restrict__ bias,
+                         bf16* __restrict__ dq, int n_head, int t_q,
+                         int t_k, BwdStrides st, float scale, int causal,
+                         int q_off, int k_off) {
+  constexpr int kThreads = 32 * kDqWarps;
+  constexpr int kKeys = kBf16Rows;
+  constexpr int kNk = kKeys / 8;                 // n-tiles of a score tile
+  constexpr int kStage = 2 * kKeys * D;          // K, V tiles
+  constexpr int kGroup = D < 64 ? D : 64;        // dQ columns a part sum
+  static_assert(kStage >= kDqRows * D, "the O tile fits one stage");
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);     // kDqRows x D
+  bf16* dos = qs + kDqRows * D;                  // kDqRows x D
+  bf16* ring = dos + kDqRows * D;                // 2 stages
+  float* bias_ring = reinterpret_cast<float*>(ring + 2 * kStage);
+  float* delta_s = bias_ring + 2 * kKeys;        // kDqRows
+
+  const int g = blockIdx.y;
+  const int n = g / n_head;
+  const int h = g % n_head;
+  const int q0 = blockIdx.x * kDqRows;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = (tid >> 5) * 16;                // the warp's queries
+  const float scale_log2 = scale * kLog2e;
+
+  const bf16* kg = k + n * st.k.b + h * st.k.h;
+  const bf16* vg = v + n * st.v.b + h * st.v.h;
+  const float* bg = bias != nullptr ? bias + static_cast<int64_t>(n) * t_k
+                                    : nullptr;
+
+  // causal: K tiles from n_kt on lie wholly above the diagonal
+  int n_kt = (t_k + kKeys - 1) / kKeys;
+  if (causal) {
+    const int x = q_off + q0 + kDqRows - k_off;
+    n_kt = x <= 0 ? 0 : min(n_kt, (x + kKeys - 1) / kKeys);
+  }
+  auto issue_kv = [&](int kb, int slot) {
+    const int kk0 = kb * kKeys;
+    bf16* stage = ring + slot * kStage;
+    stage_rows16<D>(stage, kg, st.k.r, kk0, t_k, kKeys, kThreads);
+    stage_rows16<D>(stage + kKeys * D, vg, st.v.r, kk0, t_k, kKeys,
+                    kThreads);
+    stage_row(bias_ring + slot * kKeys, bg, kk0, t_k, kKeys, 0, lse);
+  };
+
+  // Q, dO and (in the second stage, free until tile 1) O, with tile 0
+  stage_rows16<D>(qs, q + n * st.q.b + h * st.q.h, st.q.r, q0, t_q, kDqRows,
+                  kThreads);
+  stage_rows16<D>(dos, dout + n * st.dout.b + h * st.dout.h, st.dout.r, q0,
+                  t_q, kDqRows, kThreads);
+  stage_rows16<D>(ring + kStage, o + n * st.o.b + h * st.o.h, st.o.r, q0,
+                  t_q, kDqRows, kThreads);
+  if (n_kt > 0) issue_kv(0, 0);
+  cp_commit();
+  float lse_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + m0 + gq + 8 * r;
+    lse_r[r] = qp < t_q ? lse[static_cast<int64_t>(g) * t_q + qp] : 0.f;
+  }
+  cp_wait_all();
+  __syncthreads();
+  {  // delta of each query row: 2 threads a row
+    const bf16* os = ring + kStage;
+    const int row = tid >> 1, part = tid & 1;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 2; c += 8) {
+      const int col = part * (D / 2) + c;
+      acc = dot8(dos + at16<D>(row, col), os + at16<D>(row, col), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    const int qp = q0 + row;
+    if (part == 0)
+      delta_s[row] =
+          acc - ((dlse != nullptr && qp < t_q)
+                     ? dlse[static_cast<int64_t>(g) * t_q + qp]
+                     : 0.f);
+  }
+  __syncthreads();
+  const float delta_r[2] = {delta_s[m0 + gq], delta_s[m0 + gq + 8]};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+
+  for (int kb = 0; kb < n_kt; ++kb) {
+    cp_wait_all();
+    __syncthreads();        // tile kb is in; the other stage is free
+    if (kb + 1 < n_kt) issue_kv(kb + 1, (kb + 1) & 1);
+    cp_commit();
+    const bf16* kts = ring + (kb & 1) * kStage;
+    const bf16* vts = kts + kKeys * D;
+    const float* bias_s = bias_ring + (kb & 1) * kKeys;
+    const int kk0 = kb * kKeys;
+
+    float p[kNk][4], ds[kNk][4];
+    tile_scores_bf16<D, kNk>(p, qs, m0, kts, lane);    // s = Q K^T
+    tile_scores_bf16<D, kNk>(ds, dos, m0, vts, lane);  // dp = dO V^T
+    // every pair of the warp's 16 queries and the tile's keys visible: no
+    // mask to form
+    const bool dense =
+        q0 + m0 + 16 <= t_q && kk0 + kKeys <= t_k &&
+        (!causal || q_off + q0 + m0 >= k_off + kk0 + kKeys - 1);
+    if (dense) {
+#pragma unroll
+      for (int j = 0; j < kNk; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int kc = 8 * j + 2 * tq + (r & 1);
+          p[j][r] = prob(p[j][r], scale_log2, bias_s[kc] - lse_r[r >> 1]);
+          ds[j][r] = p[j][r] * (ds[j][r] - delta_r[r >> 1]);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNk; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int qp = q0 + m0 + gq + 8 * (r >> 1);
+          const int kc = 8 * j + 2 * tq + (r & 1);
+          const int kp = kk0 + kc;
+          const bool valid = qp < t_q && kp < t_k &&
+                             (!causal || q_off + qp >= k_off + kp);
+          p[j][r] = valid ? prob(p[j][r], scale_log2,
+                                 bias_s[kc] - lse_r[r >> 1])
+                          : 0.f;
+          ds[j][r] = p[j][r] * (ds[j][r] - delta_r[r >> 1]);
+        }
+    }
+    uint32_t hi[kNk / 2][4], lo[kNk / 2][4];
+    split_bf16<kNk / 2>(ds, hi, lo);
+    tile_product_bf16<D, kNk / 2, D, kGroup>(acc, hi, lo, kts, 0,
+                                             lane);    // dQ += ds K
+  }
+
+  store_rows<D>(dq + n * st.dq.b + h * st.dq.h, st.dq.r, acc, scale,
+                q0 + m0, 0, t_q, gq, tq);
+}
+
 BwdStrides unpack(const int64_t* s) {
   // host array: (batch, head, row) for q, k, v, o, dO, dQ, dK, dV
   BwdStrides st;
@@ -452,6 +853,24 @@ BwdStrides unpack(const int64_t* s) {
   return st;
 }
 
+// The kernels of an operand type: float32 (3xTF32) or bf16
+template <int D>
+auto dkv_kernel(const float*) {
+  return &flash_bwd_dkv_kernel<D>;
+}
+template <int D>
+auto dkv_kernel(const bf16*) {
+  return &flash_bwd_dkv_bf16_kernel<D>;
+}
+template <int D>
+auto dq_kernel(const float*) {
+  return &flash_bwd_dq_kernel<D>;
+}
+template <int D>
+auto dq_kernel(const bf16*) {
+  return &flash_bwd_dq_bf16_kernel<D>;
+}
+
 template <int D, typename T>
 int launch_dkv(const T* q, const T* k, const T* v, const T* o,
                const T* dout, const float* lse, const float* dlse,
@@ -459,8 +878,10 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* o,
                int n_head, int t_q, int t_k, const BwdStrides& st,
                float scale, int causal, int q_off, int k_off,
                cudaStream_t stream) {
-  auto kernel = &flash_bwd_dkv_kernel<D, T>;
-  const size_t smem = dkv_smem_bytes<D>();
+  auto kernel = dkv_kernel<D>(q);
+  const size_t smem = std::is_same<T, float>::value
+                          ? dkv_smem_bytes<D>()
+                          : dkv_bf16_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -479,8 +900,10 @@ int launch_dq(const T* q, const T* k, const T* v, const T* o,
               const float* bias, T* dq, int n_batch, int n_head, int t_q,
               int t_k, const BwdStrides& st, float scale, int causal,
               int q_off, int k_off, cudaStream_t stream) {
-  auto kernel = &flash_bwd_dq_kernel<D, T>;
-  const size_t smem = dq_smem_bytes<D>();
+  auto kernel = dq_kernel<D>(q);
+  const size_t smem = std::is_same<T, float>::value
+                          ? dq_smem_bytes<D>()
+                          : dq_bf16_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

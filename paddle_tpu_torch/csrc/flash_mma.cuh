@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels (csrc/flash_attention_fwd.cu
 // and csrc/flash_attention_bwd.cu): the swizzled shared-memory tiles, the
-// cp.async copies that fill them, and the 3xTF32 mma.sync products that
-// read them.
+// cp.async copies that fill them, and the 3xTF32 and bf16 mma.sync products
+// that read them.
 //
 // Products.  mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, made
 // float32-accurate by 3xTF32: each operand x is split in registers, as it
@@ -37,13 +37,10 @@
 // or past a limit are zero-filled, so undefined memory never meets an
 // accumulator.
 //
-// bf16 operands.  The backward kernels widen each bf16 operand to float32
-// as they stage it (stage_rows), so their tiles and products are the
-// float32 ones; a bf16 value is exact in TF32, so its split has a zero
-// small part.  The forward's bf16 path keeps bf16 tiles and multiplies on
-// the bf16 tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16
-// .f32 (mma_bf16), whose fragments hold two bf16 values a register, the
-// lower index in the low half (g = lane >> 2, t = lane & 3): A a0 (g,
+// bf16 operands.  The bf16 paths keep bf16 tiles and multiply on the bf16
+// tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// (mma_bf16), whose fragments hold two bf16 values a register, the lower
+// index in the low half (g = lane >> 2, t = lane & 3): A a0 (g,
 // 2t..2t+1), a1 (g+8, 2t..2t+1), a2 (g, 2t+8..2t+9), a3 (g+8,
 // 2t+8..2t+9); B b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g); C
 // as for the m16n8k8 product.  So the C fragments of two neighbouring
@@ -51,7 +48,18 @@
 // fragment of a 16-deep product as they stand.  bf16 tiles are [row][D]
 // with 16-byte chunks (8 values) XOR-swizzled by the row (at16): a 32-bit
 // fragment load of 8 rows x 4 columns and an ldmatrix of 8 rows both hit
-// distinct banks at D >= 64.
+// distinct banks at D >= 64 (two rows a bank at D = 32).  From such a
+// tile ldmatrix_x4 gives the A fragment of 16 of its rows, or the B
+// fragments of a product by its transpose (8 rows a column of B), and
+// ldmatrix_x4_trans the B fragments of a product by the tile itself.  A
+// product of bf16 values is exact, so a bf16 operand staged as it is
+// takes one pass (tile_scores_bf16).  A float32 operand (the backward's
+// p and ds) rounded to bf16 would carry 2^-9 relative error into each
+// term; split into hi = bf16(x) and lo = bf16(x - hi) (split_bf16) it
+// keeps 16 bits, and the product takes two passes, lo first
+// (tile_product_bf16): tests/test_torch_flash_backward.py emulates both
+// against chip_smoke.py's bf16 gradient gate.  The one-tile-an-
+// accumulator rule holds here too.
 
 #pragma once
 
@@ -95,12 +103,9 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Copy rows [row0, row0 + n_rows) of one head of a strided operand into a
-// swizzled float32 [n_rows][D] tile; rows at or past `limit` become
-// zeros.  A float32 source goes through cp.async; a bf16 source is read
-// 16 bytes (8 values) a thread with ordinary loads, widened exactly to
-// float32 and stored as two 16-byte chunks, so it has landed when the
-// function returns.
+// Copy rows [row0, row0 + n_rows) of one head of a strided float32
+// operand into a swizzled [n_rows][D] tile through cp.async; rows at or
+// past `limit` become zeros.
 template <int D>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int64_t row_stride, int row0,
@@ -114,34 +119,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
     float* d = dst + at<D>(r, col);
     const float* s = src + static_cast<int64_t>(row) * row_stride + col;
     cp16(d, ok ? s : src, ok);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const __nv_bfloat16* src,
-                                           int64_t row_stride, int row0,
-                                           int limit, int n_rows,
-                                           int n_threads) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < n_rows * kChunks; c += n_threads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const int row = row0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row < limit)
-      raw = __ldg(reinterpret_cast<const uint4*>(
-          src + static_cast<int64_t>(row) * row_stride + col));
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    float f[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-    *reinterpret_cast<float4*>(dst + at<D>(r, col)) =
-        make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(dst + at<D>(r, col + 4)) =
-        make_float4(f[4], f[5], f[6], f[7]);
   }
 }
 
@@ -198,6 +175,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(row)));
 }
 
+// Four 8 x 8 bf16 matrices: lanes 8i..8i+7 give the row addresses of
+// matrix i, and register i receives, in each lane (g, t), columns 2t and
+// 2t+1 of row g of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
 // c += a b over one m16n8k16 tile, bf16 operands, float32 accumulator
 __device__ __forceinline__ void mma_bf16(float (&c)[4],
                                          const uint32_t (&a)[4],
@@ -206,6 +194,123 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8*NT) = a[m0:m0+16] . b[0:8*NT]^T over the depth D, bf16
+// operands, one pass: a warp's rows of a score tile; a and b are
+// swizzled bf16 [rows][D] tiles.  A fragments by ldmatrix_x4 of a's 16
+// rows, B fragments by ldmatrix_x4 of 16 of b's rows (two n-tiles a
+// call).  One accumulator per tile over a depth of D.
+template <int D, int NT>
+__device__ __forceinline__ void tile_scores_bf16(float (&c)[NT][4],
+                                                 const __nv_bfloat16* a,
+                                                 int m0,
+                                                 const __nv_bfloat16* b,
+                                                 int lane) {
+  static_assert(NT % 2 == 0, "n-tiles in pairs");
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[j][r] = 0.f;
+  const int a_row = m0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a + at16<D>(a_row, kk + a_col));
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + at16<D>(16 * jp + b_row, kk + b_col));
+      mma_bf16(c[2 * jp], af, bf[0], bf[1]);
+      mma_bf16(c[2 * jp + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The C fragments of 16 x 16*KS float32 values (2*KS score tiles) as the
+// A fragments of a 16*KS-deep product, split x = hi + lo: hi = x rounded
+// to nearest even bf16, lo = x - hi (exact in float32) rounded the same.
+template <int KS>
+__device__ __forceinline__ void split_bf16(const float (&c)[2 * KS][4],
+                                           uint32_t (&hi)[KS][4],
+                                           uint32_t (&lo)[KS][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* x = &c[2 * ks + (i >> 1)][2 * (i & 1)];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[0], x[1]);
+      const float2 hf = __bfloat1622float2(h);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(x[0] - hf.x,
+                                                     x[1] - hf.y);
+      hi[ks][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[ks][i] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+}
+
+// acc (16 x NC) += (hi + lo) (16 x 16*KS, A fragments from split_bf16)
+// . b[0:16*KS, c0:c0+NC] (a swizzled bf16 [row][D] tile, B fragments by
+// ldmatrix_x4_trans, two n-tiles a call): the lo pass, then the hi pass.
+// Each group of G columns sums the 16*KS rows in its own accumulators,
+// then adds them to acc in float32.
+template <int D, int KS, int NC, int G>
+__device__ __forceinline__ void tile_product_bf16(
+    float (&acc)[NC / 8][4], const uint32_t (&hi)[KS][4],
+    const uint32_t (&lo)[KS][4], const __nv_bfloat16* b, int c0,
+    int lane) {
+  static_assert(NC % G == 0 && G % 16 == 0, "column groups of n-tile pairs");
+  const int b_row = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int b_col = c0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int ng = 0; ng < NC / G; ++ng) {
+    float part[G / 8][4];
+#pragma unroll
+    for (int nn = 0; nn < G / 8; ++nn)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[nn][r] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t bf[G / 16][4];
+#pragma unroll
+      for (int np = 0; np < G / 16; ++np)
+        ldmatrix_x4_trans(bf[np], b + at16<D>(16 * ks + b_row,
+                                              b_col + ng * G + 16 * np));
+#pragma unroll
+      for (int np = 0; np < G / 16; ++np) {
+        mma_bf16(part[2 * np], lo[ks], bf[np][0], bf[np][1]);
+        mma_bf16(part[2 * np + 1], lo[ks], bf[np][2], bf[np][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < G / 16; ++np) {
+        mma_bf16(part[2 * np], hi[ks], bf[np][0], bf[np][1]);
+        mma_bf16(part[2 * np + 1], hi[ks], bf[np][2], bf[np][3]);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < G / 8; ++nn)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[ng * G / 8 + nn][r] += part[nn][r];
+  }
+}
+
+// acc + sum of a[i] * b[i] over the 8 bf16 values of a 16-byte chunk of
+// two tiles, widened exactly, float32 FMAs in column order
+__device__ __forceinline__ float dot8(const __nv_bfloat16* a,
+                                     const __nv_bfloat16* b, float acc) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(xs[i] << 16), __uint_as_float(ys[i] << 16),
+               acc);
+    acc = fmaf(__uint_as_float(xs[i] & 0xffff0000u),
+               __uint_as_float(ys[i] & 0xffff0000u), acc);
+  }
+  return acc;
 }
 
 // Copy n floats src[i0 + i] (i0 + i < limit) into dst, zeros past `limit`
@@ -321,16 +426,11 @@ __device__ __forceinline__ void tile_product(float (&acc)[NC / 8][4],
   }
 }
 
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // Write a warp's 16 x NC accumulator rows, row i times mul[i >= 8], to
-// rows [row0, row0 + 16) and columns [c0, c0 + NC) of a strided output
-// (float32, or bf16 rounded to nearest even), the rows before `limit`.
-template <int NC, typename T>
-__device__ __forceinline__ void store_rows(T* dst, int64_t row_stride,
+// rows [row0, row0 + 16) and columns [c0, c0 + NC) of a strided float32
+// output, the rows before `limit`.
+template <int NC>
+__device__ __forceinline__ void store_rows(float* dst, int64_t row_stride,
                                            const float (&acc)[NC / 8][4],
                                            const float (&mul)[2], int row0,
                                            int c0, int limit, int gq,
@@ -341,9 +441,30 @@ __device__ __forceinline__ void store_rows(T* dst, int64_t row_stride,
     for (int r = 0; r < 4; ++r) {
       const int row = row0 + gq + 8 * (r >> 1);
       if (row < limit)
-        put(dst + static_cast<int64_t>(row) * row_stride + c0 + nt * 8 +
-                2 * tq + (r & 1),
-            acc[nt][r] * mul[r >> 1]);
+        dst[static_cast<int64_t>(row) * row_stride + c0 + nt * 8 + 2 * tq +
+            (r & 1)] = acc[nt][r] * mul[r >> 1];
+    }
+}
+
+// The same into a bf16 output, each value rounded to nearest even once,
+// two neighbouring columns a 32-bit store (row strides even, the output
+// 4-byte aligned).
+template <int NC>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           int64_t row_stride,
+                                           const float (&acc)[NC / 8][4],
+                                           float mul, int row0, int c0,
+                                           int limit, int gq, int tq) {
+#pragma unroll
+  for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + gq + 8 * i;
+      if (row < limit)
+        *reinterpret_cast<uint32_t*>(
+            dst + static_cast<int64_t>(row) * row_stride + c0 + nt * 8 +
+            2 * tq) = pack_bf16(acc[nt][2 * i] * mul,
+                                acc[nt][2 * i + 1] * mul);
     }
 }
 

@@ -38,10 +38,16 @@ flash op) take the kernels' bf16 paths, counted as
 `flash_attention_fwd_bf16`, `flash_attention_bwd_dkv_bf16` and
 `flash_attention_bwd_dq_bf16`: the reference kernel's bf16 semantics —
 float32 scores and softmax from exact bf16 products, P rounded to bf16
-before P V, O stored bf16 and lse float32; the backward widens q, k, v,
-dO and the stored bf16 O to float32 and stores bf16 gradients.  A bias
-of either dtype is widened exactly to float32 for the kernels.  Their
-bound counts 2-byte operands and the 989 TFLOP/s bf16 peak.
+before P V, O stored bf16 and lse float32.  The backward's bf16 kernels
+(`flash_bwd_dkv_bf16_kernel`, `flash_bwd_dq_bf16_kernel`) stage bf16
+tiles and multiply on the bf16 tensor cores: s and dp in one pass of
+exact bf16 products, p, delta and ds in float32, and p and ds split
+into hi = bf16(x) and lo = bf16(x - hi) for two passes of dV, dK and dQ
+(one rounding of p and ds misses the bf16 gradient gate,
+tests/test_torch_flash_backward.py); float32 sums, bf16 gradients
+rounded once.  A bias of either dtype is widened exactly to float32 for
+the kernels.  Their bound counts 2-byte operands and the 989 TFLOP/s
+bf16 peak.
 
 Plain versions: `flash_attention_fwd_plain` and `flash_attention_bwd_plain`,
 the same functions as dense torch compositions (the scores are

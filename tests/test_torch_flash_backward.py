@@ -19,6 +19,11 @@ Tolerance 2e-5 (abs and rel) forward, 1e-4 for gradients: float32 on
 both sides, sums over T in other orders.  bf16 operands: the plain
 backward against the Pallas VJP from the same bf16 O, to one bf16 ulp
 (`test_bf16_plain_backward_matches_pallas_vjp`).
+
+The error budgets of the kernels' arithmetic, emulated in numpy: the
+float32 kernels' 3xTF32 products against one TF32 pass, and the bf16
+kernels' hi + lo split of p and ds against one bf16 rounding, each held
+to chip_smoke.py's gate for the kernels against the plain backward.
 """
 
 from __future__ import annotations
@@ -301,6 +306,108 @@ def test_error_budget_of_the_tensor_core_backward(causal, layout, passes,
         err = float(np.abs(a - b).max())
         assert (err <= TOL_BWD + TOL_BWD * float(np.abs(b).max())) == \
             meets, (name, err)
+
+
+# -- why the bf16 backward kernels split P and dS into hi + lo -------------
+
+TOL_BF16_GRAD = 2 ** -7     # chip_smoke.py phase 3g, plus 2^-10 of max
+
+
+def _bf16(x):
+    """float32 rounded to nearest even bf16, as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)) \
+        .bfloat16().float().numpy()
+
+
+def _bf16_product(a, b):
+    """a @ b of bf16 values with float32 accumulation: the products are
+    exact, the sums taken in float64 and rounded once."""
+    return (a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+
+
+def _bf16_product_tiled(a, b, passes, depth=64):
+    """a @ b for a float32 a and a bf16 b as the kernels' second products
+    take it: a rounded to bf16 once (1 pass) or split into hi = bf16(a)
+    and lo = bf16(a - hi) (2 passes, lo first), over `depth`-deep tiles of
+    the contraction, each tile's product one accumulator, the partial
+    sums added in float32."""
+    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], depth):
+        at, bt = a[:, k0:k0 + depth], b[k0:k0 + depth].astype(np.float64)
+        hi = _bf16(at)
+        part = hi.astype(np.float64) @ bt
+        if passes == 2:
+            part = _bf16(at - hi).astype(np.float64) @ bt + part
+        out += part.astype(np.float32)
+    return out
+
+
+def _bf16_tc_backward(q, k, v, do, o, lse, bias, causal, scale, passes):
+    """One head's bf16 backward as the bf16 kernels compute it: s and dp
+    as one bf16 pass over the depth D; p, delta and ds in float32; dV,
+    dK and dQ with p and ds rounded or split (`_bf16_product_tiled`) over
+    the kernels' 64-deep q and key tiles; one bf16 rounding at the end."""
+    f32 = np.float32
+    t_q, t_k = q.shape[0], k.shape[0]
+    s = _bf16_product(q, k.T) * f32(scale) + bias[None, :]
+    p = np.exp(s - lse[:, None])
+    if causal:
+        p = np.where(np.arange(t_q)[:, None] >= np.arange(t_k)[None, :],
+                     p, f32(0))
+    dp = _bf16_product(do, v.T)
+    delta = (do * o).sum(axis=1, dtype=f32)
+    ds = (p * (dp - delta[:, None])).astype(f32)
+    p = p.astype(f32)
+    return [_bf16(x) for x in (
+        _bf16_product_tiled(ds, k, passes) * f32(scale),
+        _bf16_product_tiled(ds.T, q, passes) * f32(scale),
+        _bf16_product_tiled(p.T, do, passes))]
+
+
+@pytest.mark.parametrize("passes,meets", [(1, False), (2, True)])
+@pytest.mark.parametrize("layout", ["nhtd", "nthd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_error_budget_of_the_bf16_tensor_core_backward(causal, layout,
+                                                       passes, meets, d):
+    """The bf16 backward with its products emulated as the bf16 kernels
+    take them (csrc/flash_attention_bwd.cu), against the bf16 plain
+    backward, on phase 3g's kind of inputs (unit normal bf16 q, k, v, dO,
+    a ragged bf16 key-padding bias, O and lse from the bf16 plain forward,
+    T = 256 as at phase 6i): with p and ds rounded to bf16 once before the
+    second products, some gradient misses chip_smoke's TOL_BF16_GRAD gate
+    (2^-7 relative plus 2^-10 of max, element by element); split into
+    hi + lo, every gradient meets it."""
+    n, h, t = 2, 2, 256
+    rng = np.random.RandomState(1 + causal)
+    shape = (n, t, h * d) if layout == "nthd" else (n, h, t, d)
+    q, k, v, do = (torch.as_tensor(rng.randn(*shape).astype(np.float32))
+                   .bfloat16() for _ in range(4))
+    lens = np.array([t, 150])
+    bias = torch.as_tensor(((np.arange(t)[None, :] < lens[:, None]) * 1e9
+                            - 1e9).reshape(n, 1, 1, t).astype(np.float32)) \
+        .bfloat16()
+    scale = d ** -0.5
+    o, lse = tk.flash_attention_fwd_plain(q, k, v, bias, scale, causal,
+                                          layout, h)
+    want = tk.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, None,
+                                        scale, causal, layout, h)[:3]
+    heads = [tk._heads(x, layout, n, h, t, d).float().numpy()
+             for x in (q, k, v, do, o)]
+    lse4 = lse.reshape(n, h, t).numpy()
+    got = np.zeros((3, n, h, t, d), np.float32)
+    for i in range(n):
+        for j in range(h):
+            got[:, i, j] = _bf16_tc_backward(
+                *(x[i, j] for x in heads), lse4[i, j],
+                bias[i, 0, 0].float().numpy(), causal, scale, passes)
+    within = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = tk._heads(b, layout, n, h, t, d).float().numpy()
+        over = np.abs(a - b) - (TOL_BF16_GRAD * np.abs(b)
+                                + 2 ** -10 * np.abs(b).max())
+        within[name] = float(over.max()) <= 0
+    assert all(within.values()) == meets, within
 
 
 # -- the composed route (biases the kernels do not take) ------------------

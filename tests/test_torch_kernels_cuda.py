@@ -401,11 +401,13 @@ def test_flash_bf16_kernel_matches_plain(dev, layout, causal, t, d):
 @pytest.mark.parametrize("t", [40, 130])
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_bf16_bwd_kernels_match_plain(dev, layout, causal, t, d):
-    """The backward's bf16 paths (operands widened to float32 as they are
-    staged, float32 arithmetic, dQ, dK and dV stored bf16) against the
-    bf16 plain backward, from the kernel's own bf16 O: each gradient
-    within 2^-7 relative (one bf16 ulp: both compute in float32 and round
-    once), the bf16 bias gradient the same."""
+    """The backward's bf16 kernels (bf16 tiles, the score products one
+    bf16 pass, p and ds split hi + lo for two passes of the second
+    products, float32 sums, dQ, dK and dV stored bf16) against the bf16
+    plain backward, from the kernel's own bf16 O: each gradient within
+    2^-7 relative (one bf16 ulp: both are float32-accurate and round
+    once; tests/test_torch_flash_backward.py emulates the split), the
+    bf16 bias gradient the same."""
     q, k, v, do, bias, h = _bf16_case(dev, layout, t, d, seed=t * d)
     o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal,
                                     layout=layout, n_head=h)
@@ -424,6 +426,105 @@ def test_flash_bf16_bwd_kernels_match_plain(dev, layout, causal, t, d):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
         assert torch.isfinite(a.float()).all(), name
         _bf16_close(a, b, name, 2 ** -7)
+
+
+@pytest.mark.parametrize("q_offset,k_offset", [(37, 5), (0, 40),
+                                                (60, 0), (0, 200)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bf16_bwd_kernels_with_offsets_match_plain(dev, q_offset,
+                                                         k_offset, d):
+    """The bf16 kernels under a causal mask with nonzero q/k offsets (ring
+    attention's use) at T = 130, with an lse cotangent: the mask formed
+    per fragment on the bf16 path, and dK/dV blocks that skip every q
+    tile (0/200: no query sees any key) writing zeros."""
+    q, k, v, do, bias, h = _bf16_case(dev, "nhtd", 130, d,
+                                      seed=q_offset + d)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, True, "nhtd", h,
+                                    q_offset, k_offset)
+    dlse = torch.randn(lse.shape, generator=torch.Generator()
+                       .manual_seed(d)).to(dev)
+    args = (q, k, v, bias, o, lse, do, dlse, None, True, "nhtd", h,
+            q_offset, k_offset)
+    got = fk.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    want = fk.flash_attention_bwd_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        _bf16_close(a, b, name, 2 ** -7)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [100, 200])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bf16_bwd_kernels_dlse_and_dbias_match_plain(dev, causal, t,
+                                                           d):
+    """T not a multiple of the kernels' 64-row tiles, a nonzero lse
+    cotangent, and the key bias's gradient (float32 in the kernel, summed
+    over heads, rounded to the bias's bf16) against the plain one; with
+    need_dbias=False the kernels write no bias gradient and the other
+    three keep their bits."""
+    q, k, v, do, bias, h = _bf16_case(dev, "nthd", t, d, seed=t + d)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal, "nthd", h)
+    dlse = torch.randn(lse.shape, generator=torch.Generator()
+                       .manual_seed(t + 1)).to(dev)
+    args = (q, k, v, bias, o, lse, do, dlse, None, causal, "nthd", h)
+    got = fk.flash_attention_bwd(*args, need_dbias=True)
+    torch.cuda.synchronize()
+    want = fk.flash_attention_bwd_plain(*args)
+    assert got[3].dtype == torch.bfloat16 and got[3].shape == bias.shape
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        _bf16_close(a, b, name, 2 ** -7)
+    plain = fk.flash_attention_bwd(*args, need_dbias=False)
+    assert plain[3] is None
+    assert all(torch.equal(a, b) for a, b in zip(plain[:3], got[:3]))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_bwd_kernels_give_the_same_bits_twice(dev, causal, d):
+    """Each bf16 block owns its dK/dV or dQ rows over the whole sum (no
+    atomics), so two runs on the same inputs agree bit for bit."""
+    q, k, v, do, bias, h = _bf16_case(dev, "nhtd", 256, d, h=8, seed=5)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, causal, "nhtd", h)
+    args = (q, k, v, bias, o, lse, do, None, None, causal, "nhtd", h)
+    first = fk.flash_attention_bwd(*args)
+    again = fk.flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("refused", ["dkv", "dq"])
+def test_flash_bf16_bwd_refused_launch_raises(dev, monkeypatch, refused):
+    """The bf16 entry points refuse rows that are not 16-byte aligned
+    (cudaErrorMisalignedAddress, 716) and head dims outside {32, 64, 128}
+    (cudaErrorInvalidValue, 1) before launching anything, and a refused
+    launch raises in the wrapper, uncounted, with no fallback."""
+    import ctypes
+
+    q, k, v, do, bias, h = _bf16_case(dev, "nhtd", 64, 64, seed=2)
+    o, lse = fk.flash_attention_fwd(q, k, v, bias, None, True, "nhtd", h)
+    lib = fk._bind_bwd()
+    name = f"flash_attention_bwd_{refused}_bf16"
+    outs = (3 if refused == "dkv" else 1) * [q.data_ptr()]
+    strides = (ctypes.c_int64 * 24)(*[8] * 24)
+    for ptr, d, rc in ((q.data_ptr() + 2, 64, 716), (q.data_ptr(), 96, 1)):
+        assert getattr(lib, name + "_launch")(
+            ptr, *[q.data_ptr()] * 4, lse.data_ptr(), None, None, *outs, 3,
+            h, d, 64, 64, strides, 0.125, 1, 0, 0, dev.index or 0,
+            fk._stream(q)) == rc
+
+    class Refusing:
+        def __getattr__(self, attr):
+            if attr == name + "_launch":
+                return lambda *args: 716
+            return getattr(lib, attr)
+
+    monkeypatch.setattr(fk, "_bind_bwd", Refusing)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        fk.flash_attention_bwd(q, k, v, bias, o, lse, do, None, None, True,
+                               "nhtd", h)
+    assert kernels.launch_counts[name] == before[name]
 
 
 @pytest.mark.parametrize("layout", ["nthd", "nhtd"])

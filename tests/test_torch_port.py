@@ -109,7 +109,8 @@ def test_chip_ab_takes_the_phases_to_run(monkeypatch, capsys):
 
     assert chip_ab.DEFAULT == ("fwd", "6d", "6")
     assert set(chip_ab.DEFAULT) <= set(chip_ab.PHASES)
-    assert {"6c", "6e", "stream"} <= set(chip_ab.PHASES)
+    assert {"6c", "6e", "stream", "bwd16", "6i", "6j"} <= \
+        set(chip_ab.PHASES)
     assert chip_ab.main(["a", "b", "6x"]) == 2
     assert chip_ab.main(["a"]) == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
