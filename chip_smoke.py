@@ -15,7 +15,11 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    int8 pools with ragged lengths and NaN past each length, at the
    serving shape and at a long-length shape (max_len 4096, lengths
    2048-4096, pools larger than the L2), twice with the same bits, timed
-   by the profiler's device time; causal flash
+   by the profiler's device time; paged attention at the speculative
+   verify run's shape (80 rows: 16 slots x 5 rows on one page table each
+   at staggered lengths, dead rows, two inactive slots; float32 and bf16
+   pools, with its own split plan and with the step's, plan_rows 16),
+   the bf16 case timed beside its bound; causal flash
    attention with a key-padding bias at T = 32, 64, 128 — and times the
    kernel, the plain version and, for flash, one library call
    (scaled_dot_product_attention, never used by the port) beside the
@@ -103,6 +107,23 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    bfloat16 KV, prefill buckets 32/64/128, decode chunk 16), with the
    kernel launch counts set to 0 just before and read just after;
    then times one decode step's host and device time alone (4b);
+   4c. the reference bench's serving_decode_spec_k4 at full width: the
+   same ARCH/SERVE with bf16 KV, 64 repeat-heavy prompts of 8-128 tokens,
+   budgets in 48..96, a ReqTracer(sample_rate=0) on each engine; first
+   the sequential engine, then DecodeEngine(speculate_k=4) with the
+   n-gram drafter, on the same weights: the same tokens request for
+   request, no kernel build after warmup, every committed token a
+   prefill's or a verify's, one paged launch a layer per verify run and
+   one flash launch a layer per prefill, no plain or composed call;
+   logs both engines' tokens/s, the accept rate and histogram, TTFT/TPOT
+   and the tracer's join_wait/dispatch p50; then one verify round alone:
+   each slot's first verify row equal, op for op and bit for bit, to the
+   step program's row at 16 rows (the batch invariance the parity rests
+   on), and its host and device time as in 4b;
+   4d. eight of those requests with a ModelDrafter of the target's own
+   ARCH and weights: the same tokens as the sequential engine, and per
+   verify round 1 + k paged launches a layer (the verify run and the
+   drafter's k steps); the accept histogram is logged;
 5. runs a short float32-KV stream on the card and the same requests
    through the port on the CPU from the same weights, and compares the
    prefill logits and one decode step's logits;
@@ -199,6 +220,8 @@ ARCH = dict(vocab_size=8192, n_layer=4, n_head=8, d_model=512,
 SERVE = dict(num_slots=16, page_size=16, max_len=512, num_pages=384,
              prefill_buckets=(32, 64, 128), decode_chunk=16)
 N_REQUESTS = 64
+SPEC_K = 4                    # phase 4c/4d: bench.py serving_decode_spec_k4
+N_ORACLE = 8                  # phase 4d's requests
 
 TOL_KERNEL = 2e-5     # f32 on both sides, other summation order
 TOL_LOGITS = 1e-3     # f32 end to end, TF32 off, logits of size ~1-10
@@ -479,6 +502,7 @@ def phase_kernels(dev):
     rows = {}
     log("phase 3: kernels vs plain versions on the card")
     rows["paged_attention"] = phase_paged_cases(dev)
+    rows["paged_attention_verify"] = phase_paged_verify_cases(dev)
 
     errs = []
 
@@ -603,6 +627,99 @@ def phase_paged_cases(dev):
                 f"{plan['n_splits']} splits of {plan['pages_per_split']} "
                 f"pages")
     log("  two paged runs bit-equal in every case")
+    row["max_abs_err"] = max(errs)
+    return row
+
+
+def paged_verify_case(kv_dtype, dev, seed=0, k=SPEC_K):
+    """The speculative verify run's paged call (phase 4c's shape): 16
+    slots x (k+1) = 80 rows, 8 heads of 64, pools of 384 pages of 16
+    rows; each slot's k+1 rows on that slot's page table at lengths
+    c+1..c+k+1 (c: its committed tokens, 8-128 prompt plus up to 96
+    generated), the rows past the slot's draft length (drawn from 0..k)
+    pinned to c+1 as the engine pins its dead rows, two slots inactive
+    (all their rows length 0 on the zero page table, as the engine leaves
+    them); 1e3 / NaN past each slot's longest row inside its last
+    page."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pk
+
+    g = torch.Generator().manual_seed(seed)
+    s, h, d = SERVE["num_slots"], ARCH["n_head"], ARCH["d_model"] // \
+        ARCH["n_head"]
+    page, p = SERVE["page_size"], SERVE["num_pages"]
+    maxp, k1, hd = SERVE["max_len"] // page, k + 1, h * d
+    committed = torch.randint(8, 128 + 96 - k, (s,), generator=g)
+    draft_len = torch.randint(0, k + 1, (s,), generator=g)
+    inactive = (3, 11)
+    kc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
+    vc = torch.randn(p, page, hd, generator=g).to(kv_dtype)
+    pt = torch.zeros(s * k1, maxp, dtype=torch.int32)
+    lens = torch.zeros(s * k1, dtype=torch.int32)
+    perm = torch.randperm(p, generator=g)
+    off, j = 0, torch.arange(k1)
+    for i in range(s):
+        if i in inactive:
+            continue
+        used = -(-(int(committed[i]) + k1) // page)
+        pages = perm[off:off + used]
+        off += used
+        rows = slice(i * k1, (i + 1) * k1)
+        pt[rows, :used] = pages.to(torch.int32)
+        lens[rows] = (committed[i] + 1 + torch.where(
+            j <= draft_len[i], j, 0)).to(torch.int32)
+        for t in range(int(lens[rows].max()), used * page):
+            kc[pages[t // page], t % page] = 1e3
+            vc[pages[t // page], t % page] = float("nan")
+    q = torch.randn(s * k1, hd, generator=g)
+    return pk, [x.to(dev) for x in (q, kc, vc, pt, lens)], h
+
+
+def phase_paged_verify_cases(dev):
+    """The paged kernel at the verify shape against its plain version,
+    float32 and bf16 pools, with the plan of the 80 rows and with the
+    step's plan (plan_rows 16, the main path's launch), twice bit-equal;
+    the bf16 case (the main path's pools) timed by device time beside the
+    wrapper back to back, the plain version and the bytes bound (a slot's
+    rows read its K/V rows once between them)."""
+    row, errs = {}, []
+    s = SERVE["num_slots"]
+    for kv_dtype in (torch.float32, torch.bfloat16):
+        pk, (q, kc, vc, pt, lens), h = paged_verify_case(kv_dtype, dev)
+        want = pk.paged_attention_plain(q, kc, vc, pt, lens, h)
+        for plan_rows in (None, s):
+            def kern(plan_rows=plan_rows):
+                return pk.paged_attention(q, kc, vc, pt, lens, n_head=h,
+                                          plan_rows=plan_rows)
+
+            got = kern()
+            torch.cuda.synchronize()
+            errs.append(check_close(
+                f"paged_attention verify shape {kv_dtype} plan_rows="
+                f"{plan_rows}", got, want, TOL_KERNEL))
+            if not torch.equal(kern(), got):
+                raise AssertionError(f"paged_attention verify shape "
+                                     f"{kv_dtype}: two runs differ")
+        if kv_dtype != torch.bfloat16:
+            continue
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = pk.launch_plan(q, kc, pt, h, sms, plan_rows=s)
+        names = _PAGED_KERNELS[:1 + (plan["n_splits"] > 1)]
+        dev_ms = sum(profiled_kernel_ms(kern, names, iters=100).values())
+        k_ms = cuda_ms(kern)
+        p_ms = cuda_ms(lambda: pk.paged_attention_plain(q, kc, vc, pt, lens,
+                                                        h))
+        nbytes, flops = pk.bound_bytes_and_flops(q, kc, pt, lens, h)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row.update(ms=dev_ms, wrapper_ms=k_ms, plain_ms=p_ms,
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, flops=flops, plan=plan,
+                   shape=f"rows=80 (16 slots x 5) P={kc.shape[0]} page=16 "
+                         f"maxp={pt.shape[1]} H*D=512 bf16, "
+                         f"sum(lengths)={int(lens.sum())}")
+        log(f"  paged_attention verify shape bf16: kernel device ms "
+            f"{dev_ms:.5f} (wrapper back to back {k_ms:.5f}) plain_ms "
+            f"{p_ms:.5f} bound_ms {b_ms:.5f} ({b_by}); "
+            f"{plan['n_splits']} splits of {plan['pages_per_split']} pages")
     row["max_abs_err"] = max(errs)
     return row
 
@@ -1865,9 +1982,6 @@ def phase_step_profile(dev, steps=20):
     this thread: host ms per step without the profiler, then one
     torch.profiler window for the device's busy time and the costliest
     kernels and host ops."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from paddle_tpu_torch import CUDAPlace
     from paddle_tpu_torch.core.executor import interpret_program
     from paddle_tpu_torch.models.decoder_lm import DecoderLM
@@ -1902,15 +2016,25 @@ def phase_step_profile(dev, steps=20):
                 None, fetch_names=fetch, device=dev)
             tok = out[step["next_token"]].to(torch.int32).cpu().numpy()
 
-    run_steps(3)
+    return _host_device_profile(run_steps, steps, "step")
+
+
+def _host_device_profile(run_n, steps, what):
+    """run_n(n) runs n rounds as the engine runs them; host ms a round
+    without the profiler, then one torch.profiler window for the device's
+    busy time and the costliest kernels and host ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_n(3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_steps(steps)
+    run_n(steps)
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_steps(steps)
+        run_n(steps)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / steps
     avg = prof.key_averages()
@@ -1931,14 +2055,334 @@ def phase_step_profile(dev, steps=20):
            "top_host_ops": [(e.key, e.count // steps,
                              e.self_cpu_time_total / steps)
                             for e in host[:8]]}
-    log(f"  step {step_ms:.3f} ms (profiled {prof_ms:.3f} ms); device "
-        f"busy {busy_ms:.4f} ms/step, idle share "
+    log(f"  {what} {step_ms:.3f} ms (profiled {prof_ms:.3f} ms); device "
+        f"busy {busy_ms:.4f} ms/{what}, idle share "
         f"{res['device_idle_share']:.3f}; "
-        f"{res['kernel_launches_per_step']:.0f} kernels/step")
+        f"{res['kernel_launches_per_step']:.0f} kernels/{what}")
     for name, n, us in res["top_kernels"]:
         log(f"    device {us:9.2f} us/step  x{n:<3d} {name[:70]}")
     for name, n, us in res["top_host_ops"]:
         log(f"    host   {us:9.2f} us/step  x{n:<3d} {name[:70]}")
+    return res
+
+
+# -- phases 4c/4d: speculative decoding -----------------------------------
+
+def repeat_heavy_prompts(n, vocab, lo, hi, seed=0):
+    """The reference bench's repeat-heavy stream (paddle_tpu bench.py
+    `_repeat_heavy_prompts`, copied): short random motifs tiled to ragged
+    prompt lengths."""
+    rng = np.random.RandomState(seed)
+    prompts = []
+    for _ in range(n):
+        motif = rng.randint(1, vocab, size=rng.randint(2, 5))
+        length = rng.randint(lo, hi + 1)
+        prompts.append(np.tile(motif, -(-length // len(motif)))
+                       [:length].astype(np.int64))
+    return prompts
+
+
+def _spec_setup():
+    """(DecoderLM, DecodeConfig, weights on the card, prompts, budgets) of
+    the reference's serving_decode_spec_k4 (bench.py:1236-1290 at the TPU
+    widths): phase 4's ARCH/SERVE with bf16 KV, 64 repeat-heavy prompts of
+    8-128 tokens, budgets randint(48, 97) from seed 1."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM
+    from paddle_tpu_torch.serving.decode import DecodeConfig
+
+    lm = DecoderLM(kv_dtype="bfloat16", prefill_pallas=True, **ARCH)
+    cfg = DecodeConfig(kv_dtype="bfloat16", **SERVE)
+    scope = lm.init_params(place=CUDAPlace(0))
+    params = {n: v for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor) and n != RNG_STATE_VAR}
+    prompts = repeat_heavy_prompts(N_REQUESTS, ARCH["vocab_size"], 8, 128)
+    budgets = [int(b) for b in
+               np.random.RandomState(1).randint(48, 97, N_REQUESTS)]
+    return lm, cfg, params, prompts, budgets
+
+
+def _serve(lm, cfg, params, prompts, budgets, **engine_kw):
+    """One stream through a fresh DecodeEngine on the card with a
+    ReqTracer(sample_rate=0), the kernel counts zeroed just before the
+    first submit and read after the last result.  Checks every request
+    got its budget, no failure, no kernel build after warmup and no
+    plain or composed call.  Returns (tokens, wall s, stats snapshot,
+    counts, tracer)."""
+    from paddle_tpu_torch import CUDAPlace
+    from paddle_tpu_torch.observe import ReqTracer
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving.decode import DecodeEngine
+
+    tracer = ReqTracer(sample_rate=0.0)
+    eng = DecodeEngine(lm, cfg, place=CUDAPlace(0), params=params,
+                       tracer=tracer, queue_capacity=4 * len(prompts),
+                       **engine_kw).start()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=b)
+            for p, b in zip(prompts, budgets)]
+    outs = [f.result(600).tolist() for f in futs]
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    assert eng.drain(60)
+    snap = eng.stats.snapshot()
+    eng.close()
+    bad = [(i, len(o), b) for i, (o, b) in enumerate(zip(outs, budgets))
+           if len(o) != b]
+    assert not bad, f"requests without their full budget: {bad[:5]}"
+    assert snap["executor_failures"] == 0, snap
+    assert snap["post_warmup_compiles"] == 0, snap
+    assert max(counts["plain"].values()) == 0 \
+        and max(counts["composed"].values()) == 0, counts
+    return outs, wall, snap, counts, tracer
+
+
+def _check_parity(spec_outs, seq_outs, label):
+    diverged = [i for i, (a, b) in enumerate(zip(spec_outs, seq_outs))
+                if a != b]
+    if diverged:
+        i = diverged[0]
+        at = next(j for j, (x, y) in enumerate(zip(spec_outs[i],
+                                                   seq_outs[i])) if x != y)
+        raise AssertionError(
+            f"{label}: {len(diverged)} request(s) diverged from the "
+            f"sequential engine; request {i} at token {at}")
+    log(f"  token parity with the sequential engine: {len(seq_outs)} "
+        f"requests, {sum(map(len, seq_outs))} tokens")
+
+
+def _spec_summary(snap, wall, seq_wall, tracer):
+    spec = snap["speculation"]
+    phases = tracer.phase_summary()
+    res = {"tokens": snap["tokens_generated"], "wall_s": wall,
+           "tokens_per_s": snap["tokens_generated"] / wall,
+           "sequential_tokens_per_s": snap["tokens_generated"] / seq_wall,
+           "speedup_vs_sequential": seq_wall / wall,
+           **{k: spec[k] for k in ("accept_rate", "accept_hist",
+                                   "speculation_efficiency",
+                                   "verify_dispatches", "drafted_tokens",
+                                   "accepted_tokens", "emitted_tokens")},
+           "ttft_ms": snap["ttft_ms"], "tpot_ms": snap["tpot_ms"],
+           "join_wait_ms_p50": phases["join_wait"]["p50_ms"],
+           "dispatch_ms_p50": phases["dispatch"]["p50_ms"],
+           "prefills": snap["prefills"], "preemptions": snap["preemptions"],
+           "post_warmup_compiles": snap["post_warmup_compiles"]}
+    log(f"  speculative {res['tokens_per_s']:.1f} tokens/s, sequential "
+        f"{res['sequential_tokens_per_s']:.1f} tokens/s: speedup "
+        f"{res['speedup_vs_sequential']:.3f}")
+    log(f"  accept_rate {spec['accept_rate']} accept_hist "
+        f"{spec['accept_hist']} speculation_efficiency "
+        f"{spec['speculation_efficiency']}; {spec['verify_dispatches']} "
+        f"verify runs, {snap['prefills']} prefills, "
+        f"{snap['preemptions']} preemptions")
+    log(f"  TTFT p50 {snap['ttft_ms']['p50_ms']} ms p99 "
+        f"{snap['ttft_ms']['p99_ms']} ms; TPOT p50 "
+        f"{snap['tpot_ms']['p50_ms']} ms p99 {snap['tpot_ms']['p99_ms']} ms;"
+        f" tracer join_wait p50 {res['join_wait_ms_p50']} ms, dispatch "
+        f"p50 {res['dispatch_ms_p50']} ms")
+    return res
+
+
+def phase_speculative_stream(dev):
+    """Phase 4c: the sequential engine (decode chunk 16), then
+    DecodeEngine(speculate_k=4) with the n-gram drafter, on the same
+    stream and weights: token parity request for request, every verify
+    run one paged launch a layer, every prefill one flash launch a
+    layer; then one verify round alone (phase_verify_round)."""
+    log(f"phase 4c: speculative decoding (k = {SPEC_K}, NGramDrafter) vs "
+        f"the sequential engine, {N_REQUESTS} repeat-heavy requests")
+    lm, cfg, params, prompts, budgets = _spec_setup()
+    seq_outs, seq_wall, seq_snap, seq_counts, _ = _serve(
+        lm, cfg, params, prompts, budgets)
+    layers = ARCH["n_layer"]
+    assert seq_counts["launches"]["paged_attention"] == \
+        layers * seq_snap["decode_iterations"], seq_counts
+    outs, wall, snap, counts, tracer = _serve(
+        lm, cfg, params, prompts, budgets, speculate_k=SPEC_K)
+    _check_parity(outs, seq_outs, "phase 4c")
+    spec = snap["speculation"]
+    la = counts["launches"]
+    assert spec["emitted_tokens"] + snap["prefill_joins"] == \
+        snap["tokens_generated"], (spec, snap)
+    assert la["paged_attention"] == layers * spec["verify_dispatches"], \
+        (la, spec)
+    assert la["flash_attention_fwd"] == layers * snap["prefills"], \
+        (la, snap["prefills"])
+    res = _spec_summary(snap, wall, seq_wall, tracer)
+    res["sequential_decode_iterations"] = seq_snap["decode_iterations"]
+    res["launches"] = {
+        "paged_attention": seq_counts["launches"]["paged_attention"],
+        "paged_attention_verify": la["paged_attention"],
+        "flash_attention_fwd": la["flash_attention_fwd"]
+        + seq_counts["launches"]["flash_attention_fwd"]}
+    log(f"  launches: sequential {seq_counts['launches']}, speculative {la}")
+    res["verify_round"] = phase_verify_round(dev, lm, params)
+    return res
+
+
+def phase_verify_round(dev, lm, params, rounds=20):
+    """One verify round at 16 slots x 5 rows after a prefill of 16
+    prompts: first, every op's output in each slot's first row equals,
+    bit for bit, the step program's at 16 rows on the same inputs (the
+    batch invariance the engine's parity rests on: OpContext.row_block);
+    then host ms a round (feeds in, verify run, accepted and tokens read
+    back) and one profiled window, as phase 4b."""
+    from paddle_tpu_torch.core.executor import interpret_program
+
+    s, page, k1 = SERVE["num_slots"], SERVE["page_size"], SPEC_K + 1
+    maxp = SERVE["max_len"] // page
+    rng = np.random.RandomState(4)
+    lens = rng.randint(8, 129, size=s).astype(np.int32)
+    n_pg = -(-(128 + k1 * (2 * rounds + 4)) // page)
+    pt = np.zeros((s, maxp), np.int32)
+    pt[:, :n_pg] = np.arange(s * n_pg).reshape(s, n_pg)
+    pools = lm.fresh_pools(SERVE["num_pages"], page, dev)
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def run(built, fetch, pools, row_block=None, **feeds):
+        env = dict(params)
+        env.update(pools)
+        env.update({n: T(a) for n, a in feeds.items()})
+        return interpret_program(built["main"], env, None,
+                                 fetch_names=(*fetch, *built["cache_outs"]),
+                                 device=dev, row_block=row_block)
+
+    tokens = np.zeros((s, 128), np.int32)
+    for i in range(s):
+        tokens[i, :lens[i]] = rng.randint(1, ARCH["vocab_size"], lens[i])
+    pre = lm.prefill(128)
+    env = run(pre, (pre["next_token"],), pools, tokens=tokens, seq_len=lens,
+              last_idx=(lens - 1)[:, None], page_table=pt)
+    pools = {n: env[o] for n, o in zip(lm.cache_feed_names(),
+                                       pre["cache_outs"])}
+    cur = env[pre["next_token"]].to(torch.int32).cpu().numpy()
+    ver = lm.verify(SPEC_K)
+    drafts = rng.randint(1, ARCH["vocab_size"], (s, SPEC_K)).astype(np.int32)
+
+    def verify_feeds(pos):
+        folded = np.zeros((4, s * k1), np.int32)
+        ar = np.arange(k1)
+        for i in range(s):
+            b = i * k1
+            folded[0, b] = cur[i]
+            folded[0, b + 1:b + k1] = drafts[i]
+            folded[1, b:b + k1] = pos[i] + ar
+            folded[2, b:b + k1] = pos[i] + ar + 1
+            folded[3, b:b + k1] = 1
+        return dict(tokens=folded[0], write_pos=folded[1],
+                    lengths=folded[2], active=folded[3], drafts=drafts,
+                    draft_len=np.full(s, SPEC_K, np.int32),
+                    slot_active=np.ones(s, np.int32),
+                    page_table=np.repeat(pt, k1, axis=0))
+
+    step = lm.step
+    a = run(step, (step["next_token"],),
+            {n: v.clone() for n, v in pools.items()}, tokens=cur,
+            write_pos=lens, lengths=lens + 1, active=np.ones(s, np.int32),
+            page_table=pt)
+
+    def row_diffs(row_block):
+        """[(op, var, max abs diff)] of the step program's row outputs
+        where a verify run's slot rows differ from the step run's."""
+        b = run(ver, (ver["accepted"],),
+                {n: v.clone() for n, v in pools.items()},
+                row_block=row_block, **verify_feeds(lens))
+        diffs, compared = [], 0
+        for op in step["main"].global_block().ops:
+            for names in op.desc.outputs.values():
+                for n in names:
+                    x, y = a.get(n), b.get(n)
+                    if not (isinstance(x, torch.Tensor) and x.dim() > 0
+                            and x.shape[0] == s and y.shape[0] == s * k1):
+                        continue
+                    compared += 1
+                    if not torch.equal(x, y[::k1]):
+                        diffs.append((op.type, n, float(
+                            (x.float() - y[::k1].float()).abs().max())))
+        return diffs, compared
+
+    # without batch invariance, for the record: which ops' rows depend on
+    # the row count on this card (ROADMAP C8)
+    loose, compared = row_diffs(None)
+    log(f"  without row_block: {len(loose)} of {compared} row outputs "
+        f"differ from the step's; first {loose[:1]}; ops "
+        f"{sorted({d[0] for d in loose})}")
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(s * k1, ARCH["d_model"], generator=g).to(dev)
+    for n_out in (ARCH["d_model"], ARCH["d_inner"], ARCH["vocab_size"]):
+        w = torch.randn(ARCH["d_model"], n_out, generator=g).to(dev)
+        d = float(((x @ w)[::k1] - x[::k1].contiguous() @ w).abs().max())
+        log(f"  torch.matmul rows at {s * k1} rows vs {s} rows, N = "
+            f"{n_out}: max abs diff {d:.3e}")
+    diffs, compared = row_diffs(s)
+    if diffs:
+        raise AssertionError(f"verify rows differ from the step rows: "
+                             f"{diffs[:3]}")
+    log(f"  verify rows = step rows bit for bit at all {compared} row "
+        f"outputs of the step program")
+
+    pos = lens.copy()
+
+    def run_rounds(n):
+        nonlocal pos, pools
+        for _ in range(n):
+            env = run(ver, (ver["accepted"], ver["tokens"]), pools,
+                      row_block=s, **verify_feeds(pos))
+            pools = {n_: env[o] for n_, o in zip(lm.cache_feed_names(),
+                                                 ver["cache_outs"])}
+            both = torch.cat([env[ver["accepted"]][:, None],
+                              env[ver["tokens"]]], dim=1).cpu()
+            pos = pos + 1 + both[:, 0].numpy().clip(0, SPEC_K)
+
+    res = _host_device_profile(run_rounds, rounds, "verify round")
+    res["row_outputs_bit_equal"] = compared
+    res["row_outputs_differing_without_row_block"] = loose
+    return res
+
+
+def phase_oracle_stream(dev):
+    """Phase 4d: 8 requests through the sequential engine and through
+    DecodeEngine(speculate_k=4) with a ModelDrafter of the target's own
+    ARCH and weights: token parity, and per verify round one paged launch
+    a layer for the verify run plus k for the drafter's steps; per
+    prefill one flash launch a layer for the engine and one a layer but
+    the last for the drafter's mirror.  The accept histogram is the reference's
+    (ROADMAP C7): logged, not held to all-accept."""
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM
+    from paddle_tpu_torch.serving.speculate import ModelDrafter
+
+    log(f"phase 4d: oracle ModelDrafter (the target's ARCH and weights), "
+        f"{N_ORACLE} requests")
+    lm, cfg, params, prompts, budgets = _spec_setup()
+    prompts, budgets = prompts[:N_ORACLE], budgets[:N_ORACLE]
+    seq_outs, seq_wall, _, seq_counts, _ = _serve(lm, cfg, params, prompts,
+                                                  budgets)
+    drafter = ModelDrafter(DecoderLM(kv_dtype="bfloat16",
+                                     prefill_pallas=True, **ARCH),
+                           k=SPEC_K, params=params)
+    outs, wall, snap, counts, tracer = _serve(
+        lm, cfg, params, prompts, budgets, speculate_k=SPEC_K,
+        drafter=drafter)
+    _check_parity(outs, seq_outs, "phase 4d")
+    spec = snap["speculation"]
+    la, layers = counts["launches"], ARCH["n_layer"]
+    verify = layers * spec["verify_dispatches"]
+    assert la["paged_attention"] == verify * (1 + SPEC_K), (la, spec)
+    # the drafter's mirror fetches only the pools, so its last layer's
+    # attention output, which feeds no pool, is pruned from its prefill
+    assert la["flash_attention_fwd"] == \
+        (2 * layers - 1) * snap["prefills"], (la, snap["prefills"])
+    res = _spec_summary(snap, wall, seq_wall, tracer)
+    res["launches"] = {
+        "paged_attention": seq_counts["launches"]["paged_attention"]
+        + la["paged_attention"] - verify,
+        "paged_attention_verify": verify,
+        "flash_attention_fwd": la["flash_attention_fwd"]
+        + seq_counts["launches"]["flash_attention_fwd"]}
     return res
 
 
@@ -2910,6 +3354,8 @@ def main() -> int:
     refused = timed("3e", phase_refused_shapes, dev)
     stream = timed("4", phase_stream, dev)
     profile = timed("4b", phase_step_profile, dev)
+    spec_stream = timed("4c", phase_speculative_stream, dev)
+    oracle = timed("4d", phase_oracle_stream, dev)
     parity = timed("5", phase_card_vs_cpu, dev)
     train = timed("6", phase_train, dev, card)
     train_fused = timed("6c", phase_train, dev, card, "phase 6c",
@@ -2943,6 +3389,8 @@ def main() -> int:
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
     replaces = {
         "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:163",
+        "paged_attention_verify":
+            "paddle_tpu/ops/pallas/paged_attention.py:163",
         "flash_attention_fwd": f"{fa}:276",
         "flash_attention_bwd_dkv": f"{fa}:402",
         "flash_attention_bwd_dq": f"{fa}:458",
@@ -2955,7 +3403,8 @@ def main() -> int:
         "lstm_fwd": "paddle_tpu/ops/pallas/recurrence.py:216",
         "lstm_bwd": "paddle_tpu/ops/pallas/recurrence.py:247",
     }
-    sources = {"flash_attention_bwd_dkv": "flash_attention_bwd",
+    sources = {"paged_attention_verify": "paged_attention",
+               "flash_attention_bwd_dkv": "flash_attention_bwd",
                "flash_attention_bwd_dq": "flash_attention_bwd",
                "flash_attention_fwd_bf16": "flash_attention_fwd",
                "flash_attention_bwd_dkv_bf16": "flash_attention_bwd",
@@ -2964,12 +3413,16 @@ def main() -> int:
                "vocab_ce_dw": "vocab_ce", "lstm_fwd": "lstm",
                "lstm_bwd": "lstm"}
     # each path's launches, its counts zeroed just before it: the flash
-    # forward runs on the serving path, the three Transformer training
+    # forward runs on the serving paths and the Transformer training
     # paths and BERT's, the LSTM kernels on the stacked-LSTM path, the
-    # flash kernels' bf16 paths on the AMP Transformer's and BERT's
-    paths = (stream, train, train_fused, train_longctx, train_lstm,
-             train_bert, train_amp, train_bert_amp)
-    launches = {k: sum(p["launches"][k] for p in paths) for k in replaces}
+    # flash kernels' bf16 paths on the AMP Transformer's and BERT's; the
+    # paged kernel at the step shape on the sequential engines and the
+    # model drafter's steps, at the verify shape (paged_attention_verify)
+    # on the speculative engines' verify runs
+    paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
+             train_lstm, train_bert, train_amp, train_bert_amp)
+    launches = {k: sum(p["launches"].get(k, 0) for p in paths)
+                for k in replaces}
     kern = []
     for name in replaces:
         r = rows[name]
@@ -2991,6 +3444,8 @@ def main() -> int:
                    "flash_bert_shape": flash_bert,
                    "refused_shapes": refused,
                    "stream": stream, "step_profile": profile,
+                   "speculative_stream": spec_stream,
+                   "oracle_model_drafter": oracle,
                    "card_vs_cpu": parity, "train": train,
                    "train_fused_ce": train_fused,
                    "train_longctx": train_longctx,

@@ -148,23 +148,24 @@ def place_device(place) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
-            program=None, device=None):
+            program=None, device=None, row_block=None):
     """Run a straight-line op list over `env` (name → tensor), in order
     — the executor hot loop (executor.cc:448).  `seed` is the run's RNG
     seed material (see OpContext.rng), None when no op may draw.
     `device` None means CUDAPlace(0) (`place_device`).  The program's
     bf16 policy (`program._amp_lists`, amp.py), when it has one, casts
-    each op's inputs at dispatch."""
+    each op's inputs at dispatch.  `row_block`: see OpContext."""
     device = _run_device(device)
     amp_lists = getattr(program, "_amp_lists", None)
     for i, op in enumerate(ops):
         _run_one_op(op, env, seed, start_index + i, program=program,
-                    device=device, amp_lists=amp_lists)
+                    device=device, amp_lists=amp_lists,
+                    row_block=row_block)
     return env
 
 
 def _run_one_op(op, env, seed, op_index, program=None, device=None,
-                sparse_rows=None, amp_lists=None):
+                sparse_rows=None, amp_lists=None, row_block=None):
     desc = op.desc
     try:
         impl = get_op_impl(desc.type)
@@ -179,7 +180,7 @@ def _run_one_op(op, env, seed, op_index, program=None, device=None,
             ins = cast_ins_for_op(desc.type, ins, amp_lists)
         ctx = OpContext(seed, op_index=op_index, program=program,
                         device=device, amp_lists=amp_lists,
-                        sparse_rows=sparse_rows)
+                        sparse_rows=sparse_rows, row_block=row_block)
         outs = impl(ctx, ins, desc.attrs)
     except Exception as exc:
         _reraise_with_op_context(exc, desc, op_index)
@@ -254,11 +255,13 @@ def _run_device(device) -> torch.device:
 
 
 def interpret_program(program: Program, env: Dict[str, Any], seed,
-                      fetch_names=(), device=None):
+                      fetch_names=(), device=None, row_block=None):
     """Run the program over env: a forward program pruned to what the
     fetches and persistable state need; a training program whole
     (forward, gradients, update ops; training programs are never pruned,
-    as in the reference).  `device` None means CUDAPlace(0)."""
+    as in the reference).  `device` None means CUDAPlace(0).
+    `row_block` (forward programs): each row computed as in a run of
+    `row_block` rows (OpContext)."""
     device = _run_device(device)
     if len(program.blocks) > 1:
         raise NotImplementedError(
@@ -266,7 +269,7 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
             "item 6 (ops/control_flow.py)")
     if program._backward_info is None:
         return run_ops(_pruned(program, fetch_names), env, seed,
-                       program=program, device=device)
+                       program=program, device=device, row_block=row_block)
     return _train_step(program, env, seed, device, fetch_names)
 
 

@@ -77,17 +77,27 @@ class OpContext:
     SparseGrad path to the rows the Executor gathered for it (the
     autograd leaves the table's gradient is taken through); None
     elsewhere.
+
+    `row_block` (None: off) asks the ops whose row results depend on how
+    many rows run together for batch invariance: each row is computed
+    as in a run of `row_block` rows.  `mul` runs its product in blocks
+    of `row_block` rows (cuBLAS picks its kernel, and so its summation
+    order, by the row count) and `paged_attention` launches with the
+    split plan of `row_block` rows.  The speculative decode engine sets
+    it to the slot count, so its verify run at S*(k+1) rows gives each
+    row the bits of the step run at S rows (serving/decode.py).
     """
 
     def __init__(self, seed=None, op_index: int = 0, is_test: bool = False,
                  program=None, device=None, sparse_rows=None,
-                 amp_lists=None):
+                 amp_lists=None, row_block=None):
         self._seed = seed
         self.op_index = op_index
         self.is_test = is_test
         self.program = program
         self.amp_lists = amp_lists
         self.sparse_rows = sparse_rows
+        self.row_block = row_block
         if device is None:
             # no implicit CPU: None is CUDAPlace(0), as for the Executor
             from .executor import place_device

@@ -17,7 +17,8 @@ from .nn import (add_position_encoding_at, batch_norm,  # noqa: F401
                  layer_norm, matmul, mean, one_hot, paged_attention,
                  paged_kv_prefill_write, paged_kv_write, pool2d, reduce_mean,
                  reduce_sum, reshape, scale, sigmoid_cross_entropy_with_logits,
-                 slice, softmax, softmax_with_cross_entropy, squeeze, topk,
+                 slice, softmax, softmax_with_cross_entropy,
+                 speculative_accept, squeeze, topk,
                  transpose, unsqueeze)
 from .ops import gelu, sigmoid, sqrt, square, tanh  # noqa: F401
 from .sequence import (add_position_encoding, dynamic_gru,  # noqa: F401

@@ -471,6 +471,27 @@ def paged_kv_prefill_write(k, v, k_cache, v_cache, page_table, seq_len,
                         k_scale, v_scale, name)
 
 
+def speculative_accept(drafts, predictions, draft_len, active=None,
+                       name=None):
+    """Greedy longest-accepted-prefix acceptance (ops/paged_kv.py):
+    Drafts (S, k) vs the verify run's argmax Predictions (S, k+1),
+    ragged per-slot draft lengths riding the DraftLen (S,) companion.
+    Returns (accepted (S,) int32 [-1 for inactive slots], tokens
+    (S, k+1) int32 [-1 padding]): accepted+1 committed tokens per
+    active slot, the sequential engine's stream."""
+    helper = LayerHelper("speculative_accept", name=name)
+    accepted = helper.create_variable_for_type_inference("int32")
+    tokens = helper.create_variable_for_type_inference("int32")
+    ins = {"Drafts": [drafts], "Predictions": [predictions],
+           "DraftLen": [draft_len]}
+    if active is not None:
+        ins["Active"] = [active]
+    helper.append_op(type="speculative_accept", inputs=ins,
+                     outputs={"Accepted": [accepted],
+                              "Tokens": [tokens]})
+    return accepted, tokens
+
+
 def add_position_encoding_at(x, position, alpha=1.0, beta=1.0,
                              name=None):
     """X (S, D) + sinusoidal encoding at one position per row — the

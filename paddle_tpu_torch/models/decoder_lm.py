@@ -19,6 +19,9 @@ line up):
 - the **step** program (ONE, shape-polymorphic in slots/pool): token
   (S,) at write_pos -> `paged_kv_write` + `paged_attention` per layer,
   next-token argmax.
+- the **verify** program (one per draft length k): the step body at the
+  folded batch S*(k+1) plus in-step greedy acceptance
+  (`speculative_accept`) — the speculative engine's one run a round.
 
 `use_pallas` and `prefill_pallas` are kept as op attrs so the serialized
 programs stay identical to the reference's; the port routes attention by
@@ -70,6 +73,7 @@ class DecoderLM:
         self.seed = int(seed)
         self.step = self._build("step")
         self._prefill_cache = {}
+        self._verify_cache = {}
 
     @property
     def int8_kv(self) -> bool:
@@ -84,10 +88,25 @@ class DecoderLM:
         return self._prefill_cache[t_bucket]
 
     def verify(self, k: int):
-        """The speculative-verify build: not ported yet."""
-        raise NotImplementedError(
-            "DecoderLM.verify (speculative decoding) is not ported yet: "
-            "ROADMAP queue A item 4")
+        """The speculative-verify build for draft length k (cached).
+
+        The step body run at folded batch S*(k+1): row (s, j) scores
+        position committed_s + j with staggered per-row lengths, so
+        layer i's `paged_kv_write` feeds `paged_attention` in the same
+        run and each drafted token attends causally over the slot's
+        committed pages plus the earlier drafted rows — what the
+        sequential engine would have seen.  Ragged per-slot draft
+        lengths ride the `draft_len` (S,) companion, so any accept
+        pattern runs through this one shape; rejected tails are rolled
+        back by not advancing lengths (their rows are overwritten before
+        they are attended).  Greedy acceptance (`speculative_accept`)
+        runs in-step: one run emits up to k+1 tokens per slot."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"speculate k must be >= 1, got {k}")
+        if k not in self._verify_cache:
+            self._verify_cache[k] = self._build("verify", k=k)
+        return self._verify_cache[k]
 
     # -- program construction -------------------------------------------
     def _cache_vars(self):
@@ -161,12 +180,13 @@ class DecoderLM:
                       name="ffn_out")
         return layers.elementwise_add(x, h)
 
-    def _build(self, mode, t_bucket=None):
+    def _build(self, mode, t_bucket=None, k=None):
         main, startup = Program(), Program()
         main.random_seed = self.seed
         startup.random_seed = self.seed
         with program_guard(main, startup), unique_name.guard():
             seq_len = write_pos = lengths = active = bias = None
+            drafts = draft_len = slot_active = None
             if mode == "prefill":
                 tokens = layers.data("tokens", shape=[t_bucket],
                                      dtype="int64")
@@ -183,12 +203,22 @@ class DecoderLM:
                         axes=[1]),
                     axes=[1])
             else:
+                # step and verify share this var set; verify feeds them
+                # at the folded batch S*(k+1), step at (S,)
                 tokens = layers.data("tokens", shape=[], dtype="int64")
                 write_pos = layers.data("write_pos", shape=[],
                                         dtype="int32")
                 lengths = layers.data("lengths", shape=[],
                                       dtype="int32")
                 active = layers.data("active", shape=[], dtype="int32")
+                if mode == "verify":
+                    # S-batched companions for in-step acceptance
+                    drafts = layers.data("drafts", shape=[k],
+                                         dtype="int64")
+                    draft_len = layers.data("draft_len", shape=[],
+                                            dtype="int32")
+                    slot_active = layers.data("slot_active", shape=[],
+                                              dtype="int32")
             page_table = layers.data("page_table", shape=[-1],
                                      dtype="int32")
             caches = self._cache_vars()
@@ -222,10 +252,20 @@ class DecoderLM:
                                num_flatten_dims=1, bias_attr=False,
                                name="lm_head")
             next_tok = layers.argmax(logits, axis=1)       # (S,) int
-        return {"main": main, "startup": startup,
-                "next_token": next_tok.name,
-                "logits": logits.name,
-                "cache_outs": cache_out_names}
+            result = {"main": main, "startup": startup,
+                      "next_token": next_tok.name,
+                      "logits": logits.name,
+                      "cache_outs": cache_out_names}
+            if mode == "verify":
+                # fold (S*(k+1),) predictions back to (S, k+1) and
+                # accept the longest matched draft prefix in-step
+                preds = layers.reshape(next_tok, shape=[-1, k + 1])
+                accepted, out_toks = layers.speculative_accept(
+                    drafts, preds, draft_len, active=slot_active)
+                result["accepted"] = accepted.name
+                result["tokens"] = out_toks.name
+                result["speculate_k"] = k
+        return result
 
     # -- runtime helpers -------------------------------------------------
     def init_params(self, scope=None, place=None):

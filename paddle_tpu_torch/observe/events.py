@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional
 # the decode engine's event kinds (docs/SERVING.md §decode)
 DECODE_EVENTS = (
     "serving_decode_start",        # engine geometry at start()
+    "serving_decode_speculate",    # speculative engine: k and drafter
     "serving_decode_warmup",       # warmup summary
     "serving_decode_window",       # periodic DecodeStats snapshot
     "serving_decode_drain",        # final snapshot at drain

@@ -96,14 +96,26 @@ def mul(ctx, ins, attrs):
     """Flattening matmul (reference: operators/mul_op.cc) — x flattened to 2D
     at x_num_col_dims, y at y_num_col_dims.  A plain torch.matmul: the
     projections, FFN and lm_head are dense GEMMs that the reference also
-    left to its compiler, outside any hand-written kernel."""
+    left to its compiler, outside any hand-written kernel.  With the
+    run's `row_block` (OpContext), the product runs in blocks of that
+    many rows, the last one zero-padded, so every row takes the same
+    GEMM whatever the row count."""
     x, y = first(ins, "X"), first(ins, "Y")
     xnc = attrs.get("x_num_col_dims", 1)
     ync = attrs.get("y_num_col_dims", 1)
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xnc]), math.prod(xs[xnc:]))
     y2 = y.reshape(math.prod(ys[:ync]), math.prod(ys[ync:]))
-    return out(Out=torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:]))
+    blk = ctx.row_block
+    if blk and x2.shape[0] > blk:
+        m = x2.shape[0]
+        pad = -m % blk
+        if pad:
+            x2 = torch.cat([x2, x2.new_zeros(pad, x2.shape[1])])
+        o = torch.cat([torch.matmul(b, y2) for b in x2.split(blk)])[:m]
+    else:
+        o = torch.matmul(x2, y2)
+    return out(Out=o.reshape(xs[:xnc] + ys[ync:]))
 
 
 @register_op("matmul")

@@ -150,14 +150,17 @@ def pages_per_split(max_pages, page, slots_heads, sms):
     return max(1, min(pps, max_pages, MAX_SPLIT_PAGES))
 
 
-def launch_plan(q, k_pages, page_table, n_head, sms):
+def launch_plan(q, k_pages, page_table, n_head, sms, plan_rows=None):
     """{"pages_per_split", "n_splits", "workspace_floats"} of a launch on
     these operands' shapes and a card of `sms` SMs.  The workspace holds
     each split's m, l and acc (D floats) when there is more than one
-    split.  Shapes only, so a decode step's grid never waits on data."""
+    split.  Shapes only, so a decode step's grid never waits on data.
+    `plan_rows`: size the splits as for that many rows (a row's result
+    depends on the split size; the speculative verify run takes the
+    step run's plan), not q's."""
     s, hd = q.shape
     page, maxp = k_pages.shape[1], page_table.shape[1]
-    pps = pages_per_split(maxp, page, s * n_head, sms)
+    pps = pages_per_split(maxp, page, (plan_rows or s) * n_head, sms)
     n_splits = max(1, -(-maxp // pps))
     ws = s * n_head * n_splits * (2 + hd // n_head) if n_splits > 1 else 0
     return {"pages_per_split": pps, "n_splits": n_splits,
@@ -196,10 +199,12 @@ def _check(q, k_pages, v_pages, page_table, lengths, n_head, k_scales,
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *, n_head,
-                    scale=None, k_scales=None, v_scales=None):
+                    scale=None, k_scales=None, v_scales=None,
+                    plan_rows=None):
     """Decode-step attention over paged KV; routes by the operands'
-    device (CUDA: the kernel; CPU: the plain version).  Returns (S, H*D)
-    in q's dtype."""
+    device (CUDA: the kernel; CPU: the plain version, whose rows do not
+    depend on one another).  `plan_rows`: the kernel's split plan as for
+    that many rows (`launch_plan`).  Returns (S, H*D) in q's dtype."""
     _check(q, k_pages, v_pages, page_table, lengths, n_head, k_scales,
            v_scales)
     if scale is None:
@@ -215,7 +220,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, n_head,
     if kind != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     return _launch(q, k_pages, v_pages, page_table, lengths, n_head,
-                   float(scale), k_scales, v_scales)
+                   float(scale), k_scales, v_scales, plan_rows)
 
 
 def kernel_takes(q, k_pages, v_pages, n_head) -> bool:
@@ -229,7 +234,7 @@ def kernel_takes(q, k_pages, v_pages, n_head) -> bool:
 
 
 def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
-            k_scales, v_scales):
+            k_scales, v_scales, plan_rows=None):
     s, hd = q.shape
     d = hd // n_head
     if q.dtype != torch.float32:
@@ -262,7 +267,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
     k_pages, v_pages = (t if t.data_ptr() % 16 == 0 else t.clone()
                         for t in (k_pages, v_pages))
     plan = launch_plan(q, k_pages, page_table, n_head,
-                       _sm_count(q.device))
+                       _sm_count(q.device), plan_rows)
     out = torch.empty_like(q)
     ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
                      device=q.device) if plan["workspace_floats"] else None
@@ -306,15 +311,21 @@ def _bind() -> ctypes.CDLL:
 def bound_bytes_and_flops(q, k_pages, page_table, lengths, n_head,
                           scaled: bool = False):
     """(bytes, flops) the function needs on these inputs: q and out once,
-    each K/V row below a slot's length once (plus its scale for int8),
-    the slot's page-table row and length; 2 flops per element for q.k and
-    2 for p.v.  Data-dependent: counts the rows these lengths need."""
+    each K/V row below a length once (plus its scale for int8) — rows
+    that share a page table (a slot's rows in the speculative verify
+    run) read the longest of their lengths once between them — the page
+    table and the lengths; 2 flops per element for q.k and 2 for p.v, for
+    every row.  Data-dependent: counts the rows these lengths need."""
     s, hd = q.shape
     cap = page_table.shape[1] * k_pages.shape[1]
-    rows = int(torch.clamp(lengths.to(torch.int64), 0, cap).sum())
+    lens = torch.clamp(lengths.to(torch.int64), 0, cap)
+    _, table = torch.unique(page_table, dim=0, return_inverse=True)
+    read = torch.zeros(s, dtype=torch.int64, device=lens.device)
+    read = read.scatter_reduce(0, table.reshape(-1), lens, "amax")
+    rows_read, rows = int(read.sum()), int(lens.sum())
     kv_el = k_pages.element_size()
     nbytes = (2 * s * hd * q.element_size()
-              + 2 * rows * hd * kv_el
-              + (2 * rows * 4 if scaled else 0)
+              + 2 * rows_read * hd * kv_el
+              + (2 * rows_read * 4 if scaled else 0)
               + page_table.numel() * 4 + s * 4)
     return nbytes, 4 * rows * hd

@@ -10,6 +10,9 @@ paddle_tpu/ops/paged_kv.py.
   tensor, its plain PyTorch version on a CPU one
   (ops/kernels/paged_attention.py).
 - `add_position_encoding_at`: the sinusoid at one position per row.
+- `speculative_accept`: greedy longest-accepted-prefix acceptance of a
+  speculative verify run (plain torch integer ops, as the reference
+  computes it in jnp outside any kernel).
 
 Layouts are the reference's head-major ones: K/V rows (S, H*D) and pools
 (P, page, H*D), so a page write is a plain row scatter.  Optional int8
@@ -26,8 +29,8 @@ Two differences from the reference, both in how, not what:
   (inactive slots, positions past seq_len, logical pages past the table)
   are masked out explicitly before the scatter.
 
-Speculative verify (`speculative_accept`) and the disagg import
-(`paged_kv_import`) are not ported yet (ROADMAP queue A item 4).
+The disagg import (`paged_kv_import`) is not ported yet (ROADMAP
+queue A item 7, A step 9).
 """
 
 from __future__ import annotations
@@ -139,7 +142,8 @@ def paged_attention(ctx, ins, attrs):
     head dim outside {32, 64, 128}: `pk.kernel_takes`) go to the port of
     the reference's dense-gather composition (`pk.paged_attention_plain`),
     counted in `kernels.composed_calls`; with use_pallas true they reach
-    the kernel, which raises.  Otherwise use_pallas does not route."""
+    the kernel, which raises.  Otherwise use_pallas does not route.  The
+    run's `row_block` (OpContext) sets the kernel's split plan."""
     q = first(ins, "Q")
     n_head = int(attrs.get("n_head") or 0)
     if not n_head:
@@ -156,7 +160,52 @@ def paged_attention(ctx, ins, attrs):
         return out(Out=pk.paged_attention_plain(
             *args, n_head, attrs.get("scale"), **scales))
     return out(Out=pk.paged_attention(*args, n_head=n_head,
-                                      scale=attrs.get("scale"), **scales))
+                                      scale=attrs.get("scale"),
+                                      plan_rows=ctx.row_block, **scales))
+
+
+@register_op("speculative_accept")
+def speculative_accept(ctx, ins, attrs):
+    """Greedy longest-accepted-prefix acceptance for speculative decode.
+
+    The verify program scores k drafted tokens per slot in one run (the
+    step body at folded batch S*(k+1), staggered lengths); its argmax
+    Predictions (S, k+1) are what the sequential engine would have
+    produced at positions L..L+k given the drafted prefix.  A draft is
+    accepted iff every earlier draft matched:
+
+      match_i   = (Drafts[:, i-1] == Predictions[:, i-1]) & (i <= DraftLen)
+      Accepted  = sum(cumprod(match))          # in 0..k, -1 if inactive
+      Tokens[j] = Predictions[j] if j <= Accepted else -1
+
+    Inputs: Drafts (S, k) int, Predictions (S, k+1) int, DraftLen (S,)
+    int, optional Active (S,).  Outputs: Accepted (S,) int32, Tokens
+    (S, k+1) int32 (-1 padding)."""
+    drafts = first(ins, "Drafts").to(torch.int32)
+    preds = first(ins, "Predictions").to(torch.int32)
+    dlen = first(ins, "DraftLen").to(torch.int32)
+    active = opt_in(ins, "Active")
+    if preds.dim() != 2 or drafts.dim() != 2:
+        raise ValueError("speculative_accept: Drafts (S, k) and "
+                         "Predictions (S, k+1) must be rank-2")
+    s, k1 = preds.shape
+    k = k1 - 1
+    if tuple(drafts.shape) != (s, k):
+        raise ValueError(
+            f"speculative_accept: Drafts {tuple(drafts.shape)} must be "
+            f"(S, k) = ({s}, {k}) for Predictions {tuple(preds.shape)}")
+    idx = torch.arange(1, k + 1, dtype=torch.int32,
+                       device=preds.device)[None, :]           # (1, k)
+    match = (drafts == preds[:, :k]) & (idx <= dlen[:, None])
+    accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(
+        dim=1).to(torch.int32)                                  # (S,)
+    if active is not None:
+        accepted = torch.where(active.to(torch.int32) != 0, accepted,
+                               torch.full_like(accepted, -1))
+    pos = torch.arange(k1, dtype=torch.int32, device=preds.device)[None, :]
+    tokens = torch.where(pos <= accepted[:, None], preds,
+                         torch.full_like(preds, -1))
+    return out(Accepted=accepted, Tokens=tokens)
 
 
 @register_op("add_position_encoding_at")

@@ -22,6 +22,15 @@ tables (Ragged Paged Attention, PAPERS.md arxiv 2604.15464).
   slot is active.  The loop state lives on the host; each iteration
   reads the step's next tokens back, which is the one host sync it
   needs.
+- **speculative decoding** (`speculate_k > 0`, serving/speculate.py) —
+  a drafter proposes up to k tokens per slot, ONE verify run (the step
+  program at folded batch S*(k+1)) scores them all, and greedy
+  longest-accepted-prefix acceptance commits 1..k+1 tokens a slot: the
+  sequential engine's tokens.  The verify run replaces the chunk loop.
+- **request tracing** (`tracer=`, observe/reqtrace.py) — host
+  timestamps at the queue boundaries only: join_wait, one dispatch span
+  per prefill, chunk or verify round, preempt/evacuated/rejected
+  markers.
 
 Every run has a FIXED shape — the slot batch, the pool and the page
 tables never change across joins/leaves/preemptions — and `start()`
@@ -31,9 +40,9 @@ ZERO post-warmup compiles.  The pools are updated in place by the write
 ops (the JAX engine's buffer donation).
 
 Entry points run on `CUDAPlace(0)` unless the caller passes a place;
-without CUDA the default raises.  Speculative decoding, the disagg
-roles, weight reload/evacuation and the `plan_fit` memory gate are not
-ported yet (ROADMAP queue A items 4 and 7, item 9 for plan_fit).
+without CUDA the default raises.  The disagg roles and weight
+reload/evacuation (ROADMAP queue A item 7) and the `plan_fit` memory
+gate (item 9) are not ported yet.
 """
 
 from __future__ import annotations
@@ -58,6 +67,23 @@ from .stats import DecodeStats
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def run_model_program(built, params, pools, cache_names, device, fetch,
+                      row_block=None, **feeds):
+    """Run one program of a DecoderLM build over params + pools + feeds;
+    returns (env, the new pools).  The write ops update the pools in
+    place; adopting their outputs keeps the functional contract
+    explicit.  `row_block`: interpret_program's batch-invariance
+    option."""
+    env = dict(params)
+    env.update(pools)
+    env.update(feeds)
+    cache_outs = built["cache_outs"]
+    env = interpret_program(built["main"], env, None,
+                            fetch_names=(*fetch, *cache_outs),
+                            device=device, row_block=row_block)
+    return env, {n: env[o] for n, o in zip(cache_names, cache_outs)}
 
 
 class DecodeBucketMissError(ServingError):
@@ -129,10 +155,11 @@ class DecodeRequest:
     """One accepted generation request."""
 
     __slots__ = ("prompt", "max_new_tokens", "priority", "future",
-                 "deadline", "t_submit", "preempted")
+                 "deadline", "t_submit", "preempted", "trace")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
-                 priority: int = 0, deadline: Optional[float] = None):
+                 priority: int = 0, deadline: Optional[float] = None,
+                 trace=None):
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.priority = int(priority)
@@ -140,6 +167,7 @@ class DecodeRequest:
         self.deadline = deadline
         self.t_submit = time.monotonic()
         self.preempted = 0
+        self.trace = trace       # observe.reqtrace.RequestTrace or None
 
     def descriptor(self, generated: Optional[List[int]] = None
                    ) -> Dict[str, Any]:
@@ -221,6 +249,10 @@ class DecodeEngine:
         runs the model's startup program on the engine's device.
     place: CUDAPlace(id) (the default, CUDAPlace(0); raises without
         CUDA) or CPUPlace().
+    tracer: an observe.ReqTracer, or None (no tracing).
+    speculate_k: drafts per slot per verify round (0: the sequential
+        chunk loop); drafter: a serving.speculate.Drafter with k ==
+        speculate_k (default NGramDrafter(speculate_k)).
     Threading: submit() from any thread; ONE scheduler thread owns
     dispatch, the page pool, and the slot table.
     """
@@ -235,17 +267,38 @@ class DecodeEngine:
                  memory_budget_bytes: Union[int, bool, None] = None,
                  role: str = "unified", speculate_k: int = 0,
                  params: Optional[Dict[str, torch.Tensor]] = None,
-                 place=None):
+                 place=None, tracer=None, drafter=None):
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'unified', 'prefill' or 'decode'; "
+                f"got {role!r}")
+        self.speculate_k = int(speculate_k or 0)
+        if self.speculate_k < 0:
+            raise ValueError(
+                f"speculate_k must be >= 0, got {speculate_k}")
+        if self.speculate_k and role == "prefill":
+            raise ValueError(
+                "speculate_k requires a decoding role — a "
+                "role='prefill' worker never runs decode steps")
+        if drafter is not None and not self.speculate_k:
+            raise ValueError("drafter given but speculate_k is 0")
         if role != "unified":
             raise NotImplementedError(
                 f"role={role!r} (disaggregated prefill/decode serving) "
                 f"is not ported yet: ROADMAP queue A item 7")
-        if speculate_k:
-            raise NotImplementedError(
-                "speculate_k > 0 (speculative decoding) is not ported "
-                "yet: ROADMAP queue A item 4")
+        self.drafter = None
+        if self.speculate_k:
+            from .speculate import NGramDrafter
+
+            self.drafter = (drafter if drafter is not None
+                            else NGramDrafter(self.speculate_k))
+            if getattr(self.drafter, "k", None) != self.speculate_k:
+                raise ValueError(
+                    f"drafter.k {getattr(self.drafter, 'k', None)} != "
+                    f"speculate_k {self.speculate_k}")
         self.device = place_device(place)
         self.model = model
+        self.tracer = tracer
         self.config = config or DecodeConfig(kv_dtype=model.kv_dtype)
         if self.config.kv_dtype != model.kv_dtype:
             raise ValueError(
@@ -258,6 +311,8 @@ class DecodeEngine:
         self._event_log = event_log
         self.stats = DecodeStats(event_log=event_log,
                                  window=stats_window)
+        if self.speculate_k:
+            self.stats.configure_speculation(self.speculate_k)
         if breaker is None:
             breaker = CircuitBreaker(failure_threshold=5, cooldown_s=5.0)
         elif breaker is False:
@@ -288,21 +343,15 @@ class DecodeEngine:
         self._started = False
 
     # -- program runs ----------------------------------------------------
-    def _run(self, built, **feeds) -> Dict[str, torch.Tensor]:
-        """Run one program of the model over params + pools + feeds and
-        adopt its pool outputs; returns the env."""
-        env = dict(self._params)
-        env.update(self._pools)
-        env.update(feeds)
-        cache_outs = built["cache_outs"]
-        env = interpret_program(
-            built["main"], env, None,
-            fetch_names=(built["next_token"], *cache_outs),
-            device=self.device)
-        # the write ops updated the pools in place; adopting the outputs
-        # keeps the functional contract explicit
-        self._pools = {n: env[o]
-                       for n, o in zip(self._cache_names, cache_outs)}
+    def _run(self, built, fetch=None, row_block=None,
+             **feeds) -> Dict[str, torch.Tensor]:
+        """Run one program of the model over params + pools + feeds
+        (fetching `fetch`, default the next token) and adopt its pool
+        outputs; returns the env."""
+        env, self._pools = run_model_program(
+            built, self._params, self._pools, self._cache_names,
+            self.device, fetch or (built["next_token"],),
+            row_block=row_block, **feeds)
         return env
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -347,21 +396,55 @@ class DecodeEngine:
             i += 1
         return outbuf, i, tok, wp, act, rem
 
+    def _verify_run(self, folded, drafts, slot_meta, page_table):
+        """One speculative verify run: folded rows [tokens, write_pos,
+        lengths, active] at (4, S*(k+1)), drafts (S, k), slot_meta rows
+        [draft_len, slot_active] at (2, S), page_table (S*(k+1),
+        max_pages).  Returns (accepted (S,), tokens (S, k+1)) as numpy,
+        read back in one copy.  The run is batch-invariant at S rows
+        (OpContext.row_block): each folded row gets the bits the step
+        run at S rows would give it, so the committed tokens are the
+        sequential engine's on the card too."""
+        ver = self.model.verify(self.speculate_k)
+        f = self._tensor(folded)
+        meta = self._tensor(slot_meta)
+        env = self._run(ver, (ver["accepted"], ver["tokens"]),
+                        row_block=self.config.num_slots, tokens=f[0],
+                        write_pos=f[1], lengths=f[2], active=f[3],
+                        drafts=self._tensor(drafts), draft_len=meta[0],
+                        slot_active=meta[1],
+                        page_table=self._tensor(page_table))
+        both = torch.cat([env[ver["accepted"]].to(torch.int32)[:, None],
+                          env[ver["tokens"]].to(torch.int32)], dim=1)
+        both = both.cpu().numpy()
+        return both[:, 0], both[:, 1:]
+
     def _warmup(self):
-        """Run every prefill bucket and one decode step with nothing to
-        write (seq_len 0, active 0): kernel builds, cuBLAS set-up and
-        the allocator's first pool growth land here, and the pools stay
-        as they were."""
+        """Run every prefill bucket and one decode step (with
+        speculate_k, one verify run instead) with nothing to write
+        (seq_len 0, active 0): kernel builds, cuBLAS set-up and the
+        allocator's first pool growth land here, and the pools stay as
+        they were."""
         cfg = self.config
         s = cfg.num_slots
         zeros = np.zeros((s,), np.int32)
         for t in cfg.prefill_buckets:
             self._prefill_run(t, np.zeros((s, t), np.int32), zeros,
                               np.zeros((s, 1), np.int32))
-        feed = self._tensor(np.stack([zeros, zeros, zeros + 1, zeros]))
-        self._run(self.model.step, tokens=feed[0], write_pos=feed[1],
-                  lengths=feed[2], active=feed[3],
-                  page_table=self._tensor(self._page_tables))
+        if self.speculate_k:
+            k1 = self.speculate_k + 1
+            folded = np.zeros((4, s * k1), np.int32)
+            folded[2] = 1                                  # lengths
+            self._verify_run(
+                folded, np.zeros((s, self.speculate_k), np.int32),
+                np.zeros((2, s), np.int32),
+                np.zeros((s * k1, cfg.max_pages_per_slot), np.int32))
+        else:
+            feed = self._tensor(np.stack([zeros, zeros, zeros + 1,
+                                          zeros]))
+            self._run(self.model.step, tokens=feed[0], write_pos=feed[1],
+                      lengths=feed[2], active=feed[3],
+                      page_table=self._tensor(self._page_tables))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return len(cfg.prefill_buckets) + 1
@@ -393,6 +476,17 @@ class DecodeEngine:
         self._pools = self.model.fresh_pools(cfg.num_pages, cfg.page_size,
                                              self.device)
         n_runs = self._warmup()
+        if self.drafter is not None:
+            # drafter warmup lands inside the warmup window, so the
+            # zero-post-warmup-compile contract covers drafting too
+            self.drafter.start(self)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if self._event_log is not None:
+                self._event_log.event(
+                    "serving_decode_speculate",
+                    speculate_k=self.speculate_k,
+                    drafter=type(self.drafter).__name__)
         delta = runtime_stats.delta(snap)
         self.stats.record_warmup(n_runs, delta["compiles"],
                                  delta["compile_time_s"],
@@ -471,6 +565,9 @@ class DecodeEngine:
         generated token ids (np.int32, includes the eos token when one
         stopped it).  Raises DecodeBucketMissError / QueueFullError /
         CircuitOpenError / ServingClosedError synchronously."""
+        trace = None
+        if self.tracer is not None:
+            trace = self.tracer.new_trace("decode")
         prompt = np.asarray(prompt)
         if prompt.ndim != 1 or prompt.size < 1:
             raise DecodeBucketMissError(
@@ -496,7 +593,8 @@ class DecodeEngine:
                 max_len=cfg.max_len)
         deadline = self.admission.deadline_for(deadline_ms)
         req = DecodeRequest(prompt.astype(np.int32), max_new_tokens,
-                            priority=priority, deadline=deadline)
+                            priority=priority, deadline=deadline,
+                            trace=trace)
         try:
             with self._cv:
                 self.admission.check(self._unresolved)
@@ -508,6 +606,9 @@ class DecodeEngine:
                 self.stats.record_shed()
             elif e.kind == "circuit_open":
                 self.stats.record_circuit_reject()
+            if trace is not None:
+                trace.point("rejected", reject=e.kind)
+                self.tracer.finish(trace, error=e)
             raise
         self.stats.record_submit()
         return req.future
@@ -577,6 +678,10 @@ class DecodeEngine:
                 f"request pulled off the engine ({reason}) after "
                 f"{len(gen)} committed token(s); requeue the descriptor",
                 reason=reason, cause=cause, descriptor=d)
+            if req.trace is not None:
+                req.trace.point("evacuated", reason=reason,
+                                committed=len(gen))
+                self.tracer.finish(req.trace, error=err)
             if not req.future.done():
                 req.future.set_exception(err)
         return descs
@@ -600,14 +705,19 @@ class DecodeEngine:
         with self._cv:
             self._unresolved -= 1
             self._cv.notify_all()
+        tr = slot.req.trace
         if error is not None:
             if not slot.req.future.done():
                 slot.req.future.set_exception(error)
+            if tr is not None:
+                self.tracer.finish(tr, error=error)
             return
         if not slot.req.future.done():
             slot.req.future.set_result(
                 np.asarray(slot.generated, np.int32))
         self.stats.record_done()
+        if tr is not None:
+            self.tracer.finish(tr)
 
     def _requeue(self, slot_id: int):
         """Preempt: pages returned, request re-enters the queue head
@@ -618,6 +728,10 @@ class DecodeEngine:
         self.page_pool.free(slot.pages)
         self._page_tables[slot_id, :] = 0
         slot.req.preempted += 1
+        if slot.req.trace is not None:
+            slot.req.trace.point(
+                "preempt", slot=slot_id, committed=slot.committed,
+                generated=len(slot.generated))
         with self._cv:
             self._queue.insert(0, slot.req)
         self.stats.record_preemption()
@@ -660,10 +774,15 @@ class DecodeEngine:
                         self._queue.pop(0)
                         self._unresolved -= 1
                         self.stats.record_deadline_miss()
-                        cand.future.set_exception(DeadlineExceededError(
+                        exc = DeadlineExceededError(
                             "deadline expired before a slot opened",
                             queued_ms=round(
-                                (now - cand.t_submit) * 1e3, 3)))
+                                (now - cand.t_submit) * 1e3, 3))
+                        if cand.trace is not None:
+                            cand.trace.add("join_wait", cand.t_submit,
+                                           now, expired=True)
+                            self.tracer.finish(cand.trace, error=exc)
+                        cand.future.set_exception(exc)
                         continue
                     req = cand
                     break
@@ -697,6 +816,12 @@ class DecodeEngine:
             tokens[i, :len(p)] = p
             seq_len[i] = len(p)
             last_idx[i, 0] = len(p) - 1
+        t_p0 = time.monotonic()  # join_wait ends / prefill begins
+        for i in joiners:
+            tr = self._slots[i].req.trace
+            if tr is not None:
+                tr.add("join_wait", self._slots[i].req.t_submit, t_p0,
+                       slot=i)
         try:
             nxt = self._prefill_run(bucket, tokens, seq_len, last_idx)
         except Exception as e:  # noqa: BLE001 — resolved, not raised
@@ -708,9 +833,12 @@ class DecodeEngine:
                 f"prefill dispatch failed for {len(joiners)} join(s): "
                 f"{type(e).__name__}: {e}",
                 error_type=type(e).__name__, joins=len(joiners))
+            self._trace_dispatch(joiners, t_p0, kind="prefill",
+                                 error=type(e).__name__)
             for i in joiners:
                 self._resolve(i, error=err)
             return
+        self._trace_dispatch(joiners, t_p0, kind="prefill", bucket=bucket)
         self._breaker_result(True, len(joiners))
         now = time.monotonic()
         ttfts = []
@@ -722,12 +850,25 @@ class DecodeEngine:
             slot.remaining = slot.req.max_new_tokens - 1
             ttfts.append((now - slot.req.t_submit) * 1e3)
         self.stats.record_prefill(len(joiners), ttfts)
+        if self.drafter is not None:
+            # mirror the join into the draft pool (same buffers, same
+            # page tables: the pools share geometry by construction)
+            self.drafter.on_prefill(self, joiners, tokens, seq_len,
+                                    last_idx)
         # a request satisfied by its very first token resolves here
         for i in joiners:
             slot = self._slots[i]
             if slot.remaining <= 0 or (cfg.eos_id is not None
                                        and slot.cur_tok == cfg.eos_id):
                 self._resolve(i)
+
+    def _trace_dispatch(self, slot_ids, t0, **attrs):
+        """One `dispatch` span [t0, now) on each traced slot's request."""
+        t1 = time.monotonic()
+        for i in slot_ids:
+            tr = self._slots[i].req.trace
+            if tr is not None:
+                tr.add("dispatch", t0, t1, slot=i, **attrs)
 
     def _breaker_result(self, ok: bool, n: int):
         res = self.admission.record_dispatch_result(ok)
@@ -743,6 +884,11 @@ class DecodeEngine:
         preempting the least-important slots when the pool runs dry.
         Returns the slot ids still active afterwards."""
         cfg = self.config
+        # speculative rounds commit at most k+1 tokens per run
+        # (positions committed..committed+k), the chunk loop at most
+        # decode_chunk: the page window follows whichever path runs
+        window = (self.speculate_k + 1) if self.speculate_k \
+            else cfg.decode_chunk
         order = sorted(
             (i for i, s in enumerate(self._slots) if s is not None),
             key=lambda i: self._slots[i].importance(), reverse=True)
@@ -750,7 +896,7 @@ class DecodeEngine:
             slot = self._slots[i]
             if slot is None:
                 continue  # preempted as a victim earlier in the loop
-            target = _cdiv(min(slot.committed + cfg.decode_chunk,
+            target = _cdiv(min(slot.committed + window,
                                slot.cap_tokens), cfg.page_size)
             while slot is not None and target > len(slot.pages):
                 got = self.page_pool.alloc(target - len(slot.pages))
@@ -769,6 +915,9 @@ class DecodeEngine:
         return [i for i, s in enumerate(self._slots) if s is not None]
 
     def _decode(self):
+        if self.speculate_k:
+            self._decode_speculative()
+            return
         cfg = self.config
         active_ids = self._ensure_decode_pages()
         if not active_ids:
@@ -785,21 +934,17 @@ class DecodeEngine:
             active[i] = 1
             remaining[i] = slot.remaining
         t0 = time.perf_counter()
+        t_d0 = time.monotonic()
         try:
             (outbuf, steps, new_tok, new_wp, new_act,
              new_rem) = self._chunk_run(tokens, write_pos, active,
                                         remaining)
         except Exception as e:  # noqa: BLE001 — resolved, not raised
-            self.stats.record_executor_failure()
-            self._breaker_result(False, len(active_ids))
-            err = ExecutorFailureError(
-                f"decode dispatch failed for {len(active_ids)} "
-                f"slot(s): {type(e).__name__}: {e}",
-                error_type=type(e).__name__, slots=len(active_ids))
-            for i in active_ids:
-                self._resolve(i, error=err)
+            self._fail_decode(active_ids, "decode", t_d0, e)
             return
         elapsed_ms = (time.perf_counter() - t0) * 1e3
+        self._trace_dispatch(active_ids, t_d0, kind="decode",
+                             iterations=int(steps))
         self._breaker_result(True, len(active_ids))
         total_tokens = 0
         for i in active_ids:
@@ -817,3 +962,107 @@ class DecodeEngine:
         for i in active_ids:
             if int(new_act[i]) == 0:
                 self._resolve(i)
+
+    def _fail_decode(self, active_ids, what, t_d0, e):
+        """A decode or verify run raised: count it, trace it, and
+        resolve every slot it carried with the structured error."""
+        self.stats.record_executor_failure()
+        self._breaker_result(False, len(active_ids))
+        err = ExecutorFailureError(
+            f"{what} dispatch failed for {len(active_ids)} "
+            f"slot(s): {type(e).__name__}: {e}",
+            error_type=type(e).__name__, slots=len(active_ids))
+        self._trace_dispatch(active_ids, t_d0, kind="decode",
+                             error=type(e).__name__)
+        for i in active_ids:
+            self._resolve(i, error=err)
+
+    def _decode_speculative(self):
+        """One verify round: draft, score all drafts in ONE folded run,
+        commit the accepted prefix (+1 model token) per slot.  The
+        sequential chunk's tokens by the greedy-acceptance argument of
+        ops/paged_kv.py `speculative_accept`; rollback of a rejected
+        tail is not advancing `committed` — the stale rows sit past
+        every length and are overwritten before any attention reads
+        them."""
+        cfg = self.config
+        k = self.speculate_k
+        k1 = k + 1
+        active_ids = self._ensure_decode_pages()
+        if not active_ids:
+            return
+        s = cfg.num_slots
+        proposals, prop_len = self.drafter.draft(self, active_ids)
+        folded = np.zeros((4, s * k1), np.int32)
+        tokens, write_pos, lengths, active = folded
+        slot_meta = np.zeros((2, s), np.int32)
+        draft_len, slot_active = slot_meta
+        drafts = np.zeros((s, k), np.int32)
+        pt = np.zeros((s * k1, cfg.max_pages_per_slot), np.int32)
+        ar = np.arange(k1)
+        for i in active_ids:
+            slot = self._slots[i]
+            # cap so emitted (accepted+1) never exceeds the remaining
+            # budget and the last write position stays under cap_tokens
+            m = int(min(int(prop_len[i]), k, slot.remaining - 1))
+            draft_len[i] = m
+            drafts[i, :m] = proposals[i, :m]
+            slot_active[i] = 1
+            base = i * k1
+            live = ar <= m          # row 0 always live (m >= 0)
+            # dead rows pin to the slot's current position: their writes
+            # drop (active 0) and their predictions are discarded, but
+            # their feeds stay in range
+            off = np.where(live, ar, 0)
+            tokens[base] = slot.cur_tok
+            tokens[base + 1:base + k1] = drafts[i]
+            write_pos[base:base + k1] = slot.committed + off
+            lengths[base:base + k1] = slot.committed + off + 1
+            active[base:base + k1] = live
+            pt[base:base + k1] = self._page_tables[i]
+        drafted_total = int(draft_len.sum())
+        t0 = time.perf_counter()
+        t_d0 = time.monotonic()
+        try:
+            accepted, emitted = self._verify_run(folded, drafts, slot_meta,
+                                                 pt)
+        except Exception as e:  # noqa: BLE001 — resolved, not raised
+            self._fail_decode(active_ids, "speculative verify", t_d0, e)
+            return
+        elapsed_ms = (time.perf_counter() - t0) * 1e3
+        t_d1 = time.monotonic()
+        self._breaker_result(True, len(active_ids))
+        total_tokens = 0
+        accept_counts = []
+        finished = []
+        for i in active_ids:
+            slot = self._slots[i]
+            a = int(accepted[i])
+            accept_counts.append(a)
+            toks = emitted[i, :a + 1].tolist()
+            if cfg.eos_id is not None and cfg.eos_id in toks:
+                # the sequential engine stops at the FIRST eos; tokens
+                # the verify scored past it were never really emitted
+                toks = toks[:toks.index(cfg.eos_id) + 1]
+            n = len(toks)
+            slot.generated.extend(toks)
+            total_tokens += n
+            slot.committed += n
+            slot.cur_tok = toks[-1]
+            slot.remaining -= n
+            tr = slot.req.trace
+            if tr is not None:
+                tr.add("dispatch", t_d0, t_d1, kind="decode",
+                       iterations=1, slot=i)
+                tr.add("speculate", t_d0, t_d1, slot=i,
+                       drafted=int(draft_len[i]), accepted=a, emitted=n)
+            if slot.remaining <= 0 or (cfg.eos_id is not None
+                                       and cfg.eos_id in toks):
+                finished.append(i)
+        self.stats.record_decode(
+            1, len(active_ids), cfg.num_slots, total_tokens,
+            self.page_pool.in_use, cfg.num_pages, elapsed_ms)
+        self.stats.record_verify(drafted_total, total_tokens,
+                                 accept_counts)
+        for i in finished:
+            self._resolve(i)

@@ -1,6 +1,6 @@
 """Decode-serving telemetry: the port of paddle_tpu/serving/stats.py
-`DecodeStats` (without the speculation and fleet-merge parts, which
-belong to slices not ported yet).
+`DecodeStats` (without the fleet-merge part, which belongs to the fleet
+slice, ROADMAP queue A item 7).
 
 - **TTFT vs TPOT** — time-to-first-token (submit -> the prefill that
   produced the request's first token) and time-per-output-token (decode
@@ -13,6 +13,9 @@ belong to slices not ported yet).
 - **preemptions** — slots evicted because the pool ran dry.
 - **compile hygiene** — kernel builds after warmup (runtime_stats) must
   stay ZERO in steady state.
+- **speculation** — with `configure_speculation(k)`: verify runs,
+  drafted/accepted/emitted tokens and the k+1-bin histogram of accepted
+  drafts per slot-verify.
 
 Snapshots emit as `serving_decode_window` events every `window`
 completed requests and at drain.
@@ -59,6 +62,15 @@ class DecodeStats:
         self._util_sum = 0.0        # allocated/pool, per dispatch
         self._util_samples = 0
         self.peak_pages_in_use = 0
+        # speculative decoding: sized by configure_speculation(k);
+        # accept_hist bin a = slot-verifies with exactly a drafts
+        # accepted (k+1 bins)
+        self.spec_k = 0
+        self.accept_hist: list = []
+        self.verify_dispatches = 0  # speculative verify runs
+        self.drafted_tokens = 0     # proposals scored (post-cap)
+        self.accepted_tokens = 0    # proposals accepted
+        self.spec_emitted_tokens = 0  # tokens committed by verifies
         self.warmup: Dict[str, Any] = {}
         self._rt_base: Optional[Dict[str, Any]] = None
         self._emitted_at = 0
@@ -115,6 +127,40 @@ class DecodeStats:
         for ms in ttfts_ms:
             self.ttft_ms.record(ms)
 
+    def configure_speculation(self, k: int):
+        """Size the accepted-token histogram for speculate_k = k
+        (called once by the engine before any verify records)."""
+        if int(k) < 1:
+            raise ValueError(f"speculate k must be >= 1, got {k}")
+        with self._lock:
+            if self.verify_dispatches:
+                raise RuntimeError(
+                    "configure_speculation after verifies recorded")
+            self.spec_k = int(k)
+            self.accept_hist = [0] * (self.spec_k + 1)
+
+    def record_verify(self, drafted: int, emitted: int,
+                      accept_counts) -> None:
+        """One speculative verify run: `drafted` proposals scored (sum
+        of post-cap draft lengths), `emitted` tokens committed, and
+        per-active-slot accepted counts (each 0..k) binned into the
+        histogram."""
+        with self._lock:
+            if not self.spec_k:
+                raise RuntimeError("record_verify before "
+                                   "configure_speculation")
+            counts = [int(a) for a in accept_counts]
+            for a in counts:  # validate before mutating: a bad record
+                if not 0 <= a <= self.spec_k:  # must not tear counters
+                    raise ValueError(
+                        f"accepted count {a} outside 0..{self.spec_k}")
+            self.verify_dispatches += 1
+            self.drafted_tokens += int(drafted)
+            self.spec_emitted_tokens += int(emitted)
+            for a in counts:
+                self.accepted_tokens += a
+                self.accept_hist[a] += 1
+
     def record_decode(self, iterations: int, active_slots: int,
                       num_slots: int, tokens: int, pages_in_use: int,
                       num_pages: int, elapsed_ms: float):
@@ -165,6 +211,26 @@ class DecodeStats:
                 if self._util_samples else None,
                 "peak_pages_in_use": self.peak_pages_in_use,
             }
+            if self.spec_k:
+                slot_verifies = sum(self.accept_hist)
+                out["speculation"] = {
+                    "speculate_k": self.spec_k,
+                    "verify_dispatches": self.verify_dispatches,
+                    "drafted_tokens": self.drafted_tokens,
+                    "accepted_tokens": self.accepted_tokens,
+                    "emitted_tokens": self.spec_emitted_tokens,
+                    "accept_rate": round(
+                        self.accepted_tokens / self.drafted_tokens, 4)
+                    if self.drafted_tokens else None,
+                    "accept_hist": list(self.accept_hist),
+                    # emitted tokens over the verify rows paid for (each
+                    # slot-verify runs k+1 folded rows): 1.0 means every
+                    # row committed a token
+                    "speculation_efficiency": round(
+                        self.spec_emitted_tokens /
+                        (slot_verifies * (self.spec_k + 1)), 4)
+                    if slot_verifies else None,
+                }
             if self.warmup:
                 out["warmup"] = dict(self.warmup)
         out["ttft_ms"] = self.ttft_ms.summary()

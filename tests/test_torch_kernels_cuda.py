@@ -128,6 +128,46 @@ def test_paged_kernel_at_split_boundaries(dev, kv_dtype, d):
     assert torch.equal(kern(), got)
 
 
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_rows_with_plan_rows_are_the_step_rows(dev, kv_dtype):
+    """The speculative verify run's batch invariance: each row repeated 5
+    times (80 rows on 16 page tables) with plan_rows=16 gives every row
+    the bits of the 16-row launch; with the 80 rows' own plan the splits
+    differ, and the rows stay within the tolerance."""
+    (q, kc, vc, pt, lens), h, _, _ = _paged(kv_dtype, dev, s=16, p=330,
+                                            maxp=20, seed=3)
+    step = pk.paged_attention(q, kc, vc, pt, lens, n_head=h)
+    rep = [x.repeat_interleave(5, dim=0) for x in (q, pt, lens)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert pk.launch_plan(rep[0], kc, rep[1], h, sms) != \
+        pk.launch_plan(rep[0], kc, rep[1], h, sms, plan_rows=16)
+    folded = pk.paged_attention(rep[0], kc, vc, rep[1], rep[2], n_head=h,
+                                plan_rows=16)
+    assert torch.equal(folded[::5], step)
+    own = pk.paged_attention(rep[0], kc, vc, rep[1], rep[2], n_head=h)
+    torch.testing.assert_close(own[::5], step, **TOL)
+
+
+def test_mul_with_row_block_gives_the_rows_of_a_block_run(dev):
+    """`mul` under OpContext.row_block runs its product in blocks, so 80
+    rows give each row the bits of a 16-row product (cuBLAS chooses
+    another kernel, and summation order, for 80 rows than for 16)."""
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(80, 512, generator=g).to(dev)
+    impl = get_op_impl("mul")
+    for n_out in (512, 1024, 8192):
+        y = torch.randn(512, n_out, generator=g).to(dev)
+        ctx = OpContext(device=dev, row_block=16)
+        got = impl(ctx, {"X": [x], "Y": [y]}, {})["Out"][0]
+        for b in range(5):
+            rows = x[b * 16:(b + 1) * 16].contiguous()
+            assert torch.equal(got[b * 16:(b + 1) * 16], rows @ y)
+        ragged = impl(ctx, {"X": [x[:70]], "Y": [y]}, {})["Out"][0]
+        assert torch.equal(ragged, got[:70])
+
+
 @pytest.mark.parametrize("layout", ["nthd", "nhtd"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [17, 64, 130])

@@ -13,7 +13,10 @@ pages of a slot gives its own online-softmax state, and the states are
 merged in split order) is held against both reference functions through
 its plain twin `paged_attention_split_plain`, at split sizes of 1, 2 and
 all pages, with lengths 0, on a page or split boundary and wholly short
-of later splits; the split size comes from shapes only.
+of later splits; the split size comes from shapes only.  The folded
+shape of the speculative verify run (k+1 rows a slot on one page table
+at staggered lengths, dead rows pinned to a slot's first row, inactive
+slots of length 0) goes through the same checks.
 
 Tolerance 1e-5 (abs and rel): both sides dequantize the same stored
 values to float32 and differ only in summation order.
@@ -260,6 +263,77 @@ def test_pages_per_split_from_shapes(maxp, page, sh, sms, want):
     n_splits = max(1, -(-maxp // pps))
     assert (pps, n_splits) == want
     assert 1 <= pps <= max(maxp, 1) and n_splits * pps >= maxp
+
+
+def _verify_case(seed, kv_dtype, k=2):
+    """The folded verify shape at a small size: 3 slots of k+1 rows, each
+    slot's rows on its page table at lengths c+1..c+k+1, the rows past
+    a slot's draft length pinned to length c+1, the last slot inactive
+    (every row of it length 0 on the zero page table, as the engine
+    leaves it)."""
+    q, kc, vc, pt, lens, h, ks, vs = _case(seed, kv_dtype, s=3, p=15,
+                                           maxp=4, poison=False)
+    k1 = k + 1
+    rng = np.random.RandomState(seed)
+    committed = rng.randint(1, 4 * 4 - k1, 3)
+    draft_len = [k, 1, 0]
+    rows_pt = np.zeros((3 * k1, pt.shape[1]), np.int32)
+    rows_len = np.zeros(3 * k1, np.int32)
+    perm = rng.permutation(kc.shape[0])
+    for i in range(2):
+        used = -(-int(committed[i] + k1) // 4)
+        rows_pt[i * k1:(i + 1) * k1, :used] = perm[i * 4:i * 4 + used]
+        off = np.arange(k1)
+        rows_len[i * k1:(i + 1) * k1] = committed[i] + 1 + np.where(
+            off <= draft_len[i], off, 0)
+    q = rng.randn(3 * k1, q.shape[1]).astype(np.float32)
+    return q, kc, vc, rows_pt, rows_len, h, ks, vs
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_folded_verify_shape_matches_jax_twin_and_pallas(kv_dtype):
+    case = _verify_case(4, kv_dtype)
+    twin, pallas = _refs(*case, kv_dtype)
+    q, kc, vc, pt, lens, h, ks, vs = case
+    got = tk.paged_attention_plain(
+        to_torch(q), _torch_pool(kc, kv_dtype), _torch_pool(vc, kv_dtype),
+        to_torch(pt), to_torch(lens), h,
+        k_scales=None if ks is None else to_torch(ks),
+        v_scales=None if vs is None else to_torch(vs)).numpy()
+    for pps in (1, 2, 4):
+        np.testing.assert_allclose(_split(*case, kv_dtype, pps), twin,
+                                   **TOL)
+    np.testing.assert_allclose(got, twin, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+    assert not got[-3:].any()          # the inactive slot's rows
+
+
+def test_bound_reads_a_shared_page_table_once():
+    """The verify shape's rows of one slot read the slot's K/V rows once
+    between them (up to the longest row); every row does its flops."""
+    q, kc, _, pt, lens, h, _, _ = _verify_case(4, "float32")
+    nbytes, flops = tk.bound_bytes_and_flops(
+        to_torch(q), to_torch(kc), to_torch(pt), to_torch(lens), h)
+    hd = q.shape[1]
+    read = sum(int(lens[i * 3:(i + 1) * 3].max()) for i in range(3))
+    assert read < int(lens.sum())
+    assert flops == 4 * int(lens.sum()) * hd
+    assert nbytes == (2 * q.size * 4 + 2 * read * hd * 4
+                      + pt.size * 4 + lens.size * 4)
+
+
+def test_launch_plan_takes_the_plan_of_plan_rows():
+    """`plan_rows` sizes the splits as for that many rows (the verify run
+    takes the step run's plan); the workspace still holds every row."""
+    h = 2
+    t = [torch.empty(shape, device="meta")
+         for shape in ((40, 32), (1700, 16, 32), (40, 40))]
+    step = tk.launch_plan(t[0][:8], t[1], t[2][:8], h, 132)
+    folded = tk.launch_plan(*t, h, 132, plan_rows=8)
+    assert tk.launch_plan(*t, h, 132) != folded
+    assert folded["pages_per_split"] == step["pages_per_split"]
+    assert folded["n_splits"] == step["n_splits"] > 1
+    assert folded["workspace_floats"] == 5 * step["workspace_floats"]
 
 
 def test_launch_plan_reads_shapes_only():

@@ -141,7 +141,7 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(role="prefill"), "queue A item 7"),
-    (dict(speculate_k=2), "queue A item 4"),
+    (dict(role="decode"), "queue A item 7"),
 ])
 def test_unported_engine_options_raise(kw, item):
     lm = DecoderLM(vocab_size=16, n_layer=1, n_head=2, d_model=8,

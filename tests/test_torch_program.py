@@ -1,7 +1,8 @@
 """The port builds the reference's programs: `Program.to_dict()` of the
-port's DecoderLM step and prefill programs (and their startup programs)
-equals the JAX package's, JSON for JSON, for every KV dtype; and a
-reference dict loads into the port and serializes back unchanged."""
+port's DecoderLM step, prefill and speculative-verify programs (and
+their startup programs) equals the JAX package's, JSON for JSON, for
+every KV dtype; and a reference dict loads into the port and serializes
+back unchanged."""
 
 from __future__ import annotations
 
@@ -25,11 +26,17 @@ def _json(program):
 
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("which", ["step", "prefill8", "prefill16"])
+@pytest.mark.parametrize("which", ["step", "prefill8", "prefill16",
+                                   "verify1", "verify4"])
 def test_to_dict_identical(kv_dtype, which):
     jlm, tlm = _builds(kv_dtype, prefill_pallas=True)
     if which == "step":
         j, t = jlm.step, tlm.step
+    elif which.startswith("verify"):
+        k = int(which[len("verify"):])
+        j, t = jlm.verify(k), tlm.verify(k)
+        assert (t["accepted"], t["tokens"], t["speculate_k"]) == \
+            (j["accepted"], j["tokens"], k)
     else:
         bucket = int(which[len("prefill"):])
         j, t = jlm.prefill(bucket), tlm.prefill(bucket)
@@ -41,12 +48,16 @@ def test_to_dict_identical(kv_dtype, which):
 
 def test_reference_dict_round_trips_through_the_port():
     jlm, _ = _builds("bfloat16", prefill_pallas=None)
-    for built in (jlm.step, jlm.prefill(8)):
+    for built in (jlm.step, jlm.prefill(8), jlm.verify(4)):
         d = json.loads(_json(built["main"]))
         assert _json(TorchProgram.from_dict(d)) == _json(built["main"])
 
 
 def test_verify_build_is_not_ported_yet():
-    _, tlm = _builds("float32", prefill_pallas=None)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tlm.verify(2)
+    """The verify build is ported now: it is cached per k, and a draft
+    length below 1 raises as in the reference."""
+    jlm, tlm = _builds("float32", prefill_pallas=None)
+    assert tlm.verify(2) is tlm.verify(2)
+    for lm in (jlm, tlm):
+        with pytest.raises(ValueError, match="speculate k must be >= 1"):
+            lm.verify(0)
