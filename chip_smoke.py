@@ -194,7 +194,33 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    TOL_AMP_GRAD relative L2, and all of them together within
    TOL_AMP_SHARE of AMP's own distance from float32 (a float32 step of
    the same program on the CPU);
-8. prints one `kernels` JSON line, the card line, and as its last line
+6l. checkpoint and resume at full width: phase 6c's Transformer (fused
+   CE) under bf16 AMP with `amp.decorate(use_dynamic_loss_scaling=True)`
+   (the update guard and telemetry on), dropout 0.1: 6 uninterrupted
+   steps; from the same start 3 steps, `io.save_sharded`, a fresh scope
+   and executor that run the startup program, `io.load_sharded` (the
+   loaded state bit-equal to the saved), the RNG counter and telemetry
+   carried over as the reference's Trainer carries them, 3 more steps:
+   losses, persistables and telemetry bit-equal to the uninterrupted
+   run's (or, if two uninterrupted runs differ, within twice their
+   spread, the ops torch names as not deterministic logged); 12 bf16
+   flash forward, dK/dV and dQ and 1 vocab-CE forward, dh and dW launch
+   a step, no plain or composed call; bytes written, snapshot, write and
+   load times; then `save_inference_model` of the forward program,
+   `load_inference_model` and a run whose loss equals the trained
+   program's `clone(for_test=True)` loss bit for bit;
+6m. the update guard on the card: a guarded and an unguarded step of
+   that program, their host synchronizations counted with
+   `torch.cuda.set_sync_debug_mode` (the guard adds none), step times,
+   device busy time and peak memory; a guarded run of five steps whose
+   third carries a token id outside the vocabulary: the update ops'
+   state keeps its bits through it, one step skipped, the loss scale
+   halves and regrows after two good steps, the first non-finite op
+   (numerics on) is the lookup that reads the poisoned feed; and the dh
+   and dW kernels at the training shape with the cotangent x 2^15,
+   unscaled, against the unscaled kernels;
+8. prints one `kernels` JSON line (the launches of every path above,
+   6l and 6m included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -2555,14 +2581,7 @@ def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
         raise AssertionError(f"non-finite losses {losses}")
     la, pl, co = counts["launches"], counts["plain"], counts["composed"]
     # under AMP the flash op gets bf16 operands: the kernels' bf16 paths
-    flash = "_bf16" if main._amp_lists is not None else ""
-    want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update({f"flash_attention_fwd{flash}": n_flash * steps,
-                 f"flash_attention_bwd_dkv{flash}": n_flash * steps,
-                 f"flash_attention_bwd_dq{flash}": n_flash * steps,
-                 "vocab_ce_fwd": n_vocab * steps,
-                 "vocab_ce_dh": n_vocab * steps,
-                 "vocab_ce_dw": n_vocab * steps})
+    want = _want_launches(main, steps)
     if la != want or max(pl.values()) or max(co.values()):
         raise AssertionError(f"training launches {counts}, want {want} "
                              f"and no plain or composed call")
@@ -3266,6 +3285,463 @@ def _bert_lr(step, learning_rate=1e-4, warmup_steps=10000):
     return learning_rate * min(step / warmup_steps, 1.0)
 
 
+# -- phases 6l and 6m: checkpoint and resume, the update guard ------------
+
+# phase 6c's Transformer (fused CE) under bf16 AMP with dynamic loss
+# scaling: amp.decorate(use_dynamic_loss_scaling=True) turns on the
+# update guard and the device-side telemetry
+RESUME_STEPS = 3        # 6l: 3 steps, save, resume, 3 more = 6 whole
+GUARD_INCR_EVERY = 2    # 6m: the loss scale doubles after 2 good steps
+GUARD_TIMED_STEPS = 3   # 6m: guarded and unguarded steps, two rounds each
+
+
+def build_guarded(incr_every_n_steps=1000, guard=True):
+    """(main, startup, model) of the bench Transformer with the fused CE
+    under bf16 AMP: build_model's graph and optimizer (noam x 2.0, Adam
+    0.9/0.997/1e-9), the optimizer wrapped by amp.decorate with
+    use_dynamic_loss_scaling=`guard` (False: phase 6i's plain AMP)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp, layers, optimizer
+    from paddle_tpu_torch.models import transformer
+
+    arch = dict(TRAIN_ARCH, use_fused_ce=True)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = transformer.build_model(**arch, with_optimizer=False)
+        lr = layers.elementwise_mul(
+            layers.noam_decay(arch["d_model"], 4000),
+            layers.fill_constant([1], "float32", 2.0))
+        opt = optimizer.AdamOptimizer(learning_rate=lr, beta1=0.9,
+                                      beta2=0.997, epsilon=1e-9)
+        amp.decorate(opt, use_dynamic_loss_scaling=guard,
+                     incr_every_n_steps=incr_every_n_steps).minimize(
+                         model["loss"])
+    return main, startup, model
+
+
+def _want_launches(main, steps):
+    """Kernel launches `steps` training steps of `main` make: each flash
+    op the forward, dK/dV and dQ once (their bf16 paths under AMP), each
+    fused-CE op the vocab-CE forward, dh and dW once; nothing else."""
+    from paddle_tpu_torch.ops import kernels
+
+    n_flash, n_vocab = _flash_ops(main), _vocab_ops(main)
+    flash = "_bf16" if main._amp_lists is not None else ""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({f"flash_attention_fwd{flash}": n_flash * steps,
+                 f"flash_attention_bwd_dkv{flash}": n_flash * steps,
+                 f"flash_attention_bwd_dq{flash}": n_flash * steps,
+                 "vocab_ce_fwd": n_vocab * steps,
+                 "vocab_ce_dh": n_vocab * steps,
+                 "vocab_ce_dw": n_vocab * steps})
+    return want
+
+
+def _check_launches(label, main, steps):
+    """The counts since the last reset against `_want_launches`, with no
+    plain or composed call; returns the counts."""
+    from paddle_tpu_torch.ops import kernels
+
+    counts = kernels.counts()
+    want = _want_launches(main, steps)
+    la, pl, co = counts["launches"], counts["plain"], counts["composed"]
+    if la != want or max(pl.values()) or max(co.values()):
+        raise AssertionError(f"{label}: launches {counts}, want {want} "
+                             f"and no plain or composed call")
+    log(f"  {label}: launches over {steps} steps {la}; no plain or "
+        f"composed call")
+    return counts
+
+
+def _state(main, scope):
+    return {v.name: scope.find_var(v.name) for v in main.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
+
+
+def _clone_scope(src):
+    """A new scope holding a copy of every value of `src` (tensors
+    cloned on their device)."""
+    import paddle_tpu_torch as pt
+
+    out = pt.Scope()
+    for n, v in src.vars.items():
+        out.set_var(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _carry_train_state(old, new, program, dev):
+    """The RNG counter and the telemetry accumulator from scope `old` to
+    scope `new`, through JSON as the reference's Trainer carries them
+    (paddle_tpu/contrib/trainer.py:327-409; the port's Trainer is ROADMAP
+    A step 6c)."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    from paddle_tpu_torch.observe import metrics
+
+    st = json.loads(json.dumps({
+        "rng": old.find_var(RNG_STATE_VAR),
+        "telemetry": {k: v.cpu().numpy().tolist() for k, v in
+                      old.find_var(metrics.TELEMETRY_VAR).items()}}))
+    new.set_var(RNG_STATE_VAR, st["rng"])
+    tmpl = metrics.init_telemetry_for(program, dev)
+    new.set_var(metrics.TELEMETRY_VAR, {
+        k: torch.tensor(v, dtype=tmpl[k].dtype, device=dev)
+        for k, v in st["telemetry"].items()})
+
+
+def _differ(a, b):
+    """{name: max |a - b|} over the names whose tensors are not
+    bit-equal (dicts of tensors, or two lists)."""
+    if isinstance(a, list):
+        a, b = dict(enumerate(a)), dict(enumerate(b))
+    out = {}
+    for n in a:
+        if not (a[n].dtype == b[n].dtype and torch.equal(a[n], b[n])):
+            out[n] = float((a[n].float() - b[n].float()).abs().max())
+    return out
+
+
+def _nondeterministic_ops(exe, main, feed, loss, scope):
+    """The ops of one step that torch reports as having no deterministic
+    implementation (`use_deterministic_algorithms(True, warn_only)`)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0][:200] for w in caught
+                   if "determinis" in str(w.message)})
+
+
+def _transformer_feed(dev):
+    from paddle_tpu_torch.models import transformer
+
+    v = TRAIN_ARCH["trg_vocab_size"]
+    return {n: torch.as_tensor(a).to(dev) for n, a in
+            transformer.make_fake_batch(TRAIN_BATCH,
+                                        TRAIN_ARCH["max_length"], v,
+                                        v).items()}
+
+
+def phase_resume(dev, card):
+    """6l: train 6 steps uninterrupted; from the same start, 3 steps,
+    io.save_sharded, a fresh scope and executor that run the startup
+    program, io.load_sharded (the loaded state bit-equal to the saved),
+    the RNG counter and telemetry carried over, 3 more steps: the
+    losses, persistables and telemetry equal the uninterrupted run's bit
+    for bit, or, when two uninterrupted runs already differ, within
+    twice their spread, with the ops torch names as not deterministic.
+    Then the forward program through save_inference_model and
+    load_inference_model: its loss equals the trained program's
+    clone(for_test=True) loss bit for bit."""
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io, observe
+    from paddle_tpu_torch.ops import kernels
+
+    log(f"phase 6l: checkpoint and resume of the AMP fused-CE Transformer "
+        f"under dynamic loss scaling (batch {TRAIN_BATCH} x "
+        f"{TRAIN_ARCH['max_length']}, dropout {TRAIN_ARCH['dropout']})")
+    main, startup, model = build_guarded()
+    loss = model["loss"]
+    feed = _transformer_feed(dev)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    start = pt.Scope()
+    exe.run(startup, scope=start)
+
+    def steps(ex, scope, n):
+        return [ex.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0] for _ in range(n)]
+
+    n = RESUME_STEPS
+    kernels.reset_counts()
+    whole = _clone_scope(start)
+    t0 = time.perf_counter()
+    want = steps(exe, whole, 2 * n)
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
+    part = _clone_scope(start)
+    got = steps(exe, part, n)
+    ckpt = os.path.join(OUT_DIR, "ckpt_6l")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    with pt.scope_guard(part):
+        job = io.save_sharded(exe, ckpt, main_program=main)
+    file_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                     for f in os.listdir(ckpt))
+    saved = _state(main, part)
+    exe2, fresh = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe2.run(startup, scope=fresh)          # loading overwrites it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pt.scope_guard(fresh):
+        io.load_sharded(exe2, ckpt, main_program=main)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    bad = _differ(_state(main, fresh), saved)
+    if bad or set(_state(main, fresh)) != set(saved):
+        raise AssertionError(f"loaded state differs from the saved: "
+                             f"{sorted(bad)[:4]}")
+    _carry_train_state(part, fresh, main, dev)
+    got += steps(exe2, fresh, n)
+    torch.cuda.synchronize()
+    counts = _check_launches("phase 6l", main, 4 * n)
+    tel = {k: observe.fetch_telemetry(sc, reset=False)
+           for k, sc in (("whole", whole), ("resumed", fresh))}
+    for k, t in tel.items():
+        if (t.steps, t.skipped_update_steps, t.nonfinite_grad_steps,
+                t.loss_scale) != (2 * n, 0, 0, 2.0 ** 15):
+            raise AssertionError(f"6l {k} telemetry {t}")
+    from paddle_tpu_torch.observe.metrics import TELEMETRY_VAR
+
+    diff = {"losses": _differ(got, want),
+            "persistables": _differ(_state(main, fresh),
+                                    _state(main, whole)),
+            "telemetry": _differ(fresh.find_var(TELEMETRY_VAR),
+                                 whole.find_var(TELEMETRY_VAR))}
+    res = {"steps": 2 * n, "bytes_total": job.bytes_total,
+           "file_bytes": file_bytes, "snapshot_ms": job.snapshot_ms,
+           "write_ms": job.write_ms, "load_ms": load_ms,
+           "whole_run_ms_per_step": whole_ms,
+           "n_persistables": len(saved),
+           "losses": [float(x.reshape(())) for x in want],
+           "resume_differs": {k: len(v) for k, v in diff.items()},
+           "launches": counts["launches"], "plain_calls": counts["plain"],
+           "composed_calls": counts["composed"]}
+    log(f"  checkpoint: {len(saved)} persistables, {job.bytes_total} "
+        f"bytes of arrays, {file_bytes} bytes on disk; snapshot "
+        f"{job.snapshot_ms:.1f} ms, write {job.write_ms:.1f} ms, load "
+        f"{load_ms:.1f} ms on {card}")
+    log(f"  losses {res['losses'][0]:.6f} .. {res['losses'][-1]:.6f} "
+        f"({whole_ms:.2f} ms/step over the uninterrupted run, the "
+        f"program's first step included); telemetry "
+        f"{tel['resumed'].as_dict()}")
+    if any(diff.values()):
+        again = _clone_scope(start)
+        want2 = steps(exe, again, 2 * n)
+        spread = {"losses": _differ(want2, want),
+                  "persistables": _differ(_state(main, again),
+                                          _state(main, whole))}
+        res["uninterrupted_spread"] = {k: max(v.values(), default=0.0)
+                                       for k, v in spread.items()}
+        res["resume_max_abs"] = {k: max(v.values(), default=0.0)
+                                 for k, v in diff.items()}
+        res["nondeterministic_ops"] = _nondeterministic_ops(
+            exe, main, feed, loss, _clone_scope(start))
+        log(f"  resume differs from the uninterrupted run: "
+            f"{res['resume_max_abs']}; two uninterrupted runs differ by "
+            f"{res['uninterrupted_spread']}; not deterministic: "
+            f"{res['nondeterministic_ops']}")
+        if not any(spread.values()):
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one, which repeats itself")
+        for k in ("losses", "persistables"):
+            if res["resume_max_abs"][k] > 2 * res["uninterrupted_spread"][k]:
+                raise AssertionError(f"6l: resumed {k} outside twice the "
+                                     f"spread of two uninterrupted runs")
+    else:
+        log("  resumed losses, persistables and telemetry bit-equal to "
+            "the uninterrupted run's")
+    ex_dir = os.path.join(OUT_DIR, "export_6l")
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with pt.scope_guard(fresh):
+        io.save_inference_model(ex_dir, model["feeds"], [loss], exe2,
+                                main_program=main)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    plain = exe2.run(main.clone(for_test=True), feed=feed,
+                     fetch_list=[loss], scope=fresh, return_numpy=False)[0]
+    inf_scope = pt.Scope()
+    t0 = time.perf_counter()
+    with pt.scope_guard(inf_scope):
+        prog, feed_names, targets = io.load_inference_model(ex_dir, exe2)
+    torch.cuda.synchronize()
+    reload_ms = (time.perf_counter() - t0) * 1e3
+    served = exe2.run(prog, feed={k: feed[k] for k in feed_names},
+                      fetch_list=targets, scope=inf_scope,
+                      return_numpy=False)[0]
+    if not torch.equal(served, plain):
+        raise AssertionError(f"exported program's loss {served} differs "
+                             f"from clone(for_test=True)'s {plain}")
+    log(f"  inference export: {len(prog.global_block().ops)} ops, save "
+        f"{save_ms:.1f} ms, load {reload_ms:.1f} ms; loss "
+        f"{float(served.reshape(())):.6f} bit-equal to "
+        f"clone(for_test=True)'s")
+    res.update(export_save_ms=save_ms, export_load_ms=reload_ms,
+               export_ops=len(prog.global_block().ops))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    return res
+
+
+def _sync_warnings(fn):
+    """The synchronizing CUDA calls fn() makes, as
+    torch.cuda.set_sync_debug_mode("warn") reports them: the Python line
+    that made each one."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message).lower()]
+
+
+def phase_guard(dev, card):
+    """6m: the update guard on the card.  A guarded and an unguarded
+    step (the same Transformer, plain amp.decorate): their host
+    synchronizations (the guard adds none), step times, device busy
+    time and peak memory.  Then a guarded run of five steps whose third
+    has one token id outside the vocabulary (the Transformer's feeds are
+    integer ids, which chaos.poison_feed refuses as the reference's
+    does; the lookup turns such an id into a NaN row, ROADMAP C3): every
+    persistable the update ops write keeps its bits through that step
+    (the forward's learning-rate counter advances, as in the reference),
+    one step is skipped,
+    the loss scale halves and regrows after GUARD_INCR_EVERY good steps,
+    the other steps train, and with numerics on the first non-finite op
+    is the lookup that reads the poisoned feed.  Last, the dh and dW
+    kernels at the training shape with the cotangent x 2^15, unscaled,
+    against the unscaled kernels."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import vocab_ce as vk
+
+    log(f"phase 6m: the update guard on the card (AMP fused-CE "
+        f"Transformer, batch {TRAIN_BATCH} x {TRAIN_ARCH['max_length']})")
+    feed = _transformer_feed(dev)
+    runs = {}
+    for label, guard in (("unguarded", False), ("guarded", True)):
+        main, startup, model = build_guarded(GUARD_INCR_EVERY, guard=guard)
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        loss = model["loss"]
+
+        def step(m=main, s=scope, e=exe, lv=loss):
+            return e.run(m, feed=feed, fetch_list=[lv], scope=s,
+                         return_numpy=False)[0]
+
+        step()
+        runs[label] = dict(main=main, startup=startup, scope=scope,
+                           exe=exe, loss=loss, step=step,
+                           syncs=_sync_warnings(step), ms=[])
+    for _ in range(2):
+        for label, r in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GUARD_TIMED_STEPS):
+                r["step"]()
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3
+                           / GUARD_TIMED_STEPS)
+    res = {}
+    for label, r in runs.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        r["step"]()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = _profile_train_step(r["exe"], r["main"], feed, r["loss"],
+                                   r["scope"], label=f"phase 6m, {label}")
+        res[label] = {"step_ms": min(r["ms"]), "step_ms_rounds": r["ms"],
+                      "peak_mem_bytes": peak, "host_syncs": r["syncs"],
+                      "profile": prof}
+        log(f"  {label}: step {min(r['ms']):.2f} ms (rounds {r['ms']}), "
+            f"device busy {prof['device_busy_ms_per_step']:.2f} ms, peak "
+            f"{peak / 1e9:.3f} GB, {len(r['syncs'])} host syncs "
+            f"{r['syncs']} on {card}")
+    if (len(res["guarded"]["host_syncs"])
+            != len(res["unguarded"]["host_syncs"])):
+        raise AssertionError(f"the guard adds host syncs: "
+                             f"{res['guarded']['host_syncs']}")
+    r = runs["guarded"]
+    main, exe, loss = r["main"], r["exe"], r["loss"]
+    scope = pt.Scope()
+    exe.run(r["startup"], scope=scope)
+    src = feed["src_word"].clone()
+    src[0, 0] = TRAIN_ARCH["src_vocab_size"] + 7
+    poisoned = dict(feed, src_word=src)
+    ops = main.global_block().ops
+    reader = next(i for i, op in enumerate(ops)
+                  if "src_word" in op.desc.input_names())
+    fwd_written = {n for op in ops[:main._backward_info["index"]]
+                   for n in op.desc.output_names()}
+    kernels.reset_counts()
+    scales, losses, moved = [], [], []
+    for i, f in enumerate((feed, feed, poisoned, feed, feed)):
+        if i == 2:
+            observe.enable_numerics(main)
+        before = {k: v.clone() for k, v in _state(main, scope).items()}
+        losses.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                    scope=scope, return_numpy=False)[0]
+                            .reshape(())))
+        tel = observe.fetch_telemetry(scope, reset=False, program=main)
+        scales.append(tel.loss_scale)
+        changed = _differ(_state(main, scope), before)
+        moved.append(len(changed))
+        if i == 2:
+            # the guard rolls back what the update ops write; state the
+            # forward writes (the learning rate's step counter) advances,
+            # as in the reference (paddle_tpu/core/executor.py:577-590)
+            if set(changed) - fwd_written:
+                raise AssertionError(f"the poisoned step changed "
+                                     f"{sorted(changed)[:4]}")
+            kept_through = sorted(changed)
+            fno = tel.first_nonfinite_op
+            if fno is None or fno["op_index"] != reader:
+                raise AssertionError(f"first non-finite op {fno}, want "
+                                     f"op {reader} (reads src_word)")
+    counts = _check_launches("phase 6m", main, 5)
+    want_scales = [2.0 ** 15, 2.0 ** 16, 2.0 ** 15, 2.0 ** 15, 2.0 ** 16]
+    clean = [x for i, x in enumerate(losses) if i != 2]
+    if (scales != want_scales or tel.skipped_update_steps != 1
+            or tel.nonfinite_grad_steps != 1 or not np.isfinite(clean).all()
+            or np.isfinite(losses[2]) or 0 in [moved[i] for i in
+                                               (0, 1, 3, 4)]):
+        raise AssertionError(f"6m: scales {scales} (want {want_scales}), "
+                             f"losses {losses}, changed {moved}, "
+                             f"telemetry {tel.as_dict()}")
+    log(f"  guarded run: losses {losses}; loss scale {scales}; "
+        f"persistables changed per step {moved} (the poisoned step: "
+        f"{kept_through}, written by forward ops); skipped "
+        f"{tel.skipped_update_steps}; first non-finite op "
+        f"{tel.first_nonfinite_op}")
+    h, w, _, lbl, g = vocab_case(dev, TRAIN_BATCH * TRAIN_ARCH["max_length"],
+                                 TRAIN_ARCH["d_model"],
+                                 TRAIN_ARCH["trg_vocab_size"], seed=16)
+    lse = vk.vocab_ce_fwd(h, w, lbl)[0]
+    scale = torch.tensor(2.0 ** 15, device=dev)
+    dh, dw = vk.vocab_ce_bwd(h, w, lbl, lse, g, 0.1)
+    sdh, sdw = vk.vocab_ce_bwd(h, w, lbl, lse, g * scale, 0.1)
+    inv = 1.0 / scale
+    errs = {"dh": check_close("6m dh (g x 2^15, unscaled)", sdh * inv, dh,
+                              TOL_VOCAB),
+            "dw": check_close("6m dW (g x 2^15, unscaled)", sdw * inv, dw,
+                              TOL_VOCAB)}
+    res.update(poisoned_step=dict(
+        losses=losses, loss_scales=scales, changed_per_step=moved,
+        forward_state_advanced=kept_through, telemetry=tel.as_dict()),
+        scaled_vocab_bwd_max_abs_err=errs,
+        scaled_vocab_bwd_bit_equal=bool(torch.equal(sdh * inv, dh)
+                                        and torch.equal(sdw * inv, dw)),
+        launches=counts["launches"], plain_calls=counts["plain"],
+        composed_calls=counts["composed"])
+    log(f"  dh/dW with g x 2^15, unscaled: bit-equal to the unscaled "
+        f"kernels: {res['scaled_vocab_bwd_bit_equal']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3384,6 +3860,8 @@ def main() -> int:
     train_resnet_amp = timed("6k", phase_train_resnet, dev, card,
                              label="phase 6k", overrides=AMP)
     amp_parity = timed("7f", phase_amp_parity, dev)
+    train_resume = timed("6l", phase_resume, dev, card)
+    train_guard = timed("6m", phase_guard, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -3420,7 +3898,8 @@ def main() -> int:
     # model drafter's steps, at the verify shape (paged_attention_verify)
     # on the speculative engines' verify runs
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
-             train_lstm, train_bert, train_amp, train_bert_amp)
+             train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
+             train_guard)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -3465,6 +3944,8 @@ def main() -> int:
                    "train_bert_amp": train_bert_amp,
                    "train_resnet_amp": train_resnet_amp,
                    "train_amp_card_vs_cpu": amp_parity,
+                   "train_resume": train_resume,
+                   "train_guard": train_guard,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

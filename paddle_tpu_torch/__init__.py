@@ -57,11 +57,14 @@ def is_compiled_with_cuda() -> bool:
 from . import amp  # noqa: E402,F401
 from . import clip  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
+from . import io  # noqa: E402,F401
 from . import layers  # noqa: E402,F401
 from . import nets  # noqa: E402,F401
+from . import observe  # noqa: E402,F401
 from . import ops as _ops  # noqa: E402,F401  (registers all op impls)
 from . import optimizer  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
+from . import resilience  # noqa: E402,F401
 from .core import unique_name  # noqa: E402,F401
 from .core.backward import append_backward, gradients  # noqa: E402,F401
 from .core.executor import (Executor, Scope, global_scope,  # noqa: E402,F401

@@ -9,9 +9,9 @@ dtype arrives.  Parameters stay float32 master copies: the cast is an
 ordinary `Tensor.to` on the op's inputs, so autograd casts each
 cotangent back and every parameter gradient reaches the update ops in
 float32.  bf16 has the dynamic range of float32, so no loss scaling is
-needed; `decorate(use_dynamic_loss_scaling=True)` raises until the
-in-step update guard it builds on is ported (ROADMAP queue A step 6/7,
-resilience/guard.py).
+needed; `decorate(use_dynamic_loss_scaling=True)` is the opt-in that
+also brings the in-step non-finite update guard (resilience/guard.py),
+which protects bf16 runs from NaN steps too.
 
 Usage (fluid style)::
 
@@ -55,13 +55,20 @@ class AutoMixedPrecisionLists:
 
 class OptimizerWithMixedPrecision:
     """Optimizer wrapper: marks the program as amp at minimize() time.
+
     The wrapped optimizer is unchanged — master weights are the normal
-    float32 parameters, so every optimizer composes with amp."""
+    float32 parameters, so every optimizer composes with amp.  With
+    `loss_scaling` set (a resilience.LossScaleConfig), minimize() also
+    enables the in-step non-finite update guard with dynamic loss
+    scaling (resilience/guard.py).
+    """
 
     def __init__(self, optimizer,
-                 amp_lists: Optional[AutoMixedPrecisionLists]):
+                 amp_lists: Optional[AutoMixedPrecisionLists],
+                 loss_scaling=None):
         self._optimizer = optimizer
         self._amp_lists = amp_lists or AutoMixedPrecisionLists()
+        self._loss_scaling = loss_scaling
 
     def __getattr__(self, name):
         return getattr(self._optimizer, name)
@@ -71,9 +78,16 @@ class OptimizerWithMixedPrecision:
         program = loss.block.program
         program._amp_lists = self._amp_lists
         program._bump()
-        return self._optimizer.minimize(
+        result = self._optimizer.minimize(
             loss, startup_program=startup_program,
             parameter_list=parameter_list, no_grad_set=no_grad_set)
+        if self._loss_scaling is not None:
+            # after minimize: the guard must see the full op list
+            # (backward marker + update ops are appended by now)
+            from .resilience.guard import enable_update_guard
+
+            enable_update_guard(program, loss_scaling=self._loss_scaling)
+        return result
 
 
 def decorate(optimizer, amp_lists: Optional[AutoMixedPrecisionLists] = None,
@@ -82,15 +96,24 @@ def decorate(optimizer, amp_lists: Optional[AutoMixedPrecisionLists] = None,
              incr_every_n_steps: int = 1000,
              decr_every_n_nan_or_inf: int = 1,
              incr_ratio: float = 2.0, decr_ratio: float = 0.5):
-    """Wrap `optimizer` for bf16 mixed-precision training.  The
-    loss-scaling arguments are the reference's signature; dynamic loss
-    scaling needs the in-step update guard, which is not ported yet."""
+    """Wrap `optimizer` for bf16 mixed-precision training.
+
+    use_dynamic_loss_scaling: enable the device-side loss-scale
+        schedule + non-finite update guard (reference: fluid's
+        decorate(init_loss_scaling=..., use_dynamic_loss_scaling=True)
+        fp16 API, paddle_tpu/amp.py:100-118).
+    """
+    loss_scaling = None
     if use_dynamic_loss_scaling:
-        raise NotImplementedError(
-            "amp.decorate(use_dynamic_loss_scaling=True) is not ported "
-            "yet: it needs the in-step update guard (resilience/guard.py, "
-            "ROADMAP queue A step 6/7)")
-    return OptimizerWithMixedPrecision(optimizer, amp_lists)
+        from .resilience.guard import LossScaleConfig
+
+        loss_scaling = LossScaleConfig(
+            init_loss_scaling=init_loss_scaling,
+            incr_every_n_steps=incr_every_n_steps,
+            decr_every_n_nan_or_inf=decr_every_n_nan_or_inf,
+            incr_ratio=incr_ratio, decr_ratio=decr_ratio)
+    return OptimizerWithMixedPrecision(optimizer, amp_lists,
+                                       loss_scaling=loss_scaling)
 
 
 def cast_ins_for_op(op_type: str, ins, amp_lists: AutoMixedPrecisionLists):

@@ -22,8 +22,21 @@ gradient is taken with respect to the gathered rows, so the table's is
 a `SparseGrad` of the touched rows, which the optimizer ops with a
 sparse branch update lazily and every other op sees densified.  What
 the reference does beyond that — gradient accumulation, explicit
-gradient sync, the update guard, telemetry and numerics, recompute and
-pipeline scopes — raises NotImplementedError naming its ROADMAP item.
+gradient sync, recompute and pipeline scopes — raises
+NotImplementedError naming its ROADMAP item.
+
+The in-step pieces run in the reference's order
+(paddle_tpu/core/executor.py:431-617), each only when the program opted
+in: the per-op finite bitmap (observe/numerics.py) is seeded before the
+forward and ORed by every op; dynamic loss scaling multiplies the loss
+by the device-resident scale before `torch.autograd.grad`, then the
+loss and the gradients are unscaled; the update guard
+(resilience/guard.py) takes `all_finite` and snapshots what the update
+ops write, runs them, and selects every written value back where the
+step was not finite; then the telemetry accumulator (observe/
+metrics.py), the guard's counters and loss-scale schedule, and the
+numerics latch advance.  All of it stays on the device: no host read
+during the step.
 
 A program marked by `amp.decorate(...).minimize` carries its bf16 op
 lists in `_amp_lists`; every op of every run (forward-only, the training
@@ -47,6 +60,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..observe import metrics as _obs_metrics
+from ..observe import numerics as _obs_num
+from ..observe.numerics import NUMERICS_BITS_VAR
+from ..resilience import guard as _guard
 from .program import Program, Variable, grad_var_name
 from .registry import OpContext, get_op_impl
 from .selected_rows import SparseGrad, densify
@@ -192,6 +209,13 @@ def _run_one_op(op, env, seed, op_index, program=None, device=None,
                 f"{len(values)} values for {len(names)} names")
         for name, val in zip(names, values):
             env[name] = val
+    if NUMERICS_BITS_VAR in env:
+        # first-nonfinite op provenance (observe/numerics.py): OR this
+        # op's finite flag into the step bitmap under its program
+        # index; the bits var is absent unless the program opted in
+        env[NUMERICS_BITS_VAR] = _obs_num.update_bits(
+            env[NUMERICS_BITS_VAR], op_index,
+            [env[n] for n in desc.output_names() if n in env])
     return env
 
 
@@ -276,14 +300,10 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
 def _check_trainable(program: Program, fwd_ops):
     """Raise for what the reference's training step does beyond the
     autodiff split (each names its ROADMAP item)."""
-    for attr, what in (("_grad_sync", "explicit gradient sync"),
-                       ("_update_guard", "the in-step update guard"),
-                       ("_telemetry_enabled", "in-step telemetry"),
-                       ("_numerics_enabled", "numerics observability")):
-        if getattr(program, attr, None):
-            raise NotImplementedError(
-                f"training with {what} is not ported yet: ROADMAP queue A "
-                f"item 2 (executor: {what})")
+    if getattr(program, "_grad_sync", None):
+        raise NotImplementedError(
+            "training with explicit gradient sync is not ported yet: "
+            "ROADMAP queue A item 2 (executor: explicit gradient sync)")
     for op in fwd_ops:
         attrs = op.desc.attrs
         if "__recompute__" in attrs or "__pp_group__" in attrs:
@@ -338,10 +358,10 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
                 fetch_names=()):
     """The training step (see the module docstring).  The forward runs
     only the ops `_live_forward` keeps, each under its program index, so
-    pruning never shifts an op's random stream.  The autograd leaves are
-    the dense parameters and, for each lookup on the SparseGrad path,
-    the rows it gathers; a table's gradient is then a SparseGrad of its
-    lookups' ids and row gradients."""
+    pruning never shifts an op's random stream or its numerics bit.  The
+    autograd leaves are the dense parameters and, for each lookup on the
+    SparseGrad path, the rows it gathers; a table's gradient is then a
+    SparseGrad of its lookups' ids and row gradients."""
     from ..ops.sparse import gather_rows
 
     info = program._backward_info
@@ -355,6 +375,19 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
     sparse_tables = {tbl for _, tbl, _, _ in lookups}
     dense = [p for p in params if p not in sparse_tables]
     loss_name = info["loss"]
+    trainable = {p: env[p] for p in params}   # the pre-update values
+    tel = env.get(_obs_metrics.TELEMETRY_VAR)
+    num_on = (tel is not None
+              and getattr(program, "_telemetry_enabled", False)
+              and getattr(program, "_numerics_enabled", False)
+              and _obs_num.NONFINITE_WORDS in tel)
+    if num_on:
+        env[NUMERICS_BITS_VAR] = _obs_num.init_step_bits(len(ops), device)
+    guard_cfg = getattr(program, "_update_guard", None)
+    scale = None
+    if (guard_cfg is not None and guard_cfg.loss_scaling is not None
+            and tel is not None):
+        scale = tel["loss_scale"].to(torch.float32)
     # fresh leaves: the scope's own tensors never join the graph
     leaves = [env[p].detach().requires_grad_() for p in dense]
     rows = {i: gather_rows(env[tbl], env[ids_n], pad).detach()
@@ -373,29 +406,78 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
         if loss.dim() > 0:
             raise ValueError(f"loss {loss_name!r} must have one element, "
                              f"got shape {tuple(fenv[loss_name].shape)}")
-        grads = torch.autograd.grad(loss, leaves + list(rows.values()),
-                                    allow_unused=True)
+        if scale is not None:
+            # dynamic loss scaling wraps the loss BEFORE autodiff
+            loss = loss * scale
+        grad_list = torch.autograd.grad(loss, leaves + list(rows.values()),
+                                        allow_unused=True)
     # nothing of the graph leaves the step: every value is detached
     env = {n: (v.detach() if isinstance(v, torch.Tensor) else v)
            for n, v in fenv.items()}
     loss = loss.detach()
-    env[grad_var_name(loss_name)] = loss * 0 + 1.0
-    for p, leaf, g in zip(dense, leaves, grads):
-        env[grad_var_name(p)] = torch.zeros_like(leaf) if g is None else g
+    grads: Dict[str, Any] = {}
+    for p, leaf, g in zip(dense, leaves, grad_list):
+        grads[p] = torch.zeros_like(leaf) if g is None else g
     per_table: Dict[str, list] = {}
-    for (i, tbl, ids_n, _), g in zip(lookups, grads[len(dense):]):
+    for (i, tbl, ids_n, _), g in zip(lookups, grad_list[len(dense):]):
         if g is None:
             g = torch.zeros_like(rows[i])
         per_table.setdefault(tbl, []).append(
             (env[ids_n].reshape(-1), g.reshape(-1, env[tbl].shape[-1])))
     for tbl, pairs in per_table.items():
-        env[grad_var_name(tbl)] = SparseGrad(
-            torch.cat([ids for ids, _ in pairs]),
-            torch.cat([g for _, g in pairs]), env[tbl].shape)
-    # rest_ops[0] is the backward_marker itself
+        grads[tbl] = SparseGrad(torch.cat([ids for ids, _ in pairs]),
+                                torch.cat([g for _, g in pairs]),
+                                env[tbl].shape)
     with torch.no_grad():
-        run_ops(rest_ops[1:], env, seed, start_index=k + 1,
-                program=program, device=device)
+        return _update(program, env, seed, device, rest_ops, k, loss,
+                       grads, trainable, guard_cfg, scale, num_on)
+
+
+def _update(program, env, seed, device, rest_ops, k, loss, grads,
+            trainable, guard_cfg, scale, num_on):
+    """After the gradients, in the reference's order
+    (paddle_tpu/core/executor.py:538-617): unscale, finite check and
+    snapshot, the update ops, the guard's select, then telemetry, the
+    guard's counters and the numerics latch."""
+    finite = None
+    pre_update: Dict[str, Any] = {}
+    if scale is not None:
+        # unscale before the finite check and the update ops: the
+        # optimizer must see master-scale gradients
+        inv = 1.0 / scale
+        loss = loss * inv
+        grads = _guard.scale_grads(grads, inv)
+    if guard_cfg is not None:
+        finite = _guard.all_finite(loss, grads)
+        written = set()
+        for op in rest_ops[1:]:
+            written.update(op.desc.output_names())
+        pre_update = _guard.snapshot_env(env, written)
+    env[grad_var_name(program._backward_info["loss"])] = loss * 0 + 1.0
+    for p, g in grads.items():
+        env[grad_var_name(p)] = g
+    # rest_ops[0] is the backward_marker itself
+    run_ops(rest_ops[1:], env, seed, start_index=k + 1, program=program,
+            device=device)
+    if finite is not None:
+        # a non-finite step becomes a full state no-op: every value the
+        # update ops wrote selects back to its pre-update snapshot
+        _guard.select_updates(finite, env, pre_update)
+    tel_var = _obs_metrics.TELEMETRY_VAR
+    if getattr(program, "_telemetry_enabled", False) and tel_var in env:
+        env[tel_var] = _obs_metrics.device_update(env[tel_var], loss, grads,
+                                                  trainable, env)
+        if finite is not None:
+            env[tel_var] = _guard.guard_telemetry_update(env[tel_var],
+                                                         finite, guard_cfg)
+        if num_on:
+            bits = env.pop(NUMERICS_BITS_VAR)
+            tel = _obs_num.device_group_update(
+                env[tel_var], grads, trainable, env,
+                _obs_num.param_groups(trainable))
+            env[tel_var] = _obs_num.latch_step_bits(
+                tel, bits,
+                poisoned_extra=None if finite is None else ~finite)
     return env
 
 
@@ -423,7 +505,22 @@ class Executor:
             fetch_list: Optional[Sequence[Any]] = None,
             scope: Optional[Scope] = None,
             return_numpy: bool = True,
+            use_program_cache: bool = True,
+            iterations: int = 1,
             accumulation_steps: int = 1):
+        """Run `program` (reference: paddle_tpu/core/executor.py:1141).
+
+        use_program_cache: accepted for the reference's signature; the
+            port compiles nothing per program, so there is no cache to
+            turn off (the pruned op lists it memoizes are keyed by the
+            program's version and always valid).
+        iterations: run the step K times on the same feeds and return
+            the last run's fetches, as the reference's
+            `chain_iterations` (:1089-1108).  Each iteration is one run
+            of the RNG counter, so `iterations=3` draws the same dropout
+            streams as three `run` calls (the reference also advances
+            its key once per chained step, :1339).
+        """
         from .program import default_main_program
 
         if accumulation_steps != 1:
@@ -431,25 +528,18 @@ class Executor:
                 "gradient accumulation (accumulation_steps > 1) is not "
                 "ported yet: ROADMAP queue A item 2 (executor: gradient "
                 "accumulation)")
+        if int(iterations) < 1:
+            raise ValueError(f"iterations must be >= 1, got {iterations}")
 
         program = program or default_main_program()
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
         block = program.global_block()
-        run = scope.find_var(RNG_STATE_VAR) or 0
-        scope.set_var(RNG_STATE_VAR, run + 1)
-        env: Dict[str, Any] = {}
-        for v in block.vars.values():
-            if v.persistable and scope.find_var(v.name) is not None:
-                env[v.name] = scope.find_var(v.name)
-        for name, value in (feed or {}).items():
-            env[name] = self._to_tensor(value, block, name)
-        env = interpret_program(program, env, (program.random_seed, run),
-                                fetch_names=fetch_names, device=self.device)
-        for v in block.vars.values():
-            if v.persistable and v.name in env:
-                scope.set_var(v.name, env[v.name])
+        feeds = {name: self._to_tensor(value, block, name)
+                 for name, value in (feed or {}).items()}
+        for _ in range(int(iterations)):
+            env = self._run_once(program, scope, feeds, fetch_names)
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch target(s) {missing} were not computed "
@@ -461,6 +551,38 @@ class Executor:
             # intermediate) comes back widened, exactly, to float32
             fetches = [_to_numpy(f) for f in fetches]
         return fetches
+
+    def _run_once(self, program: Program, scope: Scope, feeds,
+                  fetch_names):
+        """One step: the scope's persistable state and the telemetry
+        accumulator (seeded as the reference's `_prepare` does,
+        paddle_tpu/core/executor.py:1268-1280) in, the program
+        interpreted, the new state written back."""
+        block = program.global_block()
+        run = scope.find_var(RNG_STATE_VAR) or 0
+        scope.set_var(RNG_STATE_VAR, run + 1)
+        env: Dict[str, Any] = {}
+        for v in block.vars.values():
+            if v.persistable and scope.find_var(v.name) is not None:
+                env[v.name] = scope.find_var(v.name)
+        tel_var = _obs_metrics.TELEMETRY_VAR
+        if getattr(program, "_telemetry_enabled", False):
+            tel = scope.find_var(tel_var)
+            if tel is None:
+                tel = _obs_metrics.init_telemetry_for(program, self.device)
+            else:
+                tel = _obs_metrics.ensure_numerics_fields(program, tel,
+                                                          self.device)
+            env[tel_var] = tel
+        env.update(feeds)
+        env = interpret_program(program, env, (program.random_seed, run),
+                                fetch_names=fetch_names, device=self.device)
+        for v in block.vars.values():
+            if v.persistable and v.name in env:
+                scope.set_var(v.name, env[v.name])
+        if tel_var in env:
+            scope.set_var(tel_var, env[tel_var])
+        return env
 
     def close(self):
         """Nothing to release: the port keeps no compiled executables."""

@@ -148,7 +148,10 @@ def pre_post_process(prev_out, out, process_cmd, dropout_rate=0.0):
 
 def encoder_layer(x, attn_bias, n_head, d_key, d_value, d_model, d_inner,
                   dropout, use_flash=False, fused_qkv=False,
-                  flash_pallas=None, head_major=False):
+                  moe_experts=0, aux_list=None, flash_pallas=None,
+                  head_major=False):
+    if moe_experts:
+        _unported("moe_experts", "queue A item 6 (ops/moe.py)")
     attn = multi_head_attention(
         pre_post_process(None, x, "n"), None, None, attn_bias, d_key,
         d_value, d_model, n_head, dropout, use_flash=use_flash,
@@ -162,8 +165,11 @@ def encoder_layer(x, attn_bias, n_head, d_key, d_value, d_model, d_inner,
 
 def decoder_layer(x, enc_out, self_bias, cross_bias, n_head, d_key, d_value,
                   d_model, d_inner, dropout, use_flash=False,
-                  fused_qkv=False, flash_pallas=None, self_causal=False,
+                  fused_qkv=False, moe_experts=0, aux_list=None,
+                  flash_pallas=None, self_causal=False,
                   flash_cross=False, head_major=False):
+    if moe_experts:
+        _unported("moe_experts", "queue A item 6 (ops/moe.py)")
     self_attn = multi_head_attention(
         pre_post_process(None, x, "n"), None, None, self_bias, d_key,
         d_value, d_model, n_head, dropout, use_flash=use_flash,

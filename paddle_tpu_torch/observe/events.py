@@ -55,12 +55,20 @@ class RunEventLog:
     """Append-only JSONL event log for one run.
 
     Records carry {ts (unix seconds), run_id, event, ...fields}.  The
-    first record is `run_begin` with run provenance; `close()` appends
-    `run_end`.  Thread-safe: records never interleave.
+    first record is `run_begin` with run provenance (backend, and the
+    mesh shape when given); `close()` appends `run_end`.  Thread-safe:
+    records never interleave.  `max_bytes` (rotation) raises until
+    ROADMAP A step 11.
     """
 
     def __init__(self, path: str, run_id: Optional[str] = None,
-                 meta: Optional[Dict[str, Any]] = None):
+                 mesh_shape: Optional[Dict[str, int]] = None,
+                 meta: Optional[Dict[str, Any]] = None,
+                 max_bytes: Optional[int] = None):
+        if max_bytes is not None:
+            raise NotImplementedError(
+                "RunEventLog(max_bytes=) (size-bounded log rotation) is "
+                "not ported yet: ROADMAP queue A step 11 (host planes)")
         self.path = path
         self.run_id = run_id or uuid.uuid4().hex[:12]
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -68,6 +76,8 @@ class RunEventLog:
         self._wlock = threading.Lock()
         begin: Dict[str, Any] = {"argv": list(sys.argv)}
         begin.update(_backend_info())
+        if mesh_shape:
+            begin["mesh_shape"] = dict(mesh_shape)
         begin.update(meta or {})
         self.event("run_begin", **begin)
 

@@ -249,6 +249,10 @@ class DecodeEngine:
         runs the model's startup program on the engine's device.
     place: CUDAPlace(id) (the default, CUDAPlace(0); raises without
         CUDA) or CPUPlace().
+    donate_pools: accepted for the reference's signature and ignored:
+        the reference donates the KV pools to its compiled step only on
+        a TPU (paddle_tpu/serving/decode.py:335-339), and the port's
+        eager steps update the pools in place.
     tracer: an observe.ReqTracer, or None (no tracing).
     speculate_k: drafts per slot per verify round (0: the sequential
         chunk loop); drafter: a serving.speculate.Drafter with k ==
@@ -265,9 +269,11 @@ class DecodeEngine:
                  stats_window: int = 64,
                  breaker: Union[CircuitBreaker, bool, None] = None,
                  memory_budget_bytes: Union[int, bool, None] = None,
+                 donate_pools: Optional[bool] = None, tracer=None,
                  role: str = "unified", speculate_k: int = 0,
+                 drafter=None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
-                 place=None, tracer=None, drafter=None):
+                 place=None):
         if role not in ("unified", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'unified', 'prefill' or 'decode'; "

@@ -107,9 +107,26 @@ def test_to_dict_round_trips_amp_as_the_reference():
 
 
 def test_dynamic_loss_scaling_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="step 6/7"):
-        tf.amp.decorate(tf.optimizer.SGD(0.1),
-                        use_dynamic_loss_scaling=True)
+    """Dynamic loss scaling is ported now (ROADMAP A step 6b): where
+    `decorate(use_dynamic_loss_scaling=True)` raised naming its step, it
+    builds the reference's LossScaleConfig, and `minimize` enables the
+    update guard with it, as paddle_tpu/amp.py:60-118 does."""
+    opts = {fluid: fluid.amp.decorate(
+        fluid.optimizer.SGD(0.1), use_dynamic_loss_scaling=True,
+        init_loss_scaling=8.0, incr_every_n_steps=3) for fluid in (jf, tf)}
+    for fluid, opt in opts.items():
+        cfg = opt._loss_scaling
+        assert (cfg.init_loss_scaling, cfg.incr_every_n_steps,
+                cfg.decr_every_n_nan_or_inf, cfg.incr_ratio,
+                cfg.decr_ratio) == (8.0, 3, 1, 2.0, 0.5)
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+            loss = fluid.layers.mean(fluid.layers.fc(x, size=1))
+            opt.minimize(loss)
+        assert main._update_guard.loss_scaling is cfg
+        assert main._telemetry_enabled and main._amp_lists is not None
+    assert tf.amp.decorate(tf.optimizer.SGD(0.1))._loss_scaling is None
 
 
 def test_cast_ins_for_op_casts_only_what_the_lists_name():

@@ -693,6 +693,24 @@ def test_vocab_ce_kernels_match_plain(dev, n, d, v, eps):
     assert torch.equal(again[0], dh) and torch.equal(again[1], dw)
 
 
+@pytest.mark.parametrize("n,d,v", [(1000, 512, 1003), (999, 61, 1001)])
+def test_vocab_ce_bwd_under_loss_scaling_matches_unscaled(dev, n, d, v):
+    """Dynamic loss scaling (resilience/guard.py) reaches the dh and dW
+    kernels through their cotangent: with g * 2^15, then unscaled by
+    2^-15, dh and dW hold the unscaled kernels' output within the
+    vocab-CE tolerance (a power-of-two scale shifts exponents only, so
+    they are expected bit-equal) and overflow nowhere."""
+    h, w, lbl, cot = _vocab_case(dev, n, d, v, seed=n + 3)
+    lse = vk.vocab_ce_fwd(h, w, lbl)[0]
+    scale = torch.tensor(2.0 ** 15, device=dev)
+    dh, dw = vk.vocab_ce_bwd(h, w, lbl, lse, cot, 0.1)
+    sdh, sdw = vk.vocab_ce_bwd(h, w, lbl, lse, cot * scale, 0.1)
+    torch.cuda.synchronize()
+    for name, scaled, plain in (("dh", sdh, dh), ("dw", sdw, dw)):
+        assert torch.isfinite(scaled).all(), name
+        _close_to_max(scaled * (1.0 / scale), plain, name)
+
+
 @pytest.mark.parametrize("n,d,v", [(1000, 512, 1003), (999, 61, 1001),
                                    (999, 100, 1001)])
 def test_vocab_ce_fwd_labels_outside_the_vocabulary(dev, n, d, v):

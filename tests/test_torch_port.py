@@ -1,7 +1,8 @@
 """Package contracts of the PyTorch port (paddle_tpu_torch).
 
-- It imports neither jax nor paddle_tpu: a subprocess imports every one
-  of its modules with both blocked in sys.modules.
+- It imports neither jax nor paddle_tpu nor ml_dtypes: a subprocess
+  imports every one of its modules with the three blocked in
+  sys.modules.
 - Places: without an explicit place the entry points mean CUDAPlace(0)
   and raise when CUDA is absent, instead of running on the CPU.
 - The CUDA sources of the ported kernels are in the package, each with
@@ -36,14 +37,15 @@ _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
 sys.modules["paddle_tpu"] = None   # and so does the reference package
+sys.modules["ml_dtypes"] = None    # the card's machine lacks it
 import paddle_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     paddle_tpu_torch.__path__, "paddle_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and (m in ("jax", "paddle_tpu")
-                  or m.startswith(("jax.", "paddle_tpu."))))
+             and (m in ("jax", "paddle_tpu", "ml_dtypes")
+                  or m.startswith(("jax.", "paddle_tpu.", "ml_dtypes."))))
 assert not bad, bad
 print(len(names))
 """
@@ -64,6 +66,7 @@ def test_source_names_no_jax_import(path):
     assert not re.search(r"^\s*(import jax|from jax)", src, re.M), path
     assert not re.search(r"^\s*(import|from) paddle_tpu(\.|\s|$)", src,
                          re.M), path
+    assert not re.search(r"^\s*(import|from) ml_dtypes", src, re.M), path
 
 
 def test_default_place_raises_without_cuda(monkeypatch):
