@@ -219,8 +219,30 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    (numerics on) is the lookup that reads the poisoned feed; and the dh
    and dW kernels at the training shape with the cotangent x 2^15,
    unscaled, against the unscaled kernels;
+6n. contrib.Trainer over 6l's program (`build_guarded`'s graph as
+   `train_func` and `optimizer_func`) and one epoch of 8 seeded batches
+   of 6l's shape, the fourth carrying a token id outside the
+   vocabulary; `CheckpointConfig(step_interval=2, async_save=True,
+   max_num_checkpoints=2)`, `TelemetryConfig(interval=2)`,
+   `step_deadline_s`, `preempt_drain=True`; each run a process of its
+   own (`python3 chip_smoke.py --trainer-worker DIR ...`): first an
+   uninterrupted control alone on the card (the phase's step and save
+   timings: each save's blocking time against its background write, the
+   step with and without a write in flight, the goodput categories,
+   which must sum to the wall); then, side by side, a run SIGKILLed
+   while its second async write is in flight (the writes held 2 s by
+   the chaos delaypoint), relaunched, and a run SIGTERMed after 6
+   steps, which drains to an emergency checkpoint and exits with
+   PREEMPT_EXIT_CODE, relaunched.  Each relaunch's final checkpoint (the
+   CRC32 of every variable), run counter, telemetry and step losses
+   equal the control's (or lie within twice the spread of two
+   uninterrupted runs); no torn directory is left.  The last relaunch
+   then runs a DispatchWatchdog around two real steps and a
+   `chaos.hang` in a third (StepHangError, a `step_hang` event), and the
+   Inferencer on the saved parameters, its loss bit-equal to the trained
+   program's `clone(for_test=True)` loss;
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l and 6m included), the card line, and as its last line
+   6l, 6m and 6n included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -3372,8 +3394,8 @@ def _clone_scope(src):
 def _carry_train_state(old, new, program, dev):
     """The RNG counter and the telemetry accumulator from scope `old` to
     scope `new`, through JSON as the reference's Trainer carries them
-    (paddle_tpu/contrib/trainer.py:327-409; the port's Trainer is ROADMAP
-    A step 6c)."""
+    (paddle_tpu/contrib/trainer.py:327-409); phase 6n resumes through the
+    port's own contrib.Trainer."""
     from paddle_tpu_torch.core.executor import RNG_STATE_VAR
     from paddle_tpu_torch.observe import metrics
 
@@ -3742,20 +3764,596 @@ def phase_guard(dev, card):
     return res
 
 
+# -- phase 6n: the Trainer — async checkpoints, kill and resume ----------
+
+# phase 6l's AMP fused-CE Transformer under contrib.Trainer: one epoch of
+# TRAINER_BATCHES seeded batches, the one at TRAINER_NAN_AT carrying a
+# token id outside the vocabulary (a NaN row; the guard skips the step)
+TRAINER_BATCHES = 8
+TRAINER_NAN_AT = 3
+TRAINER_STEP_DEADLINE_S = 30.0   # the steady-state step budget
+TRAINER_SLOW_WRITE_S = 2.0       # 6n's SIGKILL victim: writes held 2 s
+TRAINER_KILL_AT = 4              # ... killed once serial 1 is in flight
+TRAINER_TERM_AT = 6              # 6n's SIGTERM victim: after 6 steps,
+TRAINER_TERM_PACE_S = 0.3        # each step's handler held 0.3 s so the
+#                                  signal lands before its boundary
+TRAINER_HANG_BUDGET_S = 2.0      # the in-worker DispatchWatchdog's step
+TRAINER_WORKER_TIMEOUT_S = 300
+
+
+def trainer_funcs():
+    """(train_func, optimizer_func) of build_guarded's graph for
+    contrib.Trainer: build_model's forward and loss, then Adam under noam
+    x 2.0 wrapped by amp.decorate with dynamic loss scaling."""
+    from paddle_tpu_torch import amp, layers, optimizer
+    from paddle_tpu_torch.models import transformer
+
+    arch = dict(TRAIN_ARCH, use_fused_ce=True)
+
+    def train_func():
+        return transformer.build_model(**arch, with_optimizer=False)["loss"]
+
+    def optimizer_func():
+        lr = layers.elementwise_mul(
+            layers.noam_decay(arch["d_model"], 4000),
+            layers.fill_constant([1], "float32", 2.0))
+        return amp.decorate(
+            optimizer.AdamOptimizer(learning_rate=lr, beta1=0.9,
+                                    beta2=0.997, epsilon=1e-9),
+            use_dynamic_loss_scaling=True)
+
+    return train_func, optimizer_func
+
+
+def trainer_batches():
+    """The epoch's batches (host numpy, phase 6l's feed shape), one per
+    seed; batch TRAINER_NAN_AT has a source id equal to the vocabulary
+    size."""
+    from paddle_tpu_torch.models import transformer
+
+    v = TRAIN_ARCH["trg_vocab_size"]
+    out = [transformer.make_fake_batch(TRAIN_BATCH, TRAIN_ARCH["max_length"],
+                                       v, v, seed=100 + i)
+           for i in range(TRAINER_BATCHES)]
+    out[TRAINER_NAN_AT]["src_word"][0, 0] = v
+    return out
+
+
+def _set_matmul_flags():
+    """TF32 off, and bf16 GEMMs without reduced-precision reductions
+    (the reference's bf16 products accumulate in float32 and round
+    once)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+
+
+def trainer_worker(argv) -> int:
+    """One 6n training process, `chip_smoke.py --trainer-worker DIR
+    [--slow-write S] [--pace S] [--checks]`: contrib.Trainer on cuda:0
+    over one epoch, its checkpoints under DIR/ck, its event log
+    DIR/events.jsonl, its background writes held S each (chaos
+    delaypoint); prints "STEP <epoch> <step> <unix time>" after each
+    step, then sleeps `--pace`; on SIGTERM drains and exits with
+    PREEMPT_EXIT_CODE.  `--checks` adds `_trainer_checks` after train().
+    Writes DIR/result.json (steps, kernel counts against the launches
+    its runs should make, goodput, checkpoint spans) on the way out."""
+    import argparse
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.contrib import (BeginStepEvent, CheckpointConfig,
+                                          EndStepEvent, Trainer)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.resilience import TrainingPreempted, chaos
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --trainer-worker")
+    ap.add_argument("dir")
+    ap.add_argument("--slow-write", type=float, default=0.0)
+    ap.add_argument("--pace", type=float, default=0.0)
+    ap.add_argument("--checks", action="store_true")
+    args = ap.parse_args(argv)
+    _set_matmul_flags()
+    _build.build()
+    if args.slow_write > 0:
+        chaos.arm_delay("ckpt:write", args.slow_write, times=10 ** 6)
+    t0 = time.time()
+    train_func, optimizer_func = trainer_funcs()
+    trainer = Trainer(
+        train_func, optimizer_func, place=pt.CUDAPlace(0),
+        checkpoint_config=CheckpointConfig(
+            os.path.join(args.dir, "ck"), step_interval=2, async_save=True,
+            max_num_checkpoints=2),
+        telemetry=observe.TelemetryConfig(
+            interval=2, log_path=os.path.join(args.dir, "events.jsonl")),
+        step_deadline_s=TRAINER_STEP_DEADLINE_S, preempt_drain=True)
+    t_ready = time.time()
+    batches = trainer_batches()
+    steps, begun = [], {}
+
+    def handler(e):
+        if isinstance(e, BeginStepEvent):
+            pending = trainer._pending_save
+            begun.update(t=time.perf_counter(), inflight=bool(
+                pending is not None and not pending.done()))
+        elif isinstance(e, EndStepEvent):
+            now = time.time()
+            steps.append({"epoch": e.epoch, "step": e.step,
+                          "ms": (time.perf_counter() - begun["t"]) * 1e3,
+                          "write_in_flight": begun["inflight"],
+                          "loss": float(np.asarray(e.metrics[0])
+                                        .reshape(-1)[0]),
+                          "t": now})
+            print(f"STEP {e.epoch} {e.step} {now:.6f}", flush=True)
+            time.sleep(args.pace)
+
+    res = {"t_begin": t0, "t_trainer_s": t_ready - t0, "resume": [
+        trainer._resume_epoch, trainer._resume_step_in_epoch]}
+    rc = 0
+    try:
+        trainer.train(num_epochs=1, reader=lambda: iter(batches),
+                      event_handler=handler)
+    except TrainingPreempted as e:
+        res["preempted"] = e.as_dict()
+        rc = e.exit_code
+    want = _want_launches(trainer.train_program, len(steps))
+    spans = [ev for ev in
+             trainer.goodput_ledger.export_chrome_trace()["traceEvents"]
+             if ev.get("args", {}).get("category") == "checkpoint"]
+    res.update(steps=steps, goodput=trainer.goodput(),
+               ckpt_stats=trainer.ckpt_stats,
+               checkpoint_spans_ms=[(ev["name"], ev["dur"] / 1e3)
+                                    for ev in spans],
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if rc == 0 and args.checks:
+        res["checks"] = _trainer_checks(trainer, batches, args.dir, want)
+    res.update(counts=kernels.counts(), want=want)
+    with open(os.path.join(args.dir, "result.json"), "w") as f:
+        json.dump(res, f, default=str)
+    if rc == 0:
+        trainer.stop()
+        print("DONE", flush=True)
+    return rc
+
+
+def _trainer_checks(trainer, batches, run_dir, want):
+    """After train(), in the worker: a DispatchWatchdog (step budget
+    TRAINER_HANG_BUDGET_S) around two real steps on the card, then a
+    chaos.hang in a third (StepHangError after a step_hang event); then
+    save_params and the Inferencer, whose loss equals the trained
+    program's clone(for_test=True) loss bit for bit.  Adds the launches
+    of those 2 steps and 2 forward runs to `want`."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp, observe
+    from paddle_tpu_torch.contrib import Inferencer
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.resilience import (DispatchWatchdog,
+                                             StepHangError, chaos)
+
+    program, loss = trainer.train_program, trainer.train_outputs[0]
+    wd = DispatchWatchdog(TRAINER_HANG_BUDGET_S, event_log=trainer._event_log)
+    for i in range(2):
+        with wd.guard(f"check step {i}"):
+            trainer.exe.run(program, feed=batches[i], fetch_list=[loss],
+                            scope=trainer.scope)
+    t0 = time.perf_counter()
+    try:
+        with wd.guard("check step 2"):
+            chaos.hang(60)
+        raise AssertionError("6n: the hung step was not interrupted")
+    except StepHangError as e:
+        hang = e.as_dict()
+    hang_s = time.perf_counter() - t0
+    ev = [e for e in observe.read_events(trainer._event_log.path)
+          if e["event"] == "step_hang"]
+    kinds = [r["kind"] for r in wd.regions]
+    if (kinds != ["first_compile", "step", "step"]
+            or hang["kind"] != "hung_step" or not ev
+            or ev[-1]["hang_kind"] != "hung_step"):
+        raise AssertionError(f"6n watchdog: regions {wd.regions}, hang "
+                             f"{hang}, events {ev}")
+    params = os.path.join(run_dir, "params")
+    trainer.save_params(params)
+    feed = batches[0]
+    plain = trainer.exe.run(program.clone(for_test=True), feed=feed,
+                            fetch_list=[loss], scope=trainer.scope)[0]
+    arch = dict(TRAIN_ARCH, use_fused_ce=True, dropout=0.0)
+
+    def infer_func():
+        # the forward at dropout 0 (a test-mode upscale_in_train dropout
+        # passes its input through), under the bf16 policy as
+        # amp.decorate(...).minimize marks a program (a forward-only
+        # program has no minimize)
+        out = transformer.build_model(**arch, with_optimizer=False)["loss"]
+        infer_program = pt.default_main_program()
+        infer_program._amp_lists = amp.AutoMixedPrecisionLists()
+        infer_program._bump()
+        return out
+
+    served = Inferencer(infer_func, params,
+                        place=pt.CUDAPlace(0)).infer(feed)[0]
+    if served.dtype != plain.dtype or not np.array_equal(served, plain):
+        raise AssertionError(f"6n Inferencer loss {served} differs from "
+                             f"clone(for_test=True)'s {plain}")
+    for k, n in _want_launches(program, 2).items():
+        want[k] += n
+    want["flash_attention_fwd_bf16"] += 2 * _flash_ops(program)
+    want["vocab_ce_fwd"] += 2 * _vocab_ops(program)
+    return {"watchdog_regions": kinds, "hang": hang, "hang_s": hang_s,
+            "inference_loss": float(served.reshape(-1)[0])}
+
+
+def _worker_cmd(run_dir, *flags):
+    return [sys.executable, os.path.abspath(__file__), "--trainer-worker",
+            run_dir, *flags]
+
+
+def _worker_result(run_dir, rc, out, spawned):
+    path = os.path.join(run_dir, "result.json")
+    if not os.path.exists(path):
+        raise AssertionError(f"6n worker in {run_dir} wrote no result "
+                             f"(rc {rc}): {out[-2000:]}")
+    with open(path) as f:
+        res = json.load(f)
+    os.remove(path)                 # a relaunch in this directory writes anew
+    res.update(rc=rc, run_dir=run_dir, first_step_after_spawn_s=(
+        res["steps"][0]["t"] - spawned if res["steps"] else None))
+    counts, want = res["counts"], res["want"]
+    if (counts["launches"] != want or max(counts["plain"].values())
+            or max(counts["composed"].values())):
+        raise AssertionError(f"6n worker {run_dir}: launches {counts}, "
+                             f"want {want} and no plain or composed call")
+    return res
+
+
+def _run_worker(run_dir, *flags):
+    """A worker run to its end; its result."""
+    os.makedirs(run_dir, exist_ok=True)
+    spawned = time.time()
+    r = subprocess.run(_worker_cmd(run_dir, *flags), capture_output=True,
+                       text=True, timeout=TRAINER_WORKER_TIMEOUT_S)
+    if r.returncode != 0 or "DONE" not in r.stdout:
+        raise AssertionError(f"6n worker {run_dir} failed (rc "
+                             f"{r.returncode}): {r.stderr[-3000:]}")
+    return _worker_result(run_dir, r.returncode, r.stdout, spawned)
+
+
+def _signal_worker(run_dir, sig, at_step, wait_for=None, flags=()):
+    """A worker that gets `sig` once `at_step` steps are done and the
+    path `wait_for` (under its checkpoint root) exists; (rc, stdout,
+    spawn time)."""
+    import signal as _signal
+
+    os.makedirs(run_dir, exist_ok=True)
+    err = open(os.path.join(run_dir, "stderr.txt"), "w")
+    spawned = time.time()
+    p = subprocess.Popen(_worker_cmd(run_dir, *flags),
+                         stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = []
+    try:
+        deadline = time.monotonic() + TRAINER_WORKER_TIMEOUT_S
+        for line in p.stdout:
+            lines.append(line)
+            if line.startswith("STEP ") and int(line.split()[2]) + 1 \
+                    >= at_step:
+                break
+        if wait_for is not None:
+            target = os.path.join(run_dir, "ck", wait_for)
+            while not os.path.exists(target):
+                if time.monotonic() > deadline or p.poll() is not None:
+                    raise AssertionError(f"6n: {target} never appeared: "
+                                         f"{''.join(lines)[-2000:]}")
+                time.sleep(0.01)
+            time.sleep(0.3)       # the save's submit is done, its write not
+        if p.poll() is not None:
+            raise AssertionError(f"6n victim ended before its signal "
+                                 f"(rc {p.returncode}): {''.join(lines)}")
+        p.send_signal(sig)
+        rest = p.stdout.read()
+        rc = p.wait(timeout=TRAINER_WORKER_TIMEOUT_S)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        err.close()
+    if sig == _signal.SIGKILL and rc != -_signal.SIGKILL:
+        raise AssertionError(f"6n SIGKILL victim: rc {rc}")
+    return rc, "".join(lines) + (rest or ""), spawned
+
+
+def _serials(ckpt):
+    """(listed serials, torn directories) of a checkpoint root; a
+    listed serial must have its manifest (trainer state written last)."""
+    listed, torn = [], []
+    for name in sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []:
+        path = os.path.join(ckpt, name)
+        if not (name.startswith("ckpt_") and os.path.isdir(path)):
+            continue
+        if os.path.exists(os.path.join(path, "__trainer_state__.json")):
+            if not os.path.exists(os.path.join(path, "__shards__.json")):
+                raise AssertionError(f"{path}: trainer state without its "
+                                     f"manifest")
+            listed.append(int(name.split("_")[1]))
+        else:
+            torn.append(name)
+    return sorted(listed), torn
+
+
+def _final_checkpoint(run_dir):
+    """The newest serial of a finished run (its epoch-end save, the
+    state train() returned with): {var: CRC32 of its bytes} from the
+    manifest, and the train_state (run counter, telemetry, cursor)."""
+    ckpt = os.path.join(run_dir, "ck")
+    listed, _ = _serials(ckpt)
+    path = os.path.join(ckpt, f"ckpt_{listed[-1]}")
+    with open(os.path.join(path, "__shards__.json")) as f:
+        crcs = {n: [s["crc32"] for s in m["shards"]]
+                for n, m in json.load(f)["vars"].items()}
+    with open(os.path.join(path, "__trainer_state__.json")) as f:
+        st = json.load(f)
+    return path, crcs, st
+
+
+def _final_arrays(path):
+    with np.load(os.path.join(path, "shards_p0.npz")) as z:
+        return {k.split("::")[0]: z[k] for k in z.files}
+
+
+def _max_abs(a, b):
+    return max((float(np.max(np.abs(a[k].astype(np.float64)
+                                    - b[k].astype(np.float64))))
+                for k in a if a[k].dtype.kind == "f"), default=0.0)
+
+
+def _compare_runs(root, name, control, relaunch, spread_lock):
+    """The relaunch of chain `name` against the control: its final
+    checkpoint's variables (CRC32 of every one), run counter and
+    telemetry, and the loss of every step it ran, bit for bit; where
+    they differ, within twice the spread of a second uninterrupted run.
+    Both chains resume at an even step, so the telemetry windows (every
+    2 steps of a process) fall where the control's do."""
+    path, crcs, st = _final_checkpoint(os.path.join(root, name))
+    cpath, ccrcs, cst = _final_checkpoint(os.path.join(root, "control"))
+    if set(crcs) != set(ccrcs):
+        raise AssertionError(f"6n {name}: other variables than the control")
+    want = {(s["epoch"], s["step"]): s["loss"] for s in control["steps"]}
+    bad_losses = [s["step"] for s in relaunch["steps"]
+                  if s["loss"] != want[(s["epoch"], s["step"])]
+                  and not (np.isnan(s["loss"])
+                           and np.isnan(want[(s["epoch"], s["step"])]))]
+    keys = ("telemetry", "rng_key", "data_cursor")
+    out = {"vars_differing": sorted(n for n in ccrcs
+                                    if crcs[n] != ccrcs[n]),
+           "train_state_differing": [k for k in keys
+                                     if st["train_state"][k]
+                                     != cst["train_state"][k]],
+           "losses_differing": bad_losses}
+    if any(out.values()):
+        with spread_lock:
+            again = os.path.join(root, "control_again")
+            if not os.path.isdir(again):
+                _run_worker(again)
+        base = _final_arrays(cpath)
+        spread = _max_abs(_final_arrays(_final_checkpoint(again)[0]), base)
+        got = _max_abs(_final_arrays(path), base)
+        out.update(resume_max_abs=got, uninterrupted_spread=spread)
+        log(f"  6n {name}: differs from the control ({out})")
+        if spread == 0.0 or got > 2 * spread:
+            raise AssertionError(f"6n {name}: resumed state outside twice "
+                                 f"the spread of two uninterrupted runs")
+    return out
+
+
+def _events(run_dir):
+    from paddle_tpu_torch.observe import read_events
+
+    return read_events(os.path.join(run_dir, "events.jsonl"))
+
+
+def _trainer_summary(res):
+    """A run's timings: each save's blocking time (its ledger span)
+    beside its snapshot and background write, step times with and
+    without a write in flight (the first step apart), the goodput
+    categories (which must sum to the wall), spawn to first step."""
+    ev = _events(res["run_dir"])
+    saves = [e for e in ev if e["event"] == "ckpt_save"]
+    blocking = dict(res["checkpoint_spans_ms"])
+    steady = res["steps"][1:]
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+
+    rep = res["goodput"]
+    total = sum(rep["categories_s"].values())
+    if abs(total - rep["wall_s"]) > 1e-3:
+        raise AssertionError(f"6n goodput categories sum to {total}, the "
+                             f"wall is {rep['wall_s']}")
+    return {
+        "steps": len(res["steps"]), "resumed_from": res["resume"],
+        "first_step_ms": res["steps"][0]["ms"] if res["steps"] else None,
+        "step_ms_write_in_flight": mean(
+            [s["ms"] for s in steady if s["write_in_flight"]]),
+        "step_ms_no_write": mean(
+            [s["ms"] for s in steady if not s["write_in_flight"]]),
+        "saves": [{"serial": e["serial"], "step": [e["epoch"], e["step"]],
+                   "blocking_ms": blocking.get(f"save:{e['serial']}"),
+                   "snapshot_ms": e["snapshot_ms"],
+                   "write_ms": e["write_ms"], "bytes": e["bytes"],
+                   "emergency": e["emergency"]} for e in saves
+                  if e["ts"] >= res["t_begin"]],
+        "goodput": {k: rep[k] for k in ("wall_s", "categories_s",
+                                        "goodput", "steps",
+                                        "replay_steps", "mean_step_s",
+                                        "background_ms")},
+        "trainer_init_s": res["t_trainer_s"],
+        "spawn_to_first_step_s": res["first_step_after_spawn_s"],
+        "peak_memory_bytes": res["peak_memory_bytes"],
+    }
+
+
+def _trainer_line(s):
+    def ms(x):
+        return "n/a" if x is None else f"{x:.1f}"
+
+    saves = s["saves"]
+    return (f"{s['steps']} steps, step {ms(s['step_ms_no_write'])} ms "
+            f"(with a write in flight {ms(s['step_ms_write_in_flight'])} "
+            f"ms); saves blocked "
+            f"{[round(x['blocking_ms'] or 0, 1) for x in saves]} ms, wrote "
+            f"{[round(x['write_ms'], 1) for x in saves]} ms; goodput "
+            f"{s['goodput']['goodput']:.4f} of {s['goodput']['wall_s']:.2f} "
+            f"s {s['goodput']['categories_s']}; spawn to first step "
+            f"{s['spawn_to_first_step_s']:.2f} s")
+
+
+def _kill_chain(root, control, lock):
+    """A worker SIGKILLed once its second save is in flight (its writes
+    held TRAINER_SLOW_WRITE_S), then relaunched to its end."""
+    import signal as _signal
+
+    run_dir = os.path.join(root, "sigkill")
+    rc, _, _ = _signal_worker(run_dir, _signal.SIGKILL, TRAINER_KILL_AT,
+                              wait_for="ckpt_1", flags=(
+                                  "--slow-write", str(TRAINER_SLOW_WRITE_S)))
+    listed, torn = _serials(os.path.join(run_dir, "ck"))
+    if listed != [0] or torn != ["ckpt_1"] or os.path.exists(
+            os.path.join(run_dir, "ck", "ckpt_1", "shards_p0.npz")):
+        raise AssertionError(f"6n SIGKILL: listed {listed}, torn {torn}; "
+                             f"want serial 0 and a torn, unwritten ckpt_1")
+    relaunch = _run_worker(run_dir)
+    if relaunch["goodput"]["replay_steps"] < 1:
+        raise AssertionError("6n: the relaunch counted no replay")
+    return [relaunch], dict(
+        _trainer_summary(relaunch), victim_rc=rc,
+        **_compare_runs(root, "sigkill", control, relaunch, lock))
+
+
+def _term_chain(root, control, lock):
+    """A worker SIGTERMed after TRAINER_TERM_AT steps: it drains to an
+    emergency checkpoint and exits with PREEMPT_EXIT_CODE; relaunched
+    to its end with `--checks`."""
+    import signal as _signal
+
+    from paddle_tpu_torch.resilience import PREEMPT_EXIT_CODE
+
+    run_dir = os.path.join(root, "sigterm")
+    rc, out, spawned = _signal_worker(
+        run_dir, _signal.SIGTERM, TRAINER_TERM_AT,
+        flags=("--pace", str(TRAINER_TERM_PACE_S)))
+    if rc != PREEMPT_EXIT_CODE:
+        raise AssertionError(f"6n SIGTERM victim: rc {rc}, want "
+                             f"{PREEMPT_EXIT_CODE}: {out[-2000:]}")
+    victim = _worker_result(run_dir, rc, out, spawned)
+    ev = _events(run_dir)
+    kinds = [e["event"] for e in ev]
+    drain = next(e for e in ev if e["event"] == "preempt_drain")
+    emerg = next(e for e in ev if e["event"] == "ckpt_save"
+                 and e["emergency"])
+    done = next(e for e in ev if e["event"] == "ckpt_emergency")
+    if (kinds.count("preempt_drain") != 1
+            or kinds.index("preempt_drain") > kinds.index("ckpt_emergency")
+            or drain["reason"] != "signal:SIGTERM"
+            or (drain["epoch"], drain["step"]) != (0, TRAINER_TERM_AT)):
+        raise AssertionError(f"6n drain {drain}, events {kinds}; want one "
+                             f"SIGTERM drain after step {TRAINER_TERM_AT}")
+    relaunch = _run_worker(run_dir, "--checks")
+    return [victim, relaunch], dict(
+        _trainer_summary(relaunch), victim_rc=rc,
+        drained_at=[drain["epoch"], drain["step"]],
+        drain_s=done["ts"] - drain["ts"],
+        emergency_snapshot_ms=emerg["snapshot_ms"],
+        emergency_write_ms=emerg["write_ms"], checks=relaunch["checks"],
+        **_compare_runs(root, "sigterm", control, relaunch, lock))
+
+
+def phase_trainer(dev, card):
+    """6n: contrib.Trainer over phase 6l's AMP fused-CE Transformer, each
+    run a `chip_smoke.py --trainer-worker` process on the card.  First an
+    uninterrupted control, alone on the card (its timings are the
+    phase's step and save figures); then, side by side, two chains that
+    must end in the control's state (`_compare_runs`): `_kill_chain`
+    (SIGKILL with a write in flight, relaunch) and `_term_chain` (SIGTERM
+    drain, relaunch with the watchdog and Inferencer checks).  No torn
+    directory is left.  The launches of every run that finished (the
+    SIGKILL victim reports none) are summed."""
+    import shutil
+    import threading
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "trainer_6n"))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 6n: contrib.Trainer, the AMP fused-CE Transformer (batch "
+        f"{TRAIN_BATCH} x {TRAIN_ARCH['max_length']}, {TRAINER_BATCHES} "
+        f"batches, batch {TRAINER_NAN_AT} poisoned), async saves every 2 "
+        f"steps, kill and resume across processes on {card}")
+    torch.cuda.empty_cache()
+    res, finished, errors = {}, [], []
+    lock = threading.Lock()
+    try:
+        control = _run_worker(os.path.join(root, "control"))
+        finished.append(control)
+        res["control"] = _trainer_summary(control)
+        log(f"  control: {_trainer_line(res['control'])}")
+
+        def chain(name, fn):
+            try:
+                runs, res[name] = fn(root, control, lock)
+                finished.extend(runs)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=chain, args=a) for a in
+                   (("sigkill", _kill_chain), ("sigterm", _term_chain))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        for name in ("control", "sigkill", "sigterm"):
+            if _serials(os.path.join(root, name, "ck"))[1]:
+                raise AssertionError(f"6n {name}: a torn directory left")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  SIGKILL with serial 1 in flight, relaunched from "
+        f"{res['sigkill']['resumed_from']}: "
+        f"{_trainer_line(res['sigkill'])}")
+    t = res["sigterm"]
+    log(f"  SIGTERM after {TRAINER_TERM_AT} steps: drained at "
+        f"{t['drained_at']} in {t['drain_s']:.3f} s (emergency save: "
+        f"snapshot {t['emergency_snapshot_ms']:.1f} ms, write "
+        f"{t['emergency_write_ms']:.1f} ms), exit {t['victim_rc']}; "
+        f"relaunched: {_trainer_line(t)}")
+    log(f"  (the two chains shared the card and the host)")
+    ch = t["checks"]
+    log(f"  checks: watchdog regions {ch['watchdog_regions']}, a hung "
+        f"step raised StepHangError after {ch['hang_s']:.2f} s "
+        f"({ch['hang']['budget_s']} s budget) with a step_hang event; "
+        f"Inferencer loss {ch['inference_loss']:.6f} bit-equal to "
+        f"clone(for_test=True)'s")
+    launches = dict.fromkeys(control["counts"]["launches"], 0)
+    for r in finished:
+        for k, n in r["counts"]["launches"].items():
+            launches[k] += n
+    res["launches"] = launches
+    log(f"  6n launches {launches}; variables differing from the control: "
+        f"SIGKILL {len(res['sigkill']['vars_differing'])}, SIGTERM "
+        f"{len(res['sigterm']['vars_differing'])}")
+    return res
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--trainer-worker"]:
+        return trainer_worker(sys.argv[2:])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"phase 1: card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the reference's bf16 products accumulate in float32 and round once
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-        False
+    _set_matmul_flags()
     log(f"  TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-precision "
         f"reduction "
@@ -3862,6 +4460,7 @@ def main() -> int:
     amp_parity = timed("7f", phase_amp_parity, dev)
     train_resume = timed("6l", phase_resume, dev, card)
     train_guard = timed("6m", phase_guard, dev, card)
+    train_trainer = timed("6n", phase_trainer, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -3899,7 +4498,7 @@ def main() -> int:
     # on the speculative engines' verify runs
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
-             train_guard)
+             train_guard, train_trainer)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -3946,6 +4545,7 @@ def main() -> int:
                    "train_amp_card_vs_cpu": amp_parity,
                    "train_resume": train_resume,
                    "train_guard": train_guard,
+                   "train_trainer": train_trainer,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -56,6 +56,8 @@ def is_compiled_with_cuda() -> bool:
 
 from . import amp  # noqa: E402,F401
 from . import clip  # noqa: E402,F401
+from . import contrib  # noqa: E402,F401
+from . import data  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
 from . import io  # noqa: E402,F401
 from . import layers  # noqa: E402,F401

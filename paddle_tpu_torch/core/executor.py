@@ -62,6 +62,7 @@ import torch
 
 from ..observe import metrics as _obs_metrics
 from ..observe import numerics as _obs_num
+from ..observe.monitoring import dispatch_timer
 from ..observe.numerics import NUMERICS_BITS_VAR
 from ..resilience import guard as _guard
 from .program import Program, Variable, grad_var_name
@@ -538,8 +539,11 @@ class Executor:
         block = program.global_block()
         feeds = {name: self._to_tensor(value, block, name)
                  for name, value in (feed or {}).items()}
-        for _ in range(int(iterations)):
-            env = self._run_once(program, scope, feeds, fetch_names)
+        # one dispatch in runtime_stats, with its host time: on a card
+        # the time to enqueue the step's kernels, not the device time
+        with dispatch_timer():
+            for _ in range(int(iterations)):
+                env = self._run_once(program, scope, feeds, fetch_names)
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch target(s) {missing} were not computed "

@@ -27,10 +27,15 @@ the records become a torch.bfloat16 tensor through the same 2-byte
 view.  Loaded values land on the executor's device; 64-bit names
 narrow to 32 bits as convert.params_from_arrays narrows them.
 
-Left out, each raising or listed under its ROADMAP queue A step: the
-asynchronous save (`async_=True`, resilience/preempt.py SnapshotWriter,
-step 6c), loading into a mesh (`mesh=`/`sharding_rules=`) and the
-cross-process barrier (step 10).
+`save_sharded(async_=True)` takes only the snapshot on the calling
+thread and hands the write to a background `resilience.SnapshotWriter`.
+The snapshot owns its memory: a tensor on the card is copied to the
+host by `.cpu()`, and a CPU tensor, whose `.numpy()` would alias the
+live storage, is copied too — so an update that wrote a parameter in
+place after the snapshot could never reach the files.
+
+Left out, raising under its ROADMAP queue A step: loading into a mesh
+(`mesh=`/`sharding_rules=`) and the cross-process barrier (step 10).
 """
 
 from __future__ import annotations
@@ -179,6 +184,16 @@ def _to_host(value) -> np.ndarray:
             return t.view(torch.int16).cpu().numpy().view("V2")
         return t.cpu().numpy()
     return np.asarray(value)
+
+
+def _snapshot(value) -> np.ndarray:
+    """`_to_host`, in host memory of its own: the copy of a CPU tensor
+    (whose numpy view aliases the live storage) or of a numpy value; a
+    card tensor's `.cpu()` already is one."""
+    arr = _to_host(value)
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        return arr
+    return arr.copy()
 
 
 def _dtype_str(value, arr: np.ndarray) -> str:
@@ -362,8 +377,9 @@ def prepare_sharded_save(executor: Executor, dirname: str,
                          vars: Optional[Sequence[Variable]] = None
                          ) -> ShardedSaveJob:
     """The blocking snapshot phase of a sharded save: copy every
-    variable device→host (one full shard each).  Returns a
-    ShardedSaveJob whose `write()` performs the rest."""
+    variable device→host into memory the job owns (one full shard
+    each).  Returns a ShardedSaveJob whose `write()` performs the rest
+    (inline for a synchronous save, or on a background writer)."""
     from .core.program import default_main_program
 
     t0 = time.perf_counter()
@@ -378,7 +394,7 @@ def prepare_sharded_save(executor: Executor, dirname: str,
         val = scope.find_var(v.name)
         if val is None:
             raise RuntimeError(f"variable {v.name!r} has no value in scope")
-        arr = _to_host(val)
+        arr = _snapshot(val)
         key = f"{v.name}::0"
         local_arrays[key] = arr
         meta[v.name] = {
@@ -396,17 +412,25 @@ def save_sharded(executor: Executor, dirname: str,
                  vars: Optional[Sequence[Variable]] = None,
                  async_: bool = False, writer=None):
     """Save persistables as a sharded checkpoint: `shards_p0.npz` + a
-    manifest mapping each variable to its shard index and file.  Returns
-    the completed ShardedSaveJob (`bytes_total`, `snapshot_ms`,
+    manifest mapping each variable to its shard index and file.
+
+    With `async_=True` only the device→host snapshot happens on the
+    calling thread; the serialization/manifest phase runs on a
+    background SnapshotWriter (the given `writer`, else a process-wide
+    default) and the returned `resilience.PendingSave` tracks it —
+    write failures surface as structured CheckpointWriteErrors on the
+    writer's next submit/wait/close, never silently.  Synchronous saves
+    return the completed ShardedSaveJob (`bytes_total`, `snapshot_ms`,
     `write_ms` on it)."""
-    if async_ or writer is not None:
-        raise NotImplementedError(
-            "save_sharded(async_=True) (the background SnapshotWriter of "
-            "resilience/preempt.py) is not ported yet: ROADMAP queue A "
-            "step 6c")
     job = prepare_sharded_save(executor, dirname,
                                main_program=main_program, vars=vars)
-    return job.write()
+    if not async_:
+        return job.write()
+    if writer is None:
+        from .resilience.preempt import default_writer
+
+        writer = default_writer()
+    return writer.submit(job)
 
 
 def _assemble_index(meta, files, dirname, index):

@@ -1,10 +1,11 @@
 """Structured run events: an append-only JSONL log with provenance.
 
-The port of the part of paddle_tpu/observe/events.py the decode engine
-uses.  One JSON object per line, flushed whole, so the file is valid to
-tail mid-run.  Kinds under the `serving_` prefix are checked against the
-registry below (a typo'd kind would silently drop off every dashboard
-filter): unknown ones raise.
+The port of the part of paddle_tpu/observe/events.py that the decode
+engine and contrib.Trainer use.  One JSON object per line, flushed
+whole, so the file is valid to tail mid-run.  Kinds under the dashboard
+prefixes (`_VALIDATED_PREFIXES`, the reference's list) are checked
+against the registries below (a typo'd kind would silently drop off
+every dashboard filter): unknown ones raise.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import sys
 import threading
 import time
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 # the decode engine's event kinds (docs/SERVING.md §decode)
 DECODE_EVENTS = (
@@ -32,14 +33,72 @@ DECODE_EVENTS = (
     "serving_breaker_close",       # half-open probe succeeded
 )
 
-_VALIDATED_PREFIXES = ("serving_",)
+# resilience event kinds (docs/RESILIENCE.md): checkpoint fallback,
+# save telemetry, and preemption-drain lifecycle, emitted by
+# contrib.Trainer
+RESILIENCE_EVENTS = (
+    "ckpt_fallback",        # a serial was skipped (torn/corrupt), with
+    #                         the structured CheckpointError as_dict()
+    "ckpt_resume",          # resumed; fallback=True when not newest
+    "ckpt_resume_failed",   # NO valid serial existed — fresh start
+    "ckpt_save",            # one save: snapshot_ms (blocking) vs
+    #                         write_ms (background) + bytes + async flag
+    "ckpt_async_error",     # LOUD: a background write failed (the
+    #                         structured CheckpointWriteError as_dict())
+    "preempt_drain",        # SIGTERM/SIGINT received: finishing the
+    #                         in-flight step, then emergency-saving
+    "ckpt_emergency",       # the drain path's final checkpoint landed
+)
+
+# input admission (Trainer(validate_feed=True)); the reference's
+# DeviceFeeder kinds `feeder_retry` and `feeder_stall` come with it
+# (ROADMAP A step 12)
+FEED_EVENTS = (
+    "feed_quarantined",   # admission rejected a poisoned batch
+    #                       (non-finite / signature drift) before it
+    #                       reached the device
+)
+
+# the gang kinds this package emits: the dispatch watchdog's record.
+# The health plane's and the supervisor's kinds come with them
+# (ROADMAP A step 11)
+GANG_EVENTS = (
+    "step_hang",       # dispatch watchdog: a step blew its budget —
+    #                    emitted BEFORE the abort, with the
+    #                    first-compile vs hung-step verdict and the
+    #                    runtime_stats deltas observed in the region
+)
+
+# goodput observability (observe/goodput.py): the wall-clock
+# decomposition contrib.Trainer emits at train_end
+GOODPUT_EVENTS = (
+    "goodput_report",  # the full GoodputLedger.report() dict: wall_s,
+    #                    per-category seconds/fractions (sum == wall),
+    #                    goodput fraction, replay badput
+)
+
+# numerics observability, emitted by contrib.Trainer next to its
+# telemetry windows
+NUMERICS_EVENTS = (
+    "nonfinite_provenance",  # LOUD: a telemetry window latched a
+    #                          poisoned step, with the joined first
+    #                          nonfinite op, the guard's skip counter
+    #                          and the loss scale
+)
+
+_VALIDATED_PREFIXES = ("serving_", "fleet_", "gang_", "alert_",
+                       "flight_", "autoscale_", "recovery_",
+                       "feeder_", "feed_")
+_KNOWN_KINDS = (set(DECODE_EVENTS) | set(RESILIENCE_EVENTS)
+                | set(FEED_EVENTS) | set(GANG_EVENTS)
+                | set(GOODPUT_EVENTS) | set(NUMERICS_EVENTS))
 
 
 def _validate_kind(kind: str) -> None:
-    if kind.startswith(_VALIDATED_PREFIXES) and kind not in DECODE_EVENTS:
+    if kind.startswith(_VALIDATED_PREFIXES) and kind not in _KNOWN_KINDS:
         raise ValueError(f"event kind {kind!r} matches a dashboard prefix "
                          f"{_VALIDATED_PREFIXES} but is not registered in "
-                         f"observe.events.DECODE_EVENTS")
+                         f"observe.events")
 
 
 def _backend_info() -> Dict[str, Any]:
@@ -93,6 +152,14 @@ class RunEventLog:
             self._f.flush()
         return rec
 
+    def telemetry_window(self, telemetry, **extra: Any) -> Dict[str, Any]:
+        """Emit one periodic-fetch window (a StepTelemetry or plain
+        dict) plus any runtime-stats fields the caller attaches."""
+        fields = (telemetry.as_dict() if hasattr(telemetry, "as_dict")
+                  else dict(telemetry))
+        fields.update(extra)
+        return self.event("telemetry", **fields)
+
     def close(self):
         if not self._f.closed:
             self.event("run_end")
@@ -117,3 +184,23 @@ def _jsonable(v):
         return v.tolist()
     return str(v)
 
+
+
+def read_events(path: str) -> List[Dict[str, Any]]:
+    """Parse a JSONL event log back into records.  Raises on corrupt
+    lines — an event log that silently drops records is worse than one
+    that fails loudly (a torn final line from a killed process is the
+    one tolerated exception)."""
+    out: List[Dict[str, Any]] = []
+    with open(path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    for i, ln in enumerate(lines):
+        if not ln.strip():
+            continue
+        try:
+            out.append(json.loads(ln))
+        except json.JSONDecodeError:
+            if i == len(lines) - 1:
+                break  # torn tail from a killed writer
+            raise
+    return out

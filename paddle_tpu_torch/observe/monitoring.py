@@ -1,21 +1,32 @@
-"""Host-side runtime accounting: compile counters and latency histograms.
+"""Host-side runtime accounting: compile and dispatch counters, peak
+device memory, latency histograms.
 
-The port of the jax-free half of paddle_tpu/observe/monitoring.py.  On
-the TPU the expensive host-side events were XLA compiles; here they are
-the builds of the hand-written CUDA kernels (`nvcc`, in
-ops/kernels/_build.py), which record themselves as compiles.  So a kernel
-built after a serving engine's warmup shows up as
-`post_warmup_compiles > 0`, the same loud signal as a shape leak in the
-reference.
+The port of paddle_tpu/observe/monitoring.py.  On the TPU the expensive
+host-side events were XLA compiles; here they are the builds of the
+hand-written CUDA kernels (`nvcc`, in ops/kernels/_build.py), which
+record themselves as compiles.  So a kernel built after a serving
+engine's warmup shows up as `post_warmup_compiles > 0`, the same loud
+signal as a shape leak in the reference.
+
+`Executor.run` records one dispatch as it returns, with the host seconds
+it took.  On a card that is the time to ENQUEUE the step's kernels (CUDA
+launches are asynchronous), not the device time, as the reference's
+dispatch timing excludes device execution.  The port traces nothing, so
+`trace_time_s`, `builds` and `retraces` stay 0: they keep the
+reference's fields so that code reading them (the goodput ledger, the
+Trainer's telemetry windows, the dispatch watchdog) runs unchanged.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import threading
+import time
 from typing import Any, Dict, Optional
 
-_FIELDS = ("compiles", "compile_time_s")
+_FIELDS = ("compiles", "compile_time_s", "trace_time_s", "builds",
+           "retraces", "dispatches", "dispatch_time_s")
 
 
 class RuntimeStats:
@@ -24,13 +35,25 @@ class RuntimeStats:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self.compiles = 0           # kernel builds
+        self.compiles = 0           # kernel builds (nvcc)
         self.compile_time_s = 0.0   # their total wall time
+        self.trace_time_s = 0.0     # always 0: the port traces nothing
+        self.builds = 0             # always 0 (the reference's step fns)
+        self.retraces = 0           # always 0 (no traced signature)
+        self.dispatches = 0         # Executor.run calls that returned
+        self.dispatch_time_s = 0.0  # their host time (enqueue on a card)
+        self.last_dispatch_s = 0.0
 
     def record_compile(self, duration_s: float):
         with self._lock:
             self.compiles += 1
             self.compile_time_s += float(duration_s)
+
+    def record_dispatch(self, duration_s: float):
+        with self._lock:
+            self.dispatches += 1
+            self.dispatch_time_s += float(duration_s)
+            self.last_dispatch_s = float(duration_s)
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
@@ -42,6 +65,28 @@ class RuntimeStats:
 
 
 runtime_stats = RuntimeStats()
+
+
+class dispatch_timer:
+    """Context manager stamping one dispatch into runtime_stats."""
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        runtime_stats.record_dispatch(time.perf_counter() - self._t0)
+        return False
+
+
+def peak_memory_bytes() -> Optional[int]:
+    """Peak bytes the caching allocator handed out on the current CUDA
+    device (`torch.cuda.max_memory_allocated`), or None when CUDA was
+    never initialised in this process (a CPU run: nothing to report)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    return int(torch.cuda.max_memory_allocated())
 
 
 class LatencyHistogram:

@@ -18,11 +18,13 @@ hoping:
   container so CRC/container verification must catch it, or tear a
   checkpoint by removing its manifest.
 
+- **hang** — an injected host-side stall the step watchdog
+  (resilience/watchdog.py) must interrupt.
+
 Injectors are deterministic (step counts, call counts — never random),
-so every chaos test is reproducible.  The reference's `hang` waits for
-the watchdog (ROADMAP A step 6c), its executor-fault proxy
-(`FlakyPredictor`) and serving-replica injectors for step 9, and its
-gang-rank injectors and `FakeKv` for step 11.
+so every chaos test is reproducible.  The reference's executor-fault
+proxy (`FlakyPredictor`) and serving-replica injectors wait for ROADMAP
+A step 9, and its gang-rank injectors and `FakeKv` for step 11.
 """
 
 from __future__ import annotations
@@ -98,6 +100,15 @@ def delaypoint(name: str) -> None:
     else:
         _delays[name] = (seconds, left - 1)
     time.sleep(seconds)
+
+
+def hang(seconds: float) -> None:
+    """An injected hang the watchdog must interrupt: a sleep in 50 ms
+    slices, so the interpreter runs between them and SIGALRM (main
+    thread) or the timer thread's async exception can fire."""
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        time.sleep(0.05)
 
 
 # ---------------------------------------------------------------------------

@@ -450,11 +450,24 @@ def test_bf16_round_trip_without_ml_dtypes(tmp_path):
 
 def test_save_sharded_reports_its_phases(tmp_path):
     main, scope, exe, _ = _trained()["port"]
+    writer = tf.resilience.SnapshotWriter()
     with tf.scope_guard(scope):
         job = tf.io.save_sharded(exe, str(tmp_path), main_program=main)
-        with pytest.raises(NotImplementedError, match="step 6c"):
-            tf.io.save_sharded(exe, str(tmp_path), main_program=main,
-                               async_=True)
+        # the asynchronous form: the snapshot here, the write on the
+        # writer's thread; the same files once it lands
+        pending = tf.io.save_sharded(exe, str(tmp_path / "async"),
+                                     main_program=main, async_=True,
+                                     writer=writer)
+    assert pending.result(60) is pending and pending.write_ms >= 0
+    writer.close()
+    assert pending.bytes_total == job.bytes_total
+    assert (tmp_path / "async" / tf.io.SHARD_MANIFEST).read_bytes() == \
+        (tmp_path / tf.io.SHARD_MANIFEST).read_bytes()
+    with np.load(tmp_path / "shards_p0.npz") as a, \
+            np.load(tmp_path / "async" / "shards_p0.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k
     state = [scope.find_var(v.name) for v in main.list_vars()
              if v.persistable]
     assert job.bytes_total == sum(v.numel() * v.element_size()
