@@ -241,8 +241,32 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    `chaos.hang` in a third (StepHangError, a `step_hang` event), and the
    Inferencer on the saved parameters, its loss bit-equal to the trained
    program's `clone(for_test=True)` loss;
+6o. gradient accumulation: the bench Transformer (dropout 0) at batch
+   64 as K = 1 and as K = 4 micro-batches of 16, float32 and bf16 AMP,
+   3 steps each from the same weights (the full-batch run's noam
+   counter advanced to match accumulation's K increments a step):
+   losses within TOL_LOSS (AMP: TOL_AMP_LOSS) and parameters within
+   4 * sum(lr); each flash kernel 4 times as often a step; step ms,
+   peak device memory and a profiled window of each;
+6p. recompute and pipeline scopes: phase 6d's long-context Transformer
+   built plain, with `recompute=True`, with `pipeline=True` and plain
+   again, 3 steps each from the same weights: losses and parameters
+   against the plain run's (bit-equality reported), the flash forward
+   twice a step per flash op under recompute, step ms and peak device
+   memory;
+6q. each update op of the other optimizers, ModelAverage and EMA on the
+   card against the CPU at a 512 x 2048 parameter, sparse adagrad on a
+   32000 x 512 table; ModelAverage and EMA on the bench Transformer for
+   4 steps: `apply()` on the card (no host sync for ModelAverage, one
+   for EMA) equal to the CPU's formula, `restore()` giving back the same
+   tensors;
+6r. the book models: the sequence tagger at the book's widths (hidden
+   512, depth 8, batch 10), word2vec with NCE and the recommender, card
+   against CPU from the same weights (losses within 1e-4; word2vec's
+   finite, its NCE draws differing across devices, and its loss at one
+   fixed draw lower after the steps than before), step ms;
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l, 6m and 6n included), the card line, and as its last line
+   6l-6q included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -2633,9 +2657,10 @@ def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
 
 
 def _profile_train_step(exe, main, feed, loss, scope, steps=2,
-                        label="phase 6b"):
+                        label="phase 6b", **run_kw):
     """6b: host ms against device-busy ms of training steps, and the
-    costliest device kernels (torch.profiler, as phase 4b)."""
+    costliest device kernels (torch.profiler, as phase 4b); `run_kw`
+    goes to each `exe.run` (accumulation_steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2644,7 +2669,8 @@ def _profile_train_step(exe, main, feed, loss, scope, steps=2,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    **run_kw)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / steps
     avg = prof.key_averages()
@@ -4342,6 +4368,484 @@ def phase_trainer(dev, card):
         f"{len(res['sigterm']['vars_differing'])}")
     return res
 
+# -- phases 6o-6r: accumulation, recompute, optimizers, book models -------
+
+ACCUM_K = 4          # 6o: batch 64 as 4 micro-batches of 16
+ACCUM_STEPS = 3      # 6o, 6p: steps held against the plain run
+LR_COUNTER = "@lr_decay_counter@"
+# 6q: each update op card vs CPU at a Transformer FFN weight's size;
+# elementwise float32 (lars_momentum's two norms sum 1M terms in another
+# order), so within 1e-5 of the CPU's max |value|
+OPT_SHAPE = (512, 2048)
+TOL_OPT = 1e-5
+AVG_STEPS = 4        # 6q: ModelAverage and EMA on the bench Transformer
+# 6r: the sequence tagger at the book's widths (the reference's
+# test_label_semantic_roles.py: word_dim 32, mark_dim 5, hidden_dim 512,
+# depth 8, batch 10; the conll05 dictionaries are not in the repository,
+# so build_model's dictionary sizes), word2vec and the recommender at
+# their build_model defaults
+SRL_ARCH = dict(word_dim=32, mark_dim=5, hidden_dim=512, depth=8)
+SRL_BATCH = 10
+BOOK_STEPS = 3
+W2V_STEPS = 20
+TOL_BOOK = 1e-4      # card vs CPU losses, relative to max(1, |loss|)
+
+
+def _steps_on_card(exe, main, feed, loss, scope, steps, k=1,
+                   counter_extra=0, peaks=None):
+    """`steps` steps; each one's loss (a host read ends it) and wall ms.
+    `counter_extra` advances the noam counter before each step; a list
+    `peaks` gets each step's peak device memory (the peak reset before
+    the step)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        if counter_extra:
+            c = scope.find_var(LR_COUNTER)
+            scope.set_var(LR_COUNTER, c + counter_extra)
+        torch.cuda.synchronize()
+        if peaks is not None:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False, accumulation_steps=k)
+        losses.append(float(out[0].reshape(())))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if peaks is not None:
+            peaks.append(torch.cuda.max_memory_allocated())
+    return losses, ms
+
+
+def phase_accumulate(dev, card, label="phase 6o", overrides=None):
+    """6o: the bench Transformer (dropout 0) for ACCUM_STEPS steps at
+    batch 64 (K = 1) and as ACCUM_K micro-batches of 16 from the same
+    weights.  The noam counter is a persistable forward output, which
+    accumulation threads through the micro-batches (K increments a
+    step, as in the reference), so the full-batch run's counter is
+    advanced K - 1 before each step and both follow the same rates.
+    Checks: losses within TOL_LOSS (AMP: TOL_AMP_LOSS) and parameters
+    within 4 * sum(lr); each flash kernel K times a step as often as at
+    K = 1, no plain or composed call.  Reports step ms, peak device
+    memory and a profiled window (idle share, kernels a step) of each."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+
+    overrides = overrides or {}
+    amp = bool(overrides.get("use_amp"))
+    log(f"{label}: gradient accumulation, the bench Transformer at batch "
+        f"{TRAIN_BATCH} as K = 1 and K = {ACCUM_K} micro-batches, "
+        f"{'bf16 AMP' if amp else 'f32'}, dropout 0, {ACCUM_STEPS} steps")
+    main, startup, model = build_training(dropout=0.0, **overrides)
+    loss = model["loss"]
+    feed = _transformer_feed(dev)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    init = pt.Scope()
+    exe.run(startup, scope=init)
+    params = [p.name for p in main.all_parameters()]
+    runs = {}
+    for k in (1, ACCUM_K):
+        scope = _clone_scope(init)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_counts()
+        losses, ms = _steps_on_card(exe, main, feed, loss, scope,
+                                    ACCUM_STEPS, k,
+                                    counter_extra=ACCUM_K - k)
+        counts = _check_launches(f"{label} K={k}", main, ACCUM_STEPS * k)
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs[k] = dict(losses=losses, step_ms=ms, peak_mem_bytes=peak,
+                       launches=counts["launches"],
+                       params={n: scope.find_var(n) for n in params})
+        log(f"  K={k}: losses {losses}, step ms {[round(x, 2) for x in ms]}"
+            f", peak device memory {peak / 1e9:.3f} GB")
+        runs[k]["profile"] = _profile_train_step(
+            exe, main, feed, loss, scope, label=f"{label} K={k}, profiled",
+            accumulation_steps=k)
+        del scope
+    a, b = runs[ACCUM_K], runs[1]
+    tol = TOL_AMP_LOSS if amp else TOL_LOSS
+    loss_err = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    bound = 4 * sum(_noam_lr(s * ACCUM_K, TRAIN_ARCH["d_model"])
+                    for s in range(1, ACCUM_STEPS + 1)) + 1e-6
+    p_err = max(_differ(a["params"], b["params"]).values(), default=0.0)
+    log(f"  K={ACCUM_K} against K=1: losses max abs err {loss_err:.3e} "
+        f"(tol {tol:g}), parameters max abs err {p_err:.3e} (bound "
+        f"{bound:.3e}); peak memory {a['peak_mem_bytes'] / 1e9:.3f} against "
+        f"{b['peak_mem_bytes'] / 1e9:.3f} GB on {card}")
+    if not (loss_err <= tol and p_err <= bound):
+        raise AssertionError(f"{label}: accumulation differs from the full "
+                             f"batch: losses {loss_err}, params {p_err}")
+    res = {"k": ACCUM_K, "steps": ACCUM_STEPS, "loss_max_abs_err": loss_err,
+           "param_max_abs_err": p_err, "param_bound": bound,
+           "launches": {n: a["launches"][n] + b["launches"][n]
+                        for n in a["launches"]},
+           "overrides": overrides}
+    for k, r in runs.items():
+        res[f"k{k}"] = {key: v for key, v in r.items() if key != "params"}
+    return res
+
+
+def phase_recompute(dev, card):
+    """6p: phase 6d's long-context Transformer (T 8192, batch 2, flash,
+    fused CE, dropout 0.1) built plain, with `recompute=True`, with
+    `pipeline=True`, and plain again (the spread of two plain runs),
+    ACCUM_STEPS steps each from the same weights.  Checks: each run's
+    losses within TOL_LOSS and parameters within 4 * sum(lr) of the
+    plain run's (bit-equality reported); under recompute the flash
+    forward launches twice a step per flash op, the backward pair and
+    the vocab-CE kernels once, no plain or composed call.  Reports step
+    ms and peak device memory."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels
+
+    log(f"phase 6p: recompute and pipeline scopes on phase 6d's long-"
+        f"context Transformer (batch {LONGCTX_BATCH} x "
+        f"{LONGCTX['max_length']}), {ACCUM_STEPS} steps each")
+    v = TRAIN_ARCH["trg_vocab_size"]
+    feed = {n: torch.as_tensor(a).to(dev) for n, a in
+            transformer.make_fake_batch(LONGCTX_BATCH,
+                                        LONGCTX["max_length"], v,
+                                        v).items()}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    arrays, runs = None, {}
+    for name, kw in (("plain", {}), ("recompute", dict(recompute=True)),
+                     ("pipeline", dict(pipeline=True)), ("plain2", {})):
+        main, startup, model = build_training(**LONGCTX, **kw)
+        scope = pt.Scope()
+        if arrays is None:
+            exe.run(startup, scope=scope)
+            arrays = _clone_scope(scope)
+        else:
+            scope = _clone_scope(arrays)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated(dev)
+        kernels.reset_counts()
+        peaks = []
+        losses, ms = _steps_on_card(exe, main, feed, model["loss"], scope,
+                                    ACCUM_STEPS, peaks=peaks)
+        peak = max(peaks)
+        counts = kernels.counts()
+        want = _want_launches(main, ACCUM_STEPS)
+        if name == "recompute":
+            want["flash_attention_fwd"] *= 2
+        la, pl, co = counts["launches"], counts["plain"], counts["composed"]
+        if la != want or max(pl.values()) or max(co.values()):
+            raise AssertionError(f"phase 6p {name}: launches {counts}, "
+                                 f"want {want}")
+        runs[name] = dict(losses=losses, step_ms=ms, peak_mem_bytes=peak,
+                          step_peak_mem_bytes=peaks,
+                          start_mem_bytes=start, launches=la,
+                          state={n: scope.find_var(n) for n in
+                                 (p.name for p in main.all_parameters())})
+        log(f"  {name}: losses {losses}, step ms "
+            f"{[round(x, 2) for x in ms]}, peak device memory a step "
+            f"{[round(x / 1e9, 3) for x in peaks]} GB (allocated at the "
+            f"start {start / 1e9:.3f} GB); flash forward "
+            f"{la['flash_attention_fwd'] // ACCUM_STEPS} a step, dK/dV "
+            f"{la['flash_attention_bwd_dkv'] // ACCUM_STEPS}")
+        del scope
+    plain = runs["plain"]
+    bound = 4 * sum(_noam_lr(s, TRAIN_ARCH["d_model"])
+                    for s in range(1, ACCUM_STEPS + 1)) + 1e-6
+    res = {"steps": ACCUM_STEPS}
+    for name in ("recompute", "pipeline", "plain2"):
+        r = runs[name]
+        loss_err = max(abs(x - y) for x, y in zip(r["losses"],
+                                                  plain["losses"]))
+        diff = _differ(r["state"], plain["state"])
+        p_err = max(diff.values(), default=0.0)
+        bits = not diff and r["losses"] == plain["losses"]
+        log(f"  {name} against plain: losses max abs err {loss_err:.3e}, "
+            f"parameters max abs err {p_err:.3e} (bound {bound:.3e}); "
+            f"bit for bit: {bits}")
+        if not (loss_err <= TOL_LOSS and p_err <= bound):
+            raise AssertionError(f"phase 6p: {name} differs from the plain "
+                                 f"run: losses {loss_err}, params {p_err}")
+        res[name] = dict(loss_max_abs_err=loss_err, param_max_abs_err=p_err,
+                         bit_equal=bits)
+    for name, r in runs.items():
+        res.setdefault(name, {}).update(
+            {k: v for k, v in r.items() if k != "state"})
+    res["launches"] = {k: runs["plain"]["launches"][k]
+                       + runs["recompute"]["launches"][k]
+                       + runs["pipeline"]["launches"][k]
+                       + runs["plain2"]["launches"][k]
+                       for k in runs["plain"]["launches"]}
+    log(f"  peak device memory: recompute "
+        f"{runs['recompute']['peak_mem_bytes'] / 1e9:.3f} GB against plain "
+        f"{plain['peak_mem_bytes'] / 1e9:.3f} GB; steady step "
+        f"{np.mean(runs['recompute']['step_ms'][1:]):.2f} against "
+        f"{np.mean(plain['step_ms'][1:]):.2f} ms on {card}")
+    return res
+
+
+def _opt_cases(rng):
+    """{op: (inputs, attrs)} of each update op the port added with the
+    other optimizers, ModelAverage and EMA, at OPT_SHAPE."""
+    def t(lo=None):
+        a = rng.standard_normal(OPT_SHAPE).astype(np.float32)
+        return np.abs(a) + lo if lo is not None else a
+
+    p, g, lr = t(), t(), np.array([0.01], np.float32)
+    base = {"Param": p, "Grad": g, "LearningRate": lr}
+    one = np.array([3.0], np.float32)
+    return {
+        "lars_momentum": (dict(base, Velocity=t()),
+                          dict(mu=0.9, lars_coeff=0.001,
+                               lars_weight_decay=0.0005)),
+        "adamax": (dict(base, Moment=t(), InfNorm=t(0.1),
+                        Beta1Pow=np.array([0.81], np.float32)), {}),
+        "adagrad": (dict(base, Moment=t(0.1)), {}),
+        "decayed_adagrad": (dict(base, Moment=t(0.1)), {}),
+        "adadelta": (dict(base, AvgSquaredGrad=t(0.1),
+                          AvgSquaredUpdate=t(0.1)), {}),
+        "rmsprop": (dict(base, MeanSquare=t(2.0), Moment=t(),
+                         MeanGrad=t()), dict(momentum=0.9, centered=True)),
+        "ftrl": (dict(base, SquaredAccumulator=t(0.1),
+                      LinearAccumulator=t()), dict(l1=0.1, l2=0.1)),
+        "proximal_gd": (base, dict(l1=0.1, l2=0.1)),
+        "proximal_adagrad": (dict(base, Moment=t(0.1)),
+                             dict(l1=0.1, l2=0.1)),
+        "average_accumulates": (
+            {"Param": p, "Sum1": t(), "Sum2": t(), "Sum3": t(),
+             "NumAccumulates": one, "OldNumAccumulates": one,
+             "NumUpdates": one},
+            dict(average_window=0.5, min_average_window=2,
+                 max_average_window=4)),
+        "ema_accumulate": ({"Param": p, "Ema": t()}, dict(decay=0.999)),
+    }
+
+
+def _swap_check(name, avg, exe, scope, params, want, dev, max_syncs):
+    """avg.apply() on the card: its synchronizing calls (at most
+    `max_syncs`), the installed values against `want` (CPU, float32)
+    and their device; then restore(): the very tensors back, bits
+    unchanged."""
+    import paddle_tpu_torch as pt
+
+    before = {n: scope.find_var(n) for n in params}
+    bits = {n: v.clone() for n, v in before.items()}
+    with pt.scope_guard(scope):
+        ctx = avg.apply(exe, need_restore=False)
+        t0 = time.perf_counter()
+        syncs = _sync_warnings(ctx.__enter__)
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        got = {n: scope.find_var(n) for n in params}
+        err = max(float((got[n].cpu() - want[n]).abs().max()
+                        / max(float(want[n].abs().max()), 1e-30))
+                  for n in params)
+        on_card = all(got[n].device == dev for n in params)
+        ctx.__exit__(None, None, None)
+        avg.restore(exe)
+    same = all(scope.find_var(n) is before[n]
+               and torch.equal(scope.find_var(n), bits[n]) for n in params)
+    log(f"  {name}: apply() {apply_ms:.2f} ms, {len(syncs)} host syncs "
+        f"{syncs}, max err {err:.3e} of max |value| against the CPU, on "
+        f"the card {on_card}; restore() gave back the same tensors, bits "
+        f"unchanged: {same}")
+    if not (len(syncs) <= max_syncs and err <= 1e-6 and on_card and same):
+        raise AssertionError(f"phase 6q: {name} apply/restore: syncs "
+                             f"{syncs}, err {err}, on card {on_card}, "
+                             f"restored {same}")
+    return dict(apply_ms=apply_ms, host_syncs=len(syncs), max_rel_err=err)
+
+
+def phase_optimizers(dev, card):
+    """6q: each update op the slice added on the card against the same
+    op on the CPU at OPT_SHAPE (sparse adagrad too); then ModelAverage
+    and EMA on the bench Transformer (dropout 0) for AVG_STEPS steps:
+    `apply()` swaps in values computed on the card (ModelAverage with no
+    host sync, EMA with one) equal to the CPU's formula on the same
+    accumulators, and `restore()` gives back the same tensors."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+    from paddle_tpu_torch.core.selected_rows import SparseGrad
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels
+
+    log(f"phase 6q: the optimizer ops card vs CPU at {OPT_SHAPE}; "
+        f"ModelAverage and EMA on the bench Transformer")
+    rng = np.random.default_rng(7)
+    ops = {}
+    for op, (ins, attrs) in _opt_cases(rng).items():
+        card_out = run_op(op, ins, attrs, dev)
+        cpu_out = run_op(op, ins, attrs, "cpu")
+        err = 0.0
+        for slot, vals in cpu_out.items():
+            want = vals[0].float()
+            got = card_out[slot][0].float().cpu()
+            err = max(err, float((got - want).abs().max()
+                                 / max(float(want.abs().max()), 1e-30)))
+        ops[op] = err
+    # sparse adagrad: 4096 looked-up rows of a 32000 x 512 table, repeats
+    table = rng.standard_normal((32000, 512)).astype(np.float32)
+    ids = rng.integers(0, 32000, 4096)
+    rows = rng.standard_normal((4096, 512)).astype(np.float32)
+    outs = {}
+    for device in (dev, "cpu"):
+        g = SparseGrad(torch.as_tensor(ids).to(device),
+                       torch.as_tensor(rows).to(device), table.shape)
+        ins = {"Param": [torch.as_tensor(table).to(device)], "Grad": [g],
+               "Moment": [torch.full(table.shape, 0.1, device=device)],
+               "LearningRate": [torch.tensor([0.01], device=device)]}
+        outs[str(device)] = get_op_impl("adagrad")(
+            OpContext((0, 0), 0, device=device), ins, {})
+    ops["adagrad sparse"] = max(
+        float((outs[str(dev)][s][0].cpu() - outs["cpu"][s][0]).abs().max()
+              / float(outs["cpu"][s][0].abs().max()))
+        for s in ("ParamOut", "MomentOut"))
+    log(f"  update ops, max |card - cpu| / max |cpu|: "
+        f"{ {k: f'{v:.2e}' for k, v in ops.items()} } (tol {TOL_OPT:g})")
+    bad = {k: v for k, v in ops.items() if not v <= TOL_OPT}
+    if bad:
+        raise AssertionError(f"phase 6q: update ops differ: {bad}")
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = transformer.build_model(**dict(TRAIN_ARCH, dropout=0.0))
+        ma = pt.optimizer.ModelAverage(0.15, min_average_window=2,
+                                       max_average_window=3)
+        ema = pt.optimizer.ExponentialMovingAverage(0.999)
+        ema.update()
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = _transformer_feed(dev)
+    kernels.reset_counts()
+    losses, ms = _steps_on_card(exe, main, feed, model["loss"], scope,
+                                AVG_STEPS)
+    counts = _check_launches("phase 6q", main, AVG_STEPS)
+    params = [p.name for p in main.all_parameters()]
+
+    def cpu(n):
+        return scope.find_var(n).cpu()
+
+    want_ma = {}
+    for n in params:
+        total = float(cpu(f"{n}.num_accumulates").reshape(())) + float(
+            cpu(f"{n}.old_num_accumulates").reshape(()))
+        want_ma[n] = ((cpu(f"{n}.sum_1") + cpu(f"{n}.sum_2")
+                       + cpu(f"{n}.sum_3")) / total if total > 0
+                      else cpu(n))
+    t = float(cpu(ema._step_var.name).reshape(()))
+    want_ema = {n: cpu(f"{n}.ema") / (1.0 - 0.999 ** t) for n in params}
+    log(f"  {AVG_STEPS} steps, losses {losses}, step ms "
+        f"{[round(x, 2) for x in ms]} on {card}; EMA t = {t}")
+    res = {"update_ops_max_rel_err": ops, "losses": losses, "step_ms": ms,
+           "launches": counts["launches"],
+           "model_average": _swap_check("ModelAverage", ma, exe, scope,
+                                        params, want_ma, dev, 0),
+           "ema": _swap_check("ExponentialMovingAverage", ema, exe, scope,
+                              params, want_ema, dev, 1)}
+    return res
+
+
+def _book_builds():
+    """(name, build kwargs, feed, steps, card-vs-CPU parity) of 6r."""
+    from paddle_tpu_torch.models import (recommender, sequence_tagging,
+                                         word2vec)
+
+    return [
+        ("sequence_tagging", sequence_tagging, SRL_ARCH,
+         sequence_tagging.make_fake_batch(SRL_BATCH), BOOK_STEPS, True),
+        ("word2vec", word2vec, {}, word2vec.make_fake_batch(),
+         W2V_STEPS, False),
+        ("recommender", recommender, {}, recommender.make_fake_batch(),
+         BOOK_STEPS, True),
+    ]
+
+
+def phase_book_models(dev, card):
+    """6r: the three book models (synthetic feeds from make_fake_batch),
+    each from the same weights on the card and on the CPU: the sequence
+    tagger and the recommender's losses within TOL_BOOK of max(1, |loss|)
+    at every step; word2vec's NCE draws differ across devices, so its
+    losses are held finite and its forward loss at one fixed run counter
+    (the same negatives) lower after the steps than before.  No port
+    kernel lies on these paths (the tagger's
+    relu/sigmoid LSTM takes the composed route, which the LSTM kernel
+    does not take); its composed calls are reported."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+    from paddle_tpu_torch.ops import kernels
+
+    log("phase 6r: the book models card vs CPU (sequence tagging at the "
+        "book's widths, word2vec with NCE, the recommender)")
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+
+    def fixed_draw_loss(exe, test, loss, scope, feed):
+        """The forward loss at one fixed run counter: the same NCE
+        negatives before and after training."""
+        run = scope.find_var(RNG_STATE_VAR)
+        scope.set_var(RNG_STATE_VAR, 10 ** 6)
+        out = exe.run(test, feed=feed, fetch_list=[loss], scope=scope)
+        scope.set_var(RNG_STATE_VAR, run)
+        return float(out[0].reshape(-1)[0])
+
+    res = {}
+    for name, mod, kw, feed, steps, parity in _book_builds():
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            model = mod.build_model(**kw)
+        init = pt.Scope()
+        pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+        arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+                  if isinstance(v, torch.Tensor)}
+        runs = {}
+        for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
+            scope = pt.Scope()
+            for n, v in params_from_arrays(arrays, device,
+                                           program=main).items():
+                scope.set_var(n, v)
+            exe = pt.Executor(place)
+            f = {n: torch.as_tensor(a).to(device) for n, a in feed.items()}
+            if device == dev:
+                test = main.clone(for_test=True)
+                before = fixed_draw_loss(exe, test, model["loss"], scope, f)
+                kernels.reset_counts()
+                losses, ms = _steps_on_card(exe, main, f, model["loss"],
+                                            scope, steps)
+                counts = kernels.counts()
+                after = fixed_draw_loss(exe, test, model["loss"], scope, f)
+            else:
+                losses = [float(exe.run(main, feed=f,
+                                        fetch_list=[model["loss"]],
+                                        scope=scope)[0].reshape(-1)[0])
+                          for _ in range(steps)]
+            runs[str(device)] = losses
+        card_l, cpu_l = runs[str(dev)], runs["cpu"]
+        if max(counts["launches"].values()) or max(counts["plain"].values()):
+            raise AssertionError(f"phase 6r {name}: kernel counts {counts}")
+        ok = np.isfinite(card_l + cpu_l).all()
+        if parity:
+            err = max(abs(a - b) / max(1.0, abs(b))
+                      for a, b in zip(card_l, cpu_l))
+            ok = ok and err <= TOL_BOOK
+        else:
+            err = None
+            ok = ok and after < before
+        steady = float(np.mean(ms[1:]))
+        log(f"  {name}: card losses {[round(x, 6) for x in card_l]}, cpu "
+            f"{[round(x, 6) for x in cpu_l]}; "
+            + (f"max rel err {err:.3e} (tol {TOL_BOOK:g}); " if parity
+               else f"finite; on the card the loss at one fixed draw "
+                    f"{before:.6f} before, {after:.6f} after; ")
+            + f"step {steady:.2f} ms (first {ms[0]:.1f}) on {card}; "
+            f"composed calls {counts['composed']}")
+        if not ok:
+            raise AssertionError(f"phase 6r {name}: card {card_l}, cpu "
+                                 f"{cpu_l}")
+        res[name] = dict(losses_card=card_l, losses_cpu=cpu_l,
+                         loss_max_rel_err=err, step_ms=ms,
+                         fixed_draw_loss=(before, after),
+                         steady_step_ms=steady,
+                         composed_calls=counts["composed"])
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -4461,6 +4965,12 @@ def main() -> int:
     train_resume = timed("6l", phase_resume, dev, card)
     train_guard = timed("6m", phase_guard, dev, card)
     train_trainer = timed("6n", phase_trainer, dev, card)
+    train_accum = timed("6o", phase_accumulate, dev, card)
+    train_accum_amp = timed("6o AMP", phase_accumulate, dev, card,
+                            "phase 6o AMP", AMP)
+    train_recompute = timed("6p", phase_recompute, dev, card)
+    train_optimizers = timed("6q", phase_optimizers, dev, card)
+    train_book = timed("6r", phase_book_models, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -4498,7 +5008,8 @@ def main() -> int:
     # on the speculative engines' verify runs
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
-             train_guard, train_trainer)
+             train_guard, train_trainer, train_accum, train_accum_amp,
+             train_recompute, train_optimizers)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -4546,6 +5057,11 @@ def main() -> int:
                    "train_resume": train_resume,
                    "train_guard": train_guard,
                    "train_trainer": train_trainer,
+                   "train_accumulate": train_accum,
+                   "train_accumulate_amp": train_accum_amp,
+                   "train_recompute": train_recompute,
+                   "train_optimizers": train_optimizers,
+                   "train_book_models": train_book,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

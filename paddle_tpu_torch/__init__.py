@@ -74,7 +74,8 @@ from .core.executor import (Executor, Scope, global_scope,  # noqa: E402,F401
 from .core.program import (Block, Operator, Parameter,  # noqa: E402,F401
                            Program, Variable, default_main_program,
                            default_startup_program, name_scope,
-                           program_guard)
+                           pipeline_scope, pipeline_segment,
+                           program_guard, recompute_scope)
 from .param_attr import ParamAttr  # noqa: E402,F401
 
 __version__ = "0.1.0"

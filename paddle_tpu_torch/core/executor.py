@@ -20,10 +20,26 @@ outlives the step.  An is_sparse lookup of a trainable table takes the
 reference's SparseGrad path (paddle_tpu/core/executor.py:621-689): the
 gradient is taken with respect to the gathered rows, so the table's is
 a `SparseGrad` of the touched rows, which the optimizer ops with a
-sparse branch update lazily and every other op sees densified.  What
-the reference does beyond that — gradient accumulation, explicit
-gradient sync, recompute and pipeline scopes — raises
-NotImplementedError naming its ROADMAP item.
+sparse branch update lazily and every other op sees densified.
+
+Gradient accumulation (`Executor.run(accumulation_steps=K)`, the
+reference's `_accumulate_gradients`, paddle_tpu/core/executor.py:941-
+1063) splits each fed name into K micro-batches along dim 0 and runs
+the forward and `torch.autograd.grad` once per micro-batch, so each
+micro-batch's graph is freed before the next; the gradients are summed
+in float32 and scaled by 1/K once, and the update ops run once.  Each
+micro-batch draws its own random streams (its index folded into the op
+generators' seed material); the run counter still advances once a
+step.  Recompute segments (`recompute_scope`; the reference's
+`jax.checkpoint`, :139-278) run each maximal run of consecutive live
+forward ops sharing a `__recompute__` tag under
+`torch.utils.checkpoint.checkpoint(use_reentrant=False,
+preserve_rng_state=False)`: no op draws from the global generator, and
+each op's generator is re-seeded from (seed, op index), so the
+recomputed dropout masks repeat by construction.  Pipeline tags
+(`pipeline_scope`) are inert on one device, as on a reference mesh
+without a `pp` axis (:124-134): the ops run in order.  Explicit
+gradient sync raises NotImplementedError naming its ROADMAP step.
 
 The in-step pieces run in the reference's order
 (paddle_tpu/core/executor.py:431-617), each only when the program opted
@@ -74,9 +90,12 @@ from .selected_rows import SparseGrad, densify
 RNG_STATE_VAR = "__rng_key__"
 
 # Optimizer ops with a sparse (SelectedRows) branch; every other op sees
-# densified gradients (the reference's SPARSE_AWARE_OPS less adagrad,
-# which the port lacks).
-SPARSE_AWARE_OPS = {"sgd", "momentum", "adam"}
+# densified gradients (the reference's SPARSE_AWARE_OPS).
+SPARSE_AWARE_OPS = {"sgd", "momentum", "adam", "adagrad"}
+
+# Folded into the seed material of micro-batch k under gradient
+# accumulation as 31337 + k (the reference's fold_in(key, 31337 + idx)).
+MICRO_SEED_BASE = 31337
 
 
 class Scope:
@@ -280,13 +299,16 @@ def _run_device(device) -> torch.device:
 
 
 def interpret_program(program: Program, env: Dict[str, Any], seed,
-                      fetch_names=(), device=None, row_block=None):
+                      fetch_names=(), device=None, row_block=None,
+                      accum_steps: int = 1, feed_names=()):
     """Run the program over env: a forward program pruned to what the
     fetches and persistable state need; a training program whole
     (forward, gradients, update ops; training programs are never pruned,
     as in the reference).  `device` None means CUDAPlace(0).
     `row_block` (forward programs): each row computed as in a run of
-    `row_block` rows (OpContext)."""
+    `row_block` rows (OpContext).  `accum_steps` K > 1 (training
+    programs): the names of `feed_names` split into K micro-batches
+    whose gradients are averaged before the update ops run once."""
     device = _run_device(device)
     if len(program.blocks) > 1:
         raise NotImplementedError(
@@ -295,23 +317,18 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
     if program._backward_info is None:
         return run_ops(_pruned(program, fetch_names), env, seed,
                        program=program, device=device, row_block=row_block)
-    return _train_step(program, env, seed, device, fetch_names)
+    return _train_step(program, env, seed, device, fetch_names,
+                       accum_steps, feed_names)
 
 
-def _check_trainable(program: Program, fwd_ops):
+def _check_trainable(program: Program):
     """Raise for what the reference's training step does beyond the
-    autodiff split (each names its ROADMAP item)."""
+    port's single device (naming its ROADMAP step)."""
     if getattr(program, "_grad_sync", None):
         raise NotImplementedError(
             "training with explicit gradient sync is not ported yet: "
-            "ROADMAP queue A item 2 (executor: explicit gradient sync)")
-    for op in fwd_ops:
-        attrs = op.desc.attrs
-        if "__recompute__" in attrs or "__pp_group__" in attrs:
-            raise NotImplementedError(
-                "recompute and pipeline scopes in a training program are "
-                "not ported yet: ROADMAP queue A item 2 (executor: "
-                "recompute and pipeline scopes)")
+            "ROADMAP A step 10 (parallel: CompiledProgram and the "
+            "gradient exchange)")
 
 
 def _live_forward(program: Program, fetch_names):
@@ -355,27 +372,185 @@ def _find_sparse_lookups(fwd_ops, live, trainable, env):
     return [c for c in candidates if c[1] not in shared]
 
 
+def _forward_keep(program: Program, fetch_names):
+    """Names read after the forward section: the loss, the fetches,
+    persistable state and what the update ops consume (the reference's
+    `fwd_keep`, paddle_tpu/core/executor.py:420-426).  A recompute
+    segment's other outputs are internal and stay inside it.  Memoized
+    as `_live_forward` is."""
+    key = (program._version, tuple(fetch_names))
+    cache = program.__dict__.setdefault("_forward_keep", {})
+    keep = cache.get(key)
+    if keep is None:
+        block = program.global_block()
+        info = program._backward_info
+        keep = {v.name for v in block.vars.values() if v.persistable}
+        keep.update(fetch_names)
+        keep.add(info["loss"])
+        for op in block.ops[info["index"]:]:
+            keep.update(op.desc.input_names())
+        cache[key] = keep
+    return keep
+
+
+def _run_forward(fwd_ops, live, env, seed, device, program, rows,
+                 amp_lists, keep):
+    """Run the live forward ops over env, each under its program index.
+    With grad enabled, each maximal run of consecutive live ops sharing
+    a `__recompute__` tag (two ops or more: a 1-op run saves nothing)
+    runs as one checkpointed segment (`_run_segment`) that returns only
+    the names read after it — the suffix read-sets over the live list
+    and `keep` (the reference's run_ops, :139-226).  Pipeline tags are
+    inert: those ops run in order."""
+    tags = [fwd_ops[i].desc.attrs.get("__recompute__") for i in live]
+    if not torch.is_grad_enabled() or not any(t is not None for t in tags):
+        for i in live:
+            _run_one_op(fwd_ops[i], env, seed, i, program=program,
+                        device=device, sparse_rows=rows,
+                        amp_lists=amp_lists)
+        return env
+    n = len(live)
+    ends = {j for j in range(1, n + 1) if tags[j - 1] is not None
+            and (j == n or tags[j] != tags[j - 1])}
+    suffix_reads: Dict[int, set] = {}
+    acc = set(keep)
+    for j in range(n, 0, -1):
+        if j in ends:
+            suffix_reads[j] = set(acc)
+        acc.update(fwd_ops[live[j - 1]].desc.input_names())
+    p = 0
+    while p < n:
+        q = p + 1
+        if tags[p] is not None:
+            while q < n and tags[q] == tags[p]:
+                q += 1
+        if q - p >= 2:
+            _run_segment([(i, fwd_ops[i]) for i in live[p:q]], env, seed,
+                         device, program, rows, amp_lists,
+                         suffix_reads[q])
+        else:
+            _run_one_op(fwd_ops[live[p]], env, seed, live[p],
+                        program=program, device=device, sparse_rows=rows,
+                        amp_lists=amp_lists)
+        p = q
+    return env
+
+
+def _run_segment(seg, env, seed, device, program, rows, amp_lists, keep):
+    """One recompute segment under `torch.utils.checkpoint` (the
+    reference's `_run_checkpointed_segment`, :228-278): the tensors it
+    reads enter as explicit arguments, other env entries are closed
+    over, the numerics bitmap enters and leaves explicitly, and only
+    the names in `keep` leave it.  Autograd saves the arguments alone;
+    the backward reruns the ops, which draw the same streams (each op's
+    generator is made from the seed and its program index)."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    read, written = [], set()
+    for _, op in seg:
+        for n in op.desc.input_names():
+            if n not in written and n in env and n not in read:
+                read.append(n)
+        written.update(op.desc.output_names())
+    out_names = sorted(written & keep)
+    if NUMERICS_BITS_VAR in env:
+        if NUMERICS_BITS_VAR not in read:
+            read.append(NUMERICS_BITS_VAR)
+        out_names.append(NUMERICS_BITS_VAR)
+    arr_in = [n for n in read if isinstance(env[n], torch.Tensor)]
+    other_in = {n: env[n] for n in read if n not in set(arr_in)}
+
+    def seg_fn(*vals):
+        local = dict(other_in)
+        local.update(zip(arr_in, vals))
+        if NUMERICS_BITS_VAR in local:
+            # the ops OR into the bitmap in place: on a copy, so the
+            # segment's saved argument keeps its version
+            local[NUMERICS_BITS_VAR] = local[NUMERICS_BITS_VAR].clone()
+        for i, op in seg:
+            _run_one_op(op, local, seed, i, program=program, device=device,
+                        sparse_rows=rows, amp_lists=amp_lists)
+        return tuple(local[n] for n in out_names)
+
+    # no early stop: torch ends an early-stopped recompute by raising,
+    # and that exception's traceback keeps the segment's recomputed
+    # tensors in a reference cycle until the garbage collector runs,
+    # which in the backward of a deep stack held most of the memory the
+    # recompute was meant to save; the full rerun costs the segment's
+    # last ops once more
+    with set_checkpoint_early_stop(False):
+        outs = checkpoint(seg_fn, *(env[n] for n in arr_in),
+                          use_reentrant=False, preserve_rng_state=False)
+    env.update(zip(out_names, outs))
+
+
+def _scalar_loss(fenv, loss_name):
+    loss = fenv[loss_name]
+    if loss.dim() > 0:
+        loss = loss.squeeze()
+    if loss.dim() > 0:
+        raise ValueError(f"loss {loss_name!r} must have one element, "
+                         f"got shape {tuple(fenv[loss_name].shape)}")
+    return loss
+
+
+def _forward_backward(program, env, seed, device, fwd_ops, live, dense,
+                      lookups, scale, keep):
+    """One forward over `env` with the dense parameters `dense` as fresh
+    autograd leaves (and, for each SparseGrad lookup, its gathered
+    rows), then `torch.autograd.grad` of the (scaled) loss.  Returns
+    (loss, dense grads, row grads, env detached); nothing of the graph
+    outlives the call."""
+    from ..ops.sparse import gather_rows
+
+    loss_name = program._backward_info["loss"]
+    # fresh leaves: the scope's own tensors never join the graph
+    leaves = [env[p].detach().requires_grad_() for p in dense]
+    rows = {i: gather_rows(env[tbl], env[ids_n], pad).detach()
+            .requires_grad_() for i, tbl, ids_n, pad in lookups}
+    with torch.enable_grad():
+        fenv = dict(env)
+        fenv.update(zip(dense, leaves))
+        _run_forward(fwd_ops, live, fenv, seed, device, program, rows,
+                     getattr(program, "_amp_lists", None), keep)
+        loss = _scalar_loss(fenv, loss_name)
+        if scale is not None:
+            # dynamic loss scaling wraps the loss BEFORE autodiff
+            loss = loss * scale
+        grad_list = torch.autograd.grad(loss, leaves + list(rows.values()),
+                                        allow_unused=True)
+    env = {n: (v.detach() if isinstance(v, torch.Tensor) else v)
+           for n, v in fenv.items()}
+    grads = {p: torch.zeros_like(leaf) if g is None else g
+             for p, leaf, g in zip(dense, leaves, grad_list)}
+    row_grads = [torch.zeros_like(rows[i]) if g is None else g
+                 for (i, _, _, _), g in zip(lookups, grad_list[len(dense):])]
+    return loss.detach(), grads, row_grads, env
+
+
 def _train_step(program: Program, env: Dict[str, Any], seed, device,
-                fetch_names=()):
+                fetch_names=(), accum_steps: int = 1, feed_names=()):
     """The training step (see the module docstring).  The forward runs
     only the ops `_live_forward` keeps, each under its program index, so
     pruning never shifts an op's random stream or its numerics bit.  The
     autograd leaves are the dense parameters and, for each lookup on the
     SparseGrad path, the rows it gathers; a table's gradient is then a
-    SparseGrad of its lookups' ids and row gradients."""
-    from ..ops.sparse import gather_rows
-
+    SparseGrad of its lookups' ids and row gradients.  With
+    `accum_steps` > 1 the gradients are `_accumulate_gradients`'."""
     info = program._backward_info
     ops = program.global_block().ops
     k = info["index"]
     fwd_ops, rest_ops = ops[:k], ops[k:]
     params = [p for p in info["params"] if p in env]
-    _check_trainable(program, fwd_ops)
+    _check_trainable(program)
     live = _live_forward(program, fetch_names)
-    lookups = _find_sparse_lookups(fwd_ops, live, set(params), env)
+    keep = _forward_keep(program, fetch_names)
+    # accumulation takes the dense path for every table (the
+    # reference's :551-552: SparseGrads do not sum across micro-batches)
+    lookups = (_find_sparse_lookups(fwd_ops, live, set(params), env)
+               if accum_steps <= 1 else [])
     sparse_tables = {tbl for _, tbl, _, _ in lookups}
     dense = [p for p in params if p not in sparse_tables]
-    loss_name = info["loss"]
     trainable = {p: env[p] for p in params}   # the pre-update values
     tel = env.get(_obs_metrics.TELEMETRY_VAR)
     num_on = (tel is not None
@@ -389,57 +564,128 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
     if (guard_cfg is not None and guard_cfg.loss_scaling is not None
             and tel is not None):
         scale = tel["loss_scale"].to(torch.float32)
-    # fresh leaves: the scope's own tensors never join the graph
-    leaves = [env[p].detach().requires_grad_() for p in dense]
-    rows = {i: gather_rows(env[tbl], env[ids_n], pad).detach()
-            .requires_grad_() for i, tbl, ids_n, pad in lookups}
-    with torch.enable_grad():
-        fenv = dict(env)
-        fenv.update(zip(dense, leaves))
-        amp_lists = getattr(program, "_amp_lists", None)
-        for i in live:
-            _run_one_op(fwd_ops[i], fenv, seed, i, program=program,
-                        device=device, sparse_rows=rows,
-                        amp_lists=amp_lists)
-        loss = fenv[loss_name]
-        if loss.dim() > 0:
-            loss = loss.squeeze()
-        if loss.dim() > 0:
-            raise ValueError(f"loss {loss_name!r} must have one element, "
-                             f"got shape {tuple(fenv[loss_name].shape)}")
-        if scale is not None:
-            # dynamic loss scaling wraps the loss BEFORE autodiff
-            loss = loss * scale
-        grad_list = torch.autograd.grad(loss, leaves + list(rows.values()),
-                                        allow_unused=True)
-    # nothing of the graph leaves the step: every value is detached
-    env = {n: (v.detach() if isinstance(v, torch.Tensor) else v)
-           for n, v in fenv.items()}
-    loss = loss.detach()
-    grads: Dict[str, Any] = {}
-    for p, leaf, g in zip(dense, leaves, grad_list):
-        grads[p] = torch.zeros_like(leaf) if g is None else g
-    per_table: Dict[str, list] = {}
-    for (i, tbl, ids_n, _), g in zip(lookups, grad_list[len(dense):]):
-        if g is None:
-            g = torch.zeros_like(rows[i])
-        per_table.setdefault(tbl, []).append(
-            (env[ids_n].reshape(-1), g.reshape(-1, env[tbl].shape[-1])))
-    for tbl, pairs in per_table.items():
-        grads[tbl] = SparseGrad(torch.cat([ids for ids, _ in pairs]),
-                                torch.cat([g for _, g in pairs]),
-                                env[tbl].shape)
+    if accum_steps > 1:
+        loss, grads, env = _accumulate_gradients(
+            program, env, seed, device, fwd_ops, live, dense, scale, keep,
+            accum_steps, feed_names, fetch_names)
+    else:
+        loss, grads, row_grads, env = _forward_backward(
+            program, env, seed, device, fwd_ops, live, dense, lookups,
+            scale, keep)
+        per_table: Dict[str, list] = {}
+        for (i, tbl, ids_n, _), g in zip(lookups, row_grads):
+            per_table.setdefault(tbl, []).append(
+                (env[ids_n].reshape(-1), g.reshape(-1, env[tbl].shape[-1])))
+        for tbl, pairs in per_table.items():
+            grads[tbl] = SparseGrad(torch.cat([ids for ids, _ in pairs]),
+                                    torch.cat([g for _, g in pairs]),
+                                    env[tbl].shape)
     with torch.no_grad():
         return _update(program, env, seed, device, rest_ops, k, loss,
-                       grads, trainable, guard_cfg, scale, num_on)
+                       grads, trainable, guard_cfg, scale, num_on,
+                       accumulated=accum_steps > 1)
+
+
+def _accumulate_gradients(program, env, seed, device, fwd_ops, live, dense,
+                          scale, keep, accum_steps, feed_names,
+                          fetch_names):
+    """K-micro-batch gradient accumulation (the reference's
+    `_accumulate_gradients`, paddle_tpu/core/executor.py:941-1063), run
+    eagerly: the fed names split into K micro-batches along dim 0; micro-
+    batch k runs `_forward_backward` with k folded into its seed
+    material, so its graph is freed before the next.  Returns (the mean
+    of the micro losses, the gradients summed in float32 then scaled by
+    1/K, env).  env holds the full-batch feeds, the loss, the fetched
+    forward values (a value whose leading dim is the micro batch
+    concatenated back to the full batch, any other value averaged), the
+    persistable forward outputs that were already in env threaded
+    through the micro-batches (batch norm's moving stats: K
+    micro-batches compound K updates) and the other forward outputs the
+    update ops or the scope read at their last micro-batch's value (the
+    lr-schedule value).  The numerics bitmap, ORed in place by every
+    op, covers all K."""
+    block = program.global_block()
+    loss_name = program._backward_info["loss"]
+    feeds = {}
+    for n in feed_names:
+        if n not in env:
+            continue
+        v = env[n]
+        if v.dim() == 0 or v.shape[0] % accum_steps != 0:
+            raise ValueError(
+                f"gradient accumulation with {accum_steps} steps needs "
+                f"feed {n!r} batch dim divisible; got shape "
+                f"{tuple(v.shape)}")
+        feeds[n] = v.chunk(accum_steps, dim=0)
+    if not feeds:
+        raise ValueError("gradient accumulation requires batched feeds")
+    base_env = {n: v for n, v in env.items() if n not in feeds}
+    fwd_out = set()
+    for op in fwd_ops:
+        fwd_out.update(op.desc.output_names())
+    rest_reads = set()
+    for op in block.ops[program._backward_info["index"] + 1:]:
+        rest_reads.update(op.desc.input_names())
+    persist_written = sorted(
+        n for n in fwd_out
+        if (block.has_var(n) and block.var(n).persistable)
+        or n in rest_reads)
+    fetch_fwd = sorted(n for n in fetch_names
+                       if n in fwd_out and n != loss_name
+                       and n not in persist_written)
+    carried = [n for n in persist_written if n in env]
+    computed = [n for n in persist_written if n not in env]
+    micro_b = next(iter(feeds.values()))[0].shape[0]
+    base, run = seed
+    persist = {n: env[n] for n in carried}
+    gsum: Dict[str, torch.Tensor] = {}
+    losses, fetched, last = [], {n: [] for n in fetch_fwd}, {}
+    for idx in range(accum_steps):
+        e_in = dict(base_env)
+        e_in.update(persist)
+        e_in.update({n: chunks[idx] for n, chunks in feeds.items()})
+        loss, grads, _, e_after = _forward_backward(
+            program, e_in, (base, run, MICRO_SEED_BASE + idx), device,
+            fwd_ops, live, dense, [], scale, keep)
+        for p, g in grads.items():
+            g32 = g.to(torch.float32)
+            gsum[p] = g32 if p not in gsum else gsum[p] + g32
+        losses.append(loss)
+        persist = {n: e_after[n] for n in carried}
+        for n in fetch_fwd:
+            fetched[n].append(e_after[n])
+        last = {n: e_after[n] for n in computed if n in e_after}
+        del e_after, grads
+    inv = 1.0 / accum_steps
+    grads = {p: (g * inv).to(env[p].dtype) for p, g in gsum.items()}
+    loss_val = torch.stack(losses).mean()
+    out = dict(base_env)
+    decl = block.var(loss_name).shape if block.has_var(loss_name) else ()
+    out[loss_name] = (loss_val.reshape(tuple(decl))
+                      if all(d > 0 for d in decl) else loss_val)
+    for n, vs in fetched.items():
+        v0 = vs[0]
+        if v0.dim() >= 1 and v0.shape[0] == micro_b:
+            out[n] = torch.cat(vs, dim=0)
+        else:
+            st = torch.stack(vs)
+            out[n] = (st if st.is_floating_point()
+                      else st.to(torch.float32)).mean(dim=0)
+    out.update(persist)
+    out.update(last)
+    for n, chunks in feeds.items():
+        out[n] = env[n]
+    return loss_val, grads, out
 
 
 def _update(program, env, seed, device, rest_ops, k, loss, grads,
-            trainable, guard_cfg, scale, num_on):
+            trainable, guard_cfg, scale, num_on, accumulated=False):
     """After the gradients, in the reference's order
     (paddle_tpu/core/executor.py:538-617): unscale, finite check and
     snapshot, the update ops, the guard's select, then telemetry, the
-    guard's counters and the numerics latch."""
+    guard's counters and the numerics latch.  `accumulated`: the loss in
+    env is the micro-batches' mean of the scaled loss, unscaled here
+    too (:564-566)."""
     finite = None
     pre_update: Dict[str, Any] = {}
     if scale is not None:
@@ -448,6 +694,9 @@ def _update(program, env, seed, device, rest_ops, k, loss, grads,
         inv = 1.0 / scale
         loss = loss * inv
         grads = _guard.scale_grads(grads, inv)
+        loss_name = program._backward_info["loss"]
+        if accumulated and loss_name in env:
+            env[loss_name] = env[loss_name] * inv
     if guard_cfg is not None:
         finite = _guard.all_finite(loss, grads)
         written = set()
@@ -521,16 +770,19 @@ class Executor:
             of the RNG counter, so `iterations=3` draws the same dropout
             streams as three `run` calls (the reference also advances
             its key once per chained step, :1339).
+        accumulation_steps: K > 1 splits every fed array into K
+            micro-batches along dim 0 and averages their gradients
+            before one update (`_accumulate_gradients`); each
+            micro-batch draws its own random streams, and the run
+            counter advances once a step.  Composes with `iterations`.
         """
         from .program import default_main_program
 
-        if accumulation_steps != 1:
-            raise NotImplementedError(
-                "gradient accumulation (accumulation_steps > 1) is not "
-                "ported yet: ROADMAP queue A item 2 (executor: gradient "
-                "accumulation)")
         if int(iterations) < 1:
             raise ValueError(f"iterations must be >= 1, got {iterations}")
+        if int(accumulation_steps) < 1:
+            raise ValueError(f"accumulation_steps must be >= 1, got "
+                             f"{accumulation_steps}")
 
         program = program or default_main_program()
         scope = scope or global_scope()
@@ -543,7 +795,8 @@ class Executor:
         # the time to enqueue the step's kernels, not the device time
         with dispatch_timer():
             for _ in range(int(iterations)):
-                env = self._run_once(program, scope, feeds, fetch_names)
+                env = self._run_once(program, scope, feeds, fetch_names,
+                                     int(accumulation_steps))
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch target(s) {missing} were not computed "
@@ -557,7 +810,7 @@ class Executor:
         return fetches
 
     def _run_once(self, program: Program, scope: Scope, feeds,
-                  fetch_names):
+                  fetch_names, accum_steps: int = 1):
         """One step: the scope's persistable state and the telemetry
         accumulator (seeded as the reference's `_prepare` does,
         paddle_tpu/core/executor.py:1268-1280) in, the program
@@ -580,7 +833,9 @@ class Executor:
             env[tel_var] = tel
         env.update(feeds)
         env = interpret_program(program, env, (program.random_seed, run),
-                                fetch_names=fetch_names, device=self.device)
+                                fetch_names=fetch_names, device=self.device,
+                                accum_steps=accum_steps,
+                                feed_names=tuple(feeds))
         for v in block.vars.values():
             if v.persistable and v.name in env:
                 scope.set_var(v.name, env[v.name])

@@ -60,7 +60,8 @@ class OpContext:
 
     `rng()` gives each op its own deterministic `torch.Generator`,
     derived from the run's seed material (the program's random seed and
-    the executor's run counter) and the op's index — the port of the
+    the executor's run counter, and under gradient accumulation the
+    micro-batch's index) and the op's index — the port of the
     reference's per-op `jax.random.fold_in(step_key, op_index)`.  The
     streams differ from jax's threefry bits by construction, so parity
     tests carry parameters across (convert.py) instead of re-drawing
@@ -116,9 +117,13 @@ class OpContext:
             raise RuntimeError(
                 "op requested randomness but the executor has no RNG "
                 "state")
-        base, run = self._seed
+        base, run = self._seed[:2]
         seed = ((int(base) * 1000003 + int(run)) * 7919
                 + self.op_index) & _SEED_MASK
+        if len(self._seed) > 2:
+            # a micro-batch of gradient accumulation: its index folded
+            # in, so each micro-batch draws its own streams
+            seed = (seed * 1000033 + int(self._seed[2])) & _SEED_MASK
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return gen

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core.program import Variable
 from ..initializer import Constant, Normal, Xavier
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -599,3 +600,132 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                "data_layout": data_layout,
                "use_global_stats": use_global_stats})
     return helper.append_activation(y)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Structured-prediction / sampling losses (ops/structured.py)
+# ---------------------------------------------------------------------------
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """is_sparse is accepted for parity: the NCE weight's gradient stays
+    dense (only the sampled rows receive a nonzero gradient)."""
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(),
+            shape=[num_total_classes], dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    sampler_id = {"uniform": 0, "log_uniform": 1, "custom_dist": 2}[sampler]
+    if custom_dist is not None:
+        import numpy as _np
+
+        from .tensor import assign as _assign
+
+        dist = _assign(_np.asarray(custom_dist, dtype="float32"))
+        inputs["CustomDistProbs"] = [dist]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sample_logits = helper.create_variable_for_type_inference(input.dtype)
+    sample_labels = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                 "SampleLabels": [sample_labels]},
+        attrs={"num_total_classes": int(num_total_classes),
+               "num_neg_samples": int(num_neg_samples or 10),
+               "sampler": sampler_id, "seed": seed})
+    return cost
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """input: padded emissions (B, T, N) with a `.seq_len` companion."""
+    from .sequence import seq_len_var
+
+    helper = LayerHelper("linear_chain_crf")
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(
+        param_attr, shape=[num_tags + 2, num_tags], dtype=input.dtype)
+    sl = seq_len_var(input)
+    if sl is None:
+        raise ValueError("linear_chain_crf input needs a .seq_len "
+                         "companion (declare data with lod_level=1)")
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [transition],
+                "Label": [label], "SeqLen": [sl]},
+        outputs={"LogLikelihood": [ll], "Alpha": [alpha]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None):
+    from .sequence import _propagate_seq_len, seq_len_var
+
+    helper = LayerHelper("crf_decoding")
+    if isinstance(param_attr, Variable):
+        transition = param_attr
+    else:
+        attr = ParamAttr._to_attr(param_attr)
+        block = helper.main_program.global_block()
+        if attr.name and block.has_var(attr.name):
+            transition = block.var(attr.name)
+        else:
+            # decode-only program: declare the (trained) transition param
+            # so the scope value binds by name, as fluid does when the
+            # decode net is built separately from the train net
+            num_tags = input.shape[-1]
+            transition = helper.create_parameter(
+                attr, shape=[num_tags + 2, num_tags], dtype=input.dtype)
+    sl = seq_len_var(input)
+    if sl is None:
+        raise ValueError("crf_decoding input needs a .seq_len companion")
+    path = helper.create_variable_for_type_inference("int64")
+    ins = {"Emission": [input], "Transition": [transition], "SeqLen": [sl]}
+    if label is not None:
+        ins["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=ins,
+                     outputs={"ViterbiPath": [path]})
+    _propagate_seq_len(input, path)
+    return path

@@ -286,3 +286,25 @@ def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
                      attrs={"alpha": alpha, "beta": beta})
     _propagate_seq_len(input, out)
     return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None):
+    helper = LayerHelper("sequence_conv", name=name, act=act,
+                         bias_attr=bias_attr)
+    d = input.shape[-1]
+    f = helper.create_parameter(param_attr,
+                                shape=[filter_size * d, num_filters],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ins = _seq_inputs(input)
+    ins["Filter"] = [f]
+    helper.append_op(type="sequence_conv", inputs=ins,
+                     outputs={"Out": [out]},
+                     attrs={"contextLength": filter_size,
+                            "contextStart": -(filter_size // 2),
+                            "contextStride": filter_stride})
+    _propagate_seq_len(input, out)
+    pre_act = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(pre_act)

@@ -5,6 +5,7 @@ the ported slices build (reference: python/paddle/fluid/layers/tensor.py).
 from __future__ import annotations
 
 from ..core.desc import normalize_dtype
+from ..core.program import Variable
 from ..layer_helper import LayerHelper
 
 
@@ -41,11 +42,26 @@ def concat(input, axis=0, name=None):
 
 
 def sums(input, out=None):
-    """Sum a list of same-shape vars (the `sum` op)."""
     helper = LayerHelper("sums")
     if out is None:
         out = helper.create_variable_for_type_inference(input[0].dtype)
     helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
+    # elementwise over sequences: the result keeps the operands' ragged
+    # lengths (the SRL book model sums per-feature projections and
+    # feeds the result onward to length-aware LSTM/CRF layers).  Only
+    # level-1 raggedness is defined here — a nested operand must fail
+    # loudly, not silently drop its .seq_len2 (CLAUDE.md invariant).
+    from .sequence import _propagate_seq_len, seq_len_var
+
+    for x in input:
+        if getattr(x, "lod_level", 0) and x.lod_level > 1:
+            raise NotImplementedError(
+                "sums over lod_level=2 operands: the summed result's "
+                "nested lengths are ambiguous; pool the inner level "
+                "first (sequence_pool)")
+    src = next((x for x in input if seq_len_var(x) is not None), None)
+    if src is not None:
+        _propagate_seq_len(src, out)
     return out
 
 
@@ -85,4 +101,31 @@ def argmax(x, axis=0):
     out = helper.create_variable_for_type_inference("int64")
     helper.append_op(type="arg_max", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def assign(input, output=None):
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(
+            input.dtype if isinstance(input, Variable) else "float32")
+    if isinstance(input, Variable):
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    else:
+        import numpy as np
+
+        arr = np.asarray(input)
+        helper.append_op(
+            type="assign_value", outputs={"Out": [output]},
+            attrs={"shape": list(arr.shape), "dtype": str(arr.dtype),
+                   "values": arr.reshape(-1).tolist()})
+    return output
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)})
     return out

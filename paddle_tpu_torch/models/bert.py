@@ -13,8 +13,9 @@ flash_attention op with `use_flash=True` (`head_major` False or True:
 the flash kernels on CUDA) and is composed from matmul and softmax
 otherwise.  `use_amp=True` wraps the optimizer with `amp.decorate`, as
 the reference does: the bf16 policy at op dispatch, and on CUDA the
-flash kernels' bf16 paths.  Not ported yet, raising NotImplementedError
-with its ROADMAP item: `pipeline` (queue A item 2: executor scopes).
+flash kernels' bf16 paths.  `pipeline=True` tags the encoder stack as
+one `pipeline_scope` group, one `pipeline_segment` a layer; on one
+device the tags are inert.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 from .. import amp, layers, optimizer
 from ..initializer import TruncatedNormal
 from ..param_attr import ParamAttr
-from .transformer import _unported, encoder_layer, pre_post_process
+from .transformer import encoder_layer, pre_post_process
 
 
 def bert_encoder(src_ids, sent_ids, input_mask_bias, vocab_size, max_len,
@@ -35,9 +36,6 @@ def bert_encoder(src_ids, sent_ids, input_mask_bias, vocab_size, max_len,
         raise ValueError(
             "head_major=True requires use_flash=True (the head-major "
             "layout rides the flash op; see models/transformer.py)")
-    if pipeline:
-        _unported("pipeline",
-                  "queue A item 2 (executor: recompute and pipeline scopes)")
     init = TruncatedNormal(0.0, 0.02)
     word_emb = layers.embedding(
         src_ids, size=[vocab_size, d_model],
@@ -57,11 +55,20 @@ def bert_encoder(src_ids, sent_ids, input_mask_bias, vocab_size, max_len,
     if dropout:
         emb = layers.dropout(emb, dropout_prob=dropout,
                              dropout_implementation="upscale_in_train")
+    import contextlib
+
+    from ..core.program import pipeline_scope, pipeline_segment
+
     x = emb
-    for _ in range(n_layer):
-        x = encoder_layer(x, input_mask_bias, n_head, d_model // n_head,
-                          d_model // n_head, d_model, d_inner, dropout,
-                          use_flash=use_flash, head_major=head_major)
+    with pipeline_scope() if pipeline else contextlib.nullcontext():
+        for _ in range(n_layer):
+            with (pipeline_segment() if pipeline
+                  else contextlib.nullcontext()):
+                x = encoder_layer(x, input_mask_bias, n_head,
+                                  d_model // n_head, d_model // n_head,
+                                  d_model, d_inner, dropout,
+                                  use_flash=use_flash,
+                                  head_major=head_major)
     return pre_post_process(None, x, "n")
 
 

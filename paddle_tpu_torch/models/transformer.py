@@ -20,10 +20,11 @@ projection and the label-smoothed CE in the fused_vocab_softmax_ce op
 the optimizer wrapped with `amp.decorate` as in the reference (the bf16
 policy at op dispatch; on CUDA the flash kernels' bf16 paths, while the
 fused CE's Hidden arrives float32 from layer_norm and keeps the vocab-CE
-kernels' float32 path).  Not ported yet, each raising
-NotImplementedError with its ROADMAP item: `moe_experts`
-(queue A item 6: ops/moe.py), `recompute` and `pipeline` (queue A item
-2: executor scopes).
+kernels' float32 path); `recompute=True` (every encoder and decoder
+layer in a `recompute_scope`) and `pipeline=True` (the two stacks as
+`pipeline_scope` groups, inert on one device).  Not ported yet, raising
+NotImplementedError with its ROADMAP item: `moe_experts` (queue A item
+6: ops/moe.py).
 """
 
 from __future__ import annotations
@@ -234,7 +235,28 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
                 recompute=False, pipeline=False, flash_cross=False,
                 head_major=False):
     """Build the full training graph; returns (avg_cost, logits, feeds).
-    Only the ported options are accepted (module docstring)."""
+    Only the ported options are accepted (module docstring).
+    recompute=True wraps every encoder/decoder layer in
+    `recompute_scope` (its activations recomputed in the backward).
+    pipeline=True tags the encoder and decoder stacks as two
+    `pipeline_scope` groups, one `pipeline_segment` a layer; on one
+    device the tags are inert."""
+    import contextlib
+
+    from ..core.program import (pipeline_scope, pipeline_segment,
+                                recompute_scope)
+
+    def stack_scope():
+        return pipeline_scope() if pipeline else contextlib.nullcontext()
+
+    def layer_scope():
+        ctx = contextlib.ExitStack()
+        if pipeline:
+            ctx.enter_context(pipeline_segment())
+        if recompute:
+            ctx.enter_context(recompute_scope())
+        return ctx
+
     if head_major and not use_flash:
         raise ValueError(
             "head_major=True requires use_flash=True: the composed "
@@ -242,12 +264,6 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
             "boundary transposes the head-major layout deletes")
     if moe_experts:
         _unported("moe_experts", "queue A item 6 (ops/moe.py)")
-    if recompute:
-        _unported("recompute",
-                  "queue A item 2 (executor: recompute and pipeline scopes)")
-    if pipeline:
-        _unported("pipeline",
-                  "queue A item 2 (executor: recompute and pipeline scopes)")
 
     src_word = layers.data(name="src_word", shape=[max_length],
                            dtype="int64")
@@ -271,22 +287,29 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
 
     x = _prepare_input(src_word, src_vocab_size, d_model, max_length,
                        dropout, "src_word_emb")
-    for _ in range(n_layer):
-        x = encoder_layer(x, src_bias, n_head, d_key, d_value, d_model,
-                          d_inner_hid, dropout, use_flash=use_flash,
-                          fused_qkv=fused_qkv, flash_pallas=flash_pallas,
-                          head_major=head_major)
+    with stack_scope():
+        for _ in range(n_layer):
+            with layer_scope():
+                x = encoder_layer(x, src_bias, n_head, d_key, d_value,
+                                  d_model, d_inner_hid, dropout,
+                                  use_flash=use_flash, fused_qkv=fused_qkv,
+                                  flash_pallas=flash_pallas,
+                                  head_major=head_major)
     enc_out = pre_post_process(None, x, "n")
 
     y = _prepare_input(trg_word, trg_vocab_size, d_model, max_length,
                        dropout, "trg_word_emb")
-    for _ in range(n_layer):
-        y = decoder_layer(y, enc_out, self_bias, src_bias, n_head, d_key,
-                          d_value, d_model, d_inner_hid, dropout,
-                          use_flash=use_flash, fused_qkv=fused_qkv,
-                          flash_pallas=flash_pallas,
-                          self_causal=self_causal, flash_cross=flash_cross,
-                          head_major=head_major)
+    with stack_scope():
+        for _ in range(n_layer):
+            with layer_scope():
+                y = decoder_layer(y, enc_out, self_bias, src_bias, n_head,
+                                  d_key, d_value, d_model, d_inner_hid,
+                                  dropout, use_flash=use_flash,
+                                  fused_qkv=fused_qkv,
+                                  flash_pallas=flash_pallas,
+                                  self_causal=self_causal,
+                                  flash_cross=flash_cross,
+                                  head_major=head_major)
     dec_out = pre_post_process(None, y, "n")
     feeds = ["src_word", "trg_word", "lbl_word", "src_len", "trg_len"]
 

@@ -1,7 +1,7 @@
-"""Composite network helpers: the port of paddle_tpu/nets.py
-`simple_img_conv_pool` and `img_conv_group` (reference:
-python/paddle/fluid/nets.py).  Its `sequence_conv_pool`, `glu` and
-`scaled_dot_product_attention` are not ported yet (ROADMAP queue A)."""
+"""Composite network helpers: the port of paddle_tpu/nets.py whole —
+`simple_img_conv_pool`, `img_conv_group`, `sequence_conv_pool`, `glu`
+and `scaled_dot_product_attention` (reference:
+python/paddle/fluid/nets.py)."""
 
 from __future__ import annotations
 
@@ -59,3 +59,44 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head scaled dot-product attention (reference nets.py
+    scaled_dot_product_attention) over (N, T, D) tensors."""
+    head_dim = queries.shape[-1] // num_heads
+
+    def _split_heads(x):
+        # (N, T, D) -> (N, H, T, D/H)
+        n, t = x.shape[0], x.shape[1]
+        r = layers.reshape(x, shape=[0 if n == -1 else n, t, num_heads,
+                                     head_dim])
+        return layers.transpose(r, perm=[0, 2, 1, 3])
+
+    q = _split_heads(queries)
+    k = _split_heads(keys)
+    v = _split_heads(values)
+    product = layers.matmul(q, k, transpose_y=True,
+                            alpha=head_dim ** -0.5)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx = layers.matmul(weights, v)
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    n, t = queries.shape[0], queries.shape[1]
+    return layers.reshape(ctx, shape=[0 if n == -1 else n, t,
+                                      num_heads * head_dim])

@@ -14,6 +14,7 @@ from . import paged_kv  # noqa: F401
 from . import rnn  # noqa: F401
 from . import sequence  # noqa: F401
 from . import sparse  # noqa: F401
+from . import structured  # noqa: F401
 from ..layers import learning_rate_scheduler  # noqa: F401  (lr_schedule)
 
 

@@ -48,6 +48,29 @@ def assign(ctx, ins, attrs):
     return out(Out=first(ins, "X"))
 
 
+@register_op("assign_value")
+def assign_value(ctx, ins, attrs):
+    """A constant from the op's attrs (values, shape, dtype)."""
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    values = torch.tensor(attrs["values"], dtype=torch.float64)
+    return out(Out=values.to(dtype).reshape(tuple(attrs["shape"]))
+               .to(ctx.device))
+
+
+@register_op("split")
+def split(ctx, ins, attrs):
+    """X split along `axis` into `num` equal pieces, or into pieces of
+    the sizes `sections`."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        pieces = torch.split(x, list(sections), dim=axis)
+    else:
+        pieces = torch.chunk(x, attrs.get("num", 0), dim=axis)
+    return {"Out": list(pieces)}
+
+
 @register_op("gaussian_random")
 def gaussian_random(ctx, ins, attrs):
     shape = tuple(attrs["shape"])

@@ -152,9 +152,8 @@ def _check_kernel(xs, w, h0, c0, sl, *seqs):
     if any(t.dtype == torch.bfloat16 for t in floats):
         raise NotImplementedError(
             "the LSTM kernels take float32 only; bf16 operands wait on "
-            "bf16 kernels and the AMP policy: ROADMAP queue A item 2 and "
-            "queue B (bf16 kernels, B.3); use_pallas=False takes the "
-            "composed route")
+            "the kernels' bf16 paths: ROADMAP queue B, B.3 (bf16 operand "
+            "paths); use_pallas=False takes the composed route")
     if any(t.dtype != torch.float32 for t in floats):
         raise TypeError(f"lstm kernels: float32 operands (ROADMAP B.3), "
                         f"got {[str(t.dtype) for t in floats]}")

@@ -135,9 +135,8 @@ def _check_kernel(h, w, labels, *rest):
     if h.dtype == torch.bfloat16 or w.dtype == torch.bfloat16:
         raise NotImplementedError(
             "the vocab-CE kernels take float32 only; bf16 operands wait on "
-            "bf16 kernels and the AMP policy: ROADMAP queue A item 2 and "
-            "queue B (bf16 kernels, B.3); use_pallas=False takes the "
-            "composed route")
+            "the kernels' bf16 paths: ROADMAP queue B, B.3 (bf16 operand "
+            "paths); use_pallas=False takes the composed route")
     if any(t.dtype != torch.float32 for t in (h, w, *rest)):
         raise TypeError(f"vocab_ce kernels: float32 operands (ROADMAP "
                         f"B.3), got {[str(t.dtype) for t in (h, w, *rest)]}")

@@ -418,3 +418,18 @@ def auc(ctx, ins, attrs):
     fpr = fp / torch.clamp(fp[-1], min=1.0)
     return {"AUC": [torch.trapezoid(tpr, fpr).reshape(1)],
             "StatPosOut": [new_pos], "StatNegOut": [new_neg]}
+
+
+@register_op("l2_normalize")
+def l2_normalize(ctx, ins, attrs):
+    """x / max(|x|_2 along `axis`, epsilon); Norm keeps the norm."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", -1)
+    eps = attrs.get("epsilon", 1e-10)
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True))
+    return {"Out": [x / torch.clamp(norm, min=eps)], "Norm": [norm]}
+
+
+@register_op("square_error_cost")
+def square_error_cost(ctx, ins, attrs):
+    return out(Out=torch.square(first(ins, "X") - first(ins, "Y")))

@@ -1,9 +1,10 @@
 """Sequence ops: the subset of paddle_tpu/ops/sequence.py the ported
-slice runs (padded dense + lengths, the reference's LoD replacement)."""
+slices run (padded dense + lengths, the reference's LoD replacement)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
 from .common import first, opt_in, out, to_torch_dtype
@@ -103,3 +104,33 @@ def add_position_encoding(ctx, ins, attrs):
     _, t, d = x.shape
     pe = sinusoid(torch.arange(t, device=x.device), d)
     return out(Out=(alpha * x + beta * pe[None]).to(x.dtype))
+
+
+@register_op("sequence_conv")
+def sequence_conv(ctx, ins, attrs):
+    """Window convolution over time (reference sequence_conv_op.cc): X
+    (N, T, D) with SeqLen, Filter (contextLength * D, num_filters).  The
+    steps past each row's length read 0; window k takes the step at
+    offset contextStart + k, zero outside [0, T)."""
+    _reject_nested(ins, "sequence_conv")
+    x = first(ins, "X")
+    f = first(ins, "Filter")
+    seq_len = opt_in(ins, "SeqLen")
+    ctx_len = attrs.get("contextLength", 3)
+    ctx_start = attrs.get("contextStart", -(ctx_len // 2))
+    n, t, d = x.shape
+    if seq_len is not None:
+        m = (torch.arange(t, device=x.device)[None, :]
+             < seq_len[:, None]).to(x.dtype)
+        x = x * m[..., None]
+    cols = []
+    for k in range(ctx_len):
+        off = ctx_start + k
+        if off < 0:
+            cols.append(F.pad(x[:, :t + off], (0, 0, -off, 0)))
+        elif off > 0:
+            cols.append(F.pad(x[:, off:], (0, 0, 0, off)))
+        else:
+            cols.append(x)
+    im = torch.cat(cols, dim=-1)                # (N, T, ctx_len * D)
+    return out(Out=(im.reshape(n * t, ctx_len * d) @ f).reshape(n, t, -1))

@@ -188,9 +188,3 @@ def test_the_startup_draws_truncated_normal_weights():
     assert w.shape == (ARCH["vocab_size"], ARCH["d_model"])
     assert np.abs(w).max() <= 2 * 0.02 and w.std() == pytest.approx(
         0.02 * 0.8796, rel=0.1)
-
-
-@pytest.mark.parametrize("kw", [dict(pipeline=True)])
-def test_unported_bert_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        _build(tf, tb.build_model, **dict(ARCH, **kw))

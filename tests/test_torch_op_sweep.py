@@ -15,7 +15,14 @@ both packages on the same numpy inputs.
   moments those of the distribution (on 4096 draws), and
   truncated_gaussian_random stays inside mean +- 2 std.
 - Coverage: every port op has a spec in `S` or an exemption with its
-  reason, and every port op name is a reference op name.
+  reason, and every port op name is a reference op name; the ops of the
+  training-step and book-model slice (the other optimizers' updates,
+  ModelAverage's and EMA's, the CRF pair, nce, l2_normalize,
+  square_error_cost, sequence_conv, split, assign_value) are swept.
+- nce draws its negatives from the op's torch generator: its cost,
+  logits and gradients are held against the reference given the
+  negatives the reference drew (its SampleLabels output), for the
+  uniform, log-uniform and custom samplers.
 - The edge cases of the ops ported with BERT: `slice` starts and ends
   negative and out of range, `range`'s output dtype, `gelu`'s two forms,
   `reduce_mean` over dim lists, keep_dim and reduce_all.
@@ -62,9 +69,18 @@ EXEMPT = {
                    "held against the reference in test_torch_training.py "
                    "and test_torch_bert.py",
 }
+# ops whose spec in S is deterministic in the reference (its sampler is
+# fed a fixed key) but which draw from the op's torch generator in the
+# port: held against the reference given the reference's draws
+OWN_DRAWS = {
+    "nce": "negatives from the op's generator; the cost and gradients "
+           "are held against the reference given its SampleLabels "
+           "(test_nce_matches_the_reference_given_its_negatives)",
+}
 PORT_OPS = registered_ops()
 SWEPT = sorted(op for op in PORT_OPS if op in S)
-DETERMINISTIC = [op for op in SWEPT if S[op].get("nondiff") != RANDOM]
+DETERMINISTIC = [op for op in SWEPT if S[op].get("nondiff") != RANDOM
+                 and op not in OWN_DRAWS]
 RANDOM_OPS = [op for op in SWEPT if S[op].get("nondiff") == RANDOM]
 GRADS = [(op, slot) for op in DETERMINISTIC if not S[op].get("nondiff")
          for slot in S[op].get("grad", [])]
@@ -96,6 +112,63 @@ def test_every_port_op_is_swept_or_exempt():
             "batch_norm", "momentum", "auc", "square",
             "sigmoid_cross_entropy_with_logits",
             "fill_constant_batch_size_like"} <= set(SWEPT)
+    # the training-step and book-model ops
+    assert set(NEW_OPS) <= set(SWEPT) and set(OWN_DRAWS) <= set(SWEPT)
+
+
+NEW_OPS = ["lars_momentum", "adamax", "adagrad", "decayed_adagrad",
+           "adadelta", "rmsprop", "ftrl", "proximal_gd",
+           "proximal_adagrad", "average_accumulates", "ema_accumulate",
+           "linear_chain_crf", "crf_decoding", "nce", "l2_normalize",
+           "square_error_cost", "sequence_conv", "split", "assign_value"]
+
+
+def _nce_given_reference_negatives(ins, attrs, grad_slots=()):
+    """The port's nce cost, logits and labels (and, with `grad_slots`,
+    the gradients of the harness's weighted sum of Cost) with the
+    negatives the reference drew for the same inputs."""
+    from paddle_tpu_torch.ops.structured import nce_cost
+    from torch_op_test import loss_weights, to_numpy
+
+    want = run_ref_op_all("nce", ins, attrs)
+    num_true = np.asarray(ins["Label"]).reshape(
+        np.asarray(ins["Label"]).shape[0], -1).shape[1]
+    neg = torch.as_tensor(want["SampleLabels"][0, num_true:])
+    t = {k: to_torch(v) for k, v in ins.items()}
+    for k in grad_slots:
+        t[k] = t[k].detach().requires_grad_()
+    dist = t.get("CustomDistProbs")
+    cost, logits, labels = nce_cost(
+        t["Input"], t["Label"], t["Weight"], t.get("Bias"), neg,
+        int(attrs.get("sampler", 0)), int(attrs["num_total_classes"]),
+        dist, t.get("SampleWeight"))
+    got = {"Cost": to_numpy(cost), "SampleLogits": to_numpy(logits),
+           "SampleLabels": to_numpy(labels)}
+    grads = {}
+    if grad_slots:
+        w = torch.as_tensor(loss_weights(tuple(cost.shape), 0))
+        gs = torch.autograd.grad((cost * w).sum(), [t[k] for k in grad_slots])
+        grads = {k: to_numpy(g) for k, g in zip(grad_slots, gs)}
+    return got, want, grads
+
+
+@pytest.mark.parametrize("sampler", [0, 1, 2])
+def test_nce_matches_the_reference_given_its_negatives(sampler):
+    spec = S["nce"]
+    ins = dict(spec["ins"])
+    attrs = dict(spec["attrs"], sampler=sampler, num_neg_samples=4)
+    if sampler == 2:
+        ins["CustomDistProbs"] = np.array([0.3, 0.1, 0.2, 0.1, 0.2, 0.1],
+                                          np.float32)
+    got, want, grads = _nce_given_reference_negatives(
+        ins, attrs, spec["grad"])
+    for slot in ("Cost", "SampleLogits", "SampleLabels"):
+        _assert_same(got[slot], want[slot], f"nce.{slot}")
+        assert _same_dtype(got[slot], want[slot]), slot
+    want_g = ref_op_grads("nce", ins, attrs, spec["grad"], ["Cost"])
+    for slot in spec["grad"]:
+        _assert_same(grads[slot], want_g[slot], f"dnce/d{slot}")
+        assert np.abs(want_g[slot]).max() > 0
 
 
 @pytest.mark.parametrize("op", DETERMINISTIC)

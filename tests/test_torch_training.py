@@ -18,8 +18,8 @@ package.
 - Gradient clipping and weight decay build and train as in the
   reference; with neither, the optimizer passes (param, grad) through.
 - `device=None` resolves to the card or raises; no scope tensor keeps
-  autograd state after a step; unported options raise naming their
-  ROADMAP item.
+  autograd state after a step; unported options (`moe_experts`,
+  explicit gradient sync) raise naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -250,8 +250,6 @@ def test_default_device_is_the_card_or_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(moe_experts=2), "queue A item 6"),
-    (dict(recompute=True), "queue A item 2"),
-    (dict(pipeline=True), "queue A item 2"),
 ])
 def test_unported_transformer_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -263,9 +261,9 @@ def test_unported_executor_features_raise():
     scope = tf.Scope()
     exe = tf.Executor(tf.CPUPlace())
     exe.run(ts, scope=scope)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        exe.run(tm, feed=_batch(), fetch_list=[tmod["loss"]], scope=scope,
-                accumulation_steps=2)
+    tm._grad_sync = object()
+    with pytest.raises(NotImplementedError, match="A step 10"):
+        exe.run(tm, feed=_batch(), fetch_list=[tmod["loss"]], scope=scope)
     # an is_sparse lookup of a trainable table no longer raises: it takes
     # the SparseGrad path (tests/test_torch_sparse.py), and SGD moves
     # only the looked-up row

@@ -150,13 +150,13 @@ def test_meta_tensors_get_shapes_only():
 
 
 def test_cuda_kernels_refuse_bf16_and_what_they_do_not_take(monkeypatch):
-    """A bf16 operand on CUDA raises naming the AMP item, before anything
+    """A bf16 operand on CUDA raises naming B.3, before anything
     launches; so do float64, non-contiguous operands and D > 512.  (The
     checks run before the kernel is built: no card is needed.)"""
     h = torch.zeros(4, 8)
     w = torch.zeros(8, 16)
     lbl = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
+    with pytest.raises(NotImplementedError, match="B.3"):
         vk._check_kernel(h.to(torch.bfloat16), w, lbl)
     with pytest.raises(TypeError, match="float32"):
         vk._check_kernel(h.double(), w.double(), lbl)
