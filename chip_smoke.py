@@ -265,8 +265,21 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    against CPU from the same weights (losses within 1e-4; word2vec's
    finite, its NCE draws differing across devices, and its loss at one
    fixed draw lower after the steps than before), step ms;
+6s. control flow, through machine translation at the widths of upstream
+   Fluid's benchmark/fluid/models/machine_translation.py (embed and
+   hidden 512, vocabularies 30000, batch 16, source and target length
+   50): `seq_to_seq_net` (DynamicRNN) 3 Adam steps card against CPU
+   from the same weights (losses within 1e-4), with step ms, idle share,
+   kernels a step and peak memory; `beam_search_net` (While, tensor
+   arrays, beam_search, beam_search_decode; beam 4, 50 steps) from the
+   trained weights card against CPU (sentences equal, final scores
+   within 1e-4), with decode ms and the host syncs a decode (one a
+   condition check of the While); and a While of 8 iterations whose body
+   calls flash_attention at the training shape: the forward kernel's
+   launch count rises by exactly 8 and the output equals the plain
+   version's (TOL_KERNEL);
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6q included), the card line, and as its last line
+   6l-6s included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -4846,6 +4859,255 @@ def phase_book_models(dev, card):
     return res
 
 
+# -- phase 6s: control flow through machine translation ----------------
+
+# upstream Fluid's benchmark/fluid/models/machine_translation.py, which
+# the reference's model cites: embed = hidden = 512, dictionaries of
+# 30000, batch 16; sentences of 50 tokens, the decode's beam 4 (the
+# net's default) and 50 steps
+MT_ARCH = dict(src_vocab_size=30000, trg_vocab_size=30000, embed_dim=512,
+               hidden_dim=512)
+MT_BATCH, MT_LEN, MT_BEAM = 16, 50, 4
+MT_STEPS = 3
+MT_LR = 1e-3
+TOL_MT = 1e-4        # card vs CPU losses and final beam scores, relative
+SUB_BLOCK_ITERS = 8  # the While around flash_attention
+
+
+def mt_feed(seed=0):
+    """Synthetic batches: ids in [2, V) (0 and 1 are the decode's start
+    and end tokens), lengths from half the sentence to all of it."""
+    rng = np.random.RandomState(seed)
+    b, t, v = MT_BATCH, MT_LEN, MT_ARCH["src_vocab_size"]
+    return {
+        "src_word_id": rng.randint(2, v, (b, t)).astype(np.int64),
+        "src_word_id.seq_len": rng.randint(t // 2, t + 1, b)
+        .astype(np.int32),
+        "trg_word_id": rng.randint(2, v, (b, t)).astype(np.int64),
+        "trg_word_id.seq_len": rng.randint(t // 2, t + 1, b)
+        .astype(np.int32),
+        "trg_next_id": rng.randint(2, v, (b, t)).astype(np.int64),
+    }
+
+
+def _mt_programs():
+    """(train main, train startup, loss), (decode main, sentences,
+    scores) of the machine-translation nets at MT_ARCH."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = mt.seq_to_seq_net(batch_size=MT_BATCH, max_src_len=MT_LEN,
+                                    max_trg_len=MT_LEN, **MT_ARCH)
+        pt.optimizer.Adam(learning_rate=MT_LR).minimize(loss)
+    dec, dec_startup = pt.Program(), pt.Program()
+    with pt.program_guard(dec, dec_startup), pt.unique_name.guard():
+        sents, scores, _ = mt.beam_search_net(
+            batch_size=MT_BATCH, max_src_len=MT_LEN, beam_size=MT_BEAM,
+            max_decode_len=MT_LEN, start_id=0, end_id=1, **MT_ARCH)
+    return (main, startup, loss), (dec, sents, scores)
+
+
+def _no_kernel(label, counts):
+    """No port kernel lies on the machine-translation paths (GRU,
+    attention and beam search are compositions of torch ops, as they
+    are XLA compositions in the reference): nothing launched, no plain
+    version called."""
+    if max(counts["launches"].values()) or max(counts["plain"].values()):
+        raise AssertionError(f"phase 6s {label}: kernel counts {counts}")
+
+
+def phase_control_flow(dev, card):
+    """6s: machine translation's training (DynamicRNN) and beam decode
+    (While, tensor arrays, beam_search, beam_search_decode) at full
+    width, card against CPU, and a kernel op inside a While body."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+    from paddle_tpu_torch.ops import kernels
+
+    log(f"phase 6s: machine translation at full width (embed/hidden 512, "
+        f"vocab 30000, batch {MT_BATCH}, length {MT_LEN}, beam {MT_BEAM}) "
+        f"card vs CPU; flash_attention in a While body")
+    (main, startup, loss), (dec, sents, scores) = _mt_programs()
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+              if isinstance(v, torch.Tensor)}
+    feed = mt_feed()
+    res, scopes = {}, {}
+    for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
+        scope = pt.Scope()
+        for n, v in params_from_arrays(arrays, device,
+                                       program=main).items():
+            scope.set_var(n, v)
+        exe = pt.Executor(place)
+        f = {n: torch.as_tensor(a).to(device) for n, a in feed.items()}
+        if device == dev:
+            peaks = []
+            kernels.reset_counts()
+            losses, ms = _steps_on_card(exe, main, f, loss, scope, MT_STEPS,
+                                        peaks=peaks)
+            _no_kernel("training", kernels.counts())
+            prof = _profile_train_step(exe, main, f, loss, scope, steps=2,
+                                       label="phase 6s training, profiled")
+            res["train"] = dict(losses_card=losses, step_ms=ms,
+                                peak_bytes=max(peaks), profile=prof)
+            # the decode on both devices from the card's trained weights
+            trained = {n: scope.find_var(n).cpu().numpy()
+                       for n in arrays if scope.find_var(n) is not None}
+        else:
+            res["train"]["losses_cpu"] = [
+                float(exe.run(main, feed=f, fetch_list=[loss],
+                              scope=scope)[0].reshape(-1)[0])
+                for _ in range(MT_STEPS)]
+        scopes[str(device)] = scope
+    card_l, cpu_l = res["train"]["losses_card"], res["train"]["losses_cpu"]
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card_l, cpu_l))
+    res["train"]["loss_max_rel_err"] = err
+    tr = res["train"]
+    steady = float(np.mean(tr["step_ms"][1:]))
+    tokens = MT_BATCH * MT_LEN * 2
+    log(f"  training: card losses {[round(x, 6) for x in card_l]}, cpu "
+        f"{[round(x, 6) for x in cpu_l]}; max rel err {err:.3e} (tol "
+        f"{TOL_MT:g}); step {steady:.2f} ms (first {tr['step_ms'][0]:.1f}; "
+        f"{tokens / steady * 1e3:.0f} tokens/s, source and target); idle "
+        f"share {tr['profile']['device_idle_share']:.3f}; "
+        f"{tr['profile']['kernel_launches_per_step']:.0f} kernels/step; "
+        f"peak {tr['peak_bytes'] / 2**30:.2f} GiB on {card}")
+    if not (np.isfinite(card_l + cpu_l).all() and err <= TOL_MT):
+        raise AssertionError(f"phase 6s training: card {card_l}, cpu "
+                             f"{cpu_l}")
+    res["decode"] = _mt_decode(dev, dec, sents, scores, trained, feed, card)
+    res["sub_block"] = _kernel_in_while(dev)
+    res["launches"] = res["sub_block"]["launches"]
+    return res
+
+
+def _mt_decode(dev, dec, sents, scores, trained, feed, card):
+    """The beam decode card against CPU from the same trained weights:
+    sentences equal, final scores within TOL_MT; decode ms (the second
+    of two runs), the host syncs of one decode and the While's trips."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+    from paddle_tpu_torch.ops import kernels
+
+    src = {n: feed[n] for n in ("src_word_id", "src_word_id.seq_len")}
+    out = {}
+    for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
+        scope = pt.Scope()
+        for n, v in params_from_arrays(trained, device,
+                                       program=dec).items():
+            scope.set_var(n, v)
+        exe = pt.Executor(place)
+        f = {n: torch.as_tensor(a).to(device) for n, a in src.items()}
+
+        def run():
+            return exe.run(dec, feed=f, fetch_list=[sents, scores],
+                           scope=scope, return_numpy=False)
+
+        if device == dev:
+            kernels.reset_counts()
+            run()
+            torch.cuda.synchronize()
+            _no_kernel("decode", kernels.counts())
+            t0 = time.perf_counter()
+            got = run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            syncs = _sync_warnings(run)
+        else:
+            got = run()
+        out[str(device)] = [g.cpu().numpy() for g in got]
+    (s_card, sc_card), (s_cpu, sc_cpu) = out[str(dev)], out["cpu"]
+    # every hypothesis holds end_id (1) from its first end on: the steps
+    # the loop ran are the longest hypothesis's, or the cap
+    steps = int(max((row != 1).sum() for row in s_card.reshape(
+        -1, MT_LEN)))
+    differ = np.argwhere(s_card != s_cpu)
+    err = float(np.max(np.abs(sc_card - sc_cpu)
+                       / np.maximum(1.0, np.abs(sc_cpu))))
+    by_line = {}
+    for line in syncs:
+        by_line[line] = by_line.get(line, 0) + 1
+    log(f"  decode: sentences {s_card.shape} equal card vs CPU: "
+        f"{not len(differ)}; final scores max rel err {err:.3e} (tol "
+        f"{TOL_MT:g}); decode {ms:.1f} ms ({MT_BATCH * MT_BEAM} beams x "
+        f"up to {MT_LEN} steps); {len(syncs)} host syncs a decode "
+        f"({by_line}); on {card}")
+    if len(differ):
+        first = tuple(differ[0])
+        raise AssertionError(
+            f"phase 6s decode: {len(differ)} tokens differ, first at "
+            f"(row, beam, step) {first}: card {s_card[first[:2]]}, cpu "
+            f"{s_cpu[first[:2]]}; scores card {sc_card[first[:2]]}, cpu "
+            f"{sc_cpu[first[:2]]}")
+    if not (np.isfinite(sc_card).all() and err <= TOL_MT):
+        raise AssertionError(f"phase 6s decode scores: card {sc_card}, "
+                             f"cpu {sc_cpu}")
+    return dict(decode_ms=ms, host_syncs=len(syncs), sync_lines=by_line,
+                steps_run=steps, scores_max_rel_err=err,
+                scores_card=sc_card.tolist())
+
+
+def _kernel_in_while(dev):
+    """A While of SUB_BLOCK_ITERS iterations whose body calls
+    flash_attention at the training shape (N 64, H 8, T 256, D 64,
+    causal): the forward kernel launches exactly once an iteration, and
+    the While's output equals the plain version's on the same inputs.
+    The counts are zeroed just before the run and read just after."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+
+    n, t = TRAIN_BATCH, TRAIN_ARCH["max_length"]
+    h = TRAIN_ARCH["n_head"]
+    d = TRAIN_ARCH["d_model"] // h
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        q, k, v = (layers.data(name, shape=[n, h, t, d],
+                               append_batch_size=False)
+                   for name in ("q", "k", "v"))
+        o = layers.fill_constant([n, h, t, d], "float32", 0.0)
+        i = layers.fill_constant([1], "int32", 0)
+        limit = layers.fill_constant([1], "int32", SUB_BLOCK_ITERS)
+        cond = layers.less_than(i, limit)
+        w = layers.While(cond)
+        with w.block():
+            att = layers.flash_attention(q, k, v, causal=True)
+            layers.assign(layers.elementwise_add(o, att), o)
+            layers.increment(i, 1)
+            layers.less_than(i, limit, cond=cond)
+    g = torch.Generator(device=dev).manual_seed(61)
+    feed = {name: torch.randn((n, h, t, d), generator=g, device=dev)
+            for name in ("q", "k", "v")}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    (got,) = exe.run(main, feed=feed, fetch_list=[o], return_numpy=False)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    fwd = counts["launches"]["flash_attention_fwd"]
+    if fwd != SUB_BLOCK_ITERS:
+        raise AssertionError(f"phase 6s: flash_attention_fwd launched "
+                             f"{fwd} times in a While of "
+                             f"{SUB_BLOCK_ITERS} iterations: {counts}")
+    plain, _ = fk.flash_attention_fwd_plain(feed["q"], feed["k"],
+                                            feed["v"], None, None, True)
+    want = torch.zeros_like(plain)
+    for _ in range(SUB_BLOCK_ITERS):
+        want = want + plain
+    err = check_close("phase 6s flash_attention in a While body", got,
+                      want, TOL_KERNEL * SUB_BLOCK_ITERS)
+    log(f"  flash_attention in a While of {SUB_BLOCK_ITERS} iterations at "
+        f"N={n} H={h} T={t} D={d} causal: flash_attention_fwd launches "
+        f"{fwd}; sum of the {SUB_BLOCK_ITERS} outputs against the plain "
+        f"version's, max abs err {err:.3e} (tol "
+        f"{TOL_KERNEL * SUB_BLOCK_ITERS:g})")
+    return dict(launches=counts["launches"], max_abs_err=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -4971,6 +5233,7 @@ def main() -> int:
     train_recompute = timed("6p", phase_recompute, dev, card)
     train_optimizers = timed("6q", phase_optimizers, dev, card)
     train_book = timed("6r", phase_book_models, dev, card)
+    control_flow = timed("6s", phase_control_flow, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -5005,11 +5268,12 @@ def main() -> int:
     # flash kernels' bf16 paths on the AMP Transformer's and BERT's; the
     # paged kernel at the step shape on the sequential engines and the
     # model drafter's steps, at the verify shape (paged_attention_verify)
-    # on the speculative engines' verify runs
+    # on the speculative engines' verify runs; the flash forward inside
+    # 6s's While body
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
-             train_recompute, train_optimizers)
+             train_recompute, train_optimizers, control_flow)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -5062,6 +5326,7 @@ def main() -> int:
                    "train_recompute": train_recompute,
                    "train_optimizers": train_optimizers,
                    "train_book_models": train_book,
+                   "control_flow": control_flow,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

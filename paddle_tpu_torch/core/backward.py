@@ -1,7 +1,7 @@
 """Autodiff as a program transformation.
 
-A copy of paddle_tpu/core/backward.py `append_backward` and
-`unique_grad_name` (reference: python/paddle/fluid/backward.py:394).
+A copy of paddle_tpu/core/backward.py (reference:
+python/paddle/fluid/backward.py:394, :613).
 There are no per-op grad kernels: append_backward records a *backward
 boundary* in the program — everything before it is the forward function
 — and the Executor computes parameter gradients with `torch.autograd`
@@ -9,9 +9,8 @@ over that forward (core/executor.py `_train_step`).  Gradient variables
 `<p>@GRAD` become real program vars so the optimizer update ops that
 fluid appends after the backward section work unchanged.
 
-`gradients` / `calc_gradient` (gradients of arbitrary targets through
-the `calc_gradient` macro op) need the control-flow macro ops and are
-not ported yet (ROADMAP queue A item 6).
+`gradients` / `calc_gradient` take gradients of arbitrary targets
+through the `calc_gradient` macro op (ops/control_flow.py).
 """
 
 from __future__ import annotations
@@ -77,10 +76,58 @@ def append_backward(loss: Variable,
 
 
 def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
-    """fluid calc_gradient (backward.py:613): not ported yet."""
-    raise NotImplementedError(
-        "gradients()/calc_gradient need the calc_gradient macro op, which "
-        "is not ported yet: ROADMAP queue A item 6 (ops/control_flow.py)")
+    """Grad of targets w.r.t. arbitrary input vars (fluid calc_gradient,
+    backward.py:613).
+
+    Appends a `calc_gradient` macro op (ops/control_flow.py) that
+    captures the op span [0, here) of the current block; at run time the
+    span is replayed with the inputs as fresh autograd nodes and
+    differentiated with `torch.autograd.grad`.  Returns the gradient
+    Variables, one per input (fetchable / composable with further ops —
+    double grad works by calling gradients() again on a gradient
+    output).
+    """
+    del no_grad_set  # only `inputs` get gradients anyway
+    if isinstance(targets, Variable):
+        targets = [targets]
+    if isinstance(inputs, Variable):
+        inputs = [inputs]
+    if target_gradients is None:
+        target_gradients = []
+    elif isinstance(target_gradients, Variable):
+        target_gradients = [target_gradients]
+    if target_gradients and len(target_gradients) != len(targets):
+        raise ValueError("target_gradients must match targets 1:1")
+
+    program = targets[0].block.program
+    block = program.current_block()
+    if block.idx != 0:
+        raise RuntimeError(
+            "gradients() inside a control-flow sub-block is not supported; "
+            "call it in the main block")
+    index = len(block.ops)
+
+    grad_vars = []
+    grad_names = []
+    for x in inputs:
+        g = block.create_var(
+            name=unique_grad_name(block, x.name), shape=x.shape,
+            dtype=x.dtype, stop_gradient=True)
+        grad_vars.append(g)
+        grad_names.append(g.name)
+
+    block.append_op(
+        type="calc_gradient",
+        inputs={"Targets": [t.name for t in targets],
+                "Inputs": [x.name for x in inputs],
+                "TargetGradients": [g.name for g in target_gradients]},
+        outputs={"InputGrads": grad_names},
+        attrs={"targets": [t.name for t in targets],
+               "inputs": [x.name for x in inputs],
+               "op_range": [0, index],
+               "block": block.idx},
+    )
+    return grad_vars
 
 
 def unique_grad_name(block, name: str) -> str:

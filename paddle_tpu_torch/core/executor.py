@@ -62,6 +62,16 @@ before the op's impl.  In the training forward the casts are autograd
 ops on the parameter leaves, so each cotangent is cast back and the
 parameter gradients reach the update ops in float32.
 
+Control flow (ops/control_flow.py): a macro op (`while`, `switch`,
+`static_rnn`, `dynamic_rnn`, `calc_gradient`) gets the whole env and
+its OpDesc and runs its sub-blocks itself (`OpContext.run_block`, on
+the run's device, `row_block` and AMP lists), as the reference's
+`_run_one_op` dispatches it; it never joins a recompute segment.  A
+tensor array is a (buffer, length) pair in the env: the numerics
+bitmap skips it, the training step detaches it part by part, the
+accumulation's fetch rule merges it part by part, and a fetch returns
+it as a pair.
+
 Places follow Paddle's idiom: `CUDAPlace(0)` runs on `cuda:0`,
 `CPUPlace()` on the CPU.  `Executor()` without a place means
 `CUDAPlace(0)` and raises when CUDA is not available — the CPU runs only
@@ -82,7 +92,7 @@ from ..observe.monitoring import dispatch_timer
 from ..observe.numerics import NUMERICS_BITS_VAR
 from ..resilience import guard as _guard
 from .program import Program, Variable, grad_var_name
-from .registry import OpContext, get_op_impl
+from .registry import OpContext, get_macro_op_impl, get_op_impl, is_macro_op
 from .selected_rows import SparseGrad, densify
 
 # Scope key of the executor's RNG state (the reference's jax PRNG key;
@@ -204,6 +214,21 @@ def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
 def _run_one_op(op, env, seed, op_index, program=None, device=None,
                 sparse_rows=None, amp_lists=None, row_block=None):
     desc = op.desc
+    if is_macro_op(desc.type):
+        # control flow (ops/control_flow.py): the impl runs its
+        # sub-blocks over env and writes its outputs itself, as the
+        # reference's _run_one_op dispatches it (executor.py:296-300);
+        # the context carries the run's device, row_block and AMP lists
+        # down (OpContext.run_block)
+        try:
+            ctx = OpContext(seed, op_index=op_index, program=program,
+                            device=device, amp_lists=amp_lists,
+                            sparse_rows=sparse_rows, row_block=row_block)
+            get_macro_op_impl(desc.type)(ctx, env, desc)
+        except Exception as exc:
+            _reraise_with_op_context(exc, desc, op_index)
+        _update_numerics(env, desc, op_index)
+        return env
     try:
         impl = get_op_impl(desc.type)
         ins = {slot: [env[n] for n in names]
@@ -229,14 +254,19 @@ def _run_one_op(op, env, seed, op_index, program=None, device=None,
                 f"{len(values)} values for {len(names)} names")
         for name, val in zip(names, values):
             env[name] = val
+    _update_numerics(env, desc, op_index)
+    return env
+
+
+def _update_numerics(env, desc, op_index):
+    """First-nonfinite op provenance (observe/numerics.py): OR this op's
+    finite flag into the step bitmap under its program index; the bits
+    var is absent unless the program opted in.  A tensor array's
+    (buffer, length) pair is skipped, as in the reference."""
     if NUMERICS_BITS_VAR in env:
-        # first-nonfinite op provenance (observe/numerics.py): OR this
-        # op's finite flag into the step bitmap under its program
-        # index; the bits var is absent unless the program opted in
         env[NUMERICS_BITS_VAR] = _obs_num.update_bits(
             env[NUMERICS_BITS_VAR], op_index,
             [env[n] for n in desc.output_names() if n in env])
-    return env
 
 
 def _reraise_with_op_context(exc: Exception, desc, op_index: int):
@@ -310,10 +340,6 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
     programs): the names of `feed_names` split into K micro-batches
     whose gradients are averaged before the update ops run once."""
     device = _run_device(device)
-    if len(program.blocks) > 1:
-        raise NotImplementedError(
-            "control-flow sub-blocks are not ported yet: ROADMAP queue A "
-            "item 6 (ops/control_flow.py)")
     if program._backward_info is None:
         return run_ops(_pruned(program, fetch_names), env, seed,
                        program=program, device=device, row_block=row_block)
@@ -401,8 +427,10 @@ def _run_forward(fwd_ops, live, env, seed, device, program, rows,
     runs as one checkpointed segment (`_run_segment`) that returns only
     the names read after it — the suffix read-sets over the live list
     and `keep` (the reference's run_ops, :139-226).  Pipeline tags are
-    inert: those ops run in order."""
-    tags = [fwd_ops[i].desc.attrs.get("__recompute__") for i in live]
+    inert: those ops run in order.  A macro (control-flow) op never
+    joins a segment (the reference's run_ops, :200-204)."""
+    tags = [None if is_macro_op(fwd_ops[i].desc.type)
+            else fwd_ops[i].desc.attrs.get("__recompute__") for i in live]
     if not torch.is_grad_enabled() or not any(t is not None for t in tags):
         for i in live:
             _run_one_op(fwd_ops[i], env, seed, i, program=program,
@@ -519,13 +547,22 @@ def _forward_backward(program, env, seed, device, fwd_ops, live, dense,
             loss = loss * scale
         grad_list = torch.autograd.grad(loss, leaves + list(rows.values()),
                                         allow_unused=True)
-    env = {n: (v.detach() if isinstance(v, torch.Tensor) else v)
-           for n, v in fenv.items()}
+    env = {n: _detached(v) for n, v in fenv.items()}
     grads = {p: torch.zeros_like(leaf) if g is None else g
              for p, leaf, g in zip(dense, leaves, grad_list)}
     row_grads = [torch.zeros_like(rows[i]) if g is None else g
                  for (i, _, _, _), g in zip(lookups, grad_list[len(dense):])]
     return loss.detach(), grads, row_grads, env
+
+
+def _detached(v):
+    """v without its autograd history: a tensor detached, a tensor
+    array's (buffer, length) pair part by part."""
+    if isinstance(v, torch.Tensor):
+        return v.detach()
+    if isinstance(v, tuple):
+        return tuple(_detached(p) for p in v)
+    return v
 
 
 def _train_step(program: Program, env: Dict[str, Any], seed, device,
@@ -664,18 +701,27 @@ def _accumulate_gradients(program, env, seed, device, fwd_ops, live, dense,
     out[loss_name] = (loss_val.reshape(tuple(decl))
                       if all(d > 0 for d in decl) else loss_val)
     for n, vs in fetched.items():
-        v0 = vs[0]
-        if v0.dim() >= 1 and v0.shape[0] == micro_b:
-            out[n] = torch.cat(vs, dim=0)
-        else:
-            st = torch.stack(vs)
-            out[n] = (st if st.is_floating_point()
-                      else st.to(torch.float32)).mean(dim=0)
+        out[n] = _merge_micro(vs, micro_b)
     out.update(persist)
     out.update(last)
     for n, chunks in feeds.items():
         out[n] = env[n]
     return loss_val, grads, out
+
+
+def _merge_micro(vs, micro_b):
+    """One fetched forward value from its K micro-batch values: a value
+    whose leading dim is the micro batch concatenated back to the full
+    batch, any other averaged (the reference's rule, :1048-1055); a
+    tensor array's (buffer, length) pair part by part."""
+    v0 = vs[0]
+    if isinstance(v0, tuple):
+        return tuple(_merge_micro(list(p), micro_b) for p in zip(*vs))
+    if v0.dim() >= 1 and v0.shape[0] == micro_b:
+        return torch.cat(vs, dim=0)
+    st = torch.stack(vs)
+    return (st if st.is_floating_point()
+            else st.to(torch.float32)).mean(dim=0)
 
 
 def _update(program, env, seed, device, rest_ops, k, loss, grads,
@@ -731,7 +777,12 @@ def _update(program, env, seed, device, rest_ops, k, loss, grads,
     return env
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _to_numpy(t):
+    """A fetched value as numpy; a tensor array's (buffer, length) pair
+    as a pair of arrays (the reference returns the pair only with
+    return_numpy=False)."""
+    if isinstance(t, tuple):
+        return tuple(_to_numpy(p) for p in t)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)

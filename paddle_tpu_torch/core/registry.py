@@ -20,6 +20,15 @@ OpImpl = Callable[..., Dict[str, List[Any]]]
 
 _REGISTRY: Dict[str, OpImpl] = {}
 
+# Macro ops are interpreter-level: their impls receive the whole
+# environment and the OpDesc (signature impl(ctx, env, desc) -> None,
+# mutating env) so they can run sub-blocks (ops/control_flow.py).  The
+# reference's interpreter-level control-flow operators (reference:
+# paddle/fluid/operators/controlflow/while_op.cc:50 — ops that run
+# sub-blocks through a nested Executor).  They stay out of `has_op`, so
+# shape inference skips them, as the reference's does.
+_MACRO_OPS: Dict[str, Any] = {}
+
 
 def register_op(op_type: str):
     """Decorator registering an implementation for `op_type`."""
@@ -31,6 +40,26 @@ def register_op(op_type: str):
         return fn
 
     return deco
+
+
+def register_macro_op(op_type: str):
+    """Decorator registering an interpreter-level (env + sub-block) op."""
+
+    def deco(fn):
+        if op_type in _MACRO_OPS or op_type in _REGISTRY:
+            raise ValueError(f"op {op_type!r} registered twice")
+        _MACRO_OPS[op_type] = fn
+        return fn
+
+    return deco
+
+
+def is_macro_op(op_type: str) -> bool:
+    return op_type in _MACRO_OPS
+
+
+def get_macro_op_impl(op_type: str):
+    return _MACRO_OPS[op_type]
 
 
 def get_op_impl(op_type: str) -> OpImpl:
@@ -54,15 +83,20 @@ def registered_ops() -> List[str]:
 # 2**63 - 1: torch.Generator seeds are taken modulo this
 _SEED_MASK = (1 << 63) - 1
 
+# Folded into the seed material of sub-block b as SUB_BLOCK_SEED_BASE + b
+# (the reference's fold_in(key, 7919 + block_idx), registry.py:131).
+SUB_BLOCK_SEED_BASE = 7919
+
 
 class OpContext:
     """Per-execution context handed to op impls.
 
     `rng()` gives each op its own deterministic `torch.Generator`,
     derived from the run's seed material (the program's random seed and
-    the executor's run counter, and under gradient accumulation the
-    micro-batch's index) and the op's index — the port of the
-    reference's per-op `jax.random.fold_in(step_key, op_index)`.  The
+    the executor's run counter, then any folds: under gradient
+    accumulation the micro-batch's, inside a control-flow sub-block the
+    block's) and the op's index — the port of the reference's per-op
+    `jax.random.fold_in(step_key, op_index)`.  The
     streams differ from jax's threefry bits by construction, so parity
     tests carry parameters across (convert.py) instead of re-drawing
     them.
@@ -120,10 +154,41 @@ class OpContext:
         base, run = self._seed[:2]
         seed = ((int(base) * 1000003 + int(run)) * 7919
                 + self.op_index) & _SEED_MASK
-        if len(self._seed) > 2:
-            # a micro-batch of gradient accumulation: its index folded
-            # in, so each micro-batch draws its own streams
-            seed = (seed * 1000033 + int(self._seed[2])) & _SEED_MASK
+        for fold in self._seed[2:]:
+            # a micro-batch of gradient accumulation or a sub-block:
+            # its number folded in, so each draws its own streams
+            seed = (seed * 1000033 + int(fold)) & _SEED_MASK
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return gen
+
+    def run_block(self, block_idx: int, env):
+        """Run a sub-block's ops over `env` (mutated in place), on this
+        context's device, `row_block` and AMP lists.  Used by the
+        control-flow macro ops (the reference's `run_block`,
+        registry.py:111-134).
+
+        The sub-block draws its own streams: SUB_BLOCK_SEED_BASE +
+        block_idx is folded into the seed material, and each op's
+        index within the block picks its stream.  Nothing folds in the
+        iteration, so every iteration of a loop draws the same streams,
+        as the reference's loop body, traced once with one key, does.
+        No sparse rows go down: the Executor keys them by block-0 op
+        index, which a sub-block's block-local indices would collide
+        with (the reference passes none either).  The numerics bitmap
+        is popped from `env`: sub-block op indices are block-local, so
+        the owning macro op's bit stands for them."""
+        from ..observe.numerics import NUMERICS_BITS_VAR
+        from .executor import run_ops
+
+        if self.program is None:
+            raise RuntimeError("OpContext has no program; sub-block "
+                               "execution requires a program")
+        env.pop(NUMERICS_BITS_VAR, None)
+        sub_seed = (None if self._seed is None
+                    else tuple(self._seed)
+                    + (SUB_BLOCK_SEED_BASE + block_idx,))
+        run_ops(self.program.blocks[block_idx].ops, env, sub_seed,
+                program=self.program, device=self.device,
+                row_block=self.row_block)
+        return env

@@ -106,6 +106,10 @@ def elementwise_max(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_max", x, y, axis, act, name)
 
 
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_floordiv", x, y, axis, act, name)
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -282,6 +286,14 @@ def reduce_mean(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_mean", input, dim, keep_dim, name)
 
 
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim, name)
+
+
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper = LayerHelper("reshape", name=name, act=act)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -337,6 +349,22 @@ def unsqueeze(input, axes, name=None):
     helper.append_op(type="unsqueeze", inputs={"X": [input]},
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axes": list(axes)})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
     return out
 
 

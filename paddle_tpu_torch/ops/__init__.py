@@ -8,6 +8,7 @@ here; ROADMAP queue A lists the rest.
 from ..core.registry import register_op, registered_ops  # noqa: F401
 from . import attention  # noqa: F401
 from . import basic  # noqa: F401
+from . import control_flow  # noqa: F401
 from . import nn  # noqa: F401
 from . import optim  # noqa: F401
 from . import paged_kv  # noqa: F401

@@ -181,12 +181,29 @@ _register_elementwise("elementwise_div", torch.div)
 _register_elementwise("elementwise_max", torch.maximum)
 _register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("elementwise_pow", torch.pow)
+# floor semantics on negative integers, as jnp.floor_divide
+_register_elementwise(
+    "elementwise_floordiv",
+    lambda x, y: torch.div(x, y, rounding_mode="floor"))
 _register_elementwise("less_than", torch.lt, torch.bool)
 _register_elementwise("less_equal", torch.le, torch.bool)
 _register_elementwise("greater_than", torch.gt, torch.bool)
 _register_elementwise("greater_equal", torch.ge, torch.bool)
 _register_elementwise("equal", torch.eq, torch.bool)
 _register_elementwise("not_equal", torch.ne, torch.bool)
+
+
+def _register_logical(name, fn):
+    @register_op(name)
+    def impl(ctx, ins, attrs, _fn=fn):
+        return out(Out=_fn(*(first(ins, s) for s in ("X", "Y")
+                             if ins.get(s))))
+
+
+_register_logical("logical_and", torch.logical_and)
+_register_logical("logical_or", torch.logical_or)
+_register_logical("logical_xor", torch.logical_xor)
+_register_logical("logical_not", torch.logical_not)
 
 
 # --------------------------------------------------------------------------
@@ -216,6 +233,13 @@ def _register_reduce(name, fn):
 
 _register_reduce("reduce_sum", torch.sum)
 _register_reduce("reduce_mean", torch.mean)
+# boolean results whatever the input dtype, as jnp.all / jnp.any
+_register_reduce("reduce_all",
+                 lambda x, dim, keepdim: torch.all(x.to(torch.bool), dim=dim,
+                                                   keepdim=keepdim))
+_register_reduce("reduce_any",
+                 lambda x, dim, keepdim: torch.any(x.to(torch.bool), dim=dim,
+                                                   keepdim=keepdim))
 
 
 # --------------------------------------------------------------------------
@@ -257,9 +281,16 @@ def clip_by_norm(ctx, ins, attrs):
 
 @register_op("increment")
 def increment(ctx, ins, attrs):
+    """X + step, the step in X's dtype (truncated toward zero for an
+    integer X, as jnp.asarray(step, dtype) converts it).  The step is
+    filled on the device: no host-to-device copy, which on a card would
+    synchronize once a call (a While loop's counter calls it once an
+    iteration)."""
     x = first(ins, "X")
-    return out(Out=x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
-                                    device=x.device))
+    step = attrs.get("step", 1.0)
+    if not (x.dtype.is_floating_point or x.dtype.is_complex):
+        step = int(step)
+    return out(Out=x + torch.full((), step, dtype=x.dtype, device=x.device))
 
 
 @register_op("sum")
@@ -353,6 +384,54 @@ def unsqueeze(ctx, ins, attrs):
     return {"Out": [o], "XShape": [_xshape(x)]}
 
 
+@register_op("expand")
+def expand(ctx, ins, attrs):
+    """X tiled `expand_times` times along each dim (jnp.tile: fewer
+    times than dims repeat the trailing dims)."""
+    return out(Out=torch.tile(first(ins, "X"),
+                              tuple(attrs["expand_times"])))
+
+
+def _fill_value(dtype):
+    """What jnp's gather (mode "fill") reads at an out-of-range index:
+    NaN for floats, the most negative value for signed integers, True
+    for bool."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).min
+
+
+@register_op("gather")
+def gather(ctx, ins, attrs):
+    """Rows of X at the flattened Index (jnp.take along axis 0): a
+    negative index wraps once, one still outside [0, N) reads the fill
+    value of X's dtype (NaN for floats)."""
+    x, index = first(ins, "X"), first(ins, "Index")
+    idx, bad = fill_index(index.reshape(-1), x.shape[0])
+    o = x.index_select(0, idx)
+    bad = bad.reshape(tuple(bad.shape) + (1,) * (x.dim() - 1))
+    return out(Out=torch.where(bad, torch.full(
+        (), _fill_value(x.dtype), dtype=x.dtype, device=x.device), o))
+
+
+@register_op("where_op")
+def where_op(ctx, ins, attrs):
+    """X where Condition, else Y, in X and Y's promoted dtype."""
+    x, y = promote_pair(first(ins, "X"), first(ins, "Y"))
+    return out(Out=torch.where(first(ins, "Condition").to(torch.bool), x, y))
+
+
+@register_op("is_empty")
+def is_empty(ctx, ins, attrs):
+    """reference: operators/is_empty_op.cc — (1,) bool, true iff the
+    tensor has zero elements (a property of the shape: no host read)."""
+    x = first(ins, "X")
+    return out(Out=torch.tensor([x.numel() == 0], dtype=torch.bool,
+                                device=x.device))
+
+
 @register_op("batched_gather")
 def batched_gather(ctx, ins, attrs):
     """Per-row gather (batch_dims=1): X (N, A, ...) + Index (N, S) →
@@ -365,15 +444,21 @@ def batched_gather(ctx, ins, attrs):
     return out(Out=nan_where(bad, torch.gather(x, 1, idx)))
 
 
+def stable_top_k(x, k):
+    """(values, int64 indices) of the k largest along the last axis;
+    among equal values the lower index comes first, as lax.top_k orders
+    them (a stable descending sort, then a slice; torch.topk promises
+    no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 @register_op("top_k")
 def top_k(ctx, ins, attrs):
-    """The k largest along the last axis; among equal values the lower
-    index comes first, as lax.top_k orders them (a stable descending
-    sort, then a slice)."""
-    vals, idx = torch.sort(first(ins, "X"), dim=-1, descending=True,
-                           stable=True)
-    k = attrs["k"]
-    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int32)]}
+    """The k largest along the last axis, ties by the lower index
+    (`stable_top_k`)."""
+    vals, idx = stable_top_k(first(ins, "X"), attrs["k"])
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
 
 
 @register_op("range")

@@ -67,6 +67,11 @@ def sqrt(ctx, ins, attrs):
     return out(Out=torch.sqrt(first(ins, "X")))
 
 
+@register_op("log")
+def log(ctx, ins, attrs):
+    return out(Out=torch.log(first(ins, "X")))
+
+
 @register_op("sign")
 def sign(ctx, ins, attrs):
     return out(Out=torch.sign(first(ins, "X")))

@@ -134,3 +134,36 @@ def sequence_conv(ctx, ins, attrs):
             cols.append(x)
     im = torch.cat(cols, dim=-1)                # (N, T, ctx_len * D)
     return out(Out=(im.reshape(n * t, ctx_len * d) @ f).reshape(n, t, -1))
+
+
+@register_op("lod_rank_table")
+def lod_rank_table(ctx, ins, attrs):
+    """Rank a batch of sequences by length, DESCENDING, ties kept in
+    batch order — the dense analog of the reference LoDRankTable
+    (operators/lod_rank_table_op.cc:19).  The table IS the (B,) int32
+    index vector; lengths come from the input's .seq_len companion."""
+    _reject_nested(ins, "lod_rank_table")
+    sl = opt_in(ins, "SeqLen")
+    if sl is None:
+        raise ValueError(
+            "lod_rank_table requires a level-1 sequence input "
+            "(a var with a .seq_len companion)")
+    # a stable sort keeps equal lengths in batch order, as the
+    # reference's std::stable_sort and jnp.argsort do
+    order = torch.argsort(-sl.to(torch.int32), stable=True)
+    return out(Out=order.to(torch.int32))
+
+
+@register_op("reorder_lod_tensor_by_rank")
+def reorder_lod_tensor_by_rank(ctx, ins, attrs):
+    """Permute the batch dim of X by a rank table
+    (operators/reorder_lod_tensor_by_rank_op.cc:34); the layer reorders
+    the .seq_len companion alongside through OutSeqLen."""
+    _reject_nested(ins, "reorder_lod_tensor_by_rank")
+    x = first(ins, "X")
+    rt = first(ins, "RankTable").to(torch.int64)
+    outs = {"Out": [x.index_select(0, rt)]}
+    sl = opt_in(ins, "SeqLen")
+    if sl is not None:
+        outs["OutSeqLen"] = [sl.index_select(0, rt)]
+    return outs

@@ -68,6 +68,25 @@ EXEMPT = {
     "lr_schedule": "driven by the optimizer machinery; its rates are "
                    "held against the reference in test_torch_training.py "
                    "and test_torch_bert.py",
+    # the reference's exemptions of the tensor-array and beam ops
+    # (tests/test_op_sweep.py), pointing at the port's control-flow tests
+    "array_length": "tensor-array protocol op (macro-op ecosystem), "
+                    "covered in test_torch_control_flow.py",
+    "array_read": "tensor-array protocol op, test_torch_control_flow.py",
+    "array_write": "tensor-array protocol op, test_torch_control_flow.py",
+    "array_to_tensor": "tensor-array protocol op, "
+                       "test_torch_control_flow.py",
+    "tensor_array_to_tensor": "tensor-array protocol op (axis "
+                              "concat/stack), test_torch_control_flow.py",
+    "create_array": "tensor-array protocol op, test_torch_control_flow.py",
+    "max_sequence_len": "tensor-array protocol op, "
+                        "test_torch_control_flow.py",
+    "beam_search": "stateful decode-loop op, covered in "
+                   "test_torch_control_flow.py and "
+                   "test_torch_machine_translation.py",
+    "beam_search_decode": "stateful decode-loop op, "
+                          "test_torch_control_flow.py and "
+                          "test_torch_machine_translation.py",
 }
 # ops whose spec in S is deterministic in the reference (its sampler is
 # fed a fixed key) but which draw from the op's torch generator in the
@@ -112,8 +131,14 @@ def test_every_port_op_is_swept_or_exempt():
             "batch_norm", "momentum", "auc", "square",
             "sigmoid_cross_entropy_with_logits",
             "fill_constant_batch_size_like"} <= set(SWEPT)
-    # the training-step and book-model ops
+    # the training-step and book-model ops, and the control-flow slice's
     assert set(NEW_OPS) <= set(SWEPT) and set(OWN_DRAWS) <= set(SWEPT)
+    assert set(CONTROL_FLOW_OPS) <= set(SWEPT)
+    # the macro ops run sub-blocks: registered apart, never swept
+    from paddle_tpu_torch.core.registry import _MACRO_OPS
+
+    assert set(_MACRO_OPS) == set(ref_registry._MACRO_OPS)
+    assert not set(_MACRO_OPS) & port
 
 
 NEW_OPS = ["lars_momentum", "adamax", "adagrad", "decayed_adagrad",
@@ -121,6 +146,11 @@ NEW_OPS = ["lars_momentum", "adamax", "adagrad", "decayed_adagrad",
            "proximal_adagrad", "average_accumulates", "ema_accumulate",
            "linear_chain_crf", "crf_decoding", "nce", "l2_normalize",
            "square_error_cost", "sequence_conv", "split", "assign_value"]
+CONTROL_FLOW_OPS = ["expand", "gather", "where_op", "is_empty",
+                    "logical_and", "logical_or", "logical_xor",
+                    "logical_not", "reduce_all", "reduce_any",
+                    "elementwise_floordiv", "log", "lod_rank_table",
+                    "reorder_lod_tensor_by_rank"]
 
 
 def _nce_given_reference_negatives(ins, attrs, grad_slots=()):

@@ -30,7 +30,12 @@ def round_bf16(x: np.ndarray) -> np.ndarray:
 
 
 def to_torch(a, dtype=None) -> torch.Tensor:
+    """numpy → CPU tensor; an int64 array narrows to int32, as the
+    Executor's feed and the reference's jnp.asarray (x64 off) narrow
+    it."""
     t = torch.as_tensor(np.array(a))
+    if dtype is None and t.dtype == torch.int64:
+        dtype = torch.int32
     return t if dtype is None else t.to(dtype)
 
 
