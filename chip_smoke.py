@@ -278,8 +278,24 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    calls flash_attention at the training shape: the forward kernel's
    launch count rises by exactly 8 and the output equals the plain
    version's (TOL_KERNEL);
+6t. the switch-MoE Transformer (bench.py --moe-experts): phase 6's
+   configuration with each of its 12 FFN sublayers a top-1 switch-MoE
+   block of 8 experts (capacity factor 1.25, capacity 2560, aux weight
+   0.01; moe_ffn routes by index); (a) MOE_STEPS timed steps float32,
+   then under bf16 AMP, with 12 launches of each flash kernel a step
+   (their bf16 paths under AMP), no plain or composed call, step ms,
+   tokens/s, peak memory, a profiled window (idle share, kernels a
+   step) and the last step's tokens a expert and tokens past capacity
+   per layer; (b) card against CPU at 2 x 64 tokens, dropout 0, 3 Adam
+   steps, top-1 and top-2 (every moe_ffn's top_k set to 2), at phase
+   7's tolerances, with each layer's routing compared token by token
+   (a token routed to another expert must be a near-tie of its CPU
+   logits, TOL_ROUTE_TIE); (c) each of the 85 ops of the registry's
+   dense half (`dense_op_cases`) on the card against the CPU, outputs
+   and gradients within TOL_DENSE, integers and bools exactly, random
+   ops by shape, dtype and range;
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6s included), the card line, and as its last line
+   6l-6t included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -2577,10 +2593,12 @@ def _vocab_ops(program):
 
 
 def phase_train(dev, card, label="phase 6", overrides=None,
-                batch=TRAIN_BATCH, steps=TRAIN_STEPS, profile="phase 6b"):
+                batch=TRAIN_BATCH, steps=TRAIN_STEPS, profile="phase 6b",
+                extra_fetch=None):
     """Train the bench Transformer (with `overrides`) on the card
     (`_train_on_card`); `profile` labels one profiled window after the
-    timed steps (None: no window)."""
+    timed steps (None: no window); `extra_fetch(main)` names variables
+    fetched once after the timed steps (res["extra"])."""
     from paddle_tpu_torch.models import transformer
 
     overrides = overrides or {}
@@ -2596,13 +2614,14 @@ def phase_train(dev, card, label="phase 6", overrides=None,
                                        vocab)
     # label-smoothed CE of near-uniform logits at random init
     res = _train_on_card(dev, card, main, startup, model["loss"], feed,
-                         batch * t_len, steps, np.log(vocab), profile)
+                         batch * t_len, steps, np.log(vocab), profile,
+                         extra_fetch and extra_fetch(main))
     res.update(batch=batch, max_length=t_len, overrides=overrides)
     return res
 
 
 def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
-                   steps, want_first, profile):
+                   steps, want_first, profile, extra=None):
     """Run `startup` and one warmup step on the card (its loss within 0.5
     of `want_first`), then `steps` timed steps with the launch counts
     zeroed just before them: each flash op launches the flash forward,
@@ -2610,7 +2629,8 @@ def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
     then no float32 flash launch), each fused-CE op the vocab-CE
     forward, dh and dW kernels once, and nothing takes a plain or
     composed path.  `profile` labels one profiled window after them
-    (None: no window)."""
+    (None: no window); the variables named in `extra` are fetched once
+    after the timed steps, before the window (res["extra"], numpy)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import kernels
 
@@ -2663,6 +2683,10 @@ def _train_on_card(dev, card, main, startup, loss, feed, tokens_per_step,
         f"{losses[0]:.6f} .. {losses[-1]:.6f}; peak device memory "
         f"{res['peak_mem_bytes'] / 1e9:.3f} GB")
     log(f"  launches {la}, plain calls {pl}, composed {co}")
+    if extra:
+        res["extra"] = dict(zip(extra, exe.run(main, feed=feed,
+                                               fetch_list=list(extra),
+                                               scope=scope)))
     if profile:
         res["profile"] = _profile_train_step(exe, main, feed, loss, scope,
                                              label=profile)
@@ -3157,12 +3181,13 @@ def phase_lstm_parity(dev):
 
 
 def _card_and_cpu_runs(dev, main, startup, loss_names, feed, state=(),
-                       steps=PARITY_STEPS):
+                       steps=PARITY_STEPS, extra=()):
     """`steps` steps of `main` on the card and on the CPU from the
     same weights (drawn on the card by `startup`): (card, cpu, arrays,
     params), each run a dict of the losses named in `loss_names` at
-    every step, the step-1 gradients, and the final parameters and
-    values of the names in `state`; `arrays` the starting values."""
+    every step, the step-1 gradients, the step-1 values of the names in
+    `extra` (numpy) and the final parameters and values of the names in
+    `state`; `arrays` the starting values."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.convert import params_from_arrays
 
@@ -3172,21 +3197,23 @@ def _card_and_cpu_runs(dev, main, startup, loss_names, feed, state=(),
               if isinstance(v, torch.Tensor)}
     params = [p.name for p in main.all_parameters()]
     n_loss = len(loss_names)
-    fetch = list(loss_names) + [f"{p}@GRAD" for p in params]
+    fetch = list(loss_names) + [f"{p}@GRAD" for p in params] + list(extra)
+    n_grad = n_loss + len(params)
     runs = {}
     for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
         scope = pt.Scope()
         for n, t in params_from_arrays(arrays, device, program=main).items():
             scope.set_var(n, t)
         exe = pt.Executor(place)
-        losses, grads = [], None
+        losses, grads, first = [], None, None
         for step in range(steps):
             out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
             losses.append([float(x.reshape(-1)[0]) for x in out[:n_loss]])
             if step == 0:
-                grads = out[n_loss:]
+                grads = out[n_loss:n_grad]
+                first = dict(zip(extra, out[n_grad:]))
         runs[str(device)] = dict(
-            losses=losses, grads=grads,
+            losses=losses, grads=grads, extra=first,
             params={n: scope.find_var(n).cpu().numpy()
                     for n in [*params, *state]})
     return runs[str(dev)], runs["cpu"], arrays, params
@@ -5108,6 +5135,487 @@ def _kernel_in_while(dev):
     return dict(launches=counts["launches"], max_abs_err=err)
 
 
+# -- phase 6t: the switch-MoE Transformer and the registry's dense half ----
+
+# the bench Transformer with every FFN sublayer a top-1 switch-MoE block of
+# 8 experts (bench.py --moe-experts: bench.py:701, :719, :1880-1882;
+# capacity factor 1.25 and aux weight 0.01, the defaults of switch_moe and
+# transformer()): 12 MoE layers, capacity C = ceil(16384 / 8 * 1.25) = 2560
+MOE = dict(moe_experts=8)
+MOE_STEPS = 5
+# a token routed to another expert on the card than on the CPU must have
+# the CPU's logits of the two experts within this relative distance
+TOL_ROUTE_TIE = 1e-5
+# phase 6t (c): each op's floating outputs and gradients card against CPU
+TOL_DENSE = dict(rtol=2e-3, atol=1e-6)
+
+
+def _moe_ops(program):
+    return [op for op in program.global_block().ops if op.type == "moe_ffn"]
+
+
+def _moe_summary(label, res, tokens, card):
+    """Log a 6t training run: its Fraction (tokens a expert), the
+    tokens past each layer's capacity, kernels and idle share."""
+    frac = np.stack([np.asarray(v).reshape(-1)
+                     for v in res.pop("extra").values()])
+    e = frac.shape[1]
+    cap = int(np.ceil(tokens / e * 1.25))
+    per_expert = np.rint(frac * tokens).astype(np.int64)
+    dropped = np.clip(per_expert - cap, 0, None).sum(axis=1)
+    prof = res.get("profile", {})
+    res["moe"] = {"layers": int(frac.shape[0]), "experts": e,
+                  "capacity": cap,
+                  "tokens_per_expert_last_step": per_expert.tolist(),
+                  "dropped_tokens_per_layer": dropped.tolist()}
+    log(f"  {label}: step {res['step_ms']:.2f} ms, "
+        f"{res['tokens_per_s']:.1f} tokens/s, idle share "
+        f"{prof.get('device_idle_share', float('nan')):.3f}, "
+        f"{prof.get('kernel_launches_per_step', float('nan')):.0f} "
+        f"kernels/step, flash launches {res['launches']}, peak "
+        f"{res['peak_mem_bytes'] / 1e9:.3f} GB on {card}")
+    log(f"  {label}: last step's tokens a expert over {frac.shape[0]} MoE "
+        f"layers: min {per_expert.min()}, max {per_expert.max()} "
+        f"(capacity {cap}); first layer {per_expert[0].tolist()}; tokens "
+        f"past capacity a layer {dropped.tolist()}")
+    if not np.allclose(frac.sum(axis=1), 1.0, atol=1e-5):
+        raise AssertionError(f"{label}: fractions {frac.sum(axis=1)}")
+    return res
+
+
+def _routing_flips(dev, card_run, cpu_run, arrays, moe_ops, top_k):
+    """Each MoE layer's routing at step 1, card against CPU: the gate
+    logits X @ GateW from each device's own X (the op's product, on its
+    device) routed by the op's own `route`.  Returns (tokens whose
+    expert differs, the largest relative logit gap among them, slots
+    that differ for an unchanged expert)."""
+    from paddle_tpu_torch.ops.moe import route
+
+    flips, worst, slot_only = 0, 0.0, 0
+    for op in moe_ops:
+        w = arrays[op.input("GateW")[0]]
+        x_name = op.input("X")[0]
+        xs = {}
+        for name, run, device in (("card", card_run, dev),
+                                  ("cpu", cpu_run, "cpu")):
+            x = torch.as_tensor(run["extra"][x_name]).to(device)
+            x = x.reshape(-1, x.shape[-1])
+            xs[name] = torch.matmul(x, torch.as_tensor(w).to(device)).float()
+        b, e = xs["cpu"].shape
+        cap = max(1, int(np.ceil(b * top_k / e * 1.25)))
+        plans = {n: route(lg, top_k, cap) for n, lg in xs.items()}
+        lcpu = xs["cpu"]
+        for (ic, sc, _), (ip, sp, _) in zip(plans["card"], plans["cpu"]):
+            ic, sc = ic.cpu(), sc.cpu()
+            diff = ic != ip
+            for t in torch.nonzero(diff).reshape(-1).tolist():
+                a, c = lcpu[t, ip[t]], lcpu[t, ic[t]]
+                gap = float((a - c).abs() / max(float(a.abs()),
+                                                 float(c.abs()), 1e-30))
+                worst = max(worst, gap)
+            flips += int(diff.sum())
+            slot_only += int(((sc != sp) & ~diff).sum())
+    return flips, worst, slot_only
+
+
+def phase_moe_parity(dev, top_k):
+    """6t (b): the MoE Transformer at full width on PARITY_BATCH x
+    PARITY_T tokens, dropout 0, PARITY_STEPS Adam steps, float32, card
+    against CPU from the same weights (`_check_adam_runs`); top_k 2 is
+    the same program with every moe_ffn's top_k (switch_moe's) set to 2.
+    The routing of each layer at step 1 compared: a token routed to
+    another expert must be a near-tie (TOL_ROUTE_TIE)."""
+    from paddle_tpu_torch.models import transformer
+
+    log(f"phase 6t (b): MoE Transformer card vs CPU, top-{top_k} "
+        f"({PARITY_BATCH} x {PARITY_T} tokens, dropout 0, {PARITY_STEPS} "
+        f"Adam steps)")
+    main, startup, model = build_training(dropout=0.0, max_length=PARITY_T,
+                                          **MOE)
+    ops = _moe_ops(main)
+    if top_k != 1:
+        for op in ops:
+            op.desc.attrs["top_k"] = top_k
+        main._bump()
+    feed = transformer.make_fake_batch(PARITY_BATCH, PARITY_T,
+                                       TRAIN_ARCH["src_vocab_size"],
+                                       TRAIN_ARCH["trg_vocab_size"], seed=3)
+    feed["src_len"] = np.array([PARITY_T, 41], np.int32)
+    feed["trg_len"] = np.array([17, PARITY_T], np.int32)
+    card, cpu, arrays, params = _card_and_cpu_runs(
+        dev, main, startup, [model["loss"].name], feed,
+        extra=[op.input("X")[0] for op in ops])
+    flips, worst, slot_only = _routing_flips(dev, card, cpu, arrays, ops,
+                                             top_k)
+    log(f"  routing at step 1 over {len(ops)} layers x "
+        f"{PARITY_BATCH * PARITY_T} tokens x {top_k} choice(s): {flips} "
+        f"token(s) routed to another expert on the card (largest relative "
+        f"logit gap {worst:.3e}, tol {TOL_ROUTE_TIE:g}); {slot_only} slot(s) "
+        f"differing for an unchanged expert")
+    if worst > TOL_ROUTE_TIE or (slot_only and not flips):
+        raise AssertionError(f"top-{top_k} routing differs beyond near-ties: "
+                             f"{flips} flips, gap {worst}, {slot_only} slots")
+    lr_sum = sum(_noam_lr(t) for t in range(1, PARITY_STEPS + 1))
+    res = _check_adam_runs(card, cpu, [model["loss"].name], params, lr_sum)
+    res.update(routing_flips=flips, routing_max_gap=worst,
+               slot_only_diffs=slot_only)
+    return res
+
+
+def _dyadic(rng, *shape):
+    """Multiples of 1/8 in [-1, 1): products and short sums of them are
+    exact in float32 on every device, so gate logits tie exactly where
+    they tie and route alike on the card and the CPU."""
+    return (rng.randint(-8, 8, shape) / 8.0).astype(np.float32)
+
+
+def dense_op_cases():
+    """{name: (op, ins, attrs, output slot, gradient slots)} of phase 6t
+    (c): each of the 85 ops of the registry's dense half at a small
+    shape, numpy inputs from a fixed seed (ins values may be lists: a
+    multi-tensor slot); gradient slots None mark a random op."""
+    r = np.random.RandomState(20)
+
+    def f(*s):
+        return r.randn(*s).astype(np.float32)
+
+    def p(*s):
+        return (r.rand(*s) + 0.5).astype(np.float32)
+
+    img, x2 = f(2, 3, 7, 9), f(4, 33)
+    cases = {}
+    for op, attrs in (("abs", {}), ("brelu", {"t_min": -0.5, "t_max": 0.7}),
+                      ("ceil", {}), ("cos", {}), ("elu", {"alpha": 0.7}),
+                      ("exp", {}), ("floor", {}),
+                      ("hard_shrink", {"threshold": 0.3}),
+                      ("hard_sigmoid", {}), ("leaky_relu", {"alpha": 0.1}),
+                      ("log_softmax", {"axis": 1}), ("logsigmoid", {}),
+                      ("round", {}), ("selu", {}), ("sin", {}),
+                      ("soft_relu", {"threshold": 1.5}), ("softplus", {}),
+                      ("softshrink", {"lambda": 0.3}), ("softsign", {}),
+                      ("stanh", {}), ("swish", {"beta": 1.3}),
+                      ("tanh_shrink", {}),
+                      ("thresholded_relu", {"threshold": 0.5}),
+                      ("relu6", {"threshold": 1.0})):
+        grads = [] if op in ("ceil", "floor", "round") else ["X"]
+        cases[op] = (op, {"X": x2}, attrs, "Out", grads)
+    for op in ("pow", "reciprocal", "rsqrt"):
+        cases[op] = (op, {"X": p(4, 33)}, {"factor": 2.5}, "Out", ["X"])
+    lbl = r.randint(0, 6, (5, 1)).astype(np.int32)
+    cases.update({
+        "prelu": ("prelu", {"X": f(2, 3, 4, 4), "Alpha": p(3)},
+                  {"mode": "channel"}, "Out", ["X", "Alpha"]),
+        "bpr_loss": ("bpr_loss", {"X": f(5, 6), "Label": lbl}, {}, "Y",
+                     ["X"]),
+        "conv2d_transpose": ("conv2d_transpose", {
+            "Input": f(2, 4, 6, 5), "Filter": f(4, 3, 3, 3) * 0.3},
+            {"strides": 2, "paddings": 1, "groups": 2, "dilations": [1, 2]},
+            "Output", ["Input", "Filter"]),
+        "depthwise_conv2d_transpose": ("depthwise_conv2d_transpose", {
+            "Input": f(2, 3, 5, 5), "Filter": f(3, 1, 3, 3) * 0.3},
+            {"strides": 2, "paddings": 1, "groups": 3}, "Output",
+            ["Input", "Filter"]),
+        "conv3d": ("conv3d", {"Input": f(2, 4, 6, 7, 5),
+                              "Filter": f(4, 2, 3, 3, 2) * 0.3},
+                   {"strides": 2, "paddings": "SAME", "groups": 2},
+                   "Output", ["Input", "Filter"]),
+        "conv3d_transpose": ("conv3d_transpose", {
+            "Input": f(1, 2, 3, 4, 3), "Filter": f(2, 3, 2, 3, 2) * 0.3},
+            {"strides": 2, "paddings": [0, 1, 0]}, "Output",
+            ["Input", "Filter"]),
+        "grid_sampler": ("grid_sampler", {
+            "X": f(2, 3, 5, 6), "Grid": (r.rand(2, 4, 3, 2) * 3 - 1.5)
+            .astype(np.float32)}, {}, "Output", ["X", "Grid"]),
+        "group_norm": ("group_norm", {"X": f(2, 6, 4, 3), "Scale": p(6),
+                                      "Bias": f(6)}, {"groups": 3},
+                       "Y", ["X", "Scale", "Bias"]),
+        "hinge_loss": ("hinge_loss", {"Logits": f(6, 1), "Labels": r.randint(
+            0, 2, (6, 1)).astype(np.float32)}, {}, "Loss", ["Logits"]),
+        "huber_loss": ("huber_loss", {"X": f(6, 1), "Y": f(6, 1)},
+                       {"delta": 0.5}, "Out", ["X", "Y"]),
+        "interpolate": ("interpolate", {"X": img},
+                        {"out_h": 11, "out_w": 13, "align_corners": False,
+                         "align_mode": 0}, "Out", ["X"]),
+        "interpolate nearest": ("interpolate", {"X": img},
+                                {"out_h": 13, "out_w": 17,
+                                 "interp_method": "nearest"}, "Out", ["X"]),
+        "kldiv_loss": ("kldiv_loss", {"X": f(4, 5), "Target": p(4, 5)},
+                       {"reduction": "batchmean"}, "Loss", ["X"]),
+        "l1_norm": ("l1_norm", {"X": f(4, 5)}, {}, "Out", ["X"]),
+        "log_loss": ("log_loss", {"Predicted": r.rand(6, 1).astype(
+            np.float32), "Labels": r.rand(6, 1).astype(np.float32)},
+            {}, "Loss", ["Predicted"]),
+        "lrn": ("lrn", {"X": p(2, 6, 3, 3)}, {"n": 5, "alpha": 0.3},
+                "Out", ["X"]),
+        "margin_rank_loss": ("margin_rank_loss", {
+            "Label": np.sign(f(6, 1)), "X1": f(6, 1), "X2": f(6, 1)},
+            {"margin": 0.1}, "Out", ["X1", "X2"]),
+        "maxout": ("maxout", {"X": f(2, 6, 3, 3)}, {"groups": 3}, "Out",
+                   ["X"]),
+        "pad2d": ("pad2d", {"X": img}, {"paddings": [1, 2, 3, 0],
+                                        "mode": "reflect"}, "Out", ["X"]),
+        "pool2d_with_index": ("pool2d_with_index", {
+            "X": np.round(f(2, 3, 7, 7))}, {"ksize": 3, "strides": 2,
+                                            "paddings": 1}, "Out", ["X"]),
+        "rank_loss": ("rank_loss", {"Label": r.rand(6, 1).astype(
+            np.float32), "Left": f(6, 1), "Right": f(6, 1)}, {}, "Out",
+            ["Left", "Right"]),
+        "smooth_l1_loss": ("smooth_l1_loss", {
+            "X": f(4, 5), "Y": f(4, 5), "InsideWeight": p(4, 5),
+            "OutsideWeight": p(4, 5)}, {"sigma": 2.0}, "Out", ["X", "Y"]),
+        "space_to_depth": ("space_to_depth", {"X": f(2, 3, 4, 6)},
+                           {"blocksize": 2}, "Out", ["X"]),
+        "squared_l2_distance": ("squared_l2_distance", {
+            "X": f(4, 5), "Y": f(4, 5)}, {}, "Out", ["X", "Y"]),
+        "squared_l2_norm": ("squared_l2_norm", {"X": f(4, 5)}, {}, "Out",
+                            ["X"]),
+        "teacher_student_sigmoid_loss": ("teacher_student_sigmoid_loss", {
+            "X": f(8, 1) * 10, "Label": (r.rand(8, 1) * 4 - 2).astype(
+                np.float32)}, {}, "Y", ["X"]),
+        # basic
+        "arg_min": ("arg_min", {"X": np.round(f(5, 7))}, {"axis": 1},
+                    "Out", []),
+        "argsort": ("argsort", {"X": np.round(f(5, 7))}, {"axis": -1},
+                    "Out", ["X"]),
+        "bilinear_tensor_product": ("bilinear_tensor_product", {
+            "X": f(3, 4), "Y": f(3, 5), "Weight": f(6, 4, 5),
+            "Bias": f(1, 6)}, {}, "Out", ["X", "Y", "Weight", "Bias"]),
+        "cos_sim": ("cos_sim", {"X": f(4, 6), "Y": f(1, 6)}, {}, "Out",
+                    ["X", "Y"]),
+        "cumsum": ("cumsum", {"X": f(4, 9)}, {"axis": 1, "exclusive": True,
+                                              "reverse": True}, "Out",
+                   ["X"]),
+        "elementwise_mod": ("elementwise_mod", {
+            "X": r.randint(-20, 20, (4, 5)).astype(np.int32),
+            "Y": r.randint(1, 7, (4, 5)).astype(np.int32)}, {}, "Out", []),
+        "fill_zeros_like": ("fill_zeros_like", {"X": f(3, 4)}, {}, "Out",
+                            []),
+        "flatten": ("flatten", {"X": img}, {"axis": 2}, "Out", ["X"]),
+        "isfinite": ("isfinite", {"X": [f(3, 4), np.array(
+            [1.0, np.inf], np.float32)]}, {}, "Out", []),
+        "minus": ("minus", {"X": f(3, 4), "Y": f(3, 4)}, {}, "Out",
+                  ["X", "Y"]),
+        "multiplex": ("multiplex", {"Ids": np.array([[2], [0], [1], [2]],
+                                                    np.int32),
+                                    "X": [f(4, 3), f(4, 3), f(4, 3)]}, {},
+                      "Out", []),
+        "pad": ("pad", {"X": f(3, 4)}, {"paddings": [1, 0, 2, 3],
+                                        "pad_value": 0.5}, "Out", ["X"]),
+        "pad_constant_like": ("pad_constant_like", {"X": f(4, 6),
+                                                    "Y": f(2, 5)},
+                              {"pad_value": -1.0}, "Out", ["Y"]),
+        "reduce_max": ("reduce_max", {"X": np.round(f(3, 4, 5))},
+                       {"dim": [0, 2]}, "Out", ["X"]),
+        "reduce_min": ("reduce_min", {"X": f(3, 4, 5)},
+                       {"dim": [1], "keep_dim": True}, "Out", ["X"]),
+        "reduce_prod": ("reduce_prod", {"X": p(3, 4, 5)},
+                        {"dim": [0, 2]}, "Out", ["X"]),
+        "reverse": ("reverse", {"X": f(3, 4, 5)}, {"axis": [0, 2]}, "Out",
+                    ["X"]),
+        "scatter": ("scatter", {"X": f(6, 3), "Ids": np.array(
+            [2, 4, 2, -1, 7, 2, 4], np.int32), "Updates": f(7, 3)},
+            {"overwrite": True}, "Out", ["X", "Updates"]),
+        "scatter add": ("scatter", {"X": f(6, 3), "Ids": np.array(
+            [2, 4, 2, -1, 7, 2, 4], np.int32), "Updates": f(7, 3)},
+            {"overwrite": False}, "Out", ["X", "Updates"]),
+        "shape": ("shape", {"Input": img}, {}, "Out", []),
+        "stack": ("stack", {"X": [f(3, 4), f(3, 4)]}, {"axis": 1}, "Y",
+                  []),
+        "unstack": ("unstack", {"X": f(3, 4)}, {"axis": 1}, "Y", ["X"]),
+        "randint": ("randint", {}, {"shape": [64, 64], "low": -3,
+                                    "high": 5}, "Out", None),
+        "uniform_random_batch_size_like": (
+            "uniform_random_batch_size_like", {"Input": f(64, 2)},
+            {"shape": [-1, 64], "min": -3.0, "max": 5.0}, "Out", None),
+        "gaussian_random_batch_size_like": (
+            "gaussian_random_batch_size_like", {"Input": f(64, 2)},
+            {"shape": [-1, 64], "mean": 1.0, "std": 0.5}, "Out", None),
+        "random_crop": ("random_crop", {"X": np.arange(
+            16 * 2 * 7 * 9, dtype=np.float32).reshape(16, 2, 7, 9)},
+                        {"shape": [2, 3, 4]}, "Out", None),
+        # misc, sparse, rnn, moe
+        "print": ("print", {"In": f(3, 4)}, {"message": "phase 6t print",
+                                             "summarize": 4}, "Out",
+                  ["In"]),
+        "conv_shift": ("conv_shift", {"X": f(4, 9), "Y": f(4, 5)}, {},
+                       "Out", ["X", "Y"]),
+        "hash": ("hash", {"X": np.array([[-1], [-7], [-2 ** 31],
+                                         [2 ** 31 - 1], [0], [123456789]],
+                                        np.int32)}, {"mod_by": 10007},
+                 "Out", []),
+        "shard_index": ("shard_index", {"X": np.array(
+            [[-3], [0], [7], [8], [15], [20]], np.int32)},
+            {"index_num": 16, "nshards": 2, "shard_id": 1,
+             "ignore_value": -9}, "Out", []),
+        "attention_lstm": ("attention_lstm", {
+            "X": f(3, 5, 4), "C0": f(3, 2), "H0": f(3, 2),
+            "AttentionWeight": f(6, 1), "AttentionBias": f(1, 1),
+            "AttentionScalar": np.array([[0.7]], np.float32),
+            "AttentionScalarBias": np.array([[0.1]], np.float32),
+            "LSTMWeight": f(6, 8), "LSTMBias": f(1, 8),
+            "SeqLen": np.array([5, 0, 3], np.int32)}, {}, "Hidden",
+            ["X", "C0", "AttentionWeight", "LSTMWeight"]),
+        "row_conv": ("row_conv", {"X": f(2, 6, 3), "Filter": f(3, 3)}, {},
+                     "Out", ["X", "Filter"]),
+        "moe_ffn": ("moe_ffn", {
+            "X": _dyadic(r, 300, 16), "GateW": _dyadic(r, 16, 8),
+            "W1": f(8, 16, 32) * 0.3, "B1": f(8, 32) * 0.1,
+            "W2": f(8, 32, 16) * 0.3, "B2": f(8, 16) * 0.1},
+            {"top_k": 2, "capacity_factor": 0.8}, "Out",
+            ["X", "GateW", "W1", "B1", "W2", "B2"]),
+    })
+    from paddle_tpu_torch.ops.misc import register_py_func
+
+    cases["py_func"] = ("py_func", {"X": [f(3, 4)]},
+                        {"handle": register_py_func(lambda a: a * 2 + 1.0),
+                         "out_shapes": [[3, 4]],
+                         "out_dtypes": ["float32"]}, "Out", [])
+    return cases
+
+
+def _run_dense(op, ins_np, attrs, device, grad_slots, out_slot):
+    """(outputs {slot: numpy}, gradients {slot: numpy}) of one op on
+    `device`; the gradients of sum(out * cos weights) of `out_slot`."""
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+
+    ins = {}
+    for s, v in ins_np.items():
+        vs = v if isinstance(v, list) else [v]
+        ins[s] = [torch.as_tensor(a).to(device) for a in vs]
+    for s in grad_slots or ():
+        ins[s][0] = ins[s][0].detach().requires_grad_()
+    outs = get_op_impl(op)(OpContext((0, 7), 11, device=device), ins,
+                           dict(attrs))
+    got = {s: [t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16
+               else t.detach().cpu().numpy() for t in v]
+           for s, v in outs.items()}
+    grads = {}
+    if grad_slots:
+        o = outs[out_slot][0]
+        w = torch.cos(torch.arange(o.numel(), device=device,
+                                   dtype=torch.float32) * 0.1)
+        leaves = [ins[s][0] for s in grad_slots]
+        gs = torch.autograd.grad((o.float().reshape(-1) * w).sum(), leaves,
+                                 allow_unused=True)
+        grads = {s: (np.zeros(tuple(l.shape), np.float32) if g is None
+                     else g.cpu().numpy())
+                 for s, l, g in zip(grad_slots, leaves, gs)}
+    return got, grads
+
+
+def _check_draws(name, op, got, attrs, ins):
+    """A random op's shape, dtype and range (its draws come from the
+    op's generator on each device, so no two devices agree bit for
+    bit)."""
+    o = got["Out"][0]
+    if op == "randint":
+        ok = (o.shape == (64, 64) and o.dtype == np.int32
+              and o.min() >= -3 and o.max() <= 4)
+    elif op == "random_crop":
+        x = ins["X"]
+        ok = o.shape == (16, 2, 3, 4)
+        for i in range(16):
+            r, c = divmod(int(o[i, 0, 0, 0] - x[i, 0, 0, 0]), 9)
+            ok = ok and np.array_equal(o[i], x[i, :, r:r + 3, c:c + 4])
+    elif op.startswith("uniform"):
+        ok = (o.shape == (64, 64) and o.dtype == np.float32
+              and o.min() >= -3.0 and o.max() < 5.0
+              and abs(o.mean() - 1.0) < 4 * 2.31 / 64)
+    else:
+        ok = (o.shape == (64, 64) and o.dtype == np.float32
+              and abs(o.mean() - 1.0) < 4 * 0.5 / 64
+              and abs(o.std() - 0.5) < 0.05 * 0.5)
+    if not ok:
+        raise AssertionError(f"phase 6t (c) {name}: draws out of shape, "
+                             f"dtype or range")
+
+
+def phase_dense_ops(dev):
+    """6t (c): each op of the registry's dense half on the card against
+    the port on the CPU, on the same numpy inputs (`dense_op_cases`):
+    floating outputs and gradients within TOL_DENSE, integer and
+    boolean outputs exactly; random ops by shape, dtype and range."""
+    cases = dense_op_cases()
+    ops = sorted({c[0] for c in cases.values()})
+    log(f"phase 6t (c): {len(ops)} ops of the registry's dense half, "
+        f"{len(cases)} cases, card vs CPU")
+    worst, n_cmp = {}, 0
+    for name, (op, ins, attrs, out_slot, grad_slots) in sorted(
+            cases.items()):
+        got, g_card = _run_dense(op, ins, attrs, dev, grad_slots, out_slot)
+        if grad_slots is None:
+            _check_draws(name, op, got, attrs, ins)
+            continue
+        want, g_cpu = _run_dense(op, ins, attrs, "cpu", grad_slots,
+                                 out_slot)
+        pairs = [(f"{s}[{i}]", a, b) for s in want
+                 for i, (a, b) in enumerate(zip(got[s], want[s]))]
+        pairs += [(f"d/d{s}", g_card[s], g_cpu[s]) for s in g_cpu]
+        for what, a, b in pairs:
+            n_cmp += 1
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"phase 6t (c) {name} {what}: "
+                                     f"{a.shape} {a.dtype} vs {b.shape} "
+                                     f"{b.dtype}")
+            if np.issubdtype(b.dtype, np.floating):
+                fin = np.isfinite(b)
+                if not np.array_equal(fin, np.isfinite(a)) or not \
+                        np.allclose(a[fin], b[fin], **TOL_DENSE):
+                    raise AssertionError(
+                        f"phase 6t (c) {name} {what}: card vs CPU max abs "
+                        f"err {np.abs(a[fin] - b[fin]).max():.3e}")
+                err = float(np.abs(a[fin] - b[fin]).max()) if fin.any() \
+                    else 0.0
+            else:
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"phase 6t (c) {name} {what}: "
+                                         f"not equal")
+                err = 0.0
+            worst[name] = max(worst.get(name, 0.0), err)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {n_cmp} outputs and gradients compared, all within tolerance "
+        f"(rtol {TOL_DENSE['rtol']:g}, atol {TOL_DENSE['atol']:g}; integer "
+        f"and bool exact); largest abs errors "
+        f"{[(k, f'{v:.2e}') for k, v in top]}")
+    return {"ops": len(ops), "cases": len(cases), "compared": n_cmp,
+            "max_abs_err": worst}
+
+
+def phase_moe(dev, card):
+    """6t: (a) the MoE Transformer at the bench's widths, float32 then
+    bf16 AMP, MOE_STEPS timed steps each (12 flash forward, dK/dV and dQ
+    launches a step, no plain or composed call); (b) card against CPU,
+    top-1 and top-2; (c) the registry's dense half card against CPU."""
+    res, seconds = {}, {}
+
+    def fractions(main):
+        return [op.output("Fraction")[0] for op in _moe_ops(main)]
+
+    def part(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[key] = time.perf_counter() - t0
+        log(f"  [6t {key}: {seconds[key]:.1f} s]")
+        return out
+
+    tokens = TRAIN_BATCH * TRAIN_ARCH["max_length"]
+    for key, label, over in (("train_f32", "phase 6t (a) f32", MOE),
+                             ("train_amp", "phase 6t (a) AMP",
+                              dict(MOE, **AMP))):
+        r = part(key, phase_train, dev, card, label, over, steps=MOE_STEPS,
+                 profile=f"{label}, profiled", extra_fetch=fractions)
+        res[key] = _moe_summary(label, r, tokens, card)
+        torch.cuda.empty_cache()
+    res["parity_top1"] = part("parity_top1", phase_moe_parity, dev, 1)
+    res["parity_top2"] = part("parity_top2", phase_moe_parity, dev, 2)
+    res["dense_ops"] = part("dense_ops", phase_dense_ops, dev)
+    res["seconds"] = seconds
+    res["launches"] = {k: res["train_f32"]["launches"].get(k, 0)
+                       + res["train_amp"]["launches"].get(k, 0)
+                       for k in res["train_f32"]["launches"]}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -5234,6 +5742,7 @@ def main() -> int:
     train_optimizers = timed("6q", phase_optimizers, dev, card)
     train_book = timed("6r", phase_book_models, dev, card)
     control_flow = timed("6s", phase_control_flow, dev, card)
+    moe = timed("6t", phase_moe, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -5269,11 +5778,12 @@ def main() -> int:
     # paged kernel at the step shape on the sequential engines and the
     # model drafter's steps, at the verify shape (paged_attention_verify)
     # on the speculative engines' verify runs; the flash forward inside
-    # 6s's While body
+    # 6s's While body; the flash kernels (float32, then bf16) on 6t's MoE
+    # Transformer
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
-             train_recompute, train_optimizers, control_flow)
+             train_recompute, train_optimizers, control_flow, moe)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -5327,6 +5837,7 @@ def main() -> int:
                    "train_optimizers": train_optimizers,
                    "train_book_models": train_book,
                    "control_flow": control_flow,
+                   "moe": moe,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -4,13 +4,14 @@ nn.py).  Each function is the reference's, unchanged: it creates output
 vars + parameters via LayerHelper and appends OpDescs to the default main
 program; shapes/dtypes are inferred by running the op on "meta" tensors
 (core/shape_inference.py).  The rest of the reference's layers are still
-to be ported (ROADMAP queue A item 6).
+to be ported (ROADMAP queue A step 8d).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.desc import normalize_dtype
 from ..core.program import Variable
 from ..initializer import Constant, Normal, Xavier
 from ..layer_helper import LayerHelper
@@ -757,3 +758,538 @@ def crf_decoding(input, param_attr, label=None):
                      outputs={"ViterbiPath": [path]})
     _propagate_seq_len(input, path)
     return path
+
+
+def switch_moe(input, num_experts, d_inner, top_k=1,
+               capacity_factor=1.25, act="relu", param_attr=None,
+               bias_attr=None, name=None):
+    """Mixture-of-Experts FFN block (ops/moe.py): per-expert weights
+    (E, D, H)/(E, H, D) under the `moe_gate`/`moe_expert` name prefixes
+    the reference's expert sharding rules key on.  Returns (out,
+    aux_loss, fraction): add `aux_weight * aux_loss` to the objective
+    for load balancing; fetch `fraction` (E,) for per-expert routing
+    observability.  One device: the reference's ep mesh is ROADMAP A
+    step 10."""
+    for attr in (param_attr, bias_attr):
+        if isinstance(attr, ParamAttr) and attr.name:
+            raise ValueError(
+                "switch_moe: a NAMED ParamAttr cannot apply to its "
+                "multiple parameters (name collision) and would break "
+                "the moe_expert/moe_gate prefix the ep sharding rules "
+                "key on; use name= to disambiguate layers instead")
+    d = int(input.shape[-1])
+    # user names APPEND to the moe_gate/moe_expert prefixes — the
+    # prefixes are what the ep sharding rules key on, so a named layer
+    # must still match them
+    gate_h = LayerHelper("moe_gate",
+                         name=name and f"moe_gate_{name}")
+    dtype = input.dtype
+    gate_w = gate_h.create_parameter(param_attr, shape=[d, num_experts],
+                                     dtype=dtype)
+    eh = LayerHelper("moe_expert",
+                     name=name and f"moe_expert_{name}")
+    # explicit per-expert fans: the default rank-3 fan computation
+    # treats (E, D, H) as a conv kernel and under-initializes ~sqrt(E)x
+    w1 = eh.create_parameter(param_attr, shape=[num_experts, d, d_inner],
+                             dtype=dtype,
+                             default_initializer=Xavier(
+                                 fan_in=d, fan_out=d_inner))
+    b1 = eh.create_parameter(bias_attr, shape=[num_experts, d_inner],
+                             dtype=dtype, is_bias=True)
+    w2 = eh.create_parameter(param_attr, shape=[num_experts, d_inner, d],
+                             dtype=dtype,
+                             default_initializer=Xavier(
+                                 fan_in=d_inner, fan_out=d))
+    b2 = eh.create_parameter(bias_attr, shape=[num_experts, d],
+                             dtype=dtype, is_bias=True)
+    out_v = eh.create_variable_for_type_inference(dtype)
+    aux = eh.create_variable_for_type_inference("float32")
+    frac = eh.create_variable_for_type_inference("float32")
+    eh.append_op(
+        type="moe_ffn",
+        inputs={"X": [input], "GateW": [gate_w], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out_v], "AuxLoss": [aux], "Fraction": [frac]},
+        attrs={"top_k": top_k, "capacity_factor": capacity_factor,
+               "act": act})
+    out_v.desc.shape = tuple(input.shape)
+    aux.desc.shape = (1,)
+    frac.desc.shape = (num_experts,)
+    return out_v, aux, frac
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1):
+    helper = LayerHelper("mul")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_mod", x, y, axis, act, name)
+
+
+def greater_equal(x, y):
+    return elementwise_op("greater_equal", x, y, out_dtype="bool")
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name, act=act,
+                         bias_attr=bias_attr)
+    dtype = input.dtype
+    if filter_size is None:
+        raise ValueError("filter_size required (output_size-only inference "
+                         "not yet supported)")
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    num_channels = input.shape[1]
+    filter_shape = [num_channels, num_filters // (groups or 1)] + \
+        list(filter_size)
+    w = helper.create_parameter(param_attr, shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups or 1})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1)
+    return helper.append_activation(pre_act)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """reference layers/nn.py conv3d_transpose — NCDHW, filter
+    (C_in, C_out/groups, kD, kH, kW)."""
+    helper = LayerHelper("conv3d_transpose", name=name, act=act,
+                         bias_attr=bias_attr)
+    dtype = input.dtype
+    if filter_size is None:
+        raise ValueError("filter_size required (output_size-only inference "
+                         "not yet supported)")
+    if isinstance(filter_size, int):
+        filter_size = [filter_size] * 3
+    num_channels = input.shape[1]
+    filter_shape = [num_channels, num_filters // (groups or 1)] + \
+        list(filter_size)
+    w = helper.create_parameter(param_attr, shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv3d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _triple(stride), "paddings": _triple(padding),
+               "dilations": _triple(dilation), "groups": groups or 1})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1)
+    return helper.append_activation(pre_act)
+
+
+def cos_sim(X, Y):
+    """reference layers/nn.py:1187 — row-wise cosine similarity,
+    Y's batch dim broadcastable."""
+    helper = LayerHelper("cos_sim")
+    o = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [o], "XNorm": [xn], "YNorm": [yn]})
+    return o
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    """reference layers/nn.py pad_constant_like — pad y up to x's shape
+    at the high edges."""
+    helper = LayerHelper("pad_constant_like", name=name)
+    o = helper.create_variable_for_type_inference(y.dtype)
+    helper.append_op(type="pad_constant_like",
+                     inputs={"X": [x], "Y": [y]}, outputs={"Out": [o]},
+                     attrs={"pad_value": float(pad_value)})
+    return o
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    """Distillation CTR loss (public Paddle op; absent from the 1.2
+    reference tree — see ops/nn.py for the label encoding)."""
+    helper = LayerHelper("teacher_student_sigmoid_loss")
+    o = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="teacher_student_sigmoid_loss",
+        inputs={"X": [input], "Label": [label]}, outputs={"Y": [o]},
+        attrs={"soft_max_up_bound": float(soft_max_up_bound),
+               "soft_max_lower_bound": float(soft_max_lower_bound)})
+    return o
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", name=name, act=act, bias_attr=bias_attr)
+    dtype = input.dtype
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size] * 3
+    filter_shape = [num_filters, input.shape[1] // groups] + list(filter_size)
+    w = helper.create_parameter(param_attr, shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv3d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _triple(stride), "paddings": _triple(padding),
+               "dilations": _triple(dilation), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1)
+    return helper.append_activation(pre_act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", name=name, act=act)
+    dtype = input.dtype
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        s = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                    default_initializer=Constant(1.0))
+        inputs["Scale"] = [s]
+    if bias_attr is not False:
+        b = helper.create_parameter(ParamAttr._to_attr(bias_attr) or
+                                    ParamAttr(), shape=[c], dtype=dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    y = helper.create_variable_for_type_inference(dtype)
+    m = helper.create_variable_for_type_inference(dtype)
+    v = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [m], "Variance": [v]},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(y)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        ins["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        ins["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=ins,
+                     outputs={"Out": [loss], "Diff": [diff]},
+                     attrs={"sigma": sigma or 1.0})
+    return loss
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="huber_loss",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [loss], "Residual": [residual]},
+                     attrs={"delta": delta})
+    return loss
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [loss]}, attrs={"epsilon": epsilon})
+    return loss
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", name=name)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="kldiv_loss",
+                     inputs={"X": [x], "Target": [target]},
+                     outputs={"Loss": [loss]},
+                     attrs={"reduction": reduction})
+    return loss
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="flatten", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis})
+    return outs
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    helper = LayerHelper("cumsum")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="cumsum", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"axis": axis, "exclusive": exclusive,
+                            "reverse": reverse})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    helper = LayerHelper("interpolate", name=name)
+    if out_shape is None:
+        h = int(input.shape[2] * scale)
+        w = int(input.shape[3] * scale)
+    else:
+        h, w = out_shape
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="interpolate", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"out_h": int(h), "out_w": int(w),
+                            "interp_method": resample.lower(),
+                            "align_corners": bool(align_corners),
+                            "align_mode": int(align_mode)})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, "BILINEAR")
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, "NEAREST")
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(param_attr, shape=alpha_shape,
+                                    dtype=x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="maxout", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"groups": groups})
+    return out
+
+
+def space_to_depth(x, blocksize, name=None):
+    helper = LayerHelper("space_to_depth", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="space_to_depth", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"blocksize": blocksize})
+    return out
+
+
+def grid_sampler(x, grid, name=None):
+    helper = LayerHelper("grid_sampler", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="grid_sampler", inputs={"X": [x], "Grid": [grid]},
+                     outputs={"Output": [out]})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32", min=-1.0,
+                                   max=1.0, input_dim_idx=0,
+                                   output_dim_idx=0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="uniform_random_batch_size_like",
+        inputs={"Input": [input]}, outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": normalize_dtype(dtype),
+               "min": min, "max": max, "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape),
+                            "dtype": normalize_dtype(dtype),
+                            "mean": mean, "std": std})
+    return out
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="uniform_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape),
+                            "dtype": normalize_dtype(dtype),
+                            "min": min, "max": max})
+    return out
+
+
+def _triple(v):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v, v, v]
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=False,
+          print_phase="both", name=None):
+    """In-graph tensor dump (reference layers/control_flow.py Print):
+    the op prints on the host in the reference's format and passes its
+    input through (ops/misc.py)."""
+    helper = LayerHelper("print", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="print", inputs={"In": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"message": message or "",
+                            "summarize": int(summarize)})
+    out.desc.shape = tuple(input.shape)
+    return out
+
+
+def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
+    """Call a python function from inside the program (reference
+    layers/nn.py py_func → py_func_op.cc; here a host call on numpy
+    copies of the inputs).  `out` is a Variable or list of Variables
+    with declared shapes/dtypes.  backward_func is not supported, as in
+    the reference: use it on stop-gradient paths (metrics, logging,
+    data munging)."""
+    from ..ops.misc import register_py_func
+
+    if backward_func is not None:
+        raise NotImplementedError(
+            "py_func backward_func: the host callback is opaque to "
+            "autograd; compute gradients in-graph instead")
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    handle = register_py_func(func)
+    helper.append_op(
+        type="py_func", inputs={"X": list(xs)},
+        outputs={"Out": list(outs)},
+        attrs={"handle": handle,
+               "out_shapes": [list(o.shape) for o in outs],
+               "out_dtypes": [str(o.dtype) for o in outs]})
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    """Per-instance random crop (reference layers/nn.py random_crop:6814).
+    Randomness comes from the program RNG state rather than a threaded
+    Seed tensor; `seed` is accepted for API parity and ignored."""
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="random_crop", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape]})
+    return out
+
+
+def conv_shift(x, y, name=None):
+    """Circular convolution (reference conv_shift_op.cc, Neural Turing
+    Machine shift weighting): X (B, M), Y (B, N) with N odd -> (B, M)."""
+    helper = LayerHelper("conv_shift", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="conv_shift", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out

@@ -1,12 +1,18 @@
 """Generated single-input layer wrappers (reference: paddle_tpu/layers/
-ops.py, fluid's layer_function_generator): one layer per unary op.  Only
-the unary ops the ported slices run are here so far."""
+ops.py, fluid's layer_function_generator): one layer per unary op."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["sigmoid", "tanh", "sqrt", "square", "gelu", "log"]
+_UNARY_OPS = [
+    "sigmoid", "logsigmoid", "exp", "tanh", "tanh_shrink", "softshrink",
+    "sqrt", "rsqrt", "abs", "ceil", "floor", "cos", "sin", "round",
+    "reciprocal", "log", "square", "softplus", "softsign", "relu",
+    "soft_relu", "elu", "relu6", "leaky_relu", "brelu", "stanh",
+    "hard_sigmoid", "swish", "gelu", "hard_shrink", "thresholded_relu",
+    "selu", "sign", "log_softmax", "logical_not",
+]
 
 
 def _make_unary(op_type: str):
@@ -26,4 +32,7 @@ _this = globals()
 for _op in _UNARY_OPS:
     _this[_op] = _make_unary(_op)
 
-__all__ = list(_UNARY_OPS)
+# pow collides with builtin name in fluid too; expose both spellings
+_this["pow"] = _make_unary("pow")
+
+__all__ = _UNARY_OPS + ["pow"]

@@ -288,6 +288,20 @@ def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
     return out
 
 
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    _require_level1(input, "row_conv")
+    helper = LayerHelper("row_conv", act=act)
+    f = helper.create_parameter(
+        param_attr, shape=[future_context_size, input.shape[-1]],
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [f]},
+                     outputs={"Out": [out]})
+    _propagate_seq_len(input, out)
+    return helper.append_activation(out)
+
+
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
                   padding=None, bias_attr=None, param_attr=None, act=None,
                   name=None):

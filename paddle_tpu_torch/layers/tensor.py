@@ -140,3 +140,75 @@ def where(condition, x, y):
                      inputs={"Condition": [condition], "X": [x], "Y": [y]},
                      outputs={"Out": [out]})
     return out
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.main_program.global_block().create_var(
+        name=helper.name, dtype=dtype, persistable=persistable)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """reference layers/tensor.py create_global_var — persistable var
+    initialized in the startup program."""
+    from ..initializer import Constant
+
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_or_get_global_variable(
+        name=name or helper.name, shape=shape, dtype=dtype,
+        persistable=persistable, initializer=Constant(float(value)))
+    return var
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="arg_min", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argsort(x, axis=-1, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ids = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="argsort", inputs={"X": [x]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def reverse(x, axis):
+    if isinstance(axis, int):
+        axis = [axis]
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="reverse", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(axis)})
+    return out
+
+
+def isfinite(x):
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="isfinite", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out

@@ -22,9 +22,10 @@ policy at op dispatch; on CUDA the flash kernels' bf16 paths, while the
 fused CE's Hidden arrives float32 from layer_norm and keeps the vocab-CE
 kernels' float32 path); `recompute=True` (every encoder and decoder
 layer in a `recompute_scope`) and `pipeline=True` (the two stacks as
-`pipeline_scope` groups, inert on one device).  Not ported yet, raising
-NotImplementedError with its ROADMAP item: `moe_experts` (queue A item
-6: ops/moe.py).
+`pipeline_scope` groups, inert on one device); and `moe_experts=E`,
+every FFN sublayer a switch-MoE block (`layers.switch_moe`, top-1, the
+moe_ffn op routing by index) whose load-balance losses join the
+objective with weight `moe_aux_weight`.
 """
 
 from __future__ import annotations
@@ -34,11 +35,6 @@ import numpy as np
 from .. import amp, layers, optimizer
 from ..initializer import Normal
 from ..param_attr import ParamAttr
-
-
-def _unported(what, item):
-    raise NotImplementedError(
-        f"transformer {what} is not ported yet: ROADMAP {item}")
 
 
 def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
@@ -147,20 +143,30 @@ def pre_post_process(prev_out, out, process_cmd, dropout_rate=0.0):
     return out
 
 
+def _ffn_or_moe(x, d_inner, d_model, moe_experts, aux_list):
+    """FFN sublayer: dense (default) or a switch-MoE block (moe_experts
+    > 0) whose load-balance loss is appended to aux_list."""
+    if not moe_experts:
+        return positionwise_feed_forward(x, d_inner, d_model)
+    out, aux, _frac = layers.switch_moe(x, num_experts=moe_experts,
+                                        d_inner=d_inner)
+    if aux_list is not None:
+        aux_list.append(aux)
+    return out
+
+
 def encoder_layer(x, attn_bias, n_head, d_key, d_value, d_model, d_inner,
                   dropout, use_flash=False, fused_qkv=False,
                   moe_experts=0, aux_list=None, flash_pallas=None,
                   head_major=False):
-    if moe_experts:
-        _unported("moe_experts", "queue A item 6 (ops/moe.py)")
     attn = multi_head_attention(
         pre_post_process(None, x, "n"), None, None, attn_bias, d_key,
         d_value, d_model, n_head, dropout, use_flash=use_flash,
         fused_qkv=fused_qkv, flash_pallas=flash_pallas,
         head_major=head_major)
     attn = pre_post_process(x, attn, "ad", dropout)
-    ff = positionwise_feed_forward(pre_post_process(None, attn, "n"),
-                                   d_inner, d_model)
+    ff = _ffn_or_moe(pre_post_process(None, attn, "n"), d_inner,
+                     d_model, moe_experts, aux_list)
     return pre_post_process(attn, ff, "ad", dropout)
 
 
@@ -169,8 +175,6 @@ def decoder_layer(x, enc_out, self_bias, cross_bias, n_head, d_key, d_value,
                   fused_qkv=False, moe_experts=0, aux_list=None,
                   flash_pallas=None, self_causal=False,
                   flash_cross=False, head_major=False):
-    if moe_experts:
-        _unported("moe_experts", "queue A item 6 (ops/moe.py)")
     self_attn = multi_head_attention(
         pre_post_process(None, x, "n"), None, None, self_bias, d_key,
         d_value, d_model, n_head, dropout, use_flash=use_flash,
@@ -187,9 +191,19 @@ def decoder_layer(x, enc_out, self_bias, cross_bias, n_head, d_key, d_value,
                                                if flash_cross else None),
                                  head_major=head_major)
     cross = pre_post_process(self_attn, cross, "ad", dropout)
-    ff = positionwise_feed_forward(pre_post_process(None, cross, "n"),
-                                   d_inner, d_model)
+    ff = _ffn_or_moe(pre_post_process(None, cross, "n"), d_inner,
+                     d_model, moe_experts, aux_list)
     return pre_post_process(cross, ff, "ad", dropout)
+
+
+def _fold_moe_aux(avg_cost, moe_aux, weight):
+    """objective += weight * sum of per-layer load-balance losses."""
+    if not moe_aux:
+        return avg_cost
+    total = moe_aux[0] if len(moe_aux) == 1 else layers.sums(moe_aux)
+    return layers.elementwise_add(
+        avg_cost, layers.scale(layers.reduce_sum(total),
+                               scale=float(weight)))
 
 
 def _word_embedding(ids, vocab_size, d_model, name):
@@ -262,9 +276,7 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
             "head_major=True requires use_flash=True: the composed "
             "matmul+softmax attention path would reintroduce the "
             "boundary transposes the head-major layout deletes")
-    if moe_experts:
-        _unported("moe_experts", "queue A item 6 (ops/moe.py)")
-
+    moe_aux: list = []
     src_word = layers.data(name="src_word", shape=[max_length],
                            dtype="int64")
     trg_word = layers.data(name="trg_word", shape=[max_length],
@@ -293,6 +305,8 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
                 x = encoder_layer(x, src_bias, n_head, d_key, d_value,
                                   d_model, d_inner_hid, dropout,
                                   use_flash=use_flash, fused_qkv=fused_qkv,
+                                  moe_experts=moe_experts,
+                                  aux_list=moe_aux,
                                   flash_pallas=flash_pallas,
                                   head_major=head_major)
     enc_out = pre_post_process(None, x, "n")
@@ -306,6 +320,8 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
                                   d_key, d_value, d_model, d_inner_hid,
                                   dropout, use_flash=use_flash,
                                   fused_qkv=fused_qkv,
+                                  moe_experts=moe_experts,
+                                  aux_list=moe_aux,
                                   flash_pallas=flash_pallas,
                                   self_causal=self_causal,
                                   flash_cross=flash_cross,
@@ -331,7 +347,8 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
         cost = layers.elementwise_mul(cost_tok, tmask)
         avg_cost = layers.elementwise_div(layers.reduce_sum(cost),
                                           layers.reduce_sum(tmask))
-        return avg_cost, logits, feeds
+        return _fold_moe_aux(avg_cost, moe_aux, moe_aux_weight), logits, \
+            feeds
 
     logits = layers.fc(dec_out, size=trg_vocab_size, num_flatten_dims=2,
                        bias_attr=False)
@@ -352,7 +369,7 @@ def transformer(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,
     sum_cost = layers.reduce_sum(cost)
     token_num = layers.reduce_sum(tmask)
     avg_cost = layers.elementwise_div(sum_cost, token_num)
-    return avg_cost, logits, feeds
+    return _fold_moe_aux(avg_cost, moe_aux, moe_aux_weight), logits, feeds
 
 
 def build_model(src_vocab_size=10000, trg_vocab_size=10000, max_length=64,

@@ -2,13 +2,15 @@
 
 The port of paddle_tpu/ops: the same op names, slots and attrs, each a
 plain function on torch tensors.  Only the ops of the ported slices are
-here; ROADMAP queue A lists the rest.
+here; ROADMAP queue A lists the rest (step 8d and paged_kv_import).
 """
 
 from ..core.registry import register_op, registered_ops  # noqa: F401
 from . import attention  # noqa: F401
 from . import basic  # noqa: F401
 from . import control_flow  # noqa: F401
+from . import misc  # noqa: F401
+from . import moe  # noqa: F401
 from . import nn  # noqa: F401
 from . import optim  # noqa: F401
 from . import paged_kv  # noqa: F401

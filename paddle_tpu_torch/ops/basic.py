@@ -1,7 +1,7 @@
-"""Basic math / tensor ops: the subset of paddle_tpu/ops/basic.py the
-ported slice runs, as torch functions with the reference's op names,
-slots and attrs (reference files: paddle/fluid/operators/mul_op.cc,
-elementwise/*, fill_constant_op.cc, ...).
+"""Basic math / tensor ops: the port of paddle_tpu/ops/basic.py, as
+torch functions with the reference's op names, slots and attrs
+(reference files: paddle/fluid/operators/mul_op.cc, elementwise/*,
+fill_constant_op.cc, ...).
 
 Ops that create a tensor from nothing (fill/random) put it on the run's
 device (`ctx.device`); every other op stays on its inputs' device.
@@ -14,7 +14,7 @@ import math
 import torch
 
 from ..core.registry import register_op
-from .common import (broadcast_y, fill_index, first, nan_where, out,
+from .common import (broadcast_y, fill_index, first, nan_where, opt_in, out,
                      promote_pair, to_torch_dtype, weak_scalar)
 
 
@@ -479,3 +479,253 @@ def arg_max(ctx, ins, attrs):
     x = first(ins, "X")
     return out(Out=torch.argmax(x, dim=attrs.get("axis", -1))
                .to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# The rest of the registry's dense math (reference ops/basic.py)
+# --------------------------------------------------------------------------
+
+def _batch_like_shape(attrs, x):
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = x.shape[
+        attrs.get("input_dim_idx", 0)]
+    return tuple(shape)
+
+
+@register_op("fill_zeros_like")
+def fill_zeros_like(ctx, ins, attrs):
+    return out(Out=torch.zeros_like(first(ins, "X")))
+
+
+@register_op("uniform_random_batch_size_like")
+def uniform_random_batch_size_like(ctx, ins, attrs):
+    """U[min, max) with Input's dim `input_dim_idx` as dim
+    `output_dim_idx`, from the op's generator (ROADMAP C2)."""
+    x = first(ins, "Input")
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    u = torch.rand(_batch_like_shape(attrs, x), generator=ctx.rng(),
+                   dtype=torch.float32, device=x.device)
+    return out(Out=(u * (hi - lo) + lo).to(
+        to_torch_dtype(attrs.get("dtype", "float32"))))
+
+
+@register_op("gaussian_random_batch_size_like")
+def gaussian_random_batch_size_like(ctx, ins, attrs):
+    """N(mean, std) samples with Input's batch dim (reference:
+    operators/gaussian_random_batch_size_like_op.cc), from the op's
+    generator."""
+    x = first(ins, "Input")
+    g = torch.randn(_batch_like_shape(attrs, x), generator=ctx.rng(),
+                    dtype=torch.float32, device=x.device)
+    return out(Out=(attrs.get("mean", 0.0) + attrs.get("std", 1.0) * g).to(
+        to_torch_dtype(attrs.get("dtype", "float32"))))
+
+
+@register_op("randint")
+def randint(ctx, ins, attrs):
+    """Integers uniform in [low, high) of `shape`, from the op's
+    generator."""
+    return out(Out=torch.randint(
+        attrs.get("low", 0), attrs.get("high", 2 ** 31 - 1),
+        tuple(attrs["shape"]), generator=ctx.rng(), device=ctx.device,
+        dtype=to_torch_dtype(attrs.get("dtype", "int64"))))
+
+
+@register_op("bilinear_tensor_product")
+def bilinear_tensor_product(ctx, ins, attrs):
+    """out[b, o] = x[b] W[o] y[b] (+ Bias)."""
+    x, y, w = first(ins, "X"), first(ins, "Y"), first(ins, "Weight")
+    bias = opt_in(ins, "Bias")
+    o = torch.einsum("bi,oij,bj->bo", x, w, y)
+    return out(Out=o if bias is None else o + bias)
+
+
+# remainder with the divisor's sign, as jnp.mod
+_register_elementwise("elementwise_mod", torch.remainder)
+
+
+@register_op("isfinite")
+def isfinite(ctx, ins, attrs):
+    """One (1,) bool over every input: all of them finite (each cast to
+    float32 first, as the reference's isfinite_op reduces)."""
+    res = None
+    for x in ins["X"]:
+        f = torch.isfinite(x.to(torch.float32)).all()
+        res = f if res is None else torch.logical_and(res, f)
+    return out(Out=res.reshape(1))
+
+
+def _reduce_dims(x, dims, keepdim, fn):
+    for d in sorted(dims, reverse=True):
+        x = fn(x, d, keepdim)
+    return x
+
+
+_register_reduce("reduce_max", torch.amax)
+_register_reduce("reduce_min", torch.amin)
+_register_reduce("reduce_prod", lambda x, dim, keepdim: _reduce_dims(
+    x, dim, keepdim, lambda v, d, k: torch.prod(v, dim=d, keepdim=k)))
+
+
+@register_op("flatten")
+def flatten(ctx, ins, attrs):
+    """X as 2-D: the dims before `axis` into the rows."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", 1)
+    lead = math.prod(x.shape[:axis]) if axis > 0 else 1
+    return {"Out": [x.reshape(lead, -1)], "XShape": [_xshape(x)]}
+
+
+@register_op("stack")
+def stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("unstack")
+def unstack(ctx, ins, attrs):
+    x = first(ins, "X")
+    return {"Y": list(torch.unbind(x, dim=attrs.get("axis", 0)))}
+
+
+@register_op("scatter")
+def scatter(ctx, ins, attrs):
+    """X with the rows at Ids replaced by (`overwrite`) or increased by
+    the rows of Updates.  A negative id wraps once; one still outside
+    the rows is dropped.  With duplicate ids and `overwrite`, the last
+    update of each id wins, deterministically on every device (the
+    reference's XLA scatter on the CPU keeps the last write; a CUDA
+    index_put is not ordered): only the last occurrence of each id is
+    written, the others go to a spare row that is cut off.  The
+    gradient reaches only the updates that are written.  Updates
+    broadcast to one row an id."""
+    x, ids, updates = first(ins, "X"), first(ins, "Ids"), first(ins,
+                                                               "Updates")
+    rows = x.shape[0]
+    idx, bad = fill_index(ids.reshape(-1), rows)
+    target = torch.where(bad, rows, idx)
+    # broadcast to one row an id, as jnp's .at[ids] broadcasts them
+    updates = torch.broadcast_to(updates, tuple(target.shape)
+                                 + tuple(x.shape[1:]))
+    ext = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    if attrs.get("overwrite", True):
+        order = torch.arange(target.shape[0], device=x.device)
+        last = torch.full((rows + 1,), -1, dtype=torch.int64,
+                          device=x.device).scatter_reduce(
+            0, target, order, "amax")
+        target = torch.where(last[target] == order, target, rows)
+        ext = ext.index_copy(0, target, updates.to(x.dtype))
+    else:
+        ext = ext.index_add(0, target, updates.to(x.dtype))
+    return out(Out=ext[:rows])
+
+
+@register_op("minus")
+def minus(ctx, ins, attrs):
+    """reference: operators/minus_op.cc — Out = X - Y."""
+    return out(Out=first(ins, "X") - first(ins, "Y"))
+
+
+@register_op("cos_sim")
+def cos_sim(ctx, ins, attrs):
+    """reference: operators/cos_sim_op.cc — row-wise cosine similarity
+    over all non-batch dims (Y's batch dim may be 1), with the XNorm and
+    YNorm intermediates the reference exposes."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    xf, yf = x.reshape(x.shape[0], -1), y.reshape(y.shape[0], -1)
+    xn = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(yf * yf, dim=1, keepdim=True))
+    dot = torch.sum(xf * yf, dim=1, keepdim=True)
+    return out(Out=dot / torch.clamp(xn * yn, min=1e-12), XNorm=xn,
+               YNorm=yn)
+
+
+def _pad_list(cfg):
+    """[(lo, hi) per dim] as F.pad's flat list, last dim first."""
+    flat = []
+    for lo, hi in reversed(cfg):
+        flat += [lo, hi]
+    return flat
+
+
+@register_op("pad_constant_like")
+def pad_constant_like(ctx, ins, attrs):
+    """reference: operators/pad_constant_like_op.cc — Y padded at the
+    high edge of every axis up to X's shape."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    if x.dim() != y.dim():
+        raise ValueError(
+            f"pad_constant_like: rank mismatch {x.dim()} vs {y.dim()}")
+    cfg = [(0, xd - yd) for xd, yd in zip(x.shape, y.shape)]
+    if any(b < 0 for _, b in cfg):
+        raise ValueError(f"pad_constant_like: X dims {tuple(x.shape)} must "
+                         f"be >= Y dims {tuple(y.shape)}")
+    return out(Out=torch.nn.functional.pad(
+        y, _pad_list(cfg), value=attrs.get("pad_value", 0.0)))
+
+
+@register_op("pad")
+def pad(ctx, ins, attrs):
+    """paddings [lo_0, hi_0, lo_1, hi_1, ...] with pad_value."""
+    x = first(ins, "X")
+    p = attrs["paddings"]
+    cfg = [(p[2 * i], p[2 * i + 1]) for i in range(x.dim())]
+    return out(Out=torch.nn.functional.pad(
+        x, _pad_list(cfg), value=attrs.get("pad_value", 0.0)))
+
+
+@register_op("reverse")
+def reverse(ctx, ins, attrs):
+    return out(Out=torch.flip(first(ins, "X"), dims=list(attrs["axis"])))
+
+
+@register_op("shape")
+def shape_op(ctx, ins, attrs):
+    """Input's shape, int32 (a property of the shape: no host read)."""
+    x = first(ins, "Input")
+    return out(Out=torch.tensor(tuple(x.shape), dtype=torch.int32,
+                                device=x.device))
+
+
+@register_op("argsort")
+def argsort(ctx, ins, attrs):
+    """Sorted values and int32 indices along `axis`, stable (equal
+    values keep their order), as jnp.argsort."""
+    x = first(ins, "X")
+    vals, idx = torch.sort(x, dim=attrs.get("axis", -1), stable=True)
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
+
+
+@register_op("arg_min")
+def arg_min(ctx, ins, attrs):
+    """int32 index of the minimum along `axis`, ties to the first."""
+    x = first(ins, "X")
+    return out(Out=torch.argmin(x, dim=attrs.get("axis", -1))
+               .to(torch.int32))
+
+
+@register_op("cumsum")
+def cumsum(ctx, ins, attrs):
+    """The reference's formulae: exclusive as cumsum - x (not a shift),
+    reverse as the flipped cumsum of the flipped x, then - x when
+    exclusive too."""
+    x = first(ins, "X")
+    axis = attrs.get("axis", -1)
+    excl = attrs.get("exclusive", False)
+    if attrs.get("reverse", False):
+        o = torch.flip(torch.cumsum(torch.flip(x, [axis]), dim=axis),
+                       [axis])
+    else:
+        o = torch.cumsum(x, dim=axis)
+    return out(Out=o - x if excl else o)
+
+
+@register_op("multiplex")
+def multiplex(ctx, ins, attrs):
+    """Row i of Out is row i of X[Ids[i]] (an id wraps once and is then
+    clamped into range, as jnp indexing does)."""
+    xs = torch.stack(ins["X"], dim=0)
+    ids = first(ins, "Ids").reshape(-1).to(torch.int64)
+    k = xs.shape[0]
+    ids = torch.where(ids < 0, ids + k, ids).clamp(0, k - 1)
+    rows = torch.arange(ids.shape[0], device=xs.device)
+    return out(Out=xs[ids, rows])

@@ -26,8 +26,9 @@ h = (1-u)*h_prev + u*c.
 The `unroll` attr is a scheduling hint of the reference's scan and is
 kept only so programs serialize as the reference's do.  `dynamic_gru`,
 `lstm_unit`, `gru_unit` and `lstmp` have no TPU kernel in the reference
-and are composed torch ops here as well.  `attention_lstm` and
-`row_conv` are still to be ported (ROADMAP queue A item 6).
+and are composed torch ops here as well, as are `attention_lstm` (its
+own gate order, which the LSTM kernels do not take, and an attention
+step before each cell) and `row_conv`.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
-from .common import first, opt_in
+from .common import first, opt_in, out
 from . import kernels
 from .kernels import composed_calls
 from .kernels import lstm as lk
@@ -278,3 +279,79 @@ def lstmp(ctx, ins, attrs):
     return {"Projection": [_batch_major(rs, is_reverse)],
             "Cell": [_batch_major(cs, is_reverse)],
             "LastH": [r], "LastC": [c]}
+
+
+@register_op("attention_lstm")
+def attention_lstm(ctx, ins, attrs):
+    """Fused attention-LSTM (reference: operators/attention_lstm_op.cc).
+    Each step attends over the sequence's own inputs, conditioned on the
+    previous cell: score_j = relu(x_j @ aw[:M] + ab + c_{t-1} @ aw[M:])
+    (then relu(scalar * score + scalar_bias) when given), p = softmax
+    over the valid j, lstm_x = sum_j p_j x_j, and one LSTM step.
+    LSTMWeight is (D + M, 4D) with rows [hidden; input] and gates
+    [forget, input, output, candidate] — not the dynamic_lstm kernel's
+    order, so the op is composed torch ops, a Python loop over T.
+    X is padded (N, T, M) with the SeqLen companion; Hidden and Cell
+    (N, T, D) read 0 past each length.  Padded scores are -1e30, not
+    -inf, so a length-0 row softmaxes to a finite uniform row (then
+    zeroed) instead of NaN."""
+    _reject_nested(ins, "attention_lstm")
+    x, c_prev = first(ins, "X"), first(ins, "C0")
+    h0 = opt_in(ins, "H0")
+    aw, ab = first(ins, "AttentionWeight"), opt_in(ins, "AttentionBias")
+    a_scalar = opt_in(ins, "AttentionScalar")
+    a_scalar_b = opt_in(ins, "AttentionScalarBias")
+    lw, lb = first(ins, "LSTMWeight"), first(ins, "LSTMBias")
+    seq_len = opt_in(ins, "SeqLen")
+    gate_act = _ACTS[attrs.get("gate_activation", "sigmoid")]
+    cell_act = _ACTS[attrs.get("cell_activation", "tanh")]
+    cand_act = _ACTS[attrs.get("candidate_activation", "tanh")]
+    n, t, m = x.shape
+    d = lw.shape[1] // 4
+    w_h, w_x = lw[:d], lw[d:]
+    aw = aw.reshape(-1)
+    aw_x, aw_c = aw[:m], aw[m:]
+    steps = torch.arange(t, device=x.device)[None, :]
+    valid = (steps < seq_len.reshape(-1, 1)) if seq_len is not None \
+        else torch.ones((n, t), dtype=torch.bool, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    att_x = x @ aw_x                                  # (N, T), step-free
+    if ab is not None:
+        att_x = att_x + ab.reshape(-1)[0]
+    h = h0 if h0 is not None else _zeros(n, d, x)
+    c = c_prev
+    hs, cs = [], []
+    for _ in range(t):
+        score = torch.clamp(att_x + (c @ aw_c)[:, None], min=0.0)
+        if a_scalar is not None:
+            score = score * a_scalar.reshape(-1)[0]
+            if a_scalar_b is not None:
+                score = score + a_scalar_b.reshape(-1)[0]
+            score = torch.clamp(score, min=0.0)
+        score = torch.where(valid, score, torch.full(
+            (), -1e30, dtype=x.dtype, device=x.device))
+        p = torch.where(valid, torch.softmax(score, dim=1), zero)
+        lstm_x = torch.einsum("nt,ntm->nm", p, x)
+        gates = lstm_x @ w_x + h @ w_h + lb.reshape(-1)
+        f, i, o, cand = torch.chunk(gates, 4, dim=-1)
+        c = gate_act(f) * c + gate_act(i) * cand_act(cand)
+        h = gate_act(o) * cell_act(c)
+        hs.append(h)
+        cs.append(c)
+    mask = valid[..., None]
+    return {"Hidden": [torch.where(mask, torch.stack(hs, 1), zero)],
+            "Cell": [torch.where(mask, torch.stack(cs, 1), zero)]}
+
+
+@register_op("row_conv")
+def row_conv(ctx, ins, attrs):
+    """Lookahead row convolution (reference: operators/row_conv_op.cc):
+    X (N, T, D), Filter (future_context, D); Out[t] = sum_k X[t + k] *
+    Filter[k], zero past the end, added in k order."""
+    x, f = first(ins, "X"), first(ins, "Filter")
+    k_len, t = f.shape[0], x.shape[1]
+    padded = torch.nn.functional.pad(x, (0, 0, 0, k_len - 1))
+    o = torch.zeros_like(x)
+    for k in range(k_len):
+        o = o + padded[:, k:k + t, :] * f[k]
+    return out(Out=o)

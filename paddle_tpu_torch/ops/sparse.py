@@ -1,6 +1,6 @@
-"""Embedding lookup: the port of paddle_tpu/ops/sparse.py lookup_table
+"""Embedding lookup and id ops: the port of paddle_tpu/ops/sparse.py
 (reference: paddle/fluid/operators/lookup_table_op.cc, with its
-SelectedRows gradient path)."""
+SelectedRows gradient path; shard_index_op.cc; hash_op.cc)."""
 
 from __future__ import annotations
 
@@ -47,3 +47,35 @@ def lookup_table(ctx, ins, attrs):
                            rows, torch.zeros((), dtype=rows.dtype,
                                              device=rows.device))
     return out(Out=rows)
+
+
+@register_op("shard_index")
+def shard_index(ctx, ins, attrs):
+    """An id's index within its shard of index_num // nshards ids when
+    the shard is `shard_id`, else ignore_value (floor division and the
+    divisor-signed remainder, as jnp's)."""
+    x = first(ins, "X")
+    size = attrs["index_num"] // attrs["nshards"]
+    in_shard = torch.div(x, size, rounding_mode="floor") == attrs["shard_id"]
+    return out(Out=torch.where(
+        in_shard, torch.remainder(x, size),
+        torch.full((), attrs.get("ignore_value", -1), dtype=x.dtype,
+                   device=x.device)))
+
+
+_U32 = 0xFFFFFFFF
+
+
+@register_op("hash")
+def hash_op(ctx, ins, attrs):
+    """The reference's own uint32 xorshift-multiply hash (not Paddle's
+    XXH64), modulo mod_by, as int32.  Computed in int64 masked to 32
+    bits (torch's uint32 lacks CUDA shifts and products in some
+    builds); a negative id wraps to uint32 as astype(uint32) does."""
+    x = first(ins, "X")
+    v = x.to(torch.int64) & _U32
+    v = v ^ (v >> 16)
+    v = (v * 0x45D9F3B) & _U32
+    v = v ^ (v >> 16)
+    return out(Out=torch.remainder(v, attrs.get("mod_by", 100000))
+               .to(torch.int32))

@@ -65,6 +65,10 @@ EXEMPT = {
     "backward_marker": "internal sentinel marking the forward/backward "
                        "boundary; the executor splits the step at it "
                        "(test_torch_training.py)",
+    # the reference's exemptions of the two host ops (tests/test_aux.py)
+    "print": "side-effect op (host print), covered in test_torch_aux.py",
+    "py_func": "needs a registered host callable, covered in "
+               "test_torch_aux.py",
     "lr_schedule": "driven by the optimizer machinery; its rates are "
                    "held against the reference in test_torch_training.py "
                    "and test_torch_bert.py",
@@ -217,12 +221,19 @@ def test_forward_matches_the_reference(op):
         assert got[spec["out"]].shape == tuple(spec["shape"])
 
 
+# the gradient taken at other attrs than the spec's, where the spec's
+# make it vacuous in both packages: thresholded_relu's default threshold
+# 1.0 lies above every input of its spec
+GRAD_ATTRS = {"thresholded_relu": {"threshold": 0.5}}
+
+
 @pytest.mark.parametrize("op,slot", GRADS)
 def test_gradient_matches_the_reference(op, slot):
     spec = S[op]
-    got = torch_op_grads(op, spec["ins"], spec.get("attrs"), [slot],
+    attrs = dict(spec.get("attrs") or {}, **GRAD_ATTRS.get(op, {}))
+    got = torch_op_grads(op, spec["ins"], attrs, [slot],
                          [spec["out"]])[slot]
-    want = ref_op_grads(op, spec["ins"], spec.get("attrs"), [slot],
+    want = ref_op_grads(op, spec["ins"], attrs, [slot],
                         [spec["out"]])[slot]
     _assert_same(got, want, f"d{op}/d{slot}")
     assert np.abs(want).max() > 0, "a vacuous gradient"
@@ -236,6 +247,59 @@ MOMENTS = {
     "truncated_gaussian_random": [
         ({}, 0.0, _TRUNC_STD),
         ({"mean": 0.5, "std": 0.02}, 0.5, 0.02 * _TRUNC_STD)],
+}
+
+
+def _batch_like_draws(spec, mean, std, lo=None, hi=None):
+    """4096 draws of a *_batch_size_like op: the batch dim Input's, the
+    moments the distribution's, every value inside [lo, hi)."""
+    op = spec["op"]
+    attrs = dict(spec.get("attrs", {}), shape=[-1, 64])
+    x = run_torch_op_all(op, {"Input": np.zeros((64, 2), np.float32)},
+                         attrs)["Out"]
+    assert x.shape == (64, 64) and x.dtype == np.float32
+    assert abs(x.mean() - mean) < 4 * std / 64
+    assert abs(x.std() - std) < 0.05 * std
+    if lo is not None:
+        assert x.min() >= lo and x.max() < hi
+
+
+def _randint_draws(spec):
+    attrs = dict(spec["attrs"], shape=[64, 64], low=-3, high=5)
+    x = run_torch_op_all("randint", {}, attrs)["Out"]
+    assert x.dtype == np.int32 and x.min() == -3 and x.max() == 4
+    counts = np.bincount(x.reshape(-1) + 3, minlength=8)
+    assert np.abs(counts - 512).max() < 4 * np.sqrt(512)
+
+
+def _random_crop_draws(spec):
+    """Each instance's crop is the window of its own input at offsets
+    inside the bounds, and the offsets differ across 64 instances."""
+    x = np.arange(64 * 2 * 7 * 9, dtype=np.float32).reshape(64, 2, 7, 9)
+    o = run_torch_op_all("random_crop", {"X": x},
+                         {"shape": [2, 3, 4]})["Out"]
+    assert o.shape == (64, 2, 3, 4)
+    offsets = set()
+    for i in range(64):
+        first_el = o[i, 0, 0, 0] - x[i, 0, 0, 0]
+        r, c = divmod(int(first_el), 9)
+        assert 0 <= r <= 4 and 0 <= c <= 5
+        np.testing.assert_array_equal(o[i], x[i, :, r:r + 3, c:c + 4])
+        offsets.add((r, c))
+    assert len(offsets) > 10
+
+
+# the random ops of the registry's dense half: range and moments, or the
+# window a crop reads
+DRAWS = {
+    "uniform_random_batch_size_like": lambda spec: _batch_like_draws(
+        dict(spec, op="uniform_random_batch_size_like",
+             attrs=dict(spec.get("attrs", {}), min=-3.0, max=5.0)),
+        1.0, 8 / 12 ** 0.5, -3.0, 5.0),
+    "gaussian_random_batch_size_like": lambda spec: _batch_like_draws(
+        dict(spec, op="gaussian_random_batch_size_like"), 1.0, 0.5),
+    "randint": _randint_draws,
+    "random_crop": _random_crop_draws,
 }
 
 
@@ -255,6 +319,9 @@ def test_random_op_shape_dtype_and_moments(op):
         np.testing.assert_array_equal(o["Out"], x * keep)  # downgrade
         assert abs(keep.mean() - (1 - spec["attrs"]["dropout_prob"])) \
             < 4 * 0.5 / 64
+        return
+    if op in DRAWS:
+        DRAWS[op](spec)
         return
     for attrs, mean, std in MOMENTS[op]:
         attrs = dict(spec.get("attrs", {}), shape=[64, 64], **attrs)

@@ -3,8 +3,9 @@ parameters in the reference's order.
 
 - `inspect.signature` parameter names, in order, equal the reference's
   for `Executor.run`, `RunEventLog.__init__`, the Transformer's
-  `encoder_layer`/`decoder_layer` (and so BERT's, which imports them)
-  and `DecodeEngine.__init__` (whose port-only `params` and `place` come
+  `encoder_layer`/`decoder_layer` (and so BERT's, which imports them),
+  every `layers` function both packages export, and
+  `DecodeEngine.__init__` (whose port-only `params` and `place` come
   last).
 - `exe.run(main, feed, [y], None, True, False)` means
   `use_program_cache=False` in both packages, and runs.
@@ -14,9 +15,10 @@ parameters in the reference's order.
   randomness its fetches and state equal the reference's
   `iterations=3` (rtol 1e-5: float32, other summation orders).
 - The options the port accepts without acting on them
-  (`use_program_cache`, `donate_pools`) are documented no-ops; the
-  ones it cannot serve yet (`max_bytes`, `moe_experts`) raise naming
-  their ROADMAP step.
+  (`use_program_cache`, `donate_pools`) are documented no-ops; the one
+  it cannot serve yet (`max_bytes`) raises naming its ROADMAP step;
+  `moe_experts`, given positionally to the Transformer's layers, builds
+  the switch-MoE sublayer and appends its aux loss to `aux_list`.
 """
 
 from __future__ import annotations
@@ -152,14 +154,28 @@ def test_run_event_log_records_mesh_shape(tmp_path):
 
 
 def test_layer_moe_experts_raise_naming_their_step():
-    for fn in (tt.encoder_layer, tt.decoder_layer):
-        main, startup = tf.Program(), tf.Program()
-        with tf.program_guard(main, startup), tf.unique_name.guard():
-            x = tf.layers.data(name="x", shape=[4, 8], dtype="float32")
-            args = ((x, None, 2, 4, 4, 8, 16, 0.0) if fn is tt.encoder_layer
-                    else (x, x, None, None, 2, 4, 4, 8, 16, 0.0))
-            with pytest.raises(NotImplementedError, match="item 6"):
-                fn(*args, False, False, 4)     # moe_experts=4, positional
+    """Once raising (ROADMAP A step 8c), now ported: moe_experts=4 and
+    aux_list given positionally build one moe_ffn of 4 experts in both
+    packages' layers, the same program, and append its aux loss."""
+    for ref_fn, fn in ((jt.encoder_layer, tt.encoder_layer),
+                       (jt.decoder_layer, tt.decoder_layer)):
+        dicts = []
+        for fluid, f in ((jf, ref_fn), (tf, fn)):
+            main, startup = fluid.Program(), fluid.Program()
+            aux = []
+            with fluid.program_guard(main, startup), \
+                    fluid.unique_name.guard():
+                x = fluid.layers.data(name="x", shape=[4, 8],
+                                      dtype="float32")
+                args = ((x, None, 2, 4, 4, 8, 16, 0.0)
+                        if fn is tt.encoder_layer
+                        else (x, x, None, None, 2, 4, 4, 8, 16, 0.0))
+                f(*args, False, False, 4, aux)  # moe_experts, aux_list
+            assert len(aux) == 1 and tuple(aux[0].shape) == (1,)
+            types = [op.type for op in main.global_block().ops]
+            assert types.count("moe_ffn") == 1
+            dicts.append(json.dumps(main.to_dict(), sort_keys=True))
+        assert dicts[0] == dicts[1]
 
 
 def test_decode_engine_accepts_donate_pools():
@@ -172,3 +188,27 @@ def test_decode_engine_accepts_donate_pools():
     eng = tdecode.DecodeEngine(lm, cfg, donate_pools=True,
                                place=tf.CPUPlace())
     assert eng.tracer is None and eng.speculate_k == 0
+
+
+def _layer_functions():
+    import paddle_tpu.layers as jl
+    import paddle_tpu_torch.layers as tl
+
+    out = []
+    for name in sorted(set(dir(jl)) & set(dir(tl))):
+        ref = getattr(jl, name)
+        if name.startswith("_") or inspect.isclass(ref) or \
+                inspect.ismodule(ref) or not callable(ref):
+            continue
+        out.append(name)
+    return out
+
+
+@pytest.mark.parametrize("name", _layer_functions())
+def test_layer_signature_is_the_reference(name):
+    """Every `layers` function both packages export takes the
+    reference's parameters in the reference's order."""
+    import paddle_tpu.layers as jl
+    import paddle_tpu_torch.layers as tl
+
+    assert _names(getattr(tl, name)) == _names(getattr(jl, name))

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu as jf
+import paddle_tpu_torch as tf
 from paddle_tpu import observe as jobs
 from paddle_tpu_torch import observe as tobs
 from paddle_tpu_torch.observe import metrics as tmetrics
@@ -209,9 +211,9 @@ def test_numerics_ride_chained_iterations():
 
 
 def test_group_names_match_the_reference():
-    """The group vocabulary and the name rule are the reference's (the
-    switch_moe half of the reference test waits for the port's MoE
-    layers, ROADMAP A step 8c)."""
+    """The group vocabulary and the name rule are the reference's, on
+    fixed names and on the names a named switch_moe layer generates in
+    both packages (every one in the moe_gate or moe_expert group)."""
     names = ["moe_gate.w_0", "moe_gate_enc3.w_0", "moe_expert_enc3.w_1",
              "attn_qkv_7.b_0", "src_word_emb.w_0", "fc_3.w_0",
              "ffn_in.w_0", "attn_out_2.b_0"]
@@ -221,6 +223,18 @@ def test_group_names_match_the_reference():
     assert [tobs.GROUP_NAMES[tobs.group_of(n)] for n in names[:6]] == \
         ["moe_gate", "moe_gate", "moe_expert", "attn_qkv", "embedding",
          "other"]
+    made = {}
+    for fluid in (jf, tf):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            xv = fluid.layers.data(name="x", shape=[4, 8], dtype="float32")
+            fluid.layers.switch_moe(xv, num_experts=2, d_inner=16,
+                                    name="blk3")
+        made[fluid] = sorted(v.name for v in main.list_vars()
+                             if v.persistable and "moe" in v.name)
+    assert made[tf] == made[jf] and len(made[tf]) == 5
+    assert {tobs.GROUP_NAMES[g] for g in tobs.param_groups(
+        made[tf]).values()} == {"moe_gate", "moe_expert"}
 
 
 def test_backward_origin_latch_reports_autodiff():

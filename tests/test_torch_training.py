@@ -18,8 +18,9 @@ package.
 - Gradient clipping and weight decay build and train as in the
   reference; with neither, the optimizer passes (param, grad) through.
 - `device=None` resolves to the card or raises; no scope tensor keeps
-  autograd state after a step; unported options (`moe_experts`,
-  explicit gradient sync) raise naming their ROADMAP item.
+  autograd state after a step; explicit gradient sync raises naming
+  its ROADMAP step, and `moe_experts`, once unported, builds the
+  reference's program (tests/test_torch_moe.py trains it).
 """
 
 from __future__ import annotations
@@ -252,8 +253,14 @@ def test_default_device_is_the_card_or_raises(monkeypatch):
     (dict(moe_experts=2), "queue A item 6"),
 ])
 def test_unported_transformer_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _build(tf, tt.build_model, **dict(ARCH, **kw))
+    """The options that raised naming their queue A item (`moe_experts`,
+    item 6, ported in step 8c) now build the reference's program: one
+    moe_ffn a FFN sublayer, none raising."""
+    tm, ts, _ = _build(tf, tt.build_model, **dict(ARCH, **kw))
+    jm, js, _ = _build(jf, jt.build_model, **dict(ARCH, **kw))
+    assert _json(tm) == _json(jm) and _json(ts) == _json(js)
+    types = [op.type for op in tm.global_block().ops]
+    assert types.count("moe_ffn") == 2 * ARCH["n_layer"]
 
 
 def test_unported_executor_features_raise():
