@@ -294,8 +294,29 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    dense half (`dense_op_cases`) on the card against the CPU, outputs
    and gradients within TOL_DENSE, integers and bools exactly, random
    ops by shape, dtype and range;
+6u. QAT and int8 serving, the reference bench's int8 line (bench.py:969-
+   1043): (a) ResNet-50 at the bench's widths (flowers, 1000 classes)
+   with QuantizeTranspiler before minimize, 3 momentum steps at batch 32
+   (every loss finite, every moving-average scale state nonzero after
+   step 1); then a freshly transpiled forward program, 3 calibration
+   runs at batch 8, clone(for_test), save_inference_model and
+   load_inference_model, convert_to_int8 (every conv2d and the
+   classifier's mul converted, no fake-quantize op left, the weights
+   int8 on the card); int8 inference at batch 8 and 64 timed beside the
+   plain float32 program and the QDQ-simulated one, top-1 against the
+   latter; at batch 8 the card against the same model loaded and
+   converted on the CPU: the first quantized conv's int32 accumulators
+   bit for bit, the logits within TOL_INT8_LOGITS, top-1, and the share
+   of activation codes that differ, layer by layer; (b) the SRL tagger
+   at the book's widths, crf_decoding into chunk_eval (IOB), card
+   against CPU: paths and counts equal; the kernel counts zeroed before
+   (a) and read after (b); (c) each of the 30 ops of the sequence,
+   structured and quantize families (`seq_struct_quant_op_cases`: warpctc
+   at B 16, T 400, 29 classes; quantized_conv2d at ResNet-50's stem, a
+   3 x 3 x 512 layer and groups 32) on the card against the CPU,
+   quantized_conv2d and quantized_matmul bit for bit;
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6t included), the card line, and as its last line
+   6l-6u included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -5492,8 +5513,9 @@ def _run_dense(op, ins_np, attrs, device, grad_slots, out_slot):
     grads = {}
     if grad_slots:
         o = outs[out_slot][0]
-        w = torch.cos(torch.arange(o.numel(), device=device,
-                                   dtype=torch.float32) * 0.1)
+        # the weights made on the CPU: the same bits on both devices
+        w = torch.cos(torch.arange(o.numel(), dtype=torch.float32)
+                      * 0.1).to(device)
         leaves = [ins[s][0] for s in grad_slots]
         gs = torch.autograd.grad((o.float().reshape(-1) * w).sum(), leaves,
                                  allow_unused=True)
@@ -5613,6 +5635,633 @@ def phase_moe(dev, card):
     res["launches"] = {k: res["train_f32"]["launches"].get(k, 0)
                        + res["train_amp"]["launches"].get(k, 0)
                        for k in res["train_f32"]["launches"]}
+    return res
+
+
+# -- phase 6u: QAT and int8 serving, chunk evaluation, the sequence,
+#    structured and quantize families -------------------------------------
+
+# (a) the reference bench's int8 line (bench.py:969-1043): ResNet-50 at
+# RESNET_ARCH's widths, QuantizeTranspiler before minimize and 3 momentum
+# steps at batch 32 (float32); then a freshly transpiled forward program,
+# 3 calibration runs at batch 8, clone(for_test), save_inference_model /
+# load_inference_model, convert_to_int8, and int8 inference at batch 8
+# and 64 beside the plain float32 program
+QAT_BATCH, QAT_STEPS = 32, 3
+INT8_CALIB_BATCH, INT8_CALIB_RUNS = 8, 3
+INT8_BATCHES = (8, 64)
+INT8_TIMED = 10
+# int8 card against CPU at batch 8: every int8 product is exact on both,
+# but the float ops between them (batch norm, relu, pooling, the residual
+# adds, cuDNN's float convolutions of nothing) and the codes of the next
+# layer's activations come from float32 values summed in other orders; a
+# value at a rounding tie lands one code apart, and that step propagates.
+# The logits (the classifier's pre-softmax output) within this share of
+# their largest magnitude; the top-1 class equal wherever the CPU's top
+# two logits are further apart than that
+TOL_INT8_LOGITS = 2e-2
+# (b) the SRL book model (SRL_ARCH, batch SRL_BATCH) with chunk_eval on
+# its Viterbi decode, as test_label_semantic_roles.py evaluates it
+SRL_LABELS = 9     # sequence_tagging.build_model's label_dict_len
+
+
+def _quantized_ops(program):
+    return [op for op in program.global_block().ops
+            if op.type in ("quantized_conv2d", "quantized_matmul")]
+
+
+def _logits_name(program, predict):
+    """The classifier's pre-softmax output: the input of the softmax op
+    that makes `predict`."""
+    for op in program.global_block().ops:
+        if op.type == "softmax" and op.output("Out")[0] == predict:
+            return op.input("X")[0]
+    raise AssertionError(f"no softmax makes {predict}")
+
+
+def _fetch_run(exe, program, feed, names, scope):
+    return exe.run(program, feed=feed, fetch_list=names, scope=scope,
+                   return_numpy=False)
+
+
+def _timed_forward(exe, program, feed, fetch, scope, iters=INT8_TIMED):
+    """ms a batch of `iters` forward runs after one warmup run, ended by
+    a device synchronize."""
+    exe.run(program, feed=feed, fetch_list=fetch, scope=scope,
+            return_numpy=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        exe.run(program, feed=feed, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _build_resnet_qat(optimizer):
+    """(main, startup, model): RESNET_ARCH's ResNet-50, QAT transpiled
+    before the momentum optimizer (`optimizer` False: the forward
+    program of bench.py's int8 recipe)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        arch = dict(RESNET_ARCH)
+        lr = arch.pop("learning_rate")
+        model = resnet.build_model(**arch, with_optimizer=False)
+        pt.QuantizeTranspiler().training_transpile(main, startup)
+        if optimizer:
+            pt.optimizer.MomentumOptimizer(learning_rate=lr,
+                                           momentum=0.9).minimize(
+                model["loss"])
+    return main, startup, model
+
+
+def phase_qat_train(dev, card):
+    """6u (a), training: QAT_STEPS momentum steps of the transpiled
+    ResNet-50 at batch QAT_BATCH on the card; every loss finite and every
+    moving-average scale state nonzero after step 1."""
+    import paddle_tpu_torch as pt
+
+    main, startup, model = _build_resnet_qat(True)
+    states = sorted(v.name for v in main.list_vars()
+                    if v.name.endswith(".quant_scale_state"))
+    types = [op.type for op in main.global_block().ops]
+    n_w = types.count("fake_quantize_dequantize_abs_max")
+    n_a = types.count("fake_quantize_dequantize_moving_average_abs_max")
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {n: torch.as_tensor(a).to(dev)
+            for n, a in resnet_batch(QAT_BATCH, seed=5).items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms, zero_after_1 = [], [], None
+    for step in range(QAT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[model["loss"]],
+                      scope=scope, return_numpy=False)
+        losses.append(float(out[0].reshape(())))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            zero_after_1 = [n for n in states
+                            if not float(scope.find_var(n).reshape(-1)[0])]
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  (a) QAT training: {n_w} weight and {n_a} activation QDQ ops, "
+        f"{len(states)} scale states; losses {losses}; step ms "
+        f"{[round(x, 2) for x in ms]} at batch {QAT_BATCH}; peak "
+        f"{peak / 1e9:.3f} GB on {card}")
+    if not np.isfinite(losses).all() or zero_after_1 or not states:
+        raise AssertionError(f"6u (a) QAT: losses {losses}, scale states "
+                             f"still 0 after step 1: {zero_after_1}")
+    return {"losses": losses, "step_ms": ms, "weight_qdq_ops": n_w,
+            "activation_qdq_ops": n_a, "scale_states": len(states),
+            "peak_mem_bytes": peak}
+
+
+def _int8_models(dev, card):
+    """bench.py's int8 recipe on the card: (converted program, its scope,
+    the QDQ-simulated program, its scope, the plan, fetch names, the
+    directory of the saved model)."""
+    import paddle_tpu_torch as pt
+
+    main, startup, model = _build_resnet_qat(False)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    for i in range(INT8_CALIB_RUNS):
+        calib = resnet_batch(INT8_CALIB_BATCH, seed=10 + i)["data"]
+        exe.run(main, feed={"data": torch.as_tensor(calib).to(dev)},
+                fetch_list=[model["predict"]], scope=scope,
+                return_numpy=False)
+    infer = main.clone(for_test=True)
+    d = os.path.join(OUT_DIR, "int8_model")
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(
+            d, ["data"], [infer.global_block().var(model["predict"].name)],
+            exe, main_program=infer)
+    qscope = pt.Scope()
+    with pt.scope_guard(qscope):
+        prog, _, fetch = pt.io.load_inference_model(d, exe)
+    plan = pt.quantize_module.convert_to_int8(prog, qscope)
+    return prog, qscope, infer, scope, plan, fetch, d
+
+
+def _check_conversion(prog, qscope, plan, dev):
+    """Every conv2d and the classifier's mul converted, no simulation op
+    left, the converted weights int8 on the card."""
+    types = [op.type for op in prog.global_block().ops]
+    qops = _quantized_ops(prog)
+    kinds = [t for t, _, _ in plan.values()]
+    weights = [op.input("Filter" if op.type == "quantized_conv2d"
+                        else "Y")[0] for op in qops]
+    bad = [w for w in weights if qscope.find_var(w).dtype != torch.int8
+           or qscope.find_var(w).device != dev]
+    ok = (kinds.count("quantized_conv2d") == 53
+          and kinds.count("quantized_matmul") == 1
+          and "conv2d" not in types and "mul" not in types
+          and not any(t.startswith("fake_") for t in types)
+          and len(qops) == len(plan) and not bad)
+    if not ok:
+        raise AssertionError(f"6u (a) convert_to_int8: plan {kinds}, ops "
+                             f"{sorted(set(types))}, weights not int8 on "
+                             f"the card: {bad}")
+    return weights
+
+
+def _code_flips(card_acts, cpu_acts, qops):
+    """Over every quantized op's input activation at batch 8: the share
+    of int8 codes that differ card against CPU, the share that differ by
+    exactly one step, the largest difference, the count, and the share
+    op by op in program order (the codes quantized on the CPU from each
+    device's own activation values)."""
+    from paddle_tpu_torch.ops.quantize import quantize_codes
+
+    total = differ = one = 0
+    worst, per_op = 0, []
+    for op, a, b in zip(qops, card_acts, cpu_acts):
+        qmax = float(2 ** (int(op.attrs.get("bit_length", 8)) - 1) - 1)
+        ca = quantize_codes(a.cpu(), op.attrs["in_scale"], qmax)
+        cb = quantize_codes(b.cpu(), op.attrs["in_scale"], qmax)
+        d = (ca - cb).abs()
+        total += d.numel()
+        differ += int((d > 0).sum())
+        one += int((d == 1).sum())
+        worst = max(worst, int(d.max()))
+        per_op.append(float((d > 0).float().mean()))
+    return differ / total, one / total, worst, total, per_op
+
+
+def phase_int8_serving(dev, card):
+    """6u (a), serving: the converted int8 ResNet-50 (the plan, no QDQ
+    left, int8 weights on the card), int8 inference at batch 8 and 64
+    beside the plain float32 program, the card against the port on the
+    CPU at batch 8 (the first quantized conv's int32 accumulators bit
+    for bit, logits within TOL_INT8_LOGITS, top-1, the share of
+    activation codes that flip) and top-1 against the QDQ-simulated
+    program."""
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops.quantize import conv_accumulators
+
+    prog, qscope, sim, sim_scope, plan, fetch, d = _int8_models(dev, card)
+    weights = _check_conversion(prog, qscope, plan, dev)
+    qops = _quantized_ops(prog)
+    predict = fetch[0].name
+    logits = _logits_name(prog, predict)
+    acts = [op.input("Input" if op.type == "quantized_conv2d" else "X")[0]
+            for op in qops]
+    exe = pt.Executor(pt.CUDAPlace(0))
+    res = {"converted_ops": len(plan), "quantized_conv2d": 53,
+           "quantized_matmul": 1}
+    log(f"  (a) convert_to_int8: {len(plan)} ops converted (53 "
+        f"quantized_conv2d, 1 quantized_matmul), no QDQ op left, "
+        f"{len(weights)} int8 weights on the card")
+
+    # the card against the port on the CPU, batch 8: the same saved
+    # model loaded and converted on the CPU
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    with pt.scope_guard(cpu_scope):
+        cprog, _, _ = pt.io.load_inference_model(d, cpu_exe)
+    cplan = pt.quantize_module.convert_to_int8(cprog, cpu_scope)
+    shutil.rmtree(d, ignore_errors=True)
+    if cplan != plan or any(not torch.equal(
+            qscope.find_var(w).cpu(), cpu_scope.find_var(w))
+            for w in weights):
+        raise AssertionError("6u (a): the CPU's conversion differs")
+    x8 = resnet_batch(8, seed=20)["data"]
+    names = [logits, predict] + acts
+    on_card = [t.cpu() for t in _fetch_run(
+        exe, prog, {"data": torch.as_tensor(x8).to(dev)}, names, qscope)]
+    on_cpu = [torch.as_tensor(np.asarray(t)) for t in cpu_exe.run(
+        cprog, feed={"data": x8}, fetch_list=names, scope=cpu_scope)]
+    op0 = qops[0]
+    w0 = qscope.find_var(op0.input("Filter")[0])
+    _, acc_card = conv_accumulators(torch.as_tensor(x8).to(dev), w0,
+                                    op0.attrs)
+    _, acc_cpu = conv_accumulators(torch.as_tensor(x8), w0.cpu(),
+                                   op0.attrs)
+    acc_equal = bool(torch.equal(acc_card.cpu(), acc_cpu))
+    lc, lp = on_card[0].float(), on_cpu[0].float()
+    scale = float(lp.abs().max())
+    err = float((lc - lp).abs().max()) / scale
+    top2 = lp.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * TOL_INT8_LOGITS * scale
+    agree = lc.argmax(1) == lp.argmax(1)
+    flip_share, one_step, worst, n_codes, per_op = _code_flips(
+        on_card[2:], on_cpu[2:], qops)
+    log(f"  (a) int8 card vs CPU at batch 8: first quantized conv's "
+        f"int32 accumulators {tuple(acc_cpu.shape)} equal bit for bit "
+        f"{acc_equal}; logits max abs err {err:.3e} of their largest "
+        f"{scale:.4g} (tol {TOL_INT8_LOGITS:g}); top-1 agrees on "
+        f"{int(agree.sum())}/{len(agree)} ({int(clear.sum())} rows clear "
+        f"of a "
+        f"near-tie); activation codes differing {flip_share:.3e} of "
+        f"{n_codes} ({one_step:.3e} by one step, largest {worst}); op by "
+        f"op along the network {[f'{x:.1e}' for x in per_op]}")
+    if not (acc_equal and err <= TOL_INT8_LOGITS
+            and bool(agree[clear].all())):
+        raise AssertionError("6u (a): int8 card and CPU differ beyond "
+                             "the tolerances")
+    res.update(first_conv_acc_equal=acc_equal, logits_max_rel_err=err,
+               logits_scale=scale, top1_agree=int(agree.sum()),
+               top1_rows_clear=int(clear.sum()),
+               code_flip_share=flip_share, code_one_step_share=one_step,
+               code_max_diff=worst, codes_compared=n_codes,
+               code_flip_share_by_op=per_op)
+
+    # int8 against the QDQ-simulated float program, and the timings
+    # beside the plain float32 program (fresh weights: the same network)
+    main_fp, startup_fp = pt.Program(), pt.Program()
+    with pt.program_guard(main_fp, startup_fp), pt.unique_name.guard():
+        arch = dict(RESNET_ARCH)
+        arch.pop("learning_rate")
+        fp = resnet.build_model(**arch, with_optimizer=False)
+    fp_prog = main_fp.clone(for_test=True)
+    fp_scope = pt.Scope()
+    exe.run(startup_fp, scope=fp_scope)
+    res["batches"] = {}
+    for b in INT8_BATCHES:
+        xb = torch.as_tensor(resnet_batch(b, seed=30 + b)["data"]).to(dev)
+        q = _fetch_run(exe, prog, {"data": xb}, [logits], qscope)[0]
+        s = _fetch_run(exe, sim, {"data": xb}, [logits], sim_scope)[0]
+        top1 = float((q.argmax(1) == s.argmax(1)).float().mean())
+        int8_ms = _timed_forward(exe, prog, {"data": xb}, [predict], qscope)
+        fp_ms = _timed_forward(exe, fp_prog, {"data": xb},
+                               [fp["predict"]], fp_scope)
+        sim_ms = _timed_forward(exe, sim, {"data": xb}, [predict],
+                                sim_scope)
+        res["batches"][b] = dict(int8_ms=int8_ms, float32_ms=fp_ms,
+                                 qdq_sim_ms=sim_ms, top1_vs_qdq=top1,
+                                 finite=bool(torch.isfinite(q).all()))
+        log(f"  (a) batch {b}: int8 {int8_ms:.2f} ms/batch, plain float32 "
+            f"{fp_ms:.2f} ms/batch, QDQ-simulated {sim_ms:.2f} ms/batch; "
+            f"int8 top-1 equal to the QDQ program's on {top1:.4f} on {card}")
+        if not torch.isfinite(q).all():
+            raise AssertionError(f"6u (a): non-finite int8 logits at "
+                                 f"batch {b}")
+    return res
+
+
+def phase_srl_chunk_eval(dev, card):
+    """6u (b): the SRL tagger at SRL_ARCH's widths, crf_decoding ->
+    chunk_eval(IOB, ceil((labels - 1) / 2) chunk types) against the
+    labels, card against CPU from the same weights: the decoded paths
+    and the three counts equal."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+    from paddle_tpu_torch.models import sequence_tagging
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = sequence_tagging.build_model(**SRL_ARCH,
+                                             with_optimizer=False)
+        target = main.global_block().var("target")
+        chunk = pt.layers.chunk_eval(
+            model["crf_decode"], target, chunk_scheme="IOB",
+            num_chunk_types=int(np.ceil((SRL_LABELS - 1) / 2)))
+    init = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=init)
+    arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+              if isinstance(v, torch.Tensor)}
+    feed = sequence_tagging.make_fake_batch(SRL_BATCH)
+    fetch = [model["crf_decode"]] + list(chunk)
+    runs = {}
+    for place, device in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
+        scope = pt.Scope()
+        for n, v in params_from_arrays(arrays, device, program=main).items():
+            scope.set_var(n, v)
+        f = {n: torch.as_tensor(a).to(device) for n, a in feed.items()}
+        runs[device] = [np.asarray(v) for v in pt.Executor(place).run(
+            main, feed=f, fetch_list=fetch, scope=scope)]
+    c, p = runs[dev], runs["cpu"]
+    counts = [int(v.reshape(-1)[0]) for v in c[4:7]]
+    equal = np.array_equal(c[0], p[0]) and all(
+        np.array_equal(a, b) for a, b in zip(c[4:7], p[4:7]))
+    log(f"  (b) SRL (hidden {SRL_ARCH['hidden_dim']}, depth "
+        f"{SRL_ARCH['depth']}, batch {SRL_BATCH}) crf_decoding -> "
+        f"chunk_eval: inferred, labelled, correct chunks {counts} on the "
+        f"card, {[int(v.reshape(-1)[0]) for v in p[4:7]]} on the CPU; "
+        f"paths equal {np.array_equal(c[0], p[0])}; P/R/F1 "
+        f"{[float(v.reshape(-1)[0]) for v in c[1:4]]}")
+    if not equal:
+        raise AssertionError("6u (b): chunk counts or paths differ card "
+                             "against CPU")
+    return {"counts_card": counts,
+            "counts_cpu": [int(v.reshape(-1)[0]) for v in p[4:7]],
+            "precision_recall_f1": [float(v.reshape(-1)[0])
+                                    for v in c[1:4]]}
+
+
+# the ops of 6u (c) whose outputs and gradients must equal the CPU's bit
+# for bit: int8 products with exact int32 accumulation
+EXACT_OPS = ("quantized_conv2d", "quantized_matmul")
+# warpctc's gradient at the speech shape: its log-domain alphas reach the
+# loss's magnitude (~1e3 at T = 400), where a float32 ulp is ~1e-4, and
+# each gradient entry (softmax minus a posterior exp(alpha + beta -
+# log Z), in [-1, 1]) carries that absolute error: the gradient within
+# 4 ulps of the largest loss, absolute (the loss itself within TOL_DENSE)
+CTC_GRAD_ULPS = 4
+
+
+def seq_struct_quant_op_cases():
+    """{name: (op, ins, attrs, output slot, gradient slots)} of phase 6u
+    (c): each of the 30 ops of the sequence, structured and quantize
+    families on numpy inputs from a fixed seed; gradient slots None mark
+    a random op.  warpctc at a speech shape (B 16, T 400, 29 classes,
+    labels up to 100 long); quantized_conv2d at ResNet-50's stem, a
+    3 x 3 x 512 layer and a groups-32 layer."""
+    r = np.random.RandomState(21)
+
+    def f(*s):
+        return r.randn(*s).astype(np.float32)
+
+    def lens(n, lo, hi):
+        return r.randint(lo, hi + 1, (n,)).astype(np.int32)
+
+    def codes(*s):
+        return r.randint(-127, 128, s).astype(np.int8)
+
+    q = {"in_scale": 3.1, "weight_scale": 0.42}
+    sl = lens(8, 0, 40)
+    sl[0] = 40
+    return {
+        "sequence_softmax": ("sequence_softmax", {"X": f(8, 40),
+                                                  "SeqLen": sl}, {}, "Out",
+                             ["X"]),
+        "sequence_expand": ("sequence_expand", {"X": f(8, 1, 64),
+                                                "Y": f(8, 40, 1)}, {},
+                            "Out", ["X"]),
+        "sequence_expand nested": ("sequence_expand", {
+            "X": f(8, 20, 16), "Y": f(8, 6, 4), "SeqLen": lens(8, 0, 20),
+            "YLen": lens(8, 0, 6), "YLen2": r.randint(0, 5, (8, 6)).astype(
+                np.int32)}, {}, "Out", ["X"]),
+        "sequence_expand_as": ("sequence_expand_as", {
+            "X": f(8, 1, 64), "Y": f(8, 40, 1)}, {}, "Out", ["X"]),
+        "sequence_reverse": ("sequence_reverse", {"X": f(8, 40, 32),
+                                                  "SeqLen": sl}, {}, "Y",
+                             ["X"]),
+        "sequence_concat": ("sequence_concat", {
+            "X": [f(8, 20, 16), f(8, 10, 16), f(8, 30, 16)],
+            "SeqLen": [lens(8, 0, 20), lens(8, 0, 10), lens(8, 0, 30)]},
+            {}, "Out", ["X"]),
+        "sequence_pad": ("sequence_pad", {
+            "X": f(8, 40, 16), "SeqLen": sl,
+            "PadValue": np.array([0.25], np.float32)},
+            {"padded_length": 64}, "Out", ["X"]),
+        "sequence_unpad": ("sequence_unpad", {
+            "X": f(8, 40, 16), "Length": sl.astype(np.int64)}, {}, "Out",
+            ["X"]),
+        "sequence_slice": ("sequence_slice", {
+            "X": f(8, 40, 16), "Offset": r.randint(0, 20, (8, 1)),
+            "Length": r.randint(0, 21, (8, 1))}, {}, "Out", ["X"]),
+        "sequence_enumerate": ("sequence_enumerate", {
+            "X": r.randint(0, 50, (8, 40)).astype(np.int32)},
+            {"win_size": 4, "pad_value": -1}, "Out", []),
+        "sequence_erase": ("sequence_erase", {
+            "X": r.randint(0, 10, (8, 40)).astype(np.int32)},
+            {"tokens": [0, 3, 7]}, "Out", []),
+        "im2sequence": ("im2sequence", {"X": f(4, 3, 32, 32)},
+                        {"kernels": [4, 4], "strides": [4, 4]}, "Out",
+                        ["X"]),
+        "sequence_scatter": ("sequence_scatter", {
+            "X": f(8, 100), "Ids": r.randint(-5, 105, (8, 30)).astype(
+                np.int32), "Updates": f(8, 30), "IdsLen": lens(8, 0, 30)},
+            {}, "Out", ["X", "Updates"]),
+        "sequence_reshape": ("sequence_reshape", {"X": f(8, 40, 16),
+                                                  "SeqLen": sl},
+                             {"new_dim": 32}, "Out", ["X"]),
+        "lod_reset": ("lod_reset", {"X": f(8, 40, 16), "SeqLen": sl},
+                      {"target_lod": [0, 7, 7, 19,
+                                      int(sl.sum()) // 2, int(sl.sum())]},
+                      "Out", ["X"]),
+        # structured
+        "chunk_eval": ("chunk_eval", {
+            "Inference": r.randint(0, 9, (32, 100)).astype(np.int32),
+            "Label": r.randint(0, 9, (32, 100)).astype(np.int32),
+            "SeqLen": lens(32, 0, 100)},
+            {"num_chunk_types": 4, "excluded_chunk_types": [1]}, "F1-Score",
+            []),
+        "edit_distance": ("edit_distance", {
+            "Hyps": r.randint(0, 6, (32, 60)).astype(np.int32),
+            "Refs": r.randint(0, 6, (32, 50)).astype(np.int32),
+            "HypsLen": lens(32, 0, 60), "RefsLen": lens(32, 0, 50)},
+            {"normalized": True, "ignored_tokens": [0]}, "Out", []),
+        "warpctc speech": ("warpctc", {
+            "Logits": f(16, 400, 29), "Label": r.randint(
+                1, 29, (16, 100)).astype(np.int32),
+            "LogitsLen": lens(16, 300, 400), "LabelLen": lens(16, 50, 100)},
+            {"blank": 0, "norm_by_times": False}, "Loss", ["Logits"]),
+        "ctc_align": ("ctc_align", {
+            "Input": r.randint(0, 29, (32, 400)).astype(np.int32),
+            "SeqLen": lens(32, 0, 400)}, {"blank": 0}, "Output", []),
+        "hierarchical_sigmoid": ("hierarchical_sigmoid", {
+            "X": f(64, 128), "Label": r.randint(0, 1000, (64, 1)),
+            "W": f(999, 128) * 0.1, "Bias": f(999) * 0.1},
+            {"num_classes": 1000}, "Out", ["X", "W", "Bias"]),
+        "sampling_id": ("sampling_id", {"X": np.tile(np.array(
+            [0.1, 0.2, 0.3, 0.4, 0.0], np.float32), (4096, 1))}, {}, "Out",
+            None),
+        "precision_recall": ("precision_recall", {
+            "Indices": r.randint(0, 10, (256, 1)).astype(np.int32),
+            "MaxProbs": r.rand(256, 1).astype(np.float32),
+            "Labels": r.randint(0, 10, (256, 1)).astype(np.int32),
+            "Weights": r.rand(256, 1).astype(np.float32),
+            "StatesInfo": r.randint(0, 50, (10, 4)).astype(np.float32)},
+            {"class_number": 10}, "BatchMetrics", []),
+        "mean_iou": ("mean_iou", {
+            "Predictions": r.randint(0, 21, (4, 64, 64)).astype(np.int32),
+            "Labels": r.randint(0, 21, (4, 64, 64)).astype(np.int32),
+            "InWrongs": [r.randint(0, 9, (21,)).astype(np.int32)],
+            "InCorrects": [r.randint(0, 9, (21,)).astype(np.int32)],
+            "InMeanIou": [np.array([0.5], np.float32)]},
+            {"num_classes": 21}, "OutMeanIou", []),
+        "modified_huber_loss": ("modified_huber_loss", {
+            "X": f(256, 1) * 2, "Y": r.randint(0, 2, (256, 1)).astype(
+                np.float32)}, {}, "Out", ["X"]),
+        "positive_negative_pair": ("positive_negative_pair", {
+            "Score": f(128, 2), "Label": r.randint(0, 3, (128, 1)).astype(
+                np.float32), "QueryID": r.randint(0, 8, (128, 1)).astype(
+                np.int32), "Weight": r.rand(128, 1).astype(np.float32)},
+            {"column": 1}, "PositivePair", []),
+        # quantize
+        "fake_quantize_abs_max": ("fake_quantize_abs_max", {
+            "X": f(64, 1024)}, {"bit_length": 8}, "Out", []),
+        "fake_dequantize_max_abs": ("fake_dequantize_max_abs", {
+            "X": codes(64, 1024).astype(np.float32),
+            "Scale": np.array([2.7], np.float32)}, {"max_range": 127.0},
+            "Out", []),
+        "fake_quantize_dequantize_abs_max": (
+            "fake_quantize_dequantize_abs_max", {"X": f(64, 1024)},
+            {"bit_length": 8}, "Out", ["X"]),
+        "fake_qdq_moving_average first step": (
+            "fake_quantize_dequantize_moving_average_abs_max", {
+                "X": f(8, 256, 14, 14), "InScale": np.zeros(1, np.float32)},
+            {"moving_rate": 0.9}, "Out", ["X"]),
+        "fake_qdq_moving_average running": (
+            "fake_quantize_dequantize_moving_average_abs_max", {
+                "X": f(8, 256, 14, 14), "InScale": np.array([3.5],
+                                                            np.float32)},
+            {"moving_rate": 0.9}, "Out", ["X"]),
+        "quantized_conv2d stem": ("quantized_conv2d", {
+            "Input": f(2, 3, 224, 224), "Filter": codes(64, 3, 7, 7)},
+            dict(q, strides=2, paddings=3), "Output", []),
+        "quantized_conv2d 3x3x512": ("quantized_conv2d", {
+            "Input": f(2, 512, 7, 7), "Filter": codes(512, 512, 3, 3)},
+            dict(q, paddings=1), "Output", []),
+        "quantized_conv2d groups 32": ("quantized_conv2d", {
+            "Input": f(2, 256, 28, 28), "Filter": codes(256, 8, 3, 3)},
+            dict(q, paddings=1, groups=32), "Output", []),
+        "quantized_matmul fc": ("quantized_matmul", {
+            "X": f(8, 2048), "Y": codes(2048, 1000)}, q, "Out", []),
+    }
+
+
+def _check_sampling(got, ins):
+    ids = got["Out"][0]
+    if not (ids.shape == (4096,) and ids.dtype == np.int32
+            and ids.min() >= 0 and ids.max() <= 3):
+        raise AssertionError(f"6u (c) sampling_id: ids {ids.shape} "
+                             f"{ids.dtype} in [{ids.min()}, {ids.max()}]")
+
+
+def phase_seq_struct_quant_ops(dev):
+    """6u (c): each op of the sequence, structured and quantize families
+    on the card against the port on the CPU (`seq_struct_quant_op_cases`):
+    floating outputs and gradients within TOL_DENSE, integer outputs
+    exactly, the int8 products (EXACT_OPS) bit for bit, sampling_id by
+    shape, dtype and range."""
+    cases = seq_struct_quant_op_cases()
+    ops = sorted({c[0] for c in cases.values()})
+    log(f"phase 6u (c): {len(ops)} ops of the sequence, structured and "
+        f"quantize families, {len(cases)} cases, card vs CPU")
+    worst, n_cmp, bits = {}, 0, {}
+    for name, (op, ins, attrs, out_slot, grad_slots) in sorted(
+            cases.items()):
+        got, g_card = _run_dense(op, ins, attrs, dev, grad_slots, out_slot)
+        if grad_slots is None:
+            _check_sampling(got, ins)
+            continue
+        want, g_cpu = _run_dense(op, ins, attrs, "cpu", grad_slots,
+                                 out_slot)
+        pairs = [(f"{s}[{i}]", a, b) for s in want
+                 for i, (a, b) in enumerate(zip(got[s], want[s]))]
+        pairs += [(f"d/d{s}", g_card[s], g_cpu[s]) for s in g_cpu]
+        for what, a, b in pairs:
+            n_cmp += 1
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"phase 6u (c) {name} {what}: "
+                                     f"{a.shape} {a.dtype} vs {b.shape} "
+                                     f"{b.dtype}")
+            same = np.array_equal(a, b)
+            bits[name] = bits.get(name, True) and same
+            if op in EXACT_OPS or not np.issubdtype(b.dtype, np.floating):
+                if not same:
+                    raise AssertionError(f"phase 6u (c) {name} {what}: not "
+                                         f"equal")
+                err = 0.0
+            else:
+                fin = np.isfinite(b)
+                tol = dict(TOL_DENSE)
+                if op == "warpctc" and what.startswith("d/d"):
+                    tol = dict(rtol=0.0, atol=CTC_GRAD_ULPS * float(
+                        np.spacing(np.abs(want["Loss"][0]).max())))
+                if not np.array_equal(fin, np.isfinite(a)) or not \
+                        np.allclose(a[fin], b[fin], **tol):
+                    raise AssertionError(
+                        f"phase 6u (c) {name} {what}: card vs CPU max abs "
+                        f"err {np.abs(a[fin] - b[fin]).max():.3e} (tol "
+                        f"{tol})")
+                err = float(np.abs(a[fin] - b[fin]).max()) if fin.any() \
+                    else 0.0
+            worst[name] = max(worst.get(name, 0.0), err)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {n_cmp} outputs and gradients compared, all within tolerance "
+        f"(rtol {TOL_DENSE['rtol']:g}, atol {TOL_DENSE['atol']:g}; integer "
+        f"outputs and {', '.join(EXACT_OPS)} exact); bit-equal cases "
+        f"{sorted(k for k, v in bits.items() if v)}; largest abs errors "
+        f"{[(k, f'{v:.2e}') for k, v in top]}")
+    return {"ops": len(ops), "cases": len(cases), "compared": n_cmp,
+            "max_abs_err": worst, "bit_equal": bits}
+
+
+def phase_qat_int8(dev, card):
+    """6u: (a) QAT training and int8 serving of ResNet-50, (b) the SRL
+    tagger's chunk evaluation card against CPU, with the kernel counts
+    zeroed just before (a) and read after (b); (c) the 30 ops card
+    against CPU."""
+    from paddle_tpu_torch.ops import kernels
+
+    log(f"phase 6u: QAT ResNet-50 ({RESNET_ARCH['depth']} layers, "
+        f"{RESNET_ARCH['class_dim']} classes) trained and served int8; SRL "
+        f"chunk evaluation; the sequence, structured and quantize families")
+    res, seconds = {}, {}
+
+    def part(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        log(f"  [6u {key}: {seconds[key]:.1f} s]")
+        return out
+
+    kernels.reset_counts()
+    res["qat_train"] = part("qat_train", phase_qat_train, dev, card)
+    torch.cuda.empty_cache()
+    res["int8"] = part("int8", phase_int8_serving, dev, card)
+    torch.cuda.empty_cache()
+    res["srl_chunk_eval"] = part("srl", phase_srl_chunk_eval, dev, card)
+    counts = kernels.counts()
+    log(f"  kernel counts over (a) and (b): launches "
+        f"{ {k: v for k, v in counts['launches'].items() if v} }, plain "
+        f"calls { {k: v for k, v in counts['plain'].items() if v} }")
+    res["ops"] = part("ops", phase_seq_struct_quant_ops, dev)
+    res["seconds"] = seconds
+    res["counts"] = counts
+    res["launches"] = counts["launches"]
     return res
 
 
@@ -5743,6 +6392,7 @@ def main() -> int:
     train_book = timed("6r", phase_book_models, dev, card)
     control_flow = timed("6s", phase_control_flow, dev, card)
     moe = timed("6t", phase_moe, dev, card)
+    qat_int8 = timed("6u", phase_qat_int8, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -5779,11 +6429,12 @@ def main() -> int:
     # model drafter's steps, at the verify shape (paged_attention_verify)
     # on the speculative engines' verify runs; the flash forward inside
     # 6s's While body; the flash kernels (float32, then bf16) on 6t's MoE
-    # Transformer
+    # Transformer; none on 6u's QAT/int8 ResNet-50 and SRL paths (counted
+    # all the same)
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
-             train_recompute, train_optimizers, control_flow, moe)
+             train_recompute, train_optimizers, control_flow, moe, qat_int8)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -5838,6 +6489,7 @@ def main() -> int:
                    "train_book_models": train_book,
                    "control_flow": control_flow,
                    "moe": moe,
+                   "qat_int8": qat_int8,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

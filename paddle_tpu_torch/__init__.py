@@ -65,6 +65,7 @@ from . import nets  # noqa: E402,F401
 from . import observe  # noqa: E402,F401
 from . import ops as _ops  # noqa: E402,F401  (registers all op impls)
 from . import optimizer  # noqa: E402,F401
+from . import quantize as quantize_module  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import resilience  # noqa: E402,F401
 from .core import unique_name  # noqa: E402,F401
@@ -77,5 +78,6 @@ from .core.program import (Block, Operator, Parameter,  # noqa: E402,F401
                            pipeline_scope, pipeline_segment,
                            program_guard, recompute_scope)
 from .param_attr import ParamAttr  # noqa: E402,F401
+from .quantize import QuantizeTranspiler  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -8,42 +8,49 @@ from .learning_rate_scheduler import (cosine_decay,  # noqa: F401
                                       natural_exp_decay, noam_decay,
                                       piecewise_decay, polynomial_decay)
 from .metric_op import accuracy, auc  # noqa: F401
-from .nn import (Print, add_position_encoding_at,  # noqa: F401
-                 batch_norm, batched_gather, clip, clip_by_norm, conv2d,
-                 conv2d_transpose, conv3d, conv3d_transpose, conv_shift,
-                 cos_sim, crf_decoding, cross_entropy, cumsum, dropout,
+from .nn import (add_position_encoding_at,  # noqa: F401
+                 batch_norm, batched_gather, chunk_eval, clip, clip_by_norm,
+                 conv2d, conv2d_transpose, conv3d, conv3d_transpose,
+                 conv_shift, cos_sim, crf_decoding, cross_entropy,
+                 ctc_greedy_decoder, cumsum, dropout, edit_distance,
                  elementwise_add, elementwise_div, elementwise_floordiv,
                  elementwise_max, elementwise_min, elementwise_mod,
                  elementwise_mul, elementwise_op, elementwise_pow,
                  elementwise_sub, embedding, expand, fc, flash_attention,
                  flatten, fused_vocab_softmax_ce, gather, gaussian_random,
-                 greater_equal, grid_sampler, group_norm, huber_loss,
-                 image_resize, kldiv_loss, l2_normalize, label_smooth,
-                 layer_norm, linear_chain_crf, log_loss, lrn, matmul,
-                 maxout, mean, mul, nce, normalize_dtype, one_hot, pad,
-                 pad2d, pad_constant_like, paged_attention,
-                 paged_kv_prefill_write, paged_kv_write, pool2d, prelu,
-                 py_func, random_crop, reduce_all, reduce_any, reduce_max,
-                 reduce_mean, reduce_min, reduce_prod, reduce_sum,
-                 reshape, resize_bilinear, resize_nearest, scale, scatter,
-                 shape, sigmoid_cross_entropy_with_logits, slice,
-                 smooth_l1, softmax, softmax_with_cross_entropy,
-                 space_to_depth, speculative_accept, split,
-                 square_error_cost, squeeze, stack, switch_moe,
-                 teacher_student_sigmoid_loss, topk, transpose,
-                 uniform_random, uniform_random_batch_size_like, unsqueeze,
-                 unstack)
+                 greater_equal, grid_sampler, group_norm, hsigmoid,
+                 huber_loss, image_resize, kldiv_loss, l2_normalize,
+                 label_smooth, layer_norm, linear_chain_crf, log_loss, lrn,
+                 matmul, maxout, mean, mean_iou, modified_huber_loss, mul,
+                 nce, normalize_dtype, one_hot, pad, pad2d,
+                 pad_constant_like, paged_attention, paged_kv_prefill_write,
+                 paged_kv_write, pool2d, positive_negative_pair, prelu,
+                 Print, py_func, random_crop, reduce_all, reduce_any,
+                 reduce_max, reduce_mean, reduce_min, reduce_prod,
+                 reduce_sum, reshape, resize_bilinear, resize_nearest,
+                 sampling_id, scale, scatter, shape,
+                 sigmoid_cross_entropy_with_logits, slice, smooth_l1,
+                 softmax, softmax_with_cross_entropy, space_to_depth,
+                 speculative_accept, split, square_error_cost, squeeze,
+                 stack, switch_moe, teacher_student_sigmoid_loss, topk,
+                 transpose, uniform_random, uniform_random_batch_size_like,
+                 unsqueeze, unstack, warpctc)
 from .ops import (abs, brelu, ceil, cos, elu, exp, floor,  # noqa: F401
                   gelu, hard_shrink, hard_sigmoid, leaky_relu, log,
                   log_softmax, logsigmoid, pow, reciprocal, relu, relu6,
                   round, rsqrt, selu, sigmoid, sign, sin, soft_relu,
                   softplus, softshrink, softsign, sqrt, square, stanh,
                   swish, tanh, tanh_shrink, thresholded_relu)
-from .sequence import (add_position_encoding, dynamic_gru,  # noqa: F401
-                       dynamic_lstm, dynamic_lstmp, gru_unit, lstm_unit,
-                       row_conv, seq_len2_var, seq_len_var, sequence_conv,
+from .sequence import (add_position_encoding,  # noqa: F401
+                       dynamic_gru, dynamic_lstm, dynamic_lstmp, gru_unit,
+                       im2sequence, lod_reset, lstm_unit, row_conv,
+                       seq_len2_var, seq_len_var, sequence_concat,
+                       sequence_conv, sequence_enumerate, sequence_erase,
+                       sequence_expand, sequence_expand_as,
                        sequence_first_step, sequence_last_step,
-                       sequence_mask, sequence_pool)
+                       sequence_mask, sequence_pad, sequence_pool,
+                       sequence_reverse, sequence_slice, sequence_softmax,
+                       sequence_unpad)
 from .tensor import (argmax, argmin, argsort, assign,  # noqa: F401
                      cast, concat, create_global_var, create_tensor,
                      fill_constant, fill_constant_batch_size_like,

@@ -3,8 +3,8 @@ that the ported slices build (reference: python/paddle/fluid/layers/
 nn.py).  Each function is the reference's, unchanged: it creates output
 vars + parameters via LayerHelper and appends OpDescs to the default main
 program; shapes/dtypes are inferred by running the op on "meta" tensors
-(core/shape_inference.py).  The rest of the reference's layers are still
-to be ported (ROADMAP queue A step 8d).
+(core/shape_inference.py).  The vision layers of ops/vision_extra.py
+are still to be ported (ROADMAP queue A step 8d's second half).
 """
 
 from __future__ import annotations
@@ -1293,3 +1293,180 @@ def conv_shift(x, y, name=None):
     helper.append_op(type="conv_shift", inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]})
     return out
+
+
+# ---------------------------------------------------------------------------
+# The structured, CTC and metric layers (ops/structured.py)
+# ---------------------------------------------------------------------------
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    helper = LayerHelper("hierarchical_sigmoid", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    inputs = {"X": [input], "Label": [label], "W": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(),
+            shape=[num_classes - 1], dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    pre_out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": [cost], "PreOut": [pre_out]},
+                     attrs={"num_classes": int(num_classes)})
+    return cost
+
+
+def _seq_len_pair(a, b, api, what):
+    from .sequence import seq_len_var
+
+    la, lb = seq_len_var(a), seq_len_var(b)
+    if la is None or lb is None:
+        raise ValueError(f"{api} needs .seq_len companions on {what}")
+    return la, lb
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  name=None):
+    """input/label: padded id sequences (B, T) with .seq_len companions."""
+    hl, rl = _seq_len_pair(input, label, "edit_distance",
+                           "both input and label")
+    helper = LayerHelper("edit_distance", name=name)
+    dist = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="edit_distance",
+        inputs={"Hyps": [input], "Refs": [label], "HypsLen": [hl],
+                "RefsLen": [rl]},
+        outputs={"Out": [dist], "SequenceNum": [seq_num]},
+        attrs={"normalized": bool(normalized),
+               "ignored_tokens": list(ignored_tokens or [])})
+    return dist, seq_num
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """input: padded logits (B, T, C) with .seq_len; label: padded ids
+    (B, U) with .seq_len."""
+    ll, ul = _seq_len_pair(input, label, "warpctc", "logits and label")
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="warpctc",
+        inputs={"Logits": [input], "Label": [label], "LogitsLen": [ll],
+                "LabelLen": [ul]},
+        outputs={"Loss": [loss]},
+        attrs={"blank": int(blank), "norm_by_times": bool(norm_by_times)})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """argmax over the classes, then ctc_align (reference layers/nn.py
+    ctc_greedy_decoder:3704).  input: (B, T, C) probabilities with
+    .seq_len."""
+    from . import tensor as tensor_layers
+    from .sequence import seq_len_var
+
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    ids = tensor_layers.argmax(input, axis=-1)
+    sl = seq_len_var(input)
+    decoded = helper.create_variable_for_type_inference("int64")
+    out_len = helper.create_variable_for_type_inference("int32")
+    ins = {"Input": [ids]}
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    helper.append_op(type="ctc_align", inputs=ins,
+                     outputs={"Output": [decoded], "OutLen": [out_len]},
+                     attrs={"blank": int(blank), "merge_repeated": True})
+    return decoded, out_len
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64"):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"seed": seed})
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_len=None):
+    """Chunk-level P/R/F1 of sequence tagging (reference layers/nn.py
+    chunk_eval; the IOB scheme, as the reference package implements
+    it).  input/label: (B, T) padded tag ids with a .seq_len companion
+    on `input` (or pass seq_len=)."""
+    from .sequence import seq_len_var
+
+    if chunk_scheme != "IOB":
+        raise NotImplementedError(
+            f"chunk_scheme {chunk_scheme!r}: only IOB is implemented "
+            f"(reference chunk_eval_op.h also supports IOE/IOBES)")
+    helper = LayerHelper("chunk_eval")
+    sl = seq_len if seq_len is not None else seq_len_var(input)
+    if sl is None:
+        raise ValueError("chunk_eval needs a .seq_len companion or "
+                         "seq_len= argument")
+    slots = ["Precision", "Recall", "F1-Score", "NumInferChunks",
+             "NumLabelChunks", "NumCorrectChunks"]
+    outs = {s: [helper.create_variable_for_type_inference(
+        "float32" if i < 3 else "int64")] for i, s in enumerate(slots)}
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label], "SeqLen": [sl]},
+        outputs=outs,
+        attrs={"num_chunk_types": int(num_chunk_types),
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return tuple(outs[s][0] for s in slots)
+
+
+def mean_iou(input, label, num_classes):
+    """Mean IoU over the classes (reference layers/nn.py mean_iou:6957):
+    (mean IoU, out_wrong (C,), out_correct (C,))."""
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("int32")
+    correct = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="mean_iou",
+        inputs={"Predictions": [input], "Labels": [label]},
+        outputs={"OutMeanIou": [miou], "OutWrong": [wrong],
+                 "OutCorrect": [correct]},
+        attrs={"num_classes": int(num_classes)})
+    return miou, wrong, correct
+
+
+def modified_huber_loss(x, y, name=None):
+    """Modified Huber loss of binary classification (reference
+    modified_huber_loss_op.cc): x the scores (N, 1), y labels {0, 1}."""
+    helper = LayerHelper("modified_huber_loss", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inter = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="modified_huber_loss",
+                     inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out], "IntermediateVal": [inter]})
+    return out
+
+
+def positive_negative_pair(score, label, query_id, weight=None, column=-1,
+                           accumulators=None, name=None):
+    """Learning-to-rank pair counts (reference
+    positive_negative_pair_op.cc): (pos, neg, neutral); `accumulators`
+    an optional (pos, neg, neu) of earlier totals."""
+    helper = LayerHelper("positive_negative_pair", name=name)
+    outs = [helper.create_variable_for_type_inference("float32")
+            for _ in range(3)]
+    ins = {"Score": [score], "Label": [label], "QueryID": [query_id]}
+    if weight is not None:
+        ins["Weight"] = [weight]
+    if accumulators is not None:
+        for kind, acc in zip(("Positive", "Negative", "Neutral"),
+                             accumulators):
+            ins[f"Accumulate{kind}Pair"] = [acc]
+    helper.append_op(type="positive_negative_pair", inputs=ins,
+                     outputs={"PositivePair": [outs[0]],
+                              "NegativePair": [outs[1]],
+                              "NeutralPair": [outs[2]]},
+                     attrs={"column": int(column)})
+    return tuple(outs)

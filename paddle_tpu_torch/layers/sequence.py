@@ -1,6 +1,5 @@
-"""Sequence layer functions: the subset of paddle_tpu/layers/sequence.py
-the ported slice builds (reference: python/paddle/fluid/layers/nn.py
-sequence_* family).  Ragged inputs are padded (N, T, ...) vars with a
+"""Sequence layer functions: the port of paddle_tpu/layers/sequence.py
+(reference: python/paddle/fluid/layers/nn.py sequence_* family).  Ragged inputs are padded (N, T, ...) vars with a
 companion `<name>.seq_len` var; these wrappers wire the companion through
 ops and propagate it to outputs that stay sequences.
 """
@@ -322,3 +321,225 @@ def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
     _propagate_seq_len(input, out)
     pre_act = helper.append_bias_op(out, dim_start=2)
     return helper.append_activation(pre_act)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the sequence family (ops/sequence.py)
+# ---------------------------------------------------------------------------
+
+def lod_reset(x, y=None, target_lod=None):
+    """Re-segment a token stream (reference layers/nn.py lod_reset:5900).
+    The new segmentation fixes the padded output's shape, so it is
+    static: `target_lod` a list of offsets, or `y` a Python list of
+    lengths.  A tensor y is refused, as in the reference package."""
+    if target_lod is None:
+        if isinstance(y, (list, tuple)):
+            off = [0]
+            for ln in y:
+                off.append(off[-1] + int(ln))
+            target_lod = off
+        else:
+            raise ValueError(
+                "lod_reset needs a static target_lod (list of offsets) "
+                "or a python-list y of lengths; a runtime tensor lod "
+                "would make the padded output shape dynamic")
+    helper = LayerHelper("lod_reset")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    length = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="lod_reset", inputs=_seq_inputs(x),
+                     outputs={"Out": [out], "Length": [length]},
+                     attrs={"target_lod": [int(v) for v in target_lod]})
+    _emit_companion(out, length)
+    return out
+
+
+def sequence_softmax(input, use_cudnn=False, name=None):
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="sequence_softmax", inputs=_seq_inputs(input),
+                     outputs={"Out": [out]})
+    _propagate_seq_len(input, out)
+    return out
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    """reference layers/nn.py sequence_expand.  With a nested y
+    (lod_level=2: seq_len and seq_len2 companions), each x sequence
+    broadcasts across y's sub-sequence slots and the output is nested
+    itself (reference sequence_expand_op.h, ref_level 0 over a 2-level
+    lod)."""
+    _require_level1(x, "sequence_expand")
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x], "Y": [y]}
+    xl = seq_len_var(x)
+    if xl is not None:
+        ins["SeqLen"] = [xl]
+    yl, yl2 = seq_len_var(y), seq_len2_var(y)
+    if yl2 is None:
+        helper.append_op(type="sequence_expand", inputs=ins,
+                         outputs={"Out": [out]})
+        _propagate_seq_len(y, out)
+        return out
+    if yl is not None:
+        ins["YLen"] = [yl]
+    ins["YLen2"] = [yl2]
+    length = helper.create_variable_for_type_inference("int32")
+    outputs = {"Out": [out], "Length": [length]}
+    # a dense (N, D) x expands to a level-1 output (S1 repeated items), a
+    # sequence x (N, Tx, ...) to a nested one
+    x_is_seq = len(x.shape) >= 3
+    if x_is_seq:
+        length2 = helper.create_variable_for_type_inference("int32")
+        outputs["Length2"] = [length2]
+    helper.append_op(type="sequence_expand", inputs=ins, outputs=outputs)
+    _emit_companion(out, length)
+    if x_is_seq:
+        _emit_companion(out, length2, "seq_len2")
+    return out
+
+
+def sequence_expand_as(x, y, name=None):
+    _require_level1(x, "sequence_expand_as")
+    helper = LayerHelper("sequence_expand_as", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sequence_expand_as", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    _propagate_seq_len(y, out)
+    return out
+
+
+def sequence_concat(input, name=None):
+    """reference layers/nn.py sequence_concat: out_i = the i-th sequence
+    of every input, concatenated.  Ragged level-1 inputs pack their
+    valid prefixes back to back; nested (lod_level=2) inputs
+    concatenate each row's sub-sequence lists (reference
+    lod_tensor.h:76-104)."""
+    items = list(input) if isinstance(input, (list, tuple)) else [input]
+    helper = LayerHelper("sequence_concat", name=name)
+    out = helper.create_variable_for_type_inference(items[0].dtype)
+    nested = [seq_len2_var(i) is not None for i in items]
+    ins = {"X": items}
+    lens = [seq_len_var(i) for i in items]
+    length = helper.create_variable_for_type_inference("int32")
+    outputs = {"Out": [out], "Length": [length]}
+    if any(nested):
+        if not all(nested):
+            raise NotImplementedError(
+                "sequence_concat: mixing nested (lod_level=2) and flat "
+                "inputs is not supported; expand the flat input first")
+        ins["SeqLen"] = lens
+        ins["SeqLen2"] = [seq_len2_var(i) for i in items]
+        length2 = helper.create_variable_for_type_inference("int32")
+        outputs["Length2"] = [length2]
+    elif all(ln is not None for ln in lens):
+        ins["SeqLen"] = lens
+    elif any(ln is not None for ln in lens):
+        raise ValueError(
+            "sequence_concat: every ragged input needs its .seq_len "
+            "companion (mixing ragged and dense inputs is ambiguous)")
+    helper.append_op(type="sequence_concat", inputs=ins, outputs=outputs)
+    if "SeqLen" in ins:
+        # only ragged or nested outputs carry companions
+        _emit_companion(out, length)
+    if any(nested):
+        _emit_companion(out, length2, "seq_len2")
+    return out
+
+
+def sequence_reverse(x, name=None):
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sequence_reverse", inputs=_seq_inputs(x),
+                     outputs={"Y": [out]})
+    _propagate_seq_len(x, out)
+    return out
+
+
+def sequence_pad(x, pad_value, maxlen=None, name=None):
+    helper = LayerHelper("sequence_pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    length = helper.create_variable_for_type_inference("int64")
+    ins = _seq_inputs(x)
+    ins["PadValue"] = [pad_value]
+    helper.append_op(type="sequence_pad", inputs=ins,
+                     outputs={"Out": [out], "Length": [length]},
+                     attrs={"padded_length": maxlen if maxlen else -1})
+    return out, length
+
+
+def _seq_op(op_type, x, ins, attrs=None, propagate=False, name=None,
+            out_slot="Out"):
+    """One level-1 sequence op of one output `out_slot`, shaped like x."""
+    _require_level1(x, op_type)
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type=op_type, inputs=ins, outputs={out_slot: [out]},
+                     attrs=attrs or {})
+    if propagate:
+        _propagate_seq_len(x, out)
+    return out
+
+
+def sequence_unpad(x, length, name=None):
+    return _seq_op("sequence_unpad", x, {"X": [x], "Length": [length]},
+                   name=name)
+
+
+def sequence_slice(input, offset, length, name=None):
+    return _seq_op("sequence_slice", input, {"X": [input],
+                                             "Offset": [offset],
+                                             "Length": [length]}, name=name)
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None):
+    return _seq_op("sequence_enumerate", input, {"X": [input]},
+                   {"win_size": win_size, "pad_value": pad_value},
+                   propagate=True, name=name)
+
+
+def sequence_erase(input, tokens, name=None):
+    return _seq_op("sequence_erase", input, {"X": [input]},
+                   {"tokens": list(tokens)}, propagate=True, name=name)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    def as_list(v, n):
+        return list(v) if isinstance(v, (list, tuple)) else [v] * n
+
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": as_list(filter_size, 2),
+                            "strides": as_list(stride, 2),
+                            "paddings": as_list(padding, 4)})
+    return out
+
+
+def sequence_scatter(input, index, updates, name=None):
+    """reference layers/nn.py sequence_scatter: index and updates are
+    per-sequence (padded), index's .seq_len companion giving the
+    counts."""
+    helper = LayerHelper("sequence_scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input], "Ids": [index], "Updates": [updates]}
+    sl = seq_len_var(index)
+    if sl is not None:
+        ins["IdsLen"] = [sl]
+    helper.append_op(type="sequence_scatter", inputs=ins,
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_reshape(input, new_dim, name=None):
+    """reference layers/nn.py sequence_reshape."""
+    helper = LayerHelper("sequence_reshape", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="sequence_reshape", inputs=_seq_inputs(input),
+                     outputs={"Out": [out], "OutLen": [out_len]},
+                     attrs={"new_dim": int(new_dim)})
+    _emit_companion(out, out_len)
+    return out

@@ -2,7 +2,8 @@
 
 The port of paddle_tpu/ops: the same op names, slots and attrs, each a
 plain function on torch tensors.  Only the ops of the ported slices are
-here; ROADMAP queue A lists the rest (step 8d and paged_kv_import).
+here; ROADMAP queue A lists the rest (step 8d's detection and
+vision_extra families, and paged_kv_import).
 """
 
 from ..core.registry import register_op, registered_ops  # noqa: F401
@@ -14,6 +15,7 @@ from . import moe  # noqa: F401
 from . import nn  # noqa: F401
 from . import optim  # noqa: F401
 from . import paged_kv  # noqa: F401
+from . import quantize  # noqa: F401
 from . import rnn  # noqa: F401
 from . import sequence  # noqa: F401
 from . import sparse  # noqa: F401

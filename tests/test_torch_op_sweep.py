@@ -289,8 +289,22 @@ def _random_crop_draws(spec):
     assert len(offsets) > 10
 
 
-# the random ops of the registry's dense half: range and moments, or the
-# window a crop reads
+def _sampling_id_draws(spec):
+    """4096 rows drawing from [0.1, 0.2, 0.3, 0.4, 0]: every id in
+    [0, 4) (the zero-probability class never drawn), int32, each class's
+    share within 4 standard deviations of its probability."""
+    p = np.array([0.1, 0.2, 0.3, 0.4, 0.0], np.float32)
+    ids = run_torch_op_all("sampling_id", {"X": np.tile(p, (4096, 1))},
+                           {})["Out"]
+    assert ids.shape == (4096,) and ids.dtype == np.int32
+    assert ids.min() >= 0 and ids.max() <= 3
+    counts = np.bincount(ids, minlength=5)
+    sd = np.sqrt(4096 * p * (1 - p))
+    assert np.all(np.abs(counts - 4096 * p) <= 4 * sd + 1e-9), counts
+
+
+# the random ops of the registry's dense half and of the structured
+# family: range and moments, or the window a crop reads
 DRAWS = {
     "uniform_random_batch_size_like": lambda spec: _batch_like_draws(
         dict(spec, op="uniform_random_batch_size_like",
@@ -300,6 +314,7 @@ DRAWS = {
         dict(spec, op="gaussian_random_batch_size_like"), 1.0, 0.5),
     "randint": _randint_draws,
     "random_crop": _random_crop_draws,
+    "sampling_id": _sampling_id_draws,
 }
 
 
