@@ -315,8 +315,33 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    at B 16, T 400, 29 classes; quantized_conv2d at ResNet-50's stem, a
    3 x 3 x 512 layer and groups 32) on the card against the CPU,
    quantized_conv2d and quantized_matmul bit for bit;
+6v. detection (the detection and vision_extra families): (a) Faster
+   R-CNN ResNet-50-C4 at upstream Fluid PaddleCV/rcnn's training
+   setting (`faster_rcnn`: one 800 x 1333 image with 8 seeded gt boxes,
+   res2-res4 of models/resnet.py's bottleneck blocks with frozen
+   affine_channel batch norms, an RPN of 15 anchors a cell,
+   rpn_target_assign 256 anchors, generate_proposals 12000 / 2000 at NMS
+   0.7, generate_proposal_labels 512 RoIs at 81 classes, roi_align 14 x
+   14, res5 and the two heads; momentum 0.01 with L2 1e-4):
+   FRCNN_STEPS steps with use_random (finite losses, sampled counts
+   within their budgets, each step's ms and NMS iterations), then one
+   step with use_random=False whose anchor_generator,
+   generate_proposals, rpn_target_assign, generate_proposal_labels and
+   roi_align run again on the CPU from the card's inputs (integers
+   equal, boxes within TOL_BOX, the rest within TOL_DENSE, roi_align's
+   input gradient on res4's first FRCNN_ALIGN_CHANNELS channels, within
+   TOL_DENSE plus TOL_GRAD_SHARE of its largest); two
+   more steps timed and a profiled window;
+   (b) the detection program at the test setting (6000 / 1000
+   proposals, box_coder decoding, box_clip, softmax, multiclass_nms at
+   score 0.05, NMS 0.5, keep 100, detection_map against the gts), the
+   ms and NMS iterations of generate_proposals and multiclass_nms each
+   alone, both card against CPU; the kernel counts zeroed before (a)
+   and read after (b); (c) each of the 27 ops (`detection_op_cases`, at
+   MobileNet-SSD's, YOLOv3-608's and Faster R-CNN's widths) and
+   ssd_loss per image over a batch of 8 on the card against the CPU;
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6u included), the card line, and as its last line
+   6l-6v included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -327,6 +352,7 @@ chip_smoke_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -6265,6 +6291,847 @@ def phase_qat_int8(dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6v: Faster R-CNN ResNet-50-C4, the detection and vision families
+# ---------------------------------------------------------------------------
+
+# upstream Fluid PaddleCV/rcnn's ResNet-50-C4 Faster R-CNN at its
+# per-card training batch (one 800 x 1333 image) and its RPN, sampling and
+# test settings; 8 seeded ground-truth boxes in 80 classes
+FRCNN = dict(image=(800, 1333), batch=1, classes=81, gt_boxes=8,
+             stages=(3, 4, 6, 3), base=64,
+             anchor_sizes=(32.0, 64.0, 128.0, 256.0, 512.0),
+             aspect_ratios=(0.5, 1.0, 2.0), rpn_batch=256,
+             train_nms=(12000, 2000), test_nms=(6000, 1000), rois=512,
+             roi_resolution=14)
+FRCNN_STEPS = 3
+FRCNN_LR = 0.01
+FRCNN_BRANCH_SCALE = 0.2   # each bottleneck's last frozen affine scale
+
+
+def _conv_affine(fluid, x, filters, size, stride, name, act=None,
+                 scale=1.0):
+    """conv2d (no bias, He init) and the frozen batch norm of upstream's
+    rcnn trunk: an affine_channel whose Scale and Bias are parameters
+    that do not train."""
+    L = fluid.layers
+    conv = L.conv2d(x, filters, size, stride=stride,
+                    padding=(size - 1) // 2, bias_attr=False,
+                    param_attr=fluid.ParamAttr(
+                        name=f"{name}_weights",
+                        initializer=fluid.initializer.MSRA(uniform=False)))
+    helper = L.LayerHelper("affine_channel")
+
+    def frozen(suffix, value):
+        return helper.create_parameter(
+            fluid.ParamAttr(name=f"{name}_{suffix}", trainable=False,
+                            initializer=fluid.initializer.Constant(value)),
+            shape=[filters], dtype="float32")
+
+    out = L.affine_channel(conv, scale=frozen("scale", scale),
+                           bias=frozen("offset", 0.0))
+    return L.relu(out) if act == "relu" else out
+
+
+def _bottleneck(fluid, x, ch_out, stride, name):
+    """models/resnet.py's bottleneck (stride on the first 1 x 1), its
+    batch norms frozen affines; the branch's last scale
+    FRCNN_BRANCH_SCALE keeps the untrained trunk's activations in range."""
+    if x.shape[1] != ch_out * 4:
+        short = _conv_affine(fluid, x, ch_out * 4, 1, stride,
+                             f"{name}_branch1")
+    else:
+        short = x
+    c1 = _conv_affine(fluid, x, ch_out, 1, stride, f"{name}_branch2a",
+                      "relu")
+    c2 = _conv_affine(fluid, c1, ch_out, 3, 1, f"{name}_branch2b", "relu")
+    c3 = _conv_affine(fluid, c2, ch_out * 4, 1, 1, f"{name}_branch2c",
+                      scale=FRCNN_BRANCH_SCALE)
+    return fluid.layers.elementwise_add(short, c3, act="relu")
+
+
+def _layer_warp(fluid, x, ch_out, count, stride, name):
+    """models/resnet.py's layer_warp."""
+    for i in range(count):
+        x = _bottleneck(fluid, x, ch_out, stride if i == 0 else 1,
+                        f"{name}{chr(ord('a') + i)}")
+    return x
+
+
+def _frcnn_head(fluid, cfg, body, rois, n_rois):
+    """RoIAlign on res4, res5 over the RoIs, average pooling, the class
+    and box heads: (cls_score (R, C), bbox_pred (R, 4C))."""
+    L = fluid.layers
+    b = cfg["batch"]
+    ids = np.repeat(np.arange(b), n_rois)[:, None].astype(np.float32)
+    rois5 = L.concat([L.assign(ids), L.reshape(rois, [-1, 4])], axis=1)
+    res = cfg["roi_resolution"]
+    pooled = L.roi_align(body, rois5, res, res, 1.0 / 16.0,
+                         sampling_ratio=0)
+    res5 = _layer_warp(fluid, pooled, cfg["base"] * 8, cfg["stages"][3], 2,
+                       "res5")
+    feat = L.pool2d(res5, pool_type="avg", global_pooling=True)
+    c = cfg["classes"]
+
+    def fc(x, size, std, name):
+        return L.fc(x, size,
+                    param_attr=fluid.ParamAttr(
+                        name=f"{name}_w",
+                        initializer=fluid.initializer.Normal(0.0, std)),
+                    bias_attr=fluid.ParamAttr(
+                        name=f"{name}_b",
+                        initializer=fluid.initializer.Constant(0.0)))
+
+    return fc(feat, c, 0.01, "cls_score"), fc(feat, 4 * c, 0.001,
+                                              "bbox_pred")
+
+
+def faster_rcnn(fluid, cfg, train=True, use_random=True):
+    """Faster R-CNN with a ResNet-C4 trunk (res2-res4 of
+    models/resnet.py's blocks, frozen affines), built with `fluid`'s
+    layers as upstream Fluid's PaddleCV/rcnn builds it.  train: the RPN
+    and RCNN losses (RPN sigmoid CE + smooth L1 at sigma 3, RCNN softmax
+    CE + smooth L1) under momentum with L2; returns {name: Variable}.
+    Else the detection program: proposals at the test setting, the head,
+    box_coder decoding, box_clip, softmax, multiclass_nms and
+    detection_map against the ground truth."""
+    L = fluid.layers
+    b, (h, w), c = cfg["batch"], cfg["image"], cfg["classes"]
+    g = cfg["gt_boxes"]
+    image = L.data("image", shape=[b, 3, h, w], append_batch_size=False)
+    im_info = L.data("im_info", shape=[b, 3], append_batch_size=False)
+    gt_box = L.data("gt_box", shape=[b, g, 4], append_batch_size=False)
+    gt_label = L.data("gt_label", shape=[b, g], dtype="int32",
+                      append_batch_size=False)
+    is_crowd = L.data("is_crowd", shape=[b, g], dtype="int32",
+                      append_batch_size=False)
+    base = cfg["base"]
+    x = _conv_affine(fluid, image, base, 7, 2, "conv1", "relu")
+    x = L.pool2d(x, 3, "max", 2, 1)
+    for i, (count, stride) in enumerate(zip(cfg["stages"][:3], (1, 2, 2))):
+        x = _layer_warp(fluid, x, base * 2 ** i, count, stride,
+                        f"res{i + 2}")
+    body = x                                          # stride 16
+    dim = body.shape[1]
+    na = len(cfg["anchor_sizes"]) * len(cfg["aspect_ratios"])
+
+    def conv(xx, filters, size, name, act=None):
+        return L.conv2d(xx, filters, size, padding=(size - 1) // 2, act=act,
+                        param_attr=fluid.ParamAttr(
+                            name=f"{name}_w",
+                            initializer=fluid.initializer.Normal(0.0, 0.01)),
+                        bias_attr=fluid.ParamAttr(
+                            name=f"{name}_b",
+                            initializer=fluid.initializer.Constant(0.0)))
+
+    rpn = conv(body, dim, 3, "conv_rpn", "relu")
+    rpn_cls = conv(rpn, na, 1, "rpn_cls_score")
+    rpn_bbox = conv(rpn, 4 * na, 1, "rpn_bbox_pred")
+    anchors, variances = L.detection.anchor_generator(
+        rpn, anchor_sizes=list(cfg["anchor_sizes"]),
+        aspect_ratios=list(cfg["aspect_ratios"]),
+        variance=[1.0, 1.0, 1.0, 1.0], stride=[16.0, 16.0])
+    pre_n, post_n = cfg["train_nms" if train else "test_nms"]
+    rois, rois_num = L.detection.generate_proposals(
+        L.sigmoid(rpn_cls), rpn_bbox, im_info, anchors, variances,
+        pre_nms_top_n=pre_n, post_nms_top_n=post_n, nms_thresh=0.7,
+        min_size=0.0)
+    out = dict(rois=rois, rois_num=rois_num)
+    if train:
+        fh, fw = body.shape[2], body.shape[3]
+        score_flat = L.reshape(L.transpose(rpn_cls, perm=[0, 2, 3, 1]),
+                               shape=[0, -1, 1])
+        delta_flat = L.reshape(L.transpose(
+            L.reshape(rpn_bbox, shape=[0, na, 4, fh, fw]),
+            perm=[0, 3, 4, 1, 2]), shape=[0, -1, 4])
+        (pred_score, pred_loc, tgt_lbl, tgt_bbox, in_w,
+         score_w) = L.detection.rpn_target_assign(
+            delta_flat, score_flat, L.reshape(anchors, shape=[-1, 4]),
+            variances, gt_box, is_crowd, im_info,
+            rpn_batch_size_per_im=cfg["rpn_batch"], rpn_straddle_thresh=0.0,
+            rpn_fg_fraction=0.5, rpn_positive_overlap=0.7,
+            rpn_negative_overlap=0.3, use_random=use_random)
+        n_w = L.reduce_sum(score_w)
+        rpn_cls_loss = L.elementwise_div(L.reduce_sum(L.elementwise_mul(
+            L.sigmoid_cross_entropy_with_logits(
+                L.squeeze(pred_score, axes=[2]), L.cast(tgt_lbl, "float32")),
+            score_w)), n_w)
+        f4 = int(cfg["rpn_batch"] * 0.5) * 4
+        in_w4 = L.reshape(in_w, shape=[0, f4])
+        rpn_reg_loss = L.elementwise_div(L.reduce_sum(L.smooth_l1(
+            L.reshape(pred_loc, shape=[0, f4]),
+            L.reshape(tgt_bbox, shape=[0, f4]),
+            inside_weight=in_w4, outside_weight=in_w4, sigma=3.0)),
+            L.elementwise_max(n_w, L.fill_constant([1], "float32", 1.0)))
+        (s_rois, labels, tgts, s_in_w, s_out_w,
+         s_num) = L.detection.generate_proposal_labels(
+            rois, gt_label, is_crowd, gt_box, im_info,
+            batch_size_per_im=cfg["rois"], fg_fraction=0.25, fg_thresh=0.5,
+            bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+            bbox_reg_weights=[0.1, 0.1, 0.2, 0.2], class_nums=c,
+            use_random=use_random, rpn_rois_num=rois_num)
+        cls_score, bbox_pred = _frcnn_head(fluid, cfg, body, s_rois,
+                                           cfg["rois"])
+        lab = L.reshape(L.cast(labels, "int64"), shape=[-1, 1])
+        loss_cls = L.mean(L.softmax_with_cross_entropy(cls_score, lab,
+                                                       ignore_index=-1))
+        loss_bbox = L.mean(L.smooth_l1(
+            bbox_pred, L.reshape(tgts, shape=[-1, 4 * c]),
+            inside_weight=L.reshape(s_in_w, shape=[-1, 4 * c]),
+            outside_weight=L.reshape(s_out_w, shape=[-1, 4 * c]),
+            sigma=1.0))
+        loss = L.sums([rpn_cls_loss, rpn_reg_loss, loss_cls, loss_bbox])
+        fluid.optimizer.MomentumOptimizer(
+            learning_rate=FRCNN_LR, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(1e-4)).minimize(loss)
+        out.update(loss=loss, rpn_cls_loss=rpn_cls_loss,
+                   rpn_reg_loss=rpn_reg_loss, loss_cls=loss_cls,
+                   loss_bbox=loss_bbox, fg_num=L.reduce_sum(tgt_lbl),
+                   rois_fg=labels, sampled=s_num, score_w=score_w)
+        return out
+    cls_score, bbox_pred = _frcnn_head(fluid, cfg, body, rois, post_n)
+    r = b * post_n
+    prob = L.softmax(cls_score)                                   # (R, C)
+    pvar = L.assign(np.tile(np.float32([0.1, 0.1, 0.2, 0.2]), (r, 1)))
+    deltas = L.transpose(L.reshape(bbox_pred, shape=[r, c, 4]),
+                         perm=[1, 0, 2])                          # (C, R, 4)
+    boxes = L.detection.box_coder(L.reshape(rois, shape=[r, 4]), pvar,
+                                  deltas, code_type="decode_center_size",
+                                  box_normalized=False)
+    boxes = L.reshape(L.transpose(boxes, perm=[1, 0, 2]),
+                      shape=[b, post_n * c, 4])
+    boxes = L.detection.box_clip(boxes, im_info)
+    norm = L.assign(np.float32([1.0 / w, 1.0 / h, 1.0 / w, 1.0 / h]))
+    boxes = L.elementwise_mul(boxes, norm)
+    # class c's scores on its own boxes, 0 on the other classes' boxes:
+    # (C, R, 1) x eye (C, 1, C) → (C, N, P * C) → (N, C, P * C)
+    eye = L.assign(np.eye(c, dtype=np.float32).reshape(c, 1, c))
+    scores = L.transpose(L.reshape(L.elementwise_mul(
+        L.reshape(L.transpose(prob, perm=[1, 0]), shape=[c, r, 1]), eye),
+        shape=[c, b, post_n * c]), perm=[1, 0, 2])
+    dets, det_num = L.detection.multiclass_nms(
+        boxes, scores, score_threshold=0.05, nms_top_k=post_n,
+        keep_top_k=100, nms_threshold=0.5, background_label=0)
+    gt_norm = L.data("gt_norm", shape=[b, g, 6], append_batch_size=False)
+    m_ap = L.detection.detection_map(dets, gt_norm, class_num=c,
+                                     background_label=0,
+                                     overlap_threshold=0.5,
+                                     ap_version="integral")
+    out.update(prob=prob, boxes=boxes, dets=dets, det_num=det_num,
+               m_ap=m_ap)
+    return out
+
+
+def frcnn_feed(cfg, seed=0):
+    """One synthetic batch: pixels N(0, 1), `gt_boxes` boxes an image of
+    32-400 pixels a side with classes in 1..C-1, im_info [h, w, 1], and
+    the boxes normalized for detection_map (label, box, difficult 0)."""
+    rng = np.random.RandomState(seed)
+    b, (h, w), g = cfg["batch"], cfg["image"], cfg["gt_boxes"]
+    lo, hi = min(32.0, h / 4), min(400.0, h / 2)
+    size = rng.uniform(lo, hi, (b, g, 2))
+    x1 = rng.uniform(0, w - size[..., 0] - 1)
+    y1 = rng.uniform(0, h - size[..., 1] - 1)
+    boxes = np.stack([x1, y1, x1 + size[..., 0], y1 + size[..., 1]],
+                     axis=-1).astype(np.float32)
+    labels = rng.randint(1, cfg["classes"], (b, g)).astype(np.int32)
+    scale = np.float32([w, h, w, h])
+    return {"image": rng.randn(b, 3, h, w).astype(np.float32),
+            "im_info": np.tile(np.float32([h, w, 1.0]), (b, 1)),
+            "gt_box": boxes, "gt_label": labels,
+            "is_crowd": np.zeros((b, g), np.int32),
+            "gt_norm": np.concatenate(
+                [labels[..., None].astype(np.float32), boxes / scale,
+                 np.zeros((b, g, 1), np.float32)], axis=-1)}
+
+
+TOL_BOX = dict(rtol=0.0, atol=1e-3)   # pixel boxes to 1333 (ulp 1.2e-4)
+# gradients: TOL_DENSE plus this share of their largest magnitude (the
+# RoI ops' backward scatter-adds overlapping samples, in another order on
+# each device, so an entry near 0 keeps the error of its largest terms)
+TOL_GRAD_SHARE = 1e-5
+FRCNN_ALIGN_CHANNELS = 128            # roi_align's CPU check: res4's first
+ON_PATH = ("anchor_generator", "generate_proposals", "rpn_target_assign",
+           "generate_proposal_labels", "roi_align")
+BOX_SLOTS = ("RpnRois", "Rois", "Anchors")
+NMS_OPS = ("multiclass_nms", "generate_proposals")
+
+
+def _frcnn_build(cfg, train, use_random=True):
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        out = faster_rcnn(pt, cfg, train=train, use_random=use_random)
+    return main, startup, out
+
+
+def _cpu_op(op, ins_np, attrs):
+    """One port op on the CPU from numpy inputs (an array or a list of
+    arrays a slot) → {slot: its first output as numpy}."""
+    got, _ = _run_dense(op, ins_np, attrs, "cpu", None, None)
+    return {s: v[0] for s, v in got.items()}
+
+
+def _grad_tol(b):
+    return dict(rtol=TOL_DENSE["rtol"], atol=max(
+        TOL_DENSE["atol"], TOL_GRAD_SHARE * float(np.abs(b).max(initial=0))))
+
+
+def _compare(label, what, a, b, tol):
+    """Card `a` against CPU `b`: integers equal, floats within `tol`;
+    → max abs err."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{label} {what}: {a.shape} {a.dtype} vs "
+                             f"{b.shape} {b.dtype}")
+    if not np.issubdtype(b.dtype, np.floating):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label} {what}: integers differ at "
+                                 f"{int((a != b).sum())} of {a.size}")
+        return 0.0
+    if not np.allclose(a, b, **tol):
+        raise AssertionError(f"{label} {what}: max abs err "
+                             f"{np.abs(a - b).max():.3e} (tol {tol})")
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def _ops_card_vs_cpu(label, program, vals, types, dev):
+    """Each op of `types` in `program`, run on the CPU from the inputs the
+    card run fetched (`vals`), against the card's outputs: integer
+    outputs equal, boxes within TOL_BOX, the rest within TOL_DENSE; the
+    NMS ops' kept sets equal.  roi_align on res4's first
+    FRCNN_ALIGN_CHANNELS channels (each channel is independent), with
+    its input gradient card against CPU."""
+    errs = {}
+    for op in program.global_block().ops:
+        if op.type not in types:
+            continue
+        desc = op.desc
+        ins = {s: [vals[n] for n in ns] for s, ns in desc.inputs.items()}
+        if op.type == "roi_align":
+            ins["X"] = [ins["X"][0][:, :FRCNN_ALIGN_CHANNELS]]
+        t0 = time.perf_counter()
+        cpu = _cpu_op(op.type, ins, desc.attrs)
+        for slot, ns in desc.outputs.items():
+            card = vals[ns[0]]
+            if op.type == "roi_align":
+                card = card[:, :FRCNN_ALIGN_CHANNELS]
+            tol = TOL_BOX if slot in BOX_SLOTS else TOL_DENSE
+            errs[f"{op.type}.{slot}"] = _compare(label, f"{op.type}.{slot}",
+                                                 card, cpu[slot], tol)
+        if op.type == "roi_align":
+            attrs = dict(desc.attrs)
+            one = {s: v[0] for s, v in ins.items()}
+            _, g_card = _run_dense(op.type, one, attrs, dev, ["X"], "Out")
+            _, g_cpu = _run_dense(op.type, one, attrs, "cpu", ["X"], "Out")
+            errs["roi_align.dX"] = _compare(label, "roi_align dX",
+                                            g_card["X"], g_cpu["X"],
+                                            _grad_tol(g_cpu["X"]))
+        cpu_s = time.perf_counter() - t0
+        log(f"  {label}: {op.type} card vs CPU ({cpu_s:.1f} s on the CPU)")
+    return errs
+
+
+def phase_frcnn(dev, card):
+    """6v (a) and (b): Faster R-CNN ResNet-50-C4 at upstream's training
+    setting (FRCNN_STEPS momentum steps, use_random), one more step with
+    use_random=False whose detection ops run again on the CPU from the
+    card's inputs, then the detection program at the test setting."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.registry import OpContext, get_op_impl
+    from paddle_tpu_torch.ops import detection
+
+    cfg = FRCNN
+    log(f"phase 6v (a): Faster R-CNN ResNet-50-C4, {cfg['image'][0]} x "
+        f"{cfg['image'][1]}, {cfg['classes']} classes, {cfg['gt_boxes']} "
+        f"gt boxes, {FRCNN_STEPS} momentum steps (lr {FRCNN_LR}), float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    main, startup, out = _frcnn_build(cfg, True, use_random=True)
+    fixed, _, fout = _frcnn_build(cfg, True, use_random=False)
+    infer, _, iout = _frcnn_build(cfg, False)
+    types = [op.type for op in main.global_block().ops]
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed_np = frcnn_feed(cfg, 0)
+    feed = {k: torch.as_tensor(v).to(dev) for k, v in feed_np.items()}
+    train_feed = {k: v for k, v in feed.items()
+                  if main.global_block().has_var(k)}
+    names = ("loss", "rpn_cls_loss", "rpn_reg_loss", "loss_cls",
+             "loss_bbox", "fg_num", "score_w", "rois_fg", "sampled",
+             "rois_num")
+    steps = []
+    for _ in range(FRCNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = dict(zip(names, exe.run(main, feed=train_feed, scope=scope,
+                                    fetch_list=[out[n] for n in names])))
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {n: float(np.asarray(v[n]).reshape(-1)[0])
+               for n in names[:5]}
+        rec.update(ms=ms, rpn_fg=int(v["fg_num"].sum()),
+                   rpn_sampled=int(v["score_w"].sum()),
+                   rcnn_fg=int((v["rois_fg"] > 0).sum()),
+                   rcnn_sampled=int(v["sampled"].sum()),
+                   proposals=int(v["rois_num"].sum()),
+                   nms_iterations=detection.nms_iterations[
+                       "generate_proposals"])
+        steps.append(rec)
+        log(f"  step {len(steps)}: loss {rec['loss']:.6f} (rpn cls "
+            f"{rec['rpn_cls_loss']:.4f}, rpn box {rec['rpn_reg_loss']:.4f}, "
+            f"rcnn cls {rec['loss_cls']:.4f}, rcnn box "
+            f"{rec['loss_bbox']:.4f}); RPN fg {rec['rpn_fg']} of "
+            f"{rec['rpn_sampled']}, RCNN fg {rec['rcnn_fg']} of "
+            f"{rec['rcnn_sampled']}, {rec['proposals']} proposals, NMS "
+            f"{rec['nms_iterations']} iterations; {ms:.1f} ms")
+        if not (np.isfinite([rec[n] for n in names[:5]]).all()
+                and rec["rpn_fg"] <= cfg["rpn_batch"] // 2
+                and rec["rpn_sampled"] <= cfg["rpn_batch"]
+                and rec["rcnn_fg"] <= cfg["rois"] // 4
+                and rec["rcnn_sampled"] <= cfg["rois"]):
+            raise AssertionError(f"phase 6v (a): step {rec}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  {types.count('affine_channel')} frozen affine_channel ops, "
+        f"{types.count('conv2d')} conv2d; peak device memory "
+        f"{peak / 1e9:.3f} GB on {card}")
+    # one more step, use_random=False: every detection op's inputs and
+    # outputs fetched, the ops run again on the CPU
+    io = sorted({n for op in fixed.global_block().ops if op.type in ON_PATH
+                 for ns in list(op.desc.inputs.values())
+                 + list(op.desc.outputs.values()) for n in ns})
+    vals = dict(zip(io, exe.run(fixed, feed=train_feed, fetch_list=io,
+                                scope=scope)))
+    errs = _ops_card_vs_cpu("phase 6v (a)", fixed, vals, ON_PATH, dev)
+    log(f"  use_random=False step: {len(errs)} outputs card vs CPU, "
+        f"integers equal; largest errors "
+        f"{sorted(errs.items(), key=lambda kv: -kv[1])[:4]}")
+    # warm steps, then a profiled window (where a step's time goes)
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        exe.run(main, feed=train_feed, fetch_list=[out["loss"]], scope=scope)
+        warm.append((time.perf_counter() - t0) * 1e3)
+    log(f"  two more steps: {warm[0]:.1f}, {warm[1]:.1f} ms")
+    prof = _profile_train_step(exe, main, train_feed, out["loss"], scope,
+                               label="phase 6v (a), profiled")
+    # (b) the detection program at upstream's test setting
+    log("phase 6v (b): detection at the test setting (pre-NMS "
+        f"{cfg['test_nms'][0]}, post-NMS {cfg['test_nms'][1]}; "
+        "multiclass_nms score 0.05, NMS 0.5, keep 100)")
+    det_io = sorted({n for op in infer.global_block().ops
+                     if op.type in NMS_OPS
+                     for ns in list(op.desc.inputs.values())
+                     + list(op.desc.outputs.values()) for n in ns})
+    fetch = ["rois_num", "dets", "det_num", "m_ap"]
+    t0 = time.perf_counter()
+    got = exe.run(infer, feed=feed, fetch_list=[iout[k] for k in fetch]
+                  + det_io, scope=scope)
+    det_ms = (time.perf_counter() - t0) * 1e3
+    dvals = dict(zip(det_io, got[len(fetch):]))
+    det = dict(zip(fetch, got[:len(fetch)]))
+    m_ap = float(np.asarray(det["m_ap"]).reshape(()))
+    n_det = int(det["det_num"].sum())
+    if not (0.0 <= m_ap <= 1.0 and 0 <= n_det <= 100):
+        raise AssertionError(f"phase 6v (b): mAP {m_ap}, {n_det} detections")
+    timing = {}
+    for op in infer.global_block().ops:
+        if op.type not in NMS_OPS:
+            continue
+        ins = {s: [torch.as_tensor(dvals[n]).to(dev) for n in ns]
+               for s, ns in op.desc.inputs.items()}
+        impl, ctx = get_op_impl(op.type), OpContext((0, 7), 11, device=dev)
+        # multiclass_nms also with every candidate valid (score 0): an
+        # untrained head's class scores (~1/C) lie under 0.05
+        variants = [("", dict(op.desc.attrs))]
+        if op.type == "multiclass_nms":
+            variants.append((" all valid", dict(op.desc.attrs,
+                                                score_threshold=0.0)))
+        for tag, attrs in variants:
+            ms = cuda_ms(lambda: impl(ctx, ins, attrs), iters=5, warmup=1)
+            key = op.type + tag.replace(" ", "_")
+            valid = None
+            if op.type == "multiclass_nms":
+                sc = ins["Scores"][0]
+                valid = int((sc[:, 1:] > attrs["score_threshold"]).sum())
+            timing[key] = {"ms": ms, "nms_iterations":
+                           detection.nms_iterations[op.type],
+                           "candidates_over_threshold": valid}
+            log(f"  {op.type}{tag} alone on the card: {ms:.3f} ms, NMS "
+                f"{detection.nms_iterations[op.type]} iterations"
+                + ("" if valid is None else
+                   f", {valid} candidates over the score threshold"))
+            if tag:
+                got_all = {k: v[0].cpu().numpy()
+                           for k, v in impl(ctx, ins, attrs).items()}
+                cpu_all = _cpu_op(op.type, {k: [dvals[n] for n in ns]
+                                            for k, ns in
+                                            op.desc.inputs.items()}, attrs)
+                for slot in got_all:
+                    _compare("phase 6v (b) all valid", slot, got_all[slot],
+                             cpu_all[slot], TOL_DENSE)
+                _compare("phase 6v (b) all valid", "labels",
+                         got_all["Out"][..., 0].astype(np.int32),
+                         cpu_all["Out"][..., 0].astype(np.int32), TOL_DENSE)
+    errs_b = _ops_card_vs_cpu("phase 6v (b)", infer, dvals, NMS_OPS, dev)
+    log(f"  {n_det} detections, mAP {m_ap:.6f} (integral, overlap 0.5); "
+        f"{int(det['rois_num'].sum())} proposals; the program {det_ms:.1f} "
+        f"ms; generate_proposals and multiclass_nms card vs CPU equal")
+    return {"steps": steps, "warm_step_ms": warm, "profile": prof,
+            "peak_mem_bytes": peak,
+            "affine_channel_ops": types.count("affine_channel"),
+            "card_vs_cpu_max_abs_err": errs, "detection": {
+                "m_ap": m_ap, "detections": n_det,
+                "proposals": int(det["rois_num"].sum()), "ms": det_ms,
+                "ops": timing, "card_vs_cpu_max_abs_err": errs_b}}
+
+
+def _ssd_prior_sizes(min_ratio=20, max_ratio=90, base=300, n=6):
+    """upstream multi_box_head's min and max sizes (layers/detection.py):
+    the first map at 10% and 20% of the base, the rest in steps of
+    floor((max - min) / (n - 2)) percent."""
+    step = int(math.floor((max_ratio - min_ratio) / (n - 2)))
+    mins, maxs = [base * 0.10], [base * 0.20]
+    for ratio in range(min_ratio, max_ratio + 1, step):
+        mins.append(base * ratio / 100.0)
+        maxs.append(base * (ratio + step) / 100.0)
+    return mins, maxs
+
+
+SSD_MAPS = (19, 10, 5, 3, 2, 1)      # MobileNet-SSD at 300 x 300
+SSD_BATCH, SSD_CLASSES, SSD_GT = 8, 21, 6
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = ((19, [6, 7, 8], 32), (38, [3, 4, 5], 16), (76, [0, 1, 2], 8))
+
+
+def detection_op_cases():
+    """{name: (op, inputs, attrs, out slot, grad slots)}: each of the 27
+    ops of the detection and vision_extra families at least once, at the
+    models' widths where a model runs it: MobileNet-SSD's priors, loss,
+    NMS and 11-point mAP (300 x 300, 21 VOC classes, batch 8), the three
+    YOLOv3-608 heads (batch 8, 80 classes, 50 boxes an image), Faster
+    R-CNN's RPN ops at 6v (a)'s shape (generate_proposals with eta
+    0.9)."""
+    rng = np.random.RandomState(22)
+    f32 = np.float32
+    cases = {}
+    mins, maxs = _ssd_prior_sizes()
+    img = np.zeros((SSD_BATCH, 3, 300, 300), f32)
+    priors = []
+    for i, s in enumerate(SSD_MAPS):
+        attrs = {"min_sizes": [mins[i]], "max_sizes": [maxs[i]],
+                 "aspect_ratios": [2.0] if i == 0 else [2.0, 3.0],
+                 "flip": True, "clip": True, "offset": 0.5,
+                 "variances": [0.1, 0.1, 0.2, 0.2]}
+        ins = {"Input": np.zeros((SSD_BATCH, 1, s, s), f32), "Image": img}
+        cases[f"prior_box_{s}"] = ("prior_box", ins, attrs, "Boxes", [])
+        priors.append(_cpu_op("prior_box", ins, attrs)["Boxes"].reshape(
+            -1, 4))
+    prior = np.concatenate(priors)                        # (P, 4)
+    p = prior.shape[0]
+    pvar = np.tile(f32([0.1, 0.1, 0.2, 0.2]), (p, 1))
+    lo = rng.uniform(0, 0.7, (SSD_BATCH, SSD_GT, 2))
+    gt = np.concatenate([lo, lo + rng.uniform(0.1, 0.3, lo.shape)],
+                        -1).astype(f32)
+    gt_lbl = rng.randint(1, SSD_CLASSES, (SSD_BATCH, SSD_GT))
+    deltas = (rng.randn(SSD_BATCH, p, 4) * 0.5).astype(f32)
+    cases["box_coder_decode_ssd"] = (
+        "box_coder", {"PriorBox": prior, "PriorBoxVar": pvar,
+                      "TargetBox": deltas},
+        {"code_type": "decode_center_size"}, "OutputBox", ["TargetBox"])
+    cases["box_coder_encode_ssd"] = (
+        "box_coder", {"PriorBox": prior, "PriorBoxVar": pvar,
+                      "TargetBox": gt.reshape(-1, 4)},
+        {"code_type": "encode_center_size"}, "OutputBox", ["TargetBox"])
+    boxes = _cpu_op("box_coder", cases["box_coder_decode_ssd"][1],
+                    cases["box_coder_decode_ssd"][2])["OutputBox"]
+    logits = rng.randn(SSD_BATCH, SSD_CLASSES, p).astype(f32) * 2
+    scores = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    nms_attrs = {"score_threshold": 0.01, "nms_threshold": 0.45,
+                 "nms_top_k": 400, "keep_top_k": 200, "background_label": 0}
+    nms_ins = {"BBoxes": boxes, "Scores": scores.astype(f32)}
+    cases["multiclass_nms_ssd"] = ("multiclass_nms", nms_ins, nms_attrs,
+                                   "Out", [])
+    dets = _cpu_op("multiclass_nms", nms_ins, nms_attrs)["Out"]
+    label = np.concatenate([gt_lbl[..., None].astype(f32), gt,
+                            (rng.rand(SSD_BATCH, SSD_GT, 1) < 0.2).astype(
+                                f32)], -1)
+    cases["detection_map_ssd_11point"] = (
+        "detection_map", {"DetectRes": dets, "Label": label},
+        {"class_num": SSD_CLASSES, "overlap_threshold": 0.5,
+         "ap_type": "11point", "evaluate_difficult": False}, "MAP", [])
+    iou = _cpu_op("iou_similarity", {"X": gt[0], "Y": prior}, {})["Out"]
+    cases["iou_similarity_ssd"] = ("iou_similarity",
+                                   {"X": gt.reshape(-1, 4), "Y": prior}, {},
+                                   "Out", ["X"])
+    cases["bipartite_match_ssd"] = (
+        "bipartite_match", {"DistMat": iou},
+        {"match_type": "per_prediction", "dist_threshold": 0.5},
+        "ColToRowMatchIndices", [])
+    match = _cpu_op("bipartite_match", {"DistMat": iou},
+                    {"match_type": "per_prediction",
+                     "dist_threshold": 0.5})
+    cases["target_assign_ssd"] = (
+        "target_assign", {"X": gt[0],
+                          "MatchIndices": match["ColToRowMatchIndices"]},
+        {"mismatch_value": 0}, "Out", [])
+    m_idx = np.tile(match["ColToRowMatchIndices"], (SSD_BATCH, 1))
+    for mtype in ("max_negative", "hard_example"):
+        cases[f"mine_hard_examples_{mtype}"] = (
+            "mine_hard_examples",
+            {"ClsLoss": rng.rand(SSD_BATCH, p).astype(f32),
+             "LocLoss": rng.rand(SSD_BATCH, p).astype(f32),
+             "MatchIndices": m_idx,
+             "MatchDist": np.tile(match["ColToRowMatchDist"],
+                                  (SSD_BATCH, 1))},
+            {"mining_type": mtype, "sample_size": 64}, "NegMask", [])
+    cases["density_prior_box"] = (
+        "density_prior_box", {"Input": np.zeros((1, 1, 19, 19), f32),
+                              "Image": img[:1]},
+        {"densities": [4, 2, 1], "fixed_sizes": [32.0, 64.0, 128.0],
+         "fixed_ratios": [1.0]}, "Boxes", [])
+    for s, mask, down in YOLO_HEADS:
+        n_gt = rng.randint(20, 51, SSD_BATCH)
+        box = np.zeros((SSD_BATCH, 50, 4), f32)
+        lbl = np.full((SSD_BATCH, 50), -1, np.int32)
+        for i, k in enumerate(n_gt):
+            box[i, :k, :2] = rng.uniform(0.05, 0.95, (k, 2))
+            box[i, :k, 2:] = rng.uniform(0.02, 0.6, (k, 2))
+            lbl[i, :k] = rng.randint(0, 80, k)
+        cases[f"yolov3_loss_{s}"] = (
+            "yolov3_loss", {"X": (rng.randn(SSD_BATCH, 255, s, s) * 0.5)
+                            .astype(f32), "GTBox": box, "GTLabel": lbl},
+            {"anchors": YOLO_ANCHORS, "anchor_mask": mask, "class_num": 80,
+             "ignore_thresh": 0.7, "downsample_ratio": down}, "Loss", ["X"])
+    # Faster R-CNN's RPN ops at 6v (a)'s shape
+    (h, w), na = FRCNN["image"], 15
+    fh, fw = -(-h // 16), -(-w // 16)
+    anc_attrs = {"anchor_sizes": list(FRCNN["anchor_sizes"]),
+                 "aspect_ratios": list(FRCNN["aspect_ratios"]),
+                 "variances": [1.0, 1.0, 1.0, 1.0], "stride": [16.0, 16.0]}
+    anc_ins = {"Input": np.zeros((1, 1, fh, fw), f32)}
+    cases["anchor_generator_frcnn"] = ("anchor_generator", anc_ins,
+                                       anc_attrs, "Anchors", [])
+    anchors = _cpu_op("anchor_generator", anc_ins, anc_attrs)["Anchors"]
+    im_info = f32([[h, w, 1.0]])
+    gp_ins = {"Scores": rng.rand(1, na, fh, fw).astype(f32),
+              "BboxDeltas": (rng.randn(1, 4 * na, fh, fw) * 0.3).astype(f32),
+              "ImInfo": im_info, "Anchors": anchors,
+              "Variances": np.ones(anchors.shape, f32)}
+    gp_attrs = {"pre_nms_topN": FRCNN["train_nms"][0],
+                "post_nms_topN": FRCNN["train_nms"][1], "nms_thresh": 0.7,
+                "min_size": 0.0, "eta": 0.9}
+    cases["generate_proposals_eta0.9"] = ("generate_proposals", gp_ins,
+                                          gp_attrs, "RpnRois", [])
+    props = _cpu_op("generate_proposals", gp_ins, dict(gp_attrs, eta=1.0))
+    feed = frcnn_feed(FRCNN, 0)
+    cases["rpn_target_assign_frcnn"] = (
+        "rpn_target_assign", {"Anchor": anchors.reshape(-1, 4),
+                              "GtBoxes": feed["gt_box"], "ImInfo": im_info},
+        {"rpn_batch_size_per_im": FRCNN["rpn_batch"], "use_random": False},
+        "TargetBBox", [])
+    cases["generate_proposal_labels_frcnn"] = (
+        "generate_proposal_labels",
+        {"RpnRois": props["RpnRois"], "RpnRoisNum": props["RpnRoisNum"],
+         "GtClasses": feed["gt_label"], "GtBoxes": feed["gt_box"],
+         "ImInfo": im_info},
+        {"batch_size_per_im": FRCNN["rois"], "class_nums": FRCNN["classes"],
+         "use_random": False}, "Rois", [])
+    top = props["RpnRois"][0, :128]
+    rois = np.concatenate([np.zeros((len(top), 1), f32), top], 1)
+    cases["roi_align_frcnn"] = (
+        "roi_align", {"X": rng.randn(1, 64, fh, fw).astype(f32),
+                      "ROIs": rois},
+        {"pooled_height": 14, "pooled_width": 14,
+         "spatial_scale": 1 / 16.0, "sampling_ratio": 0}, "Out", ["X"])
+    cases["roi_pool_frcnn"] = (
+        "roi_pool", {"X": rng.randn(1, 64, fh, fw).astype(f32),
+                     "ROIs": rois},
+        {"pooled_height": 7, "pooled_width": 7, "spatial_scale": 1 / 16.0},
+        "Out", ["X"])
+    cases["box_clip_frcnn"] = (
+        "box_clip", {"Input": (rng.randn(1, 8100, 4) * 400 + 500).astype(
+            f32), "ImInfo": f32([[h, w, 1.5]])}, {}, "Output", ["Input"])
+    # R-FCN's position-sensitive pooling, the rest of the vision family
+    cases["psroi_pool_rfcn"] = (
+        "psroi_pool", {"X": rng.rand(1, 10 * 7 * 7, 38, 50).astype(f32),
+                       "ROIs": rois[:64]},
+        {"output_channels": 10, "pooled_height": 7, "pooled_width": 7,
+         "spatial_scale": 1 / 16.0}, "Out", ["X"])
+    x5 = rng.randn(2, 16, 16, 32, 32).astype(f32)
+    cases["pool3d_max"] = ("pool3d", {"X": x5},
+                           {"pooling_type": "max", "ksize": 3, "strides": 2,
+                            "paddings": 1}, "Out", ["X"])
+    cases["pool3d_avg"] = ("pool3d", {"X": x5},
+                           {"pooling_type": "avg", "ksize": 3, "strides": 2,
+                            "paddings": 1}, "Out", ["X"])
+    x4 = rng.randn(8, 256, 13, 13).astype(f32)
+    for ptype in ("max", "avg"):
+        cases[f"spp_{ptype}"] = ("spp", {"X": x4}, {"pyramid_height": 3,
+                                                     "pooling_type": ptype},
+                                 "Out", ["X"])
+    cases["affine_channel_res4"] = (
+        "affine_channel", {"X": rng.randn(1, 1024, fh, fw).astype(f32),
+                           "Scale": rng.rand(1024).astype(f32),
+                           "Bias": rng.randn(1024).astype(f32)}, {}, "Out",
+        ["X", "Scale", "Bias"])
+    cases["affine_grid"] = ("affine_grid",
+                            {"Theta": rng.randn(8, 2, 3).astype(f32)},
+                            {"output_shape": [8, 3, 64, 64]}, "Output",
+                            ["Theta"])
+    cases["crop"] = ("crop", {"X": rng.randn(8, 64, 32, 32).astype(f32)},
+                     {"shape": [8, 64, 24, 24], "offsets": [0, 0, 3, 5]},
+                     "Out", ["X"])
+    win = rng.randint(0, 2, (8, 64, 16, 16, 2))
+    pos = ((np.arange(16)[:, None] * 2 + win[..., 0]) * 32
+           + np.arange(16)[None, :] * 2 + win[..., 1]).astype(np.int32)
+    cases["unpool"] = ("unpool", {"X": rng.randn(8, 64, 16, 16).astype(f32),
+                                  "Indices": pos},
+                       {"unpool_size": [32, 32]}, "Out", ["X"])
+    cases["similarity_focus"] = (
+        "similarity_focus", {"X": rng.rand(8, 16, 32, 32).astype(f32)},
+        {"axis": 1, "indexes": [0, 5]}, "Out", [])
+    cases["polygon_box_transform"] = (
+        "polygon_box_transform",
+        {"Input": rng.randn(2, 8, 128, 128).astype(f32)}, {}, "Output",
+        ["Input"])
+    quads = np.array([[i % 2] + list(rng.uniform(0, 60, 8))
+                      for i in range(16)], f32)
+    cases["roi_perspective_transform"] = (
+        "roi_perspective_transform",
+        {"X": rng.randn(2, 32, 64, 64).astype(f32), "ROIs": quads},
+        {"transformed_height": 8, "transformed_width": 32,
+         "spatial_scale": 1.0}, "Out", ["X"])
+    return cases
+
+
+def _ssd_loss_program(p):
+    """ssd_loss per image over a batch of SSD_BATCH (the layer takes one
+    image's (P, 4) and (P, C)): the SSD_BATCH losses."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        L = pt.layers
+        loc = L.data("loc", shape=[SSD_BATCH, p, 4], append_batch_size=False)
+        conf = L.data("conf", shape=[SSD_BATCH, p, SSD_CLASSES],
+                      append_batch_size=False)
+        gtb = L.data("gtb", shape=[SSD_BATCH, SSD_GT, 4],
+                     append_batch_size=False)
+        gtl = L.data("gtl", shape=[SSD_BATCH, SSD_GT, 1], dtype="int64",
+                     append_batch_size=False)
+        prior = L.data("prior", shape=[p, 4], append_batch_size=False)
+        pvar = L.data("pvar", shape=[p, 4], append_batch_size=False)
+
+        def img(v, i, shape):
+            return L.reshape(L.slice(v, axes=[0], starts=[i], ends=[i + 1]),
+                             shape)
+
+        losses = [L.detection.ssd_loss(
+            img(loc, i, [p, 4]), img(conf, i, [p, SSD_CLASSES]),
+            img(gtb, i, [SSD_GT, 4]), img(gtl, i, [SSD_GT, 1]), prior, pvar)
+            for i in range(SSD_BATCH)]
+        total = L.concat(losses, axis=0)
+    return main, total
+
+
+def phase_detection_ops(dev):
+    """6v (c): each op of the detection and vision_extra families on the
+    card against the port on the CPU (`detection_op_cases`): floating
+    outputs within TOL_DENSE, gradients within it plus TOL_GRAD_SHARE of
+    their largest, integer outputs and the NMS ops' labels exactly; and ssd_loss per image over a batch of 8 at
+    MobileNet-SSD's widths, the program on the card against the CPU."""
+    import paddle_tpu_torch as pt
+
+    cases = detection_op_cases()
+    ops = sorted({c[0] for c in cases.values()})
+    mins, _ = _ssd_prior_sizes()
+    log(f"phase 6v (c): {len(ops)} ops of the detection and vision_extra "
+        f"families, {len(cases)} cases, card vs CPU (SSD min sizes "
+        f"{[round(m, 1) for m in mins]})")
+    worst, n_cmp, secs = {}, 0, {}
+    for name, (op, ins, attrs, out_slot, grad_slots) in sorted(
+            cases.items()):
+        t0 = time.perf_counter()
+        got, g_card = _run_dense(op, ins, attrs, dev, grad_slots, out_slot)
+        want, g_cpu = _run_dense(op, ins, attrs, "cpu", grad_slots,
+                                 out_slot)
+        pairs = [(f"{s}[{i}]", a, b) for s in want
+                 for i, (a, b) in enumerate(zip(got[s], want[s]))]
+        pairs += [(f"d/d{s}", g_card[s], g_cpu[s]) for s in g_cpu]
+        if op == "multiclass_nms":
+            pairs.append(("labels", got["Out"][0][..., 0].astype(np.int32),
+                          want["Out"][0][..., 0].astype(np.int32)))
+        for what, a, b in pairs:
+            n_cmp += 1
+            tol = TOL_BOX if what.startswith(BOX_SLOTS) else (
+                _grad_tol(b) if what.startswith("d/d") else TOL_DENSE)
+            worst[name] = max(worst.get(name, 0.0),
+                              _compare(f"phase 6v (c) {name}", what, a, b,
+                                       tol))
+        secs[name] = time.perf_counter() - t0
+    priors = cases["box_coder_encode_ssd"][1]["PriorBox"].shape[0]
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    slow = sorted(secs.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  {n_cmp} outputs and gradients compared, all within tolerance; "
+        f"MobileNet-SSD {priors} priors; largest abs errors "
+        f"{[(k, f'{v:.2e}') for k, v in top]}; slowest cases "
+        f"{[(k, round(v, 1)) for k, v in slow]} s")
+    # ssd_loss, one image at a time over the batch
+    rng = np.random.RandomState(23)
+    enc = cases["box_coder_encode_ssd"][1]
+    p = enc["PriorBox"].shape[0]
+    feed = {"loc": (rng.randn(SSD_BATCH, p, 4) * 0.1).astype(np.float32),
+            "conf": rng.randn(SSD_BATCH, p, SSD_CLASSES).astype(np.float32),
+            "gtb": enc["TargetBox"].reshape(SSD_BATCH, SSD_GT, 4),
+            "gtl": rng.randint(1, SSD_CLASSES, (SSD_BATCH, SSD_GT, 1)),
+            "prior": enc["PriorBox"], "pvar": enc["PriorBoxVar"]}
+    main, total = _ssd_loss_program(p)
+    runs = {}
+    for place, name in ((pt.CUDAPlace(0), "card"), (pt.CPUPlace(), "cpu")):
+        runs[name] = np.asarray(pt.Executor(place).run(
+            main, feed=feed, fetch_list=[total], scope=pt.Scope())[0])
+    ssd_err = _compare("phase 6v (c) ssd_loss", "losses", runs["card"],
+                       runs["cpu"], TOL_DENSE)
+    if not (np.isfinite(runs["card"]).all() and (runs["card"] > 0).all()):
+        raise AssertionError(f"phase 6v (c) ssd_loss {runs['card']}")
+    log(f"  ssd_loss per image, {SSD_BATCH} images x {p} priors x "
+        f"{SSD_CLASSES} classes: card vs CPU max abs err {ssd_err:.2e}")
+    return {"ops": len(ops), "cases": len(cases), "compared": n_cmp,
+            "max_abs_err": worst, "seconds": secs, "ssd_priors": p,
+            "ssd_loss": runs["card"].tolist(), "ssd_loss_max_abs_err":
+            ssd_err}
+
+
+def phase_detection(dev, card):
+    """6v: (a) Faster R-CNN training and (b) detection, with the kernel
+    counts zeroed just before (a) and read after (b); (c) the 27 ops
+    card against CPU."""
+    from paddle_tpu_torch.ops import kernels
+
+    res, seconds = {}, {}
+
+    def part(key, fn, *args):
+        t0 = time.perf_counter()
+        o = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        log(f"  [6v {key}: {seconds[key]:.1f} s]")
+        return o
+
+    kernels.reset_counts()
+    res["frcnn"] = part("frcnn", phase_frcnn, dev, card)
+    counts = kernels.counts()
+    log(f"  kernel counts over (a) and (b): launches "
+        f"{ {k: v for k, v in counts['launches'].items() if v} }, plain "
+        f"calls { {k: v for k, v in counts['plain'].items() if v} }")
+    torch.cuda.empty_cache()
+    res["ops"] = part("ops", phase_detection_ops, dev)
+    res["seconds"] = seconds
+    res["counts"] = counts
+    res["launches"] = counts["launches"]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -6393,6 +7260,7 @@ def main() -> int:
     control_flow = timed("6s", phase_control_flow, dev, card)
     moe = timed("6t", phase_moe, dev, card)
     qat_int8 = timed("6u", phase_qat_int8, dev, card)
+    detection = timed("6v", phase_detection, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -6429,12 +7297,13 @@ def main() -> int:
     # model drafter's steps, at the verify shape (paged_attention_verify)
     # on the speculative engines' verify runs; the flash forward inside
     # 6s's While body; the flash kernels (float32, then bf16) on 6t's MoE
-    # Transformer; none on 6u's QAT/int8 ResNet-50 and SRL paths (counted
-    # all the same)
+    # Transformer; none on 6u's QAT/int8 ResNet-50 and SRL paths nor on
+    # 6v's Faster R-CNN (counted all the same)
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
-             train_recompute, train_optimizers, control_flow, moe, qat_int8)
+             train_recompute, train_optimizers, control_flow, moe, qat_int8,
+             detection)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -6490,6 +7359,7 @@ def main() -> int:
                    "control_flow": control_flow,
                    "moe": moe,
                    "qat_int8": qat_int8,
+                   "detection": detection,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -1,6 +1,22 @@
-"""fluid.layers-equivalent namespace: the layers the ported slices build
-(reference: python/paddle/fluid/layers/__init__.py)."""
+"""fluid.layers-equivalent namespace (reference: python/paddle/fluid/
+layers/__init__.py), name for name: the reference's star import of
+layers/nn.py also brings that module's own imports (the initializers,
+LayerHelper, ParamAttr, Variable, numpy, typing's names, its
+`tensor_layers` alias and the `annotations` future flag), so they are
+here too."""
 
+from __future__ import annotations
+
+from typing import List, Optional, Sequence  # noqa: F401
+
+import numpy as np  # noqa: F401
+
+from ..core.program import Variable  # noqa: F401
+from ..initializer import Constant, Normal, Xavier  # noqa: F401
+from ..layer_helper import LayerHelper  # noqa: F401
+from ..param_attr import ParamAttr  # noqa: F401
+from . import detection  # noqa: F401
+from . import tensor as tensor_layers  # noqa: F401
 from .io import data  # noqa: F401
 from .learning_rate_scheduler import (cosine_decay,  # noqa: F401
                                       exponential_decay,
@@ -9,9 +25,9 @@ from .learning_rate_scheduler import (cosine_decay,  # noqa: F401
                                       piecewise_decay, polynomial_decay)
 from .metric_op import accuracy, auc  # noqa: F401
 from .nn import (add_position_encoding_at,  # noqa: F401
-                 batch_norm, batched_gather, chunk_eval, clip, clip_by_norm,
+                 affine_channel, affine_grid, batch_norm, batched_gather, chunk_eval, clip, clip_by_norm,
                  conv2d, conv2d_transpose, conv3d, conv3d_transpose,
-                 conv_shift, cos_sim, crf_decoding, cross_entropy,
+                 conv_shift, cos_sim, crf_decoding, crop, cross_entropy,
                  ctc_greedy_decoder, cumsum, dropout, edit_distance,
                  elementwise_add, elementwise_div, elementwise_floordiv,
                  elementwise_max, elementwise_min, elementwise_mod,
@@ -24,17 +40,18 @@ from .nn import (add_position_encoding_at,  # noqa: F401
                  matmul, maxout, mean, mean_iou, modified_huber_loss, mul,
                  nce, normalize_dtype, one_hot, pad, pad2d,
                  pad_constant_like, paged_attention, paged_kv_prefill_write,
-                 paged_kv_write, pool2d, positive_negative_pair, prelu,
-                 Print, py_func, random_crop, reduce_all, reduce_any,
+                 paged_kv_write, pool2d, pool3d, positive_negative_pair,
+                 prelu, Print, psroi_pool, py_func, random_crop,
+                 reduce_all, reduce_any,
                  reduce_max, reduce_mean, reduce_min, reduce_prod,
                  reduce_sum, reshape, resize_bilinear, resize_nearest,
-                 sampling_id, scale, scatter, shape,
-                 sigmoid_cross_entropy_with_logits, slice, smooth_l1,
-                 softmax, softmax_with_cross_entropy, space_to_depth,
-                 speculative_accept, split, square_error_cost, squeeze,
+                 roi_align, roi_pool, sampling_id, scale, scatter, shape,
+                 sigmoid_cross_entropy_with_logits, similarity_focus,
+                 slice, smooth_l1, softmax, softmax_with_cross_entropy,
+                 space_to_depth, speculative_accept, spp, split, square_error_cost, squeeze,
                  stack, switch_moe, teacher_student_sigmoid_loss, topk,
                  transpose, uniform_random, uniform_random_batch_size_like,
-                 unsqueeze, unstack, warpctc)
+                 unpool, unsqueeze, unstack, warpctc)
 from .ops import (abs, brelu, ceil, cos, elu, exp, floor,  # noqa: F401
                   gelu, hard_shrink, hard_sigmoid, leaky_relu, log,
                   log_softmax, logsigmoid, pow, reciprocal, relu, relu6,

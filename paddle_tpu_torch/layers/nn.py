@@ -3,8 +3,7 @@ that the ported slices build (reference: python/paddle/fluid/layers/
 nn.py).  Each function is the reference's, unchanged: it creates output
 vars + parameters via LayerHelper and appends OpDescs to the default main
 program; shapes/dtypes are inferred by running the op on "meta" tensors
-(core/shape_inference.py).  The vision layers of ops/vision_extra.py
-are still to be ported (ROADMAP queue A step 8d's second half).
+(core/shape_inference.py).
 """
 
 from __future__ import annotations
@@ -1470,3 +1469,138 @@ def positive_negative_pair(score, label, query_id, weight=None, column=-1,
                               "NeutralPair": [outs[2]]},
                      attrs={"column": int(column)})
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the vision layers (ops/vision_extra.py)
+# reference: layers/nn.py pool3d, spp (via nets), roi_pool:6690,
+# roi_align:6740, affine_channel:9406, affine_grid:7576, crop:5765,
+# unpool, similarity_focus:8951, psroi_pool:9628.
+# ---------------------------------------------------------------------------
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool3d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "exclusive": exclusive})
+    return out
+
+
+def spp(input, pyramid_height=3, pool_type="max", name=None):
+    helper = LayerHelper("spp", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="spp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pyramid_height": int(pyramid_height),
+                            "pooling_type": pool_type})
+    return out
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, name=None):
+    """rois: (R, 5) [batch_idx, x1, y1, x2, y2]."""
+    helper = LayerHelper("roi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="roi_pool", inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out]},
+        attrs={"pooled_height": int(pooled_height),
+               "pooled_width": int(pooled_width),
+               "spatial_scale": float(spatial_scale)})
+    return out
+
+
+def roi_align(input, rois, pooled_height=1, pooled_width=1,
+              spatial_scale=1.0, sampling_ratio=-1, name=None):
+    helper = LayerHelper("roi_align", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="roi_align", inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out]},
+        attrs={"pooled_height": int(pooled_height),
+               "pooled_width": int(pooled_width),
+               "spatial_scale": float(spatial_scale),
+               "sampling_ratio": int(sampling_ratio)})
+    return out
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW",
+                   name=None):
+    helper = LayerHelper("affine_channel", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="affine_channel",
+                     inputs={"X": [x], "Scale": [scale], "Bias": [bias]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def affine_grid(theta, out_shape, name=None):
+    helper = LayerHelper("affine_grid", name=name)
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    ins = {"Theta": [theta]}
+    attrs = {}
+    if isinstance(out_shape, (list, tuple)):
+        attrs["output_shape"] = [int(s) for s in out_shape]
+    else:
+        ins["OutputShape"] = [out_shape]
+    helper.append_op(type="affine_grid", inputs=ins,
+                     outputs={"Output": [out]}, attrs=attrs)
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper("crop", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x]}
+    attrs = {"offsets": list(offsets or [])}
+    if isinstance(shape, (list, tuple)):
+        attrs["shape"] = [int(s) for s in shape]
+    elif shape is not None:
+        ins["Y"] = [shape]
+    helper.append_op(type="crop", inputs=ins, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def unpool(input, indices, unpool_size, name=None):
+    """Max unpooling from pool2d_with_index's Mask."""
+    helper = LayerHelper("unpool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="unpool", inputs={"X": [input], "Indices": [indices]},
+        outputs={"Out": [out]},
+        attrs={"unpool_size": [int(s) for s in unpool_size]})
+    return out
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    """Similarity-focus mask (reference layers/nn.py
+    similarity_focus:8951)."""
+    helper = LayerHelper("similarity_focus", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="similarity_focus", inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"axis": int(axis), "indexes": [int(i) for i in indexes]})
+    return out
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, name=None):
+    """Position-sensitive ROI pooling for R-FCN (reference layers/nn.py
+    psroi_pool:9628); rois (R, 5) [batch_idx, x1, y1, x2, y2]."""
+    helper = LayerHelper("psroi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="psroi_pool", inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out]},
+        attrs={"output_channels": int(output_channels),
+               "spatial_scale": float(spatial_scale),
+               "pooled_height": int(pooled_height),
+               "pooled_width": int(pooled_width)})
+    return out

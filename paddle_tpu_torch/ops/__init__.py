@@ -1,15 +1,16 @@
 """Op implementations — importing this package registers all ops.
 
 The port of paddle_tpu/ops: the same op names, slots and attrs, each a
-plain function on torch tensors.  Only the ops of the ported slices are
-here; ROADMAP queue A lists the rest (step 8d's detection and
-vision_extra families, and paged_kv_import).
+plain function on torch tensors.  Every op of the reference is here
+but paged_kv_import, which comes with serving breadth (ROADMAP queue A
+step 9).
 """
 
 from ..core.registry import register_op, registered_ops  # noqa: F401
 from . import attention  # noqa: F401
 from . import basic  # noqa: F401
 from . import control_flow  # noqa: F401
+from . import detection  # noqa: F401
 from . import misc  # noqa: F401
 from . import moe  # noqa: F401
 from . import nn  # noqa: F401
@@ -20,6 +21,7 @@ from . import rnn  # noqa: F401
 from . import sequence  # noqa: F401
 from . import sparse  # noqa: F401
 from . import structured  # noqa: F401
+from . import vision_extra  # noqa: F401
 from ..layers import learning_rate_scheduler  # noqa: F401  (lr_schedule)
 
 

@@ -226,6 +226,10 @@ def _register_reduce(name, fn):
             dims = tuple(a if a >= 0 else a + x.dim()
                          for a in attrs.get("dim", [0]))
         o = _fn(x, dim=dims, keepdim=keep) if dims else x
+        if o.dtype == torch.int64 and x.dtype != torch.int64:
+            # jnp sums and multiplies bools and narrow ints in the
+            # default int, int32 with x64 off; torch in int64
+            o = o.to(torch.int32)
         if o.dim() == 0:
             o = o.reshape((1,))
         return out(Out=o)

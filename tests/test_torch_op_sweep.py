@@ -3,7 +3,10 @@ the reference sweep's input specs (`S` of tests/test_op_sweep.py) in
 both packages on the same numpy inputs.
 
 - Forward: every output slot the two return, through `run_torch_op_all`
-  against `run_ref_op_all` (tests/torch_op_test.py).  Floating outputs
+  against `run_ref_op_all` (tests/torch_op_test.py; the detection and
+  vision_extra ops against `run_ref_op_jit`, the same reference compiled
+  once, since primitive by primitive their many small steps compile
+  for seconds).  Floating outputs
   within rtol 2e-3 and atol 1e-6 (float32 on both sides, other libm and
   summation orders, sums over a few terms); integer and boolean outputs
   exactly.
@@ -18,7 +21,8 @@ both packages on the same numpy inputs.
   reason, and every port op name is a reference op name; the ops of the
   training-step and book-model slice (the other optimizers' updates,
   ModelAverage's and EMA's, the CRF pair, nce, l2_normalize,
-  square_error_cost, sequence_conv, split, assign_value) are swept.
+  square_error_cost, sequence_conv, split, assign_value) are swept, and
+  so are the 27 ops of the detection and vision_extra families.
 - nce draws its negatives from the op's torch generator: its cost,
   logits and gradients are held against the reference given the
   negatives the reference drew (its SampleLabels output), for the
@@ -53,8 +57,9 @@ import torch
 from paddle_tpu.core import registry as ref_registry
 from paddle_tpu_torch.core.registry import registered_ops
 from test_op_sweep import RANDOM, S
-from torch_op_test import (ref_op_grads, round_bf16, run_ref_op_all,
-                           run_torch_op_all, to_torch, torch_op_grads)
+from torch_op_test import (ref_op_grads, ref_op_grads_jit, round_bf16,
+                           run_ref_op_all, run_ref_op_jit, run_torch_op_all,
+                           to_torch, torch_op_grads)
 
 torch.set_num_threads(2)
 
@@ -138,6 +143,9 @@ def test_every_port_op_is_swept_or_exempt():
     # the training-step and book-model ops, and the control-flow slice's
     assert set(NEW_OPS) <= set(SWEPT) and set(OWN_DRAWS) <= set(SWEPT)
     assert set(CONTROL_FLOW_OPS) <= set(SWEPT)
+    # the detection and vision_extra families, every one swept
+    assert set(DETECTION_OPS) <= set(SWEPT)
+    assert len(DETECTION_OPS) == 27
     # the macro ops run sub-blocks: registered apart, never swept
     from paddle_tpu_torch.core.registry import _MACRO_OPS
 
@@ -150,6 +158,17 @@ NEW_OPS = ["lars_momentum", "adamax", "adagrad", "decayed_adagrad",
            "proximal_adagrad", "average_accumulates", "ema_accumulate",
            "linear_chain_crf", "crf_decoding", "nce", "l2_normalize",
            "square_error_cost", "sequence_conv", "split", "assign_value"]
+DETECTION_OPS = [
+    # ops/detection.py
+    "anchor_generator", "bipartite_match", "box_clip", "box_coder",
+    "density_prior_box", "detection_map", "generate_proposal_labels",
+    "generate_proposals", "iou_similarity", "mine_hard_examples",
+    "multiclass_nms", "polygon_box_transform", "prior_box",
+    "roi_perspective_transform", "rpn_target_assign", "target_assign",
+    "yolov3_loss",
+    # ops/vision_extra.py
+    "affine_channel", "affine_grid", "crop", "pool3d", "psroi_pool",
+    "roi_align", "roi_pool", "similarity_focus", "spp", "unpool"]
 CONTROL_FLOW_OPS = ["expand", "gather", "where_op", "is_empty",
                     "logical_and", "logical_or", "logical_xor",
                     "logical_not", "reduce_all", "reduce_any",
@@ -209,7 +228,8 @@ def test_nce_matches_the_reference_given_its_negatives(sampler):
 def test_forward_matches_the_reference(op):
     spec = S[op]
     got = run_torch_op_all(op, spec["ins"], spec.get("attrs"))
-    want = run_ref_op_all(op, spec["ins"], spec.get("attrs"))
+    ref = run_ref_op_jit if op in DETECTION_OPS else run_ref_op_all
+    want = ref(op, spec["ins"], spec.get("attrs"))
     assert spec["out"] in got
     slots = sorted(set(got) & set(want))
     assert spec["out"] in slots
@@ -233,8 +253,8 @@ def test_gradient_matches_the_reference(op, slot):
     attrs = dict(spec.get("attrs") or {}, **GRAD_ATTRS.get(op, {}))
     got = torch_op_grads(op, spec["ins"], attrs, [slot],
                          [spec["out"]])[slot]
-    want = ref_op_grads(op, spec["ins"], attrs, [slot],
-                        [spec["out"]])[slot]
+    ref = ref_op_grads_jit if op in DETECTION_OPS else ref_op_grads
+    want = ref(op, spec["ins"], attrs, [slot], [spec["out"]])[slot]
     _assert_same(got, want, f"d{op}/d{slot}")
     assert np.abs(want).max() > 0, "a vacuous gradient"
 

@@ -11,7 +11,9 @@ Ops with several output slots and int companions (SeqLen) go through
 `torch_op_grads` / `ref_op_grads` (gradients of one fixed weighted sum
 of the chosen output slots, so no gradient path is vacuously zero); the
 `ref_` functions run the JAX package's impl of the same op on the same
-numpy inputs.
+numpy inputs.  `run_ref_op_jit` / `ref_op_grads_jit` are the same
+under one jax.jit of the op, and `check_op` holds every output slot
+(and chosen gradients) of the port against them.
 """
 
 from __future__ import annotations
@@ -142,3 +144,84 @@ def ref_op_grads(op_type, ins_np, attrs, grad_slots, out_slots):
     vals = tuple(jnp.asarray(base[s][0]) for s in grad_slots)
     grads = jax.grad(f, argnums=tuple(range(len(vals))))(*vals)
     return {s: np.asarray(g) for s, g in zip(grad_slots, grads)}
+
+
+def run_ref_op_jit(op_type, ins_np, attrs=None):
+    """`run_ref_op_all` under one jax.jit of the op (attrs fixed): the
+    same values, compiled once instead of primitive by primitive — much
+    quicker for ops of many small steps (the detection family)."""
+    import jax
+    from paddle_tpu.core.registry import OpContext as RefContext
+    from paddle_tpu.core.registry import get_op_impl as ref_impl
+
+    impl, base = ref_impl(op_type), _listed(ins_np)
+    slots = list(base)
+
+    def f(*flat):
+        it = iter(flat)
+        ins = {s: [next(it) for _ in base[s]] for s in slots}
+        outs = impl(RefContext(jax.random.PRNGKey(0), 0), ins,
+                    dict(attrs or {}))
+        return {s: v[0] for s, v in outs.items()}
+
+    outs = jax.jit(f)(*[np.asarray(a) for s in slots for a in base[s]])
+    return {s: np.asarray(v) for s, v in outs.items()}
+
+
+def ref_op_grads_jit(op_type, ins_np, attrs, grad_slots, out_slots):
+    """`ref_op_grads` under one jax.jit."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.core.registry import OpContext as RefContext
+    from paddle_tpu.core.registry import get_op_impl as ref_impl
+
+    impl, base = ref_impl(op_type), _listed(ins_np)
+
+    def f(*vals):
+        ins = {s: [jnp.asarray(a) for a in vs] for s, vs in base.items()}
+        for s, v in zip(grad_slots, vals):
+            ins[s][0] = v
+        outs = impl(RefContext(jax.random.PRNGKey(0), 0), ins,
+                    dict(attrs or {}))
+        loss = 0.0
+        for i, s in enumerate(out_slots):
+            o = outs[s][0]
+            loss = loss + jnp.sum(o * jnp.asarray(loss_weights(o.shape, i)))
+        return loss
+
+    vals = tuple(jnp.asarray(base[s][0]) for s in grad_slots)
+    grads = jax.jit(jax.grad(f, argnums=tuple(range(len(vals)))))(*vals)
+    return {s: np.asarray(g) for s, g in zip(grad_slots, grads)}
+
+
+TOL = dict(rtol=2e-3, atol=1e-6)
+
+
+def assert_same(got, want, what, tol=None):
+    """Same shape and dtype; floats within `tol` (the op sweep's TOL by
+    default), integers and bools equal."""
+    assert got.shape == want.shape, f"{what}: {got.shape} != {want.shape}"
+    assert got.dtype == want.dtype, f"{what}: {got.dtype} != {want.dtype}"
+    if np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_allclose(got, want, err_msg=what, **(tol or TOL))
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def check_op(op, ins, attrs=None, out_slot="Out", grad_slots=(), tol=None):
+    """Every output slot of `op` in the port against the reference
+    (`run_ref_op_jit`), and with `grad_slots` the gradients of the
+    weighted sum of `out_slot` (none vacuous); → the port's outputs."""
+    got = run_torch_op_all(op, ins, attrs)
+    want = run_ref_op_jit(op, ins, attrs)
+    assert set(got) == set(want)
+    for slot in want:
+        assert_same(got[slot], want[slot], f"{op}: {slot}", tol)
+    if grad_slots:
+        gs = torch_op_grads(op, ins, attrs, list(grad_slots), [out_slot])
+        ws = ref_op_grads_jit(op, ins, attrs, list(grad_slots), [out_slot])
+        for slot in grad_slots:
+            assert np.abs(ws[slot]).max() > 0, f"{op}: vacuous d/d{slot}"
+            assert_same(gs[slot], ws[slot], f"{op}: d{out_slot}/d{slot}",
+                        tol)
+    return got
