@@ -16,6 +16,10 @@ its own sources), the named phases of chip_smoke.py:
             chip_smoke.py makes them; the kernels are the tree's)
     stream  phase 4, the serving stream of 64 requests
     4b      phase 4b, one decode step's host and device-busy time
+    4c      phase 4c, the sequential and the speculative (n-gram) stream
+    4d      phase 4d, the oracle ModelDrafter stream
+    4f      phase 4f, ResNet-50 through the Predictor and the
+            ServingEngine (a tree whose chip_smoke.py has it)
     6       the unfused Transformer step (10 timed steps, a profiled window)
     6c      the fused-CE step (10 timed steps, a profiled window)
     6d      the long-context step (6 timed steps, a profiled window)
@@ -47,8 +51,8 @@ import os
 import subprocess
 import sys
 
-PHASES = ("fwd", "kern", "stream", "4b", "6", "6c", "6d", "6e", "bwd16",
-          "6i", "6j")
+PHASES = ("fwd", "kern", "stream", "4b", "4c", "4d", "4f", "6", "6c", "6d",
+          "6e", "bwd16", "6i", "6j")
 DEFAULT = ("fwd", "6d", "6")
 
 
@@ -134,6 +138,12 @@ def _run_phase(cs, name, dev, card):
         return cs.phase_stream(dev)
     if name == "4b":
         return cs.phase_step_profile(dev)
+    if name == "4c":
+        return cs.phase_speculative_stream(dev)
+    if name == "4d":
+        return cs.phase_oracle_stream(dev)
+    if name == "4f":
+        return cs.phase_serving_engine(dev, card)
     if name == "6":
         return cs.phase_train(dev, card, steps=10, profile="phase 6b")
     if name == "6c":
@@ -160,7 +170,18 @@ def _summary(name, rec):
     if name == "kern":
         return {"kern_device_ms": rec}
     if name == "stream":
-        return {"stream_tokens_per_s": rec["tokens_per_s"]}
+        return {"stream_tokens_per_s": rec["tokens_per_s"],
+                "stream_ttft_p50_ms": rec["ttft_ms"]["p50_ms"]}
+    if name in ("4c", "4d"):
+        return {f"{name}_sequential_tokens_per_s":
+                rec["sequential_tokens_per_s"],
+                f"{name}_tokens_per_s": rec["tokens_per_s"],
+                f"{name}_ttft_p50_ms": rec["ttft_ms"]["p50_ms"]}
+    if name == "4f":
+        return {"4f_requests_per_s": rec["requests_per_s"],
+                "4f_logits_max_rel_err": rec["logits_max_rel_err_vs_single"],
+                "4f_tf32_max_rel_err":
+                rec["tf32_batch_max_rel_err_vs_single"]}
     if name == "4b":
         return {"4b_step_ms": rec["step_ms"],
                 "4b_busy_ms": rec["device_busy_ms_per_step"]}

@@ -340,8 +340,28 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    and read after (b); (c) each of the 27 ops (`detection_op_cases`, at
    MobileNet-SSD's, YOLOv3-608's and Faster R-CNN's widths) and
    ssd_loss per image over a batch of 8 on the card against the CPU;
+4e. (A) the serving fleet at the reference bench's widths
+   (bench_serving_fleet: DecoderLM vocab 8192, 4 layers, d_model 512,
+   bf16 KV; 8 slots, pages of 16, max_len 256, prefill buckets 32 and
+   64, decode chunk 8): 48 requests through one DecodeEngine (the
+   control), then through a two-replica Fleet on the card with replica
+   0 killed (`chaos.kill_replica`) after half the stream and the same
+   weights reloaded from a sharded checkpoint (`fleet.reload`) in the
+   middle of the rest: every response's tokens equal the control's, no
+   client failure, a failover, zero post-warmup compiles fleet-wide, the
+   survivor's model_version moved; requests/s, TTFT and TPOT, the reload
+   pause and the failover, hedge and retry counts;
+4f. (B) ResNet-50 served (bench_serving_engine at batch 32): the
+   per-request Predictor over 24 images, then the ServingEngine (ladder
+   1 and 32, max_wait_ms 5, queue 128) over 192 requests from 64 client
+   threads, each response against Predictor.run on its image alone
+   within TOL_SERVE_BATCHED (and a batch run with TF32 on outside it),
+   zero post-warmup compiles; requests/s,
+   latency, batching_speedup, occupancy and padding waste; then an
+   `enable_int8()` Predictor on 6u's QAT export at batch 8, bit for bit
+   against Executor.run of the same convert_to_int8 program;
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6v included), the card line, and as its last line
+   6l-6v, 4e and 4f included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -5803,9 +5823,14 @@ def _int8_models(dev, card):
                 return_numpy=False)
     infer = main.clone(for_test=True)
     d = os.path.join(OUT_DIR, "int8_model")
+    block = infer.global_block()
+    predict = model["predict"].name
+    # the classifier's logits beside its softmax: a served model's
+    # outputs that no saturated softmax hides
     with pt.scope_guard(scope):
         pt.io.save_inference_model(
-            d, ["data"], [infer.global_block().var(model["predict"].name)],
+            d, ["data"], [block.var(predict),
+                          block.var(_logits_name(infer, predict))],
             exe, main_program=infer)
     qscope = pt.Scope()
     with pt.scope_guard(qscope):
@@ -7132,6 +7157,345 @@ def phase_detection(dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 4e and 4f: the serving layer — the replica Fleet, the
+# dynamic-batching ServingEngine and the Predictor
+# ---------------------------------------------------------------------------
+
+# phase 4e (A): the reference's serving-fleet bench (bench.py:1423-1460,
+# bench_serving_fleet at its TPU widths): DecoderLM vocab 8192, 4 layers,
+# 8 heads, d_model 512, d_inner 1024, bf16 KV; 8 slots, pages of 16,
+# max_len 256, prefill buckets (32, 64), decode chunk 8; two replicas on
+# the one card; 48 prompts of 8-64 tokens (make_prompts seed 0), budgets
+# randint(24, 49) from RandomState(1), as the bench draws them
+FLEET_ARCH = dict(vocab_size=8192, n_layer=4, n_head=8, d_model=512,
+                  d_inner=1024, seed=0)
+FLEET_SERVE = dict(num_slots=8, page_size=16, max_len=256,
+                   prefill_buckets=(32, 64), decode_chunk=8)
+FLEET_REQUESTS, FLEET_REPLICAS, FLEET_MAX_NEW = 48, 2, 48
+# phase 4f (B): the reference's serving-engine bench (bench.py:1080-1215,
+# bench_serving_engine at batch 32): ResNet-50 (flowers, depth 50, 1000
+# classes, with_optimizer=False) saved with save_inference_model; the
+# per-request Predictor over 24 images one at a time; the engine with the
+# ladder (1, 32), max_wait_ms 5, a queue of 128, 192 requests from 64
+# client threads
+SERVE_BATCH, SERVE_REQUESTS, SERVE_CLIENTS = 32, 192, 64
+SERVE_PER_REQUEST = 24
+# each engine response against Predictor.run on its image alone: the
+# logits of a float32 network (TF32 off) whose batch-32 and batch-1
+# convolutions may take other cuDNN algorithms, so other float32
+# summation orders.  Measured 5.83e-7 of the largest logit (H100, four
+# runs, the same value each); the limit keeps ~17x headroom over that.
+# The batch of 32 run again with TF32 on must exceed it (measured 6.2e-4),
+# so the limit is known to see a batch whose products ran in TF32.
+TOL_SERVE_BATCHED = 1e-5
+
+
+def _stream_through(submit, prompts, budgets, timeout=600):
+    futs = [submit(p, max_new_tokens=int(b))
+            for p, b in zip(prompts, budgets)]
+    return [f.result(timeout) for f in futs]
+
+
+def phase_fleet(dev, card):
+    """4e (A): the same 48-request stream through one unkilled
+    DecodeEngine (the control), then through a two-replica Fleet on the
+    card: half the stream, `chaos.kill_replica` of replica 0, the rest
+    with `fleet.reload` of the same weights (a sharded checkpoint) in
+    the middle, the kernel counts zeroed just before the fleet's stream
+    and read after.  Every response's tokens equal the control's, no
+    client failure, at least one failover, zero post-warmup compiles
+    fleet-wide, the reloaded replicas' model_version moved."""
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM, make_prompts
+    from paddle_tpu_torch.observe import ReqTracer
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine, Fleet,
+                                          FleetConfig)
+
+    log(f"phase 4e (A): a {FLEET_REPLICAS}-replica DecoderLM Fleet on the "
+        f"card: a replica killed and the weights reloaded mid-stream")
+    lm = DecoderLM(kv_dtype="bfloat16", prefill_pallas=True, **FLEET_ARCH)
+    cfg = DecodeConfig(kv_dtype="bfloat16", **FLEET_SERVE)
+    scope = lm.init_params(place=pt.CUDAPlace(0))
+    params = {n: v for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor) and n != RNG_STATE_VAR}
+    n = FLEET_REQUESTS
+    prompts = make_prompts(n, FLEET_ARCH["vocab_size"], min_len=8,
+                           max_len=64, seed=0)
+    budgets = np.random.RandomState(1).randint(
+        max(2, FLEET_MAX_NEW // 2), FLEET_MAX_NEW + 1, n)
+
+    def engine():
+        return DecodeEngine(lm, cfg, queue_capacity=4 * n,
+                            memory_budget_bytes=False,
+                            params={k: t.clone() for k, t in params.items()},
+                            place=pt.CUDAPlace(0))
+
+    ctl = engine().start()
+    t0 = time.perf_counter()
+    control = [o.tolist() for o in _stream_through(ctl.submit, prompts,
+                                                   budgets)]
+    control_s = time.perf_counter() - t0
+    ctl_snap = ctl.stats.snapshot()
+    ctl.close()
+
+    ckpt = os.path.join(OUT_DIR, "fleet_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    with pt.scope_guard(scope):
+        pt.io.save_sharded(pt.Executor(pt.CUDAPlace(0)), ckpt,
+                           main_program=lm.step["main"])
+    tracer = ReqTracer(sample_rate=0.0)
+    engines = [engine() for _ in range(FLEET_REPLICAS)]
+    fleet = Fleet(engines, FleetConfig(), tracer=tracer).start()
+    half = n // 2
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    futs = [fleet.submit(p, max_new_tokens=int(b))
+            for p, b in zip(prompts[:half], budgets[:half])]
+    chaos.kill_replica(engines[0])          # the scripted mid-run death
+    outs = [f.result(600) for f in futs]
+    futs = [fleet.submit(p, max_new_tokens=int(b))
+            for p, b in zip(prompts[half:], budgets[half:])]
+    reload_info = fleet.reload(ckpt)
+    outs += [f.result(600) for f in futs]
+    elapsed = time.perf_counter() - t0
+    counts = kernels.counts()
+    snap = fleet.snapshot()
+    versions = {h.replica_id: h.engine.model_version
+                for h in fleet.replicas}
+    dead = [h.replica_id for h in fleet.replicas if h.dead]
+    fleet.close()
+    chaos.clear()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    tokens = [r.tokens.tolist() for r in outs]
+    diverged = [i for i, (a, b) in enumerate(zip(tokens, control))
+                if a != b]
+    la = counts["launches"]
+    eng = snap["engines"]
+    res = {"requests": n, "replicas": FLEET_REPLICAS,
+           "tokens": sum(map(len, tokens)), "wall_s": elapsed,
+           "requests_per_s": n / elapsed,
+           "tokens_per_s": sum(map(len, tokens)) / elapsed,
+           "control_wall_s": control_s,
+           "control_tokens_per_s": ctl_snap["tokens_generated"] / control_s,
+           "ttft_ms": eng["ttft_ms"], "tpot_ms": eng["tpot_ms"],
+           "failovers": snap["failovers"], "hedges": snap["hedges"],
+           "retries": snap["retries"], "ejects": snap["ejects"],
+           "parity_checked": snap["parity_checked"],
+           "parity_failed": snap["parity_failed"],
+           "failed": snap["failed"], "saturated": snap["saturated"],
+           "reload_pause_ms": snap["reload_pause_ms"],
+           "reload_seconds": reload_info["seconds"],
+           "model_versions": versions, "dead": dead,
+           "post_warmup_compiles": snap["post_warmup_compiles"],
+           "diverged": diverged, "launches": la,
+           "plain_calls": counts["plain"]}
+    log(f"  control (one engine): {ctl_snap['tokens_generated']} tokens in "
+        f"{control_s:.3f} s")
+    log(f"  fleet: {n} requests, {res['tokens']} tokens in {elapsed:.3f} s: "
+        f"{res['requests_per_s']:.2f} requests/s, "
+        f"{res['tokens_per_s']:.1f} tokens/s on {card}")
+    log(f"  TTFT p50 {eng['ttft_ms']['p50_ms']} ms p99 "
+        f"{eng['ttft_ms']['p99_ms']} ms; TPOT p50 {eng['tpot_ms']['p50_ms']}"
+        f" ms p99 {eng['tpot_ms']['p99_ms']} ms (replicas merged)")
+    log(f"  failovers {snap['failovers']} (parity checked "
+        f"{snap['parity_checked']}, failed {snap['parity_failed']}), hedges "
+        f"{snap['hedges']}, retries {snap['retries']}, ejects "
+        f"{snap['ejects']}, client failures {snap['failed']}; reload "
+        f"pause {snap['reload_pause_ms']} ms, roll "
+        f"{reload_info['seconds']} s; versions {versions}; "
+        f"post_warmup_compiles {snap['post_warmup_compiles']}")
+    log(f"  tokens equal to the control's: {n - len(diverged)}/{n}; "
+        f"launches { {k: v for k, v in la.items() if v} }")
+    alive = [r for r in versions if r not in dead]
+    if (diverged or snap["failed"] or snap["failovers"] < 1
+            or snap["parity_failed"] or snap["post_warmup_compiles"]
+            or reload_info["version"] != 1 or not alive
+            or any(versions[r] != 1 for r in alive)
+            or la["paged_attention"] < 1 or la["flash_attention_fwd"] < 1
+            or max(counts["plain"].values())
+            or max(counts["composed"].values())):
+        raise AssertionError(f"4e (A) fleet: {res}")
+    return res
+
+
+def _resnet_inference_dir(d):
+    """Save RESNET_ARCH's ResNet-50 (with_optimizer=False) with random
+    weights from its startup program, as bench_serving_engine does, its
+    logits fetched beside the softmax (a random network's softmax is
+    saturated: its outputs would hide any difference)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        arch = dict(RESNET_ARCH)
+        arch.pop("learning_rate")
+        model = resnet.build_model(**arch, with_optimizer=False)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    logits = main.global_block().var(
+        _logits_name(main, model["predict"].name))
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(d, ["data"], [model["predict"], logits],
+                                   exe, main_program=main)
+
+
+def phase_serving_engine(dev, card):
+    """4f (B): the per-request Predictor over SERVE_PER_REQUEST images
+    one at a time, then the ServingEngine over SERVE_REQUESTS requests
+    from SERVE_CLIENTS threads (each response against Predictor.run on
+    its image alone within TOL_SERVE_BATCHED, zero post-warmup compiles);
+    then an `AnalysisConfig(...).enable_int8()` Predictor on a QAT
+    ResNet-50 exported as in phase 6u, at batch 8, bit for bit against
+    Executor.run of the same convert_to_int8 program on the card."""
+    import shutil
+    import threading
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.observe import ReqTracer
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import BucketConfig, ServingEngine
+
+    log("phase 4f (B): ResNet-50 through the Predictor and the "
+        "dynamic-batching ServingEngine")
+    d = os.path.join(OUT_DIR, "serving_resnet")
+    shutil.rmtree(d, ignore_errors=True)
+    _resnet_inference_dir(d)
+    imgs = np.random.RandomState(0).rand(
+        SERVE_REQUESTS, 3, 224, 224).astype(np.float32)
+    kernels.reset_counts()
+    predictor = pt.Predictor(pt.AnalysisConfig(d))
+    predictor.run({"data": imgs[0:1]})                  # warm bucket 1
+    t0 = time.perf_counter()
+    for i in range(SERVE_PER_REQUEST):
+        predictor.run({"data": imgs[i:i + 1]})
+    per_req_rps = SERVE_PER_REQUEST / (time.perf_counter() - t0)
+
+    tracer = ReqTracer(sample_rate=0.0)
+    engine = ServingEngine(
+        predictor.clone(), {"data": imgs[0]},
+        buckets=BucketConfig((1, SERVE_BATCH)), max_wait_ms=5.0,
+        queue_capacity=4 * SERVE_BATCH, tracer=tracer).start()
+    outs = [None] * SERVE_REQUESTS
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS):
+                outs[i] = engine.infer({"data": imgs[i]}, timeout_s=300)
+        except Exception as e:  # noqa: BLE001 — recorded, raised below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    snap = engine.stats.snapshot()
+    engine.close()
+    counts = kernels.counts()
+    singles = [predictor.run({"data": imgs[i:i + 1]})
+               for i in range(SERVE_REQUESTS)]
+    # the logits (the second output) against each image run alone
+    want = np.stack([o[1][0] for o in singles])
+    scale = float(np.abs(want).max())
+    err = top1 = None
+    if not errors:
+        got = np.stack([o[1] for o in outs])
+        err = float(np.abs(got - want).max()) / scale
+        top1 = int((got.argmax(1) == want.argmax(1)).sum())
+    # what the limit reads on a batch whose products ran in TF32: the
+    # first SERVE_BATCH images as one batch with TF32 on, against the
+    # same single runs (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = predictor.run({"data": imgs[:SERVE_BATCH]})[1]
+    finally:
+        _set_matmul_flags()
+    tf32_err = float(np.abs(tf32 - want[:SERVE_BATCH]).max()) / scale
+    phases = tracer.phase_summary()
+    res = {"requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+           "requests_per_s": SERVE_REQUESTS / elapsed,
+           "per_request_rps": per_req_rps,
+           "batching_speedup": SERVE_REQUESTS / elapsed / per_req_rps,
+           "e2e_ms": snap["e2e_ms"], "exec_ms": snap["exec_ms"],
+           "exec_per_req_ms": snap["exec_per_req_ms"],
+           "queue_wait_ms_p50": phases.get("queue_wait", {}).get("p50_ms"),
+           "batch_occupancy": snap["batch_occupancy"],
+           "padding_waste": snap["padding_waste"],
+           "batches": snap["batches"], "warmup": snap.get("warmup"),
+           "post_warmup_compiles": snap["post_warmup_compiles"],
+           "logits_max_rel_err_vs_single": err,
+           "logits_scale": scale, "top1_equal": top1,
+           "tol": TOL_SERVE_BATCHED,
+           "tf32_batch_max_rel_err_vs_single": tf32_err,
+           "errors": errors[:3], "launches": counts["launches"],
+           "plain_calls": counts["plain"]}
+    log(f"  per-request Predictor: {per_req_rps:.1f} requests/s over "
+        f"{SERVE_PER_REQUEST} images one at a time")
+    log(f"  engine: {SERVE_REQUESTS} requests from {SERVE_CLIENTS} clients "
+        f"in {elapsed:.3f} s: {res['requests_per_s']:.1f} requests/s, "
+        f"batching_speedup {res['batching_speedup']:.3f}; e2e p50 "
+        f"{snap['e2e_ms']['p50_ms']} ms p99 {snap['e2e_ms']['p99_ms']} ms; "
+        f"occupancy {snap['batch_occupancy']}, padding waste "
+        f"{snap['padding_waste']}, {snap['batches']} batches; "
+        f"post_warmup_compiles {snap['post_warmup_compiles']} on {card}")
+    log(f"  responses against Predictor.run alone: logits max abs err "
+        f"{err} of their largest {scale:.4g} (tol {TOL_SERVE_BATCHED:g}); "
+        f"top-1 equal on {top1}/{SERVE_REQUESTS}; a batch of "
+        f"{SERVE_BATCH} with TF32 on: {tf32_err}")
+    if (errors or err is None or err > TOL_SERVE_BATCHED
+            or tf32_err <= TOL_SERVE_BATCHED
+            or snap["post_warmup_compiles"] or snap["completed"]
+            != SERVE_REQUESTS):
+        raise AssertionError(f"4f (B) engine: {res}")
+    shutil.rmtree(d, ignore_errors=True)
+    del predictor
+    torch.cuda.empty_cache()
+
+    # the int8 Predictor against Executor.run of the same converted
+    # program: 6u's recipe, its saved directory served through
+    # AnalysisConfig.enable_int8()
+    prog, qscope, _, _, plan, fetch, qdir = _int8_models(dev, card)
+    x8 = resnet_batch(8, seed=20)["data"]
+    exe = pt.Executor(pt.CUDAPlace(0))
+    want = exe.run(prog, feed={"data": x8}, fetch_list=fetch,
+                   scope=qscope)
+    pred8 = pt.Predictor(pt.AnalysisConfig(qdir).enable_int8())
+    got = pred8.run({"data": x8})
+    shutil.rmtree(qdir, ignore_errors=True)
+    # softmax and logits, both bit for bit
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    res["int8"] = {"batch": 8, "converted_ops": len(pred8.int8_converted),
+                   "plan_equal": pred8.int8_converted == plan,
+                   "outputs": pred8.get_output_names(),
+                   "bit_equal": equal,
+                   "max_abs_diff": max(float(np.abs(g - w).max())
+                                       for g, w in zip(got, want)),
+                   "logits_scale": float(np.abs(want[1]).max()),
+                   "finite": all(bool(np.isfinite(g).all()) for g in got)}
+    log(f"  int8 Predictor (enable_int8, {len(pred8.int8_converted)} ops "
+        f"converted, plan equal {res['int8']['plan_equal']}) against "
+        f"Executor.run of the converted program at batch 8: softmax and "
+        f"logits (largest {res['int8']['logits_scale']:.4g}) bit for bit "
+        f"{equal} (max abs diff {res['int8']['max_abs_diff']:.3e})")
+    if not (equal and res["int8"]["plan_equal"] and res["int8"]["finite"]):
+        raise AssertionError(f"4f (B) int8 Predictor: {res['int8']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -7261,6 +7625,8 @@ def main() -> int:
     moe = timed("6t", phase_moe, dev, card)
     qat_int8 = timed("6u", phase_qat_int8, dev, card)
     detection = timed("6v", phase_detection, dev, card)
+    fleet = timed("4e", phase_fleet, dev, card)
+    serving_engine = timed("4f", phase_serving_engine, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -7298,12 +7664,14 @@ def main() -> int:
     # on the speculative engines' verify runs; the flash forward inside
     # 6s's While body; the flash kernels (float32, then bf16) on 6t's MoE
     # Transformer; none on 6u's QAT/int8 ResNet-50 and SRL paths nor on
-    # 6v's Faster R-CNN (counted all the same)
+    # 6v's Faster R-CNN (counted all the same); the paged kernel and the
+    # flash forward on 4e's fleet replicas, none on 4f's ResNet-50
+    # Predictor and ServingEngine
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
              train_recompute, train_optimizers, control_flow, moe, qat_int8,
-             detection)
+             detection, fleet, serving_engine)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -7360,6 +7728,8 @@ def main() -> int:
                    "moe": moe,
                    "qat_int8": qat_int8,
                    "detection": detection,
+                   "fleet": fleet,
+                   "serving_engine": serving_engine,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

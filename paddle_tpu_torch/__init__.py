@@ -59,6 +59,7 @@ from . import clip  # noqa: E402,F401
 from . import contrib  # noqa: E402,F401
 from . import data  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
+from . import inference  # noqa: E402,F401
 from . import io  # noqa: E402,F401
 from . import layers  # noqa: E402,F401
 from . import nets  # noqa: E402,F401
@@ -68,6 +69,7 @@ from . import optimizer  # noqa: E402,F401
 from . import quantize as quantize_module  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import resilience  # noqa: E402,F401
+from . import serving  # noqa: E402,F401
 from .core import unique_name  # noqa: E402,F401
 from .core.backward import append_backward, gradients  # noqa: E402,F401
 from .core.executor import (Executor, Scope, global_scope,  # noqa: E402,F401
@@ -77,6 +79,8 @@ from .core.program import (Block, Operator, Parameter,  # noqa: E402,F401
                            default_startup_program, name_scope,
                            pipeline_scope, pipeline_segment,
                            program_guard, recompute_scope)
+from .inference import (AnalysisConfig, Predictor,  # noqa: E402,F401
+                        create_paddle_predictor)
 from .param_attr import ParamAttr  # noqa: E402,F401
 from .quantize import QuantizeTranspiler  # noqa: E402,F401
 

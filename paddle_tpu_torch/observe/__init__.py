@@ -4,8 +4,9 @@ wall-clock goodput ledger (the jax-free part of paddle_tpu/observe that
 the serving and training slices use)."""
 
 from .events import (DECODE_EVENTS, FEED_EVENTS,  # noqa: F401
-                     GANG_EVENTS, GOODPUT_EVENTS, NUMERICS_EVENTS,
-                     RESILIENCE_EVENTS, RunEventLog, read_events)
+                     FLEET_EVENTS, GANG_EVENTS, GOODPUT_EVENTS,
+                     NUMERICS_EVENTS, RESILIENCE_EVENTS, SERVING_EVENTS,
+                     BoundEventLog, RunEventLog, read_events)
 from .goodput import (CATEGORIES as GOODPUT_CATEGORIES,  # noqa: F401
                       GoodputLedger, format_goodput_table,
                       goodput_report)

@@ -1,8 +1,10 @@
 """Structured run events: an append-only JSONL log with provenance.
 
-The port of the part of paddle_tpu/observe/events.py that the decode
-engine and contrib.Trainer use.  One JSON object per line, flushed
-whole, so the file is valid to tail mid-run.  Kinds under the dashboard
+The port of the part of paddle_tpu/observe/events.py that the serving
+engines, the fleet and contrib.Trainer use.  One JSON object per line,
+flushed whole, so the file is valid to tail mid-run.  `bind()` gives a
+view that stamps fixed fields (a fleet replica's `replica_id`) into
+every record, so N replicas share one log and stay attributable.  Kinds under the dashboard
 prefixes (`_VALIDATED_PREFIXES`, the reference's list) are checked
 against the registries below (a typo'd kind would silently drop off
 every dashboard filter): unknown ones raise.
@@ -18,6 +20,21 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional
 
+# the dynamic-batching ServingEngine's event kinds (docs/SERVING.md)
+SERVING_EVENTS = (
+    "serving_start",                # engine config at start()
+    "serving_memory_plan",          # pre-warmup bucket-ladder fit plan
+    "serving_warmup",               # bucket-ladder warmup summary
+    "serving_window",               # periodic stats snapshot
+    "serving_compile_post_warmup",  # LOUD: a signature ran unwarmed
+    "serving_drain",                # final snapshot at drain
+    "serving_breaker_open",         # LOUD: executor failure burst —
+    #                                 admission flipped to DEGRADED
+    "serving_breaker_close",        # half-open probe succeeded; RUNNING
+    "serving_reload",               # hot weight swap applied (version,
+    #                                 pause_ms)
+)
+
 # the decode engine's event kinds (docs/SERVING.md §decode)
 DECODE_EVENTS = (
     "serving_decode_start",        # engine geometry at start()
@@ -26,11 +43,33 @@ DECODE_EVENTS = (
     "serving_decode_window",       # periodic DecodeStats snapshot
     "serving_decode_drain",        # final snapshot at drain
     "serving_decode_preempt",      # a slot was evicted (pool dry)
-    "serving_decode_evacuate",     # requests pulled off the engine
-    #                                (scheduler death / shutdown)
+    "serving_decode_evacuate",     # requests pulled off the replica
+    #                                (weight roll / scheduler death)
+    "serving_decode_reload",       # hot weight swap applied
     "serving_compile_post_warmup",  # LOUD: a kernel built after warmup
     "serving_breaker_open",        # LOUD: executor failure burst
     "serving_breaker_close",       # half-open probe succeeded
+)
+
+# serving-fleet event kinds (docs/SERVING.md §fleet): the router
+# fronting N engine replicas; engines stamp their own events with
+# replica_id through RunEventLog.bind
+FLEET_EVENTS = (
+    "serving_fleet_start",     # fleet config at start(): kind, replicas
+    "serving_fleet_failover",  # LOUD: an in-flight request was pulled
+    #                            off a replica and requeued on a
+    #                            survivor (committed-token count rides)
+    "serving_fleet_eject",     # LOUD: a replica was removed from
+    #                            routing (scheduler death / manual)
+    "serving_fleet_hedge",     # a slow attempt got a duplicate on
+    #                            another replica (idempotent only)
+    "serving_fleet_saturated",  # LOUD: every replica fast-rejected —
+    #                            the structured whole-fleet shed
+    "serving_fleet_reload",    # one roll: begin/done phases + version
+    "serving_fleet_reload_replica",  # per-replica swap: pause_ms,
+    #                                  evacuated count
+    "serving_fleet_window",    # periodic fleet-merged stats snapshot
+    "serving_fleet_close",     # final merged snapshot at close
 )
 
 # resilience event kinds (docs/RESILIENCE.md): checkpoint fallback,
@@ -89,7 +128,8 @@ NUMERICS_EVENTS = (
 _VALIDATED_PREFIXES = ("serving_", "fleet_", "gang_", "alert_",
                        "flight_", "autoscale_", "recovery_",
                        "feeder_", "feed_")
-_KNOWN_KINDS = (set(DECODE_EVENTS) | set(RESILIENCE_EVENTS)
+_KNOWN_KINDS = (set(SERVING_EVENTS) | set(DECODE_EVENTS)
+                | set(FLEET_EVENTS) | set(RESILIENCE_EVENTS)
                 | set(FEED_EVENTS) | set(GANG_EVENTS)
                 | set(GOODPUT_EVENTS) | set(NUMERICS_EVENTS))
 
@@ -160,6 +200,23 @@ class RunEventLog:
         fields.update(extra)
         return self.event("telemetry", **fields)
 
+    def serving_window(self, stats, **extra: Any) -> Dict[str, Any]:
+        """Emit one serving stats snapshot (a serving.ServingStats or a
+        plain dict) — the serving analog of telemetry_window."""
+        fields = (stats.snapshot() if hasattr(stats, "snapshot")
+                  else dict(stats))
+        fields.update(extra)
+        return self.event("serving_window", **fields)
+
+    def bind(self, **fields: Any) -> "BoundEventLog":
+        """A view over this log that stamps `fields` (e.g. replica_id)
+        into every record it emits — the way N serving-engine replicas
+        share ONE process log without their events becoming
+        indistinguishable.  The view shares the file, write lock, and
+        run_id; closing the view is a no-op (the owner closes the
+        base)."""
+        return BoundEventLog(self, fields)
+
     def close(self):
         if not self._f.closed:
             self.event("run_end")
@@ -171,6 +228,48 @@ class RunEventLog:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class BoundEventLog:
+    """RunEventLog view with fixed fields merged into every record
+    (see RunEventLog.bind).  Explicit per-event fields win on key
+    collision.  Safe to re-bind (views nest by merging)."""
+
+    def __init__(self, base: RunEventLog, fields: Dict[str, Any]):
+        while isinstance(base, BoundEventLog):
+            fields = {**base._fields, **fields}
+            base = base._base
+        self._base = base
+        self._fields = dict(fields)
+
+    @property
+    def run_id(self) -> str:
+        return self._base.run_id
+
+    @property
+    def path(self) -> str:
+        return self._base.path
+
+    def bind(self, **fields: Any) -> "BoundEventLog":
+        return BoundEventLog(self, fields)
+
+    def event(self, kind: str, **fields: Any) -> Dict[str, Any]:
+        return self._base.event(kind, **{**self._fields, **fields})
+
+    def telemetry_window(self, telemetry, **extra: Any) -> Dict[str, Any]:
+        fields = (telemetry.as_dict() if hasattr(telemetry, "as_dict")
+                  else dict(telemetry))
+        fields.update(extra)
+        return self.event("telemetry", **fields)
+
+    def serving_window(self, stats, **extra: Any) -> Dict[str, Any]:
+        fields = (stats.snapshot() if hasattr(stats, "snapshot")
+                  else dict(stats))
+        fields.update(extra)
+        return self.event("serving_window", **fields)
+
+    def close(self):
+        """No-op: the view does not own the underlying file."""
 
 
 def _jsonable(v):

@@ -133,6 +133,52 @@ class LatencyHistogram:
             if ms > self.max_ms:
                 self.max_ms = ms
 
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Fold `other`'s counts into this histogram IN PLACE (and
+        return self): bin-wise count addition loses nothing, so
+        percentiles over the merged histogram equal those of one
+        histogram that recorded every sample of both — the fleet's
+        cross-replica aggregation.  Bin configs must match; merging
+        histograms with different edges would silently mis-bin, so it
+        is rejected."""
+        if not isinstance(other, LatencyHistogram):
+            raise TypeError(f"cannot merge {type(other).__name__} into "
+                            f"LatencyHistogram")
+        if (self._lo, self._k, self._nbins) != (other._lo, other._k,
+                                                other._nbins):
+            raise ValueError(
+                f"histogram bin configs differ: "
+                f"(lo_ms={self._lo}, bins_per_decade={self._k}, "
+                f"nbins={self._nbins}) vs (lo_ms={other._lo}, "
+                f"bins_per_decade={other._k}, nbins={other._nbins})")
+        # snapshot other first, then fold under our lock (never hold
+        # both: merge(a, b) against merge(b, a) would deadlock)
+        with other._lock:
+            counts = list(other._counts)
+            o_count, o_sum, o_max = other.count, other.sum_ms, other.max_ms
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += c
+            self.count += o_count
+            self.sum_ms += o_sum
+            if o_max > self.max_ms:
+                self.max_ms = o_max
+        return self
+
+    def cumulative_buckets(self):
+        """[(upper_edge_ms, cumulative_count), ...] over the non-empty
+        bins — the Prometheus `le` mapping: each bin's upper edge is an
+        `le` value and the counts are exact prefix sums."""
+        with self._lock:
+            counts = list(self._counts)
+        out = []
+        acc = 0
+        for i, c in enumerate(counts):
+            if c:
+                acc += c
+                out.append((self._edge(i), acc))
+        return out
+
     def percentile(self, p: float) -> Optional[float]:
         """p in [0, 100] -> latency ms (bin upper edge), None if empty."""
         with self._lock:

@@ -29,9 +29,9 @@ host-side tracer the serving stack threads a `RequestTrace` through:
 Span taxonomy: decode uses `join_wait` / `dispatch` (kind=prefill|
 decode, one per chunk or verify round; `speculate` beside each verify
 round) plus `preempt` / `evacuated` / `rejected` point markers; the
-fleet router's `route`, `failover`, `hedge`, `abandoned`, `complete`
-and the disagg `kv_transfer` come with their slices (ROADMAP queue A
-item 7).
+fleet router (serving/fleet.py) adds `route` and `failover` spans and
+`hedge`, `abandoned` and `complete` markers; the disagg `kv_transfer`
+comes with its slice (ROADMAP queue A step 9b).
 """
 
 from __future__ import annotations

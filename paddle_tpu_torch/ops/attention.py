@@ -49,7 +49,7 @@ import torch
 from ..core.registry import register_op
 from .common import first, opt_in, out, weak_scalar
 from . import kernels
-from .kernels import composed_calls
+from .kernels import bump, composed_calls
 from .kernels import flash_attention as fk
 from .kernels import vocab_ce as vk
 
@@ -116,7 +116,7 @@ def flash_attention(ctx, ins, attrs):
     if (bias is not None and not fk.key_bias_ok(bias, n, t_k)) or (
             not attrs.get("use_pallas") and kernels.on_card(q)
             and not fk.kernel_takes(q, k, v, d)):
-        composed_calls["flash_attention"] += 1
+        bump(composed_calls, "flash_attention")
         return out(Out=composed_attention(q, k, v, bias, scale, causal,
                                           layout, n_head))
     o, _lse = fk.flash_attention(q, k, v, bias, scale, causal, layout,
@@ -134,7 +134,7 @@ def fused_vocab_softmax_ce(ctx, ins, attrs):
     if attrs.get("use_pallas", False):
         return out(Loss=vk.fused_vocab_ce(hidden, w, label, eps))
     if kernels.on_card(hidden) and not vk.kernel_takes(hidden, w):
-        composed_calls["fused_vocab_softmax_ce"] += 1
+        bump(composed_calls, "fused_vocab_softmax_ce")
         return out(Loss=vk.composed_vocab_ce(hidden, w, label, eps))
     return out(Loss=vk.fused_vocab_ce(hidden, w, label, eps,
                                       fill_labels=True))

@@ -10,7 +10,9 @@ falls back to its plain version.
 
 `launch_counts` counts kernel launches (incremented by each wrapper right
 after its launch, nowhere else) and `plain_calls` counts plain-version
-runs, so a caller can show which path a run took.  A kernel with a bf16
+runs, so a caller can show which path a run took.  Every increment goes
+through `bump`, under one lock: a serving fleet's replicas launch from
+scheduler threads of their own.  A kernel with a bf16
 path counts it under its own name (`flash_attention_fwd_bf16` beside
 `flash_attention_fwd`).  `composed_calls`
 counts the torch compositions that stand where the reference runs an XLA
@@ -31,6 +33,7 @@ the card.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 KERNELS = ("paged_attention", "flash_attention_fwd",
@@ -62,12 +65,22 @@ def on_card(t) -> bool:
     return t.device.type == "cuda"
 
 
+_count_lock = threading.Lock()
+
+
+def bump(table: Dict[str, int], name: str) -> None:
+    """table[name] += 1, atomically across threads."""
+    with _count_lock:
+        table[name] += 1
+
+
 def reset_counts() -> None:
-    for k in KERNELS:
-        launch_counts[k] = 0
-        plain_calls[k] = 0
-    for k in COMPOSED:
-        composed_calls[k] = 0
+    with _count_lock:
+        for k in KERNELS:
+            launch_counts[k] = 0
+            plain_calls[k] = 0
+        for k in COMPOSED:
+            composed_calls[k] = 0
 
 
 def counts() -> Dict[str, Dict[str, int]]:

@@ -66,7 +66,7 @@ import ctypes
 
 import torch
 
-from . import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, TF32_FLOP_PER_S,
+from . import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, TF32_FLOP_PER_S, bump,
                launch_counts, plain_calls)
 from . import _build
 
@@ -206,7 +206,7 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
                 torch.empty((n * h, t_q), dtype=torch.float32,
                             device=q.device))
     if kind == "cpu":
-        plain_calls[kernel_name(_NAME, q.dtype)] += 1
+        bump(plain_calls, kernel_name(_NAME, q.dtype))
         return flash_attention_fwd_plain(q, k, v, bias, scale, causal,
                                          layout, n_head, q_offset,
                                          k_offset)
@@ -237,7 +237,7 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launch_counts[name] += 1
+    bump(launch_counts, name)
     return o, lse
 
 
@@ -301,8 +301,8 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
         scale = d ** -0.5
     kind = q.device.type
     if kind == "cpu":
-        plain_calls[kernel_name(_DKV, q.dtype)] += 1
-        plain_calls[kernel_name(_DQ, q.dtype)] += 1
+        bump(plain_calls, kernel_name(_DKV, q.dtype))
+        bump(plain_calls, kernel_name(_DQ, q.dtype))
         dq, dk, dv, db = flash_attention_bwd_plain(
             q, k, v, bias, o, lse, do, dlse, scale, causal, layout, n_head,
             q_offset, k_offset)
@@ -338,12 +338,12 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
     if rc != 0:
         raise RuntimeError(f"flash_attention dK/dV kernel launch failed: "
                            f"CUDA error {rc}")
-    launch_counts[dkv_name] += 1
+    bump(launch_counts, dkv_name)
     rc = getattr(lib, dq_name + "_launch")(*ins, dq.data_ptr(), *common)
     if rc != 0:
         raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA "
                            f"error {rc}")
-    launch_counts[dq_name] += 1
+    bump(launch_counts, dq_name)
     dbias = None
     if db is not None:
         dbias = _sum_to(db.reshape(n, h, 1, t_k), bias.shape) \

@@ -42,7 +42,7 @@ import ctypes
 
 import torch
 
-from . import TF32_FLOP_PER_S, _build, launch_counts, plain_calls
+from . import TF32_FLOP_PER_S, _build, bump, launch_counts, plain_calls
 
 UNITS_PER_BLOCK = 4     # csrc/lstm.cu kHStep: H must be a multiple
 MAX_H = 512             # csrc/lstm.cu kMaxH
@@ -190,7 +190,7 @@ def lstm_fwd(xs, w, h0, c0, sl, rev=False):
         return tuple(torch.empty((t_len, n, g4 // 4), dtype=xs.dtype,
                                  device=xs.device) for _ in range(2))
     if kind == "cpu":
-        plain_calls[_FWD] += 1
+        bump(plain_calls, _FWD)
         return lstm_fwd_plain(xs, w, h0, c0, sl, rev)
     if kind != "cuda":
         raise ValueError(f"lstm: unsupported device {xs.device}")
@@ -204,7 +204,7 @@ def lstm_fwd(xs, w, h0, c0, sl, rev=False):
         int(bool(rev)), xs.device.index or 0, _stream(xs))
     if rc != 0:
         _raise_launch("forward", rc)
-    launch_counts[_FWD] += 1
+    bump(launch_counts, _FWD)
     return hs, cs
 
 
@@ -215,7 +215,7 @@ def lstm_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev=False):
         return (torch.empty_like(xs), torch.empty_like(w),
                 torch.empty_like(h0), torch.empty_like(c0))
     if kind == "cpu":
-        plain_calls[_BWD] += 1
+        bump(plain_calls, _BWD)
         return lstm_bwd_plain(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev)
     if kind != "cuda":
         raise ValueError(f"lstm: unsupported device {xs.device}")
@@ -231,7 +231,7 @@ def lstm_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev=False):
         xs.device.index or 0, _stream(xs))
     if rc != 0:
         _raise_launch("backward", rc)
-    launch_counts[_BWD] += 1
+    bump(launch_counts, _BWD)
     return tuple(outs)
 
 

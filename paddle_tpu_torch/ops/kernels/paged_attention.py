@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from . import launch_counts, plain_calls
+from . import bump, launch_counts, plain_calls
 from . import _build
 
 NEG_INF = -1e30
@@ -213,7 +213,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, n_head,
     if kind == "meta":
         return torch.empty_like(q)
     if kind == "cpu":
-        plain_calls[_NAME] += 1
+        bump(plain_calls, _NAME)
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      lengths, n_head, scale, k_scales,
                                      v_scales)
@@ -284,7 +284,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launch_counts[_NAME] += 1
+    bump(launch_counts, _NAME)
     return out
 
 

@@ -37,7 +37,7 @@ import ctypes
 import torch
 
 from ..common import fill_index, nan_where
-from . import TF32_FLOP_PER_S, _build, launch_counts, plain_calls
+from . import TF32_FLOP_PER_S, _build, bump, launch_counts, plain_calls
 
 # Hopper tiles of csrc/vocab_ce.cu: 64 tokens or vocabulary columns per
 # block; z tiles 64 wide in the backward, 128 in the forward; D is held
@@ -160,7 +160,7 @@ def vocab_ce_fwd(h, w, labels):
         return tuple(torch.empty(n, dtype=torch.float32, device=h.device)
                      for _ in range(3))
     if kind == "cpu":
-        plain_calls[_FWD] += 1
+        bump(plain_calls, _FWD)
         return vocab_ce_fwd_plain(h, w, labels)
     if kind != "cuda":
         raise ValueError(f"vocab_ce: unsupported device {h.device}")
@@ -174,7 +174,7 @@ def vocab_ce_fwd(h, w, labels):
     if rc != 0:
         raise RuntimeError(f"vocab_ce forward kernel launch failed: CUDA "
                            f"error {rc}")
-    launch_counts[_FWD] += 1
+    bump(launch_counts, _FWD)
     return lse, z_label, z_sum
 
 
@@ -185,8 +185,8 @@ def vocab_ce_bwd(h, w, labels, lse, g, eps):
     if kind == "meta":
         return torch.empty_like(h), torch.empty_like(w)
     if kind == "cpu":
-        plain_calls[_DH] += 1
-        plain_calls[_DW] += 1
+        bump(plain_calls, _DH)
+        bump(plain_calls, _DW)
         return vocab_ce_bwd_plain(h, w, labels, lse, g, eps)
     if kind != "cuda":
         raise ValueError(f"vocab_ce: unsupported device {h.device}")
@@ -202,12 +202,12 @@ def vocab_ce_bwd(h, w, labels, lse, g, eps):
     if rc != 0:
         raise RuntimeError(f"vocab_ce dh kernel launch failed: CUDA error "
                            f"{rc}")
-    launch_counts[_DH] += 1
+    bump(launch_counts, _DH)
     rc = lib.vocab_ce_dw_launch(*args, dw.data_ptr(), *tail)
     if rc != 0:
         raise RuntimeError(f"vocab_ce dW kernel launch failed: CUDA error "
                            f"{rc}")
-    launch_counts[_DW] += 1
+    bump(launch_counts, _DW)
     return dh, dw
 
 

@@ -40,7 +40,7 @@ import torch
 from ..core.registry import register_op
 from .common import first, opt_in, out
 from . import kernels
-from .kernels import composed_calls
+from .kernels import bump, composed_calls
 from .kernels import paged_attention as pk
 from .sequence import sinusoid
 
@@ -156,7 +156,7 @@ def paged_attention(ctx, ins, attrs):
                   v_scales=opt_in(ins, "VScale"))
     if not attrs.get("use_pallas") and kernels.on_card(q) \
             and not pk.kernel_takes(q, kc, vc, n_head):
-        composed_calls["paged_attention"] += 1
+        bump(composed_calls, "paged_attention")
         return out(Out=pk.paged_attention_plain(
             *args, n_head, attrs.get("scale"), **scales))
     return out(Out=pk.paged_attention(*args, n_head=n_head,

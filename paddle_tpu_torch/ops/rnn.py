@@ -38,7 +38,7 @@ import torch
 from ..core.registry import register_op
 from .common import first, opt_in, out
 from . import kernels
-from .kernels import composed_calls
+from .kernels import bump, composed_calls
 from .kernels import lstm as lk
 from .sequence import _reject_nested
 
@@ -140,7 +140,7 @@ def dynamic_lstm(ctx, ins, attrs):
                 "LastH": [h_last], "LastC": [c_last]}
 
     if x.device.type != "meta":
-        composed_calls["dynamic_lstm"] += 1
+        bump(composed_calls, "dynamic_lstm")
     gate_act, cell_act, cand_act = (_ACTS[a] for a in acts)
     peep = _peepholes(bias, h_dim, use_peepholes, x)
     xs, steps = _time_major(x, is_reverse)

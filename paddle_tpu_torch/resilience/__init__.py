@@ -21,21 +21,22 @@ card needs.
   `PREEMPT_EXIT_CODE`,
 - `chaos`: deterministic in-process fault injectors (failpoints,
   delaypoints, NaN batches, shard corruption, torn checkpoints, the
-  host-side `hang`) that the tests and `chip_smoke.py` use to prove the
-  above.
+  host-side `hang`, the `FlakyPredictor` executor proxy and the serving
+  replica injectors `kill_replica`/`delay_replica`) that the tests and
+  `chip_smoke.py` use to prove the above.
 
-Not ported yet, each under its ROADMAP queue A step: the chaos replica
-injectors (`kill_replica`, `delay_replica`, `FlakyPredictor`; step 9);
-`health`, `supervisor`, `autopilot` and the chaos rank injectors
-(`kill_rank`, `hang_rank`, `FakeKv`; step 11).
+Not ported yet, under ROADMAP queue A step 11: `health`, `supervisor`,
+`autopilot` and the chaos rank injectors (`kill_rank`, `hang_rank`,
+`FakeKv`).
 """
 
 from . import chaos  # noqa: F401
 from . import preempt  # noqa: F401
 from . import watchdog  # noqa: F401
-from .chaos import (ChaosKilled, corrupt_file,  # noqa: F401
-                    corrupt_shard, hang, nan_reader, poison_feed,
-                    tear_checkpoint)
+from .chaos import (ChaosKilled, FlakyPredictor,  # noqa: F401
+                    InjectedExecutorError, corrupt_file, corrupt_shard,
+                    delay_replica, hang, kill_replica, nan_reader,
+                    poison_feed, tear_checkpoint)
 from .errors import (CheckpointBarrierPoisonedError,  # noqa: F401
                      CheckpointBarrierTimeoutError,
                      CheckpointCorruptError, CheckpointError,

@@ -1,5 +1,5 @@
 """Deterministic fault injection for the resilience subsystem: the
-in-process part of paddle_tpu/resilience/chaos.py (:1-200).
+in-process part of paddle_tpu/resilience/chaos.py (:1-281).
 
 Every recovery behavior is proven by injecting its fault, not by
 hoping:
@@ -20,11 +20,16 @@ hoping:
 
 - **hang** — an injected host-side stall the step watchdog
   (resilience/watchdog.py) must interrupt.
+- **executor faults** — `FlakyPredictor`, a Predictor proxy whose first
+  runs fail (the serving breaker's burst).
+- **serving replicas** — `kill_replica` arms a fleet replica's
+  `replica:{id}:kill` failpoint (its next scheduled iteration or
+  dispatch dies through the real failure path), `delay_replica` its
+  `replica:{id}:delay` stall (the straggler a hedge must beat).
 
 Injectors are deterministic (step counts, call counts — never random),
-so every chaos test is reproducible.  The reference's executor-fault
-proxy (`FlakyPredictor`) and serving-replica injectors wait for ROADMAP
-A step 9, and its gang-rank injectors and `FakeKv` for step 11.
+so every chaos test is reproducible.  The reference's gang-rank
+injectors and `FakeKv` wait for ROADMAP A step 11.
 """
 
 from __future__ import annotations
@@ -211,3 +216,80 @@ def tear_checkpoint(ckpt_dir: str) -> None:
     if removed == 0:
         raise FileNotFoundError(
             f"{ckpt_dir} has no manifest/trainer state to tear")
+
+
+# ---------------------------------------------------------------------------
+# Executor faults (serving breaker, watchdog)
+# ---------------------------------------------------------------------------
+
+class InjectedExecutorError(ResilienceError):
+    """The failure FlakyPredictor injects."""
+
+    kind = "injected_executor_error"
+
+
+class FlakyPredictor:
+    """Predictor proxy whose `run()` fails for the first `fail_first`
+    calls (optionally delaying `delay_s` before each call) and then
+    behaves normally — a deterministic executor-failure burst.  All
+    other attributes (compile_signature, get_input_names, ...) pass
+    through, so warmup and shape validation are unaffected."""
+
+    def __init__(self, predictor, fail_first: int = 0,
+                 delay_s: float = 0.0):
+        self._predictor = predictor
+        self.fail_first = int(fail_first)
+        self.delay_s = float(delay_s)
+        self.calls = 0
+        self.failures_injected = 0
+
+    def run(self, feed):
+        self.calls += 1
+        if self.delay_s > 0:
+            time.sleep(self.delay_s)
+        if self.calls <= self.fail_first:
+            self.failures_injected += 1
+            raise InjectedExecutorError(
+                f"injected executor failure {self.calls}/"
+                f"{self.fail_first}", call=self.calls)
+        return self._predictor.run(feed)
+
+    def __getattr__(self, name):
+        return getattr(self._predictor, name)
+
+
+# ---------------------------------------------------------------------------
+# Serving-replica faults (serving/fleet.py)
+# ---------------------------------------------------------------------------
+
+def _replica_point(engine, what: str) -> str:
+    rid = getattr(engine, "replica_id", None)
+    if rid is None:
+        raise ValueError(
+            "engine has no replica_id — chaos replica primitives "
+            "target FLEET replicas (Fleet assigns ids at construction, "
+            "or call engine.set_replica_id first)")
+    return f"replica:{rid}:{what}"
+
+
+def kill_replica(engine) -> str:
+    """Arm the abrupt-death failpoint of one fleet replica: the
+    engine's next scheduled iteration raises ChaosKilled exactly where
+    an executor crash would land, driving the REAL failure path — a
+    DecodeEngine's scheduler dies through `_fail_everything` (every
+    in-flight request resolves with the structured retryable
+    DecodeReplicaFailedError and a router fails it over); a
+    ServingEngine's next dispatch fails the batch with the retryable
+    ExecutorFailureError.  Returns the armed failpoint name
+    (chaos.disarm(name) cancels)."""
+    name = _replica_point(engine, "kill")
+    arm(name)
+    return name
+
+
+def delay_replica(engine, seconds: float, times: int = 1) -> str:
+    """Arm a per-iteration stall on one fleet replica — the straggler
+    a router's hedging must beat.  Returns the delaypoint name."""
+    name = _replica_point(engine, "delay")
+    arm_delay(name, seconds, times)
+    return name

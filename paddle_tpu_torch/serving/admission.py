@@ -115,8 +115,8 @@ class WeightReloadError(ServingError):
     """A hot weight reload was refused or broke its contract: shape/
     dtype mismatch vs the live parameters (a same-shape swap is what
     guarantees zero recompiles), an attempt to swap under live
-    generations without evacuating first, or an XLA compile observed
-    during a fleet roll."""
+    generations without evacuating first, or a compile (a kernel build,
+    an unwarmed signature) observed during a fleet roll."""
 
     kind = "weight_reload"
 

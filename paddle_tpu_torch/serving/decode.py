@@ -30,19 +30,32 @@ tables (Ragged Paged Attention, PAPERS.md arxiv 2604.15464).
 - **request tracing** (`tracer=`, observe/reqtrace.py) — host
   timestamps at the queue boundaries only: join_wait, one dispatch span
   per prefill, chunk or verify round, preempt/evacuated/rejected
-  markers.
+  markers.  A fleet router's trace rides `submit(_trace=)`; the router
+  then finishes it.
+- **the fleet surface** (serving/fleet.py) — `set_replica_id` stamps the
+  replica's events and arms its chaos points (`replica:{id}:kill` /
+  `:delay`, checked before each scheduler iteration); `evacuate()` pulls
+  every accepted request off at a batch boundary with a retryable,
+  structured error carrying its requeue descriptor; `reload()` swaps
+  same-shape weights at a batch boundary (from a sharded checkpoint or
+  a mapping) and tags every later result with the new `model_version`.
 
 Every run has a FIXED shape — the slot batch, the pool and the page
 tables never change across joins/leaves/preemptions — and `start()`
 runs every prefill bucket and one decode step before opening, so the
 kernels' builds and cuBLAS's set-up land in warmup: steady state counts
 ZERO post-warmup compiles.  The pools are updated in place by the write
-ops (the JAX engine's buffer donation).
+ops (the JAX engine's buffer donation).  Prefill runs take the
+`row_block` of the smallest bucket (OpContext): a prompt's rows get the
+same bits in whichever bucket its co-joiners pick, so a request
+regenerated on another replica (fleet failover) or in another batch
+reproduces its tokens (ROADMAP C8).
 
 Entry points run on `CUDAPlace(0)` unless the caller passes a place;
-without CUDA the default raises.  The disagg roles and weight
-reload/evacuation (ROADMAP queue A item 7) and the `plan_fit` memory
-gate (item 9) are not ported yet.
+without CUDA the default raises.  The scheduler thread enters
+`torch.no_grad()` itself (grad mode is per thread).  The disagg roles
+(ROADMAP A step 9b) and the `plan_fit` memory gate (observe.memory,
+step 11) are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,8 +73,8 @@ from ..observe.events import RunEventLog
 from ..observe.monitoring import runtime_stats
 from .admission import (AdmissionController, CircuitBreaker,
                         DeadlineExceededError, ExecutorFailureError,
-                        ServingError)
-from .engine import BucketConfig
+                        ServingError, WeightReloadError)
+from .engine import BucketConfig, device_params, load_sharded_params
 from .stats import DecodeStats
 
 
@@ -214,15 +227,18 @@ class _Slot:
     """Scheduler-side state of one decode lane."""
 
     __slots__ = ("req", "pages", "committed", "generated", "cur_tok",
-                 "remaining")
+                 "remaining", "version")
 
-    def __init__(self, req: DecodeRequest, pages: List[int]):
+    def __init__(self, req: DecodeRequest, pages: List[int],
+                 version: int = 0):
         self.req = req
         self.pages = pages
         self.committed = len(req.prompt)   # tokens whose KV is pooled
         self.generated: List[int] = []     # tokens produced so far
         self.cur_tok = 0                   # pending (uncommitted) token
         self.remaining = req.max_new_tokens
+        self.version = version             # model_version that serves
+        #                                    this whole generation
 
     @property
     def cap_tokens(self) -> int:
@@ -290,8 +306,9 @@ class DecodeEngine:
             raise ValueError("drafter given but speculate_k is 0")
         if role != "unified":
             raise NotImplementedError(
-                f"role={role!r} (disaggregated prefill/decode serving) "
-                f"is not ported yet: ROADMAP queue A item 7")
+                f"role={role!r} (disaggregated prefill/decode serving, "
+                f"serving/disagg.py) is not ported yet: ROADMAP queue A "
+                f"step 9b")
         self.drafter = None
         if self.speculate_k:
             from .speculate import NGramDrafter
@@ -347,6 +364,26 @@ class DecodeEngine:
         self._worker: Optional[threading.Thread] = None
         self._stop = False
         self._started = False
+        self.role = role
+        # fleet surface: replica identity, weight version, and the
+        # control requests (evacuation / weight swap) the scheduler
+        # services between dispatches
+        self.replica_id: Optional[int] = None
+        self.model_version = 0
+        self._evac_waiters: List[Dict[str, Any]] = []
+        self._pending_reload: Optional[Dict[str, Any]] = None
+
+    def set_replica_id(self, replica_id: int) -> None:
+        """Name this engine as fleet replica `replica_id` and stamp the
+        id on every event it (and its stats) emits — N replicas sharing
+        one RunEventLog stay attributable; its chaos points become
+        `replica:{id}:kill` and `replica:{id}:delay`."""
+        self.replica_id = int(replica_id)
+        if self._event_log is not None \
+                and hasattr(self._event_log, "bind"):
+            bound = self._event_log.bind(replica_id=self.replica_id)
+            self._event_log = bound
+            self.stats._event_log = bound
 
     # -- program runs ----------------------------------------------------
     def _run(self, built, fetch=None, row_block=None,
@@ -365,7 +402,10 @@ class DecodeEngine:
 
     def _prefill_run(self, bucket, tokens, seq_len, last_idx):
         built = self.model.prefill(bucket)
-        env = self._run(built, tokens=self._tensor(tokens),
+        # every bucket's products in blocks of the smallest bucket's rows:
+        # a prompt's bits do not depend on its co-joiners' bucket
+        blk = self.config.num_slots * self.config.prefill_buckets[0]
+        env = self._run(built, row_block=blk, tokens=self._tensor(tokens),
                         seq_len=self._tensor(seq_len),
                         last_idx=self._tensor(last_idx),
                         page_table=self._tensor(self._page_tables))
@@ -481,11 +521,13 @@ class DecodeEngine:
         t0 = time.perf_counter()
         self._pools = self.model.fresh_pools(cfg.num_pages, cfg.page_size,
                                              self.device)
-        n_runs = self._warmup()
+        with torch.no_grad():
+            n_runs = self._warmup()
         if self.drafter is not None:
             # drafter warmup lands inside the warmup window, so the
             # zero-post-warmup-compile contract covers drafting too
-            self.drafter.start(self)
+            with torch.no_grad():
+                self.drafter.start(self)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             if self._event_log is not None:
@@ -550,29 +592,139 @@ class DecodeEngine:
             pages_in_use=self.page_pool.in_use,
             num_pages=self.config.num_pages,
             completed=self.stats.completed,
+            replica_id=self.replica_id,
+            role=self.role,
+            model_version=self.model_version,
             post_warmup_compiles=self.stats.post_warmup_compiles())
 
-    def evacuate(self, timeout_s: float = 30.0):
-        raise NotImplementedError(
-            "DecodeEngine.evacuate (fleet weight roll) is not ported "
-            "yet: ROADMAP queue A item 7")
+    # -- fleet surface: evacuation + hot weight reload ------------------
+    def _scheduler_alive(self) -> bool:
+        return (self._worker is not None and self._worker.is_alive()
+                and not self._stop)
+
+    def evacuate(self, timeout_s: float = 30.0) -> List[Dict[str, Any]]:
+        """Pull every accepted-but-unresolved request off this replica
+        and return their requeue descriptors.  Each future resolves
+        with the structured, retryable DecodeReplicaFailedError (the
+        wire form `_fail_everything` uses), so a router that chained
+        them fails the requests over.  Runs on the scheduler thread at
+        a batch boundary (inline when the scheduler is not running);
+        the engine keeps serving — later submits are admitted
+        normally."""
+        with self._cv:
+            alive = self._scheduler_alive()
+            if alive:
+                waiter = {"ev": threading.Event(), "result": None}
+                self._evac_waiters.append(waiter)
+                self._cv.notify_all()
+        if not alive:
+            return self._pull_all("evacuated")
+        if not waiter["ev"].wait(timeout_s):
+            raise WeightReloadError(
+                f"evacuation not serviced within {timeout_s:.0f}s "
+                f"(scheduler wedged?)", replica_id=self.replica_id,
+                timeout_s=timeout_s)
+        return waiter["result"]
 
     def reload(self, source, version: Optional[int] = None,
-               timeout_s: float = 60.0):
-        raise NotImplementedError(
-            "DecodeEngine.reload (hot weight swap) is not ported yet: "
-            "ROADMAP queue A item 7")
+               timeout_s: float = 60.0) -> Dict[str, Any]:
+        """Hot weight reload: materialize `source` (a sharded-checkpoint
+        dir via io.load_sharded, or a name→array/tensor mapping) on the
+        engine's device, assert every array matches the live
+        parameter's shape and dtype — the same-shape swap keeps every
+        warmed run warm: ZERO compiles — and swap at the scheduler's
+        next batch boundary.  Refuses while generations are in flight
+        (evacuate() first; the fleet roll does).  Returns {"version",
+        "pause_ms"}; raises the structured WeightReloadError on any
+        violation, leaving the old weights serving."""
+        t0 = time.perf_counter()
+        params = self._materialize_params(source)
+        self._check_reload_shapes(params)
+        new_version = (self.model_version + 1 if version is None
+                       else int(version))
+        with self._cv:
+            alive = self._scheduler_alive()
+            if alive:
+                if self._pending_reload is not None:
+                    raise WeightReloadError(
+                        "another reload is already pending",
+                        replica_id=self.replica_id)
+                pend = {"params": params, "version": new_version,
+                        "ev": threading.Event(), "error": None}
+                self._pending_reload = pend
+                self._cv.notify_all()
+        if not alive:
+            active = sum(s is not None for s in self._slots)
+            if active:
+                raise WeightReloadError(
+                    f"{active} generation(s) still in flight; "
+                    f"evacuate() first", replica_id=self.replica_id)
+            self._params = params
+            self.model_version = new_version
+        else:
+            if not pend["ev"].wait(timeout_s):
+                raise WeightReloadError(
+                    f"reload not applied within {timeout_s:.0f}s "
+                    f"(scheduler wedged?)", replica_id=self.replica_id,
+                    timeout_s=timeout_s)
+            if pend["error"]:
+                raise WeightReloadError(
+                    f"reload refused: {pend['error']}",
+                    replica_id=self.replica_id)
+        pause_ms = (time.perf_counter() - t0) * 1e3
+        self.stats.record_reload(pause_ms)
+        if self._event_log is not None:
+            self._event_log.event(
+                "serving_decode_reload", version=new_version,
+                pause_ms=round(pause_ms, 3),
+                source=source if isinstance(source, str) else "arrays")
+        return {"version": new_version, "pause_ms": round(pause_ms, 3)}
+
+    def _materialize_params(self, source) -> Dict[str, torch.Tensor]:
+        """name → tensor on the engine's device, from a sharded
+        checkpoint dir (either package's) or a mapping."""
+        if isinstance(source, str):
+            from .. import CPUPlace, CUDAPlace
+
+            place = (CUDAPlace(self.device.index or 0)
+                     if self.device.type == "cuda" else CPUPlace())
+            return load_sharded_params(source, self.model.step["main"],
+                                       self._params, place)
+        return device_params(source, self._params, self.device)
+
+    def _check_reload_shapes(self, params: Dict[str, Any]):
+        missing = sorted(set(self._params) - set(params))
+        if missing:
+            raise WeightReloadError(
+                f"reload source missing {len(missing)} parameter(s): "
+                f"{missing[:4]}{' ...' if len(missing) > 4 else ''}",
+                replica_id=self.replica_id, missing=missing)
+        mismatched = [
+            {"name": n, "live": [list(self._params[n].shape),
+                                 str(self._params[n].dtype)],
+             "new": [list(params[n].shape), str(params[n].dtype)]}
+            for n in self._params
+            if (tuple(params[n].shape) != tuple(self._params[n].shape)
+                or params[n].dtype != self._params[n].dtype)]
+        if mismatched:
+            raise WeightReloadError(
+                f"{len(mismatched)} parameter(s) change shape/dtype — "
+                f"a same-shape swap is the zero-recompile contract; "
+                f"first: {mismatched[0]}",
+                replica_id=self.replica_id, mismatched=mismatched)
 
     # -- request path ---------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32,
                priority: int = 0,
-               deadline_ms: Optional[float] = None) -> Future:
+               deadline_ms: Optional[float] = None,
+               _trace=None) -> Future:
         """Accept one generation request; returns a Future of the
         generated token ids (np.int32, includes the eos token when one
         stopped it).  Raises DecodeBucketMissError / QueueFullError /
-        CircuitOpenError / ServingClosedError synchronously."""
-        trace = None
-        if self.tracer is not None:
+        CircuitOpenError / ServingClosedError synchronously.
+        `_trace`: a fleet router's RequestTrace to continue."""
+        trace = _trace
+        if trace is None and self.tracer is not None:
             trace = self.tracer.new_trace("decode")
         prompt = np.asarray(prompt)
         if prompt.ndim != 1 or prompt.size < 1:
@@ -612,8 +764,10 @@ class DecodeEngine:
                 self.stats.record_shed()
             elif e.kind == "circuit_open":
                 self.stats.record_circuit_reject()
-            if trace is not None:
-                trace.point("rejected", reject=e.kind)
+            if trace is not None and not trace.fleet_owned \
+                    and self.tracer is not None:
+                trace.point("rejected", reject=e.kind,
+                            replica_id=self.replica_id)
                 self.tracer.finish(trace, error=e)
             raise
         self.stats.record_submit()
@@ -632,14 +786,32 @@ class DecodeEngine:
             # this thread launches on its own current stream of the
             # engine's device
             torch.cuda.set_device(self.device)
+        # grad mode is per thread: the caller's no_grad does not reach
+        # this one
+        with torch.no_grad():
+            self._schedule()
+
+    def _schedule(self):
+        from ..resilience import chaos
+
         while True:
             with self._cv:
                 while (not self._stop and not self._queue
-                       and not any(self._slots)):
+                       and not any(self._slots)
+                       and not self._evac_waiters
+                       and self._pending_reload is None):
                     self._cv.wait(0.05)
                 if self._stop:
                     return
             try:
+                self._service_control()
+                if self.replica_id is not None:
+                    # fleet chaos points (resilience.chaos.kill_replica
+                    # / delay_replica): a kill raises here and drives
+                    # the REAL abrupt-death path below; a delay models
+                    # a straggling replica for hedge proofs
+                    chaos.delaypoint(f"replica:{self.replica_id}:delay")
+                    chaos.failpoint(f"replica:{self.replica_id}:kill")
                 self._admit()
                 self._decode()
             except BaseException as e:  # noqa: BLE001 — the scheduler
@@ -647,6 +819,35 @@ class DecodeEngine:
                 self._fail_everything(e)
                 return
             self.stats.maybe_emit()
+
+    def _service_control(self):
+        """Evacuations and weight swaps land HERE, on the scheduler
+        thread BETWEEN dispatches — the drain-to-batch-boundary
+        contract: a control action never interleaves with a run, and a
+        swap never touches a live generation (the reload refuses unless
+        the slots are empty; the fleet roll evacuates first).  Every
+        run reads `self._params` when it starts, so the next run after
+        the swap (prefill, chunk or verify) runs wholly on the new
+        weights."""
+        with self._cv:
+            evac = self._evac_waiters
+            self._evac_waiters = []
+            pend = self._pending_reload
+            self._pending_reload = None
+        if evac:
+            descs = self._pull_all("evacuated")
+            for w in evac:
+                w["result"] = descs
+                w["ev"].set()
+        if pend is not None:
+            active = sum(s is not None for s in self._slots)
+            if active:
+                pend["error"] = (f"{active} generation(s) still in "
+                                 f"flight; evacuate() first")
+            else:
+                self._params = pend["params"]
+                self.model_version = pend["version"]
+            pend["ev"].set()
 
     def _pull_all(self, reason: str, cause: Optional[str] = None
                   ) -> List[Dict[str, Any]]:
@@ -681,26 +882,47 @@ class DecodeEngine:
             d = req.descriptor(gen)
             descs.append(d)
             err = DecodeReplicaFailedError(
-                f"request pulled off the engine ({reason}) after "
-                f"{len(gen)} committed token(s); requeue the descriptor",
-                reason=reason, cause=cause, descriptor=d)
+                f"request pulled off replica "
+                f"{self.replica_id if self.replica_id is not None else '?'}"
+                f" ({reason}) after {len(gen)} committed token(s); "
+                f"requeue the descriptor on a surviving replica",
+                reason=reason, cause=cause,
+                replica_id=self.replica_id, descriptor=d)
             if req.trace is not None:
+                # the failover hop itself is the ROUTER's span; the
+                # replica marks why the request left it
                 req.trace.point("evacuated", reason=reason,
+                                replica_id=self.replica_id,
                                 committed=len(gen))
-                self.tracer.finish(req.trace, error=err)
+                if not req.trace.fleet_owned and self.tracer is not None:
+                    self.tracer.finish(req.trace, error=err)
             if not req.future.done():
                 req.future.set_exception(err)
         return descs
 
     def _fail_everything(self, exc: BaseException):
         """The scheduler died: stop accepting, then resolve every
-        accepted request with the structured retryable error."""
+        accepted request with the structured retryable error (requeue
+        descriptors attached) — the router-facing half of the failover
+        contract."""
+        cause = f"{type(exc).__name__}: {exc}"
         try:
             self.admission.begin_drain()
         except ServingError:
             pass
-        self._pull_all("scheduler_failed",
-                       cause=f"{type(exc).__name__}: {exc}")
+        self._pull_all("scheduler_failed", cause=cause)
+        # control waiters must not hang on a dead scheduler either
+        with self._cv:
+            evac = self._evac_waiters
+            self._evac_waiters = []
+            pend = self._pending_reload
+            self._pending_reload = None
+        for w in evac:
+            w["result"] = []
+            w["ev"].set()
+        if pend is not None:
+            pend["error"] = f"scheduler died: {cause}"
+            pend["ev"].set()
 
     def _resolve(self, slot_id: int,
                  error: Optional[BaseException] = None):
@@ -712,17 +934,22 @@ class DecodeEngine:
             self._unresolved -= 1
             self._cv.notify_all()
         tr = slot.req.trace
+        own_trace = (tr is not None and not tr.fleet_owned
+                     and self.tracer is not None)
         if error is not None:
             if not slot.req.future.done():
                 slot.req.future.set_exception(error)
-            if tr is not None:
+            if own_trace:
                 self.tracer.finish(tr, error=error)
             return
         if not slot.req.future.done():
+            # which weights produced this generation (a router's
+            # response tag for the hot-reload roll)
+            slot.req.future.model_version = slot.version
             slot.req.future.set_result(
                 np.asarray(slot.generated, np.int32))
         self.stats.record_done()
-        if tr is not None:
+        if own_trace:
             self.tracer.finish(tr)
 
     def _requeue(self, slot_id: int):
@@ -736,8 +963,8 @@ class DecodeEngine:
         slot.req.preempted += 1
         if slot.req.trace is not None:
             slot.req.trace.point(
-                "preempt", slot=slot_id, committed=slot.committed,
-                generated=len(slot.generated))
+                "preempt", slot=slot_id, replica_id=self.replica_id,
+                committed=slot.committed, generated=len(slot.generated))
         with self._cv:
             self._queue.insert(0, slot.req)
         self.stats.record_preemption()
@@ -786,8 +1013,11 @@ class DecodeEngine:
                                 (now - cand.t_submit) * 1e3, 3))
                         if cand.trace is not None:
                             cand.trace.add("join_wait", cand.t_submit,
-                                           now, expired=True)
-                            self.tracer.finish(cand.trace, error=exc)
+                                           now, replica_id=self.replica_id,
+                                           expired=True)
+                            if not cand.trace.fleet_owned \
+                                    and self.tracer is not None:
+                                self.tracer.finish(cand.trace, error=exc)
                         cand.future.set_exception(exc)
                         continue
                     req = cand
@@ -803,7 +1033,8 @@ class DecodeEngine:
             if req is None:
                 break
             slot_id = free_ids[0]
-            self._slots[slot_id] = _Slot(req, pages)
+            self._slots[slot_id] = _Slot(req, pages,
+                                         version=self.model_version)
             self._set_pages(slot_id, pages)
             joiners.append(slot_id)
         if joiners:
@@ -827,7 +1058,7 @@ class DecodeEngine:
             tr = self._slots[i].req.trace
             if tr is not None:
                 tr.add("join_wait", self._slots[i].req.t_submit, t_p0,
-                       slot=i)
+                       replica_id=self.replica_id, slot=i)
         try:
             nxt = self._prefill_run(bucket, tokens, seq_len, last_idx)
         except Exception as e:  # noqa: BLE001 — resolved, not raised
@@ -874,7 +1105,8 @@ class DecodeEngine:
         for i in slot_ids:
             tr = self._slots[i].req.trace
             if tr is not None:
-                tr.add("dispatch", t0, t1, slot=i, **attrs)
+                tr.add("dispatch", t0, t1, replica_id=self.replica_id,
+                       slot=i, **attrs)
 
     def _breaker_result(self, ok: bool, n: int):
         res = self.admission.record_dispatch_result(ok)
@@ -1059,8 +1291,9 @@ class DecodeEngine:
             tr = slot.req.trace
             if tr is not None:
                 tr.add("dispatch", t_d0, t_d1, kind="decode",
-                       iterations=1, slot=i)
-                tr.add("speculate", t_d0, t_d1, slot=i,
+                       iterations=1, replica_id=self.replica_id, slot=i)
+                tr.add("speculate", t_d0, t_d1, replica_id=self.replica_id,
+                       slot=i,
                        drafted=int(draft_len[i]), accepted=a, emitted=n)
             if slot.remaining <= 0 or (cfg.eos_id is not None
                                        and cfg.eos_id in toks):

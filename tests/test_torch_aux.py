@@ -31,7 +31,15 @@ def _net(fluid):
     return o, o2
 
 
-def test_print_op_passthrough_and_py_func(capsys):
+def test_print_op_passthrough_and_py_func(capsys, monkeypatch):
+    import paddle_tpu.ops.misc as jmisc
+    import paddle_tpu_torch.ops.misc as tmisc
+
+    # a handle numbers its package's registrations in this process: both
+    # registries start empty here, so the two programs' handles agree
+    # whichever tests ran before in the same process
+    monkeypatch.setattr(jmisc, "_PY_FUNCS", {})
+    monkeypatch.setattr(tmisc, "_PY_FUNCS", {})
     got = {}
     for fluid in (jf, tf):
         main, startup = fluid.Program(), fluid.Program()

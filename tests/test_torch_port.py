@@ -26,6 +26,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.core.executor import Executor, place_device
 from paddle_tpu_torch.models.decoder_lm import DecoderLM
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.serving.admission import WeightReloadError
 from paddle_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
 
 torch.set_num_threads(2)
@@ -112,8 +113,8 @@ def test_chip_ab_takes_the_phases_to_run(monkeypatch, capsys):
 
     assert chip_ab.DEFAULT == ("fwd", "6d", "6")
     assert set(chip_ab.DEFAULT) <= set(chip_ab.PHASES)
-    assert {"6c", "6e", "stream", "bwd16", "6i", "6j"} <= \
-        set(chip_ab.PHASES)
+    assert {"6c", "6e", "stream", "bwd16", "6i", "6j", "4c", "4d",
+            "4f"} <= set(chip_ab.PHASES)
     assert chip_ab.main(["a", "b", "6x"]) == 2
     assert chip_ab.main(["a"]) == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -143,8 +144,8 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(role="prefill"), "queue A item 7"),
-    (dict(role="decode"), "queue A item 7"),
+    (dict(role="prefill"), "queue A step 9b"),
+    (dict(role="decode"), "queue A step 9b"),
 ])
 def test_unported_engine_options_raise(kw, item):
     lm = DecoderLM(vocab_size=16, n_layer=1, n_head=2, d_model=8,
@@ -168,8 +169,11 @@ def test_cpu_engine_start_warms_up_and_reports():
         assert eng.stats.snapshot()["warmup"]["executables"] == 3
         # warmup wrote nothing into the pools
         assert all(float(p.abs().sum()) == 0 for p in eng._pools.values())
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
+        # the reload is ported: a source without the parameters is the
+        # structured refusal, the old weights keep serving
+        with pytest.raises(WeightReloadError, match="missing"):
             eng.reload({})
+        assert eng.model_version == 0
     finally:
         eng.close()
 

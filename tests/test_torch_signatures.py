@@ -6,7 +6,11 @@ parameters in the reference's order.
   `encoder_layer`/`decoder_layer` (and so BERT's, which imports them),
   every `layers` function both packages export, and
   `DecodeEngine.__init__` (whose port-only `params` and `place` come
-  last).
+  last); and for the serving surface: `Predictor`, `AnalysisConfig`,
+  `create_paddle_predictor`, `export_serialized_model`, `BucketConfig`,
+  `ServingEngine.__init__`, `Fleet.__init__`, `FleetConfig`,
+  `DecodeEngine.reload`/`evacuate`/`set_replica_id`/`submit` and
+  `chaos.FlakyPredictor`.
 - `exe.run(main, feed, [y], None, True, False)` means
   `use_program_cache=False` in both packages, and runs.
 - `iterations=K` runs the step K times on the same feeds and returns
@@ -33,10 +37,16 @@ import torch
 import paddle_tpu as jf
 import paddle_tpu_torch as tf
 from paddle_tpu.models import transformer as jt
+import paddle_tpu.inference as jinf
+import paddle_tpu.serving as jserving
+import paddle_tpu_torch.inference as tinf
+import paddle_tpu_torch.serving as tserving
 from paddle_tpu.observe import events as jevents
+from paddle_tpu.resilience import chaos as jchaos
 from paddle_tpu.serving import decode as jdecode
 from paddle_tpu_torch.models import transformer as tt
 from paddle_tpu_torch.observe import events as tevents
+from paddle_tpu_torch.resilience import chaos as tchaos
 from paddle_tpu_torch.serving import decode as tdecode
 
 from torch_twin import batches, linreg, persistables, twins
@@ -49,6 +59,41 @@ PAIRS = {
                              tevents.RunEventLog.__init__),
     "encoder_layer": (jt.encoder_layer, tt.encoder_layer),
     "decoder_layer": (jt.decoder_layer, tt.decoder_layer),
+    "Predictor.__init__": (jinf.Predictor.__init__,
+                           tinf.Predictor.__init__),
+    "Predictor.run": (jinf.Predictor.run, tinf.Predictor.run),
+    "Predictor.compile_signature": (jinf.Predictor.compile_signature,
+                                    tinf.Predictor.compile_signature),
+    "Predictor.benchmark": (jinf.Predictor.benchmark,
+                            tinf.Predictor.benchmark),
+    "AnalysisConfig.__init__": (jinf.AnalysisConfig.__init__,
+                                tinf.AnalysisConfig.__init__),
+    "create_paddle_predictor": (jinf.create_paddle_predictor,
+                                tinf.create_paddle_predictor),
+    "export_serialized_model": (jinf.export_serialized_model,
+                                tinf.export_serialized_model),
+    "BucketConfig.__init__": (jserving.BucketConfig.__init__,
+                              tserving.BucketConfig.__init__),
+    "ServingEngine.__init__": (jserving.ServingEngine.__init__,
+                               tserving.ServingEngine.__init__),
+    "ServingEngine.submit": (jserving.ServingEngine.submit,
+                             tserving.ServingEngine.submit),
+    "Fleet.__init__": (jserving.Fleet.__init__, tserving.Fleet.__init__),
+    "Fleet.submit": (jserving.Fleet.submit, tserving.Fleet.submit),
+    "Fleet.reload": (jserving.Fleet.reload, tserving.Fleet.reload),
+    "FleetConfig.__init__": (jserving.FleetConfig.__init__,
+                             tserving.FleetConfig.__init__),
+    "DecodeEngine.reload": (jdecode.DecodeEngine.reload,
+                            tdecode.DecodeEngine.reload),
+    "DecodeEngine.evacuate": (jdecode.DecodeEngine.evacuate,
+                              tdecode.DecodeEngine.evacuate),
+    "DecodeEngine.set_replica_id": (jdecode.DecodeEngine.set_replica_id,
+                                    tdecode.DecodeEngine.set_replica_id),
+    "DecodeEngine.submit": (jdecode.DecodeEngine.submit,
+                            tdecode.DecodeEngine.submit),
+    "FlakyPredictor.__init__": (jchaos.FlakyPredictor.__init__,
+                                tchaos.FlakyPredictor.__init__),
+    "contrib.serve": (jf.contrib.serve, tf.contrib.serve),
 }
 
 
