@@ -360,8 +360,22 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    latency, batching_speedup, occupancy and padding waste; then an
    `enable_int8()` Predictor on 6u's QAT export at batch 8, bit for bit
    against Executor.run of the same convert_to_int8 program;
+4g. disaggregated serving (bench_serving_disagg at 4e's widths): ROADMAP
+   C15's measurement (a decode step's logits at 16 rows against two
+   8-row steps, with and without `row_block` 8; the blocked run must be
+   bit-equal); `paged_kv_import` on the card bit for bit against the
+   CPU for float32, bf16 and int8 pools and scales; the 48-request
+   stream through a unified two-replica Fleet (the control), then a
+   DisaggFleet of one prefill worker (8 slots) and one decode worker
+   (16 slots, step row block 8): tokens equal to the control's 48 of
+   48, 48 handoffs, no client failure, zero post-warmup compiles, its
+   /metrics scraped once over 127.0.0.1 with the disagg_* families;
+   then one prefill and two decode workers of 8 slots, decode worker 0
+   killed once half the requests completed: the control's tokens, no
+   client failure, a decode failover; TTFT and tokens/s of both fleets,
+   handoff ms, pages and bytes, the flash forward and paged launches;
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6v, 4e and 4f included), the card line, and as its last line
+   6l-6v and 4e-4g included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -7496,6 +7510,344 @@ def phase_serving_engine(dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4g: disaggregated prefill/decode serving and its metrics plane
+# ---------------------------------------------------------------------------
+
+# the reference's disagg bench (bench.py:1591-1720, bench_serving_disagg
+# at its TPU widths): 4e's model, geometry, prompts and budgets; the
+# control is a unified two-replica Fleet; the disaggregated fleet is one
+# prefill worker of FLEET_SERVE's slots and one decode worker of twice
+# as many (the unified fleet's total, as the bench sizes it); the chaos
+# run one prefill and two decode workers of FLEET_SERVE's slots, decode
+# worker 0 killed once half the requests have completed
+DISAGG_DECODE_SLOTS = 2 * FLEET_SERVE["num_slots"]
+
+
+def step_row_bits(lm, params, cfg, prompts, dev, block):
+    """ROADMAP C15: one decode step's logits for 2 x `block` slots, run
+    as two steps of `block` rows (what unified engines of `block` slots
+    run), as one step of 2 x `block` rows (a decode worker without a row
+    block) and as one such step with `row_block=block` (the decode
+    worker's runs).  The pools come from one prefill of the prompts; each
+    step run writes its own copy.  Returns the bit-equality of the last
+    two against the first and their largest absolute differences."""
+    from paddle_tpu_torch.serving.decode import run_model_program
+
+    s2, maxp, page = 2 * block, cfg.max_pages_per_slot, cfg.page_size
+    names = lm.cache_feed_names()
+    bucket = cfg.prefill_buckets[-1]
+    ps = [p[:bucket] for p in prompts[:s2]]
+    tokens = np.zeros((s2, bucket), np.int32)
+    seq_len = np.zeros((s2,), np.int32)
+    last_idx = np.zeros((s2, 1), np.int32)
+    for i, p in enumerate(ps):
+        tokens[i, :len(p)] = p
+        seq_len[i] = len(p)
+        last_idx[i, 0] = len(p) - 1
+    pt_rows = np.arange(s2 * maxp, dtype=np.int32).reshape(s2, maxp)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    pre = lm.prefill(bucket)
+    env, pools = run_model_program(
+        pre, params, lm.fresh_pools(s2 * maxp, page, dev), names, dev,
+        (pre["next_token"],), tokens=t(tokens), seq_len=t(seq_len),
+        last_idx=t(last_idx), page_table=t(pt_rows))
+    first = env[pre["next_token"]].to(torch.int32).cpu().numpy()
+    st = lm.step
+
+    def run(rows, row_block):
+        own = {n: p.clone() for n, p in pools.items()}
+        env, _ = run_model_program(
+            st, params, own, names, dev, (st["logits"],),
+            row_block=row_block, tokens=t(first[rows]),
+            write_pos=t(seq_len[rows]), lengths=t(seq_len[rows] + 1),
+            active=t(np.ones_like(seq_len[rows])),
+            page_table=t(pt_rows[rows]))
+        return env
+
+    with torch.no_grad():
+        halves = [run(slice(0, block), None), run(slice(block, s2), None)]
+        whole = run(slice(0, s2), None)
+        blocked = run(slice(0, s2), block)
+    torch.cuda.synchronize(dev)
+
+    def diffs(env):
+        """[op type] of the step program whose row outputs differ from
+        the two half runs', in program order."""
+        out = []
+        for op in st["main"].global_block().ops:
+            for vs in op.desc.outputs.values():
+                for v in vs:
+                    x = env.get(v)
+                    if not (isinstance(x, torch.Tensor) and x.dim() > 0
+                            and x.shape[0] == s2):
+                        continue
+                    if not torch.equal(x, torch.cat([h[v] for h in halves])):
+                        out.append(op.type)
+        return out
+
+    base = torch.cat([h[st["logits"]] for h in halves]).float()
+    lw, lb = whole[st["logits"]].float(), blocked[st["logits"]].float()
+    return {"rows": s2, "row_block": block,
+            "whole_bit_equal": bool(torch.equal(lw, base)),
+            "whole_max_abs_diff": float((lw - base).abs().max()),
+            "whole_rows_differing": int((lw != base).any(dim=1).sum()),
+            "whole_ops_differing": diffs(whole),
+            "blocked_bit_equal": bool(torch.equal(lb, base)),
+            "blocked_max_abs_diff": float((lb - base).abs().max()),
+            "blocked_ops_differing": diffs(blocked)}
+
+
+def import_op_cases(dev):
+    """`paged_import_rows` (the paged_kv_import op) on the card against
+    its CPU result, bit for bit, at 4g's geometry: float32, bf16 and
+    int8 code pools with their float32 scale sidecars; rows past
+    NumValid and a table whose padding 0 aliases a live page 0; the
+    card's call under `set_sync_debug_mode("error")` (no host sync)."""
+    from paddle_tpu_torch.ops.paged_kv import paged_import_rows
+
+    page, c = FLEET_SERVE["page_size"], FLEET_ARCH["d_model"]
+    maxp = -(-FLEET_SERVE["max_len"] // page)
+    n_pages, t_cap, nv = DISAGG_DECODE_SLOTS * maxp, maxp * page, 37
+    pt_row = torch.zeros((maxp,), dtype=torch.int32)
+    pt_row[:3] = torch.tensor([0, 5, 9], dtype=torch.int32)
+    g = torch.Generator().manual_seed(24)
+    f32 = torch.randn((n_pages, page, c), generator=g)
+    pools = {
+        "float32": (f32, torch.randn((t_cap, c), generator=g)),
+        "bfloat16": (f32.to(torch.bfloat16),
+                     torch.randn((t_cap, c), generator=g).to(
+                         torch.bfloat16)),
+        "int8": (torch.randint(-127, 128, (n_pages, page, c),
+                               generator=g).to(torch.int8),
+                 torch.randint(-127, 128, (t_cap, c),
+                               generator=g).to(torch.int8)),
+        "int8 scales": (torch.rand((n_pages, page, 1), generator=g),
+                        torch.rand((t_cap, 1), generator=g))}
+    out = {}
+    for name, (pool, rows) in pools.items():
+        want = paged_import_rows(pool.clone(), rows, pt_row, nv)
+        args = (pool.clone().to(dev), rows.to(dev), pt_row.to(dev),
+                torch.tensor(nv, device=dev))
+        # no host sync inside the import: a synchronizing call raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = paged_import_rows(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = got.cpu()
+        bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+            got.element_size()]
+        out[name] = {"bit_equal": bool(torch.equal(got.view(bits),
+                                                   want.view(bits))),
+                     "pool_changed": not torch.equal(want, pool)}
+    return out
+
+
+def _scrape(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read().decode("utf-8")
+
+
+def phase_disagg(dev, card):
+    """4g: the reference's disagg bench on the card.  The same 48-request
+    stream through a unified two-replica Fleet (the control), then
+    through a DisaggFleet of one prefill worker and one decode worker of
+    twice the slots: every response's tokens equal the control's, 48
+    handoffs, no client failure, zero post-warmup compiles, the
+    /metrics exposition scraped once over 127.0.0.1 with its disagg_*
+    families; then one prefill and two decode workers with decode worker
+    0 killed once half the requests completed: the control's tokens
+    again, no client failure, a failover with its committed prefix
+    verified.  Before the streams, ROADMAP C15's step-row measurement
+    and the import op card against CPU.  The kernel counts are zeroed
+    just before the disaggregated stream and read after the chaos
+    run."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM, make_prompts
+    from paddle_tpu_torch.observe import ReqTracer
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
+                                          DisaggFleet, Fleet, FleetConfig)
+
+    log("phase 4g: disaggregated prefill/decode serving (DisaggFleet) "
+        "against the unified two-replica Fleet, a decode worker killed, "
+        "the /metrics scrape")
+    lm = DecoderLM(kv_dtype="bfloat16", prefill_pallas=True, **FLEET_ARCH)
+    scope = lm.init_params(place=pt.CUDAPlace(dev.index or 0))
+    params = {n: v for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor) and n != RNG_STATE_VAR}
+    n = FLEET_REQUESTS
+    prompts = make_prompts(n, FLEET_ARCH["vocab_size"], min_len=8,
+                           max_len=64, seed=0)
+    budgets = np.random.RandomState(1).randint(
+        max(2, FLEET_MAX_NEW // 2), FLEET_MAX_NEW + 1, n)
+    serve = dict(FLEET_SERVE)
+    block = serve["num_slots"]
+
+    def engine(role="unified", slots=block):
+        cfg = DecodeConfig(kv_dtype="bfloat16",
+                           **{**serve, "num_slots": slots})
+        return DecodeEngine(lm, cfg, queue_capacity=4 * n,
+                            memory_budget_bytes=False, role=role,
+                            params={k: v.clone() for k, v in params.items()},
+                            place=pt.CUDAPlace(dev.index or 0))
+
+    res = {"requests": n, "budget_tokens": int(budgets.sum())}
+    res["c15"] = step_row_bits(
+        lm, params, DecodeConfig(kv_dtype="bfloat16", **serve), prompts,
+        dev, block)
+    c15 = res["c15"]
+    log(f"  C15: a decode step's logits at {c15['rows']} rows against two "
+        f"steps of {block}: bit-equal {c15['whole_bit_equal']} (max abs "
+        f"diff {c15['whole_max_abs_diff']:.3e}, "
+        f"{c15['whole_rows_differing']} rows differ; ops whose rows "
+        f"differ {c15['whole_ops_differing'][:6]}); with row_block "
+        f"{block}: bit-equal {c15['blocked_bit_equal']} (max abs diff "
+        f"{c15['blocked_max_abs_diff']:.3e}; ops "
+        f"{c15['blocked_ops_differing'][:6]})")
+    res["import_op"] = import_op_cases(dev)
+    log(f"  paged_kv_import card vs CPU: "
+        f"{ {k: v['bit_equal'] for k, v in res['import_op'].items()} }")
+
+    def stream(fleet):
+        t0 = time.perf_counter()
+        outs = _stream_through(fleet.submit, prompts, budgets)
+        return outs, time.perf_counter() - t0
+
+    ufleet = Fleet([engine(), engine()], FleetConfig()).start()
+    u_outs, u_s = stream(ufleet)
+    u_snap = ufleet.snapshot()
+    u_ttft = ufleet.merged_stats().ttft_ms.summary()
+    ufleet.close()
+    control = [r.tokens.tolist() for r in u_outs]
+    u_tokens = sum(map(len, control))
+    res["unified"] = {"wall_s": u_s, "tokens": u_tokens,
+                      "tokens_per_s": u_tokens / u_s, "ttft_ms": u_ttft,
+                      "failed": u_snap["failed"],
+                      "post_warmup_compiles":
+                          u_snap["post_warmup_compiles"]}
+
+    tracer = ReqTracer(sample_rate=0.0)
+    dfleet = DisaggFleet([engine("prefill")],
+                         [engine("decode", DISAGG_DECODE_SLOTS)],
+                         FleetConfig(), tracer=tracer).start()
+    srv = dfleet.start_metrics_server(host="127.0.0.1", port=0)
+    kernels.reset_counts()
+    d_outs, d_s = stream(dfleet)
+    text = _scrape(srv.url + "/metrics")
+    health = json.loads(_scrape(srv.url + "/healthz"))
+    d_snap = dfleet.snapshot()
+    dfleet.close()
+    families = sorted({ln.split()[2] for ln in text.splitlines()
+                       if ln.startswith("# TYPE disagg_")})
+    d_tokens = [r.tokens.tolist() for r in d_outs]
+    res["disagg"] = {
+        "wall_s": d_s, "tokens": sum(map(len, d_tokens)),
+        "tokens_per_s": sum(map(len, d_tokens)) / d_s,
+        "ttft_ms": d_snap["ttft_ms"], "handoff_ms": d_snap["handoff_ms"],
+        "handoffs": d_snap["handoffs"],
+        "pages_transferred": d_snap["pages_transferred"],
+        "bytes_transferred": d_snap["bytes_transferred"],
+        "failed": d_snap["failed"], "parity_failed": d_snap["parity_failed"],
+        "post_warmup_compiles": d_snap["post_warmup_compiles"],
+        "step_row_block": block,
+        "diverged": [i for i, (a, b) in enumerate(zip(d_tokens, control))
+                     if a != b],
+        "metric_families": families,
+        "healthz_decode": health["healthy_decode"],
+        "decode_tpot_ms": d_snap["engines"]["tpot_ms"]}
+
+    cfleet = DisaggFleet([engine("prefill")], [engine("decode"),
+                                               engine("decode")],
+                         FleetConfig()).start()
+    victim = cfleet.decode[0].engine
+    t0 = time.perf_counter()
+    futs = [cfleet.submit(p, max_new_tokens=int(b))
+            for p, b in zip(prompts, budgets)]
+    deadline = time.monotonic() + 600
+    while sum(f.done() for f in futs) < n // 2:
+        if time.monotonic() > deadline:
+            raise AssertionError("4g chaos: half the stream did not "
+                                 "complete within 600 s")
+        time.sleep(0.001)
+    chaos.kill_replica(victim)
+    c_outs = [f.result(600) for f in futs]
+    c_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    c_snap = cfleet.snapshot()
+    dead = [h.replica_id for h in cfleet.decode if h.dead]
+    cfleet.close()
+    chaos.clear()
+    c_tokens = [r.tokens.tolist() for r in c_outs]
+    res["chaos"] = {
+        "wall_s": c_s, "decode_failovers": c_snap["decode_failovers"],
+        "prefill_failovers": c_snap["prefill_failovers"],
+        "parity_checked": c_snap["parity_checked"],
+        "parity_failed": c_snap["parity_failed"],
+        "failed": c_snap["failed"], "retries": c_snap["retries"],
+        "ejects": c_snap["ejects"], "dead": dead,
+        "handoffs": c_snap["handoffs"],
+        "post_warmup_compiles": c_snap["post_warmup_compiles"],
+        "diverged": [i for i, (a, b) in enumerate(zip(c_tokens, control))
+                     if a != b]}
+    la = counts["launches"]
+    res["launches"] = la
+    res["plain_calls"] = counts["plain"]
+    d, c, u = res["disagg"], res["chaos"], res["unified"]
+    log(f"  unified fleet (2 x {block} slots): {u['tokens']} tokens in "
+        f"{u_s:.3f} s, {u['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{u_ttft['p50_ms']} ms p99 {u_ttft['p99_ms']} ms on {card}")
+    log(f"  disagg (1 prefill x {block}, 1 decode x "
+        f"{DISAGG_DECODE_SLOTS}, step row block {block}): {d['tokens']} "
+        f"tokens in {d_s:.3f} s, {d['tokens_per_s']:.1f} tokens/s, TTFT "
+        f"p50 {d['ttft_ms']['p50_ms']} ms p99 {d['ttft_ms']['p99_ms']} ms;"
+        f" handoffs {d['handoffs']}, handoff p50 "
+        f"{d['handoff_ms']['p50_ms']} ms p99 {d['handoff_ms']['p99_ms']} "
+        f"ms, {d['pages_transferred']} pages, {d['bytes_transferred']} "
+        f"bytes; decode TPOT p50 {d['decode_tpot_ms']['p50_ms']} ms; "
+        f"failed {d['failed']}, parity failed {d['parity_failed']}, "
+        f"post_warmup_compiles {d['post_warmup_compiles']}; tokens equal "
+        f"to the unified fleet's {n - len(d['diverged'])}/{n}")
+    log(f"  /metrics over {srv.url}: {len(families)} disagg_* families "
+        f"{families}")
+    log(f"  chaos (1 prefill, 2 decode x {block}, decode worker "
+        f"{victim.replica_id} killed after {n // 2} completions): "
+        f"{c_s:.3f} s, decode failovers {c['decode_failovers']} (parity "
+        f"checked {c['parity_checked']}, failed {c['parity_failed']}), "
+        f"retries {c['retries']}, ejects {c['ejects']}, dead {dead}, "
+        f"client failures {c['failed']}, post_warmup_compiles "
+        f"{c['post_warmup_compiles']}; tokens equal to the unified "
+        f"fleet's {n - len(c['diverged'])}/{n}")
+    log(f"  launches (disagg + chaos) { {k: v for k, v in la.items() if v} }")
+    want_families = {"disagg_handoffs_total", "disagg_prefill_wait_ms",
+                     "disagg_decode_tpot_ms", "disagg_handoff_ms",
+                     "disagg_workers", "disagg_failovers_total"}
+    if (not c15["blocked_bit_equal"]
+            or not all(v["bit_equal"] and v["pool_changed"]
+                       for v in res["import_op"].values())
+            or u["failed"] or u["post_warmup_compiles"] or u_tokens
+            != res["budget_tokens"]
+            or d["diverged"] or d["failed"] or d["parity_failed"]
+            or d["post_warmup_compiles"] or d["handoffs"] != n
+            or not want_families <= set(families)
+            or c["diverged"] or c["failed"] or c["parity_failed"]
+            or c["decode_failovers"] < 1 or c["post_warmup_compiles"]
+            or dead != [victim.replica_id]
+            or la["paged_attention"] < 1 or la["flash_attention_fwd"] < 1
+            or max(counts["plain"].values())
+            or max(counts["composed"].values())):
+        raise AssertionError(f"4g disagg: {res}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -7627,6 +7979,7 @@ def main() -> int:
     detection = timed("6v", phase_detection, dev, card)
     fleet = timed("4e", phase_fleet, dev, card)
     serving_engine = timed("4f", phase_serving_engine, dev, card)
+    disagg = timed("4g", phase_disagg, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -7666,12 +8019,13 @@ def main() -> int:
     # Transformer; none on 6u's QAT/int8 ResNet-50 and SRL paths nor on
     # 6v's Faster R-CNN (counted all the same); the paged kernel and the
     # flash forward on 4e's fleet replicas, none on 4f's ResNet-50
-    # Predictor and ServingEngine
+    # Predictor and ServingEngine; the flash forward on 4g's prefill
+    # workers and the paged kernel on its decode workers
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
              train_recompute, train_optimizers, control_flow, moe, qat_int8,
-             detection, fleet, serving_engine)
+             detection, fleet, serving_engine, disagg)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -7730,6 +8084,7 @@ def main() -> int:
                    "detection": detection,
                    "fleet": fleet,
                    "serving_engine": serving_engine,
+                   "disagg": disagg,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

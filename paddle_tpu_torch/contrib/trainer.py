@@ -33,9 +33,13 @@ the reference's, line for line; the port's differences:
   `init_telemetry_for(program, device=)` on the trainer's device.  The
   async writer thread writes numpy copies and JSON only — it touches no
   tensor.
+- **Metrics and alerts**: `metrics_registry()` (telemetry, goodput,
+  checkpoint gauges, the recovery family reporting no autopilot),
+  `start_metrics_server()` and `enable_alerts()` (observe.
+  trainer_rule_pack; with `flight_dir`, a FlightRecorder that also
+  bundles on the step watchdog's hang verdict).  All host-side.
 - **Left out**, each raising NotImplementedError under its ROADMAP
-  queue A step: `mesh=` and `build_strategy=` (step 10); `autopilot=`,
-  `metrics_registry()`, `start_metrics_server()` and `enable_alerts()`
+  queue A step: `mesh=` and `build_strategy=` (step 10); `autopilot=`
   (step 11).  The gang health plane is not ported (step 11): the loop
   has no heartbeat and no barrier_wait phase, and `goodput()` reports
   no straggler skew.
@@ -250,6 +254,11 @@ class Trainer:
         self._ckpt_writer = None       # lazy SnapshotWriter (async_save)
         self._pending_save = None      # in-flight resilience.PendingSave
         self._step_watchdog = None     # DispatchWatchdog (step_deadline_s)
+        self.autopilot = None          # the divergence autopilot (step 11)
+        self._metrics_registry = None
+        self._metrics_server = None
+        self.alert_engine = None       # opt-in (enable_alerts)
+        self.flight_recorder = None
         self._active_reader = None
         self._resume_reader_state = None
         # every second of train() wall clock lands in exactly one ledger
@@ -629,8 +638,14 @@ class Trainer:
         if self.step_deadline_s and self._step_watchdog is None:
             from ..resilience.watchdog import DispatchWatchdog
 
+            # capture the diagnostic bundle on a hang verdict
+            on_hang = (self.flight_recorder.watchdog_hook()
+                       if self.flight_recorder is not None else None)
             self._step_watchdog = DispatchWatchdog(
-                self.step_deadline_s, event_log=self._event_log)
+                self.step_deadline_s, event_log=self._event_log,
+                on_hang=on_hang)
+        if self.flight_recorder is not None:
+            self.flight_recorder.watchdog = self._step_watchdog
         self._active_reader = reader
         if (self._resume_reader_state is not None and reader is not None
                 and hasattr(reader, "load_state_dict")):
@@ -898,25 +913,121 @@ class Trainer:
                     worst_update_ratio=wr)
         return now
 
-    # -- the host planes of ROADMAP A step 11 ----------------------------
+    # -- unified metrics export and alerts ------------------------
     def metrics_registry(self):
-        raise NotImplementedError(
-            "Trainer.metrics_registry() (observe/registry.py) is not "
-            "ported yet: ROADMAP queue A step 11 (host planes)")
+        """One MetricsRegistry over this trainer's surfaces: the
+        latest telemetry window (incl. per-group numerics when pillar
+        6 is on), checkpoint-cost gauges, and the process-wide
+        runtime/process/memory collectors (the recovery family reports
+        no autopilot: ROADMAP A step 11).  Built once, cached."""
+        if self._metrics_registry is None:
+            from ..observe.registry import (MetricsRegistry, gauge,
+                                            goodput_collector,
+                                            recovery_collector,
+                                            standard_collectors,
+                                            telemetry_collector)
+
+            reg = standard_collectors(MetricsRegistry())
+            reg.register("training",
+                         telemetry_collector(
+                             lambda: self.last_telemetry))
+            reg.register("goodput",
+                         goodput_collector(lambda: self.goodput()))
+            reg.register("recovery",
+                         recovery_collector(
+                             lambda: (self.autopilot.snapshot()
+                                      if self.autopilot is not None
+                                      else None)))
+
+            def ckpt_collect():
+                s = self.ckpt_stats
+                return [
+                    gauge("ckpt_saves_total", "checkpoints saved",
+                          s["saves"]),
+                    gauge("ckpt_blocking_ms",
+                          "last blocking snapshot time",
+                          s["blocking_ms"]),
+                    gauge("ckpt_write_ms",
+                          "last background write time",
+                          s["write_ms"]),
+                    gauge("ckpt_bytes", "last checkpoint bytes",
+                          s["bytes"]),
+                ]
+
+            reg.register("checkpoint", ckpt_collect)
+            self._metrics_registry = reg
+        return self._metrics_registry
 
     def start_metrics_server(self, host: str = "127.0.0.1",
                              port: int = 0):
-        raise NotImplementedError(
-            "Trainer.start_metrics_server() (the /metrics endpoint) is "
-            "not ported yet: ROADMAP queue A step 11 (host planes)")
+        """Opt-in /metrics + /healthz endpoint for a training run
+        (binds localhost by default; port=0 = ephemeral).  Stopped by
+        stop()."""
+        if self._metrics_server is not None:
+            return self._metrics_server
+        from ..observe.registry import MetricsServer
+
+        def health():
+            return {"state": "training",
+                    "last_window_steps":
+                        (self.last_telemetry.steps
+                         if self.last_telemetry is not None else 0),
+                    "ckpt": dict(self.ckpt_stats)}
+
+        self._metrics_server = MetricsServer(
+            self.metrics_registry(), health_fn=health,
+            host=host, port=port,
+            alerts_fn=(self.alert_engine.state
+                       if self.alert_engine is not None
+                       else None)).start()
+        return self._metrics_server
 
     def enable_alerts(self, rules=None, interval_s: float = 5.0,
                       flight_dir: Optional[str] = None,
                       recorder_config: Optional[dict] = None,
                       start: bool = True, **pack_kw):
-        raise NotImplementedError(
-            "Trainer.enable_alerts() (observe/alerts.py, flightrec.py) "
-            "is not ported yet: ROADMAP queue A step 11 (host planes)")
+        """Opt into alerting on this trainer: an AlertEngine
+        evaluating the training-health pack
+        (`observe.trainer_rule_pack` — goodput drop, throughput
+        regression, loss-spike/grad-norm z-scores, nonfinite steps,
+        compile storm, gang skew; or explicit `rules`) over
+        `metrics_registry()` every `interval_s` on a background
+        thread.  With `flight_dir`, a FlightRecorder bundles
+        diagnostics (event tail, metrics, goodput table, latched
+        nonfinite provenance, watchdog state, thread stacks) on every
+        firing alert AND on the step watchdog's hang verdict (when
+        enabled before train()).  Pure host: the alert thread launches
+        nothing on the device and the step runs the same program on or
+        off.  Stopped by stop()."""
+        if self.alert_engine is not None:
+            return self.alert_engine
+        from ..observe.alerts import AlertEngine, trainer_rule_pack
+        from ..observe.flightrec import FlightRecorder
+
+        if rules is None:
+            rules = trainer_rule_pack(**pack_kw)
+        elif pack_kw:
+            raise ValueError("pack_kw only applies to the default "
+                             "rule pack")
+        engine = AlertEngine(self.metrics_registry(), rules=rules,
+                             interval_s=interval_s,
+                             event_log=self._event_log)
+        self.metrics_registry().register("alerts", engine.collector())
+        if flight_dir is not None:
+            self.flight_recorder = FlightRecorder(
+                flight_dir, registry=self.metrics_registry(),
+                event_log=self._event_log,
+                goodput=self.goodput_ledger,
+                telemetry_fetch=lambda: self.last_telemetry,
+                watchdog=self._step_watchdog,
+                **(recorder_config or {}))
+            self.flight_recorder.attach_engine(engine)
+        self.alert_engine = engine
+        if self._metrics_server is not None:
+            self._metrics_server.alerts_fn = engine.state
+        if start:
+            engine.start()
+        return engine
 
     def save_params(self, dirname: str):
         with scope_guard(self.scope):
@@ -932,6 +1043,13 @@ class Trainer:
                 main_program=self.train_program)
 
     def stop(self):
+        if self.alert_engine is not None:
+            self.alert_engine.close()
+        if self.flight_recorder is not None:
+            self.flight_recorder.close()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         if self._ckpt_writer is not None:
             # flush the writer; a silently-dropped last checkpoint must
             # surface here, not on the next preemption

@@ -117,10 +117,13 @@ class OpContext:
     many rows run together for batch invariance: each row is computed
     as in a run of `row_block` rows.  `mul` runs its product in blocks
     of `row_block` rows (cuBLAS picks its kernel, and so its summation
-    order, by the row count) and `paged_attention` launches with the
-    split plan of `row_block` rows.  The speculative decode engine sets
-    it to the slot count, so its verify run at S*(k+1) rows gives each
-    row the bits of the step run at S rows (serving/decode.py).
+    order, by the row count), `layer_norm` its statistics (torch's row
+    reduction picks its thread layout by the row count below 16 rows)
+    and `paged_attention` launches with the split plan of `row_block`
+    rows.  The speculative decode engine sets it to the slot count, so
+    its verify run at S*(k+1) rows gives each row the bits of the step
+    run at S rows; a disagg decode worker's steps take the prefill
+    workers' slot count (serving/decode.py, ROADMAP C8, C15).
     """
 
     def __init__(self, seed=None, op_index: int = 0, is_test: bool = False,

@@ -1,12 +1,22 @@
 """Observability: structured run events, runtime accounting,
-per-request tracing, device-side step telemetry and numerics, and the
-wall-clock goodput ledger (the jax-free part of paddle_tpu/observe that
-the serving and training slices use)."""
+per-request tracing, device-side step telemetry and numerics, the
+wall-clock goodput ledger, and the metrics and alerts plane (the
+registry and its /metrics server, the AlertEngine and its rule packs,
+the FlightRecorder).  The reference's cost, memory and trace modules
+are ROADMAP A step 11."""
 
-from .events import (DECODE_EVENTS, FEED_EVENTS,  # noqa: F401
-                     FLEET_EVENTS, GANG_EVENTS, GOODPUT_EVENTS,
+from .alerts import (AlertEngine, AlertRule, AnomalyRule,  # noqa: F401
+                     BurnRateRule, MetricSelector, ThresholdRule,
+                     disagg_rule_pack, fleet_rule_pack,
+                     serving_rule_pack, snapshot_value,
+                     speculate_rule_pack, trainer_rule_pack)
+from .events import (ALERT_EVENTS, DECODE_EVENTS,  # noqa: F401
+                     DISAGG_EVENTS, FEED_EVENTS, FLEET_EVENTS,
+                     FLIGHT_EVENTS, GANG_EVENTS, GOODPUT_EVENTS,
                      NUMERICS_EVENTS, RESILIENCE_EVENTS, SERVING_EVENTS,
-                     BoundEventLog, RunEventLog, read_events)
+                     BoundEventLog, RunEventLog, git_sha, new_run_id,
+                     read_events, register_event_kinds, set_strict_kinds)
+from .flightrec import FlightRecorder  # noqa: F401
 from .goodput import (CATEGORIES as GOODPUT_CATEGORIES,  # noqa: F401
                       GoodputLedger, format_goodput_table,
                       goodput_report)
@@ -20,7 +30,17 @@ from .numerics import (GROUP_NAMES, enable_numerics,  # noqa: F401
                        join_first_nonfinite, numerics_enabled,
                        numerics_report, param_groups,
                        worst_update_ratio)
-from .reqtrace import ReqTracer, RequestTrace, Span  # noqa: F401
+from .registry import (MetricFamily, MetricsRegistry,  # noqa: F401
+                       MetricsServer, default_registry,
+                       disagg_collector, fleet_collector,
+                       gang_collector, goodput_collector,
+                       memory_collector, metrics_snapshot,
+                       process_collector, recovery_collector,
+                       runtime_collector,
+                       serving_stats_collector, standard_collectors,
+                       telemetry_collector, tracer_collector)
+from .reqtrace import (TAIL_KEEP_MARKS, ReqTracer,  # noqa: F401
+                       RequestTrace, Span, new_trace_id)
 
 
 class TelemetryConfig:
@@ -37,9 +57,8 @@ class TelemetryConfig:
         same accumulator, and first-nonfinite op provenance; a window
         that latched a poisoned step additionally emits a
         `nonfinite_provenance` event through the RunEventLog.
-    max_log_bytes: size-bound the JSONL log created from `log_path`;
-        RunEventLog's rotation raises until ROADMAP A step 11, so only
-        None (unbounded) works today.
+    max_log_bytes: size-bound the JSONL log created from `log_path`
+        (RunEventLog max_bytes rotation); None = unbounded.
     """
 
     def __init__(self, interval: int = 10, log_path=None, event_log=None,

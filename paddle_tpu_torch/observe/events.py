@@ -1,13 +1,16 @@
 """Structured run events: an append-only JSONL log with provenance.
 
-The port of the part of paddle_tpu/observe/events.py that the serving
-engines, the fleet and contrib.Trainer use.  One JSON object per line,
-flushed whole, so the file is valid to tail mid-run.  `bind()` gives a
-view that stamps fixed fields (a fleet replica's `replica_id`) into
-every record, so N replicas share one log and stay attributable.  Kinds under the dashboard
-prefixes (`_VALIDATED_PREFIXES`, the reference's list) are checked
-against the registries below (a typo'd kind would silently drop off
-every dashboard filter): unknown ones raise.
+The port of paddle_tpu/observe/events.py.  One JSON object per line,
+flushed whole, so the file is valid to tail mid-run; `max_bytes` rolls
+the file to `<path>.1` (one generation kept) with a `run_rotate` marker
+opening the fresh file.  `bind()` gives a view that stamps fixed fields
+(a fleet replica's `replica_id`) into every record, so N replicas share
+one log and stay attributable.  Kinds under the dashboard prefixes
+(`_VALIDATED_PREFIXES`, the reference's list) are checked against the
+registries below, since a typo'd kind would silently drop off every
+dashboard filter: unknown ones raise, or warn once after
+`set_strict_kinds(False)`.  (The reference warns unless strict, and its
+tests run strict; the port is strict unless told otherwise.)
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import sys
 import threading
 import time
 import uuid
+import warnings
 from typing import Any, Dict, List, Optional
 
 # the dynamic-batching ServingEngine's event kinds (docs/SERVING.md)
@@ -89,6 +93,28 @@ RESILIENCE_EVENTS = (
     "ckpt_emergency",       # the drain path's final checkpoint landed
 )
 
+# disaggregated prefill/decode serving (serving/disagg.py): the phase
+# router, the KV-page handoff, and the SLO-driven autoscaler's decisions
+DISAGG_EVENTS = (
+    "serving_disagg_start",       # fleet topology at start()
+    "serving_disagg_handoff",     # one KV-page hop: from_replica ->
+    #                               to_replica, pages, bytes, handoff_ms
+    "serving_disagg_failover",    # LOUD: a worker died mid-request — the
+    #                               raw prompt re-prefills on a survivor
+    #                               (phase + committed tokens)
+    "serving_disagg_eject",       # LOUD: a worker removed from routing
+    "serving_disagg_saturated",   # LOUD: one phase's workers all shed
+    "serving_disagg_worker_join",   # zero-reject scale-up landed
+    "serving_disagg_worker_leave",  # zero-reject scale-down retired one
+    "serving_disagg_window",      # periodic merged stats snapshot
+    "serving_disagg_close",       # final snapshot at close
+    "kv_transfer",                # also the router-row reqtrace span
+    #                               name (registered for grep parity)
+    "autoscale_up",               # Autoscaler added a worker: phase,
+    #                               rule, observed value
+    "autoscale_down",             # Autoscaler removed one after quiet_s
+)
+
 # input admission (Trainer(validate_feed=True)); the reference's
 # DeviceFeeder kinds `feeder_retry` and `feeder_stall` come with it
 # (ROADMAP A step 12)
@@ -125,20 +151,84 @@ NUMERICS_EVENTS = (
     #                          and the loss scale
 )
 
+# alerting (observe/alerts.py): the AlertEngine's rule state-machine
+# transitions, the records a pager or dashboard keys off
+ALERT_EVENTS = (
+    "alert_pending",   # a rule breached; for_duration gating running
+    "alert_firing",    # LOUD: the breach persisted — the rule fired
+    #                    (value/target/severity attached; the
+    #                    FlightRecorder bundles on this transition)
+    "alert_resolved",  # the firing rule cleared (hysteresis +
+    #                    resolve_duration satisfied)
+)
+
+# the flight recorder (observe/flightrec.py)
+FLIGHT_EVENTS = (
+    "flight_record",   # one diagnostic bundle written: reason, path,
+    #                    truncation flag, per-section errors
+)
+
 _VALIDATED_PREFIXES = ("serving_", "fleet_", "gang_", "alert_",
                        "flight_", "autoscale_", "recovery_",
                        "feeder_", "feed_")
 _KNOWN_KINDS = (set(SERVING_EVENTS) | set(DECODE_EVENTS)
-                | set(FLEET_EVENTS) | set(RESILIENCE_EVENTS)
-                | set(FEED_EVENTS) | set(GANG_EVENTS)
-                | set(GOODPUT_EVENTS) | set(NUMERICS_EVENTS))
+                | set(FLEET_EVENTS) | set(DISAGG_EVENTS)
+                | set(RESILIENCE_EVENTS) | set(FEED_EVENTS)
+                | set(GANG_EVENTS) | set(GOODPUT_EVENTS)
+                | set(NUMERICS_EVENTS) | set(ALERT_EVENTS)
+                | set(FLIGHT_EVENTS))
+_strict_kinds = [True]
+_warned_kinds: set = set()
+
+
+def set_strict_kinds(flag: bool) -> bool:
+    """Unknown validated-prefix kinds raise (True, the port's default)
+    or warn once per kind (False).  Returns the previous setting."""
+    prev = _strict_kinds[0]
+    _strict_kinds[0] = bool(flag)
+    return prev
+
+
+def register_event_kinds(*kinds: str) -> None:
+    """Extend the known-kind registry (a subsystem adding a new
+    dashboard event registers it here, or in the tuples above when it
+    ships in-tree)."""
+    _KNOWN_KINDS.update(kinds)
 
 
 def _validate_kind(kind: str) -> None:
-    if kind.startswith(_VALIDATED_PREFIXES) and kind not in _KNOWN_KINDS:
-        raise ValueError(f"event kind {kind!r} matches a dashboard prefix "
-                         f"{_VALIDATED_PREFIXES} but is not registered in "
-                         f"observe.events")
+    if not kind.startswith(_VALIDATED_PREFIXES) or kind in _KNOWN_KINDS:
+        return
+    msg = (f"event kind {kind!r} matches a dashboard prefix "
+           f"{_VALIDATED_PREFIXES} but is not registered in observe.events "
+           f"— a typo here silently drops the event off every dashboard "
+           f"filter; register it with register_event_kinds() or fix the "
+           f"name")
+    if _strict_kinds[0]:
+        raise ValueError(msg)
+    if kind not in _warned_kinds:
+        _warned_kinds.add(kind)
+        warnings.warn(msg, stacklevel=3)
+
+
+def new_run_id() -> str:
+    """Short unique id for one run (12 hex characters)."""
+    return uuid.uuid4().hex[:12]
+
+
+def git_sha(cwd: Optional[str] = None) -> Optional[str]:
+    """Current git HEAD (short), or None outside a repository or
+    without git."""
+    import subprocess
+
+    try:
+        r = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                           capture_output=True, text=True, timeout=5,
+                           cwd=cwd)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    sha = r.stdout.strip()
+    return sha if r.returncode == 0 and sha else None
 
 
 def _backend_info() -> Dict[str, Any]:
@@ -154,26 +244,34 @@ class RunEventLog:
     """Append-only JSONL event log for one run.
 
     Records carry {ts (unix seconds), run_id, event, ...fields}.  The
-    first record is `run_begin` with run provenance (backend, and the
-    mesh shape when given); `close()` appends `run_end`.  Thread-safe:
-    records never interleave.  `max_bytes` (rotation) raises until
-    ROADMAP A step 11.
+    first record is `run_begin` with run provenance (git sha, backend,
+    and the mesh shape when given); `close()` appends `run_end`.
+    Thread-safe: records never interleave.
+
+    `max_bytes`: size-bound the log.  When a record would take the file
+    past the bound it rolls to `<path>.1` (one generation kept) and the
+    fresh file starts with a `run_rotate` record, so a tailer knows the
+    records continue from a rolled file.  Rotation happens under the
+    write lock, so concurrent writers never land in a half-rotated file.
     """
 
     def __init__(self, path: str, run_id: Optional[str] = None,
                  mesh_shape: Optional[Dict[str, int]] = None,
                  meta: Optional[Dict[str, Any]] = None,
                  max_bytes: Optional[int] = None):
-        if max_bytes is not None:
-            raise NotImplementedError(
-                "RunEventLog(max_bytes=) (size-bounded log rotation) is "
-                "not ported yet: ROADMAP queue A step 11 (host planes)")
+        if max_bytes is not None and int(max_bytes) < 1024:
+            raise ValueError("max_bytes < 1024 would rotate on nearly "
+                             "every record")
         self.path = path
-        self.run_id = run_id or uuid.uuid4().hex[:12]
+        self.run_id = run_id or new_run_id()
+        self.max_bytes = None if max_bytes is None else int(max_bytes)
+        self.rotations = 0
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._f = open(path, "a", encoding="utf-8")
+        self._bytes = os.path.getsize(path)
         self._wlock = threading.Lock()
-        begin: Dict[str, Any] = {"argv": list(sys.argv)}
+        begin: Dict[str, Any] = {"git_sha": git_sha(),
+                                 "argv": list(sys.argv)}
         begin.update(_backend_info())
         if mesh_shape:
             begin["mesh_shape"] = dict(mesh_shape)
@@ -188,9 +286,27 @@ class RunEventLog:
         rec.update(fields)
         line = json.dumps(rec, default=_jsonable) + "\n"
         with self._wlock:
+            if (self.max_bytes is not None and self._bytes > 0
+                    and self._bytes + len(line) > self.max_bytes):
+                self._rotate_locked()
             self._f.write(line)
             self._f.flush()
+            self._bytes += len(line)
         return rec
+
+    def _rotate_locked(self) -> None:
+        """Roll the file to `<path>.1` and open a fresh one with a
+        `run_rotate` marker; the caller holds the write lock."""
+        self._f.close()
+        os.replace(self.path, self.path + ".1")
+        self._f = open(self.path, "a", encoding="utf-8")
+        self.rotations += 1
+        marker = json.dumps(
+            {"ts": round(time.time(), 3), "run_id": self.run_id,
+             "event": "run_rotate", "rotations": self.rotations,
+             "rolled_to": self.path + ".1"}, default=_jsonable) + "\n"
+        self._f.write(marker)
+        self._bytes = len(marker)
 
     def telemetry_window(self, telemetry, **extra: Any) -> Dict[str, Any]:
         """Emit one periodic-fetch window (a StepTelemetry or plain

@@ -1,9 +1,7 @@
 """Op implementations — importing this package registers all ops.
 
 The port of paddle_tpu/ops: the same op names, slots and attrs, each a
-plain function on torch tensors.  Every op of the reference is here
-but paged_kv_import, which comes with serving breadth (ROADMAP queue A
-step 9).
+plain function on torch tensors.  Every op of the reference is here.
 """
 
 from ..core.registry import register_op, registered_ops  # noqa: F401

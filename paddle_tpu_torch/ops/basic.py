@@ -121,8 +121,9 @@ def mul(ctx, ins, attrs):
     projections, FFN and lm_head are dense GEMMs that the reference also
     left to its compiler, outside any hand-written kernel.  With the
     run's `row_block` (OpContext), the product runs in blocks of that
-    many rows, the last one zero-padded, so every row takes the same
-    GEMM whatever the row count."""
+    many rows, the last one (or the only one, with fewer rows)
+    zero-padded, so every row takes the same GEMM whatever the row
+    count."""
     x, y = first(ins, "X"), first(ins, "Y")
     xnc = attrs.get("x_num_col_dims", 1)
     ync = attrs.get("y_num_col_dims", 1)
@@ -130,7 +131,7 @@ def mul(ctx, ins, attrs):
     x2 = x.reshape(math.prod(xs[:xnc]), math.prod(xs[xnc:]))
     y2 = y.reshape(math.prod(ys[:ync]), math.prod(ys[ync:]))
     blk = ctx.row_block
-    if blk and x2.shape[0] > blk:
+    if blk and x2.shape[0] != blk:
         m = x2.shape[0]
         pad = -m % blk
         if pad:

@@ -198,6 +198,33 @@ def label_smooth(ctx, ins, attrs):
     return out(Out=(1 - eps) * x + eps / x.shape[-1])
 
 
+def _row_stats(xf, begin, blk):
+    """Mean and (biased) variance of xf over its dims from `begin`, kept
+    for broadcasting.  With the run's `row_block` (OpContext) the rows
+    (the dims before `begin`, flattened) are reduced in blocks of `blk`
+    rows, the last one (or the only one, with fewer rows) zero-padded:
+    torch's row reduction picks its thread layout by the row count below
+    16 rows, so a row's statistics would depend on how many rows run
+    together (ROADMAP C15)."""
+    axes = tuple(range(begin, xf.dim()))
+    lead = math.prod(xf.shape[:begin])
+    if not blk or lead == blk:
+        mean = xf.mean(dim=axes, keepdim=True)
+        return mean, torch.square(xf - mean).mean(dim=axes, keepdim=True)
+    x2 = xf.reshape(lead, -1)
+    pad = -lead % blk
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros(pad, x2.shape[1])])
+    means, variances = [], []
+    for b in x2.split(blk):
+        m = b.mean(dim=1, keepdim=True)
+        means.append(m)
+        variances.append(torch.square(b - m).mean(dim=1, keepdim=True))
+    shape = tuple(xf.shape[:begin]) + (1,) * len(axes)
+    return (torch.cat(means)[:lead].reshape(shape),
+            torch.cat(variances)[:lead].reshape(shape))
+
+
 @register_op("layer_norm")
 def layer_norm(ctx, ins, attrs):
     x = first(ins, "X")
@@ -207,8 +234,7 @@ def layer_norm(ctx, ins, attrs):
     eps = attrs.get("epsilon", 1e-5)
     axes = tuple(range(begin, x.dim()))
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=axes, keepdim=True)
-    var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
+    mean, var = _row_stats(xf, begin, ctx.row_block)
     y = (xf - mean) * torch.rsqrt(var + eps)
     norm_shape = tuple(x.shape[begin:])
     if scale is not None:

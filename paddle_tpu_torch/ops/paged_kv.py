@@ -13,6 +13,10 @@ paddle_tpu/ops/paged_kv.py.
 - `speculative_accept`: greedy longest-accepted-prefix acceptance of a
   speculative verify run (plain torch integer ops, as the reference
   computes it in jnp outside any kernel).
+- `paged_kv_import` (`paged_import_rows`): scatter another pool's
+  exported rows into this pool's pages (the disagg prefill->decode
+  handoff, serving/disagg.py) — one fixed shape for any prompt length.
+  An XLA scatter in the reference, plain torch ops here.
 
 Layouts are the reference's head-major ones: K/V rows (S, H*D) and pools
 (P, page, H*D), so a page write is a plain row scatter.  Optional int8
@@ -27,10 +31,9 @@ Two differences from the reference, both in how, not what:
 - The reference drops writes with `.at[...].set(mode="drop")` on an
   out-of-bounds index.  Torch has no drop mode, so the rows to drop
   (inactive slots, positions past seq_len, logical pages past the table)
-  are masked out explicitly before the scatter.
-
-The disagg import (`paged_kv_import`) is not ported yet (ROADMAP
-queue A item 7, A step 9).
+  are masked out explicitly before the scatter (the writes select them
+  with one `nonzero`; the import needs no host sync, see
+  `paged_import_rows`).
 """
 
 from __future__ import annotations
@@ -129,6 +132,72 @@ def paged_kv_prefill_write(ctx, ins, attrs):
     keep = (pos < seq_len[:, None]) & (page_idx < pt.shape[1])
     return _write(ins, k.reshape(s * t, hd), v.reshape(s * t, hd),
                   phys.reshape(-1), off.reshape(-1), keep.reshape(-1))
+
+
+def paged_import_rows(pool, rows, pt_row, num_valid):
+    """One slot's exported dense rows -> this pool's pages, in place (the
+    disagg prefill->decode KV handoff, serving/disagg.py); returns the
+    pool.
+
+    rows (T_cap, C) is a token-major page gather of the SOURCE pool
+    (positions 0..T_cap-1); pt_row (max_pages,) int names the RECEIVING
+    slot's physical pages; positions >= num_valid (an int or a 0-d
+    tensor; the export's padding) and positions whose page lies past the
+    table or outside the pool are dropped, so one fixed shape imports
+    any prompt length.  Rows are in pool dtype already (int8 codes and
+    scale sidecars travel verbatim: bitwise, no requantization).
+
+    The drop needs no host sync and no two writes land on one (page,
+    offset) with different rows (CUDA's index_put_ picks no defined
+    winner among duplicates, and a padding entry 0 of the table can
+    alias a live page): every dropped position is redirected onto the
+    last kept one, with that position's row, so duplicates write equal
+    values.  With nothing to keep they all rewrite the pool's first row
+    with its own contents."""
+    n_pages, page, c = pool.shape
+    if pool.device.type == "meta":
+        return pool
+    dev = pool.device
+    t_cap = rows.shape[0]
+    maxp = pt_row.shape[0]
+    pos = torch.arange(t_cap, device=dev)
+    page_idx = pos // page
+    phys = pt_row.to(device=dev, dtype=torch.int64)[
+        torch.clamp(page_idx, max=maxp - 1)]
+    nv = torch.as_tensor(num_valid, device=dev).to(torch.int64).reshape(())
+    keep = (pos < nv) & (page_idx < maxp) & (phys >= 0) & (phys < n_pages)
+    flat = pool.view(n_pages * page, c)
+    dest = phys * page + pos % page
+    rows = rows.to(device=dev, dtype=pool.dtype)
+    # the last kept position (kept positions form a prefix unless a
+    # table entry lies outside the pool; any kept one serves)
+    last = torch.where(keep, pos, torch.full_like(pos, -1)).amax()
+    # index_select, not t[anchor]: a 0-d tensor index is read back to
+    # the host
+    anchor = torch.clamp(last, min=0).reshape(1)
+    any_kept = last >= 0
+    a_dest = torch.where(any_kept, dest.index_select(0, anchor)[0],
+                         torch.zeros_like(last))
+    a_row = torch.where(any_kept, rows.index_select(0, anchor)[0], flat[0])
+    dest = torch.where(keep, dest, a_dest)
+    src = torch.where(keep[:, None], rows, a_row[None, :])
+    flat.index_copy_(0, dest, src)
+    return pool
+
+
+@register_op("paged_kv_import")
+def paged_kv_import(ctx, ins, attrs):
+    """Import one slot's exported KV rows into a cache pool.
+
+    Rows (T_cap, C) token-major export of the source pool; Cache
+    (P, page, C); PageTable (max_pages,) int32 — the receiving slot's
+    pages; NumValid scalar int32 — rows at positions >= it drop.
+    Output: CacheOut (P, page, C), the Cache tensor updated in place.
+    Serving-only (the disagg handoff path); applies identically to int8
+    code pools and their scale sidecars."""
+    return out(CacheOut=paged_import_rows(
+        first(ins, "Cache"), first(ins, "Rows"), first(ins, "PageTable"),
+        first(ins, "NumValid")))
 
 
 @register_op("paged_attention")

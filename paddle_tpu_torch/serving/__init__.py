@@ -15,10 +15,11 @@ decode engine (the port of paddle_tpu/serving):
 - `fleet.Fleet`: N engine replicas behind one health-checked router —
   least-loaded routing, per-replica breakers, hedging, in-flight decode
   failover (token-identical regeneration), and rolling hot weight
-  reload.
-
-The disaggregated prefill/decode half (`disagg.py`) waits for ROADMAP A
-step 9b.
+  reload,
+- `disagg.DisaggFleet`: disaggregated prefill/decode serving — prefill
+  workers hand KV pages to decode workers, cross-hop token-parity
+  failover, and the SLO-driven `disagg.Autoscaler` over
+  AlertEngine.signals().
 
     from paddle_tpu_torch.serving import BucketConfig, ServingEngine
     engine = ServingEngine(model_dir, example_feed={"x": example},
@@ -39,6 +40,9 @@ from .decode import (DecodeBucketMissError,  # noqa: F401
                      DecodeReplicaFailedError, DecodeRequest, PagePool)
 from .engine import (BucketConfig, BucketMemoryError,  # noqa: F401
                      BucketMissError, ServingEngine)
+from . import disagg  # noqa: F401
+from .disagg import (Autoscaler, DisaggFleet,  # noqa: F401
+                     DisaggStats, PhaseWorker)
 from .fleet import (FailoverParityError, Fleet,  # noqa: F401
                     FleetClosedError, FleetConfig, FleetResponse,
                     FleetSaturatedError, FleetStats, ReplicaHandle)

@@ -1,7 +1,7 @@
 """Continuous-batching autoregressive decode over a paged KV cache.
 
-The port of paddle_tpu/serving/decode.py (role "unified"): requests
-produce tokens one iteration at a time, each slot's K/V lives in
+The port of paddle_tpu/serving/decode.py: requests produce tokens one
+iteration at a time, each slot's K/V lives in
 fixed-size PAGES of one shared pool addressed through per-slot page
 tables (Ragged Paged Attention, PAPERS.md arxiv 2604.15464).
 
@@ -39,6 +39,15 @@ tables (Ragged Paged Attention, PAPERS.md arxiv 2604.15464).
   structured error carrying its requeue descriptor; `reload()` swaps
   same-shape weights at a batch boundary (from a sharded checkpoint or
   a mapping) and tags every later result with the new `model_version`.
+- **disaggregated roles** (serving/disagg.py) — `role="prefill"` runs
+  the bucket ladder only and resolves every request AT the prefill
+  boundary with a KV handoff package (its pool pages gathered to host
+  rows); `role="decode"` runs the step loop only and admits requests
+  through `import_handoff()`, scattering the rows into its own pages
+  (`ops.paged_kv.paged_import_rows`, one fixed shape for any prompt).
+  A decode worker's step runs take `step_row_block` (set by the
+  DisaggFleet to the prefill workers' slot count), so its rows get the
+  bits of a unified engine of that geometry (ROADMAP C15).
 
 Every run has a FIXED shape — the slot batch, the pool and the page
 tables never change across joins/leaves/preemptions — and `start()`
@@ -53,9 +62,17 @@ reproduces its tokens (ROADMAP C8).
 
 Entry points run on `CUDAPlace(0)` unless the caller passes a place;
 without CUDA the default raises.  The scheduler thread enters
-`torch.no_grad()` itself (grad mode is per thread).  The disagg roles
-(ROADMAP A step 9b) and the `plan_fit` memory gate (observe.memory,
-step 11) are not ported yet.
+`torch.no_grad()` itself (grad mode is per thread).  The `plan_fit`
+memory gate (observe.memory, ROADMAP A step 11) is not ported yet.
+
+Handoff wire format (the reference's): `{"kind": "handoff", "prompt",
+"first_token", "generated", "committed", "max_new_tokens", "priority",
+"done", "n_pages", "rows": {cache: (T_cap, C) ndarray}, "bytes",
+"export_ms", "from_replica", "model_version"}`.  Rows copy verbatim in
+pool dtype (int8 codes and scale sidecars bitwise); numpy has no
+bfloat16 without ml_dtypes, so a bf16 pool's rows travel as their raw
+2-byte records ('|V2', as io.py stores bf16 checkpoints) and the import
+views them back as its own pool's dtype.
 """
 
 from __future__ import annotations
@@ -71,6 +88,7 @@ import torch
 from ..core.executor import RNG_STATE_VAR, interpret_program, place_device
 from ..observe.events import RunEventLog
 from ..observe.monitoring import runtime_stats
+from ..ops.paged_kv import paged_import_rows
 from .admission import (AdmissionController, CircuitBreaker,
                         DeadlineExceededError, ExecutorFailureError,
                         ServingError, WeightReloadError)
@@ -80,6 +98,26 @@ from .stats import DecodeStats
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _host_rows(t: torch.Tensor) -> np.ndarray:
+    """Exported rows on the host in pool dtype: a bf16 tensor as raw
+    2-byte records of its bits (numpy has no bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view("V2")
+    return t.cpu().numpy()
+
+
+def _by_dtype(pools: Dict[str, torch.Tensor], rows_of):
+    """[(names, cat)] of the pools grouped by dtype in name order; `cat`
+    is rows_of(pool) of the group concatenated along the channels (None
+    when rows_of is None)."""
+    groups: Dict[torch.dtype, List[str]] = {}
+    for n in sorted(pools):
+        groups.setdefault(pools[n].dtype, []).append(n)
+    return [(names, None if rows_of is None
+             else torch.cat([rows_of(pools[n]) for n in names], dim=1))
+            for names in groups.values()]
 
 
 def run_model_program(built, params, pools, cache_names, device, fetch,
@@ -168,7 +206,8 @@ class DecodeRequest:
     """One accepted generation request."""
 
     __slots__ = ("prompt", "max_new_tokens", "priority", "future",
-                 "deadline", "t_submit", "preempted", "trace")
+                 "deadline", "t_submit", "preempted", "trace",
+                 "handoff")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
                  priority: int = 0, deadline: Optional[float] = None,
@@ -181,6 +220,7 @@ class DecodeRequest:
         self.t_submit = time.monotonic()
         self.preempted = 0
         self.trace = trace       # observe.reqtrace.RequestTrace or None
+        self.handoff = None      # disagg: imported KV package (decode role)
 
     def descriptor(self, generated: Optional[List[int]] = None
                    ) -> Dict[str, Any]:
@@ -270,6 +310,9 @@ class DecodeEngine:
         a TPU (paddle_tpu/serving/decode.py:335-339), and the port's
         eager steps update the pools in place.
     tracer: an observe.ReqTracer, or None (no tracing).
+    role: "unified" (prefill and decode), "prefill" (resolves every
+        request with a KV handoff package) or "decode" (admits only
+        through import_handoff); serving/disagg.py.
     speculate_k: drafts per slot per verify round (0: the sequential
         chunk loop); drafter: a serving.speculate.Drafter with k ==
         speculate_k (default NGramDrafter(speculate_k)).
@@ -304,11 +347,6 @@ class DecodeEngine:
                 "role='prefill' worker never runs decode steps")
         if drafter is not None and not self.speculate_k:
             raise ValueError("drafter given but speculate_k is 0")
-        if role != "unified":
-            raise NotImplementedError(
-                f"role={role!r} (disaggregated prefill/decode serving, "
-                f"serving/disagg.py) is not ported yet: ROADMAP queue A "
-                f"step 9b")
         self.drafter = None
         if self.speculate_k:
             from .speculate import NGramDrafter
@@ -365,6 +403,11 @@ class DecodeEngine:
         self._stop = False
         self._started = False
         self.role = role
+        # the step and verify runs' row block (OpContext.row_block): None
+        # runs steps unblocked and verify runs in blocks of the slot
+        # count; the DisaggFleet sets the prefill workers' slot count on
+        # its decode workers (ROADMAP C15)
+        self.step_row_block: Optional[int] = None
         # fleet surface: replica identity, weight version, and the
         # control requests (evacuation / weight swap) the scheduler
         # services between dispatches
@@ -425,7 +468,8 @@ class DecodeEngine:
         while i < chunk and not fin_any and act.sum() > 0:
             # one host->device copy carries the four per-step feeds
             feed = self._tensor(np.stack([tok, wp, wp + 1, act]))
-            env = self._run(step, tokens=feed[0], write_pos=feed[1],
+            env = self._run(step, row_block=self.step_row_block,
+                            tokens=feed[0], write_pos=feed[1],
                             lengths=feed[2], active=feed[3],
                             page_table=pt)
             nxt = env[step["next_token"]].to(torch.int32).cpu().numpy()
@@ -455,7 +499,8 @@ class DecodeEngine:
         f = self._tensor(folded)
         meta = self._tensor(slot_meta)
         env = self._run(ver, (ver["accepted"], ver["tokens"]),
-                        row_block=self.config.num_slots, tokens=f[0],
+                        row_block=(self.step_row_block
+                                   or self.config.num_slots), tokens=f[0],
                         write_pos=f[1], lengths=f[2], active=f[3],
                         drafts=self._tensor(drafts), draft_len=meta[0],
                         slot_active=meta[1],
@@ -465,18 +510,89 @@ class DecodeEngine:
         both = both.cpu().numpy()
         return both[:, 0], both[:, 1:]
 
+    def _export_rows(self, slot_id: int) -> Dict[str, np.ndarray]:
+        """role="prefill": gather one slot's pool pages into dense
+        token-major host rows (T_cap, C), T_cap = max_pages_per_slot *
+        page_size — a fixed shape for any slot and prompt; rows past the
+        committed length gather whatever the zero table padding points
+        at, and the import drops them (NumValid).  The pools of one dtype
+        come back in one copy (one wait on the device queue, not one a
+        pool)."""
+        pt = self._tensor(self._page_tables[slot_id].astype(np.int64))
+        rows = {}
+        for names, cat in _by_dtype(self._pools, lambda p: (
+                p.index_select(0, pt).flatten(0, 1))):
+            host = _host_rows(cat)
+            at = 0
+            for n in names:
+                c = self._pools[n].shape[2]
+                rows[n] = np.ascontiguousarray(host[:, at:at + c])
+                at += c
+        return rows
+
+    def _import_rows(self, rows: Dict[str, np.ndarray], slot_id: int,
+                     num_valid: int):
+        """role="decode": scatter one handoff's rows into this worker's
+        own pool pages (the receiving slot's page-table row), in place,
+        dropping positions >= num_valid.  The rows of one dtype go to the
+        device in one copy."""
+        pt = self._tensor(self._page_tables[slot_id])
+        for names, _ in _by_dtype(self._pools, None):
+            dt = self._pools[names[0]].dtype
+            host = np.concatenate([np.ascontiguousarray(rows[n])
+                                   for n in names], axis=1)
+            if dt == torch.bfloat16:
+                # 2-byte records (or any 2-byte view of bf16 bits)
+                t = torch.from_numpy(host.view(np.int16)).view(dt)
+            else:
+                t = torch.from_numpy(host)
+            t = t.to(self.device)
+            at = 0
+            for n in names:
+                c = self._pools[n].shape[2]
+                paged_import_rows(self._pools[n], t[:, at:at + c], pt,
+                                  num_valid)
+                at += c
+
     def _warmup(self):
-        """Run every prefill bucket and one decode step (with
-        speculate_k, one verify run instead) with nothing to write
-        (seq_len 0, active 0): kernel builds, cuBLAS set-up and the
+        """Run every program this role serves once with nothing to
+        write: each prefill bucket (seq_len 0) unless role="decode", one
+        decode step (active 0; with speculate_k, one verify run instead)
+        unless role="prefill", and the page export ("prefill") or import
+        (NumValid 0, "decode").  Kernel builds, cuBLAS set-up and the
         allocator's first pool growth land here, and the pools stay as
-        they were."""
+        they were.  Returns the number of runs."""
         cfg = self.config
         s = cfg.num_slots
         zeros = np.zeros((s,), np.int32)
-        for t in cfg.prefill_buckets:
-            self._prefill_run(t, np.zeros((s, t), np.int32), zeros,
-                              np.zeros((s, 1), np.int32))
+        n_runs = 0
+        if self.role != "decode":
+            for t in cfg.prefill_buckets:
+                self._prefill_run(t, np.zeros((s, t), np.int32), zeros,
+                                  np.zeros((s, 1), np.int32))
+            n_runs += len(cfg.prefill_buckets)
+        if self.role == "prefill":
+            self._export_rows(0)
+            n_runs += 1
+        else:
+            self._warm_step()
+            n_runs += 1
+        if self.role == "decode":
+            t_cap = cfg.max_pages_per_slot * cfg.page_size
+            self._import_rows(
+                {n: _host_rows(torch.zeros((t_cap, p.shape[2]),
+                                           dtype=p.dtype))
+                 for n, p in self._pools.items()}, 0, 0)
+            n_runs += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n_runs
+
+    def _warm_step(self):
+        """One decode step (or verify run) with no slot active."""
+        cfg = self.config
+        s = cfg.num_slots
+        zeros = np.zeros((s,), np.int32)
         if self.speculate_k:
             k1 = self.speculate_k + 1
             folded = np.zeros((4, s * k1), np.int32)
@@ -488,12 +604,10 @@ class DecodeEngine:
         else:
             feed = self._tensor(np.stack([zeros, zeros, zeros + 1,
                                           zeros]))
-            self._run(self.model.step, tokens=feed[0], write_pos=feed[1],
+            self._run(self.model.step, row_block=self.step_row_block,
+                      tokens=feed[0], write_pos=feed[1],
                       lengths=feed[2], active=feed[3],
                       page_table=self._tensor(self._page_tables))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return len(cfg.prefill_buckets) + 1
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> "DecodeEngine":
@@ -511,7 +625,7 @@ class DecodeEngine:
                 num_pages=cfg.num_pages, max_len=cfg.max_len,
                 prefill_buckets=list(cfg.prefill_buckets),
                 decode_chunk=cfg.decode_chunk, kv_dtype=cfg.kv_dtype,
-                device=str(self.device),
+                role=self.role, device=str(self.device),
                 queue_capacity=self.admission.queue_capacity)
         if self.memory_budget_bytes is not False:
             self.fit_plan = {"skipped": "plan_fit not ported",
@@ -723,6 +837,11 @@ class DecodeEngine:
         stopped it).  Raises DecodeBucketMissError / QueueFullError /
         CircuitOpenError / ServingClosedError synchronously.
         `_trace`: a fleet router's RequestTrace to continue."""
+        if self.role == "decode":
+            raise ValueError(
+                "role='decode' engine admits requests only through "
+                "import_handoff() — prompts prefill on a prefill "
+                "worker (serving/disagg.py)")
         trace = _trace
         if trace is None and self.tracer is not None:
             trace = self.tracer.new_trace("decode")
@@ -753,6 +872,12 @@ class DecodeEngine:
         req = DecodeRequest(prompt.astype(np.int32), max_new_tokens,
                             priority=priority, deadline=deadline,
                             trace=trace)
+        return self._accept(req)
+
+    def _accept(self, req: DecodeRequest) -> Future:
+        """Admission check, then queue the request for the scheduler;
+        a refusal is counted, traced and raised."""
+        trace = req.trace
         try:
             with self._cv:
                 self.admission.check(self._unresolved)
@@ -779,6 +904,50 @@ class DecodeEngine:
         """Synchronous submit()+result() convenience."""
         return self.submit(prompt, max_new_tokens, **kw).result(
             timeout_s)
+
+    def import_handoff(self, handoff: Dict[str, Any],
+                       deadline_ms: Optional[float] = None,
+                       _trace=None) -> Future:
+        """role="decode" entry: accept a prefill worker's KV handoff
+        package (see the module docstring) and continue the generation
+        from its first token.  The imported slot is seeded to exactly
+        the post-prefill state of the unified engine (committed prompt
+        KV, pending first token, remaining budget), so greedy decode
+        continues bit-identically across the hop.  Returns a Future of
+        the FULL generated ids (first token included)."""
+        if self.role != "decode":
+            raise ValueError(
+                "import_handoff() requires role='decode' "
+                f"(this engine is role={self.role!r})")
+        trace = _trace
+        if trace is None and self.tracer is not None:
+            trace = self.tracer.new_trace("decode")
+        prompt = np.asarray(handoff["prompt"], np.int32)
+        committed = int(handoff["committed"])
+        max_new = int(handoff["max_new_tokens"])
+        cfg = self.config
+        if prompt.ndim != 1 or prompt.size < 1 \
+                or committed != prompt.size:
+            raise ValueError(
+                f"handoff package inconsistent: committed {committed} "
+                f"vs prompt length {prompt.size}")
+        if handoff.get("rows") is None:
+            raise ValueError("handoff package carries no KV rows "
+                             "(done=True packages resolve at the "
+                             "router, not on a decode worker)")
+        if committed + max_new > cfg.max_len:
+            self.stats.record_bucket_miss()
+            raise DecodeBucketMissError(
+                f"handoff prompt {committed} + max_new_tokens "
+                f"{max_new} exceeds the per-slot budget max_len "
+                f"{cfg.max_len}", prompt_len=committed,
+                max_new_tokens=max_new, max_len=cfg.max_len)
+        deadline = self.admission.deadline_for(deadline_ms)
+        req = DecodeRequest(prompt, max_new,
+                            priority=int(handoff.get("priority", 0)),
+                            deadline=deadline, trace=trace)
+        req.handoff = handoff
+        return self._accept(req)
 
     # -- scheduler ------------------------------------------------------
     def _loop(self):
@@ -925,7 +1094,7 @@ class DecodeEngine:
             pend["ev"].set()
 
     def _resolve(self, slot_id: int,
-                 error: Optional[BaseException] = None):
+                 error: Optional[BaseException] = None, value=None):
         slot = self._slots[slot_id]
         self._slots[slot_id] = None
         self.page_pool.free(slot.pages)
@@ -946,8 +1115,11 @@ class DecodeEngine:
             # which weights produced this generation (a router's
             # response tag for the hot-reload roll)
             slot.req.future.model_version = slot.version
+            # `value` overrides the token array for role="prefill": the
+            # future resolves with the KV handoff package instead
             slot.req.future.set_result(
-                np.asarray(slot.generated, np.int32))
+                value if value is not None
+                else np.asarray(slot.generated, np.int32))
         self.stats.record_done()
         if own_trace:
             self.tracer.finish(tr)
@@ -1037,8 +1209,60 @@ class DecodeEngine:
                                          version=self.model_version)
             self._set_pages(slot_id, pages)
             joiners.append(slot_id)
-        if joiners:
-            self._dispatch_prefill(joiners)
+        if not joiners:
+            return
+        # disagg: handoff joiners import their prefilled KV pages (one
+        # fixed-shape scatter each) instead of prefilling
+        prefills = []
+        for i in joiners:
+            if self._slots[i].req.handoff is not None:
+                self._dispatch_import(i)
+            else:
+                prefills.append(i)
+        if prefills:
+            self._dispatch_prefill(prefills)
+
+    def _dispatch_import(self, slot_id: int):
+        """Scatter one handoff's exported KV rows into this worker's
+        pool at the receiving slot's pages, then seed the slot to the
+        unified engine's post-prefill state (pending first token), so the
+        next decode chunk continues bit-identically."""
+        cfg = self.config
+        slot = self._slots[slot_id]
+        h = slot.req.handoff
+        t_i0 = time.monotonic()
+        tr = slot.req.trace
+        if tr is not None:
+            tr.add("join_wait", slot.req.t_submit, t_i0,
+                   replica_id=self.replica_id, slot=slot_id)
+        try:
+            self._import_rows(h["rows"], slot_id, int(h["committed"]))
+        except Exception as e:  # noqa: BLE001 — resolved, not raised
+            self.stats.record_executor_failure()
+            self._breaker_result(False, 1)
+            err = ExecutorFailureError(
+                f"KV-page import dispatch failed: "
+                f"{type(e).__name__}: {e}",
+                error_type=type(e).__name__, joins=1)
+            self._trace_dispatch([slot_id], t_i0, kind="import",
+                                 error=type(e).__name__)
+            self._resolve(slot_id, error=err)
+            return
+        self._trace_dispatch([slot_id], t_i0, kind="import",
+                             pages=len(slot.pages))
+        self._breaker_result(True, 1)
+        slot.committed = int(h["committed"])
+        slot.cur_tok = int(h["first_token"])
+        slot.generated = [int(t) for t in h["generated"]]
+        slot.remaining = slot.req.max_new_tokens - len(slot.generated)
+        self.stats.record_import()
+        if self.drafter is not None:
+            # no draft-model KV crossed the wire: re-seed the draft pool
+            # from the raw prompt (serving/speculate.py)
+            self.drafter.on_import(self, slot_id)
+        if slot.remaining <= 0 or (cfg.eos_id is not None
+                                   and slot.cur_tok == cfg.eos_id):
+            self._resolve(slot_id)
 
     def _dispatch_prefill(self, joiners: List[int]):
         cfg = self.config
@@ -1092,12 +1316,60 @@ class DecodeEngine:
             # page tables: the pools share geometry by construction)
             self.drafter.on_prefill(self, joiners, tokens, seq_len,
                                     last_idx)
+        if self.role == "prefill":
+            # disagg: every joiner resolves NOW with its KV handoff
+            # package; the slot and pages recycle at once, so the prefill
+            # worker's TTFT is decoupled from any decode occupancy
+            self._export_handoffs(joiners)
+            return
         # a request satisfied by its very first token resolves here
         for i in joiners:
             slot = self._slots[i]
             if slot.remaining <= 0 or (cfg.eos_id is not None
                                        and slot.cur_tok == cfg.eos_id):
                 self._resolve(i)
+
+    def _export_handoffs(self, joiners: List[int]):
+        """role="prefill": gather each joiner's pool pages to host rows
+        and resolve its future with the handoff wire package (the requeue
+        descriptor's fields + the KV rows).  Rows copy verbatim in pool
+        dtype, so the hop is bitwise."""
+        cfg = self.config
+        for i in joiners:
+            slot = self._slots[i]
+            done = slot.remaining <= 0 or (
+                cfg.eos_id is not None and slot.cur_tok == cfg.eos_id)
+            t_e0 = time.monotonic()
+            rows = None
+            nbytes = 0
+            if not done:
+                rows = self._export_rows(i)
+                # valid rows only: padding rows travel in the fixed
+                # buffers but are not counted
+                nbytes = sum(slot.committed * v.shape[1] * v.dtype.itemsize
+                             for v in rows.values())
+            t_e1 = time.monotonic()
+            tr = slot.req.trace
+            if tr is not None and not done:
+                tr.add("export", t_e0, t_e1, replica_id=self.replica_id,
+                       slot=i, pages=len(slot.pages), bytes=nbytes)
+            package = {
+                "kind": "handoff",
+                "prompt": [int(t) for t in slot.req.prompt],
+                "first_token": int(slot.cur_tok),
+                "generated": [int(t) for t in slot.generated],
+                "committed": int(slot.committed),
+                "max_new_tokens": slot.req.max_new_tokens,
+                "priority": slot.req.priority,
+                "done": bool(done),
+                "n_pages": len(slot.pages),
+                "rows": rows,
+                "bytes": int(nbytes),
+                "export_ms": round((t_e1 - t_e0) * 1e3, 3),
+                "from_replica": self.replica_id,
+                "model_version": slot.version,
+            }
+            self._resolve(i, value=package)
 
     def _trace_dispatch(self, slot_ids, t0, **attrs):
         """One `dispatch` span [t0, now) on each traced slot's request."""
@@ -1153,6 +1425,8 @@ class DecodeEngine:
         return [i for i, s in enumerate(self._slots) if s is not None]
 
     def _decode(self):
+        if self.role == "prefill":
+            return  # every slot resolved at export
         if self.speculate_k:
             self._decode_speculative()
             return

@@ -30,10 +30,11 @@ threads; one batcher worker owns dispatch (one dispatcher keeps the
 device queue ordered and the occupancy story simple), and the
 Predictor enters `torch.no_grad()` on that thread itself.
 
-Left out until ROADMAP A step 11 (the host planes): the observe.memory
-fit planner behind `memory_budget_bytes` (a known budget records
-`fit_plan = {"skipped": ...}`), and `metrics_registry`,
-`start_metrics_server` and `enable_alerts`, which raise.
+Metrics and alerts (observe/registry.py, alerts.py, flightrec.py):
+`metrics_registry()`, the opt-in `start_metrics_server()` and
+`enable_alerts()`, all host-side.  Left out until ROADMAP A step 11: the
+observe.memory fit planner behind `memory_budget_bytes` (a known budget
+records `fit_plan = {"skipped": ...}`).
 """
 
 from __future__ import annotations
@@ -255,6 +256,12 @@ class ServingEngine:
         # fleet surface: replica identity + live weight version
         self.replica_id: Optional[int] = None
         self.model_version = 0
+        # metrics and alerts (opt-in, standalone engines; fleets front
+        # their own registry and alert engine instead)
+        self._metrics_registry = None
+        self._metrics_server = None
+        self.alert_engine = None
+        self.flight_recorder = None
 
     def set_replica_id(self, replica_id: int) -> None:
         """Name this engine as fleet replica `replica_id` and stamp the
@@ -324,6 +331,13 @@ class ServingEngine:
             self.drain(timeout_s)
         self.batcher.shutdown(timeout_s)
         self.admission.finish_drain()
+        if self.alert_engine is not None:
+            self.alert_engine.close()
+        if self.flight_recorder is not None:
+            self.flight_recorder.close()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         if self._own_log is not None:
             self._own_log.close()
 
@@ -344,25 +358,83 @@ class ServingEngine:
             model_version=self.model_version,
             post_warmup_compiles=self.stats.post_warmup_compiles())
 
-    # -- unified metrics export + alerts (observe pillars 7+9) ----------
+    # -- unified metrics export + alerts ---------------------------------
     def metrics_registry(self):
-        raise NotImplementedError(
-            "ServingEngine.metrics_registry() (observe.registry) is not "
-            "ported yet: ROADMAP queue A step 11 (host planes)")
+        """Standalone-engine metrics surface: this engine's stats (+
+        tracer phases when tracing is on) joined with the process-wide
+        runtime/process/memory collectors.  Built once, cached.
+        Engines fronted by a Fleet use the fleet's registry instead
+        (it merges replicas at scrape time)."""
+        if self._metrics_registry is None:
+            from ..observe.registry import (MetricsRegistry,
+                                            serving_stats_collector,
+                                            standard_collectors,
+                                            tracer_collector)
+
+            reg = standard_collectors(MetricsRegistry())
+            reg.register("serving",
+                         serving_stats_collector(self.stats,
+                                                 scope="engine"))
+            if self.tracer is not None:
+                reg.register("reqtrace",
+                             tracer_collector(self.tracer))
+            self._metrics_registry = reg
+        return self._metrics_registry
 
     def start_metrics_server(self, host: str = "127.0.0.1",
                              port: int = 0):
-        raise NotImplementedError(
-            "ServingEngine.start_metrics_server() (observe.registry) is "
-            "not ported yet: ROADMAP queue A step 11 (host planes)")
+        """Opt-in /metrics + /healthz (+ /alerts with enable_alerts)
+        endpoint for a standalone engine; binds localhost, port=0 =
+        ephemeral.  Stopped by close()."""
+        if self._metrics_server is not None:
+            return self._metrics_server
+        from ..observe.registry import MetricsServer
+
+        self._metrics_server = MetricsServer(
+            self.metrics_registry(), health_fn=self.health,
+            host=host, port=port,
+            alerts_fn=(self.alert_engine.state
+                       if self.alert_engine is not None
+                       else None)).start()
+        return self._metrics_server
 
     def enable_alerts(self, rules=None, interval_s: float = 5.0,
                       flight_dir: Optional[str] = None,
                       recorder_config: Optional[Dict[str, Any]] = None,
                       start: bool = True, **pack_kw):
-        raise NotImplementedError(
-            "ServingEngine.enable_alerts() (observe.alerts, flightrec) is "
-            "not ported yet: ROADMAP queue A step 11 (host planes)")
+        """Opt into alerting on a standalone engine: the
+        `observe.serving_rule_pack` (e2e p99 / error-budget burn /
+        post-warmup-compile tripwire; or explicit `rules`) evaluated
+        over `metrics_registry()` on a background thread, with an
+        optional FlightRecorder bundling diagnostics on every firing
+        alert (`flight_dir`).  Pure host: the alert thread launches
+        nothing on the device.  Stopped by close()."""
+        if self.alert_engine is not None:
+            return self.alert_engine
+        from ..observe.alerts import AlertEngine, serving_rule_pack
+        from ..observe.flightrec import FlightRecorder
+
+        if rules is None:
+            rules = serving_rule_pack(**pack_kw)
+        elif pack_kw:
+            raise ValueError("pack_kw only applies to the default "
+                             "rule pack")
+        engine = AlertEngine(self.metrics_registry(), rules=rules,
+                             interval_s=interval_s,
+                             event_log=self._event_log)
+        self.metrics_registry().register("alerts", engine.collector())
+        if flight_dir is not None:
+            self.flight_recorder = FlightRecorder(
+                flight_dir, registry=self.metrics_registry(),
+                event_log=self._event_log, tracer=self.tracer,
+                **(recorder_config or {}))
+            self.flight_recorder.attach_engine(engine)
+        self.alert_engine = engine
+        if self._metrics_server is not None:
+            self._metrics_server.alerts_fn = engine.state
+        if start:
+            engine.start()
+        return engine
 
     # -- fleet surface: hot weight reload -------------------------------
     def reload(self, source, version: Optional[int] = None

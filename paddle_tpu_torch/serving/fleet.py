@@ -49,8 +49,9 @@ Everything that crosses the fleet boundary is a structured
 stamp their own events with `replica_id` (RunEventLog.bind), so N
 replicas sharing one process log stay attributable.
 
-Left out until ROADMAP A step 11 (the host planes): `metrics_registry`,
-`start_metrics_server` and `enable_alerts` raise.
+Metrics and alerts: `metrics_registry()` (the router collector, the
+fleet-merged engine stats, request tracing), `start_metrics_server()`
+and `enable_alerts()` (observe.fleet_rule_pack), all host-side.
 """
 
 from __future__ import annotations
@@ -396,6 +397,10 @@ class Fleet:
         self._closed = False
         self._started = False
         self._rolling = False
+        self._metrics_registry = None
+        self._metrics_server = None
+        self.alert_engine = None       # opt-in (enable_alerts)
+        self.flight_recorder = None
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> "Fleet":
@@ -423,6 +428,13 @@ class Fleet:
         if close_replicas:
             for h in self.replicas:
                 h.engine.close(timeout_s)
+        if self.alert_engine is not None:
+            self.alert_engine.close()
+        if self.flight_recorder is not None:
+            self.flight_recorder.close()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         self._event("serving_fleet_close", **self.snapshot())
         if self._own_log is not None:
             self._own_log.close()
@@ -458,23 +470,95 @@ class Fleet:
         return agg
 
     def metrics_registry(self):
-        raise NotImplementedError(
-            "Fleet.metrics_registry() (observe.registry) is not ported "
-            "yet: ROADMAP queue A step 11 (host planes)")
+        """The fleet's unified metrics surface: one
+        MetricsRegistry holding the router collector (per-replica
+        health/breaker gauges, failover/hedge counters), the
+        fleet-MERGED engine stats (pulled via merged_stats at scrape
+        time, so histograms aggregate exactly), the request tracer's
+        phase histograms when tracing is on, and the process-wide
+        runtime/process/memory collectors.  Built once, cached."""
+        if self._metrics_registry is None:
+            from ..observe.registry import (MetricsRegistry,
+                                            fleet_collector,
+                                            serving_stats_collector,
+                                            standard_collectors,
+                                            tracer_collector)
+
+            reg = standard_collectors(MetricsRegistry())
+            reg.register("fleet", fleet_collector(self))
+            reg.register("serving",
+                         serving_stats_collector(self.merged_stats,
+                                                 scope="fleet"))
+            if self.tracer is not None:
+                reg.register("reqtrace",
+                             tracer_collector(self.tracer))
+            self._metrics_registry = reg
+        return self._metrics_registry
 
     def start_metrics_server(self, host: str = "127.0.0.1",
                              port: int = 0):
-        raise NotImplementedError(
-            "Fleet.start_metrics_server() (observe.registry) is not "
-            "ported yet: ROADMAP queue A step 11 (host planes)")
+        """Opt-in /metrics + /healthz endpoint over this fleet's
+        registry (stdlib ThreadingHTTPServer; binds localhost unless
+        told otherwise — the exposition carries per-replica health
+        detail).  With `enable_alerts()` active the same server also
+        answers /alerts.  port=0 picks an ephemeral port; read `.port`
+        / `.url` off the returned MetricsServer.  Stopped by close()."""
+        if self._metrics_server is not None:
+            return self._metrics_server
+        from ..observe.registry import MetricsServer
+
+        self._metrics_server = MetricsServer(
+            self.metrics_registry(), health_fn=self.health,
+            host=host, port=port,
+            alerts_fn=(self.alert_engine.state
+                       if self.alert_engine is not None
+                       else None)).start()
+        return self._metrics_server
 
     def enable_alerts(self, rules=None, interval_s: float = 5.0,
                       flight_dir: Optional[str] = None,
                       recorder_config: Optional[Dict[str, Any]] = None,
                       start: bool = True, **pack_kw):
-        raise NotImplementedError(
-            "Fleet.enable_alerts() (observe.alerts, flightrec) is not "
-            "ported yet: ROADMAP queue A step 11 (host planes)")
+        """Opt into alerting on this fleet: an AlertEngine
+        evaluating the serving-SLO pack (`observe.fleet_rule_pack` —
+        error/failover/saturation burn + TTFT/TPOT/queue_wait p99; or
+        explicit `rules`) over `metrics_registry()` every `interval_s`
+        on a background thread.  `pack_kw` forwards to the pack
+        (thresholds/windows).  With `flight_dir` a FlightRecorder
+        writes a diagnostic bundle on every firing alert
+        (`recorder_config` forwards rate/size bounds).  The `alerts`
+        metric family joins /metrics and the /alerts route activates
+        on the metrics server.  `start=False` skips the background
+        thread (callers drive `alert_engine.evaluate()` — tests, and
+        in-process scrapes).  Pure host: the alert thread only reads
+        registry snapshots and launches nothing on the device.  Stopped
+        by close()."""
+        if self.alert_engine is not None:
+            return self.alert_engine
+        from ..observe.alerts import AlertEngine, fleet_rule_pack
+        from ..observe.flightrec import FlightRecorder
+
+        if rules is None:
+            rules = fleet_rule_pack(self, **pack_kw)
+        elif pack_kw:
+            raise ValueError("pack_kw only applies to the default "
+                             "rule pack")
+        engine = AlertEngine(self.metrics_registry(), rules=rules,
+                             interval_s=interval_s,
+                             event_log=self._event_log)
+        self.metrics_registry().register("alerts", engine.collector())
+        if flight_dir is not None:
+            self.flight_recorder = FlightRecorder(
+                flight_dir, registry=self.metrics_registry(),
+                event_log=self._event_log, tracer=self.tracer,
+                **(recorder_config or {}))
+            self.flight_recorder.attach_engine(engine)
+        self.alert_engine = engine
+        if self._metrics_server is not None:
+            self._metrics_server.alerts_fn = engine.state
+        if start:
+            engine.start()
+        return engine
 
     def snapshot(self) -> Dict[str, Any]:
         """Fleet counters + the merged per-replica engine telemetry

@@ -21,8 +21,8 @@ Two interchangeable drafters behind one protocol:
   extra bookkeeping.  Its k draft steps are a host loop of step-program
   runs at batch S (the port's form of the reference's `fori_loop`, as
   the engine's chunk is), the tokens carried on the device between
-  them; prefill-on-join mirrors into the draft pool through the same
-  bucket ladder.
+  them; prefill-on-join (and, on a disagg decode worker, each KV
+  import) mirrors into the draft pool through the same bucket ladder.
 
 Draft-pool consistency needs no rollback hook: accepted-prefix rows are
 what a sequential draft run over the committed stream would have
@@ -92,7 +92,7 @@ class Drafter:
       every successful prefill-on-join run (the same padded host
       buffers the engine ran);
     - `on_import(engine, slot_id)` after a disagg KV handoff seeds a
-      slot (the disagg roles are not ported yet);
+      slot on a decode-role worker;
     - `draft(engine, active_ids) -> (drafts (S, k) int32, draft_len
       (S,) int32)` once per verify round.  Proposals may be shorter than
       k (ragged draft_len); the ENGINE caps them again to the slot's
@@ -236,9 +236,29 @@ class ModelDrafter(Drafter):
                   page_table=self._tensor(engine._page_tables))
 
     def on_import(self, engine, slot_id) -> None:
-        raise NotImplementedError(
-            "ModelDrafter.on_import (the disagg KV handoff) is not ported "
-            "yet: ROADMAP queue A item 7 (A step 9)")
+        """Disagg decode-role hook: a KV handoff seeded the target slot
+        but no draft-model KV crossed the wire, so re-prefill the raw
+        prompt into the draft pool here (a single joiner, every other
+        slot masked out by seq_len 0)."""
+        from .engine import BucketConfig
+
+        slot = engine._slots[slot_id]
+        prompt = np.asarray(slot.req.prompt)
+        plen = int(prompt.size)
+        bucket = BucketConfig.pick(engine.config.prefill_buckets, plen)
+        if bucket is None:
+            raise ValueError(
+                f"draft-pool import re-prefill: prompt length {plen} "
+                f"fits no prefill bucket "
+                f"{list(engine.config.prefill_buckets)}")
+        s = engine.config.num_slots
+        tokens = np.zeros((s, bucket), np.int32)
+        seq_len = np.zeros((s,), np.int32)
+        last_idx = np.zeros((s, 1), np.int32)
+        tokens[slot_id, :plen] = prompt
+        seq_len[slot_id] = plen
+        last_idx[slot_id, 0] = plen - 1
+        self.on_prefill(engine, [slot_id], tokens, seq_len, last_idx)
 
     def draft(self, engine, active_ids):
         s = engine.config.num_slots

@@ -1,6 +1,5 @@
 """Serving telemetry: the port of paddle_tpu/serving/stats.py
-(`ServingStats`, `DecodeStats`; `DecodeStats.record_import` comes with
-the disaggregated half of ROADMAP A step 9).
+(`ServingStats`, `DecodeStats`).
 
 `ServingStats` (the dynamic-batching ServingEngine):
 
@@ -27,7 +26,8 @@ the disaggregated half of ROADMAP A step 9).
 - **KV page-pool utilization** — allocated pages over the pool, sampled
   at every dispatch (mean + peak).
 - **preemptions** — slots evicted because the pool ran dry; evacuations
-  and reloads for the fleet.
+  and reloads for the fleet; KV-page handoff imports on a disagg decode
+  worker.
 - **compile hygiene** — as above.
 - **speculation** — with `configure_speculation(k)`: verify runs,
   drafted/accepted/emitted tokens and the k+1-bin histogram of accepted
@@ -278,6 +278,8 @@ class DecodeStats:
         self.reload_pause_ms = 0.0  # worst single swap pause
         self.prefills = 0           # prefill dispatches
         self.prefill_joins = 0      # requests admitted via those
+        self.imports = 0            # KV-page handoff imports accepted
+        #                             (role="decode" workers only)
         self.decode_dispatches = 0  # chunked decode dispatches
         self.decode_iterations = 0  # step runs across them
         self.tokens_generated = 0
@@ -357,6 +359,13 @@ class DecodeStats:
             self.tokens_generated += joins
         for ms in ttfts_ms:
             self.ttft_ms.record(ms)
+
+    def record_import(self, n: int = 1):
+        """A decode-role worker accepted a KV-page handoff (the first
+        token was produced, and counted, on the prefill worker, so
+        imports add no tokens here; the fleet-merged totals stay
+        exact)."""
+        self._bump("imports", n)
 
     def configure_speculation(self, k: int):
         """Size the accepted-token histogram for speculate_k = k
@@ -450,7 +459,7 @@ class DecodeStats:
                 "submitted", "completed", "shed", "deadline_misses",
                 "bucket_misses", "circuit_rejects", "executor_failures",
                 "preemptions", "evacuations", "reloads", "prefills",
-                "prefill_joins", "decode_dispatches",
+                "prefill_joins", "imports", "decode_dispatches",
                 "decode_iterations", "tokens_generated",
                 "verify_dispatches", "drafted_tokens", "accepted_tokens",
                 "spec_emitted_tokens", "_slot_steps",
@@ -492,6 +501,7 @@ class DecodeStats:
                 "reload_pause_ms": round(self.reload_pause_ms, 3),
                 "prefills": self.prefills,
                 "prefill_joins": self.prefill_joins,
+                "imports": self.imports,
                 "decode_dispatches": self.decode_dispatches,
                 "decode_iterations": self.decode_iterations,
                 "tokens_generated": self.tokens_generated,

@@ -176,11 +176,21 @@ def test_hot_reload_under_load_same_then_other_weights(lm, ref):
     assert ref["after"] != [c[:AFTER] for c in ref["control"][:3]]
     assert all(e.model_version == 2 for e in engines)
     assert fleet.snapshot()["post_warmup_compiles"] == 0
-    for fn in (fleet.metrics_registry, fleet.start_metrics_server,
-               fleet.enable_alerts):
-        with pytest.raises(NotImplementedError, match="step 11"):
-            fn()
+    # the metrics and alerts plane: the router and the fleet-merged
+    # engine stats at scrape time, the fleet rule pack
+    snap = fleet.metrics_registry().snapshot()
+    assert snap["fleet_reloads_total"]["samples"][0]["value"] == \
+        fleet.snapshot()["reloads"]
+    assert snap["serving_post_warmup_compiles"]["samples"][0]["value"] == 0
+    assert {s["labels"]["replica_id"]
+            for s in snap["fleet_replica_up"]["samples"]} == {0, 1}
+    alerts = fleet.enable_alerts(start=False)
+    alerts.evaluate()
+    assert alerts.signals()["fleet_replicas_down"]["value"] == 2
+    srv = fleet.start_metrics_server()
+    assert srv.alerts_fn == alerts.state
     fleet.close()
+    assert fleet._metrics_server is None
 
 
 def test_evacuate_returns_requeueable_descriptors(lm, ref):
@@ -296,6 +306,8 @@ def _record_decode(stats_cls):
     a.record_decode(4, 2, 2, 6, 5, 10, 12.0)
     b.record_decode(2, 1, 2, 2, 8, 10, 4.0)
     a.record_preemption()
+    a.record_import()
+    b.record_import(2)
     b.record_reload(7.5)
     return a.merge(b).snapshot()
 
@@ -317,9 +329,7 @@ def test_stats_merges_equal_the_reference():
     from paddle_tpu.serving import ServingStats as JServingStats
 
     got, want = _record_decode(DecodeStats), _record_decode(JDecodeStats)
-    # record_import (and its counter) come with ROADMAP A step 9b
-    assert want.pop("imports") == 0
-    assert got == want
+    assert got == want and got["imports"] == 3
     assert got["slot_occupancy"] == round(10 / 12, 4)
     assert got["reloads"] == 1 and got["reload_pause_ms"] == 7.5
     assert _record_serving(ServingStats) == _record_serving(JServingStats)

@@ -8,7 +8,9 @@
 - The CUDA sources of the ported kernels are in the package, each with
   the C entry point its wrapper binds; a library's name hashes its
   source and the csrc headers the source includes.
-- Not-ported options raise NotImplementedError naming the ROADMAP item.
+- Not-ported options raise NotImplementedError naming the ROADMAP item;
+  the disagg roles build and warm (their serving is in
+  test_torch_disagg.py).
 """
 
 from __future__ import annotations
@@ -144,17 +146,27 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(role="prefill"), "queue A step 9b"),
-    (dict(role="decode"), "queue A step 9b"),
+    (dict(role="prefill"), "import_handoff() requires role='decode'"),
+    (dict(role="decode"), "admits requests only through import_handoff"),
 ])
 def test_unported_engine_options_raise(kw, item):
+    """The disagg roles (ROADMAP A step 9b) are ported: each role builds,
+    warms its own runs (prefill: the bucket and the page export; decode:
+    the step and the page import) and refuses the other role's door."""
     lm = DecoderLM(vocab_size=16, n_layer=1, n_head=2, d_model=8,
                    d_inner=16, kv_dtype="float32")
-    with pytest.raises(NotImplementedError, match=item):
-        DecodeEngine(lm, DecodeConfig(num_slots=1, page_size=4, max_len=8,
-                                      prefill_buckets=(4,),
-                                      kv_dtype="float32"),
-                     place=pt.CPUPlace(), **kw)
+    eng = DecodeEngine(lm, DecodeConfig(num_slots=1, page_size=4, max_len=8,
+                                        prefill_buckets=(4,),
+                                        kv_dtype="float32"),
+                       place=pt.CPUPlace(), **kw).start()
+    assert eng.role == kw["role"]
+    assert eng.stats.snapshot()["warmup"]["executables"] == 2
+    with pytest.raises(ValueError, match=re.escape(item)):
+        if kw["role"] == "prefill":
+            eng.import_handoff({"kind": "handoff"})
+        else:
+            eng.submit(np.array([1, 2], np.int32), max_new_tokens=2)
+    eng.close()
 
 
 def test_cpu_engine_start_warms_up_and_reports():

@@ -14,14 +14,16 @@ package's, on the CPU, over models the reference saved:
   the breaker opening under `chaos.FlakyPredictor` (the CircuitOpenError
   wire form's keys equal the reference's), then closing on a probe;
 - serving events carry one run id, and `set_replica_id` stamps them;
-- `contrib.serve()` returns a started engine; the planes of ROADMAP A
-  step 11 raise naming it.
+- `contrib.serve()` returns a started engine (the fit planner of ROADMAP
+  A step 11 records itself skipped) whose metrics and alerts hooks work.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -302,11 +304,29 @@ def test_events_serve_and_the_missing_planes(mlp_dir, tmp_path):
     for _ in range(5):
         eng.infer({"x": rng.rand(16).astype(np.float32)}, timeout_s=60)
     assert eng.fit_plan["skipped"]
-    for fn in (eng.metrics_registry, eng.start_metrics_server,
-               eng.enable_alerts):
-        with pytest.raises(NotImplementedError, match="step 11"):
-            fn()
+    # the metrics and alerts plane (observe.registry, alerts): the
+    # engine's stats scraped over /metrics, the serving rule pack
+    reg = eng.metrics_registry()
+    assert reg is eng.metrics_registry()
+    snap = reg.snapshot()
+    assert snap["serving_completed_total"]["samples"][0]["value"] == 5
+    assert snap["serving_completed_total"]["samples"][0]["labels"] == \
+        {"scope": "engine"}
+    alerts = eng.enable_alerts(start=False)
+    assert alerts is eng.enable_alerts()
+    assert sorted(r.id for r in alerts.rules) == [
+        "serving_e2e_p99", "serving_error_rate",
+        "serving_post_warmup_compiles"]
+    alerts.evaluate()
+    assert alerts.signals()["serving_post_warmup_compiles"]["value"] == 0
+    srv = eng.start_metrics_server()
+    assert srv is eng.start_metrics_server()
+    with urllib.request.urlopen(srv.url + "/metrics", timeout=5) as r:
+        assert b"serving_e2e_ms_bucket" in r.read()
+    with urllib.request.urlopen(srv.url + "/alerts", timeout=5) as r:
+        assert json.loads(r.read())["evaluations"] == 1
     eng.close()
+    assert eng._metrics_server is None
     events = read_events(log_path)
     kinds = [e["event"] for e in events]
     assert kinds[0] == "run_begin" and kinds[-1] == "run_end"

@@ -19,8 +19,8 @@ parameters in the reference's order.
   randomness its fetches and state equal the reference's
   `iterations=3` (rtol 1e-5: float32, other summation orders).
 - The options the port accepts without acting on them
-  (`use_program_cache`, `donate_pools`) are documented no-ops; the one
-  it cannot serve yet (`max_bytes`) raises naming its ROADMAP step;
+  (`use_program_cache`, `donate_pools`) are documented no-ops;
+  `max_bytes` rotates the event log;
   `moe_experts`, given positionally to the Transformer's layers, builds
   the switch-MoE sublayer and appends its aux loss to `aux_list`.
 """
@@ -194,8 +194,10 @@ def test_run_event_log_records_mesh_shape(tmp_path):
         assert recs[side]["mesh_shape"] == {"dp": 2, "mp": 4}
         assert recs[side]["component"] == "test"
         assert recs[side]["run_id"] == "run1"
-    with pytest.raises(NotImplementedError, match="step 11"):
-        tevents.RunEventLog(str(tmp_path / "x.jsonl"), max_bytes=4096)
+    # max_bytes (ROADMAP A step 11's rotation, now ported) rolls the log
+    log = tevents.RunEventLog(str(tmp_path / "x.jsonl"), max_bytes=4096)
+    assert log.max_bytes == 4096 and log.rotations == 0
+    log.close()
 
 
 def test_layer_moe_experts_raise_naming_their_step():

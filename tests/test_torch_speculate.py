@@ -22,6 +22,7 @@ The same numpy inputs, and the reference's weights carried across by
 from __future__ import annotations
 
 import json
+import types
 
 import numpy as np
 import pytest
@@ -361,8 +362,26 @@ def test_oracle_model_drafter_matches_reference_histogram(models):
 
 
 def test_model_drafter_import_hook_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        ModelDrafter(TorchLM(**ARCH), k=K).on_import(None, 0)
+    """`on_import` (ROADMAP A step 9b) re-prefills the imported slot's
+    raw prompt into the draft pool and refuses a prompt no bucket
+    fits; its draft pool against the reference's is in
+    test_torch_disagg.py."""
+    lm = TorchLM(**ARCH)
+    d = ModelDrafter(lm, k=K)
+    eng = types.SimpleNamespace(
+        config=types.SimpleNamespace(prefill_buckets=(4,), num_slots=2),
+        _slots=[None, types.SimpleNamespace(req=types.SimpleNamespace(
+            prompt=np.arange(1, 7, dtype=np.int32)))],
+        _page_tables=np.zeros((2, 2), np.int32))
+    with pytest.raises(ValueError, match="fits no prefill bucket"):
+        d.on_import(eng, 1)
+    seen = []
+    d.on_prefill = lambda e, j, tok, sl, li: seen.append(
+        (j, tok.tolist(), sl.tolist(), li.tolist()))
+    eng._slots[1].req.prompt = np.array([5, 6, 7], np.int32)
+    d.on_import(eng, 1)
+    assert seen == [([1], [[0, 0, 0, 0], [5, 6, 7, 0]], [0, 3],
+                     [[0], [2]])]
 
 
 # -- ngram_propose and validation --------------------------------------------

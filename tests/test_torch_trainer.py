@@ -30,6 +30,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import urllib.request
 
 import numpy as np
 import pytest
@@ -410,9 +411,33 @@ def test_left_out_options_raise(kw, step):
 @pytest.mark.parametrize("method", ["metrics_registry",
                                     "start_metrics_server",
                                     "enable_alerts"])
-def test_left_out_planes_raise(method):
-    with pytest.raises(NotImplementedError, match="step 11"):
-        getattr(_trainer(), method)()
+def test_left_out_planes_raise(method, tmp_path):
+    """The metrics and alerts plane (ROADMAP A step 11's host half, now
+    ported): each hook returns its working object, cached, and stop()
+    closes what it started."""
+    t = _trainer()
+    if method == "enable_alerts":
+        obj = t.enable_alerts(start=False, flight_dir=str(tmp_path))
+        assert sorted(r.id for r in obj.rules) == sorted(
+            r.id for r in observe.trainer_rule_pack())
+        obj.evaluate()
+        assert obj.evaluations == 1 and t.flight_recorder is not None
+    elif method == "start_metrics_server":
+        obj = t.start_metrics_server()
+        with urllib.request.urlopen(obj.url + "/healthz", timeout=5) as r:
+            health = json.loads(r.read())
+        assert health["state"] == "training" and "ckpt" in health
+    else:
+        obj = t.metrics_registry()
+        snap = obj.snapshot()
+        assert snap["training_telemetry_windows"]["samples"][0]["value"] \
+            == 0
+        assert snap["recovery_autopilot_enabled"]["samples"][0]["value"] \
+            == 0
+        assert snap["ckpt_saves_total"]["samples"][0]["value"] == 0
+        assert snap["goodput_available"]["samples"][0]["value"] == 1
+    assert getattr(t, method)() is obj
+    t.stop()
 
 
 def test_default_place_is_cuda(monkeypatch, tmp_path):
