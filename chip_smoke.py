@@ -374,8 +374,29 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    killed once half the requests completed: the control's tokens, no
    client failure, a decode failover; TTFT and tokens/s of both fleets,
    handoff ms, pages and bytes, the flash forward and paged launches;
+6w. data parallelism (parallel.CompiledProgram) on the phase-6
+   Transformer at the bench's widths, dropout 0, Adam with noam, global
+   batch DP_BATCH: (a) one process as trainer 0 of 1 through
+   `init_distributed` (NCCL), `CompiledProgram(...).with_data_parallel(
+   mesh=make_mesh({"dp": 1}))` for DP_STEPS steps, every fetch and
+   parameter bit for bit the plain `Executor.run`'s; (b) two ranks on
+   the one card (`chip_smoke.py --dp-worker DIR RANK PORT` each, gloo
+   through the host: NCCL refuses two ranks of a communicator on one
+   device), half the batch each, in the default mode, grad_sync "bf16"
+   and "int8": the ranks' parameters bit-identical after every run,
+   step 1's synchronized gradients bit for bit the plain mean of the
+   two ranks' local gradients (int8: its two quantized phases) and
+   within TOL_DP_GRAD (int8 TOL_DP_GRAD_INT8) of (a)'s by relative L2,
+   losses within TOL_DP_LOSS of (a) and parameters within 4 * sum(lr)
+   (default and bf16), int8 within TOL_DP_INT8 of bf16 and descending,
+   each flash kernel once a flash op a step on each rank; each rank's
+   step ms and gradient-exchange ms; (c) 7e's ResNet-50 (2 x 224^2, lr
+   RESNET_PARITY_LR) at dp = 2 in the default mode against the one
+   process's global batch on the card: losses and every batch norm's
+   moving statistics within TOL_RESNET_LOSS and TOL_RESNET_STATS
+   (`chip_smoke.py --phase 6w` builds the kernels and runs 6w alone);
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6v and 4e-4g included), the card line, and as its last line
+   6l-6w and 4e-4g included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -7848,6 +7869,499 @@ def phase_disagg(dev, card):
     return res
 
 
+# -- phase 6w: data parallelism -------------------------------------------
+
+# the phase-6 Transformer (bench widths) at global batch 64, dropout 0 so
+# every rank's program is the one process's, DP_STEPS Adam steps; two
+# ranks on the one card share it over gloo through the host
+DP_BATCH, DP_STEPS, DP_RANKS = 64, 3, 2
+DP_MODES = (None, "bf16", "int8")
+# the ranks against one process: float32, other row counts in every
+# cuBLAS product, the loss a sum over the ranks (as phase 7's TOL_LOSS)
+TOL_DP_LOSS = 1e-4
+# the int8 exchange against bf16 (the reference's documented 1e-2)
+TOL_DP_INT8 = 1e-2
+# step 1's synchronized gradients (every param@GRAD) against (a)'s
+# global-batch gradients, relative L2 over all of them: float32 sums in
+# another order (default, bf16); the int8 exchange's quantization
+# (int8).  Each rank's exchange is also held bit for bit against the
+# plain mean of the two ranks' local gradients (_plain_sync).  Measured
+# 2.914e-6 and 1.461e-2 (H100 80GB HBM3, 700 W); a copy giving both
+# ranks rank 0's gradient reads 0.986
+TOL_DP_GRAD = 1e-5
+TOL_DP_GRAD_INT8 = 3e-2
+DP_WORKER_TIMEOUT_S = 300
+DP_LABEL = "gloo through the host on one card, not NCCL across cards"
+
+
+def _free_port() -> int:
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _dp_feed():
+    from paddle_tpu_torch.models import transformer
+
+    return transformer.make_fake_batch(DP_BATCH, TRAIN_ARCH["max_length"],
+                                       TRAIN_ARCH["src_vocab_size"],
+                                       TRAIN_ARCH["trg_vocab_size"], seed=5)
+
+
+def _scope_of(main, arrays, dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import params_from_arrays
+
+    scope = pt.Scope()
+    for n, t in params_from_arrays(arrays, dev, program=main).items():
+        scope.set_var(n, t)
+    return scope
+
+
+def _dp_steps(exe, target, feed, loss, scope, steps=DP_STEPS, grads=()):
+    """`steps` runs of `target`: (losses, step ms, {name: step 1's
+    value} of the names `grads`, fetched at step 1 on the card)."""
+    losses, ms, first = [], [], {}
+    for step in range(steps):
+        fetch = [loss] + (list(grads) if step == 0 else [])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(target, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+        if step == 0:
+            first = dict(zip(grads, out[1:]))
+    return losses, ms, first
+
+
+def _grad_names(main):
+    return [f"{p.name}@GRAD" for p in main.all_parameters() if p.trainable]
+
+
+def _plain_sync(mode, parts, block, floor):
+    """The plain mean of the ranks' local gradients `parts` (rank
+    order) that the exchange of `mode` computes: their sum over n; under
+    int8, for a float gradient of at least max(floor, n * block)
+    elements, the two-phase blockwise-int8 exchange (each rank's chunks
+    quantized at max|block| / 127, a zero block at scale 1, rounded half
+    to even; the dequantized sum re-quantized; then over n)."""
+    n, x = len(parts), parts[0]
+    if mode != "int8" or not x.is_floating_point() or x.numel() < max(
+            floor, n * block):
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc / n
+
+    def quant(v):
+        amax = v.abs().amax(dim=-1)
+        scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        q = torch.clamp(torch.round(v / scale[..., None]), -127, 127)
+        return q * scale[..., None]
+
+    size = x.numel()
+    pad = (-size) % (n * block)
+    red = None
+    for p in parts:
+        v = torch.nn.functional.pad(p.reshape(-1).float(), (0, pad))
+        d = quant(v.reshape(n, -1, block))
+        red = d if red is None else red + d
+    out = quant(red).reshape(-1)[:size]
+    return (out * (1.0 / n)).reshape(x.shape).to(x.dtype)
+
+
+def _grad_rel_err(got, want):
+    """sqrt(sum ||got - want||^2 / sum ||want||^2) over the names of
+    `want`, float64 sums."""
+    num = den = 0.0
+    for n, w in want.items():
+        w = w.double()
+        num += float(torch.sum(torch.square(got[n].double() - w)))
+        den += float(torch.sum(torch.square(w)))
+    return (num / den) ** 0.5
+
+
+def _persistables(main, scope):
+    return {v.name: scope.find_var(v.name) for v in main.list_vars()
+            if v.persistable and isinstance(scope.find_var(v.name),
+                                            torch.Tensor)}
+
+
+def _dp_worker_cmd(run_dir, rank, port):
+    return [sys.executable, os.path.abspath(__file__), "--dp-worker",
+            run_dir, str(rank), str(port)]
+
+
+def dp_worker(argv) -> int:
+    """One rank of 6w (b) and (c): `chip_smoke.py --dp-worker DIR RANK
+    PORT`.  Joins a gloo group of DP_RANKS through init_distributed on
+    the card, then runs the Transformer from DIR/transformer_init.npz on
+    DIR/transformer_feed.npz in each of DP_MODES (DP_STEPS steps each,
+    its half of the batch) and the ResNet from DIR/resnet_init.npz in
+    the default mode; writes DIR/rank<RANK>.json (losses, step and
+    exchange ms, kernel counts; for the Transformer, step 1's
+    synchronized gradients against the plain mean of the ranks' local
+    ones and against DIR/transformer_grad.npz) and each run's
+    parameters to DIR/rank<RANK>_<mode>.npz."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.parallel import data_parallel as dpm
+
+    run_dir, rank, port = argv[0], int(argv[1]), int(argv[2])
+    _set_matmul_flags()
+    _build.build()
+    place = pt.CUDAPlace(0)
+    pt.parallel.init_distributed(trainer_id=rank, num_trainers=DP_RANKS,
+                                 coordinator=f"127.0.0.1:{port}",
+                                 health=False, place=place, backend="gloo")
+    dev = pt.Executor(place).device
+    mesh = pt.parallel.make_mesh({"dp": DP_RANKS})
+    spent = []
+    exchange = dpm.DataParallelRunner.exchange
+    local = {}
+
+    def timed_exchange(self, loss, grads, *a, **kw):
+        # the gradient exchange alone, the card drained on both sides;
+        # step 1's local gradients kept for the plain mean
+        if not local:
+            local.update({p: g.detach().clone() for p, g in grads.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exchange(self, loss, grads, *a, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    dpm.DataParallelRunner.exchange = timed_exchange
+    res = {"rank": rank, "modes": {}}
+
+    def gathered(t):
+        # every rank's `t` in rank order, on the card: torch.distributed
+        # on host copies, not the port's collectives
+        parts = [torch.empty_like(t, device="cpu") for _ in range(DP_RANKS)]
+        dist.all_gather(parts, t.cpu())
+        return [x.to(t.device) for x in parts]
+
+    def check_grads(mode, synced, want):
+        """Step 1's synchronized gradients: bit for bit the plain mean
+        of the ranks' local ones (names that differ), and against (a)'s
+        global-batch gradients (relative L2)."""
+        cfg = pt.parallel.GradSyncConfig()
+        differ = []
+        for p in sorted(local):
+            plain = _plain_sync(mode, gathered(local[p]), cfg.block_size,
+                                cfg.min_quant_numel)
+            if not torch.equal(synced[f"{p}@GRAD"], plain):
+                differ.append(p)
+        return {"sync_differ": differ,
+                "grad_rel_err": _grad_rel_err(synced, want)}
+
+    def run(label, main, model, arrays, feed, mode=None, want=None):
+        scope = _scope_of(main, arrays, dev)
+        exe = pt.Executor(place)
+        bs = pt.BuildStrategy()
+        bs.grad_sync = mode
+        pt.CompiledProgram(main).with_data_parallel(
+            loss_name=model["loss"].name, build_strategy=bs, mesh=mesh)
+        kernels.reset_counts()
+        spent.clear()
+        local.clear()
+        names = _grad_names(main) if want is not None else ()
+        losses, ms, synced = _dp_steps(exe, main, feed, model["loss"],
+                                       scope, grads=names)
+        counts = kernels.counts()
+        np.savez(os.path.join(run_dir, f"rank{rank}_{label}.npz"),
+                 **{n: v.cpu().numpy()
+                    for n, v in _persistables(main, scope).items()})
+        res["modes"][label] = {"losses": losses, "step_ms": ms,
+                               "exchange_ms": list(spent),
+                               "counts": counts,
+                               "want": _want_launches(main, DP_STEPS)}
+        if want is not None:
+            res["modes"][label].update(check_grads(mode, synced, want))
+
+    arrays = dict(np.load(os.path.join(run_dir, "transformer_init.npz")))
+    feed = dict(np.load(os.path.join(run_dir, "transformer_feed.npz")))
+    want = {n: torch.from_numpy(v).to(dev) for n, v in
+            np.load(os.path.join(run_dir, "transformer_grad.npz")).items()}
+    for mode in DP_MODES:
+        main, startup, model = build_training(dropout=0.0)
+        run(mode or "default", main, model, arrays, feed, mode, want)
+    del want
+    arrays = dict(np.load(os.path.join(run_dir, "resnet_init.npz")))
+    feed = dict(np.load(os.path.join(run_dir, "resnet_feed.npz")))
+    main, startup, model = build_resnet(learning_rate=RESNET_PARITY_LR)
+    run("resnet", main, model, arrays, feed)
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    pt.parallel.shutdown_distributed()
+    print("DONE", flush=True)
+    return 0
+
+
+def _dp_one_process(dev, card):
+    """6w (a): trainer 0 of 1 through init_distributed (NCCL), the
+    compiled program on a one-rank mesh against plain Executor.run, bit
+    for bit (fetches, state, step 1's gradients); returns (result,
+    arrays, feed, the plain run's parameters and step-1 gradients, the
+    compiled run's kernel counts)."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+
+    place = pt.CUDAPlace(0)
+    pt.parallel.init_distributed(trainer_id=0, num_trainers=1,
+                                 coordinator=f"127.0.0.1:{_free_port()}",
+                                 health=False, place=place)
+    backend = dist.get_backend()
+    # NCCL on the card (gloo only where the place is the CPU)
+    if backend != ("gloo" if isinstance(place, pt.CPUPlace) else "nccl"):
+        raise AssertionError(f"6w (a) ran on {backend}")
+    main, startup, model = build_training(dropout=0.0)
+    init = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=init)
+    arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+              if isinstance(v, torch.Tensor)}
+    feed = _dp_feed()
+    runs = {}
+    for label in ("plain", "compiled"):
+        main, startup, model = build_training(dropout=0.0)
+        scope = _scope_of(main, arrays, dev)
+        target = main
+        if label == "compiled":
+            target = pt.CompiledProgram(main).with_data_parallel(
+                loss_name=model["loss"].name,
+                mesh=pt.parallel.make_mesh({"dp": 1}))
+        kernels.reset_counts()
+        losses, ms, grads = _dp_steps(exe, target, feed, model["loss"],
+                                      scope, grads=_grad_names(main))
+        runs[label] = (losses, ms, _persistables(main, scope),
+                       kernels.counts(), grads)
+    (pl, pms, pstate, _, pgrads), (cl, cms, cstate, counts, cgrads) = (
+        runs["plain"], runs["compiled"])
+    differ = sorted(n for n in pstate if not torch.equal(pstate[n],
+                                                         cstate[n]))
+    differ += sorted(n for n in pgrads if not torch.equal(pgrads[n],
+                                                          cgrads[n]))
+    log(f"  (a) {backend}, one rank: losses plain {pl} compiled {cl}; "
+        f"step ms plain {[round(x, 3) for x in pms]} compiled "
+        f"{[round(x, 3) for x in cms]} ({card})")
+    if pl != cl or differ:
+        raise AssertionError(f"6w (a): compiled one-rank run not bit for "
+                             f"bit the plain run (losses {pl} vs {cl}, "
+                             f"{len(differ)} state vars or step-1 "
+                             f"gradients differ: {differ[:4]})")
+    want = _want_launches(main, DP_STEPS)
+    if counts["launches"] != want or max(counts["plain"].values()):
+        raise AssertionError(f"6w (a): launches {counts}, want {want}")
+    pt.parallel.shutdown_distributed()
+    names = {p.name for p in main.all_parameters()}
+    params = {n: v.cpu().numpy() for n, v in pstate.items() if n in names}
+    grads = {n: v.cpu().numpy() for n, v in pgrads.items()}
+    return ({"backend": backend, "losses": pl, "step_ms_plain": pms,
+             "step_ms_compiled": cms, "bit_equal": True}, arrays, feed,
+            params, grads, counts)
+
+
+def _resnet_global(dev, run_dir):
+    """6w (c)'s control: 7e's ResNet-50 on the global batch in one
+    process on the card; its start and feed saved for the ranks."""
+    import paddle_tpu_torch as pt
+
+    main, startup, model = build_resnet(learning_rate=RESNET_PARITY_LR)
+    init = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=init)
+    arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+              if isinstance(v, torch.Tensor)}
+    feed = resnet_batch(RESNET_PARITY_BATCH, seed=3)
+    np.savez(os.path.join(run_dir, "resnet_init.npz"), **arrays)
+    np.savez(os.path.join(run_dir, "resnet_feed.npz"), **feed)
+    scope = _scope_of(main, arrays, dev)
+    losses, _, _ = _dp_steps(exe, main, feed, model["loss"], scope)
+    stats = {n: v.cpu().numpy() for n, v in _persistables(main,
+                                                          scope).items()
+             if n.endswith((".mean", ".var"))}
+    return losses, stats
+
+
+def _run_dp_workers(run_dir):
+    """The DP_RANKS worker processes side by side; their results.  A
+    rank that fails or outlives DP_WORKER_TIMEOUT_S fails the phase and
+    every worker is stopped."""
+    port = _free_port()
+    logs = [os.path.join(run_dir, f"rank{r}.log") for r in range(DP_RANKS)]
+    procs = []
+    # each rank's output to a file: a pipe nobody drains could block a
+    # rank while the other waits for it in a collective
+    for r, path in enumerate(logs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(_dp_worker_cmd(run_dir, r, port),
+                                          stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"6w: a rank outlived "
+                             f"{DP_WORKER_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path, errors="replace") as f:
+            out = f.read()
+        if p.returncode != 0 or "DONE" not in out:
+            raise AssertionError(f"6w rank {r} failed (rc {p.returncode}):"
+                                 f" {out[-3000:]}")
+    res = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_data_parallel(dev, card):
+    """6w (see the module docstring)."""
+    log(f"phase 6w: data parallelism, the bench Transformer (dropout 0) "
+        f"at global batch {DP_BATCH}, {DP_STEPS} Adam steps; {card}")
+    run_dir = os.path.join(OUT_DIR, "dp")
+    os.makedirs(run_dir, exist_ok=True)
+    one, arrays, feed, want_params, want_grads, counts_a = _dp_one_process(
+        dev, card)
+    np.savez(os.path.join(run_dir, "transformer_init.npz"), **arrays)
+    np.savez(os.path.join(run_dir, "transformer_feed.npz"), **feed)
+    np.savez(os.path.join(run_dir, "transformer_grad.npz"), **want_grads)
+    del want_grads
+    resnet_losses, resnet_stats = _resnet_global(dev, run_dir)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_dp_workers(run_dir)
+    log(f"  (b)+(c) {DP_RANKS} ranks, {DP_LABEL}: "
+        f"{time.perf_counter() - t0:.1f} s with their start")
+    lr_sum = sum(_noam_lr(t) for t in range(1, DP_STEPS + 1))
+    bound = 4 * lr_sum + 1e-6
+    launches = dict(counts_a["launches"])
+    summary = {"one_process": one, "label": DP_LABEL, "card": card,
+               "modes": {}}
+    for label in [m or "default" for m in DP_MODES] + ["resnet"]:
+        runs = [r["modes"][label] for r in ranks]
+        params = [dict(np.load(os.path.join(run_dir,
+                                            f"rank{r}_{label}.npz")))
+                  for r in range(DP_RANKS)]
+        if any(x["losses"] != runs[0]["losses"] for x in runs) or any(
+                not np.array_equal(p[n], params[0][n]) for p in params[1:]
+                for n in params[0]):
+            raise AssertionError(f"6w {label}: the ranks differ")
+        for r, x in enumerate(runs):
+            c = x["counts"]
+            if (c["launches"] != x["want"] or max(c["plain"].values())
+                    or max(c["composed"].values())):
+                raise AssertionError(f"6w {label} rank {r}: launches {c},"
+                                     f" want {x['want']}")
+            for k, v in c["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        losses = runs[0]["losses"]
+        entry = {"losses": losses,
+                 "step_ms": {r: x["step_ms"] for r, x in enumerate(runs)},
+                 "exchange_ms": {r: x["exchange_ms"]
+                                 for r, x in enumerate(runs)}}
+        if label == "resnet":
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, resnet_losses))
+            stats_err = {}
+            for suffix in (".mean", ".var"):
+                names = [n for n in resnet_stats if n.endswith(suffix)]
+                scale = max(np.abs(resnet_stats[n]).max() for n in names)
+                stats_err[suffix] = max(float(np.abs(
+                    params[0][n] - resnet_stats[n]).max())
+                    for n in names) / float(scale)
+            entry.update(one_process_losses=resnet_losses,
+                         loss_max_rel_err=loss_err,
+                         moving_stats_max_err=stats_err)
+            if not (loss_err <= TOL_RESNET_LOSS
+                    and max(stats_err.values()) <= TOL_RESNET_STATS):
+                raise AssertionError(f"6w (c): ResNet dp=2 against the "
+                                     f"global batch: {entry}")
+        else:
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, one["losses"]))
+            p_err = max(float(np.abs(params[0][n] - want_params[n]).max())
+                        for n in want_params if n in params[0])
+            g_errs = [x["grad_rel_err"] for x in runs]
+            g_tol = TOL_DP_GRAD_INT8 if label == "int8" else TOL_DP_GRAD
+            entry.update(loss_max_rel_err=loss_err, param_max_abs_err=p_err,
+                         param_bound=bound, grad_rel_err=g_errs,
+                         grad_tol=g_tol,
+                         sync_differ={r: x["sync_differ"]
+                                      for r, x in enumerate(runs)})
+            log(f"  {label}: step-1 gradients against (a) rel L2 "
+                f"{[f'{e:.3e}' for e in g_errs]} (tol {g_tol:g}); against "
+                f"the plain mean of the ranks' local gradients: "
+                f"{[len(x['sync_differ']) for x in runs]} of "
+                f"{len(want_params)} differ")
+            if any(x["sync_differ"] for x in runs) or max(g_errs) > g_tol:
+                raise AssertionError(f"6w (b) {label}: the synchronized "
+                                     f"gradients: {entry}")
+            if label != "int8" and not (loss_err <= TOL_DP_LOSS
+                                        and p_err <= bound):
+                raise AssertionError(f"6w (b) {label} against (a): losses "
+                                     f"{loss_err}, params {p_err}")
+        summary["modes"][label] = entry
+        log(f"  {label}: losses {losses} (rel err {loss_err:.3e}); "
+            f"step ms rank 0 {[round(x, 1) for x in entry['step_ms'][0]]}"
+            f", rank 1 {[round(x, 1) for x in entry['step_ms'][1]]}; "
+            f"exchange ms rank 0 "
+            f"{[round(x, 1) for x in entry['exchange_ms'][0]]}, rank 1 "
+            f"{[round(x, 1) for x in entry['exchange_ms'][1]]} ({DP_LABEL};"
+            f" {card})")
+    bf16 = summary["modes"]["bf16"]["losses"]
+    int8 = summary["modes"]["int8"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(int8, bf16))
+    summary["int8_vs_bf16_max_rel"] = rel
+    log(f"  int8 against bf16: max rel {rel:.3e} (tol {TOL_DP_INT8:g}); "
+        f"descending {int8[-1] < int8[0]}")
+    if not (rel <= TOL_DP_INT8 and int8[-1] < int8[0]):
+        raise AssertionError(f"6w int8: {int8} against bf16 {bf16}")
+    summary["launches"] = launches
+    return summary
+
+
+def phase_6w_alone() -> int:
+    """`chip_smoke.py --phase 6w`: the kernels built and phase 6w alone;
+    its summary to OUT_DIR/data_parallel.json, the card line and
+    "6w ok" last."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    card = card_line()
+    _set_matmul_flags()
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    res = phase_data_parallel(torch.device("cuda", 0), card)
+    log(f"  [6w: {time.perf_counter() - t0:.1f} s]")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "data_parallel.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    print(card)
+    print("6w ok")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -7855,6 +8369,10 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--trainer-worker"]:
         return trainer_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2:])
+    if sys.argv[1:] == ["--phase", "6w"]:
+        return phase_6w_alone()
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -7980,6 +8498,7 @@ def main() -> int:
     fleet = timed("4e", phase_fleet, dev, card)
     serving_engine = timed("4f", phase_serving_engine, dev, card)
     disagg = timed("4g", phase_disagg, dev, card)
+    data_parallel = timed("6w", phase_data_parallel, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -8020,12 +8539,14 @@ def main() -> int:
     # 6v's Faster R-CNN (counted all the same); the paged kernel and the
     # flash forward on 4e's fleet replicas, none on 4f's ResNet-50
     # Predictor and ServingEngine; the flash forward on 4g's prefill
-    # workers and the paged kernel on its decode workers
+    # workers and the paged kernel on its decode workers; the flash
+    # kernels on 6w's one-rank compiled run and on both ranks of each of
+    # its modes
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
              train_recompute, train_optimizers, control_flow, moe, qat_int8,
-             detection, fleet, serving_engine, disagg)
+             detection, fleet, serving_engine, disagg, data_parallel)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -8085,6 +8606,7 @@ def main() -> int:
                    "fleet": fleet,
                    "serving_engine": serving_engine,
                    "disagg": disagg,
+                   "data_parallel": data_parallel,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

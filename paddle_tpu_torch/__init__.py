@@ -66,6 +66,7 @@ from . import nets  # noqa: E402,F401
 from . import observe  # noqa: E402,F401
 from . import ops as _ops  # noqa: E402,F401  (registers all op impls)
 from . import optimizer  # noqa: E402,F401
+from . import parallel  # noqa: E402,F401
 from . import quantize as quantize_module  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import resilience  # noqa: E402,F401
@@ -82,6 +83,9 @@ from .core.program import (Block, Operator, Parameter,  # noqa: E402,F401
 from .inference import (AnalysisConfig, Predictor,  # noqa: E402,F401
                         create_paddle_predictor)
 from .param_attr import ParamAttr  # noqa: E402,F401
+from .parallel.compiler import (BuildStrategy,  # noqa: E402,F401
+                                CompiledProgram, ExecutionStrategy)
+from .parallel.parallel_executor import ParallelExecutor  # noqa: E402,F401
 from .quantize import QuantizeTranspiler  # noqa: E402,F401
 
 __version__ = "0.1.0"

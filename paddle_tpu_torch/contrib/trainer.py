@@ -38,11 +38,15 @@ the reference's, line for line; the port's differences:
   `start_metrics_server()` and `enable_alerts()` (observe.
   trainer_rule_pack; with `flight_dir`, a FlightRecorder that also
   bundles on the step watchdog's hang verdict).  All host-side.
-- **Left out**, each raising NotImplementedError under its ROADMAP
-  queue A step: `mesh=` and `build_strategy=` (step 10); `autopilot=`
-  (step 11).  The gang health plane is not ported (step 11): the loop
-  has no heartbeat and no barrier_wait phase, and `goodput()` reports
-  no straggler skew.
+- **Data parallel**: `mesh=` compiles the train program over a
+  parallel.Mesh with `build_strategy=` (ROADMAP A step 10a); a resume
+  loads the sharded checkpoint onto that mesh.
+- **Left out**, raising NotImplementedError under its ROADMAP queue A
+  step: `autopilot=` (step 11).  The gang health plane is not ported
+  (step 11): the loop has no heartbeat and no barrier_wait phase, and
+  `goodput()` reports no straggler skew.  On a mesh rank 0 alone
+  clears a torn checkpoint directory, marks a save complete and
+  rotates; every rank writes its shards.
 """
 
 from __future__ import annotations
@@ -214,13 +218,14 @@ class Trainer:
         device — a non-finite or signature-drifted batch is dropped
         with a `feed_quarantined` event + counter (feed_stats).
 
-        mesh, build_strategy (ROADMAP A step 10) and autopilot (step
-        11) raise NotImplementedError."""
-        if mesh is not None or build_strategy is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=, build_strategy=) (data-parallel training "
-                "over a device mesh) is not ported yet: ROADMAP queue A "
-                "step 10 (parallel)")
+        mesh: a parallel.Mesh (parallel.make_mesh) — the train program is
+        compiled over it (CompiledProgram.with_data_parallel; each rank
+        runs its slice of every batch, see parallel/data_parallel.py)
+        and a resume loads the sharded checkpoint onto it.
+        build_strategy: a parallel.BuildStrategy for that compile
+        (grad_sync, Reduce/ZeRO, accumulation); without a mesh it is
+        ignored, as in the reference.  autopilot (ROADMAP A step 11)
+        raises NotImplementedError."""
         if autopilot:
             raise NotImplementedError(
                 "Trainer(autopilot=) (the divergence autopilot, "
@@ -251,6 +256,16 @@ class Trainer:
             # build whose counters drifted would silently bind saved
             # arrays to the wrong variables; the comparison makes it loud
             self._uname_ids = dict(unique_name.generator.ids)
+        self.mesh = mesh
+        if mesh is not None:
+            # data-parallel training: every exe.run of the train program
+            # routes through the compiled program (Executor.run consults
+            # _compiled_wrapper); a resume loads onto its mesh
+            from ..parallel.compiler import CompiledProgram
+
+            CompiledProgram(self.train_program).with_data_parallel(
+                loss_name=self.train_outputs[0].name,
+                build_strategy=build_strategy, mesh=mesh)
         self._ckpt_writer = None       # lazy SnapshotWriter (async_save)
         self._pending_save = None      # in-flight resilience.PendingSave
         self._step_watchdog = None     # DispatchWatchdog (step_deadline_s)
@@ -418,12 +433,20 @@ class Trainer:
                 # flight waits for it — two saves never interleave
                 # their files
                 self._await_pending(surface=True)
-            if os.path.isdir(path) and not os.path.exists(
+            rank, ranks = fluid_io._process()
+            if rank == 0 and os.path.isdir(path) and not os.path.exists(
                     os.path.join(path, "__trainer_state__.json")):
                 # leftover of a save that died mid-write (torn): clear
                 # it so stale shard files cannot mix with the fresh save
+                # (rank 0 alone: on a mesh every rank writes here)
                 shutil.rmtree(path, ignore_errors=True)
-            os.makedirs(path, exist_ok=True)
+            if rank == 0:
+                os.makedirs(path, exist_ok=True)
+            if ranks > 1:
+                # every rank writes its shards into the directory rank 0
+                # cleared and made
+                fluid_io._barrier("trainer:ckpt_dir")
+                os.makedirs(path, exist_ok=True)
             # verified-good marking (the _rotate pin): computed on the
             # training thread at snapshot time, so the verdict
             # describes exactly the state being saved
@@ -444,12 +467,15 @@ class Trainer:
                 # anywhere earlier leaves a torn — never a
                 # half-resumable — directory.  Host data only: on the
                 # async path this runs on the writer thread.
-                tmp = os.path.join(path, "__trainer_state__.json.tmp")
-                with open(tmp, "w") as f:
-                    json.dump(trainer_state, f)
-                os.replace(tmp,
-                           os.path.join(path, "__trainer_state__.json"))
-                self._rotate()
+                if rank == 0:
+                    # on a mesh rank 0 alone marks the serial and rotates
+                    # (job.write's barriers saw every rank's shards)
+                    tmp = os.path.join(path, "__trainer_state__.json.tmp")
+                    with open(tmp, "w") as f:
+                        json.dump(trainer_state, f)
+                    os.replace(tmp,
+                               os.path.join(path, "__trainer_state__.json"))
+                    self._rotate()
                 led.note_background("ckpt_write",
                                     (job.write_ms or 0.0) / 1000.0)
                 self.ckpt_stats["saves"] += 1
@@ -556,8 +582,12 @@ class Trainer:
         with scope_guard(self.scope):
             if os.path.exists(os.path.join(path,
                                            fluid_io.SHARD_MANIFEST)):
-                fluid_io.load_sharded(self.exe, path,
-                                      main_program=self.train_program)
+                # onto the mesh the program was compiled over, when it was
+                wrapper = getattr(self.train_program,
+                                  "_compiled_wrapper", None)
+                fluid_io.load_sharded(
+                    self.exe, path, main_program=self.train_program,
+                    mesh=wrapper._mesh if wrapper is not None else None)
             else:
                 # checkpoint from the pre-sharded combined format
                 fluid_io.load_persistables(self.exe, path,

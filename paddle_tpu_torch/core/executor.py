@@ -38,8 +38,12 @@ preserve_rng_state=False)`: no op draws from the global generator, and
 each op's generator is re-seeded from (seed, op index), so the
 recomputed dropout masks repeat by construction.  Pipeline tags
 (`pipeline_scope`) are inert on one device, as on a reference mesh
-without a `pp` axis (:124-134): the ops run in order.  Explicit
-gradient sync raises NotImplementedError naming its ROADMAP step.
+without a `pp` axis (:124-134): the ops run in order.  A program
+compiled over a mesh (`parallel.CompiledProgram`) runs its step through
+the compiled program's `parallel.data_parallel.DataParallelRunner` (the
+`dp` argument below): this rank's slice of the feeds, the cross-rank
+forms of the ops that reduce over the batch, the gradient exchange, and
+the update ops on ZeRO slices.
 
 The in-step pieces run in the reference's order
 (paddle_tpu/core/executor.py:431-617), each only when the program opted
@@ -195,24 +199,38 @@ def place_device(place) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
-            program=None, device=None, row_block=None):
+            program=None, device=None, row_block=None, dp=None):
     """Run a straight-line op list over `env` (name → tensor), in order
     — the executor hot loop (executor.cc:448).  `seed` is the run's RNG
     seed material (see OpContext.rng), None when no op may draw.
     `device` None means CUDAPlace(0) (`place_device`).  The program's
     bf16 policy (`program._amp_lists`, amp.py), when it has one, casts
-    each op's inputs at dispatch.  `row_block`: see OpContext."""
+    each op's inputs at dispatch.  `row_block`: see OpContext.  `dp`: a
+    data-parallel run's DataParallelRunner (the cross-rank ops, the
+    update ops on ZeRO slices), None off a mesh."""
     device = _run_device(device)
     amp_lists = getattr(program, "_amp_lists", None)
     for i, op in enumerate(ops):
+        ref = dp.sliced_ref(op.desc) if dp is not None else None
+        if ref is not None:
+            def run_one(o, e, group, _i=start_index + i):
+                _run_one_op(o, e, seed, _i, program=program, device=device,
+                            amp_lists=amp_lists, row_block=row_block,
+                            cross_rank=group)
+
+            dp.run_update_op(op, env, ref, run_one)
+            continue
         _run_one_op(op, env, seed, start_index + i, program=program,
                     device=device, amp_lists=amp_lists,
-                    row_block=row_block)
+                    row_block=row_block,
+                    cross_rank=(dp.cross_rank_for(op.desc)
+                                if dp is not None else None))
     return env
 
 
 def _run_one_op(op, env, seed, op_index, program=None, device=None,
-                sparse_rows=None, amp_lists=None, row_block=None):
+                sparse_rows=None, amp_lists=None, row_block=None,
+                cross_rank=None):
     desc = op.desc
     if is_macro_op(desc.type):
         # control flow (ops/control_flow.py): the impl runs its
@@ -223,7 +241,8 @@ def _run_one_op(op, env, seed, op_index, program=None, device=None,
         try:
             ctx = OpContext(seed, op_index=op_index, program=program,
                             device=device, amp_lists=amp_lists,
-                            sparse_rows=sparse_rows, row_block=row_block)
+                            sparse_rows=sparse_rows, row_block=row_block,
+                            cross_rank=cross_rank)
             get_macro_op_impl(desc.type)(ctx, env, desc)
         except Exception as exc:
             _reraise_with_op_context(exc, desc, op_index)
@@ -242,7 +261,8 @@ def _run_one_op(op, env, seed, op_index, program=None, device=None,
             ins = cast_ins_for_op(desc.type, ins, amp_lists)
         ctx = OpContext(seed, op_index=op_index, program=program,
                         device=device, amp_lists=amp_lists,
-                        sparse_rows=sparse_rows, row_block=row_block)
+                        sparse_rows=sparse_rows, row_block=row_block,
+                        cross_rank=cross_rank)
         outs = impl(ctx, ins, desc.attrs)
     except Exception as exc:
         _reraise_with_op_context(exc, desc, op_index)
@@ -330,7 +350,7 @@ def _run_device(device) -> torch.device:
 
 def interpret_program(program: Program, env: Dict[str, Any], seed,
                       fetch_names=(), device=None, row_block=None,
-                      accum_steps: int = 1, feed_names=()):
+                      accum_steps: int = 1, feed_names=(), dp=None):
     """Run the program over env: a forward program pruned to what the
     fetches and persistable state need; a training program whole
     (forward, gradients, update ops; training programs are never pruned,
@@ -338,23 +358,19 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
     `row_block` (forward programs): each row computed as in a run of
     `row_block` rows (OpContext).  `accum_steps` K > 1 (training
     programs): the names of `feed_names` split into K micro-batches
-    whose gradients are averaged before the update ops run once."""
+    whose gradients are averaged before the update ops run once.  `dp`:
+    the DataParallelRunner of a data-parallel run (module docstring)."""
     device = _run_device(device)
     if program._backward_info is None:
-        return run_ops(_pruned(program, fetch_names), env, seed,
-                       program=program, device=device, row_block=row_block)
+        ops = _pruned(program, fetch_names)
+        if dp is not None:
+            listed = list(enumerate(ops))
+            dp.classify(program, listed, env, feed_names)
+            dp.check_plan(program, listed, set(fetch_names))
+        return run_ops(ops, env, seed, program=program, device=device,
+                       row_block=row_block, dp=dp)
     return _train_step(program, env, seed, device, fetch_names,
-                       accum_steps, feed_names)
-
-
-def _check_trainable(program: Program):
-    """Raise for what the reference's training step does beyond the
-    port's single device (naming its ROADMAP step)."""
-    if getattr(program, "_grad_sync", None):
-        raise NotImplementedError(
-            "training with explicit gradient sync is not ported yet: "
-            "ROADMAP A step 10 (parallel: CompiledProgram and the "
-            "gradient exchange)")
+                       accum_steps, feed_names, dp=dp)
 
 
 def _live_forward(program: Program, fetch_names):
@@ -420,7 +436,7 @@ def _forward_keep(program: Program, fetch_names):
 
 
 def _run_forward(fwd_ops, live, env, seed, device, program, rows,
-                 amp_lists, keep):
+                 amp_lists, keep, dp=None):
     """Run the live forward ops over env, each under its program index.
     With grad enabled, each maximal run of consecutive live ops sharing
     a `__recompute__` tag (two ops or more: a 1-op run saves nothing)
@@ -431,11 +447,14 @@ def _run_forward(fwd_ops, live, env, seed, device, program, rows,
     joins a segment (the reference's run_ops, :200-204)."""
     tags = [None if is_macro_op(fwd_ops[i].desc.type)
             else fwd_ops[i].desc.attrs.get("__recompute__") for i in live]
+    def cross(op):
+        return dp.cross_rank_for(op.desc) if dp is not None else None
+
     if not torch.is_grad_enabled() or not any(t is not None for t in tags):
         for i in live:
             _run_one_op(fwd_ops[i], env, seed, i, program=program,
                         device=device, sparse_rows=rows,
-                        amp_lists=amp_lists)
+                        amp_lists=amp_lists, cross_rank=cross(fwd_ops[i]))
         return env
     n = len(live)
     ends = {j for j in range(1, n + 1) if tags[j - 1] is not None
@@ -455,16 +474,18 @@ def _run_forward(fwd_ops, live, env, seed, device, program, rows,
         if q - p >= 2:
             _run_segment([(i, fwd_ops[i]) for i in live[p:q]], env, seed,
                          device, program, rows, amp_lists,
-                         suffix_reads[q])
+                         suffix_reads[q], cross)
         else:
             _run_one_op(fwd_ops[live[p]], env, seed, live[p],
                         program=program, device=device, sparse_rows=rows,
-                        amp_lists=amp_lists)
+                        amp_lists=amp_lists, cross_rank=cross(
+                            fwd_ops[live[p]]))
         p = q
     return env
 
 
-def _run_segment(seg, env, seed, device, program, rows, amp_lists, keep):
+def _run_segment(seg, env, seed, device, program, rows, amp_lists, keep,
+                 cross=lambda op: None):
     """One recompute segment under `torch.utils.checkpoint` (the
     reference's `_run_checkpointed_segment`, :228-278): the tensors it
     reads enter as explicit arguments, other env entries are closed
@@ -497,7 +518,8 @@ def _run_segment(seg, env, seed, device, program, rows, amp_lists, keep):
             local[NUMERICS_BITS_VAR] = local[NUMERICS_BITS_VAR].clone()
         for i, op in seg:
             _run_one_op(op, local, seed, i, program=program, device=device,
-                        sparse_rows=rows, amp_lists=amp_lists)
+                        sparse_rows=rows, amp_lists=amp_lists,
+                        cross_rank=cross(op))
         return tuple(local[n] for n in out_names)
 
     # no early stop: torch ends an early-stopped recompute by raising,
@@ -523,7 +545,7 @@ def _scalar_loss(fenv, loss_name):
 
 
 def _forward_backward(program, env, seed, device, fwd_ops, live, dense,
-                      lookups, scale, keep):
+                      lookups, scale, keep, dp=None):
     """One forward over `env` with the dense parameters `dense` as fresh
     autograd leaves (and, for each SparseGrad lookup, its gathered
     rows), then `torch.autograd.grad` of the (scaled) loss.  Returns
@@ -540,7 +562,7 @@ def _forward_backward(program, env, seed, device, fwd_ops, live, dense,
         fenv = dict(env)
         fenv.update(zip(dense, leaves))
         _run_forward(fwd_ops, live, fenv, seed, device, program, rows,
-                     getattr(program, "_amp_lists", None), keep)
+                     getattr(program, "_amp_lists", None), keep, dp)
         loss = _scalar_loss(fenv, loss_name)
         if scale is not None:
             # dynamic loss scaling wraps the loss BEFORE autodiff
@@ -566,22 +588,39 @@ def _detached(v):
 
 
 def _train_step(program: Program, env: Dict[str, Any], seed, device,
-                fetch_names=(), accum_steps: int = 1, feed_names=()):
+                fetch_names=(), accum_steps: int = 1, feed_names=(),
+                dp=None):
     """The training step (see the module docstring).  The forward runs
     only the ops `_live_forward` keeps, each under its program index, so
     pruning never shifts an op's random stream or its numerics bit.  The
     autograd leaves are the dense parameters and, for each lookup on the
     SparseGrad path, the rows it gathers; a table's gradient is then a
     SparseGrad of its lookups' ids and row gradients.  With
-    `accum_steps` > 1 the gradients are `_accumulate_gradients`'."""
+    `accum_steps` > 1 the gradients are `_accumulate_gradients`'.  On a
+    mesh (`dp`) this rank's forward and backward run on its slice and
+    `dp.exchange` synchronizes the gradients before the update."""
     info = program._backward_info
     ops = program.global_block().ops
     k = info["index"]
     fwd_ops, rest_ops = ops[:k], ops[k:]
     params = [p for p in info["params"] if p in env]
-    _check_trainable(program)
     live = _live_forward(program, fetch_names)
     keep = _forward_keep(program, fetch_names)
+    fwd_seed = seed
+    if dp is not None and dp.active:
+        if dp.explicit and accum_steps > 1:
+            raise ValueError(
+                "grad_sync cannot compose with gradient accumulation "
+                "yet: the explicit exchange would run per micro-batch "
+                "(K quantized all-reduces instead of one).  Use "
+                "accumulation with the default sync, or grad_sync "
+                "without accumulation.")
+        listed = [(i, fwd_ops[i]) for i in live]
+        dp.classify(program, listed, env, feed_names)
+        dp.check_plan(program, listed, keep)
+        fwd_seed = dp.fold_seed(seed)
+    elif dp is not None:
+        dp.plan = None
     # accumulation takes the dense path for every table (the
     # reference's :551-552: SparseGrads do not sum across micro-batches)
     lookups = (_find_sparse_lookups(fwd_ops, live, set(params), env)
@@ -603,12 +642,12 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
         scale = tel["loss_scale"].to(torch.float32)
     if accum_steps > 1:
         loss, grads, env = _accumulate_gradients(
-            program, env, seed, device, fwd_ops, live, dense, scale, keep,
-            accum_steps, feed_names, fetch_names)
+            program, env, fwd_seed, device, fwd_ops, live, dense, scale,
+            keep, accum_steps, feed_names, fetch_names, dp)
     else:
         loss, grads, row_grads, env = _forward_backward(
-            program, env, seed, device, fwd_ops, live, dense, lookups,
-            scale, keep)
+            program, env, fwd_seed, device, fwd_ops, live, dense, lookups,
+            scale, keep, dp)
         per_table: Dict[str, list] = {}
         for (i, tbl, ids_n, _), g in zip(lookups, row_grads):
             per_table.setdefault(tbl, []).append(
@@ -618,14 +657,19 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
                                     torch.cat([g for _, g in pairs]),
                                     env[tbl].shape)
     with torch.no_grad():
+        if dp is not None and dp.active:
+            written = {n for i in live
+                       for n in fwd_ops[i].desc.output_names()}
+            loss, grads, env = dp.exchange(loss, grads, env,
+                                           written & keep)
         return _update(program, env, seed, device, rest_ops, k, loss,
                        grads, trainable, guard_cfg, scale, num_on,
-                       accumulated=accum_steps > 1)
+                       accumulated=accum_steps > 1, dp=dp)
 
 
 def _accumulate_gradients(program, env, seed, device, fwd_ops, live, dense,
                           scale, keep, accum_steps, feed_names,
-                          fetch_names):
+                          fetch_names, dp=None):
     """K-micro-batch gradient accumulation (the reference's
     `_accumulate_gradients`, paddle_tpu/core/executor.py:941-1063), run
     eagerly: the fed names split into K micro-batches along dim 0; micro-
@@ -673,7 +717,6 @@ def _accumulate_gradients(program, env, seed, device, fwd_ops, live, dense,
     carried = [n for n in persist_written if n in env]
     computed = [n for n in persist_written if n not in env]
     micro_b = next(iter(feeds.values()))[0].shape[0]
-    base, run = seed
     persist = {n: env[n] for n in carried}
     gsum: Dict[str, torch.Tensor] = {}
     losses, fetched, last = [], {n: [] for n in fetch_fwd}, {}
@@ -682,8 +725,8 @@ def _accumulate_gradients(program, env, seed, device, fwd_ops, live, dense,
         e_in.update(persist)
         e_in.update({n: chunks[idx] for n, chunks in feeds.items()})
         loss, grads, _, e_after = _forward_backward(
-            program, e_in, (base, run, MICRO_SEED_BASE + idx), device,
-            fwd_ops, live, dense, [], scale, keep)
+            program, e_in, tuple(seed) + (MICRO_SEED_BASE + idx,), device,
+            fwd_ops, live, dense, [], scale, keep, dp)
         for p, g in grads.items():
             g32 = g.to(torch.float32)
             gsum[p] = g32 if p not in gsum else gsum[p] + g32
@@ -725,7 +768,8 @@ def _merge_micro(vs, micro_b):
 
 
 def _update(program, env, seed, device, rest_ops, k, loss, grads,
-            trainable, guard_cfg, scale, num_on, accumulated=False):
+            trainable, guard_cfg, scale, num_on, accumulated=False,
+            dp=None):
     """After the gradients, in the reference's order
     (paddle_tpu/core/executor.py:538-617): unscale, finite check and
     snapshot, the update ops, the guard's select, then telemetry, the
@@ -754,7 +798,12 @@ def _update(program, env, seed, device, rest_ops, k, loss, grads,
         env[grad_var_name(p)] = g
     # rest_ops[0] is the backward_marker itself
     run_ops(rest_ops[1:], env, seed, start_index=k + 1, program=program,
-            device=device)
+            device=device, dp=dp)
+    if (dp is not None and dp.local_state and dp.group is not None
+            and NUMERICS_BITS_VAR in env):
+        # the update ops' bits were taken on this rank's slices
+        env[NUMERICS_BITS_VAR] = _obs_num.or_across_axis(
+            env[NUMERICS_BITS_VAR], dp.group)
     if finite is not None:
         # a non-finite step becomes a full state no-op: every value the
         # update ops wrote selects back to its pre-update snapshot
@@ -839,21 +888,46 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
+        # `program` may be a CompiledProgram (passed directly, fluid
+        # style) or a Program a CompiledProgram wrapped
+        compiled = program if (hasattr(program, "_program")
+                               and hasattr(program, "run")) \
+            else getattr(program, "_compiled_wrapper", None)
+        if compiled is not None:
+            return compiled.run(self, dict(feed or {}), fetch_names, scope,
+                                return_numpy=return_numpy,
+                                iterations=int(iterations),
+                                accumulation_steps=int(accumulation_steps))
+        return self._run_program(program, feed, fetch_names, scope,
+                                 return_numpy, int(iterations),
+                                 int(accumulation_steps))
+
+    def _run_program(self, program: Program, feed, fetch_names, scope,
+                     return_numpy=True, iterations: int = 1,
+                     accum_steps: int = 1, dp=None):
+        """`run` after the CompiledProgram dispatch; `dp` is a
+        data-parallel run's DataParallelRunner."""
         block = program.global_block()
         feeds = {name: self._to_tensor(value, block, name)
                  for name, value in (feed or {}).items()}
+        if dp is not None:
+            dp.prepare_state(program, scope)
+            feeds = dp.shard_feeds(feeds, accum_steps)
         # one dispatch in runtime_stats, with its host time: on a card
         # the time to enqueue the step's kernels, not the device time
         with dispatch_timer():
-            for _ in range(int(iterations)):
+            for _ in range(iterations):
                 env = self._run_once(program, scope, feeds, fetch_names,
-                                     int(accumulation_steps))
+                                     accum_steps, dp)
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch target(s) {missing} were not computed "
                            f"by the program")
         # a SparseGrad fetch is the dense gradient it stands for
         fetches = [densify(env[n]) for n in fetch_names]
+        if dp is not None:
+            fetches = [dp.fetch_value(n, f)
+                       for n, f in zip(fetch_names, fetches)]
         if return_numpy:
             # numpy has no bf16: a bf16 fetch (an AMP program's
             # intermediate) comes back widened, exactly, to float32
@@ -861,7 +935,7 @@ class Executor:
         return fetches
 
     def _run_once(self, program: Program, scope: Scope, feeds,
-                  fetch_names, accum_steps: int = 1):
+                  fetch_names, accum_steps: int = 1, dp=None):
         """One step: the scope's persistable state and the telemetry
         accumulator (seeded as the reference's `_prepare` does,
         paddle_tpu/core/executor.py:1268-1280) in, the program
@@ -873,6 +947,8 @@ class Executor:
         for v in block.vars.values():
             if v.persistable and scope.find_var(v.name) is not None:
                 env[v.name] = scope.find_var(v.name)
+                if dp is not None:
+                    env[v.name] = dp.load_state(v.name, env[v.name])
         tel_var = _obs_metrics.TELEMETRY_VAR
         if getattr(program, "_telemetry_enabled", False):
             tel = scope.find_var(tel_var)
@@ -886,10 +962,11 @@ class Executor:
         env = interpret_program(program, env, (program.random_seed, run),
                                 fetch_names=fetch_names, device=self.device,
                                 accum_steps=accum_steps,
-                                feed_names=tuple(feeds))
+                                feed_names=tuple(feeds), dp=dp)
         for v in block.vars.values():
             if v.persistable and v.name in env:
-                scope.set_var(v.name, env[v.name])
+                scope.set_var(v.name, env[v.name] if dp is None
+                              else dp.store_state(v.name, env[v.name]))
         if tel_var in env:
             scope.set_var(tel_var, env[tel_var])
         return env

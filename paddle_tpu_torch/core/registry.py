@@ -124,12 +124,20 @@ class OpContext:
     its verify run at S*(k+1) rows gives each row the bits of the step
     run at S rows; a disagg decode worker's steps take the prefill
     workers' slot count (serving/decode.py, ROADMAP C8, C15).
+
+    `cross_rank` (None: off) is a `parallel.collectives.DataGroup`, given
+    by a data-parallel step to an op that reduces over the batch dim
+    (its cross-rank branch computes the global value), to `dropout`
+    (which draws the global batch's mask and keeps its rows) and to an
+    update op running on ZeRO slices (`lars_momentum` sums its norms
+    over the slice's group); parallel/data_parallel.py.
     """
 
     def __init__(self, seed=None, op_index: int = 0, is_test: bool = False,
                  program=None, device=None, sparse_rows=None,
-                 amp_lists=None, row_block=None):
+                 amp_lists=None, row_block=None, cross_rank=None):
         self._seed = seed
+        self.cross_rank = cross_rank
         self.op_index = op_index
         self.is_test = is_test
         self.program = program

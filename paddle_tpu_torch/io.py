@@ -13,10 +13,14 @@ other.  Two tiers:
 - save_sharded/load_sharded: `shards_p{proc}.npz` per process, a CRC
   sidecar, and `__shards__.json` mapping each variable to the global
   index of every shard — written LAST, so a save that dies before it is
-  not a checkpoint.  The port is one process on one device: each
-  variable is one full shard.  `load_sharded` still assembles
-  checkpoints the reference wrote from a multi-device mesh (many shards
-  per variable) into one full tensor.
+  not a checkpoint.  On a mesh (parallel/, one process per rank) each
+  rank writes the shards it owns: the slice a ZeRO-sharded DTensor
+  holds, and a replicated value once, by its lowest rank; the writes
+  run under a cross-process barrier on the torch.distributed store with
+  a timeout (`barrier_timeout_s`), so a dead peer ends a save as a
+  CheckpointBarrierTimeoutError naming it, not a hang.  `load_sharded`
+  assembles any checkpoint (either package's, from any mesh) whole, or
+  with `mesh=` each rank's slice of the target mesh's shardings.
 
 bfloat16 without ml_dtypes: numpy has no bfloat16, and the card's
 machine lacks the package that adds one.  A bf16 tensor is stored as
@@ -34,8 +38,9 @@ host by `.cpu()`, and a CPU tensor, whose `.numpy()` would alias the
 live storage, is copied too — so an update that wrote a parameter in
 place after the snapshot could never reach the files.
 
-Left out, raising under its ROADMAP queue A step: loading into a mesh
-(`mesh=`/`sharding_rules=`) and the cross-process barrier (step 10).
+A DTensor in the scope (ZeRO state) is saved by `save_vars` as its
+logical value (`full_tensor()`, a collective: every rank of its mesh
+saves).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from .core.program import Parameter, Program, Variable
 from .ops.common import to_torch_dtype
 from .resilience.errors import (CheckpointCorruptError,
                                 CheckpointFormatError,
+                                CheckpointBarrierTimeoutError,
                                 CheckpointIncompleteError,
                                 CheckpointNotFoundError)
 
@@ -177,7 +183,10 @@ def _reinterpret(piece: np.ndarray, dtype_str: str) -> np.ndarray:
 def _to_host(value) -> np.ndarray:
     """A scope value as the numpy array the reference would store: a
     bf16 tensor as '|V2' records of its bits (see the module
-    docstring)."""
+    docstring); a DTensor as its logical value."""
+    from .parallel.data_parallel import logical_value
+
+    value = logical_value(value)
     if isinstance(value, torch.Tensor):
         t = value.detach()
         if t.dtype == torch.bfloat16:
@@ -190,6 +199,10 @@ def _snapshot(value) -> np.ndarray:
     """`_to_host`, in host memory of its own: the copy of a CPU tensor
     (whose numpy view aliases the live storage) or of a numpy value; a
     card tensor's `.cpu()` already is one."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(value, DTensor):
+        value = value.full_tensor()
     arr = _to_host(value)
     if isinstance(value, torch.Tensor) and value.device.type != "cpu":
         return arr
@@ -320,10 +333,15 @@ class ShardedSaveJob:
     """One prepared sharded save, split into its two phases:
 
     - the BLOCKING snapshot already happened in `prepare_sharded_save`
-      (device→host copy of every shard; the part a training loop must
-      wait for, recorded as `snapshot_ms`),
-    - `write()`: CRC, zip serialization, the manifest written LAST
-      (through `os.replace`), timed as `write_ms`.
+      (device→host copy of every shard this process owns; the part a
+      training loop must wait for, recorded as `snapshot_ms`),
+    - `write()`: CRC, zip serialization, the cross-process barrier, the
+      manifest written LAST by process 0 (through `os.replace`), timed
+      as `write_ms`; safe on a background writer thread.
+
+    A barrier timeout inside `write()` removes this process's own shard
+    files before re-raising, so a dead-peer save leaves neither a
+    manifest nor orphaned shards.
     """
 
     def __init__(self, dirname: str, proc: int, local_arrays: dict,
@@ -341,45 +359,119 @@ class ShardedSaveJob:
 
         t0 = time.perf_counter()
         dirname, proc = self.dirname, self.proc
+        # every process of the group takes part (the barriers are no-ops
+        # for one process): the reference's process-local saves belong
+        # to its gang health plane, ROADMAP A step 11
         # chaos hook: a delay here is a slow write phase
         delaypoint("ckpt:write")
-        np.savez(os.path.join(dirname, f"shards_p{proc}.npz"),
-                 **self.local_arrays)
-        # per-shard CRC32 sidecar (the reference folds every process's
-        # sidecar into the manifest; here there is one)
-        crcs = {k: zlib.crc32(a.tobytes()) & 0xFFFFFFFF
-                for k, a in self.local_arrays.items()}
-        with open(os.path.join(dirname, f"shards_p{proc}.crc.json"),
-                  "w") as f:
-            json.dump(crcs, f)
+        try:
+            np.savez(os.path.join(dirname, f"shards_p{proc}.npz"),
+                     **self.local_arrays)
+            # per-shard CRC32 sidecar: process 0 folds every sidecar into
+            # the manifest after the barrier
+            crcs = {k: zlib.crc32(a.tobytes()) & 0xFFFFFFFF
+                    for k, a in self.local_arrays.items()}
+            with open(os.path.join(dirname, f"shards_p{proc}.crc.json"),
+                      "w") as f:
+                json.dump(crcs, f)
+            _barrier("save_sharded:shards")
+        except CheckpointBarrierTimeoutError:
+            self._cleanup_partial()
+            raise
         # fault-injection point (resilience/chaos.py): the
         # torn-checkpoint tests simulate preemption exactly here —
         # shards on disk, no manifest yet
         failpoint("ckpt:before_manifest")
-        # the manifest is written LAST: its presence marks the
-        # checkpoint complete, so a process preempted mid-save can never
-        # leave a torn-but-loadable checkpoint behind
-        for m in self.meta.values():
-            for sh in m["shards"]:
-                if sh["key"] in crcs:
-                    sh["crc32"] = crcs[sh["key"]]
-        tmp = os.path.join(dirname, SHARD_MANIFEST + ".tmp")
-        with open(tmp, "w") as f:
-            json.dump({"version": PROGRAM_FORMAT_VERSION,
-                       "vars": self.meta}, f, indent=1)
-        os.replace(tmp, os.path.join(dirname, SHARD_MANIFEST))
+        # the manifest is written LAST, once every process's shard file
+        # exists: its presence marks the checkpoint complete, so a
+        # process preempted mid-save can never leave a
+        # torn-but-loadable checkpoint behind
+        if proc == 0:
+            all_crcs: dict = {}
+            for sfile in {sh["file"] for m in self.meta.values()
+                          for sh in m["shards"]}:
+                cpath = os.path.join(
+                    dirname, sfile.replace(".npz", ".crc.json"))
+                try:
+                    with open(cpath) as f:
+                        all_crcs.update(json.load(f))
+                except (OSError, json.JSONDecodeError):
+                    pass  # CRC is best-effort at save; load tolerates gaps
+            for m in self.meta.values():
+                for sh in m["shards"]:
+                    if sh["key"] in all_crcs:
+                        sh["crc32"] = all_crcs[sh["key"]]
+            tmp = os.path.join(dirname, SHARD_MANIFEST + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump({"version": PROGRAM_FORMAT_VERSION,
+                           "vars": self.meta}, f, indent=1)
+            os.replace(tmp, os.path.join(dirname, SHARD_MANIFEST))
+        # a timeout here leaves a complete checkpoint (process 0 renamed
+        # the manifest); nothing is removed
+        _barrier("save_sharded:manifest")
         self.write_ms = (time.perf_counter() - t0) * 1000.0
         return self
+
+    def _cleanup_partial(self) -> None:
+        """Best-effort removal of this process's shard files after a
+        failed shards-barrier (no manifest exists, or will)."""
+        for name in (f"shards_p{self.proc}.npz",
+                     f"shards_p{self.proc}.crc.json"):
+            try:
+                os.remove(os.path.join(self.dirname, name))
+            except OSError:
+                pass
+
+
+def _process():
+    """(this process's rank, the process count) of the default process
+    group, (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _shard_owners(value):
+    """{global index key: owning rank} of a value: a DTensor's slices,
+    each owned by the lowest rank holding it; any other value one whole
+    shard owned by rank 0 (the reference's lowest device id)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    shape = tuple(value.shape)
+    if not isinstance(value, DTensor):
+        return {tuple((0, int(d)) for d in shape): 0}
+    dm = value.device_mesh
+    ranks = dm.mesh.reshape(-1).tolist()
+    grid = tuple(dm.mesh.shape)
+    owners = {}
+    for pos, rank in enumerate(ranks):
+        rank = int(rank)
+        coords = np.unravel_index(pos, grid)
+        bounds = [[0, int(d)] for d in shape]
+        for mdim, pl in enumerate(value.placements):
+            if isinstance(pl, Shard):
+                size = int(shape[pl.dim]) // int(grid[mdim])
+                c = int(coords[mdim])
+                bounds[pl.dim] = [c * size, (c + 1) * size]
+        key = tuple(tuple(b) for b in bounds)
+        if key not in owners or rank < owners[key]:
+            owners[key] = rank
+    return owners
 
 
 def prepare_sharded_save(executor: Executor, dirname: str,
                          main_program: Optional[Program] = None,
                          vars: Optional[Sequence[Variable]] = None
                          ) -> ShardedSaveJob:
-    """The blocking snapshot phase of a sharded save: copy every
-    variable device→host into memory the job owns (one full shard
-    each).  Returns a ShardedSaveJob whose `write()` performs the rest
-    (inline for a synchronous save, or on a background writer)."""
+    """The blocking snapshot phase of a sharded save: resolve shard
+    ownership and copy every shard this process owns device→host into
+    memory the job owns.  Returns a ShardedSaveJob whose `write()`
+    performs the rest (inline for a synchronous save, or on a background
+    writer).  On a mesh every process calls it."""
+    from torch.distributed.tensor import DTensor
+
     from .core.program import default_main_program
 
     t0 = time.perf_counter()
@@ -388,20 +480,31 @@ def prepare_sharded_save(executor: Executor, dirname: str,
         vars = _collect(program, lambda v: v.persistable)
     scope = global_scope()
     os.makedirs(dirname, exist_ok=True)
-    proc = 0
+    proc, _ = _process()
     local_arrays, meta = {}, {}
     for v in vars:
         val = scope.find_var(v.name)
         if val is None:
             raise RuntimeError(f"variable {v.name!r} has no value in scope")
-        arr = _snapshot(val)
-        key = f"{v.name}::0"
-        local_arrays[key] = arr
+        owners = _shard_owners(val)
+        local = val.to_local() if isinstance(val, DTensor) else val
+        shards_meta = []
+        arr = None
+        for si, (key, owner) in enumerate(sorted(owners.items())):
+            shards_meta.append({"index": [list(k) for k in key],
+                                "file": f"shards_p{owner}.npz",
+                                "key": f"{v.name}::{si}"})
+            if owner == proc:
+                arr = _snapshot(local)
+                local_arrays[f"{v.name}::{si}"] = arr
+        if arr is None:
+            # owned elsewhere: the dtype from one element
+            arr = _to_host(local.reshape(-1)[:1]
+                           if isinstance(local, torch.Tensor) else local)
         meta[v.name] = {
-            "shape": list(arr.shape),
-            "dtype": _dtype_str(val, arr),
-            "shards": [{"index": [[0, d] for d in arr.shape],
-                        "file": f"shards_p{proc}.npz", "key": key}],
+            "shape": [int(d) for d in val.shape],
+            "dtype": _dtype_str(local, arr),
+            "shards": shards_meta,
         }
     return ShardedSaveJob(dirname, proc, local_arrays, meta,
                           snapshot_ms=(time.perf_counter() - t0) * 1000.0)
@@ -431,6 +534,82 @@ def save_sharded(executor: Executor, dirname: str,
 
         writer = default_writer()
     return writer.submit(job)
+
+
+# barrier ordinal: appended to the store key namespace so repeated
+# barriers with the same tag never collide.  Barriers are collective —
+# every process calls them in the same order — so a local counter
+# agrees across processes.
+_barrier_seq = 0
+
+# the reference's FLAGS.ckpt_barrier_timeout_s default
+DEFAULT_BARRIER_TIMEOUT_S = 600.0
+
+
+def barrier_timeout_s() -> float:
+    """Checkpoint-barrier timeout (seconds): generous — a slow peer
+    flushing a big shard is normal; a dead one should fail in minutes,
+    not hang the job.  The env PADDLE_TPU_CKPT_BARRIER_TIMEOUT_S wins
+    when set, as in the reference."""
+    legacy = os.environ.get("PADDLE_TPU_CKPT_BARRIER_TIMEOUT_S")
+    if legacy is not None:
+        try:
+            return float(legacy)
+        except ValueError:
+            pass
+    return DEFAULT_BARRIER_TIMEOUT_S
+
+
+def _dist_store():
+    """The store of the process group: the one init_distributed opened,
+    else the default group's."""
+    from .parallel.dist import get_store
+
+    store = get_store()
+    if store is None:
+        from torch.distributed import distributed_c10d
+
+        store = distributed_c10d._get_default_store()
+    return store
+
+
+def _barrier(tag: str, timeout_s: Optional[float] = None):
+    """Cross-process sync for sharded checkpointing (a no-op for one
+    process), with a timeout: each process publishes an arrival key in
+    the torch.distributed store, then waits for every peer's; a peer
+    that died mid-save raises a CheckpointBarrierTimeoutError naming the
+    ranks that never arrived instead of hanging the survivors."""
+    from datetime import timedelta
+
+    global _barrier_seq
+    proc, count = _process()
+    if count <= 1:
+        return
+    if timeout_s is None:
+        timeout_s = barrier_timeout_s()
+    seq = _barrier_seq
+    _barrier_seq += 1
+    store = _dist_store()
+    prefix = f"ptpu_ckpt_barrier/{tag}/{seq}/"
+    store.set(prefix + str(proc), "ok")
+    deadline = time.monotonic() + timeout_s
+    missing = []
+    for p in range(count):
+        if p == proc:
+            continue
+        remaining = max(deadline - time.monotonic(), 0.001)
+        try:
+            store.wait([prefix + str(p)], timedelta(seconds=remaining))
+        except Exception:  # noqa: BLE001 — the store's timeout error
+            if not store.check([prefix + str(p)]):
+                missing.append(p)
+    if missing:
+        raise CheckpointBarrierTimeoutError(
+            f"checkpoint barrier {tag!r} timed out after {timeout_s:.0f}s"
+            f" waiting for rank(s) {missing} (of {count} processes) — "
+            f"peer died or wedged inside a sharded save", tag=tag,
+            timeout_s=timeout_s, missing_ranks=missing, dirname=None,
+            process_count=count)
 
 
 def _assemble_index(meta, files, dirname, index):
@@ -473,15 +652,16 @@ def load_sharded(executor: Executor, dirname: str,
                  main_program: Optional[Program] = None,
                  vars: Optional[Sequence[Variable]] = None,
                  mesh=None, sharding_rules=None):
-    """Load a sharded checkpoint (either package's, from any mesh the
-    reference saved on) whole onto the executor's device.  The manifest
-    records each shard's GLOBAL index, so assembly reads whichever saved
-    shards intersect the variable: a dp×mp-sharded reference checkpoint
-    loads as the same logical arrays, bit for bit."""
-    if mesh is not None or sharding_rules is not None:
-        raise NotImplementedError(
-            "load_sharded(mesh=, sharding_rules=) (loading into a device "
-            "mesh) is not ported yet: ROADMAP queue A step 10 (parallel)")
+    """Load a sharded checkpoint (either package's, from any mesh it was
+    saved on).  Without `mesh` every variable loads whole onto the
+    executor's device.  With `mesh` (a parallel.Mesh; `sharding_rules`
+    default to the program's CompiledProgram rules) each variable takes
+    its target spec — optimizer state with the ZeRO axis composed in, as
+    CompiledProgram shards it — and a sharded one loads as a DTensor of
+    only this rank's slice, read from whichever saved shards intersect
+    it.  Mesh-shape-agnostic: the manifest records each shard's GLOBAL
+    index, so state saved on dp=4 (or fsdp=4) loads onto dp=2, fsdp=2 or
+    one device with the same logical arrays, bit for bit."""
     from .core.program import default_main_program
 
     program = main_program or default_main_program()
@@ -489,6 +669,7 @@ def load_sharded(executor: Executor, dirname: str,
         vars = _collect(program, lambda v: v.persistable)
     manifest = _read_manifest(dirname, SHARD_MANIFEST)
     metas = manifest["vars"]
+    spec_fn = _load_spec_fn(program, mesh, sharding_rules)
     scope = global_scope()
     files: dict = {}
     for v in vars:
@@ -501,10 +682,65 @@ def load_sharded(executor: Executor, dirname: str,
             raise RuntimeError(
                 f"shape mismatch for {v.name!r}: checkpoint "
                 f"{tuple(meta['shape'])} vs program {tuple(v.shape)}")
-        full = _assemble_index(meta, files, dirname,
-                               tuple(slice(0, d) for d in meta["shape"]))
-        scope.set_var(v.name, _to_device(full, meta["dtype"],
-                                         executor.device))
+        shape = tuple(meta["shape"])
+        spec = spec_fn(v.name, shape) if spec_fn is not None else ()
+        dims = [(d, a) for d, a in enumerate(spec) if a is not None]
+        if not dims or mesh.device_mesh is None or not mesh.member:
+            full = _assemble_index(meta, files, dirname,
+                                   tuple(slice(0, d) for d in shape))
+            scope.set_var(v.name, _to_device(full, meta["dtype"],
+                                             executor.device))
+            continue
+        scope.set_var(v.name, _load_slice(meta, files, dirname, mesh,
+                                          dims, executor.device))
+
+
+def _load_spec_fn(program, mesh, sharding_rules):
+    """The target spec of each state var on `mesh` (None off a mesh)."""
+    if mesh is None:
+        return None
+    wrapper = getattr(program, "_compiled_wrapper", None)
+    if sharding_rules is None and wrapper is not None \
+            and wrapper._mesh is mesh:
+        return wrapper.state_spec_for
+    rules = sharding_rules if sharding_rules is not None else (
+        wrapper._rules if wrapper is not None else None)
+    if rules is None:
+        return None
+    from .parallel.compiler import program_var_buckets
+
+    _params, opt = program_var_buckets(program)
+
+    def spec_fn(name, shape):
+        if name in opt:
+            return rules.opt_state_spec_for(name, shape, mesh)
+        return rules.spec_for(name, shape, mesh)
+
+    return spec_fn
+
+
+def _load_slice(meta, files, dirname, mesh, dims, device):
+    """This rank's slice of a sharded variable, as a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if len(dims) > 1:
+        raise NotImplementedError(
+            f"a spec sharding several dims {dims}: ROADMAP A step 10b")
+    (dim, axis), = dims
+    shape = tuple(meta["shape"])
+    size, coord = mesh.shape[axis], mesh.coordinate(axis)
+    step = shape[dim] // size
+    index = tuple(slice(coord * step, (coord + 1) * step) if d == dim
+                  else slice(0, s) for d, s in enumerate(shape))
+    local = _to_device(_assemble_index(meta, files, dirname, index),
+                       meta["dtype"], device)
+    placements = [Shard(dim) if a == axis else Replicate()
+                  for a in mesh.axis_names]
+    return DTensor.from_local(local.contiguous(), mesh.device_mesh,
+                              placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 # ---------------------------------------------------------------------------

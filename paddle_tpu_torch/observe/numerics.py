@@ -186,6 +186,24 @@ def update_bits(bits: torch.Tensor, op_index: int, values) -> torch.Tensor:
     return bits
 
 
+def or_across_axis(words: torch.Tensor, group) -> torch.Tensor:
+    """Exact bitwise-OR all-reduce of a bitmap over a data-parallel
+    group (a `parallel.collectives.DataGroup`, None for one rank): a
+    per-bit MAX, as the reference's (paddle_tpu/observe/numerics.py:196)
+    — NCCL has no bitwise-OR reduction, and a MAX over packed words
+    would keep one rank's word."""
+    if group is None:
+        return words
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    bits = ((w[:, None] >> shifts) & 1).to(torch.int32)
+    bits = group.all_reduce(bits, "max").to(torch.int64)
+    packed = (bits << shifts).sum(dim=1)
+    # back to int32 through the low 32 bits (bit 31 is the sign bit)
+    return (packed - (packed >= 2 ** 31).to(torch.int64) * 2 ** 32).to(
+        torch.int32)
+
+
 def device_group_update(tel: Dict[str, Any], grads: Dict[str, Any],
                         params_before: Dict[str, Any],
                         env: Dict[str, Any],

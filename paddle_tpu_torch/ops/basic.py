@@ -213,7 +213,13 @@ _register_logical("logical_not", torch.logical_not)
 
 @register_op("mean")
 def mean(ctx, ins, attrs):
-    return out(Out=torch.mean(first(ins, "X")).reshape((1,)))
+    """Under a data-parallel step's `cross_rank` (the batch is split
+    over the ranks, each an equal slice): the ranks' means summed, over
+    their count — the global batch's mean on every rank."""
+    m = torch.mean(first(ins, "X"))
+    if ctx.cross_rank is not None:
+        m = ctx.cross_rank.sum(m) / ctx.cross_rank.n
+    return out(Out=m.reshape((1,)))
 
 
 def _register_reduce(name, fn):
@@ -227,6 +233,13 @@ def _register_reduce(name, fn):
             dims = tuple(a if a >= 0 else a + x.dim()
                          for a in attrs.get("dim", [0]))
         o = _fn(x, dim=dims, keepdim=keep) if dims else x
+        if ctx.cross_rank is not None:
+            # (reduce_sum, reduce_mean) the reduction covered the batch
+            # dim, split over the data ranks in equal slices: sum the
+            # ranks' partial results
+            o = ctx.cross_rank.sum(o)
+            if name == "reduce_mean":
+                o = o / ctx.cross_rank.n
         if o.dtype == torch.int64 and x.dtype != torch.int64:
             # jnp sums and multiplies bools and narrow ints in the
             # default int, int32 with x64 off; torch in int64
@@ -687,7 +700,11 @@ def reverse(ctx, ins, attrs):
 def shape_op(ctx, ins, attrs):
     """Input's shape, int32 (a property of the shape: no host read)."""
     x = first(ins, "Input")
-    return out(Out=torch.tensor(tuple(x.shape), dtype=torch.int32,
+    shape = list(x.shape)
+    if ctx.cross_rank is not None and shape:
+        # a data-parallel step: the global batch's shape
+        shape[0] *= ctx.cross_rank.n
+    return out(Out=torch.tensor(tuple(shape), dtype=torch.int32,
                                 device=x.device))
 
 

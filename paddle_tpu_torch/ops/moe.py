@@ -49,13 +49,16 @@ _ACTS = {"relu": torch.relu, "gelu": torch.nn.functional.gelu,
 def _refuse_ep_mesh(ctx):
     """One device runs one token group (the reference's G = 1).  A run
     on a mesh with an `ep` axis (the reference's grouped GShard layout,
-    one group per ep shard) is not ported."""
-    mesh = getattr(ctx, "mesh", None)
-    if mesh is not None and dict(mesh.shape).get("ep", 1) > 1:
-        raise NotImplementedError(
-            "moe_ffn on an ep mesh (grouped GShard capacity and the "
-            "expert all-to-alls) is not ported yet: ROADMAP A step 10 "
-            "(parallel)")
+    one group per ep shard) is not ported: the op's context or the
+    executing CompiledProgram's mesh."""
+    from ..parallel.mesh import get_executing_mesh
+
+    for mesh in (getattr(ctx, "mesh", None), get_executing_mesh()):
+        if mesh is not None and dict(mesh.shape).get("ep", 1) > 1:
+            raise NotImplementedError(
+                "moe_ffn on an ep mesh (grouped GShard capacity and the "
+                "expert all-to-alls) is not ported yet: ROADMAP A step "
+                "10b (the model axes)")
 
 
 def route(logits, top_k, cap):

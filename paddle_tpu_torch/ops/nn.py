@@ -101,8 +101,16 @@ def dropout(ctx, ins, attrs):
         y = x * weak_scalar(1.0 - p, x) \
             if is_test and impl == "downgrade_in_infer" else x
         return {"Out": [y], "Mask": [torch.ones_like(x)]}
-    keep = torch.rand(x.shape, generator=ctx.rng(), device=x.device) \
-        >= p
+    if ctx.cross_rank is not None and x.dim() >= 1:
+        # a data-parallel step's batch slice: the global batch's mask,
+        # this rank's rows of it
+        g, rows = ctx.cross_rank, x.shape[0]
+        keep = torch.rand((rows * g.n,) + tuple(x.shape[1:]),
+                          generator=ctx.rng(), device=x.device)[
+            g.index * rows:(g.index + 1) * rows] >= p
+    else:
+        keep = torch.rand(x.shape, generator=ctx.rng(),
+                          device=x.device) >= p
     if impl == "upscale_in_train":
         y = torch.where(keep, x / weak_scalar(1.0 - p, x),
                         torch.zeros((), dtype=x.dtype, device=x.device))
@@ -144,6 +152,10 @@ def accuracy(ctx, ins, attrs):
     correct = (indices == label.reshape(-1, 1)).any(dim=1)
     total = indices.shape[0]
     num_correct = correct.sum().to(torch.int32)
+    if ctx.cross_rank is not None:
+        # a data-parallel step: the global batch's counts
+        num_correct = ctx.cross_rank.all_reduce(num_correct)
+        total *= ctx.cross_rank.n
     acc = num_correct.to(torch.float32) / float(total)
     return {"Accuracy": [acc.reshape(1)],
             "Correct": [num_correct.reshape(1)],
@@ -403,7 +415,13 @@ def batch_norm(ctx, ins, attrs):
     dtype, differentiated by autograd.  torch's batch norm (cuDNN) is not
     used: its variance is the two-pass one, which over a few values a
     channel (a cut batch at 1 x 1 spatial) gives other values than the
-    reference's E[x^2] - mean^2."""
+    reference's E[x^2] - mean^2.
+
+    Under a data-parallel step's `cross_rank` (training, the batch split
+    over the ranks): the sums of x and x^2 and the count are summed over
+    the ranks, then the same formula gives the global batch's
+    statistics on every rank (the reference's GSPMD batch norm); the
+    sums' backward all-reduces the cotangent (collectives.CrossRankSum)."""
     x = first(ins, "X")
     scale, bias = first(ins, "Scale"), first(ins, "Bias")
     mean_in, var_in = first(ins, "Mean"), first(ins, "Variance")
@@ -418,8 +436,15 @@ def batch_norm(ctx, ins, attrs):
         mean_b, var_b = mean_in, var_in
         mean_out, var_out = mean_in, var_in
     else:
-        mean_b = xf.mean(dim=axes)
-        var_b = torch.square(xf).mean(dim=axes) - torch.square(mean_b)
+        if ctx.cross_rank is not None:
+            g = ctx.cross_rank
+            count = float(x.numel() // x.shape[c_axis] * g.n)
+            mean_b = g.sum(xf.sum(dim=axes)) / count
+            var_b = g.sum(torch.square(xf).sum(dim=axes)) / count \
+                - torch.square(mean_b)
+        else:
+            mean_b = xf.mean(dim=axes)
+            var_b = torch.square(xf).mean(dim=axes) - torch.square(mean_b)
         mean_out = (momentum * mean_in + (1 - momentum) * mean_b).detach()
         var_out = (momentum * var_in + (1 - momentum) * var_b).detach()
     inv = torch.rsqrt(var_b.to(torch.float32) + eps)
@@ -450,8 +475,17 @@ def auc(ctx, ins, attrs):
     bucket = torch.floor(predict[:, 1] * num_thresholds).to(torch.int64)
     bucket = bucket.clamp(0, num_thresholds)
     lbl = label.reshape(-1).to(torch.float32)
-    new_pos = stat_pos.index_add(0, bucket, lbl)
-    new_neg = stat_neg.index_add(0, bucket, 1.0 - lbl)
+    if ctx.cross_rank is not None:
+        # a data-parallel step: the global batch's histograms (whole
+        # counts, exact in any order)
+        g = ctx.cross_rank
+        new_pos = stat_pos + g.all_reduce(
+            torch.zeros_like(stat_pos).index_add(0, bucket, lbl))
+        new_neg = stat_neg + g.all_reduce(
+            torch.zeros_like(stat_neg).index_add(0, bucket, 1.0 - lbl))
+    else:
+        new_pos = stat_pos.index_add(0, bucket, lbl)
+        new_neg = stat_neg.index_add(0, bucket, 1.0 - lbl)
     tp = torch.cumsum(new_pos.flip(0), 0)
     fp = torch.cumsum(new_neg.flip(0), 0)
     tpr = tp / torch.clamp(tp[-1], min=1.0)

@@ -115,7 +115,13 @@ def lars_momentum(ctx, ins, attrs):
     mu = attrs["mu"]
     lars_coeff = attrs.get("lars_coeff", 0.001)
     lars_wd = attrs.get("lars_weight_decay", 0.0005)
-    p_norm, g_norm = _norm(p), _norm(g)
+    if ctx.cross_rank is not None:
+        # a ZeRO slice: the whole param's and gradient's norms
+        sq = ctx.cross_rank.all_reduce(torch.stack(
+            [torch.sum(torch.square(p)), torch.sum(torch.square(g))]))
+        p_norm, g_norm = torch.sqrt(sq[0]), torch.sqrt(sq[1])
+    else:
+        p_norm, g_norm = _norm(p), _norm(g)
     local_lr = _lr(ins) * lars_coeff * p_norm / (
         g_norm + lars_wd * p_norm + 1e-12)
     v_new = mu * v + local_lr * (g + lars_wd * p)

@@ -233,8 +233,17 @@ def test_reference_mesh_checkpoint_loads_whole(tmp_path):
     with tf.scope_guard(tscope):
         tf.io.load_sharded(texe, ckpt, main_program=tmain)
     _assert_same_bits(_state(tmain, tscope), want)
-    with pytest.raises(NotImplementedError, match="step 10"):
-        tf.io.load_sharded(texe, ckpt, main_program=tmain, mesh=object())
+    # onto a mesh (ROADMAP A step 10a): a one-rank mesh holds every
+    # variable whole, whatever the rules shard
+    from paddle_tpu_torch.parallel import ShardingRules as TRules
+    from paddle_tpu_torch.parallel import make_mesh as t_make_mesh
+
+    mscope = tf.Scope()
+    with tf.scope_guard(mscope):
+        tf.io.load_sharded(texe, ckpt, main_program=tmain,
+                           mesh=t_make_mesh({"dp": 1}),
+                           sharding_rules=TRules(default="fsdp"))
+    _assert_same_bits(_state(tmain, mscope), want)
 
 
 # -- the structured errors (tests/test_resilience.py:277-382) -------------

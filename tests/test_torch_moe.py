@@ -21,7 +21,7 @@ layers.switch_moe and the MoE Transformer against the JAX package.
   top-2 within one float32 ulp of the sum of the two choices' |terms|
   (the two products added in another order; where they cancel, that
   is more than an ulp of the result).
-- moe_ffn on a mesh with an `ep` axis raises naming ROADMAP A step 10.
+- moe_ffn on a mesh with an `ep` axis raises naming ROADMAP A step 10b.
 - A tiny MoE Transformer (2+2 layers, d_model 64, 4 experts, T = 16,
   batch 4, dropout 0): both programs' `to_dict()` equal; the expert
   weights (E, D, H) / (E, H, D) and their (E, H) / (E, D) biases carry

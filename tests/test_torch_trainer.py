@@ -399,13 +399,25 @@ def test_save_params_and_inference_model(tmp_path):
 
 
 @pytest.mark.parametrize("kw,step", [
-    ({"mesh": object()}, "step 10"),
-    ({"build_strategy": object()}, "step 10"),
+    ({"mesh": pt.parallel.make_mesh({"dp": 1})}, "step 10"),
+    ({"build_strategy": pt.BuildStrategy()}, "step 10"),
     ({"autopilot": True}, "step 11"),
 ])
 def test_left_out_options_raise(kw, step):
-    with pytest.raises(NotImplementedError, match=step):
-        Trainer(W.train_func, W.opt_func, place=pt.CPUPlace(), **kw)
+    """`autopilot=` (ROADMAP A step 11) raises; `mesh=` (step 10,
+    ported) compiles the train program over the mesh."""
+    if step == "step 11":
+        with pytest.raises(NotImplementedError, match=step):
+            Trainer(W.train_func, W.opt_func, place=pt.CPUPlace(), **kw)
+        return
+    t = Trainer(W.train_func, W.opt_func, place=pt.CPUPlace(), **kw)
+    wrapper = getattr(t.train_program, "_compiled_wrapper", None)
+    if "mesh" in kw:
+        assert wrapper is not None and wrapper._mesh.shape == {"dp": 1}
+    else:
+        # a build strategy without a mesh is ignored, as in the reference
+        assert wrapper is None
+    t.stop()
 
 
 @pytest.mark.parametrize("method", ["metrics_registry",

@@ -263,14 +263,31 @@ def test_unported_transformer_options_raise(kw, item):
     assert types.count("moe_ffn") == 2 * ARCH["n_layer"]
 
 
+def _clone_scope(src):
+    dst = tf.Scope()
+    for name, v in src.vars.items():
+        dst.set_var(name, v.clone() if isinstance(v, torch.Tensor) else v)
+    return dst
+
+
 def test_unported_executor_features_raise():
     tm, ts, tmod = _build(tf, tt.build_model, **ARCH)
     scope = tf.Scope()
     exe = tf.Executor(tf.CPUPlace())
     exe.run(ts, scope=scope)
-    tm._grad_sync = object()
-    with pytest.raises(NotImplementedError, match="A step 10"):
-        exe.run(tm, feed=_batch(), fetch_list=[tmod["loss"]], scope=scope)
+    # a grad_sync mode without a mesh (ROADMAP A step 10a): the step
+    # runs as on one device, as the reference's does outside a
+    # CompiledProgram
+    from paddle_tpu_torch.parallel import GradSyncConfig
+
+    plain = _clone_scope(scope)
+    want = exe.run(tm, feed=_batch(), fetch_list=[tmod["loss"]],
+                   scope=plain)[0]
+    tm._grad_sync = GradSyncConfig("int8")
+    got = exe.run(tm, feed=_batch(), fetch_list=[tmod["loss"]],
+                  scope=scope)[0]
+    np.testing.assert_array_equal(got, want)
+    tm._grad_sync = None
     # an is_sparse lookup of a trainable table no longer raises: it takes
     # the SparseGrad path (tests/test_torch_sparse.py), and SGD moves
     # only the looked-up row
