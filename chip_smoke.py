@@ -195,7 +195,7 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    TOL_AMP_SHARE of AMP's own distance from float32 (a float32 step of
    the same program on the CPU);
 6l. checkpoint and resume at full width: phase 6c's Transformer (fused
-   CE) under bf16 AMP with `amp.decorate(use_dynamic_loss_scaling=True)`
+   CE) at CUT_LAYERS + CUT_LAYERS layers under bf16 AMP with `amp.decorate(use_dynamic_loss_scaling=True)`
    (the update guard and telemetry on), dropout 0.1: 6 uninterrupted
    steps; from the same start 3 steps, `io.save_sharded`, a fresh scope
    and executor that run the startup program, `io.load_sharded` (the
@@ -241,8 +241,8 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    `chaos.hang` in a third (StepHangError, a `step_hang` event), and the
    Inferencer on the saved parameters, its loss bit-equal to the trained
    program's `clone(for_test=True)` loss;
-6o. gradient accumulation: the bench Transformer (dropout 0) at batch
-   64 as K = 1 and as K = 4 micro-batches of 16, float32 and bf16 AMP,
+6o. gradient accumulation: the bench Transformer (dropout 0, CUT_LAYERS
+   + CUT_LAYERS layers) at batch 64 as K = 1 and as K = 4 micro-batches of 16, float32 and bf16 AMP,
    3 steps each from the same weights (the full-batch run's noam
    counter advanced to match accumulation's K increments a step):
    losses within TOL_LOSS (AMP: TOL_AMP_LOSS) and parameters within
@@ -286,7 +286,8 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    (their bf16 paths under AMP), no plain or composed call, step ms,
    tokens/s, peak memory, a profiled window (idle share, kernels a
    step) and the last step's tokens a expert and tokens past capacity
-   per layer; (b) card against CPU at 2 x 64 tokens, dropout 0, 3 Adam
+   per layer; (b) card against CPU at CUT_LAYERS + CUT_LAYERS layers and
+   2 x 64 tokens, dropout 0, 3 Adam
    steps, top-1 and top-2 (every moe_ffn's top_k set to 2), at phase
    7's tolerances, with each layer's routing compared token by token
    (a token routed to another expert must be a near-tie of its CPU
@@ -375,7 +376,8 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    client failure, a decode failover; TTFT and tokens/s of both fleets,
    handoff ms, pages and bytes, the flash forward and paged launches;
 6w. data parallelism (parallel.CompiledProgram) on the phase-6
-   Transformer at the bench's widths, dropout 0, Adam with noam, global
+   Transformer at the bench's widths and CUT_LAYERS + CUT_LAYERS layers,
+   dropout 0, Adam with noam, global
    batch DP_BATCH: (a) one process as trainer 0 of 1 through
    `init_distributed` (NCCL), `CompiledProgram(...).with_data_parallel(
    mesh=make_mesh({"dp": 1}))` for DP_STEPS steps, every fetch and
@@ -438,6 +440,10 @@ TRAIN_ARCH = dict(src_vocab_size=32000, trg_vocab_size=32000,
                   d_inner_hid=2048, dropout=0.1, use_flash=True)
 TRAIN_BATCH = 64
 TRAIN_STEPS = 10
+# the depth of the Transformer paths after phase 6k that do not measure
+# the bench model itself (6l-6o, 6t (b), 6w, 6x (d)), cut from 6 + 6 to
+# keep the whole script well inside its time limit; widths unchanged
+CUT_LAYERS = 2
 # phase 6d: the reference's longctx_8k entry (bench.py:2315-2335; the
 # widths and depth of TRAIN_ARCH, flash_cross as bench.py:722 sets it
 # above 1024 tokens), float32, 16384 tokens a step as phase 6
@@ -3486,15 +3492,16 @@ GUARD_TIMED_STEPS = 3   # 6m: guarded and unguarded steps, two rounds each
 
 
 def build_guarded(incr_every_n_steps=1000, guard=True):
-    """(main, startup, model) of the bench Transformer with the fused CE
-    under bf16 AMP: build_model's graph and optimizer (noam x 2.0, Adam
-    0.9/0.997/1e-9), the optimizer wrapped by amp.decorate with
-    use_dynamic_loss_scaling=`guard` (False: phase 6i's plain AMP)."""
+    """(main, startup, model) of the bench Transformer at CUT_LAYERS +
+    CUT_LAYERS layers with the fused CE under bf16 AMP: build_model's
+    graph and optimizer (noam x 2.0, Adam 0.9/0.997/1e-9), the optimizer
+    wrapped by amp.decorate with use_dynamic_loss_scaling=`guard`
+    (False: phase 6i's plain AMP)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import amp, layers, optimizer
     from paddle_tpu_torch.models import transformer
 
-    arch = dict(TRAIN_ARCH, use_fused_ce=True)
+    arch = dict(TRAIN_ARCH, use_fused_ce=True, n_layer=CUT_LAYERS)
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), pt.unique_name.guard():
         model = transformer.build_model(**arch, with_optimizer=False)
@@ -3636,7 +3643,8 @@ def phase_resume(dev, card):
     from paddle_tpu_torch.ops import kernels
 
     log(f"phase 6l: checkpoint and resume of the AMP fused-CE Transformer "
-        f"under dynamic loss scaling (batch {TRAIN_BATCH} x "
+        f"at {CUT_LAYERS}+{CUT_LAYERS} layers under dynamic loss scaling "
+        f"(batch {TRAIN_BATCH} x "
         f"{TRAIN_ARCH['max_length']}, dropout {TRAIN_ARCH['dropout']})")
     main, startup, model = build_guarded()
     loss = model["loss"]
@@ -3810,7 +3818,8 @@ def phase_guard(dev, card):
     from paddle_tpu_torch.ops.kernels import vocab_ce as vk
 
     log(f"phase 6m: the update guard on the card (AMP fused-CE "
-        f"Transformer, batch {TRAIN_BATCH} x {TRAIN_ARCH['max_length']})")
+        f"Transformer at {CUT_LAYERS}+{CUT_LAYERS} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_ARCH['max_length']})")
     feed = _transformer_feed(dev)
     runs = {}
     for label, guard in (("unguarded", False), ("guarded", True)):
@@ -3951,12 +3960,13 @@ TRAINER_WORKER_TIMEOUT_S = 300
 
 def trainer_funcs():
     """(train_func, optimizer_func) of build_guarded's graph for
-    contrib.Trainer: build_model's forward and loss, then Adam under noam
-    x 2.0 wrapped by amp.decorate with dynamic loss scaling."""
+    contrib.Trainer at CUT_LAYERS + CUT_LAYERS layers:
+    build_model's forward and loss, then Adam under noam x 2.0 wrapped
+    by amp.decorate with dynamic loss scaling."""
     from paddle_tpu_torch import amp, layers, optimizer
     from paddle_tpu_torch.models import transformer
 
-    arch = dict(TRAIN_ARCH, use_fused_ce=True)
+    arch = dict(TRAIN_ARCH, use_fused_ce=True, n_layer=CUT_LAYERS)
 
     def train_func():
         return transformer.build_model(**arch, with_optimizer=False)["loss"]
@@ -4127,7 +4137,8 @@ def _trainer_checks(trainer, batches, run_dir, want):
     feed = batches[0]
     plain = trainer.exe.run(program.clone(for_test=True), feed=feed,
                             fetch_list=[loss], scope=trainer.scope)[0]
-    arch = dict(TRAIN_ARCH, use_fused_ce=True, dropout=0.0)
+    arch = dict(TRAIN_ARCH, use_fused_ce=True, dropout=0.0,
+                n_layer=CUT_LAYERS)
 
     def infer_func():
         # the forward at dropout 0 (a test-mode upscale_in_train dropout
@@ -4451,7 +4462,8 @@ def phase_trainer(dev, card):
 
     root = os.path.abspath(os.path.join(OUT_DIR, "trainer_6n"))
     shutil.rmtree(root, ignore_errors=True)
-    log(f"phase 6n: contrib.Trainer, the AMP fused-CE Transformer (batch "
+    log(f"phase 6n: contrib.Trainer, the AMP fused-CE Transformer at "
+        f"{CUT_LAYERS}+{CUT_LAYERS} layers (batch "
         f"{TRAIN_BATCH} x {TRAIN_ARCH['max_length']}, {TRAINER_BATCHES} "
         f"batches, batch {TRAINER_NAN_AT} poisoned), async saves every 2 "
         f"steps, kill and resume across processes on {card}")
@@ -4575,8 +4587,10 @@ def phase_accumulate(dev, card, label="phase 6o", overrides=None):
     amp = bool(overrides.get("use_amp"))
     log(f"{label}: gradient accumulation, the bench Transformer at batch "
         f"{TRAIN_BATCH} as K = 1 and K = {ACCUM_K} micro-batches, "
+        f"{CUT_LAYERS}+{CUT_LAYERS} layers, "
         f"{'bf16 AMP' if amp else 'f32'}, dropout 0, {ACCUM_STEPS} steps")
-    main, startup, model = build_training(dropout=0.0, **overrides)
+    main, startup, model = build_training(dropout=0.0, n_layer=CUT_LAYERS,
+                                          **overrides)
     loss = model["loss"]
     feed = _transformer_feed(dev)
     exe = pt.Executor(pt.CUDAPlace(0))
@@ -5329,11 +5343,12 @@ def phase_moe_parity(dev, top_k):
     another expert must be a near-tie (TOL_ROUTE_TIE)."""
     from paddle_tpu_torch.models import transformer
 
-    log(f"phase 6t (b): MoE Transformer card vs CPU, top-{top_k} "
+    log(f"phase 6t (b): MoE Transformer at {CUT_LAYERS}+{CUT_LAYERS} "
+        f"layers card vs CPU, top-{top_k} "
         f"({PARITY_BATCH} x {PARITY_T} tokens, dropout 0, {PARITY_STEPS} "
         f"Adam steps)")
     main, startup, model = build_training(dropout=0.0, max_length=PARITY_T,
-                                          **MOE)
+                                          n_layer=CUT_LAYERS, **MOE)
     ops = _moe_ops(main)
     if top_k != 1:
         for op in ops:
@@ -7871,10 +7886,12 @@ def phase_disagg(dev, card):
 
 # -- phase 6w: data parallelism -------------------------------------------
 
-# the phase-6 Transformer (bench widths) at global batch 64, dropout 0 so
-# every rank's program is the one process's, DP_STEPS Adam steps; two
-# ranks on the one card share it over gloo through the host
+# the phase-6 Transformer (bench widths, CUT_LAYERS + CUT_LAYERS layers)
+# at global batch 64, dropout 0 so every rank's program is the one
+# process's, DP_STEPS Adam steps; two ranks on the one card share it over
+# gloo through the host
 DP_BATCH, DP_STEPS, DP_RANKS = 64, 3, 2
+DP_ARCH = dict(dropout=0.0, n_layer=CUT_LAYERS)
 DP_MODES = (None, "bf16", "int8")
 # the ranks against one process: float32, other row counts in every
 # cuBLAS product, the loss a sum over the ranks (as phase 7's TOL_LOSS)
@@ -7886,8 +7903,9 @@ TOL_DP_INT8 = 1e-2
 # another order (default, bf16); the int8 exchange's quantization
 # (int8).  Each rank's exchange is also held bit for bit against the
 # plain mean of the two ranks' local gradients (_plain_sync).  Measured
-# 2.914e-6 and 1.461e-2 (H100 80GB HBM3, 700 W); a copy giving both
-# ranks rank 0's gradient reads 0.986
+# 2.914e-6 and 1.461e-2 at 6 + 6 layers, 1.685e-6 and 1.612e-2 at 2 + 2
+# (H100 80GB HBM3, 700 W); a copy giving both ranks rank 0's gradient
+# reads 0.986
 TOL_DP_GRAD = 1e-5
 TOL_DP_GRAD_INT8 = 3e-2
 DP_WORKER_TIMEOUT_S = 300
@@ -8094,7 +8112,7 @@ def dp_worker(argv) -> int:
     want = {n: torch.from_numpy(v).to(dev) for n, v in
             np.load(os.path.join(run_dir, "transformer_grad.npz")).items()}
     for mode in DP_MODES:
-        main, startup, model = build_training(dropout=0.0)
+        main, startup, model = build_training(**DP_ARCH)
         run(mode or "default", main, model, arrays, feed, mode, want)
     del want
     arrays = dict(np.load(os.path.join(run_dir, "resnet_init.npz")))
@@ -8127,7 +8145,7 @@ def _dp_one_process(dev, card):
     # NCCL on the card (gloo only where the place is the CPU)
     if backend != ("gloo" if isinstance(place, pt.CPUPlace) else "nccl"):
         raise AssertionError(f"6w (a) ran on {backend}")
-    main, startup, model = build_training(dropout=0.0)
+    main, startup, model = build_training(**DP_ARCH)
     init = pt.Scope()
     exe = pt.Executor(pt.CUDAPlace(0))
     exe.run(startup, scope=init)
@@ -8136,7 +8154,7 @@ def _dp_one_process(dev, card):
     feed = _dp_feed()
     runs = {}
     for label in ("plain", "compiled"):
-        main, startup, model = build_training(dropout=0.0)
+        main, startup, model = build_training(**DP_ARCH)
         scope = _scope_of(main, arrays, dev)
         target = main
         if label == "compiled":
@@ -8196,40 +8214,41 @@ def _resnet_global(dev, run_dir):
     return losses, stats
 
 
-def _run_dp_workers(run_dir):
-    """The DP_RANKS worker processes side by side; their results.  A
-    rank that fails or outlives DP_WORKER_TIMEOUT_S fails the phase and
-    every worker is stopped."""
+def _run_workers(label, run_dir, n, cmd, stem, timeout_s):
+    """n worker processes side by side, rank r started as `cmd(r, port)`;
+    their results, run_dir/<stem>.json with r in `stem`.  Each rank's
+    output goes to <stem>.log: a pipe nobody drains could block a rank
+    while another waits for it in a collective.  A rank that fails or
+    outlives `timeout_s` fails phase `label` and every worker is
+    stopped."""
     port = _free_port()
-    logs = [os.path.join(run_dir, f"rank{r}.log") for r in range(DP_RANKS)]
+    stems = [os.path.join(run_dir, stem.format(r=r)) for r in range(n)]
     procs = []
-    # each rank's output to a file: a pipe nobody drains could block a
-    # rank while the other waits for it in a collective
-    for r, path in enumerate(logs):
-        with open(path, "w") as f:
-            procs.append(subprocess.Popen(_dp_worker_cmd(run_dir, r, port),
-                                          stdout=f, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
+    for r, path in enumerate(stems):
+        with open(path + ".log", "w") as f:
+            procs.append(subprocess.Popen(cmd(r, port), stdout=f,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"6w: a rank outlived "
-                             f"{DP_WORKER_TIMEOUT_S} s")
+        raise AssertionError(f"{label}: a rank of {n} outlived "
+                             f"{timeout_s} s")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, path) in enumerate(zip(procs, logs)):
-        with open(path, errors="replace") as f:
+    for r, (p, path) in enumerate(zip(procs, stems)):
+        with open(path + ".log", errors="replace") as f:
             out = f.read()
         if p.returncode != 0 or "DONE" not in out:
-            raise AssertionError(f"6w rank {r} failed (rc {p.returncode}):"
-                                 f" {out[-3000:]}")
+            raise AssertionError(f"{label} rank {r} of {n} failed (rc "
+                                 f"{p.returncode}): {out[-3000:]}")
     res = []
-    for r in range(DP_RANKS):
-        with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+    for path in stems:
+        with open(path + ".json") as f:
             res.append(json.load(f))
     return res
 
@@ -8237,7 +8256,8 @@ def _run_dp_workers(run_dir):
 def phase_data_parallel(dev, card):
     """6w (see the module docstring)."""
     log(f"phase 6w: data parallelism, the bench Transformer (dropout 0) "
-        f"at global batch {DP_BATCH}, {DP_STEPS} Adam steps; {card}")
+        f"at {CUT_LAYERS}+{CUT_LAYERS} layers, global batch {DP_BATCH}, "
+        f"{DP_STEPS} Adam steps; {card}")
     run_dir = os.path.join(OUT_DIR, "dp")
     os.makedirs(run_dir, exist_ok=True)
     one, arrays, feed, want_params, want_grads, counts_a = _dp_one_process(
@@ -8249,7 +8269,9 @@ def phase_data_parallel(dev, card):
     resnet_losses, resnet_stats = _resnet_global(dev, run_dir)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = _run_dp_workers(run_dir)
+    ranks = _run_workers("6w", run_dir, DP_RANKS,
+                         lambda r, port: _dp_worker_cmd(run_dir, r, port),
+                         "rank{r}", DP_WORKER_TIMEOUT_S)
     log(f"  (b)+(c) {DP_RANKS} ranks, {DP_LABEL}: "
         f"{time.perf_counter() - t0:.1f} s with their start")
     lr_sum = sum(_noam_lr(t) for t in range(1, DP_STEPS + 1))
@@ -8340,26 +8362,547 @@ def phase_data_parallel(dev, card):
     return summary
 
 
-def phase_6w_alone() -> int:
-    """`chip_smoke.py --phase 6w`: the kernels built and phase 6w alone;
-    its summary to OUT_DIR/data_parallel.json, the card line and
-    "6w ok" last."""
+# -- phase 6x: the model axes ----------------------------------------------
+
+# ranks share the one card over gloo through the host, as 6w (b) does: (a)
+# mp = 2 (and, at 2+2 layers, with the fused vocab CE), (b) sp = 2, (c)
+# pp = 2, (d) ep = 2 (at CUT_LAYERS + CUT_LAYERS layers) in one group of
+# two worker processes, (e) dp = 2 x mp = 2 in a group of four.  Each run takes
+# MX_STEPS Adam (SGD for (b)) steps from the one-process run's start
+# values and feed, and is held against the one-process run (a plain
+# CUDAPlace(0) Executor): step 1's gradients by relative L2, every loss
+# relatively
+MX_STEPS, MX_BATCH = 3, 64
+MX_PARTS_2, MX_PARTS_4 = ("a", "b", "c", "d"), ("e",)
+# (b): longctx_8k's attention (LONGCTX: T 8192, 8 heads of 64), causal,
+# behind an fc to head-grouped QKV (tests/test_ring_attention.py:101-150)
+MX_SP = dict(n=2, t=8192, h=8, d=64)
+# (e): (a)'s Transformer cut to 2+2 layers
+MX_DPMP_LAYERS = 2
+# every loss of a run within this share of the one-process run's
+TOL_MX_LOSS = 1e-4
+# step 1's gradients against the one-process run's, relative L2 over the
+# names the rank holds.  (b) and (d) keep every product's shape: float32
+# sums in another order only (the ring's lse merge and its backward's
+# dQ/dK/dV sums); measured 3.756e-7 (ring), 0 (Ulysses), 2.8e-10 (ep at
+# 6 + 6 layers; 3.006e-10 at 2 + 2) (H100 80GB HBM3, 700 W).  (a), (c) and (e) change the shapes of the
+# Transformer's products (half the columns or rows under mp, 16-row
+# microbatches under pp), so cuBLAS sums in other orders, and 12 layers
+# carry the difference on; measured 1.086e-4, 9.357e-5 and 1.352e-4, and
+# one process with its products split the same way reads as much
+# (MX_ALT).  A wrong exchange reads ~0.5 or more (a missing all-reduce
+# leaves each rank half of a sum)
+TOL_MX_GRAD = 1e-5
+TOL_MX_GRAD_RESHAPED = 1e-3
+MX_WORKER_TIMEOUT_S = 240
+# the cause of the gaps of (a), (c) and (e), shown in one process: step
+# 1's gradients of the part's program with each Megatron-sharded product
+# split as mp = 2 splits it (`_SplitProducts`), or of (c)'s in its 4
+# microbatches (gradient accumulation, K = the pipeline's default 2 x
+# pp).  Against the plain run they read what the ranks read (1.085e-4
+# split, 1.021e-4 in microbatches; H100 80GB HBM3, 700 W); the ranks
+# against them 2.549e-7 (mp) and 1.970e-6 (pp): within TOL_MX_GRAD, the
+# level of the parts that keep every product's shape
+MX_ALT = {"a": "split", "a_fce": "split", "c": "accum", "e": "split"}
+MX_ACCUM = 4
+
+
+class _SplitProducts:
+    """A one-process run (tensor_parallel.activated) whose `mul`s with a
+    Megatron-sharded weight compute as mp = 2 does on its two ranks: a
+    column-sharded weight's product as two half-column products side by
+    side, a row-sharded one's as rank 0's half-K product plus rank 1's.
+    Every other op runs as it is."""
+
+    def __init__(self, rules):
+        self.rules = rules.rules
+
+    def run_op(self, desc, ins, attrs, call):
+        if desc.type != "mul":
+            return call(ins, attrs)
+        w = desc.inputs["Y"][0]
+        spec = next((sp for pat, sp in self.rules if pat.search(w)), None)
+        x, y = ins["X"][0], ins["Y"][0]
+        if spec == (None, "mp"):
+            return {"Out": [torch.cat(
+                [call({"X": [x], "Y": [h.contiguous()]}, attrs)["Out"][0]
+                 for h in y.chunk(2, 1)], dim=-1)]}
+        if spec == ("mp", None):
+            xs, ys = x.chunk(2, -1), y.chunk(2, 0)
+            o0, o1 = (call({"X": [a.contiguous()], "Y": [b.contiguous()]},
+                           attrs)["Out"][0] for a, b in zip(xs, ys))
+            return {"Out": [o0 + o1]}
+        return call(ins, attrs)
+
+
+def _mx_want_counts(key):
+    """The collectives mp = 2 inserts in a step of (a), (a_fce) and (e):
+    one forward all-reduce an attention block and an MLP block (5 a
+    layer: the encoder's self-attention and FFN, the decoder's self- and
+    cross-attention and FFN), one each for the two vocab-sharded
+    embeddings' lookups, and the vocab-parallel CE's two (the sum of
+    exps, the label terms) and its row max; the fused CE's run leaves
+    its projection whole.  No forward all-gather (a gather would
+    compute replicated); None for the other parts."""
+    if key not in ("a", "a_fce", "e"):
+        return None
+    layers = TRAIN_ARCH["n_layer"] if key == "a" else MX_DPMP_LAYERS
+    ce = int(key != "a_fce")
+    return {"all_reduce": 5 * layers + 2 + 2 * ce, "all_reduce_max": ce}
+
+
+def _mx_sp_program(strategy):
+    """(b)'s program: fc to head-grouped QKV, the flash op (causal,
+    sequence_parallel=strategy), mean of squares, SGD."""
+    import paddle_tpu_torch as pt
+
+    n, t, h, d = (MX_SP[k] for k in "nthd")
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = 3
+    layers = pt.layers
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = layers.data("x", shape=[n, t, h * d], append_batch_size=False)
+        qkv = layers.fc(x, size=3 * h * d, num_flatten_dims=2,
+                        bias_attr=False, name="attn_qkv")
+        r = layers.transpose(layers.reshape(qkv, shape=[0, 0, h, 3 * d]),
+                             perm=[0, 2, 1, 3])
+        q, k, v = (layers.slice(r, axes=[3], starts=[i * d],
+                                ends=[(i + 1) * d]) for i in range(3))
+        att = layers.flash_attention(q, k, v, causal=True,
+                                     sequence_parallel=strategy)
+        loss = layers.reduce_mean(layers.square(att))
+        pt.optimizer.SGD(learning_rate=0.5).minimize(loss)
+    return main, startup, {"loss": loss}
+
+
+def _mx_builds():
+    """{part: (builder, feed name)} of 6x's programs."""
+    return {
+        "a": (lambda: build_training(dropout=0.0), "tr"),
+        "a_fce": (lambda: build_training(dropout=0.0, n_layer=MX_DPMP_LAYERS,
+                                         use_fused_ce=True), "fce"),
+        "b": (lambda: _mx_sp_program(True), "sp"),
+        "b_ulysses": (lambda: _mx_sp_program("ulysses"), "sp"),
+        "c": (lambda: build_training(dropout=0.0, pipeline=True), "tr"),
+        "d": (lambda: build_training(dropout=0.0, n_layer=CUT_LAYERS,
+                                     **MOE), "moe"),
+        "e": (lambda: build_training(dropout=0.0, n_layer=MX_DPMP_LAYERS),
+              "dpmp"),
+    }
+
+
+def _mx_feed(kind):
+    if kind == "sp":
+        n, t, h, d = (MX_SP[k] for k in "nthd")
+        return {"x": np.random.RandomState(0).randn(n, t, h * d).astype(
+            np.float32)}
+    from paddle_tpu_torch.models import transformer
+
+    return transformer.make_fake_batch(MX_BATCH, TRAIN_ARCH["max_length"],
+                                       TRAIN_ARCH["src_vocab_size"],
+                                       TRAIN_ARCH["trg_vocab_size"], seed=5)
+
+
+def _mx_steps(exe, target, feed, loss, scope, grads=(), compiled=None,
+              steps=MX_STEPS, accum=1):
+    """`steps` runs: (losses, step ms, step 1's {name: value} of
+    `grads`, the collectives each step inserted and their ms)."""
+    losses, ms, first, counts, coll_ms = [], [], {}, [], []
+    for step in range(steps):
+        fetch = [loss] + (list(grads) if step == 0 else [])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(target, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False, accumulation_steps=accum)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+        if step == 0:
+            first = dict(zip(grads, out[1:]))
+        if compiled is not None:
+            counts.append(compiled.collective_counts())
+            coll_ms.append(compiled.collective_ms())
+    return losses, ms, first, counts, coll_ms
+
+
+def _mx_baselines(dev, run_dir):
+    """The one-process runs 6x holds its ranks against, on the card:
+    each program's start values, feed, losses and step 1's gradients
+    (for (d) the port's plain version of ep = 2's grouped routing,
+    ops.moe.moe_grouped(groups=2), with its dropped choices)."""
+    import contextlib
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import moe as M
+    from paddle_tpu_torch.parallel import tensor_parallel
+    from paddle_tpu_torch.parallel.strategies import \
+        megatron_transformer_rules
+
+    place = pt.CUDAPlace(0)
+    out = {}
+    for part, kind in (("a", "tr"), ("a_fce", "fce"), ("b", "sp"),
+                       ("d", "moe"), ("e", "dpmp")):
+        build, _ = _mx_builds()[part]
+        main, startup, model = build()
+        init = pt.Scope()
+        exe = pt.Executor(place)
+        exe.run(startup, scope=init)
+        arrays = {n: v.cpu().numpy() for n, v in init.vars.items()
+                  if isinstance(v, torch.Tensor)}
+        feed = _mx_feed(kind)
+        scope = _scope_of(main, arrays, dev)
+        real = M.moe_grouped
+        if part == "d":
+            M.moe_grouped = lambda *a, **kw: real(*a, **dict(kw, groups=2))
+            M.drop_log = []
+        try:
+            losses, ms, grads, _, _ = _mx_steps(exe, main, feed,
+                                                model["loss"], scope,
+                                                grads=_grad_names(main))
+            drops = None if M.drop_log is None else \
+                [int(t) for t in M.drop_log]
+        finally:
+            M.moe_grouped, M.drop_log = real, None
+        np.savez(os.path.join(run_dir, f"{kind}_init.npz"), **arrays)
+        np.savez(os.path.join(run_dir, f"{kind}_feed.npz"), **feed)
+        np.savez(os.path.join(run_dir, f"{kind}_grad.npz"),
+                 **{n: v.cpu().numpy() for n, v in grads.items()})
+        out[kind] = {"losses": losses, "step_ms": ms, "drops": drops}
+        del scope
+        for alt_part, alt in MX_ALT.items():
+            if _mx_builds()[alt_part][1] != kind:
+                continue
+            # step 1 of (a) with the products split as mp = 2 splits
+            # them, or of (c) in its microbatches: its gradients, and
+            # their gap from the plain run's
+            main, _, model = _mx_builds()[alt_part][0]()
+            scope = _scope_of(main, arrays, dev)
+            with (tensor_parallel.activated(_SplitProducts(
+                    megatron_transformer_rules())) if alt == "split"
+                  else contextlib.nullcontext()):
+                _, _, alt_grads, _, _ = _mx_steps(
+                    exe, main, feed, model["loss"], scope,
+                    grads=_grad_names(main), steps=1,
+                    accum=MX_ACCUM if alt == "accum" else 1)
+            out[kind][f"{alt}_vs_plain"] = _grad_rel_err(alt_grads, grads)
+            np.savez(os.path.join(run_dir, f"{kind}_{alt}_grad.npz"),
+                     **{n: v.cpu().numpy() for n, v in alt_grads.items()})
+            del scope, alt_grads
+        del grads
+        torch.cuda.empty_cache()
+    with open(os.path.join(run_dir, "baselines.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+def _mx_worker_cmd(run_dir, rank, n, port, parts):
+    return [sys.executable, os.path.abspath(__file__), "--mx-worker",
+            run_dir, str(rank), str(n), str(port), ",".join(parts)]
+
+
+def mx_worker(argv) -> int:
+    """One rank of 6x: `chip_smoke.py --mx-worker DIR RANK N PORT
+    PARTS`.  Joins a gloo group of N through init_distributed on the
+    card and runs each of PARTS (6x's letters) from DIR's start values
+    and feeds; writes DIR/rank<RANK>_<N>.json (per part: losses, step
+    ms, the collectives a step and their ms, step 1's gradients against
+    DIR's one-process ones, bytes held, kernel counts)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops import moe as M
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    from paddle_tpu_torch.parallel.pipeline_engine import (StageHeld,
+                                                           stage_ownership)
+    from paddle_tpu_torch.parallel.strategies import \
+        megatron_transformer_rules
+    from torch.distributed.tensor import DTensor
+
+    import importlib
+
+    ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    run_dir, rank, n, port, parts = argv[0], int(argv[1]), int(argv[2]), \
+        int(argv[3]), argv[4].split(",")
+    _set_matmul_flags()
+    _build.build()
+    place = pt.CUDAPlace(0)
+    pt.parallel.init_distributed(trainer_id=rank, num_trainers=n,
+                                 coordinator=f"127.0.0.1:{port}",
+                                 health=False, place=place, backend="gloo")
+    dev = pt.Executor(place).device
+    heads = []
+    real_fwd = fk.flash_attention_fwd
+
+    def recording_fwd(q, k, *a, **kw):
+        layout = a[4] if len(a) > 4 else kw.get("layout", "nhtd")
+        n_head = a[5] if len(a) > 5 else kw.get("n_head")
+        heads.append(fk.dims(q, k, layout, n_head)[1])
+        return real_fwd(q, k, *a, **kw)
+
+    fk.flash_attention_fwd = recording_fwd
+    res = {"rank": rank, "parts": {}}
+
+    def held_bytes(scope, main):
+        params = {p.name for p in main.all_parameters()}
+        mine = total = 0
+        for name, v in scope.vars.items():
+            if name not in params:
+                continue
+            if isinstance(v, DTensor):
+                loc = v.to_local()
+                mine += loc.numel() * loc.element_size()
+                total += v.numel() * loc.element_size()
+            elif isinstance(v, StageHeld):
+                size = int(np.prod(v.shape)) * v.dtype.itemsize
+                total += size
+                mine += size if v.value is not None else 0
+        return mine, total
+
+    def run(part, mesh_axes, rules=None):
+        build, kind = _mx_builds()[part]
+        main, startup, model = build()
+        arrays = dict(np.load(os.path.join(run_dir, f"{kind}_init.npz")))
+        feed = dict(np.load(os.path.join(run_dir, f"{kind}_feed.npz")))
+        want = {nm: torch.from_numpy(v).to(dev) for nm, v in np.load(
+            os.path.join(run_dir, f"{kind}_grad.npz")).items()}
+        alt = MX_ALT.get(part)
+        scope = _scope_of(main, arrays, dev)
+        exe = pt.Executor(place)
+        mesh = pt.parallel.make_mesh(mesh_axes)
+        bs = pt.BuildStrategy()
+        bs.sharding_rules = rules
+        cp = pt.CompiledProgram(main).with_data_parallel(
+            loss_name=model["loss"].name, build_strategy=bs, mesh=mesh)
+        names = _grad_names(main)
+        if mesh_axes.get("pp", 1) > 1:
+            # the gradients of the parameters this rank's stage holds
+            own = stage_ownership(main, mesh_axes["pp"])
+            me = mesh.coordinate("pp")
+            names = [g for g in names if own.get(g[:-len("@GRAD")], me)
+                     == me]
+        kernels.reset_counts()
+        heads.clear()
+        ra.offset_launches.clear()
+        M.drop_log = []
+        losses, ms, grads, counts, coll_ms = _mx_steps(
+            exe, cp, feed, model["loss"], scope, grads=names, compiled=cp)
+        drops = [int(t) for t in M.drop_log]
+        M.drop_log = None
+        c = kernels.counts()
+        entry = {"losses": losses, "step_ms": ms,
+                 "collectives": counts, "collective_ms": coll_ms,
+                 "grad_rel_err": _grad_rel_err(
+                     grads, {g: want[g] for g in names}),
+                 "grad_rel_err_alt": None if alt is None else
+                 _grad_rel_err(grads, {nm: torch.from_numpy(v).to(dev)
+                                       for nm, v in np.load(os.path.join(
+                                           run_dir, f"{kind}_{alt}_grad.npz"
+                                       )).items() if nm in names}),
+                 "worst_grads": sorted(
+                     ((g, round(_grad_rel_err(grads, {g: want[g]}), 9))
+                      for g in names if float(want[g].abs().sum()) > 0),
+                     key=lambda t: -t[1])[:3],
+                 "grad_names": len(names),
+                 "held_bytes": held_bytes(scope, main),
+                 "launches": c["launches"],
+                 "plain": sum(c["plain"].values()),
+                 "composed": sum(c["composed"].values()),
+                 "flash_heads": sorted(set(heads)),
+                 "offset_launches": dict(ra.offset_launches),
+                 "drops": drops}
+        del scope, grads, want
+        torch.cuda.empty_cache()
+        return entry
+
+    megatron = megatron_transformer_rules()
+    for part in parts:
+        t0 = time.perf_counter()
+        if part == "a":
+            res["parts"]["a"] = run("a", {"mp": 2}, megatron)
+            res["parts"]["a_fce"] = run("a_fce", {"mp": 2}, megatron)
+        elif part == "b":
+            res["parts"]["b_ring"] = run("b", {"sp": 2})
+            res["parts"]["b_ulysses"] = run("b_ulysses", {"sp": 2})
+        elif part == "c":
+            res["parts"]["c"] = run("c", {"pp": 2})
+        elif part == "d":
+            res["parts"]["d"] = run("d", {"ep": 2},
+                                    megatron_transformer_rules(
+                                        moe_axis="ep"))
+        elif part == "e":
+            res["parts"]["e"] = run("e", {"dp": 2, "mp": 2}, megatron)
+        res.setdefault("seconds", {})[part] = time.perf_counter() - t0
+        print(f"part {part}: {res['seconds'][part]:.1f} s", flush=True)
+    with open(os.path.join(run_dir, f"rank{rank}_{n}.json"), "w") as f:
+        json.dump(res, f)
+    pt.parallel.shutdown_distributed()
+    print("DONE", flush=True)
+    return 0
+
+
+def phase_model_axes(dev, card):
+    """6x: (a) mp = 2 on the bench Transformer (Megatron rules), and
+    with the fused vocab CE at 2+2 layers (its kernels on the whole
+    replicated W: the rules leave `vocab_proj` unsharded), (b) sp
+    = 2 ring and Ulysses at longctx_8k's attention shape, (c) pp = 2 on
+    the pipelined bench Transformer, (d) ep = 2 on 6t's switch-MoE
+    Transformer at CUT_LAYERS + CUT_LAYERS layers, (e) dp = 2 x mp = 2 on the Transformer cut to 2+2
+    layers; every run against its one-process run."""
+    log(f"phase 6x: the model axes, ranks sharing one card ({DP_LABEL}); "
+        f"{card}")
+    run_dir = os.path.join(OUT_DIR, "mx")
+    os.makedirs(run_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    base = _mx_baselines(dev, run_dir)
+    seconds = {"baselines": time.perf_counter() - t0}
+    log(f"  one-process runs: {seconds['baselines']:.1f} s")
+    ranks = {}
+    for n, parts in ((2, MX_PARTS_2), (4, MX_PARTS_4)):
+        t0 = time.perf_counter()
+        ranks[n] = _run_workers(
+            "6x", run_dir, n,
+            lambda r, port: _mx_worker_cmd(run_dir, r, n, port, parts),
+            f"rank{{r}}_{n}", MX_WORKER_TIMEOUT_S)
+        seconds[f"{n} ranks"] = time.perf_counter() - t0
+        log(f"  {n} ranks ({', '.join(parts)}): "
+            f"{seconds[f'{n} ranks']:.1f} s with their start")
+    summary = {"label": DP_LABEL, "card": card, "baselines": base,
+               "seconds": seconds, "parts": {}}
+    kinds = {"a": "tr", "a_fce": "fce", "b_ring": "sp", "b_ulysses": "sp",
+             "c": "tr", "d": "moe", "e": "dpmp"}
+    launches = {}
+    for key, kind in kinds.items():
+        n = 4 if key == "e" else 2
+        runs = [r["parts"][key] for r in ranks[n]]
+        one = base[kind]
+        loss_err = max(abs(a - b) / abs(b) for x in runs
+                       for a, b in zip(x["losses"], one["losses"]))
+        g_err = [x["grad_rel_err"] for x in runs]
+        g_tol = TOL_MX_GRAD_RESHAPED if key in ("a", "a_fce", "c", "e") \
+            else TOL_MX_GRAD
+        alt = MX_ALT.get(key)
+        entry = {"losses": runs[0]["losses"],
+                 "one_process_losses": one["losses"],
+                 "loss_max_rel_err": loss_err, "grad_rel_err": g_err,
+                 "grad_tol": g_tol,
+                 # the cause of the gap: the one-process run split as
+                 # the ranks split their work, against the plain one
+                 # and against the ranks
+                 "alt": alt,
+                 "alt_vs_plain": None if alt is None else
+                 one[f"{alt}_vs_plain"],
+                 "grad_rel_err_alt": [x["grad_rel_err_alt"] for x in runs],
+                 "worst_grads": runs[0]["worst_grads"],
+                 "step_ms": {r: x["step_ms"] for r, x in enumerate(runs)},
+                 "collective_ms": {r: x["collective_ms"]
+                                   for r, x in enumerate(runs)},
+                 "collectives_a_step": runs[0]["collectives"][-1],
+                 "held_bytes": {r: x["held_bytes"]
+                                for r, x in enumerate(runs)},
+                 "flash_heads": runs[0]["flash_heads"],
+                 "offset_launches": {r: x["offset_launches"]
+                                     for r, x in enumerate(runs)},
+                 "launches": {r: x["launches"] for r, x in enumerate(runs)}}
+        bad = [r for r, x in enumerate(runs) if x["plain"] or x["composed"]]
+        if bad:
+            raise AssertionError(f"6x {key}: ranks {bad} made plain or "
+                                 f"composed calls")
+        if loss_err > TOL_MX_LOSS or max(g_err) > g_tol:
+            raise AssertionError(f"6x {key}: against one process: losses "
+                                 f"{loss_err:.3e} (tol {TOL_MX_LOSS:g}), "
+                                 f"step-1 gradients {g_err} (tol "
+                                 f"{g_tol:g}; worst "
+                                 f"{runs[0]['worst_grads']}; against "
+                                 f"one process {alt}: "
+                                 f"{entry['grad_rel_err_alt']})")
+        if alt is not None and max(entry["grad_rel_err_alt"]) > TOL_MX_GRAD:
+            raise AssertionError(
+                f"6x {key}: step-1 gradients against one process {alt} "
+                f"{entry['grad_rel_err_alt']} (tol {TOL_MX_GRAD:g}; "
+                f"against plain {g_err})")
+        if any(x["losses"] != runs[0]["losses"] for x in runs):
+            raise AssertionError(f"6x {key}: the ranks' losses differ")
+        if key in ("a", "a_fce", "c", "d", "e"):
+            # the sharded weights (mp, ep), the pipelined layers' (pp):
+            # each rank holds half of their bytes
+            for r, x in enumerate(runs):
+                mine, total = x["held_bytes"]
+                if not (total and 2 * mine == total):
+                    raise AssertionError(f"6x {key} rank {r}: holds "
+                                         f"{mine} of {total} bytes")
+        if key in ("a", "a_fce", "e") and runs[0]["flash_heads"] != [
+                TRAIN_ARCH["n_head"] // 2]:
+            raise AssertionError(f"6x {key}: flash launches on heads "
+                                 f"{runs[0]['flash_heads']}, want "
+                                 f"{TRAIN_ARCH['n_head'] // 2}")
+        want_counts = _mx_want_counts(key)
+        if want_counts is not None:
+            for r, x in enumerate(runs):
+                got = x["collectives"][-1]
+                if ({k: got.get(k, 0) for k in want_counts} != want_counts
+                        or got.get("all_gather", 0)):
+                    raise AssertionError(
+                        f"6x {key} rank {r}: collectives a step {got}, "
+                        f"want {want_counts} and no forward all_gather")
+        if key == "b_ring" and not runs[1]["offset_launches"]:
+            raise AssertionError("6x (b) ring: no flash launch with an "
+                                 "offset")
+        if key == "d":
+            got = [sum(x) for x in zip(*(y["drops"] for y in runs))]
+            entry["dropped_choices"] = {"ranks_summed": got,
+                                        "one_process": one["drops"]}
+            if got != one["drops"]:
+                raise AssertionError(f"6x (d): dropped choices {got} "
+                                     f"against one process's "
+                                     f"{one['drops']}")
+        for x in runs:
+            for k, v in x["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        summary["parts"][key] = entry
+        log(f"  ({key}) losses {entry['losses']} against one process "
+            f"{one['losses']} (max rel {loss_err:.3e}); step-1 gradients "
+            f"rel L2 {[f'{e:.3e}' for e in g_err]} (tol {g_tol:g}; worst "
+            f"{entry['worst_grads']})"
+            + ("" if alt is None else
+               f"; one process {alt} against plain "
+               f"{entry['alt_vs_plain']:.3e}, ranks against one process "
+               f"{alt} {[f'{e:.3e}' for e in entry['grad_rel_err_alt']]}")
+            + f"; step ms "
+            f"{ {r: [round(v, 1) for v in s] for r, s in entry['step_ms'].items()} }"
+            f"; collective ms {entry['collective_ms']}; collectives a "
+            f"step {entry['collectives_a_step']}; bytes held (mine, of) "
+            f"{entry['held_bytes']}; flash heads {entry['flash_heads']}; "
+            f"offset launches {entry['offset_launches']} ({DP_LABEL}; "
+            f"{card})")
+    summary["launches"] = launches
+    return summary
+
+
+def phase_alone(label) -> int:
+    """`chip_smoke.py --phase <label>` (PHASES_ALONE): the kernels built
+    and that phase alone; its summary to OUT_DIR/<json name>, the card
+    line and "<label> ok" last."""
     from paddle_tpu_torch.ops.kernels import _build
 
+    fn, name = PHASES_ALONE[label]
     card = card_line()
     _set_matmul_flags()
     t0 = time.perf_counter()
     built = _build.build()
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    res = phase_data_parallel(torch.device("cuda", 0), card)
-    log(f"  [6w: {time.perf_counter() - t0:.1f} s]")
+    res = fn(torch.device("cuda", 0), card)
+    log(f"  [{label}: {time.perf_counter() - t0:.1f} s]")
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "data_parallel.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(res, f, indent=1, default=str)
     print(card)
-    print("6w ok")
+    print(f"{label} ok")
     return 0
+
+
+PHASES_ALONE = {"6w": (phase_data_parallel, "data_parallel.json"),
+                "6x": (phase_model_axes, "model_axes.json")}
 
 
 def main() -> int:
@@ -8371,8 +8914,11 @@ def main() -> int:
         return trainer_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2:])
-    if sys.argv[1:] == ["--phase", "6w"]:
-        return phase_6w_alone()
+    if sys.argv[1:2] == ["--mx-worker"]:
+        return mx_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
+            sys.argv[2] in PHASES_ALONE and len(sys.argv) == 3:
+        return phase_alone(sys.argv[2])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -8499,6 +9045,7 @@ def main() -> int:
     serving_engine = timed("4f", phase_serving_engine, dev, card)
     disagg = timed("4g", phase_disagg, dev, card)
     data_parallel = timed("6w", phase_data_parallel, dev, card)
+    model_axes = timed("6x", phase_model_axes, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -8541,12 +9088,16 @@ def main() -> int:
     # Predictor and ServingEngine; the flash forward on 4g's prefill
     # workers and the paged kernel on its decode workers; the flash
     # kernels on 6w's one-rank compiled run and on both ranks of each of
-    # its modes
+    # its modes; on 6x's ranks, the flash kernels on 4 of 8 heads under
+    # mp, the ring's chunks with their q/k offsets under sp, every
+    # microbatch's stage layers under pp, and the MoE Transformer's
+    # attention under ep
     paths = (stream, spec_stream, oracle, train, train_fused, train_longctx,
              train_lstm, train_bert, train_amp, train_bert_amp, train_resume,
              train_guard, train_trainer, train_accum, train_accum_amp,
              train_recompute, train_optimizers, control_flow, moe, qat_int8,
-             detection, fleet, serving_engine, disagg, data_parallel)
+             detection, fleet, serving_engine, disagg, data_parallel,
+             model_axes)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -8607,6 +9158,7 @@ def main() -> int:
                    "serving_engine": serving_engine,
                    "disagg": disagg,
                    "data_parallel": data_parallel,
+                   "model_axes": model_axes,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

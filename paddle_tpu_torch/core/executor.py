@@ -43,7 +43,11 @@ compiled over a mesh (`parallel.CompiledProgram`) runs its step through
 the compiled program's `parallel.data_parallel.DataParallelRunner` (the
 `dp` argument below): this rank's slice of the feeds, the cross-rank
 forms of the ops that reduce over the batch, the gradient exchange, and
-the update ops on ZeRO slices.
+the update ops on ZeRO slices; on an `mp` axis every forward op through
+the tensor-parallel run `TP_RUN` holds (`_run_one_op`), and on a `pp`
+axis each pipeline_scope group as the GPipe schedule
+(`_run_forward_pipelined`, `run_ops`), as the reference's run_ops
+lifts it (:125-180).
 
 The in-step pieces run in the reference's order
 (paddle_tpu/core/executor.py:431-617), each only when the program opted
@@ -85,6 +89,7 @@ when the caller asks for it.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -106,6 +111,11 @@ RNG_STATE_VAR = "__rng_key__"
 # Optimizer ops with a sparse (SelectedRows) branch; every other op sees
 # densified gradients (the reference's SPARSE_AWARE_OPS).
 SPARSE_AWARE_OPS = {"sgd", "momentum", "adam", "adagrad"}
+
+# The tensor-parallel run of the forward being interpreted
+# (parallel/tensor_parallel.py sets it), None off an `mp` mesh.
+TP_RUN: contextvars.ContextVar = contextvars.ContextVar(
+    "paddle_tpu_torch_tp_run", default=None)
 
 # Folded into the seed material of micro-batch k under gradient
 # accumulation as 31337 + k (the reference's fold_in(key, 31337 + idx)).
@@ -210,17 +220,35 @@ def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
     update ops on ZeRO slices), None off a mesh."""
     device = _run_device(device)
     amp_lists = getattr(program, "_amp_lists", None)
-    for i, op in enumerate(ops):
+    groups = {}
+    if dp is not None and dp.pp_active:
+        from ..parallel.pipeline_engine import pipeline_groups
+
+        groups = dict(pipeline_groups(ops))
+    i = 0
+    while i < len(ops):
+        if i in groups:
+            # a pipeline_scope group on a pp mesh: the GPipe schedule
+            dp.run_pipelined(ops[i:groups[i]], env, seed, start_index + i,
+                             program, device, amp_lists)
+            i = groups[i]
+            continue
+        op, index = ops[i], start_index + i
+        i += 1
+        if dp is not None and dp.absent and any(
+                n in dp.absent for n in op.desc.input_names()):
+            # an update op of a pipelined layer another pp stage holds
+            continue
         ref = dp.sliced_ref(op.desc) if dp is not None else None
         if ref is not None:
-            def run_one(o, e, group, _i=start_index + i):
+            def run_one(o, e, group, _i=index):
                 _run_one_op(o, e, seed, _i, program=program, device=device,
                             amp_lists=amp_lists, row_block=row_block,
                             cross_rank=group)
 
             dp.run_update_op(op, env, ref, run_one)
             continue
-        _run_one_op(op, env, seed, start_index + i, program=program,
+        _run_one_op(op, env, seed, index, program=program,
                     device=device, amp_lists=amp_lists,
                     row_block=row_block,
                     cross_rank=(dp.cross_rank_for(op.desc)
@@ -263,7 +291,16 @@ def _run_one_op(op, env, seed, op_index, program=None, device=None,
                         device=device, amp_lists=amp_lists,
                         sparse_rows=sparse_rows, row_block=row_block,
                         cross_rank=cross_rank)
-        outs = impl(ctx, ins, desc.attrs)
+        tp_run = TP_RUN.get()
+        if tp_run is None:
+            outs = impl(ctx, ins, desc.attrs)
+        else:
+            # a tensor-parallel forward: the op on this rank's shards
+            def call(i, a, mp=None):
+                ctx.mp = mp
+                return impl(ctx, i, a)
+
+            outs = tp_run.run_op(desc, ins, desc.attrs, call)
     except Exception as exc:
         _reraise_with_op_context(exc, desc, op_index)
     for slot, names in desc.outputs.items():
@@ -363,12 +400,15 @@ def interpret_program(program: Program, env: Dict[str, Any], seed,
     device = _run_device(device)
     if program._backward_info is None:
         ops = _pruned(program, fetch_names)
-        if dp is not None:
-            listed = list(enumerate(ops))
-            dp.classify(program, listed, env, feed_names)
-            dp.check_plan(program, listed, set(fetch_names))
-        return run_ops(ops, env, seed, program=program, device=device,
-                       row_block=row_block, dp=dp)
+        if dp is None:
+            return run_ops(ops, env, seed, program=program, device=device,
+                           row_block=row_block)
+        listed = list(enumerate(ops))
+        dp.classify(program, listed, env, feed_names)
+        dp.check_plan(program, listed, set(fetch_names))
+        with dp.model_run():
+            return run_ops(ops, env, seed, program=program, device=device,
+                           row_block=row_block, dp=dp)
     return _train_step(program, env, seed, device, fetch_names,
                        accum_steps, feed_names, dp=dp)
 
@@ -436,17 +476,29 @@ def _forward_keep(program: Program, fetch_names):
 
 
 def _run_forward(fwd_ops, live, env, seed, device, program, rows,
-                 amp_lists, keep, dp=None):
+                 amp_lists, keep, dp=None, pipelined=True):
     """Run the live forward ops over env, each under its program index.
     With grad enabled, each maximal run of consecutive live ops sharing
     a `__recompute__` tag (two ops or more: a 1-op run saves nothing)
     runs as one checkpointed segment (`_run_segment`) that returns only
     the names read after it — the suffix read-sets over the live list
     and `keep` (the reference's run_ops, :139-226).  Pipeline tags are
-    inert: those ops run in order.  A macro (control-flow) op never
-    joins a segment (the reference's run_ops, :200-204)."""
+    inert off a pp mesh (and with `pipelined` False, between the groups
+    `_run_forward_pipelined` runs): those ops run in order.  A macro
+    (control-flow) op never joins a segment (the reference's run_ops,
+    :200-204)."""
+    if pipelined and dp is not None and dp.pp_active:
+        from ..parallel.pipeline_engine import pipeline_groups
+
+        groups = pipeline_groups([fwd_ops[i] for i in live])
+        if groups:
+            _run_forward_pipelined(fwd_ops, live, env, seed, device,
+                                   program, rows, amp_lists, keep, dp,
+                                   groups)
+            return env
     tags = [None if is_macro_op(fwd_ops[i].desc.type)
             else fwd_ops[i].desc.attrs.get("__recompute__") for i in live]
+
     def cross(op):
         return dp.cross_rank_for(op.desc) if dp is not None else None
 
@@ -482,6 +534,43 @@ def _run_forward(fwd_ops, live, env, seed, device, program, rows,
                             fwd_ops[live[p]]))
         p = q
     return env
+
+
+def _run_forward_pipelined(fwd_ops, live, env, seed, device, program, rows,
+                           amp_lists, keep, dp, groups):
+    """`_run_forward` on a pp mesh: each pipeline_scope group of the
+    live ops (`groups`, index pairs into `live`) runs as the GPipe
+    schedule (parallel/pipeline_engine.py), the ops between them as
+    usual.  The numerics bitmap stays out of the schedule; the group's
+    ops set their bits from their outputs after it, as the reference's
+    run_ops does."""
+    # the names read at or after each group's start and end
+    reads_from, acc = {}, set(keep)
+    marks = {k for pair in groups for k in pair}
+    for j in range(len(live), -1, -1):
+        if j < len(live):
+            acc.update(fwd_ops[live[j]].desc.input_names())
+        if j in marks:
+            reads_from[j] = set(acc)
+    p = 0
+    for i, j in groups + [(len(live), len(live))]:
+        if i > p:
+            _run_forward(fwd_ops, live[p:i], env, seed, device, program,
+                         rows, amp_lists, reads_from.get(i, set(keep)), dp,
+                         pipelined=False)
+        if i == j:
+            break
+        bits = env.pop(NUMERICS_BITS_VAR, None)
+        dp.run_pipelined([fwd_ops[k] for k in live[i:j]], env, seed,
+                         live[i], program, device, amp_lists,
+                         downstream_reads=reads_from[j])
+        if bits is not None:
+            for k in live[i:j]:
+                bits = _obs_num.update_bits(
+                    bits, k, [env[n] for n in fwd_ops[k].desc.output_names()
+                              if n in env])
+            env[NUMERICS_BITS_VAR] = bits
+        p = j
 
 
 def _run_segment(seg, env, seed, device, program, rows, amp_lists, keep,
@@ -558,7 +647,11 @@ def _forward_backward(program, env, seed, device, fwd_ops, live, dense,
     leaves = [env[p].detach().requires_grad_() for p in dense]
     rows = {i: gather_rows(env[tbl], env[ids_n], pad).detach()
             .requires_grad_() for i, tbl, ids_n, pad in lookups}
-    with torch.enable_grad():
+    model_run = dp.model_run() if dp is not None \
+        else contextlib.nullcontext()
+    # a tensor-parallel run stays active through the backward, where a
+    # recompute segment runs its ops again
+    with torch.enable_grad(), model_run:
         fenv = dict(env)
         fenv.update(zip(dense, leaves))
         _run_forward(fwd_ops, live, fenv, seed, device, program, rows,
@@ -623,8 +716,11 @@ def _train_step(program: Program, env: Dict[str, Any], seed, device,
         dp.plan = None
     # accumulation takes the dense path for every table (the
     # reference's :551-552: SparseGrads do not sum across micro-batches)
-    lookups = (_find_sparse_lookups(fwd_ops, live, set(params), env)
-               if accum_steps <= 1 else [])
+    # a table sharded over a model axis takes the dense gradient
+    lookups = (_find_sparse_lookups(
+        fwd_ops, live, set(params) - (dp.model_sharded() if dp is not None
+                                      else set()), env)
+        if accum_steps <= 1 else [])
     sparse_tables = {tbl for _, tbl, _, _ in lookups}
     dense = [p for p in params if p not in sparse_tables]
     trainable = {p: env[p] for p in params}   # the pre-update values
@@ -911,7 +1007,7 @@ class Executor:
         feeds = {name: self._to_tensor(value, block, name)
                  for name, value in (feed or {}).items()}
         if dp is not None:
-            dp.prepare_state(program, scope)
+            dp.prepare_state(program, scope, self.device)
             feeds = dp.shard_feeds(feeds, accum_steps)
         # one dispatch in runtime_stats, with its host time: on a card
         # the time to enqueue the step's kernels, not the device time
@@ -919,6 +1015,8 @@ class Executor:
             for _ in range(iterations):
                 env = self._run_once(program, scope, feeds, fetch_names,
                                      accum_steps, dp)
+        if dp is not None:
+            dp.end_step()
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch target(s) {missing} were not computed "
@@ -949,6 +1047,9 @@ class Executor:
                 env[v.name] = scope.find_var(v.name)
                 if dp is not None:
                     env[v.name] = dp.load_state(v.name, env[v.name])
+                    if env[v.name] is None:
+                        # a pipelined layer's state another pp stage holds
+                        del env[v.name]
         tel_var = _obs_metrics.TELEMETRY_VAR
         if getattr(program, "_telemetry_enabled", False):
             tel = scope.find_var(tel_var)

@@ -131,6 +131,11 @@ class OpContext:
     (which draws the global batch's mask and keeps its rows) and to an
     update op running on ZeRO slices (`lars_momentum` sums its norms
     over the slice's group); parallel/data_parallel.py.
+
+    `mp` (None: off) is the tensor-parallel run a handler of
+    parallel/tensor_parallel.py hands to an op that takes its sharded
+    weights as they are (`moe_ffn` with each expert's hidden dim over
+    mp).
     """
 
     def __init__(self, seed=None, op_index: int = 0, is_test: bool = False,
@@ -138,6 +143,7 @@ class OpContext:
                  amp_lists=None, row_block=None, cross_rank=None):
         self._seed = seed
         self.cross_rank = cross_rank
+        self.mp = None
         self.op_index = op_index
         self.is_test = is_test
         self.program = program

@@ -473,6 +473,7 @@ def prepare_sharded_save(executor: Executor, dirname: str,
     from torch.distributed.tensor import DTensor
 
     from .core.program import default_main_program
+    from .parallel.pipeline_engine import StageHeld
 
     t0 = time.perf_counter()
     program = main_program or default_main_program()
@@ -486,8 +487,16 @@ def prepare_sharded_save(executor: Executor, dirname: str,
         val = scope.find_var(v.name)
         if val is None:
             raise RuntimeError(f"variable {v.name!r} has no value in scope")
-        owners = _shard_owners(val)
-        local = val.to_local() if isinstance(val, DTensor) else val
+        if isinstance(val, StageHeld):
+            # a pipelined layer's state: one whole shard, written by the
+            # lowest rank of its pp stage
+            owners = {tuple((0, int(d)) for d in val.shape):
+                      val.owner_rank()}
+            local = val.value if val.value is not None else torch.empty(
+                (1,), dtype=val.dtype)
+        else:
+            owners = _shard_owners(val)
+            local = val.to_local() if isinstance(val, DTensor) else val
         shards_meta = []
         arr = None
         for si, (key, owner) in enumerate(sorted(owners.items())):
@@ -720,21 +729,24 @@ def _load_spec_fn(program, mesh, sharding_rules):
 
 
 def _load_slice(meta, files, dirname, mesh, dims, device):
-    """This rank's slice of a sharded variable, as a DTensor."""
+    """This rank's slice of a sharded variable, as a DTensor: `dims`
+    [(dim, axis)] (several dims over their own axes: a model axis beside
+    a data axis, or two model axes)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    if len(dims) > 1:
-        raise NotImplementedError(
-            f"a spec sharding several dims {dims}: ROADMAP A step 10b")
-    (dim, axis), = dims
+    axes = [a for _, a in dims]
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"a spec sharding two dims over one axis: {dims}")
     shape = tuple(meta["shape"])
-    size, coord = mesh.shape[axis], mesh.coordinate(axis)
-    step = shape[dim] // size
-    index = tuple(slice(coord * step, (coord + 1) * step) if d == dim
-                  else slice(0, s) for d, s in enumerate(shape))
-    local = _to_device(_assemble_index(meta, files, dirname, index),
+    index = [slice(0, s) for s in shape]
+    for dim, axis in dims:
+        size, coord = mesh.shape[axis], mesh.coordinate(axis)
+        step = shape[dim] // size
+        index[dim] = slice(coord * step, (coord + 1) * step)
+    local = _to_device(_assemble_index(meta, files, dirname, tuple(index)),
                        meta["dtype"], device)
-    placements = [Shard(dim) if a == axis else Replicate()
+    by_axis = {a: d for d, a in dims}
+    placements = [Shard(by_axis[a]) if a in by_axis else Replicate()
                   for a in mesh.axis_names]
     return DTensor.from_local(local.contiguous(), mesh.device_mesh,
                               placements, run_check=False,

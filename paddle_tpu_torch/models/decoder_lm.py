@@ -298,6 +298,22 @@ class DecoderLM:
                     sshape, dtype=torch.float32, device=device)
         return pools
 
+    def pool_specs(self, num_pages, page_size):
+        """{name: (shape, torch dtype)} of fresh_pools' tensors, without
+        allocating them (the reference's ShapeDtypeStructs: a memory gate
+        sizes the pool before any device allocation exists)."""
+        dt = _POOL_DTYPES[self.kv_dtype]
+        specs = {}
+        for i in range(self.n_layer):
+            shape = (int(num_pages), int(page_size), self.d_model)
+            specs[f"kv_k_{i}"] = (shape, dt)
+            specs[f"kv_v_{i}"] = (shape, dt)
+            if self.int8_kv:
+                ss = (int(num_pages), int(page_size), 1)
+                specs[f"kv_ks_{i}"] = (ss, torch.float32)
+                specs[f"kv_vs_{i}"] = (ss, torch.float32)
+        return specs
+
     def cache_feed_names(self):
         names = []
         for i in range(self.n_layer):

@@ -3,7 +3,13 @@
 
 Q/K/V arrive (N, H, T, D) — or, with layout="nthd" + the n_head attr,
 head-grouped (N, T, H*D), what the attn_qkv projection emits — plus an
-optional additive Bias.  Two routes, chosen by the bias's shape alone,
+optional additive Bias.  With `sequence_parallel` (True/"ring" or
+"ulysses") under a CompiledProgram whose mesh has an `sp` axis, the op
+runs ring or Ulysses attention over that axis (parallel/
+ring_attention.py, each chunk through the flash kernels), with the
+reference's refusals of a bias, of a T the axis does not divide and
+(Ulysses) of a head count it does not divide.  Otherwise two routes,
+chosen by the bias's shape alone,
 as the reference's `_kernel_bias_ok` chooses (paddle_tpu/ops/
 attention.py:151-172):
 
@@ -101,10 +107,7 @@ def flash_attention(ctx, ins, attrs):
     if strategy not in (False, None, True, "ring", "ulysses"):
         raise ValueError(f"sequence_parallel must be True/'ring'/"
                          f"'ulysses', got {strategy!r}")
-    # sequence parallelism needs a mesh with an sp axis, which the port
-    # does not have yet: like the reference without one, fall through
-    # to the local kernel
-    n, h, _, t_k, d = fk.dims(q, k, layout, n_head)
+    n, h, t_q, t_k, d = fk.dims(q, k, layout, n_head)
     scale = attrs.get("scale")
     if scale is None:
         scale = d ** -0.5
@@ -113,6 +116,17 @@ def flash_attention(ctx, ins, attrs):
         o, _lse = fk.flash_attention_fwd(q, k, v, bias, scale, causal,
                                          layout=layout, n_head=n_head)
         return out(Out=o)
+    if strategy not in (False, None):
+        # the long-context path under a CompiledProgram whose mesh has an
+        # sp axis (parallel/ring_attention.py); without one the tags fall
+        # through to the local kernel, as in the reference
+        from ..parallel.mesh import get_executing_mesh
+
+        mesh = get_executing_mesh()
+        if mesh is not None and mesh.shape.get("sp", 1) > 1:
+            return out(Out=_sequence_parallel(q, k, v, bias, mesh, strategy,
+                                              scale, causal, layout, h,
+                                              t_q))
     if (bias is not None and not fk.key_bias_ok(bias, n, t_k)) or (
             not attrs.get("use_pallas") and kernels.on_card(q)
             and not fk.kernel_takes(q, k, v, d)):
@@ -122,6 +136,35 @@ def flash_attention(ctx, ins, attrs):
     o, _lse = fk.flash_attention(q, k, v, bias, scale, causal, layout,
                                  n_head)
     return out(Out=o)
+
+
+def _sequence_parallel(q, k, v, bias, mesh, strategy, scale, causal,
+                       layout, h, t_q):
+    """flash_attention(sequence_parallel=...) on an sp mesh, with the
+    reference's three refusals (paddle_tpu/ops/attention.py:103-125)."""
+    if bias is not None:
+        raise ValueError(
+            "sequence_parallel flash_attention does not take an additive "
+            "Bias: ring attention supports causal masking only — drop "
+            "padding bias (full-length sequences / packed batches) or "
+            "disable sequence_parallel")
+    sp = mesh.shape["sp"]
+    if t_q % sp != 0:
+        raise ValueError(
+            f"sequence_parallel flash_attention: sequence length {t_q} "
+            f"must be divisible by the sp axis size ({sp}) — pad T to a "
+            f"multiple")
+    strategy = "ring" if strategy is True else strategy
+    if strategy == "ulysses" and h % sp != 0:
+        raise ValueError(
+            f"ulysses sequence_parallel: the sp axis ({sp}) must divide "
+            f"n_head ({h}) — use 'ring' for head counts below the sp "
+            f"degree")
+    from ..parallel.ring_attention import sequence_parallel_attention
+
+    return sequence_parallel_attention(q, k, v, mesh, strategy, scale,
+                                       causal, layout,
+                                       h if layout == "nthd" else None)
 
 
 @register_op("fused_vocab_softmax_ce")

@@ -174,6 +174,27 @@ def all_to_all(x, mesh, axis: str, split_dim: int, concat_dim: int):
     return torch.cat(list(recv.unbind(0)), dim=concat_dim)
 
 
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all` over `axis`; the backward the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.cfg = (mesh, axis, split_dim, concat_dim)
+        return all_to_all(x.contiguous(), mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.cfg
+        return (all_to_all(g.contiguous(), mesh, axis, concat_dim,
+                           split_dim), None, None, None, None)
+
+
+def all_to_all_grad(x, mesh, axis: str, split_dim: int, concat_dim: int):
+    """`all_to_all` inside autograd: its cotangent takes the inverse
+    exchange (Ulysses, ep's dispatch and combine)."""
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
 def barrier(mesh, axis: str):
     """Synchronization barrier (the reference's send_barrier /
     fetch_barrier ops): a one-element all-reduce every backend runs.

@@ -12,8 +12,14 @@ reference's explicit per-rank exchange.  Optimizer state on a ZeRO axis
 (`fsdp`), and every state var under `ReduceStrategy.Reduce`, is held
 sliced over the mesh.
 
-The model axes (`mp`, `sp`, `pp`, `ep` of size > 1) are ROADMAP A step
-10b and raise.  `compiled_step`/`compiled_hlo_text` return XLA objects
+The model axes run on the same runner: `mp` as Megatron tensor
+parallelism (parallel/tensor_parallel.py, the rules' specs), `sp` in
+the flash op's ring/Ulysses route (parallel/ring_attention.py), `pp`
+as the GPipe schedule of pipeline_scope groups (parallel/
+pipeline_engine.py, `BuildStrategy.pipeline_microbatches`), `ep` in
+moe_ffn's grouped routing and all-to-alls (ops/moe.py); pp x mp is the
+reference's designed PipelineStructureError.
+`compiled_step`/`compiled_hlo_text` return XLA objects
 in the reference; the port compiles no step, and its cost plane is
 ROADMAP A step 11.
 """
@@ -81,7 +87,7 @@ class BuildStrategy:
         # K-micro-batch gradient accumulation (reference:
         # ir/multi_batch_merge_pass.cc)
         self.gradient_accumulation_steps = 1
-        # GPipe microbatch count (pp axis: ROADMAP A step 10b)
+        # GPipe microbatch count on a pp axis (0: 2 x pp, or pp)
         self.pipeline_microbatches = 0
         # explicit gradient synchronization (strategies.GradSyncConfig or
         # a mode string): None computes the global-batch program; "int8"
@@ -172,13 +178,7 @@ class CompiledProgram:
             self._mesh = make_mesh({"dp": 1})
             if self._rules is None:
                 self._rules = ShardingRules()
-        model = {a: s for a, s in self._mesh.shape.items()
-                 if s > 1 and a in MODEL_AXES}
-        if model:
-            raise NotImplementedError(
-                f"a mesh with the model axes {model} (Megatron mp, "
-                f"sequence sp, pipeline pp, expert ep) is not ported yet: "
-                f"ROADMAP A step 10b")
+
 
     # -- execution -------------------------------------------------------
     def run(self, executor, feed: Dict[str, Any], fetch_names, scope,
@@ -201,6 +201,19 @@ class CompiledProgram:
             return executor._run_program(
                 self._program, feed, fetch_names, scope, return_numpy,
                 iterations, accum, dp=self._runner)
+
+    def collective_counts(self) -> Dict[str, int]:
+        """The collectives the model axes inserted in the last step, by
+        kind (tensor parallelism: "all_reduce", "all_reduce_bwd",
+        "all_reduce_max", "all_gather", "all_gather_bwd"); empty off
+        an mp axis."""
+        tp = None if self._runner is None else self._runner.tp
+        return {} if tp is None else dict(tp.last_counts)
+
+    def collective_ms(self) -> float:
+        """Host milliseconds the last step spent in those collectives."""
+        tp = None if self._runner is None else self._runner.tp
+        return 0.0 if tp is None else tp.last_ms
 
     def compiled_step(self, *args, **kwargs):
         raise NotImplementedError(

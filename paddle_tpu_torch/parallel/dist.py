@@ -13,7 +13,7 @@ fluid_benchmark.py:63-110): PADDLE_TRAINER_ID, PADDLE_TRAINERS,
 PADDLE_COORDINATOR, PADDLE_TRAINER_ENDPOINTS.
 
 Multi-GPU NCCL across cards is unverified: the port has been run on
-one card (ROADMAP A step 10b).
+one card, several ranks sharing it over gloo.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ the port wraps the DeviceMesh instead of overriding it (ROADMAP C16).
 
 Conventional axis names: "dp" (data), "fsdp" (data with sharded
 optimizer state), "mp" (tensor/model), "sp" (sequence), "pp" (pipeline),
-"ep" (expert).  The model axes are ROADMAP A step 10b.
+"ep" (expert).  Every process group a mesh's code asks for is made
+with the mesh: one a single axis (the DeviceMesh's) and one for each
+set of several axes short of the whole mesh (`Mesh.group`), so a data
+group beside a model axis exists on every rank.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ class Mesh:
     too (`member` False) and must not run a step on it."""
 
     def __init__(self, axes: Dict[str, int], device_mesh=None,
-                 ranks=None, whole_group=None):
+                 ranks=None, whole_group=None, groups=None):
         self.shape: Dict[str, int] = {str(k): int(v) for k, v in
                                       axes.items()}
         self.axis_names = tuple(self.shape)
@@ -43,6 +46,8 @@ class Mesh:
             list(range(n)) if ranks is None else list(ranks)).reshape(
                 tuple(self.shape.values()))
         self._whole_group = whole_group
+        # (axes in mesh order) -> this rank's group over those axes
+        self._groups = dict(groups or {})
 
     @property
     def size(self) -> int:
@@ -86,12 +91,11 @@ class Mesh:
             return None
         if n == self.size:
             return self._whole_group
-        if len(axes) == 1:
-            return self.device_mesh.get_group(axes[0])
-        raise NotImplementedError(
-            f"a process group over the axes {axes} of a mesh "
-            f"{self.shape} (a data group beside a model axis) is ROADMAP "
-            f"A step 10b")
+        live = tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+        if len(live) == 1:
+            return self.device_mesh.get_group(live[0])
+        return self._groups[live]
 
     def get_group(self, axis: str):
         return self.group(axis)
@@ -136,7 +140,33 @@ def make_mesh(axes: Dict[str, int], devices=None) -> Mesh:
         tuple(int(v) for v in axes.values())),
         mesh_dim_names=tuple(axes))
     whole = dist.group.WORLD if n == world else dist.new_group(ranks)
-    return Mesh(axes, dm, ranks, whole)
+    return Mesh(axes, dm, ranks, whole, _axis_set_groups(axes, ranks))
+
+
+def _axis_set_groups(axes: Dict[str, int], ranks) -> dict:
+    """This rank's process group over each set of two or more axes
+    (larger than 1) short of the whole mesh: the ranks that share this
+    rank's coordinates on every other axis.  `new_group` is collective,
+    so every rank of the group makes every block, in one order."""
+    import itertools
+
+    import torch.distributed as dist
+
+    names = [a for a in axes if axes[a] > 1]
+    grid = np.asarray(ranks).reshape(tuple(int(v) for v in axes.values()))
+    me = dist.get_rank()
+    out = {}
+    for k in range(2, len(names)):
+        for subset in itertools.combinations(names, k):
+            keep = [list(axes).index(a) for a in subset]
+            blocks = np.moveaxis(grid, keep, list(range(
+                grid.ndim - len(keep), grid.ndim))).reshape(
+                    -1, int(np.prod([axes[a] for a in subset])))
+            for block in blocks:
+                g = dist.new_group([int(r) for r in block])
+                if me in block:
+                    out[subset] = g
+    return out
 
 
 _default_mesh: Optional[Mesh] = None

@@ -21,7 +21,9 @@ layers.switch_moe and the MoE Transformer against the JAX package.
   top-2 within one float32 ulp of the sum of the two choices' |terms|
   (the two products added in another order; where they cancel, that
   is more than an ulp of the result).
-- moe_ffn on a mesh with an `ep` axis raises naming ROADMAP A step 10b.
+- An ep mesh's grouped routing as a one-process function
+  (`ops.moe.moe_grouped`, G = 1 the op bit for bit); the ep route
+  itself is tests/test_torch_moe_ep.py's.
 - A tiny MoE Transformer (2+2 layers, d_model 64, 4 experts, T = 16,
   batch 4, dropout 0): both programs' `to_dict()` equal; the expert
   weights (E, D, H) / (E, H, D) and their (E, H) / (E, D) biases carry
@@ -302,14 +304,23 @@ def test_index_route_is_the_einsum_form(top_k, cf, monkeypatch):
 
 
 def test_ep_mesh_raises_naming_step_10():
-    ins = {k: [torch.as_tensor(v)] for k, v in _moe_ins(1).items()}
+    """An ep mesh routes in G = ep token groups (ops.moe.moe_grouped,
+    whose G = 1 is the op off an ep mesh, bit for bit); a token count
+    ep does not divide is the reference's error.  The ep route itself
+    runs in tests/test_torch_moe_ep.py."""
+    from paddle_tpu_torch.ops import moe as M
+
+    raw = {k: torch.as_tensor(v) for k, v in _moe_ins(1).items()}
+    ins = {k: [v] for k, v in raw.items()}
     ctx = OpContext((0, 0), 0, device="cpu")
-    ctx.mesh = types.SimpleNamespace(shape={"dp": 2, "ep": 4})
-    with pytest.raises(NotImplementedError, match="A step 10"):
-        get_op_impl("moe_ffn")(ctx, ins, {"top_k": 1})
-    ctx.mesh = types.SimpleNamespace(shape={"dp": 8})   # no ep: one group
     out = get_op_impl("moe_ffn")(ctx, ins, {"top_k": 1})
     assert out["Out"][0].shape == (24, 8)
+    args = [raw[k] for k in ("X", "GateW", "W1", "B1", "W2", "B2")]
+    one = M.moe_grouped(*args, top_k=1)
+    assert torch.equal(one[0], out["Out"][0])
+    assert M.moe_grouped(*args, top_k=1, groups=4)[0].shape == (24, 8)
+    with pytest.raises(ValueError, match="divisible by ep"):
+        M.moe_grouped(*args, top_k=1, groups=5)
 
 
 # -- the MoE Transformer ----------------------------------------------------

@@ -5,7 +5,8 @@ joins the harness's TCPStore at 127.0.0.1:PORT, starts the gloo process
 group — on that store ("store") or through
 `paddle_tpu_torch.parallel.init_distributed` from the PADDLE_* env
 variables ("env") — then runs the cases the harness posts, one after
-another, each a function of `tests/torch_dp_cases.py` called on every
+another, each a function of `tests/torch_dp_cases.py` (or, named
+"module:function", of another case module beside it) called on every
 rank, until it is told to stop or the harness goes away.  Imports
 torch, numpy and the port only.
 """
@@ -59,7 +60,13 @@ def main():
             break
         fn, kwargs = req
         try:
-            res = ("ok", getattr(cases, fn)(rank=rank, world=n, **kwargs))
+            mod = cases
+            if ":" in fn:
+                import importlib
+
+                name, fn = fn.split(":")
+                mod = importlib.import_module(name)
+            res = ("ok", getattr(mod, fn)(rank=rank, world=n, **kwargs))
         except BaseException:  # noqa: BLE001 — reported to the harness
             res = ("err", traceback.format_exc())
         ctl.set(f"g{gen}/result/{k}/{rank}", pickle.dumps(res))

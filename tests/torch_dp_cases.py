@@ -235,13 +235,14 @@ def _logical(main, scope):
     """Every persistable var's logical value as numpy (a DTensor's
     gather is collective: every rank calls this)."""
     from paddle_tpu_torch.parallel.data_parallel import logical_value
+    from paddle_tpu_torch.parallel.pipeline_engine import StageHeld
 
     out = {}
     for v in sorted(main.list_vars(), key=lambda v: v.name):
         if not v.persistable:
             continue
         val = scope.find_var(v.name)
-        if isinstance(val, torch.Tensor):
+        if isinstance(val, (torch.Tensor, StageHeld)):
             out[v.name] = logical_value(val).detach().cpu().numpy().copy()
     return out
 
