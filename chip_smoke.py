@@ -225,12 +225,12 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    vocabulary; `CheckpointConfig(step_interval=2, async_save=True,
    max_num_checkpoints=2)`, `TelemetryConfig(interval=2)`,
    `step_deadline_s`, `preempt_drain=True`; each run a process of its
-   own (`python3 chip_smoke.py --trainer-worker DIR ...`): first an
-   uninterrupted control alone on the card (the phase's step and save
-   timings: each save's blocking time against its background write, the
-   step with and without a write in flight, the goodput categories,
-   which must sum to the wall); then, side by side, a run SIGKILLed
-   while its second async write is in flight (the writes held 2 s by
+   own (`python3 chip_smoke.py --trainer-worker DIR ...`), three side
+   by side on the card: an uninterrupted control (the phase's step and
+   save timings, shared card: each save's blocking time against its
+   background write, the step with and without a write in flight, the
+   goodput categories, which must sum to the wall), a run SIGKILLed
+   while its second async write is in flight (the writes held 1 s by
    the chaos delaypoint), relaunched, and a run SIGTERMed after 6
    steps, which drains to an emergency checkpoint and exits with
    PREEMPT_EXIT_CODE, relaunched.  Each relaunch's final checkpoint (the
@@ -397,8 +397,21 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    process's global batch on the card: losses and every batch norm's
    moving statistics within TOL_RESNET_LOSS and TOL_RESNET_STATS
    (`chip_smoke.py --phase 6w` builds the kernels and runs 6w alone);
+6y. the cost, memory and trace planes (run after 7d): (a) the bench
+   Transformer's steps under `fluid.profiler.profiler`, the per-op
+   table's top rows, every flash kernel's device time on a
+   flash_attention row, forward and backward, `[unattributed]` and the
+   table's total against phase 6's own profile; (b) `op_cost_table`
+   joined to a profiled step, unfused and fused CE, the kernel ops at
+   the registry's flops, no row above the card's peak, the step's flops
+   and MFU, card against CPU per-op flops at 2+2 layers; (c) the memory
+   ledger against the allocator, `plan_fit` at batch 64 from probes 2
+   and 4 against the allocator, the scope, run counter and counts
+   untouched; (d) the ServingEngine's and DecodeEngine's gates on the
+   card's budget; (e) the stacked LSTM's rows, card and CPU
+   (`chip_smoke.py --phase 6y` runs it alone);
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6w and 4e-4g included), the card line, and as its last line
+   6l-6y and 4e-4g included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -3949,7 +3962,7 @@ def phase_guard(dev, card):
 TRAINER_BATCHES = 8
 TRAINER_NAN_AT = 3
 TRAINER_STEP_DEADLINE_S = 30.0   # the steady-state step budget
-TRAINER_SLOW_WRITE_S = 2.0       # 6n's SIGKILL victim: writes held 2 s
+TRAINER_SLOW_WRITE_S = 1.0       # 6n's SIGKILL victim: writes held 1 s
 TRAINER_KILL_AT = 4              # ... killed once serial 1 is in flight
 TRAINER_TERM_AT = 6              # 6n's SIGTERM victim: after 6 steps,
 TRAINER_TERM_PACE_S = 0.3        # each step's handler held 0.3 s so the
@@ -4389,7 +4402,8 @@ def _trainer_line(s):
 
 def _kill_chain(root, control, lock):
     """A worker SIGKILLed once its second save is in flight (its writes
-    held TRAINER_SLOW_WRITE_S), then relaunched to its end."""
+    held TRAINER_SLOW_WRITE_S), then relaunched to its end; `control()`
+    waits for the control's run."""
     import signal as _signal
 
     run_dir = os.path.join(root, "sigkill")
@@ -4406,13 +4420,14 @@ def _kill_chain(root, control, lock):
         raise AssertionError("6n: the relaunch counted no replay")
     return [relaunch], dict(
         _trainer_summary(relaunch), victim_rc=rc,
-        **_compare_runs(root, "sigkill", control, relaunch, lock))
+        **_compare_runs(root, "sigkill", control(), relaunch, lock))
 
 
 def _term_chain(root, control, lock):
     """A worker SIGTERMed after TRAINER_TERM_AT steps: it drains to an
     emergency checkpoint and exits with PREEMPT_EXIT_CODE; relaunched
-    to its end with `--checks`."""
+    to its end with `--checks`; `control()` waits for the control's
+    run."""
     import signal as _signal
 
     from paddle_tpu_torch.resilience import PREEMPT_EXIT_CODE
@@ -4444,17 +4459,18 @@ def _term_chain(root, control, lock):
         drain_s=done["ts"] - drain["ts"],
         emergency_snapshot_ms=emerg["snapshot_ms"],
         emergency_write_ms=emerg["write_ms"], checks=relaunch["checks"],
-        **_compare_runs(root, "sigterm", control, relaunch, lock))
+        **_compare_runs(root, "sigterm", control(), relaunch, lock))
 
 
 def phase_trainer(dev, card):
     """6n: contrib.Trainer over phase 6l's AMP fused-CE Transformer, each
-    run a `chip_smoke.py --trainer-worker` process on the card.  First an
-    uninterrupted control, alone on the card (its timings are the
-    phase's step and save figures); then, side by side, two chains that
-    must end in the control's state (`_compare_runs`): `_kill_chain`
-    (SIGKILL with a write in flight, relaunch) and `_term_chain` (SIGTERM
-    drain, relaunch with the watchdog and Inferencer checks).  No torn
+    run a `chip_smoke.py --trainer-worker` process on the card.  An
+    uninterrupted control and, side by side with it, two chains that
+    must end in the control's state (`_compare_runs`, once the control
+    is done): `_kill_chain` (SIGKILL with a write in flight, relaunch)
+    and `_term_chain` (SIGTERM drain, relaunch with the watchdog and
+    Inferencer checks).  The three first processes share the card and
+    the host (their step and save figures with them).  No torn
     directory is left.  The launches of every run that finished (the
     SIGKILL victim reports none) are summed."""
     import shutil
@@ -4470,11 +4486,21 @@ def phase_trainer(dev, card):
     torch.cuda.empty_cache()
     res, finished, errors = {}, [], []
     lock = threading.Lock()
+    done, box = threading.Event(), {}
     try:
-        control = _run_worker(os.path.join(root, "control"))
-        finished.append(control)
-        res["control"] = _trainer_summary(control)
-        log(f"  control: {_trainer_line(res['control'])}")
+        def run_control():
+            try:
+                box["control"] = _run_worker(os.path.join(root, "control"))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+            finally:
+                done.set()
+
+        def control():
+            done.wait()
+            if "control" not in box:
+                raise AssertionError("6n: the control run failed")
+            return box["control"]
 
         def chain(name, fn):
             try:
@@ -4483,14 +4509,19 @@ def phase_trainer(dev, card):
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
 
-        threads = [threading.Thread(target=chain, args=a) for a in
-                   (("sigkill", _kill_chain), ("sigterm", _term_chain))]
+        threads = [threading.Thread(target=run_control)] + [
+            threading.Thread(target=chain, args=a) for a in
+            (("sigkill", _kill_chain), ("sigterm", _term_chain))]
         for th in threads:
             th.start()
         for th in threads:
             th.join()
         if errors:
             raise errors[0]
+        control = box["control"]
+        finished.append(control)
+        res["control"] = _trainer_summary(control)
+        log(f"  control: {_trainer_line(res['control'])}")
         for name in ("control", "sigkill", "sigterm"):
             if _serials(os.path.join(root, name, "ck"))[1]:
                 raise AssertionError(f"6n {name}: a torn directory left")
@@ -4505,7 +4536,8 @@ def phase_trainer(dev, card):
         f"snapshot {t['emergency_snapshot_ms']:.1f} ms, write "
         f"{t['emergency_write_ms']:.1f} ms), exit {t['victim_rc']}; "
         f"relaunched: {_trainer_line(t)}")
-    log(f"  (the two chains shared the card and the host)")
+    log(f"  (the control and the two chains shared the card and the "
+        f"host)")
     ch = t["checks"]
     log(f"  checks: watchdog regions {ch['watchdog_regions']}, a hung "
         f"step raised StepHangError after {ch['hang_s']:.2f} s "
@@ -8878,6 +8910,470 @@ def phase_model_axes(dev, card):
     return summary
 
 
+# -- phase 6y: the cost, memory and trace planes ----------------------------
+
+# Each limit sits between the sound reading and what a planted fault
+# reads, both taken in every run (PERF §6 has them):
+# [unattributed] device time of a profiled bench step, what runs outside
+# every op range (the feeds' copies, the loss's seed gradient): at most
+# this share of the busy time.  Planted: the autograd engine's node
+# events not read, so its gradient-buffer adds fall outside every op
+TOL_UNATTRIBUTED = 0.005
+# the op table's rows against phase 6's own profile of the same steps
+# (the op ranges and node hooks cost host time, not device time).
+# Planted: the optimizer's rows dropped
+TOL_BUSY_SHARE = 0.02
+# the ledger's peak against the caching allocator's for one step: blocks
+# rounded up, cuBLAS workspaces no aten op returns on one side, storages
+# the allocator reuses before Python drops them on the other.  Planted:
+# the storages the backward makes left out of the ledger
+TOL_LEDGER_GAP = 1e-3
+# 6y (d): the refused ServingEngine's budget, a share of the ladder's
+# largest prediction
+REFUSE_SHARE = 0.95
+COST_CPU_BATCH = 2          # 6y (b): card against CPU at 2+2 layers
+COST_LSTM_BATCH = 8         # 6y (e): 6e's stacked LSTM, card and CPU
+DECODE_HUGE_PAGES = 1 << 20  # 6y (d): 4 layers' bf16 K/V, 137 GB
+
+
+def _flash_flops(program, batch, arch):
+    """Registry flops of the flash ops of one step (forward and
+    backward), every one self-attention at T = max_length."""
+    from paddle_tpu_torch.ops import kernels
+
+    nh = batch * arch["n_head"]
+    t, d = arch["max_length"], arch["d_model"] // arch["n_head"]
+    one = sum(kernels.KERNEL_COSTS[k](nh, t, t, d) for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq"))
+    return _flash_ops(program) * one
+
+
+def _op_flops(rows):
+    out = {}
+    for r in rows:
+        out[r["op_type"]] = out.get(r["op_type"], 0.0) + r["flops"]
+    return out
+
+
+def _profiled(steps, run, prof_dir):
+    """`steps` calls of `run()` under fluid.profiler, the trace under
+    `prof_dir`."""
+    import paddle_tpu_torch as pt
+
+    with pt.profiler.profiler("All", None, prof_dir):
+        for _ in range(steps):
+            run()
+
+
+def _planted(label, sound, planted, limit):
+    """A check's sound reading against the limit and a planted fault's
+    reading beyond it (the check can see that fault)."""
+    log(f"  {label}: {sound:.3e} (limit {limit:g}; planted fault "
+        f"{planted:.3e})")
+    if not sound <= limit < planted:
+        raise AssertionError(f"6y {label}: sound {sound}, planted "
+                             f"{planted}, limit {limit}")
+    return {"sound": sound, "planted": planted, "limit": limit}
+
+
+def _cost_table(exe, main, feed, loss, scope, prof_dir, label):
+    """op_cost_table joined to the trace under `prof_dir`: every row at
+    most the card's peak, rows printed."""
+    import paddle_tpu_torch as pt
+
+    rows = pt.observe.op_cost_table(main, feed=feed, fetch_list=[loss],
+                                    scope=scope, exe=exe,
+                                    profile_dir=prof_dir)
+    over = [r for r in rows if (r["achieved_flops_frac"] or 0) > 1.0]
+    if over:
+        raise AssertionError(f"6y (b) {label}: rows above the peak {over}")
+    log(f"  {label}: op_cost_table, top rows:")
+    for line in pt.observe.format_cost_table(rows, top=8).splitlines()[1:]:
+        log(f"    {line}")
+    return rows
+
+
+def phase_cost_planes(dev, card):
+    """6y: the cost, memory and trace planes on the card.  (a) the bench
+    Transformer: two steps under `fluid.profiler.profiler`, the per-op
+    table's top rows; every flash kernel's device time, forward and
+    backward, on a `flash_attention` row, `[unattributed]` under
+    TOL_UNATTRIBUTED of the busy time, the rows' total within
+    TOL_BUSY_SHARE of phase 6's own profile of the same program, each
+    limit below what a planted fault reads (`_planted`); (b)
+    `op_cost_table(profile_dir=...)` of one profiled step, unfused and
+    fused CE: the flash and fused-CE ops carry the registry's flops
+    exactly, no row above the card's peak; `program_costs`' step flops
+    and MFU; card and CPU per-op flops equal at 2+2 layers and batch 2;
+    (c) `memory_report` of (a)'s step: the ledger's peak against the
+    allocator's (TOL_LEDGER_GAP, against a ledger without the
+    backward's storages); `plan_fit` at batch 64 from probes (2, 4)
+    within PLAN_FIT_REL_TOL of the allocator's peak at 64; the scope,
+    its run counter and the kernel counts as they were; (d) 4f's
+    ResNet-50 ladder fits the card's budget, its largest bucket's
+    prediction within PLAN_FIT_REL_TOL of that bucket measured as the
+    gate probes, a budget of REFUSE_SHARE of that prediction raises
+    BucketMemoryError before warmup; phase 4's DecoderLM
+    geometry passes the DecodeEngine's gate, a pool past the card's
+    memory raises DecodeMemoryError with no pool allocated; (e) 6e's
+    stacked LSTM: each dynamic_lstm row carries the registry's
+    lstm_fwd_cost + lstm_bwd_cost over T steps, on the card and the
+    CPU.  The counts are zeroed before (a) and read after (e)."""
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import stacked_dynamic_lstm, transformer
+    import types
+    from unittest import mock
+
+    from paddle_tpu_torch.observe import trace
+    from paddle_tpu_torch.observe.memory import PLAN_FIT_REL_TOL, ledger_peak
+    from paddle_tpu_torch.ops import kernels
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "cost_6y"))
+    shutil.rmtree(root, ignore_errors=True)
+    peak_flops, _bw = pt.observe.device_peaks()
+    log(f"phase 6y: the cost, memory and trace planes on {card} (peak "
+        f"{peak_flops:.3g} FLOP/s bf16 dense)")
+    res, marks = {}, [("start", time.perf_counter())]
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    # (a) the bench Transformer under the profiler
+    main, startup, model = build_training()
+    loss = model["loss"]
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {n: torch.as_tensor(a).to(dev) for n, a in
+            transformer.make_fake_batch(
+                TRAIN_BATCH, TRAIN_ARCH["max_length"],
+                TRAIN_ARCH["src_vocab_size"],
+                TRAIN_ARCH["trg_vocab_size"]).items()}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    plain = _profile_train_step(exe, main, feed, loss, scope,
+                                label="  6y (a) phase 6's profile")
+    prof_dir = os.path.join(root, "a")
+
+    def step():
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    t0 = time.perf_counter()
+    _profiled(2, step, prof_dir)
+    prof_s = time.perf_counter() - t0
+    rows = pt.profiler.profile_table(prof_dir)
+    total = sum(r["total_ms"] for r in rows) / 2
+    unattr = sum(r["total_ms"] for r in rows
+                 if r["op_type"] == "[unattributed]") / 2
+    log(f"  6y (a): two profiled steps in {prof_s:.2f} s; op table "
+        f"{total:.3f} ms a step against phase 6's busy "
+        f"{plain['device_busy_ms_per_step']:.3f} ms; [unattributed] "
+        f"{unattr:.3f} ms")
+    for r in rows[:10]:
+        log(f"    {r['op_type']:<28}{r['calls']:>7}{r['total_ms']:>11.3f} "
+            f"ms {r['ratio']:>7.1%}")
+    flash = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    stray, loose = [], {}
+    for name, label, ms, _card in trace.device_events(prof_dir):
+        if label is None:
+            loose[name[:60]] = loose.get(name[:60], 0.0) + ms / 2
+        for k, kern in (("fwd", "flash_fwd_kernel"),
+                        ("dkv", "flash_bwd_dkv_kernel"),
+                        ("dq", "flash_bwd_dq_kernel")):
+            if kern in name:
+                flash[k] += ms
+                if trace.fluid_op_of(label or "") != "flash_attention":
+                    stray.append((name, label))
+    loose = sorted(loose.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  [unattributed] kernels, ms a step: "
+        f"{[(k, round(v, 3)) for k, v in loose]}")
+    busy = plain["device_busy_ms_per_step"]
+    res["a"] = {"unattributed_top": loose, "op_table_ms_per_step": total, "busy_ms_per_step": busy,
+                "unattributed_ms_per_step": unattr,
+                "flash_ms_per_step": {k: v / 2 for k, v in flash.items()},
+                "top_rows": rows[:10], "profiled_s": prof_s}
+    log(f"  flash kernels on flash_attention rows: fwd "
+        f"{flash['fwd'] / 2:.3f}, dK/dV {flash['dkv'] / 2:.3f}, dQ "
+        f"{flash['dq'] / 2:.3f} ms a step")
+    if stray or not all(flash.values()):
+        raise AssertionError(f"6y (a): flash kernels off flash_attention "
+                             f"rows {stray[:4]} or missing {flash}")
+    with mock.patch.object(trace, "_node_ranges", lambda *a: None):
+        planted = sum(r["total_ms"] for r in pt.profiler.profile_table(
+            prof_dir) if r["op_type"] == "[unattributed]") / 2
+    adam = sum(r["total_ms"] for r in rows if r["op_type"] == "adam") / 2
+    res["a"]["limits"] = {
+        "unattributed_share": _planted(
+            "(a) [unattributed] share of the busy time", unattr / busy,
+            planted / busy, TOL_UNATTRIBUTED),
+        "busy_share": _planted(
+            "(a) op table against the busy time",
+            abs(total - busy) / busy, abs(total - adam - busy) / busy,
+            TOL_BUSY_SHARE)}
+    marks.append(("a", time.perf_counter()))
+    # (b) the cost table of the same step, and (c) its memory
+    _profiled(1, step, os.path.join(root, "b"))
+    before = {n: v.clone() for n, v in scope.vars.items()
+              if isinstance(v, torch.Tensor)}
+    counter = scope.find_var("__rng_key__")
+    counts = kernels.counts()
+    t0 = time.perf_counter()
+    cost_rows = _cost_table(exe, main, feed, loss, scope,
+                            os.path.join(root, "b"), "6y (b)")
+    ops = _op_flops(cost_rows)
+    want = _flash_flops(main, TRAIN_BATCH, TRAIN_ARCH)
+    if ops["flash_attention"] != want:
+        raise AssertionError(f"6y (b): flash_attention {ops} against the "
+                             f"registry's {want}")
+    tot = pt.observe.program_costs(main, feed=feed, fetch_list=[loss],
+                                   scope=scope, exe=exe)
+    mfu = tot["flops"] / (step_ms / 1e3) / peak_flops
+    rep = pt.observe.memory_report(main, feed=feed, fetch_list=[loss],
+                                   scope=scope, exe=exe)
+    ledger, alloc = rep["peak_bytes"], rep["allocator_peak_bytes"]
+    gap = (alloc - ledger) / alloc
+    # the same (memoized) record, the backward's storages left out
+    rec = exe.compiled_step(main, feed=feed, fetch_list=[loss], scope=scope)
+    no_grads = types.SimpleNamespace(allocs=[
+        a for a in rec.allocs if a["phase"] != "backward"])
+    planted_gap = (alloc - ledger_peak(no_grads)[0]) / alloc
+    plan = pt.observe.plan_fit(main, feed, fetch_list=[loss], scope=scope,
+                               exe=exe)
+    plan_err = (plan["predicted_peak_bytes"] - alloc) / alloc
+    res["b"] = {"flops": tot["flops"], "kernel_flops": tot["kernel_flops"],
+                "bytes": tot["bytes"], "mfu_bf16_peak": mfu,
+                "step_ms": step_ms,
+                "profiled_step_ms": plain["profiled_step_ms"],
+                "flash_flops": ops["flash_attention"],
+                "rows": cost_rows[:12]}
+    res["c"] = {"ledger_peak_bytes": ledger, "allocator_peak_bytes": alloc,
+                "gap": gap, "breakdown": rep["breakdown"],
+                "limits": {"ledger_gap": _planted(
+                    "(c) ledger against the allocator", abs(gap),
+                    abs(planted_gap), TOL_LEDGER_GAP)},
+                "plan": {k: plan[k] for k in (
+                    "predicted_peak_bytes", "probe_batches", "probe_peaks",
+                    "per_example_bytes", "breakdown", "fits",
+                    "budget_bytes")},
+                "plan_rel_err": plan_err}
+    log(f"  6y (b): program_costs {tot['flops'] / 1e12:.4f} TFLOP a step "
+        f"({tot['kernel_flops'] / 1e12:.4f} in the hand-written kernels), "
+        f"{tot['bytes'] / 1e9:.2f} GB; MFU {mfu:.4f} of the bf16 dense "
+        f"peak at the unprofiled step {step_ms:.2f} ms; flash_attention "
+        f"{ops['flash_attention']:.6g} flops = the registry's")
+    log(f"  6y (c): ledger peak {ledger / 1e9:.3f} GB, allocator "
+        f"{alloc / 1e9:.3f} GB (gap {gap:.4f}); plan_fit at batch "
+        f"{plan['batch']} from probes {plan['probe_batches']}: "
+        f"{plan['predicted_peak_bytes'] / 1e9:.3f} GB ({plan_err:+.4f} "
+        f"against the allocator); breakdown {rep['breakdown']}")
+    if abs(plan_err) > PLAN_FIT_REL_TOL:
+        raise AssertionError(f"6y (c): allocator {alloc}, plan "
+                             f"{plan['predicted_peak_bytes']}")
+    changed = [n for n, v in before.items()
+               if not torch.equal(scope.find_var(n), v)]
+    if changed or scope.find_var("__rng_key__") != counter \
+            or kernels.counts() != counts:
+        raise AssertionError(f"6y (c): the planes moved the scope "
+                             f"{changed[:4]}, the run counter or the counts")
+    res["c"]["planes_s"] = time.perf_counter() - t0
+    del before, scope, exe, feed
+    torch.cuda.empty_cache()
+    marks.append(("b, c", time.perf_counter()))
+    # (b) fused CE
+    main_f, startup_f, model_f = build_training(use_fused_ce=True)
+    scope_f = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup_f, scope=scope_f)
+    feed = {n: torch.as_tensor(a).to(dev) for n, a in
+            transformer.make_fake_batch(
+                TRAIN_BATCH, TRAIN_ARCH["max_length"],
+                TRAIN_ARCH["src_vocab_size"],
+                TRAIN_ARCH["trg_vocab_size"]).items()}
+    exe.run(main_f, feed=feed, fetch_list=[model_f["loss"]], scope=scope_f)
+    prof_f = os.path.join(root, "b_fused")
+    _profiled(1, lambda: exe.run(main_f, feed=feed,
+                                 fetch_list=[model_f["loss"]],
+                                 scope=scope_f), prof_f)
+    rows_f = _cost_table(exe, main_f, feed, model_f["loss"], scope_f,
+                         prof_f, "6y (b) fused CE")
+    ce = [r for r in rows_f if r["op_type"] == "fused_vocab_softmax_ce"
+          and r["bucket"] == "custom_call"]
+    n_tok = TRAIN_BATCH * TRAIN_ARCH["max_length"]
+    want_ce = _vocab_ops(main_f) * sum(
+        kernels.KERNEL_COSTS[k](n_tok, TRAIN_ARCH["d_model"],
+                                TRAIN_ARCH["trg_vocab_size"])
+        for k in ("vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw"))
+    if len(ce) != 1 or ce[0]["flops"] != want_ce:
+        raise AssertionError(f"6y (b): fused CE rows {ce}, registry "
+                             f"{want_ce}")
+    res["b"]["fused_ce_flops"] = ce[0]["flops"]
+    del scope_f, exe, feed
+    torch.cuda.empty_cache()
+    marks.append(("b fused CE", time.perf_counter()))
+    # (b) card against CPU at 2+2 layers
+    main_c, startup_c, model_c = build_training(n_layer=CUT_LAYERS)
+    scope_c = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup_c, scope=scope_c)
+    cpu_scope = pt.Scope()
+    for n, v in scope_c.vars.items():
+        cpu_scope.set_var(n, v.cpu() if isinstance(v, torch.Tensor) else v)
+    feed_np = transformer.make_fake_batch(
+        COST_CPU_BATCH, TRAIN_ARCH["max_length"],
+        TRAIN_ARCH["src_vocab_size"], TRAIN_ARCH["trg_vocab_size"])
+    per_dev = {}
+    for where, sc, place in (("card", scope_c, pt.CUDAPlace(0)),
+                             ("cpu", cpu_scope, pt.CPUPlace())):
+        per_dev[where] = _op_flops(pt.observe.op_cost_table(
+            main_c, feed=feed_np, fetch_list=[model_c["loss"]], scope=sc,
+            exe=pt.Executor(place)))
+    differ = {k: (per_dev["card"].get(k), per_dev["cpu"].get(k))
+              for k in set(per_dev["card"]) | set(per_dev["cpu"])
+              if per_dev["card"].get(k) != per_dev["cpu"].get(k)}
+    log(f"  6y (b): card against CPU at {CUT_LAYERS}+{CUT_LAYERS} layers, "
+        f"batch {COST_CPU_BATCH}: {len(per_dev['card'])} op types, "
+        f"{sum(per_dev['card'].values()):.6g} flops, differing {differ}")
+    if differ:
+        raise AssertionError(f"6y (b): card and CPU flops differ {differ}")
+    res["b"]["card_vs_cpu_op_types"] = len(per_dev["card"])
+    del scope_c, cpu_scope
+    marks.append(("b card vs CPU", time.perf_counter()))
+    # (d) the engines' gates on the card's budget
+    res["d"] = _engine_gates(dev, card)
+    marks.append(("d", time.perf_counter()))
+    # (e) the stacked LSTM: one step on the card (its launches count),
+    # then the cost table on the card and the CPU
+    main_l, startup_l, model_l = build_lstm()
+    scope_l = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup_l, scope=scope_l)
+    cpu_l = pt.Scope()
+    for n, v in scope_l.vars.items():
+        cpu_l.set_var(n, v.cpu() if isinstance(v, torch.Tensor) else v)
+    t_len = LSTM_ARCH["max_len"]
+    feed_l = stacked_dynamic_lstm.make_fake_batch(
+        COST_LSTM_BATCH, t_len, LSTM_ARCH["vocab_size"])
+    pt.Executor(pt.CUDAPlace(0)).run(main_l, feed=feed_l,
+                                     fetch_list=[model_l["loss"]],
+                                     scope=scope_l)
+    h = LSTM_ARCH["hidden_dim"]
+    want_l = (kernels.KERNEL_COSTS["lstm_fwd"](t_len, COST_LSTM_BATCH, h)
+              + kernels.KERNEL_COSTS["lstm_bwd"](t_len, COST_LSTM_BATCH, h))
+    lstm = {}
+    for where, sc, place in (("card", scope_l, pt.CUDAPlace(0)),
+                             ("cpu", cpu_l, pt.CPUPlace())):
+        rows_l = pt.observe.op_cost_table(
+            main_l, feed=feed_l, fetch_list=[model_l["loss"]], scope=sc,
+            exe=pt.Executor(place))
+        lstm[where] = [r["flops"] for r in rows_l
+                       if r["op_type"] == "dynamic_lstm"
+                       and r["bucket"] == "custom_call"]
+    n_lstm = sum(op.type == "dynamic_lstm"
+                 for op in main_l.global_block().ops)
+    log(f"  6y (e): dynamic_lstm rows card {lstm['card']}, CPU "
+        f"{lstm['cpu']}; registry {n_lstm} x {want_l:.6g} (T = {t_len})")
+    if lstm["card"] != lstm["cpu"] or lstm["card"] != [n_lstm * want_l]:
+        raise AssertionError(f"6y (e): LSTM rows {lstm}, want "
+                             f"{n_lstm} x {want_l}")
+    res["e"] = {"dynamic_lstm_flops": lstm["card"][0], "T": t_len,
+                "batch": COST_LSTM_BATCH}
+    marks.append(("e", time.perf_counter()))
+    res["seconds"] = {k: t - t0 for (_, t0), (k, t) in zip(marks,
+                                                          marks[1:])}
+    la = kernels.counts()["launches"]
+    res["launches"] = la
+    log(f"  6y launches { {k: v for k, v in la.items() if v} }; seconds "
+        f"{ {k: round(v, 1) for k, v in res['seconds'].items()} }")
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def _engine_gates(dev, card):
+    """6y (d): the ServingEngine's and the DecodeEngine's memory gates on
+    the card's own budget."""
+    import shutil
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.decoder_lm import DecoderLM
+    from paddle_tpu_torch.observe import device_memory_budget
+    from paddle_tpu_torch.observe.memory import PLAN_FIT_REL_TOL, record_peak
+    from paddle_tpu_torch.serving import (BucketConfig, BucketMemoryError,
+                                          DecodeConfig, DecodeEngine,
+                                          DecodeMemoryError, ServingEngine)
+
+    budget = device_memory_budget(dev)
+    d = os.path.join(OUT_DIR, "cost_6y_resnet")
+    shutil.rmtree(d, ignore_errors=True)
+    _resnet_inference_dir(d)
+    example = {"data": np.zeros((3, 224, 224), np.float32)}
+    eng = ServingEngine(pt.AnalysisConfig(d), example,
+                        buckets=BucketConfig((1, SERVE_BATCH))).start()
+    plan = eng.fit_plan
+    top = plan["buckets"][-1]["predicted_peak_bytes"]
+    # the largest bucket measured as the gate probes (one run unrecorded,
+    # then one recorded)
+    measured = record_peak(eng._probe(eng._spec_for(SERVE_BATCH, None)))
+    eng.close()
+    top_err = (top - measured) / measured
+    if plan.get("budget_bytes") != budget \
+            or not all(b["fits"] for b in plan["buckets"]) \
+            or abs(top_err) > PLAN_FIT_REL_TOL:
+        raise AssertionError(f"6y (d): ResNet-50 ladder plan {plan}, "
+                             f"batch {SERVE_BATCH} measured {measured}")
+    try:
+        ServingEngine(pt.AnalysisConfig(d), example,
+                      buckets=BucketConfig((1, SERVE_BATCH)),
+                      memory_budget_bytes=int(REFUSE_SHARE * top)).start()
+        raise AssertionError("6y (d): a budget below the ladder passed")
+    except BucketMemoryError as e:
+        refused = e.as_dict()
+    shutil.rmtree(d, ignore_errors=True)
+    lm = DecoderLM(kv_dtype="bfloat16", prefill_pallas=True, **ARCH)
+    eng = DecodeEngine(lm, DecodeConfig(kv_dtype="bfloat16", **SERVE),
+                       place=pt.CUDAPlace(0)).start()
+    dplan = eng.fit_plan
+    eng.close()
+    if not dplan.get("fits") or dplan["budget_bytes"] != budget:
+        raise AssertionError(f"6y (d): phase 4's geometry {dplan}")
+    huge = dict(SERVE, num_pages=DECODE_HUGE_PAGES)
+    pool = sum(int(np.prod(shape)) * 2 for shape, _ in
+               lm.pool_specs(DECODE_HUGE_PAGES, SERVE["page_size"])
+               .values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    try:
+        DecodeEngine(lm, DecodeConfig(kv_dtype="bfloat16", **huge),
+                     place=pt.CUDAPlace(0)).start()
+        raise AssertionError("6y (d): a pool past the card passed")
+    except DecodeMemoryError as e:
+        dref = e.as_dict()
+    grew = torch.cuda.memory_allocated(dev) - held
+    log(f"  6y (d): budget {budget / 1e9:.3f} GB; ResNet-50 ladder "
+        f"{[(b['batch_size'], round(b['predicted_peak_bytes'] / 1e9, 3)) for b in plan['buckets']]}"
+        f" GB fits (batch {SERVE_BATCH} measured {measured / 1e9:.3f} GB, "
+        f"prediction {top_err:+.4f}), refused at "
+        f"{refused['budget_bytes'] / 1e9:.3f} GB; "
+        f"DecodeEngine {SERVE['num_pages']} pages predicted "
+        f"{dplan['predicted_peak_bytes'] / 1e9:.3f} GB, "
+        f"{DECODE_HUGE_PAGES} pages ({pool / 1e9:.1f} GB of pool) "
+        f"predicted {dref['plan']['predicted_peak_bytes'] / 1e9:.1f} GB, "
+        f"refused with {grew} bytes allocated meanwhile")
+    if grew >= pool // 100:
+        raise AssertionError(f"6y (d): {grew} bytes allocated by a "
+                             f"refused pool of {pool}")
+    return {"budget_bytes": budget, "resnet_plan": plan["buckets"],
+            "resnet_top_measured": measured, "resnet_top_rel_err": top_err,
+            "resnet_refused_at": refused["budget_bytes"],
+            "decode_plan": {k: dplan[k] for k in (
+                "predicted_peak_bytes", "probe_peaks", "fits")},
+            "decode_refused_predicted": dref["plan"]["predicted_peak_bytes"],
+            "decode_refused_pool_bytes": pool, "allocated_meanwhile": grew}
+
+
 def phase_alone(label) -> int:
     """`chip_smoke.py --phase <label>` (PHASES_ALONE): the kernels built
     and that phase alone; its summary to OUT_DIR/<json name>, the card
@@ -8902,7 +9398,8 @@ def phase_alone(label) -> int:
 
 
 PHASES_ALONE = {"6w": (phase_data_parallel, "data_parallel.json"),
-                "6x": (phase_model_axes, "model_axes.json")}
+                "6x": (phase_model_axes, "model_axes.json"),
+                "6y": (phase_cost_planes, "cost_planes.json")}
 
 
 def main() -> int:
@@ -8910,6 +9407,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    # Kineto's warnings (records dropped, buffers exhausted) to stderr, so
+    # a profile that records no CUDA activity names its cause (ROADMAP C22)
+    os.environ.setdefault("KINETO_LOG_LEVEL", "2")
     if sys.argv[1:2] == ["--trainer-worker"]:
         return trainer_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--dp-worker"]:
@@ -9017,6 +9517,7 @@ def main() -> int:
                              fused_qkv=True)
     lstm_parity = timed("7c", phase_lstm_parity, dev)
     bert_parity = timed("7d", phase_bert_parity, dev)
+    cost_planes = timed("6y", phase_cost_planes, dev, card)
     train_resnet = timed("6g", phase_train_resnet, dev, card)
     train_deepfm = timed("6h", phase_train_deepfm, dev, card)
     resnet_parity = timed("7e ResNet-50", phase_resnet_parity, dev)
@@ -9097,7 +9598,7 @@ def main() -> int:
              train_guard, train_trainer, train_accum, train_accum_amp,
              train_recompute, train_optimizers, control_flow, moe, qat_int8,
              detection, fleet, serving_engine, disagg, data_parallel,
-             model_axes)
+             model_axes, cost_planes)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -9159,6 +9660,7 @@ def main() -> int:
                    "disagg": disagg,
                    "data_parallel": data_parallel,
                    "model_axes": model_axes,
+                   "cost_planes": cost_planes,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

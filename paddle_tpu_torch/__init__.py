@@ -67,6 +67,7 @@ from . import observe  # noqa: E402,F401
 from . import ops as _ops  # noqa: E402,F401  (registers all op impls)
 from . import optimizer  # noqa: E402,F401
 from . import parallel  # noqa: E402,F401
+from . import profiler  # noqa: E402,F401
 from . import quantize as quantize_module  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import resilience  # noqa: E402,F401

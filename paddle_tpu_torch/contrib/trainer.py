@@ -1084,6 +1084,12 @@ class Trainer:
             # flush the writer; a silently-dropped last checkpoint must
             # surface here, not on the next preemption
             self._ckpt_writer.close()
+        if self.checkpoint_cfg:
+            # on a mesh rank 0 alone makes a checkpoint visible (its
+            # trainer state, after every rank's shards): no rank leaves
+            # before it has, so a Trainer made next resumes from it
+            # (ROADMAP C23)
+            fluid_io._barrier("trainer:stop")
         self.exe.close()
 
 

@@ -97,6 +97,7 @@ import torch
 
 from ..observe import metrics as _obs_metrics
 from ..observe import numerics as _obs_num
+from ..observe import trace as _obs_trace
 from ..observe.monitoring import dispatch_timer
 from ..observe.numerics import NUMERICS_BITS_VAR
 from ..resilience import guard as _guard
@@ -259,6 +260,20 @@ def run_ops(ops, env: Dict[str, Any], seed, start_index: int = 0,
 def _run_one_op(op, env, seed, op_index, program=None, device=None,
                 sparse_rows=None, amp_lists=None, row_block=None,
                 cross_rank=None):
+    """Run one op over env.  While a profiler or a step recorder is
+    active (observe/trace.py `op_ranges`), under its
+    "<op_type>:<op_index>" label; otherwise nothing else is made."""
+    scope = _obs_trace.op_scope[0]
+    if scope is None:
+        return _dispatch_op(op, env, seed, op_index, program, device,
+                            sparse_rows, amp_lists, row_block, cross_rank)
+    return scope(op.desc, op_index, lambda: _dispatch_op(
+        op, env, seed, op_index, program, device, sparse_rows, amp_lists,
+        row_block, cross_rank))
+
+
+def _dispatch_op(op, env, seed, op_index, program, device, sparse_rows,
+                 amp_lists, row_block, cross_rank):
     desc = op.desc
     if is_macro_op(desc.type):
         # control flow (ops/control_flow.py): the impl runs its
@@ -1073,7 +1088,53 @@ class Executor:
         return env
 
     def close(self):
-        """Nothing to release: the port keeps no compiled executables."""
+        """Drop the memoized step records (`compiled_step`)."""
+        self.__dict__.pop("_step_records", None)
+
+    def compiled_step(self, program: Program, feed=None, fetch_list=None,
+                      scope: Optional[Scope] = None,
+                      with_names: bool = False):
+        """The step record of `program` (observe/cost.py `StepRecord`):
+        one run of its step, recorded, on copies of the scope's state —
+        the port's counterpart of the reference's compiled step, which
+        it has no compile to return (ROADMAP C21).  The scope, its run
+        counter and the kernels' launch counts are left as they were.
+        Memoized per (program, version, feeds' shapes and dtypes,
+        fetches), as the reference's AOT cache is.  Exposes
+        `cost_analysis()` and `memory_analysis()`.
+
+        with_names=True returns (record, labels): one ("state"|"feed",
+        name) label per input of the step."""
+        from ..observe.cost import record_step
+
+        feed = dict(feed or {})
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        block = program.global_block()
+        sig = []
+        for n, v in sorted(feed.items()):
+            t = v if isinstance(v, torch.Tensor) \
+                else self._to_tensor(v, block, n)
+            sig.append((n, tuple(t.shape), str(t.dtype)))
+        key = (program._uid, program._version, tuple(sig),
+               tuple(fetch_names))
+        cache = self.__dict__.setdefault("_step_records", {})
+        record = cache.get(key)
+        if record is None:
+            record = cache[key] = record_step(
+                self, program, feed, fetch_names,
+                scope if scope is not None else global_scope())
+        return (record, record.labels) if with_names else record
+
+    def cost_analysis(self, program: Program, feed=None, fetch_list=None,
+                      scope: Optional[Scope] = None):
+        """{"flops", "transcendentals", "bytes accessed"} of the
+        program's recorded step (`compiled_step`), the hand-written
+        kernels' registered costs included: the totals of
+        observe.cost's per-op table."""
+        return self.compiled_step(program, feed=feed,
+                                  fetch_list=fetch_list,
+                                  scope=scope).cost_analysis()
 
     def _to_tensor(self, value, block, name):
         if isinstance(value, torch.Tensor):

@@ -210,6 +210,24 @@ class Predictor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def zero_feeds(self, feed_spec: Dict[str, object]
+                   ) -> Dict[str, torch.Tensor]:
+        """Inputs of one signature on the device, zeros (a `.seq_len`
+        companion lengths of 1): `feed_spec` maps each input name to a
+        `FeedSpec(shape, dtype)` or anything with `.shape` and
+        `.dtype`."""
+        feeds = {}
+        block = self._program.global_block()
+        for n, s in feed_spec.items():
+            dtype = s.dtype if isinstance(s.dtype, torch.dtype) \
+                else np.dtype(s.dtype)
+            fill = 1 if n.endswith(".seq_len") else 0
+            arr = (torch.full(tuple(s.shape), fill, dtype=dtype)
+                   if isinstance(dtype, torch.dtype)
+                   else np.full(tuple(s.shape), fill, dtype))
+            feeds[n] = self._exe._to_tensor(arr, block, n)
+        return feeds
+
     def compile_signature(self, feed_spec: Dict[str, object],
                           donate_feeds: bool = False):
         """Warm one input signature WITHOUT example data (the serving
@@ -223,16 +241,7 @@ class Predictor:
         donate_feeds: accepted for the reference's signature; the port
         runs eagerly and keeps no executable to donate buffers to.
         Idempotent per signature; returns the signature."""
-        feeds = {}
-        block = self._program.global_block()
-        for n, s in feed_spec.items():
-            dtype = s.dtype if isinstance(s.dtype, torch.dtype) \
-                else np.dtype(s.dtype)
-            fill = 1 if n.endswith(".seq_len") else 0
-            arr = (torch.full(tuple(s.shape), fill, dtype=dtype)
-                   if isinstance(dtype, torch.dtype)
-                   else np.full(tuple(s.shape), fill, dtype))
-            feeds[n] = self._exe._to_tensor(arr, block, n)
+        feeds = self.zero_feeds(feed_spec)
         sig = self._signature(feeds)
         if sig in self._warm:
             return sig

@@ -42,6 +42,7 @@ SERVING_EVENTS = (
 # the decode engine's event kinds (docs/SERVING.md §decode)
 DECODE_EVENTS = (
     "serving_decode_start",        # engine geometry at start()
+    "serving_decode_memory_plan",  # the plan_fit gate's verdict
     "serving_decode_speculate",    # speculative engine: k and drafter
     "serving_decode_warmup",       # warmup summary
     "serving_decode_window",       # periodic DecodeStats snapshot
@@ -53,6 +54,16 @@ DECODE_EVENTS = (
     "serving_compile_post_warmup",  # LOUD: a kernel built after warmup
     "serving_breaker_open",        # LOUD: executor failure burst
     "serving_breaker_close",       # half-open probe succeeded
+)
+
+# speculative-decoding event kinds: the drafter armed at start()
+# (`serving_decode_speculate` stays in DECODE_EVENTS too, where the port
+# registered it first)
+SPECULATE_EVENTS = (
+    "serving_decode_speculate",
+    "serving_speculate_window",    # a speculation snapshot (the
+    #                                reference's; the port emits its
+    #                                accept rates in decode windows)
 )
 
 # serving-fleet event kinds (docs/SERVING.md §fleet): the router
@@ -172,6 +183,7 @@ _VALIDATED_PREFIXES = ("serving_", "fleet_", "gang_", "alert_",
                        "flight_", "autoscale_", "recovery_",
                        "feeder_", "feed_")
 _KNOWN_KINDS = (set(SERVING_EVENTS) | set(DECODE_EVENTS)
+                | set(SPECULATE_EVENTS)
                 | set(FLEET_EVENTS) | set(DISAGG_EVENTS)
                 | set(RESILIENCE_EVENTS) | set(FEED_EVENTS)
                 | set(GANG_EVENTS) | set(GOODPUT_EVENTS)

@@ -79,14 +79,79 @@ class dispatch_timer:
         return False
 
 
+def device_memory_stats(device=None) -> Dict[str, Any]:
+    """One card's allocator stats with the reference's keys:
+    bytes_in_use (`torch.cuda.memory_allocated`), peak_bytes_in_use
+    (`max_memory_allocated`, as `peak_memory_bytes`), bytes_limit (the card's total memory,
+    `mem_get_info`), bytes_reserved and bytes_free.  {} on the CPU, and
+    for device None when CUDA was never initialised in this process."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_available():
+        return {}
+    if device is None:
+        if not torch.cuda.is_initialized():
+            return {}
+        device = torch.cuda.current_device()
+    dev = torch.device("cuda", device) if isinstance(device, int) \
+        else torch.device(device)
+    if dev.type != "cuda":
+        return {}
+    free, total = torch.cuda.mem_get_info(dev)
+    return {"bytes_in_use": int(torch.cuda.memory_allocated(dev)),
+            "peak_bytes_in_use": _peak(torch, dev),
+            "bytes_limit": int(total),
+            "bytes_reserved": int(torch.cuda.memory_reserved(dev)),
+            "bytes_free": int(free)}
+
+
+# The process's allocator peak across the memory probes' windows, by
+# card index.  A probe (observe/memory.py `allocator_window`) resets the
+# allocator's peak counter, which the whole process shares; it folds the
+# peak the counter held into this running maximum first, so the peak
+# read here never drops because a probe ran.
+_peak_lock = threading.Lock()
+_peak_floor: Dict[int, int] = {}
+
+
+def _index(torch, device) -> int:
+    if device is None:
+        return torch.cuda.current_device()
+    if isinstance(device, int):
+        return device
+    dev = torch.device(device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def _peak(torch, device=None) -> int:
+    idx = _index(torch, device)
+    with _peak_lock:
+        return max(_peak_floor.get(idx, 0),
+                   int(torch.cuda.max_memory_allocated(idx)))
+
+
+def fold_peak(device=None) -> int:
+    """The allocator's peak since its counter was last reset, kept in the
+    process's running maximum; then the counter is reset.  A probe's
+    window starts (and each of its samples ends) here."""
+    import torch
+
+    idx = _index(torch, device)
+    with _peak_lock:
+        now = int(torch.cuda.max_memory_allocated(idx))
+        _peak_floor[idx] = max(_peak_floor.get(idx, 0), now)
+        torch.cuda.reset_peak_memory_stats(idx)
+    return now
+
+
 def peak_memory_bytes() -> Optional[int]:
     """Peak bytes the caching allocator handed out on the current CUDA
-    device (`torch.cuda.max_memory_allocated`), or None when CUDA was
-    never initialised in this process (a CPU run: nothing to report)."""
+    device (`torch.cuda.max_memory_allocated`, with the peaks of the
+    windows the memory probes reset), or None when CUDA was never
+    initialised in this process (a CPU run: nothing to report)."""
     torch = sys.modules.get("torch")
     if torch is None or not torch.cuda.is_initialized():
         return None
-    return int(torch.cuda.max_memory_allocated())
+    return _peak(torch)
 
 
 class LatencyHistogram:

@@ -42,6 +42,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from .memory import device_memory_budget
 from .monitoring import LatencyHistogram, peak_memory_bytes, runtime_stats
 
 _KINDS = ("counter", "gauge", "histogram")
@@ -570,19 +571,9 @@ def gang_collector(skew: Callable[[], Dict[str, Any]], **labels: Any
     return collect
 
 
-def device_memory_budget() -> Optional[int]:
-    """The current CUDA device's total memory in bytes, or None when
-    CUDA was never initialised in this process (a CPU run)."""
-    torch = sys.modules.get("torch")
-    if torch is None or not torch.cuda.is_initialized():
-        return None
-    return int(torch.cuda.get_device_properties(
-        torch.cuda.current_device()).total_memory)
-
-
 def memory_collector() -> Callable[[], List[MetricFamily]]:
     """Device memory peak vs budget: torch.cuda's peak allocation and
-    the card's total memory.  A process that never initialised CUDA
+    the card's total memory (observe/memory.py `device_memory_budget`).  A process that never initialised CUDA
     contributes the availability gauge only (0)."""
 
     def collect() -> List[MetricFamily]:

@@ -29,12 +29,27 @@ composition.  Each kernel module decides that with one pure predicate,
 `use_pallas` true the op goes to the wrapper, which raises.  On the CPU
 the plain versions take every shape, so `on_card` keeps that route to
 the card.
+
+`KERNEL_COSTS` is the kernels' cost registry (the reference's, in
+paddle_tpu/ops/pallas/__init__.py:40-61): each kernel module registers
+the flops of its kernels' function, a formula over the call's logical
+dimensions, in the reference's dense-equivalent convention (the flops
+the dense composition computes once; masked pairs counted, backward
+recompute not).  A wrapper reports each call to the step recorder of
+observe/cost.py through `charge`, next to its `bump`, on the kernel and
+the plain route alike, with the bytes its kernel moves
+(`bound_bytes_and_flops`).  A ctypes launch is invisible to torch: this
+report is the only way the recorder sees a kernel's work.  `routed`
+marks a wrapper whose own aten ops (the plain version's, the kernel
+route's output allocations and copies) the recorder does not count
+again; the memory ledger still sees what they allocate.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Dict
+from typing import Callable, Dict
 
 KERNELS = ("paged_attention", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
@@ -83,6 +98,51 @@ def reset_counts() -> None:
             composed_calls[k] = 0
 
 
+KERNEL_COSTS: Dict[str, Callable[..., float]] = {}
+
+# the step recorder (observe/cost.py) active in this process, or None
+recorder = [None]
+
+
+def register_kernel_cost(name: str, fn: Callable[..., float]):
+    """Declare the flops of kernel `name`'s function (a count name of
+    KERNELS): fn(*dims) over the call's logical dimensions."""
+    KERNEL_COSTS[name] = fn
+    return fn
+
+
+def charge(name: str, dims, nbytes) -> None:
+    """Report one call of kernel `name`'s function, at logical `dims`,
+    moving `nbytes` (an int, or a function computing it), to the active
+    step recorder.  Nothing happens when none is active."""
+    rec = recorder[0]
+    if rec is not None:
+        rec.kernel_call(name, dims, nbytes)
+
+
+def routed(fn):
+    """A kernel wrapper whose aten ops the active step recorder does not
+    count: its kernel's cost reaches the recorder through `charge`."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        rec = recorder[0]
+        if rec is None:
+            return fn(*args, **kwargs)
+        with rec.kernel_region():
+            return fn(*args, **kwargs)
+    return call
+
+
 def counts() -> Dict[str, Dict[str, int]]:
     return {"launches": dict(launch_counts), "plain": dict(plain_calls),
             "composed": dict(composed_calls)}
+
+
+def restore_counts(saved: Dict[str, Dict[str, int]]) -> None:
+    """Put back the counts `counts()` returned: a recorded step
+    (observe/cost.py) leaves no launch of its own in them."""
+    with _count_lock:
+        for table, key in ((launch_counts, "launches"),
+                           (plain_calls, "plain"),
+                           (composed_calls, "composed")):
+            table.update(saved[key])

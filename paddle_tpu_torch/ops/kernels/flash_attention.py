@@ -67,7 +67,8 @@ import ctypes
 import torch
 
 from . import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, TF32_FLOP_PER_S, bump,
-               launch_counts, plain_calls)
+               charge, launch_counts, plain_calls, register_kernel_cost,
+               routed)
 from . import _build
 
 NEG_INF = -1e30
@@ -80,11 +81,39 @@ _HEAD_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
+# The kernels' flops in the reference's dense-equivalent convention
+# (paddle_tpu/ops/pallas/flash_attention.py:60-121), over the flattened
+# heads nh = N*H: every score of the t_q x t_k square counted (the dense
+# composition computes the masked ones too), the backward's recompute of
+# s and p not; the softmax's elementwise work at 8 flops a score each
+# way, the backward's split 0.625 / 0.375 between dK/dV and dQ.
+_SOFTMAX_FWD_PER_SCORE = 8.0
+_SOFTMAX_BWD_PER_SCORE = 8.0
+
+
+def flash_fwd_cost(nh, t_q, t_k, d):
+    return nh * t_q * t_k * (4.0 * d + _SOFTMAX_FWD_PER_SCORE)
+
+
+def flash_dkv_cost(nh, t_q, t_k, d):
+    return nh * t_q * t_k * (6.0 * d + 0.625 * _SOFTMAX_BWD_PER_SCORE)
+
+
+def flash_dq_cost(nh, t_q, t_k, d):
+    return nh * t_q * t_k * (2.0 * d + 0.375 * _SOFTMAX_BWD_PER_SCORE)
+
+
 def kernel_name(base, dtype):
     """The count name of kernel `base` on operands of `dtype`:
     "flash_attention_fwd" for float32, "flash_attention_fwd_bf16" for
     bf16."""
     return base + _KERNEL_DTYPES.get(dtype, "")
+
+
+for _sfx in _KERNEL_DTYPES.values():
+    register_kernel_cost(_NAME + _sfx, flash_fwd_cost)
+    register_kernel_cost(_DKV + _sfx, flash_dkv_cost)
+    register_kernel_cost(_DQ + _sfx, flash_dq_cost)
 
 
 def dims(q, k, layout, n_head):
@@ -188,6 +217,7 @@ def _check_devices(*tensors):
                          f"{sorted({str(t.device) for t in ts})}")
 
 
+@routed
 def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
                         layout="nhtd", n_head=None, q_offset=0,
                         k_offset=0):
@@ -205,8 +235,13 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
         return (torch.empty_like(q),
                 torch.empty((n * h, t_q), dtype=torch.float32,
                             device=q.device))
+    def cost():
+        return bound_bytes_and_flops(q, k, bias, causal, layout, n_head,
+                                     q_offset, k_offset)[0]
+
     if kind == "cpu":
         bump(plain_calls, kernel_name(_NAME, q.dtype))
+        charge(kernel_name(_NAME, q.dtype), (n * h, t_q, t_k, d), cost)
         return flash_attention_fwd_plain(q, k, v, bias, scale, causal,
                                          layout, n_head, q_offset,
                                          k_offset)
@@ -238,6 +273,7 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     bump(launch_counts, name)
+    charge(name, (n * h, t_q, t_k, d), cost)
     return o, lse
 
 
@@ -289,6 +325,7 @@ def _sum_to(x, shape):
     return x.sum(dim=axes, keepdim=True) if axes else x
 
 
+@routed
 def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
                         causal=False, layout="nhtd", n_head=None, q_offset=0,
                         k_offset=0, need_dbias=True):
@@ -300,9 +337,18 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
     if scale is None:
         scale = d ** -0.5
     kind = q.device.type
+    logical = (n * h, t_q, t_k, d)
+
+    def cost(which):
+        return lambda: bound_bytes_and_flops_bwd(
+            q, k, bias, causal, layout, n_head, dlse is not None,
+            need_dbias and bias is not None, q_offset, k_offset)[which][0]
+
     if kind == "cpu":
         bump(plain_calls, kernel_name(_DKV, q.dtype))
         bump(plain_calls, kernel_name(_DQ, q.dtype))
+        charge(kernel_name(_DKV, q.dtype), logical, cost("dkv"))
+        charge(kernel_name(_DQ, q.dtype), logical, cost("dq"))
         dq, dk, dv, db = flash_attention_bwd_plain(
             q, k, v, bias, o, lse, do, dlse, scale, causal, layout, n_head,
             q_offset, k_offset)
@@ -339,11 +385,13 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, dlse=None, scale=None,
         raise RuntimeError(f"flash_attention dK/dV kernel launch failed: "
                            f"CUDA error {rc}")
     bump(launch_counts, dkv_name)
+    charge(dkv_name, logical, cost("dkv"))
     rc = getattr(lib, dq_name + "_launch")(*ins, dq.data_ptr(), *common)
     if rc != 0:
         raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA "
                            f"error {rc}")
     bump(launch_counts, dq_name)
+    charge(dq_name, logical, cost("dq"))
     dbias = None
     if db is not None:
         dbias = _sum_to(db.reshape(n, h, 1, t_k), bias.shape) \

@@ -42,12 +42,32 @@ import ctypes
 
 import torch
 
-from . import TF32_FLOP_PER_S, _build, bump, launch_counts, plain_calls
+from . import (TF32_FLOP_PER_S, _build, bump, charge, launch_counts,
+               plain_calls, register_kernel_cost, routed)
 
 UNITS_PER_BLOCK = 4     # csrc/lstm.cu kHStep: H must be a multiple
 MAX_H = 512             # csrc/lstm.cu kMaxH
 _SOURCE = "lstm"
 _FWD, _BWD = "lstm_fwd", "lstm_bwd"
+# The kernels' flops in the reference's dense-equivalent convention
+# (paddle_tpu/ops/pallas/recurrence.py:55-83), T steps of N rows, H
+# units: h W once a step forward, dg W^T and h^T dg once backward (the
+# gates' recompute not counted); the gates' elementwise work at 10 a
+# cell forward, 22 backward.
+_LSTM_FWD_PER_CELL = 10.0
+_LSTM_BWD_PER_CELL = 22.0
+
+
+def lstm_fwd_cost(t, n, h):
+    return t * n * (2.0 * h * 4 * h + _LSTM_FWD_PER_CELL * h)
+
+
+def lstm_bwd_cost(t, n, h):
+    return t * n * (4.0 * h * 4 * h + _LSTM_BWD_PER_CELL * h)
+
+
+register_kernel_cost(_FWD, lstm_fwd_cost)
+register_kernel_cost(_BWD, lstm_bwd_cost)
 _LAUNCH_ERRORS = {
     -1: "sizes outside what the kernel takes",
     -2: "the device does not support cooperative launches",
@@ -181,6 +201,14 @@ def _raise_launch(which, rc):
     raise RuntimeError(f"lstm {which} kernel launch failed: {what}")
 
 
+def _charge(name, xs):
+    t, n, g4 = xs.shape
+    charge(name, (t, n, g4 // 4),
+           lambda: bound_bytes_and_flops(t, n, g4 // 4, xs.element_size())[
+               name[len("lstm_"):]][0])
+
+
+@routed
 def lstm_fwd(xs, w, h0, c0, sl, rev=False):
     """Forward: (hs, cs).  Routes by device: CUDA launches the kernel, CPU
     runs the plain version, meta allocates the outputs."""
@@ -191,6 +219,7 @@ def lstm_fwd(xs, w, h0, c0, sl, rev=False):
                                  device=xs.device) for _ in range(2))
     if kind == "cpu":
         bump(plain_calls, _FWD)
+        _charge(_FWD, xs)
         return lstm_fwd_plain(xs, w, h0, c0, sl, rev)
     if kind != "cuda":
         raise ValueError(f"lstm: unsupported device {xs.device}")
@@ -205,9 +234,11 @@ def lstm_fwd(xs, w, h0, c0, sl, rev=False):
     if rc != 0:
         _raise_launch("forward", rc)
     bump(launch_counts, _FWD)
+    _charge(_FWD, xs)
     return hs, cs
 
 
+@routed
 def lstm_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev=False):
     """Backward: (dxs, dw, dh0, dc0).  Routes by device as `lstm_fwd`."""
     kind = _check(xs, w, h0, c0, sl, hs, cs, dhs, dcs)
@@ -216,6 +247,7 @@ def lstm_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev=False):
                 torch.empty_like(h0), torch.empty_like(c0))
     if kind == "cpu":
         bump(plain_calls, _BWD)
+        _charge(_BWD, xs)
         return lstm_bwd_plain(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev)
     if kind != "cuda":
         raise ValueError(f"lstm: unsupported device {xs.device}")
@@ -232,6 +264,7 @@ def lstm_bwd(xs, w, h0, c0, sl, hs, cs, dhs, dcs, rev=False):
     if rc != 0:
         _raise_launch("backward", rc)
     bump(launch_counts, _BWD)
+    _charge(_BWD, xs)
     return tuple(outs)
 
 

@@ -36,7 +36,8 @@ import functools
 
 import torch
 
-from . import bump, launch_counts, plain_calls
+from . import (bump, charge, launch_counts, plain_calls,
+               register_kernel_cost, routed)
 from . import _build
 
 NEG_INF = -1e30
@@ -48,6 +49,24 @@ MIN_SPLIT_TOKENS = 64
 MAX_SPLIT_PAGES = 1024
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (32, 64, 128)
+
+
+def paged_attn_cost(s, hd, page, max_pages):
+    """The kernel's flops in the reference's dense-equivalent convention
+    (paddle_tpu/ops/pallas/paged_attention.py:55-86): each of the S rows
+    over its page table's whole capacity, q.k and p.v, the softmax not
+    counted (the reference cannot recover it from its operand shapes)."""
+    return 4.0 * s * max_pages * page * hd
+
+
+register_kernel_cost(_NAME, paged_attn_cost)
+
+
+def _charge(q, k_pages, page_table, lengths, n_head, k_scales):
+    charge(_NAME, (q.shape[0], q.shape[1], k_pages.shape[1],
+                   page_table.shape[1]),
+           lambda: bound_bytes_and_flops(q, k_pages, page_table, lengths,
+                                         n_head, k_scales is not None)[0])
 
 
 def _gather_pool(pool, page_table):
@@ -198,6 +217,7 @@ def _check(q, k_pages, v_pages, page_table, lengths, n_head, k_scales,
                          f"{sorted({str(t.device) for t in tensors})}")
 
 
+@routed
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *, n_head,
                     scale=None, k_scales=None, v_scales=None,
                     plan_rows=None):
@@ -214,6 +234,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, n_head,
         return torch.empty_like(q)
     if kind == "cpu":
         bump(plain_calls, _NAME)
+        _charge(q, k_pages, page_table, lengths, n_head, k_scales)
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      lengths, n_head, scale, k_scales,
                                      v_scales)
@@ -285,6 +306,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, n_head, scale,
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
     bump(launch_counts, _NAME)
+    _charge(q, k_pages, page_table, lengths, n_head, k_scales)
     return out
 
 

@@ -37,7 +37,8 @@ import ctypes
 import torch
 
 from ..common import fill_index, nan_where
-from . import TF32_FLOP_PER_S, _build, bump, launch_counts, plain_calls
+from . import (TF32_FLOP_PER_S, _build, bump, charge, launch_counts,
+               plain_calls, register_kernel_cost, routed)
 
 # Hopper tiles of csrc/vocab_ce.cu: 64 tokens or vocabulary columns per
 # block; z tiles 64 wide in the backward, 128 in the forward; D is held
@@ -55,6 +56,30 @@ SMEM_BYTES = {"fwd": (64 * 512 + 3 * 32 * 136 + 4 * 4 * 64) * 4,
 NEG = -1e30     # csrc/vocab_ce.cu kNeg, the reference's NEG
 _SOURCE = "vocab_ce"
 _FWD, _DH, _DW = "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw"
+# The kernels' flops in the reference's dense-equivalent convention
+# (paddle_tpu/ops/pallas/vocab_ce.py:50-96), for N tokens, D hidden, V
+# vocabulary: z = h W once forward, dh and dW once backward (the
+# recompute of z not counted), the softmax/CE elementwise work at 4 a
+# logit forward and 3 backward, split 2/3 dh, 1/3 dW.
+_CE_FWD_PER_LOGIT = 4.0
+_CE_BWD_PER_LOGIT = 3.0
+
+
+def vocab_ce_fwd_cost(n, d, v):
+    return n * v * (2.0 * d + _CE_FWD_PER_LOGIT)
+
+
+def vocab_ce_dh_cost(n, d, v):
+    return n * v * (2.0 * d + 2.0 / 3.0 * _CE_BWD_PER_LOGIT)
+
+
+def vocab_ce_dw_cost(n, d, v):
+    return n * v * (2.0 * d + 1.0 / 3.0 * _CE_BWD_PER_LOGIT)
+
+
+register_kernel_cost(_FWD, vocab_ce_fwd_cost)
+register_kernel_cost(_DH, vocab_ce_dh_cost)
+register_kernel_cost(_DW, vocab_ce_dw_cost)
 
 
 def vocab_ce_fwd_plain(h, w, labels):
@@ -151,6 +176,14 @@ def _check_kernel(h, w, labels, *rest):
         raise ValueError("vocab_ce kernels: operands must be contiguous")
 
 
+def _charge(name, h, w):
+    (n, d), v = h.shape, w.shape[1]
+    charge(name, (n, d, v),
+           lambda: bound_bytes_and_flops(n, d, v, h.element_size())[
+               name[len("vocab_ce_"):]][0])
+
+
+@routed
 def vocab_ce_fwd(h, w, labels):
     """Forward: (lse, z_label, z_sum).  Routes by device: CUDA launches
     the kernel, CPU runs the plain version, meta allocates the outputs."""
@@ -161,6 +194,7 @@ def vocab_ce_fwd(h, w, labels):
                      for _ in range(3))
     if kind == "cpu":
         bump(plain_calls, _FWD)
+        _charge(_FWD, h, w)
         return vocab_ce_fwd_plain(h, w, labels)
     if kind != "cuda":
         raise ValueError(f"vocab_ce: unsupported device {h.device}")
@@ -175,9 +209,11 @@ def vocab_ce_fwd(h, w, labels):
         raise RuntimeError(f"vocab_ce forward kernel launch failed: CUDA "
                            f"error {rc}")
     bump(launch_counts, _FWD)
+    _charge(_FWD, h, w)
     return lse, z_label, z_sum
 
 
+@routed
 def vocab_ce_bwd(h, w, labels, lse, g, eps):
     """Backward: (dh, dw).  Routes by device as `vocab_ce_fwd`; on CUDA
     the dh kernel, then the dW kernel."""
@@ -187,6 +223,8 @@ def vocab_ce_bwd(h, w, labels, lse, g, eps):
     if kind == "cpu":
         bump(plain_calls, _DH)
         bump(plain_calls, _DW)
+        _charge(_DH, h, w)
+        _charge(_DW, h, w)
         return vocab_ce_bwd_plain(h, w, labels, lse, g, eps)
     if kind != "cuda":
         raise ValueError(f"vocab_ce: unsupported device {h.device}")
@@ -203,11 +241,13 @@ def vocab_ce_bwd(h, w, labels, lse, g, eps):
         raise RuntimeError(f"vocab_ce dh kernel launch failed: CUDA error "
                            f"{rc}")
     bump(launch_counts, _DH)
+    _charge(_DH, h, w)
     rc = lib.vocab_ce_dw_launch(*args, dw.data_ptr(), *tail)
     if rc != 0:
         raise RuntimeError(f"vocab_ce dW kernel launch failed: CUDA error "
                            f"{rc}")
     bump(launch_counts, _DW)
+    _charge(_DW, h, w)
     return dh, dw
 
 

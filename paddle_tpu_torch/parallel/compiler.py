@@ -19,9 +19,8 @@ as the GPipe schedule of pipeline_scope groups (parallel/
 pipeline_engine.py, `BuildStrategy.pipeline_microbatches`), `ep` in
 moe_ffn's grouped routing and all-to-alls (ops/moe.py); pp x mp is the
 reference's designed PipelineStructureError.
-`compiled_step`/`compiled_hlo_text` return XLA objects
-in the reference; the port compiles no step, and its cost plane is
-ROADMAP A step 11.
+`compiled_step` returns this rank's step record (observe/cost.py; the
+reference's XLA executable, ROADMAP C21); `compiled_hlo_text` raises.
 """
 
 from __future__ import annotations
@@ -31,38 +30,11 @@ from typing import Any, Dict, Optional
 from .mesh import executing_mesh, get_default_mesh
 from .strategies import GradSyncConfig, ShardingRules
 
-# Optimizer ops (the reference's observe/memory.py OPTIMIZER_OP_TYPES):
-# their operands other than Param/Grad, and their outputs other than
-# ParamOut, are optimizer state, the population the ZeRO axis shards.
-OPTIMIZER_OP_TYPES = {
-    "sgd", "momentum", "lars_momentum", "adam", "adamax", "adagrad",
-    "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "proximal_gd",
-    "proximal_adagrad", "average_accumulates", "ema_accumulate",
-}
+# the optimizer state the ZeRO axis shards (observe/memory.py)
+from ..observe.memory import (OPTIMIZER_OP_TYPES,  # noqa: E402,F401
+                              program_var_buckets)
 
 MODEL_AXES = ("mp", "sp", "pp", "ep")
-
-
-def program_var_buckets(program):
-    """(param_names, optimizer_state_names) from the program desc (the
-    reference's observe/memory.py `_program_var_buckets`)."""
-    from ..core.program import Parameter
-
-    params, opt = set(), set()
-    block = program.global_block()
-    for name, var in block.vars.items():
-        if isinstance(var, Parameter):
-            params.add(name)
-    for op in block.ops:
-        if op.type not in OPTIMIZER_OP_TYPES:
-            continue
-        for slot, names in op.desc.inputs.items():
-            if slot not in ("Param", "Grad"):
-                opt.update(names)
-        for slot, names in op.desc.outputs.items():
-            if slot != "ParamOut":
-                opt.update(names)
-    return params, opt - params
 
 
 class ReduceStrategy:
@@ -215,14 +187,30 @@ class CompiledProgram:
         tp = None if self._runner is None else self._runner.tp
         return 0.0 if tp is None else tp.last_ms
 
-    def compiled_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CompiledProgram.compiled_step returns the reference's XLA "
-            "executable; the port compiles no step, and its cost plane "
-            "is ROADMAP A step 11")
+    def compiled_step(self, feed=None, fetch_list=None, scope=None,
+                      with_names: bool = False, exe=None):
+        """This rank's step record (observe/cost.py `StepRecord`): one
+        recorded run of the compiled program on copies of this rank's
+        state (a DTensor's local slice stays local), the port's
+        counterpart of the reference's partitioned executable (ROADMAP
+        C21).  `exe`: the Executor to run it (default CUDAPlace(0)).
+        with_names=True returns (record, labels)."""
+        from ..core.executor import Executor, global_scope
+        from ..core.program import Variable
+        from ..observe.cost import record_step
+
+        exe = exe or Executor()
+        names = [f.name if isinstance(f, Variable) else str(f)
+                 for f in (fetch_list or [])]
+        record = record_step(
+            exe, self._program, dict(feed or {}), names,
+            scope if scope is not None else global_scope(),
+            run=lambda e, _prog, feeds, fetch, sc: self.run(
+                e, feeds, fetch, sc))
+        return (record, record.labels) if with_names else record
 
     def compiled_hlo_text(self, *args, **kwargs):
         raise NotImplementedError(
             "CompiledProgram.compiled_hlo_text returns the reference's "
-            "post-partitioning HLO; the port compiles no step, and its "
-            "cost plane is ROADMAP A step 11")
+            "post-partitioning HLO; the port compiles no step and has no "
+            "HLO (ROADMAP C21): compiled_step returns its step record")

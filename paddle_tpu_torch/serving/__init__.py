@@ -36,7 +36,7 @@ from .admission import (AdmissionController,  # noqa: F401
                         ServingError, WeightReloadError)
 from .batcher import DynamicBatcher, Request  # noqa: F401
 from .decode import (DecodeBucketMissError,  # noqa: F401
-                     DecodeConfig, DecodeEngine,
+                     DecodeConfig, DecodeEngine, DecodeMemoryError,
                      DecodeReplicaFailedError, DecodeRequest, PagePool)
 from .engine import (BucketConfig, BucketMemoryError,  # noqa: F401
                      BucketMissError, ServingEngine)

@@ -62,8 +62,12 @@ reproduces its tokens (ROADMAP C8).
 
 Entry points run on `CUDAPlace(0)` unless the caller passes a place;
 without CUDA the default raises.  The scheduler thread enters
-`torch.no_grad()` itself (grad mode is per thread).  The `plan_fit`
-memory gate (observe.memory, ROADMAP A step 11) is not ported yet.
+`torch.no_grad()` itself (grad mode is per thread).  The memory gate
+(`memory_budget_bytes`, the reference's, paddle_tpu/serving/decode.py:
+679-737) predicts the decode step's peak at the configured pool from
+two recorded step runs over small pools (observe/memory.py
+`measure_run` and `fit_peaks`: the card's allocator, the ledger on the
+CPU) and raises `DecodeMemoryError` before the pool is allocated.
 
 Handoff wire format (the reference's): `{"kind": "handoff", "prompt",
 "first_token", "generated", "committed", "max_new_tokens", "priority",
@@ -135,6 +139,14 @@ def run_model_program(built, params, pools, cache_names, device, fetch,
                             fetch_names=(*fetch, *cache_outs),
                             device=device, row_block=row_block)
     return env, {n: env[o] for n, o in zip(cache_names, cache_outs)}
+
+
+class DecodeMemoryError(ServingError):
+    """The configured slot/pool geometry's PREDICTED peak memory
+    exceeds the device budget — raised by start() BEFORE the pool is
+    allocated and before warmup, from two small-pool probe steps."""
+
+    kind = "decode_memory"
 
 
 class DecodeBucketMissError(ServingError):
@@ -627,10 +639,7 @@ class DecodeEngine:
                 decode_chunk=cfg.decode_chunk, kv_dtype=cfg.kv_dtype,
                 role=self.role, device=str(self.device),
                 queue_capacity=self.admission.queue_capacity)
-        if self.memory_budget_bytes is not False:
-            self.fit_plan = {"skipped": "plan_fit not ported",
-                             "budget_bytes": self.memory_budget_bytes
-                             or None}
+        self._validate_memory_budget()
         snap = runtime_stats.snapshot()
         t0 = time.perf_counter()
         self._pools = self.model.fresh_pools(cfg.num_pages, cfg.page_size,
@@ -659,6 +668,99 @@ class DecodeEngine:
                                         daemon=True)
         self._worker.start()
         return self
+
+    # the pool sizes the gate probes the step at (the reference's
+    # plan_fit probe batches)
+    MEMORY_PROBE_PAGES = (2, 4)
+
+    def _validate_memory_budget(self):
+        """Predict the decode step's peak device memory at the CONFIGURED
+        pool from two probe steps over small pools (peak is affine in
+        the pool's page count) and reject an impossible geometry BEFORE
+        the pool is allocated (the reference's gate,
+        paddle_tpu/serving/decode.py:679-737)."""
+        budget = self.memory_budget_bytes
+        if budget is False:
+            return
+        from ..observe.memory import (PLAN_FIT_REL_TOL,
+                                      device_memory_budget, fit_peaks)
+
+        if budget is None or budget is True:
+            budget = device_memory_budget(self.device)
+        if not budget:
+            self.fit_plan = {"skipped": "no device budget known",
+                             "budget_bytes": None}
+            return
+        cfg = self.config
+        if cfg.num_pages == cfg.num_slots:
+            # the reference's planner scales every leading dim equal to
+            # the pool's; a pool of exactly the slot count is ambiguous
+            self.fit_plan = {"skipped": "num_pages == num_slots "
+                                        "(ambiguous probe axis)",
+                             "budget_bytes": int(budget)}
+            return
+        b0, b1 = self.MEMORY_PROBE_PAGES
+        (row,), fit = fit_peaks(
+            self._probe, [cfg.num_pages],
+            (cfg.num_pages,) if cfg.num_pages <= b1 else (b0, b1))
+        predicted = row["predicted_peak_bytes"]
+        params = sum(t.numel() * t.element_size()
+                     for t in self._params.values())
+        pools = sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
+                    .element_size() for shape, dt in self.model.pool_specs(
+                        cfg.num_pages, cfg.page_size).values())
+        plan = {
+            "predicted_peak_bytes": int(predicted), "exact": row["exact"],
+            "batch": int(cfg.num_pages), **fit,
+            "breakdown": {"params": int(params), "pools": int(pools),
+                          "temp": int(max(predicted - params - pools,
+                                          0))},
+            "rel_tol": PLAN_FIT_REL_TOL, "budget_bytes": int(budget),
+            "fits": bool(predicted <= budget),
+            "headroom_bytes": int(budget - predicted)}
+        self.fit_plan = plan
+        if self._event_log is not None:
+            self._event_log.event("serving_decode_memory_plan", **plan)
+        if not plan["fits"]:
+            raise DecodeMemoryError(
+                f"decode geometry predicted to exceed the device "
+                f"memory budget: peak "
+                f"{plan['predicted_peak_bytes'] / 1e9:.2f} GB vs "
+                f"budget {budget / 1e9:.2f} GB (num_pages="
+                f"{cfg.num_pages}, page_size={cfg.page_size}, "
+                f"num_slots={cfg.num_slots})",
+                plan=plan, budget_bytes=int(budget))
+
+    def _probe(self, num_pages: int):
+        """One recorded decode step (no slot active) over a pool of
+        `num_pages` pages, the parameters, pools and feeds counted in
+        (observe/memory.py `measure_run`), after one unrecorded step."""
+        from ..observe.memory import measure_run
+
+        cfg = self.config
+        st = self.model.step
+        s = cfg.num_slots
+        pools = self.model.fresh_pools(num_pages, cfg.page_size,
+                                       self.device)
+        zeros = np.zeros((s,), np.int32)
+        feeds = {"tokens": self._tensor(zeros),
+                 "write_pos": self._tensor(zeros),
+                 "lengths": self._tensor(zeros + 1),
+                 "active": self._tensor(zeros),
+                 "page_table": self._tensor(np.zeros(
+                     (s, cfg.max_pages_per_slot), np.int32))}
+        resident = dict(self._params)
+        resident.update(pools)
+        resident.update(feeds)
+
+        def step():
+            run_model_program(st, self._params, pools, self._cache_names,
+                              self.device, (st["next_token"],),
+                              row_block=self.step_row_block, **feeds)
+
+        with torch.no_grad():
+            step()
+            return measure_run(step, self.device, resident)
 
     def drain(self, timeout_s: float = 120.0) -> bool:
         """Stop admission, let every accepted request finish decoding.

@@ -32,9 +32,17 @@ Predictor enters `torch.no_grad()` on that thread itself.
 
 Metrics and alerts (observe/registry.py, alerts.py, flightrec.py):
 `metrics_registry()`, the opt-in `start_metrics_server()` and
-`enable_alerts()`, all host-side.  Left out until ROADMAP A step 11: the
-observe.memory fit planner behind `memory_budget_bytes` (a known budget
-records `fit_plan = {"skipped": ...}`).
+`enable_alerts()`, all host-side.
+
+The memory gate (`memory_budget_bytes`): before the ladder's warmup,
+start() runs the Predictor's program at batch 1 and 2 of every sequence
+bucket under `no_grad`, each once unrecorded and once recorded
+(observe/memory.py `measure_run`: the card's allocator, the ledger on
+the CPU, the parameters and feeds counted in), extrapolates each
+event's peak in batch (`fit_peaks`, as `plan_fit`) and raises
+`BucketMemoryError` for a bucket predicted past the budget, the
+reference's planner (paddle_tpu/serving/engine.py:647-731).  On the
+card the budget is the card's own memory unless given.
 """
 
 from __future__ import annotations
@@ -164,10 +172,9 @@ class ServingEngine:
         None (default) disables tracing; a Fleet passes its own
         traces through `submit(_trace=...)` regardless.
     memory_budget_bytes: device memory budget the bucket ladder must
-        fit.  The fit planner (observe.memory) comes with ROADMAP A step
-        11: until then start() records `fit_plan = {"skipped": ...}`
-        with the budget given (as the port's DecodeEngine does); False
-        skips validation entirely, as in the reference.
+        fit (None: the card's memory; the CPU has none, and start()
+        records `fit_plan = {"skipped": "no device budget known"}`);
+        False skips validation entirely, as in the reference.
     """
 
     def __init__(self, model: Union[str, AnalysisConfig, Predictor],
@@ -619,17 +626,80 @@ class ServingEngine:
                 yield self._spec_for(bs, sl)
 
     def _validate_memory_budget(self):
-        """The reference predicts every bucket's peak memory here from
-        two probe compiles (observe.memory).  That planner comes with
-        ROADMAP A step 11: a budget that is not False is recorded in
-        `self.fit_plan` as skipped, as the port's DecodeEngine does."""
+        """Predict every bucket's peak memory BEFORE the ladder warmup
+        and raise a structured BucketMemoryError for impossible buckets
+        (the reference's planner, paddle_tpu/serving/engine.py:647-731).
+
+        Inference peak is affine in batch at a fixed seq bucket, so two
+        small probe runs per seq bucket (batch 1 and 2, observe.memory
+        `fit_peaks`) predict the whole batch ladder.  Records the
+        prediction table in `self.fit_plan`; tags it skipped when no
+        budget is known (the CPU without an explicit budget)."""
         budget = self.memory_budget_bytes
         if budget is False:
             return
-        self.fit_plan = {"skipped": "observe.memory fit planner not "
-                                    "ported (ROADMAP A step 11)",
-                         "budget_bytes": (None if budget in (None, True)
-                                          else int(budget))}
+        from ..observe.memory import (PLAN_FIT_REL_TOL,
+                                      device_memory_budget, fit_peaks)
+
+        if budget is None or budget is True:
+            budget = device_memory_budget(self.predictor.device)
+        if not budget:
+            self.fit_plan = {"skipped": "no device budget known",
+                             "budget_bytes": None}
+            return
+        probe_bs = tuple(b for b in (1, 2)
+                         if b <= self.buckets.batch_sizes[-1]) or (1,)
+        buckets_plan: List[Dict[str, Any]] = []
+        for sl in (self.buckets.seq_lens or (None,)):
+            rows, _fit = fit_peaks(
+                lambda b: self._probe(self._spec_for(b, sl)),
+                self.buckets.batch_sizes, probe_bs)
+            buckets_plan += [
+                {"batch_size": r["size"], "seq_len": sl,
+                 "predicted_peak_bytes": r["predicted_peak_bytes"],
+                 "exact": r["exact"],
+                 "fits": r["predicted_peak_bytes"] <= budget}
+                for r in rows]
+        bad = [r for r in buckets_plan if not r["fits"]]
+        self.fit_plan = {
+            "budget_bytes": int(budget),
+            "probe_batches": list(probe_bs),
+            "rel_tol": PLAN_FIT_REL_TOL,
+            "buckets": buckets_plan,
+        }
+        if self._event_log is not None:
+            self._event_log.event("serving_memory_plan", **self.fit_plan)
+        if bad:
+            raise BucketMemoryError(
+                f"{len(bad)}/{len(buckets_plan)} configured buckets "
+                f"predicted to exceed the device memory budget "
+                f"({budget / 1e9:.2f} GB): "
+                + ", ".join(f"bs{r['batch_size']}"
+                            + (f"/seq{r['seq_len']}"
+                               if r['seq_len'] else "")
+                            + f"≈{r['predicted_peak_bytes'] / 1e9:.2f}GB"
+                            for r in bad[:4])
+                + (" ..." if len(bad) > 4 else ""),
+                budget_bytes=int(budget),
+                offending_buckets=bad,
+                probe_batches=list(probe_bs),
+                plan=buckets_plan)
+
+    def _probe(self, spec):
+        """One recorded Predictor run on zeros of `spec`, its parameters
+        and feeds counted in (observe/memory.py `measure_run`), after
+        one unrecorded run: the workspaces and algorithm choices a new
+        shape makes once fall before the window."""
+        from ..observe.memory import measure_run
+
+        pred = self.predictor
+        feeds = pred.zero_feeds(spec)
+        resident = dict(pred._params)
+        resident.update(feeds)
+        with torch.no_grad():
+            pred._infer(pred._params, feeds)
+            return measure_run(lambda: pred._infer(pred._params, feeds),
+                               pred.device, resident)
 
     def _dispatch(self, requests: Sequence[Request]):
         """Batcher callback: pad to the smallest fitting bucket,

@@ -351,6 +351,22 @@ def test_zero_opt_state_bytes_per_rank(group):
     assert_state_close(lars["state"], ref["state"])
 
 
+def test_sharded_memory_report_counts_the_zero_slice(group):
+    """observe.sharded_memory_report at fsdp = 2: a rank's resident
+    optimizer state is its local ZeRO slice, the bytes
+    `opt_state_bytes` gives (83,516 on reg_mlp_adam, ROADMAP C7), and
+    the recorded step leaves the rank's state as it was."""
+    feeds = feeds_for("reg_mlp_adam", steps=2)
+    arrays = ref_arrays("reg_mlp_adam")
+    res = group.run("sharded_memory", timeout=120, model="reg_mlp_adam",
+                    feeds=feeds, arrays=arrays, mesh={"fsdp": 2})
+    ranks = [r for r in res if r is not None]
+    assert len(ranks) == 2
+    for r in ranks:
+        assert r["resident_opt"] == r["opt_bytes"] == 83516
+        assert r["state_kept"] and r["peak"] > r["resident_opt"]
+
+
 def test_guard_skips_on_every_rank(group):
     """A NaN in one rank's slice poisons the synchronized gradients:
     every rank's update guard skips the step (the same decision on

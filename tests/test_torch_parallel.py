@@ -132,8 +132,9 @@ def test_names_and_mesh_without_a_group():
 def test_compiled_program_one_rank_is_the_plain_run():
     """Both call forms — exe.run(compiled) and exe.run(main) after
     with_data_parallel — at dp=1 equal plain Executor.run bit for bit;
-    compiled_step/compiled_hlo_text name the cost plane (step 11); an
-    mp = 2 mesh without a process group is the reference's error."""
+    compiled_step returns the step record, compiled_hlo_text raises
+    naming C21 (the port has no HLO); an mp = 2 mesh without a process
+    group is the reference's error."""
     feeds = [{"x": np.random.RandomState(i).randn(8, 16).astype(np.float32),
               "y": np.random.RandomState(i).randint(0, 4, (8, 1))
               .astype(np.int64)} for i in range(3)]
@@ -157,9 +158,12 @@ def test_compiled_program_one_rank_is_the_plain_run():
             np.testing.assert_array_equal(a, b)
         for n, v in runs["plain"][-1].items():
             np.testing.assert_array_equal(runs[form][-1][n], v)
-    with pytest.raises(NotImplementedError, match="step 11"):
-        cp.compiled_step(feeds[0], [out["loss"].name])
-    with pytest.raises(NotImplementedError, match="step 11"):
+    before = cases._logical(main, scope)
+    rec = cp.compiled_step(feeds[0], [out["loss"].name], scope, exe=exe)
+    assert rec.cost_analysis()["flops"] > 0
+    for n, v in cases._logical(main, scope).items():
+        np.testing.assert_array_equal(v, before[n])
+    with pytest.raises(NotImplementedError, match="C21"):
         cp.compiled_hlo_text(feeds[0], [out["loss"].name], None)
     # a model axis takes ranks like any other: without a process group
     # an mp = 2 mesh is the reference's error

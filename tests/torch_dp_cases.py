@@ -306,6 +306,35 @@ def train(rank, world, model, feeds, arrays, mesh=None, devices=None,
     return res
 
 
+def sharded_memory(rank, world, model, feeds, arrays, mesh):
+    """This rank's `sharded_memory_report` after steps of `model` on
+    `mesh`: {"resident_opt", "opt_bytes", "flops", "state_kept"}; None
+    on a rank outside the mesh."""
+    main, startup, out = build(pt, model)
+    exe = pt.Executor(pt.CPUPlace())
+    scope = _scope_from(arrays, main)
+    m = pt.parallel.make_mesh(mesh)
+    if not m.member:
+        return None
+    wrapper = pt.CompiledProgram(main).with_data_parallel(
+        loss_name=out["loss"].name, mesh=m)
+    for feed in feeds:
+        exe.run(wrapper, feed=feed, fetch_list=[out["loss"]], scope=scope)
+    from paddle_tpu_torch.parallel.data_parallel import opt_state_bytes
+
+    before = _logical(main, scope)
+    rep = pt.observe.sharded_memory_report(
+        main, feed=feeds[-1], fetch_list=[out["loss"]], scope=scope,
+        exe=exe)
+    after = _logical(main, scope)
+    return {"resident_opt": pt.observe.resident_state_bytes(
+                rep, "optimizer_state"),
+            "opt_bytes": opt_state_bytes(scope, main),
+            "peak": rep["peak_bytes"],
+            "state_kept": all(np.array_equal(after[n], v)
+                              for n, v in before.items())}
+
+
 def refusal(rank, world, model, feed, arrays, mesh, grad_sync=None,
             reduce=False, accum=1):
     """The message of the error one step raises (None: no error), from
