@@ -410,8 +410,32 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    untouched; (d) the ServingEngine's and DecodeEngine's gates on the
    card's budget; (e) the stacked LSTM's rows, card and CPU
    (`chip_smoke.py --phase 6y` runs it alone);
+6z. the health plane, the gang supervisor and the divergence autopilot
+   (run after 6x): a store client whose store's host process is killed
+   raises, call by call, only what the health plane catches (ROADMAP
+   C24); then on the float32 fused-CE Transformer at CUT_LAYERS +
+   CUT_LAYERS layers with the update guard: (c) a Trainer's steps with
+   the health plane off, then on (over chaos.FakeKv, its threads
+   running): the same launches and host synchronizations; (a)
+   `Trainer(autopilot=AutopilotConfig(skip_streak=1))` over 12 batches,
+   batch 5 with one id outside the vocabulary, async checkpoints every
+   2 steps: one rollback to serial 1, the window [4, 6) quarantined,
+   every persistable bit for bit a control whose reader never yields
+   batches 4 and 5, recovery_rollback before data_quarantine, recovery
+   time in the goodput ledger, recovery_autopilot_enabled 1 and
+   recovery_rollbacks_total 1; (b) `Supervisor(host_coordinator=True,
+   max_restarts=1)` over two `chip_smoke.py --gang-worker` ranks on the
+   card (gloo, the health plane at 0.25 s x 4 misses, each rank a
+   Trainer on its own batches), rank 1 SIGKILLed after its step 8
+   (`chaos.arm_kill_rank_env`): the survivor's PeerLostError names it
+   within the miss window plus two polls, exit 43, one relaunch, each
+   rank resumed from its newest valid serial and ended DONE with every
+   persistable bit for bit that rank's Trainer run uninterrupted in
+   this process; detection latency, relaunch-to-first-step, backoff and
+   each rank's goodput categories logged (`chip_smoke.py --phase 6z`
+   runs it alone);
 8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6y and 4e-4g included), the card line, and as its last line
+   6l-6z and 4e-4g included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -9374,6 +9398,517 @@ def _engine_gates(dev, card):
             "decode_refused_pool_bytes": pool, "allocated_meanwhile": grew}
 
 
+# -- phase 6z: the health plane, the gang supervisor and the autopilot ----
+
+# (a) the reference's autopilot geometry (tests/test_autopilot.py:84-150)
+AUTOPILOT_BATCHES = 12
+AUTOPILOT_POISON_AT = 5
+AUTOPILOT_WINDOW = {"from_epoch": 0, "from_step": 4, "to_epoch": 0,
+                    "to_step": 6}
+PLANE_COST_STEPS = 3       # (c): steps with the plane off, then on
+# (b) the supervised gang: two ranks on the card, each its own Trainer
+GANG_BATCHES = 12
+GANG_CKPT_EVERY = 3        # each rank's checkpoint cadence, in steps
+GANG_KILL_RANK = 1
+GANG_KILL_AT = 8           # rank 1 dies once its step 8 is done (its
+#                            serial of step 3 written, step 6's maybe not)
+GANG_INTERVAL_S = 0.25     # heartbeat interval ...
+GANG_MISS_BUDGET = 4       # ... and misses: a 1 s miss window
+GANG_PACE_S = 0.3          # each step's handler held, so the loss lands
+#                            while the survivor still trains
+GANG_TIMEOUT_S = 420
+
+
+def health_funcs():
+    """(train_func, optimizer_func) of the float32 fused-CE bench
+    Transformer at CUT_LAYERS + CUT_LAYERS layers (dropout 0.1): Adam
+    under noam x 2.0, as build_guarded without AMP."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.models import transformer
+
+    arch = dict(TRAIN_ARCH, use_fused_ce=True, n_layer=CUT_LAYERS)
+
+    def train_func():
+        return transformer.build_model(**arch, with_optimizer=False)["loss"]
+
+    def optimizer_func():
+        lr = layers.elementwise_mul(
+            layers.noam_decay(arch["d_model"], 4000),
+            layers.fill_constant([1], "float32", 2.0))
+        return optimizer.AdamOptimizer(learning_rate=lr, beta1=0.9,
+                                       beta2=0.997, epsilon=1e-9)
+
+    return train_func, optimizer_func
+
+
+def health_batches(n, seed, poison_at=None):
+    """n seeded batches (host numpy, phase 6's feed shape); the one at
+    `poison_at` has a source id equal to the vocabulary size (a NaN row
+    through the lookup, ROADMAP C3)."""
+    from paddle_tpu_torch.models import transformer
+
+    v = TRAIN_ARCH["trg_vocab_size"]
+    out = [transformer.make_fake_batch(TRAIN_BATCH, TRAIN_ARCH["max_length"],
+                                       v, v, seed=seed + i)
+           for i in range(n)]
+    if poison_at is not None:
+        out[poison_at]["src_word"][0, 0] = v
+    return out
+
+
+def health_trainer(run_dir, rank=0, autopilot=None, telemetry=True,
+                   checkpoints=True, step_interval=2):
+    """contrib.Trainer of health_funcs on cuda:0 with the update guard:
+    async checkpoints every `step_interval` steps under
+    run_dir/ck/rank<rank> (no epoch-end save), telemetry every step into
+    run_dir/events.jsonl."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observe, resilience
+    from paddle_tpu_torch.contrib import CheckpointConfig, Trainer
+
+    train_func, optimizer_func = health_funcs()
+    t = Trainer(
+        train_func, optimizer_func, place=pt.CUDAPlace(0),
+        checkpoint_config=(CheckpointConfig(
+            os.path.join(run_dir, "ck", f"rank{rank}"),
+            step_interval=step_interval,
+            epoch_interval=10 ** 6, max_num_checkpoints=3,
+            async_save=True) if checkpoints else None),
+        telemetry=(observe.TelemetryConfig(
+            interval=1, log_path=os.path.join(run_dir, "events.jsonl"))
+            if telemetry else None),
+        autopilot=autopilot)
+    resilience.enable_update_guard(t.train_program)
+    return t
+
+
+def _digests(trainer):
+    """{persistable: sha256 of its bytes} — bit-for-bit identity."""
+    import hashlib
+
+    out = {}
+    for v in trainer.train_program.list_vars():
+        if v.persistable:
+            val = trainer.scope.find_var(v.name)
+            out[v.name] = hashlib.sha256(
+                val.detach().cpu().contiguous().numpy().tobytes()
+            ).hexdigest()
+    return out
+
+
+def _store_on_this_torch():
+    """C24 on the running torch: a client of a store whose host
+    process was killed — each call's exception type must be one the
+    health plane catches (health.STORE_ERRORS) — and whether the store
+    has `clone` and `list_keys`."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.resilience.health import STORE_ERRORS
+
+    code = ("import time, torch.distributed as d\n"
+            "s = d.TCPStore('127.0.0.1', 0, 1, is_master=True, "
+            "wait_for_workers=False)\n"
+            "print(s.port, flush=True)\n"
+            "time.sleep(120)\n")
+    host = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        store = dist.TCPStore("127.0.0.1", int(host.stdout.readline()),
+                              is_master=False,
+                              timeout=timedelta(seconds=5))
+        store.set("k", "1")
+        conn = store.clone()
+        host.kill()
+        host.wait()
+        raised = {}
+        for name, call in (("check", lambda: conn.check(["k"])),
+                           ("get", lambda: conn.get("k")),
+                           ("set", lambda: conn.set("k", "2")),
+                           ("wait", lambda: conn.wait(
+                               ["x"], timedelta(seconds=1)))):
+            try:
+                call()
+                raised[name] = None
+            except Exception as e:  # noqa: BLE001 — recorded and checked
+                raised[name] = (type(e).__name__,
+                                isinstance(e, STORE_ERRORS))
+    finally:
+        if host.poll() is None:
+            host.kill()
+            host.wait()
+    res = {"torch": torch.__version__, "raised": raised,
+           "clone": hasattr(dist.TCPStore, "clone"),
+           "list_keys": hasattr(dist.TCPStore, "list_keys")}
+    log(f"  store on torch {torch.__version__}, its host killed: {raised}; "
+        f"clone {res['clone']}, list_keys {res['list_keys']}")
+    if not all(r is not None and r[1] for r in raised.values()):
+        raise AssertionError(f"6z: a dead store's errors escape "
+                             f"STORE_ERRORS: {raised}")
+    return res
+
+
+def _plane_cost(dev, run_dir):
+    """(c): the same Trainer's steps with the health plane off, then on
+    (a plane over chaos.FakeKv with its heartbeat and monitor threads
+    running): the same kernel launches and the same host
+    synchronizations a step."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import FakeKv, HealthConfig, health
+
+    t = health_trainer(run_dir, telemetry=False, checkpoints=False)
+    batches = health_batches(2 + 2 * PLANE_COST_STEPS, 500)
+    t.train(num_epochs=1, reader=lambda: iter(batches[:2]))  # warm
+    res = {}
+    for label in ("off", "on"):
+        if label == "on":
+            health.start_health_plane(rank=0, num_ranks=2, kv=FakeKv(),
+                                      config=HealthConfig(
+                                          interval_s=0.05, miss_budget=10 ** 6,
+                                          startup_grace_s=10 ** 9))
+        lo = 2 + PLANE_COST_STEPS * (label == "on")
+        part = batches[lo:lo + PLANE_COST_STEPS]
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        syncs = _sync_warnings(lambda: t.train(
+            num_epochs=1, reader=lambda: iter(part)))
+        counts = _check_launches(f"6z (c) plane {label}", t.train_program,
+                                 PLANE_COST_STEPS)
+        res[label] = {"syncs": len(syncs), "sync_lines": sorted(set(syncs)),
+                      "launches": counts["launches"]}
+    beats = health.get_health_plane().heartbeat._step
+    health.stop_health_plane()
+    t.stop()
+    if (res["on"]["syncs"] != res["off"]["syncs"]
+            or res["on"]["sync_lines"] != res["off"]["sync_lines"]
+            or res["on"]["launches"] != res["off"]["launches"]):
+        raise AssertionError(f"6z (c): the plane changed the step: {res}")
+    if beats != PLANE_COST_STEPS:
+        raise AssertionError(f"6z (c): heartbeat counter {beats}")
+    log(f"  (c) plane off/on: {res['off']['syncs']} host syncs over "
+        f"{PLANE_COST_STEPS} steps both ways "
+        f"({res['off']['sync_lines']}), the same launches")
+    res["launches"] = {k: res["off"]["launches"][k] + res["on"]["launches"][k]
+                       for k in res["off"]["launches"]}
+    return res
+
+
+def _autopilot_on_card(dev, run_dir):
+    """(a): the autopilot run against the control, on the card."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import AutopilotConfig
+
+    batches = health_batches(AUTOPILOT_BATCHES, 300,
+                             poison_at=AUTOPILOT_POISON_AT)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    t = health_trainer(os.path.join(run_dir, "auto"),
+                       autopilot=AutopilotConfig(skip_streak=1,
+                                                 loss_spike_z=None,
+                                                 grad_norm_z=None))
+    t.train(num_epochs=1, reader=lambda: iter(batches))
+    auto_s = time.perf_counter() - t0
+    counts = _check_launches("6z (a) autopilot", t.train_program,
+                             AUTOPILOT_BATCHES)
+    got = _digests(t)
+    snap = t.autopilot.snapshot()
+    windows = t.autopilot.quarantine_windows
+    rep = t.goodput()
+    reg = t.metrics_registry().snapshot()
+    t.stop()
+    events = observe.read_events(os.path.join(run_dir, "auto",
+                                              "events.jsonl"))
+    kinds = [e["event"] for e in events]
+    rb = [e for e in events if e["event"] == "recovery_rollback"]
+
+    kernels.reset_counts()
+    skip = {AUTOPILOT_WINDOW["from_step"], AUTOPILOT_POISON_AT}
+    clean = [b for i, b in enumerate(batches) if i not in skip]
+    ctl = health_trainer(os.path.join(run_dir, "ctl"), checkpoints=False)
+    ctl.train(num_epochs=1, reader=lambda: iter(clean))
+    ctl_counts = _check_launches("6z (a) control", ctl.train_program,
+                                 len(clean))
+    want = _digests(ctl)
+    ctl.stop()
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    checks = {
+        "bit_identical": not differ and set(got) == set(want),
+        "one_rollback_to_serial_1": (snap["rollbacks"] == 1 and len(rb) == 1
+                                     and rb[0]["serial"] == 1),
+        "window": windows == [AUTOPILOT_WINDOW],
+        "quarantined_2": snap["quarantined_batches"] == 2,
+        "no_halt": snap["halted"] == 0 and "recovery_halt" not in kinds,
+        "rollback_before_quarantine": ("recovery_rollback" in kinds
+                                       and "data_quarantine" in kinds
+                                       and kinds.index("recovery_rollback")
+                                       < kinds.index("data_quarantine")),
+        "goodput_recovery": rep["categories_s"].get("recovery", 0) > 0,
+        "registry": (reg["recovery_autopilot_enabled"]["samples"][0]["value"]
+                     == 1 and reg["recovery_rollbacks_total"]["samples"][0]
+                     ["value"] == 1),
+    }
+    log(f"  (a) autopilot: {AUTOPILOT_BATCHES} batches, batch "
+        f"{AUTOPILOT_POISON_AT} poisoned, rolled back to serial "
+        f"{rb[0]['serial'] if rb else None}, window {windows}, "
+        f"quarantined {snap['quarantined_batches']}, {auto_s:.1f} s; "
+        f"recovery {rep['categories_s'].get('recovery', 0):.3f} s of "
+        f"{rep['wall_s']:.1f} s; persistables differing from the "
+        f"control: {len(differ)} of {len(want)}")
+    if not all(checks.values()):
+        raise AssertionError(f"6z (a): {checks}; differing {differ[:8]}")
+    launches = {k: counts["launches"][k] + ctl_counts["launches"][k]
+                for k in counts["launches"]}
+    return {"checks": checks, "snapshot": snap, "windows": windows,
+            "goodput": rep, "wall_s": auto_s, "launches": launches}
+
+
+def _gang_worker_cmd(run_dir):
+    return [sys.executable, os.path.abspath(__file__), "--gang-worker",
+            run_dir]
+
+
+def gang_worker(argv) -> int:
+    """One 6z (b) rank, `chip_smoke.py --gang-worker DIR`, launched by the
+    Supervisor with the PADDLE_* env: `init_distributed(backend="gloo")`
+    (two ranks on one card; it starts the health plane), a health_trainer
+    on the rank's own batches with checkpoints every GANG_CKPT_EVERY
+    steps under DIR/ck/rank<r>;
+    prints "STEP <epoch> <step> <unix time>" after each step (then
+    `chaos.kill_rank` and GANG_PACE_S), "PEER_LOST <json>" and exit 43 on
+    a gang error, else the done-rendezvous and "DONE".  Writes
+    DIR/out/rank<r>.<pid>.json: steps, resume cursor, launches against
+    their want, goodput, and (done) the persistables' digests."""
+    from paddle_tpu_torch.contrib import EndStepEvent
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.parallel import init_distributed
+    from paddle_tpu_torch.resilience import (PEER_LOST_EXIT_CODE,
+                                             CheckpointBarrierPoisonedError,
+                                             GangError, chaos, health)
+
+    run_dir = argv[0]
+    t_spawned = time.time()
+    _set_matmul_flags()
+    _build.build()
+    rank, _ = init_distributed(backend="gloo")
+    plane = health.get_health_plane()
+    trainer = health_trainer(run_dir, rank=rank, telemetry=False,
+                             step_interval=GANG_CKPT_EVERY)
+    batches = health_batches(GANG_BATCHES, 700 + 100 * rank)
+    # the cursor of the newest serial listed (its trainer state written
+    # last): the one a relaunch must resume from
+    newest = [0, 0]
+    listed = trainer._list_checkpoints()
+    if listed:
+        with open(os.path.join(trainer._ckpt_root(), f"ckpt_{listed[-1]}",
+                               "__trainer_state__.json")) as f:
+            st = json.load(f)
+        newest = [st["epoch"], st["step"]]
+    res = {"rank": rank, "pid": os.getpid(), "t_spawned": t_spawned,
+           "resume": [trainer._resume_epoch, trainer._resume_step_in_epoch],
+           "newest_listed": newest, "steps": []}
+    kernels.reset_counts()
+
+    def handler(e):
+        if isinstance(e, EndStepEvent):
+            now = time.time()
+            res["steps"].append([e.epoch, e.step, now])
+            print(f"STEP {e.epoch} {e.step} {now:.6f}", flush=True)
+            chaos.kill_rank(rank, e.epoch * GANG_BATCHES + e.step)
+            time.sleep(GANG_PACE_S)
+
+    def finish(rc, lost=None):
+        res.update(rc=rc, counts=kernels.counts(),
+                   want=_want_launches(trainer.train_program,
+                                       len(res["steps"])),
+                   goodput=trainer.goodput())
+        if lost is not None:
+            res["peer_lost"] = lost
+        path = os.path.join(run_dir, "out", f"rank{rank}.{os.getpid()}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(res, f, default=str)
+        sys.stdout.flush()
+        os._exit(rc)  # no teardown: a peer may be gone
+
+    def lost(e, at):
+        payload = dict(e.as_dict(), rank=rank, at=at,
+                       alarm_wall_time=plane.monitor.alarm_wall_time)
+        print("PEER_LOST " + json.dumps(payload, default=str), flush=True)
+        finish(PEER_LOST_EXIT_CODE, payload)
+
+    try:
+        trainer.train(num_epochs=1, reader=lambda: iter(batches),
+                      event_handler=handler)
+    except (GangError, CheckpointBarrierPoisonedError) as e:
+        lost(e, "train")
+    res["digests"] = _digests(trainer)
+    plane.leave()
+    if not plane.wait_gang_done(timeout_s=60.0):
+        try:
+            plane.check()
+        except (GangError, CheckpointBarrierPoisonedError) as e:
+            lost(e, "done_wait")
+    print("DONE", flush=True)
+    finish(0)
+    return 0
+
+
+def _gang_on_card(dev, run_dir):
+    """(b): the supervised gang with a SIGKILL, against each rank's
+    Trainer run uninterrupted in this process (the control)."""
+    import shutil
+
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import Supervisor, chaos, classify_exit
+
+    control, launches = {}, None
+    for rank in (0, 1):
+        kernels.reset_counts()
+        t = health_trainer(run_dir, rank=rank, telemetry=False,
+                           checkpoints=False)
+        batches = health_batches(GANG_BATCHES, 700 + 100 * rank)
+        t.train(num_epochs=1, reader=lambda: iter(batches))
+        counts = _check_launches(f"6z (b) control rank {rank}",
+                                 t.train_program, GANG_BATCHES)["launches"]
+        launches = counts if launches is None else {
+            k: launches[k] + counts[k] for k in counts}
+        control[rank] = _digests(t)
+        t.stop()
+    torch.cuda.empty_cache()
+    env = {"FLAGS_heartbeat_interval_s": str(GANG_INTERVAL_S),
+           "FLAGS_heartbeat_miss_budget": str(GANG_MISS_BUDGET),
+           "KINETO_LOG_LEVEL": "2"}
+    chaos.arm_kill_rank_env(env, rank=GANG_KILL_RANK, at_step=GANG_KILL_AT,
+                            once_file=os.path.join(run_dir, "killed.flag"))
+    gang_dir = os.path.join(run_dir, "gang")
+    log_path = os.path.join(run_dir, "supervisor.jsonl")
+    sup_log = observe.RunEventLog(log_path)
+    # the ranks' logs outlive the phase's directory (its checkpoints)
+    logs = os.path.abspath(os.path.join(OUT_DIR, "health_6z_logs"))
+    shutil.rmtree(logs, ignore_errors=True)
+    sup = Supervisor(_gang_worker_cmd(gang_dir), 2, max_restarts=1,
+                     grace_s=30.0, backoff_base_s=1.0, env=env,
+                     host_coordinator=True, poll_s=0.05, log_dir=logs,
+                     event_log=sup_log)
+    t0 = time.perf_counter()
+    try:
+        result = sup.run()
+    finally:
+        sup_log.close()
+    gang_s = time.perf_counter() - t0
+    starts = [e["ts"] for e in observe.read_events(log_path)
+              if e["event"] == "gang_start"]
+    results = []
+    out_dir = os.path.join(gang_dir, "out")
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            results.append(json.load(f))
+    for r in results:
+        c, w = r["counts"], r["want"]
+        if (c["launches"] != w or max(c["plain"].values())
+                or max(c["composed"].values())):
+            raise AssertionError(f"6z (b) rank {r['rank']} pid {r['pid']}: "
+                                 f"launches {c}, want {w}")
+        launches = {k: launches[k] + c["launches"][k] for k in launches}
+
+    def logtext(attempt, rank):
+        with open(os.path.join(logs, f"attempt{attempt}_rank{rank}.out")) \
+                as f:
+            return f.read()
+
+    a0 = result.attempts[0]
+    survivor = 1 - GANG_KILL_RANK
+    victim_steps = [ln.split() for ln in logtext(0, GANG_KILL_RANK)
+                    .splitlines() if ln.startswith("STEP ")]
+    lost = [json.loads(ln[len("PEER_LOST "):]) for ln in
+            logtext(0, survivor).splitlines() if ln.startswith("PEER_LOST ")]
+    latency = (lost[0]["alarm_wall_time"] - float(victim_steps[-1][3])
+               if lost and victim_steps else None)
+    bound = GANG_INTERVAL_S * GANG_MISS_BUDGET + 2 * min(GANG_INTERVAL_S, 1.0)
+    firsts = {}
+    for rank in (0, 1):
+        steps = [ln.split() for ln in logtext(1, rank).splitlines()
+                 if ln.startswith("STEP ")]
+        firsts[rank] = float(steps[0][3]) - starts[1] if steps else None
+    final = {r["rank"]: r for r in results if r["rc"] == 0}
+    differ = {rank: sorted(k for k in control[rank]
+                           if final.get(rank, {}).get("digests", {}).get(k)
+                           != control[rank][k]) for rank in (0, 1)}
+    resumed = {r["rank"]: r["resume"] for r in results if r["rc"] == 0}
+    newest = {r["rank"]: r["newest_listed"] for r in results if r["rc"] == 0}
+    checks = {
+        "one_relaunch": result.ok and result.restarts == 1,
+        "attempt0": (a0["classified"][GANG_KILL_RANK] == "signal:SIGKILL"
+                     and a0["exit_codes"][survivor] == 43
+                     and a0["reason"] in ("peer_lost", "crash")
+                     and classify_exit(a0["exit_codes"][survivor])
+                     == "peer_lost"),
+        "survivor_named_the_victim": bool(lost) and lost[0].get(
+            "missing_ranks") == [GANG_KILL_RANK],
+        "latency_within_bound": latency is not None and latency <= bound,
+        "attempt1_done": all("DONE" in logtext(1, r) for r in (0, 1)),
+        "resumed_from_newest_serial": (set(resumed) == {0, 1}
+                                       and resumed == newest),
+        "resumed_mid_run": any(v != [0, 0] for v in resumed.values()),
+        "bit_identical": all(not d for d in differ.values())
+                         and set(final) == {0, 1},
+    }
+    good = {r: {k: round(v, 3) for k, v in
+                final[r]["goodput"]["categories_s"].items()}
+            for r in final}
+    log(f"  (b) gang of 2 on the card (gloo, the store in the "
+        f"supervisor): rank {GANG_KILL_RANK} SIGKILLed after step "
+        f"{GANG_KILL_AT}; detected in {latency if latency is None else round(latency, 3)} s "
+        f"(bound {bound:.2f} s = {GANG_INTERVAL_S} x {GANG_MISS_BUDGET} + "
+        f"2 polls), attempt 0 {a0['classified']}, backoff slept "
+        f"{sup.backoffs_slept}, relaunch to first step "
+        f"{ {r: round(v, 2) if v is not None else None for r, v in firsts.items()} } s, "
+        f"resumed from {resumed}; {gang_s:.1f} s")
+    log(f"  (b) goodput categories (s) of the relaunched ranks: {good}; "
+        f"persistables differing from the control: "
+        f"{ {r: len(d) for r, d in differ.items()} }")
+    if not all(checks.values()):
+        raise AssertionError(f"6z (b): {checks}; attempts "
+                             f"{result.attempts}; lost {lost}")
+    return {"checks": checks, "attempts": result.attempts,
+            "detect_latency_s": latency, "detect_bound_s": bound,
+            "relaunch_to_first_step_s": firsts,
+            "backoff_slept_s": sup.backoffs_slept, "resumed": resumed,
+            "goodput": {r: final[r]["goodput"] for r in final},
+            "wall_s": gang_s, "launches": launches}
+
+
+def phase_health(dev, card):
+    """6z: (c) the plane's cost, (a) the autopilot, (b) the supervised
+    gang with a SIGKILL (see the module docstring).  Every run's
+    launches against `_want_launches`; their sum is the phase's."""
+    import shutil
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "health_6z"))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 6z: the health plane, the supervisor and the autopilot, "
+        f"the float32 fused-CE Transformer at {CUT_LAYERS}+{CUT_LAYERS} "
+        f"layers (batch {TRAIN_BATCH} x {TRAIN_ARCH['max_length']}, "
+        f"dropout {TRAIN_ARCH['dropout']}) on {card}")
+    res = {"store": _store_on_this_torch()}
+    try:
+        res["plane_cost"] = _plane_cost(dev, os.path.join(root, "cost"))
+        res["autopilot"] = _autopilot_on_card(dev,
+                                              os.path.join(root, "auto"))
+        torch.cuda.empty_cache()
+        res["gang"] = _gang_on_card(dev, os.path.join(root, "gang"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    parts = [res[k]["launches"] for k in ("plane_cost", "autopilot", "gang")]
+    res["launches"] = {k: sum(p[k] for p in parts) for k in parts[0]}
+    log(f"  6z launches {res['launches']}")
+    return res
+
+
 def phase_alone(label) -> int:
     """`chip_smoke.py --phase <label>` (PHASES_ALONE): the kernels built
     and that phase alone; its summary to OUT_DIR/<json name>, the card
@@ -9399,7 +9934,8 @@ def phase_alone(label) -> int:
 
 PHASES_ALONE = {"6w": (phase_data_parallel, "data_parallel.json"),
                 "6x": (phase_model_axes, "model_axes.json"),
-                "6y": (phase_cost_planes, "cost_planes.json")}
+                "6y": (phase_cost_planes, "cost_planes.json"),
+                "6z": (phase_health, "health.json")}
 
 
 def main() -> int:
@@ -9416,6 +9952,8 @@ def main() -> int:
         return dp_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--mx-worker"]:
         return mx_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--gang-worker"]:
+        return gang_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
             sys.argv[2] in PHASES_ALONE and len(sys.argv) == 3:
         return phase_alone(sys.argv[2])
@@ -9547,6 +10085,7 @@ def main() -> int:
     disagg = timed("4g", phase_disagg, dev, card)
     data_parallel = timed("6w", phase_data_parallel, dev, card)
     model_axes = timed("6x", phase_model_axes, dev, card)
+    health = timed("6z", phase_health, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -9598,7 +10137,7 @@ def main() -> int:
              train_guard, train_trainer, train_accum, train_accum_amp,
              train_recompute, train_optimizers, control_flow, moe, qat_int8,
              detection, fleet, serving_engine, disagg, data_parallel,
-             model_axes, cost_planes)
+             model_axes, cost_planes, health)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -9661,6 +10200,7 @@ def main() -> int:
                    "data_parallel": data_parallel,
                    "model_axes": model_axes,
                    "cost_planes": cost_planes,
+                   "health": health,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

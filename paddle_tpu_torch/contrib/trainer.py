@@ -34,19 +34,28 @@ the reference's, line for line; the port's differences:
   async writer thread writes numpy copies and JSON only — it touches no
   tensor.
 - **Metrics and alerts**: `metrics_registry()` (telemetry, goodput,
-  checkpoint gauges, the recovery family reporting no autopilot),
-  `start_metrics_server()` and `enable_alerts()` (observe.
-  trainer_rule_pack; with `flight_dir`, a FlightRecorder that also
-  bundles on the step watchdog's hang verdict).  All host-side.
+  checkpoint gauges, the recovery family, and the gang's heartbeat skew
+  when a health plane runs), `start_metrics_server()` and
+  `enable_alerts()` (observe.trainer_rule_pack; with `flight_dir`, a
+  FlightRecorder that also bundles on the step watchdog's hang
+  verdict).  All host-side.
 - **Data parallel**: `mesh=` compiles the train program over a
   parallel.Mesh with `build_strategy=` (ROADMAP A step 10a); a resume
-  loads the sharded checkpoint onto that mesh.
-- **Left out**, raising NotImplementedError under its ROADMAP queue A
-  step: `autopilot=` (step 11).  The gang health plane is not ported
-  (step 11): the loop has no heartbeat and no barrier_wait phase, and
-  `goodput()` reports no straggler skew.  On a mesh rank 0 alone
+  loads the sharded checkpoint onto that mesh.  On a mesh rank 0 alone
   clears a torn checkpoint directory, marks a save complete and
-  rotates; every rank writes its shards.
+  rotates; every rank writes its shards.  Without a mesh each process
+  keeps a checkpoint of its own (`prepare_sharded_save(
+  process_local=True)`): the ranks of a gang that each train their own
+  model save and resume independently.
+- **The gang health plane** (resilience/health.py, started by
+  `parallel.init_distributed`): between steps the loop bumps the
+  plane's heartbeat counter and raises its alarm or an unconsumed
+  poison (in the `barrier_wait` category); `goodput()` reports the
+  heartbeat skew; a step watchdog's hang verdict poisons the gang after
+  the flight recorder's capture.
+- **The divergence autopilot** (`autopilot=`, resilience/autopilot.py):
+  rollback to the newest verified-good serial in process, quarantine
+  of the poisoned data window, halt with TrainingDivergedError.
 """
 
 from __future__ import annotations
@@ -118,6 +127,16 @@ def _like(value, tmpl: torch.Tensor) -> Optional[torch.Tensor]:
     if tuple(arr.shape) != tuple(tmpl.shape):
         return None
     return torch.as_tensor(arr).to(device=tmpl.device, dtype=tmpl.dtype)
+
+
+class _RollbackSignal(Exception):
+    """Internal control flow: unwind the epoch loop to the restored
+    cursor after an autopilot rollback (never escapes train())."""
+
+    def __init__(self, epoch: int, step: int):
+        super().__init__(f"rollback to epoch {epoch} step {step}")
+        self.epoch = epoch
+        self.step = step
 
 
 class BeginEpochEvent:
@@ -224,13 +243,20 @@ class Trainer:
         and a resume loads the sharded checkpoint onto it.
         build_strategy: a parallel.BuildStrategy for that compile
         (grad_sync, Reduce/ZeRO, accumulation); without a mesh it is
-        ignored, as in the reference.  autopilot (ROADMAP A step 11)
-        raises NotImplementedError."""
-        if autopilot:
-            raise NotImplementedError(
-                "Trainer(autopilot=) (the divergence autopilot, "
-                "resilience/autopilot.py) is not ported yet: ROADMAP "
-                "queue A step 11 (host planes)")
+        ignored, as in the reference.
+
+        autopilot: a resilience.AutopilotConfig (or True for defaults)
+        — the divergence autopilot: on a guard-skip streak or
+        loss/grad-norm z-trip the trainer rolls back IN PROCESS to the
+        newest verified-good checkpoint, quarantines the poisoned data
+        window on replay, and — once the rollback budget is spent —
+        halts with a structured TrainingDivergedError plus a
+        flight-recorder bundle.  Requires telemetry= (the trigger
+        signals ride the telemetry windows) and checkpoint_config=
+        (rollback needs serials); the update guard
+        (resilience.enable_update_guard) supplies the skip-streak
+        signal.  Pure host: the step launches the same kernels with the
+        autopilot on or off."""
         self.checkpoint_cfg = checkpoint_config
         self.telemetry_cfg = telemetry
         self.step_deadline_s = step_deadline_s
@@ -269,7 +295,25 @@ class Trainer:
         self._ckpt_writer = None       # lazy SnapshotWriter (async_save)
         self._pending_save = None      # in-flight resilience.PendingSave
         self._step_watchdog = None     # DispatchWatchdog (step_deadline_s)
-        self.autopilot = None          # the divergence autopilot (step 11)
+        self._gang_steps = 0           # heartbeat step counter (beat())
+        self.autopilot = None          # the divergence autopilot
+        self._in_recovery = False      # between rollback and re-entry
+        if autopilot:
+            from ..resilience.autopilot import (AutopilotConfig,
+                                                RecoveryController)
+
+            if telemetry is None:
+                raise ValueError(
+                    "autopilot= requires telemetry= — the recovery "
+                    "controller consumes the periodic telemetry "
+                    "windows (observe.TelemetryConfig)")
+            if checkpoint_config is None:
+                raise ValueError(
+                    "autopilot= requires checkpoint_config= — "
+                    "rollback needs verified-good serials to restore")
+            cfg = (autopilot if isinstance(autopilot, AutopilotConfig)
+                   else AutopilotConfig())
+            self.autopilot = RecoveryController(cfg)
         self._metrics_registry = None
         self._metrics_server = None
         self.alert_engine = None       # opt-in (enable_alerts)
@@ -433,7 +477,10 @@ class Trainer:
                 # flight waits for it — two saves never interleave
                 # their files
                 self._await_pending(surface=True)
-            rank, ranks = fluid_io._process()
+            # without a mesh this process's checkpoint is its own: it acts
+            # as the one process of its save
+            rank, ranks = (fluid_io._process() if self.mesh is not None
+                           else (0, 1))
             if rank == 0 and os.path.isdir(path) and not os.path.exists(
                     os.path.join(path, "__trainer_state__.json")):
                 # leftover of a save that died mid-write (torn): clear
@@ -458,7 +505,8 @@ class Trainer:
                              self._capture_train_state(epoch, step)}
             with scope_guard(self.scope):
                 job = fluid_io.prepare_sharded_save(
-                    self.exe, path, main_program=self.train_program)
+                    self.exe, path, main_program=self.train_program,
+                    process_local=self.mesh is None)
 
             def _finalize():
                 # ordering: shards → manifest (io.py, written LAST
@@ -475,6 +523,11 @@ class Trainer:
                         json.dump(trainer_state, f)
                     os.replace(tmp,
                                os.path.join(path, "__trainer_state__.json"))
+                    if self.autopilot is not None:
+                        # the serial becomes a rollback anchor only after
+                        # its state file landed — never before
+                        self.autopilot.note_checkpoint(serial, epoch, step,
+                                                       verified)
                     self._rotate()
                 led.note_background("ckpt_write",
                                     (job.write_ms or 0.0) / 1000.0)
@@ -530,9 +583,12 @@ class Trainer:
         NOW: the trailing telemetry window is clean — the accumulator's
         current (since-last-fetch) nonfinite/skip counters are zero and
         the last PUBLISHED window was clean (the accumulator resets at
-        each fetch).  A trainer without telemetry marks every save
-        verified: it has no evidence of poison."""
+        each fetch), and the autopilot (when attached) holds no
+        unresolved anomaly.  A trainer without telemetry marks every
+        save verified: it has no evidence of poison."""
         if self._window_dirty:
+            return False
+        if self.autopilot is not None and not self.autopilot.healthy:
             return False
         tel = self.scope.find_var(TELEMETRY_VAR)
         if tel is not None:
@@ -662,15 +718,42 @@ class Trainer:
                     event_handler: Optional[Callable],
                     reader: Optional[Callable],
                     feed_order: Optional[Sequence[str]]):
+        from ..resilience import health as gang_health
+
         handler = event_handler or (lambda e: None)
         if self.preempt_drain:
             preempt.install_preempt_handler()
+        # gang fault tolerance: when init_distributed registered the
+        # health plane, every rank bumps its heartbeat step counter and
+        # consults the LOCAL alarm/poison cache between steps (the
+        # monitor thread does the store calls — nothing here touches the
+        # step)
+        plane = gang_health.get_health_plane()
+        if plane is not None:
+            if self._event_log:
+                plane.attach_event_log(self._event_log)
+            # the done-rendezvous outside train() (wait_gang_done) feeds
+            # the same ledger, as barrier_wait
+            plane.attach_ledger(self.goodput_ledger)
+            plane.check()  # a poisoned gang must not start stepping
         if self.step_deadline_s and self._step_watchdog is None:
             from ..resilience.watchdog import DispatchWatchdog
 
-            # capture the diagnostic bundle on a hang verdict
-            on_hang = (self.flight_recorder.watchdog_hook()
-                       if self.flight_recorder is not None else None)
+            def _on_hang(fields):
+                # a hang detected HERE is gang-fatal: poison so peers
+                # abort their barriers/steps instead of waiting out
+                # their own timeouts on this wedged rank
+                if plane is not None:
+                    plane.poison(
+                        f"step hang on rank {plane.rank}: "
+                        f"{fields.get('what')}", kind="step_hang",
+                        hang=fields)
+
+            on_hang = _on_hang
+            if self.flight_recorder is not None:
+                # capture the diagnostic bundle BEFORE the gang poison:
+                # the abort path may end the process
+                on_hang = self.flight_recorder.watchdog_hook(_on_hang)
             self._step_watchdog = DispatchWatchdog(
                 self.step_deadline_s, event_log=self._event_log,
                 on_hang=on_hang)
@@ -707,85 +790,34 @@ class Trainer:
                     "train_begin", num_epochs=num_epochs,
                     resume_epoch=self._resume_epoch,
                     resume_step=self._resume_step_in_epoch)
-        for epoch in range(self._resume_epoch, num_epochs):
-            handler(BeginEpochEvent(epoch))
-            step = 0
-            done = 0
-            for batch in self._goodput_batches(
-                    iter(reader()) if reader else iter(())):
-                # resume semantics: a mid-epoch checkpoint records how
-                # many batches of its epoch were consumed; with a
-                # deterministic reader, skipping them continues exactly
-                # where the dead process stopped (already-trained
-                # batches are not replayed onto updated params)
-                if skip > 0:
-                    skip -= 1
-                    step += 1
-                    continue
-                if not isinstance(batch, dict):
-                    if feed_order is None:
-                        raise ValueError(
-                            "tuple batches need feed_order")
-                    batch = dict(zip(feed_order, batch))
-                if self.validate_feed and self._reject_feed(
-                        batch, epoch, step):
-                    step += 1
-                    continue
-                begin = BeginStepEvent(epoch, step)
-                handler(begin)
-                if self._step_watchdog is not None:
-                    guard = self._step_watchdog.guard(
-                        what=f"train step {epoch}/{step}")
-                else:
-                    guard = contextlib.nullcontext()
-                is_replay = (crash_cursor is not None
-                             and (epoch, step) < crash_cursor)
-                with scope_guard(self.scope), guard, \
-                        self.goodput_ledger.phase(
-                            "replay" if is_replay else "step", steps=1):
-                    metrics = self.exe.run(
-                        self.train_program, feed=batch,
-                        fetch_list=fetch if begin.fetch_metrics else [])
-                handler(EndStepEvent(epoch, step, metrics))
-                step += 1
-                done += 1
-                if self.checkpoint_cfg:
-                    self._write_progress(epoch, step)
-                if (self.telemetry_cfg is not None and
-                        done % self.telemetry_cfg.interval == 0):
-                    tel_snap = self._publish_telemetry(epoch, step,
-                                                       tel_snap)
-                if (self.checkpoint_cfg and
-                        done % self.checkpoint_cfg.step_interval == 0):
-                    self._save_checkpoint(serial, epoch, step)
-                    serial += 1
-                    if self._event_log:
-                        self._event_log.event("checkpoint",
-                                              serial=serial - 1,
-                                              epoch=epoch, step=step)
-                if preempt.drain_requested():
-                    # the in-flight step already finished (we are at a
-                    # step boundary); checkpoint and get out
-                    self._drain(serial, epoch, step)
-            if skip > 0:
-                raise RuntimeError(
-                    f"resume cursor expected at least {skip} more batches "
-                    f"in epoch {epoch} than the reader produced — the "
-                    f"dataset/reader changed since the checkpoint")
+        # the loop's cursor state, carried across a rollback's unwind
+        loop = {"serial": serial, "tel_snap": tel_snap}
+        epoch = self._resume_epoch
+        while epoch < num_epochs:
+            try:  # the rollback unwind point for the whole epoch
+                self._train_epoch(epoch, skip, loop, handler, reader,
+                                  feed_order, fetch, crash_cursor, plane)
+            except _RollbackSignal as rb:
+                # autopilot rung 2 landed: the scope now holds the
+                # verified-good checkpoint — restart its epoch with the
+                # fast-forward cursor (batches before rb.step were
+                # trained pre-rollback and are skipped; batches in
+                # [rb.step, fail) hit the quarantine check)
+                epoch = rb.epoch
+                skip = rb.step
+                if (self._resume_reader_state is not None
+                        and reader is not None
+                        and hasattr(reader, "load_state_dict")):
+                    reader.load_state_dict(self._resume_reader_state)
+                continue
             skip = 0  # fast-forward applies to the resume epoch only
-            if (self.checkpoint_cfg and
-                    (epoch + 1) % self.checkpoint_cfg.epoch_interval == 0):
-                self._save_checkpoint(serial, epoch + 1, 0)
-                serial += 1
-            handler(EndEpochEvent(epoch))
-            if preempt.drain_requested():
-                self._drain(serial, epoch + 1, 0)
+            epoch += 1
         # a background write still in flight must land (and a failed
         # one must surface) before train() returns green
         self._await_pending(surface=True)
         if self.telemetry_cfg is not None:
             # flush the partial final window so no steps go unreported
-            self._publish_telemetry(num_epochs - 1, -1, tel_snap)
+            self._publish_telemetry(num_epochs - 1, -1, loop["tel_snap"])
             if self._event_log:
                 rep = self.goodput()
                 self._event_log.event(
@@ -802,18 +834,242 @@ class Trainer:
                     wall_s=rep["wall_s"])
                 self._event_log.event("goodput_report", **rep)
 
+    def _train_epoch(self, epoch, skip, loop, handler, reader, feed_order,
+                     fetch, crash_cursor, plane):
+        """One epoch of the loop (the reference's loop body).  `loop`
+        holds the next checkpoint serial and the runtime-stats snapshot
+        of the open telemetry window; it outlives a rollback's
+        unwind."""
+        handler(BeginEpochEvent(epoch))
+        step = 0
+        done = 0
+        for batch in self._goodput_batches(
+                iter(reader()) if reader else iter(())):
+            # resume semantics: a mid-epoch checkpoint records how many
+            # batches of its epoch were consumed; with a deterministic
+            # reader, skipping them continues exactly where the dead
+            # process stopped (already-trained batches are not replayed
+            # onto updated params)
+            if skip > 0:
+                skip -= 1
+                step += 1
+                continue
+            if self._quarantined(epoch, step):
+                # autopilot rung 3: a batch inside a quarantined window
+                # is consumed (cursor parity with the run that trained
+                # on it) but never trained — the poison does not get a
+                # second chance
+                with self.goodput_ledger.phase("recovery",
+                                               label="quarantine"):
+                    step += 1
+                    self.autopilot.quarantined_batches += 1
+                continue
+            if self._in_recovery:
+                # first live batch past the quarantine: caught up —
+                # reader waits are data_stall again, not recovery
+                self._in_recovery = False
+            if not isinstance(batch, dict):
+                if feed_order is None:
+                    raise ValueError("tuple batches need feed_order")
+                batch = dict(zip(feed_order, batch))
+            if self.validate_feed and self._reject_feed(batch, epoch,
+                                                        step):
+                step += 1
+                continue
+            begin = BeginStepEvent(epoch, step)
+            handler(begin)
+            if self._step_watchdog is not None:
+                guard = self._step_watchdog.guard(
+                    what=f"train step {epoch}/{step}")
+            else:
+                guard = contextlib.nullcontext()
+            is_replay = (crash_cursor is not None
+                         and (epoch, step) < crash_cursor)
+            with scope_guard(self.scope), guard, \
+                    self.goodput_ledger.phase(
+                        "replay" if is_replay else "step", steps=1):
+                metrics = self.exe.run(
+                    self.train_program, feed=batch,
+                    fetch_list=fetch if begin.fetch_metrics else [])
+            handler(EndStepEvent(epoch, step, metrics))
+            step += 1
+            done += 1
+            if self.checkpoint_cfg:
+                self._write_progress(epoch, step)
+            if plane is not None:
+                self._gang_steps += 1
+                with self.goodput_ledger.phase("barrier_wait"):
+                    plane.beat(self._gang_steps)
+                    plane.check()  # raises PeerLost/Stalled/Poisoned
+            if (self.telemetry_cfg is not None and
+                    done % self.telemetry_cfg.interval == 0):
+                loop["tel_snap"] = self._publish_telemetry(
+                    epoch, step, loop["tel_snap"])
+                if self.autopilot is not None:
+                    # may raise _RollbackSignal (rung 2) or
+                    # TrainingDivergedError (rung 4)
+                    self._autopilot_check(epoch, step)
+            if (self.checkpoint_cfg and
+                    done % self.checkpoint_cfg.step_interval == 0):
+                self._save_checkpoint(loop["serial"], epoch, step)
+                loop["serial"] += 1
+                if self._event_log:
+                    self._event_log.event("checkpoint",
+                                          serial=loop["serial"] - 1,
+                                          epoch=epoch, step=step)
+            if preempt.drain_requested():
+                # the in-flight step already finished (we are at a step
+                # boundary); checkpoint and get out
+                self._drain(loop["serial"], epoch, step)
+        if skip > 0:
+            raise RuntimeError(
+                f"resume cursor expected at least {skip} more batches "
+                f"in epoch {epoch} than the reader produced — the "
+                f"dataset/reader changed since the checkpoint")
+        if (self.checkpoint_cfg and
+                (epoch + 1) % self.checkpoint_cfg.epoch_interval == 0):
+            self._save_checkpoint(loop["serial"], epoch + 1, 0)
+            loop["serial"] += 1
+        handler(EndEpochEvent(epoch))
+        if preempt.drain_requested():
+            self._drain(loop["serial"], epoch + 1, 0)
+
     def _goodput_batches(self, it):
         """Wrap reader `next()` in the ledger's data_stall phase — the
         input pipeline's blocking time, attributed without touching the
-        reader or the step."""
+        reader or the step.  While replaying past a rollback the same
+        waits are autopilot fallout, not pipeline slowness, and land in
+        the `recovery` category instead."""
         led = self.goodput_ledger
         while True:
-            with led.phase("data_stall"):
+            with led.phase("recovery" if self._in_recovery
+                           else "data_stall"):
                 try:
                     batch = next(it)
                 except StopIteration:
                     return
             yield batch
+
+    # -- divergence autopilot (resilience/autopilot.py) ------------------
+    def _quarantined(self, epoch: int, pos: int) -> bool:
+        """Is reader position (epoch, pos) inside a quarantined data
+        window?  Windows are half-open [(e_r, s_r), (e_f, s_f)) in tuple
+        order — the batches the diverged timeline consumed after the
+        rollback anchor and before detection."""
+        if self.autopilot is None:
+            return False
+        for w in self.autopilot.quarantine_windows:
+            if ((w["from_epoch"], w["from_step"]) <= (epoch, pos)
+                    < (w["to_epoch"], w["to_step"])):
+                return True
+        return False
+
+    def _autopilot_check(self, epoch: int, step: int) -> None:
+        """Feed the freshly published telemetry window to the
+        RecoveryController; escalate when it returns a trigger."""
+        ap = self.autopilot
+        if ap.halted or self.last_telemetry is None:
+            return
+        trigger = ap.observe_window(self.last_telemetry, epoch, step)
+        if trigger is None:
+            return
+        if ap.rollbacks >= ap.cfg.max_rollbacks:
+            self._recovery_halt(trigger, epoch, step,
+                                reason="rollback_budget_exhausted")
+        self._rollback(trigger, epoch, step)
+
+    def _rollback(self, trigger: dict, epoch: int, step: int) -> None:
+        """Rung 2+3: restore the newest loadable verified-good serial
+        in process, quarantine the data window the diverged timeline
+        consumed, and unwind the epoch loop to the restored cursor."""
+        ap = self.autopilot
+        target = None
+        with self.goodput_ledger.phase("recovery", label="rollback"):
+            # a background save may still reference the live state —
+            # and a save of the POISONED state must not land after the
+            # restore and become the newest serial
+            self._await_pending(surface=False)
+            for serial, e_r, s_r in reversed(ap.verified_serials()):
+                path = os.path.join(self._ckpt_root(), f"ckpt_{serial}")
+                try:
+                    self._load_checkpoint(path)
+                except CheckpointError as e:
+                    self._emit("ckpt_fallback", serial=serial,
+                               error=e.as_dict())
+                    ap.forget_serial(serial)
+                    continue
+                target = (serial, e_r, s_r)
+                break
+        if target is None:
+            self._recovery_halt(trigger, epoch, step,
+                                reason="no_verified_checkpoint")
+        serial, e_r, s_r = target
+        window = {"from_epoch": e_r, "from_step": s_r,
+                  "to_epoch": epoch, "to_step": step}
+        ap.on_rollback(window)
+        self._window_dirty = False  # the restored state is clean
+        self._in_recovery = True
+        backoff = self._apply_lr_backoff()
+        self._emit("recovery_rollback", serial=serial, trigger=trigger,
+                   rollbacks=ap.rollbacks, budget=ap.cfg.max_rollbacks,
+                   lr_backoff=backoff, **window)
+        self._emit("data_quarantine",
+                   batches=(window["to_step"] - window["from_step"]
+                            if window["from_epoch"] == window["to_epoch"]
+                            else None), **window)
+        raise _RollbackSignal(e_r, s_r)
+
+    def _recovery_halt(self, trigger: dict, epoch: int, step: int,
+                       reason: str) -> None:
+        """Rung 4: stop deliberately with full provenance (plus a
+        FlightRecorder bundle when alerts are enabled with a flight
+        directory) instead of guard-skipping updates forever."""
+        from ..resilience.errors import TrainingDivergedError
+
+        ap = self.autopilot
+        ap.halted = True
+        ap.last_trigger = dict(trigger)
+        bundle = None
+        if self.flight_recorder is not None:
+            bundle = self.flight_recorder.record(
+                "training_diverged", force=True,
+                context={"trigger": trigger, "reason": reason,
+                         "epoch": epoch, "step": step,
+                         "rollbacks": ap.rollbacks,
+                         "budget": ap.cfg.max_rollbacks,
+                         "quarantine_windows": ap.quarantine_windows})
+        self._emit("recovery_halt", reason=reason, epoch=epoch,
+                   step=step, trigger=trigger, rollbacks=ap.rollbacks,
+                   budget=ap.cfg.max_rollbacks, flight_bundle=bundle)
+        raise TrainingDivergedError(
+            f"training diverged at epoch {epoch} step {step} "
+            f"(signal: {trigger.get('signal')}); halting: {reason} "
+            f"after {ap.rollbacks}/{ap.cfg.max_rollbacks} rollbacks",
+            reason=reason, trigger=trigger, epoch=epoch, step=step,
+            rollbacks=ap.rollbacks, budget=ap.cfg.max_rollbacks,
+            quarantine_windows=list(ap.quarantine_windows),
+            first_nonfinite_op=trigger.get("first_nonfinite_op"),
+            flight_bundle=bundle)
+
+    def _apply_lr_backoff(self):
+        """Optional rung-3 extra: scale every `.learning_rate` variable
+        (optimizer.py names them `<op>.learning_rate`) after a restore,
+        on its device in its dtype.  Off by default — the parity proof
+        requires re-entry bit-identical to a run that never diverged."""
+        factor = self.autopilot.cfg.lr_backoff
+        if factor is None or factor == 1.0:
+            return None
+        scaled = []
+        for name in list(self.train_program.global_block().vars):
+            if not name.endswith(".learning_rate"):
+                continue
+            value = self.scope.find_var(name)
+            if value is None:
+                continue
+            self.scope.set_var(name, value * torch.tensor(
+                factor, dtype=value.dtype, device=value.device))
+            scaled.append(name)
+        return ({"factor": factor, "vars": scaled} if scaled else None)
 
     def _reject_feed(self, batch: dict, epoch: int, step: int) -> bool:
         """Opt-in admission check (validate_feed=True): non-finite
@@ -829,6 +1085,8 @@ class Trainer:
                 self._feed_signature = feed_signature(batch)
             return False
         self.feed_stats["quarantined"] += 1
+        if self.autopilot is not None:
+            self.autopilot.note_quarantined_feed()
         self._emit("feed_quarantined", epoch=epoch, step=step,
                    quarantined_total=self.feed_stats["quarantined"],
                    problems=problems)
@@ -865,10 +1123,14 @@ class Trainer:
     def goodput(self, mfu: Optional[float] = None):
         """The wall-clock decomposition of this trainer's train() time:
         GoodputLedger.report() — categories summing to the wall, the
-        goodput fraction, replay badput, and `effective_mfu` when a
-        headline MFU is passed (no straggler skew: the health plane is
-        ROADMAP A step 11)."""
-        return self.goodput_ledger.report(mfu=mfu)
+        goodput fraction, replay badput, `effective_mfu` when a headline
+        MFU is passed, and the heartbeat-skew straggler estimate when a
+        health plane is active."""
+        from ..resilience import health as gang_health
+
+        plane = gang_health.get_health_plane()
+        skew = plane.skew() if plane is not None else None
+        return self.goodput_ledger.report(mfu=mfu, skew=skew)
 
     def _drain(self, serial: int, epoch: int, step: int):
         """Preemption drain: called at a step boundary once the drain
@@ -947,12 +1209,14 @@ class Trainer:
     def metrics_registry(self):
         """One MetricsRegistry over this trainer's surfaces: the
         latest telemetry window (incl. per-group numerics when pillar
-        6 is on), checkpoint-cost gauges, and the process-wide
-        runtime/process/memory collectors (the recovery family reports
-        no autopilot: ROADMAP A step 11).  Built once, cached."""
+        6 is on), checkpoint-cost gauges, the recovery family (the
+        autopilot's snapshot), the process-wide runtime/process/memory
+        collectors, and — when a health plane runs — the gang's
+        heartbeat skew (the families `trainer_rule_pack`'s gang_skew
+        rule reads).  Built once, cached."""
         if self._metrics_registry is None:
-            from ..observe.registry import (MetricsRegistry, gauge,
-                                            goodput_collector,
+            from ..observe.registry import (MetricsRegistry, gang_collector,
+                                            gauge, goodput_collector,
                                             recovery_collector,
                                             standard_collectors,
                                             telemetry_collector)
@@ -985,6 +1249,11 @@ class Trainer:
                 ]
 
             reg.register("checkpoint", ckpt_collect)
+            from ..resilience import health as gang_health
+
+            plane = gang_health.get_health_plane()
+            if plane is not None:
+                reg.register("gang", gang_collector(plane.skew))
             self._metrics_registry = reg
         return self._metrics_registry
 
@@ -1084,11 +1353,12 @@ class Trainer:
             # flush the writer; a silently-dropped last checkpoint must
             # surface here, not on the next preemption
             self._ckpt_writer.close()
-        if self.checkpoint_cfg:
+        if self.checkpoint_cfg and self.mesh is not None:
             # on a mesh rank 0 alone makes a checkpoint visible (its
             # trainer state, after every rank's shards): no rank leaves
             # before it has, so a Trainer made next resumes from it
-            # (ROADMAP C23)
+            # (ROADMAP C23).  The barrier fails fast on a poisoned gang;
+            # without a mesh every checkpoint is the process's own
             fluid_io._barrier("trainer:stop")
         self.exe.close()
 

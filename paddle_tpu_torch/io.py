@@ -18,7 +18,12 @@ other.  Two tiers:
   holds, and a replicated value once, by its lowest rank; the writes
   run under a cross-process barrier on the torch.distributed store with
   a timeout (`barrier_timeout_s`), so a dead peer ends a save as a
-  CheckpointBarrierTimeoutError naming it, not a hang.  `load_sharded`
+  CheckpointBarrierTimeoutError naming it, not a hang — or, once the
+  health plane (resilience/health.py) knows the gang is broken, as a
+  CheckpointBarrierPoisonedError within seconds.  A rank of a gang that
+  trains its own model writes a private checkpoint
+  (`prepare_sharded_save(process_local=True)`), with no barrier.
+  `load_sharded`
   assembles any checkpoint (either package's, from any mesh) whole, or
   with `mesh=` each rank's slice of the target mesh's shardings.
 
@@ -59,7 +64,8 @@ from .core.desc import (PROGRAM_FORMAT_VERSION, dump_program_dict,
 from .core.executor import Executor, global_scope
 from .core.program import Parameter, Program, Variable
 from .ops.common import to_torch_dtype
-from .resilience.errors import (CheckpointCorruptError,
+from .resilience.errors import (CheckpointBarrierPoisonedError,
+                                CheckpointCorruptError,
                                 CheckpointFormatError,
                                 CheckpointBarrierTimeoutError,
                                 CheckpointIncompleteError,
@@ -342,12 +348,19 @@ class ShardedSaveJob:
     A barrier timeout inside `write()` removes this process's own shard
     files before re-raising, so a dead-peer save leaves neither a
     manifest nor orphaned shards.
+
+    A `local` job (`prepare_sharded_save(process_local=True)`) is one
+    process's private checkpoint — each rank of a gang that trains its
+    own model: no peer takes part in its directory, so it crosses no
+    barrier (ranks that resumed at different cursors save at different
+    times) and this process writes the manifest.
     """
 
     def __init__(self, dirname: str, proc: int, local_arrays: dict,
-                 meta: dict, snapshot_ms: float):
+                 meta: dict, snapshot_ms: float, local: bool = False):
         self.dirname = dirname
         self.proc = proc
+        self.local = bool(local)
         self.local_arrays = local_arrays
         self.meta = meta
         self.snapshot_ms = snapshot_ms
@@ -359,9 +372,9 @@ class ShardedSaveJob:
 
         t0 = time.perf_counter()
         dirname, proc = self.dirname, self.proc
-        # every process of the group takes part (the barriers are no-ops
-        # for one process): the reference's process-local saves belong
-        # to its gang health plane, ROADMAP A step 11
+        # every process of the group takes part in a gang-wide save (the
+        # barriers are no-ops for one process, and fail fast on a
+        # poisoned gang); a local job crosses none
         # chaos hook: a delay here is a slow write phase
         delaypoint("ckpt:write")
         try:
@@ -374,7 +387,8 @@ class ShardedSaveJob:
             with open(os.path.join(dirname, f"shards_p{proc}.crc.json"),
                       "w") as f:
                 json.dump(crcs, f)
-            _barrier("save_sharded:shards")
+            if not self.local:
+                _barrier("save_sharded:shards")
         except CheckpointBarrierTimeoutError:
             self._cleanup_partial()
             raise
@@ -386,7 +400,7 @@ class ShardedSaveJob:
         # exists: its presence marks the checkpoint complete, so a
         # process preempted mid-save can never leave a
         # torn-but-loadable checkpoint behind
-        if proc == 0:
+        if proc == 0 or self.local:
             all_crcs: dict = {}
             for sfile in {sh["file"] for m in self.meta.values()
                           for sh in m["shards"]}:
@@ -408,7 +422,8 @@ class ShardedSaveJob:
             os.replace(tmp, os.path.join(dirname, SHARD_MANIFEST))
         # a timeout here leaves a complete checkpoint (process 0 renamed
         # the manifest); nothing is removed
-        _barrier("save_sharded:manifest")
+        if not self.local:
+            _barrier("save_sharded:manifest")
         self.write_ms = (time.perf_counter() - t0) * 1000.0
         return self
 
@@ -463,13 +478,18 @@ def _shard_owners(value):
 
 def prepare_sharded_save(executor: Executor, dirname: str,
                          main_program: Optional[Program] = None,
-                         vars: Optional[Sequence[Variable]] = None
-                         ) -> ShardedSaveJob:
+                         vars: Optional[Sequence[Variable]] = None,
+                         process_local: bool = False) -> ShardedSaveJob:
     """The blocking snapshot phase of a sharded save: resolve shard
     ownership and copy every shard this process owns device→host into
     memory the job owns.  Returns a ShardedSaveJob whose `write()`
     performs the rest (inline for a synchronous save, or on a background
-    writer).  On a mesh every process calls it."""
+    writer).  On a mesh every process calls it.
+
+    `process_local`: this process's private checkpoint of its own values
+    (each rank of a gang that trains its own model; the reference's
+    saves whose every shard this process owns): every value is one
+    whole shard owned here, and the job is `local` (no barrier)."""
     from torch.distributed.tensor import DTensor
 
     from .core.program import default_main_program
@@ -494,6 +514,9 @@ def prepare_sharded_save(executor: Executor, dirname: str,
                       val.owner_rank()}
             local = val.value if val.value is not None else torch.empty(
                 (1,), dtype=val.dtype)
+        elif process_local:
+            owners = {tuple((0, int(d)) for d in val.shape): proc}
+            local = val
         else:
             owners = _shard_owners(val)
             local = val.to_local() if isinstance(val, DTensor) else val
@@ -516,7 +539,8 @@ def prepare_sharded_save(executor: Executor, dirname: str,
             "shards": shards_meta,
         }
     return ShardedSaveJob(dirname, proc, local_arrays, meta,
-                          snapshot_ms=(time.perf_counter() - t0) * 1000.0)
+                          snapshot_ms=(time.perf_counter() - t0) * 1000.0,
+                          local=process_local)
 
 
 def save_sharded(executor: Executor, dirname: str,
@@ -587,9 +611,9 @@ def _barrier(tag: str, timeout_s: Optional[float] = None):
     process), with a timeout: each process publishes an arrival key in
     the torch.distributed store, then waits for every peer's; a peer
     that died mid-save raises a CheckpointBarrierTimeoutError naming the
-    ranks that never arrived instead of hanging the survivors."""
-    from datetime import timedelta
-
+    ranks that never arrived instead of hanging the survivors, and a
+    gang the health plane knows to be broken fails the wait within
+    `_BARRIER_POISON_POLL_S` (CheckpointBarrierPoisonedError)."""
     global _barrier_seq
     proc, count = _process()
     if count <= 1:
@@ -601,17 +625,8 @@ def _barrier(tag: str, timeout_s: Optional[float] = None):
     store = _dist_store()
     prefix = f"ptpu_ckpt_barrier/{tag}/{seq}/"
     store.set(prefix + str(proc), "ok")
-    deadline = time.monotonic() + timeout_s
-    missing = []
-    for p in range(count):
-        if p == proc:
-            continue
-        remaining = max(deadline - time.monotonic(), 0.001)
-        try:
-            store.wait([prefix + str(p)], timedelta(seconds=remaining))
-        except Exception:  # noqa: BLE001 — the store's timeout error
-            if not store.check([prefix + str(p)]):
-                missing.append(p)
+    peers = [p for p in range(count) if p != proc]
+    missing = _wait_barrier_peers(store, prefix, peers, tag, timeout_s)
     if missing:
         raise CheckpointBarrierTimeoutError(
             f"checkpoint barrier {tag!r} timed out after {timeout_s:.0f}s"
@@ -619,6 +634,98 @@ def _barrier(tag: str, timeout_s: Optional[float] = None):
             f"peer died or wedged inside a sharded save", tag=tag,
             timeout_s=timeout_s, missing_ranks=missing, dirname=None,
             process_count=count)
+
+
+# while a barrier waits, the gang poison key is re-checked this often:
+# the bounded-time bridge between "a peer died" and "this save fails"
+# (well under the 600 s barrier default)
+_BARRIER_POISON_POLL_S = 1.0
+
+
+def _check_barrier_poison(store, tag: str, elapsed_s: float,
+                          timeout_s: float) -> None:
+    """Abort a waiting barrier the moment the gang is known broken.  Two
+    sources, in order: the LOCAL health monitor's latched alarm (still
+    works when the store died with its host — the poison key is
+    unreachable exactly then), and the gang poison KEY (a peer's monitor
+    or watchdog declared the break).  A store that fails the poison read
+    is the local alarm's and the plain timeout's business."""
+    from .resilience import health as _health
+
+    plane = _health.get_health_plane()
+    if plane is not None:
+        alarm = plane.monitor.alarm()
+        if alarm is not None:
+            details = getattr(alarm, "details", {})
+            missing = details.get("missing_ranks",
+                                  details.get("stalled_ranks", []))
+            raise CheckpointBarrierPoisonedError(
+                f"checkpoint barrier {tag!r} aborted after "
+                f"{elapsed_s:.1f}s: local health alarm — {alarm}",
+                tag=tag, timeout_s=timeout_s,
+                poison={"rank": plane.rank, "reason": str(alarm),
+                        "kind": getattr(alarm, "kind", "alarm"),
+                        "missing_ranks": missing},
+                elapsed_s=round(elapsed_s, 3), missing_ranks=missing,
+                dirname=None)
+    try:
+        poison = _health.read_poison(store)
+    except _health.STORE_ERRORS:
+        return
+    if poison is None:
+        return
+    raise CheckpointBarrierPoisonedError(
+        f"checkpoint barrier {tag!r} aborted after {elapsed_s:.1f}s: "
+        f"gang poisoned by rank {poison.get('rank')} — "
+        f"{poison.get('reason')} (kind={poison.get('kind')})",
+        tag=tag, timeout_s=timeout_s, poison=poison,
+        elapsed_s=round(elapsed_s, 3),
+        missing_ranks=poison.get("missing_ranks", []), dirname=None)
+
+
+def _wait_barrier_peers(store, prefix: str, peers, tag: str,
+                        timeout_s: float,
+                        poison_poll_s: Optional[float] = None) -> list:
+    """Wait for every peer's arrival key in slices of `poison_poll_s`,
+    checking the gang poison key between them.  Returns the ranks that
+    never arrived (empty = all arrived); raises
+    CheckpointBarrierPoisonedError on poison.  `store` is a TCPStore
+    client (or `chaos.FakeKv`)."""
+    from datetime import timedelta
+
+    from .resilience.health import STORE_ERRORS
+
+    if poison_poll_s is None:
+        poison_poll_s = _BARRIER_POISON_POLL_S
+    start = time.monotonic()
+    deadline = start + timeout_s
+    _check_barrier_poison(store, tag, 0.0, timeout_s)
+    missing = []
+    for p in peers:
+        key = prefix + str(p)
+        arrived = False
+        while True:
+            remaining = deadline - time.monotonic()
+            # even past the deadline every peer gets one 1 ms look — a
+            # rank that arrived while we waited on another must not be
+            # reported missing
+            slice_s = max(0.001, min(poison_poll_s, max(remaining, 0.0)))
+            slice_end = time.monotonic() + slice_s
+            try:
+                store.wait([key], timedelta(seconds=slice_s))
+                arrived = True
+                break
+            except STORE_ERRORS:
+                _check_barrier_poison(
+                    store, tag, time.monotonic() - start, timeout_s)
+                if remaining <= 0:
+                    break
+                # a dead store fails at once: wait the slice out rather
+                # than spin until the local alarm latches
+                time.sleep(max(0.0, slice_end - time.monotonic()))
+        if not arrived:
+            missing.append(p)
+    return missing
 
 
 def _assemble_index(meta, files, dirname, index):

@@ -24,7 +24,8 @@ from .cost import (bucket_summary, copyish_instructions,  # noqa: F401
 from .events import (ALERT_EVENTS, DECODE_EVENTS,  # noqa: F401
                      DISAGG_EVENTS, FEED_EVENTS, FLEET_EVENTS,
                      FLIGHT_EVENTS, GANG_EVENTS, GOODPUT_EVENTS,
-                     NUMERICS_EVENTS, RESILIENCE_EVENTS, SERVING_EVENTS,
+                     NUMERICS_EVENTS, RECOVERY_EVENTS,
+                     RESILIENCE_EVENTS, SERVING_EVENTS,
                      SPECULATE_EVENTS, BoundEventLog, RunEventLog, git_sha, new_run_id,
                      read_events, register_event_kinds, set_strict_kinds)
 from .flightrec import FlightRecorder  # noqa: F401

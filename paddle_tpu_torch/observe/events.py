@@ -135,14 +135,42 @@ FEED_EVENTS = (
     #                       reached the device
 )
 
-# the gang kinds this package emits: the dispatch watchdog's record.
-# The health plane's and the supervisor's kinds come with them
-# (ROADMAP A step 11)
+# divergence-autopilot event kinds: the anomaly-triggered
+# rollback-and-replay loop contrib.Trainer runs when built with
+# autopilot= (resilience/autopilot.py)
+RECOVERY_EVENTS = (
+    "recovery_rollback",  # LOUD: in-process rollback to the newest
+    #                       verified-good serial (trigger signal,
+    #                       from/to cursor, budget state attached)
+    "data_quarantine",    # the poisoned batch window the replay will
+    #                       fast-forward past (never re-trained)
+    "recovery_halt",      # LOUD: rollback budget exhausted (or no
+    #                       verified-good serial) — train() raises
+    #                       TrainingDivergedError after this record
+)
+
+# gang fault-tolerance event kinds: health-plane detections
+# (resilience/health.py), the dispatch watchdog's pre-abort record,
+# straggler telemetry, and the supervisor lifecycle
+# (resilience/supervisor.py)
 GANG_EVENTS = (
+    "peer_lost",       # LOUD: a peer stopped heartbeating (or the store
+    #                    died with its host); missing ranks + staleness
+    #                    age attached
+    "peer_stalled",    # a peer heartbeats but its step counter froze
     "step_hang",       # dispatch watchdog: a step blew its budget —
     #                    emitted BEFORE the abort, with the
     #                    first-compile vs hung-step verdict and the
     #                    runtime_stats deltas observed in the region
+    "gang_skew",       # periodic per-rank step/step-rate snapshot
+    #                    from heartbeat timestamps
+    "rank_slow",       # LOUD: one rank's step rate lags the gang
+    #                    median by more than the slow factor
+    "gang_start",      # supervisor: one gang attempt spawned
+    "gang_restart",    # supervisor: attempt ended broken; relaunching
+    "gang_end",        # supervisor: attempt ended clean
+    "gang_failed",     # LOUD: restart budget exhausted — per-attempt
+    #                    exit codes attached
 )
 
 # goodput observability (observe/goodput.py): the wall-clock
@@ -185,8 +213,8 @@ _VALIDATED_PREFIXES = ("serving_", "fleet_", "gang_", "alert_",
 _KNOWN_KINDS = (set(SERVING_EVENTS) | set(DECODE_EVENTS)
                 | set(SPECULATE_EVENTS)
                 | set(FLEET_EVENTS) | set(DISAGG_EVENTS)
-                | set(RESILIENCE_EVENTS) | set(FEED_EVENTS)
-                | set(GANG_EVENTS) | set(GOODPUT_EVENTS)
+                | set(RESILIENCE_EVENTS) | set(RECOVERY_EVENTS)
+                | set(FEED_EVENTS) | set(GANG_EVENTS) | set(GOODPUT_EVENTS)
                 | set(NUMERICS_EVENTS) | set(ALERT_EVENTS)
                 | set(FLIGHT_EVENTS))
 _strict_kinds = [True]

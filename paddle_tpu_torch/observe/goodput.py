@@ -17,9 +17,10 @@ wall clock into EXCLUSIVE categories:
 | data_stall   | reader `next()` blocking (input pipeline)           |
 | checkpoint   | save time the step loop actually waited out         |
 |              | (snapshot + any wait-for-previous + sync writes)    |
-| recovery     | divergence-autopilot work (its trainer hooks come   |
-|              | with the autopilot, ROADMAP A step 11)              |
-| barrier_wait | gang waits (the health plane, step 11)              |
+| recovery     | divergence-autopilot work: rollback restores, the   |
+|              | quarantined batches, reader waits while replaying   |
+| barrier_wait | gang waits: the health plane's step-boundary checks |
+|              | and the done-rendezvous                             |
 | idle         | residual host time (event handlers, logging, loop   |
 |              | overhead) — whatever no explicit phase claimed      |
 

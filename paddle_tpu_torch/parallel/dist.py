@@ -12,6 +12,14 @@ variables keep the reference's names (benchmark/fluid/
 fluid_benchmark.py:63-110): PADDLE_TRAINER_ID, PADDLE_TRAINERS,
 PADDLE_COORDINATOR, PADDLE_TRAINER_ENDPOINTS.
 
+With more than one trainer `init_distributed` also starts the gang
+health plane (resilience/health.py: heartbeats, the peer-loss monitor
+and the poison key) on that store, and `shutdown_distributed` stops it
+first.  A gang Supervisor may host the store itself
+(`Supervisor(host_coordinator=True)`, PADDLE_COORDINATOR_HOSTED=1): every
+trainer, rank 0 included, then connects as a client, so any rank can die
+and be detected by the others.
+
 Multi-GPU NCCL across cards is unverified: the port has been run on
 one card, several ranks sharing it over gloo.
 """
@@ -25,6 +33,9 @@ import numpy as np
 
 # the bootstrap wait (the reference's FLAGS_rpc_deadline, 180000 ms)
 DEFAULT_TIMEOUT_S = 180.0
+
+# set (to "1") by a Supervisor that hosts the store: no trainer serves it
+COORDINATOR_HOSTED_ENV = "PADDLE_COORDINATOR_HOSTED"
 
 _store = None
 
@@ -40,7 +51,8 @@ def init_distributed(trainer_id: Optional[int] = None,
                      coordinator: Optional[str] = None,
                      local_device_ids=None, health: bool = True,
                      place=None, backend: Optional[str] = None,
-                     timeout_s: float = DEFAULT_TIMEOUT_S):
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     coordinator_hosted: Optional[bool] = None):
     """Bootstrap the multi-trainer runtime (the gen_nccl_id analog).
 
     Arguments default to the reference's cluster env vars:
@@ -55,12 +67,20 @@ def init_distributed(trainer_id: Optional[int] = None,
     the choice (e.g. "gloo" for CUDA tensors of several ranks on one
     card, which NCCL refuses).
 
+    `coordinator_hosted` (default: PADDLE_COORDINATOR_HOSTED == "1"):
+    the store at the coordinator is served by another process — the
+    gang Supervisor's `host_coordinator=True`, the counterpart of the
+    reference's coordination service hosted outside the workers — and
+    every trainer, rank 0 included, connects to it as a client.  Then
+    killing any rank, rank 0 too, leaves the store up, and the survivors'
+    health planes name the dead rank.
+
     One trainer without a coordinator is a no-op, as in the reference;
     with a coordinator the process group starts even for one trainer
-    (the one-rank NCCL group).  The reference starts its health plane
-    (heartbeats, peer-loss monitor) when `health` is set and there is
-    more than one trainer; that plane is ROADMAP A step 11, so the port
-    raises unless `health=False`.  Returns (trainer_id, num_trainers).
+    (the one-rank NCCL group).  With `health` set and more than one
+    trainer, the health plane (resilience/health.py) starts on the
+    store, as the reference's does.  Returns (trainer_id,
+    num_trainers).
     """
     global _store
     from datetime import timedelta
@@ -84,11 +104,8 @@ def init_distributed(trainer_id: Optional[int] = None,
             "multi-trainer bootstrap needs a coordinator endpoint: pass "
             "coordinator= or set PADDLE_COORDINATOR / "
             "PADDLE_TRAINER_ENDPOINTS")
-    if health and num_trainers > 1:
-        raise NotImplementedError(
-            "init_distributed(health=True): the distributed health plane "
-            "(heartbeats, peer-loss monitor, gang poison key) is not "
-            "ported yet: ROADMAP A step 11; pass health=False")
+    if coordinator_hosted is None:
+        coordinator_hosted = os.environ.get(COORDINATOR_HOSTED_ENV) == "1"
     from .. import CPUPlace
 
     on_cpu = isinstance(place, CPUPlace)
@@ -104,21 +121,31 @@ def init_distributed(trainer_id: Optional[int] = None,
         torch.cuda.set_device(dev)
     host, port = coordinator.rsplit(":", 1)
     timeout = timedelta(seconds=float(timeout_s))
+    is_master = trainer_id == 0 and not coordinator_hosted
     _store = dist.TCPStore(host, int(port), num_trainers,
-                           is_master=trainer_id == 0, timeout=timeout)
+                           is_master=is_master, timeout=timeout)
     dist.init_process_group(backend, store=dist.PrefixStore("pg", _store),
                             rank=trainer_id, world_size=num_trainers,
                             timeout=timeout)
+    if health and num_trainers > 1:
+        from ..resilience import health as _health
+
+        _health.start_health_plane(rank=trainer_id, num_ranks=num_trainers,
+                                   kv=_store)
     return trainer_id, num_trainers
 
 
 def shutdown_distributed():
     """Tear down the multi-trainer runtime.  Idempotent: safe to call
-    twice, and when init_distributed never ran or was a no-op."""
+    twice, and when init_distributed never ran or was a no-op.  Stops
+    the health plane first, so its threads do not race a dying store."""
     global _store
     import torch.distributed as dist
 
+    from ..resilience import health as _health
     from . import mesh as _mesh
+
+    _health.stop_health_plane()
 
     _mesh.set_default_mesh(None)
     if dist.is_available() and dist.is_initialized():

@@ -27,9 +27,17 @@ hoping:
   dispatch dies through the real failure path), `delay_replica` its
   `replica:{id}:delay` stall (the straggler a hedge must beat).
 
+- **gang ranks** — `kill_rank`/`hang_rank`, armed through the
+  environment a gang Supervisor passes its workers
+  (`arm_kill_rank_env`/`arm_hang_rank_env`), each with an optional
+  once-file so a relaunched gang does not fire again.
+- **`FakeKv`** — an in-process stand-in for the `torch.distributed.
+  TCPStore` client the health plane (resilience/health.py) and the
+  checkpoint barrier (io._barrier) call, with a `fail_with` switch: the
+  store that stopped answering.
+
 Injectors are deterministic (step counts, call counts — never random),
-so every chaos test is reproducible.  The reference's gang-rank
-injectors and `FakeKv` wait for ROADMAP A step 11.
+so every chaos test is reproducible.
 """
 
 from __future__ import annotations
@@ -293,3 +301,182 @@ def delay_replica(engine, seconds: float, times: int = 1) -> str:
     name = _replica_point(engine, "delay")
     arm_delay(name, seconds, times)
     return name
+
+
+# ---------------------------------------------------------------------------
+# Gang chaos: env-armed per-rank failpoints for worker SUBPROCESSES.  The
+# in-process arm()/failpoint() pair cannot reach a worker the supervisor
+# spawned; these are armed through the environment the supervisor
+# already propagates, and each carries an optional once-file so a
+# relaunched gang (same env!) does not re-fire after the restart resumes
+# past the arm step.
+# ---------------------------------------------------------------------------
+
+KILL_RANK_ENV = "PTPU_CHAOS_KILL_RANK"
+KILL_STEP_ENV = "PTPU_CHAOS_KILL_STEP"
+KILL_ONCE_ENV = "PTPU_CHAOS_KILL_ONCE_FILE"
+HANG_RANK_ENV = "PTPU_CHAOS_HANG_RANK"
+HANG_STEP_ENV = "PTPU_CHAOS_HANG_STEP"
+HANG_S_ENV = "PTPU_CHAOS_HANG_S"
+HANG_ONCE_ENV = "PTPU_CHAOS_HANG_ONCE_FILE"
+
+
+def _env_armed(rank: int, step: int, rank_env: str, step_env: str,
+               once_env: str) -> bool:
+    target = os.environ.get(rank_env)
+    if target is None or int(target) != int(rank):
+        return False
+    if int(step) < int(os.environ.get(step_env, "0")):
+        return False
+    once = os.environ.get(once_env)
+    if once:
+        if os.path.exists(once):
+            return False  # already fired in a previous life
+        with open(once, "w") as f:
+            f.write(f"fired rank={rank} step={step}\n")
+    return True
+
+
+def kill_rank(rank: int, step: int) -> None:
+    """SIGKILL-abrupt self-death when the environment arms this
+    (rank, >=step): KILL_RANK_ENV / KILL_STEP_ENV, optional
+    KILL_ONCE_ENV sentinel file for fire-exactly-once-across-restarts.
+    Call from the worker's step loop — the real preemption the health
+    plane must detect (no flush, no cleanup)."""
+    import signal
+
+    if _env_armed(rank, step, KILL_RANK_ENV, KILL_STEP_ENV,
+                  KILL_ONCE_ENV):
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def hang_rank(rank: int, step: int) -> None:
+    """Hang this rank for HANG_S_ENV seconds (default 3600 — "forever"
+    at test scale) when env-armed for (rank, >=step): the
+    alive-but-stuck peer the stall detector / dispatch watchdog must
+    catch.  Same once-file contract as kill_rank."""
+    if _env_armed(rank, step, HANG_RANK_ENV, HANG_STEP_ENV,
+                  HANG_ONCE_ENV):
+        hang(float(os.environ.get(HANG_S_ENV, "3600")))
+
+
+def arm_kill_rank_env(env: dict, rank: int, at_step: int,
+                      once_file: Optional[str] = None) -> dict:
+    """Fill `env` (in place, returned) with the kill_rank arming —
+    the supervisor/test-side pairing of kill_rank()."""
+    env[KILL_RANK_ENV] = str(rank)
+    env[KILL_STEP_ENV] = str(at_step)
+    if once_file:
+        env[KILL_ONCE_ENV] = once_file
+    return env
+
+
+def arm_hang_rank_env(env: dict, rank: int, at_step: int,
+                      seconds: float = 3600.0,
+                      once_file: Optional[str] = None) -> dict:
+    """env-side pairing of hang_rank()."""
+    env[HANG_RANK_ENV] = str(rank)
+    env[HANG_STEP_ENV] = str(at_step)
+    env[HANG_S_ENV] = str(seconds)
+    if once_file:
+        env[HANG_ONCE_ENV] = once_file
+    return env
+
+
+# ---------------------------------------------------------------------------
+# Fake store (health-plane unit tests)
+# ---------------------------------------------------------------------------
+
+class FakeKv:
+    """In-process stand-in for a `torch.distributed.TCPStore` client,
+    with the method surface resilience/health.py and io._barrier call:
+    `set`, `get` (bytes; a missing key blocks until TIMEOUT_S, then
+    raises DistStoreError, as the store does), `check`, `wait`, `add`,
+    `compare_set`, `delete_key` and `clone` (another connection to the
+    same data).  Detection-window tests inject it
+    with a fake clock instead of killing real processes.  Thread-safe;
+    `fail_with` makes every call raise (the dead-coordinator
+    simulation)."""
+
+    TIMEOUT_S = 1.0  # the store's own timeout, for a wait without one
+
+    def __init__(self):
+        import threading
+
+        self._data: Dict[str, bytes] = {}
+        self._lock = threading.Lock()
+        self.fail_with: Optional[BaseException] = None
+
+    def _maybe_fail(self):
+        if self.fail_with is not None:
+            raise self.fail_with
+
+    @staticmethod
+    def _bytes(value) -> bytes:
+        return value if isinstance(value, bytes) else str(value).encode()
+
+    def clone(self) -> "FakeKv":
+        """A second connection: the same data, lock and failure switch."""
+        return self
+
+    def set(self, key: str, value) -> None:
+        self._maybe_fail()
+        with self._lock:
+            self._data[key] = self._bytes(value)
+
+    def check(self, keys) -> bool:
+        self._maybe_fail()
+        with self._lock:
+            return all(k in self._data for k in keys)
+
+    def wait(self, keys, timeout=None) -> None:
+        from torch.distributed import DistStoreError
+
+        self._maybe_fail()
+        seconds = (self.TIMEOUT_S if timeout is None
+                   else timeout.total_seconds())
+        deadline = time.monotonic() + seconds
+        while True:
+            with self._lock:
+                if all(k in self._data for k in keys):
+                    return
+            if time.monotonic() >= deadline:
+                raise DistStoreError(
+                    f"wait timeout after {seconds * 1000:.0f}ms, keys: "
+                    f"{list(keys)}")
+            time.sleep(0.005)
+            self._maybe_fail()
+
+    def get(self, key: str) -> bytes:
+        self.wait([key])
+        with self._lock:
+            return self._data[key]
+
+    def add(self, key: str, amount: int) -> int:
+        self._maybe_fail()
+        with self._lock:
+            n = int(self._data.get(key, b"0")) + int(amount)
+            self._data[key] = str(n).encode()
+            return n
+
+    def compare_set(self, key: str, expected, desired) -> bytes:
+        """TCPStore's semantics: a missing key is set only when
+        `expected` is empty; otherwise `expected` comes back.  A present
+        key is replaced when it equals `expected`; its value comes
+        back."""
+        self._maybe_fail()
+        expected, desired = self._bytes(expected), self._bytes(desired)
+        with self._lock:
+            if key not in self._data:
+                if expected:
+                    return expected
+                self._data[key] = desired
+                return desired
+            if self._data[key] == expected:
+                self._data[key] = desired
+            return self._data[key]
+
+    def delete_key(self, key: str) -> bool:
+        self._maybe_fail()
+        with self._lock:
+            return self._data.pop(key, None) is not None

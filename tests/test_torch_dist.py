@@ -41,13 +41,51 @@ def test_init_distributed_from_the_env(group):
                                          2)[:, None].repeat(3, axis=1))
 
 
+_HEALTH_RANK = """
+import json, sys
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.resilience import health
+rank, world = pt.parallel.init_distributed(
+    trainer_id=int(sys.argv[1]), num_trainers=2, coordinator=sys.argv[2],
+    place=pt.CPUPlace())
+plane = health.get_health_plane()
+pt.io._barrier("health_started", timeout_s=60.0)
+print(json.dumps({"rank": rank, "world": world,
+                  "plane": [plane.rank, plane.num_ranks],
+                  "started": plane._started}))
+pt.parallel.shutdown_distributed()
+print(json.dumps({"after": health.get_health_plane() is None}))
+"""
+
+
 def test_init_distributed_refusals():
-    """The health plane (ROADMAP A step 11) raises unless health=False;
+    """The health plane (ROADMAP A step 11b, ported) starts with two
+    trainers: two processes bootstrap with the default health=True and
+    each finds its plane running, and shutdown_distributed stops it;
     CUDA is the default place and raises without it; one trainer and no
     coordinator is the reference's no-op."""
-    with pytest.raises(NotImplementedError, match="step 11"):
-        pt.parallel.init_distributed(trainer_id=0, num_trainers=2,
-                                     coordinator="127.0.0.1:1")
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+         os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, "-c", _HEALTH_RANK, str(r),
+                               coordinator], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        started, after = [json.loads(ln) for ln in out.splitlines()
+                          if ln.startswith("{")]
+        assert started == {"rank": r, "world": 2, "plane": [r, 2],
+                           "started": True}
+        assert after == {"after": True}
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.parallel.init_distributed(trainer_id=0, num_trainers=2,
                                      coordinator="127.0.0.1:1",

@@ -403,12 +403,26 @@ def test_save_params_and_inference_model(tmp_path):
     ({"build_strategy": pt.BuildStrategy()}, "step 10"),
     ({"autopilot": True}, "step 11"),
 ])
-def test_left_out_options_raise(kw, step):
-    """`autopilot=` (ROADMAP A step 11) raises; `mesh=` (step 10,
-    ported) compiles the train program over the mesh."""
+def test_left_out_options_raise(kw, step, tmp_path):
+    """`autopilot=` (ROADMAP A step 11, ported) needs telemetry= and
+    checkpoint_config=, as in the reference, and with them attaches a
+    RecoveryController with the default ladder that the recovery family
+    reports; `mesh=` (step 10, ported) compiles the train program over
+    the mesh."""
     if step == "step 11":
-        with pytest.raises(NotImplementedError, match=step):
+        from paddle_tpu_torch.resilience import RecoveryController
+
+        with pytest.raises(ValueError, match="telemetry"):
             Trainer(W.train_func, W.opt_func, place=pt.CPUPlace(), **kw)
+        t = _trainer(str(tmp_path / "ck"), log=str(tmp_path / "ev.jsonl"),
+                     **kw)
+        assert isinstance(t.autopilot, RecoveryController)
+        assert (t.autopilot.cfg.skip_streak,
+                t.autopilot.cfg.max_rollbacks) == (2, 2)
+        snap = t.metrics_registry().snapshot()
+        assert snap["recovery_autopilot_enabled"]["samples"][0]["value"] \
+            == 1
+        t.stop()
         return
     t = Trainer(W.train_func, W.opt_func, place=pt.CPUPlace(), **kw)
     wrapper = getattr(t.train_program, "_compiled_wrapper", None)
