@@ -434,8 +434,32 @@ Drives paddle_tpu_torch only (it imports neither jax nor paddle_tpu):
    this process; detection latency, relaunch-to-first-step, backoff and
    each rank's goodput categories logged (`chip_smoke.py --phase 6z`
    runs it alone);
-8. prints one `kernels` JSON line (the launches of every path above,
-   6l-6z and 4e-4g included), the card line, and as its last line
+8. the periphery (run after 6z), on 6e's stacked LSTM at its full
+   width: (a) 8 RecordIO shards of MultiSlot lines from the synthetic
+   imdb reader, written by the native codec, trained 2 epochs through
+   `AsyncExecutor` at 4 parser threads (16 batches an epoch, the LSTM
+   kernels 3 + 3 a step, no composed call, the epoch-2 mean loss below
+   epoch 1's); the same startup state through `AsyncExecutor` at one
+   thread and through a plain `Executor.run` loop over the parsed
+   batches, every persistable bit for bit; examples/s, device idle
+   share of a profiled window file-fed at 1 and 4 threads and fed from
+   memory, parse ms a batch and queue depths; (b) a `DeviceFeeder` over
+   a reader delayed one step at capacity 1 and 4 against N x max and
+   N x sum, whether its copies overlap kernels in a profile; every
+   batch on the card, `reader_queue_speed_test_mode` serving batch 1,
+   an injected `feeder:producer` error retried with the same losses;
+   (c) an eager step (the one-layer model's forward ops traced under
+   `imperative.guard()`): every parameter's .grad and an eager Adam
+   step within TOL_EAGER of the static program's, the LSTM kernels once
+   forward and once backward; (d) `FLAGS.check_nan_inf` naming a planted
+   NaN parameter, `FLAGS.benchmark` adding one device synchronization a
+   run, a child process under FLAGS_fraction_of_tpu_memory_to_use=0.5
+   refused an allocation over the cap; (e) `metrics.Auc` and
+   `metrics.Accuracy` over the untrained model's fetches against the
+   in-graph auc op and the fetched predictions, within TOL_METRIC
+   (`chip_smoke.py --phase 8` runs it alone);
+9. prints one `kernels` JSON line (the launches of every path above,
+   6l-6z, 4e-4g and 8 included), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -9909,6 +9933,559 @@ def phase_health(dev, card):
     return res
 
 
+# -- phase 8: the periphery (A step 12) --------------------------------------
+# file-shard training of 6e's stacked LSTM: RecordIO shards (the native
+# codec) leased to parser threads, MultiSlot parsing, the DeviceFeeder's
+# copy stream, AsyncExecutor; PyReader-style prefetch; imperative mode on
+# the card; FLAGS; host metrics against the in-graph ops
+
+FILE_SHARDS = 8
+FILE_LINES = 256             # lines a shard: 16 batches of 128 an epoch
+FILE_THREADS = 4
+FILE_EPOCHS = 2
+PREFETCH_STEPS = 8           # (b): steps at capacity 1 and at 4
+PREFETCH_RETRY_STEPS = 6     # (b): the retry check's steps, each way
+PROFILE_SHARDS = 2           # the profiled windows: 2 shards, 4 steps
+FLAG_RUNS = 3                # (d): runs with FLAGS.benchmark off, then on
+TOL_EAGER = 1e-6             # (c): eager against static, bit for bit
+#                              expected (the same ops and kernels)
+TOL_METRIC = 1e-6            # (e): host metrics against the in-graph ops
+MEM_FRACTION_CHILD = r"""
+import torch, paddle_tpu_torch as pt
+pt.Executor(pt.CUDAPlace(0))
+total = torch.cuda.get_device_properties(0).total_memory
+ok = torch.empty(int(0.3 * total), dtype=torch.uint8, device="cuda")
+del ok
+try:
+    torch.empty(int(0.6 * total), dtype=torch.uint8, device="cuda")
+except torch.cuda.OutOfMemoryError:
+    print("capped")
+else:
+    print("not capped")
+"""
+
+
+def _multislot_desc():
+    from paddle_tpu_torch.data.data_feed import DataFeedDesc
+
+    return DataFeedDesc.from_slots(
+        [{"name": "words", "type": "uint64", "dense": False,
+          "max_len": LSTM_ARCH["max_len"]},
+         {"name": "label", "type": "uint64", "dense": True, "dim": 1}],
+        batch_size=LSTM_BATCH)
+
+
+def write_imdb_shards(root):
+    """FILE_SHARDS RecordIO shards of FILE_LINES MultiSlot lines each,
+    from the synthetic imdb reader at T 128; returns the paths."""
+    from paddle_tpu_torch.data import dataset, recordio
+
+    samples = dataset.imdb.train(n=FILE_SHARDS * FILE_LINES,
+                                 max_len=LSTM_ARCH["max_len"])()
+    files = []
+    for s in range(FILE_SHARDS):
+        path = os.path.join(root, f"imdb-{s:05d}.recordio")
+        with recordio.Writer(path, max_chunk_records=64) as w:
+            for _ in range(FILE_LINES):
+                tokens, label = next(samples)
+                w.write((f"{len(tokens)} " + " ".join(map(str, tokens))
+                         + f" 1 {label}").encode())
+        files.append(path)
+    return files
+
+
+def _lstm_counts_ok(label, counts, fwd, bwd):
+    la, pl, co = counts["launches"], counts["plain"], counts["composed"]
+    want = dict.fromkeys(la, 0)
+    want.update(lstm_fwd=fwd, lstm_bwd=bwd)
+    if la != want or max(pl.values()) or max(co.values()):
+        raise AssertionError(f"{label}: launches {counts}, want {want} and "
+                             f"no plain or composed call")
+
+
+def _window_idle_share(fn, steps):
+    """Device idle share of fn() (`steps` training steps) in one profiled
+    window: 1 - kernels' device time / the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(_device_us(e) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("profiled window recorded no device time")
+    return {"wall_ms": wall_ms, "step_ms": wall_ms / steps,
+            "device_busy_ms": busy_ms, "device_idle_share":
+            1.0 - busy_ms / wall_ms}, prof
+
+
+def _copies_overlap_kernels(prof):
+    """Whether a host-to-device copy ran on the card while a kernel ran
+    (the copy stream against the step's stream), from the profile's
+    device events; also the count of each."""
+    from torch.autograd import DeviceType
+
+    copies, kerns = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "Memcpy HtoD" in e.name:
+            copies.append(span)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kerns.append(span)
+    overlap = any(c0 < k1 and k0 < c1 for c0, c1 in copies
+                  for k0, k1 in kerns)
+    return overlap, len(copies), len(kerns)
+
+
+def _feed_and_train(exe, main, loss, scope, feeder, steps):
+    """`steps` steps fed by `feeder`: (losses, wall s); every batch must
+    arrive on the executor's device (the card)."""
+    losses = []
+    t0 = time.perf_counter()
+    it = iter(feeder)
+    for _ in range(steps):
+        feed = next(it)
+        bad = [n for n, t in feed.items() if t.device != exe.device]
+        if bad:
+            raise AssertionError(f"feed {bad} not on {exe.device}")
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+        losses.append(out[0].reshape(()))
+    losses = [float(v) for v in losses]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    feeder.reset()
+    return losses, wall
+
+
+def phase_file_shards(dev, card):
+    """Phase 8 (A step 12): (a) AsyncExecutor trains the full-width
+    stacked LSTM from native-codec RecordIO shards of MultiSlot lines at
+    FILE_THREADS parser threads, bit for bit with the plain Executor loop
+    at one thread; (b) DeviceFeeder prefetch, a reader delayed one step;
+    (c) imperative mode, eager gradients and Adam against the static
+    program's; (d) FLAGS; (e) host metrics against the in-graph ops."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import imperative, layers, metrics
+    from paddle_tpu_torch.data import recordio
+    from paddle_tpu_torch.data.data_feed import MultiSlotDataFeed
+    from paddle_tpu_torch.data.pipeline import DeviceFeeder
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import chaos
+
+    log(f"phase 8: file-shard training of the stacked LSTM (batch "
+        f"{LSTM_BATCH} x {LSTM_ARCH['max_len']}, hidden "
+        f"{LSTM_ARCH['hidden_dim']}, {LSTM_ARCH['stacked_num']} layers) "
+        f"from {FILE_SHARDS} RecordIO shards; imperative mode; flags")
+    # (d)'s child process starts first and runs beside the rest
+    child = subprocess.Popen(
+        [sys.executable, "-c", MEM_FRACTION_CHILD],
+        env=dict(os.environ, FLAGS_fraction_of_tpu_memory_to_use="0.5"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    root = tempfile.mkdtemp(prefix="phase8_")
+    res = {"card": card}
+    try:
+        t0 = time.perf_counter()
+        files = write_imdb_shards(root)
+        codec = recordio.codec()
+        res["write_s"] = time.perf_counter() - t0
+        if codec != "native":
+            raise AssertionError(f"8 (a): the {codec} RecordIO codec ran")
+        desc = _multislot_desc()
+        main, startup, model = build_lstm()
+        loss, acc = model["loss"], model["accuracy"]
+        n_lstm = sum(op.type == "dynamic_lstm"
+                     for op in main.global_block().ops)
+        exe = pt.Executor(pt.CUDAPlace(0))
+        scope0 = pt.Scope()
+        exe.run(startup, scope=scope0)
+        batches = list(MultiSlotDataFeed(desc).batches(files))
+        per_epoch = FILE_SHARDS * FILE_LINES // LSTM_BATCH
+        if len(batches) != per_epoch:
+            raise AssertionError(f"8 (a): {len(batches)} batches parsed")
+
+        # -- (a) AsyncExecutor at FILE_THREADS threads, FILE_EPOCHS -----
+        scope = _clone_scope(scope0)
+        aexe = pt.AsyncExecutor(pt.CUDAPlace(0))
+        aexe.run(main, desc, files[:1], thread_num=1, fetch=[loss],
+                 scope=_clone_scope(scope0))          # warm
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        epochs = []
+        for epoch in range(FILE_EPOCHS):
+            t0 = time.perf_counter()
+            means = aexe.run(main, desc, files, thread_num=FILE_THREADS,
+                             fetch=[loss, acc], scope=scope)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = aexe.last_stats
+            epochs.append({
+                "loss": means[loss.name], "accuracy": means[acc.name],
+                "steps": st["steps"], "wall_s": wall,
+                "examples_per_s": st["steps"] * LSTM_BATCH / wall,
+                "parse_ms_per_batch":
+                    st["parse_s"] * 1e3 / max(st["parsed_batches"], 1),
+                "feeder_queue_depths": st["feeder_queue_depths"],
+                "merged_queue_depths": st["merged_queue_depths"]})
+        counts = kernels.counts()
+        steps = sum(e["steps"] for e in epochs)
+        _lstm_counts_ok("8 (a)", counts, n_lstm * steps, n_lstm * steps)
+        launches = dict(counts["launches"])
+        if any(e["steps"] != per_epoch for e in epochs):
+            raise AssertionError(f"8 (a): steps {[e['steps'] for e in epochs]}"
+                                 f", want {per_epoch} an epoch")
+        if not epochs[1]["loss"] < epochs[0]["loss"]:
+            raise AssertionError(f"8 (a): epoch losses {epochs[0]['loss']} "
+                                 f"then {epochs[1]['loss']}")
+        for i, e in enumerate(epochs):
+            log(f"  (a) epoch {i + 1}: mean loss {e['loss']:.6g}, accuracy "
+                f"{e['accuracy']:.4f}, {e['steps']} steps in "
+                f"{e['wall_s']:.3f} s, {e['examples_per_s']:.1f} examples/s "
+                f"at {FILE_THREADS} threads; parse "
+                f"{e['parse_ms_per_batch']:.2f} ms a batch; feeder queue "
+                f"depth at each get {e['feeder_queue_depths']}")
+        res["a_epochs"] = epochs
+        res["codec"] = codec
+
+        # parity: one thread against the plain Executor loop, bit for bit
+        s_async, s_plain = _clone_scope(scope0), _clone_scope(scope0)
+        t0 = time.perf_counter()
+        aexe.run(main, desc, files, thread_num=1, fetch=[loss],
+                 scope=s_async)
+        torch.cuda.synchronize()
+        one_thread_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for b in batches:
+            exe.run(main, feed=b, fetch_list=[loss], scope=s_plain)
+        torch.cuda.synchronize()
+        memory_s = time.perf_counter() - t0
+        a, b = _state(main, s_async), _state(main, s_plain)
+        diff = sorted(n for n in b if not torch.equal(a[n], b[n]))
+        if sorted(a) != sorted(b) or diff:
+            raise AssertionError(f"8 (a): one-thread AsyncExecutor against "
+                                 f"the plain loop: {diff[:6]} differ")
+        res["parity"] = {"persistables": len(b), "equal": True}
+        res["examples_per_s"] = {
+            f"async_{FILE_THREADS}_threads": epochs[-1]["examples_per_s"],
+            "async_1_thread": per_epoch * LSTM_BATCH / one_thread_s,
+            "memory_fed_numpy": per_epoch * LSTM_BATCH / memory_s}
+        log(f"  (a) one thread and the plain loop: {len(b)} persistables bit "
+            f"for bit; examples/s {res['examples_per_s']}")
+        # profiled windows: file-fed at 1 and FILE_THREADS threads, and
+        # fed from memory (numpy, as the plain loop)
+        few = files[:PROFILE_SHARDS]
+        n_few = PROFILE_SHARDS * FILE_LINES // LSTM_BATCH
+        win = {}
+        for threads in (1, FILE_THREADS):
+            win[f"async_{threads}"], _ = _window_idle_share(
+                lambda t=threads: aexe.run(main, desc, few, thread_num=t,
+                                           fetch=[loss], scope=s_async),
+                n_few)
+
+        def memory_fed():
+            for bt in batches[:n_few]:
+                exe.run(main, feed=bt, fetch_list=[loss], scope=s_plain)
+
+        win["memory_fed"], _ = _window_idle_share(memory_fed, n_few)
+        res["idle_share"] = win
+        for k, v in win.items():
+            log(f"  (a) profiled window, {k}: {v['step_ms']:.2f} ms a step, "
+                f"device idle share {v['device_idle_share']:.3f}")
+
+        # -- (b) DeviceFeeder prefetch against a reader delayed a step --
+        step_s = win["memory_fed"]["step_ms"] / 1e3
+        dev_batches = batches[:PREFETCH_STEPS]
+
+        def delayed():
+            for bt in dev_batches:
+                time.sleep(step_s)
+                yield bt
+
+        pre = {}
+        for cap in (1, 4):
+            sc = _clone_scope(scope0)
+            feeder = DeviceFeeder(delayed, capacity=cap,
+                                  device=pt.CUDAPlace(0))
+            _, wall = _feed_and_train(exe, main, loss, sc, feeder,
+                                      PREFETCH_STEPS)
+            pre[f"capacity_{cap}_s"] = wall
+        n = PREFETCH_STEPS
+        pre["n_max_delay_step_s"] = n * step_s
+        pre["n_delay_plus_step_s"] = 2 * n * step_s
+        feeder = DeviceFeeder(lambda: iter(dev_batches), capacity=4,
+                              device=pt.CUDAPlace(0))
+        sc = _clone_scope(scope0)
+        _, prof = _window_idle_share(
+            lambda: _feed_and_train(exe, main, loss, sc, feeder, 4), 4)
+        pre["copies_overlap_kernels"], pre["copies"], pre["kernels"] = \
+            _copies_overlap_kernels(prof)
+        log(f"  (b) {n} steps with a reader delayed {step_s * 1e3:.2f} ms "
+            f"a batch: capacity 1 {pre['capacity_1_s']:.3f} s, capacity 4 "
+            f"{pre['capacity_4_s']:.3f} s; N x max(delay, step) "
+            f"{pre['n_max_delay_step_s']:.3f} s, N x (delay + step) "
+            f"{pre['n_delay_plus_step_s']:.3f} s; copies overlap kernels: "
+            f"{pre['copies_overlap_kernels']} ({pre['copies']} copies)")
+        # speed-test mode serves the first batch again and again
+        FLAGS.reader_queue_speed_test_mode = True
+        try:
+            it = iter(DeviceFeeder(lambda: iter(dev_batches), capacity=2,
+                                   device=pt.CUDAPlace(0)))
+            served = [next(it) for _ in range(5)]
+            it.reset()
+        finally:
+            FLAGS.reader_queue_speed_test_mode = False
+        first = served[0]["words"]
+        if not all(s["words"] is first for s in served):
+            raise AssertionError("8 (b): speed-test mode served another batch")
+        # a transient producer error is retried: the same losses
+        runs = []
+        for inject in (False, True):
+            if inject:
+                chaos.arm("feeder:producer", times=1)
+            feeder = DeviceFeeder(lambda: iter(dev_batches), capacity=2,
+                                  device=pt.CUDAPlace(0),
+                                  retryable=(chaos.ChaosKilled,),
+                                  backoff_s=0.001)
+            losses, _ = _feed_and_train(exe, main, loss, _clone_scope(scope0),
+                                        feeder, PREFETCH_RETRY_STEPS)
+            chaos.clear()
+            runs.append((losses, feeder.retries))
+        if runs[1][1] != 1 or runs[0][0] != runs[1][0]:
+            raise AssertionError(f"8 (b): retry run {runs[1]} against {runs[0]}")
+        pre["retry"] = {"retries": runs[1][1], "losses_equal": True}
+        log("  (b) every batch on cuda:0; speed-test mode served batch 1 five "
+            "times; one injected producer error retried, losses bit for bit")
+        res["prefetch"] = pre
+
+        # -- (c) imperative mode on the card --------------------------------
+        res["imperative"], eager_launches = _eager_on_card(
+            dev, pt, imperative, batches[0])
+        for k, v in eager_launches.items():
+            launches[k] += v
+
+        # -- (d) flags -------------------------------------------------------
+        res["flags"] = _flags_on_card(exe, main, startup, loss, scope0,
+                                      batches[0], child)
+        child = None
+
+        # -- (e) host metrics against the in-graph ops ------------------------
+        # on the untrained model: (a)'s trained one ranks every example
+        # right (AUC 1), which would hold the two AUCs to nothing
+        res["metrics"] = _metrics_on_card(exe, main, loss, acc,
+                                          _clone_scope(scope0), batches,
+                                          layers, metrics)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if child is not None:
+            child.kill()
+            child.communicate()
+    res["launches"] = launches
+    log(f"  8 launches {launches}")
+    return res
+
+
+def _eager_on_card(dev, pt, imperative, batch):
+    """8 (c): 6e's model at one LSTM layer, its forward ops traced eagerly
+    under imperative.guard() on the card from the static program's
+    startup values: every parameter's .grad against the static program's
+    gradients (one Executor step that also applies Adam), the LSTM
+    kernels once forward and once backward, and an eager AdamOptimizer
+    step against the static update."""
+    from paddle_tpu_torch.ops import kernels
+
+    main, startup, model = build_lstm(stacked_num=1)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.all_parameters()]
+    start = {n: scope.find_var(n).clone() for n in params}
+    from paddle_tpu_torch.ops.common import to_torch_dtype
+
+    block = main.global_block()
+    feed = {n: torch.as_tensor(a).to(
+        device=dev, dtype=to_torch_dtype(block.var(n).dtype))
+        for n, a in batch.items()}
+    outs = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                   fetch_list=[model["loss"]] + [f"{n}@GRAD" for n in params])
+    static_grads = dict(zip(params, outs[1:]))
+    static_new = {n: scope.find_var(n) for n in params}
+    k = main._backward_info["index"]
+    fwd = main.global_block().ops[:k]
+    types = [op.type for op in fwd]
+    for need in ("lookup_table", "mul", "dynamic_lstm", "sequence_pool",
+                 "softmax", "cross_entropy", "mean"):
+        if need not in types:
+            raise AssertionError(f"8 (c): no {need} in the forward {types}")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with imperative.guard():
+        env = {n: imperative.to_variable(start[n]) for n in params}
+        for n, t in feed.items():
+            env[n] = imperative.to_variable(t, stop_gradient=True)
+        for op in fwd:
+            slots = list(op.desc.outputs)
+            got = imperative.trace_op(
+                op.type, {s: [env[x] for x in names]
+                          for s, names in op.desc.inputs.items()},
+                dict(op.desc.attrs), out_slots=slots)
+            got = got if isinstance(got, list) else [got]
+            names = [x for s in slots for x in op.desc.outputs[s]]
+            env.update(zip(names, got))
+        root = env[model["loss"].name]
+        root.backward()
+        counts = kernels.counts()
+        _lstm_counts_ok("8 (c) eager step", counts, 1, 1)
+        grad_err = {n: float((env[n].grad - static_grads[n]).abs().max())
+                    for n in params}
+        opt = imperative.AdamOptimizer(learning_rate=LSTM_ARCH[
+            "learning_rate"])
+        opt.step([env[n] for n in params])
+        upd_err = {n: float((env[n].value - static_new[n]).abs().max())
+                   for n in params}
+    bad = {n: e for n, e in {**grad_err, **upd_err}.items()
+           if not e <= TOL_EAGER}
+    if bad:
+        raise AssertionError(f"8 (c): eager against static beyond "
+                             f"{TOL_EAGER}: {bad}")
+    res = {"params": len(params), "max_grad_err": max(grad_err.values()),
+           "max_adam_err": max(upd_err.values()),
+           "bit_equal_grads": sum(e == 0.0 for e in grad_err.values()),
+           "launches": counts["launches"]}
+    log(f"  (c) eager step on the card: {len(params)} parameters' .grad "
+        f"within {res['max_grad_err']:.3g} of the static program's "
+        f"({res['bit_equal_grads']} bit for bit), Adam within "
+        f"{res['max_adam_err']:.3g}; LSTM kernels once forward, once "
+        f"backward")
+    return res, counts["launches"]
+
+
+def _flags_on_card(exe, main, startup, loss, scope0, batch, child):
+    """8 (d): check_nan_inf names a planted NaN parameter; FLAGS.benchmark
+    adds one device synchronization a run; the memory fraction caps a
+    child process's allocator."""
+    from paddle_tpu_torch.flags import FLAGS
+
+    res = {}
+    test_prog = main.clone(for_test=True)
+    sc = _clone_scope(scope0)
+    victim = main.all_parameters()[-1].name
+    val = sc.find_var(victim).clone()
+    val.view(-1)[0] = float("nan")
+    sc.set_var(victim, val)
+    FLAGS.check_nan_inf = True
+    try:
+        exe.run(test_prog, feed=batch, fetch_list=[], scope=sc)
+    except FloatingPointError as e:
+        if repr(victim) not in str(e):
+            raise AssertionError(f"8 (d): check_nan_inf named {e}, not "
+                                 f"{victim!r}")
+        res["check_nan_inf"] = str(e)
+    else:
+        raise AssertionError("8 (d): check_nan_inf did not raise")
+    finally:
+        FLAGS.check_nan_inf = False
+    sc = _clone_scope(scope0)
+    exe.run(main, feed=batch, fetch_list=[loss], scope=sc)
+    syncs, device_syncs = {}, {}
+    plain_sync = torch.cuda.synchronize
+
+    def counted_sync(*a, **k):
+        device_syncs[on] += 1
+        return plain_sync(*a, **k)
+
+    torch.cuda.synchronize = counted_sync
+    try:
+        for on in (False, True):
+            FLAGS.benchmark = on
+            device_syncs[on] = 0
+            syncs[on] = _sync_warnings(lambda: [
+                exe.run(main, feed=batch, fetch_list=[loss], scope=sc,
+                        return_numpy=False) for _ in range(FLAG_RUNS)])
+    finally:
+        FLAGS.benchmark = False
+        torch.cuda.synchronize = plain_sync
+    # the synchronizations the sync-debug mode reports (6z (c)'s count);
+    # a device-wide torch.cuda.synchronize counted where it reports none
+    extra = len(syncs[True]) - len(syncs[False])
+    explicit = device_syncs[True] - device_syncs[False]
+    res["benchmark_syncs"] = {"off": len(syncs[False]),
+                              "on": len(syncs[True]),
+                              "device_synchronize_on": explicit,
+                              "lines_on": sorted(set(syncs[True]))}
+    if not (extra == FLAG_RUNS or (extra == 0 and explicit == FLAG_RUNS)):
+        raise AssertionError(f"8 (d): FLAGS.benchmark added {extra} "
+                             f"reported and {explicit} device syncs over "
+                             f"{FLAG_RUNS} runs: {res}")
+    try:
+        out, err = child.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise AssertionError("8 (d): the memory-fraction child hung")
+    res["memory_fraction_child"] = out.strip()
+    if child.returncode != 0 or out.strip() != "capped":
+        raise AssertionError(f"8 (d): memory-fraction child rc "
+                             f"{child.returncode}: {out} {err[-1500:]}")
+    log(f"  (d) check_nan_inf: {res['check_nan_inf']}; FLAGS.benchmark: "
+        f"{res['benchmark_syncs']['off']} then "
+        f"{res['benchmark_syncs']['on']} reported host syncs, "
+        f"{explicit} device syncs added over {FLAG_RUNS} runs; "
+        f"FLAGS_fraction_of_tpu_memory_to_use=0.5 child: {out.strip()}")
+    return res
+
+
+def _metrics_on_card(exe, main, loss, acc, scope, batches, layers,
+                     metrics):
+    """8 (e): metrics.Auc and metrics.Accuracy over the model's fetches
+    on the card (softmax and batch accuracy) against the in-graph auc
+    op's streaming AUC and the accuracy of the fetched predictions."""
+    import paddle_tpu_torch as pt
+
+    test_prog = main.clone(for_test=True)
+    block = test_prog.global_block()
+    ce = [op for op in block.ops if op.type == "cross_entropy"][0]
+    predict = block.var(ce.desc.inputs["X"][0])
+    label = block.var(ce.desc.inputs["Label"][0])
+    startup = pt.Program()
+    with pt.program_guard(test_prog, startup):
+        auc_out, _ = layers.auc(input=predict, label=label)
+    exe.run(startup, scope=scope)
+    m_auc, m_acc = metrics.Auc(), metrics.Accuracy()
+    correct = total = 0
+    for b in batches:
+        p, a, g = exe.run(test_prog, feed=b, scope=scope,
+                          return_numpy=False,
+                          fetch_list=[predict, acc, auc_out])
+        m_auc.update(p, b["label"])
+        m_acc.update(a, LSTM_BATCH)
+        pred = p.argmax(-1).cpu().numpy()
+        correct += int((pred == b["label"].reshape(-1)).sum())
+        total += LSTM_BATCH
+    graph_auc = float(g.reshape(-1)[0])
+    res = {"auc_host": m_auc.eval(), "auc_graph": graph_auc,
+           "accuracy_host": m_acc.eval(), "accuracy_fetched": correct / total}
+    if not (abs(res["auc_host"] - graph_auc) <= TOL_METRIC
+            and abs(res["accuracy_host"] - correct / total) <= TOL_METRIC):
+        raise AssertionError(f"8 (e): host metrics against the graph: {res}")
+    log(f"  (e) AUC host {res['auc_host']:.7f} graph {graph_auc:.7f}; "
+        f"accuracy host {res['accuracy_host']:.7f}, of the fetched "
+        f"predictions {correct / total:.7f}")
+    return res
+
+
+
 def phase_alone(label) -> int:
     """`chip_smoke.py --phase <label>` (PHASES_ALONE): the kernels built
     and that phase alone; its summary to OUT_DIR/<json name>, the card
@@ -9935,7 +10512,8 @@ def phase_alone(label) -> int:
 PHASES_ALONE = {"6w": (phase_data_parallel, "data_parallel.json"),
                 "6x": (phase_model_axes, "model_axes.json"),
                 "6y": (phase_cost_planes, "cost_planes.json"),
-                "6z": (phase_health, "health.json")}
+                "6z": (phase_health, "health.json"),
+                "8": (phase_file_shards, "file_shards.json")}
 
 
 def main() -> int:
@@ -10086,6 +10664,7 @@ def main() -> int:
     data_parallel = timed("6w", phase_data_parallel, dev, card)
     model_axes = timed("6x", phase_model_axes, dev, card)
     health = timed("6z", phase_health, dev, card)
+    file_shards = timed("8", phase_file_shards, dev, card)
 
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     vc = "paddle_tpu/ops/pallas/vocab_ce.py"
@@ -10137,7 +10716,7 @@ def main() -> int:
              train_guard, train_trainer, train_accum, train_accum_amp,
              train_recompute, train_optimizers, control_flow, moe, qat_int8,
              detection, fleet, serving_engine, disagg, data_parallel,
-             model_axes, cost_planes, health)
+             model_axes, cost_planes, health, file_shards)
     launches = {k: sum(p["launches"].get(k, 0) for p in paths)
                 for k in replaces}
     kern = []
@@ -10201,6 +10780,7 @@ def main() -> int:
                    "model_axes": model_axes,
                    "cost_planes": cost_planes,
                    "health": health,
+                   "file_shards": file_shards,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -48,16 +48,31 @@ class CUDAPlace:
         return hash(("CUDAPlace", self.device_id))
 
 
+# Alias so scripts written for paddle_tpu's TPUPlace run on the card
+# (the reference aliases the other way, paddle_tpu/__init__.py:72).
+TPUPlace = CUDAPlace
+
+
 def is_compiled_with_cuda() -> bool:
     import torch
 
     return torch.backends.cuda.is_built()
 
 
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
 from . import amp  # noqa: E402,F401
+from . import async_executor  # noqa: E402,F401
 from . import clip  # noqa: E402,F401
 from . import contrib  # noqa: E402,F401
 from . import data  # noqa: E402,F401
+from . import debugger  # noqa: E402,F401
+from . import evaluator  # noqa: E402,F401
+from . import flags  # noqa: E402,F401
+from . import imperative  # noqa: E402,F401
+from . import metrics  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
 from . import inference  # noqa: E402,F401
 from . import io  # noqa: E402,F401
@@ -72,6 +87,7 @@ from . import quantize as quantize_module  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import resilience  # noqa: E402,F401
 from . import serving  # noqa: E402,F401
+from .async_executor import AsyncExecutor  # noqa: E402,F401
 from .core import unique_name  # noqa: E402,F401
 from .core.backward import append_backward, gradients  # noqa: E402,F401
 from .core.executor import (Executor, Scope, global_scope,  # noqa: E402,F401
@@ -81,9 +97,12 @@ from .core.program import (Block, Operator, Parameter,  # noqa: E402,F401
                            default_startup_program, name_scope,
                            pipeline_scope, pipeline_segment,
                            program_guard, recompute_scope)
+from .data.data_feed import DataFeedDesc  # noqa: E402,F401
+from .data.data_feeder import DataFeeder  # noqa: E402,F401
+from .flags import FLAGS  # noqa: E402,F401
 from .inference import (AnalysisConfig, Predictor,  # noqa: E402,F401
                         create_paddle_predictor)
-from .param_attr import ParamAttr  # noqa: E402,F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: E402,F401
 from .parallel.compiler import (BuildStrategy,  # noqa: E402,F401
                                 CompiledProgram, ExecutionStrategy)
 from .parallel.parallel_executor import ParallelExecutor  # noqa: E402,F401

@@ -200,7 +200,13 @@ def place_device(place) -> torch.device:
             raise RuntimeError(
                 f"{place!r} requested (the default place) but CUDA is not "
                 f"available; pass CPUPlace() to run on the CPU")
-        return torch.device("cuda", place.device_id)
+        device = torch.device("cuda", place.device_id)
+        # FLAGS.fraction_of_tpu_memory_to_use, when set, caps the
+        # allocator at the first device use (flags.py)
+        from ..flags import apply_memory_fraction
+
+        apply_memory_fraction(device)
+        return device
     raise TypeError(f"unknown place {place!r}; use CPUPlace() or "
                     f"CUDAPlace(id)")
 
@@ -949,6 +955,36 @@ def _to_numpy(t):
     return t.numpy()
 
 
+def _debug_checks(program, fetch_names, fetches, scope, device):
+    """After a run (reference: paddle_tpu/core/executor.py:1066-1086
+    `_debug_checks`, called at :1185).  FLAGS.check_nan_inf: every
+    floating fetch and every persistable the run wrote back (operator.cc:
+    943 under FLAGS_check_nan_inf) is tested on the device with one
+    `isfinite().all()` each, the flags stacked and read to the host once;
+    the first var holding a NaN/Inf is named in a FloatingPointError.
+    Otherwise FLAGS.benchmark blocks until the card has run the step
+    (operator.cc:940): one `torch.cuda.synchronize`."""
+    from ..flags import FLAGS
+
+    if FLAGS.check_nan_inf:
+        named = [("fetched", n, f) for n, f in zip(fetch_names, fetches)]
+        named += [("persistable", v.name, scope.find_var(v.name))
+                  for v in program.global_block().vars.values()
+                  if v.persistable]
+        named = [(kind, n, t) for kind, n, t in named
+                 if isinstance(t, torch.Tensor) and t.is_floating_point()]
+        if not named:
+            return
+        finite = torch.stack([t.detach().isfinite().all().to(device)
+                              for _, _, t in named]).cpu()
+        for ok, (kind, n, _) in zip(finite.tolist(), named):
+            if not ok:
+                raise FloatingPointError(
+                    f"NaN/Inf detected in {kind} var {n!r}")
+    elif FLAGS.benchmark and device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class Executor:
     """Run programs on one device (reference: python/paddle/fluid/
     executor.py:445 Executor.run and paddle/fluid/framework/executor.cc).
@@ -1041,6 +1077,7 @@ class Executor:
         if dp is not None:
             fetches = [dp.fetch_value(n, f)
                        for n, f in zip(fetch_names, fetches)]
+        _debug_checks(program, fetch_names, fetches, scope, self.device)
         if return_numpy:
             # numpy has no bf16: a bf16 fetch (an AMP program's
             # intermediate) comes back widened, exactly, to float32
@@ -1137,13 +1174,16 @@ class Executor:
                                   scope=scope).cost_analysis()
 
     def _to_tensor(self, value, block, name):
-        if isinstance(value, torch.Tensor):
-            return value.to(self.device)
-        arr = np.asarray(value)
-        if block.has_var(name):
-            from ..ops.common import to_torch_dtype
+        """A fed value on the run's device, in its var's runtime dtype
+        when the block declares it (a tensor too: a DeviceFeeder batch
+        arrives as int64 where the var runs int32, as numpy does)."""
+        from ..ops.common import to_torch_dtype
 
-            return torch.as_tensor(arr).to(
-                device=self.device,
-                dtype=to_torch_dtype(block.var(name).dtype))
+        dtype = (to_torch_dtype(block.var(name).dtype)
+                 if block.has_var(name) else None)
+        if isinstance(value, torch.Tensor):
+            return value.to(device=self.device, dtype=dtype)
+        arr = np.asarray(value)
+        if dtype is not None:
+            return torch.as_tensor(arr).to(device=self.device, dtype=dtype)
         return torch.as_tensor(arr, device=self.device)

@@ -575,22 +575,21 @@ def save_sharded(executor: Executor, dirname: str,
 # agrees across processes.
 _barrier_seq = 0
 
-# the reference's FLAGS.ckpt_barrier_timeout_s default
-DEFAULT_BARRIER_TIMEOUT_S = 600.0
-
-
 def barrier_timeout_s() -> float:
     """Checkpoint-barrier timeout (seconds): generous — a slow peer
     flushing a big shard is normal; a dead one should fail in minutes,
-    not hang the job.  The env PADDLE_TPU_CKPT_BARRIER_TIMEOUT_S wins
-    when set, as in the reference."""
+    not hang the job.  The knob is FLAGS.ckpt_barrier_timeout_s, read
+    at each call; the legacy env PADDLE_TPU_CKPT_BARRIER_TIMEOUT_S wins
+    when set, as in the reference (paddle_tpu/io.py:483-494)."""
     legacy = os.environ.get("PADDLE_TPU_CKPT_BARRIER_TIMEOUT_S")
     if legacy is not None:
         try:
             return float(legacy)
         except ValueError:
             pass
-    return DEFAULT_BARRIER_TIMEOUT_S
+    from .flags import FLAGS
+
+    return float(FLAGS.ckpt_barrier_timeout_s)
 
 
 def _dist_store():

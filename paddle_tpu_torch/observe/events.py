@@ -126,13 +126,17 @@ DISAGG_EVENTS = (
     "autoscale_down",             # Autoscaler removed one after quiet_s
 )
 
-# input admission (Trainer(validate_feed=True)); the reference's
-# DeviceFeeder kinds `feeder_retry` and `feeder_stall` come with it
-# (ROADMAP A step 12)
+# input-pipeline resilience event kinds (data/pipeline.py DeviceFeeder
+# hardening + Trainer(validate_feed=True) admission checks)
 FEED_EVENTS = (
+    "feeder_retry",       # transient producer error: bounded
+    #                       backoff retry (attempt, produced count)
+    "feeder_stall",       # LOUD: the producer starved the queue past
+    #                       stall_timeout_s — queue depth attached,
+    #                       instead of the loop blocking silently
     "feed_quarantined",   # admission rejected a poisoned batch
-    #                       (non-finite / signature drift) before it
-    #                       reached the device
+    #                       (non-finite / signature drift) before any
+    #                       host→device copy was spent on it
 )
 
 # divergence-autopilot event kinds: the anomaly-triggered

@@ -31,9 +31,6 @@ from typing import Dict, Optional
 
 import numpy as np
 
-# the bootstrap wait (the reference's FLAGS_rpc_deadline, 180000 ms)
-DEFAULT_TIMEOUT_S = 180.0
-
 # set (to "1") by a Supervisor that hosts the store: no trainer serves it
 COORDINATOR_HOSTED_ENV = "PADDLE_COORDINATOR_HOSTED"
 
@@ -51,7 +48,7 @@ def init_distributed(trainer_id: Optional[int] = None,
                      coordinator: Optional[str] = None,
                      local_device_ids=None, health: bool = True,
                      place=None, backend: Optional[str] = None,
-                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     timeout_s: Optional[float] = None,
                      coordinator_hosted: Optional[bool] = None):
     """Bootstrap the multi-trainer runtime (the gen_nccl_id analog).
 
@@ -120,6 +117,12 @@ def init_distributed(trainer_id: Optional[int] = None,
                else trainer_id % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     host, port = coordinator.rsplit(":", 1)
+    if timeout_s is None:
+        # the reference bounds its bootstrap with FLAGS.rpc_deadline
+        # (ms; paddle_tpu/parallel/dist.py:76)
+        from ..flags import FLAGS
+
+        timeout_s = FLAGS.rpc_deadline / 1000.0
     timeout = timedelta(seconds=float(timeout_s))
     is_master = trainer_id == 0 and not coordinator_hosted
     _store = dist.TCPStore(host, int(port), num_trainers,

@@ -100,19 +100,6 @@ COORDINATOR_RANK = 0
 STORE_ERRORS = (_dist.DistError, OSError)
 
 
-def flag_default(name: str, default):
-    """A default of the reference's flag table (paddle_tpu/flags.py),
-    overridden by the env variable FLAGS_<name> as there."""
-    env = os.environ.get(f"FLAGS_{name}")
-    return default if env is None else type(default)(env)
-
-
-# the reference's flag defaults (flags.py:119-128)
-HEARTBEAT_INTERVAL_S = flag_default("heartbeat_interval_s", 1.0)
-HEARTBEAT_MISS_BUDGET = flag_default("heartbeat_miss_budget", 5)
-GANG_STALL_TIMEOUT_S = flag_default("gang_stall_timeout_s", 0.0)
-
-
 def kv_client():
     """The store `parallel.init_distributed` opened, or None
     single-process."""
@@ -148,9 +135,10 @@ def _loads(raw: bytes):
 
 
 class HealthConfig:
-    """Detection windows, defaulting from the reference's flag table
-    (`HEARTBEAT_INTERVAL_S`, `HEARTBEAT_MISS_BUDGET`,
-    `GANG_STALL_TIMEOUT_S`, each overridable by its FLAGS_<name> env).
+    """Detection windows, defaulting to FLAGS.heartbeat_interval_s,
+    FLAGS.heartbeat_miss_budget and FLAGS.gang_stall_timeout_s as they
+    are when the config is built (paddle_tpu/resilience/health.py:
+    107-114).
 
     miss_window_s = interval_s * miss_budget: a peer silent that long
     is lost.  startup_grace_s covers peers that have not published
@@ -165,12 +153,14 @@ class HealthConfig:
                  startup_grace_s: Optional[float] = None,
                  skew_report_every: int = 20,
                  slow_factor: float = 2.0):
-        self.interval_s = float(HEARTBEAT_INTERVAL_S
+        from ..flags import FLAGS
+
+        self.interval_s = float(FLAGS.heartbeat_interval_s
                                 if interval_s is None else interval_s)
-        self.miss_budget = int(HEARTBEAT_MISS_BUDGET
+        self.miss_budget = int(FLAGS.heartbeat_miss_budget
                                if miss_budget is None else miss_budget)
         self.stall_timeout_s = float(
-            GANG_STALL_TIMEOUT_S if stall_timeout_s is None
+            FLAGS.gang_stall_timeout_s if stall_timeout_s is None
             else stall_timeout_s)
         if self.interval_s <= 0:
             raise ValueError("heartbeat interval must be > 0")

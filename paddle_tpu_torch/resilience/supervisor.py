@@ -48,15 +48,8 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 from .errors import GangFailedError
-from .health import PEER_LOST_EXIT_CODE, flag_default
+from .health import PEER_LOST_EXIT_CODE
 from .preempt import PREEMPT_EXIT_CODE
-
-# the reference's flag defaults (flags.py:132-142), each overridable by
-# its FLAGS_<name> env variable
-SUPERVISOR_GRACE_S = flag_default("supervisor_grace_s", 10.0)
-SUPERVISOR_MAX_RESTARTS = flag_default("supervisor_max_restarts", 3)
-SUPERVISOR_BACKOFF_BASE_S = flag_default("supervisor_backoff_base_s", 1.0)
-SUPERVISOR_BACKOFF_MAX_S = flag_default("supervisor_backoff_max_s", 30.0)
 
 
 def classify_exit(rc: Optional[int]) -> str:
@@ -159,15 +152,19 @@ class Supervisor:
         self.num_workers = int(num_workers)
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
-        self.max_restarts = int(SUPERVISOR_MAX_RESTARTS
+        # the flags as they are when the supervisor is built
+        # (paddle_tpu/resilience/supervisor.py:151-166)
+        from ..flags import FLAGS
+
+        self.max_restarts = int(FLAGS.supervisor_max_restarts
                                 if max_restarts is None else max_restarts)
-        self.grace_s = float(SUPERVISOR_GRACE_S
+        self.grace_s = float(FLAGS.supervisor_grace_s
                              if grace_s is None else grace_s)
         self.backoff_base_s = float(
-            SUPERVISOR_BACKOFF_BASE_S if backoff_base_s is None
+            FLAGS.supervisor_backoff_base_s if backoff_base_s is None
             else backoff_base_s)
         self.backoff_max_s = float(
-            SUPERVISOR_BACKOFF_MAX_S if backoff_max_s is None
+            FLAGS.supervisor_backoff_max_s if backoff_max_s is None
             else backoff_max_s)
         self.env = dict(env or {})
         self.log_dir = log_dir
@@ -404,10 +401,10 @@ def main(argv=None) -> int:
                     help="gang size (ranks)")
     ap.add_argument("--max-restarts", type=int, default=None,
                     help="relaunch budget (default "
-                         "SUPERVISOR_MAX_RESTARTS)")
+                         "FLAGS.supervisor_max_restarts)")
     ap.add_argument("--grace-s", type=float, default=None,
                     help="SIGTERM->SIGKILL grace for a broken gang's "
-                         "survivors (default SUPERVISOR_GRACE_S)")
+                         "survivors (default FLAGS.supervisor_grace_s)")
     ap.add_argument("--backoff-base-s", type=float, default=None)
     ap.add_argument("--backoff-max-s", type=float, default=None)
     ap.add_argument("--log-dir", default=None,

@@ -168,7 +168,8 @@ def test_monitor_matches_reference(name):
 
 
 def test_health_config_defaults_are_the_reference_flags():
-    """The port keeps the reference's flag defaults as constants."""
+    """The port's HealthConfig and Supervisor default to its FLAGS,
+    whose defaults are the reference's."""
     from paddle_tpu.flags import FLAGS
     from paddle_tpu_torch.resilience import supervisor
 
@@ -177,10 +178,9 @@ def test_health_config_defaults_are_the_reference_flags():
             c.poll_interval_s, c.startup_grace_s) == (
         FLAGS.heartbeat_interval_s, FLAGS.heartbeat_miss_budget,
         FLAGS.gang_stall_timeout_s, 1.0, 5.0)
-    assert (supervisor.SUPERVISOR_GRACE_S,
-            supervisor.SUPERVISOR_MAX_RESTARTS,
-            supervisor.SUPERVISOR_BACKOFF_BASE_S,
-            supervisor.SUPERVISOR_BACKOFF_MAX_S) == (
+    sup = supervisor.Supervisor(["true"], 1)
+    assert (sup.grace_s, sup.max_restarts, sup.backoff_base_s,
+            sup.backoff_max_s) == (
         FLAGS.supervisor_grace_s, FLAGS.supervisor_max_restarts,
         FLAGS.supervisor_backoff_base_s, FLAGS.supervisor_backoff_max_s)
     with pytest.raises(ValueError):
